@@ -12,6 +12,12 @@ Hq % Hkv == 0 (GQA).
   dsa_decode_block_attention  block-gather decode over the selected cache
                               blocks; the plain twin of kernels.dsa_decode
                               (K1).
+  dsa_decode_paged_block_attention
+                              the same over a flat page pool; the plain
+                              twin of kernels.dsa_decode_paged (K4).
+  chunk_attention             C chunk queries against a cache prefix.
+  dsa_chunk_block_attention   block-gather chunk prefill; the plain twin
+                              of kernels.dsa_chunk_prefill (K3).
 
 dtypes follow jnp's promotion: a bf16 query against an f32 cache computes
 and returns f32, as in the JAX reference.
@@ -189,3 +195,99 @@ def dsa_decode_block_attention(q, k_cache, v_cache, idx, idx_valid, *,
     s = torch.where(m[:, None, None, None], s, NEG)
     p = _softmax_f32(s)
     return _gqa_out(p.to(vs.dtype), vs)
+
+
+def dsa_decode_paged_block_attention(q, k_pool, v_pool, idx, pidx,
+                                     idx_valid, *, block_k: int,
+                                     kv_len: torch.Tensor) -> torch.Tensor:
+    """Paged twin of ``dsa_decode_block_attention``: the cache is a flat
+    physical page pool shared by all slots.
+
+    q: (B, 1, Hq, hd); k/v pool: (P*block_k, Hkv, hd), page p owning rows
+    [p*block_k, (p+1)*block_k); idx: (B, nb) selected LOGICAL blocks (they
+    carry the key positions); pidx: (B, nb) the same selection as physical
+    pages.  Gathers page pidx and masks from the logical positions, so a
+    pool whose mapped pages hold the dense cache's blocks gives
+    ``dsa_decode_block_attention`` on that cache.
+    """
+    b = q.shape[0]
+    hkv, hd = k_pool.shape[1], k_pool.shape[2]
+    nb = idx.shape[-1]
+    kb = k_pool.reshape(-1, block_k, hkv, hd)
+    vb = v_pool.reshape(-1, block_k, hkv, v_pool.shape[-1])
+    ks = kb[pidx.long()].reshape(b, nb * block_k, hkv, hd)
+    vs = vb[pidx.long()].reshape(b, nb * block_k, hkv, -1)
+    kpos = (idx.long()[:, :, None] * block_k + torch.arange(
+        block_k, device=q.device)[None, None, :]).reshape(b, nb * block_k)
+    m = idx_valid[:, :, None].expand(b, nb, block_k).reshape(b, nb * block_k)
+    m = m & (kpos < kv_len[:, None])
+    s = _gqa_scores(q, ks)                          # (B,Hkv,G,1,nb*Bk)
+    s = torch.where(m[:, None, None, None], s, NEG)
+    p = _softmax_f32(s)
+    return _gqa_out(p.to(vs.dtype), vs)
+
+
+def chunk_attention(q, k_cache, v_cache, q_pos: torch.Tensor, *,
+                    token_mask: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Chunk-append attention: C fresh queries against a cache prefix.
+
+    q: (B, C, Hq, hd); k/v cache: (B, S, Hkv, hd), sliced by the caller to
+    the selection geometry (the prompt bucket); q_pos: (B, C) global query
+    positions.  Key row j is visible to query (b, i) iff j <= q_pos[b, i]:
+    whole-prompt prefill's causal mask restricted to these rows.
+    token_mask: optional (B, C, S) DSA keep mask applied on top.
+    """
+    s_len = k_cache.shape[1]
+    s = _gqa_scores(q, k_cache)                        # (B,Hkv,G,C,S)
+    kj = torch.arange(s_len, device=q.device)[None, None, :]
+    m = kj <= q_pos[:, :, None]                        # (B, C, S)
+    s = torch.where(m[:, None, None], s, NEG)
+    if token_mask is not None:
+        s = torch.where(token_mask[:, None, None], s, NEG)
+    p = _softmax_f32(s)
+    return _gqa_out(p.to(v_cache.dtype), v_cache)
+
+
+def dsa_chunk_block_attention(q, k_cache, v_cache, idx, idx_valid, *,
+                              block_q: int, block_k: int,
+                              q_offset: torch.Tensor,
+                              kv_len: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Block-gather DSA chunk prefill.
+
+    q: (B, C, Hq, hd) chunk queries; k/v cache: (B, S, Hkv, hd); idx/ok:
+    (B, C/block_q, nb) selected cache blocks per chunk query block;
+    q_offset: (B,) the chunk's global start; kv_len: optional (B,) valid
+    cache rows.  Per query block: the gather + masked softmax of
+    ``dsa_sparse_attention`` with the query positions shifted by q_offset.
+    """
+    b, c, hq, hd = q.shape
+    s_len = k_cache.shape[1]
+    nb = idx.shape[-1]
+    n_kb = -(-s_len // block_k)
+    pad = n_kb * block_k - s_len
+    if pad:
+        k_cache = torch.nn.functional.pad(k_cache, (0, 0, 0, 0, 0, pad))
+        v_cache = torch.nn.functional.pad(v_cache, (0, 0, 0, 0, 0, pad))
+    dev = q.device
+    outs = []
+    for qb_i in range(c // block_q):
+        qc = q[:, qb_i * block_q:(qb_i + 1) * block_q]
+        ib = idx[:, qb_i]
+        ks = _gather_blocks(k_cache, ib, block_k)
+        vs = _gather_blocks(v_cache, ib, block_k)
+        s = _gqa_scores(qc, ks)                   # (B,Hkv,G,Bq,nb*Bk)
+        kpos = (ib.long()[:, :, None] * block_k + torch.arange(
+            block_k, device=dev)[None, None, :]).reshape(b, nb * block_k)
+        qpos = (q_offset.long()[:, None] + qb_i * block_q
+                + torch.arange(block_q, device=dev)[None, :])   # (B, Bq)
+        ok = idx_valid[:, qb_i, :, None].expand(b, nb, block_k).reshape(
+            b, nb * block_k)
+        m = ok[:, None, :] & (kpos[:, None, :] <= qpos[:, :, None])
+        if kv_len is not None:
+            m = m & (kpos[:, None, :] < kv_len[:, None, None])
+        s = torch.where(m[:, None, None], s, NEG)
+        p = _softmax_f32(s)
+        outs.append(_gqa_out(p.to(vs.dtype), vs))
+    return torch.cat(outs, dim=1).reshape(b, c, hq, -1)

@@ -119,3 +119,33 @@ def decode_block_topk_indices(block_scores: torch.Tensor, nb_keep: int, *,
     idx, ok = _sorted_topk(s, nb_keep, n_kb, sort)
     idx = torch.where(ok, idx, 0)
     return idx.to(torch.int32), ok
+
+
+def chunk_block_topk_indices(block_scores: torch.Tensor, nb_keep: int, *,
+                             q_block_offset: torch.Tensor,
+                             local_blocks: int = 1, sort: bool = True
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunk-prefill block selection: ``block_topk_indices`` with the query
+    blocks at a per-row GLOBAL offset.
+
+    block_scores: (B, nQb, nKb) scores of a C-token chunk's query blocks
+    against every cache key block; q_block_offset: (B,) the global index of
+    each row's first chunk query block.  Block-causal validity and the
+    local force-keep use the global query block ``q_block_offset + i``, so
+    a chunk at depth p selects what the matching rows of a whole-prompt
+    ``block_topk_indices`` would.  Kept indices are sorted ascending;
+    invalid entries carry the clamped diagonal block and ``ok`` False.
+    """
+    b, n_qb, n_kb = block_scores.shape
+    dev = block_scores.device
+    qi = (torch.arange(n_qb, device=dev)[None, :, None]
+          + q_block_offset.long()[:, None, None])
+    kj = torch.arange(n_kb, device=dev)[None, None, :]
+    valid = kj <= qi                                    # block-causal
+    local = valid & (kj > qi - local_blocks - 1)
+    s = torch.where(valid, block_scores, NEG)
+    s = torch.where(local, float("inf"), s)             # force-keep local
+    idx, ok = _sorted_topk(s, nb_keep, n_kb, sort)
+    fill = torch.clamp(qi, min=0, max=n_kb - 1).expand(b, n_qb, nb_keep)
+    idx = torch.where(ok, idx, fill)
+    return idx.to(torch.int32), ok

@@ -1,8 +1,11 @@
-"""ServingConfig — the static engine's knobs, validated once.
+"""ServingConfig — the serving knobs of both engines, validated once.
 
-The port carries the fields the static ``Engine`` reads; the continuous
-scheduler's knobs (slots, paging, speculation, quantized caches, ...)
-come with the slices that port those paths.
+``Engine`` reads the shared and static-batch fields, ``ContinuousEngine``
+(inference/scheduler.py) the shared and continuous fields, so one config
+can parameterise a whole serving stack.  The port carries the fields of
+the paths ported so far; speculation, quantized caches, serving meshes,
+the request lifecycle knobs and telemetry come with the slices that port
+those paths.
 """
 from __future__ import annotations
 
@@ -18,14 +21,23 @@ LOOPS = ("scan", "python")
 
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
-    max_len: int = 2048              # cache rows per batch row
+    # -- shared (both engines) ---------------------------------------------
+    max_len: int = 2048              # cache rows per batch row / slot
     long_context: bool = False       # allocate the DSA predicted-key cache
     dsa_mode: str = "off"            # default DSA execution path
     cache_dtype: torch.dtype = torch.float32   # K/V cache dtype
     pad_id: int = 0
+    # -- Engine (static batch) ---------------------------------------------
     loop: str = "scan"               # fused step loop vs per-token loop
     prompt_buckets: bool = True
     step_buckets: bool = True
+    # -- ContinuousEngine ----------------------------------------------------
+    slots: int = 4                   # resident cache rows
+    seg_len: int = 16                # decode steps per segment
+    chunked_prefill: Optional[bool] = None   # None = auto by envelope
+    chunk_tokens: int = 64           # admission chunk width (pow2-rounded)
+    paged: bool = False              # page the resident KV cache
+    pool_pages: Optional[int] = None  # None = every slot at max_len + 1
 
     def __post_init__(self):
         for name, val, valid in (("dsa_mode", self.dsa_mode, DSA_MODES),
@@ -36,9 +48,23 @@ class ServingConfig:
                     f"valid: {valid}")
 
 
+# the reference's ServingConfig fields of paths not ported yet
+UNPORTED = ("spec", "draft", "spec_rounds", "max_mode_wait_s", "mesh",
+            "shard_rules", "select_dtype", "kv_quant", "moe_prefill",
+            "queue_cap", "shed_policy", "deadline_s", "admit_retries",
+            "injector", "telemetry")
+
+
 def resolve_config(config: Optional[ServingConfig], kw: dict
                    ) -> ServingConfig:
-    """Merge keyword arguments into a ``ServingConfig`` (kwargs win)."""
+    """Merge keyword arguments into a ``ServingConfig`` (kwargs win).  A
+    field of the reference that the port does not have yet raises
+    ``NotImplementedError``."""
+    asked = sorted(set(kw) & set(UNPORTED))
+    if asked:
+        raise NotImplementedError(
+            f"{asked} {'is' if len(asked) == 1 else 'are'} not ported to "
+            f"repro_torch yet (see ROADMAP.md)")
     if config is None:
         return ServingConfig(**kw)
     if not isinstance(config, ServingConfig):

@@ -21,8 +21,11 @@ throughput (the first token comes from prefill and is not counted).
 
 Sampling: greedy takes the first maximum (as ``jnp.argmax`` does), so
 greedy tokens are comparable with the reference.  Sampled decoding draws
-Gumbel noise from the port's own ``torch.Generator`` seeded by ``seed``;
-it cannot reproduce JAX's threefry bits.
+Gumbel noise from the port's own ``torch.Generator`` seeded by ``seed``,
+over the logits divided by ``temperature``; it cannot reproduce JAX's
+threefry bits.  A row's chain is one generator drawn once per token, so
+the continuous scheduler (inference/scheduler.py) replays a request's
+B=1 chain with a generator of its own.
 """
 from __future__ import annotations
 
@@ -52,7 +55,11 @@ def pow2_bucket(n: int, floor: int = 1) -> int:
 
 def can_bucket_prompts(cfg: ArchConfig) -> bool:
     """Right-padded prefill is sound when pad rows can be masked out
-    afterwards: not under an SWA ring buffer."""
+    afterwards: not under an SWA ring buffer.  The same test decides
+    chunked admission and paged caches (the reference's ``can_page`` and
+    ``can_chunk_prefill``): their envelopes differ from this one only for
+    recurrent, MLA, MoE, cross-attention and encoder-decoder archs, none
+    of which is ported."""
     return cfg.swa_window == 0
 
 
@@ -66,15 +73,17 @@ class GenerationResult:
     decode_steps: int = 0        # decode steps EXECUTED (bucketed on scan)
 
 
-def _sample(logits: torch.Tensor, gen: torch.Generator,
-            greedy: bool) -> torch.Tensor:
+def _sample(logits: torch.Tensor, gen: torch.Generator, greedy: bool,
+            temperature: float = 1.0) -> torch.Tensor:
     """Next token from (B, V) logits -> (B, 1) int64.  Greedy draws no
-    random numbers."""
+    random numbers.  ``temperature`` scales sampled logits only; 1.0
+    divides exactly, so the default is the unscaled chain bit for bit."""
     if greedy:
         return logits.argmax(dim=-1, keepdim=True)
     u = torch.rand(logits.shape, generator=gen, device=logits.device)
     gumbel = -torch.log(-torch.log(u))
-    return (logits.float() + gumbel).argmax(dim=-1, keepdim=True)
+    return (logits.float() / temperature + gumbel).argmax(dim=-1,
+                                                          keepdim=True)
 
 
 def _sync(device: torch.device) -> None:
@@ -117,10 +126,14 @@ class Engine:
 
     @torch.inference_mode()
     def prefill(self, prompts: np.ndarray,
-                lengths: Optional[np.ndarray] = None
+                lengths: Optional[np.ndarray] = None,
+                cache_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict, float]:
-        """Bucketed prefill of a (B, L) prompt batch into a fresh cache.
-        Returns (last_logits (B, 1, V), caches, prefill_seconds)."""
+        """Bucketed prefill of a (B, L) prompt batch into a fresh cache of
+        ``cache_len`` rows (default the engine's max_len; the continuous
+        scheduler passes the prompt bucket and zero-extends at slot
+        insertion).  Returns (last_logits (B, 1, V), caches,
+        prefill_seconds)."""
         prompts = np.asarray(prompts, np.int32)
         b, s = prompts.shape
         padded = self.prompt_bucket(s)
@@ -129,8 +142,9 @@ class Engine:
             prompts = np.concatenate([prompts, pad], 1)
         if lengths is None:
             lengths = np.full((b,), s, np.int32)
-        caches = init_cache(self.cfg, b, self.max_len, self.decode_flags,
-                            dtype=self.cache_dtype, device=self.device)
+        caches = init_cache(self.cfg, b, cache_len or self.max_len,
+                            self.decode_flags, dtype=self.cache_dtype,
+                            device=self.device)
         toks = torch.as_tensor(prompts, device=self.device)
         lens = torch.as_tensor(np.asarray(lengths, np.int64),
                                device=self.device)
@@ -145,10 +159,11 @@ class Engine:
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, n_new: int, greedy: bool = True,
-                 seed: int = 0, lengths: Optional[np.ndarray] = None
-                 ) -> GenerationResult:
+                 seed: int = 0, lengths: Optional[np.ndarray] = None,
+                 temperature: float = 1.0) -> GenerationResult:
         """``lengths`` (B,): per-row true prompt lengths of a right-padded
-        ragged batch; each row prefills and decodes at its own depth."""
+        ragged batch; each row prefills and decodes at its own depth.
+        ``temperature`` scales sampled (non-greedy) logits."""
         if n_new < 1:
             raise ValueError("generate() needs n_new >= 1")
         prompts = np.asarray(prompts, np.int32)
@@ -165,7 +180,7 @@ class Engine:
         logits, caches, t_prefill = self.prefill(prompts, lengths=lengths)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         t0 = time.monotonic()
-        tok = _sample(logits[:, -1], gen, greedy)
+        tok = _sample(logits[:, -1], gen, greedy, temperature)
         out: List[torch.Tensor] = [tok]
         scan = self.loop == "scan"
         steps_exec = n_new - 1
@@ -174,7 +189,7 @@ class Engine:
         for _ in range(steps_exec):
             logits, caches = decode_step(self.params, self.cfg,
                                          self.decode_flags, tok, caches)
-            tok = _sample(logits[:, -1], gen, greedy)
+            tok = _sample(logits[:, -1], gen, greedy, temperature)
             if not scan:                       # host round trip per token
                 tok = tok.cpu().to(self.device)
             out.append(tok)

@@ -1,7 +1,17 @@
-// K1: DSA decode gather-attend for Hopper (sm_90a).
+// K1 and K4: DSA decode gather-attend for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel
-//   src/repro/kernels/dsa_decode.py::dsa_decode_gather_attention (body _kernel)
+// Replaces the Pallas TPU kernels
+//   src/repro/kernels/dsa_decode.py::dsa_decode_gather_attention (K1) and
+//   src/repro/kernels/dsa_decode.py::dsa_decode_paged_gather_attention (K4)
+//   (bodies _kernel and _paged_kernel)
+// K4 is K1 over a flat page pool (P * block_k, Hkv, hd) shared by all
+// batch rows: one more index stream, pidx (B, nb), names the PHYSICAL
+// page of each selected block, while idx keeps the LOGICAL block that
+// carries the key positions for the mask.  Both run one body; it reaches
+// the rows of selected block j through a row function (dense: row
+// b * S + idx * block_k + r of the cache; paged: row pidx * block_k + r of
+// the pool) and does the same arithmetic in the same order, so K4 equals
+// K1 bitwise on a pool that holds the dense cache's blocks.
 // One decode query per (batch row, query head) attends only the nb cache
 // blocks the block-pooled predictor selected: idx/ok (B, nb), ascending,
 // block j = cache rows [j*block_k, (j+1)*block_k).  Rows at or past
@@ -38,12 +48,25 @@ constexpr int WARPS = 4;
 constexpr int EPL = 4;  // hd slice per lane in the p.V pass: hd <= 32 * 4
 constexpr int VAHEAD = 8;  // V rows loaded ahead in the p.V pass
 
-template <typename TQ, typename TC, int G>
+// Element offset of the first row of selected block j of batch row b:
+// the dense cache's row blk0 of batch row b, or the pool's first row of
+// physical page pidx[b, j] (c_sb is unused there).
+template <bool PAGED>
+__device__ __forceinline__ int64_t block_rows(int b, int j, int blk0,
+                                              const int32_t* pidx,
+                                              int64_t i_sb, int block_k,
+                                              int64_t c_sb, int64_t c_ss) {
+  if (PAGED) return (int64_t)pidx[b * i_sb + j] * block_k * c_ss;
+  return b * c_sb + (int64_t)blk0 * c_ss;
+}
+
+template <typename TQ, typename TC, int G, bool PAGED>
 __global__ void __launch_bounds__(WARPS * 32)
 dsa_decode_partial(const TQ* __restrict__ q, int64_t q_sb, int64_t q_sh,
                    const TC* __restrict__ k, const TC* __restrict__ v,
                    int64_t c_sb, int64_t c_ss, int64_t c_sh,
                    const int32_t* __restrict__ idx,
+                   const int32_t* __restrict__ pidx,
                    const int32_t* __restrict__ ok, int64_t i_sb,
                    const int32_t* __restrict__ kv_len,
                    float* __restrict__ ws_m, float* __restrict__ ws_l,
@@ -83,8 +106,12 @@ dsa_decode_partial(const TQ* __restrict__ q, int64_t q_sb, int64_t q_sh,
   // rows at or past lim are masked (kv_len, the cache end, the block end)
   const int lim = min(min(kv_len[b], S), blk0 + block_k);
   if (ok[b * i_sb + j] != 0 && base < lim) {
-    const TC* kb = k + b * c_sb + kvh * c_sh;
-    const TC* vb = v + b * c_sb + kvh * c_sh;
+    // the selected block's rows: logical positions blk0 + r, stored at
+    // rows + r * c_ss (dense or paged)
+    const int64_t rows = block_rows<PAGED>(b, j, blk0, pidx, i_sb, block_k,
+                                           c_sb, c_ss) + kvh * c_sh;
+    const TC* kb = k + rows;
+    const TC* vb = v + rows;
     // scores: lane owns key row base + lane
     const int kpos = base + lane;
     const bool live = kpos < lim;
@@ -92,7 +119,7 @@ dsa_decode_partial(const TQ* __restrict__ q, int64_t q_sb, int64_t q_sh,
 #pragma unroll
     for (int g = 0; g < G; ++g) s[g] = live ? 0.f : NEG;
     if (live) {
-      const TC* kr = kb + (int64_t)kpos * c_ss;
+      const TC* kr = kb + (int64_t)(r0 + lane) * c_ss;
 #pragma unroll 2
       for (int d = 0; d < hd; d += 16) {
         float kk[16];
@@ -126,7 +153,7 @@ dsa_decode_partial(const TQ* __restrict__ q, int64_t q_sb, int64_t q_sh,
 #pragma unroll
         for (int e = 0; e < EPL; ++e) vv[u][e] = 0.f;
         if (has_d && r + u < nrows)
-          dsa::load4(vb + (int64_t)(base + r + u) * c_ss + d0, vv[u]);
+          dsa::load4(vb + (int64_t)(r0 + r + u) * c_ss + d0, vv[u]);
       }
 #pragma unroll
       for (int u = 0; u < VAHEAD; ++u) {
@@ -181,10 +208,11 @@ dsa_decode_combine(const float* __restrict__ ws_m,
   }
 }
 
-template <typename TQ, typename TC, int G>
+template <typename TQ, typename TC, int G, bool PAGED>
 cudaError_t launch(const void* q, int64_t q_sb, int64_t q_sh, const void* k,
                    const void* v, int64_t c_sb, int64_t c_ss, int64_t c_sh,
-                   const int32_t* idx, const int32_t* ok, int64_t i_sb,
+                   const int32_t* idx, const int32_t* pidx,
+                   const int32_t* ok, int64_t i_sb,
                    const int32_t* kv_len, float* ws, void* out, int64_t o_sb,
                    int64_t o_sh, int B, int hkv, int S, int hd, int nb,
                    int block_k, float scale, cudaStream_t stream) {
@@ -195,7 +223,7 @@ cudaError_t launch(const void* q, int64_t q_sb, int64_t q_sh, const void* k,
   float* ws_l = ws + parts;
   float* ws_acc = ws + 2 * parts;
   const size_t smem = sizeof(float) * (G * hd + WARPS * G * 32);
-  auto kern = dsa_decode_partial<TQ, TC, G>;
+  auto kern = dsa_decode_partial<TQ, TC, G, PAGED>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -204,7 +232,8 @@ cudaError_t launch(const void* q, int64_t q_sb, int64_t q_sh, const void* k,
   const dim3 grid(hkv, B, (n_tiles + WARPS - 1) / WARPS);
   kern<<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const TQ*>(q), q_sb, q_sh, static_cast<const TC*>(k),
-      static_cast<const TC*>(v), c_sb, c_ss, c_sh, idx, ok, i_sb, kv_len,
+      static_cast<const TC*>(v), c_sb, c_ss, c_sh, idx, pidx, ok, i_sb,
+      kv_len,
       ws_m, ws_l, ws_acc, hkv, S, hd, block_k, tiles_per_blk, n_tiles, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -214,19 +243,21 @@ cudaError_t launch(const void* q, int64_t q_sb, int64_t q_sh, const void* k,
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TC>
+template <typename TQ, typename TC, bool PAGED>
 cudaError_t dispatch_g(int g, const void* q, int64_t q_sb, int64_t q_sh,
                        const void* k, const void* v, int64_t c_sb,
                        int64_t c_ss, int64_t c_sh, const int32_t* idx,
-                       const int32_t* ok, int64_t i_sb, const int32_t* kv_len,
+                       const int32_t* pidx, const int32_t* ok, int64_t i_sb,
+                       const int32_t* kv_len,
                        float* ws, void* out, int64_t o_sb, int64_t o_sh,
                        int B, int hkv, int S, int hd, int nb, int block_k,
                        float scale, cudaStream_t st) {
 #define DSA_G(GV)                                                            \
   case GV:                                                                   \
-    return launch<TQ, TC, GV>(q, q_sb, q_sh, k, v, c_sb, c_ss, c_sh, idx, ok, \
-                              i_sb, kv_len, ws, out, o_sb, o_sh, B, hkv, S,  \
-                              hd, nb, block_k, scale, st);
+    return launch<TQ, TC, GV, PAGED>(q, q_sb, q_sh, k, v, c_sb, c_ss, c_sh,  \
+                                     idx, pidx, ok, i_sb, kv_len, ws, out,   \
+                                     o_sb, o_sh, B, hkv, S, hd, nb, block_k, \
+                                     scale, st);
   switch (g) {
     DSA_G(1)
     DSA_G(2)
@@ -239,44 +270,73 @@ cudaError_t dispatch_g(int g, const void* q, int64_t q_sb, int64_t q_sh,
 #undef DSA_G
 }
 
+template <bool PAGED>
+int dispatch(int q_dtype, int c_dtype, const void* q, int64_t q_sb,
+             int64_t q_sh, const void* k, const void* v, int64_t c_sb,
+             int64_t c_ss, int64_t c_sh, const void* idx, const void* pidx,
+             const void* ok, int64_t i_sb, const void* kv_len, void* ws,
+             void* out, int64_t o_sb, int64_t o_sh, int B, int hq, int hkv,
+             int S, int hd, int nb, int block_k, float scale, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || hd % 16 != 0 || hd > 128 || hd <= 0 ||
+      nb <= 0 || block_k <= 0 || B <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int g = hq / hkv;
+  const auto* ix = static_cast<const int32_t*>(idx);
+  const auto* px = static_cast<const int32_t*>(pidx);
+  const auto* okp = static_cast<const int32_t*>(ok);
+  const auto* kl = static_cast<const int32_t*>(kv_len);
+  auto* w = static_cast<float*>(ws);
+  auto st = static_cast<cudaStream_t>(stream);
+#define DSA_ARGS                                                           \
+  g, q, q_sb, q_sh, k, v, c_sb, c_ss, c_sh, ix, px, okp, i_sb, kl, w, out, \
+      o_sb, o_sh, B, hkv, S, hd, nb, block_k, scale, st
+  cudaError_t e;
+  if (q_dtype == dsa::kF32 && c_dtype == dsa::kF32)
+    e = dispatch_g<float, float, PAGED>(DSA_ARGS);
+  else if (q_dtype == dsa::kBF16 && c_dtype == dsa::kF32)
+    e = dispatch_g<__nv_bfloat16, float, PAGED>(DSA_ARGS);
+  else if (q_dtype == dsa::kBF16 && c_dtype == dsa::kBF16)
+    e = dispatch_g<__nv_bfloat16, __nv_bfloat16, PAGED>(DSA_ARGS);
+  else if (q_dtype == dsa::kF32 && c_dtype == dsa::kBF16)
+    e = dispatch_g<float, __nv_bfloat16, PAGED>(DSA_ARGS);
+  else
+    e = cudaErrorInvalidValue;
+#undef DSA_ARGS
+  return (int)e;
+}
+
 }  // namespace
 
-// C interface.  q: (B, Hq, 1, hd) with strides (q_sb, q_sh) and unit hd
-// stride; k/v: (B, S, Hkv, hd) with shared strides (c_sb, c_ss, c_sh);
-// idx/ok: (B, nb) int32 with row stride i_sb; kv_len: (B,) int32;
+// C interfaces.  q: (B, Hq, 1, hd) with strides (q_sb, q_sh) and unit hd
+// stride; idx/ok: (B, nb) int32 with row stride i_sb; kv_len: (B,) int32;
 // ws: f32 workspace of B * Hq * nb * ceil(block_k / 32) * (hd + 2)
 // elements (one partial (m, l, acc) per 32-row tile and query head);
-// out: (B, Hq, 1, hd) in q's dtype.  Strides in elements.  Returns the
+// out: (B, Hq, 1, hd) in q's dtype.  Strides in elements.  Return the
 // cudaError_t of the launches.
+//
+// K1: k/v (B, S, Hkv, hd) with shared strides (c_sb, c_ss, c_sh).
 extern "C" int dsa_decode_launch(
     int q_dtype, int c_dtype, const void* q, int64_t q_sb, int64_t q_sh,
     const void* k, const void* v, int64_t c_sb, int64_t c_ss, int64_t c_sh,
     const void* idx, const void* ok, int64_t i_sb, const void* kv_len,
     void* ws, void* out, int64_t o_sb, int64_t o_sh, int B, int hq, int hkv,
     int S, int hd, int nb, int block_k, float scale, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || hd % 16 != 0 || hd > 128 || hd <= 0 ||
-      nb <= 0 || block_k <= 0 || B <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int g = hq / hkv;
-  const auto* ix = static_cast<const int32_t*>(idx);
-  const auto* okp = static_cast<const int32_t*>(ok);
-  const auto* kl = static_cast<const int32_t*>(kv_len);
-  auto* w = static_cast<float*>(ws);
-  auto st = static_cast<cudaStream_t>(stream);
-#define DSA_ARGS                                                              \
-  g, q, q_sb, q_sh, k, v, c_sb, c_ss, c_sh, ix, okp, i_sb, kl, w, out, o_sb, \
-      o_sh, B, hkv, S, hd, nb, block_k, scale, st
-  cudaError_t e;
-  if (q_dtype == dsa::kF32 && c_dtype == dsa::kF32)
-    e = dispatch_g<float, float>(DSA_ARGS);
-  else if (q_dtype == dsa::kBF16 && c_dtype == dsa::kF32)
-    e = dispatch_g<__nv_bfloat16, float>(DSA_ARGS);
-  else if (q_dtype == dsa::kBF16 && c_dtype == dsa::kBF16)
-    e = dispatch_g<__nv_bfloat16, __nv_bfloat16>(DSA_ARGS);
-  else if (q_dtype == dsa::kF32 && c_dtype == dsa::kBF16)
-    e = dispatch_g<float, __nv_bfloat16>(DSA_ARGS);
-  else
-    e = cudaErrorInvalidValue;
-#undef DSA_ARGS
-  return (int)e;
+  return dispatch<false>(q_dtype, c_dtype, q, q_sb, q_sh, k, v, c_sb, c_ss,
+                         c_sh, idx, nullptr, ok, i_sb, kv_len, ws, out, o_sb,
+                         o_sh, B, hq, hkv, S, hd, nb, block_k, scale, stream);
+}
+
+// K4: k/v pools (P * block_k, Hkv, hd) with shared strides (c_ss, c_sh);
+// pidx: (B, nb) int32 physical pages with row stride i_sb.  Keys are
+// masked by their logical position idx * block_k + r < kv_len only.
+extern "C" int dsa_decode_paged_launch(
+    int q_dtype, int c_dtype, const void* q, int64_t q_sb, int64_t q_sh,
+    const void* k, const void* v, int64_t c_ss, int64_t c_sh,
+    const void* idx, const void* pidx, const void* ok, int64_t i_sb,
+    const void* kv_len, void* ws, void* out, int64_t o_sb, int64_t o_sh,
+    int B, int hq, int hkv, int hd, int nb, int block_k, float scale,
+    void* stream) {
+  return dispatch<true>(q_dtype, c_dtype, q, q_sb, q_sh, k, v, 0, c_ss, c_sh,
+                        idx, pidx, ok, i_sb, kv_len, ws, out, o_sb, o_sh, B,
+                        hq, hkv, 0x7fffffff, hd, nb, block_k, scale, stream);
 }

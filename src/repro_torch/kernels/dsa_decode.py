@@ -1,12 +1,17 @@
-"""K1 — DSA decode gather-attend: CUDA kernel, wrapper and plain version.
+"""K1 and K4 — DSA decode gather-attend over a dense cache (K1) or a flat
+page pool (K4): CUDA kernels, wrappers and plain versions.
 
-Replaces the Pallas TPU kernel
+K1 replaces the Pallas TPU kernel
 ``src/repro/kernels/dsa_decode.py::dsa_decode_gather_attention`` (body
-``_kernel``).  The CUDA source is ``csrc/dsa_decode.cu``; its header note
-says what bounds the kernel on the H100 (bytes: the selected K/V rows)
-and how the design answers it (one warp per 32-row tile of the selection
-serves the whole GQA group from one read of its rows; a second small
-kernel merges the warps' partial softmax states).
+``_kernel``), K4 ``dsa_decode_paged_gather_attention`` (body
+``_paged_kernel``).  The CUDA source of both is ``csrc/dsa_decode.cu``;
+its header note says what bounds the kernels on the H100 (bytes: the
+selected K/V rows) and how the design answers it (one warp per 32-row
+tile of the selection serves the whole GQA group from one read of its
+rows; a second small kernel merges the warps' partial softmax states).
+K4 runs K1's body with the rows of each selected block found through
+the physical page stream ``pidx``, so it equals K1 bitwise on a pool
+that holds the dense cache's blocks.
 
 Layouts (kernel-native; ``kernels.ops.dsa_decode`` adapts model layout):
 
@@ -19,7 +24,11 @@ Layouts (kernel-native; ``kernels.ops.dsa_decode`` adapts model layout):
   kv_len:  (B,)               valid cache rows per batch row
   out:     (B, Hq, 1, hd)     in q's dtype
 
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
+K4 takes k/v pools (P * block_k, Hkv, hd), page p owning rows
+[p * block_k, (p + 1) * block_k), and pidx (B, nb), the physical page of
+each selected logical block idx.
+
+On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.
 """
 from __future__ import annotations
@@ -31,63 +40,83 @@ from repro_torch.kernels import _launch as LN
 NEG = -1e30
 
 
-def dsa_decode_gather_attention_plain(q, k_cache, v_cache, idx, ok, kv_len,
-                                      *, block_k: int = 128) -> torch.Tensor:
-    """The Pallas body's arithmetic in plain PyTorch: visit the nb
-    selected blocks in order with an f32 online softmax, p explicitly zero
-    under the mask (rows >= kv_len or >= S, blocks with ok = 0)."""
+def _plain_body(q, hkv: int, blocks) -> torch.Tensor:
+    """The Pallas body's arithmetic: visit the selected blocks in order
+    with an f32 online softmax, p explicitly zero under the mask.
+    ``blocks`` yields (k rows (B,Bk,Hkv,hd), v rows, mask (B,Bk))."""
     b, hq, _, hd = q.shape
-    s_len, hkv = k_cache.shape[1], k_cache.shape[2]
-    g = hq // hkv
     dev = q.device
-    scale = hd ** -0.5
-    qf = q[:, :, 0].float().reshape(b, hkv, g, hd) * scale
+    g = hq // hkv
+    qf = q[:, :, 0].float().reshape(b, hkv, g, hd) * hd ** -0.5
     m = torch.full((b, hkv, g), NEG, device=dev)
     l = torch.zeros((b, hkv, g), device=dev)
     acc = torch.zeros((b, hkv, g, hd), device=dev)
-    rows_b = torch.arange(b, device=dev)[:, None]
-    offs = torch.arange(block_k, device=dev)[None, :]
-    for j in range(idx.shape[-1]):
-        kpos = idx[:, j].long()[:, None] * block_k + offs        # (B, Bk)
-        rows = kpos.clamp(max=s_len - 1)
-        kb = k_cache[rows_b, rows].float()                       # (B,Bk,Hkv,hd)
-        vb = v_cache[rows_b, rows].float()
-        mask = ((kpos < kv_len[:, None]) & (kpos < s_len)
-                & ok[:, j, None].bool())
-        s = torch.einsum("bhgd,bkhd->bhgk", qf, kb)
+    for kb, vb, mask in blocks:
+        s = torch.einsum("bhgd,bkhd->bhgk", qf, kb.float())
         s = torch.where(mask[:, None, None], s, NEG)
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         p = torch.where(mask[:, None, None],
                         torch.exp(s - m_new[..., None]), 0.0)
         l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bhgk,bkhd->bhgd", p, vb)
+        acc = acc * alpha[..., None] + torch.einsum("bhgk,bkhd->bhgd", p,
+                                                    vb.float())
         m = m_new
     out = acc / l.clamp(min=1e-30)[..., None]
     return out.reshape(b, hq, 1, hd).to(q.dtype)
 
 
-def dsa_decode_gather_attention(q, k_cache, v_cache, idx, ok, kv_len, *,
-                                block_k: int = 128) -> torch.Tensor:
-    """q: (B,Hq,1,hd); k/v cache: (B,S,Hkv,hd); idx/ok: (B,nb);
-    kv_len: (B,).  Returns (B,Hq,1,hd) in q's dtype."""
-    if q.device.type == "cpu":
-        return dsa_decode_gather_attention_plain(q, k_cache, v_cache, idx,
-                                                 ok, kv_len, block_k=block_k)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
+def dsa_decode_gather_attention_plain(q, k_cache, v_cache, idx, ok, kv_len,
+                                      *, block_k: int = 128) -> torch.Tensor:
+    """K1's arithmetic in plain PyTorch: masked are rows >= kv_len or >= S
+    and blocks with ok = 0."""
+    b, s_len = k_cache.shape[0], k_cache.shape[1]
+    dev = q.device
+    rows_b = torch.arange(b, device=dev)[:, None]
+    offs = torch.arange(block_k, device=dev)[None, :]
+
+    def blocks():
+        for j in range(idx.shape[-1]):
+            kpos = idx[:, j].long()[:, None] * block_k + offs    # (B, Bk)
+            rows = kpos.clamp(max=s_len - 1)
+            mask = ((kpos < kv_len[:, None]) & (kpos < s_len)
+                    & ok[:, j, None].bool())
+            yield k_cache[rows_b, rows], v_cache[rows_b, rows], mask
+    return _plain_body(q, k_cache.shape[2], blocks())
+
+
+def dsa_decode_paged_gather_attention_plain(q, k_pool, v_pool, idx, pidx, ok,
+                                            kv_len, *, block_k: int = 128
+                                            ) -> torch.Tensor:
+    """K4's arithmetic in plain PyTorch: K1's, with block j's rows read
+    from pool page pidx[:, j] and masked by their logical position
+    idx[:, j] * block_k + r < kv_len."""
+    offs = torch.arange(block_k, device=q.device)[None, :]
+
+    def blocks():
+        for j in range(idx.shape[-1]):
+            kpos = idx[:, j].long()[:, None] * block_k + offs
+            rows = pidx[:, j].long()[:, None] * block_k + offs
+            mask = (kpos < kv_len[:, None]) & ok[:, j, None].bool()
+            yield k_pool[rows], v_pool[rows], mask
+    return _plain_body(q, k_pool.shape[1], blocks())
+
+
+def _launch(fn_name: str, q, k, v, idx, pidx, ok, kv_len, block_k: int,
+            cache_strides, s_len: int) -> torch.Tensor:
+    """Check the operands and launch K1 (pidx None) or K4 on q's card."""
     dev = q.device
     b, hq, one, hd = q.shape
-    s_len, hkv = k_cache.shape[1], k_cache.shape[2]
+    hkv = k.shape[-2]
     nb = idx.shape[-1]
     if one != 1 or hq % hkv or hd % 16 or hd > 128:
         raise ValueError(f"unsupported decode shape q={tuple(q.shape)} "
-                         f"cache={tuple(k_cache.shape)}")
-    if k_cache.stride() != v_cache.stride() or k_cache.dtype != v_cache.dtype:
+                         f"cache={tuple(k.shape)}")
+    if k.stride() != v.stride() or k.dtype != v.dtype:
         raise ValueError("k and v caches must share strides and dtype")
     LN.check_cuda_operand("q", q, dev)
-    LN.check_cuda_operand("k_cache", k_cache, dev)
-    LN.check_cuda_operand("v_cache", v_cache, dev)
+    LN.check_cuda_operand("k_cache", k, dev)
+    LN.check_cuda_operand("v_cache", v, dev)
     idx32 = LN.check_index("idx", idx, dev)
     ok32 = LN.check_index("ok", ok, dev)
     kvl = LN.check_index("kv_len", kv_len, dev)
@@ -96,22 +125,64 @@ def dsa_decode_gather_attention(q, k_cache, v_cache, idx, ok, kv_len, *,
     n_tiles = nb * -(-block_k // 32)
     ws = torch.empty(b * hq * n_tiles * (hd + 2), dtype=torch.float32,
                      device=dev)
-    fn = LN.bind("dsa_decode", "dsa_decode_launch",
-                 [LN.I, LN.I, LN.P, LN.L, LN.L, LN.P, LN.P, LN.L, LN.L,
-                  LN.L, LN.P, LN.P, LN.L, LN.P, LN.P, LN.P, LN.L, LN.L,
-                  LN.I, LN.I, LN.I, LN.I, LN.I, LN.I, LN.I, LN.F, LN.P])
-    cs = k_cache.stride()
-    err = fn(LN.DTYPE_CODE[q.dtype], LN.DTYPE_CODE[k_cache.dtype],
-             q.data_ptr(), q.stride(0), q.stride(1),
-             k_cache.data_ptr(), v_cache.data_ptr(), cs[0], cs[1], cs[2],
-             idx32.data_ptr(), ok32.data_ptr(), idx32.stride(0),
-             kvl.data_ptr(), ws.data_ptr(), out.data_ptr(), out.stride(0),
-             out.stride(1),
-             b, hq, hkv, s_len, hd, nb, block_k, hd ** -0.5,
-             LN.stream_handle(dev))
-    LN.raise_on_error("dsa_decode", err)
+    head = [LN.DTYPE_CODE[q.dtype], LN.DTYPE_CODE[k.dtype], q.data_ptr(),
+            q.stride(0), q.stride(1), k.data_ptr(), v.data_ptr(),
+            *cache_strides]
+    if pidx is None:
+        streams = [idx32.data_ptr(), ok32.data_ptr()]
+        dims = [b, hq, hkv, s_len, hd, nb, block_k]
+    else:
+        pidx32 = LN.check_index("pidx", pidx, dev)
+        if pidx32.stride() != idx32.stride():
+            raise ValueError("idx and pidx must share one layout")
+        streams = [idx32.data_ptr(), pidx32.data_ptr(), ok32.data_ptr()]
+        dims = [b, hq, hkv, hd, nb, block_k]
+    args = (head + streams + [idx32.stride(0), kvl.data_ptr(), ws.data_ptr(),
+                              out.data_ptr(), out.stride(0), out.stride(1)]
+            + dims + [hd ** -0.5, LN.stream_handle(dev)])
+    types = ([LN.I, LN.I, LN.P, LN.L, LN.L, LN.P, LN.P]
+             + [LN.L] * len(cache_strides) + [LN.P] * len(streams)
+             + [LN.L, LN.P, LN.P, LN.P, LN.L, LN.L] + [LN.I] * len(dims)
+             + [LN.F, LN.P])
+    err = LN.bind("dsa_decode", fn_name, types)(*args)
+    LN.raise_on_error(fn_name, err)
+    return out
+
+
+def dsa_decode_gather_attention(q, k_cache, v_cache, idx, ok, kv_len, *,
+                                block_k: int = 128) -> torch.Tensor:
+    """K1.  q: (B,Hq,1,hd); k/v cache: (B,S,Hkv,hd); idx/ok: (B,nb);
+    kv_len: (B,).  Returns (B,Hq,1,hd) in q's dtype."""
+    if q.device.type == "cpu":
+        return dsa_decode_gather_attention_plain(q, k_cache, v_cache, idx,
+                                                 ok, kv_len, block_k=block_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    out = _launch("dsa_decode_launch", q, k_cache, v_cache, idx, None, ok,
+                  kv_len, block_k, k_cache.stride()[:3], k_cache.shape[1])
     dsa_decode_gather_attention.launches += 1
     return out
 
 
+def dsa_decode_paged_gather_attention(q, k_pool, v_pool, idx, pidx, ok,
+                                      kv_len, *, block_k: int = 128
+                                      ) -> torch.Tensor:
+    """K4.  q: (B,Hq,1,hd); k/v pool: (P*block_k,Hkv,hd); idx/pidx/ok:
+    (B,nb) logical blocks, physical pages, validity; kv_len: (B,).
+    Returns (B,Hq,1,hd) in q's dtype."""
+    if q.device.type == "cpu":
+        return dsa_decode_paged_gather_attention_plain(
+            q, k_pool, v_pool, idx, pidx, ok, kv_len, block_k=block_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    if k_pool.dim() != 3 or k_pool.shape[0] % block_k:
+        raise ValueError(f"the pool {tuple(k_pool.shape)} is not whole "
+                         f"pages of {block_k} rows")
+    out = _launch("dsa_decode_paged_launch", q, k_pool, v_pool, idx, pidx,
+                  ok, kv_len, block_k, k_pool.stride()[:2], 0)
+    dsa_decode_paged_gather_attention.launches += 1
+    return out
+
+
 dsa_decode_gather_attention.launches = 0
+dsa_decode_paged_gather_attention.launches = 0

@@ -1,15 +1,18 @@
 """Model-layout entry points of the attention kernels.
 
-``dsa_attention`` and ``dsa_decode`` take tensors in the model's layout
-(B, L, H, hd) and make the same transposes as the JAX reference's
-``repro/kernels/ops.py``: K2 wants q/k/v as (B, H, L, hd), K1 takes q as
-(B, Hq, 1, hd) and the cache in its natural (B, S, Hkv, hd).  The
-transposes are views; the kernels take strides.
+Each takes tensors in the model's layout (B, L, H, hd) and makes the same
+transposes as the JAX reference's ``repro/kernels/ops.py``: K2 wants
+q/k/v as (B, H, L, hd); K1, K3 and K4 take q as (B, Hq, L, hd) and the
+cache (or page pool) in its natural layout.  The transposes are views;
+the kernels take strides, and K2 and K3 write their output in model
+layout, so the transpose back is free too.
 """
 from __future__ import annotations
 
 from repro_torch.kernels.dsa_attention import dsa_block_sparse_attention
-from repro_torch.kernels.dsa_decode import dsa_decode_gather_attention
+from repro_torch.kernels.dsa_chunk_prefill import dsa_chunk_gather_attention
+from repro_torch.kernels.dsa_decode import (dsa_decode_gather_attention,
+                                            dsa_decode_paged_gather_attention)
 
 
 def dsa_attention(q, k, v, idx, valid, *, block_q=128, block_k=128,
@@ -28,4 +31,27 @@ def dsa_decode(q, k_cache, v_cache, idx, ok, kv_len, *, block_k=128):
     core.attention.dsa_decode_block_attention."""
     out = dsa_decode_gather_attention(q.transpose(1, 2), k_cache, v_cache,
                                       idx, ok, kv_len, block_k=block_k)
+    return out.transpose(1, 2)
+
+
+def dsa_decode_paged(q, k_pool, v_pool, idx, pidx, ok, kv_len, *,
+                     block_k=128):
+    """q: (B,1,Hq,hd); k/v pool: (P*block_k,Hkv,hd); idx/ok: (B,nb)
+    selected LOGICAL blocks; pidx: (B,nb) the same as physical pages;
+    kv_len: (B,).  Returns (B,1,Hq,hd).  The plain twin is
+    core.attention.dsa_decode_paged_block_attention."""
+    out = dsa_decode_paged_gather_attention(q.transpose(1, 2), k_pool,
+                                            v_pool, idx, pidx, ok, kv_len,
+                                            block_k=block_k)
+    return out.transpose(1, 2)
+
+
+def dsa_chunk_prefill(q, k_cache, v_cache, idx, ok, q_off, kv_len, *,
+                      block_q=128, block_k=128):
+    """q: (B,C,Hq,hd); k/v cache: (B,S,Hkv,hd); idx/ok: (B,C//block_q,nb);
+    q_off/kv_len: (B,).  Returns (B,C,Hq,hd).  The plain twin is
+    core.attention.dsa_chunk_block_attention."""
+    out = dsa_chunk_gather_attention(q.transpose(1, 2), k_cache, v_cache,
+                                     idx, ok, q_off, kv_len, block_q=block_q,
+                                     block_k=block_k)
     return out.transpose(1, 2)

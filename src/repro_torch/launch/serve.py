@@ -8,6 +8,18 @@ CPU; with ``--reduced`` that is the quick check).  Weights are random,
 made from ``--seed``.  ``--dsa`` allocates the DSA predicted-key cache
 (long-context decode); ``--dsa-mode kernel`` routes prefill through the
 block-sparse kernel K2 and each decode step through the gather kernel K1.
+
+``--continuous`` serves a synthetic open-loop Poisson stream of
+``--requests`` mixed-length requests at ``--rate`` req/s through the
+continuous-batching engine (repro_torch.inference.scheduler): a resident
+``--slots``-slot cache, decode segments of ``--seg-len`` steps, chunked
+admission in ``--chunk-tokens``-wide chunks (the chunk kernel K3 on
+``--dsa-mode kernel``), and with ``--paged`` a paged resident cache over
+``--pool-pages`` pages (decode through K4):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b \
+        --reduced --continuous --paged --dsa --dsa-mode kernel \
+        --requests 6 --slots 2 --prompt-len 64 --new-tokens 8 --device cpu
 """
 from __future__ import annotations
 
@@ -15,11 +27,56 @@ import argparse
 
 import numpy as np
 
+import torch
+
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.device import resolve_device
 from repro_torch.inference.config import ServingConfig
 from repro_torch.inference.engine import Engine
+from repro_torch.inference.scheduler import (ContinuousEngine, summarize,
+                                             synthetic_workload)
+from repro_torch.kernels.dsa_attention import dsa_block_sparse_attention
+from repro_torch.kernels.dsa_chunk_prefill import dsa_chunk_gather_attention
+from repro_torch.kernels.dsa_decode import (dsa_decode_gather_attention,
+                                            dsa_decode_paged_gather_attention)
+from repro_torch.models.attention import RunFlags, cache_page_size
 from repro_torch.models.transformer import init_model
+
+# the kernel wrappers whose launch counts a continuous run reports
+KERNELS = {"K1": dsa_decode_gather_attention,
+           "K2": dsa_block_sparse_attention,
+           "K3": dsa_chunk_gather_attention,
+           "K4": dsa_decode_paged_gather_attention}
+
+
+def _serve_continuous(cfg, args, params, config, device):
+    """Serve the synthetic workload; returns (results, engine)."""
+    eng = ContinuousEngine(cfg, params, config=config, device=device)
+    workload = synthetic_workload(
+        args.requests, rate_rps=args.rate,
+        prompt_lens=(max(8, args.prompt_len // 4), args.prompt_len),
+        n_new_range=(max(2, args.new_tokens // 4), args.new_tokens),
+        vocab=cfg.vocab, seed=args.seed)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    before = {k: fn.launches for k, fn in KERNELS.items()}
+    results = eng.serve(workload)
+    wall = max((r.finish_s for r in results), default=0.0)
+    s = summarize(results, wall)
+    print(f"continuous: {s['n_requests']} requests, "
+          f"{s['delivered_tokens']} tokens in {s['wall_s']:.2f} s -> "
+          f"{s['goodput_tok_s']:.1f} tok/s goodput, "
+          f"p50 {s['p50_latency_s']:.2f} s / p95 {s['p95_latency_s']:.2f} s "
+          f"latency ({int(eng.stats['segments'])} segments, "
+          f"{int(eng.stats['admitted'])} admissions)")
+    launches = {k: fn.launches - before[k] for k, fn in KERNELS.items()}
+    peak = (f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
+            if device.type == "cuda" else "not measured (CPU)")
+    print(f"  p50 TTFT {s['p50_ttft_s']:.2f} s, {eng.stats['chunks']} "
+          f"chunk steps, {eng.stats['decode_steps']} decode steps, "
+          f"launches " + " ".join(f"{k} {n}" for k, n in launches.items())
+          + f", peak memory {peak}")
+    return results, eng
 
 
 def main(argv=None):
@@ -38,6 +95,25 @@ def main(argv=None):
                          "| plain block gather | CUDA kernels")
     ap.add_argument("--loop", default="scan", choices=["scan", "python"],
                     help="back-to-back decode steps vs per-token host loop")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous-batching serving loop over an "
+                         "open-loop Poisson arrival process")
+    ap.add_argument("--slots", type=int, default=0,
+                    help="resident slots for --continuous (default: --batch)")
+    ap.add_argument("--seg-len", type=int, default=16,
+                    help="decode steps per segment (--continuous)")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="synthetic requests to serve (--continuous)")
+    ap.add_argument("--rate", type=float, default=4.0,
+                    help="Poisson arrival rate, requests/s (--continuous)")
+    ap.add_argument("--chunk-tokens", type=int, default=64,
+                    help="chunked admission width in tokens (--continuous)")
+    ap.add_argument("--paged", action="store_true",
+                    help="page the resident KV cache over a shared page "
+                         "pool (--continuous)")
+    ap.add_argument("--pool-pages", type=int, default=0,
+                    help="physical pages in the paged pool (0 = enough "
+                         "for every slot at max_len)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     ap.add_argument("--seed", type=int, default=0)
@@ -50,9 +126,18 @@ def main(argv=None):
     params = init_model(args.seed, cfg, device=device)
     max_len = args.max_len or (args.prompt_len + args.new_tokens + 16)
     dsa_on = args.dsa and cfg.dsa.enabled
+    if args.paged:
+        page = cache_page_size(cfg, RunFlags(mode="decode",
+                                             long_context=dsa_on))
+        max_len = -(-max_len // page) * page
     config = ServingConfig(max_len=max_len, long_context=dsa_on,
                            dsa_mode=args.dsa_mode if dsa_on else "off",
-                           loop=args.loop)
+                           loop=args.loop, slots=args.slots or args.batch,
+                           seg_len=args.seg_len,
+                           chunk_tokens=args.chunk_tokens, paged=args.paged,
+                           pool_pages=args.pool_pages or None)
+    if args.continuous:
+        return _serve_continuous(cfg, args, params, config, device)
     eng = Engine(cfg, params, config=config, device=device)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(1, cfg.vocab - 4,

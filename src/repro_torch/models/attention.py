@@ -18,17 +18,35 @@ step's selection is a top-k over S/block_k block scores.  ``dsa_mode``:
 
 ``faithful`` (token-granularity decode) is not ported yet and raises.
 
+Continuous batching: ``pos`` is per slot, (B,), so every batch row decodes
+at its own depth, and decode takes an optional ``Active`` (a (B,) mask
+and the indices of its rows): an inactive row writes nothing, does not
+advance ``pos`` and attends with ``kv_len = 0``.  ``chunk_len`` switches decode to the chunk-append path
+(chunked admission, ``_apply_chunk``): C tokens per row appended at
+``pos``, with the DSA chunk kernel K3 (``kernels.ops.dsa_chunk_prefill``)
+on ``dsa_mode="kernel"``.  A cache built with ``pages=`` is PAGED: flat
+k/v/kt pools shared by all slots, one ``ktb`` row per page, and a
+per-slot ``page_tbl`` over the logical geometry; page 0 is the permanent
+zero page.  Paged decode gathers through the table, with K4
+(``kernels.ops.dsa_decode_paged``) on ``dsa_mode="kernel"``.
+
 Caches are updated IN PLACE (the JAX reference returns new trees): each
 layer's cache dict is written row by row during decode, and prefill fills
 it in place.  Cache writes never go out of range: the write slot wraps as
 ``pos % s`` once ``pos`` reaches the cache length, exactly the slot the
 reference's ring formula picks, so the surplus steps of a bucketed step
 count (which the reference also runs) write where the reference writes.
+Where the reference drops a write by pushing its index out of bounds,
+the port leaves it out or sends it where it changes nothing: a dense
+decode step writes only its active rows (``Active.rows``); a paged write
+that must not land (an inactive row, an unmapped block) writes zeros into
+the zero page; a chunk row past the cache end writes back what its
+target holds (``_write_rows``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -36,12 +54,17 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import attention as A
 from repro_torch.core import masks as M
 from repro_torch.core import prediction as PRED
-from repro_torch.core.prediction import mm
+from repro_torch.core.prediction import einsum, mm
 from repro_torch.kernels import ops
 from repro_torch.models.common import dense_init, rope
 
 # Trailing tokens always attended at decode.
 DECODE_LOCAL = 64
+
+# Rows of one physical page of a paged cache when the arch has no DSA
+# decode cache (with one, a page is cfg.dsa.block_k rows, so a selected
+# block IS a page).
+PAGE_SIZE = 16
 
 DSA_MODES = ("off", "faithful", "block", "kernel")
 
@@ -56,6 +79,31 @@ class RunFlags:
 
 def dsa_active(cfg: ArchConfig, flags: RunFlags) -> bool:
     return cfg.dsa.enabled and flags.dsa_mode != "off"
+
+
+@dataclasses.dataclass(frozen=True)
+class Active:
+    """The rows of a batch that take part in a decode step: ``mask`` (B,)
+    bool and ``rows``, the int64 indices of its True entries (the rows
+    that write)."""
+    mask: torch.Tensor
+    rows: torch.Tensor
+
+
+def as_active(active) -> Optional[Active]:
+    """A decode step's ``active`` argument (None, an ``Active`` or a (B,)
+    bool mask) as an ``Active``.  A bare mask costs a host sync to find
+    its rows."""
+    if active is None or isinstance(active, Active):
+        return active
+    return Active(active, active.nonzero()[:, 0])
+
+
+def cache_page_size(cfg: ArchConfig, flags: RunFlags) -> int:
+    """Row count of one physical page of a paged resident cache."""
+    dsa_decode = (cfg.dsa.enabled and flags.long_context
+                  and not cfg.swa_window)
+    return cfg.dsa.block_k if dsa_decode else PAGE_SIZE
 
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig, *, device,
@@ -119,11 +167,23 @@ def _dsa_prefill_pattern(params, cfg: ArchConfig, flags: RunFlags, x,
 
 
 def apply_attention(params, cfg: ArchConfig, flags: RunFlags, x, *,
-                    cache=None, causal: bool = True):
+                    cache=None, causal: bool = True, active=None,
+                    chunk_len=None, sel_len=None):
     """Returns (out, cache).  x: (B, S, d).  With a cache, prefill fills
-    it and decode appends one row per batch row, both in place."""
+    it and decode appends one row per batch row, both in place.
+    ``active`` (an ``Active``) freezes the other rows at decode; ``chunk_len``
+    (B,) switches decode to the chunk-append path (x is a C-token chunk
+    per row, rows past chunk_len are padding) with ``sel_len`` its
+    selection geometry."""
     if flags.mode == "decode":
-        return _apply_decode(params, cfg, flags, x, cache)
+        if "page_tbl" in cache:
+            if chunk_len is not None:
+                raise ValueError("paged caches decode one token at a time")
+            return _apply_paged_decode(params, cfg, flags, x, cache, active)
+        if chunk_len is not None:
+            return _apply_chunk(params, cfg, flags, x, cache, active,
+                                chunk_len, sel_len)
+        return _apply_decode(params, cfg, flags, x, cache, active)
     dsa = cfg.dsa
     q, k, v = _proj_qkv(params, cfg, x)
     pos = torch.arange(x.shape[1], device=x.device)
@@ -153,12 +213,19 @@ def apply_attention(params, cfg: ArchConfig, flags: RunFlags, x, *,
 
 
 def init_cache_attention(cfg: ArchConfig, batch: int, max_len: int,
-                         flags: RunFlags, *, device,
-                         dtype=torch.bfloat16) -> Dict:
+                         flags: RunFlags, *, device, dtype=torch.bfloat16,
+                         pages=None) -> Dict:
     """Dense cache layout: k/v (B, S, Hkv, hd), per-row ``pos`` (B,), and
     with DSA decode the kt (B, S, k) / ktb (B, S/block_k, k) caches.  S is
     rounded up to a block_k multiple on the DSA decode path (the gather
-    paths then never pad the cache)."""
+    paths then never pad the cache).
+
+    ``pages``: the PAGED layout instead, one flat pool of ``pages`` pages
+    of ``bk = cache_page_size`` rows: k/v (pages*bk, Hkv, hd), kt
+    (pages*bk, k), one ktb row per page (pages, k), and ``page_tbl``
+    (B, S/bk) mapping each slot's logical block to its page.  Page 0 is
+    the permanent zero page: never allocated, never written, so an
+    unmapped table entry reads zero rows."""
     if cfg.swa_window:
         raise NotImplementedError("sliding-window (ring) caches are not "
                                   "ported to repro_torch yet")
@@ -168,6 +235,21 @@ def init_cache_attention(cfg: ArchConfig, batch: int, max_len: int,
     if dsa_decode:
         s = -(-s // cfg.dsa.block_k) * cfg.dsa.block_k
     kw = dict(device=device, dtype=dtype)
+    if pages is not None:
+        bk = cache_page_size(cfg, flags)
+        if s % bk:
+            raise ValueError(f"a paged cache needs max_len ({s}) divisible "
+                             f"by the page size ({bk})")
+        c = {"k": torch.zeros((pages * bk, cfg.n_kv_heads, hd), **kw),
+             "v": torch.zeros((pages * bk, cfg.n_kv_heads, hd), **kw),
+             "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+             "page_tbl": torch.zeros((batch, s // bk), dtype=torch.int32,
+                                     device=device)}
+        if dsa_decode:
+            kp = PRED.predictor_k(cfg.d_model, cfg.dsa.sigma)
+            c["kt"] = torch.zeros((pages * bk, kp), **kw)
+            c["ktb"] = torch.zeros((pages, kp), **kw)
+        return c
     c = {"k": torch.zeros((batch, s, cfg.n_kv_heads, hd), **kw),
          "v": torch.zeros((batch, s, cfg.n_kv_heads, hd), **kw),
          "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
@@ -203,8 +285,44 @@ def _fill_cache(cfg: ArchConfig, cache: Dict, k, v, params, x) -> None:
                                        cache["ktb"].shape[1]))
 
 
-def _apply_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache):
-    """Single-token decode: every batch row at its own ``pos``."""
+def _write_rows(t: torch.Tensor, pos: torch.Tensor, vals: torch.Tensor,
+                ok: torch.Tensor) -> None:
+    """In place: ``t[b, pos[b, i]] = vals[b, i]`` where ``ok[b, i]`` and
+    the position lies in the cache (the reference drops the rest out of
+    bounds).  ``pos`` (B, W) holds consecutive positions per row.  Entries
+    that do not write put back what their target holds, and their targets
+    never meet a real write of the row: an in-cache entry targets its own
+    row, an entry past the end a row before the row's first position."""
+    s = t.shape[1]
+    w = min(pos.shape[1], s)          # entries past the first S never land
+    pos, vals, ok = pos[:, :w], vals[:, :w], ok[:, :w]
+    inb = pos < s
+    tgt = torch.where(inb, pos, pos - w).clamp(0, s - 1)
+    rows = torch.arange(t.shape[0], device=t.device)[:, None]
+    put = (ok & inb).reshape(*ok.shape, *([1] * (vals.dim() - 2)))
+    t[rows, tgt] = torch.where(put, vals.to(t.dtype), t[rows, tgt])
+
+
+def _pool_write(pool: torch.Tensor, flat: torch.Tensor, vals: torch.Tensor,
+                ok: torch.Tensor) -> None:
+    """In place: ``pool[flat[i]] = vals[i]`` where ``ok[i]``.  The other
+    entries write zeros into row 0 of the zero page, which no real write
+    targets (mapped pages are >= 1) and which stays zero."""
+    put = ok.reshape(-1, *([1] * (vals.dim() - 1)))
+    pool[torch.where(ok, flat, 0)] = torch.where(put, vals, 0).to(pool.dtype)
+
+
+def _written(vals: torch.Tensor, active: Optional[Active]) -> torch.Tensor:
+    """The per-row values (B, ...) of a dense decode step that are
+    written: every row's, or the active rows'."""
+    return vals if active is None else vals[active.rows]
+
+
+def _apply_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache,
+                  active: Optional[Active] = None):
+    """Single-token decode: every batch row at its own ``pos``.  With
+    ``active`` given, only its rows write and advance ``pos``; the others
+    attend with kv_len = 0."""
     b = x.shape[0]
     pos = cache["pos"].long()                              # (B,)
     q, k, v = _proj_qkv(params, cfg, x)
@@ -212,49 +330,276 @@ def _apply_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache):
     k = rope(k, pos[:, None], cfg.rope_theta)
     s = cache["k"].shape[1]
     slot = torch.where(pos < s, pos, pos % s)              # ring wrap
-    rows = torch.arange(b, device=x.device)
     kc, vc = cache["k"], cache["v"]
-    kc[rows, slot] = k[:, 0].to(kc.dtype)
-    vc[rows, slot] = v[:, 0].to(vc.dtype)
-    cache["pos"] = (pos + 1).to(torch.int32)
     kv_len = torch.clamp(pos + 1, max=s).to(torch.int32)
+    if active is None:
+        tgt = (torch.arange(b, device=x.device), slot)
+        cache["pos"] = (pos + 1).to(torch.int32)
+    else:
+        tgt = (active.rows, slot[active.rows])
+        cache["pos"] = (pos + active.mask).to(torch.int32)
+        kv_len = torch.where(active.mask, kv_len, 0)
+    kc[tgt] = _written(k[:, 0], active).to(kc.dtype)
+    vc[tgt] = _written(v[:, 0], active).to(vc.dtype)
     if "kt" in cache:
-        out = _dsa_decode(params, cfg, flags, x, q, cache, slot, kv_len)
+        out = _dsa_decode(params, cfg, flags, x, q, cache, tgt, kv_len,
+                          active)
     else:
         out = A.decode_attention(q, kc, vc, kv_len=kv_len)
     out = mm(out.reshape(b, 1, -1), params["wo"])
     return out, cache
 
 
+def _decode_select(cfg: ArchConfig, q_t, ktb_view, kv_len, s: int):
+    """Block top-k over the pooled score cache (B, n_kb, k): (idx, ok)."""
+    dsa = cfg.dsa
+    bkd = dsa.block_k
+    n_kb = ktb_view.shape[1]
+    s_blk = torch.einsum("bok,bjk->bj", q_t.float(), ktb_view.float()) / bkd
+    keep = M.keep_count(s, dsa.sparsity)
+    nb_keep = min(n_kb, -(-keep // bkd) + -(-DECODE_LOCAL // bkd) + 1)
+    return M.decode_block_topk_indices(s_blk, nb_keep, kv_len=kv_len,
+                                       block_k=bkd, local=DECODE_LOCAL)
+
+
 def _dsa_decode(params, cfg: ArchConfig, flags: RunFlags, x, q, cache,
-                slot, kv_len):
-    """DSA long-context decode step: update kt/ktb in place, select cache
-    blocks from predicted block scores, gather + attend.  Returns the
-    attention output (B, 1, Hq, hd)."""
+                tgt, kv_len, active: Optional[Active] = None):
+    """DSA long-context decode step: update kt/ktb in place at the rows
+    and slots ``tgt`` that write, select cache blocks from predicted block
+    scores, gather + attend.  Returns the attention output (B, 1, Hq,
+    hd)."""
     dsa = cfg.dsa
     kc, vc = cache["k"], cache["v"]
-    b, s = kc.shape[0], kc.shape[1]
-    rows = torch.arange(b, device=x.device)
+    s = kc.shape[1]
     q_t, k_t = PRED.predict_qk(params["dsa"], x, None, dsa.quant_bits)
-    cache["kt"][rows, slot] = k_t[:, 0].to(cache["kt"].dtype)
+    kt = _written(k_t[:, 0], active)
+    cache["kt"][tgt] = kt.to(cache["kt"].dtype)
     if flags.dsa_mode == "off":
         return A.decode_attention(q, kc, vc, kv_len=kv_len)
     if flags.dsa_mode not in ("block", "kernel"):
         raise NotImplementedError(
             f"dsa_mode={flags.dsa_mode!r} decode is not ported yet")
-    keep = M.keep_count(s, dsa.sparsity)
     bkd = dsa.block_k
-    n_kb = cache["ktb"].shape[1]
     # the slot being written is still zero (only a surplus step of a
     # bucketed step count can wrap, and its token is dropped), so a plain
-    # add keeps the block sum exact for every delivered token
-    cache["ktb"][rows, slot // bkd] += k_t[:, 0].to(cache["ktb"].dtype)
-    s_blk = torch.einsum("bok,bjk->bj", q_t.float(),
-                         cache["ktb"].float()) / bkd
-    nb_keep = min(n_kb, -(-keep // bkd) + -(-DECODE_LOCAL // bkd) + 1)
-    idx, ok = M.decode_block_topk_indices(s_blk, nb_keep, kv_len=kv_len,
-                                          block_k=bkd, local=DECODE_LOCAL)
+    # add keeps the block sum exact for every delivered token; the rows of
+    # tgt are distinct, so a gather-add-scatter needs no accumulating
+    # index_put (which sorts its indices on the card)
+    cache["ktb"][tgt[0], tgt[1] // bkd] += kt.to(cache["ktb"].dtype)
+    idx, ok = _decode_select(cfg, q_t, cache["ktb"], kv_len, s)
     if flags.dsa_mode == "kernel":
         return ops.dsa_decode(q, kc, vc, idx, ok, kv_len, block_k=bkd)
     return A.dsa_decode_block_attention(q, kc, vc, idx, ok, block_k=bkd,
                                         kv_len=kv_len)
+
+
+# -- paged decode (page-table indirection over a shared page pool) ---------
+
+
+def _paged_view_rows(tbl: torch.Tensor, bk: int) -> torch.Tensor:
+    """(B, S) pool row of every logical cache row of every slot.  Indexing
+    a pool with it gives the dense logical view (unmapped blocks read the
+    zero page), so every O(S) read path sees the dense cache's bytes."""
+    b, n_kb = tbl.shape
+    return (tbl.long()[:, :, None] * bk + torch.arange(
+        bk, device=tbl.device)[None, None, :]).reshape(b, n_kb * bk)
+
+
+def _apply_paged_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache,
+                        active: Optional[Active] = None):
+    """Single-token decode on a PAGED cache.  The logical write slot goes
+    through ``page_tbl`` to a pool row; an inactive row, or a slot whose
+    block is unmapped (page 0), writes nothing.  Off-mode and dense decode
+    gather the logical view; block/kernel DSA decode translate the
+    selected logical blocks to pages after top-k and gather those."""
+    b = x.shape[0]
+    pos = cache["pos"].long()                              # (B,)
+    q, k, v = _proj_qkv(params, cfg, x)
+    q = rope(q, pos[:, None], cfg.rope_theta)
+    k = rope(k, pos[:, None], cfg.rope_theta)
+    tbl = cache["page_tbl"].long()
+    n_kb = tbl.shape[1]
+    bk = cache_page_size(cfg, flags)
+    s = n_kb * bk                                          # logical length
+    rows = torch.arange(b, device=x.device)
+    pg = tbl[rows, (pos // bk).clamp(0, n_kb - 1)]
+    okw = (pos < s) & (pg > 0)
+    kv_len = torch.clamp(pos + 1, max=s).to(torch.int32)
+    if active is None:
+        cache["pos"] = (pos + 1).to(torch.int32)
+    else:
+        okw &= active.mask
+        cache["pos"] = (pos + active.mask).to(torch.int32)
+        kv_len = torch.where(active.mask, kv_len, 0)
+    flat = pg * bk + pos % bk
+    kc, vc = cache["k"], cache["v"]
+    _pool_write(kc, flat, k[:, 0], okw)
+    _pool_write(vc, flat, v[:, 0], okw)
+    view = _paged_view_rows(tbl, bk)                       # (B, S)
+    if "kt" in cache:
+        out = _dsa_paged_decode(params, cfg, flags, x, q, cache, flat, okw,
+                                pg, kv_len, view)
+    else:
+        out = A.decode_attention(q, kc[view], vc[view], kv_len=kv_len)
+    out = mm(out.reshape(b, 1, -1), params["wo"])
+    return out, cache
+
+
+def _dsa_paged_decode(params, cfg: ArchConfig, flags: RunFlags, x, q, cache,
+                      flat, okw, pg, kv_len, view):
+    """The paged twin of ``_dsa_decode``: kt writes reuse the translated
+    pool row; ktb has one row per page, so the row a write adds to IS the
+    write's page.  Selection scores the logical ktb view ``ktb[tbl]``
+    and the selected logical blocks become pages only for the gather."""
+    dsa = cfg.dsa
+    bk = dsa.block_k
+    kc, vc = cache["k"], cache["v"]
+    q_t, k_t = PRED.predict_qk(params["dsa"], x, None, dsa.quant_bits)
+    _pool_write(cache["kt"], flat, k_t[:, 0], okw)
+    if flags.dsa_mode == "off":
+        return A.decode_attention(q, kc[view], vc[view], kv_len=kv_len)
+    if flags.dsa_mode not in ("block", "kernel"):
+        raise NotImplementedError(
+            f"dsa_mode={flags.dsa_mode!r} decode is not ported yet")
+    # a write that does not land adds zero to the zero page's row: every
+    # such entry stores 0 + 0 there, and the real targets (the slots'
+    # own pages) are distinct, so no accumulating index_put is needed
+    cache["ktb"][torch.where(okw, pg, 0)] += torch.where(
+        okw[:, None], k_t[:, 0], 0).to(cache["ktb"].dtype)
+    tbl = cache["page_tbl"].long()
+    idx, ok = _decode_select(cfg, q_t, cache["ktb"][tbl], kv_len,
+                             view.shape[1])
+    pidx = torch.gather(tbl, 1, idx.long()).to(torch.int32)
+    if flags.dsa_mode == "kernel":
+        return ops.dsa_decode_paged(q, kc, vc, idx, pidx, ok, kv_len,
+                                    block_k=bk)
+    return A.dsa_decode_paged_block_attention(q, kc, vc, idx, pidx, ok,
+                                              block_k=bk, kv_len=kv_len)
+
+
+# -- chunk-append path (chunked admission) ----------------------------------
+
+
+def _apply_chunk(params, cfg: ArchConfig, flags: RunFlags, x, cache,
+                 active: Optional[Active], chunk_len, sel_len=None):
+    """C-token chunk append: the decode step generalised from 1 token.
+
+    x: (B, C, d), each row's next C prompt tokens, right-padded;
+    chunk_len: (B,) true token count per row.  Writes C rows at the
+    per-row ``pos`` (pad rows as ZEROS: the state ``truncate_cache``
+    leaves), advances ``pos`` by chunk_len, extends kt and ktb, and
+    attends each chunk query to the cache prefix and the intra-chunk
+    causal triangle.  ``sel_len`` (default the cache length) is the
+    selection and attention GEOMETRY: masks, softmax widths and the DSA
+    block top-k see exactly sel_len keys, so chunks over a prompt-bucket
+    cache reproduce a whole-prompt bucketed prefill.  Inactive rows write
+    nothing and do not advance.  On the DSA block path C and ``pos`` are
+    multiples of block_q and block_k (the scheduler's chunk widths are).
+    """
+    if cfg.swa_window:
+        raise NotImplementedError("chunk append needs a non-wrapping cache")
+    b, c = x.shape[:2]
+    kc, vc = cache["k"], cache["v"]
+    sel = kc.shape[1] if sel_len is None else sel_len
+    pos = cache["pos"].long()                              # (B,)
+    q, k, v = _proj_qkv(params, cfg, x)
+    offs = torch.arange(c, device=x.device)
+    p = pos[:, None] + offs[None, :]                       # (B, C) global
+    q = rope(q, p, cfg.rope_theta)
+    k = rope(k, p, cfg.rope_theta)
+    act = (torch.ones((b,), dtype=torch.bool, device=x.device)
+           if active is None else active.mask)
+    live = (offs[None, :] < chunk_len.long()[:, None]) & act[:, None]
+    wok = act[:, None].expand(b, c)        # active rows write all C rows
+    lv = live[..., None, None]
+    _write_rows(kc, p, torch.where(lv, k, 0), wok)
+    _write_rows(vc, p, torch.where(lv, v, 0), wok)
+    adv = torch.where(act, chunk_len.long(), 0)
+    cache["pos"] = (pos + adv).to(torch.int32)
+    kv_len = (pos + adv).to(torch.int32)
+    if "kt" in cache:
+        q_t, ktv = _chunk_fill_pred(params, cfg, x, cache, p, live, wok,
+                                    pos, act)
+        if dsa_active(cfg, flags):
+            out = _dsa_chunk_attend(cfg, flags, q, kc[:, :sel], vc[:, :sel],
+                                    q_t, cache["kt"][:, :sel], p, pos,
+                                    kv_len)
+        else:
+            out = A.chunk_attention(q, kc[:, :sel], vc[:, :sel], p)
+        # the selection saw the chunk's pad rows of kt (as whole-prompt
+        # prefill does); the cache keeps them as zeros
+        _write_rows(cache["kt"], p, ktv, wok)
+    else:
+        out = A.chunk_attention(q, kc[:, :sel], vc[:, :sel], p)
+    out = mm(out.reshape(b, c, -1), params["wo"])
+    return out, cache
+
+
+def _chunk_fill_pred(params, cfg: ArchConfig, x, cache, p, live, wok, pos,
+                     act):
+    """Extend the predicted-key caches with a chunk, without a rebuild.
+
+    Writes the chunk's K~ rows UNMASKED into kt (whole-prompt prefill
+    scores the pad rows' K~ during selection, causality hides them) and
+    adds the chunk's per-block partial sums of the MASKED rows into ktb
+    (the chunk is block_k aligned, so each touched block is summed as the
+    truncate rebuild sums it).  Returns Q~ and the masked K~ rows, which
+    the caller writes into kt once the selection has run."""
+    dsa = cfg.dsa
+    b, c = x.shape[:2]
+    q_t, k_t = PRED.predict_qk(params["dsa"], x, None, dsa.quant_bits)
+    _write_rows(cache["kt"], p, k_t, wok)
+    ktv = torch.where(live[..., None], k_t, 0)
+    bkd = dsa.block_k
+    if c % bkd:
+        raise ValueError(f"chunk width {c} is not a multiple of block_k "
+                         f"{bkd}")
+    ktb = cache["ktb"]
+    n_kb = ktb.shape[1]
+    jb = (pos // bkd)[:, None] + torch.arange(c // bkd, device=x.device)
+    okb = act[:, None] & (jb < n_kb)
+    part = ktv.reshape(b, c // bkd, bkd, -1).sum(dim=2)
+    rows = torch.arange(b, device=x.device)[:, None].expand_as(jb)
+    # blocks past the cache or of inactive rows add zero to the last block
+    ktb.index_put_((rows, jb.clamp(max=n_kb - 1)),
+                   torch.where(okb[..., None], part, 0).to(ktb.dtype),
+                   accumulate=True)
+    return q_t, ktv
+
+
+def _dsa_chunk_attend(cfg: ArchConfig, flags: RunFlags, q, kc, vc, q_t,
+                      kt_sel, p, pos, kv_len):
+    """DSA pattern + sparse attention for a chunk: the whole-prompt
+    granularity choice made on the CACHE length (the prompt bucket).
+    Token granularity when that geometry is not block-divisible (or in
+    faithful mode), else block-pooled selection feeding the plain gather
+    twin or the chunk kernel K3.  ``kt_sel`` (B, S, k) holds the chunk's
+    unmasked K~ rows; ``p`` (B, C) are the chunk queries' global
+    positions, ``pos`` (B,) the chunk start."""
+    dsa = cfg.dsa
+    b, c = q.shape[:2]
+    s = kc.shape[1]
+    if flags.dsa_mode == "faithful" or s % dsa.block_q or s % dsa.block_k:
+        s_t = einsum("bqk,bsk->bqs", q_t, kt_sel)
+        valid = torch.arange(s, device=q.device)[None, None, :] <= p[:, :, None]
+        mask = M.row_topk_mask(s_t, M.keep_count(s, dsa.sparsity), valid)
+        return A.chunk_attention(q, kc, vc, p, token_mask=mask)
+    bq, bkd = dsa.block_q, dsa.block_k
+    if c % bq:
+        raise ValueError(f"chunk width {c} is not a multiple of block_q "
+                         f"{bq}")
+    n_kb = s // bkd
+    q_blk = q_t.reshape(b, c // bq, bq, -1).mean(dim=2)
+    sc = einsum("bqk,bsk->bqs", q_blk, kt_sel)             # (B, nQb, S)
+    bs = sc.reshape(b, c // bq, n_kb, bkd).amax(dim=-1)
+    nb_keep = min(n_kb, max(dsa.min_blocks + dsa.local_blocks,
+                            M.keep_count(n_kb, dsa.sparsity)))
+    idx, ok = M.chunk_block_topk_indices(
+        bs, nb_keep, q_block_offset=pos // bq,
+        local_blocks=dsa.local_blocks, sort=dsa.sort_indices)
+    if flags.dsa_mode == "kernel":
+        return ops.dsa_chunk_prefill(q, kc, vc, idx, ok, pos, kv_len,
+                                     block_q=bq, block_k=bkd)
+    return A.dsa_chunk_block_attention(q, kc, vc, idx, ok, block_q=bq,
+                                       block_k=bkd, q_offset=pos,
+                                       kv_len=kv_len)

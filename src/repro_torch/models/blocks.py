@@ -61,19 +61,21 @@ def init_subblock(gen: torch.Generator, cfg: ArchConfig, d: SubBlockDef, *,
 
 def init_subblock_cache(cfg: ArchConfig, d: SubBlockDef, batch: int,
                         max_len: int, flags: RunFlags, *, device,
-                        dtype=torch.bfloat16) -> Dict:
+                        dtype=torch.bfloat16, pages=None) -> Dict:
     return {"attn": init_cache_attention(cfg, batch, max_len, flags,
-                                         device=device, dtype=dtype)}
+                                         device=device, dtype=dtype,
+                                         pages=pages)}
 
 
 def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
-                   x, cache=None):
+                   x, cache=None, **step):
     """Pre-norm residual block.  Returns (x, cache); the cache is updated
-    in place."""
+    in place.  ``step``: the decode-time ``active``, ``chunk_len`` and
+    ``sel_len`` of ``apply_attention``."""
     h = rms_norm(x, params["norm1"].to(x.dtype), cfg.norm_eps)
     y, _ = apply_attention(params["attn"], cfg, flags, h,
                            cache=None if cache is None else cache["attn"],
-                           causal=d.causal)
+                           causal=d.causal, **step)
     x = x + y
     h = rms_norm(x, params["norm2"].to(x.dtype), cfg.norm_eps)
     x = x + apply_mlp(params["mlp"], h)
@@ -87,8 +89,9 @@ def init_group(gen: torch.Generator, cfg: ArchConfig, *, device,
 
 
 def apply_group(params, cfg: ArchConfig, flags: RunFlags, defs, x,
-                cache=None):
+                cache=None, **step):
     for i, d in enumerate(defs):
         x, _ = apply_subblock(params[f"b{i}"], cfg, flags, d, x,
-                              cache=None if cache is None else cache[f"b{i}"])
+                              cache=None if cache is None else cache[f"b{i}"],
+                              **step)
     return x, cache

@@ -3,8 +3,11 @@
 Public API:
   init_model(seed, cfg, device=None)          -> params
   forward(params, cfg, flags, tokens, caches) -> (logits, caches)
-  decode_step(params, cfg, flags, tokens, caches) -> (logits, caches)
-  init_cache(cfg, batch, max_len, flags, ...) -> caches
+  decode_step(params, cfg, flags, tokens, caches, active=None)
+                                              -> (logits, caches)
+  chunk_step(params, cfg, flags, tokens, caches, chunk_len, active=None,
+             sel_len=None)                    -> (logits, caches)
+  init_cache(cfg, batch, max_len, flags, ..., pages=None) -> caches
   truncate_cache(cfg, caches, length)         -> caches (in place)
 
 Parameters are nested dicts of tensors, one dict per group in
@@ -24,7 +27,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.prediction import mm
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
-from repro_torch.models.attention import RunFlags, _block_sums
+from repro_torch.models.attention import RunFlags, _block_sums, as_active
 from repro_torch.models.common import dense_init, rms_norm
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -49,32 +52,70 @@ def init_model(seed: int, cfg: ArchConfig, *, device=None) -> Dict[str, Any]:
 
 
 def forward(params, cfg: ArchConfig, flags: RunFlags, tokens: torch.Tensor,
-            caches=None):
-    """tokens: (B, S) int.  Returns (logits (B, S, V), caches)."""
+            caches=None, **step):
+    """tokens: (B, S) int.  Returns (logits (B, S, V), caches).  ``step``:
+    the decode-time ``active``, ``chunk_len`` and ``sel_len`` (see
+    ``decode_step`` and ``chunk_step``)."""
     x = params["embed"][tokens.long()].to(DTYPES[cfg.dtype])
     defs = B.group_defs(cfg)
     for i, gp in enumerate(params["groups"]):
         c = None if caches is None else caches["groups"][i]
-        x, _ = B.apply_group(gp, cfg, flags, defs, x, cache=c)
+        x, _ = B.apply_group(gp, cfg, flags, defs, x, cache=c, **step)
     x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
     return mm(x, head.to(x.dtype)), caches
 
 
-def decode_step(params, cfg: ArchConfig, flags: RunFlags, tokens, caches):
-    """tokens: (B, 1).  Returns (logits (B, 1, V), caches)."""
+def decode_step(params, cfg: ArchConfig, flags: RunFlags, tokens, caches,
+                active=None):
+    """tokens: (B, 1).  Returns (logits (B, 1, V), caches).
+
+    active: optional continuous-batching slot mask: a (B,) bool mask, or
+    a ``models.attention.Active`` holding it and the indices of its rows
+    (a bare mask costs a host sync to find them).  An inactive row writes
+    nothing, keeps its ``pos`` and attends nothing (its logits are
+    garbage and must be ignored)."""
     if flags.mode != "decode":
         raise ValueError("decode_step needs RunFlags(mode='decode')")
-    return forward(params, cfg, flags, tokens, caches)
+    return forward(params, cfg, flags, tokens, caches,
+                   active=as_active(active))
+
+
+def chunk_step(params, cfg: ArchConfig, flags: RunFlags, tokens, caches,
+               chunk_len, active=None, sel_len=None):
+    """``decode_step`` generalised from 1 token to a C-token chunk
+    (chunked admission).  tokens: (B, C), each row's next C prompt tokens
+    appended at its ``pos``, right-padded; chunk_len: (B,) true token
+    count per row.  Returns (logits (B, C, V), caches).
+
+    Every layer writes its C rows at ``pos`` (pad rows as zeros, the
+    truncate_cache state), advances ``pos`` by chunk_len, extends ktb by
+    a scatter-add of per-block partial sums, and attends the chunk to the
+    cache prefix and its own causal triangle.  ``sel_len`` (default the
+    cache length) is the selection and attention geometry: chunks over a
+    prompt-bucket cache leave the cache (and final-row logits) of a
+    whole-prompt bucketed prefill.  Logits rows at or past chunk_len are
+    garbage; inactive rows freeze.  On the DSA block path C and ``pos``
+    are multiples of block_q and block_k.  Dense caches only."""
+    if flags.mode != "decode":
+        raise ValueError("chunk_step needs RunFlags(mode='decode')")
+    return forward(params, cfg, flags, tokens, caches,
+                   active=as_active(active), chunk_len=chunk_len,
+                   sel_len=sel_len)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, flags: RunFlags,
-               *, dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+               *, dtype=torch.bfloat16, device=None, pages=None
+               ) -> Dict[str, Any]:
+    """pages: page count of a PAGED cache: every layer's k/v (and DSA
+    kt/ktb) become flat page pools indirected by a per-slot ``page_tbl``
+    over the logical [0, max_len) geometry (see
+    models.attention.init_cache_attention)."""
     dev = resolve_device(device)
     defs = B.group_defs(cfg)
     return {"groups": [
         {f"b{i}": B.init_subblock_cache(cfg, d, batch, max_len, flags,
-                                        device=dev, dtype=dtype)
+                                        device=dev, dtype=dtype, pages=pages)
          for i, d in enumerate(defs)}
         for _ in range(B.n_groups(cfg))]}
 

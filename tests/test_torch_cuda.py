@@ -1,4 +1,4 @@
-"""The CUDA kernels K1 and K2 on the card against their plain versions.
+"""The CUDA kernels K1 to K4 on the card against their plain versions.
 
 Needs a CUDA card and the CUDA toolkit; skips without a card.  Imports
 neither JAX nor the reference, so it runs where only PyTorch is installed:
@@ -13,8 +13,9 @@ result to bf16 once, and one bf16 step is at most 2^-7 of the value).
 import pytest
 import torch
 
-from repro_torch.core.masks import block_topk_indices
+from repro_torch.core.masks import block_topk_indices, chunk_block_topk_indices
 from repro_torch.kernels import dsa_attention as K2
+from repro_torch.kernels import dsa_chunk_prefill as K3
 from repro_torch.kernels import dsa_decode as K1
 
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-4, 1e-2)}
@@ -99,3 +100,76 @@ def test_cuda_k2_bf16_refuses_tiles_the_mma_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="tensor-core"):
         K2.dsa_block_sparse_attention(q, q, q, idx, idx, block_q=8,
                                       block_k=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,cdt", [(torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32)],
+                         ids=["bf16-f32", "bf16-bf16", "f32-f32"])
+def test_cuda_k3_matches_plain(cuda_device, qdt, cdt):
+    """K3 (chunk prefill) against its plain version: ragged chunk offsets
+    and cache lengths, a partial last chunk, and a cache whose length is
+    not a block multiple; tolerance by the query's dtype."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    b, hq, hkv, hd, s, c, blk = 2, 8, 2, 32, 100, 32, 16
+    q = torch.randn((b, hq, c, hd), generator=gen, device=cuda_device).to(qdt)
+    kc, vc = (torch.randn((b, s, hkv, hd), generator=gen,
+                          device=cuda_device).to(cdt) for _ in range(2))
+    q_off = torch.tensor([64, 32], dtype=torch.int32, device=cuda_device)
+    kv_len = torch.tensor([100, 37], dtype=torch.int32, device=cuda_device)
+    bs = torch.randn((b, c // blk, -(-s // blk)), generator=gen,
+                     device=cuda_device)
+    idx, ok = chunk_block_topk_indices(bs, 3, q_block_offset=q_off // blk)
+    args = (q, kc, vc, idx, ok, q_off, kv_len)
+    got = K3.dsa_chunk_gather_attention(*args, block_q=blk, block_k=blk)
+    want = K3.dsa_chunk_gather_attention_plain(*args, block_q=blk,
+                                               block_k=blk)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[qdt]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_k4_matches_plain_and_equals_k1(cuda_device, cdt):
+    """K4 (paged decode) against its plain version, and bit for bit
+    against K1 on a pool that holds K1's cache under a shuffled page
+    table."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    b, hq, hkv, hd, s, bk = 2, 32, 4, 128, 1024, 128
+    n_kb = s // bk
+    q = torch.randn((b, hq, 1, hd), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    kc, vc = (torch.randn((b, s, hkv, hd), generator=gen,
+                          device=cuda_device).to(cdt) for _ in range(2))
+    kv_len = torch.tensor([s - 5, 641], dtype=torch.int32,
+                          device=cuda_device)
+    idx = torch.tensor([[0, 3, 6, 7], [1, 2, 5, 0]], dtype=torch.int32,
+                       device=cuda_device)
+    ok = torch.tensor([[1, 1, 1, 1], [1, 1, 1, 0]], dtype=torch.bool,
+                      device=cuda_device)
+    pages = torch.randperm(b * n_kb, generator=torch.Generator().manual_seed(
+        4)).to(cuda_device) + 1
+    tbl = pages.reshape(b, n_kb)
+    pool_k = torch.zeros(((b * n_kb + 1) * bk, hkv, hd), dtype=cdt,
+                         device=cuda_device)
+    pool_v = torch.zeros_like(pool_k)
+    rows = (tbl[:, :, None] * bk + torch.arange(bk, device=cuda_device)
+            ).reshape(b, s)
+    pool_k[rows] = kc
+    pool_v[rows] = vc
+    pidx = torch.gather(tbl, 1, idx.long()).to(torch.int32)
+    got = K1.dsa_decode_paged_gather_attention(q, pool_k, pool_v, idx, pidx,
+                                               ok, kv_len, block_k=bk)
+    want = K1.dsa_decode_paged_gather_attention_plain(
+        q, pool_k, pool_v, idx, pidx, ok, kv_len, block_k=bk)
+    dense = K1.dsa_decode_gather_attention(q, kc, vc, idx, ok, kv_len,
+                                           block_k=bk)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert torch.equal(got, dense)
