@@ -15,16 +15,25 @@ fails:
      a bf16 and the default f32 cache, and f32; K2 bf16 and f32; K3 every
      dtype pair; K4 also at the continuous slice's shape: 64 logical
      blocks, a 257-page pool, 9 blocks selected), each within a stated
-     atol + rtol, with times (CUDA
-     events, L2 flushed before each launch), host enqueue time, the plain
-     versions' and one PyTorch library call's times, and the least time
-     the card could take; K4 must also equal K1 bit for bit on a pool
-     that holds K1's cache under a shuffled page table;
+     atol + rtol, with times (CUDA events, L2 flushed before each launch),
+     host enqueue time, the plain versions' and one PyTorch library
+     call's times, and the least time the card could take; K4 must also
+     equal K1 bit for bit on a pool that holds K1's cache under a
+     shuffled page table.  The quantized bodies K1q, K4q and K3q on int8
+     and fp8 caches at the reduced geometry and at the main path's shapes
+     (bf16 q), each also bit for bit equal to its unquantized kernel on
+     the dequantized cache; K5 and K5q (the paged chunk kernel, no model
+     path) bit for bit equal to K3 and K3q on a shuffled pool; times as
+     above, the bound counted from the narrow bytes;
   4. parity: yi_6b at full width with 2 layers in f32 serves the same
      greedy tokens with dsa_mode="kernel" as with the plain "block" path,
      and four requests get the same greedy tokens from the continuous
      engine (paged cache, kernel path), the continuous engine (dense
-     cache, block path) and the static engine; the page pool returns full;
+     cache, block path) and the static engine; the page pool returns full.
+     With int8 K/V and int8 selection the two chunked continuous engines
+     agree, and the static engine agrees with the paged kernel engine
+     under blocking admission (chunked admission attends a chunk's own
+     rows quantized, whole-prompt prefill in full precision);
   5. the static slice: ``repro_torch.launch.serve`` serves yi_6b at full
      width, all 32 layers in bf16, random weights from --seed, batch 4,
      prompt 4096, 64 new tokens, DSA on the kernel path; the launch
@@ -37,7 +46,12 @@ fails:
      segments of 16 steps; every request must finish ok, K3 must launch
      once per layer per chunk step and K4 once per layer per decode step;
      then a torch.profiler trace of one chunk step and one segment;
-  7. profile: a torch.profiler trace of one prefill and a few decode steps
+  7. the quantized slices: phase 5 with an fp8 K/V cache and int8
+     selection and 32 new tokens (K1q once per layer per decode step, K1
+     never), and phase 6 with int8 K/V and int8 selection (K3q and K4q in
+     place of K3 and K4, which must not launch), with the pool's bytes per
+     slot and the same profile;
+  8. profile: a torch.profiler trace of one prefill and a few decode steps
      of the static slice (wall time, device busy share, top kernels).
 
 It then prints one JSON line of per-kernel results, the card's name and
@@ -133,6 +147,40 @@ class Timer:
         return dt / iters * 1e6
 
 
+def quantize(torch, kc, vc, quant):
+    """The narrow cache of a check: (k, v, {k_scale, v_scale}) quantized
+    as ``quant`` ("int8" | "fp8"), or the cache itself for None."""
+    if quant is None:
+        return kc, vc, {}
+    from repro_torch.core.quantization import quant_store
+    (kq, ks), (vq, vs) = (quant_store(t, dtype=quant) for t in (kc, vc))
+    return kq, vq, dict(k_scale=ks, v_scale=vs)
+
+
+def dequantized(torch, kc, vc, sc):
+    """The f32 cache a narrow one stands for (the cache itself if full
+    width)."""
+    if not sc:
+        return kc, vc
+    from repro_torch.core.quantization import dequant
+    return dequant(kc, sc["k_scale"]), dequant(vc, sc["v_scale"])
+
+
+def cache_bytes_per_row(kc, sc) -> int:
+    """Bytes one (row, KV head) of K or V takes: hd narrow or full-width
+    elements plus, narrow, its f32 scale."""
+    return kc.shape[-1] * kc.element_size() + (4 if sc else 0)
+
+
+def equal_unquantized(torch, res, name, got, unq) -> None:
+    """Hold a quantized kernel bit for bit to its unquantized kernel on
+    the dequantized cache."""
+    res["equal_unquantized"] = bool(torch.equal(got, unq))
+    if not res["equal_unquantized"]:
+        fail(f"{name} is not bitwise equal to its unquantized kernel on the "
+             f"dequantized cache: {res}")
+
+
 def bound(bytes_moved: float, flops: float, dtype: str):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -143,7 +191,10 @@ def bound(bytes_moved: float, flops: float, dtype: str):
 
 
 def check_k1(torch, timer, *, b, hq, hkv, hd, s, bk, q_dt, c_dt, kv_len,
-             nb, seed, timed):
+             nb, seed, timed, quant=None):
+    """K1 (K1q with ``quant``: the cache drawn in c_dt, then stored
+    narrow) against its plain version; K1q also bit for bit against K1
+    on the dequantized cache."""
     from repro_torch.core.masks import decode_block_topk_indices
     from repro_torch.kernels import dsa_decode as K1
     dev = torch.device("cuda")
@@ -154,45 +205,54 @@ def check_k1(torch, timer, *, b, hq, hkv, hd, s, bk, q_dt, c_dt, kv_len,
         return torch.randn(shape, generator=gen, device=dev).to(dt[d])
 
     q = rnd(b, hq, 1, hd, d=q_dt)
-    kc, vc = rnd(b, s, hkv, hd, d=c_dt), rnd(b, s, hkv, hd, d=c_dt)
+    kc, vc, sc = quantize(torch, rnd(b, s, hkv, hd, d=c_dt),
+                          rnd(b, s, hkv, hd, d=c_dt), quant)
     kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
     n_kb = -(-s // bk)
     scores = torch.randn((b, n_kb), generator=gen, device=dev)
     idx, ok = decode_block_topk_indices(scores, min(nb, n_kb), kv_len=kvl,
                                         block_k=bk)
     args = (q, kc, vc, idx, ok, kvl)
-    got = K1.dsa_decode_gather_attention(*args, block_k=bk)
-    want = K1.dsa_decode_gather_attention_plain(*args, block_k=bk)
+    kw = dict(block_k=bk, **sc)
+    got = K1.dsa_decode_gather_attention(*args, **kw)
+    want = K1.dsa_decode_gather_attention_plain(*args, **kw)
     torch.cuda.synchronize()
+    kd, vd = dequantized(torch, kc, vc, sc)
+    name = "K1q" if quant else "K1"
     res = dict(geometry=f"B{b} Hq{hq} Hkv{hkv} hd{hd} S{s} bk{bk} nb{nb} "
-                        f"q {q_dt} cache {c_dt}",
+                        f"q {q_dt} cache {quant or c_dt}",
                **compare(torch, got, want, q_dt))
     if not res["ok"]:
-        fail(f"K1 disagrees with its plain version: {res}")
+        fail(f"{name} disagrees with its plain version: {res}")
+    if quant:
+        equal_unquantized(torch, res, name, got, K1.dsa_decode_gather_attention(
+            q, kd, vd, idx, ok, kvl, block_k=bk))
     if not timed:
         return res
     # bytes this call needs: q, the live selected K/V rows, out, indices
     kpos = idx.long()[:, :, None] * bk + torch.arange(bk, device=dev)
     live = (kpos < kvl[:, None, None]) & ok[:, :, None] & (kpos < s)
     rows = int(live.sum())
-    c_el, q_el = kc.element_size(), q.element_size()
-    nbytes = (2 * q.numel() * q_el + 2 * rows * hkv * hd * c_el
-              + 2 * idx.numel() * 4 + kvl.numel() * 4)
+    q_el = q.element_size()
+    nbytes = (2 * q.numel() * q_el + 2 * rows * hkv * cache_bytes_per_row(
+        kc, sc) + 2 * idx.numel() * 4 + kvl.numel() * 4)
     flops = 4.0 * rows * (hq // hkv) * hkv * hd
-    work_dt = "bfloat16" if q_dt == c_dt == "bfloat16" else "float32"
+    work_dt = ("bfloat16" if q_dt == c_dt == "bfloat16" and not quant
+               else "float32")
     res["bound_ms"], res["bound_by"] = bound(nbytes, flops, work_dt)
     res["ms"] = timer(lambda: K1.dsa_decode_gather_attention(
-        *args, block_k=bk), iters=50)
+        *args, **kw), iters=50)
     res["host_us"] = timer.host_us(lambda: K1.dsa_decode_gather_attention(
-        *args, block_k=bk))
+        *args, **kw))
     res["plain_ms"] = timer(lambda: K1.dsa_decode_gather_attention_plain(
-        *args, block_k=bk), iters=10)
-    # library yardstick: one SDPA call over the whole cache with the
-    # selected rows as its mask (layouts prepared outside the timing)
+        *args, **kw), iters=10)
+    # library yardstick: one SDPA call over the whole (dequantized) cache
+    # with the selected rows as its mask (layouts prepared outside the
+    # timing)
     g = hq // hkv
     lib_dt = torch.float32 if work_dt == "float32" else torch.bfloat16
-    kk = kc.transpose(1, 2).repeat_interleave(g, 1).to(lib_dt)
-    vv = vc.transpose(1, 2).repeat_interleave(g, 1).to(lib_dt)
+    kk = kd.transpose(1, 2).repeat_interleave(g, 1).to(lib_dt)
+    vv = vd.transpose(1, 2).repeat_interleave(g, 1).to(lib_dt)
     qq = q.to(lib_dt)
     rowmask = torch.zeros((b, s), dtype=torch.bool, device=dev)
     bidx = torch.arange(b, device=dev)[:, None, None].expand_as(kpos)
@@ -278,12 +338,16 @@ def check_k2(torch, timer, *, b, hq, hkv, hd, l, blk, nb, dtype, seed,
 
 
 def check_k3(torch, timer, *, b, hq, hkv, hd, s, c, blk, q_dt, c_dt, q_off,
-             chunk_len, seed, timed):
+             chunk_len, seed, timed, quant=None, paged=False):
     """K3 on a chunk of C queries at per-row offsets q_off over an S-row
     cache, rows ragged by chunk_len; the selection is the chunk path's:
     chunk_block_topk_indices of random block scores, keeping yi_6b's
-    nb_keep at sparsity 0.9."""
+    nb_keep at sparsity 0.9.  ``quant`` stores the cache narrow (K3q,
+    held bit for bit to K3 on the dequantized cache); ``paged`` runs K5
+    (K5q) on a pool that holds the cache under a shuffled page table,
+    held bit for bit to K3 (K3q) on the dense cache."""
     from repro_torch.core.masks import chunk_block_topk_indices, keep_count
+    from repro_torch.core.quantization import raw
     from repro_torch.kernels import dsa_chunk_prefill as K3
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -293,23 +357,59 @@ def check_k3(torch, timer, *, b, hq, hkv, hd, s, c, blk, q_dt, c_dt, q_off,
         return torch.randn(shape, generator=gen, device=dev).to(dt[d])
 
     q = rnd(b, hq, c, hd, d=q_dt)
-    kc, vc = rnd(b, s, hkv, hd, d=c_dt), rnd(b, s, hkv, hd, d=c_dt)
+    kc, vc, sc = quantize(torch, rnd(b, s, hkv, hd, d=c_dt),
+                          rnd(b, s, hkv, hd, d=c_dt), quant)
     qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
     kvl = qo + torch.tensor(chunk_len, dtype=torch.int32, device=dev)
     n_kb, n_qb = -(-s // blk), c // blk
     nb = min(n_kb, max(2, keep_count(n_kb, 0.9)))
     scores = torch.randn((b, n_qb, n_kb), generator=gen, device=dev)
     idx, ok = chunk_block_topk_indices(scores, nb, q_block_offset=qo // blk)
-    args = (q, kc, vc, idx, ok, qo, kvl)
-    kw = dict(block_q=blk, block_k=blk)
-    got = K3.dsa_chunk_gather_attention(*args, **kw)
-    want = K3.dsa_chunk_gather_attention_plain(*args, **kw)
+    dense_args = (q, kc, vc, idx, ok, qo, kvl)
+    kw = dict(block_q=blk, block_k=blk, **sc)
+    geometry = (f"B{b} Hq{hq} Hkv{hkv} hd{hd} C{c} S{s} block{blk} nb{nb} "
+                f"q {q_dt} cache {quant or c_dt}")
+    if paged:
+        n_pages = b * n_kb + 3
+        perm = torch.randperm(
+            n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
+        tbl = perm[:b * n_kb].reshape(b, n_kb).to(dev)
+        rows = (tbl[:, :, None] * blk + torch.arange(blk, device=dev)
+                ).reshape(b, n_kb * blk)
+        pools = []
+        for t in (kc, vc, *sc.values()):
+            pool = torch.zeros((n_pages * blk,) + tuple(t.shape[2:]),
+                               dtype=t.dtype, device=dev)
+            raw(pool)[rows] = raw(t)
+            pools.append(pool)
+        pidx = torch.gather(tbl[:, None, :].expand(b, n_qb, n_kb), 2,
+                            idx.long()).to(torch.int32)
+        args = (q, pools[0], pools[1], idx, pidx, ok, qo, kvl)
+        call_kw = dict(block_q=blk, block_k=blk,
+                       **dict(zip(("k_scale", "v_scale"), pools[2:])))
+        fn = K3.dsa_chunk_paged_gather_attention
+        plain = K3.dsa_chunk_paged_gather_attention_plain
+        geometry += f" pages{n_pages}"
+    else:
+        args, call_kw = dense_args, kw
+        fn = K3.dsa_chunk_gather_attention
+        plain = K3.dsa_chunk_gather_attention_plain
+    got = fn(*args, **call_kw)
+    want = plain(*args, **call_kw)
     torch.cuda.synchronize()
-    res = dict(geometry=f"B{b} Hq{hq} Hkv{hkv} hd{hd} C{c} S{s} block{blk} "
-                        f"nb{nb} q {q_dt} cache {c_dt}",
-               **compare(torch, got, want, q_dt))
+    kd, vd = dequantized(torch, kc, vc, sc)
+    name = ("K5" if paged else "K3") + ("q" if quant else "")
+    res = dict(geometry=geometry, **compare(torch, got, want, q_dt))
     if not res["ok"]:
-        fail(f"K3 disagrees with its plain version: {res}")
+        fail(f"{name} disagrees with its plain version: {res}")
+    if quant:
+        equal_unquantized(torch, res, name, got, K3.dsa_chunk_gather_attention(
+            q, kd, vd, idx, ok, qo, kvl, block_q=blk, block_k=blk))
+    if paged:
+        dense = K3.dsa_chunk_gather_attention(*dense_args, **kw)
+        res["equal_k3"] = bool(torch.equal(got, dense))
+        if not res["equal_k3"]:
+            fail(f"{name} is not bitwise equal to K3 on the same rows: {res}")
     if not timed:
         return res
     # the work this call's selection needs: live (query, key) pairs, and
@@ -327,25 +427,23 @@ def check_k3(torch, timer, *, b, hq, hkv, hd, s, c, blk, q_dt, c_dt, q_off,
     bidx = torch.arange(b, device=dev)[:, None, None, None].expand_as(kpos)
     used[bidx[live_k], kpos[live_k]] = True
     rows = int(used.sum())
-    q_el, c_el = q.element_size(), kc.element_size()
-    nbytes = (2 * q.numel() * q_el + 2 * rows * hkv * hd * c_el
-              + 2 * idx.numel() * 4 + 2 * b * 4)
+    q_el = q.element_size()
+    nbytes = (2 * q.numel() * q_el + 2 * rows * hkv * cache_bytes_per_row(
+        kc, sc) + (3 if paged else 2) * idx.numel() * 4 + 2 * b * 4)
     flops = 4.0 * pairs * hq * hd
-    work_dt = "bfloat16" if q_dt == c_dt == "bfloat16" else "float32"
+    work_dt = ("bfloat16" if q_dt == c_dt == "bfloat16" and not quant
+               else "float32")
     res["bound_ms"], res["bound_by"] = bound(nbytes, flops, work_dt)
-    res["ms"] = timer(lambda: K3.dsa_chunk_gather_attention(*args, **kw),
-                      iters=20)
-    res["host_us"] = timer.host_us(
-        lambda: K3.dsa_chunk_gather_attention(*args, **kw), iters=50)
-    res["plain_ms"] = timer(
-        lambda: K3.dsa_chunk_gather_attention_plain(*args, **kw), iters=3,
-        warmup=1)
-    # library yardstick: one SDPA call over the whole cache with the
-    # selection, the causal limit and kv_len as a boolean mask
+    res["ms"] = timer(lambda: fn(*args, **call_kw), iters=20)
+    res["host_us"] = timer.host_us(lambda: fn(*args, **call_kw), iters=50)
+    res["plain_ms"] = timer(lambda: plain(*args, **call_kw), iters=3,
+                            warmup=1)
+    # library yardstick: one SDPA call over the whole (dequantized) cache
+    # with the selection, the causal limit and kv_len as a boolean mask
     g = hq // hkv
     lib_dt = dt[work_dt]
-    kk = kc.transpose(1, 2).repeat_interleave(g, 1).to(lib_dt)
-    vv = vc.transpose(1, 2).repeat_interleave(g, 1).to(lib_dt)
+    kk = kd.transpose(1, 2).repeat_interleave(g, 1).to(lib_dt)
+    vv = vd.transpose(1, 2).repeat_interleave(g, 1).to(lib_dt)
     qq = q.to(lib_dt)
     bm = (torch.nn.functional.one_hot(idx.long(), n_kb).bool()
           & ok[..., None]).any(dim=-2)                     # (B, nQb, nKb)
@@ -368,14 +466,16 @@ def check_k3(torch, timer, *, b, hq, hkv, hd, s, c, blk, q_dt, c_dt, q_off,
 
 
 def check_k4(torch, timer, *, b, hq, hkv, hd, s, bk, q_dt, c_dt, kv_len,
-             nb, seed, timed, pages=None):
+             nb, seed, timed, pages=None, quant=None):
     """K4 on a pool of ``pages`` pages (default: every block of the B
     rows plus the zero page and 2 spare) under a shuffled page table that
     maps each row's blocks up to its kv_len, as the paged cache does, and
     leaves the rest on the zero page; the pool's other rows hold random
     values.  Against its plain version, and bit for bit against K1 on the
-    dense cache the table describes."""
+    dense cache the table describes.  ``quant`` stores the pool narrow
+    (K4q, also held bit for bit to K4 on the dequantized pool)."""
     from repro_torch.core.masks import decode_block_topk_indices
+    from repro_torch.core.quantization import take
     from repro_torch.kernels import dsa_decode as K
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -405,47 +505,59 @@ def check_k4(torch, timer, *, b, hq, hkv, hd, s, bk, q_dt, c_dt, kv_len,
     pk, pv = (rnd(n_pages * bk, hkv, hd, d=c_dt) for _ in range(2))
     pk[:bk] = 0                                        # the zero page
     pv[:bk] = 0
-    kc, vc = pk[rows], pv[rows]                        # the dense cache
+    pk, pv, sc = quantize(torch, pk, pv, quant)
+    kc, vc = take(pk, rows), take(pv, rows)            # the dense cache
+    dsc = {n: t[rows] for n, t in sc.items()}
     pidx = torch.gather(tbl, 1, idx.long()).to(torch.int32)
     args = (q, pk, pv, idx, pidx, ok, kvl)
-    got = K.dsa_decode_paged_gather_attention(*args, block_k=bk)
-    want = K.dsa_decode_paged_gather_attention_plain(*args, block_k=bk)
-    k1 = K.dsa_decode_gather_attention(q, kc, vc, idx, ok, kvl, block_k=bk)
+    kw = dict(block_k=bk, **sc)
+    got = K.dsa_decode_paged_gather_attention(*args, **kw)
+    want = K.dsa_decode_paged_gather_attention_plain(*args, **kw)
+    k1 = K.dsa_decode_gather_attention(q, kc, vc, idx, ok, kvl, block_k=bk,
+                                       **dsc)
     torch.cuda.synchronize()
+    kd, vd = dequantized(torch, pk, pv, sc)
+    name = "K4q" if quant else "K4"
     res = dict(geometry=f"B{b} Hq{hq} Hkv{hkv} hd{hd} S{s} bk{bk} nb{nb} "
                         f"pages{n_pages} kv_len{list(kv_len)} q {q_dt} "
-                        f"cache {c_dt}",
+                        f"cache {quant or c_dt}",
                **compare(torch, got, want, q_dt),
                equal_k1=bool(torch.equal(got, k1)))
     if not res["ok"]:
-        fail(f"K4 disagrees with its plain version: {res}")
+        fail(f"{name} disagrees with its plain version: {res}")
     if not res["equal_k1"]:
-        fail(f"K4 is not bitwise equal to K1 on the same rows: {res}")
+        fail(f"{name} is not bitwise equal to K1{'q' if quant else ''} on "
+             f"the same rows: {res}")
+    if quant:
+        equal_unquantized(torch, res, name, got,
+                          K.dsa_decode_paged_gather_attention(
+                              q, kd, vd, idx, pidx, ok, kvl, block_k=bk))
     if not timed:
         return res
     # bytes this call needs: q, the live selected K/V rows, out, indices
     kpos = idx.long()[:, :, None] * bk + torch.arange(bk, device=dev)
     live = (kpos < kvl[:, None, None]) & ok[:, :, None]
     nlive = int(live.sum())
-    c_el, q_el = kc.element_size(), q.element_size()
-    nbytes = (2 * q.numel() * q_el + 2 * nlive * hkv * hd * c_el
-              + 3 * idx.numel() * 4 + kvl.numel() * 4)
+    q_el = q.element_size()
+    nbytes = (2 * q.numel() * q_el + 2 * nlive * hkv * cache_bytes_per_row(
+        pk, sc) + 3 * idx.numel() * 4 + kvl.numel() * 4)
     flops = 4.0 * nlive * hq * hd
-    work_dt = "bfloat16" if q_dt == c_dt == "bfloat16" else "float32"
+    work_dt = ("bfloat16" if q_dt == c_dt == "bfloat16" and not quant
+               else "float32")
     res["bound_ms"], res["bound_by"] = bound(nbytes, flops, work_dt)
     res["ms"] = timer(lambda: K.dsa_decode_paged_gather_attention(
-        *args, block_k=bk), iters=50)
+        *args, **kw), iters=50)
     res["host_us"] = timer.host_us(
-        lambda: K.dsa_decode_paged_gather_attention(*args, block_k=bk))
+        lambda: K.dsa_decode_paged_gather_attention(*args, **kw))
     res["plain_ms"] = timer(lambda: K.dsa_decode_paged_gather_attention_plain(
-        *args, block_k=bk), iters=10)
-    # library yardstick: one SDPA call over the whole pool as one sequence,
-    # masked to the physical rows of the live selected keys
+        *args, **kw), iters=10)
+    # library yardstick: one SDPA call over the whole (dequantized) pool as
+    # one sequence, masked to the physical rows of the live selected keys
     g = hq // hkv
     lib_dt = dt[work_dt]
-    kk = pk.transpose(0, 1)[None].repeat_interleave(g, 1).to(lib_dt).expand(
+    kk = kd.transpose(0, 1)[None].repeat_interleave(g, 1).to(lib_dt).expand(
         b, -1, -1, -1)
-    vv = pv.transpose(0, 1)[None].repeat_interleave(g, 1).to(lib_dt).expand(
+    vv = vd.transpose(0, 1)[None].repeat_interleave(g, 1).to(lib_dt).expand(
         b, -1, -1, -1)
     qq = q.to(lib_dt)
     phys = pidx.long()[:, :, None] * bk + torch.arange(bk, device=dev)
@@ -489,140 +601,180 @@ def parity_phase(torch, seed: int) -> dict:
     if not same:
         fail("kernel mode and block mode disagree on greedy tokens")
     cont = continuous_parity(torch, cfg, params, seed)
+    quant = continuous_parity(torch, cfg, params, seed, quant="int8")
     del params
     torch.cuda.empty_cache()
-    return {"same_tokens": same, **cont}
+    return {"same_tokens": same, **cont, "quant": quant}
 
 
 def continuous_parity(torch, cfg, params, seed: int, lens=(700, 1100, 512,
                                                           900),
-                      n_new: int = 16, max_len: int = 2176) -> dict:
+                      n_new: int = 16, max_len: int = 2176,
+                      quant=None) -> dict:
     """Four requests of mixed prompt buckets: the continuous engine with
     a paged cache on the kernel path (K3, K4), with a dense cache on the
     plain block path, and the static engine on the kernel path (K2, K1)
-    serve the same greedy tokens, and the page pool returns full."""
+    serve the same greedy tokens, and the page pool returns full.
+
+    ``quant`` ("int8"): the same with int8 K/V and int8 selection (K3q,
+    K4q, K1q).  Chunked admission then attends each chunk's own rows
+    through the quantized cache where whole-prompt prefill attends them in
+    full precision (the reference does the same; ROADMAP Queue 3), so the
+    chunked engines are held to each other and the static engine to the
+    paged kernel engine with blocking admission."""
     import numpy as np
     from repro_torch.inference.engine import Engine
     from repro_torch.inference.scheduler import ContinuousEngine, Request
     rng = np.random.default_rng(seed + 1)
     reqs = [Request(i, rng.integers(1, cfg.vocab - 4, size=(n,)).astype(
         np.int32), n_new, seed=i) for i, n in enumerate(lens)]
+    qkw = {} if quant is None else dict(kv_quant=quant, select_dtype="int8")
     kw = dict(slots=4, max_len=max_len, seg_len=16, chunk_tokens=512,
-              long_context=True)
-    paged = ContinuousEngine(cfg, params, paged=True, dsa_mode="kernel", **kw)
-    got = {"paged kernel": paged.run(reqs)}
-    full = paged.pool.available() == paged.pool_pages - 1
-    del paged
-    got["dense block"] = ContinuousEngine(cfg, params, dsa_mode="block",
-                                          **kw).run(reqs)
+              long_context=True, **qkw)
+    got, full = {}, True
+    runs = [("paged kernel", dict(paged=True, dsa_mode="kernel")),
+            ("dense block", dict(dsa_mode="block"))]
+    if quant:
+        runs.append(("paged kernel blocking", dict(
+            paged=True, dsa_mode="kernel", chunked_prefill=False)))
+    for name, extra in runs:
+        eng = ContinuousEngine(cfg, params, **kw, **extra)
+        got[name] = eng.run(reqs)
+        if eng.paged:
+            full &= eng.pool.available() == eng.pool_pages - 1
+        del eng
     static = Engine(cfg, params, max_len=max_len, long_context=True,
-                    dsa_mode="kernel")
+                    dsa_mode="kernel", **qkw)
     got["static kernel"] = {r.rid: static.generate(r.prompt[None],
                                                    n_new).tokens[0]
                             for r in reqs}
-    same = all((got[k][r.rid] == got["static kernel"][r.rid]).all()
-               for k in got for r in reqs)
-    print(f"parity: continuous engine, 2-layer full-width yi_6b f32, "
-          f"prompts {list(lens)}, {n_new} new: paged+kernel == dense+block "
-          f"== static generate greedy tokens: {same}; pool back to full: "
-          f"{full}")
+
+    def agree(a, b):
+        return all((got[a][r.rid] == got[b][r.rid]).all() for r in reqs)
+
+    pairs = ([("paged kernel", "dense block"),
+              ("paged kernel blocking", "static kernel")] if quant else
+             [(k, "static kernel") for k in got if k != "static kernel"])
+    same = all(agree(a, b) for a, b in pairs)
+    label = f"{quant} K/V and selection" if quant else "f32"
+    print(f"parity: continuous engine, 2-layer full-width yi_6b {label}, "
+          f"prompts {list(lens)}, {n_new} new: "
+          + "; ".join(f"{a} == {b}: {agree(a, b)}" for a, b in pairs)
+          + f"; pool back to full: {full}")
+    if quant:
+        print(f"  (chunked admission == static generate: "
+              f"{agree('paged kernel', 'static kernel')}; not required)")
     for k, toks in got.items():
-        print(f"  {k:13s}: {[toks[r.rid][:6].tolist() for r in reqs]}")
+        print(f"  {k:21s}: {[toks[r.rid][:6].tolist() for r in reqs]}")
     if not same:
-        fail("the continuous and static engines disagree on greedy tokens")
+        fail(f"the continuous and static engines ({label}) disagree on "
+             f"greedy tokens")
     if not full:
         fail("the page pool did not get every page back")
     return {"continuous_same_tokens": same, "pool_full": full}
 
 
-def slice_phase(torch, seed: int) -> dict:
-    """The main path: serve yi_6b at full width through the kernels."""
+def slice_phase(torch, seed: int, quant=None) -> dict:
+    """The main path: serve yi_6b at full width through the kernels.
+    ``quant`` ("fp8"): a quantized K/V cache and int8 selection, 32 new
+    tokens; decode then runs K1q where it ran K1."""
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels import dsa_attention as K2
-    from repro_torch.kernels import dsa_decode as K1
     from repro_torch.launch import serve
     n_layers = get_config("yi_6b").n_layers
+    n_new = 32 if quant else 64
     torch.cuda.reset_peak_memory_stats()
-    K1.dsa_decode_gather_attention.launches = 0
-    K2.dsa_block_sparse_attention.launches = 0
+    serve.reset_launch_counts()
     res = serve.main(["--arch", "yi_6b", "--batch", "4", "--prompt-len",
-                      "4096", "--new-tokens", "64", "--dsa", "--dsa-mode",
-                      "kernel", "--seed", str(seed)])
-    k1 = K1.dsa_decode_gather_attention.launches
-    k2 = K2.dsa_block_sparse_attention.launches
+                      "4096", "--new-tokens", str(n_new), "--dsa",
+                      "--dsa-mode", "kernel", "--seed", str(seed)]
+                     + (["--kv-quant", quant, "--select-dtype", "int8"]
+                        if quant else []))
+    n = serve.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     vocab = get_config("yi_6b").vocab
-    print(f"slice: prefill {res.prefill_s * 1e3:.1f} ms, decode "
+    dec = "K1q" if quant else "K1"
+    print(f"slice{f' ({quant} K/V, int8 selection)' if quant else ''}: "
+          f"prefill {res.prefill_s * 1e3:.1f} ms, decode "
           f"{res.tokens_per_s:.1f} tok/s over {res.decode_steps} steps, "
-          f"peak memory {peak:.2f} GiB, launches K2 {k2} K1 {k1}")
-    if k2 != n_layers:
-        fail(f"K2 launched {k2} times in prefill, expected {n_layers}")
-    if k1 != n_layers * res.decode_steps or k1 == 0:
-        fail(f"K1 launched {k1} times, expected {n_layers} x "
+          f"peak memory {peak:.2f} GiB, launches "
+          + " ".join(f"{k} {v}" for k, v in n.items()))
+    if n["K2"] != n_layers:
+        fail(f"K2 launched {n['K2']} times in prefill, expected {n_layers}")
+    if n[dec] != n_layers * res.decode_steps or n[dec] == 0:
+        fail(f"{dec} launched {n[dec]} times, expected {n_layers} x "
              f"{res.decode_steps}")
+    others = {k: v for k, v in n.items() if k not in ("K2", dec) and v}
+    if others:
+        fail(f"the static slice launched other kernels: {others}")
     tok = res.tokens
-    if tok.shape != (4, 64) or tok.min() < 0 or tok.max() >= vocab:
+    if tok.shape != (4, n_new) or tok.min() < 0 or tok.max() >= vocab:
         fail(f"bad tokens: shape {tok.shape}, range {tok.min()}..{tok.max()}")
     return {"prefill_ms": res.prefill_s * 1e3,
             "decode_tok_s": res.tokens_per_s, "decode_s": res.decode_s,
             "decode_steps": res.decode_steps, "peak_gib": peak,
-            "launches": {"dsa_block_sparse_attention": k2,
-                         "dsa_decode_gather_attention": k1}}
+            "launches": n}
 
 
-def continuous_phase(torch, seed: int) -> dict:
+def continuous_phase(torch, seed: int, quant=None) -> dict:
     """The second path: serve yi_6b at full width through the continuous
-    engine, chunked admission (K3) and a paged cache (K4)."""
+    engine, chunked admission (K3) and a paged cache (K4).  ``quant``
+    ("int8"): the quantized slice, int8 K/V and int8 selection through
+    K3q and K4q."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import serve
     n_layers = get_config("yi_6b").n_layers
     vocab = get_config("yi_6b").vocab
-    for fn in serve.KERNELS.values():
-        fn.launches = 0
+    serve.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     results, eng = serve.main([
         "--arch", "yi_6b", "--continuous", "--paged", "--dsa", "--dsa-mode",
         "kernel", "--slots", "4", "--max-len", "8192", "--chunk-tokens",
         "512", "--seg-len", "16", "--requests", "8", "--prompt-len", "4096",
-        "--new-tokens", "64", "--rate", "1e9", "--seed", str(seed)])
-    launches = {k: fn.launches for k, fn in serve.KERNELS.items()}
+        "--new-tokens", "64", "--rate", "1e9", "--seed", str(seed)]
+        + (["--kv-quant", quant, "--select-dtype", "int8"] if quant else []))
+    launches = serve.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
+    slot_bytes = serve.cache_bytes(eng._caches) // eng.slots
+    chunk_k, dec_k = ("K3q", "K4q") if quant else ("K3", "K4")
     st = eng.stats
     from repro_torch.inference.scheduler import summarize
     summ = summarize(results, max(r.finish_s for r in results))
-    print(f"continuous slice: {summ['goodput_tok_s']} tok/s goodput, "
-          f"latency p50 {summ['p50_latency_s']} s / p95 "
+    label = f" ({quant} K/V, int8 selection)" if quant else ""
+    print(f"continuous slice{label}: {summ['goodput_tok_s']} tok/s "
+          f"goodput, latency p50 {summ['p50_latency_s']} s / p95 "
           f"{summ['p95_latency_s']} s, TTFT p50 {summ['p50_ttft_s']} s, "
           f"{st['segments']} segments, {st['admitted']} admissions, "
           f"{st['chunks']} chunk steps, {st['decode_steps']} decode steps, "
-          f"peak memory {peak:.2f} GiB, launches "
-          + " ".join(f"{k} {n}" for k, n in launches.items()))
+          f"peak memory {peak:.2f} GiB, pool {slot_bytes} bytes per slot, "
+          f"launches " + " ".join(f"{k} {n}" for k, n in launches.items()))
     bad = [r.rid for r in results
            if r.status != "ok" or len(r.tokens) != r.n_new
            or r.tokens.min() < 0 or r.tokens.max() >= vocab]
     if len(results) != 8 or bad:
         fail(f"continuous slice: {len(results)} results, bad {bad}")
-    if st["chunks"] == 0 or launches["K3"] != n_layers * st["chunks"]:
-        fail(f"K3 launched {launches['K3']} times, expected {n_layers} x "
-             f"{st['chunks']} chunk steps")
+    if (st["chunks"] == 0
+            or launches[chunk_k] != n_layers * st["chunks"]):
+        fail(f"{chunk_k} launched {launches[chunk_k]} times, expected "
+             f"{n_layers} x {st['chunks']} chunk steps")
     if (st["decode_steps"] == 0
-            or launches["K4"] != n_layers * st["decode_steps"]):
-        fail(f"K4 launched {launches['K4']} times, expected {n_layers} x "
-             f"{st['decode_steps']} decode steps")
-    if launches["K1"] or launches["K2"]:
-        fail(f"the paged, chunked path launched K1/K2: {launches}")
+            or launches[dec_k] != n_layers * st["decode_steps"]):
+        fail(f"{dec_k} launched {launches[dec_k]} times, expected "
+             f"{n_layers} x {st['decode_steps']} decode steps")
+    others = {k: n for k, n in launches.items()
+              if k not in (chunk_k, dec_k) and n}
+    if others:
+        fail(f"the paged, chunked path launched other kernels: {others}")
     if eng.pool.available() != eng.pool_pages - 1:
         fail("the page pool did not get every page back")
     out = {"summary": summ, "peak_gib": peak, "stats": dict(st),
-           "launches": {"dsa_chunk_gather_attention": launches["K3"],
-                        "dsa_decode_paged_gather_attention": launches["K4"]}}
-    out["profile"] = continuous_profile(torch, eng, seed)
+           "slot_bytes": slot_bytes, "launches": launches}
+    out["profile"] = continuous_profile(torch, eng, seed, label=label)
     del eng
     return out
 
 
 def continuous_profile(torch, eng, seed: int, prompt_len: int = 4096,
-                       traced_chunks: int = 1) -> dict:
+                       traced_chunks: int = 1, label: str = "") -> dict:
     """Where a chunk step and a segment of the continuous slice spend
     their time: host wall time against the device time of a
     torch.profiler trace, and the top kernels.  One admission group of
@@ -668,11 +820,11 @@ def continuous_profile(torch, eng, seed: int, prompt_len: int = 4096,
         eng.run_segment(clock, sink)
         torch.cuda.synchronize()
     sg = _device_time(prof, "segment", 1)
-    _print_profile(f"chunk step ({eng.slots} x {chunk_w} tokens, bucket "
-                   f"{eng.engine.prompt_bucket(prompt_len)})",
+    _print_profile(f"chunk step{label} ({eng.slots} x {chunk_w} tokens, "
+                   f"bucket {eng.engine.prompt_bucket(prompt_len)})",
                    chunk_ms, *ch)
-    _print_profile(f"segment ({eng.seg_len} steps x {eng.slots} slots)",
-                   seg_ms, *sg)
+    _print_profile(f"segment{label} ({eng.seg_len} steps x {eng.slots} "
+                   f"slots)", seg_ms, *sg)
     return {"chunk_ms": chunk_ms, "chunk_busy_ms": ch[0],
             "segment_ms": seg_ms, "segment_busy_ms": sg[0]}
 
@@ -856,17 +1008,64 @@ def main() -> None:
                  q_dt="bfloat16", c_dt="float32",
                  kv_len=[4160, 2650, 1200, 3700], nb=9, pages=4 * 64 + 1,
                  seed=args.seed, timed=True)]
-    for name, checks in (("K1 dsa_decode", k1_checks),
+    # the quantized bodies (K6 of the TPU kernels): int8 and fp8 caches at
+    # the reduced geometry and at the shapes the quantized slices give
+    # them, bf16 q; K5 and K5q on a shuffled pool holding K3's cache
+    q_checks = {}
+    for quant in ("int8", "fp8"):
+        q_checks["K1q", quant] = [
+            check_k1(torch, timer, b=2, hq=8, hkv=2, hd=16, s=100, bk=16,
+                     q_dt="float32", c_dt="float32", kv_len=[100, 63], nb=5,
+                     seed=args.seed, timed=False, quant=quant),
+            check_k1(torch, timer, b=4, hq=32, hkv=4, hd=128, s=4224,
+                     bk=128, q_dt="bfloat16", c_dt="float32",
+                     kv_len=[4160, 4100, 4097, 4133], nb=6, seed=args.seed,
+                     timed=True, quant=quant)]
+        q_checks["K4q", quant] = [
+            check_k4(torch, timer, b=2, hq=8, hkv=2, hd=16, s=100, bk=16,
+                     q_dt="float32", c_dt="float32", kv_len=[100, 63], nb=5,
+                     seed=args.seed, timed=False, quant=quant),
+            check_k4(torch, timer, b=4, hq=32, hkv=4, hd=128, s=8192,
+                     bk=128, q_dt="bfloat16", c_dt="float32",
+                     kv_len=[4160, 2650, 1200, 3700], nb=9,
+                     pages=4 * 64 + 1, seed=args.seed, timed=True,
+                     quant=quant)]
+        q_checks["K3q", quant] = [
+            check_k3(torch, timer, b=2, hq=8, hkv=2, hd=16, s=100, c=32,
+                     blk=16, q_dt="float32", c_dt="float32", q_off=[64, 32],
+                     chunk_len=[36, 5], seed=args.seed, timed=False,
+                     quant=quant),
+            check_k3(torch, timer, b=4, hq=32, hkv=4, hd=128, s=4096, c=512,
+                     blk=128, q_dt="bfloat16", c_dt="float32",
+                     q_off=[3584, 2048, 512, 3072],
+                     chunk_len=[512, 512, 512, 300], seed=args.seed,
+                     timed=True, quant=quant)]
+    for quant in (None, "int8", "fp8"):
+        q_checks["K5q" if quant else "K5", quant] = [
+            check_k3(torch, timer, b=2, hq=8, hkv=2, hd=16, s=96, c=32,
+                     blk=16, q_dt="float32", c_dt="float32", q_off=[64, 32],
+                     chunk_len=[32, 5], seed=args.seed, timed=False,
+                     quant=quant, paged=True),
+            check_k3(torch, timer, b=4, hq=32, hkv=4, hd=128, s=4096, c=512,
+                     blk=128, q_dt="bfloat16", c_dt="float32",
+                     q_off=[3584, 2048, 512, 3072],
+                     chunk_len=[512, 512, 512, 300], seed=args.seed,
+                     timed=True, quant=quant, paged=True)]
+    for name, checks in [("K1 dsa_decode", k1_checks),
                          ("K2 dsa_attention", k2_checks),
                          ("K3 dsa_chunk_prefill", k3_checks),
-                         ("K4 dsa_decode_paged", k4_checks)):
+                         ("K4 dsa_decode_paged", k4_checks)] + [
+            (f"{k} {q or ''}".strip(), v) for (k, q), v in q_checks.items()]:
         for c in checks:
             line = (f"{name} [{c['geometry']}]: max abs err "
                     f"{c['max_abs_err']:.3g} (atol {c['tol'][0]:g} + rtol "
                     f"{c['tol'][1]:g} x |plain|; {100 * c['tol_used']:.1f} % "
                     f"of it used)")
-            if "equal_k1" in c:
-                line += f", bitwise equal to K1: {c['equal_k1']}"
+            for key, what in (("equal_k1", "K1"), ("equal_k3", "K3"),
+                              ("equal_unquantized", "the unquantized "
+                               "kernel on the dequantized cache")):
+                if key in c:
+                    line += f", bitwise equal to {what}: {c[key]}"
             if "ms" in c:
                 line += (f", kernel {c['ms']:.4f} ms (host enqueue "
                          f"{c['host_us']:.1f} us), plain "
@@ -876,33 +1075,64 @@ def main() -> None:
             print(line, flush=True)
     torch.cuda.empty_cache()
 
+    # each path: its launch counts set to 0 just before it, read just after
     parity_phase(torch, args.seed)
-    launches = slice_phase(torch, args.seed)["launches"]
+    launches = {"static": slice_phase(torch, args.seed)["launches"]}
     torch.cuda.empty_cache()
-    launches.update(continuous_phase(torch, args.seed)["launches"])
+    launches["continuous"] = continuous_phase(torch, args.seed)["launches"]
+    torch.cuda.empty_cache()
+    launches["quant static"] = slice_phase(torch, args.seed,
+                                           quant="fp8")["launches"]
+    torch.cuda.empty_cache()
+    launches["quant continuous"] = continuous_phase(
+        torch, args.seed, quant="int8")["launches"]
     torch.cuda.empty_cache()
     profile_phase(torch, args.seed)
 
-    main_k1, main_k2 = k1_checks[2], k2_checks[2]
-    main_k3, main_k4 = k3_checks[1], k4_checks[-1]
+    src = "src/repro_torch/kernels/csrc/"
+    rep = "src/repro/kernels/"
+    # no model path runs K5 or K5q (the staging caches are dense): their
+    # launches are the sum of their counts over the four path runs
+    paths = {k: sum(n[k] for n in launches.values()) for k in ("K5", "K5q")}
     kernels = []
-    for name, src, rep, c, extra in (
-            ("dsa_block_sparse_attention",
-             "src/repro_torch/kernels/csrc/dsa_attention.cu",
-             "src/repro/kernels/dsa_attention.py:77", main_k2, k2_checks),
-            ("dsa_decode_gather_attention",
-             "src/repro_torch/kernels/csrc/dsa_decode.cu",
-             "src/repro/kernels/dsa_decode.py:185", main_k1, k1_checks),
-            ("dsa_chunk_gather_attention",
-             "src/repro_torch/kernels/csrc/dsa_chunk_prefill.cu",
-             "src/repro/kernels/dsa_chunk_prefill.py:198", main_k3,
-             k3_checks),
-            ("dsa_decode_paged_gather_attention",
-             "src/repro_torch/kernels/csrc/dsa_decode.cu",
-             "src/repro/kernels/dsa_decode.py:116", main_k4, k4_checks)):
+    for name, cu, tpu, c, extra, n in (
+            ("dsa_block_sparse_attention", "dsa_attention.cu",
+             "dsa_attention.py:77", k2_checks[2], k2_checks,
+             launches["static"]["K2"]),
+            ("dsa_decode_gather_attention", "dsa_decode.cu",
+             "dsa_decode.py:185", k1_checks[2], k1_checks,
+             launches["static"]["K1"]),
+            ("dsa_chunk_gather_attention", "dsa_chunk_prefill.cu",
+             "dsa_chunk_prefill.py:198", k3_checks[1], k3_checks,
+             launches["continuous"]["K3"]),
+            ("dsa_decode_paged_gather_attention", "dsa_decode.cu",
+             "dsa_decode.py:116", k4_checks[-1], k4_checks,
+             launches["continuous"]["K4"]),
+            ("dsa_chunk_paged_gather_attention", "dsa_chunk_prefill.cu",
+             "dsa_chunk_prefill.py:126", q_checks["K5", None][1],
+             q_checks["K5", None], paths["K5"]),
+            # K1q on the fp8 static slice, K3q/K4q on the int8 continuous one
+            ("dsa_decode_gather_attention_quant", "dsa_decode.cu",
+             "dsa_decode.py:90", q_checks["K1q", "fp8"][1],
+             q_checks["K1q", "int8"] + q_checks["K1q", "fp8"],
+             launches["quant static"]["K1q"]),
+            ("dsa_decode_paged_gather_attention_quant", "dsa_decode.cu",
+             "dsa_decode.py:108", q_checks["K4q", "int8"][1],
+             q_checks["K4q", "int8"] + q_checks["K4q", "fp8"],
+             launches["quant continuous"]["K4q"]),
+            ("dsa_chunk_gather_attention_quant", "dsa_chunk_prefill.cu",
+             "dsa_chunk_prefill.py:98", q_checks["K3q", "int8"][1],
+             q_checks["K3q", "int8"] + q_checks["K3q", "fp8"],
+             launches["quant continuous"]["K3q"]),
+            ("dsa_chunk_paged_gather_attention_quant",
+             "dsa_chunk_prefill.cu", "dsa_chunk_prefill.py:117",
+             q_checks["K5q", "int8"][1],
+             q_checks["K5q", "int8"] + q_checks["K5q", "fp8"],
+             paths["K5q"])):
         kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name], "max_abs_err": c["max_abs_err"],
+            "name": name, "route": "cuda", "source": src + cu,
+            "replaces": rep + tpu, "launches": n,
+            "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "kernel_ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"], "host_us": c["host_us"],

@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.prediction import einsum
+from repro_torch.core.quantization import raw
 
 NEG = -1e9  # paper's -c
 
@@ -46,6 +47,13 @@ def _pos_mask(lq: int, lk: int, causal: bool, window: int,
     if window:
         m &= kj > qi - window
     return m
+
+
+def _dequant_rows(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Dequantize gathered int8/fp8 cache rows: per-(row, head) f32 scales
+    broadcast over the trailing head_dim axis (only the visited rows come
+    back to full precision)."""
+    return x.float() * scale.float()[..., None]
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -105,12 +113,29 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 def _gather_blocks(x: torch.Tensor, idx: torch.Tensor, block: int
                    ) -> torch.Tensor:
-    """x: (B, n_kb*block, H, d); idx: (B, nb) -> (B, nb*block, H, d)."""
-    b, s, h, d = x.shape
-    xb = x.reshape(b, s // block, block, h, d)
-    g = torch.gather(xb, 1, idx.long()[:, :, None, None, None].expand(
-        b, idx.shape[1], block, h, d))
-    return g.reshape(b, idx.shape[1] * block, h, d)
+    """x: (B, n_kb*block, ...); idx: (B, nb) -> (B, nb*block, ...).  fp8
+    rows travel as bytes (``core.quantization.raw``)."""
+    r = raw(x)
+    b, s = r.shape[:2]
+    rest = r.shape[2:]
+    xb = r.reshape(b, s // block, block, *rest)
+    ix = idx.long().reshape(b, -1, *([1] * (1 + len(rest))))
+    g = torch.gather(xb, 1, ix.expand(b, idx.shape[1], block, *rest))
+    return g.reshape(b, idx.shape[1] * block, *rest).view(x.dtype)
+
+
+def _pad_rows(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero-pad axis 1 of ``x`` by ``pad`` rows (fp8 as bytes)."""
+    r = torch.nn.functional.pad(raw(x), (0, 0) * (x.dim() - 2) + (0, pad))
+    return r.view(x.dtype)
+
+
+def _gather_dequant(x, scale, idx, block: int) -> torch.Tensor:
+    """``_gather_blocks`` of a cache and, with ``scale``, of its per-row
+    scales, dequantized after the gather."""
+    g = _gather_blocks(x, idx, block)
+    return g if scale is None else _dequant_rows(
+        g, _gather_blocks(scale, idx, block))
 
 
 def dsa_sparse_attention(q, k, v, idx, idx_valid, *, block_q: int,
@@ -166,14 +191,18 @@ def decode_attention(q, k_cache, v_cache, *,
 
 def dsa_decode_block_attention(q, k_cache, v_cache, idx, idx_valid, *,
                                block_k: int,
-                               kv_len: Optional[torch.Tensor] = None
+                               kv_len: Optional[torch.Tensor] = None,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None
                                ) -> torch.Tensor:
     """Block-gather DSA decode.
 
     q: (B, 1, Hq, hd); k/v cache: (B, S, Hkv, hd); idx/idx_valid: (B, nb)
     selected cache-block indices (block j = cache rows [j*block_k,
     (j+1)*block_k)).  Positions past kv_len are masked.  With every valid
-    block selected this equals decode_attention.
+    block selected this equals decode_attention.  k_scale/v_scale:
+    optional (B, S, Hkv) per-row scales of an int8/fp8 cache, gathered
+    alongside and dequantized after the gather.
     """
     b = q.shape[0]
     s_len = k_cache.shape[1]
@@ -181,10 +210,12 @@ def dsa_decode_block_attention(q, k_cache, v_cache, idx, idx_valid, *,
     n_kb = -(-s_len // block_k)
     pad = n_kb * block_k - s_len
     if pad:
-        k_cache = torch.nn.functional.pad(k_cache, (0, 0, 0, 0, 0, pad))
-        v_cache = torch.nn.functional.pad(v_cache, (0, 0, 0, 0, 0, pad))
-    ks = _gather_blocks(k_cache, idx, block_k)
-    vs = _gather_blocks(v_cache, idx, block_k)
+        k_cache, v_cache = _pad_rows(k_cache, pad), _pad_rows(v_cache, pad)
+        if k_scale is not None:
+            k_scale, v_scale = (_pad_rows(k_scale, pad),
+                                _pad_rows(v_scale, pad))
+    ks = _gather_dequant(k_cache, k_scale, idx, block_k)
+    vs = _gather_dequant(v_cache, v_scale, idx, block_k)
     kpos = (idx.long()[:, :, None] * block_k + torch.arange(
         block_k, device=q.device)[None, None, :]).reshape(b, nb * block_k)
     lim = (torch.full((b,), s_len, dtype=torch.int32, device=q.device)
@@ -199,7 +230,10 @@ def dsa_decode_block_attention(q, k_cache, v_cache, idx, idx_valid, *,
 
 def dsa_decode_paged_block_attention(q, k_pool, v_pool, idx, pidx,
                                      idx_valid, *, block_k: int,
-                                     kv_len: torch.Tensor) -> torch.Tensor:
+                                     kv_len: torch.Tensor,
+                                     k_scale: Optional[torch.Tensor] = None,
+                                     v_scale: Optional[torch.Tensor] = None
+                                     ) -> torch.Tensor:
     """Paged twin of ``dsa_decode_block_attention``: the cache is a flat
     physical page pool shared by all slots.
 
@@ -208,15 +242,21 @@ def dsa_decode_paged_block_attention(q, k_pool, v_pool, idx, pidx,
     carry the key positions); pidx: (B, nb) the same selection as physical
     pages.  Gathers page pidx and masks from the logical positions, so a
     pool whose mapped pages hold the dense cache's blocks gives
-    ``dsa_decode_block_attention`` on that cache.
+    ``dsa_decode_block_attention`` on that cache.  k_scale/v_scale:
+    optional (P*block_k, Hkv) per-row scales of an int8/fp8 pool.
     """
     b = q.shape[0]
-    hkv, hd = k_pool.shape[1], k_pool.shape[2]
     nb = idx.shape[-1]
-    kb = k_pool.reshape(-1, block_k, hkv, hd)
-    vb = v_pool.reshape(-1, block_k, hkv, v_pool.shape[-1])
-    ks = kb[pidx.long()].reshape(b, nb * block_k, hkv, hd)
-    vs = vb[pidx.long()].reshape(b, nb * block_k, hkv, -1)
+
+    def pages(x):
+        r = raw(x)
+        g = r.reshape(-1, block_k, *r.shape[1:])[pidx.long()]
+        return g.reshape(b, nb * block_k, *r.shape[1:]).view(x.dtype)
+
+    ks, vs = pages(k_pool), pages(v_pool)
+    if k_scale is not None:
+        ks = _dequant_rows(ks, pages(k_scale))
+        vs = _dequant_rows(vs, pages(v_scale))
     kpos = (idx.long()[:, :, None] * block_k + torch.arange(
         block_k, device=q.device)[None, None, :]).reshape(b, nb * block_k)
     m = idx_valid[:, :, None].expand(b, nb, block_k).reshape(b, nb * block_k)
@@ -252,7 +292,9 @@ def chunk_attention(q, k_cache, v_cache, q_pos: torch.Tensor, *,
 def dsa_chunk_block_attention(q, k_cache, v_cache, idx, idx_valid, *,
                               block_q: int, block_k: int,
                               q_offset: torch.Tensor,
-                              kv_len: Optional[torch.Tensor] = None
+                              kv_len: Optional[torch.Tensor] = None,
+                              k_scale: Optional[torch.Tensor] = None,
+                              v_scale: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
     """Block-gather DSA chunk prefill.
 
@@ -261,6 +303,8 @@ def dsa_chunk_block_attention(q, k_cache, v_cache, idx, idx_valid, *,
     q_offset: (B,) the chunk's global start; kv_len: optional (B,) valid
     cache rows.  Per query block: the gather + masked softmax of
     ``dsa_sparse_attention`` with the query positions shifted by q_offset.
+    k_scale/v_scale: optional (B, S, Hkv) per-row scales of an int8/fp8
+    cache (dequantized after the gather).
     """
     b, c, hq, hd = q.shape
     s_len = k_cache.shape[1]
@@ -268,15 +312,17 @@ def dsa_chunk_block_attention(q, k_cache, v_cache, idx, idx_valid, *,
     n_kb = -(-s_len // block_k)
     pad = n_kb * block_k - s_len
     if pad:
-        k_cache = torch.nn.functional.pad(k_cache, (0, 0, 0, 0, 0, pad))
-        v_cache = torch.nn.functional.pad(v_cache, (0, 0, 0, 0, 0, pad))
+        k_cache, v_cache = _pad_rows(k_cache, pad), _pad_rows(v_cache, pad)
+        if k_scale is not None:
+            k_scale, v_scale = (_pad_rows(k_scale, pad),
+                                _pad_rows(v_scale, pad))
     dev = q.device
     outs = []
     for qb_i in range(c // block_q):
         qc = q[:, qb_i * block_q:(qb_i + 1) * block_q]
         ib = idx[:, qb_i]
-        ks = _gather_blocks(k_cache, ib, block_k)
-        vs = _gather_blocks(v_cache, ib, block_k)
+        ks = _gather_dequant(k_cache, k_scale, ib, block_k)
+        vs = _gather_dequant(v_cache, v_scale, ib, block_k)
         s = _gqa_scores(qc, ks)                   # (B,Hkv,G,Bq,nb*Bk)
         kpos = (ib.long()[:, :, None] * block_k + torch.arange(
             block_k, device=dev)[None, None, :]).reshape(b, nb * block_k)

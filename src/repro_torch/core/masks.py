@@ -149,3 +149,16 @@ def chunk_block_topk_indices(block_scores: torch.Tensor, nb_keep: int, *,
     fill = torch.clamp(qi, min=0, max=n_kb - 1).expand(b, n_qb, nb_keep)
     idx = torch.where(ok, idx, fill)
     return idx.to(torch.int32), ok
+
+
+def dequant_topk_scores(s_int: torch.Tensor, scale: torch.Tensor, *,
+                        block_k: int = 1) -> torch.Tensor:
+    """Dequantize int8-selection scores just before the top-k reduction.
+
+    s_int: (..., n) int32 accumulator of an int8 x int8 selection product;
+    scale: broadcastable per-(row, key) product of the query-row and
+    key-row scales.  ``block_k`` folds in the block-mean normalisation of
+    the pooled ``ktb`` scores.  Selection only ranks, so this is the one
+    point where the int8 path returns to float."""
+    s = s_int.float() * scale
+    return s / block_k if block_k != 1 else s

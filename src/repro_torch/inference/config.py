@@ -3,9 +3,20 @@
 ``Engine`` reads the shared and static-batch fields, ``ContinuousEngine``
 (inference/scheduler.py) the shared and continuous fields, so one config
 can parameterise a whole serving stack.  The port carries the fields of
-the paths ported so far; speculation, quantized caches, serving meshes,
-the request lifecycle knobs and telemetry come with the slices that port
-those paths.
+the paths ported so far; speculation, serving meshes, the request
+lifecycle knobs and telemetry come with the slices that port those paths.
+
+Mixed-precision serving:
+
+  select_dtype  "float32" (default) | "int8": the DSA predicted-key caches
+                kt/ktb are stored int8 with per-row scales and the
+                per-step selection product runs in integers, back in f32
+                only at the top-k.  Needs ``long_context``.
+  kv_quant      None (default) | "int8" | "fp8": the K/V caches are stored
+                narrow with per-(row, head) scales, dequantized after each
+                gather and inside the kernels.
+
+The defaults leave every path as it was.
 """
 from __future__ import annotations
 
@@ -14,7 +25,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.attention import DSA_MODES
+from repro_torch.models.attention import (DSA_MODES, KV_QUANT_DTYPES,
+                                          SELECT_DTYPES)
 
 LOOPS = ("scan", "python")
 
@@ -27,6 +39,8 @@ class ServingConfig:
     dsa_mode: str = "off"            # default DSA execution path
     cache_dtype: torch.dtype = torch.float32   # K/V cache dtype
     pad_id: int = 0
+    select_dtype: str = "float32"    # DSA selection precision (see above)
+    kv_quant: Optional[str] = None   # K/V cache storage quant (see above)
     # -- Engine (static batch) ---------------------------------------------
     loop: str = "scan"               # fused step loop vs per-token loop
     prompt_buckets: bool = True
@@ -41,6 +55,10 @@ class ServingConfig:
 
     def __post_init__(self):
         for name, val, valid in (("dsa_mode", self.dsa_mode, DSA_MODES),
+                                 ("select_dtype", self.select_dtype,
+                                  SELECT_DTYPES),
+                                 ("kv_quant", self.kv_quant,
+                                  KV_QUANT_DTYPES),
                                  ("loop", self.loop, LOOPS)):
             if val not in valid:
                 raise ValueError(
@@ -50,9 +68,8 @@ class ServingConfig:
 
 # the reference's ServingConfig fields of paths not ported yet
 UNPORTED = ("spec", "draft", "spec_rounds", "max_mode_wait_s", "mesh",
-            "shard_rules", "select_dtype", "kv_quant", "moe_prefill",
-            "queue_cap", "shed_policy", "deadline_s", "admit_retries",
-            "injector", "telemetry")
+            "shard_rules", "moe_prefill", "queue_cap", "shed_policy",
+            "deadline_s", "admit_retries", "injector", "telemetry")
 
 
 def resolve_config(config: Optional[ServingConfig], kw: dict

@@ -56,10 +56,10 @@ def pow2_bucket(n: int, floor: int = 1) -> int:
 def can_bucket_prompts(cfg: ArchConfig) -> bool:
     """Right-padded prefill is sound when pad rows can be masked out
     afterwards: not under an SWA ring buffer.  The same test decides
-    chunked admission and paged caches (the reference's ``can_page`` and
-    ``can_chunk_prefill``): their envelopes differ from this one only for
-    recurrent, MLA, MoE, cross-attention and encoder-decoder archs, none
-    of which is ported."""
+    chunked admission, paged caches and mixed-precision serving (the
+    reference's ``can_page``, ``can_chunk_prefill`` and ``can_quantize``):
+    their envelopes differ from this one only for recurrent, MLA, MoE,
+    cross-attention and encoder-decoder archs, none of which is ported."""
     return cfg.swa_window == 0
 
 
@@ -101,6 +101,15 @@ class Engine:
         if c.dsa_mode == "faithful":
             raise NotImplementedError(
                 "dsa_mode='faithful' is not ported to repro_torch yet")
+        if (c.select_dtype != "float32" or c.kv_quant) and \
+                not can_bucket_prompts(cfg):
+            raise ValueError(
+                f"select_dtype={c.select_dtype!r}/kv_quant={c.kv_quant!r} "
+                f"unsupported for arch {cfg.name!r} (see "
+                f"engine.can_bucket_prompts)")
+        if c.select_dtype != "float32" and not c.long_context:
+            raise ValueError("select_dtype quantizes the DSA predicted-key "
+                             "caches: it needs long_context=True")
         self.config = c
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -114,10 +123,11 @@ class Engine:
         self.bucket_prompts = c.prompt_buckets and can_bucket_prompts(cfg)
         self.bucket_steps = c.step_buckets
         self.cache_dtype = c.cache_dtype
+        quant = dict(select_dtype=c.select_dtype, kv_quant=c.kv_quant)
         self.prefill_flags = RunFlags(mode="prefill", dsa_mode=c.dsa_mode,
-                                      long_context=c.long_context)
+                                      long_context=c.long_context, **quant)
         self.decode_flags = RunFlags(mode="decode", dsa_mode=c.dsa_mode,
-                                     long_context=c.long_context)
+                                     long_context=c.long_context, **quant)
 
     def prompt_bucket(self, prompt_len: int) -> int:
         if not self.bucket_prompts:

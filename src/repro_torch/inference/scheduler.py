@@ -43,7 +43,7 @@ Not ported yet (each raises ``NotImplementedError`` where a caller asks
 for it): declared prefixes (``Request.prefix_len``, the prefix registry
 and copy-on-write pages), a per-request ``dsa_mode`` other than the
 engine's, speculative segments, deadlines, cancellation, shedding and
-fault injection, telemetry, serving meshes and quantized caches.
+fault injection, telemetry and serving meshes.
 """
 from __future__ import annotations
 
@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.quantization import raw
 from repro_torch.inference.config import ServingConfig, resolve_config
 from repro_torch.inference.engine import (Engine, _sample, _sync,
                                           can_bucket_prompts, pow2_bucket)
@@ -64,11 +65,12 @@ from repro_torch.models.attention import (DSA_MODES, Active, _pool_write,
 from repro_torch.models.transformer import chunk_step, decode_step, init_cache
 
 # cache leaves with a per-token (or per-block) row axis after the batch
-# axis: zero-extended from the staging bucket to the resident length at
-# insertion
-_SEQ_KEYS = ("k", "v", "kt", "ktb")
-# pool leaves holding one row per cached token
-_POOL_ROW_KEYS = ("k", "v", "kt")
+# axis, quantization scales included: zero-extended from the staging
+# bucket to the resident length at insertion
+_SEQ_KEYS = ("k", "v", "kt", "ktb", "k_s", "v_s", "kt_s", "ktb_s")
+# pool leaves holding one row per cached token, and one per page
+_POOL_ROW_KEYS = ("k", "v", "kt", "k_s", "v_s", "kt_s")
+_POOL_PAGE_KEYS = ("ktb", "ktb_s")
 
 
 @dataclasses.dataclass
@@ -271,11 +273,10 @@ class ContinuousEngine:
         rows = (ids[:, None] * bk + torch.arange(
             bk, device=self.device)[None, :]).reshape(-1)
         for lc in _layers(self._caches):
-            for name in _POOL_ROW_KEYS:
-                if name in lc:
-                    lc[name][rows] = 0
-            if "ktb" in lc:
-                lc["ktb"][ids] = 0
+            for keys, at in ((_POOL_ROW_KEYS, rows), (_POOL_PAGE_KEYS, ids)):
+                for name in keys:
+                    if name in lc:
+                        raw(lc[name])[at] = 0
 
     def _zero_dirty(self, pages: Sequence[int]) -> None:
         """Zero the dirty subset of freshly mapped ``pages`` on the
@@ -408,9 +409,10 @@ class ContinuousEngine:
         for res, st in zip(_layers(self._caches), _layers(pre)):
             for name in _SEQ_KEYS:
                 if name in res:
-                    src = st[name][row]
-                    res[name][slot].zero_()
-                    res[name][slot, :src.shape[0]] = src
+                    src = raw(st[name])[row]
+                    dst = raw(res[name])[slot]
+                    dst.zero_()
+                    dst[:src.shape[0]] = src
             res["pos"][slot] = st["pos"][row]
 
     @torch.inference_mode()
@@ -430,9 +432,10 @@ class ContinuousEngine:
             for name in _POOL_ROW_KEYS:
                 if name in res:
                     _pool_write(res[name], flat, st[name][row], pg > 0)
-            if "ktb" in res:
-                pgs = tbl[:st["ktb"].shape[1]]
-                _pool_write(res["ktb"], pgs, st["ktb"][row], pgs > 0)
+            for name in _POOL_PAGE_KEYS:
+                if name in res:
+                    pgs = tbl[:st[name].shape[1]]
+                    _pool_write(res[name], pgs, st[name][row], pgs > 0)
             res["page_tbl"][slot] = tbl.to(torch.int32)
             res["pos"][slot] = st["pos"][row]
 

@@ -8,7 +8,10 @@ import torch
 
 from repro_torch.kernels import build
 
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+              torch.float8_e4m3fn: 3}
+# cache dtypes stored narrow, with one f32 scale per (row, head)
+NARROW = (torch.int8, torch.float8_e4m3fn)
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -38,6 +41,42 @@ def check_cuda_operand(name: str, t: torch.Tensor,
         raise ValueError(f"{name} needs a unit stride on its last axis")
     if any(s % 4 for s in t.stride()[:-1]) or t.data_ptr() % 16:
         raise ValueError(f"{name} rows must be 16-byte aligned")
+
+
+def check_scales(cache: torch.Tensor, k_scale, v_scale,
+                 device: torch.device):
+    """The scale pointers and their strides but the unit head stride, for
+    the C interfaces: none (null pointers) for a full-width cache; for an
+    int8/fp8 cache, f32 k/v scales shaped as the cache without its last
+    axis, sharing strides.  Returns ([k_ptr, v_ptr], strides)."""
+    narrow = cache.dtype in NARROW
+    if (k_scale is None) != (v_scale is None) or narrow != (
+            k_scale is not None):
+        raise ValueError(f"a {cache.dtype} cache takes "
+                         f"{'k_scale and v_scale' if narrow else 'no scales'}")
+    if k_scale is None:
+        return [None, None], (0,) * (cache.dim() - 2)
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if sc.device != device:
+            raise ValueError(f"{name} is on {sc.device}, expected {device}")
+        if sc.dtype != torch.float32 or sc.shape != cache.shape[:-1]:
+            raise ValueError(f"{name} must be f32 of shape "
+                             f"{tuple(cache.shape[:-1])}; got {sc.dtype} "
+                             f"{tuple(sc.shape)}")
+        if sc.stride(-1) != 1:
+            raise ValueError(f"{name} needs a unit stride on its last axis")
+    if k_scale.stride() != v_scale.stride():
+        raise ValueError("k_scale and v_scale must share strides")
+    return [k_scale.data_ptr(), v_scale.data_ptr()], k_scale.stride()[:-1]
+
+
+def count(fn, k_scale) -> None:
+    """One launch more on the wrapper ``fn``'s counter of the variant that
+    ran: ``launches`` (full-width cache) or ``launches_quant``."""
+    if k_scale is None:
+        fn.launches += 1
+    else:
+        fn.launches_quant += 1
 
 
 def check_index(name: str, t: torch.Tensor, device: torch.device

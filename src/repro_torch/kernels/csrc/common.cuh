@@ -2,6 +2,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -12,7 +13,13 @@ namespace dsa {
 constexpr float NEG = -1e30f;
 
 // dtype codes of the C interfaces
-enum Dtype : int { kF32 = 0, kBF16 = 1 };
+enum Dtype : int { kF32 = 0, kBF16 = 1, kI8 = 2, kFP8 = 3 };
+
+// Narrow cache storage (int8, fp8 e4m3): every (row, head) carries one f32
+// scale, and a row is dequantized as it is loaded.
+template <typename T> struct Narrow { static constexpr bool value = false; };
+template <> struct Narrow<int8_t> { static constexpr bool value = true; };
+template <> struct Narrow<__nv_fp8_e4m3> { static constexpr bool value = true; };
 
 __device__ __forceinline__ void load4(const float* p, float o[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -24,6 +31,47 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float o[4]) {
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+}
+
+// Four narrow values times their row's scale, from one 4-byte load.
+// __fmul_rn rounds each product to f32 on its own (nvcc may not contract
+// it into the FMA that consumes it), so a kernel reading narrow rows
+// computes exactly what it computes on the f32 rows dequant(q, scale).
+__device__ __forceinline__ void load4(const int8_t* p, float s, float o[4]) {
+  const char4 v = *reinterpret_cast<const char4*>(p);
+  o[0] = __fmul_rn(static_cast<float>(v.x), s);
+  o[1] = __fmul_rn(static_cast<float>(v.y), s);
+  o[2] = __fmul_rn(static_cast<float>(v.z), s);
+  o[3] = __fmul_rn(static_cast<float>(v.w), s);
+}
+
+__device__ __forceinline__ void load4(const __nv_fp8_e4m3* p, float s,
+                                      float o[4]) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_fp8_e4m3 e;
+    e.__x = static_cast<__nv_fp8_storage_t>((u >> (8 * i)) & 0xffu);
+    o[i] = __fmul_rn(static_cast<float>(e), s);
+  }
+}
+
+// Full-width rows carry no scale.
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, float, float o[4]) {
+  load4(p, o);
+}
+
+// Element offset of the first row of a selected cache block: row blk0 of
+// the dense cache of a batch row whose first element is `base` (K1, K3),
+// or the first row of physical page pidx[j] of a pool (K4, K5).  `ss` is
+// the row stride, so the same function places the rows' scales.
+template <bool PAGED>
+__device__ __forceinline__ int64_t block_rows(const int32_t* pidx, int64_t j,
+                                              int blk0, int block_k,
+                                              int64_t base, int64_t ss) {
+  if (PAGED) return (int64_t)pidx[j] * block_k * ss;
+  return base + (int64_t)blk0 * ss;
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }

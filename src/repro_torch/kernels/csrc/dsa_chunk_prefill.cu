@@ -1,8 +1,19 @@
-// K3: DSA chunk-prefill gather-attend for Hopper (sm_90a).
+// K3 and K5: DSA chunk-prefill gather-attend for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel
-//   src/repro/kernels/dsa_chunk_prefill.py::dsa_chunk_gather_attention
-//   (body _kernel)
+// Replaces the Pallas TPU kernels
+//   src/repro/kernels/dsa_chunk_prefill.py::dsa_chunk_gather_attention (K3)
+//   and ::dsa_chunk_paged_gather_attention (K5) (bodies _kernel and
+//   _paged_kernel), and their quantized bodies _quant_kernel (K3q) and
+//   _paged_quant_kernel (K5q).
+// K5 is K3 over a flat page pool (P * block_k, Hkv, hd): pidx, laid out as
+// idx, names the PHYSICAL page of each selected block while idx keeps the
+// LOGICAL block that carries the key positions.  One body reaches a
+// block's rows through dsa::block_rows (K1/K4's row function), so K5
+// equals K3 bitwise on a pool that holds the dense cache's blocks.  K3q
+// and K5q are the int8 and fp8 instances: the tile loader multiplies each
+// narrow row by its f32 (row, head) scale as it stages the row in shared
+// memory, so the inner loops are untouched and K3q equals K3 bitwise on
+// the f32 cache dequant(k, k_scale).
 // A chunk of C fresh queries (C a multiple of block_q), appended at each
 // batch row's own cache depth q_off[b], attends only the cache blocks the
 // block-pooled predictor selected per chunk query block: idx/ok
@@ -15,7 +26,7 @@
 // neither used nor read.  GQA maps query head h to KV head h / (Hq / Hkv).
 // Online softmax in f32 with q scaled in f32 before the dot, as in the
 // Pallas body; the output is written in q's dtype.  q f32 or bf16, cache
-// f32 or bf16, every pair; hd a multiple of 16 up to 128.
+// f32, bf16, int8 or fp8 e4m3, every pair; hd a multiple of 16 up to 128.
 //
 // What bounds it on the H100: operations, at f32.  At yi_6b's chunk (B=4,
 // C=512, Hq 32, Hkv 4, hd 128, block 128, nb=3 of a 4096-row bucket) the
@@ -49,12 +60,15 @@ constexpr int MAXC = 8;     // 4-wide hd chunks per thread: hd <= TPR*MAXC*4
 constexpr int HDMAX = TPR * MAXC * 4;
 constexpr int MAXPAIRS = 128;
 
-template <typename TQ, typename TC>
+template <typename TQ, typename TC, bool PAGED>
 __global__ void __launch_bounds__(MAXPAIRS * TPR)
 dsa_chunk_f32(const TQ* __restrict__ q, int64_t q_sb, int64_t q_sh,
               int64_t q_sl, const TC* __restrict__ k,
               const TC* __restrict__ v, int64_t c_sb, int64_t c_ss,
-              int64_t c_sh, const int32_t* __restrict__ idx,
+              int64_t c_sh, const float* __restrict__ k_scale,
+              const float* __restrict__ v_scale, int64_t s_sb, int64_t s_ss,
+              const int32_t* __restrict__ idx,
+              const int32_t* __restrict__ pidx,
               const int32_t* __restrict__ ok, int64_t i_sb, int64_t i_sq,
               const int32_t* __restrict__ q_off,
               const int32_t* __restrict__ kv_len, TQ* __restrict__ out,
@@ -93,14 +107,28 @@ dsa_chunk_f32(const TQ* __restrict__ q, int64_t q_sb, int64_t q_sh,
   }
   float m = NEG, l = 0.f;
 
-  const TC* kb = k + b * c_sb + kvh * c_sh;
-  const TC* vb = v + b * c_sb + kvh * c_sh;
-  const int32_t* ib = idx + b * i_sb + qb * i_sq;
-  const int32_t* okb = ok + b * i_sb + qb * i_sq;
+  const int64_t i0 = b * i_sb + qb * i_sq;
+  const int32_t* ib = idx + i0;
+  const int32_t* okb = ok + i0;
 
   for (int j = 0; j < nb; ++j) {
     if (okb[j] == 0) continue;                      // whole block masked
-    const int kstart = ib[j] * block_k;
+    const int kstart = ib[j] * block_k;             // logical position
+    // the block's rows (dense cache or pool page) and, narrow, scales
+    const int64_t rows = dsa::block_rows<PAGED>(pidx, i0 + j, kstart,
+                                                block_k, b * c_sb, c_ss)
+                         + kvh * c_sh;
+    const TC* kb = k + rows;
+    const TC* vb = v + rows;
+    const float* ksb = nullptr;
+    const float* vsb = nullptr;
+    if constexpr (dsa::Narrow<TC>::value) {
+      const int64_t srows = dsa::block_rows<PAGED>(pidx, i0 + j, kstart,
+                                                   block_k, b * s_sb, s_ss)
+                            + kvh;
+      ksb = k_scale + srows;
+      vsb = v_scale + srows;
+    }
     for (int r0 = 0; r0 < block_k; r0 += KT) {
       const int k_lo = kstart + r0;
       // keys at or past kv_len (<= S) are masked and never read
@@ -112,8 +140,14 @@ dsa_chunk_f32(const TQ* __restrict__ q, int64_t q_sb, int64_t q_sh,
         const int rr = i / hd4, c = (i % hd4) * 4;
         float kt[4] = {0.f, 0.f, 0.f, 0.f}, vt[4] = {0.f, 0.f, 0.f, 0.f};
         if (rr < nk) {                              // zero-fill the tail
-          dsa::load4(kb + (int64_t)(k_lo + rr) * c_ss + c, kt);
-          dsa::load4(vb + (int64_t)(k_lo + rr) * c_ss + c, vt);
+          const int64_t br = r0 + rr;               // row in the block
+          float ksc = 1.f, vsc = 1.f;               // narrow: dequantize
+          if constexpr (dsa::Narrow<TC>::value) {
+            ksc = ksb[br * s_ss];
+            vsc = vsb[br * s_ss];
+          }
+          dsa::load4(kb + br * c_ss + c, ksc, kt);
+          dsa::load4(vb + br * c_ss + c, vsc, vt);
         }
         *reinterpret_cast<float4*>(&ks[rr][c]) = make_float4(kt[0], kt[1], kt[2], kt[3]);
         *reinterpret_cast<float4*>(&vs[rr][c]) = make_float4(vt[0], vt[1], vt[2], vt[3]);
@@ -191,68 +225,117 @@ int rows_per_cta(int g, int block_q) {
   return rq;
 }
 
-template <typename TQ, typename TC>
+template <typename TQ, typename TC, bool PAGED>
 cudaError_t launch(const void* q, int64_t q_sb, int64_t q_sh, int64_t q_sl,
                    const void* k, const void* v, int64_t c_sb, int64_t c_ss,
-                   int64_t c_sh, const int32_t* idx, const int32_t* ok,
-                   int64_t i_sb, int64_t i_sq, const int32_t* q_off,
-                   const int32_t* kv_len, void* out, int64_t o_sb,
-                   int64_t o_sh, int64_t o_sl, int B, int hkv, int g, int C,
-                   int S, int hd, int nb, int block_q, int block_k,
-                   float scale, cudaStream_t stream) {
+                   int64_t c_sh, const float* k_scale, const float* v_scale,
+                   int64_t s_sb, int64_t s_ss, const int32_t* idx,
+                   const int32_t* pidx, const int32_t* ok, int64_t i_sb,
+                   int64_t i_sq, const int32_t* q_off, const int32_t* kv_len,
+                   void* out, int64_t o_sb, int64_t o_sh, int64_t o_sl,
+                   int B, int hkv, int g, int C, int S, int hd, int nb,
+                   int block_q, int block_k, float scale,
+                   cudaStream_t stream) {
   const int rq = rows_per_cta(g, block_q);
   // whole warps for the shuffles, whole slices of the query block
   if ((rq * g * TPR) % 32 != 0 || block_q % rq != 0)
     return cudaErrorInvalidValue;
   const dim3 grid((C / block_q) * (block_q / rq), hkv, B);
-  dsa_chunk_f32<TQ, TC><<<grid, rq * g * TPR, 0, stream>>>(
+  dsa_chunk_f32<TQ, TC, PAGED><<<grid, rq * g * TPR, 0, stream>>>(
       static_cast<const TQ*>(q), q_sb, q_sh, q_sl, static_cast<const TC*>(k),
-      static_cast<const TC*>(v), c_sb, c_ss, c_sh, idx, ok, i_sb, i_sq,
-      q_off, kv_len, static_cast<TQ*>(out), o_sb, o_sh, o_sl, g, rq, S, hd,
-      nb, block_q, block_k, scale);
+      static_cast<const TC*>(v), c_sb, c_ss, c_sh, k_scale, v_scale, s_sb,
+      s_ss, idx, pidx, ok, i_sb, i_sq, q_off, kv_len,
+      static_cast<TQ*>(out), o_sb, o_sh, o_sl, g, rq, S, hd, nb, block_q,
+      block_k, scale);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// C interface.  q/out: (B, Hq, C, hd) with (batch, head, row) strides in
-// elements and a unit hd stride, in one dtype; k/v: (B, S, Hkv, hd) with
-// shared strides (c_sb, c_ss, c_sh); idx/ok: (B, C / block_q, nb) int32
-// with strides (i_sb, i_sq) and a unit nb stride; q_off/kv_len: (B,)
-// int32.  Returns the cudaError_t of the launch.
-extern "C" int dsa_chunk_prefill_launch(
-    int q_dtype, int c_dtype, const void* q, int64_t q_sb, int64_t q_sh,
-    int64_t q_sl, const void* k, const void* v, int64_t c_sb, int64_t c_ss,
-    int64_t c_sh, const void* idx, const void* ok, int64_t i_sb,
-    int64_t i_sq, const void* q_off, const void* kv_len, void* out,
-    int64_t o_sb, int64_t o_sh, int64_t o_sl, int B, int hq, int hkv, int C,
-    int S, int hd, int nb, int block_q, int block_k, float scale,
-    void* stream) {
+template <bool PAGED>
+int dispatch(int q_dtype, int c_dtype, const void* q, int64_t q_sb,
+             int64_t q_sh, int64_t q_sl, const void* k, const void* v,
+             int64_t c_sb, int64_t c_ss, int64_t c_sh, const void* k_scale,
+             const void* v_scale, int64_t s_sb, int64_t s_ss,
+             const void* idx, const void* pidx, const void* ok, int64_t i_sb,
+             int64_t i_sq, const void* q_off, const void* kv_len, void* out,
+             int64_t o_sb, int64_t o_sh, int64_t o_sl, int B, int hq,
+             int hkv, int C, int S, int hd, int nb, int block_q, int block_k,
+             float scale, void* stream) {
+  const bool narrow = c_dtype == dsa::kI8 || c_dtype == dsa::kFP8;
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > MAXPAIRS || hd <= 0 ||
       hd % 16 != 0 || hd > HDMAX || block_q <= 0 || C <= 0 ||
-      C % block_q != 0 || block_k <= 0 || nb <= 0 || B <= 0 || S <= 0)
+      C % block_q != 0 || block_k <= 0 || nb <= 0 || B <= 0 || S <= 0 ||
+      narrow != (k_scale != nullptr && v_scale != nullptr))
     return (int)cudaErrorInvalidValue;
   const int g = hq / hkv;
+  const auto* ks = static_cast<const float*>(k_scale);
+  const auto* vs = static_cast<const float*>(v_scale);
   const auto* ix = static_cast<const int32_t*>(idx);
+  const auto* px = static_cast<const int32_t*>(pidx);
   const auto* okp = static_cast<const int32_t*>(ok);
   const auto* qo = static_cast<const int32_t*>(q_off);
   const auto* kl = static_cast<const int32_t*>(kv_len);
   auto st = static_cast<cudaStream_t>(stream);
-#define DSA_ARGS                                                             \
-  q, q_sb, q_sh, q_sl, k, v, c_sb, c_ss, c_sh, ix, okp, i_sb, i_sq, qo, kl, \
-      out, o_sb, o_sh, o_sl, B, hkv, g, C, S, hd, nb, block_q, block_k,     \
-      scale, st
-  cudaError_t e;
-  if (q_dtype == dsa::kF32 && c_dtype == dsa::kF32)
-    e = launch<float, float>(DSA_ARGS);
-  else if (q_dtype == dsa::kBF16 && c_dtype == dsa::kF32)
-    e = launch<__nv_bfloat16, float>(DSA_ARGS);
-  else if (q_dtype == dsa::kBF16 && c_dtype == dsa::kBF16)
-    e = launch<__nv_bfloat16, __nv_bfloat16>(DSA_ARGS);
-  else if (q_dtype == dsa::kF32 && c_dtype == dsa::kBF16)
-    e = launch<float, __nv_bfloat16>(DSA_ARGS);
-  else
-    e = cudaErrorInvalidValue;
+#define DSA_ARGS                                                           \
+  q, q_sb, q_sh, q_sl, k, v, c_sb, c_ss, c_sh, ks, vs, s_sb, s_ss, ix, px, \
+      okp, i_sb, i_sq, qo, kl, out, o_sb, o_sh, o_sl, B, hkv, g, C, S, hd, \
+      nb, block_q, block_k, scale, st
+#define DSA_CASE(QD, TQ, CD, TC)                \
+  if (q_dtype == dsa::QD && c_dtype == dsa::CD) \
+    return (int)launch<TQ, TC, PAGED>(DSA_ARGS);
+  DSA_CASE(kF32, float, kF32, float)
+  DSA_CASE(kBF16, __nv_bfloat16, kF32, float)
+  DSA_CASE(kBF16, __nv_bfloat16, kBF16, __nv_bfloat16)
+  DSA_CASE(kF32, float, kBF16, __nv_bfloat16)
+  DSA_CASE(kF32, float, kI8, int8_t)
+  DSA_CASE(kBF16, __nv_bfloat16, kI8, int8_t)
+  DSA_CASE(kF32, float, kFP8, __nv_fp8_e4m3)
+  DSA_CASE(kBF16, __nv_bfloat16, kFP8, __nv_fp8_e4m3)
+#undef DSA_CASE
 #undef DSA_ARGS
-  return (int)e;
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// C interfaces.  q/out: (B, Hq, C, hd) with (batch, head, row) strides in
+// elements and a unit hd stride, in one dtype; idx/ok: (B, C / block_q,
+// nb) int32 with strides (i_sb, i_sq) and a unit nb stride; q_off/kv_len:
+// (B,) int32.  An int8 or fp8 cache (K3q, K5q) comes with k_scale/v_scale,
+// f32 per (row, head) with a unit head stride and row stride s_ss (batch
+// stride s_sb); a full-width cache passes null scales.  Return the
+// cudaError_t of the launch.
+//
+// K3: k/v (B, S, Hkv, hd) with shared strides (c_sb, c_ss, c_sh).
+extern "C" int dsa_chunk_prefill_launch(
+    int q_dtype, int c_dtype, const void* q, int64_t q_sb, int64_t q_sh,
+    int64_t q_sl, const void* k, const void* v, int64_t c_sb, int64_t c_ss,
+    int64_t c_sh, const void* k_scale, const void* v_scale, int64_t s_sb,
+    int64_t s_ss, const void* idx, const void* ok, int64_t i_sb,
+    int64_t i_sq, const void* q_off, const void* kv_len, void* out,
+    int64_t o_sb, int64_t o_sh, int64_t o_sl, int B, int hq, int hkv, int C,
+    int S, int hd, int nb, int block_q, int block_k, float scale,
+    void* stream) {
+  return dispatch<false>(q_dtype, c_dtype, q, q_sb, q_sh, q_sl, k, v, c_sb,
+                         c_ss, c_sh, k_scale, v_scale, s_sb, s_ss, idx,
+                         nullptr, ok, i_sb, i_sq, q_off, kv_len, out, o_sb,
+                         o_sh, o_sl, B, hq, hkv, C, S, hd, nb, block_q,
+                         block_k, scale, stream);
+}
+
+// K5: k/v pools (P * block_k, Hkv, hd) with shared strides (c_ss, c_sh);
+// pidx: (B, C / block_q, nb) int32 physical pages laid out as idx.  Keys
+// are masked by their logical position idx * block_k + r only.
+extern "C" int dsa_chunk_prefill_paged_launch(
+    int q_dtype, int c_dtype, const void* q, int64_t q_sb, int64_t q_sh,
+    int64_t q_sl, const void* k, const void* v, int64_t c_ss, int64_t c_sh,
+    const void* k_scale, const void* v_scale, int64_t s_ss, const void* idx,
+    const void* pidx, const void* ok, int64_t i_sb, int64_t i_sq,
+    const void* q_off, const void* kv_len, void* out, int64_t o_sb,
+    int64_t o_sh, int64_t o_sl, int B, int hq, int hkv, int C, int hd,
+    int nb, int block_q, int block_k, float scale, void* stream) {
+  return dispatch<true>(q_dtype, c_dtype, q, q_sb, q_sh, q_sl, k, v, 0, c_ss,
+                        c_sh, k_scale, v_scale, 0, s_ss, idx, pidx, ok, i_sb,
+                        i_sq, q_off, kv_len, out, o_sb, o_sh, o_sl, B, hq,
+                        hkv, C, 0x7fffffff, hd, nb, block_q, block_k, scale,
+                        stream);
 }

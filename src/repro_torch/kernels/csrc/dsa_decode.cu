@@ -19,8 +19,15 @@
 // tail is masked here), and blocks with ok = 0, get an explicit p = 0, as
 // the Pallas body does; an invalid entry carries idx = 0, so masking is by
 // ok, never by skipping on idx.  Online softmax in f32; the output is
-// written in q's dtype.  q f32 or bf16; cache f32 or bf16; hd a multiple
-// of 16 up to 128.
+// written in q's dtype.  q f32 or bf16; cache f32, bf16, int8 or fp8 e4m3;
+// hd a multiple of 16 up to 128.
+//
+// K1q and K4q (the quantized bodies _quant_kernel and _paged_quant_kernel
+// of the same Pallas file) are the int8 and fp8 instances of this body: a
+// narrow row is multiplied by its f32 (row, head) scale as it is loaded
+// (dsa::load4), the scale found through the same row function as the row,
+// and everything after the load is unchanged, so K1q equals K1 bitwise on
+// the f32 cache dequant(k, k_scale), and K4q equals K1q on a paged copy.
 //
 // What bounds it on the H100: bytes.  A step reads nb*block_k rows of K
 // and V per (row, KV head): 6.3 MB at B=4, nb=6, bf16 cache (12.6 MB f32)
@@ -48,24 +55,14 @@ constexpr int WARPS = 4;
 constexpr int EPL = 4;  // hd slice per lane in the p.V pass: hd <= 32 * 4
 constexpr int VAHEAD = 8;  // V rows loaded ahead in the p.V pass
 
-// Element offset of the first row of selected block j of batch row b:
-// the dense cache's row blk0 of batch row b, or the pool's first row of
-// physical page pidx[b, j] (c_sb is unused there).
-template <bool PAGED>
-__device__ __forceinline__ int64_t block_rows(int b, int j, int blk0,
-                                              const int32_t* pidx,
-                                              int64_t i_sb, int block_k,
-                                              int64_t c_sb, int64_t c_ss) {
-  if (PAGED) return (int64_t)pidx[b * i_sb + j] * block_k * c_ss;
-  return b * c_sb + (int64_t)blk0 * c_ss;
-}
-
 template <typename TQ, typename TC, int G, bool PAGED>
 __global__ void __launch_bounds__(WARPS * 32)
 dsa_decode_partial(const TQ* __restrict__ q, int64_t q_sb, int64_t q_sh,
                    const TC* __restrict__ k, const TC* __restrict__ v,
                    int64_t c_sb, int64_t c_ss, int64_t c_sh,
-                   const int32_t* __restrict__ idx,
+                   const float* __restrict__ k_scale,
+                   const float* __restrict__ v_scale, int64_t s_sb,
+                   int64_t s_ss, const int32_t* __restrict__ idx,
                    const int32_t* __restrict__ pidx,
                    const int32_t* __restrict__ ok, int64_t i_sb,
                    const int32_t* __restrict__ kv_len,
@@ -107,11 +104,22 @@ dsa_decode_partial(const TQ* __restrict__ q, int64_t q_sb, int64_t q_sh,
   const int lim = min(min(kv_len[b], S), blk0 + block_k);
   if (ok[b * i_sb + j] != 0 && base < lim) {
     // the selected block's rows: logical positions blk0 + r, stored at
-    // rows + r * c_ss (dense or paged)
-    const int64_t rows = block_rows<PAGED>(b, j, blk0, pidx, i_sb, block_k,
-                                           c_sb, c_ss) + kvh * c_sh;
+    // rows + r * c_ss (dense or paged); a narrow cache's scales at
+    // srows + r * s_ss
+    const int64_t rows = dsa::block_rows<PAGED>(pidx, b * i_sb + j, blk0,
+                                                block_k, b * c_sb, c_ss)
+                         + kvh * c_sh;
     const TC* kb = k + rows;
     const TC* vb = v + rows;
+    const float* ksb = nullptr;
+    const float* vsb = nullptr;
+    if constexpr (dsa::Narrow<TC>::value) {
+      const int64_t srows = dsa::block_rows<PAGED>(pidx, b * i_sb + j, blk0,
+                                                   block_k, b * s_sb, s_ss)
+                            + kvh;
+      ksb = k_scale + srows;
+      vsb = v_scale + srows;
+    }
     // scores: lane owns key row base + lane
     const int kpos = base + lane;
     const bool live = kpos < lim;
@@ -120,11 +128,15 @@ dsa_decode_partial(const TQ* __restrict__ q, int64_t q_sb, int64_t q_sh,
     for (int g = 0; g < G; ++g) s[g] = live ? 0.f : NEG;
     if (live) {
       const TC* kr = kb + (int64_t)(r0 + lane) * c_ss;
+      float ksc = 1.f;
+      if constexpr (dsa::Narrow<TC>::value)
+        ksc = ksb[(int64_t)(r0 + lane) * s_ss];
 #pragma unroll 2
       for (int d = 0; d < hd; d += 16) {
         float kk[16];
 #pragma unroll
-        for (int u = 0; u < 4; ++u) dsa::load4(kr + d + 4 * u, kk + 4 * u);
+        for (int u = 0; u < 4; ++u)
+          dsa::load4(kr + d + 4 * u, ksc, kk + 4 * u);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float* qg = qs + g * hd + d;
@@ -152,8 +164,12 @@ dsa_decode_partial(const TQ* __restrict__ q, int64_t q_sb, int64_t q_sh,
       for (int u = 0; u < VAHEAD; ++u) {
 #pragma unroll
         for (int e = 0; e < EPL; ++e) vv[u][e] = 0.f;
-        if (has_d && r + u < nrows)
-          dsa::load4(vb + (int64_t)(r0 + r + u) * c_ss + d0, vv[u]);
+        if (has_d && r + u < nrows) {
+          float vsc = 1.f;
+          if constexpr (dsa::Narrow<TC>::value)
+            vsc = vsb[(int64_t)(r0 + r + u) * s_ss];
+          dsa::load4(vb + (int64_t)(r0 + r + u) * c_ss + d0, vsc, vv[u]);
+        }
       }
 #pragma unroll
       for (int u = 0; u < VAHEAD; ++u) {
@@ -211,7 +227,8 @@ dsa_decode_combine(const float* __restrict__ ws_m,
 template <typename TQ, typename TC, int G, bool PAGED>
 cudaError_t launch(const void* q, int64_t q_sb, int64_t q_sh, const void* k,
                    const void* v, int64_t c_sb, int64_t c_ss, int64_t c_sh,
-                   const int32_t* idx, const int32_t* pidx,
+                   const float* k_scale, const float* v_scale, int64_t s_sb,
+                   int64_t s_ss, const int32_t* idx, const int32_t* pidx,
                    const int32_t* ok, int64_t i_sb,
                    const int32_t* kv_len, float* ws, void* out, int64_t o_sb,
                    int64_t o_sh, int B, int hkv, int S, int hd, int nb,
@@ -232,9 +249,9 @@ cudaError_t launch(const void* q, int64_t q_sb, int64_t q_sh, const void* k,
   const dim3 grid(hkv, B, (n_tiles + WARPS - 1) / WARPS);
   kern<<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const TQ*>(q), q_sb, q_sh, static_cast<const TC*>(k),
-      static_cast<const TC*>(v), c_sb, c_ss, c_sh, idx, pidx, ok, i_sb,
-      kv_len,
-      ws_m, ws_l, ws_acc, hkv, S, hd, block_k, tiles_per_blk, n_tiles, scale);
+      static_cast<const TC*>(v), c_sb, c_ss, c_sh, k_scale, v_scale, s_sb,
+      s_ss, idx, pidx, ok, i_sb, kv_len, ws_m, ws_l, ws_acc, hkv, S, hd,
+      block_k, tiles_per_blk, n_tiles, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   dsa_decode_combine<TQ><<<dim3(hkv, B), 256, 0, stream>>>(
@@ -246,7 +263,9 @@ cudaError_t launch(const void* q, int64_t q_sb, int64_t q_sh, const void* k,
 template <typename TQ, typename TC, bool PAGED>
 cudaError_t dispatch_g(int g, const void* q, int64_t q_sb, int64_t q_sh,
                        const void* k, const void* v, int64_t c_sb,
-                       int64_t c_ss, int64_t c_sh, const int32_t* idx,
+                       int64_t c_ss, int64_t c_sh, const float* k_scale,
+                       const float* v_scale, int64_t s_sb, int64_t s_ss,
+                       const int32_t* idx,
                        const int32_t* pidx, const int32_t* ok, int64_t i_sb,
                        const int32_t* kv_len,
                        float* ws, void* out, int64_t o_sb, int64_t o_sh,
@@ -255,8 +274,9 @@ cudaError_t dispatch_g(int g, const void* q, int64_t q_sb, int64_t q_sh,
 #define DSA_G(GV)                                                            \
   case GV:                                                                   \
     return launch<TQ, TC, GV, PAGED>(q, q_sb, q_sh, k, v, c_sb, c_ss, c_sh,  \
-                                     idx, pidx, ok, i_sb, kv_len, ws, out,   \
-                                     o_sb, o_sh, B, hkv, S, hd, nb, block_k, \
+                                     k_scale, v_scale, s_sb, s_ss, idx,      \
+                                     pidx, ok, i_sb, kv_len, ws, out, o_sb,  \
+                                     o_sh, B, hkv, S, hd, nb, block_k,       \
                                      scale, st);
   switch (g) {
     DSA_G(1)
@@ -273,36 +293,43 @@ cudaError_t dispatch_g(int g, const void* q, int64_t q_sb, int64_t q_sh,
 template <bool PAGED>
 int dispatch(int q_dtype, int c_dtype, const void* q, int64_t q_sb,
              int64_t q_sh, const void* k, const void* v, int64_t c_sb,
-             int64_t c_ss, int64_t c_sh, const void* idx, const void* pidx,
-             const void* ok, int64_t i_sb, const void* kv_len, void* ws,
-             void* out, int64_t o_sb, int64_t o_sh, int B, int hq, int hkv,
-             int S, int hd, int nb, int block_k, float scale, void* stream) {
+             int64_t c_ss, int64_t c_sh, const void* k_scale,
+             const void* v_scale, int64_t s_sb, int64_t s_ss,
+             const void* idx, const void* pidx, const void* ok, int64_t i_sb,
+             const void* kv_len, void* ws, void* out, int64_t o_sb,
+             int64_t o_sh, int B, int hq, int hkv, int S, int hd, int nb,
+             int block_k, float scale, void* stream) {
+  const bool narrow = c_dtype == dsa::kI8 || c_dtype == dsa::kFP8;
   if (hkv <= 0 || hq % hkv != 0 || hd % 16 != 0 || hd > 128 || hd <= 0 ||
-      nb <= 0 || block_k <= 0 || B <= 0)
+      nb <= 0 || block_k <= 0 || B <= 0 ||
+      narrow != (k_scale != nullptr && v_scale != nullptr))
     return (int)cudaErrorInvalidValue;
   const int g = hq / hkv;
+  const auto* ks = static_cast<const float*>(k_scale);
+  const auto* vs = static_cast<const float*>(v_scale);
   const auto* ix = static_cast<const int32_t*>(idx);
   const auto* px = static_cast<const int32_t*>(pidx);
   const auto* okp = static_cast<const int32_t*>(ok);
   const auto* kl = static_cast<const int32_t*>(kv_len);
   auto* w = static_cast<float*>(ws);
   auto st = static_cast<cudaStream_t>(stream);
-#define DSA_ARGS                                                           \
-  g, q, q_sb, q_sh, k, v, c_sb, c_ss, c_sh, ix, px, okp, i_sb, kl, w, out, \
-      o_sb, o_sh, B, hkv, S, hd, nb, block_k, scale, st
-  cudaError_t e;
-  if (q_dtype == dsa::kF32 && c_dtype == dsa::kF32)
-    e = dispatch_g<float, float, PAGED>(DSA_ARGS);
-  else if (q_dtype == dsa::kBF16 && c_dtype == dsa::kF32)
-    e = dispatch_g<__nv_bfloat16, float, PAGED>(DSA_ARGS);
-  else if (q_dtype == dsa::kBF16 && c_dtype == dsa::kBF16)
-    e = dispatch_g<__nv_bfloat16, __nv_bfloat16, PAGED>(DSA_ARGS);
-  else if (q_dtype == dsa::kF32 && c_dtype == dsa::kBF16)
-    e = dispatch_g<float, __nv_bfloat16, PAGED>(DSA_ARGS);
-  else
-    e = cudaErrorInvalidValue;
+#define DSA_ARGS                                                              \
+  g, q, q_sb, q_sh, k, v, c_sb, c_ss, c_sh, ks, vs, s_sb, s_ss, ix, px, okp, \
+      i_sb, kl, w, out, o_sb, o_sh, B, hkv, S, hd, nb, block_k, scale, st
+#define DSA_CASE(QD, TQ, CD, TC)                    \
+  if (q_dtype == dsa::QD && c_dtype == dsa::CD)     \
+    return (int)dispatch_g<TQ, TC, PAGED>(DSA_ARGS);
+  DSA_CASE(kF32, float, kF32, float)
+  DSA_CASE(kBF16, __nv_bfloat16, kF32, float)
+  DSA_CASE(kBF16, __nv_bfloat16, kBF16, __nv_bfloat16)
+  DSA_CASE(kF32, float, kBF16, __nv_bfloat16)
+  DSA_CASE(kF32, float, kI8, int8_t)
+  DSA_CASE(kBF16, __nv_bfloat16, kI8, int8_t)
+  DSA_CASE(kF32, float, kFP8, __nv_fp8_e4m3)
+  DSA_CASE(kBF16, __nv_bfloat16, kFP8, __nv_fp8_e4m3)
+#undef DSA_CASE
 #undef DSA_ARGS
-  return (int)e;
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -314,16 +341,22 @@ int dispatch(int q_dtype, int c_dtype, const void* q, int64_t q_sb,
 // out: (B, Hq, 1, hd) in q's dtype.  Strides in elements.  Return the
 // cudaError_t of the launches.
 //
+// An int8 or fp8 cache (K1q, K4q) comes with k_scale/v_scale, f32 per
+// (row, head) with a unit head stride and row stride s_ss (batch stride
+// s_sb); a full-width cache passes null scales.
+//
 // K1: k/v (B, S, Hkv, hd) with shared strides (c_sb, c_ss, c_sh).
 extern "C" int dsa_decode_launch(
     int q_dtype, int c_dtype, const void* q, int64_t q_sb, int64_t q_sh,
     const void* k, const void* v, int64_t c_sb, int64_t c_ss, int64_t c_sh,
+    const void* k_scale, const void* v_scale, int64_t s_sb, int64_t s_ss,
     const void* idx, const void* ok, int64_t i_sb, const void* kv_len,
     void* ws, void* out, int64_t o_sb, int64_t o_sh, int B, int hq, int hkv,
     int S, int hd, int nb, int block_k, float scale, void* stream) {
   return dispatch<false>(q_dtype, c_dtype, q, q_sb, q_sh, k, v, c_sb, c_ss,
-                         c_sh, idx, nullptr, ok, i_sb, kv_len, ws, out, o_sb,
-                         o_sh, B, hq, hkv, S, hd, nb, block_k, scale, stream);
+                         c_sh, k_scale, v_scale, s_sb, s_ss, idx, nullptr,
+                         ok, i_sb, kv_len, ws, out, o_sb, o_sh, B, hq, hkv,
+                         S, hd, nb, block_k, scale, stream);
 }
 
 // K4: k/v pools (P * block_k, Hkv, hd) with shared strides (c_ss, c_sh);
@@ -332,11 +365,13 @@ extern "C" int dsa_decode_launch(
 extern "C" int dsa_decode_paged_launch(
     int q_dtype, int c_dtype, const void* q, int64_t q_sb, int64_t q_sh,
     const void* k, const void* v, int64_t c_ss, int64_t c_sh,
+    const void* k_scale, const void* v_scale, int64_t s_ss,
     const void* idx, const void* pidx, const void* ok, int64_t i_sb,
     const void* kv_len, void* ws, void* out, int64_t o_sb, int64_t o_sh,
     int B, int hq, int hkv, int hd, int nb, int block_k, float scale,
     void* stream) {
   return dispatch<true>(q_dtype, c_dtype, q, q_sb, q_sh, k, v, 0, c_ss, c_sh,
-                        idx, pidx, ok, i_sb, kv_len, ws, out, o_sb, o_sh, B,
-                        hq, hkv, 0x7fffffff, hd, nb, block_k, scale, stream);
+                        k_scale, v_scale, 0, s_ss, idx, pidx, ok, i_sb,
+                        kv_len, ws, out, o_sb, o_sh, B, hq, hkv, 0x7fffffff,
+                        hd, nb, block_k, scale, stream);
 }

@@ -13,6 +13,14 @@ K4 runs K1's body with the rows of each selected block found through
 the physical page stream ``pidx``, so it equals K1 bitwise on a pool
 that holds the dense cache's blocks.
 
+K1q and K4q (the Pallas bodies ``_quant_kernel`` and
+``_paged_quant_kernel``) are the same wrappers given an int8 or
+float8_e4m3fn cache and its per-(row, head) f32 scales ``k_scale``/
+``v_scale``: the kernel dequantizes each row as it loads it, so K1q
+equals K1 bitwise on the f32 cache ``dequant(k, k_scale)``.  Each wrapper
+counts its launches per variant: ``launches`` (full-width cache) and
+``launches_quant``.
+
 Layouts (kernel-native; ``kernels.ops.dsa_decode`` adapts model layout):
 
   q:       (B, Hq, 1, hd)     current query token, per head; any strides
@@ -22,11 +30,12 @@ Layouts (kernel-native; ``kernels.ops.dsa_decode`` adapts model layout):
                               need not be a block multiple
   idx/ok:  (B, nb)            selected cache-block indices + validity
   kv_len:  (B,)               valid cache rows per batch row
+  k/v_scale: (B, S, Hkv)      f32 scales of an int8/fp8 cache, or None
   out:     (B, Hq, 1, hd)     in q's dtype
 
 K4 takes k/v pools (P * block_k, Hkv, hd), page p owning rows
 [p * block_k, (p + 1) * block_k), and pidx (B, nb), the physical page of
-each selected logical block idx.
+each selected logical block idx, and scales (P * block_k, Hkv).
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -35,6 +44,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quantization import take_rows
 from repro_torch.kernels import _launch as LN
 
 NEG = -1e30
@@ -67,9 +77,11 @@ def _plain_body(q, hkv: int, blocks) -> torch.Tensor:
 
 
 def dsa_decode_gather_attention_plain(q, k_cache, v_cache, idx, ok, kv_len,
-                                      *, block_k: int = 128) -> torch.Tensor:
+                                      *, block_k: int = 128, k_scale=None,
+                                      v_scale=None) -> torch.Tensor:
     """K1's arithmetic in plain PyTorch: masked are rows >= kv_len or >= S
-    and blocks with ok = 0."""
+    and blocks with ok = 0.  With scales (K1q) the gathered rows are
+    dequantized first."""
     b, s_len = k_cache.shape[0], k_cache.shape[1]
     dev = q.device
     rows_b = torch.arange(b, device=dev)[:, None]
@@ -81,16 +93,19 @@ def dsa_decode_gather_attention_plain(q, k_cache, v_cache, idx, ok, kv_len,
             rows = kpos.clamp(max=s_len - 1)
             mask = ((kpos < kv_len[:, None]) & (kpos < s_len)
                     & ok[:, j, None].bool())
-            yield k_cache[rows_b, rows], v_cache[rows_b, rows], mask
+            yield (take_rows(k_cache, k_scale, rows_b, rows),
+                   take_rows(v_cache, v_scale, rows_b, rows), mask)
     return _plain_body(q, k_cache.shape[2], blocks())
 
 
 def dsa_decode_paged_gather_attention_plain(q, k_pool, v_pool, idx, pidx, ok,
-                                            kv_len, *, block_k: int = 128
+                                            kv_len, *, block_k: int = 128,
+                                            k_scale=None, v_scale=None
                                             ) -> torch.Tensor:
     """K4's arithmetic in plain PyTorch: K1's, with block j's rows read
     from pool page pidx[:, j] and masked by their logical position
-    idx[:, j] * block_k + r < kv_len."""
+    idx[:, j] * block_k + r < kv_len.  With scales (K4q) the gathered
+    rows are dequantized first."""
     offs = torch.arange(block_k, device=q.device)[None, :]
 
     def blocks():
@@ -98,12 +113,13 @@ def dsa_decode_paged_gather_attention_plain(q, k_pool, v_pool, idx, pidx, ok,
             kpos = idx[:, j].long()[:, None] * block_k + offs
             rows = pidx[:, j].long()[:, None] * block_k + offs
             mask = (kpos < kv_len[:, None]) & ok[:, j, None].bool()
-            yield k_pool[rows], v_pool[rows], mask
+            yield (take_rows(k_pool, k_scale, rows),
+                   take_rows(v_pool, v_scale, rows), mask)
     return _plain_body(q, k_pool.shape[1], blocks())
 
 
 def _launch(fn_name: str, q, k, v, idx, pidx, ok, kv_len, block_k: int,
-            cache_strides, s_len: int) -> torch.Tensor:
+            cache_strides, s_len: int, k_scale, v_scale) -> torch.Tensor:
     """Check the operands and launch K1 (pidx None) or K4 on q's card."""
     dev = q.device
     b, hq, one, hd = q.shape
@@ -120,6 +136,7 @@ def _launch(fn_name: str, q, k, v, idx, pidx, ok, kv_len, block_k: int,
     idx32 = LN.check_index("idx", idx, dev)
     ok32 = LN.check_index("ok", ok, dev)
     kvl = LN.check_index("kv_len", kv_len, dev)
+    scales, scale_strides = LN.check_scales(k, k_scale, v_scale, dev)
     out = torch.empty((b, hq, 1, hd), dtype=q.dtype, device=dev)
     # one partial softmax state (m, l, acc[hd]) per 32-row tile and head
     n_tiles = nb * -(-block_k // 32)
@@ -127,7 +144,7 @@ def _launch(fn_name: str, q, k, v, idx, pidx, ok, kv_len, block_k: int,
                      device=dev)
     head = [LN.DTYPE_CODE[q.dtype], LN.DTYPE_CODE[k.dtype], q.data_ptr(),
             q.stride(0), q.stride(1), k.data_ptr(), v.data_ptr(),
-            *cache_strides]
+            *cache_strides, *scales, *scale_strides]
     if pidx is None:
         streams = [idx32.data_ptr(), ok32.data_ptr()]
         dims = [b, hq, hkv, s_len, hd, nb, block_k]
@@ -141,7 +158,8 @@ def _launch(fn_name: str, q, k, v, idx, pidx, ok, kv_len, block_k: int,
                               out.data_ptr(), out.stride(0), out.stride(1)]
             + dims + [hd ** -0.5, LN.stream_handle(dev)])
     types = ([LN.I, LN.I, LN.P, LN.L, LN.L, LN.P, LN.P]
-             + [LN.L] * len(cache_strides) + [LN.P] * len(streams)
+             + [LN.L] * len(cache_strides) + [LN.P, LN.P]
+             + [LN.L] * len(scale_strides) + [LN.P] * len(streams)
              + [LN.L, LN.P, LN.P, LN.P, LN.L, LN.L] + [LN.I] * len(dims)
              + [LN.F, LN.P])
     err = LN.bind("dsa_decode", fn_name, types)(*args)
@@ -150,39 +168,47 @@ def _launch(fn_name: str, q, k, v, idx, pidx, ok, kv_len, block_k: int,
 
 
 def dsa_decode_gather_attention(q, k_cache, v_cache, idx, ok, kv_len, *,
-                                block_k: int = 128) -> torch.Tensor:
-    """K1.  q: (B,Hq,1,hd); k/v cache: (B,S,Hkv,hd); idx/ok: (B,nb);
-    kv_len: (B,).  Returns (B,Hq,1,hd) in q's dtype."""
+                                block_k: int = 128, k_scale=None,
+                                v_scale=None) -> torch.Tensor:
+    """K1 (K1q with scales).  q: (B,Hq,1,hd); k/v cache: (B,S,Hkv,hd);
+    idx/ok: (B,nb); kv_len: (B,); k/v_scale: (B,S,Hkv) f32 or None.
+    Returns (B,Hq,1,hd) in q's dtype."""
     if q.device.type == "cpu":
-        return dsa_decode_gather_attention_plain(q, k_cache, v_cache, idx,
-                                                 ok, kv_len, block_k=block_k)
+        return dsa_decode_gather_attention_plain(
+            q, k_cache, v_cache, idx, ok, kv_len, block_k=block_k,
+            k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     out = _launch("dsa_decode_launch", q, k_cache, v_cache, idx, None, ok,
-                  kv_len, block_k, k_cache.stride()[:3], k_cache.shape[1])
-    dsa_decode_gather_attention.launches += 1
+                  kv_len, block_k, k_cache.stride()[:3], k_cache.shape[1],
+                  k_scale, v_scale)
+    LN.count(dsa_decode_gather_attention, k_scale)
     return out
 
 
 def dsa_decode_paged_gather_attention(q, k_pool, v_pool, idx, pidx, ok,
-                                      kv_len, *, block_k: int = 128
+                                      kv_len, *, block_k: int = 128,
+                                      k_scale=None, v_scale=None
                                       ) -> torch.Tensor:
-    """K4.  q: (B,Hq,1,hd); k/v pool: (P*block_k,Hkv,hd); idx/pidx/ok:
-    (B,nb) logical blocks, physical pages, validity; kv_len: (B,).
-    Returns (B,Hq,1,hd) in q's dtype."""
+    """K4 (K4q with scales).  q: (B,Hq,1,hd); k/v pool: (P*block_k,Hkv,hd);
+    idx/pidx/ok: (B,nb) logical blocks, physical pages, validity; kv_len:
+    (B,); k/v_scale: (P*block_k,Hkv) f32 or None.  Returns (B,Hq,1,hd) in
+    q's dtype."""
     if q.device.type == "cpu":
         return dsa_decode_paged_gather_attention_plain(
-            q, k_pool, v_pool, idx, pidx, ok, kv_len, block_k=block_k)
+            q, k_pool, v_pool, idx, pidx, ok, kv_len, block_k=block_k,
+            k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     if k_pool.dim() != 3 or k_pool.shape[0] % block_k:
         raise ValueError(f"the pool {tuple(k_pool.shape)} is not whole "
                          f"pages of {block_k} rows")
     out = _launch("dsa_decode_paged_launch", q, k_pool, v_pool, idx, pidx,
-                  ok, kv_len, block_k, k_pool.stride()[:2], 0)
-    dsa_decode_paged_gather_attention.launches += 1
+                  ok, kv_len, block_k, k_pool.stride()[:2], 0, k_scale,
+                  v_scale)
+    LN.count(dsa_decode_paged_gather_attention, k_scale)
     return out
 
 
-dsa_decode_gather_attention.launches = 0
-dsa_decode_paged_gather_attention.launches = 0
+for _fn in (dsa_decode_gather_attention, dsa_decode_paged_gather_attention):
+    _fn.launches = _fn.launches_quant = 0

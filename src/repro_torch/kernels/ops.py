@@ -2,15 +2,18 @@
 
 Each takes tensors in the model's layout (B, L, H, hd) and makes the same
 transposes as the JAX reference's ``repro/kernels/ops.py``: K2 wants
-q/k/v as (B, H, L, hd); K1, K3 and K4 take q as (B, Hq, L, hd) and the
-cache (or page pool) in its natural layout.  The transposes are views;
-the kernels take strides, and K2 and K3 write their output in model
-layout, so the transpose back is free too.
+q/k/v as (B, H, L, hd); K1, K3, K4 and K5 take q as (B, Hq, L, hd) and
+the cache (or page pool) in its natural layout.  The transposes are
+views; the kernels take strides, and K2, K3 and K5 write their output in
+model layout, so the transpose back is free too.  ``k_scale``/``v_scale``
+(the per-row scales of an int8/fp8 cache, None for a full-width one)
+select the quantized variants K1q, K3q, K4q and K5q.
 """
 from __future__ import annotations
 
 from repro_torch.kernels.dsa_attention import dsa_block_sparse_attention
-from repro_torch.kernels.dsa_chunk_prefill import dsa_chunk_gather_attention
+from repro_torch.kernels.dsa_chunk_prefill import (
+    dsa_chunk_gather_attention, dsa_chunk_paged_gather_attention)
 from repro_torch.kernels.dsa_decode import (dsa_decode_gather_attention,
                                             dsa_decode_paged_gather_attention)
 
@@ -25,33 +28,51 @@ def dsa_attention(q, k, v, idx, valid, *, block_q=128, block_k=128,
     return out.transpose(1, 2)
 
 
-def dsa_decode(q, k_cache, v_cache, idx, ok, kv_len, *, block_k=128):
+def dsa_decode(q, k_cache, v_cache, idx, ok, kv_len, *, block_k=128,
+               k_scale=None, v_scale=None):
     """q: (B,1,Hq,hd); k/v cache: (B,S,Hkv,hd); idx/ok: (B,nb); kv_len:
-    (B,).  Returns (B,1,Hq,hd).  The plain twin is
+    (B,); k/v_scale: (B,S,Hkv).  Returns (B,1,Hq,hd).  The plain twin is
     core.attention.dsa_decode_block_attention."""
     out = dsa_decode_gather_attention(q.transpose(1, 2), k_cache, v_cache,
-                                      idx, ok, kv_len, block_k=block_k)
+                                      idx, ok, kv_len, block_k=block_k,
+                                      k_scale=k_scale, v_scale=v_scale)
     return out.transpose(1, 2)
 
 
 def dsa_decode_paged(q, k_pool, v_pool, idx, pidx, ok, kv_len, *,
-                     block_k=128):
+                     block_k=128, k_scale=None, v_scale=None):
     """q: (B,1,Hq,hd); k/v pool: (P*block_k,Hkv,hd); idx/ok: (B,nb)
     selected LOGICAL blocks; pidx: (B,nb) the same as physical pages;
-    kv_len: (B,).  Returns (B,1,Hq,hd).  The plain twin is
-    core.attention.dsa_decode_paged_block_attention."""
+    kv_len: (B,); k/v_scale: (P*block_k,Hkv).  Returns (B,1,Hq,hd).  The
+    plain twin is core.attention.dsa_decode_paged_block_attention."""
     out = dsa_decode_paged_gather_attention(q.transpose(1, 2), k_pool,
                                             v_pool, idx, pidx, ok, kv_len,
-                                            block_k=block_k)
+                                            block_k=block_k, k_scale=k_scale,
+                                            v_scale=v_scale)
     return out.transpose(1, 2)
 
 
 def dsa_chunk_prefill(q, k_cache, v_cache, idx, ok, q_off, kv_len, *,
-                      block_q=128, block_k=128):
+                      block_q=128, block_k=128, k_scale=None, v_scale=None):
     """q: (B,C,Hq,hd); k/v cache: (B,S,Hkv,hd); idx/ok: (B,C//block_q,nb);
-    q_off/kv_len: (B,).  Returns (B,C,Hq,hd).  The plain twin is
-    core.attention.dsa_chunk_block_attention."""
+    q_off/kv_len: (B,); k/v_scale: (B,S,Hkv).  Returns (B,C,Hq,hd).  The
+    plain twin is core.attention.dsa_chunk_block_attention."""
     out = dsa_chunk_gather_attention(q.transpose(1, 2), k_cache, v_cache,
                                      idx, ok, q_off, kv_len, block_q=block_q,
-                                     block_k=block_k)
+                                     block_k=block_k, k_scale=k_scale,
+                                     v_scale=v_scale)
+    return out.transpose(1, 2)
+
+
+def dsa_chunk_prefill_paged(q, k_pool, v_pool, idx, pidx, ok, q_off, kv_len,
+                            *, block_q=128, block_k=128, k_scale=None,
+                            v_scale=None):
+    """q: (B,C,Hq,hd); k/v pool: (P*block_k,Hkv,hd); idx/ok:
+    (B,C//block_q,nb) selected LOGICAL blocks; pidx the same as physical
+    pages; q_off/kv_len: (B,); k/v_scale: (P*block_k,Hkv).  Returns
+    (B,C,Hq,hd)."""
+    out = dsa_chunk_paged_gather_attention(q.transpose(1, 2), k_pool, v_pool,
+                                           idx, pidx, ok, q_off, kv_len,
+                                           block_q=block_q, block_k=block_k,
+                                           k_scale=k_scale, v_scale=v_scale)
     return out.transpose(1, 2)

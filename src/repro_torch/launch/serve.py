@@ -20,6 +20,16 @@ admission in ``--chunk-tokens``-wide chunks (the chunk kernel K3 on
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b \
         --reduced --continuous --paged --dsa --dsa-mode kernel \
         --requests 6 --slots 2 --prompt-len 64 --new-tokens 8 --device cpu
+
+``--kv-quant int8|fp8`` stores the K/V caches narrow with per-row scales
+(the quantized kernels K1q, K3q, K4q) and ``--select-dtype int8`` (with
+``--dsa``) the DSA selection caches; the run prints the resident cache's
+bytes per slot (per batch row on the static path):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b \
+        --reduced --continuous --paged --dsa --dsa-mode kernel \
+        --kv-quant int8 --select-dtype int8 --requests 6 --slots 2 \
+        --prompt-len 64 --new-tokens 8 --device cpu
 """
 from __future__ import annotations
 
@@ -36,17 +46,41 @@ from repro_torch.inference.engine import Engine
 from repro_torch.inference.scheduler import (ContinuousEngine, summarize,
                                              synthetic_workload)
 from repro_torch.kernels.dsa_attention import dsa_block_sparse_attention
-from repro_torch.kernels.dsa_chunk_prefill import dsa_chunk_gather_attention
+from repro_torch.kernels.dsa_chunk_prefill import (
+    dsa_chunk_gather_attention, dsa_chunk_paged_gather_attention)
 from repro_torch.kernels.dsa_decode import (dsa_decode_gather_attention,
                                             dsa_decode_paged_gather_attention)
 from repro_torch.models.attention import RunFlags, cache_page_size
-from repro_torch.models.transformer import init_model
+from repro_torch.models.transformer import init_cache, init_model
 
-# the kernel wrappers whose launch counts a continuous run reports
-KERNELS = {"K1": dsa_decode_gather_attention,
-           "K2": dsa_block_sparse_attention,
-           "K3": dsa_chunk_gather_attention,
-           "K4": dsa_decode_paged_gather_attention}
+# the kernels whose launch counts a run reports: (wrapper, counter)
+KERNELS = {"K1": (dsa_decode_gather_attention, "launches"),
+           "K2": (dsa_block_sparse_attention, "launches"),
+           "K3": (dsa_chunk_gather_attention, "launches"),
+           "K4": (dsa_decode_paged_gather_attention, "launches"),
+           "K5": (dsa_chunk_paged_gather_attention, "launches"),
+           "K1q": (dsa_decode_gather_attention, "launches_quant"),
+           "K3q": (dsa_chunk_gather_attention, "launches_quant"),
+           "K4q": (dsa_decode_paged_gather_attention, "launches_quant"),
+           "K5q": (dsa_chunk_paged_gather_attention, "launches_quant")}
+
+
+def launch_counts() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn, attr in KERNELS.values():
+        setattr(fn, attr, 0)
+
+
+def cache_bytes(caches) -> int:
+    """Bytes held by every tensor of a cache tree."""
+    if isinstance(caches, dict):
+        return sum(cache_bytes(v) for v in caches.values())
+    if isinstance(caches, list):
+        return sum(cache_bytes(v) for v in caches)
+    return caches.numel() * caches.element_size()
 
 
 def _serve_continuous(cfg, args, params, config, device):
@@ -59,7 +93,7 @@ def _serve_continuous(cfg, args, params, config, device):
         vocab=cfg.vocab, seed=args.seed)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    before = {k: fn.launches for k, fn in KERNELS.items()}
+    before = launch_counts()
     results = eng.serve(workload)
     wall = max((r.finish_s for r in results), default=0.0)
     s = summarize(results, wall)
@@ -69,13 +103,15 @@ def _serve_continuous(cfg, args, params, config, device):
           f"p50 {s['p50_latency_s']:.2f} s / p95 {s['p95_latency_s']:.2f} s "
           f"latency ({int(eng.stats['segments'])} segments, "
           f"{int(eng.stats['admitted'])} admissions)")
-    launches = {k: fn.launches - before[k] for k, fn in KERNELS.items()}
+    after = launch_counts()
     peak = (f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
             if device.type == "cuda" else "not measured (CPU)")
     print(f"  p50 TTFT {s['p50_ttft_s']:.2f} s, {eng.stats['chunks']} "
           f"chunk steps, {eng.stats['decode_steps']} decode steps, "
-          f"launches " + " ".join(f"{k} {n}" for k, n in launches.items())
-          + f", peak memory {peak}")
+          f"launches " + " ".join(f"{k} {after[k] - before[k]}"
+                                  for k in KERNELS)
+          + f", peak memory {peak}, resident cache "
+          f"{cache_bytes(eng._caches) // eng.slots} bytes per slot")
     return results, eng
 
 
@@ -114,6 +150,14 @@ def main(argv=None):
     ap.add_argument("--pool-pages", type=int, default=0,
                     help="physical pages in the paged pool (0 = enough "
                          "for every slot at max_len)")
+    ap.add_argument("--select-dtype", default="float32",
+                    choices=["float32", "int8"],
+                    help="DSA selection precision (with --dsa): int8 stores "
+                         "the predicted-key caches quantized with per-row "
+                         "scales and runs the selection product in integers")
+    ap.add_argument("--kv-quant", default=None, choices=["int8", "fp8"],
+                    help="quantized K/V cache storage dtype with per-row "
+                         "scales, dequantized on gather (default: off)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     ap.add_argument("--seed", type=int, default=0)
@@ -132,6 +176,9 @@ def main(argv=None):
         max_len = -(-max_len // page) * page
     config = ServingConfig(max_len=max_len, long_context=dsa_on,
                            dsa_mode=args.dsa_mode if dsa_on else "off",
+                           select_dtype=(args.select_dtype if dsa_on
+                                         else "float32"),
+                           kv_quant=args.kv_quant,
                            loop=args.loop, slots=args.slots or args.batch,
                            seg_len=args.seg_len,
                            chunk_tokens=args.chunk_tokens, paged=args.paged,
@@ -139,15 +186,21 @@ def main(argv=None):
     if args.continuous:
         return _serve_continuous(cfg, args, params, config, device)
     eng = Engine(cfg, params, config=config, device=device)
+    before = launch_counts()
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(1, cfg.vocab - 4,
                            size=(args.batch, args.prompt_len)).astype(np.int32)
     res = eng.generate(prompts, args.new_tokens)
+    row = cache_bytes(init_cache(cfg, 1, max_len, eng.decode_flags,
+                                 dtype=eng.cache_dtype, device="meta"))
     print(f"prefill: {res.prefill_s * 1e3:.1f} ms   "
           f"decode: {res.decode_s:.2f} s   "
           f"throughput: {res.tokens_per_s:.1f} tok/s   "
           f"({res.decode_steps} steps in {res.decode_dispatches} "
           f"dispatch{'es' if res.decode_dispatches != 1 else ''})")
+    after = launch_counts()
+    print(f"cache {row} bytes per batch row; launches "
+          + " ".join(f"{k} {after[k] - before[k]}" for k in KERNELS))
     print("first new tokens:", res.tokens[:, :8].tolist())
     return res
 

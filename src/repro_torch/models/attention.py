@@ -30,6 +30,15 @@ per-slot ``page_tbl`` over the logical geometry; page 0 is the permanent
 zero page.  Paged decode gathers through the table, with K4
 (``kernels.ops.dsa_decode_paged``) on ``dsa_mode="kernel"``.
 
+Mixed-precision serving (``RunFlags.kv_quant``, ``RunFlags.select_dtype``):
+``kv_quant`` "int8" or "fp8" stores K/V narrow with one f32 scale per
+(row, head) (leaves ``k_s``/``v_s``), dequantized after every gather and
+inside the kernels (K1q, K3q, K4q); ``select_dtype="int8"`` stores kt/ktb
+as int8 with per-row scales (``kt_s``/``ktb_s``) and runs the selection
+product in integers.  As in the reference, the PRESENCE of a scale leaf
+is what the apply paths branch on.  fp8 leaves move as uint8 views
+(``core.quantization.raw``); no arithmetic runs on them.
+
 Caches are updated IN PLACE (the JAX reference returns new trees): each
 layer's cache dict is written row by row during decode, and prefill fills
 it in place.  Cache writes never go out of range: the write slot wraps as
@@ -54,7 +63,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import attention as A
 from repro_torch.core import masks as M
 from repro_torch.core import prediction as PRED
+from repro_torch.core import quantization as Q
 from repro_torch.core.prediction import einsum, mm
+from repro_torch.core.quantization import raw
 from repro_torch.kernels import ops
 from repro_torch.models.common import dense_init, rope
 
@@ -68,6 +79,13 @@ PAGE_SIZE = 16
 
 DSA_MODES = ("off", "faithful", "block", "kernel")
 
+# Mixed-precision serving: the dtypes the selection caches (kt/ktb) and the
+# resident K/V cache may be stored in.  Selection only ranks, so block
+# top-k INDICES are what must agree; the attend over the gathered rows
+# always runs in full precision.
+SELECT_DTYPES = ("float32", "int8")
+KV_QUANT_DTYPES = (None, "int8", "fp8")
+
 
 @dataclasses.dataclass(frozen=True)
 class RunFlags:
@@ -75,6 +93,10 @@ class RunFlags:
     mode: str = "prefill"          # prefill | decode
     dsa_mode: str = "block"        # off | faithful | block | kernel
     long_context: bool = False     # DSA decode over the predicted-key cache
+    # "int8": kt/ktb stored int8 with per-row scales, selection in integers
+    select_dtype: str = "float32"
+    # "int8" | "fp8": K/V stored narrow with per-(row, head) scales
+    kv_quant: Optional[str] = None
 
 
 def dsa_active(cfg: ArchConfig, flags: RunFlags) -> bool:
@@ -97,6 +119,22 @@ def as_active(active) -> Optional[Active]:
     if active is None or isinstance(active, Active):
         return active
     return Active(active, active.nonzero()[:, 0])
+
+
+def _int8_select_scores(q_t, key_q, key_s, *, block_k: int = 1):
+    """Predicted scores against an int8-stored key cache: the queries are
+    quantized per row, int8 x int8 accumulates exactly, and the scores
+    return to f32 only at the top-k reduction.  q_t (B, R, kp) float;
+    key_q (B, N, kp) int8 with per-row scales key_s (B, N) -> (B, R, N)
+    f32 (divided by block_k for the pooled block cache).  The product
+    runs in float64 on integer values: exact for any kp here (|sum| <=
+    kp * 128^2 << 2^53), where an f32 product is exact only while
+    kp * 127^2 < 2^24 and follows the TF32 switch."""
+    qq, qs = Q.quant_store(q_t, axis=-1)
+    s_int = torch.einsum("brk,bnk->brn", qq.double(),
+                         key_q.double()).to(torch.int32)
+    return M.dequant_topk_scores(
+        s_int, qs[..., None] * key_s[:, None, :], block_k=block_k)
 
 
 def cache_page_size(cfg: ArchConfig, flags: RunFlags) -> int:
@@ -207,7 +245,7 @@ def apply_attention(params, cfg: ArchConfig, flags: RunFlags, x, *,
     else:
         out = A.flash_attention(q, k, v, causal=causal, window=cfg.swa_window)
     if flags.mode == "prefill" and cache is not None:
-        _fill_cache(cfg, cache, k, v, params, x)
+        _fill_cache(cfg, flags, cache, k, v, params, x)
     out = mm(out.reshape(*x.shape[:2], -1), params["wo"])
     return out, cache
 
@@ -218,14 +256,18 @@ def init_cache_attention(cfg: ArchConfig, batch: int, max_len: int,
     """Dense cache layout: k/v (B, S, Hkv, hd), per-row ``pos`` (B,), and
     with DSA decode the kt (B, S, k) / ktb (B, S/block_k, k) caches.  S is
     rounded up to a block_k multiple on the DSA decode path (the gather
-    paths then never pad the cache).
+    paths then never pad the cache).  ``flags.kv_quant`` stores k/v in
+    int8 or fp8 with f32 scales k_s/v_s (B, S, Hkv); ``flags.select_dtype
+    == "int8"`` stores kt/ktb in int8 with f32 scales kt_s (B, S) and
+    ktb_s (B, S/block_k).
 
     ``pages``: the PAGED layout instead, one flat pool of ``pages`` pages
     of ``bk = cache_page_size`` rows: k/v (pages*bk, Hkv, hd), kt
     (pages*bk, k), one ktb row per page (pages, k), and ``page_tbl``
     (B, S/bk) mapping each slot's logical block to its page.  Page 0 is
     the permanent zero page: never allocated, never written, so an
-    unmapped table entry reads zero rows."""
+    unmapped table entry reads zero rows.  Scale leaves follow their
+    data leaves into the pool."""
     if cfg.swa_window:
         raise NotImplementedError("sliding-window (ring) caches are not "
                                   "ported to repro_torch yet")
@@ -234,29 +276,34 @@ def init_cache_attention(cfg: ArchConfig, batch: int, max_len: int,
     dsa_decode = cfg.dsa.enabled and flags.long_context
     if dsa_decode:
         s = -(-s // cfg.dsa.block_k) * cfg.dsa.block_k
-    kw = dict(device=device, dtype=dtype)
+    f32 = dict(device=device, dtype=torch.float32)
+    kv_dt = Q.STORE_DTYPES[flags.kv_quant] if flags.kv_quant else dtype
+    sel_q = flags.select_dtype == "int8"
+    kt_dt = torch.int8 if sel_q else dtype
     if pages is not None:
         bk = cache_page_size(cfg, flags)
         if s % bk:
             raise ValueError(f"a paged cache needs max_len ({s}) divisible "
                              f"by the page size ({bk})")
-        c = {"k": torch.zeros((pages * bk, cfg.n_kv_heads, hd), **kw),
-             "v": torch.zeros((pages * bk, cfg.n_kv_heads, hd), **kw),
-             "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
-             "page_tbl": torch.zeros((batch, s // bk), dtype=torch.int32,
-                                     device=device)}
-        if dsa_decode:
-            kp = PRED.predictor_k(cfg.d_model, cfg.dsa.sigma)
-            c["kt"] = torch.zeros((pages * bk, kp), **kw)
-            c["ktb"] = torch.zeros((pages, kp), **kw)
-        return c
-    c = {"k": torch.zeros((batch, s, cfg.n_kv_heads, hd), **kw),
-         "v": torch.zeros((batch, s, cfg.n_kv_heads, hd), **kw),
-         "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+        rows, blocks = (pages * bk,), (pages,)
+    else:
+        rows, blocks = (batch, s), (batch, s // cfg.dsa.block_k)
+    c = {name: torch.zeros(rows + (cfg.n_kv_heads, hd), device=device,
+                           dtype=kv_dt) for name in ("k", "v")}
+    c["pos"] = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if pages is not None:
+        c["page_tbl"] = torch.zeros((batch, s // bk), dtype=torch.int32,
+                                    device=device)
+    if flags.kv_quant:
+        c["k_s"] = torch.zeros(rows + (cfg.n_kv_heads,), **f32)
+        c["v_s"] = torch.zeros(rows + (cfg.n_kv_heads,), **f32)
     if dsa_decode:
         kp = PRED.predictor_k(cfg.d_model, cfg.dsa.sigma)
-        c["kt"] = torch.zeros((batch, s, kp), **kw)
-        c["ktb"] = torch.zeros((batch, s // cfg.dsa.block_k, kp), **kw)
+        c["kt"] = torch.zeros(rows + (kp,), device=device, dtype=kt_dt)
+        c["ktb"] = torch.zeros(blocks + (kp,), device=device, dtype=kt_dt)
+        if sel_q:
+            c["kt_s"] = torch.zeros(rows, **f32)
+            c["ktb_s"] = torch.zeros(blocks, **f32)
     return c
 
 
@@ -268,21 +315,70 @@ def _block_sums(kt: torch.Tensor, block_k: int, n_kb: int) -> torch.Tensor:
     return kt.reshape(*kt.shape[:-2], n_kb, block_k, kt.shape[-1]).sum(-2)
 
 
-def _fill_cache(cfg: ArchConfig, cache: Dict, k, v, params, x) -> None:
+def _rebuild_ktb(cfg: ArchConfig, c: Dict) -> None:
+    """ktb from kt in place: block sums of kt's rows.  An int8 kt is
+    summed dequantized and the sums are requantized into ktb/ktb_s, the
+    source the live updates add to as well."""
+    n_kb = c["ktb"].shape[-2]
+    if "kt_s" in c:
+        sums = _block_sums(Q.dequant(c["kt"], c["kt_s"]), cfg.dsa.block_k,
+                           n_kb)
+        q8, sc = Q.quant_store(sums)
+        c["ktb"].copy_(q8)
+        c["ktb_s"].copy_(sc)
+    else:
+        c["ktb"].copy_(_block_sums(c["kt"], cfg.dsa.block_k, n_kb))
+
+
+def _quant_rows(cache: Dict, name: str, vals: torch.Tensor,
+                kind: Optional[str]) -> Dict[str, torch.Tensor]:
+    """The leaves to write for rows ``vals`` of leaf ``name``: the narrow
+    values and their scales (``quant_store`` as ``kind``) where the cache
+    holds ``name`` quantized, else the values in the leaf's dtype."""
+    if f"{name}_s" in cache:
+        q8, sc = Q.quant_store(vals, dtype=kind)
+        return {name: q8, f"{name}_s": sc}
+    return {name: vals.to(cache[name].dtype)}
+
+
+def _kv_rows(cache: Dict, k, v, kind: Optional[str]
+             ) -> Dict[str, torch.Tensor]:
+    """``_quant_rows`` of K and V rows together."""
+    return {**_quant_rows(cache, "k", k, kind),
+            **_quant_rows(cache, "v", v, kind)}
+
+
+def _kv_views(cache: Dict, *index):
+    """Full-precision K and V (gathered at ``index`` if given) for the
+    paths that attend the whole cache; a quantized cache is dequantized
+    here.  The block-gather paths dequantize after their gathers."""
+    out = []
+    for name in ("k", "v"):
+        t = Q.take(cache[name], *index) if index else cache[name]
+        if f"{name}_s" in cache:
+            sc = cache[f"{name}_s"]
+            t = Q.dequant(t, sc[index] if index else sc)
+        out.append(t)
+    return out
+
+
+def _fill_cache(cfg: ArchConfig, flags: RunFlags, cache: Dict, k, v, params,
+                x) -> None:
     """Write a prefill's K/V (and kt, ktb) into ``cache`` in place.  Rows
-    are cast to the cache's dtype (a bf16 model keeps an f32 cache)."""
+    are cast to the cache's dtype (a bf16 model keeps an f32 cache), or
+    quantized where it holds scales."""
     s = cache["k"].shape[1]
     t = k.shape[1]
     if t > s:
         raise ValueError(f"prompt of {t} tokens does not fit a cache of {s}")
-    cache["k"][:, :t] = k.to(cache["k"].dtype)
-    cache["v"][:, :t] = v.to(cache["v"].dtype)
+    for leaf, val in _kv_rows(cache, k, v, flags.kv_quant).items():
+        raw(cache[leaf])[:, :t] = raw(val)
     cache["pos"].fill_(t)
     if "kt" in cache:
         _, k_t = PRED.predict_qk(params["dsa"], x, None, cfg.dsa.quant_bits)
-        cache["kt"][:, :t] = k_t.to(cache["kt"].dtype)
-        cache["ktb"].copy_(_block_sums(cache["kt"], cfg.dsa.block_k,
-                                       cache["ktb"].shape[1]))
+        for leaf, val in _quant_rows(cache, "kt", k_t, "int8").items():
+            cache[leaf][:, :t] = val
+        _rebuild_ktb(cfg, cache)
 
 
 def _write_rows(t: torch.Tensor, pos: torch.Tensor, vals: torch.Tensor,
@@ -300,16 +396,19 @@ def _write_rows(t: torch.Tensor, pos: torch.Tensor, vals: torch.Tensor,
     tgt = torch.where(inb, pos, pos - w).clamp(0, s - 1)
     rows = torch.arange(t.shape[0], device=t.device)[:, None]
     put = (ok & inb).reshape(*ok.shape, *([1] * (vals.dim() - 2)))
-    t[rows, tgt] = torch.where(put, vals.to(t.dtype), t[rows, tgt])
+    r = raw(t)
+    r[rows, tgt] = torch.where(put, raw(vals.to(t.dtype)), r[rows, tgt])
 
 
 def _pool_write(pool: torch.Tensor, flat: torch.Tensor, vals: torch.Tensor,
                 ok: torch.Tensor) -> None:
     """In place: ``pool[flat[i]] = vals[i]`` where ``ok[i]``.  The other
-    entries write zeros into row 0 of the zero page, which no real write
-    targets (mapped pages are >= 1) and which stays zero."""
+    entries write zeros (a narrow zero with scale 0.0 in a quantized
+    pool) into row 0 of the zero page, which no real write targets
+    (mapped pages are >= 1) and which stays zero."""
     put = ok.reshape(-1, *([1] * (vals.dim() - 1)))
-    pool[torch.where(ok, flat, 0)] = torch.where(put, vals, 0).to(pool.dtype)
+    raw(pool)[torch.where(ok, flat, 0)] = torch.where(
+        put, raw(vals.to(pool.dtype)), 0)
 
 
 def _written(vals: torch.Tensor, active: Optional[Active]) -> torch.Tensor:
@@ -330,7 +429,6 @@ def _apply_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache,
     k = rope(k, pos[:, None], cfg.rope_theta)
     s = cache["k"].shape[1]
     slot = torch.where(pos < s, pos, pos % s)              # ring wrap
-    kc, vc = cache["k"], cache["v"]
     kv_len = torch.clamp(pos + 1, max=s).to(torch.int32)
     if active is None:
         tgt = (torch.arange(b, device=x.device), slot)
@@ -339,23 +437,32 @@ def _apply_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache,
         tgt = (active.rows, slot[active.rows])
         cache["pos"] = (pos + active.mask).to(torch.int32)
         kv_len = torch.where(active.mask, kv_len, 0)
-    kc[tgt] = _written(k[:, 0], active).to(kc.dtype)
-    vc[tgt] = _written(v[:, 0], active).to(vc.dtype)
+    for leaf, val in _kv_rows(cache, _written(k[:, 0], active),
+                              _written(v[:, 0], active),
+                              flags.kv_quant).items():
+        raw(cache[leaf])[tgt] = raw(val)
     if "kt" in cache:
         out = _dsa_decode(params, cfg, flags, x, q, cache, tgt, kv_len,
                           active)
     else:
-        out = A.decode_attention(q, kc, vc, kv_len=kv_len)
+        out = A.decode_attention(q, *_kv_views(cache), kv_len=kv_len)
     out = mm(out.reshape(b, 1, -1), params["wo"])
     return out, cache
 
 
-def _decode_select(cfg: ArchConfig, q_t, ktb_view, kv_len, s: int):
-    """Block top-k over the pooled score cache (B, n_kb, k): (idx, ok)."""
+def _decode_select(cfg: ArchConfig, q_t, ktb_view, ktb_s_view, kv_len,
+                   s: int):
+    """Block top-k over the pooled score cache (B, n_kb, k), int8 with
+    per-block scales ``ktb_s_view`` (B, n_kb) or float (None): (idx, ok)."""
     dsa = cfg.dsa
     bkd = dsa.block_k
     n_kb = ktb_view.shape[1]
-    s_blk = torch.einsum("bok,bjk->bj", q_t.float(), ktb_view.float()) / bkd
+    if ktb_s_view is not None:
+        s_blk = _int8_select_scores(q_t, ktb_view, ktb_s_view,
+                                    block_k=bkd)[:, 0]
+    else:
+        s_blk = torch.einsum("bok,bjk->bj", q_t.float(),
+                             ktb_view.float()) / bkd
     keep = M.keep_count(s, dsa.sparsity)
     nb_keep = min(n_kb, -(-keep // bkd) + -(-DECODE_LOCAL // bkd) + 1)
     return M.decode_block_topk_indices(s_blk, nb_keep, kv_len=kv_len,
@@ -373,9 +480,10 @@ def _dsa_decode(params, cfg: ArchConfig, flags: RunFlags, x, q, cache,
     s = kc.shape[1]
     q_t, k_t = PRED.predict_qk(params["dsa"], x, None, dsa.quant_bits)
     kt = _written(k_t[:, 0], active)
-    cache["kt"][tgt] = kt.to(cache["kt"].dtype)
+    for leaf, val in _quant_rows(cache, "kt", kt, "int8").items():
+        cache[leaf][tgt] = val
     if flags.dsa_mode == "off":
-        return A.decode_attention(q, kc, vc, kv_len=kv_len)
+        return A.decode_attention(q, *_kv_views(cache), kv_len=kv_len)
     if flags.dsa_mode not in ("block", "kernel"):
         raise NotImplementedError(
             f"dsa_mode={flags.dsa_mode!r} decode is not ported yet")
@@ -384,13 +492,22 @@ def _dsa_decode(params, cfg: ArchConfig, flags: RunFlags, x, q, cache,
     # bucketed step count can wrap, and its token is dropped), so a plain
     # add keeps the block sum exact for every delivered token; the rows of
     # tgt are distinct, so a gather-add-scatter needs no accumulating
-    # index_put (which sorts its indices on the card)
-    cache["ktb"][tgt[0], tgt[1] // bkd] += kt.to(cache["ktb"].dtype)
-    idx, ok = _decode_select(cfg, q_t, cache["ktb"], kv_len, s)
+    # index_put (which sorts its indices on the card).  An int8 block sum
+    # cannot add across scales: dequantize it, add in f32, requantize.
+    blk = (tgt[0], tgt[1] // bkd)
+    if "ktb_s" in cache:
+        old = Q.dequant(cache["ktb"][blk], cache["ktb_s"][blk])
+        cache["ktb"][blk], cache["ktb_s"][blk] = Q.quant_store(old + kt)
+    else:
+        cache["ktb"][blk] += kt.to(cache["ktb"].dtype)
+    idx, ok = _decode_select(cfg, q_t, cache["ktb"], cache.get("ktb_s"),
+                             kv_len, s)
+    scales = dict(k_scale=cache.get("k_s"), v_scale=cache.get("v_s"))
     if flags.dsa_mode == "kernel":
-        return ops.dsa_decode(q, kc, vc, idx, ok, kv_len, block_k=bkd)
+        return ops.dsa_decode(q, kc, vc, idx, ok, kv_len, block_k=bkd,
+                              **scales)
     return A.dsa_decode_block_attention(q, kc, vc, idx, ok, block_k=bkd,
-                                        kv_len=kv_len)
+                                        kv_len=kv_len, **scales)
 
 
 # -- paged decode (page-table indirection over a shared page pool) ---------
@@ -432,15 +549,15 @@ def _apply_paged_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache,
         cache["pos"] = (pos + active.mask).to(torch.int32)
         kv_len = torch.where(active.mask, kv_len, 0)
     flat = pg * bk + pos % bk
-    kc, vc = cache["k"], cache["v"]
-    _pool_write(kc, flat, k[:, 0], okw)
-    _pool_write(vc, flat, v[:, 0], okw)
+    for leaf, val in _kv_rows(cache, k[:, 0], v[:, 0],
+                              flags.kv_quant).items():
+        _pool_write(cache[leaf], flat, val, okw)
     view = _paged_view_rows(tbl, bk)                       # (B, S)
     if "kt" in cache:
         out = _dsa_paged_decode(params, cfg, flags, x, q, cache, flat, okw,
                                 pg, kv_len, view)
     else:
-        out = A.decode_attention(q, kc[view], vc[view], kv_len=kv_len)
+        out = A.decode_attention(q, *_kv_views(cache, view), kv_len=kv_len)
     out = mm(out.reshape(b, 1, -1), params["wo"])
     return out, cache
 
@@ -455,26 +572,40 @@ def _dsa_paged_decode(params, cfg: ArchConfig, flags: RunFlags, x, q, cache,
     bk = dsa.block_k
     kc, vc = cache["k"], cache["v"]
     q_t, k_t = PRED.predict_qk(params["dsa"], x, None, dsa.quant_bits)
-    _pool_write(cache["kt"], flat, k_t[:, 0], okw)
+    for leaf, val in _quant_rows(cache, "kt", k_t[:, 0], "int8").items():
+        _pool_write(cache[leaf], flat, val, okw)
     if flags.dsa_mode == "off":
-        return A.decode_attention(q, kc[view], vc[view], kv_len=kv_len)
+        return A.decode_attention(q, *_kv_views(cache, view), kv_len=kv_len)
     if flags.dsa_mode not in ("block", "kernel"):
         raise NotImplementedError(
             f"dsa_mode={flags.dsa_mode!r} decode is not ported yet")
     # a write that does not land adds zero to the zero page's row: every
     # such entry stores 0 + 0 there, and the real targets (the slots'
-    # own pages) are distinct, so no accumulating index_put is needed
-    cache["ktb"][torch.where(okw, pg, 0)] += torch.where(
-        okw[:, None], k_t[:, 0], 0).to(cache["ktb"].dtype)
+    # own pages) are distinct, so no accumulating index_put is needed.
+    # int8 block sums are dequantized, added in f32 and requantized; a
+    # dropped one stores (0, scale 0.0) in the zero page's row.
+    if "ktb_s" in cache:
+        src = torch.where(okw, pg, 0)
+        old = Q.dequant(cache["ktb"][src], cache["ktb_s"][src])
+        for leaf, val in zip(("ktb", "ktb_s"),
+                             Q.quant_store(old + k_t[:, 0])):
+            _pool_write(cache[leaf], pg, val, okw)
+    else:
+        cache["ktb"][torch.where(okw, pg, 0)] += torch.where(
+            okw[:, None], k_t[:, 0], 0).to(cache["ktb"].dtype)
     tbl = cache["page_tbl"].long()
-    idx, ok = _decode_select(cfg, q_t, cache["ktb"][tbl], kv_len,
+    ktb_s = cache.get("ktb_s")
+    idx, ok = _decode_select(cfg, q_t, cache["ktb"][tbl],
+                             None if ktb_s is None else ktb_s[tbl], kv_len,
                              view.shape[1])
     pidx = torch.gather(tbl, 1, idx.long()).to(torch.int32)
+    scales = dict(k_scale=cache.get("k_s"), v_scale=cache.get("v_s"))
     if flags.dsa_mode == "kernel":
         return ops.dsa_decode_paged(q, kc, vc, idx, pidx, ok, kv_len,
-                                    block_k=bk)
+                                    block_k=bk, **scales)
     return A.dsa_decode_paged_block_attention(q, kc, vc, idx, pidx, ok,
-                                              block_k=bk, kv_len=kv_len)
+                                              block_k=bk, kv_len=kv_len,
+                                              **scales)
 
 
 # -- chunk-append path (chunked admission) ----------------------------------
@@ -512,25 +643,32 @@ def _apply_chunk(params, cfg: ArchConfig, flags: RunFlags, x, cache,
     live = (offs[None, :] < chunk_len.long()[:, None]) & act[:, None]
     wok = act[:, None].expand(b, c)        # active rows write all C rows
     lv = live[..., None, None]
-    _write_rows(kc, p, torch.where(lv, k, 0), wok)
-    _write_rows(vc, p, torch.where(lv, v, 0), wok)
+    # pad rows write zeros: quantized, (0, scale 0.0)
+    for leaf, val in _kv_rows(cache, torch.where(lv, k, 0),
+                              torch.where(lv, v, 0), flags.kv_quant).items():
+        _write_rows(cache[leaf], p, val, wok)
     adv = torch.where(act, chunk_len.long(), 0)
     cache["pos"] = (pos + adv).to(torch.int32)
     kv_len = (pos + adv).to(torch.int32)
+    head = (slice(None), slice(None, sel))             # the selection geometry
     if "kt" in cache:
         q_t, ktv = _chunk_fill_pred(params, cfg, x, cache, p, live, wok,
                                     pos, act)
         if dsa_active(cfg, flags):
-            out = _dsa_chunk_attend(cfg, flags, q, kc[:, :sel], vc[:, :sel],
-                                    q_t, cache["kt"][:, :sel], p, pos,
-                                    kv_len)
+            scales = {name: cache[leaf][head] for name, leaf in (
+                ("kt_sel_s", "kt_s"), ("k_scale", "k_s"), ("v_scale", "v_s"))
+                if leaf in cache}
+            out = _dsa_chunk_attend(cfg, flags, q, kc[head], vc[head], q_t,
+                                    cache["kt"][head], p, pos, kv_len,
+                                    **scales)
         else:
-            out = A.chunk_attention(q, kc[:, :sel], vc[:, :sel], p)
+            out = A.chunk_attention(q, *_kv_views(cache, *head), p)
         # the selection saw the chunk's pad rows of kt (as whole-prompt
         # prefill does); the cache keeps them as zeros
-        _write_rows(cache["kt"], p, ktv, wok)
+        for leaf, val in ktv.items():
+            _write_rows(cache[leaf], p, val, wok)
     else:
-        out = A.chunk_attention(q, kc[:, :sel], vc[:, :sel], p)
+        out = A.chunk_attention(q, *_kv_views(cache, *head), p)
     out = mm(out.reshape(b, c, -1), params["wo"])
     return out, cache
 
@@ -541,48 +679,71 @@ def _chunk_fill_pred(params, cfg: ArchConfig, x, cache, p, live, wok, pos,
 
     Writes the chunk's K~ rows UNMASKED into kt (whole-prompt prefill
     scores the pad rows' K~ during selection, causality hides them) and
-    adds the chunk's per-block partial sums of the MASKED rows into ktb
-    (the chunk is block_k aligned, so each touched block is summed as the
-    truncate rebuild sums it).  Returns Q~ and the masked K~ rows, which
-    the caller writes into kt once the selection has run."""
+    updates ktb's touched blocks with the per-block sums of the MASKED
+    rows.  An int8 ktb is SET to the requantized sums of the dequantized
+    rows (the reference's rule: a chunk is block_k aligned, so each block
+    it fills is fresh); a float ktb ADDS them, as the reference does, so
+    that the empty chunk of a row whose prompt ended mid-block leaves that
+    block as it is.  Returns Q~ and the masked rows to write ({leaf:
+    rows}), which the caller writes into kt (and kt_s) once the selection
+    has run."""
     dsa = cfg.dsa
     b, c = x.shape[:2]
     q_t, k_t = PRED.predict_qk(params["dsa"], x, None, dsa.quant_bits)
-    _write_rows(cache["kt"], p, k_t, wok)
-    ktv = torch.where(live[..., None], k_t, 0)
     bkd = dsa.block_k
     if c % bkd:
         raise ValueError(f"chunk width {c} is not a multiple of block_k "
                          f"{bkd}")
-    ktb = cache["ktb"]
-    n_kb = ktb.shape[1]
     jb = (pos // bkd)[:, None] + torch.arange(c // bkd, device=x.device)
-    okb = act[:, None] & (jb < n_kb)
-    part = ktv.reshape(b, c // bkd, bkd, -1).sum(dim=2)
-    rows = torch.arange(b, device=x.device)[:, None].expand_as(jb)
-    # blocks past the cache or of inactive rows add zero to the last block
-    ktb.index_put_((rows, jb.clamp(max=n_kb - 1)),
-                   torch.where(okb[..., None], part, 0).to(ktb.dtype),
-                   accumulate=True)
-    return q_t, ktv
+    if "kt_s" in cache:
+        ktq, kts = Q.quant_store(k_t)
+        _write_rows(cache["kt"], p, ktq, wok)
+        _write_rows(cache["kt_s"], p, kts, wok)
+        masked = {"kt": torch.where(live[..., None], ktq, 0),
+                  "kt_s": torch.where(live, kts, 0.0)}
+        rows = Q.dequant(masked["kt"], masked["kt_s"])
+    else:
+        _write_rows(cache["kt"], p, k_t, wok)
+        masked = {"kt": torch.where(live[..., None], k_t, 0)}
+        rows = masked["kt"]
+    part = rows.reshape(b, c // bkd, bkd, -1).sum(dim=2)
+    if "ktb_s" not in cache:
+        ktb = cache["ktb"]
+        brows = torch.arange(b, device=x.device)[:, None]
+        part = ktb[brows, jb.clamp(max=ktb.shape[1] - 1)] + part.to(ktb.dtype)
+    wb = act[:, None].expand_as(jb)
+    for leaf, val in _quant_rows(cache, "ktb", part, "int8").items():
+        _write_rows(cache[leaf], jb, val, wb)
+    return q_t, masked
 
 
 def _dsa_chunk_attend(cfg: ArchConfig, flags: RunFlags, q, kc, vc, q_t,
-                      kt_sel, p, pos, kv_len):
+                      kt_sel, p, pos, kv_len, *, kt_sel_s=None,
+                      k_scale=None, v_scale=None):
     """DSA pattern + sparse attention for a chunk: the whole-prompt
     granularity choice made on the CACHE length (the prompt bucket).
     Token granularity when that geometry is not block-divisible (or in
     faithful mode), else block-pooled selection feeding the plain gather
     twin or the chunk kernel K3.  ``kt_sel`` (B, S, k) holds the chunk's
     unmasked K~ rows; ``p`` (B, C) are the chunk queries' global
-    positions, ``pos`` (B,) the chunk start."""
+    positions, ``pos`` (B,) the chunk start.  ``kt_sel_s``/``k_scale``/
+    ``v_scale`` are the per-row scales of int8 selection and int8/fp8
+    K/V caches (None: full precision)."""
     dsa = cfg.dsa
     b, c = q.shape[:2]
     s = kc.shape[1]
+
+    def scores(qq):
+        if kt_sel_s is not None:
+            return _int8_select_scores(qq, kt_sel, kt_sel_s)
+        return einsum("bqk,bsk->bqs", qq, kt_sel)
+
     if flags.dsa_mode == "faithful" or s % dsa.block_q or s % dsa.block_k:
-        s_t = einsum("bqk,bsk->bqs", q_t, kt_sel)
+        s_t = scores(q_t)
         valid = torch.arange(s, device=q.device)[None, None, :] <= p[:, :, None]
         mask = M.row_topk_mask(s_t, M.keep_count(s, dsa.sparsity), valid)
+        if k_scale is not None:
+            kc, vc = Q.dequant(kc, k_scale), Q.dequant(vc, v_scale)
         return A.chunk_attention(q, kc, vc, p, token_mask=mask)
     bq, bkd = dsa.block_q, dsa.block_k
     if c % bq:
@@ -590,7 +751,7 @@ def _dsa_chunk_attend(cfg: ArchConfig, flags: RunFlags, q, kc, vc, q_t,
                          f"{bq}")
     n_kb = s // bkd
     q_blk = q_t.reshape(b, c // bq, bq, -1).mean(dim=2)
-    sc = einsum("bqk,bsk->bqs", q_blk, kt_sel)             # (B, nQb, S)
+    sc = scores(q_blk)                                     # (B, nQb, S)
     bs = sc.reshape(b, c // bq, n_kb, bkd).amax(dim=-1)
     nb_keep = min(n_kb, max(dsa.min_blocks + dsa.local_blocks,
                             M.keep_count(n_kb, dsa.sparsity)))
@@ -599,7 +760,9 @@ def _dsa_chunk_attend(cfg: ArchConfig, flags: RunFlags, q, kc, vc, q_t,
         local_blocks=dsa.local_blocks, sort=dsa.sort_indices)
     if flags.dsa_mode == "kernel":
         return ops.dsa_chunk_prefill(q, kc, vc, idx, ok, pos, kv_len,
-                                     block_q=bq, block_k=bkd)
+                                     block_q=bq, block_k=bkd,
+                                     k_scale=k_scale, v_scale=v_scale)
     return A.dsa_chunk_block_attention(q, kc, vc, idx, ok, block_q=bq,
                                        block_k=bkd, q_offset=pos,
-                                       kv_len=kv_len)
+                                       kv_len=kv_len, k_scale=k_scale,
+                                       v_scale=v_scale)

@@ -27,7 +27,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.prediction import mm
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
-from repro_torch.models.attention import RunFlags, _block_sums, as_active
+from repro_torch.core.quantization import raw
+from repro_torch.models.attention import RunFlags, _rebuild_ktb, as_active
 from repro_torch.models.common import dense_init, rms_norm
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -120,15 +121,17 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, flags: RunFlags,
         for _ in range(B.n_groups(cfg))]}
 
 
-# per-token cache leaves, masked past the true length
-_ROW_KEYS = ("k", "v", "kt")
+# per-token cache leaves (and their quantization scales), masked past the
+# true length
+_ROW_KEYS = ("k", "v", "kt", "k_s", "v_s", "kt_s")
 
 
 def truncate_cache(cfg: ArchConfig, caches, length) -> Dict[str, Any]:
     """Sanitise a freshly prefilled cache to its true prompt length(s), in
-    place: zero every per-token row at positions >= length, rebuild ktb
-    from the masked kt, and set every ``pos`` to ``length`` (a scalar or
-    per-row (B,) lengths)."""
+    place: zero every per-token row (and scale) at positions >= length,
+    rebuild ktb (ktb_s) from the masked kt, and set every ``pos`` to
+    ``length`` (a scalar or per-row (B,) lengths).  fp8 rows are zeroed
+    through their bytes: no arithmetic runs on an fp8 tensor."""
     for group in caches["groups"]:
         for sub in group.values():
             c = sub["attn"]
@@ -138,11 +141,10 @@ def truncate_cache(cfg: ArchConfig, caches, length) -> Dict[str, Any]:
             keep = torch.arange(s, device=ln.device)[None, :] < ln[:, None]
             for name in _ROW_KEYS:
                 if name in c:
-                    t = c[name]
+                    t = raw(c[name])
                     t.mul_(keep.reshape(b, s, *([1] * (t.dim() - 2))).to(
                         t.dtype))
             c["pos"] = ln.clone()
             if "ktb" in c:
-                c["ktb"].copy_(_block_sums(c["kt"], cfg.dsa.block_k,
-                                           c["ktb"].shape[1]))
+                _rebuild_ktb(cfg, c)
     return caches

@@ -1,4 +1,5 @@
-"""The CUDA kernels K1 to K4 on the card against their plain versions.
+"""The CUDA kernels K1 to K5 and the quantized K1q, K3q, K4q and K5q on the
+card against their plain versions.
 
 Needs a CUDA card and the CUDA toolkit; skips without a card.  Imports
 neither JAX nor the reference, so it runs where only PyTorch is installed:
@@ -168,6 +169,161 @@ def test_cuda_k4_matches_plain_and_equals_k1(cuda_device, cdt):
         q, pool_k, pool_v, idx, pidx, ok, kv_len, block_k=bk)
     dense = K1.dsa_decode_gather_attention(q, kc, vc, idx, ok, kv_len,
                                            block_k=bk)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert torch.equal(got, dense)
+
+
+def _quant_cache(gen, dev, shape, kind):
+    """An int8/fp8 cache with its scales, from random f32 rows."""
+    from repro_torch.core.quantization import quant_store
+    return quant_store(torch.randn(shape, generator=gen, device=dev),
+                       dtype=kind)
+
+
+def _pooled(tbl, bk, *dense):
+    """Each dense (B, S, ...) leaf scattered over the pages ``tbl`` maps
+    (page 0 and unmapped pages zero)."""
+    from repro_torch.core.quantization import raw
+    out = []
+    n_pages = int(tbl.max()) + 1
+    b, n_kb = tbl.shape
+    rows = (tbl[:, :, None] * bk + torch.arange(bk, device=tbl.device)
+            ).reshape(b, n_kb * bk)
+    for d in dense:
+        pool = torch.zeros((n_pages * bk,) + tuple(d.shape[2:]),
+                           dtype=d.dtype, device=d.device)
+        raw(pool)[rows] = raw(d)
+        out.append(pool)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("qdt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_cuda_k1q_k4q_match_plain_and_equal_unquantized(cuda_device, kind,
+                                                        qdt):
+    """K1q and K4q on an int8/fp8 cache: within tolerance of their plain
+    versions, bit for bit K1 on the dequantized f32 cache, and K4q bit
+    for bit K1q on a page-shuffled copy."""
+    from repro_torch.core.quantization import dequant
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    b, hq, hkv, hd, s, bk = 2, 32, 4, 128, 1024, 128
+    n_kb = s // bk
+    q = torch.randn((b, hq, 1, hd), generator=gen,
+                    device=cuda_device).to(qdt)
+    kq, ks = _quant_cache(gen, cuda_device, (b, s, hkv, hd), kind)
+    vq, vs = _quant_cache(gen, cuda_device, (b, s, hkv, hd), kind)
+    kv_len = torch.tensor([s - 5, 641], dtype=torch.int32,
+                          device=cuda_device)
+    idx = torch.tensor([[0, 3, 6, 7], [1, 2, 5, 0]], dtype=torch.int32,
+                       device=cuda_device)
+    ok = torch.tensor([[1, 1, 1, 1], [1, 1, 1, 0]], dtype=torch.bool,
+                      device=cuda_device)
+    sc = dict(block_k=bk, k_scale=ks, v_scale=vs)
+    got = K1.dsa_decode_gather_attention(q, kq, vq, idx, ok, kv_len, **sc)
+    want = K1.dsa_decode_gather_attention_plain(q, kq, vq, idx, ok, kv_len,
+                                                **sc)
+    ref = K1.dsa_decode_gather_attention(q, dequant(kq, ks),
+                                         dequant(vq, vs), idx, ok, kv_len,
+                                         block_k=bk)
+    pages = torch.randperm(b * n_kb, generator=torch.Generator().manual_seed(
+        6)).to(cuda_device) + 1
+    tbl = pages.reshape(b, n_kb)
+    pk, pv, pks, pvs = _pooled(tbl, bk, kq, vq, ks, vs)
+    pidx = torch.gather(tbl, 1, idx.long()).to(torch.int32)
+    paged = K1.dsa_decode_paged_gather_attention(
+        q, pk, pv, idx, pidx, ok, kv_len, block_k=bk, k_scale=pks,
+        v_scale=pvs)
+    paged_plain = K1.dsa_decode_paged_gather_attention_plain(
+        q, pk, pv, idx, pidx, ok, kv_len, block_k=bk, k_scale=pks,
+        v_scale=pvs)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[qdt]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(paged.float(), paged_plain.float(), atol=atol,
+                               rtol=rtol)
+    assert torch.equal(got, ref)
+    assert torch.equal(paged, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("qdt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_cuda_k3q_matches_plain_and_equals_unquantized(cuda_device, kind,
+                                                       qdt):
+    """K3q on an int8/fp8 cache (ragged offsets and lengths, a cache that
+    is not a block multiple): within tolerance of its plain version and
+    bit for bit K3 on the dequantized f32 cache."""
+    from repro_torch.core.quantization import dequant
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    b, hq, hkv, hd, s, c, blk = 2, 32, 4, 128, 600, 256, 128
+    q = torch.randn((b, hq, c, hd), generator=gen, device=cuda_device).to(qdt)
+    kq, ks = _quant_cache(gen, cuda_device, (b, s, hkv, hd), kind)
+    vq, vs = _quant_cache(gen, cuda_device, (b, s, hkv, hd), kind)
+    q_off = torch.tensor([256, 128], dtype=torch.int32, device=cuda_device)
+    kv_len = torch.tensor([512, 300], dtype=torch.int32, device=cuda_device)
+    bs = torch.randn((b, c // blk, -(-s // blk)), generator=gen,
+                     device=cuda_device)
+    idx, ok = chunk_block_topk_indices(bs, 3, q_block_offset=q_off // blk)
+    args = (idx, ok, q_off, kv_len)
+    kw = dict(block_q=blk, block_k=blk)
+    got = K3.dsa_chunk_gather_attention(q, kq, vq, *args, k_scale=ks,
+                                        v_scale=vs, **kw)
+    want = K3.dsa_chunk_gather_attention_plain(q, kq, vq, *args, k_scale=ks,
+                                               v_scale=vs, **kw)
+    ref = K3.dsa_chunk_gather_attention(q, dequant(kq, ks), dequant(vq, vs),
+                                        *args, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[qdt]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [None, "int8", "fp8"],
+                         ids=["k5", "k5q-int8", "k5q-fp8"])
+def test_cuda_k5_matches_plain_and_equals_k3(cuda_device, kind):
+    """K5 (K5q with scales) on a page-shuffled pool: within tolerance of
+    its plain version and bit for bit K3 (K3q) on the dense cache."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    b, hq, hkv, hd, s, c, blk = 2, 32, 4, 128, 640, 256, 128
+    n_kb = s // blk
+    q = torch.randn((b, hq, c, hd), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    if kind is None:
+        kc, vc = (torch.randn((b, s, hkv, hd), generator=gen,
+                              device=cuda_device) for _ in range(2))
+        ks = vs = None
+    else:
+        kc, ks = _quant_cache(gen, cuda_device, (b, s, hkv, hd), kind)
+        vc, vs = _quant_cache(gen, cuda_device, (b, s, hkv, hd), kind)
+    q_off = torch.tensor([384, 128], dtype=torch.int32, device=cuda_device)
+    kv_len = torch.tensor([640, 300], dtype=torch.int32, device=cuda_device)
+    bs = torch.randn((b, c // blk, n_kb), generator=gen, device=cuda_device)
+    idx, ok = chunk_block_topk_indices(bs, 3, q_block_offset=q_off // blk)
+    pages = torch.randperm(b * n_kb, generator=torch.Generator().manual_seed(
+        9)).to(cuda_device) + 1
+    tbl = pages.reshape(b, n_kb)
+    pools = _pooled(tbl, blk, kc, vc, *(() if ks is None else (ks, vs)))
+    pks, pvs = (None, None) if ks is None else pools[2:]
+    pidx = torch.gather(tbl[:, None, :].expand(b, c // blk, n_kb), 2,
+                        idx.long()).to(torch.int32)
+    kw = dict(block_q=blk, block_k=blk)
+    got = K3.dsa_chunk_paged_gather_attention(
+        q, pools[0], pools[1], idx, pidx, ok, q_off, kv_len, k_scale=pks,
+        v_scale=pvs, **kw)
+    want = K3.dsa_chunk_paged_gather_attention_plain(
+        q, pools[0], pools[1], idx, pidx, ok, q_off, kv_len, k_scale=pks,
+        v_scale=pvs, **kw)
+    dense = K3.dsa_chunk_gather_attention(q, kc, vc, idx, ok, q_off, kv_len,
+                                          k_scale=ks, v_scale=vs, **kw)
     torch.cuda.synchronize()
     atol, rtol = TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(), want.float(), atol=atol,

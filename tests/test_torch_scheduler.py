@@ -277,9 +277,12 @@ def test_submit_validates_and_refuses_unported_options():
     with pytest.raises(NotImplementedError, match="lifecycle"):
         eng.cancel(0)
     _, _, tc, tparams = _params("yi_6b")
-    for field in ("spec", "kv_quant", "queue_cap", "telemetry", "mesh"):
+    for field in ("spec", "shed_policy", "queue_cap", "telemetry", "mesh"):
         with pytest.raises(NotImplementedError, match=field):
             TS.ContinuousEngine(tc, tparams, device="cpu", **{field: 1})
+    # kv_quant is ported: a value outside KV_QUANT_DTYPES is refused
+    with pytest.raises(ValueError, match="kv_quant"):
+        TS.ContinuousEngine(tc, tparams, device="cpu", kv_quant=1)
     assert jc.name == tc.name
 
 
