@@ -52,7 +52,20 @@ fails:
      place of K3 and K4, which must not launch), with the pool's bytes per
      slot and the same profile;
   8. profile: a torch.profiler trace of one prefill and a few decode steps
-     of the static slice (wall time, device busy share, top kernels).
+     of the static slice (wall time, device busy share, top kernels);
+  9. RWKV6: K7 (chunked wkv6) against its plain version at the reduced
+     geometry (B 2, H 4, S 128, hd 16, f32) and at rwkv6_3b's (B 4, H 40,
+     S 4096, hd 64, bf16 and f32), each from a zero and a random state,
+     y and s_last, and in the clamp case (w = 0.3: the -30 clamp binds in
+     every chunk), timed as above at the main path's case; a 2-layer
+     full-width rwkv6_3b in f32 serves the same greedy tokens on the card
+     (K7) as on the CPU (the plain version), prompt 512, 16 new; the
+     rwkv6_3b slice, ``repro_torch.launch.serve --arch rwkv6_3b`` at full
+     width, 32 layers in bf16, batch 4, prompt 4096, 64 new tokens: K7
+     exactly once per layer in prefill and no attention kernel; a
+     torch.profiler trace of its prefill and decode steps; and one timed
+     prefill of 4 x 4095 tokens, a length that takes the token scan and
+     not K7.
 
 It then prints one JSON line of per-kernel results, the card's name and
 power limit again as ``nvidia-smi`` gives them, and as its last line
@@ -573,6 +586,70 @@ def check_k4(torch, timer, *, b, hq, hkv, hd, s, bk, q_dt, c_dt, kv_len,
     return res
 
 
+# -- K7 -------------------------------------------------------------------------
+
+
+def check_k7(torch, timer, *, b, h, s, hd, dtype, seed, timed, w_const=None,
+             chunk=32):
+    """K7 on (B,H,S,hd) views of model-layout (B,S,H,hd) tensors drawn as
+    the reference's kernel tests draw them (w = exp(-exp(0.5 n - 2)), or
+    ``w_const``), from a zero state and from a random one, against its
+    plain version: y at the dtype's tolerance, s_last at f32's.  Timed on
+    the main path's case, a zero state tensor (the prefill cache's)."""
+    from repro_torch.kernels import wkv6 as K7
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    td = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    r, k, v = rnd(b, s, h, hd), rnd(b, s, h, hd, scale=0.3), rnd(b, s, h, hd)
+    w = (torch.full((b, s, h, hd), w_const, device=dev) if w_const
+         else torch.exp(-torch.exp(rnd(b, s, h, hd) * 0.5 - 2)))
+    r, k, v, w = (t.to(td).transpose(1, 2) for t in (r, k, v, w))
+    u = rnd(h, hd, scale=0.1).to(td)
+    worst, parts = None, {}
+    for name, s0 in (("zero", torch.zeros((b, h, hd, hd), device=dev)),
+                     ("random", rnd(b, h, hd, hd, scale=0.5))):
+        y, st = K7.wkv6_chunked(r, k, v, w, u, s0, chunk=chunk)
+        yp, sp = K7.wkv6_chunked_plain(r, k, v, w, u, s0, chunk=chunk)
+        torch.cuda.synchronize()
+        for what, c in (("y", compare(torch, y, yp, dtype)),
+                        ("s_last", compare(torch, st, sp, "float32"))):
+            parts[f"{what} {name} s0"] = c
+            if not c["ok"]:
+                fail(f"K7 disagrees with its plain version ({what}, {name} "
+                     f"s0, B{b} H{h} S{s} hd{hd} {dtype}): {c}")
+            if worst is None or c["tol_used"] > worst["tol_used"]:
+                worst = c
+    res = dict(geometry=f"B{b} H{h} S{s} hd{hd} chunk{chunk} {dtype}"
+                        + (f" w={w_const}" if w_const else ""),
+               **worst, parts={k: (c["max_abs_err"], c["tol_used"])
+                               for k, c in parts.items()})
+    if not timed:
+        return res
+    s0 = torch.zeros((b, h, hd, hd), device=dev)
+    el = r.element_size()
+    n = b * h * s * hd
+    # r, k, v, w read and y written once; u, s0 read and s_last written
+    nbytes = 5 * n * el + h * hd * u.element_size() + 2 * b * h * hd * hd * 4
+    # per chunk: rr S and k_hat^T v (2 C hd^2 each), the strictly lower
+    # triangle of rr kk^T and of its product with v (hd C (C-1) each)
+    flops = (b * h * (s // chunk)
+             * (4.0 * chunk * hd * hd + 2.0 * hd * chunk * (chunk - 1)))
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops, "float32")
+    res["flops"], res["bytes"] = flops, nbytes
+    res["ms"] = timer(lambda: K7.wkv6_chunked(r, k, v, w, u, s0,
+                                              chunk=chunk), iters=10)
+    res["host_us"] = timer.host_us(lambda: K7.wkv6_chunked(
+        r, k, v, w, u, s0, chunk=chunk), iters=50)
+    res["plain_ms"] = timer(lambda: K7.wkv6_chunked_plain(
+        r, k, v, w, u, s0, chunk=chunk), iters=3, warmup=1)
+    res["library_ms"] = None          # no single PyTorch call computes wkv6
+    return res
+
+
 # -- engine phases -----------------------------------------------------------
 
 
@@ -866,20 +943,21 @@ def _print_profile(label: str, wall_ms: float, busy_ms: float,
         print(f"  {ms:8.3f} ms {cnt:6d}x  {name[:90]}")
 
 
-def profile_phase(torch, seed: int, steps: int = 8, traced: int = 2
-                  ) -> dict:
-    """Where the slice's time goes: host wall time of one prefill and of
-    one decode step against the device time a torch.profiler trace sees,
-    and the kernels that take most of it.  yi_6b at full width, bf16,
-    batch 4, prompt 4096, DSA on the kernel path."""
+def profile_phase(torch, seed: int, steps: int = 8, traced: int = 2,
+                  arch: str = "yi_6b") -> dict:
+    """Where a static slice's time goes: host wall time of one prefill and
+    of one decode step against the device time a torch.profiler trace
+    sees, and the kernels that take most of it.  ``arch`` at full width,
+    bf16, batch 4, prompt 4096; yi_6b with DSA on the kernel path."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import get_config
     from repro_torch.inference.engine import Engine
     from repro_torch.models.transformer import decode_step, init_model
-    cfg = get_config("yi_6b")
-    eng = Engine(cfg, init_model(seed, cfg), max_len=4096 + 64 + 16,
-                 long_context=True, dsa_mode="kernel")
+    cfg = get_config(arch)
+    dsa = (dict(long_context=True, dsa_mode="kernel") if cfg.dsa.enabled
+           else {})
+    eng = Engine(cfg, init_model(seed, cfg), max_len=4096 + 64 + 16, **dsa)
     prompts = np.random.default_rng(seed).integers(
         1, cfg.vocab - 4, size=(4, 4096)).astype(np.int32)
     acts = [ProfilerActivity.CUDA]
@@ -908,10 +986,116 @@ def profile_phase(torch, seed: int, steps: int = 8, traced: int = 2
             caches, tok = run(caches, tok, traced)
             torch.cuda.synchronize()
         dec = _device_time(prof, "decode", traced)
-    _print_profile("prefill", prefill_s * 1e3, *pre)
-    _print_profile("decode step", step_ms, *dec)
-    return {"prefill_ms": prefill_s * 1e3, "prefill_busy_ms": pre[0],
-            "step_ms": step_ms, "step_busy_ms": dec[0]}
+    _print_profile(f"{arch} prefill", prefill_s * 1e3, *pre)
+    _print_profile(f"{arch} decode step", step_ms, *dec)
+    out = {"prefill_ms": prefill_s * 1e3, "prefill_busy_ms": pre[0],
+           "step_ms": step_ms, "step_busy_ms": dec[0]}
+    if cfg.rwkv is not None:
+        del caches
+        out["unaligned_prefill_ms"] = unaligned_prefill(
+            torch, eng, prompts[:, :-1], prefill_s * 1e3)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def unaligned_prefill(torch, eng, prompts, aligned_ms: float) -> float:
+    """One prefill whose length is no multiple of 32 (4 x 4095): the
+    reference's dispatch sends it through the token scan, a Python loop
+    over the tokens of every layer, and never through K7."""
+    from repro_torch.kernels.wkv6 import wkv6_chunked
+    before = wkv6_chunked.launches
+    with torch.inference_mode():
+        last, caches, sec = eng.prefill(prompts)
+    k7 = wkv6_chunked.launches - before
+    finite = bool(torch.isfinite(last).all())
+    b, s = prompts.shape
+    print(f"{eng.cfg.name} unaligned prefill ({b} x {s}, the token scan): "
+          f"{sec * 1e3:.1f} ms ({sec * 1e3 / aligned_ms:.1f} x the {b} x "
+          f"{s + 1} prefill through K7; "
+          f"{sec * 1e6 / (s * eng.cfg.n_layers):.1f} us a token a layer), "
+          f"K7 launches {k7}, logits finite: {finite}", flush=True)
+    if k7 or not finite:
+        fail(f"unaligned prefill: K7 launched {k7} times, finite {finite}")
+    del caches
+    return sec * 1e3
+
+
+def rwkv_parity_phase(torch, seed: int) -> dict:
+    """rwkv6_3b at full width, 2 layers, f32: greedy tokens on the card
+    (prefill through K7) equal those of the same weights on the CPU (the
+    plain version), prompt 512 (chunked), 16 new."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.inference.engine import Engine
+    from repro_torch.kernels.wkv6 import wkv6_chunked
+    from repro_torch.models.transformer import init_model
+    cfg = dataclasses.replace(get_config("rwkv6_3b"), n_layers=2,
+                              dtype="float32", param_dtype="float32")
+    params = init_model(seed, cfg)
+    prompts = np.random.default_rng(seed).integers(
+        1, cfg.vocab - 4, size=(2, 512)).astype(np.int32)
+    before = wkv6_chunked.launches
+    card = Engine(cfg, params, max_len=512 + 16 + 16).generate(prompts, 16)
+    k7 = wkv6_chunked.launches - before
+    def to_cpu(t):
+        if isinstance(t, dict):
+            return {k: to_cpu(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [to_cpu(v) for v in t]
+        return t.cpu()
+
+    cpu_params = to_cpu(params)
+    del params
+    torch.cuda.empty_cache()
+    cpu = Engine(cfg, cpu_params, max_len=512 + 16 + 16,
+                 device="cpu").generate(prompts, 16)
+    same = bool((card.tokens == cpu.tokens).all())
+    print(f"parity: 2-layer full-width rwkv6_3b f32, prompt 512, 16 new: "
+          f"card (K7, {k7} launches) == CPU (plain) greedy tokens: {same}")
+    print(f"  card: {card.tokens[:, :8].tolist()}")
+    print(f"  cpu : {cpu.tokens[:, :8].tolist()}")
+    if not same:
+        fail("rwkv6_3b: the card and the CPU disagree on greedy tokens")
+    if k7 != cfg.n_layers:
+        fail(f"rwkv6_3b parity: K7 launched {k7} times, expected "
+             f"{cfg.n_layers}")
+    return {"same_tokens": same}
+
+
+def rwkv_slice_phase(torch, seed: int) -> dict:
+    """The fourth path: serve rwkv6_3b at full width through K7."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.attention import RunFlags
+    from repro_torch.models.transformer import init_cache
+    cfg = get_config("rwkv6_3b")
+    torch.cuda.reset_peak_memory_stats()
+    serve.reset_launch_counts()
+    res = serve.main(["--arch", "rwkv6_3b", "--batch", "4", "--prompt-len",
+                      "4096", "--new-tokens", "64", "--dsa", "--seed",
+                      str(seed)])
+    n = serve.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    row = serve.cache_bytes(init_cache(cfg, 1, 4096 + 64 + 16,
+                                       RunFlags(mode="decode"),
+                                       dtype=torch.float32, device="meta"))
+    print(f"rwkv6_3b slice: prefill {res.prefill_s * 1e3:.1f} ms, decode "
+          f"{res.tokens_per_s:.1f} tok/s over {res.decode_steps} steps, "
+          f"peak memory {peak:.2f} GiB, state {row} bytes per batch row, "
+          f"launches " + " ".join(f"{k} {v}" for k, v in n.items()))
+    if n["K7"] != cfg.n_layers:
+        fail(f"K7 launched {n['K7']} times in the rwkv6_3b slice, expected "
+             f"{cfg.n_layers} (one per layer in prefill)")
+    others = {k: v for k, v in n.items() if k != "K7" and v}
+    if others:
+        fail(f"the rwkv6_3b slice launched attention kernels: {others}")
+    tok = res.tokens
+    if tok.shape != (4, 64) or tok.min() < 0 or tok.max() >= cfg.vocab:
+        fail(f"bad tokens: shape {tok.shape}, range {tok.min()}..{tok.max()}")
+    return {"prefill_ms": res.prefill_s * 1e3,
+            "decode_tok_s": res.tokens_per_s, "decode_steps": res.decode_steps,
+            "peak_gib": peak, "state_bytes_per_row": row, "launches": n}
 
 
 def main() -> None:
@@ -1073,6 +1257,33 @@ def main() -> None:
                          f"{c['library_ms']:.4f} ms, bound "
                          f"{c['bound_ms']:.4f} ms ({c['bound_by']})")
             print(line, flush=True)
+    k7_checks = [
+        check_k7(torch, timer, b=2, h=4, s=128, hd=16, dtype="float32",
+                 seed=args.seed, timed=False),
+        check_k7(torch, timer, b=2, h=4, s=128, hd=16, dtype="float32",
+                 seed=args.seed, timed=False, w_const=0.3),
+        # rwkv6_3b's prefill: the main path's case is bf16
+        check_k7(torch, timer, b=4, h=40, s=4096, hd=64, dtype="bfloat16",
+                 seed=args.seed, timed=True),
+        check_k7(torch, timer, b=4, h=40, s=4096, hd=64, dtype="float32",
+                 seed=args.seed, timed=False),
+        check_k7(torch, timer, b=4, h=40, s=4096, hd=64, dtype="float32",
+                 seed=args.seed, timed=False, w_const=0.3),
+    ]
+    for c in k7_checks:
+        line = (f"K7 wkv6 [{c['geometry']}]: max abs err "
+                f"{c['max_abs_err']:.3g} (atol {c['tol'][0]:g} + rtol "
+                f"{c['tol'][1]:g} x |plain|; {100 * c['tol_used']:.1f} % of "
+                f"it used; y and s_last, zero and random s0: "
+                + ", ".join(f"{k} {e:.3g}/{100 * u:.1f} %"
+                            for k, (e, u) in c["parts"].items()) + ")")
+        if "ms" in c:
+            line += (f", kernel {c['ms']:.4f} ms (host enqueue "
+                     f"{c['host_us']:.1f} us), plain {c['plain_ms']:.4f} "
+                     f"ms, library none, bound {c['bound_ms']:.4f} ms "
+                     f"({c['bound_by']}: {c['flops'] / 1e9:.2f} GFLOP, "
+                     f"{c['bytes'] / 1e9:.3f} GB)")
+        print(line, flush=True)
     torch.cuda.empty_cache()
 
     # each path: its launch counts set to 0 just before it, read just after
@@ -1088,6 +1299,10 @@ def main() -> None:
         torch, args.seed, quant="int8")["launches"]
     torch.cuda.empty_cache()
     profile_phase(torch, args.seed)
+    rwkv_parity_phase(torch, args.seed)
+    launches["rwkv"] = rwkv_slice_phase(torch, args.seed)["launches"]
+    torch.cuda.empty_cache()
+    profile_phase(torch, args.seed, arch="rwkv6_3b")
 
     src = "src/repro_torch/kernels/csrc/"
     rep = "src/repro/kernels/"
@@ -1140,6 +1355,18 @@ def main() -> None:
             "checks": [{k: x[k] for k in ("geometry", "max_abs_err", "tol",
                                           "tol_used")}
                        for x in extra]})
+    c = k7_checks[2]
+    kernels.append({
+        "name": "wkv6_chunked", "route": "cuda", "source": src + "wkv6.cu",
+        "replaces": rep + "wkv6.py:75", "launches": launches["rwkv"]["K7"],
+        "max_abs_err": c["max_abs_err"],
+        "ms": c["ms"], "kernel_ms": c["ms"], "plain_ms": c["plain_ms"],
+        "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+        "library_ms": None, "host_us": c["host_us"],
+        "geometry": c["geometry"],
+        "checks": [{k: x[k] for k in ("geometry", "max_abs_err", "tol",
+                                      "tol_used", "parts")}
+                   for x in k7_checks]})
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

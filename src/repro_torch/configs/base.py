@@ -1,4 +1,5 @@
-"""Architecture configuration (the port's own copy of the dense-GQA subset).
+"""Architecture configuration (the port's own copy of the dense-GQA and
+RWKV6 subset).
 
 Each architecture is an ``ArchConfig`` in its own module
 (``repro_torch/configs/<id>.py``) exposing ``CONFIG``.  ``get_config(name)``
@@ -9,6 +10,13 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64            # wkv state is head_dim x head_dim per head
+    decay_lora: int = 64          # low-rank data-dependent decay
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +42,7 @@ class DSAConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # dense (the only family ported so far)
+    family: str                   # dense | ssm (RWKV6)
     n_layers: int
     d_model: int
     n_heads: int
@@ -47,6 +55,7 @@ class ArchConfig:
     rope_theta: float = 1e4
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    rwkv: Optional[RWKVConfig] = None
     dsa: DSAConfig = dataclasses.field(default_factory=DSAConfig)
     dtype: str = "bfloat16"       # activation dtype
     param_dtype: str = "bfloat16"
@@ -56,7 +65,7 @@ class ArchConfig:
         return self.head_dim or self.d_model // self.n_heads
 
 
-ARCH_IDS = ("yi_6b", "stablelm_3b", "qwen1_5_110b")
+ARCH_IDS = ("yi_6b", "stablelm_3b", "qwen1_5_110b", "rwkv6_3b")
 
 
 def get_config(name: str) -> ArchConfig:
@@ -76,6 +85,8 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         swa_window=min(cfg.swa_window, 64) if cfg.swa_window else 0,
         dtype="float32", param_dtype="float32",
     )
+    if cfg.rwkv is not None:
+        kw["rwkv"] = RWKVConfig(head_dim=16, decay_lora=8)
     if cfg.dsa.enabled:
         kw["dsa"] = dataclasses.replace(cfg.dsa, block_q=16, block_k=16)
     return dataclasses.replace(cfg, **kw)

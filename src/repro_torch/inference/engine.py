@@ -55,12 +55,13 @@ def pow2_bucket(n: int, floor: int = 1) -> int:
 
 def can_bucket_prompts(cfg: ArchConfig) -> bool:
     """Right-padded prefill is sound when pad rows can be masked out
-    afterwards: not under an SWA ring buffer.  The same test decides
+    afterwards: not under a recurrent (RWKV6) state or an SWA ring
+    buffer, which absorb pad tokens irreversibly.  The same test decides
     chunked admission, paged caches and mixed-precision serving (the
     reference's ``can_page``, ``can_chunk_prefill`` and ``can_quantize``):
-    their envelopes differ from this one only for recurrent, MLA, MoE,
+    their envelopes differ from this one only for MLA, MoE,
     cross-attention and encoder-decoder archs, none of which is ported."""
-    return cfg.swa_window == 0
+    return cfg.rwkv is None and cfg.swa_window == 0
 
 
 @dataclasses.dataclass
@@ -152,6 +153,10 @@ class Engine:
             prompts = np.concatenate([prompts, pad], 1)
         if lengths is None:
             lengths = np.full((b,), s, np.int32)
+        elif self.cfg.rwkv is not None and int(np.min(lengths)) < s:
+            raise ValueError(f"{self.cfg.name} is recurrent: its state "
+                             f"absorbs pad tokens, so it takes no ragged "
+                             f"batch")
         caches = init_cache(self.cfg, b, cache_len or self.max_len,
                             self.decode_flags, dtype=self.cache_dtype,
                             device=self.device)

@@ -43,7 +43,7 @@ Not ported yet (each raises ``NotImplementedError`` where a caller asks
 for it): declared prefixes (``Request.prefix_len``, the prefix registry
 and copy-on-write pages), a per-request ``dsa_mode`` other than the
 engine's, speculative segments, deadlines, cancellation, shedding and
-fault injection, telemetry and serving meshes.
+fault injection, telemetry and serving meshes; recurrent (RWKV6) archs.
 """
 from __future__ import annotations
 
@@ -220,6 +220,11 @@ class ContinuousEngine:
         """``config`` (or keyword arguments, which are ServingConfig
         fields) as for ``Engine``; ``device=None`` means the card."""
         c = resolve_config(config, kw)
+        if cfg.rwkv is not None:
+            raise NotImplementedError(
+                f"ContinuousEngine: {cfg.name} is recurrent; its slot "
+                f"insert (a state overwrite under blocking admission) is "
+                f"not ported yet: serve it with Engine.generate")
         self.config = c
         self.cfg = cfg
         self.slots = slots = c.slots

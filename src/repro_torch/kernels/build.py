@@ -25,7 +25,7 @@ from typing import Dict, List, Tuple
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD = _HERE / "_build"
-SOURCES = ("dsa_decode", "dsa_attention", "dsa_chunk_prefill")
+SOURCES = ("dsa_decode", "dsa_attention", "dsa_chunk_prefill", "wkv6")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

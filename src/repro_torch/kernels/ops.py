@@ -1,4 +1,5 @@
-"""Model-layout entry points of the attention kernels.
+"""Model-layout entry points of the attention kernels and of the wkv6
+kernel.
 
 Each takes tensors in the model's layout (B, L, H, hd) and makes the same
 transposes as the JAX reference's ``repro/kernels/ops.py``: K2 wants
@@ -7,7 +8,9 @@ the cache (or page pool) in its natural layout.  The transposes are
 views; the kernels take strides, and K2, K3 and K5 write their output in
 model layout, so the transpose back is free too.  ``k_scale``/``v_scale``
 (the per-row scales of an int8/fp8 cache, None for a full-width one)
-select the quantized variants K1q, K3q, K4q and K5q.
+select the quantized variants K1q, K3q, K4q and K5q.  K7 (``wkv6``) takes
+r/k/v/w as (B, H, S, hd) views of the model's (B, S, H, hd) and writes
+y in model layout.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from repro_torch.kernels.dsa_chunk_prefill import (
     dsa_chunk_gather_attention, dsa_chunk_paged_gather_attention)
 from repro_torch.kernels.dsa_decode import (dsa_decode_gather_attention,
                                             dsa_decode_paged_gather_attention)
+from repro_torch.kernels.wkv6 import wkv6_chunked
 
 
 def dsa_attention(q, k, v, idx, valid, *, block_q=128, block_k=128,
@@ -76,3 +80,11 @@ def dsa_chunk_prefill_paged(q, k_pool, v_pool, idx, pidx, ok, q_off, kv_len,
                                            block_q=block_q, block_k=block_k,
                                            k_scale=k_scale, v_scale=v_scale)
     return out.transpose(1, 2)
+
+
+def wkv6(r, k, v, w, u, s0=None, *, chunk=32):
+    """r,k,v,w: (B,S,H,hd) [model layout]; u: (H,hd); s0: (B,H,hd,hd) f32
+    or None.  Returns (y (B,S,H,hd), s_last (B,H,hd,hd) f32)."""
+    y, st = wkv6_chunked(*(t.transpose(1, 2) for t in (r, k, v, w)), u, s0,
+                         chunk=chunk)
+    return y.transpose(1, 2), st

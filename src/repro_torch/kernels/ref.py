@@ -1,4 +1,5 @@
-"""Plain oracle for the block-sparse attention kernel (the allclose target)."""
+"""Plain oracles of the block-sparse attention kernel and the chunked wkv6
+kernel (the allclose targets)."""
 from __future__ import annotations
 
 import torch
@@ -32,3 +33,21 @@ def dsa_block_sparse_attention_ref(q, k, v, idx, valid, *, block_q=128,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p, vv)
     return out.to(q.dtype)
+
+
+def wkv6_ref(r, k, v, w, u, s0=None):
+    """Sequential RWKV6 recurrence, one token at a time:
+    S_t = diag(w_t) S_{t-1} + k_t^T v_t,  y_t = r_t (S_{t-1} + diag(u) k_t^T v_t).
+    r,k,v,w: (B,S,H,hd); u: (H,hd); s0: (B,H,hd,hd) f32 or None.
+    Returns (y (B,S,H,hd) in r's dtype, s_last f32)."""
+    b, s, h, hd = r.shape
+    st = (torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
+          if s0 is None else s0.float())
+    uu = u.float()[None, :, :, None]
+    ys = []
+    for t in range(s):
+        kv = k[:, t].float()[..., :, None] * v[:, t].float()[..., None, :]
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t].float(),
+                               st + uu * kv))
+        st = w[:, t].float()[..., :, None] * st + kv
+    return torch.stack(ys, 1).to(r.dtype), st

@@ -30,6 +30,14 @@ bytes per slot (per batch row on the static path):
         --reduced --continuous --paged --dsa --dsa-mode kernel \
         --kv-quant int8 --select-dtype int8 --requests 6 --slots 2 \
         --prompt-len 64 --new-tokens 8 --device cpu
+
+``--arch rwkv6_3b`` serves the RWKV6 model through the static engine: its
+prefill runs the chunked wkv kernel K7 once per layer when the prompt is
+a multiple of 32 longer than 32; ``--dsa`` falls back to off (no score
+matrix), and the cache line reports the recurrent state's bytes:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b \
+        --reduced --batch 2 --prompt-len 64 --new-tokens 8 --device cpu
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ from repro_torch.kernels.dsa_chunk_prefill import (
     dsa_chunk_gather_attention, dsa_chunk_paged_gather_attention)
 from repro_torch.kernels.dsa_decode import (dsa_decode_gather_attention,
                                             dsa_decode_paged_gather_attention)
+from repro_torch.kernels.wkv6 import wkv6_chunked
 from repro_torch.models.attention import RunFlags, cache_page_size
 from repro_torch.models.transformer import init_cache, init_model
 
@@ -62,7 +71,8 @@ KERNELS = {"K1": (dsa_decode_gather_attention, "launches"),
            "K1q": (dsa_decode_gather_attention, "launches_quant"),
            "K3q": (dsa_chunk_gather_attention, "launches_quant"),
            "K4q": (dsa_decode_paged_gather_attention, "launches_quant"),
-           "K5q": (dsa_chunk_paged_gather_attention, "launches_quant")}
+           "K5q": (dsa_chunk_paged_gather_attention, "launches_quant"),
+           "K7": (wkv6_chunked, "launches")}
 
 
 def launch_counts() -> dict:

@@ -1,4 +1,5 @@
-"""Shared model primitives: initializer, RMS norm, RoPE."""
+"""Shared model primitives: initializer, RMS norm, per-head group norm,
+RoPE."""
 from __future__ import annotations
 
 import torch
@@ -19,6 +20,18 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(dt) * gamma
+
+
+def group_norm_heads(x: torch.Tensor, gamma: torch.Tensor, n_heads: int,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm with one group per head over the last dim (RWKV's ln_x):
+    normalise in f32, cast back, then scale by gamma."""
+    *lead, d = x.shape
+    xh = x.reshape(*lead, n_heads, d // n_heads).float()
+    mu = xh.mean(dim=-1, keepdim=True)
+    var = xh.var(dim=-1, keepdim=True, unbiased=False)
+    y = ((xh - mu) * torch.rsqrt(var + eps)).reshape(*lead, d)
+    return y.to(x.dtype) * gamma
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

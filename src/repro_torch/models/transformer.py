@@ -15,7 +15,9 @@ Parameters are nested dicts of tensors, one dict per group in
 layer axis; ``repro_torch.convert`` unstacks them).  Caches are likewise a
 per-layer list, ``caches["groups"][i]["b0"]["attn"]``: the layout the
 reference's ``unstack_group_caches`` produces for its decode loop, so no
-unstacking step is needed here.
+unstacking step is needed here.  An RWKV6 layer's cache holds its
+recurrent state ``s`` and the last tokens ``x_prev`` and ``ffn_prev``
+instead of K/V rows.
 """
 from __future__ import annotations
 
@@ -97,9 +99,14 @@ def chunk_step(params, cfg: ArchConfig, flags: RunFlags, tokens, caches,
     prompt-bucket cache leave the cache (and final-row logits) of a
     whole-prompt bucketed prefill.  Logits rows at or past chunk_len are
     garbage; inactive rows freeze.  On the DSA block path C and ``pos``
-    are multiples of block_q and block_k.  Dense caches only."""
+    are multiples of block_q and block_k.  Dense caches of attention
+    archs only: a recurrent (RWKV6) state absorbs pad rows."""
     if flags.mode != "decode":
         raise ValueError("chunk_step needs RunFlags(mode='decode')")
+    if cfg.rwkv is not None:
+        raise NotImplementedError(
+            f"chunk_step: {cfg.name} is recurrent; its state cannot skip a "
+            f"chunk's pad rows")
     return forward(params, cfg, flags, tokens, caches,
                    active=as_active(active), chunk_len=chunk_len,
                    sel_len=sel_len)
@@ -131,10 +138,14 @@ def truncate_cache(cfg: ArchConfig, caches, length) -> Dict[str, Any]:
     place: zero every per-token row (and scale) at positions >= length,
     rebuild ktb (ktb_s) from the masked kt, and set every ``pos`` to
     ``length`` (a scalar or per-row (B,) lengths).  fp8 rows are zeroed
-    through their bytes: no arithmetic runs on an fp8 tensor."""
+    through their bytes: no arithmetic runs on an fp8 tensor.  Recurrent
+    (RWKV6) leaves are left untouched, as in the reference: their archs
+    take no padded prompts."""
     for group in caches["groups"]:
         for sub in group.values():
             c = sub["attn"]
+            if "k" not in c:
+                continue
             b, s = c["k"].shape[:2]
             ln = torch.as_tensor(length, device=c["k"].device).to(
                 torch.int32).expand(b)

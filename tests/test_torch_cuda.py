@@ -1,5 +1,5 @@
-"""The CUDA kernels K1 to K5 and the quantized K1q, K3q, K4q and K5q on the
-card against their plain versions.
+"""The CUDA kernels K1 to K5, the quantized K1q, K3q, K4q and K5q, and the
+chunked wkv6 kernel K7 on the card against their plain versions.
 
 Needs a CUDA card and the CUDA toolkit; skips without a card.  Imports
 neither JAX nor the reference, so it runs where only PyTorch is installed:
@@ -18,6 +18,7 @@ from repro_torch.core.masks import block_topk_indices, chunk_block_topk_indices
 from repro_torch.kernels import dsa_attention as K2
 from repro_torch.kernels import dsa_chunk_prefill as K3
 from repro_torch.kernels import dsa_decode as K1
+from repro_torch.kernels import wkv6 as K7
 
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-4, 1e-2)}
 
@@ -329,3 +330,49 @@ def test_cuda_k5_matches_plain_and_equals_k3(cuda_device, kind):
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
     assert torch.equal(got, dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd,chunk,w_const", [(16, 32, None), (64, 32, None),
+                                              (64, 16, None), (16, 32, 0.3)],
+                         ids=["hd16", "hd64", "hd64-chunk16", "clamp"])
+def test_cuda_k7_matches_plain(cuda_device, dtype, hd, chunk, w_const):
+    """K7 on (B,H,S,hd) views of model-layout (B,S,H,hd) tensors, from a
+    zero and a random state, against its plain version: y and s_last.
+    "clamp": w = 0.3, so the -30 clamp binds in every chunk.  f32
+    matmuls stay f32 (no TF32) for the plain version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(hd + chunk)
+    b, h, s = 2, 3, 128
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=cuda_device) * scale
+
+    r, k, v = rnd(b, s, h, hd), rnd(b, s, h, hd, scale=0.3), rnd(b, s, h, hd)
+    w = (torch.full((b, s, h, hd), w_const, device=cuda_device)
+         if w_const else torch.exp(-torch.exp(rnd(b, s, h, hd) * 0.5 - 2)))
+    r, k, v, w = (t.to(dtype).transpose(1, 2) for t in (r, k, v, w))
+    u = rnd(h, hd, scale=0.1).to(dtype)
+    atol, rtol = TOL[dtype]
+    for s0 in (None, rnd(b, h, hd, hd, scale=0.5)):
+        before = K7.wkv6_chunked.launches
+        y, st = K7.wkv6_chunked(r, k, v, w, u, s0, chunk=chunk)
+        assert K7.wkv6_chunked.launches == before + 1
+        yp, sp = K7.wkv6_chunked_plain(r, k, v, w, u, s0, chunk=chunk)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y.float(), yp.float(), atol=atol,
+                                   rtol=rtol)
+        torch.testing.assert_close(st, sp, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_k7_refuses_what_it_cannot_take(cuda_device):
+    x = torch.zeros((1, 2, 64, 128), device=cuda_device)
+    u = torch.zeros((2, 128), device=cuda_device)
+    with pytest.raises(ValueError, match="hd <= 64"):
+        K7.wkv6_chunked(x, x, x, x, u)
+    x = torch.zeros((1, 2, 40, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="dividing S"):
+        K7.wkv6_chunked(x, x, x, x, u[:, :16])
