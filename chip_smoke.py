@@ -8,6 +8,8 @@ fails:
 
   1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
   2. build: nvcc compiles every kernel source of the checkout, in parallel;
+     ptxas must report no register spill in any instance of K1/K4's body
+     (dsa_decode.cu) or K3's (dsa_chunk_prefill.cu);
   3. kernels: K1 (decode gather-attend), K2 (block-sparse prefill), K3
      (chunk prefill) and K4 (paged decode) against their plain PyTorch
      versions on the same inputs, at a reduced geometry (hd 16, block 16,
@@ -96,6 +98,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # (7.8e-3) of the value, so rtol 1e-2 holds one step; atol covers f32
 # summation order on outputs near zero.
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-4, 1e-2)}
+# sources whose every instance must build without a register spill
+NO_SPILL = ("dsa_decode", "dsa_chunk_prefill")
 
 
 def fail(msg: str) -> None:
@@ -1123,10 +1127,16 @@ def main() -> None:
 
     secs = build.build_all()
     print(f"build: {secs:.1f} s for {len(build.SOURCES)} sources")
+    spills = []
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+            if (name in NO_SPILL and "spill" in line
+                    and "0 bytes spill stores, 0 bytes spill loads" not in line):
+                spills.append(f"{name}: {line.strip()}")
+    if spills:
+        fail(f"ptxas spills registers in {spills}")
 
     timer = Timer(torch)
     k1_checks = [

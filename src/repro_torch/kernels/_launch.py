@@ -43,6 +43,15 @@ def check_cuda_operand(name: str, t: torch.Tensor,
         raise ValueError(f"{name} rows must be 16-byte aligned")
 
 
+def check_copy_rows(name: str, t: torch.Tensor) -> None:
+    """Raise unless every row of ``t`` starts on a 16-byte boundary: the
+    attention kernels copy cache rows into shared memory 16 bytes at a
+    time (``cp.async``)."""
+    if any(s * t.element_size() % 16 for s in t.stride()[:-1]):
+        raise ValueError(f"{name} rows must start on 16-byte boundaries; "
+                         f"strides {t.stride()} of {t.dtype}")
+
+
 def check_scales(cache: torch.Tensor, k_scale, v_scale,
                  device: torch.device):
     """The scale pointers and their strides but the unit head stride, for
@@ -79,12 +88,13 @@ def count(fn, k_scale) -> None:
         fn.launches_quant += 1
 
 
-def check_index(name: str, t: torch.Tensor, device: torch.device
-                ) -> torch.Tensor:
-    """int32, contiguous, on ``device``."""
+def check_index(name: str, t: torch.Tensor, device: torch.device,
+                dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """``dtype`` (int32, or bool for a validity stream read as bytes),
+    contiguous, on ``device``."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    return t.to(torch.int32).contiguous()
+    return t.to(dtype).contiguous()
 
 
 def raise_on_error(kernel: str, err: int) -> None:

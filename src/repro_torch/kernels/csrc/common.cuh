@@ -93,6 +93,71 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float x[4]) {
   *reinterpret_cast<uint2*>(p) = u;
 }
 
+// cp.async: a raw copy from device to shared memory that the issuing
+// thread does not wait for; 16 bytes through L2 only (.cg), or 4 (.ca).
+// commit_group closes the copies issued so far into one group and
+// wait_group<N> waits until at most N groups are still in flight.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy `rows` rows of `nch` 16-byte chunks from device memory (row stride
+// `gs` elements of T) to shared memory (row stride `srs` bytes) with
+// cp.async, the block's THREADS threads on neighbouring chunks.  Where
+// THREADS is a multiple of nch (every hd a power of two) a thread keeps
+// one column of chunks and strides over rows; otherwise each chunk is
+// placed by a division.
+template <int THREADS, typename T>
+__device__ __forceinline__ void copy_rows(unsigned char* dst, int srs,
+                                          const T* src, int64_t gs, int rows,
+                                          int nch, int tid) {
+  constexpr int E = 16 / sizeof(T);
+  if (THREADS % nch == 0) {
+    const int c = tid % nch;
+    for (int r = tid / nch; r < rows; r += THREADS / nch)
+      cp_async16(dst + r * srs + c * 16, src + r * gs + c * E);
+  } else {
+    for (int ci = tid; ci < rows * nch; ci += THREADS) {
+      const int r = ci / nch, c = ci - r * nch;
+      cp_async16(dst + r * srs + c * 16, src + r * gs + c * E);
+    }
+  }
+}
+
+// Let `kern` take `bytes` of dynamic shared memory (above 48 KB a kernel
+// must opt in).  The attribute persists, so it is set once per device.
+template <typename Kern>
+inline cudaError_t allow_smem(Kern kern, int bytes, int (&granted)[32]) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || dev >= 32) return e != cudaSuccess ? e : cudaErrorInvalidDevice;
+  if (granted[dev] >= bytes) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess) granted[dev] = bytes;
+  return e;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));

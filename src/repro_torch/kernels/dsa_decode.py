@@ -4,14 +4,19 @@ page pool (K4): CUDA kernels, wrappers and plain versions.
 K1 replaces the Pallas TPU kernel
 ``src/repro/kernels/dsa_decode.py::dsa_decode_gather_attention`` (body
 ``_kernel``), K4 ``dsa_decode_paged_gather_attention`` (body
-``_paged_kernel``).  The CUDA source of both is ``csrc/dsa_decode.cu``;
-its header note says what bounds the kernels on the H100 (bytes: the
-selected K/V rows) and how the design answers it (one warp per 32-row
-tile of the selection serves the whole GQA group from one read of its
-rows; a second small kernel merges the warps' partial softmax states).
-K4 runs K1's body with the rows of each selected block found through
-the physical page stream ``pidx``, so it equals K1 bitwise on a pool
-that holds the dense cache's blocks.
+``_paged_kernel``).  The CUDA source of both is ``csrc/dsa_decode.cu``.
+Its header note says what bounds the kernels on the H100: bytes, the
+selected K/V rows.  It says what held the first design back: at K1's
+shape the call took 62 us, the partial kernel 30.9 us of it and a merge
+kernel on 16 CTAs 21.2 us.  And it says what the redesign does: one CTA
+per 64-row tile of the selection copies its K and V rows into shared
+memory with ``cp.async``, serves the whole GQA group from that copy, and
+the last CTA of each (b, KV head) merges the partial softmax states,
+found through a ticket in the workspace.  The wrapper keeps that
+workspace per device and stream, because the kernel leaves its tickets
+zero for the next call.  K4 runs K1's body with the rows of each
+selected block found through the physical page stream ``pidx``, so it
+equals K1 bitwise on a pool that holds the dense cache's blocks.
 
 K1q and K4q (the Pallas bodies ``_quant_kernel`` and
 ``_paged_quant_kernel``) are the same wrappers given an int8 or
@@ -118,6 +123,28 @@ def dsa_decode_paged_gather_attention_plain(q, k_pool, v_pool, idx, pidx, ok,
     return _plain_body(q, k_pool.shape[1], blocks())
 
 
+# per (device, stream): the kernels' workspace and how many of its leading
+# int32 tickets are known to be zero
+_WORKSPACE: dict = {}
+
+
+def _workspace(dev, n_tickets: int, n: int) -> torch.Tensor:
+    """A workspace of at least ``n`` f32 elements whose first
+    ``n_tickets`` int32 tickets are zero.  The kernel's last tile of each
+    (b, KV head) resets its ticket, so a buffer kept per device and stream
+    stays zero there from call to call; only a new buffer, or a call with
+    more tickets than the last one (whose partials lay there), clears
+    them."""
+    key = (dev, LN.stream_handle(dev))
+    ws, zero = _WORKSPACE.get(key, (None, 0))
+    if ws is None or ws.numel() < n:
+        ws = torch.zeros(n, dtype=torch.float32, device=dev)
+    elif zero < n_tickets:
+        ws[:n_tickets].zero_()
+    _WORKSPACE[key] = (ws, n_tickets)
+    return ws
+
+
 def _launch(fn_name: str, q, k, v, idx, pidx, ok, kv_len, block_k: int,
             cache_strides, s_len: int, k_scale, v_scale) -> torch.Tensor:
     """Check the operands and launch K1 (pidx None) or K4 on q's card."""
@@ -133,26 +160,29 @@ def _launch(fn_name: str, q, k, v, idx, pidx, ok, kv_len, block_k: int,
     LN.check_cuda_operand("q", q, dev)
     LN.check_cuda_operand("k_cache", k, dev)
     LN.check_cuda_operand("v_cache", v, dev)
+    LN.check_copy_rows("k_cache", k)
     idx32 = LN.check_index("idx", idx, dev)
-    ok32 = LN.check_index("ok", ok, dev)
+    ok8 = LN.check_index("ok", ok, dev, torch.bool)
     kvl = LN.check_index("kv_len", kv_len, dev)
     scales, scale_strides = LN.check_scales(k, k_scale, v_scale, dev)
     out = torch.empty((b, hq, 1, hd), dtype=q.dtype, device=dev)
-    # one partial softmax state (m, l, acc[hd]) per 32-row tile and head
-    n_tiles = nb * -(-block_k // 32)
-    ws = torch.empty(b * hq * n_tiles * (hd + 2), dtype=torch.float32,
-                     device=dev)
+    # a ticket per (b, KV head), then one partial softmax state (acc[hd],
+    # m, l) per 64-row tile and head
+    n_tickets = -(-b * hkv // 64) * 64
+    n_tiles = nb * -(-block_k // 64)
+    ws = _workspace(dev, n_tickets,
+                    n_tickets + b * hq * n_tiles * (hd + 2))
     head = [LN.DTYPE_CODE[q.dtype], LN.DTYPE_CODE[k.dtype], q.data_ptr(),
             q.stride(0), q.stride(1), k.data_ptr(), v.data_ptr(),
             *cache_strides, *scales, *scale_strides]
     if pidx is None:
-        streams = [idx32.data_ptr(), ok32.data_ptr()]
+        streams = [idx32.data_ptr(), ok8.data_ptr()]
         dims = [b, hq, hkv, s_len, hd, nb, block_k]
     else:
         pidx32 = LN.check_index("pidx", pidx, dev)
         if pidx32.stride() != idx32.stride():
             raise ValueError("idx and pidx must share one layout")
-        streams = [idx32.data_ptr(), pidx32.data_ptr(), ok32.data_ptr()]
+        streams = [idx32.data_ptr(), pidx32.data_ptr(), ok8.data_ptr()]
         dims = [b, hq, hkv, hd, nb, block_k]
     args = (head + streams + [idx32.stride(0), kvl.data_ptr(), ws.data_ptr(),
                               out.data_ptr(), out.stride(0), out.stride(1)]

@@ -1,5 +1,7 @@
 """The CUDA kernels K1 to K5, the quantized K1q, K3q, K4q and K5q, and the
-chunked wkv6 kernel K7 on the card against their plain versions.
+chunked wkv6 kernel K7 on the card against their plain versions, with
+K3's and K1/K4's tiling edges (GQA groups, head widths, block sizes,
+kv_len inside a tile, rows with no live key, ok = 0 blocks).
 
 Needs a CUDA card and the CUDA toolkit; skips without a card.  Imports
 neither JAX nor the reference, so it runs where only PyTorch is installed:
@@ -186,7 +188,7 @@ def _quant_cache(gen, dev, shape, kind):
 
 def _pooled(tbl, bk, *dense):
     """Each dense (B, S, ...) leaf scattered over the pages ``tbl`` maps
-    (page 0 and unmapped pages zero)."""
+    (page 0, unmapped pages and rows past S zero)."""
     from repro_torch.core.quantization import raw
     out = []
     n_pages = int(tbl.max()) + 1
@@ -196,7 +198,7 @@ def _pooled(tbl, bk, *dense):
     for d in dense:
         pool = torch.zeros((n_pages * bk,) + tuple(d.shape[2:]),
                            dtype=d.dtype, device=d.device)
-        raw(pool)[rows] = raw(d)
+        raw(pool)[rows[:, :d.shape[1]]] = raw(d)
         out.append(pool)
     return out
 
@@ -330,6 +332,172 @@ def test_cuda_k5_matches_plain_and_equals_k3(cuda_device, kind):
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
     assert torch.equal(got, dense)
+
+
+def _k3_edges(dev, g, hd, blk, seed):
+    """A chunk of two query blocks over three batch rows (2 KV heads, a
+    cache one block and 7 rows past four blocks, f32) at the K/V tiles'
+    edges: row 0 a partial last chunk whose kv_len ends inside a tile;
+    row 1 a whole chunk with its first query block's selection all ok = 0,
+    so those rows have no live key; row 2 frozen (kv_len 0).  Returns the
+    call's positional operands."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, hkv, c, s = 3, 2, 2 * blk, 5 * blk + 7
+    q = torch.randn((b, hkv * g, c, hd), generator=gen, device=dev)
+    kc, vc = (torch.randn((b, s, hkv, hd), generator=gen, device=dev)
+              for _ in range(2))
+    q_off = torch.tensor([2 * blk, 3 * blk, 0], dtype=torch.int32,
+                         device=dev)
+    kv_len = torch.tensor([3 * blk + 5, 5 * blk, 0], dtype=torch.int32,
+                          device=dev)
+    bs = torch.randn((b, 2, -(-s // blk)), generator=gen, device=dev)
+    idx, ok = chunk_block_topk_indices(bs, 3, q_block_offset=q_off // blk)
+    ok[1, 0] = False
+    return q, kc, vc, idx, ok, q_off, kv_len
+
+
+def _assert_k3_edges(got, want, blk):
+    atol, rtol = TOL[torch.float32]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+    assert not got[1, :, :blk].any() and not want[1, :, :blk].any()
+    assert not got[2].any() and not want[2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blk", [16, 64, 128])
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("g", [1, 4, 8, 16])
+def test_cuda_k3_tiling_edges_match_plain(cuda_device, g, hd, blk):
+    """K3 over the new tiling's edges (64-key tiles, 128 (row, head) pairs
+    a CTA): GQA groups 1 to 16, hd 16 to 128, block_q 16 to 128; kv_len
+    inside a tile, a partial last chunk, rows with no live key (exactly 0)
+    and a frozen row, at f32's tolerance."""
+    args = _k3_edges(cuda_device, g, hd, blk, seed=10 + g + hd + blk)
+    kw = dict(block_q=blk, block_k=blk)
+    got = K3.dsa_chunk_gather_attention(*args, **kw)
+    want = K3.dsa_chunk_gather_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_k3_edges(got, want, blk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [None, "int8", "fp8"],
+                         ids=["k5", "k3q-k5q-int8", "k3q-k5q-fp8"])
+def test_cuda_k3_edges_bitwise_contracts(cuda_device, kind):
+    """At the same edges (G 4, hd 64, block 64): K3q equals K3 on the
+    dequantized cache bit for bit, and K5 (K5q) on a page-shuffled pool
+    equals K3 (K3q) bit for bit; each within tolerance of its plain
+    version."""
+    from repro_torch.core.quantization import dequant, quant_store
+    blk = 64
+    q, kc, vc, idx, ok, q_off, kv_len = _k3_edges(cuda_device, 4, 64, blk,
+                                                  seed=30)
+    kw = dict(block_q=blk, block_k=blk)
+    sc = {}
+    if kind is not None:
+        (kc, ks), (vc, vs) = (quant_store(t, dtype=kind) for t in (kc, vc))
+        sc = dict(k_scale=ks, v_scale=vs)
+    got = K3.dsa_chunk_gather_attention(q, kc, vc, idx, ok, q_off, kv_len,
+                                        **sc, **kw)
+    want = K3.dsa_chunk_gather_attention_plain(q, kc, vc, idx, ok, q_off,
+                                               kv_len, **sc, **kw)
+    b, s = kc.shape[:2]
+    n_kb = -(-s // blk)
+    pages = torch.randperm(b * n_kb, generator=torch.Generator().manual_seed(
+        31)).to(cuda_device) + 1
+    tbl = pages.reshape(b, n_kb)
+    pools = _pooled(tbl, blk, kc, vc, *sc.values())
+    pidx = torch.gather(tbl[:, None, :].expand(b, idx.shape[1], n_kb), 2,
+                        idx.long()).to(torch.int32)
+    psc = dict(zip(("k_scale", "v_scale"), pools[2:]))
+    paged = K3.dsa_chunk_paged_gather_attention(
+        q, pools[0], pools[1], idx, pidx, ok, q_off, kv_len, **psc, **kw)
+    torch.cuda.synchronize()
+    _assert_k3_edges(got, want, blk)
+    assert torch.equal(paged, got)
+    if kind is not None:
+        ref = K3.dsa_chunk_gather_attention(
+            q, dequant(kc, sc["k_scale"]), dequant(vc, sc["v_scale"]), idx,
+            ok, q_off, kv_len, **kw)
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_k3_refuses_what_its_tiling_cannot_take(cuda_device):
+    """A GQA group above 16 heads, and cache rows off 16-byte boundaries
+    (the tiles are copied 16 bytes at a time), are refused, not run
+    another way."""
+    dev = cuda_device
+    idx = torch.zeros((1, 1, 1), dtype=torch.int32, device=dev)
+    off = torch.zeros((1,), dtype=torch.int32, device=dev)
+    kw = dict(block_q=16, block_k=16)
+    q = torch.zeros((1, 34, 16, 16), device=dev)
+    kc = torch.zeros((1, 16, 2, 16), device=dev)
+    with pytest.raises(ValueError, match="unsupported chunk shape"):
+        K3.dsa_chunk_gather_attention(q, kc, kc, idx, idx, off, off, **kw)
+    q = torch.zeros((1, 2, 16, 16), device=dev)
+    kc = torch.zeros((1, 16, 1, 20), dtype=torch.bfloat16,
+                     device=dev)[..., :16]
+    with pytest.raises(ValueError, match="16-byte boundaries"):
+        K3.dsa_chunk_gather_attention(q, kc, kc, idx, idx, off, off, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bk,g,hd", [(48, 8, 128), (100, 4, 64),
+                                     (16, 16, 32), (200, 1, 80)],
+                         ids=["bk48", "bk100", "bk16-g16", "bk200-g1"])
+def test_cuda_k1_k4_tiling_edges(cuda_device, bk, g, hd):
+    """K1 and K4 over the new 64-row tiles' edges: block_k no multiple of
+    64, kv_len inside the first tile (row 1: 5 live rows), ok = 0 blocks
+    and blocks past kv_len (row 2), a cache that is not a block multiple;
+    bf16 q against an f32 cache.  Each within tolerance of its plain
+    version; K4 on a page-shuffled pool equals K1 bit for bit; K1q (int8)
+    equals K1 on the dequantized cache and K4q equals K1q, bit for bit."""
+    from repro_torch.core.quantization import dequant, quant_store
+    gen = torch.Generator(device=cuda_device).manual_seed(bk + g)
+    b, hkv = 3, 2
+    n_kb = 6
+    s = n_kb * bk
+    q = torch.randn((b, hkv * g, 1, hd), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    kc, vc = (torch.randn((b, s, hkv, hd), generator=gen,
+                          device=cuda_device) for _ in range(2))
+    kv_len = torch.tensor([s - 3, 5, bk + 70], dtype=torch.int32,
+                          device=cuda_device)
+    idx = torch.tensor([[0, 2, 4, 5], [0, 1, 3, 0], [1, 0, 2, 3]],
+                       dtype=torch.int32, device=cuda_device)
+    ok = torch.tensor([[1, 1, 1, 1], [1, 0, 0, 0], [1, 0, 1, 1]],
+                      dtype=torch.bool, device=cuda_device)
+    pages = torch.randperm(b * n_kb, generator=torch.Generator().manual_seed(
+        bk)).to(cuda_device) + 1
+    tbl = pages.reshape(b, n_kb)
+    pidx = torch.gather(tbl, 1, idx.long()).to(torch.int32)
+    (kq, ks), (vq, vs) = (quant_store(t, dtype="int8") for t in (kc, vc))
+    atol, rtol = TOL[torch.bfloat16]
+    outs = {}
+    for name, (kk, vv, sc) in {
+            "full": (kc, vc, {}),
+            "int8": (kq, vq, dict(k_scale=ks, v_scale=vs))}.items():
+        args = (q, kk, vv, idx, ok, kv_len)
+        got = K1.dsa_decode_gather_attention(*args, block_k=bk, **sc)
+        want = K1.dsa_decode_gather_attention_plain(*args, block_k=bk, **sc)
+        pools = _pooled(tbl, bk, kk, vv, *sc.values())
+        psc = dict(zip(("k_scale", "v_scale"), pools[2:]))
+        paged = K1.dsa_decode_paged_gather_attention(
+            q, pools[0], pools[1], idx, pidx, ok, kv_len, block_k=bk, **psc)
+        paged_plain = K1.dsa_decode_paged_gather_attention_plain(
+            q, pools[0], pools[1], idx, pidx, ok, kv_len, block_k=bk, **psc)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+        torch.testing.assert_close(paged.float(), paged_plain.float(),
+                                   atol=atol, rtol=rtol)
+        assert torch.equal(paged, got)
+        outs[name] = got
+    ref = K1.dsa_decode_gather_attention(q, dequant(kq, ks), dequant(vq, vs),
+                                         idx, ok, kv_len, block_k=bk)
+    torch.cuda.synchronize()
+    assert torch.equal(outs["int8"], ref)
 
 
 @pytest.mark.cuda

@@ -148,3 +148,37 @@ def test_kernel_sources_have_c_entry_points():
     tree = ast.parse(Path(K1.__file__).read_text())
     assert any(isinstance(n, ast.Constant) and n.value == "dsa_decode_launch"
                for n in ast.walk(tree))
+
+
+@pytest.mark.parametrize("dtype,stride_el,ok", [
+    (torch.float32, 4, True), (torch.bfloat16, 4, False),
+    (torch.bfloat16, 8, True), (torch.int8, 4, False),
+    (torch.int8, 16, True)], ids=["f32-16B", "bf16-8B", "bf16-16B",
+                                  "int8-4B", "int8-16B"])
+def test_cache_rows_must_start_on_16_bytes(dtype, stride_el, ok):
+    """The attention kernels copy cache rows into shared memory 16 bytes
+    at a time: a cache whose rows do not start on 16-byte boundaries is
+    refused before any launch."""
+    from repro_torch.kernels import _launch as LN
+    t = torch.zeros((3, 2 * stride_el), dtype=dtype).as_strided(
+        (3, 4), (stride_el, 1))
+    if ok:
+        LN.check_copy_rows("k_cache", t)
+    else:
+        with pytest.raises(ValueError, match="16-byte"):
+            LN.check_copy_rows("k_cache", t)
+
+
+def test_validity_stream_converts_only_when_needed():
+    """The decode kernels read ok as bytes: a bool stream passes through
+    as it is (no conversion kernel on the card), an int one is narrowed
+    to bool; index streams stay int32."""
+    from repro_torch.kernels import _launch as LN
+    cpu = torch.device("cpu")
+    ok = torch.tensor([[True, False, True]])
+    assert LN.check_index("ok", ok, cpu, torch.bool) is ok
+    got = LN.check_index("ok", torch.tensor([[1, 0, 2]]), cpu, torch.bool)
+    assert got.dtype == torch.bool and got.tolist() == [[True, False, True]]
+    idx = LN.check_index("idx", torch.tensor([[3, 1]], dtype=torch.int64),
+                         cpu)
+    assert idx.dtype == torch.int32
