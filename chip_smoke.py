@@ -8,14 +8,15 @@ fails:
 
   1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
   2. build: nvcc compiles every kernel source of the checkout, in parallel;
-     ptxas must report no register spill in any instance of K1/K4's body
-     (dsa_decode.cu) or K3's (dsa_chunk_prefill.cu);
+     ptxas must report no register spill in any instance of any of them
+     (dsa_decode.cu, dsa_attention.cu, dsa_chunk_prefill.cu, wkv6.cu);
   3. kernels: K1 (decode gather-attend), K2 (block-sparse prefill), K3
      (chunk prefill) and K4 (paged decode) against their plain PyTorch
      versions on the same inputs, at a reduced geometry (hd 16, block 16,
      f32; K2 also bf16) and at yi_6b's full geometry (K1/K4 bf16 q against
-     a bf16 and the default f32 cache, and f32; K2 bf16 and f32; K3 every
-     dtype pair; K4 also at the continuous slice's shape: 64 logical
+     a bf16 and the default f32 cache, and f32; K2 bf16 and f32, and bf16
+     at stablelm_3b's width, hd 80 with 32 KV heads; K3 every dtype pair;
+     K4 also at the continuous slice's shape: 64 logical
      blocks, a 257-page pool, 9 blocks selected), each within a stated
      atol + rtol, with times (CUDA events, L2 flushed before each launch),
      host enqueue time, the plain versions' and one PyTorch library
@@ -58,8 +59,9 @@ fails:
   9. RWKV6: K7 (chunked wkv6) against its plain version at the reduced
      geometry (B 2, H 4, S 128, hd 16, f32) and at rwkv6_3b's (B 4, H 40,
      S 4096, hd 64, bf16 and f32), each from a zero and a random state,
-     y and s_last, and in the clamp case (w = 0.3: the -30 clamp binds in
-     every chunk), timed as above at the main path's case; a 2-layer
+     y at the dtype's tolerance and s_last at f32's, and in the clamp case
+     (w = 0.3: the -30 clamp binds in every chunk) in f32 and bf16, timed
+     as above at the main path's case; a 2-layer
      full-width rwkv6_3b in f32 serves the same greedy tokens on the card
      (K7) as on the CPU (the plain version), prompt 512, 16 new; the
      rwkv6_3b slice, ``repro_torch.launch.serve --arch rwkv6_3b`` at full
@@ -99,7 +101,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # summation order on outputs near zero.
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-4, 1e-2)}
 # sources whose every instance must build without a register spill
-NO_SPILL = ("dsa_decode", "dsa_chunk_prefill")
+NO_SPILL = ("dsa_decode", "dsa_attention", "dsa_chunk_prefill", "wkv6")
 
 
 def fail(msg: str) -> None:
@@ -1168,6 +1170,10 @@ def main() -> None:
         # the f32 body at full width (the f32 parity phase runs it)
         check_k2(torch, timer, b=1, hq=32, hkv=4, hd=128, l=1024, blk=128,
                  nb=3, dtype="float32", seed=args.seed, timed=False),
+        # stablelm_3b's prefill: hd 80 (a 160-byte row, the 128-column
+        # instance), one query head per KV head
+        check_k2(torch, timer, b=1, hq=32, hkv=32, hd=80, l=4096, blk=128,
+                 nb=3, dtype="bfloat16", seed=args.seed, timed=False),
     ]
     k3_checks = [
         check_k3(torch, timer, b=2, hq=8, hkv=2, hd=16, s=100, c=32, blk=16,
@@ -1279,6 +1285,10 @@ def main() -> None:
                  seed=args.seed, timed=False),
         check_k7(torch, timer, b=4, h=40, s=4096, hd=64, dtype="float32",
                  seed=args.seed, timed=False, w_const=0.3),
+        # the main path's dtype where the clamp binds, from a zero and a
+        # random state
+        check_k7(torch, timer, b=4, h=40, s=4096, hd=64, dtype="bfloat16",
+                 seed=args.seed + 1, timed=False, w_const=0.3),
     ]
     for c in k7_checks:
         line = (f"K7 wkv6 [{c['geometry']}]: max abs err "

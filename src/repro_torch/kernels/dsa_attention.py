@@ -6,8 +6,8 @@ Replaces the Pallas TPU kernel
 ``_kernel``).  The CUDA source is ``csrc/dsa_attention.cu``; its header
 note says what bounds the kernel on the H100 (bytes and operations about
 even at the main path's shape, so the tensor cores) and what the design
-does about it (bf16 on warp-level tensor-core MMAs with p carried as a
-bf16 pair, f32 on the FMA pipe).
+does about it (bf16 on warpgroup MMAs fed by TMA, with p carried as a
+bf16 pair; f32 on the FMA pipe).
 
   q: (B, Hq, Lq, hd)   k/v: (B, Hkv, Lk, hd)   idx/valid: (B, nQb, nb)
   out: (B, Hq, Lq, hd)

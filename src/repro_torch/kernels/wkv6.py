@@ -3,10 +3,11 @@ plain version.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/wkv6.py::wkv6_chunked``
 (body ``_kernel``).  The CUDA source is ``csrc/wkv6.cu``; its header note
-says what bounds the kernel on the H100 (operations: the four f32
-products per chunk on the FMA pipe) and what the design does about it
-(one CTA per (b, h) walks the chunks in order with the hd x hd state on
-chip; operands staged as f32 in shared memory).
+says what bounds the kernel on the H100 (the chain of dependent chunks)
+and what the design does about it (the chain cut into segments run in
+parallel, the state carried across them by a short second pass; the
+products on the tensor cores as 3xTF32, except the f32 instance's y
+products).
 
   r, k, v, w: (B, H, S, hd)   u: (H, hd)   s0: (B, H, hd, hd) f32 or None
   -> y (B, H, S, hd) in r's dtype, s_last (B, H, hd, hd) f32
@@ -20,11 +21,15 @@ Per chunk of C tokens, in f32 and in the Pallas body's order::
 
 With ``s0=None`` the state starts at zero and ``y`` is the Pallas
 kernel's; with a state, ``(y, s_last)`` is the reference model's
-``ssm._wkv_chunked``.  Any strides with a unit hd stride are taken (the
-ops transposes are views); the wrapper writes ``y`` in (B, S, H, hd)
-memory, so the transpose back to model layout is free.  On a CPU tensor
-the wrapper runs the plain version; on a CUDA tensor it launches the
-kernel or raises.
+``ssm._wkv_chunked``.  The kernel's products sum in another order (3xTF32
+on the tensor cores, the state re-associated across segments), so it
+holds f32's tolerance on ``s_last`` and the dtype's on ``y`` rather than
+matching the plain version bit for bit.  Any strides with a unit hd
+stride and 16-byte aligned rows are taken (the ops transposes are
+views); the wrapper writes ``y`` in (B, S, H, hd) memory, so the
+transpose back to model layout is free.  On a CPU tensor the wrapper
+runs the plain version; on a CUDA tensor it launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from repro_torch.kernels import _launch as LN
 
 CLAMP = -30.0
 WMIN = 1e-38
+SEGMENTS_PER_SM = 6
 
 
 def wkv6_chunked_plain(r, k, v, w, u, s0=None, *, chunk: int = 32):
@@ -81,12 +87,13 @@ def wkv6_chunked(r, k, v, w, u, s0=None, *, chunk: int = 32):
         raise ValueError(f"no kernel for device {r.device}")
     dev = r.device
     b, h, s, hd = r.shape
-    if (hd % 4 or hd > 64 or chunk % 8 or chunk > 32 or s % chunk
+    if (hd % 16 or hd > 64 or chunk % 8 or chunk > 32 or s % chunk
             or u.shape != (h, hd)):
         raise ValueError(f"unsupported shape r={tuple(r.shape)} "
                          f"u={tuple(u.shape)} chunk={chunk}: the kernel "
-                         f"takes hd <= 64 (a multiple of 4) and a chunk "
-                         f"that is a multiple of 8 up to 32 dividing S")
+                         f"takes hd <= 64 (a multiple of 16: the state is "
+                         f"held in 16-row tiles) and a chunk that is a "
+                         f"multiple of 8 up to 32 dividing S")
     if r.dtype not in (torch.float32, torch.bfloat16) or any(
             t.dtype != r.dtype for t in (k, v, w)):
         raise TypeError("r, k, v and w must share one dtype, f32 or bf16")
@@ -103,18 +110,27 @@ def wkv6_chunked(r, k, v, w, u, s0=None, *, chunk: int = 32):
                            or not s0.is_contiguous()):
         raise ValueError(f"s0 must be a contiguous f32 (B,H,hd,hd) tensor "
                          f"on {dev}")
+    LN.check_copy_rows("r", r)
     y = torch.empty((b, s, h, hd), dtype=r.dtype, device=dev).transpose(1, 2)
     s_last = torch.empty((b, h, hd, hd), dtype=torch.float32, device=dev)
+    # segments of the chunk chain: about SEGMENTS_PER_SM CTAs of work an SM
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = max(1, min(s // chunk, int(SEGMENTS_PER_SM * sms) // (b * h)))
+    floats = LN.bind("wkv6", "wkv6_scratch_floats", [LN.I] * 4)
+    floats.restype = LN.L
+    scratch = torch.empty((floats(b, h, hd, g),), dtype=torch.float32,
+                          device=dev)
     fn = LN.bind("wkv6", "wkv6_chunked_launch",
                  [LN.I, LN.I, LN.P, LN.P, LN.P, LN.P, LN.L, LN.L, LN.L,
                   LN.P, LN.L, LN.P, LN.P, LN.P, LN.L, LN.L, LN.L]
-                 + [LN.I] * 5 + [LN.P])
+                 + [LN.I] * 6 + [LN.P, LN.P])
     xs, ys = r.stride(), y.stride()
     err = fn(LN.DTYPE_CODE[r.dtype], LN.DTYPE_CODE[u.dtype],
              r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
              xs[0], xs[1], xs[2], u.data_ptr(), u.stride(0),
              None if s0 is None else s0.data_ptr(), s_last.data_ptr(),
-             y.data_ptr(), ys[0], ys[1], ys[2], b, h, s, hd, chunk,
+             y.data_ptr(), ys[0], ys[1], ys[2], b, h, s, hd, chunk, g,
+             scratch.data_ptr() if scratch.numel() else None,
              LN.stream_handle(dev))
     LN.raise_on_error("wkv6_chunked", err)
     wkv6_chunked.launches += 1

@@ -1,7 +1,9 @@
 """The CUDA kernels K1 to K5, the quantized K1q, K3q, K4q and K5q, and the
 chunked wkv6 kernel K7 on the card against their plain versions, with
-K3's and K1/K4's tiling edges (GQA groups, head widths, block sizes,
-kv_len inside a tile, rows with no live key, ok = 0 blocks).
+K2's, K3's and K1/K4's tiling edges (GQA groups, head widths, block
+sizes, kv_len inside a tile, rows with no live key, ok = 0 blocks,
+strided model-layout views) and K7's head widths, chunks and segment
+counts.
 
 Needs a CUDA card and the CUDA toolkit; skips without a card.  Imports
 neither JAX nor the reference, so it runs where only PyTorch is installed:
@@ -104,6 +106,69 @@ def test_cuda_k2_bf16_refuses_tiles_the_mma_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="tensor-core"):
         K2.dsa_block_sparse_attention(q, q, q, idx, idx, block_q=8,
                                       block_k=8)
+
+
+def _k2_edges(dev, g, hd, bq, bk, seed):
+    """bf16 q, k and v as (B,H,L,hd) views of model-layout (B,L,H,hd)
+    tensors (row stride H * hd), two KV heads, 3 random distinct key
+    blocks per query block, about a fifth of them valid = 0; query block
+    0 selects only the last key block, so under the causal mask its rows
+    have no live key."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, hkv, nb = 2, 2, 3
+    l = 4 * max(bq, bk)
+
+    def view(h):
+        return torch.randn((b, l, h, hd), generator=gen, device=dev).to(
+            torch.bfloat16).transpose(1, 2)
+
+    q, k, v = view(hkv * g), view(hkv), view(hkv)
+    n_qb, n_kb = l // bq, l // bk
+    idx = torch.rand((b, n_qb, n_kb), generator=gen,
+                     device=dev).argsort(-1)[..., :nb].sort(-1).values
+    ok = torch.rand((b, n_qb, nb), generator=gen, device=dev) > 0.2
+    idx[:, 0], ok[:, 0] = n_kb - 1, True
+    return q, k, v, idx.to(torch.int32), ok.to(torch.int32)
+
+
+def _check_k2(args, causal=True, **kw):
+    got = K2.dsa_block_sparse_attention(*args, causal=causal, **kw)
+    want = K2.dsa_block_sparse_attention_plain(*args, causal=causal, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    if causal:
+        bq = kw["block_q"]
+        assert not got[:, :, :bq].any() and not want[:, :, :bq].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blk", [16, 64, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_cuda_k2_tiling_edges_match_plain(cuda_device, g, hd, blk):
+    """K2's bf16 body (warpgroup MMAs on TMA-fed 128-key tiles, two
+    64-row warpgroups) over its edges: GQA groups 1 to 8, hd 64 to 128
+    (80: stablelm_3b's, a 160-byte row), query blocks of 16 to 128 rows,
+    strided model-layout views, valid = 0 blocks and rows with no live
+    key (exactly 0), at bf16's tolerance."""
+    args = _k2_edges(cuda_device, g, hd, blk, blk, seed=40 + g + hd + blk)
+    _check_k2(args, block_q=blk, block_k=blk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bq,bk,causal,window", [
+    (64, 128, True, 0), (128, 64, True, 0), (64, 64, False, 0),
+    (64, 64, True, 100)],
+    ids=["bq64-bk128", "bq128-bk64", "not-causal", "window"])
+def test_cuda_k2_blocks_and_masks_match_plain(cuda_device, bq, bk, causal,
+                                              window):
+    """K2's bf16 body with block_q != block_k (a key block shorter and
+    longer than the 128-key tile), without the causal mask, and with a
+    sliding window that cuts tiles (G 4, hd 128)."""
+    args = _k2_edges(cuda_device, 4, 128, bq, bk, seed=60 + bq + bk)
+    _check_k2(args, causal=causal, block_q=bq, block_k=bk, window=window)
 
 
 @pytest.mark.cuda
@@ -381,6 +446,20 @@ def test_cuda_k3_tiling_edges_match_plain(cuda_device, g, hd, blk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("blk", [16, 64, 128])
+def test_cuda_k3_hd80_g1_matches_plain(cuda_device, blk):
+    """K3 at stablelm_3b's width, hd 80 with one query head per KV head:
+    there only some lanes of a warp hold columns of the upper half-row
+    (the has1 branch)."""
+    args = _k3_edges(cuda_device, 1, 80, blk, seed=50 + blk)
+    kw = dict(block_q=blk, block_k=blk)
+    got = K3.dsa_chunk_gather_attention(*args, **kw)
+    want = K3.dsa_chunk_gather_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_k3_edges(got, want, blk)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", [None, "int8", "fp8"],
                          ids=["k5", "k3q-k5q-int8", "k3q-k5q-fp8"])
 def test_cuda_k3_edges_bitwise_contracts(cuda_device, kind):
@@ -535,6 +614,72 @@ def test_cuda_k7_matches_plain(cuda_device, dtype, hd, chunk, w_const):
         torch.testing.assert_close(st, sp, atol=1e-5, rtol=1e-5)
 
 
+def _k7_inputs(dev, dtype, hd, seed, w_const=None, b=2, h=3, s=96):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    r, k, v = rnd(b, s, h, hd), rnd(b, s, h, hd, scale=0.3), rnd(b, s, h, hd)
+    w = (torch.full((b, s, h, hd), w_const, device=dev) if w_const
+         else torch.exp(-torch.exp(rnd(b, s, h, hd) * 0.5 - 2)))
+    args = [t.to(dtype).transpose(1, 2) for t in (r, k, v, w)]
+    return args + [rnd(h, hd, scale=0.1).to(dtype)], rnd(b, h, hd, hd,
+                                                        scale=0.5)
+
+
+# K7 cuts its chain of chunks into about SEGMENTS_PER_SM * SMs / (B H)
+# segments, at most one a chunk: 0 gives one segment; at B H = 6 the
+# default gives one a chunk, and 0.1 a few of several chunks each.
+SEGMENT_CASES = dict(argvalues=[0, 0.1, K7.SEGMENTS_PER_SM],
+                     ids=["one-segment", "few-segments", "default"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_sm", **SEGMENT_CASES)
+@pytest.mark.parametrize("chunk", [8, 16, 32])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_cuda_k7_segments_match_plain(cuda_device, monkeypatch, hd, chunk,
+                                      per_sm):
+    """K7's segmented chain (the state pass per segment from a zero
+    state, the carry of the state across segments, the full pass writing
+    y) at every head width and chunk it takes, in one segment and in
+    several, from a zero and a random state: y and s_last at f32's
+    tolerance (the f32 instance sums y on the FMA pipe, the state update
+    at 3xTF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(K7, "SEGMENTS_PER_SM", per_sm)
+    args, s0r = _k7_inputs(cuda_device, torch.float32, hd, seed=hd + chunk)
+    for s0 in (None, s0r):
+        y, st = K7.wkv6_chunked(*args, s0, chunk=chunk)
+        yp, sp = K7.wkv6_chunked_plain(*args, s0, chunk=chunk)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, yp, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(st, sp, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_sm", **SEGMENT_CASES)
+@pytest.mark.parametrize("w_const", [None, 0.3], ids=["decay", "clamp"])
+def test_cuda_k7_bf16_segments_match_plain(cuda_device, monkeypatch,
+                                           w_const, per_sm):
+    """The bf16 instance (every product at 3xTF32) at rwkv6_3b's head
+    width in one segment and in several, from a zero and a random state,
+    also where the -30 clamp binds in every chunk (w = 0.3): y at bf16's
+    tolerance, s_last at f32's."""
+    monkeypatch.setattr(K7, "SEGMENTS_PER_SM", per_sm)
+    args, s0r = _k7_inputs(cuda_device, torch.bfloat16, 64, seed=7,
+                           w_const=w_const, s=384)
+    atol, rtol = TOL[torch.bfloat16]
+    for s0 in (None, s0r):
+        y, st = K7.wkv6_chunked(*args, s0)
+        yp, sp = K7.wkv6_chunked_plain(*args, s0)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y.float(), yp.float(), atol=atol,
+                                   rtol=rtol)
+        torch.testing.assert_close(st, sp, atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.cuda
 def test_cuda_k7_refuses_what_it_cannot_take(cuda_device):
     x = torch.zeros((1, 2, 64, 128), device=cuda_device)
@@ -544,3 +689,14 @@ def test_cuda_k7_refuses_what_it_cannot_take(cuda_device):
     x = torch.zeros((1, 2, 40, 16), device=cuda_device)
     with pytest.raises(ValueError, match="dividing S"):
         K7.wkv6_chunked(x, x, x, x, u[:, :16])
+
+
+@pytest.mark.cuda
+def test_cuda_k7_refuses_heads_off_16_columns(cuda_device):
+    """The CTA's threads stage rows in groups of 8 columns and its warps
+    own m16 tiles of the state: hd 40 (a multiple of 4, which the first
+    design took) is refused, not run another way."""
+    x = torch.zeros((1, 2, 64, 40), device=cuda_device)
+    u = torch.zeros((2, 40), device=cuda_device)
+    with pytest.raises(ValueError, match="a multiple of 16"):
+        K7.wkv6_chunked(x, x, x, x, u)

@@ -127,6 +127,18 @@ def test_k2_plain_window_and_bf16(dtype, window):
     _k2_check(*case, bq=32, bk=32, window=window, dtype=dtype)
 
 
+@pytest.mark.parametrize("hq,hkv,hd,blk,l", [(2, 2, 80, 32, 128),
+                                             (8, 1, 128, 64, 256)],
+                         ids=["hd80-g1", "hd128-g8-blk64"])
+def test_k2_plain_at_model_head_widths(hq, hkv, hd, blk, l):
+    """K2's plain version at stablelm_3b's width (hd 80, one query head per
+    KV head) and at yi_6b's (hd 128, GQA group 8) with 64-row blocks,
+    against the Pallas kernel and both oracles."""
+    rng = np.random.default_rng(hd + hq)
+    case = _k2_case(rng, 2, l, hq, hkv, hd, blk, blk, 3)
+    _k2_check(*case, bq=blk, bk=blk, window=0, dtype="float32")
+
+
 def test_wrappers_take_plain_version_only_on_cpu():
     """A tensor on another device than the CPU or the card is refused,
     not run through the plain version."""
