@@ -36,26 +36,37 @@ fails:
      With int8 K/V and int8 selection the two chunked continuous engines
      agree, and the static engine agrees with the paged kernel engine
      under blocking admission (chunked admission attends a chunk's own
-     rows quantized, whole-prompt prefill in full precision);
+     rows quantized, whole-prompt prefill in full precision).  Graphed
+     decode against eager decode, bit for bit: the static engine's scan
+     loop (a CUDA graph replay a step) against its python loop (eager
+     steps), f32 and fp8 K/V, and the paged continuous engine's segments
+     (replays of the masked step's graph) against each request's solo
+     python-loop generate, greedy and sampled, f32 and int8 K/V (int8
+     under blocking admission), with one capture per engine;
   5. the static slice: ``repro_torch.launch.serve`` serves yi_6b at full
      width, all 32 layers in bf16, random weights from --seed, batch 4,
      prompt 4096, 64 new tokens, DSA on the kernel path; the launch
      counters show K2 ran once per layer in prefill and K1 once per layer
-     per decode step;
+     per decode step (each step one replay of the step's CUDA graph, whose
+     replays add the launches the capture recorded);
   6. the continuous slice: ``repro_torch.launch.serve --continuous
      --paged`` serves 8 synthetic requests (prompts 1024-4096, 16-64 new
      tokens, all queued at the start) on the same model through 4 slots of
      a paged cache of max_len 8192, chunked admission 512 tokens wide and
      segments of 16 steps; every request must finish ok, K3 must launch
-     once per layer per chunk step and K4 once per layer per decode step;
-     then a torch.profiler trace of one chunk step and one segment;
+     once per layer per chunk step and K4 once per layer per decode step,
+     and the segments must have captured one graph and replayed it once a
+     decode step; then a torch.profiler trace of one chunk step and one
+     segment;
   7. the quantized slices: phase 5 with an fp8 K/V cache and int8
      selection and 32 new tokens (K1q once per layer per decode step, K1
      never), and phase 6 with int8 K/V and int8 selection (K3q and K4q in
      place of K3 and K4, which must not launch), with the pool's bytes per
      slot and the same profile;
   8. profile: a torch.profiler trace of one prefill and a few decode steps
-     of the static slice (wall time, device busy share, top kernels);
+     of the static slice (wall time, device busy share, top kernels), the
+     steps replays of the captured step, with the capture's time and the
+     bytes its graph pool reserved;
   9. RWKV6: K7 (chunked wkv6) against its plain version at the reduced
      geometry (B 2, H 4, S 128, hd 16, f32) and at rwkv6_3b's (B 4, H 40,
      S 4096, hd 64, bf16 and f32), each from a zero and a random state,
@@ -63,7 +74,8 @@ fails:
      (w = 0.3: the -30 clamp binds in every chunk) in f32 and bf16, timed
      as above at the main path's case; a 2-layer
      full-width rwkv6_3b in f32 serves the same greedy tokens on the card
-     (K7) as on the CPU (the plain version), prompt 512, 16 new; the
+     (K7) as on the CPU (the plain version), prompt 512, 16 new, and the
+     card's graphed scan loop the same tokens as its eager python loop; the
      rwkv6_3b slice, ``repro_torch.launch.serve --arch rwkv6_3b`` at full
      width, 32 layers in bf16, batch 4, prompt 4096, 64 new tokens: K7
      exactly once per layer in prefill and no attention kernel; a
@@ -685,9 +697,72 @@ def parity_phase(torch, seed: int) -> dict:
         fail("kernel mode and block mode disagree on greedy tokens")
     cont = continuous_parity(torch, cfg, params, seed)
     quant = continuous_parity(torch, cfg, params, seed, quant="int8")
+    graphs = graph_parity(torch, cfg, params, prompts, seed)
     del params
     torch.cuda.empty_cache()
-    return {"same_tokens": same, **cont, "quant": quant}
+    return {"same_tokens": same, **cont, "quant": quant, "graphs": graphs}
+
+
+def graph_parity(torch, cfg, params, prompts, seed: int, n_new: int = 16,
+                 max_len: int = 2176) -> dict:
+    """Graphed decode == eager decode bit for bit on the kernel path.
+    Static: the scan loop (one replay of the step's graph a step, the
+    generate run twice on one engine) against the python loop (eager
+    steps), f32 and fp8 K/V.  Continuous: a paged engine's segments
+    (replays of the masked step's graph) against each request's solo
+    python-loop generate, greedy and sampled requests mixed, f32 and int8
+    K/V (int8 under blocking admission: chunked admission attends a
+    chunk's own rows quantized).  Each engine captures once."""
+    import numpy as np
+    from repro_torch.inference.engine import Engine
+    from repro_torch.inference.scheduler import ContinuousEngine, Request
+    out = {}
+    for quant in (None, "fp8"):
+        kw = dict(max_len=max_len, long_context=True, dsa_mode="kernel",
+                  **({} if quant is None else
+                     dict(kv_quant=quant, select_dtype="int8")))
+        scan = Engine(cfg, params, **kw)
+        got = [scan.generate(prompts, n_new).tokens for _ in range(2)]
+        want = Engine(cfg, params, loop="python", **kw).generate(
+            prompts, n_new).tokens
+        same = all(bool((g == want).all()) for g in got)
+        label = f"static {quant or 'f32'}"
+        print(f"graph parity: {label}, 2-layer full-width yi_6b, prompt "
+              f"{prompts.shape[1]}, {n_new} new: scan (graph replays) == "
+              f"python (eager) tokens: {same}; {scan.graphs.captures} "
+              f"capture, {scan.graphs.replays} replays")
+        if not same or scan.graphs.captures != 1:
+            fail(f"graph parity, {label}: replayed tokens differ from eager "
+                 f"ones or the engine captured {scan.graphs.captures} times")
+        out[label] = same
+    rng = np.random.default_rng(seed + 3)
+    reqs = [Request(i, rng.integers(1, cfg.vocab - 4, size=(n,)).astype(
+        np.int32), n_new, greedy=i % 2 == 0, seed=i, temperature=0.8)
+        for i, n in enumerate((700, 1100, 512, 900))]
+    for quant in (None, "int8"):
+        kw = dict(max_len=max_len, long_context=True, dsa_mode="kernel",
+                  **({} if quant is None else
+                     dict(kv_quant=quant, select_dtype="int8")))
+        eng = ContinuousEngine(cfg, params, slots=4, seg_len=16,
+                               chunk_tokens=512, paged=True,
+                               chunked_prefill=quant is None, **kw)
+        got = eng.run(reqs)
+        solo = Engine(cfg, params, loop="python", **kw)
+        same = all(bool((got[r.rid] == solo.generate(
+            r.prompt[None], n_new, greedy=r.greedy, seed=r.seed,
+            temperature=r.temperature).tokens[0]).all()) for r in reqs)
+        g = eng.graphs
+        label = f"continuous {quant or 'f32'}"
+        print(f"graph parity: {label} paged, greedy and sampled: segments "
+              f"(graph replays) == solo python generate (eager) tokens: "
+              f"{same}; {g.captures} capture, {g.replays} replays for "
+              f"{eng.stats['decode_steps']} decode steps")
+        if (not same or g.captures != 1
+                or g.replays != eng.stats["decode_steps"]):
+            fail(f"graph parity, {label}: tokens equal {same}, "
+                 f"{g.captures} captures, {g.replays} replays")
+        out[label] = same
+    return out
 
 
 def continuous_parity(torch, cfg, params, seed: int, lens=(700, 1100, 512,
@@ -766,6 +841,7 @@ def slice_phase(torch, seed: int, quant=None) -> dict:
     n_layers = get_config("yi_6b").n_layers
     n_new = 32 if quant else 64
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
     serve.reset_launch_counts()
     res = serve.main(["--arch", "yi_6b", "--batch", "4", "--prompt-len",
                       "4096", "--new-tokens", str(n_new), "--dsa",
@@ -779,8 +855,8 @@ def slice_phase(torch, seed: int, quant=None) -> dict:
     print(f"slice{f' ({quant} K/V, int8 selection)' if quant else ''}: "
           f"prefill {res.prefill_s * 1e3:.1f} ms, decode "
           f"{res.tokens_per_s:.1f} tok/s over {res.decode_steps} steps, "
-          f"peak memory {peak:.2f} GiB, launches "
-          + " ".join(f"{k} {v}" for k, v in n.items()))
+          f"peak memory {peak:.2f} GiB ({held:.2f} held at its start), "
+          f"launches " + " ".join(f"{k} {v}" for k, v in n.items()))
     if n["K2"] != n_layers:
         fail(f"K2 launched {n['K2']} times in prefill, expected {n_layers}")
     if n[dec] != n_layers * res.decode_steps or n[dec] == 0:
@@ -789,6 +865,9 @@ def slice_phase(torch, seed: int, quant=None) -> dict:
     others = {k: v for k, v in n.items() if k not in ("K2", dec) and v}
     if others:
         fail(f"the static slice launched other kernels: {others}")
+    if res.decode_dispatches != res.decode_steps:
+        fail(f"{res.decode_dispatches} graph replays for "
+             f"{res.decode_steps} decode steps")
     tok = res.tokens
     if tok.shape != (4, n_new) or tok.min() < 0 or tok.max() >= vocab:
         fail(f"bad tokens: shape {tok.shape}, range {tok.min()}..{tok.max()}")
@@ -809,6 +888,7 @@ def continuous_phase(torch, seed: int, quant=None) -> dict:
     vocab = get_config("yi_6b").vocab
     serve.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
     results, eng = serve.main([
         "--arch", "yi_6b", "--continuous", "--paged", "--dsa", "--dsa-mode",
         "kernel", "--slots", "4", "--max-len", "8192", "--chunk-tokens",
@@ -828,7 +908,8 @@ def continuous_phase(torch, seed: int, quant=None) -> dict:
           f"{summ['p95_latency_s']} s, TTFT p50 {summ['p50_ttft_s']} s, "
           f"{st['segments']} segments, {st['admitted']} admissions, "
           f"{st['chunks']} chunk steps, {st['decode_steps']} decode steps, "
-          f"peak memory {peak:.2f} GiB, pool {slot_bytes} bytes per slot, "
+          f"peak memory {peak:.2f} GiB ({held:.2f} held at its start), "
+          f"pool {slot_bytes} bytes per slot, "
           f"launches " + " ".join(f"{k} {n}" for k, n in launches.items()))
     bad = [r.rid for r in results
            if r.status != "ok" or len(r.tokens) != r.n_new
@@ -849,8 +930,16 @@ def continuous_phase(torch, seed: int, quant=None) -> dict:
         fail(f"the paged, chunked path launched other kernels: {others}")
     if eng.pool.available() != eng.pool_pages - 1:
         fail("the page pool did not get every page back")
+    g = eng.graphs
+    if g.captures != 1 or g.replays != st["decode_steps"]:
+        fail(f"the segments captured {g.captures} graphs and replayed "
+             f"{g.replays} times for {st['decode_steps']} decode steps")
     out = {"summary": summ, "peak_gib": peak, "stats": dict(st),
-           "slot_bytes": slot_bytes, "launches": launches}
+           "slot_bytes": slot_bytes, "launches": launches,
+           "capture_ms": [x.capture_ms for x in g.graphs.values()],
+           "pool_bytes": g.pool_bytes}
+    print(f"  decode graph: capture {out['capture_ms'][0]:.1f} ms, graph "
+          f"pool {g.pool_bytes} bytes")
     out["profile"] = continuous_profile(torch, eng, seed, label=label)
     del eng
     return out
@@ -959,45 +1048,56 @@ def profile_phase(torch, seed: int, steps: int = 8, traced: int = 2,
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import get_config
     from repro_torch.inference.engine import Engine
-    from repro_torch.models.transformer import decode_step, init_model
+    from repro_torch.models.transformer import init_model
     cfg = get_config(arch)
     dsa = (dict(long_context=True, dsa_mode="kernel") if cfg.dsa.enabled
            else {})
+    torch.cuda.reset_peak_memory_stats()
     eng = Engine(cfg, init_model(seed, cfg), max_len=4096 + 64 + 16, **dsa)
     prompts = np.random.default_rng(seed).integers(
         1, cfg.vocab - 4, size=(4, 4096)).astype(np.int32)
     acts = [ProfilerActivity.CUDA]
 
-    def run(caches, tok, steps=steps):
+    def run(tok, steps=steps):
+        # the scan loop's steps: a replay of the captured step, then the
+        # greedy pick on its logits
         for _ in range(steps):
-            logits, caches = decode_step(eng.params, cfg, eng.decode_flags,
-                                         tok, caches)
-            tok = logits[:, -1].argmax(-1, keepdim=True)
-        return caches, tok
+            tok = step(tok)[:, -1].argmax(-1, keepdim=True)
+        return tok
 
     with torch.inference_mode():
         eng.prefill(prompts)                           # warm
         _, _, prefill_s = eng.prefill(prompts)
         with profile(activities=acts) as prof:
-            last, caches, _ = eng.prefill(prompts)
+            eng.prefill(prompts)
         pre = _device_time(prof, "prefill", 1)
-        tok = last[:, -1].argmax(-1, keepdim=True)
-        caches, tok = run(caches, tok)                 # warm
+        step = eng.scan_step(4)                        # the capture
+        last, _, _ = eng.prefill(prompts, caches=eng.resident_cache(4))
+        tok = run(last[:, -1].argmax(-1, keepdim=True))   # warm
         torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         t0 = time.perf_counter()
-        caches, tok = run(caches, tok)
+        ev[0].record()
+        tok = run(tok)
+        ev[1].record()
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) / steps * 1e3
+        event_ms = ev[0].elapsed_time(ev[1]) / steps
         with profile(activities=acts) as prof:
-            caches, tok = run(caches, tok, traced)
+            tok = run(tok, traced)
             torch.cuda.synchronize()
         dec = _device_time(prof, "decode", traced)
     _print_profile(f"{arch} prefill", prefill_s * 1e3, *pre)
-    _print_profile(f"{arch} decode step", step_ms, *dec)
+    _print_profile(f"{arch} decode step (graph replay)", step_ms, *dec)
+    print(f"  decode graph: capture {step.capture_ms:.1f} ms, graph pool "
+          f"{step.pool_bytes} bytes, {event_ms:.3f} ms a step between CUDA "
+          f"events, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     out = {"prefill_ms": prefill_s * 1e3, "prefill_busy_ms": pre[0],
-           "step_ms": step_ms, "step_busy_ms": dec[0]}
+           "step_ms": step_ms, "step_busy_ms": dec[0],
+           "step_event_ms": event_ms, "capture_ms": step.capture_ms,
+           "pool_bytes": step.pool_bytes}
     if cfg.rwkv is not None:
-        del caches
         out["unaligned_prefill_ms"] = unaligned_prefill(
             torch, eng, prompts[:, :-1], prefill_s * 1e3)
     del eng
@@ -1042,8 +1142,19 @@ def rwkv_parity_phase(torch, seed: int) -> dict:
     prompts = np.random.default_rng(seed).integers(
         1, cfg.vocab - 4, size=(2, 512)).astype(np.int32)
     before = wkv6_chunked.launches
-    card = Engine(cfg, params, max_len=512 + 16 + 16).generate(prompts, 16)
+    scan = Engine(cfg, params, max_len=512 + 16 + 16)
+    card = scan.generate(prompts, 16)
     k7 = wkv6_chunked.launches - before
+    eager = Engine(cfg, params, max_len=512 + 16 + 16,
+                   loop="python").generate(prompts, 16)
+    graphed = (bool((card.tokens == eager.tokens).all())
+               and scan.graphs.captures == 1
+               and card.decode_dispatches == card.decode_steps)
+    print(f"graph parity: 2-layer full-width rwkv6_3b f32, prompt 512, 16 "
+          f"new: scan (graph replays) == python (eager) tokens: {graphed}; "
+          f"{scan.graphs.captures} capture, {scan.graphs.replays} replays")
+    if not graphed:
+        fail("rwkv6_3b: the graphed scan loop and the eager loop disagree")
     def to_cpu(t):
         if isinstance(t, dict):
             return {k: to_cpu(v) for k, v in t.items()}
@@ -1066,7 +1177,7 @@ def rwkv_parity_phase(torch, seed: int) -> dict:
     if k7 != cfg.n_layers:
         fail(f"rwkv6_3b parity: K7 launched {k7} times, expected "
              f"{cfg.n_layers}")
-    return {"same_tokens": same}
+    return {"same_tokens": same, "graphed_same_tokens": graphed}
 
 
 def rwkv_slice_phase(torch, seed: int) -> dict:
@@ -1077,6 +1188,7 @@ def rwkv_slice_phase(torch, seed: int) -> dict:
     from repro_torch.models.transformer import init_cache
     cfg = get_config("rwkv6_3b")
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
     serve.reset_launch_counts()
     res = serve.main(["--arch", "rwkv6_3b", "--batch", "4", "--prompt-len",
                       "4096", "--new-tokens", "64", "--dsa", "--seed",
@@ -1088,11 +1200,15 @@ def rwkv_slice_phase(torch, seed: int) -> dict:
                                        dtype=torch.float32, device="meta"))
     print(f"rwkv6_3b slice: prefill {res.prefill_s * 1e3:.1f} ms, decode "
           f"{res.tokens_per_s:.1f} tok/s over {res.decode_steps} steps, "
-          f"peak memory {peak:.2f} GiB, state {row} bytes per batch row, "
+          f"peak memory {peak:.2f} GiB ({held:.2f} held at its start), "
+          f"state {row} bytes per batch row, "
           f"launches " + " ".join(f"{k} {v}" for k, v in n.items()))
     if n["K7"] != cfg.n_layers:
         fail(f"K7 launched {n['K7']} times in the rwkv6_3b slice, expected "
              f"{cfg.n_layers} (one per layer in prefill)")
+    if res.decode_dispatches != res.decode_steps:
+        fail(f"{res.decode_dispatches} graph replays for "
+             f"{res.decode_steps} decode steps")
     others = {k: v for k, v in n.items() if k != "K7" and v}
     if others:
         fail(f"the rwkv6_3b slice launched attention kernels: {others}")

@@ -6,18 +6,29 @@ length (transformer.truncate_cache) and the logits row at ``length - 1``
 is taken, so a bucketed prefill leaves the cache an unpadded prefill
 would have (modulo the zeroed tail).
 
+Resident cache: ``generate`` prefills into the engine's cache for its
+batch size (``resident_cache``: made on first use, zeroed by every
+prefill into it), so the decode steps of every call write the same
+tensors.
+
 Decode: the first token is sampled from the prefill logits, so ``n_new``
 tokens need ``n_new - 1`` decode steps.  ``loop="scan"`` runs them back to
-back with tokens kept on the device (the JAX reference fuses them into one
-``lax.scan``; here it is a Python loop over steps with no host sync
-inside), and, as the reference does, bucket the step count to a power of
-two (floor 4): surplus steps run and their tokens are dropped.
-``loop="python"`` runs exactly ``n_new - 1`` steps and copies each token
-to the host, the per-token baseline.  Both give the same tokens.
+back with tokens kept on the device and, as the reference does, buckets
+the step count to a power of two (floor 4): surplus steps run and their
+tokens are dropped.  The JAX reference fuses them into one ``lax.scan``
+(``Engine._decode_loop``); on the card each step here is one replay of
+the step's CUDA graph (inference/graphs.py), captured once per batch size
+over the resident cache, with sampling eager on its logits; on the CPU
+the same step runs eagerly.  ``loop="python"`` runs exactly ``n_new - 1``
+eager steps and copies each token to the host, the per-token baseline.
+Both give the same tokens.
 
 Throughput accounting: ``decode_steps`` counts the steps EXECUTED and
 ``tokens_per_s = B * decode_steps / decode_s``, the decode-phase step
 throughput (the first token comes from prefill and is not counted).
+``decode_dispatches`` counts the step programs the host dispatched, one
+a step: a graph replay on the card's scan loop, an eager forward
+otherwise (the reference's scan is one dispatch for all its steps).
 
 Sampling: greedy takes the first maximum (as ``jnp.argmax`` does), so
 greedy tokens are comparable with the reference.  Sampled decoding draws
@@ -31,7 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,9 +50,10 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.inference.config import ServingConfig, resolve_config
+from repro_torch.inference.graphs import DecodeGraphs, step_key
 from repro_torch.models.attention import RunFlags
 from repro_torch.models.transformer import (decode_step, forward, init_cache,
-                                            truncate_cache)
+                                            truncate_cache, zero_cache)
 
 PROMPT_BUCKET_FLOOR = 16
 STEP_BUCKET_FLOOR = 4
@@ -70,7 +82,7 @@ class GenerationResult:
     prefill_s: float
     decode_s: float
     tokens_per_s: float          # B * decode_steps / decode_s (0 if no steps)
-    decode_dispatches: int = 0   # host round trips for decode (scan: 1)
+    decode_dispatches: int = 0   # step programs dispatched (see above)
     decode_steps: int = 0        # decode steps EXECUTED (bucketed on scan)
 
 
@@ -129,22 +141,54 @@ class Engine:
                                       long_context=c.long_context, **quant)
         self.decode_flags = RunFlags(mode="decode", dsa_mode=c.dsa_mode,
                                      long_context=c.long_context, **quant)
+        self._caches: Dict[int, Dict] = {}
+        self.graphs = (DecodeGraphs(self.device)
+                       if self.device.type == "cuda" else None)
 
     def prompt_bucket(self, prompt_len: int) -> int:
         if not self.bucket_prompts:
             return prompt_len
         return min(pow2_bucket(prompt_len, PROMPT_BUCKET_FLOOR), self.max_len)
 
+    def resident_cache(self, batch: int) -> Dict:
+        """The engine's cache of ``batch`` rows of max_len, made on first
+        use and kept: ``generate`` prefills into it, and the decode graph
+        of that batch size is captured over it."""
+        if batch not in self._caches:
+            self._caches[batch] = init_cache(
+                self.cfg, batch, self.max_len, self.decode_flags,
+                dtype=self.cache_dtype, device=self.device)
+        return self._caches[batch]
+
+    def scan_step(self, batch: int) -> Callable:
+        """The scan loop's decode step over the resident cache of
+        ``batch``: ``step(tok (B, 1)) -> logits (B, 1, V)``.  On the card
+        a replay of the step's CUDA graph, captured on the first call
+        (whose warm-up steps write the cache, so capture before a
+        prefill); on the CPU the step run eagerly."""
+        caches = self.resident_cache(batch)
+
+        def step(tok, mask=None):
+            return decode_step(self.params, self.cfg, self.decode_flags,
+                               tok, caches)[0]
+
+        if self.graphs is None:
+            return step
+        return self.graphs.step(
+            step_key(self.cfg, self.decode_flags, batch, paged=False), step,
+            caches, batch, masked=False)
+
     @torch.inference_mode()
     def prefill(self, prompts: np.ndarray,
                 lengths: Optional[np.ndarray] = None,
-                cache_len: Optional[int] = None
+                cache_len: Optional[int] = None, caches: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, Dict, float]:
-        """Bucketed prefill of a (B, L) prompt batch into a fresh cache of
-        ``cache_len`` rows (default the engine's max_len; the continuous
-        scheduler passes the prompt bucket and zero-extends at slot
-        insertion).  Returns (last_logits (B, 1, V), caches,
-        prefill_seconds)."""
+        """Bucketed prefill of a (B, L) prompt batch into ``caches``,
+        zeroed first (``generate`` passes the resident cache), or else
+        into a fresh cache of ``cache_len`` rows (default the engine's
+        max_len; the continuous scheduler passes the prompt bucket and
+        zero-extends at slot insertion).  Returns (last_logits (B, 1, V),
+        caches, prefill_seconds)."""
         prompts = np.asarray(prompts, np.int32)
         b, s = prompts.shape
         padded = self.prompt_bucket(s)
@@ -157,9 +201,12 @@ class Engine:
             raise ValueError(f"{self.cfg.name} is recurrent: its state "
                              f"absorbs pad tokens, so it takes no ragged "
                              f"batch")
-        caches = init_cache(self.cfg, b, cache_len or self.max_len,
-                            self.decode_flags, dtype=self.cache_dtype,
-                            device=self.device)
+        if caches is None:
+            caches = init_cache(self.cfg, b, cache_len or self.max_len,
+                                self.decode_flags, dtype=self.cache_dtype,
+                                device=self.device)
+        else:
+            zero_cache(caches)
         toks = torch.as_tensor(prompts, device=self.device)
         lens = torch.as_tensor(np.asarray(lengths, np.int64),
                                device=self.device)
@@ -192,27 +239,34 @@ class Engine:
                 f"prompt_len ({plen}) + n_new ({n_new}) exceeds the engine "
                 f"max_len ({self.max_len})")
         b = prompts.shape[0]
-        logits, caches, t_prefill = self.prefill(prompts, lengths=lengths)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        t0 = time.monotonic()
-        tok = _sample(logits[:, -1], gen, greedy, temperature)
-        out: List[torch.Tensor] = [tok]
         scan = self.loop == "scan"
         steps_exec = n_new - 1
         if scan and self.bucket_steps and steps_exec:
             steps_exec = pow2_bucket(steps_exec, STEP_BUCKET_FLOOR)
+        caches = self.resident_cache(b)
+        # the step (and its graph's capture) comes before the prefill,
+        # which zeroes what a capture's warm-up steps wrote
+        step = self.scan_step(b) if scan and steps_exec else None
+        logits, caches, t_prefill = self.prefill(prompts, lengths=lengths,
+                                                 caches=caches)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        t0 = time.monotonic()
+        tok = _sample(logits[:, -1], gen, greedy, temperature)
+        out: List[torch.Tensor] = [tok]
         for _ in range(steps_exec):
-            logits, caches = decode_step(self.params, self.cfg,
-                                         self.decode_flags, tok, caches)
+            if scan:
+                logits = step(tok)
+            else:
+                logits, caches = decode_step(self.params, self.cfg,
+                                             self.decode_flags, tok, caches)
             tok = _sample(logits[:, -1], gen, greedy, temperature)
             if not scan:                       # host round trip per token
                 tok = tok.cpu().to(self.device)
             out.append(tok)
-        dispatches = min(steps_exec, 1) if scan else steps_exec
         toks = torch.cat([t.cpu() for t in out], dim=1)[:, :n_new]
         _sync(self.device)
         t_decode = time.monotonic() - t0
         tps = b * steps_exec / max(t_decode, 1e-9) if steps_exec else 0.0
         return GenerationResult(toks.numpy().astype(np.int32), t_prefill,
-                                t_decode, tps, decode_dispatches=dispatches,
+                                t_decode, tps, decode_dispatches=steps_exec,
                                 decode_steps=steps_exec)

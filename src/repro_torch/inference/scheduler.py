@@ -8,12 +8,16 @@ streams requests through it:
   request queue   FIFO of submitted requests; admission requires
                   prompt_len + n_new <= max_len.
   segments        decode runs in segments of ``seg_len`` steps over ALL
-                  slots: a Python loop of ``decode_step`` calls with the
-                  tokens kept on the device, synced to the host once per
-                  segment.  Between segments finished requests retire and
-                  queued ones are admitted into free slots.  Per-slot
-                  ``pos`` and the ``active`` mask (models/attention.py)
-                  let every slot decode at its own depth and freeze.
+                  slots, with the tokens kept on the device, synced to
+                  the host once per segment.  The reference's segment is
+                  one jitted scan (``_segment``); here each step is a
+                  replay of the masked step's CUDA graph on the card
+                  (inference/graphs.py, captured once per resident cache),
+                  the same step run eagerly on the CPU.  Between segments
+                  finished requests retire and queued ones are admitted
+                  into free slots.  Per-slot ``pos`` and the (B,) active
+                  mask (models/attention.py) let every slot decode at its
+                  own depth and freeze.
   admission       DEFAULT (chunked): a same-bucket group's prompts stream
                   through a bucket-sized dense STAGING cache in fixed-width
                   chunk steps (transformer.chunk_step), in stall-bounded
@@ -60,7 +64,8 @@ from repro_torch.core.quantization import raw
 from repro_torch.inference.config import ServingConfig, resolve_config
 from repro_torch.inference.engine import (Engine, _sample, _sync,
                                           can_bucket_prompts, pow2_bucket)
-from repro_torch.models.attention import (DSA_MODES, Active, _pool_write,
+from repro_torch.inference.graphs import step_key
+from repro_torch.models.attention import (DSA_MODES, _pool_write,
                                           cache_page_size)
 from repro_torch.models.transformer import chunk_step, decode_step, init_cache
 
@@ -262,6 +267,7 @@ class ContinuousEngine:
                                     cfg.dsa.block_k)
         self.chunk_tokens = pow2_bucket(c.chunk_tokens, self._chunk_floor)
         self.queue: deque = deque()
+        self.graphs = self.engine.graphs  # one pool for the engine's graphs
         self.reset()
 
     # -- queue / admission --------------------------------------------------
@@ -672,7 +678,10 @@ class ContinuousEngine:
     @torch.inference_mode()
     def reset(self) -> None:
         """Zero all slots, the queue and the stats; rebuild the resident
-        cache (and the page pool)."""
+        cache (and the page pool), dropping the decode graphs captured on
+        the old one: the next segment captures anew."""
+        if self.graphs is not None:
+            self.graphs.clear()
         self.stats = {"segments": 0, "decode_steps": 0, "useful_tokens": 0,
                       "admitted": 0, "prefill_s": 0.0, "chunks": 0,
                       "chunk_s": 0.0, "stall_s": 0.0, "segment_s": 0.0}
@@ -698,9 +707,10 @@ class ContinuousEngine:
     def warmup(self, prompt_lens: Sequence[int]) -> None:
         """Run the admission and decode shapes of the prompt buckets
         covering ``prompt_lens`` once (at both admission widths, 1 and
-        ``slots``), then reset.  Eager PyTorch compiles nothing; this
-        takes first-call set-up (library handles, allocator growth) out of
-        the first requests' latency."""
+        ``slots``), reset, and capture the decode step's graph on the new
+        resident cache.  This takes first-call set-up (library handles,
+        allocator growth, the capture) out of the first requests'
+        latency."""
         buckets = sorted({self.engine.prompt_bucket(int(n))
                           for n in prompt_lens})
         sink: List[RequestResult] = []
@@ -717,6 +727,25 @@ class ContinuousEngine:
                         self.run_segment(lambda: 0.0, sink)
                 rid -= n
         self.reset()
+        self._segment_step()
+
+    def _segment_step(self):
+        """The segment's masked decode step over the resident cache:
+        ``step(tok (B, 1), mask (B,)) -> logits (B, 1, V)``.  On the card a
+        replay of its CUDA graph, captured on the first call after a
+        reset (its warm-up steps have no active row, so they change
+        nothing); on the CPU the step run eagerly."""
+        e, caches = self.engine, self._caches
+
+        def step(tok, mask):
+            return decode_step(e.params, self.cfg, e.decode_flags, tok,
+                               caches, active=mask)[0]
+
+        if self.graphs is None:
+            return step
+        return self.graphs.step(
+            step_key(self.cfg, e.decode_flags, self.slots, self.paged), step,
+            caches, self.slots, masked=True)
 
     # -- decode segments ----------------------------------------------------
 
@@ -726,24 +755,21 @@ class ContinuousEngine:
         device; a slot with r tokens left is active for its first
         min(r, seg_len) steps (the host knows which, so no step syncs, and
         a step in which no slot is active is not run; ``stats
-        ["decode_steps"]`` counts the steps run); each greedy slot takes
-        the first maximum, each sampled slot draws from its own generator
-        at its own temperature.  One host sync at the end collects the
-        segment's tokens."""
+        ["decode_steps"]`` counts the steps run).  Each step copies its
+        mask row into the step's input and runs it (a graph replay on the
+        card); each greedy slot takes the first maximum of the logits, each
+        sampled slot draws from its own generator at its own temperature.
+        One host sync at the end collects the segment's tokens."""
         remaining = np.asarray(
             [s.remaining if s else 0 for s in self._slot], np.int32)
         act = (self._active[None, :]
                & (remaining[None, :] > np.arange(self.seg_len)[:, None]))
-        flags = self.engine.decode_flags
         sampled = [i for i in range(self.slots)
                    if self._slot[i] is not None and not self._greedy[i]]
         t0 = time.monotonic()
-        # one upload a segment: every step's mask, and its active rows
-        # (in step order) for the dense cache's writes
-        act_dev = torch.as_tensor(act, device=self.device)
+        step = self._segment_step()
+        act_dev = torch.as_tensor(act, device=self.device)  # one upload
         n_act = act.sum(axis=1)
-        ends = np.cumsum(n_act)
-        rows_dev = torch.as_tensor(np.nonzero(act)[1], device=self.device)
         tok = self._tok
         outs = []
         steps = 0
@@ -751,18 +777,14 @@ class ContinuousEngine:
             if n_act[t] == 0:             # no slot decodes: skip the step
                 outs.append(tok)
                 continue
-            a = None if n_act[t] == self.slots else Active(
-                act_dev[t], rows_dev[ends[t] - n_act[t]:ends[t]])
-            logits, _ = decode_step(self.engine.params, self.cfg, flags, tok,
-                                    self._caches, active=a)
+            lg = step(tok, act_dev[t])[:, -1]
             steps += 1
-            lg = logits[:, -1]
             nxt = lg.argmax(dim=-1, keepdim=True)
             for i in sampled:
                 if act[t, i]:
                     nxt[i:i + 1] = _sample(lg[i:i + 1], self._gens[i], False,
                                            self._temps[i])
-            tok = nxt if a is None else torch.where(a.mask[:, None], nxt, tok)
+            tok = torch.where(act_dev[t][:, None], nxt, tok)
             outs.append(tok)
         toks = torch.cat(outs, dim=1).cpu().numpy()   # the segment's sync
         self._tok = tok

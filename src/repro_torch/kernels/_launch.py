@@ -79,6 +79,31 @@ def check_scales(cache: torch.Tensor, k_scale, v_scale,
     return [k_scale.data_ptr(), v_scale.data_ptr()], k_scale.stride()[:-1]
 
 
+# every launch counter of the kernel wrappers, as (wrapper, attribute).  A
+# wrapper counts the launches its Python call makes; a CUDA graph replay
+# makes no call, so inference/graphs.py adds each replay's captured
+# launches to these counters itself.
+COUNTERS: list = []
+
+
+def counters(fn, *names: str) -> None:
+    """Give the wrapper ``fn`` the launch counters ``names``, at 0."""
+    for name in names:
+        setattr(fn, name, 0)
+        COUNTERS.append((fn, name))
+
+
+def read_counts() -> list:
+    """Every counter's value, in ``COUNTERS`` order."""
+    return [getattr(fn, name) for fn, name in COUNTERS]
+
+
+def add_counts(delta) -> None:
+    """Add ``delta`` (values in ``COUNTERS`` order) to the counters."""
+    for (fn, name), d in zip(COUNTERS, delta):
+        setattr(fn, name, getattr(fn, name) + d)
+
+
 def count(fn, k_scale) -> None:
     """One launch more on the wrapper ``fn``'s counter of the variant that
     ran: ``launches`` (full-width cache) or ``launches_quant``."""

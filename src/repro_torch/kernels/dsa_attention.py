@@ -128,4 +128,4 @@ def dsa_block_sparse_attention(q, k, v, idx, valid, *, block_q: int = 128,
     return out
 
 
-dsa_block_sparse_attention.launches = 0
+LN.counters(dsa_block_sparse_attention, "launches")

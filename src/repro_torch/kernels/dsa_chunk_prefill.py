@@ -233,4 +233,4 @@ def dsa_chunk_paged_gather_attention(q, k_pool, v_pool, idx, pidx, ok,
 
 
 for _fn in (dsa_chunk_gather_attention, dsa_chunk_paged_gather_attention):
-    _fn.launches = _fn.launches_quant = 0
+    LN.counters(_fn, "launches", "launches_quant")

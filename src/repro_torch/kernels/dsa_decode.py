@@ -145,6 +145,14 @@ def _workspace(dev, n_tickets: int, n: int) -> torch.Tensor:
     return ws
 
 
+def stream_workspace(dev, stream: int):
+    """The workspace the kernels use on ``dev``'s stream ``stream`` (its
+    handle), None before their first call there.  A CUDA graph that
+    captured them on that stream holds it for as long as it lives: a later,
+    larger call there replaces the buffer in this table."""
+    return _WORKSPACE.get((dev, stream), (None, 0))[0]
+
+
 def _launch(fn_name: str, q, k, v, idx, pidx, ok, kv_len, block_k: int,
             cache_strides, s_len: int, k_scale, v_scale) -> torch.Tensor:
     """Check the operands and launch K1 (pidx None) or K4 on q's card."""
@@ -241,4 +249,4 @@ def dsa_decode_paged_gather_attention(q, k_pool, v_pool, idx, pidx, ok,
 
 
 for _fn in (dsa_decode_gather_attention, dsa_decode_paged_gather_attention):
-    _fn.launches = _fn.launches_quant = 0
+    LN.counters(_fn, "launches", "launches_quant")

@@ -137,4 +137,4 @@ def wkv6_chunked(r, k, v, w, u, s0=None, *, chunk: int = 32):
     return y, s_last
 
 
-wkv6_chunked.launches = 0
+LN.counters(wkv6_chunked, "launches")

@@ -31,6 +31,11 @@ bytes per slot (per batch row on the static path):
         --kv-quant int8 --select-dtype int8 --requests 6 --slots 2 \
         --prompt-len 64 --new-tokens 8 --device cpu
 
+On the card each decode step of the static ``--loop scan`` path and of
+the continuous engine's segments is one replay of the step's CUDA graph
+(repro_torch.inference.graphs); both lines print the graphs captured and
+replayed, and the kernels' launch counts include the replays.
+
 ``--arch rwkv6_3b`` serves the RWKV6 model through the static engine: its
 prefill runs the chunked wkv kernel K7 once per layer when the prompt is
 a multiple of 32 longer than 32; ``--dsa`` falls back to off (no score
@@ -84,6 +89,12 @@ def reset_launch_counts() -> None:
         setattr(fn, attr, 0)
 
 
+def graph_counts(graphs) -> tuple:
+    """(captures, replays) of an engine's decode graphs; (0, 0) on the
+    CPU, which has none."""
+    return (0, 0) if graphs is None else (graphs.captures, graphs.replays)
+
+
 def cache_bytes(caches) -> int:
     """Bytes held by every tensor of a cache tree."""
     if isinstance(caches, dict):
@@ -104,15 +115,19 @@ def _serve_continuous(cfg, args, params, config, device):
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     before = launch_counts()
+    graphs = graph_counts(eng.graphs)
     results = eng.serve(workload)
     wall = max((r.finish_s for r in results), default=0.0)
     s = summarize(results, wall)
+    captures, replays = (b - a for a, b in zip(graphs,
+                                               graph_counts(eng.graphs)))
     print(f"continuous: {s['n_requests']} requests, "
           f"{s['delivered_tokens']} tokens in {s['wall_s']:.2f} s -> "
           f"{s['goodput_tok_s']:.1f} tok/s goodput, "
           f"p50 {s['p50_latency_s']:.2f} s / p95 {s['p95_latency_s']:.2f} s "
           f"latency ({int(eng.stats['segments'])} segments, "
-          f"{int(eng.stats['admitted'])} admissions)")
+          f"{int(eng.stats['admitted'])} admissions; decode graphs: "
+          f"{captures} captured, {replays} replays)")
     after = launch_counts()
     peak = (f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
             if device.type == "cuda" else "not measured (CPU)")
@@ -200,14 +215,18 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(1, cfg.vocab - 4,
                            size=(args.batch, args.prompt_len)).astype(np.int32)
+    graphs = graph_counts(eng.graphs)
     res = eng.generate(prompts, args.new_tokens)
+    captures, replays = (b - a for a, b in zip(graphs,
+                                               graph_counts(eng.graphs)))
     row = cache_bytes(init_cache(cfg, 1, max_len, eng.decode_flags,
                                  dtype=eng.cache_dtype, device="meta"))
     print(f"prefill: {res.prefill_s * 1e3:.1f} ms   "
           f"decode: {res.decode_s:.2f} s   "
           f"throughput: {res.tokens_per_s:.1f} tok/s   "
           f"({res.decode_steps} steps in {res.decode_dispatches} "
-          f"dispatch{'es' if res.decode_dispatches != 1 else ''})")
+          f"dispatch{'es' if res.decode_dispatches != 1 else ''}; decode "
+          f"graphs: {captures} captured, {replays} replays)")
     after = launch_counts()
     print(f"cache {row} bytes per batch row; launches "
           + " ".join(f"{k} {after[k] - before[k]}" for k in KERNELS))

@@ -19,9 +19,10 @@ step's selection is a top-k over S/block_k block scores.  ``dsa_mode``:
 ``faithful`` (token-granularity decode) is not ported yet and raises.
 
 Continuous batching: ``pos`` is per slot, (B,), so every batch row decodes
-at its own depth, and decode takes an optional ``Active`` (a (B,) mask
-and the indices of its rows): an inactive row writes nothing, does not
-advance ``pos`` and attends with ``kv_len = 0``.  ``chunk_len`` switches decode to the chunk-append path
+at its own depth, and decode takes an optional ``Active`` (a (B,) mask,
+and optionally the indices of its rows): an inactive row lands no write,
+does not advance ``pos`` and attends with ``kv_len = 0``.  ``chunk_len``
+switches decode to the chunk-append path
 (chunked admission, ``_apply_chunk``): C tokens per row appended at
 ``pos``, with the DSA chunk kernel K3 (``kernels.ops.dsa_chunk_prefill``)
 on ``dsa_mode="kernel"``.  A cache built with ``pages=`` is PAGED: flat
@@ -41,16 +42,20 @@ is what the apply paths branch on.  fp8 leaves move as uint8 views
 
 Caches are updated IN PLACE (the JAX reference returns new trees): each
 layer's cache dict is written row by row during decode, and prefill fills
-it in place.  Cache writes never go out of range: the write slot wraps as
+it in place.  No step replaces a leaf, and a decode step given a bare
+mask has fixed shapes and no host sync, so a CUDA graph that captured it
+replays it on the same cache (inference/graphs.py).  Cache writes never
+go out of range: the write slot wraps as
 ``pos % s`` once ``pos`` reaches the cache length, exactly the slot the
 reference's ring formula picks, so the surplus steps of a bucketed step
 count (which the reference also runs) write where the reference writes.
 Where the reference drops a write by pushing its index out of bounds,
-the port leaves it out or sends it where it changes nothing: a dense
-decode step writes only its active rows (``Active.rows``); a paged write
-that must not land (an inactive row, an unmapped block) writes zeros into
-the zero page; a chunk row past the cache end writes back what its
-target holds (``_write_rows``).
+the port leaves it out or sends it where it changes nothing: an inactive
+row of a dense decode step writes back what its target holds (or, given
+``Active.rows``, writes nothing); a paged write that must not land (an
+inactive row, an unmapped block) writes zeros into the zero page; a
+chunk row past the cache end writes back what its target holds
+(``_write_rows``).
 """
 from __future__ import annotations
 
@@ -106,19 +111,23 @@ def dsa_active(cfg: ArchConfig, flags: RunFlags) -> bool:
 @dataclasses.dataclass(frozen=True)
 class Active:
     """The rows of a batch that take part in a decode step: ``mask`` (B,)
-    bool and ``rows``, the int64 indices of its True entries (the rows
-    that write)."""
+    bool and, optionally, ``rows``, the int64 indices of its True entries.
+
+    Without ``rows`` every row of a dense cache writes, an inactive one
+    putting back what its target holds: fixed shapes and no host sync, the
+    form the scheduler runs and a CUDA graph captures.  With ``rows`` only
+    those rows write, the eager form the masked one is held to bit for bit
+    (tests/test_torch_graphs.py).  A paged step reads only ``mask``."""
     mask: torch.Tensor
-    rows: torch.Tensor
+    rows: Optional[torch.Tensor] = None
 
 
 def as_active(active) -> Optional[Active]:
     """A decode step's ``active`` argument (None, an ``Active`` or a (B,)
-    bool mask) as an ``Active``.  A bare mask costs a host sync to find
-    its rows."""
+    bool mask) as an ``Active``."""
     if active is None or isinstance(active, Active):
         return active
-    return Active(active, active.nonzero()[:, 0])
+    return Active(active)
 
 
 def _int8_select_scores(q_t, key_q, key_s, *, block_k: int = 1):
@@ -411,17 +420,28 @@ def _pool_write(pool: torch.Tensor, flat: torch.Tensor, vals: torch.Tensor,
         put, raw(vals.to(pool.dtype)), 0)
 
 
-def _written(vals: torch.Tensor, active: Optional[Active]) -> torch.Tensor:
-    """The per-row values (B, ...) of a dense decode step that are
-    written: every row's, or the active rows'."""
-    return vals if active is None else vals[active.rows]
+def _put_step_rows(t: torch.Tensor, col: torch.Tensor, vals: torch.Tensor,
+                   active: Optional[Active]) -> None:
+    """In place: ``t[b, col[b]] = vals[b]`` for each row ``b`` of a dense
+    decode step that writes: every row; with a mask, every row, the
+    inactive ones putting back what their target holds; with
+    ``active.rows``, only those rows."""
+    r = raw(t)
+    v = raw(vals.to(t.dtype))
+    rows = torch.arange(t.shape[0], device=t.device)
+    if active is not None and active.rows is not None:
+        rows, col, v = active.rows, col[active.rows], v[active.rows]
+    elif active is not None:
+        keep = active.mask.reshape(-1, *([1] * (v.dim() - 1)))
+        v = torch.where(keep, v, r[rows, col])
+    r[rows, col] = v
 
 
 def _apply_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache,
                   active: Optional[Active] = None):
     """Single-token decode: every batch row at its own ``pos``.  With
-    ``active`` given, only its rows write and advance ``pos``; the others
-    attend with kv_len = 0."""
+    ``active`` given, only its rows land their writes and advance ``pos``;
+    the others attend with kv_len = 0."""
     b = x.shape[0]
     pos = cache["pos"].long()                              # (B,)
     q, k, v = _proj_qkv(params, cfg, x)
@@ -431,18 +451,15 @@ def _apply_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache,
     slot = torch.where(pos < s, pos, pos % s)              # ring wrap
     kv_len = torch.clamp(pos + 1, max=s).to(torch.int32)
     if active is None:
-        tgt = (torch.arange(b, device=x.device), slot)
-        cache["pos"] = (pos + 1).to(torch.int32)
+        cache["pos"].copy_(pos + 1)
     else:
-        tgt = (active.rows, slot[active.rows])
-        cache["pos"] = (pos + active.mask).to(torch.int32)
+        cache["pos"].copy_(pos + active.mask)
         kv_len = torch.where(active.mask, kv_len, 0)
-    for leaf, val in _kv_rows(cache, _written(k[:, 0], active),
-                              _written(v[:, 0], active),
+    for leaf, val in _kv_rows(cache, k[:, 0], v[:, 0],
                               flags.kv_quant).items():
-        raw(cache[leaf])[tgt] = raw(val)
+        _put_step_rows(cache[leaf], slot, val, active)
     if "kt" in cache:
-        out = _dsa_decode(params, cfg, flags, x, q, cache, tgt, kv_len,
+        out = _dsa_decode(params, cfg, flags, x, q, cache, slot, kv_len,
                           active)
     else:
         out = A.decode_attention(q, *_kv_views(cache), kv_len=kv_len)
@@ -470,18 +487,18 @@ def _decode_select(cfg: ArchConfig, q_t, ktb_view, ktb_s_view, kv_len,
 
 
 def _dsa_decode(params, cfg: ArchConfig, flags: RunFlags, x, q, cache,
-                tgt, kv_len, active: Optional[Active] = None):
-    """DSA long-context decode step: update kt/ktb in place at the rows
-    and slots ``tgt`` that write, select cache blocks from predicted block
+                slot, kv_len, active: Optional[Active] = None):
+    """DSA long-context decode step: update kt/ktb in place at each
+    writing row's ``slot``, select cache blocks from predicted block
     scores, gather + attend.  Returns the attention output (B, 1, Hq,
     hd)."""
     dsa = cfg.dsa
     kc, vc = cache["k"], cache["v"]
     s = kc.shape[1]
     q_t, k_t = PRED.predict_qk(params["dsa"], x, None, dsa.quant_bits)
-    kt = _written(k_t[:, 0], active)
+    kt = k_t[:, 0]
     for leaf, val in _quant_rows(cache, "kt", kt, "int8").items():
-        cache[leaf][tgt] = val
+        _put_step_rows(cache[leaf], slot, val, active)
     if flags.dsa_mode == "off":
         return A.decode_attention(q, *_kv_views(cache), kv_len=kv_len)
     if flags.dsa_mode not in ("block", "kernel"):
@@ -490,16 +507,19 @@ def _dsa_decode(params, cfg: ArchConfig, flags: RunFlags, x, q, cache,
     bkd = dsa.block_k
     # the slot being written is still zero (only a surplus step of a
     # bucketed step count can wrap, and its token is dropped), so a plain
-    # add keeps the block sum exact for every delivered token; the rows of
-    # tgt are distinct, so a gather-add-scatter needs no accumulating
+    # add keeps the block sum exact for every delivered token; each row
+    # adds to its own block, so a gather-add-scatter needs no accumulating
     # index_put (which sorts its indices on the card).  An int8 block sum
     # cannot add across scales: dequantize it, add in f32, requantize.
-    blk = (tgt[0], tgt[1] // bkd)
+    blk = slot // bkd
+    rows = torch.arange(kc.shape[0], device=kc.device)
     if "ktb_s" in cache:
-        old = Q.dequant(cache["ktb"][blk], cache["ktb_s"][blk])
-        cache["ktb"][blk], cache["ktb_s"][blk] = Q.quant_store(old + kt)
+        old = Q.dequant(cache["ktb"][rows, blk], cache["ktb_s"][rows, blk])
+        for leaf, val in zip(("ktb", "ktb_s"), Q.quant_store(old + kt)):
+            _put_step_rows(cache[leaf], blk, val, active)
     else:
-        cache["ktb"][blk] += kt.to(cache["ktb"].dtype)
+        _put_step_rows(cache["ktb"], blk, cache["ktb"][rows, blk]
+                       + kt.to(cache["ktb"].dtype), active)
     idx, ok = _decode_select(cfg, q_t, cache["ktb"], cache.get("ktb_s"),
                              kv_len, s)
     scales = dict(k_scale=cache.get("k_s"), v_scale=cache.get("v_s"))
@@ -543,10 +563,10 @@ def _apply_paged_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache,
     okw = (pos < s) & (pg > 0)
     kv_len = torch.clamp(pos + 1, max=s).to(torch.int32)
     if active is None:
-        cache["pos"] = (pos + 1).to(torch.int32)
+        cache["pos"].copy_(pos + 1)
     else:
         okw &= active.mask
-        cache["pos"] = (pos + active.mask).to(torch.int32)
+        cache["pos"].copy_(pos + active.mask)
         kv_len = torch.where(active.mask, kv_len, 0)
     flat = pg * bk + pos % bk
     for leaf, val in _kv_rows(cache, k[:, 0], v[:, 0],
@@ -648,7 +668,7 @@ def _apply_chunk(params, cfg: ArchConfig, flags: RunFlags, x, cache,
                               torch.where(lv, v, 0), flags.kv_quant).items():
         _write_rows(cache[leaf], p, val, wok)
     adv = torch.where(act, chunk_len.long(), 0)
-    cache["pos"] = (pos + adv).to(torch.int32)
+    cache["pos"].copy_(pos + adv)
     kv_len = (pos + adv).to(torch.int32)
     head = (slice(None), slice(None, sel))             # the selection geometry
     if "kt" in cache:

@@ -104,7 +104,7 @@ def apply_rwkv(params, cfg: ArchConfig, x, *, cache: Optional[Dict] = None):
     y = y * torch.nn.functional.silu(g)
     out = mm(y, params["wo"].to(x.dtype))
     if cache is not None:
-        cache["s"] = st
+        cache["s"].copy_(st)
         cache["x_prev"].copy_(x[:, -1])
     return out
 

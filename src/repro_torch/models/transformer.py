@@ -8,6 +8,7 @@ Public API:
   chunk_step(params, cfg, flags, tokens, caches, chunk_len, active=None,
              sel_len=None)                    -> (logits, caches)
   init_cache(cfg, batch, max_len, flags, ..., pages=None) -> caches
+  zero_cache(caches)                          -> caches (in place)
   truncate_cache(cfg, caches, length)         -> caches (in place)
 
 Parameters are nested dicts of tensors, one dict per group in
@@ -73,11 +74,11 @@ def decode_step(params, cfg: ArchConfig, flags: RunFlags, tokens, caches,
                 active=None):
     """tokens: (B, 1).  Returns (logits (B, 1, V), caches).
 
-    active: optional continuous-batching slot mask: a (B,) bool mask, or
-    a ``models.attention.Active`` holding it and the indices of its rows
-    (a bare mask costs a host sync to find them).  An inactive row writes
-    nothing, keeps its ``pos`` and attends nothing (its logits are
-    garbage and must be ignored)."""
+    active: optional continuous-batching slot mask: a (B,) bool mask
+    (fixed shapes, no host sync: the form a CUDA graph captures), or a
+    ``models.attention.Active`` that may also hold the indices of its
+    rows.  An inactive row lands no write, keeps its ``pos`` and attends
+    nothing (its logits are garbage and must be ignored)."""
     if flags.mode != "decode":
         raise ValueError("decode_step needs RunFlags(mode='decode')")
     return forward(params, cfg, flags, tokens, caches,
@@ -128,6 +129,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, flags: RunFlags,
         for _ in range(B.n_groups(cfg))]}
 
 
+def zero_cache(caches) -> Dict[str, Any]:
+    """Zero every leaf of a cache in place: the state ``init_cache`` makes
+    (fp8 leaves through their bytes)."""
+    for group in caches["groups"]:
+        for sub in group.values():
+            for t in sub["attn"].values():
+                raw(t).zero_()
+    return caches
+
+
 # per-token cache leaves (and their quantization scales), masked past the
 # true length
 _ROW_KEYS = ("k", "v", "kt", "k_s", "v_s", "kt_s")
@@ -155,7 +166,7 @@ def truncate_cache(cfg: ArchConfig, caches, length) -> Dict[str, Any]:
                     t = raw(c[name])
                     t.mul_(keep.reshape(b, s, *([1] * (t.dim() - 2))).to(
                         t.dtype))
-            c["pos"] = ln.clone()
+            c["pos"].copy_(ln)
             if "ktb" in c:
                 _rebuild_ktb(cfg, c)
     return caches

@@ -700,3 +700,144 @@ def test_cuda_k7_refuses_heads_off_16_columns(cuda_device):
     u = torch.zeros((2, 40), device=cuda_device)
     with pytest.raises(ValueError, match="a multiple of 16"):
         K7.wkv6_chunked(x, x, x, x, u)
+
+
+# -- the decode step as a CUDA graph (inference/graphs.py) ----------------------
+
+GRAPH_MAX_LEN = 96
+DSA_KW = dict(long_context=True, dsa_mode="kernel")
+QUANT_KW = {None: {}, "int8": dict(kv_quant="int8", select_dtype="int8"),
+            "fp8": dict(kv_quant="fp8", select_dtype="int8")}
+
+
+def _model(arch, dev):
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models.transformer import init_model
+    cfg = reduced(get_config(arch))
+    return cfg, init_model(0, cfg, device=dev)
+
+
+def _decode_count(kv, paged=False):
+    """The decode kernel's counter: (wrapper, attribute)."""
+    fn = (K1.dsa_decode_paged_gather_attention if paged
+          else K1.dsa_decode_gather_attention)
+    return fn, "launches_quant" if kv else "launches"
+
+
+def _requests(vocab, greedy_mix=False):
+    import numpy as np
+    from repro_torch.inference.scheduler import Request
+    rng = np.random.default_rng(7)
+    shapes = [(48, 8), (21, 12), (65, 5), (30, 10), (17, 7)]
+    return [Request(rid, rng.integers(1, vocab - 4, size=(n,)).astype(
+        np.int32), m, greedy=not (greedy_mix and rid % 2), seed=3 * rid + 1,
+        temperature=(1.0, 0.7)[rid % 2]) for rid, (n, m) in enumerate(shapes)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kv", [("yi_6b", None), ("yi_6b", "fp8"),
+                                     ("yi_6b", "int8"), ("rwkv6_3b", None)],
+                         ids=["yi_6b", "yi_6b-fp8", "yi_6b-int8", "rwkv6_3b"])
+@pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "sampled"])
+def test_cuda_graph_scan_equals_eager_loop(cuda_device, arch, kv, greedy):
+    """The static engine's scan loop (one graph replay a step) gives the
+    python loop's tokens (eager steps) bit for bit, a ragged batch on
+    yi_6b; one capture, one replay a bucketed step, and the decode
+    kernel counted n_layers times a step on both loops."""
+    import numpy as np
+    from repro_torch.inference.engine import Engine
+    cfg, params = _model(arch, cuda_device)
+    kw = {} if cfg.rwkv else dict(DSA_KW, **QUANT_KW[kv])
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(1, cfg.vocab - 4, size=(2, 64)).astype(np.int32)
+    lengths = None if cfg.rwkv else np.array([64, 45], np.int32)
+    fn, attr = _decode_count(kv)
+    res = {}
+    for loop in ("scan", "python"):
+        eng = Engine(cfg, params, max_len=GRAPH_MAX_LEN, loop=loop, **kw)
+        before = getattr(fn, attr)
+        res[loop] = eng.generate(prompts, 10, greedy=greedy, seed=5,
+                                 lengths=lengths)
+        n = getattr(fn, attr) - before
+        r = res[loop]
+        assert n == (0 if cfg.rwkv else cfg.n_layers * r.decode_steps), loop
+        assert r.decode_dispatches == r.decode_steps
+        if loop == "scan":
+            assert eng.graphs.captures == 1
+            assert eng.graphs.replays == r.decode_steps == 16
+    np.testing.assert_array_equal(res["scan"].tokens, res["python"].tokens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["f32", "int8"])
+def test_cuda_graph_segments_equal_solo_eager_generate(cuda_device, kv):
+    """Paged continuous serving (every decode step a replay of the masked
+    step's graph) gives each request, greedy or sampled, the tokens of a
+    solo eager ``generate(loop="python")``; with int8 K/V through blocking
+    admission (chunked admission attends a chunk's own rows quantized).
+    One capture; one replay and n_layers K4 (K4q) launches a step."""
+    import numpy as np
+    from repro_torch.inference.engine import Engine
+    from repro_torch.inference.scheduler import ContinuousEngine
+    cfg, params = _model("yi_6b", cuda_device)
+    kw = dict(DSA_KW, max_len=GRAPH_MAX_LEN, **QUANT_KW[kv])
+    reqs = _requests(cfg.vocab, greedy_mix=True)
+    eng = ContinuousEngine(cfg, params, slots=2, seg_len=4, paged=True,
+                           chunked_prefill=None if kv is None else False,
+                           **kw)
+    fn, attr = _decode_count(kv, paged=True)
+    before = getattr(fn, attr)
+    got = eng.run(reqs)
+    steps = eng.stats["decode_steps"]
+    assert getattr(fn, attr) - before == cfg.n_layers * steps > 0
+    assert eng.graphs.captures == 1 and eng.graphs.replays == steps
+    solo = Engine(cfg, params, loop="python", **kw)
+    for r in reqs:
+        want = solo.generate(r.prompt[None], r.n_new, greedy=r.greedy,
+                             seed=r.seed, temperature=r.temperature).tokens[0]
+        np.testing.assert_array_equal(got[r.rid], want, err_msg=str(r.rid))
+
+
+@pytest.mark.cuda
+def test_cuda_graph_one_capture_per_key_and_recapture_after_reset(
+        cuda_device, monkeypatch):
+    """Two workloads through one continuous engine capture once; once a
+    graph exists no step runs eagerly (decode_step made to raise); reset
+    drops the graphs and the next segment captures again, to the same
+    tokens; warmup captures, so serving after it captures nothing.  The
+    static engine captures once per batch size."""
+    import numpy as np
+    from repro_torch.inference import engine as TE
+    from repro_torch.inference import scheduler as TS
+    cfg, params = _model("yi_6b", cuda_device)
+    kw = dict(DSA_KW, max_len=GRAPH_MAX_LEN)
+    reqs = _requests(cfg.vocab)
+    eng = TS.ContinuousEngine(cfg, params, slots=2, seg_len=4, paged=True,
+                              **kw)
+    first = eng.run(reqs[:3])
+    with monkeypatch.context() as m:
+        m.setattr(TS, "decode_step", None)
+        eng.run(reqs[3:])
+    assert eng.graphs.captures == 1
+    eng.reset()
+    assert not eng.graphs.graphs
+    again = eng.run(reqs[:3])
+    assert eng.graphs.captures == 2
+    for rid, toks in first.items():
+        np.testing.assert_array_equal(again[rid], toks)
+    eng.warmup([len(r.prompt) for r in reqs])
+    n = eng.graphs.captures
+    eng.run(reqs)
+    assert eng.graphs.captures == n
+
+    static = TE.Engine(cfg, params, **kw)
+    prompts = np.random.default_rng(2).integers(
+        1, cfg.vocab - 4, size=(2, 48)).astype(np.int32)
+    a = static.generate(prompts, 6).tokens
+    with monkeypatch.context() as m:
+        m.setattr(TE, "decode_step", None)
+        b = static.generate(prompts, 6).tokens
+    assert static.graphs.captures == 1
+    np.testing.assert_array_equal(a, b)
+    static.generate(prompts[:1], 6)
+    assert static.graphs.captures == 2
