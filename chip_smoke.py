@@ -15,7 +15,11 @@ fails:
      versions on the same inputs, at a reduced geometry (hd 16, block 16,
      f32; K2 also bf16) and at yi_6b's full geometry (K1/K4 bf16 q against
      a bf16 and the default f32 cache, and f32; K2 bf16 and f32, and bf16
-     at stablelm_3b's width, hd 80 with 32 KV heads; K3 every dtype pair;
+     at stablelm_3b's width, hd 80 with 32 KV heads, and on its
+     sliding-window path at h2o_danube_1_8b's reduced geometry (window 64
+     at block 16, f32 and bf16), its f32 parity run's and its prefill's
+     (B 4, L 8192, hd 80, G 4, window 4096, 6 blocks kept, bf16, timed);
+     K3 every dtype pair;
      K4 also at the continuous slice's shape: 64 logical
      blocks, a 257-page pool, 9 blocks selected), each within a stated
      atol + rtol, with times (CUDA events, L2 flushed before each launch),
@@ -81,7 +85,21 @@ fails:
      exactly once per layer in prefill and no attention kernel; a
      torch.profiler trace of its prefill and decode steps; and one timed
      prefill of 4 x 4095 tokens, a length that takes the token scan and
-     not K7.
+     not K7;
+ 10. faithful DSA (the paper's token granularity, no kernel): a 2-layer
+     full-width yi_6b in f32 serves the same greedy tokens on the card as
+     on the CPU, full precision and with fp8 K/V and int8 selection; the
+     graphed scan loop equals the eager one and the paged continuous
+     engine's segments equal solo eager generates, bit for bit; then the
+     full-width slice (32 layers, bf16, batch 4, prompt 4096, 64 new
+     tokens) with no kernel launched, and its profile;
+ 11. sliding window: a 2-layer full-width h2o_danube_1_8b in f32 on
+     prompts of 4352 tokens (the 4096-row ring wraps at prefill and in
+     decode): DSA off card == CPU, kernel (K2 with the window) == block,
+     graphed == eager; then the full-width slice (24 layers, bf16, batch
+     4, prompt 8192, 64 new tokens, DSA kernel path): K2 once per layer
+     in prefill, no decode kernel, the ring's bytes per batch row, and
+     its profile.
 
 It then prints one JSON line of per-kernel results, the card's name and
 power limit again as ``nvidia-smi`` gives them, and as its last line
@@ -302,7 +320,9 @@ def check_k1(torch, timer, *, b, hq, hkv, hd, s, bk, q_dt, c_dt, kv_len,
 
 
 def check_k2(torch, timer, *, b, hq, hkv, hd, l, blk, nb, dtype, seed,
-             timed):
+             timed, window=0):
+    """K2 against its plain version on the model's selection (with
+    ``window``: the sliding-window selection and mask of an SWA arch)."""
     from repro_torch.core.masks import block_topk_indices
     from repro_torch.kernels import dsa_attention as K2
     dev = torch.device("cuda")
@@ -315,28 +335,34 @@ def check_k2(torch, timer, *, b, hq, hkv, hd, l, blk, nb, dtype, seed,
     q, k, v = rnd(b, hq, l, hd), rnd(b, hkv, l, hd), rnd(b, hkv, l, hd)
     n = l // blk
     idx, ok = block_topk_indices(
-        torch.randn((b, n, n), generator=gen, device=dev), nb)
-    kw = dict(block_q=blk, block_k=blk, causal=True)
+        torch.randn((b, n, n), generator=gen, device=dev), nb,
+        window_blocks=window // blk)
+    kw = dict(block_q=blk, block_k=blk, causal=True, window=window)
     got = K2.dsa_block_sparse_attention(q, k, v, idx, ok, **kw)
     want = K2.dsa_block_sparse_attention_plain(q, k, v, idx, ok, **kw)
     torch.cuda.synchronize()
     res = dict(geometry=f"B{b} Hq{hq} Hkv{hkv} hd{hd} L{l} block{blk} "
-                        f"nb{nb} {dtype}",
+                        f"nb{nb}{f' window{window}' if window else ''} "
+                        f"{dtype}",
                **compare(torch, got, want, dtype))
     if not res["ok"]:
         fail(f"K2 disagrees with its plain version: {res}")
     if not timed:
         return res
-    # the work this call's selection needs: live causal (query, key) pairs
-    # in the valid visited blocks; distinct selected K/V blocks read once
-    qb = torch.arange(n, device=dev)[None, :, None]
+    # the work this call's selection needs: the live (query, key) pairs of
+    # the valid visited blocks, causal and inside the window; the distinct
+    # K/V blocks holding a live pair, read once
     kb = idx.long()
-    full = (kb < qb) & ok
-    diag = (kb == qb) & ok
-    pairs = int(full.sum()) * blk * blk + int(diag.sum()) * blk * (blk + 1) // 2
+    qpos = torch.arange(l, device=dev).reshape(1, n, 1, blk)
+    k_lo = kb[..., None] * blk                            # (B, nQb, nb, 1)
+    lo = torch.maximum(k_lo, qpos - window + 1) if window else k_lo
+    hi = torch.minimum(k_lo + blk - 1, qpos)
+    per = ((hi - lo + 1).clamp(min=0) * ok[..., None]).sum(-1)  # (B,nQb,nb)
+    pairs = int(per.sum())
+    live = per > 0
     used = torch.zeros((b, n), dtype=torch.bool, device=dev)
-    used[torch.arange(b, device=dev)[:, None, None].expand_as(kb)[ok],
-         kb[ok]] = True
+    used[torch.arange(b, device=dev)[:, None, None].expand_as(kb)[live],
+         kb[live]] = True
     el = q.element_size()
     nbytes = (2 * q.numel() * el + 2 * int(used.sum()) * hkv * blk * hd * el
               + 2 * idx.numel() * 4)
@@ -355,6 +381,9 @@ def check_k2(torch, timer, *, b, hq, hkv, hd, l, blk, nb, dtype, seed,
              & ok[..., None]).any(dim=-2)
     tmask = bmask.repeat_interleave(blk, 1).repeat_interleave(blk, 2)
     tmask &= torch.ones((l, l), dtype=torch.bool, device=dev).tril()
+    if window:
+        tmask &= ~torch.ones((l, l), dtype=torch.bool,
+                             device=dev).tril(-window)
     mask = tmask[:, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     res["library_max_abs_err"] = float(
@@ -832,51 +861,6 @@ def continuous_parity(torch, cfg, params, seed: int, lens=(700, 1100, 512,
     return {"continuous_same_tokens": same, "pool_full": full}
 
 
-def slice_phase(torch, seed: int, quant=None) -> dict:
-    """The main path: serve yi_6b at full width through the kernels.
-    ``quant`` ("fp8"): a quantized K/V cache and int8 selection, 32 new
-    tokens; decode then runs K1q where it ran K1."""
-    from repro_torch.configs.base import get_config
-    from repro_torch.launch import serve
-    n_layers = get_config("yi_6b").n_layers
-    n_new = 32 if quant else 64
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated() / 2**30
-    serve.reset_launch_counts()
-    res = serve.main(["--arch", "yi_6b", "--batch", "4", "--prompt-len",
-                      "4096", "--new-tokens", str(n_new), "--dsa",
-                      "--dsa-mode", "kernel", "--seed", str(seed)]
-                     + (["--kv-quant", quant, "--select-dtype", "int8"]
-                        if quant else []))
-    n = serve.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    vocab = get_config("yi_6b").vocab
-    dec = "K1q" if quant else "K1"
-    print(f"slice{f' ({quant} K/V, int8 selection)' if quant else ''}: "
-          f"prefill {res.prefill_s * 1e3:.1f} ms, decode "
-          f"{res.tokens_per_s:.1f} tok/s over {res.decode_steps} steps, "
-          f"peak memory {peak:.2f} GiB ({held:.2f} held at its start), "
-          f"launches " + " ".join(f"{k} {v}" for k, v in n.items()))
-    if n["K2"] != n_layers:
-        fail(f"K2 launched {n['K2']} times in prefill, expected {n_layers}")
-    if n[dec] != n_layers * res.decode_steps or n[dec] == 0:
-        fail(f"{dec} launched {n[dec]} times, expected {n_layers} x "
-             f"{res.decode_steps}")
-    others = {k: v for k, v in n.items() if k not in ("K2", dec) and v}
-    if others:
-        fail(f"the static slice launched other kernels: {others}")
-    if res.decode_dispatches != res.decode_steps:
-        fail(f"{res.decode_dispatches} graph replays for "
-             f"{res.decode_steps} decode steps")
-    tok = res.tokens
-    if tok.shape != (4, n_new) or tok.min() < 0 or tok.max() >= vocab:
-        fail(f"bad tokens: shape {tok.shape}, range {tok.min()}..{tok.max()}")
-    return {"prefill_ms": res.prefill_s * 1e3,
-            "decode_tok_s": res.tokens_per_s, "decode_s": res.decode_s,
-            "decode_steps": res.decode_steps, "peak_gib": peak,
-            "launches": n}
-
-
 def continuous_phase(torch, seed: int, quant=None) -> dict:
     """The second path: serve yi_6b at full width through the continuous
     engine, chunked admission (K3) and a paged cache (K4).  ``quant``
@@ -1039,23 +1023,25 @@ def _print_profile(label: str, wall_ms: float, busy_ms: float,
 
 
 def profile_phase(torch, seed: int, steps: int = 8, traced: int = 2,
-                  arch: str = "yi_6b") -> dict:
+                  arch: str = "yi_6b", dsa_mode: str = "kernel",
+                  prompt_len: int = 4096) -> dict:
     """Where a static slice's time goes: host wall time of one prefill and
     of one decode step against the device time a torch.profiler trace
     sees, and the kernels that take most of it.  ``arch`` at full width,
-    bf16, batch 4, prompt 4096; yi_6b with DSA on the kernel path."""
+    bf16, batch 4, ``prompt_len`` tokens; DSA archs on ``dsa_mode``."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import get_config
     from repro_torch.inference.engine import Engine
     from repro_torch.models.transformer import init_model
     cfg = get_config(arch)
-    dsa = (dict(long_context=True, dsa_mode="kernel") if cfg.dsa.enabled
+    dsa = (dict(long_context=True, dsa_mode=dsa_mode) if cfg.dsa.enabled
            else {})
     torch.cuda.reset_peak_memory_stats()
-    eng = Engine(cfg, init_model(seed, cfg), max_len=4096 + 64 + 16, **dsa)
+    eng = Engine(cfg, init_model(seed, cfg), max_len=prompt_len + 64 + 16,
+                 **dsa)
     prompts = np.random.default_rng(seed).integers(
-        1, cfg.vocab - 4, size=(4, 4096)).astype(np.int32)
+        1, cfg.vocab - 4, size=(4, prompt_len)).astype(np.int32)
     acts = [ProfilerActivity.CUDA]
 
     def run(tok, steps=steps):
@@ -1087,8 +1073,9 @@ def profile_phase(torch, seed: int, steps: int = 8, traced: int = 2,
             tok = run(tok, traced)
             torch.cuda.synchronize()
         dec = _device_time(prof, "decode", traced)
-    _print_profile(f"{arch} prefill", prefill_s * 1e3, *pre)
-    _print_profile(f"{arch} decode step (graph replay)", step_ms, *dec)
+    label = arch if dsa_mode == "kernel" or not dsa else f"{arch} {dsa_mode}"
+    _print_profile(f"{label} prefill", prefill_s * 1e3, *pre)
+    _print_profile(f"{label} decode step (graph replay)", step_ms, *dec)
     print(f"  decode graph: capture {step.capture_ms:.1f} ms, graph pool "
           f"{step.pool_bytes} bytes, {event_ms:.3f} ms a step between CUDA "
           f"events, peak memory "
@@ -1127,6 +1114,15 @@ def unaligned_prefill(torch, eng, prompts, aligned_ms: float) -> float:
     return sec * 1e3
 
 
+def to_cpu(t):
+    """A copy of a parameter tree on the CPU."""
+    if isinstance(t, dict):
+        return {k: to_cpu(v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [to_cpu(v) for v in t]
+    return t.cpu()
+
+
 def rwkv_parity_phase(torch, seed: int) -> dict:
     """rwkv6_3b at full width, 2 layers, f32: greedy tokens on the card
     (prefill through K7) equal those of the same weights on the CPU (the
@@ -1155,13 +1151,6 @@ def rwkv_parity_phase(torch, seed: int) -> dict:
           f"{scan.graphs.captures} capture, {scan.graphs.replays} replays")
     if not graphed:
         fail("rwkv6_3b: the graphed scan loop and the eager loop disagree")
-    def to_cpu(t):
-        if isinstance(t, dict):
-            return {k: to_cpu(v) for k, v in t.items()}
-        if isinstance(t, list):
-            return [to_cpu(v) for v in t]
-        return t.cpu()
-
     cpu_params = to_cpu(params)
     del params
     torch.cuda.empty_cache()
@@ -1180,44 +1169,207 @@ def rwkv_parity_phase(torch, seed: int) -> dict:
     return {"same_tokens": same, "graphed_same_tokens": graphed}
 
 
-def rwkv_slice_phase(torch, seed: int) -> dict:
-    """The fourth path: serve rwkv6_3b at full width through K7."""
+def faithful_parity_phase(torch, seed: int, n_new: int = 16) -> dict:
+    """yi_6b at full width, 2 layers, f32, dsa_mode="faithful" (the token
+    top-k of prefill and decode, no kernel): greedy tokens on the card
+    equal those on the CPU, full precision and with fp8 K/V and int8
+    selection, prompt 512; the card's graphed scan loop gives its python
+    loop's tokens bit for bit; and the paged continuous engine's graphed
+    segments (chunked admission) give the tokens of the same engine's
+    eager segments, greedy and sampled.  No kernel launches."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.inference.engine import Engine
+    from repro_torch.inference.scheduler import ContinuousEngine, Request
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_model
+    cfg = dataclasses.replace(get_config("yi_6b"), n_layers=2,
+                              dtype="float32", param_dtype="float32")
+    params = init_model(seed, cfg)
+    cpu_params = to_cpu(params)
+    prompts = np.random.default_rng(seed).integers(
+        1, cfg.vocab - 4, size=(2, 512)).astype(np.int32)
+    serve.reset_launch_counts()
+    out = {}
+    for quant in (None, "fp8"):
+        kw = dict(max_len=512 + 16 + 16, long_context=True,
+                  dsa_mode="faithful",
+                  **({} if quant is None else
+                     dict(kv_quant=quant, select_dtype="int8")))
+        scan = Engine(cfg, params, **kw)
+        card = scan.generate(prompts, n_new)
+        eager = Engine(cfg, params, loop="python", **kw).generate(prompts,
+                                                                  n_new)
+        cpu = Engine(cfg, cpu_params, device="cpu", **kw).generate(prompts,
+                                                                   n_new)
+        graphed = (bool((card.tokens == eager.tokens).all())
+                   and scan.graphs.captures == 1)
+        same = bool((card.tokens == cpu.tokens).all())
+        label = "f32" if quant is None else f"{quant} K/V, int8 selection"
+        print(f"parity: 2-layer full-width yi_6b faithful {label}, prompt "
+              f"512, {n_new} new: card == CPU greedy tokens: {same}; "
+              f"graph parity: scan (graph replays) == python (eager) "
+              f"tokens: {graphed}, {scan.graphs.captures} capture")
+        print(f"  card: {card.tokens[:, :8].tolist()}")
+        print(f"  cpu : {cpu.tokens[:, :8].tolist()}")
+        if not (same and graphed):
+            fail(f"faithful {label}: card == CPU {same}, graphed == eager "
+                 f"{graphed}")
+        out[label] = same
+    rng = np.random.default_rng(seed + 3)
+    reqs = [Request(i, rng.integers(1, cfg.vocab - 4, size=(n,)).astype(
+        np.int32), n_new, greedy=i % 2 == 0, seed=i, temperature=0.8)
+        for i, n in enumerate((700, 1100, 512, 900))]
+    kw = dict(max_len=2176, long_context=True, dsa_mode="faithful")
+    got = {}
+    for label in ("graphed", "eager"):
+        eng = ContinuousEngine(cfg, params, slots=4, seg_len=16,
+                               chunk_tokens=512, paged=True, **kw)
+        if label == "eager":
+            eng.graphs = None            # the same segments, step by step
+        got[label] = eng.run(reqs)
+        if label == "graphed":
+            g, steps = eng.graphs, eng.stats["decode_steps"]
+        del eng
+    same = all(bool((got["graphed"][r.rid] == got["eager"][r.rid]).all())
+               for r in reqs)
+    print(f"graph parity: continuous faithful paged (chunked admission), "
+          f"greedy and sampled: segments (graph replays) == the same "
+          f"segments eager, tokens: {same}; {g.captures} capture, "
+          f"{g.replays} replays for {steps} decode steps")
+    if not same or g.captures != 1 or g.replays != steps:
+        fail(f"faithful continuous graph parity: tokens equal {same}, "
+             f"{g.captures} captures, {g.replays} replays")
+    # not required: this engine's products have other shapes than solo
+    # generate's (chunks at admission, all slots in decode), the card's
+    # GEMMs round by shape, and a token top-k flips on the last bit
+    solo = Engine(cfg, params, loop="python", **kw)
+    first = {}
+    for r in reqs:
+        want = solo.generate(r.prompt[None], n_new, greedy=r.greedy,
+                             seed=r.seed, temperature=r.temperature).tokens[0]
+        diff = np.nonzero(got["graphed"][r.rid] != want)[0]
+        first[r.rid] = int(diff[0]) if diff.size else None
+    print(f"  (== solo python generate, not required: first differing "
+          f"token per request {first})")
+    out["continuous"] = same
+    n = {k: v for k, v in serve.launch_counts().items() if v}
+    if n:
+        fail(f"faithful decode and prefill launched kernels: {n}")
+    del solo, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def h2o_parity_phase(torch, seed: int, n_new: int = 16,
+                     prompt_len: int = 4352) -> dict:
+    """h2o_danube_1_8b at full width, 2 layers, f32, prompts of 4352
+    tokens: past the 4096-token window, so the ring wraps at prefill and
+    again in decode.  DSA off: the card's greedy tokens equal the CPU's.
+    DSA on the kernel path (K2 with the window, once a layer) equals the
+    plain block path on the card, and the graphed scan loop gives the
+    python loop's tokens bit for bit."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.inference.engine import Engine
+    from repro_torch.kernels.dsa_attention import dsa_block_sparse_attention
+    from repro_torch.models.transformer import init_model
+    cfg = dataclasses.replace(get_config("h2o_danube_1_8b"), n_layers=2,
+                              dtype="float32", param_dtype="float32")
+    params = init_model(seed, cfg)
+    prompts = np.random.default_rng(seed).integers(
+        1, cfg.vocab - 4, size=(2, prompt_len)).astype(np.int32)
+    max_len = prompt_len + n_new + 16
+    toks = {}
+    for name, kw in (("off", {}),
+                     ("block", dict(long_context=True, dsa_mode="block")),
+                     ("kernel", dict(long_context=True, dsa_mode="kernel"))):
+        before = dsa_block_sparse_attention.launches
+        eng = Engine(cfg, params, max_len=max_len, **kw)
+        toks[name] = eng.generate(prompts, n_new).tokens
+        k2 = dsa_block_sparse_attention.launches - before
+        if k2 != (cfg.n_layers if name == "kernel" else 0):
+            fail(f"h2o parity ({name}): K2 launched {k2} times")
+        if name == "kernel":
+            ring = eng.resident_cache(2)["groups"][0]["b0"]["attn"]["k"]
+            eager = Engine(cfg, params, max_len=max_len, loop="python",
+                           **kw).generate(prompts, n_new).tokens
+            graphed = (bool((toks[name] == eager).all())
+                       and eng.graphs.captures == 1)
+        del eng
+    cpu = Engine(cfg, to_cpu(params), max_len=max_len,
+                 device="cpu").generate(prompts, n_new).tokens
+    same_cpu = bool((toks["off"] == cpu).all())
+    same_k = bool((toks["kernel"] == toks["block"]).all())
+    print(f"parity: 2-layer full-width h2o_danube_1_8b f32, prompt "
+          f"{prompt_len} (ring of {ring.shape[1]} rows, wrapped at "
+          f"prefill and in decode), {n_new} new: DSA off card == CPU "
+          f"greedy tokens: {same_cpu}; kernel (K2 with window, "
+          f"{cfg.n_layers} launches) == block: {same_k}; graph parity, "
+          f"kernel path: scan (graph replays) == python (eager): "
+          f"{graphed}")
+    for k, t in list(toks.items()) + [("cpu off", cpu)]:
+        print(f"  {k:8s}: {t[:, :8].tolist()}")
+    if not (same_cpu and same_k and graphed):
+        fail("h2o_danube_1_8b parity failed")
+    del params
+    torch.cuda.empty_cache()
+    return {"card_cpu": same_cpu, "kernel_block": same_k,
+            "graphed": graphed}
+
+
+def static_slice(torch, seed: int, arch: str, dsa_mode: str, want,
+                 prompt_len: int = 4096, quant=None) -> dict:
+    """Serve ``arch`` at full width through ``repro_torch.launch.serve``:
+    all layers in bf16, batch 4, ``prompt_len`` tokens, 64 new (32 with
+    ``quant``: an fp8 K/V cache and int8 selection), DSA on ``dsa_mode``
+    (an arch without DSA falls back to off).  ``want(n_layers, steps)``
+    gives the launches each kernel must show; every other kernel must
+    show none."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import serve
     from repro_torch.models.attention import RunFlags
     from repro_torch.models.transformer import init_cache
-    cfg = get_config("rwkv6_3b")
+    cfg = get_config(arch)
+    n_new = 32 if quant else 64
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 2**30
     serve.reset_launch_counts()
-    res = serve.main(["--arch", "rwkv6_3b", "--batch", "4", "--prompt-len",
-                      "4096", "--new-tokens", "64", "--dsa", "--seed",
-                      str(seed)])
+    res = serve.main(["--arch", arch, "--batch", "4", "--prompt-len",
+                      str(prompt_len), "--new-tokens", str(n_new), "--dsa",
+                      "--dsa-mode", dsa_mode, "--seed", str(seed)]
+                     + (["--kv-quant", quant, "--select-dtype", "int8"]
+                        if quant else []))
     n = serve.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    row = serve.cache_bytes(init_cache(cfg, 1, 4096 + 64 + 16,
-                                       RunFlags(mode="decode"),
-                                       dtype=torch.float32, device="meta"))
-    print(f"rwkv6_3b slice: prefill {res.prefill_s * 1e3:.1f} ms, decode "
+    dsa = cfg.dsa.enabled
+    flags = RunFlags(mode="decode", long_context=dsa,
+                     kv_quant=quant if dsa else None,
+                     select_dtype="int8" if quant and dsa else "float32")
+    row = serve.cache_bytes(init_cache(cfg, 1, prompt_len + n_new + 16,
+                                       flags, dtype=torch.float32,
+                                       device="meta"))
+    label = (f"{arch} {dsa_mode if dsa else 'no DSA'}"
+             + (f", {quant} K/V, int8 selection" if quant else ""))
+    print(f"slice ({label}): prefill {res.prefill_s * 1e3:.1f} ms, decode "
           f"{res.tokens_per_s:.1f} tok/s over {res.decode_steps} steps, "
           f"peak memory {peak:.2f} GiB ({held:.2f} held at its start), "
-          f"state {row} bytes per batch row, "
-          f"launches " + " ".join(f"{k} {v}" for k, v in n.items()))
-    if n["K7"] != cfg.n_layers:
-        fail(f"K7 launched {n['K7']} times in the rwkv6_3b slice, expected "
-             f"{cfg.n_layers} (one per layer in prefill)")
+          f"cache {row} bytes per batch row, launches "
+          + " ".join(f"{k} {v}" for k, v in n.items()))
+    expect = want(cfg.n_layers, res.decode_steps)
+    bad = {k: v for k, v in n.items() if v != expect.get(k, 0)}
+    if bad:
+        fail(f"the slice ({label}) launched {bad}, expected {expect}")
     if res.decode_dispatches != res.decode_steps:
         fail(f"{res.decode_dispatches} graph replays for "
              f"{res.decode_steps} decode steps")
-    others = {k: v for k, v in n.items() if k != "K7" and v}
-    if others:
-        fail(f"the rwkv6_3b slice launched attention kernels: {others}")
     tok = res.tokens
-    if tok.shape != (4, 64) or tok.min() < 0 or tok.max() >= cfg.vocab:
+    if tok.shape != (4, n_new) or tok.min() < 0 or tok.max() >= cfg.vocab:
         fail(f"bad tokens: shape {tok.shape}, range {tok.min()}..{tok.max()}")
     return {"prefill_ms": res.prefill_s * 1e3,
-            "decode_tok_s": res.tokens_per_s, "decode_steps": res.decode_steps,
-            "peak_gib": peak, "state_bytes_per_row": row, "launches": n}
+            "decode_tok_s": res.tokens_per_s, "decode_s": res.decode_s,
+            "decode_steps": res.decode_steps, "peak_gib": peak,
+            "cache_bytes_per_row": row, "launches": n}
 
 
 def main() -> None:
@@ -1291,6 +1443,20 @@ def main() -> None:
         check_k2(torch, timer, b=1, hq=32, hkv=32, hd=80, l=4096, blk=128,
                  nb=3, dtype="bfloat16", seed=args.seed, timed=False),
     ]
+    # the sliding-window path: h2o_danube_1_8b's reduced geometry (window
+    # 64 at block 16) in both bodies, its f32 parity run's (hd 80, G 4,
+    # window 4096, L 4352) and its prefill's, timed (the kernels line's
+    # window entry)
+    k2w_checks = [
+        check_k2(torch, timer, b=2, hq=4, hkv=2, hd=16, l=256, blk=16, nb=2,
+                 window=64, dtype=dt, seed=args.seed, timed=False)
+        for dt in ("float32", "bfloat16")] + [
+        check_k2(torch, timer, b=1, hq=32, hkv=8, hd=80, l=4352, blk=128,
+                 nb=6, window=4096, dtype="float32", seed=args.seed,
+                 timed=False),
+        check_k2(torch, timer, b=4, hq=32, hkv=8, hd=80, l=8192, blk=128,
+                 nb=6, window=4096, dtype="bfloat16", seed=args.seed,
+                 timed=True)]
     k3_checks = [
         check_k3(torch, timer, b=2, hq=8, hkv=2, hd=16, s=100, c=32, blk=16,
                  q_dt="float32", c_dt="float32", q_off=[64, 32],
@@ -1369,6 +1535,7 @@ def main() -> None:
                      timed=True, quant=quant, paged=True)]
     for name, checks in [("K1 dsa_decode", k1_checks),
                          ("K2 dsa_attention", k2_checks),
+                         ("K2 dsa_attention (window)", k2w_checks),
                          ("K3 dsa_chunk_prefill", k3_checks),
                          ("K4 dsa_decode_paged", k4_checks)] + [
             (f"{k} {q or ''}".strip(), v) for (k, q), v in q_checks.items()]:
@@ -1424,21 +1591,45 @@ def main() -> None:
 
     # each path: its launch counts set to 0 just before it, read just after
     parity_phase(torch, args.seed)
-    launches = {"static": slice_phase(torch, args.seed)["launches"]}
+    # yi_6b: K2 once a layer in prefill, K1 (K1q) once a layer a step
+    launches = {"static": static_slice(
+        torch, args.seed, "yi_6b", "kernel",
+        lambda n, steps: {"K2": n, "K1": n * steps})["launches"]}
     torch.cuda.empty_cache()
     launches["continuous"] = continuous_phase(torch, args.seed)["launches"]
     torch.cuda.empty_cache()
-    launches["quant static"] = slice_phase(torch, args.seed,
-                                           quant="fp8")["launches"]
+    launches["quant static"] = static_slice(
+        torch, args.seed, "yi_6b", "kernel",
+        lambda n, steps: {"K2": n, "K1q": n * steps},
+        quant="fp8")["launches"]
     torch.cuda.empty_cache()
     launches["quant continuous"] = continuous_phase(
         torch, args.seed, quant="int8")["launches"]
     torch.cuda.empty_cache()
     profile_phase(torch, args.seed)
     rwkv_parity_phase(torch, args.seed)
-    launches["rwkv"] = rwkv_slice_phase(torch, args.seed)["launches"]
+    # rwkv6_3b: K7 once a layer in prefill, no attention kernel
+    launches["rwkv"] = static_slice(
+        torch, args.seed, "rwkv6_3b", "kernel",
+        lambda n, steps: {"K7": n})["launches"]
     torch.cuda.empty_cache()
     profile_phase(torch, args.seed, arch="rwkv6_3b")
+    faithful_parity_phase(torch, args.seed)
+    h2o_parity_phase(torch, args.seed)
+    # yi_6b faithful: the token path in prefill and a token top-k a decode
+    # step, no kernel at all
+    launches["faithful"] = static_slice(
+        torch, args.seed, "yi_6b", "faithful",
+        lambda n, steps: {})["launches"]
+    torch.cuda.empty_cache()
+    profile_phase(torch, args.seed, dsa_mode="faithful")
+    # h2o: K2 with the 4096-token window once a layer in prefill; decode
+    # attends the ring with no kernel (an SWA cache has no kt)
+    launches["h2o"] = static_slice(
+        torch, args.seed, "h2o_danube_1_8b", "kernel",
+        lambda n, steps: {"K2": n}, prompt_len=8192)["launches"]
+    torch.cuda.empty_cache()
+    profile_phase(torch, args.seed, arch="h2o_danube_1_8b", prompt_len=8192)
 
     src = "src/repro_torch/kernels/csrc/"
     rep = "src/repro/kernels/"
@@ -1450,6 +1641,10 @@ def main() -> None:
             ("dsa_block_sparse_attention", "dsa_attention.cu",
              "dsa_attention.py:77", k2_checks[2], k2_checks,
              launches["static"]["K2"]),
+            # K2's sliding-window path at h2o_danube_1_8b's prefill
+            ("dsa_block_sparse_attention (window)", "dsa_attention.cu",
+             "dsa_attention.py:77", k2w_checks[-1], k2w_checks,
+             launches["h2o"]["K2"]),
             ("dsa_decode_gather_attention", "dsa_decode.cu",
              "dsa_decode.py:185", k1_checks[2], k1_checks,
              launches["static"]["K1"]),

@@ -1,5 +1,5 @@
-"""Architecture configuration (the port's own copy of the dense-GQA and
-RWKV6 subset).
+"""Architecture configuration (the port's own copy of the dense-GQA,
+sliding-window and RWKV6 subset).
 
 Each architecture is an ``ArchConfig`` in its own module
 (``repro_torch/configs/<id>.py``) exposing ``CONFIG``.  ``get_config(name)``
@@ -65,7 +65,8 @@ class ArchConfig:
         return self.head_dim or self.d_model // self.n_heads
 
 
-ARCH_IDS = ("yi_6b", "stablelm_3b", "qwen1_5_110b", "rwkv6_3b")
+ARCH_IDS = ("yi_6b", "stablelm_3b", "qwen1_5_110b", "h2o_danube_1_8b",
+            "rwkv6_3b")
 
 
 def get_config(name: str) -> ArchConfig:

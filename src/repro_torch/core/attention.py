@@ -9,6 +9,9 @@ Hq % Hkv == 0 (GQA).
   dsa_sparse_attention        visits only the predicted key blocks; the
                               plain twin of kernels.dsa_attention (K2).
   decode_attention            dense decode over the whole cache.
+  dsa_decode_attention        token-granularity DSA decode: top-k cache
+                              rows by predicted score + the trailing
+                              window, gathered (the paper's decode).
   dsa_decode_block_attention  block-gather decode over the selected cache
                               blocks; the plain twin of kernels.dsa_decode
                               (K1).
@@ -175,18 +178,60 @@ def dsa_sparse_attention(q, k, v, idx, idx_valid, *, block_q: int,
 
 
 def decode_attention(q, k_cache, v_cache, *,
-                     kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     kv_len: Optional[torch.Tensor] = None,
+                     window: int = 0) -> torch.Tensor:
     """Single-step decode: q (B, 1, Hq, hd) vs cache (B, S, Hkv, hd).
-    kv_len: (B,) valid cache length (current position + 1)."""
+    kv_len: (B,) valid cache length (current position + 1).  ``window``
+    (with kv_len) keeps only the last ``window`` slots below kv_len: a
+    SLOT-positional mask, right only while slot order is token order (a
+    cache larger than the window, before it wraps)."""
     b = q.shape[0]
     s_len = k_cache.shape[1]
     s = _gqa_scores(q, k_cache)                   # (B,Hkv,G,1,S)
+    kj = torch.arange(s_len, device=q.device)[None, :]
     m = torch.ones((b, s_len), dtype=torch.bool, device=q.device)
     if kv_len is not None:
-        m &= torch.arange(s_len, device=q.device)[None, :] < kv_len[:, None]
+        m &= kj < kv_len[:, None]
+        if window:
+            m &= kj >= kv_len[:, None] - window
     s = torch.where(m[:, None, None, None], s, NEG)
     p = _softmax_f32(s)
     return _gqa_out(p.to(v_cache.dtype), v_cache)
+
+
+def dsa_decode_attention(q, k_cache, v_cache, scores_tilde, *, keep: int,
+                         kv_len: Optional[torch.Tensor] = None,
+                         local: int = 64) -> torch.Tensor:
+    """Token-granularity DSA decode: the top-``keep`` cache rows by
+    predicted score plus the trailing ``local`` rows, gathered, then
+    attended.  scores_tilde: (B, S) predicted scores of the step's query
+    against the predicted-key cache; a static keep + local rows are
+    gathered, those past kv_len masked.
+
+    The selection sorts stably in descending order, so ties go to the
+    lower index, as ``lax.top_k``'s do: the gathered rows and their order
+    are the reference's."""
+    b = q.shape[0]
+    s_len = k_cache.shape[1]
+    kj = torch.arange(s_len, device=q.device)[None, :]
+    if kv_len is None:
+        valid = torch.ones((b, s_len), dtype=torch.bool, device=q.device)
+        recent = valid
+    else:
+        valid = kj < kv_len[:, None]
+        recent = (kj >= kv_len[:, None] - local) & valid
+    st = torch.where(valid & ~recent, scores_tilde.float(),
+                     torch.where(recent, float("inf"), NEG))
+    n_keep = min(keep + local, s_len)
+    idx = torch.sort(st, dim=-1, descending=True,
+                     stable=True).indices[:, :n_keep]          # (B, n_keep)
+    ok = torch.gather(valid, 1, idx)
+    ks = torch.take_along_dim(k_cache, idx[:, :, None, None], dim=1)
+    vs = torch.take_along_dim(v_cache, idx[:, :, None, None], dim=1)
+    s = _gqa_scores(q, ks)                        # (B,Hkv,G,1,n_keep)
+    s = torch.where(ok[:, None, None, None], s, NEG)
+    p = _softmax_f32(s)
+    return _gqa_out(p.to(v_cache.dtype), vs)
 
 
 def dsa_decode_block_attention(q, k_cache, v_cache, idx, idx_valid, *,

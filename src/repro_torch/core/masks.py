@@ -1,7 +1,9 @@
-"""Sparse-pattern construction (paper §3.1, §5.2).
+"""Sparse-pattern construction (paper §3.1, §5.1, §5.2).
 
-Token-granularity row top-k masks (the paper's fine-grained pattern) and
-the block index lists the block-sparse kernels walk.  Row-uniform top-k
+Token-granularity row top-k and threshold masks (the paper's fine-grained
+patterns), 1xR column-vector structured masks (paper Table 4 / Fig 9),
+the block index lists the block-sparse kernels walk, and the oracle and
+metrics of the paper's analysis (Table 1, Fig 4-6).  Row-uniform top-k
 (the same count for every query row) is the paper's §5.2 load-balance
 constraint; it is also what gives the kernels a static shape.
 
@@ -32,6 +34,32 @@ def row_topk_mask(scores: torch.Tensor, keep: int,
     s = scores if valid is None else torch.where(valid, scores, NEG)
     kth = torch.topk(s, keep, dim=-1).values[..., -1:]
     mask = s >= kth
+    if valid is not None:
+        mask = mask & valid
+    return mask
+
+
+def threshold_mask(weights: torch.Tensor, theta: float,
+                   valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Paper Table 1 oracle: drop attention WEIGHTS (post-softmax) below
+    theta."""
+    mask = weights >= theta
+    if valid is not None:
+        mask = mask & valid
+    return mask
+
+
+def vector_mask(scores: torch.Tensor, rows_per_vec: int, keep_vecs: int,
+                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """1xR column-vector structured mask (paper Fig 9): prune at the
+    granularity of R consecutive ROWS sharing one column."""
+    *lead, lq, lk = scores.shape
+    if lq % rows_per_vec:
+        raise ValueError(f"{lq} rows are not a multiple of {rows_per_vec}")
+    s = scores if valid is None else torch.where(valid, scores, NEG)
+    g = s.reshape(*lead, lq // rows_per_vec, rows_per_vec, lk).amax(dim=-2)
+    mask = row_topk_mask(g, keep_vecs).repeat_interleave(rows_per_vec,
+                                                         dim=-2)
     if valid is not None:
         mask = mask & valid
     return mask
@@ -162,3 +190,41 @@ def dequant_topk_scores(s_int: torch.Tensor, scale: torch.Tensor, *,
     point where the int8 path returns to float."""
     s = s_int.float() * scale
     return s / block_k if block_k != 1 else s
+
+
+def block_mask_from_indices(idx: torch.Tensor, valid: torch.Tensor,
+                            n_kb: int) -> torch.Tensor:
+    """Dense (B, nQb, nKb) boolean block mask of a block index list."""
+    onehot = torch.nn.functional.one_hot(idx.long(), n_kb).bool()
+    return (onehot & valid[..., None]).any(dim=-2)
+
+
+def expand_block_mask(bmask: torch.Tensor, block_q: int, block_k: int
+                      ) -> torch.Tensor:
+    """(B, nQb, nKb) block mask -> (B, Lq, Lk) token mask."""
+    return bmask.repeat_interleave(block_q, dim=-2).repeat_interleave(
+        block_k, dim=-1)
+
+
+# -- oracle and metrics (paper Table 1, Fig 4/5/6) ----------------------------
+
+
+def oracle_topk_mask(attn_weights: torch.Tensor, keep: int,
+                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Top-k over the TRUE attention weights: the paper's oracle
+    pattern."""
+    return row_topk_mask(attn_weights, keep, valid)
+
+
+def prediction_accuracy(pred_mask: torch.Tensor, oracle_mask: torch.Tensor
+                        ) -> torch.Tensor:
+    """Fraction of predicted-kept positions that are oracle-kept (paper
+    §4.3's prediction accuracy)."""
+    hit = (pred_mask & oracle_mask).sum()
+    return hit / pred_mask.sum().clamp(min=1)
+
+
+def attention_sparsity(weights: torch.Tensor, theta: float) -> torch.Tensor:
+    """Fraction of attention weights below theta (paper Table 1
+    sparsity)."""
+    return (weights < theta).float().mean()

@@ -7,9 +7,11 @@ sqrt(3/k) * {-1, 0, +1} with probabilities {1/6, 2/3, 1/6}, shared by the
 query and key branches; W~q, W~k are k x k; all three GEMMs run on
 fake-quantized values.  One S~ per layer, shared across heads.
 
-``predict_block_scores`` (pooled) mean-pools Q~ over each query block and
-max-pools the scores over each key block: block-level scores without the
-token-level S~.
+``predict_block_scores`` (pooled, the default) mean-pools Q~ over each
+query block and max-pools the scores over each key block: block-level
+scores without the token-level S~.  ``pooled=False`` is the
+paper-faithful form: the full S~, max-pooled (``pool_block_scores``).
+``mse_loss`` is the paper's Eq. 6 training term.
 """
 from __future__ import annotations
 
@@ -80,10 +82,27 @@ def predict_scores(params, x_q, x_kv=None, *, bits: int = 4) -> torch.Tensor:
     return einsum("bqk,bsk->bqs", q_t, k_t)
 
 
+def pool_block_scores(s_tilde: torch.Tensor, block_q: int,
+                      block_k: int) -> torch.Tensor:
+    """Max-pool token scores S~ (B, Lq, Lk) to (B, nQb, nKb) block
+    scores."""
+    b, lq, lk = s_tilde.shape
+    if lq % block_q or lk % block_k:
+        raise ValueError(f"lengths ({lq}, {lk}) are not multiples of the "
+                         f"blocks ({block_q}, {block_k})")
+    s = s_tilde.reshape(b, lq // block_q, block_q, lk // block_k, block_k)
+    return s.amax(dim=(2, 4))
+
+
 def predict_block_scores(params, x_q, x_kv=None, *, bits: int = 4,
-                         block_q: int = 128,
-                         block_k: int = 128) -> torch.Tensor:
-    """Pooled block-granularity approximate scores (B, nQb, nKb)."""
+                         block_q: int = 128, block_k: int = 128,
+                         pooled: bool = True) -> torch.Tensor:
+    """Block-granularity approximate scores (B, nQb, nKb): pooled (Q~
+    mean-pooled over each query block before the score product) or, with
+    ``pooled=False``, the full S~ max-pooled."""
+    if not pooled:
+        return pool_block_scores(
+            predict_scores(params, x_q, x_kv, bits=bits), block_q, block_k)
     q_t, k_t = predict_qk(params, x_q, x_kv, bits)
     b, lq, k = q_t.shape
     lk = k_t.shape[1]
@@ -94,3 +113,9 @@ def predict_block_scores(params, x_q, x_kv=None, *, bits: int = 4,
     s = einsum("bqk,bsk->bqs", q_blk, k_t)               # (B, nQb, Lk)
     s = s.reshape(b, lq // block_q, lk // block_k, block_k)
     return s.amax(dim=-1)
+
+
+def mse_loss(s: torch.Tensor, s_tilde: torch.Tensor) -> torch.Tensor:
+    """Paper Eq. 6: the mean squared error between S and S~, in f32 (a
+    mean over every position; lambda absorbs the constant)."""
+    return ((s.float() - s_tilde.float()) ** 2).mean()

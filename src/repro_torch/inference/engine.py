@@ -4,7 +4,12 @@ Prefill bucketing: prompts are right-padded to a power-of-two bucket
 (floor 16); after the forward the cache is sanitised to each row's true
 length (transformer.truncate_cache) and the logits row at ``length - 1``
 is taken, so a bucketed prefill leaves the cache an unpadded prefill
-would have (modulo the zeroed tail).
+would have (modulo the zeroed tail).  Bucketing is off where right
+padding is not a no-op for the live state (``can_bucket_prompts``: RWKV6,
+SWA ring buffers).  A ragged batch on a ring whose padded width exceeds
+the window is not exact for its shorter rows, as in the reference (the
+ring keeps the batch's last window of positions, pads included; ROADMAP
+Queue 3).
 
 Resident cache: ``generate`` prefills into the engine's cache for its
 batch size (``resident_cache``: made on first use, zeroed by every
@@ -66,14 +71,34 @@ def pow2_bucket(n: int, floor: int = 1) -> int:
 
 
 def can_bucket_prompts(cfg: ArchConfig) -> bool:
-    """Right-padded prefill is sound when pad rows can be masked out
-    afterwards: not under a recurrent (RWKV6) state or an SWA ring
-    buffer, which absorb pad tokens irreversibly.  The same test decides
-    chunked admission, paged caches and mixed-precision serving (the
-    reference's ``can_page``, ``can_chunk_prefill`` and ``can_quantize``):
-    their envelopes differ from this one only for MLA, MoE,
-    cross-attention and encoder-decoder archs, none of which is ported."""
+    """Right-padded prefill is only sound when pad rows can be masked out
+    afterwards: a recurrent (RWKV6) state and an SWA ring buffer absorb
+    pad tokens irreversibly."""
     return cfg.rwkv is None and cfg.swa_window == 0
+
+
+def can_page(cfg: ArchConfig) -> bool:
+    """Paged resident caches (``ContinuousEngine(paged=True)``) need every
+    per-slot cache leaf to be a page pool or a per-slot scalar: a
+    recurrent (RWKV6) state and an SWA ring buffer have no token-row
+    geometry to page."""
+    return cfg.rwkv is None and cfg.swa_window == 0
+
+
+def can_quantize(cfg: ArchConfig) -> bool:
+    """Mixed-precision serving (ServingConfig select_dtype/kv_quant)
+    covers the standard GQA attention cache layout, the same envelope as
+    paging: a recurrent (RWKV6) state and an SWA ring buffer carry no
+    quantized token rows."""
+    return can_page(cfg)
+
+
+def can_chunk_prefill(cfg: ArchConfig) -> bool:
+    """Chunked (interleavable) admission prefill is supported wherever it
+    is token-exact against the whole-prompt bucketed prefill: everything
+    prompt bucketing covers.  (The reference also leaves out MoE,
+    cross-attention and DSA-over-MLA archs, none of which is ported.)"""
+    return can_bucket_prompts(cfg)
 
 
 @dataclasses.dataclass
@@ -111,15 +136,12 @@ class Engine:
         ``device="cpu"`` for the plain PyTorch path.  Keyword arguments
         are ServingConfig fields."""
         c = resolve_config(config, kw)
-        if c.dsa_mode == "faithful":
-            raise NotImplementedError(
-                "dsa_mode='faithful' is not ported to repro_torch yet")
         if (c.select_dtype != "float32" or c.kv_quant) and \
-                not can_bucket_prompts(cfg):
+                not can_quantize(cfg):
             raise ValueError(
                 f"select_dtype={c.select_dtype!r}/kv_quant={c.kv_quant!r} "
                 f"unsupported for arch {cfg.name!r} (see "
-                f"engine.can_bucket_prompts)")
+                f"engine.can_quantize)")
         if c.select_dtype != "float32" and not c.long_context:
             raise ValueError("select_dtype quantizes the DSA predicted-key "
                              "caches: it needs long_context=True")

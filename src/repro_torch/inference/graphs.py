@@ -36,11 +36,11 @@ eager.  A failed capture raises: a CUDA engine never runs these steps
 eagerly.
 
 One graph per key (batch, cache layout, K/V quantization, selection
-dtype, DSA mode, arch).  The graphs of one engine share one memory pool:
-they never run at once, and every replay's logits are read before the
-next replay.  Every engine captures on one stream per device: what the
-first calls on a stream create and keep for the process's life (cuBLAS's
-workspace) then exists once, not once an engine.
+dtype, DSA mode, ring window, arch).  The graphs of one engine share one
+memory pool: they never run at once, and every replay's logits are read
+before the next replay.  Every engine captures on one stream per device:
+what the first calls on a stream create and keep for the process's life
+(cuBLAS's workspace) then exists once, not once an engine.
 CUDA graphs exist only on the card; on the CPU the engines run the same
 step eagerly.
 """
@@ -62,9 +62,11 @@ _CAPTURE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
 
 def step_key(cfg: ArchConfig, flags: RunFlags, batch: int,
              paged: bool) -> tuple:
-    """The key of a decode step's graph."""
+    """The key of a decode step's graph.  ``flags.decode_window`` sets
+    the cache's length, so two windows never share a graph."""
     return (batch, "paged" if paged else "dense", flags.kv_quant,
-            flags.select_dtype, flags.dsa_mode, cfg.name)
+            flags.select_dtype, flags.dsa_mode, flags.decode_window,
+            cfg.name)
 
 
 class StepGraph:

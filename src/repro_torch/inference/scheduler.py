@@ -25,9 +25,13 @@ streams requests through it:
                   ends samples its first token from that chunk's logits
                   row and is inserted into its reserved slot at once (the
                   whole slot row is overwritten, so no state leaks from an
-                  earlier tenant).  BLOCKING (``chunked_prefill=False``):
-                  the group runs one ``Engine.prefill`` while every
-                  resident decoder waits.
+                  earlier tenant).  BLOCKING (``chunked_prefill=False``,
+                  and always where ``engine.can_chunk_prefill`` says no:
+                  SWA archs): the group runs one ``Engine.prefill`` while
+                  every resident decoder waits.  An SWA arch's resident
+                  cache is a dense ring of min(max_len, window) rows per
+                  slot; the insert zero-extends a prefill ring of
+                  min(prompt, window) rows into it.
   paged cache     ``paged=True`` replaces the dense (slots, max_len) rows
                   by a page table over one shared pool (``PagePool`` keeps
                   the host's account; page 0 is the permanent zero page).
@@ -48,6 +52,7 @@ for it): declared prefixes (``Request.prefix_len``, the prefix registry
 and copy-on-write pages), a per-request ``dsa_mode`` other than the
 engine's, speculative segments, deadlines, cancellation, shedding and
 fault injection, telemetry and serving meshes; recurrent (RWKV6) archs.
+Every ``dsa_mode`` of the engine is served, ``faithful`` included.
 """
 from __future__ import annotations
 
@@ -63,7 +68,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantization import raw
 from repro_torch.inference.config import ServingConfig, resolve_config
 from repro_torch.inference.engine import (Engine, _sample, _sync,
-                                          can_bucket_prompts, pow2_bucket)
+                                          can_chunk_prefill, can_page,
+                                          pow2_bucket)
 from repro_torch.inference.graphs import step_key
 from repro_torch.models.attention import (DSA_MODES, _pool_write,
                                           cache_page_size)
@@ -240,13 +246,14 @@ class ContinuousEngine:
         self.engine = Engine(cfg, params, config=c, device=device,
                              loop="scan")
         self.device = self.engine.device
-        # chunked admission replays the bucketed whole-prompt prefill
-        chunk_ok = self.engine.bucket_prompts
+        # chunked admission replays the bucketed whole-prompt prefill;
+        # SWA archs admit blocking (their prompts are not bucketed)
+        chunk_ok = self.engine.bucket_prompts and can_chunk_prefill(cfg)
         self.chunked = chunk_ok if c.chunked_prefill is None else (
             c.chunked_prefill and chunk_ok)
         self.paged = c.paged
         if self.paged:
-            if not can_bucket_prompts(cfg):
+            if not can_page(cfg):
                 raise ValueError(f"paged=True: {cfg.name} is outside the "
                                  f"paging envelope (no SWA ring caches)")
             # init_cache (in reset) refuses a max_len the pages do not tile
@@ -416,7 +423,9 @@ class ContinuousEngine:
     @torch.inference_mode()
     def _insert(self, pre, slot: int, row: int) -> None:
         """Overwrite resident slot ``slot`` with row ``row`` of a
-        bucket-sized staging cache, zero-extending the per-token rows."""
+        bucket-sized staging cache, zero-extending the per-token rows (a
+        ring of min(prompt, window) rows into one of min(max_len,
+        window): both place token i at slot i % window)."""
         for res, st in zip(_layers(self._caches), _layers(pre)):
             for name in _SEQ_KEYS:
                 if name in res:

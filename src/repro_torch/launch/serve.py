@@ -36,6 +36,22 @@ the continuous engine's segments is one replay of the step's CUDA graph
 (repro_torch.inference.graphs); both lines print the graphs captured and
 replayed, and the kernels' launch counts include the replays.
 
+``--dsa-mode faithful`` is the paper's own token granularity: prefill
+through the token path (a (B, L, L) top-k mask, no kernel) and each
+decode step through a top-k over all the cache's predicted scores, in
+plain PyTorch on every device (the reference runs it through XLA too).
+
+``--arch h2o_danube_1_8b`` serves a sliding-window model: its cache is a
+ring of min(max_len, 4096) rows (the cache line reports its bytes), a
+prompt longer than the window wraps it at prefill, prefill with ``--dsa
+--dsa-mode kernel`` runs K2 with the window once per layer, and decode
+attends the ring with plain PyTorch (an SWA cache has no predicted-key
+cache, as in the reference); ``--continuous`` admits it blocking:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch h2o_danube_1_8b --reduced --batch 2 --prompt-len 160 \
+        --new-tokens 8 --dsa --dsa-mode kernel --device cpu
+
 ``--arch rwkv6_3b`` serves the RWKV6 model through the static engine: its
 prefill runs the chunked wkv kernel K7 once per layer when the prompt is
 a multiple of 32 longer than 32; ``--dsa`` falls back to off (no score
@@ -152,7 +168,7 @@ def main(argv=None):
                     help="DSA long-context decode (predicted-key cache)")
     ap.add_argument("--dsa-mode", default="block",
                     choices=["faithful", "block", "kernel"],
-                    help="DSA path (with --dsa): token top-k (not ported) "
+                    help="DSA path (with --dsa): token top-k "
                          "| plain block gather | CUDA kernels")
     ap.add_argument("--loop", default="scan", choices=["scan", "python"],
                     help="back-to-back decode steps vs per-token host loop")

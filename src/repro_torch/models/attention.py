@@ -10,13 +10,22 @@ cache carries the predicted-key cache ``kt`` (B, S, k) and its
 block-pooled twin ``ktb`` (B, S/block_k, k), running block sums, so each
 step's selection is a top-k over S/block_k block scores.  ``dsa_mode``:
 
-  off       dense decode over the whole cache (kt/ktb kept up to date)
+  off       dense decode over the whole cache (kt kept up to date)
+  faithful  the paper's token granularity: top-k over all S predicted
+            scores kt plus the trailing DECODE_LOCAL rows, gathered and
+            attended (core.attention.dsa_decode_attention); ktb is left
+            as prefill made it, as in the reference
   block     block selection over ktb + plain block gather
             (core.attention.dsa_decode_block_attention)
   kernel    same selection, CUDA gather-attend kernel K1
             (kernels.ops.dsa_decode)
 
-``faithful`` (token-granularity decode) is not ported yet and raises.
+Sliding-window archs (``cfg.swa_window``) and ``RunFlags.decode_window``
+keep a RING cache of s = min(max_len, decode_window, swa_window) rows:
+prefill places token i at slot i % s (``_fill_cache``), decode writes
+slot pos % s and attends the min(pos + 1, s) filled slots, so under SWA
+the ring holds exactly one window and enforces it by construction.  An
+SWA cache has no kt/ktb: its decode is the plain ``decode_attention``.
 
 Continuous batching: ``pos`` is per slot, (B,), so every batch row decodes
 at its own depth, and decode takes an optional ``Active`` (a (B,) mask,
@@ -102,6 +111,7 @@ class RunFlags:
     select_dtype: str = "float32"
     # "int8" | "fp8": K/V stored narrow with per-(row, head) scales
     kv_quant: Optional[str] = None
+    decode_window: int = 0         # ring-buffer cache size override
 
 
 def dsa_active(cfg: ArchConfig, flags: RunFlags) -> bool:
@@ -264,6 +274,8 @@ def init_cache_attention(cfg: ArchConfig, batch: int, max_len: int,
                          pages=None) -> Dict:
     """Dense cache layout: k/v (B, S, Hkv, hd), per-row ``pos`` (B,), and
     with DSA decode the kt (B, S, k) / ktb (B, S/block_k, k) caches.  S is
+    min(max_len, flags.decode_window, cfg.swa_window) (a ring when either
+    of the last two binds); an SWA arch has no DSA decode cache.  S is
     rounded up to a block_k multiple on the DSA decode path (the gather
     paths then never pad the cache).  ``flags.kv_quant`` stores k/v in
     int8 or fp8 with f32 scales k_s/v_s (B, S, Hkv); ``flags.select_dtype
@@ -276,13 +288,15 @@ def init_cache_attention(cfg: ArchConfig, batch: int, max_len: int,
     (B, S/bk) mapping each slot's logical block to its page.  Page 0 is
     the permanent zero page: never allocated, never written, so an
     unmapped table entry reads zero rows.  Scale leaves follow their
-    data leaves into the pool."""
-    if cfg.swa_window:
-        raise NotImplementedError("sliding-window (ring) caches are not "
-                                  "ported to repro_torch yet")
+    data leaves into the pool.  A ring cannot be paged."""
+    if pages is not None and (cfg.swa_window or flags.decode_window):
+        raise ValueError("paged caches require a non-wrapping layout (no "
+                         "SWA, no decode_window)")
     hd = cfg.resolved_head_dim
-    s = max_len
-    dsa_decode = cfg.dsa.enabled and flags.long_context
+    s = min(max_len, flags.decode_window or max_len,
+            cfg.swa_window or max_len)
+    dsa_decode = (cfg.dsa.enabled and flags.long_context
+                  and not cfg.swa_window)
     if dsa_decode:
         s = -(-s // cfg.dsa.block_k) * cfg.dsa.block_k
     f32 = dict(device=device, dtype=torch.float32)
@@ -375,18 +389,25 @@ def _fill_cache(cfg: ArchConfig, flags: RunFlags, cache: Dict, k, v, params,
                 x) -> None:
     """Write a prefill's K/V (and kt, ktb) into ``cache`` in place.  Rows
     are cast to the cache's dtype (a bf16 model keeps an f32 cache), or
-    quantized where it holds scales."""
+    quantized where it holds scales.  A prompt longer than a ring cache
+    of s rows leaves its last s tokens, token i at slot i % s."""
     s = cache["k"].shape[1]
     t = k.shape[1]
-    if t > s:
-        raise ValueError(f"prompt of {t} tokens does not fit a cache of {s}")
-    for leaf, val in _kv_rows(cache, k, v, flags.kv_quant).items():
-        raw(cache[leaf])[:, :t] = raw(val)
+    n = min(t, s)
+
+    def ring(buf):
+        if t <= s:
+            return buf
+        return torch.roll(buf[:, -s:], (t - s) % s, dims=1)
+
+    for leaf, val in _kv_rows(cache, ring(k), ring(v),
+                              flags.kv_quant).items():
+        raw(cache[leaf])[:, :n] = raw(val)
     cache["pos"].fill_(t)
     if "kt" in cache:
         _, k_t = PRED.predict_qk(params["dsa"], x, None, cfg.dsa.quant_bits)
-        for leaf, val in _quant_rows(cache, "kt", k_t, "int8").items():
-            cache[leaf][:, :t] = val
+        for leaf, val in _quant_rows(cache, "kt", ring(k_t), "int8").items():
+            cache[leaf][:, :n] = val
         _rebuild_ktb(cfg, cache)
 
 
@@ -462,7 +483,11 @@ def _apply_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache,
         out = _dsa_decode(params, cfg, flags, x, q, cache, slot, kv_len,
                           active)
     else:
-        out = A.decode_attention(q, *_kv_views(cache), kv_len=kv_len)
+        # a ring of s <= swa_window rows holds one window by construction;
+        # the slot-positional window mask is for larger caches, pre-wrap
+        win = cfg.swa_window
+        out = A.decode_attention(q, *_kv_views(cache), kv_len=kv_len,
+                                 window=win if win and s > win else 0)
     out = mm(out.reshape(b, 1, -1), params["wo"])
     return out, cache
 
@@ -486,12 +511,26 @@ def _decode_select(cfg: ArchConfig, q_t, ktb_view, ktb_s_view, kv_len,
                                        block_k=bkd, local=DECODE_LOCAL)
 
 
+def _faithful_decode(cfg: ArchConfig, q, q_t, kt, kt_s, kv, kv_len, s: int):
+    """Token-granularity DSA decode (the paper's): the predicted scores of
+    the step's query against all S kt rows (``kt_s``: int8 kt's per-row
+    scales, else None), top keep + DECODE_LOCAL of them over the
+    full-precision K/V views ``kv``."""
+    if kt_s is not None:
+        s_t = _int8_select_scores(q_t, kt, kt_s)[:, 0]
+    else:
+        s_t = torch.einsum("bok,bsk->bs", q_t.float(), kt.float())
+    return A.dsa_decode_attention(q, *kv, s_t,
+                                  keep=M.keep_count(s, cfg.dsa.sparsity),
+                                  kv_len=kv_len, local=DECODE_LOCAL)
+
+
 def _dsa_decode(params, cfg: ArchConfig, flags: RunFlags, x, q, cache,
                 slot, kv_len, active: Optional[Active] = None):
-    """DSA long-context decode step: update kt/ktb in place at each
-    writing row's ``slot``, select cache blocks from predicted block
-    scores, gather + attend.  Returns the attention output (B, 1, Hq,
-    hd)."""
+    """DSA long-context decode step: update kt (and, on the block paths,
+    ktb) in place at each writing row's ``slot``, select cache rows or
+    blocks from predicted scores, gather + attend.  Returns the attention
+    output (B, 1, Hq, hd)."""
     dsa = cfg.dsa
     kc, vc = cache["k"], cache["v"]
     s = kc.shape[1]
@@ -501,13 +540,15 @@ def _dsa_decode(params, cfg: ArchConfig, flags: RunFlags, x, q, cache,
         _put_step_rows(cache[leaf], slot, val, active)
     if flags.dsa_mode == "off":
         return A.decode_attention(q, *_kv_views(cache), kv_len=kv_len)
-    if flags.dsa_mode not in ("block", "kernel"):
-        raise NotImplementedError(
-            f"dsa_mode={flags.dsa_mode!r} decode is not ported yet")
+    if flags.dsa_mode == "faithful":
+        return _faithful_decode(cfg, q, q_t, cache["kt"], cache.get("kt_s"),
+                                _kv_views(cache), kv_len, s)
     bkd = dsa.block_k
     # the slot being written is still zero (only a surplus step of a
-    # bucketed step count can wrap, and its token is dropped), so a plain
-    # add keeps the block sum exact for every delivered token; each row
+    # bucketed step count can wrap, and its token is dropped; a
+    # decode_window ring wraps for real and its block sums then go stale,
+    # as the reference's do), so a plain add keeps the block sum exact
+    # for every delivered token; each row
     # adds to its own block, so a gather-add-scatter needs no accumulating
     # index_put (which sorts its indices on the card).  An int8 block sum
     # cannot add across scales: dequantize it, add in f32, requantize.
@@ -586,8 +627,9 @@ def _dsa_paged_decode(params, cfg: ArchConfig, flags: RunFlags, x, q, cache,
                       flat, okw, pg, kv_len, view):
     """The paged twin of ``_dsa_decode``: kt writes reuse the translated
     pool row; ktb has one row per page, so the row a write adds to IS the
-    write's page.  Selection scores the logical ktb view ``ktb[tbl]``
-    and the selected logical blocks become pages only for the gather."""
+    write's page.  Block selection scores the logical ktb view
+    ``ktb[tbl]`` and the selected logical blocks become pages only for
+    the gather; faithful selection scores the logical kt view."""
     dsa = cfg.dsa
     bk = dsa.block_k
     kc, vc = cache["k"], cache["v"]
@@ -596,9 +638,12 @@ def _dsa_paged_decode(params, cfg: ArchConfig, flags: RunFlags, x, q, cache,
         _pool_write(cache[leaf], flat, val, okw)
     if flags.dsa_mode == "off":
         return A.decode_attention(q, *_kv_views(cache, view), kv_len=kv_len)
-    if flags.dsa_mode not in ("block", "kernel"):
-        raise NotImplementedError(
-            f"dsa_mode={flags.dsa_mode!r} decode is not ported yet")
+    if flags.dsa_mode == "faithful":
+        kt_s = cache.get("kt_s")
+        return _faithful_decode(cfg, q, q_t, cache["kt"][view],
+                                None if kt_s is None else kt_s[view],
+                                _kv_views(cache, view), kv_len,
+                                view.shape[1])
     # a write that does not land adds zero to the zero page's row: every
     # such entry stores 0 + 0 there, and the real targets (the slots'
     # own pages) are distinct, so no accumulating index_put is needed.

@@ -146,7 +146,8 @@ _ROW_KEYS = ("k", "v", "kt", "k_s", "v_s", "kt_s")
 
 def truncate_cache(cfg: ArchConfig, caches, length) -> Dict[str, Any]:
     """Sanitise a freshly prefilled cache to its true prompt length(s), in
-    place: zero every per-token row (and scale) at positions >= length,
+    place: zero every per-token row (and scale) at slots >= length (on a
+    ring, slots and not positions, as the reference does),
     rebuild ktb (ktb_s) from the masked kt, and set every ``pos`` to
     ``length`` (a scalar or per-row (B,) lengths).  fp8 rows are zeroed
     through their bytes: no arithmetic runs on an fp8 tensor.  Recurrent

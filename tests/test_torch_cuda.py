@@ -2,8 +2,10 @@
 chunked wkv6 kernel K7 on the card against their plain versions, with
 K2's, K3's and K1/K4's tiling edges (GQA groups, head widths, block
 sizes, kv_len inside a tile, rows with no live key, ok = 0 blocks,
-strided model-layout views) and K7's head widths, chunks and segment
-counts.
+strided model-layout views), K2's sliding-window edges on both bodies,
+and K7's head widths, chunks and segment counts; and the decode step's
+CUDA graphs against eager steps, faithful decode and SWA rings
+included.
 
 Needs a CUDA card and the CUDA toolkit; skips without a card.  Imports
 neither JAX nor the reference, so it runs where only PyTorch is installed:
@@ -169,6 +171,60 @@ def test_cuda_k2_blocks_and_masks_match_plain(cuda_device, bq, bk, causal,
     sliding window that cuts tiles (G 4, hd 128)."""
     args = _k2_edges(cuda_device, 4, 128, bq, bk, seed=60 + bq + bk)
     _check_k2(args, causal=causal, block_q=bq, block_k=bk, window=window)
+
+
+def _k2_window_inputs(dev, dtype, g, hd, blk, l, seed):
+    """q, k and v in ``dtype`` as (B,H,L,hd) views of model-layout
+    tensors, two KV heads, 4 random distinct key blocks per query block
+    (some behind the window, some above the diagonal), the diagonal
+    block among them, about a fifth valid = 0 off the diagonal."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, hkv, nb = 2, 2, 4
+    n = l // blk
+
+    def view(h):
+        return torch.randn((b, l, h, hd), generator=gen, device=dev).to(
+            dtype).transpose(1, 2)
+
+    q, k, v = view(hkv * g), view(hkv), view(hkv)
+    idx = torch.rand((b, n, n), generator=gen,
+                     device=dev).argsort(-1)[..., :nb]
+    diag = torch.arange(n, device=dev)[None, :, None]
+    has = (idx == diag).any(-1, keepdim=True)
+    idx[..., :1] = torch.where(has, idx[..., :1], diag)
+    idx = idx.sort(-1).values
+    ok = (torch.rand((b, n, nb), generator=gen, device=dev) > 0.2) | (
+        idx == diag)
+    return q, k, v, idx.to(torch.int32), ok.to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blk,window,l", [
+    (128, 256, 1024), (128, 200, 1024), (128, 100, 512), (16, 40, 256),
+    (16, 10, 128), (64, 4096, 8192)],
+    ids=["b128-w256", "b128-w200", "b128-w100", "b16-w40", "b16-w10",
+         "b64-w4096"])
+@pytest.mark.parametrize("hd", [64, 80, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_k2_window_edges_match_plain(cuda_device, dtype, g, hd, blk,
+                                          window, l):
+    """K2's sliding-window path (h2o_danube_1_8b's prefill) on the bf16
+    wgmma body and the f32 body: a window that is a block multiple, one
+    that is not, one shorter than a block, and h2o's 4096 at L 8192;
+    tiles wholly behind the window skipped, tiles it cuts masked per row
+    (the bound qpos - window + 1), hd 64, 80 (padded to 128 columns) and
+    128, GQA groups 1 to 8; at the dtype's tolerance."""
+    args = _k2_window_inputs(cuda_device, dtype, g, hd, blk, l,
+                             seed=70 + g + hd + blk + window)
+    kw = dict(block_q=blk, block_k=blk, causal=True, window=window)
+    got = K2.dsa_block_sparse_attention(*args, **kw)
+    want = K2.dsa_block_sparse_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
 
 
 @pytest.mark.cuda
@@ -841,3 +897,83 @@ def test_cuda_graph_one_capture_per_key_and_recapture_after_reset(
     np.testing.assert_array_equal(a, b)
     static.generate(prompts[:1], 6)
     assert static.graphs.captures == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kw,plen", [
+    ("yi_6b", dict(long_context=True, dsa_mode="faithful"), 64),
+    ("yi_6b", dict(long_context=True, dsa_mode="faithful", kv_quant="fp8",
+                   select_dtype="int8"), 64),
+    ("h2o_danube_1_8b", dict(long_context=True, dsa_mode="kernel"), 160),
+    ("h2o_danube_1_8b", {}, 90)],
+    ids=["yi_6b-faithful", "yi_6b-faithful-fp8", "h2o-ring-kernel",
+         "h2o-ring-off"])
+@pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "sampled"])
+def test_cuda_graph_faithful_and_ring_scan_equals_eager_loop(
+        cuda_device, arch, kw, plen, greedy):
+    """Faithful decode (a top-k over every cached score, no kernel) and
+    h2o's ring (prompts past the 64-token window, so the ring wraps at
+    prefill and again in decode): the scan loop's graph replays give the
+    python loop's tokens bit for bit; one capture; no decode kernel
+    launches; h2o's kernel-mode prefill launches K2 once a layer."""
+    import numpy as np
+    from repro_torch.inference.engine import Engine
+    cfg, params = _model(arch, cuda_device)
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(1, cfg.vocab - 4, size=(2, plen)).astype(np.int32)
+    lengths = None if cfg.swa_window else np.array([plen, 45], np.int32)
+    decode = [(K1.dsa_decode_gather_attention, a)
+              for a in ("launches", "launches_quant")]
+    res = {}
+    for loop in ("scan", "python"):
+        eng = Engine(cfg, params, max_len=plen + 16, loop=loop, **kw)
+        before = [getattr(f, a) for f, a in decode]
+        k2 = K2.dsa_block_sparse_attention.launches
+        res[loop] = eng.generate(prompts, 10, greedy=greedy, seed=5,
+                                 lengths=lengths)
+        assert [getattr(f, a) for f, a in decode] == before
+        want_k2 = cfg.n_layers if kw.get("dsa_mode") == "kernel" else 0
+        assert K2.dsa_block_sparse_attention.launches - k2 == want_k2
+        if loop == "scan":
+            assert eng.graphs.captures == 1
+            assert eng.graphs.replays == res[loop].decode_steps == 16
+    np.testing.assert_array_equal(res["scan"].tokens, res["python"].tokens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kw", [
+    ("yi_6b", dict(long_context=True, dsa_mode="faithful", paged=True)),
+    ("yi_6b", dict(long_context=True, dsa_mode="faithful")),
+    ("h2o_danube_1_8b", dict(long_context=True, dsa_mode="kernel"))],
+    ids=["yi_6b-faithful-paged", "yi_6b-faithful-dense", "h2o-ring"])
+def test_cuda_graph_faithful_and_ring_segments_equal_solo_eager(
+        cuda_device, arch, kw):
+    """Continuous serving with every decode step a replay of the masked
+    step's graph: faithful decode (chunked admission, paged or dense),
+    and h2o's dense ring (blocking admission, prompts past the window);
+    each request's tokens equal a solo eager ``generate(loop="python")``,
+    greedy and sampled.  One capture, one replay a decode step."""
+    import numpy as np
+    from repro_torch.inference.engine import Engine
+    from repro_torch.inference.scheduler import ContinuousEngine, Request
+    cfg, params = _model(arch, cuda_device)
+    max_len = 160 if cfg.swa_window else GRAPH_MAX_LEN
+    rng = np.random.default_rng(9)
+    shapes = ([(48, 8), (70, 6), (130, 5), (20, 9), (70, 4)]
+              if cfg.swa_window else [(48, 8), (21, 12), (65, 5), (30, 10),
+                                      (17, 7)])
+    reqs = [Request(rid, rng.integers(1, cfg.vocab - 4, size=(n,)).astype(
+        np.int32), m, greedy=rid % 2 == 0, seed=3 * rid + 1,
+        temperature=0.8) for rid, (n, m) in enumerate(shapes)]
+    eng = ContinuousEngine(cfg, params, slots=2, seg_len=4, max_len=max_len,
+                           **kw)
+    assert eng.chunked == (not cfg.swa_window)
+    got = eng.run(reqs)
+    steps = eng.stats["decode_steps"]
+    assert eng.graphs.captures == 1 and eng.graphs.replays == steps > 0
+    solo = Engine(cfg, params, loop="python", max_len=max_len,
+                  **{k: v for k, v in kw.items() if k != "paged"})
+    for r in reqs:
+        want = solo.generate(r.prompt[None], r.n_new, greedy=r.greedy,
+                             seed=r.seed, temperature=r.temperature).tokens[0]
+        np.testing.assert_array_equal(got[r.rid], want, err_msg=str(r.rid))

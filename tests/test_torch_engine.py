@@ -93,8 +93,9 @@ def test_engine_validates_requests():
         eng.generate(prompts, 2, lengths=np.array([0, 3]))
     with pytest.raises(ValueError, match="dsa_mode"):
         TE.Engine(cfg, tparams, dsa_mode="dense", device="cpu")
-    with pytest.raises(NotImplementedError, match="faithful"):
-        TE.Engine(cfg, tparams, dsa_mode="faithful", device="cpu")
+    # faithful is ported: the engine takes it
+    assert TE.Engine(cfg, tparams, dsa_mode="faithful",
+                     device="cpu").decode_flags.dsa_mode == "faithful"
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
