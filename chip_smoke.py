@@ -99,7 +99,20 @@ fails:
      graphed == eager; then the full-width slice (24 layers, bf16, batch
      4, prompt 8192, 64 new tokens, DSA kernel path): K2 once per layer
      in prefill, no decode kernel, the ring's bytes per batch row, and
-     its profile.
+     its profile;
+ 12. training (the paper's joint objective, Eq. 7, with AdamW; the plain
+     model path, no kernel): a 2-layer full-width stablelm_3b in f32 with
+     remat takes one step (batch 2 x 512, 2 microbatches) on the card and
+     on the CPU from the same params: loss, ce, mse and grad_norm agree,
+     the new params agree within the first AdamW step's sign bound, P is
+     unchanged and no kernel launches; the eval step on the kernel path
+     (K2 once a layer) gives the block path's ce; then
+     ``repro_torch.launch.train`` trains stablelm_3b at full width (32
+     layers, bf16, remat, 4 steps of 4 x 4096 in 2 microbatches): finite
+     metrics, P unchanged, no kernel launched, the median step time,
+     tokens/s, the 6 N D share of 989 TFLOP/s, peak memory and the bytes
+     of params, grads and moments; and a torch.profiler trace of one more
+     step and of the optimizer update alone.
 
 It then prints one JSON line of per-kernel results, the card's name and
 power limit again as ``nvidia-smi`` gives them, and as its last line
@@ -1115,12 +1128,12 @@ def unaligned_prefill(torch, eng, prompts, aligned_ms: float) -> float:
 
 
 def to_cpu(t):
-    """A copy of a parameter tree on the CPU."""
-    if isinstance(t, dict):
-        return {k: to_cpu(v) for k, v in t.items()}
-    if isinstance(t, list):
-        return [to_cpu(v) for v in t]
-    return t.cpu()
+    """A copy of a parameter tree on the CPU (leaves that require grad
+    stay leaves that do)."""
+    from repro_torch.tree import map_tree
+    return map_tree(
+        lambda x: x.detach().to("cpu", copy=True).requires_grad_(
+            x.requires_grad), t)
 
 
 def rwkv_parity_phase(torch, seed: int) -> dict:
@@ -1316,6 +1329,222 @@ def h2o_parity_phase(torch, seed: int, n_new: int = 16,
     torch.cuda.empty_cache()
     return {"card_cpu": same_cpu, "kernel_block": same_k,
             "graphed": graphed}
+
+
+# -- training -----------------------------------------------------------------
+
+# a train step, card against CPU.  Metrics: the predictor's 4-bit fake
+# quant rounds an input one ulp apart on the two devices to the next level
+# now and then, which moves S~ by a whole step, so mse, the gradients and
+# grad_norm differ by ~1e-4 where ce agrees.  New params: the first AdamW
+# step moves each element by about lr * sign(g), so a gradient within
+# rounding of zero may step the other way (|d| <= 2 lr); nearly all agree
+# to 1e-5
+TRAIN_METRIC_RTOL = 1e-3
+TRAIN_PARAM_SHARE = 0.99
+
+
+def _p_leaves(params):
+    """The frozen DSA projections P of a parameter tree."""
+    from repro_torch.optim.adamw import is_frozen
+    from repro_torch.tree import named_leaves
+    return {k: v for k, v in named_leaves(params) if is_frozen(k)}
+
+
+def train_parity_phase(torch, seed: int) -> dict:
+    """stablelm_3b at full width (d 2560, 32 heads of 80, vocab 50304),
+    2 layers, f32, remat on: one train step (``lm_batches``, batch 2 x 512
+    tokens, 4 key blocks of which 2 are kept, 2 microbatches) on the card
+    and on the CPU from the same params.  loss, ce, mse and grad_norm
+    agree at TRAIN_METRIC_RTOL, every new param within 2 lr with at least
+    TRAIN_PARAM_SHARE of the elements within 1e-5, P is unchanged bit for
+    bit on both, and no kernel launches.  Then the eval step on the kernel
+    path (K2 once a layer, no other kernel) gives the block path's ce at
+    f32's tolerance."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import DataConfig, lm_batches
+    from repro_torch.launch import serve
+    from repro_torch.models.attention import RunFlags
+    from repro_torch.optim import adamw
+    from repro_torch.training import steps as ST
+    from repro_torch.tree import named_leaves
+    cfg = dataclasses.replace(get_config("stablelm_3b"), n_layers=2,
+                              dtype="float32", param_dtype="float32")
+    opt = adamw.OptConfig(lr=1e-3, total_steps=10, warmup_steps=2)
+    batch = next(lm_batches(DataConfig(vocab=cfg.vocab, seq_len=512,
+                                       global_batch=2, seed=seed)))
+    card = ST.init_train_state(seed, cfg, opt)
+    cpu_params = to_cpu(card["params"])
+    cpu = {"params": cpu_params, "opt": adamw.init(opt, cpu_params),
+           "step": 0}
+    p0 = {k: v.cpu() for k, v in _p_leaves(card["params"]).items()}
+    step = ST.make_train_step(cfg, opt, microbatches=2)
+    serve.reset_launch_counts()
+    t0 = time.perf_counter()
+    card, m_card = step(card, batch)
+    m_card = {k: float(v) for k, v in m_card.items()}
+    card_s = time.perf_counter() - t0
+    n = {k: v for k, v in serve.launch_counts().items() if v}
+    t0 = time.perf_counter()
+    cpu, m_cpu = step(cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    m_cpu = {k: float(v) for k, v in m_cpu.items()}
+    rel = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k])
+           for k in ("loss", "ce", "mse", "grad_norm")}
+    lr = m_cpu["lr"]
+    want = dict(named_leaves(cpu["params"]))
+    worst, within, total = 0.0, 0, 0
+    for path, p in named_leaves(card["params"]):
+        d = (p.detach().cpu() - want[path].detach()).abs()
+        worst = max(worst, float(d.max()))
+        within += int((d <= 1e-5).sum())
+        total += d.numel()
+    frozen = all(torch.equal(p0[k], v.cpu()) and torch.equal(
+        p0[k], want[k]) for k, v in _p_leaves(card["params"]).items())
+    print(f"train parity: 2-layer full-width stablelm_3b f32 (remat), batch "
+          f"2 x 512, 2 microbatches: card {card_s:.2f} s, CPU {cpu_s:.2f} "
+          f"s; card vs CPU relative differences "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (rtol {TRAIN_METRIC_RTOL:g}); new params max |d| {worst:.3g} "
+          f"(bound 2 lr = {2 * lr:.3g}), {100 * within / total:.3f} % within "
+          f"1e-5; P unchanged: {frozen}; kernels launched: {n or 'none'}",
+          flush=True)
+    print(f"  card: {', '.join(f'{k} {m_card[k]:.6f}' for k in rel)}")
+    print(f"  cpu : {', '.join(f'{k} {m_cpu[k]:.6f}' for k in rel)}")
+    if (n or not frozen or worst > 2 * lr
+            or within < TRAIN_PARAM_SHARE * total
+            or max(rel.values()) > TRAIN_METRIC_RTOL):
+        fail("training parity (card vs CPU) failed")
+    del cpu, cpu_params
+    serve.reset_launch_counts()
+    ce = {mode: float(ST.make_eval_step(cfg, RunFlags(
+        mode="train", with_mse=False, dsa_mode=mode))(card["params"],
+                                                      batch)["ce"])
+          for mode in ("block", "kernel")}
+    n = {k: v for k, v in serve.launch_counts().items() if v}
+    same = abs(ce["kernel"] - ce["block"]) <= 1e-5 * abs(ce["block"])
+    print(f"eval on the trained model: ce kernel {ce['kernel']:.7f}, block "
+          f"{ce['block']:.7f} (rtol 1e-5: {same}); launches {n}", flush=True)
+    if not same or n != {"K2": cfg.n_layers}:
+        fail(f"eval on the kernel path: ce {ce}, launches {n}")
+    del card
+    torch.cuda.empty_cache()
+    return {"rel": rel, "params_max_abs": worst, "eval_ce": ce}
+
+
+def train_slice(torch, seed: int) -> dict:
+    """Train stablelm_3b at full width through ``repro_torch.launch.train``:
+    32 layers in bf16, DSA on the block path, remat, 4 steps of batch 4 x
+    4096 tokens in 2 microbatches.  Every metric finite, P unchanged, no
+    kernel launched.  Prints the median step time over steps 2-4,
+    tokens/s, the 6 N D share of the bf16 peak, peak memory and the bytes
+    of params, grads and moments; then profiles one more step and the
+    optimizer update alone."""
+    import math
+    import statistics
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import DataConfig, lm_batches
+    from repro_torch.launch import serve, train
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim import adamw
+    from repro_torch.training import steps as ST
+    from repro_torch.tree import named_leaves
+    cfg = get_config("stablelm_3b")
+    b, s, steps = 4, 4096, 4
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    serve.reset_launch_counts()
+    res = train.main(["--arch", "stablelm_3b", "--steps", str(steps),
+                      "--seq", str(s), "--batch", str(b), "--microbatches",
+                      "2", "--data", "lm", "--log-interval", "1",
+                      "--seed", str(seed)])
+    n = {k: v for k, v in serve.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    state = res.state
+    params = state["params"]
+    med = statistics.median(res.step_s[1:])
+    leaves = list(named_leaves(params))
+    n_blocks = sum(p.numel() for k, p in leaves if k.startswith("/groups/"))
+    n_head = params["lm_head"].numel()
+    flops = 6 * (n_blocks + n_head) * b * s
+    share = flops / med / PEAK_FLOPS["bfloat16"]
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    p_bytes = nbytes(p for _, p in leaves)
+    g_bytes = nbytes(p for _, p in leaves if p.requires_grad)
+    m_bytes = nbytes(t for name in ("m", "v")
+                     for _, t in named_leaves(state["opt"][name]))
+    finite = all(math.isfinite(v) for m in res.metrics for v in m.values())
+    print(f"train slice (stablelm_3b, 32 layers bf16, DSA block path, "
+          f"remat, {steps} steps of {b} x {s} in 2 microbatches): step "
+          f"{med * 1e3:.1f} ms (median of steps 2-{steps}; all: "
+          + ", ".join(f"{t * 1e3:.1f}" for t in res.step_s)
+          + f" ms), {b * s / med:.0f} tok/s; 6 N D / step time / 989 "
+          f"TFLOP/s = 6 x {n_blocks + n_head:,} x {b * s} / {med:.4f} s / "
+          f"989e12 = {100 * share:.2f} % (N: the 32 blocks' {n_blocks:,} "
+          f"params and the lm head's {n_head:,}; the embedding lookup and "
+          f"the remat recompute are not counted); peak memory {peak:.2f} "
+          f"GiB ({held:.2f} held at its start); params {p_bytes:,} B, "
+          f"grads {g_bytes:,} B, moments {m_bytes:,} B; metrics finite: "
+          f"{finite}; kernels launched: {n or 'none'}", flush=True)
+    if n or not finite:
+        fail(f"the train slice launched {n}, metrics finite {finite}")
+
+    # the profile: one more step, then the optimizer update on its own
+    opt = adamw.OptConfig(total_steps=steps + 2, warmup_steps=1)
+    flags = ST.default_flags(cfg)
+    batch = next(lm_batches(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                       global_batch=b, seed=seed + 1)))
+    step = ST.make_train_step(cfg, opt, flags, microbatches=2)
+    acts = [ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        wall = time.perf_counter() - t0
+    tr = _device_time(prof, "train", 1)
+    _print_profile(f"stablelm_3b train step ({b} x {s}, 2 microbatches)",
+                   wall * 1e3, *tr)
+    grads, _ = ST.accumulate_grads(params, cfg, flags, batch, 2)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    adamw.apply_updates(opt, params, grads, state["opt"])
+    ev[1].record()
+    torch.cuda.synchronize()
+    upd_ms = (time.perf_counter() - t0) * 1e3
+    grads, _ = ST.accumulate_grads(params, cfg, flags, batch, 2)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        adamw.apply_updates(opt, params, grads, state["opt"])
+        torch.cuda.synchronize()
+        upd_traced = time.perf_counter() - t0
+    up = _device_time(prof, "update", 1)
+    print(f"optimizer update alone: {upd_ms:.1f} ms host clock, "
+          f"{ev[0].elapsed_time(ev[1]):.1f} ms between CUDA events, "
+          f"{len(leaves)} leaves", flush=True)
+    _print_profile("optimizer update (traced)", upd_traced * 1e3, *up)
+    del grads
+    got = {k: v.clone() for k, v in _p_leaves(params).items()}
+    del state, params, res, leaves
+    torch.cuda.empty_cache()
+    fresh = init_model(seed, cfg)
+    frozen = all(torch.equal(v, got[k])
+                 for k, v in _p_leaves(fresh).items())
+    del fresh, got
+    torch.cuda.empty_cache()
+    print(f"train slice: P unchanged after {steps + 3} updates: {frozen}",
+          flush=True)
+    if not frozen:
+        fail("the train slice moved P")
+    return {"step_ms": med * 1e3, "tok_s": b * s / med, "mfu_6nd": share,
+            "peak_gib": peak, "params_bytes": p_bytes, "grads_bytes": g_bytes,
+            "moments_bytes": m_bytes, "profile_wall_ms": wall * 1e3,
+            "profile_busy_ms": tr[0], "update_ms": upd_ms,
+            "update_busy_ms": up[0]}
 
 
 def static_slice(torch, seed: int, arch: str, dsa_mode: str, want,
@@ -1630,6 +1859,9 @@ def main() -> None:
         lambda n, steps: {"K2": n}, prompt_len=8192)["launches"]
     torch.cuda.empty_cache()
     profile_phase(torch, args.seed, arch="h2o_danube_1_8b", prompt_len=8192)
+    # training: the plain model path, no kernel; eval runs K2
+    train_parity_phase(torch, args.seed)
+    train_slice(torch, args.seed)
 
     src = "src/repro_torch/kernels/csrc/"
     rep = "src/repro/kernels/"

@@ -34,6 +34,7 @@ class DSAConfig:
     quant_bits: int = 4           # 2 | 4 | 8 | 16 | 32 (32 = no quant)
     block_q: int = 128
     block_k: int = 128
+    lambda_mse: float = 0.01      # joint-loss weight of L_MSE (paper Eq. 7)
     min_blocks: int = 1           # always keep >=1 block per query row
     local_blocks: int = 1         # always keep the diagonal (local) block(s)
     sort_indices: bool = True     # visit kept blocks in ascending order
@@ -59,6 +60,10 @@ class ArchConfig:
     dsa: DSAConfig = dataclasses.field(default_factory=DSAConfig)
     dtype: str = "bfloat16"       # activation dtype
     param_dtype: str = "bfloat16"
+    # training memory policy: recompute each layer group in the backward
+    # pass ("full"); "none" keeps every activation ("dots" is not ported)
+    remat: bool = True
+    remat_policy: str = "full"
 
     @property
     def resolved_head_dim(self) -> int:
@@ -84,7 +89,7 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads < cfg.n_heads else 4,
         d_ff=128, vocab=512,
         swa_window=min(cfg.swa_window, 64) if cfg.swa_window else 0,
-        dtype="float32", param_dtype="float32",
+        remat=False, dtype="float32", param_dtype="float32",
     )
     if cfg.rwkv is not None:
         kw["rwkv"] = RWKVConfig(head_dim=16, decay_lora=8)

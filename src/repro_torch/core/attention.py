@@ -32,7 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.prediction import einsum
-from repro_torch.core.quantization import raw
+from repro_torch.core.quantization import from_raw, raw
 
 NEG = -1e9  # paper's -c
 
@@ -124,13 +124,13 @@ def _gather_blocks(x: torch.Tensor, idx: torch.Tensor, block: int
     xb = r.reshape(b, s // block, block, *rest)
     ix = idx.long().reshape(b, -1, *([1] * (1 + len(rest))))
     g = torch.gather(xb, 1, ix.expand(b, idx.shape[1], block, *rest))
-    return g.reshape(b, idx.shape[1] * block, *rest).view(x.dtype)
+    return from_raw(g.reshape(b, idx.shape[1] * block, *rest), x)
 
 
 def _pad_rows(x: torch.Tensor, pad: int) -> torch.Tensor:
     """Zero-pad axis 1 of ``x`` by ``pad`` rows (fp8 as bytes)."""
     r = torch.nn.functional.pad(raw(x), (0, 0) * (x.dim() - 2) + (0, pad))
-    return r.view(x.dtype)
+    return from_raw(r, x)
 
 
 def _gather_dequant(x, scale, idx, block: int) -> torch.Tensor:
@@ -296,7 +296,7 @@ def dsa_decode_paged_block_attention(q, k_pool, v_pool, idx, pidx,
     def pages(x):
         r = raw(x)
         g = r.reshape(-1, block_k, *r.shape[1:])[pidx.long()]
-        return g.reshape(b, nb * block_k, *r.shape[1:]).view(x.dtype)
+        return from_raw(g.reshape(b, nb * block_k, *r.shape[1:]), x)
 
     ks, vs = pages(k_pool), pages(v_pool)
     if k_scale is not None:

@@ -63,7 +63,9 @@ def init_predictor(gen: torch.Generator, d_model: int, sigma: float, *,
 
 
 def _project(params, x, bits):
-    return fake_quant(mm(x, params["p"].to(x.dtype)), bits)
+    # P is constant: detached, so no gradient reaches it (the reference's
+    # stop_gradient)
+    return fake_quant(mm(x, params["p"].detach().to(x.dtype)), bits)
 
 
 def predict_qk(params: Dict[str, torch.Tensor], x_q: torch.Tensor,

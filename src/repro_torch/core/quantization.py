@@ -75,9 +75,16 @@ def raw(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
 
 
+def from_raw(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``r``, computed on ``raw(t)``, in ``t``'s dtype: viewed back for
+    fp8 only, since ``Tensor.view(dtype)`` carries no gradient and would
+    cut autograd on a full-width tensor."""
+    return r.view(t.dtype) if r.dtype != t.dtype else r
+
+
 def take(t: torch.Tensor, *index) -> torch.Tensor:
     """``t[index]`` through ``raw``: a gather that keeps ``t``'s dtype."""
-    return raw(t)[index].view(t.dtype)
+    return from_raw(raw(t)[index], t)
 
 
 def take_rows(t: torch.Tensor, scale, *index) -> torch.Tensor:

@@ -27,6 +27,21 @@ def bind(lib_name: str, fn_name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     return fn
 
 
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise when autograd would need a gradient through ``kernel``: it
+    has no backward, nor does the reference's Pallas kernel define a VJP,
+    and a kernel output without one would cut the gradient silently.  The
+    plain version on a CPU tensor refuses too, so that card and CPU train
+    alike.  Under ``torch.no_grad()`` or ``inference_mode`` it passes."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel} has no backward (the reference's Pallas kernel "
+            f"defines no VJP either): call it without gradients, or train "
+            f"through the plain model path (dsa_mode 'block', 'faithful' "
+            f"or 'off')")
+
+
 def check_cuda_operand(name: str, t: torch.Tensor,
                        device: torch.device) -> None:
     """Raise unless ``t`` lies on ``device`` in a kernel dtype with a unit

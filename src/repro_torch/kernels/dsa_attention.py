@@ -80,6 +80,7 @@ def dsa_block_sparse_attention(q, k, v, idx, valid, *, block_q: int = 128,
                                block_k: int = 128, causal: bool = True,
                                window: int = 0) -> torch.Tensor:
     """q: (B,Hq,Lq,hd); k/v: (B,Hkv,Lk,hd); idx/valid: (B,nQb,nb)."""
+    LN.refuse_grad("K2 (dsa_block_sparse_attention)", q, k, v)
     if q.device.type == "cpu":
         return dsa_block_sparse_attention_plain(
             q, k, v, idx, valid, block_q=block_q, block_k=block_k,

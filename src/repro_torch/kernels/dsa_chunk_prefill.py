@@ -195,6 +195,8 @@ def dsa_chunk_gather_attention(q, k_cache, v_cache, idx, ok, q_off, kv_len,
     """K3 (K3q with scales).  q: (B,Hq,C,hd); k/v cache: (B,S,Hkv,hd);
     idx/ok: (B,C//block_q,nb); q_off/kv_len: (B,); k/v_scale: (B,S,Hkv)
     f32 or None.  Returns (B,Hq,C,hd) in q's dtype."""
+    LN.refuse_grad("K3 (dsa_chunk_gather_attention)", q, k_cache, v_cache,
+                   k_scale, v_scale)
     if q.device.type == "cpu":
         return dsa_chunk_gather_attention_plain(
             q, k_cache, v_cache, idx, ok, q_off, kv_len, block_q=block_q,
@@ -216,6 +218,8 @@ def dsa_chunk_paged_gather_attention(q, k_pool, v_pool, idx, pidx, ok,
     idx/pidx/ok: (B,C//block_q,nb) logical blocks, physical pages,
     validity; q_off/kv_len: (B,); k/v_scale: (P*block_k,Hkv) f32 or None.
     Returns (B,Hq,C,hd) in q's dtype."""
+    LN.refuse_grad("K5 (dsa_chunk_paged_gather_attention)", q, k_pool,
+                   v_pool, k_scale, v_scale)
     if q.device.type == "cpu":
         return dsa_chunk_paged_gather_attention_plain(
             q, k_pool, v_pool, idx, pidx, ok, q_off, kv_len, block_q=block_q,

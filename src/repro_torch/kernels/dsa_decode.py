@@ -211,6 +211,8 @@ def dsa_decode_gather_attention(q, k_cache, v_cache, idx, ok, kv_len, *,
     """K1 (K1q with scales).  q: (B,Hq,1,hd); k/v cache: (B,S,Hkv,hd);
     idx/ok: (B,nb); kv_len: (B,); k/v_scale: (B,S,Hkv) f32 or None.
     Returns (B,Hq,1,hd) in q's dtype."""
+    LN.refuse_grad("K1 (dsa_decode_gather_attention)", q, k_cache, v_cache,
+                   k_scale, v_scale)
     if q.device.type == "cpu":
         return dsa_decode_gather_attention_plain(
             q, k_cache, v_cache, idx, ok, kv_len, block_k=block_k,
@@ -232,6 +234,8 @@ def dsa_decode_paged_gather_attention(q, k_pool, v_pool, idx, pidx, ok,
     idx/pidx/ok: (B,nb) logical blocks, physical pages, validity; kv_len:
     (B,); k/v_scale: (P*block_k,Hkv) f32 or None.  Returns (B,Hq,1,hd) in
     q's dtype."""
+    LN.refuse_grad("K4 (dsa_decode_paged_gather_attention)", q, k_pool,
+                   v_pool, k_scale, v_scale)
     if q.device.type == "cpu":
         return dsa_decode_paged_gather_attention_plain(
             q, k_pool, v_pool, idx, pidx, ok, kv_len, block_k=block_k,

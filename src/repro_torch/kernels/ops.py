@@ -11,6 +11,12 @@ model layout, so the transpose back is free too.  ``k_scale``/``v_scale``
 select the quantized variants K1q, K3q, K4q and K5q.  K7 (``wkv6``) takes
 r/k/v/w as (B, H, S, hd) views of the model's (B, S, H, hd) and writes
 y in model layout.
+
+No kernel has a backward (no Pallas kernel of the reference defines a
+VJP): where autograd would need a gradient through one, its wrapper
+raises on the card and on the CPU alike (``_launch.refuse_grad``), so
+training runs the plain model path and a kernel serves only inference
+and the no-grad eval step.
 """
 from __future__ import annotations
 

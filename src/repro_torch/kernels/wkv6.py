@@ -81,6 +81,7 @@ def wkv6_chunked_plain(r, k, v, w, u, s0=None, *, chunk: int = 32):
 def wkv6_chunked(r, k, v, w, u, s0=None, *, chunk: int = 32):
     """r, k, v, w: (B,H,S,hd); u: (H,hd); s0: (B,H,hd,hd) f32 or None.
     Returns (y (B,H,S,hd), s_last (B,H,hd,hd) f32)."""
+    LN.refuse_grad("K7 (wkv6_chunked)", r, k, v, w, u, s0)
     if r.device.type == "cpu":
         return wkv6_chunked_plain(r, k, v, w, u, s0, chunk=chunk)
     if r.device.type != "cuda":

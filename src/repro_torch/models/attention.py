@@ -1,9 +1,11 @@
 """GQA attention with first-class DSA (paper §3), prefill and decode.
 
 Each ``init_*`` returns a dict of tensors.  When ``cfg.dsa.enabled`` and
-the run flags ask for it, prefill computes approximate scores through the
-prediction path, derives the dynamic sparse pattern and runs the sparse
-attention (MSE is a training term and is not computed at serving).
+the run flags ask for it, prefill and training compute approximate scores
+through the prediction path, derive the dynamic sparse pattern and run the
+sparse attention; in train mode (``RunFlags(mode="train")``, no cache)
+``apply_attention`` also returns the MSE term of the joint loss (Eq. 7)
+in its ``aux``.  Serving never computes it.
 
 Decode fast path (RunFlags(mode="decode", long_context=True)): the KV
 cache carries the predicted-key cache ``kt`` (B, S, k) and its
@@ -104,8 +106,11 @@ KV_QUANT_DTYPES = (None, "int8", "fp8")
 @dataclasses.dataclass(frozen=True)
 class RunFlags:
     """Runtime execution choices (not architecture)."""
-    mode: str = "prefill"          # prefill | decode
+    mode: str = "prefill"          # prefill | decode | train
     dsa_mode: str = "block"        # off | faithful | block | kernel
+    with_mse: bool = True          # train mode: compute L_MSE (Eq. 6)
+    mse_stride_cap: int = 512      # block path: MSE over every
+    #                                max(1, L // cap)-th query row
     long_context: bool = False     # DSA decode over the predicted-key cache
     # "int8": kt/ktb stored int8 with per-row scales, selection in integers
     select_dtype: str = "float32"
@@ -194,22 +199,41 @@ def _proj_qkv(params, cfg: ArchConfig, x):
             v.reshape(b, l, cfg.n_kv_heads, hd))
 
 
-def _dsa_prefill_pattern(params, cfg: ArchConfig, flags: RunFlags, x,
-                         causal: bool):
-    """The DSA pattern for prefill: the reference's
-    ``_dsa_train_mask_and_aux`` without the (training-only) MSE term.
+def _mean_head_scores(q, k, stride: int = 1):
+    """Mean-over-heads Q K^T, the MSE target S of Eq. 6 (GQA: each KV head
+    serves its group of query heads), over every ``stride``-th query row.
+    Unscaled and not detached: the MSE trains q and k too, as in the
+    reference."""
+    hq, hkv = q.shape[2], k.shape[2]
+    qs = q[:, ::stride]
+    s = einsum("bqhgd,bkhd->bqk",
+               qs.reshape(*qs.shape[:2], hkv, hq // hkv, -1), k)
+    return s / hq
 
-    Returns ("token", mask (B, L, L)) on the token path (faithful mode, or
-    a length that is not a block multiple: every prompt bucket under
-    block_q) or ("block", (idx, ok)) on the block path."""
+
+def _dsa_train_mask_and_aux(params, cfg: ArchConfig, flags: RunFlags, x,
+                            q, k, causal: bool):
+    """The DSA pattern for prefill and training and, in train mode with
+    ``flags.with_mse``, the MSE aux (the reference's
+    ``_dsa_train_mask_and_aux``).
+
+    Returns (("token", mask (B, L, L)), aux) on the token path (faithful
+    mode, or a length that is not a block multiple: every prompt bucket
+    under block_q) or (("block", (idx, ok)), aux) on the block path.  The
+    token path's MSE is over the full S~; the block path's over every
+    max(1, L // mse_stride_cap)-th query row of Q~ K~^T."""
     dsa = cfg.dsa
     b, l = x.shape[:2]
+    with_mse = flags.mode == "train" and flags.with_mse
+    aux: Dict[str, torch.Tensor] = {}
     if flags.dsa_mode == "faithful" or l % dsa.block_q or l % dsa.block_k:
         s_t = PRED.predict_scores(params["dsa"], x, None, bits=dsa.quant_bits)
         pm = A._pos_mask(l, l, causal, cfg.swa_window, device=x.device)
         valid = None if pm is None else pm.expand(b, l, l)
         keep = M.keep_count(l, dsa.sparsity)
-        return "token", M.row_topk_mask(s_t, keep, valid)
+        if with_mse:
+            aux["mse"] = PRED.mse_loss(_mean_head_scores(q, k), s_t)
+        return ("token", M.row_topk_mask(s_t, keep, valid)), aux
     bs = PRED.predict_block_scores(params["dsa"], x, None, bits=dsa.quant_bits,
                                    block_q=dsa.block_q, block_k=dsa.block_k)
     n_kb = l // dsa.block_k
@@ -220,34 +244,44 @@ def _dsa_prefill_pattern(params, cfg: ArchConfig, flags: RunFlags, x,
                                    window_blocks=wb,
                                    local_blocks=dsa.local_blocks,
                                    sort=dsa.sort_indices)
-    return "block", (idx, ok)
+    if with_mse:
+        stride = max(1, l // flags.mse_stride_cap)
+        q_t, k_t = PRED.predict_qk(params["dsa"], x, None, dsa.quant_bits)
+        s_t_sub = einsum("bqk,bsk->bqs", q_t[:, ::stride], k_t)
+        aux["mse"] = PRED.mse_loss(_mean_head_scores(q, k, stride), s_t_sub)
+    return ("block", (idx, ok)), aux
 
 
 def apply_attention(params, cfg: ArchConfig, flags: RunFlags, x, *,
                     cache=None, causal: bool = True, active=None,
                     chunk_len=None, sel_len=None):
-    """Returns (out, cache).  x: (B, S, d).  With a cache, prefill fills
-    it and decode appends one row per batch row, both in place.
+    """Returns (out, cache, aux).  x: (B, S, d).  With a cache, prefill
+    fills it and decode appends one row per batch row, both in place.
     ``active`` (an ``Active``) freezes the other rows at decode; ``chunk_len``
     (B,) switches decode to the chunk-append path (x is a C-token chunk
     per row, rows past chunk_len are padding) with ``sel_len`` its
-    selection geometry."""
+    selection geometry.  ``aux`` holds the MSE term in train mode (with
+    ``flags.with_mse`` and DSA on) and is empty otherwise."""
     if flags.mode == "decode":
         if "page_tbl" in cache:
             if chunk_len is not None:
                 raise ValueError("paged caches decode one token at a time")
-            return _apply_paged_decode(params, cfg, flags, x, cache, active)
-        if chunk_len is not None:
-            return _apply_chunk(params, cfg, flags, x, cache, active,
-                                chunk_len, sel_len)
-        return _apply_decode(params, cfg, flags, x, cache, active)
+            out = _apply_paged_decode(params, cfg, flags, x, cache, active)
+        elif chunk_len is not None:
+            out = _apply_chunk(params, cfg, flags, x, cache, active,
+                               chunk_len, sel_len)
+        else:
+            out = _apply_decode(params, cfg, flags, x, cache, active)
+        return (*out, {})
     dsa = cfg.dsa
+    aux: Dict[str, torch.Tensor] = {}
     q, k, v = _proj_qkv(params, cfg, x)
     pos = torch.arange(x.shape[1], device=x.device)
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
     if dsa_active(cfg, flags):
-        kind, pat = _dsa_prefill_pattern(params, cfg, flags, x, causal)
+        (kind, pat), aux = _dsa_train_mask_and_aux(params, cfg, flags, x, q,
+                                                   k, causal)
         if kind == "token":
             out = A.dense_attention(q, k, v, causal=causal,
                                     window=cfg.swa_window, token_mask=pat)
@@ -266,7 +300,7 @@ def apply_attention(params, cfg: ArchConfig, flags: RunFlags, x, *,
     if flags.mode == "prefill" and cache is not None:
         _fill_cache(cfg, flags, cache, k, v, params, x)
     out = mm(out.reshape(*x.shape[:2], -1), params["wo"])
-    return out, cache
+    return out, cache, aux
 
 
 def init_cache_attention(cfg: ArchConfig, batch: int, max_len: int,

@@ -79,19 +79,20 @@ def init_subblock_cache(cfg: ArchConfig, d: SubBlockDef, batch: int,
 
 def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
                    x, cache=None, **step):
-    """Pre-norm residual block.  Returns (x, cache); the cache is updated
-    in place.  ``step``: the decode-time ``active``, ``chunk_len`` and
+    """Pre-norm residual block.  Returns (x, cache, aux); the cache is
+    updated in place, ``aux`` is the attention's (the MSE term in train
+    mode).  ``step``: the decode-time ``active``, ``chunk_len`` and
     ``sel_len`` of ``apply_attention``."""
     if d.kind == "rwkv":
-        return _apply_rwkv_subblock(params, cfg, x, cache, **step), cache
+        return _apply_rwkv_subblock(params, cfg, x, cache, **step), cache, {}
     h = rms_norm(x, params["norm1"].to(x.dtype), cfg.norm_eps)
-    y, _ = apply_attention(params["attn"], cfg, flags, h,
-                           cache=None if cache is None else cache["attn"],
-                           causal=d.causal, **step)
+    y, _, aux = apply_attention(params["attn"], cfg, flags, h,
+                                cache=None if cache is None else cache["attn"],
+                                causal=d.causal, **step)
     x = x + y
     h = rms_norm(x, params["norm2"].to(x.dtype), cfg.norm_eps)
     x = x + apply_mlp(params["mlp"], h)
-    return x, cache
+    return x, cache, aux
 
 
 def _apply_rwkv_subblock(params, cfg: ArchConfig, x, cache=None,
@@ -121,8 +122,13 @@ def init_group(gen: torch.Generator, cfg: ArchConfig, *, device,
 
 def apply_group(params, cfg: ArchConfig, flags: RunFlags, defs, x,
                 cache=None, **step):
+    """Returns (x, cache, aux), each aux term summed over the group's
+    sub-blocks."""
+    auxes: Dict[str, torch.Tensor] = {}
     for i, d in enumerate(defs):
-        x, _ = apply_subblock(params[f"b{i}"], cfg, flags, d, x,
-                              cache=None if cache is None else cache[f"b{i}"],
-                              **step)
-    return x, cache
+        x, _, a = apply_subblock(params[f"b{i}"], cfg, flags, d, x,
+                                 cache=None if cache is None
+                                 else cache[f"b{i}"], **step)
+        for k, v in a.items():
+            auxes[k] = auxes[k] + v if k in auxes else v
+    return x, cache, auxes

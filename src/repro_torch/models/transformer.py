@@ -3,6 +3,7 @@
 Public API:
   init_model(seed, cfg, device=None)          -> params
   forward(params, cfg, flags, tokens, caches) -> (logits, caches)
+  forward_train(params, cfg, flags, tokens)   -> (logits, aux)
   decode_step(params, cfg, flags, tokens, caches, active=None)
                                               -> (logits, caches)
   chunk_step(params, cfg, flags, tokens, caches, chunk_len, active=None,
@@ -19,12 +20,21 @@ reference's ``unstack_group_caches`` produces for its decode loop, so no
 unstacking step is needed here.  An RWKV6 layer's cache holds its
 recurrent state ``s`` and the last tokens ``x_prev`` and ``ffn_prev``
 instead of K/V rows.
+
+``forward_train`` is the training forward (``RunFlags(mode="train")``, no
+cache): it also returns ``aux``, each of ``AUX_KEYS`` an f32 scalar summed
+over the layers (``mse``, the DSA predictor's Eq. 6 term; ``router``, 0
+here: no MoE arch is ported).  With ``cfg.remat`` and ``remat_policy``
+"full" each layer group runs under ``torch.utils.checkpoint`` when a
+gradient is being taken, so the backward pass recomputes its activations
+instead of holding them.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.prediction import mm
@@ -35,6 +45,8 @@ from repro_torch.models.attention import RunFlags, _rebuild_ktb, as_active
 from repro_torch.models.common import dense_init, rms_norm
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+AUX_KEYS = ("mse", "router")
 
 
 def init_model(seed: int, cfg: ArchConfig, *, device=None) -> Dict[str, Any]:
@@ -64,10 +76,57 @@ def forward(params, cfg: ArchConfig, flags: RunFlags, tokens: torch.Tensor,
     defs = B.group_defs(cfg)
     for i, gp in enumerate(params["groups"]):
         c = None if caches is None else caches["groups"][i]
-        x, _ = B.apply_group(gp, cfg, flags, defs, x, cache=c, **step)
+        x, _, _ = B.apply_group(gp, cfg, flags, defs, x, cache=c, **step)
+    return _head(params, cfg, x), caches
+
+
+def _head(params, cfg: ArchConfig, x):
     x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
-    return mm(x, head.to(x.dtype)), caches
+    return mm(x, head.to(x.dtype))
+
+
+def _norm_aux(aux: Dict, zero: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Every key of ``AUX_KEYS`` as an f32 scalar, 0 where ``aux`` has
+    none."""
+    return {k: aux[k].float() if k in aux else zero for k in AUX_KEYS}
+
+
+def forward_train(params, cfg: ArchConfig, flags: RunFlags,
+                  tokens: torch.Tensor):
+    """tokens: (B, S) int.  Returns (logits (B, S, V), aux): the training
+    forward, each aux term summed over the layers (a sum, not a mean, as
+    the reference's layer scan carries it).  Raises for an RWKV6 arch and
+    for ``remat_policy="dots"``."""
+    if flags.mode != "train":
+        raise ValueError("forward_train needs RunFlags(mode='train')")
+    if cfg.rwkv is not None:
+        raise NotImplementedError(
+            f"training {cfg.name}: the port's chunked wkv is the forward-only "
+            f"kernel K7 on the card; training needs a differentiable chunked "
+            f"wkv (the reference's XLA _wkv_chunked), ROADMAP Queue 1, item 1")
+    remat = cfg.remat and cfg.remat_policy != "none"
+    if remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r} is not ported (only 'full' "
+            f"and 'none'; ROADMAP Queue 1, item 1)")
+    x = params["embed"][tokens.long()].to(DTYPES[cfg.dtype])
+    defs = B.group_defs(cfg)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {k: zero for k in AUX_KEYS}
+
+    def group(gp, x):
+        x, _, a = B.apply_group(gp, cfg, flags, defs, x)
+        a = _norm_aux(a, zero)
+        return (x,) + tuple(a[k] for k in AUX_KEYS)
+
+    for gp in params["groups"]:
+        if remat and torch.is_grad_enabled():
+            x, *a = checkpoint(group, gp, x, use_reentrant=False)
+        else:
+            x, *a = group(gp, x)
+        aux = {k: aux[k] + v for k, v in zip(AUX_KEYS, a)}
+    return _head(params, cfg, x), aux
 
 
 def decode_step(params, cfg: ArchConfig, flags: RunFlags, tokens, caches,

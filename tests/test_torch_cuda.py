@@ -977,3 +977,123 @@ def test_cuda_graph_faithful_and_ring_segments_equal_solo_eager(
         want = solo.generate(r.prompt[None], r.n_new, greedy=r.greedy,
                              seed=r.seed, temperature=r.temperature).tokens[0]
         np.testing.assert_array_equal(got[r.rid], want, err_msg=str(r.rid))
+
+
+def _kernel_calls(dev, requires_grad):
+    """One call of each public kernel wrapper on small inputs on ``dev``,
+    q (r for K7) requiring grad or not."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    b, hq, hkv, hd, s, bk = 2, 4, 2, 16, 64, 16
+    q1, qc, q2 = (rnd(*shape).requires_grad_(requires_grad) for shape in (
+        (b, hq, 1, hd), (b, hq, bk, hd), (b, hq, s, hd)))
+    kc, vc = rnd(b, s, hkv, hd), rnd(b, s, hkv, hd)
+    pool = kc.reshape(b * s, hkv, hd)
+    i32 = dict(dtype=torch.int32, device=dev)
+    idx = torch.tensor([[0, 1], [2, 0]], **i32)
+    pidx = idx + torch.tensor([[0], [4]], **i32)
+    ok = torch.ones((b, 2), dtype=torch.bool, device=dev)
+    kv_len = torch.tensor([s, 40], **i32)
+    q_off = torch.tensor([16, 0], **i32)
+    own = torch.arange(s // bk, **i32)[None, :, None].expand(b, -1, 1)
+    r = rnd(b, hq, s, hd).requires_grad_(requires_grad)
+    w = torch.rand((b, hq, s, hd), generator=g, device=dev) * 0.5 + 0.4
+    return {
+        "K1": (K1.dsa_decode_gather_attention, lambda: K1.
+               dsa_decode_gather_attention(q1, kc, vc, idx, ok, kv_len,
+                                           block_k=bk)),
+        "K4": (K1.dsa_decode_paged_gather_attention, lambda: K1.
+               dsa_decode_paged_gather_attention(q1, pool, pool, idx, pidx,
+                                                 ok, kv_len, block_k=bk)),
+        "K2": (K2.dsa_block_sparse_attention, lambda: K2.
+               dsa_block_sparse_attention(q2, q2.detach(), q2.detach(), own,
+                                          torch.ones_like(own, dtype=torch.
+                                                          bool),
+                                          block_q=bk, block_k=bk)),
+        "K3": (K3.dsa_chunk_gather_attention, lambda: K3.
+               dsa_chunk_gather_attention(qc, kc, vc, idx[:, None],
+                                          ok[:, None], q_off, kv_len,
+                                          block_q=bk, block_k=bk)),
+        "K5": (K3.dsa_chunk_paged_gather_attention, lambda: K3.
+               dsa_chunk_paged_gather_attention(qc, pool, pool, idx[:, None],
+                                                pidx[:, None], ok[:, None],
+                                                q_off, kv_len, block_q=bk,
+                                                block_k=bk)),
+        "K7": (K7.wkv6_chunked, lambda: K7.wkv6_chunked(
+            r, r.detach(), r.detach(), w, torch.zeros((hq, hd), device=dev))),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K7"])
+def test_cuda_kernel_wrappers_refuse_autograd(cuda_device, kernel):
+    """On the card a wrapper asked for a gradient raises before it
+    launches (its output would have none, and the backward would stop
+    there silently); without gradients it launches."""
+    fn, call = _kernel_calls(cuda_device, requires_grad=True)[kernel]
+    before = fn.launches
+    with pytest.raises(NotImplementedError, match="no backward"):
+        call()
+    assert fn.launches == before
+    with torch.no_grad():
+        out = call()
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.grad_fn is None and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["block", "faithful", "off"])
+def test_cuda_train_step_matches_cpu(cuda_device, mode):
+    """One train step of reduced yi_6b (f32) on the card against the same
+    step on the CPU from the same params: loss, ce, mse and grad_norm at
+    rtol 1e-4, P unchanged, no kernel launched; then the eval step on
+    the kernel path (K2 once a layer) gives the block path's ce."""
+    import numpy as np
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.data.synthetic import DataConfig, lm_batches
+    from repro_torch.models.attention import RunFlags
+    from repro_torch.optim import adamw
+    from repro_torch.training import steps as ST
+    cfg = reduced(get_config("yi_6b"))
+    opt = adamw.OptConfig(lr=1e-3, total_steps=10, warmup_steps=2)
+    batch = next(lm_batches(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                       global_batch=4)))
+    flags = RunFlags(mode="train", dsa_mode=mode)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        state = ST.init_train_state(0, cfg, opt, device="cpu")
+        if dev.type == "cuda":
+            state["params"] = _to(state["params"], dev)
+            state["opt"] = adamw.init(opt, state["params"])
+        before = K2.dsa_block_sparse_attention.launches
+        p0 = state["params"]["groups"][0]["b0"]["attn"]["dsa"]["p"].clone()
+        state, m = ST.make_train_step(cfg, opt, flags, microbatches=2)(
+            state, batch)
+        assert K2.dsa_block_sparse_attention.launches == before
+        assert torch.equal(state["params"]["groups"][0]["b0"]["attn"][
+            "dsa"]["p"], p0)
+        out[dev.type] = ({k: float(v) for k, v in m.items()}, state)
+    for k in ("loss", "ce", "mse", "grad_norm"):
+        np.testing.assert_allclose(out["cuda"][0][k], out["cpu"][0][k],
+                                   rtol=1e-4, err_msg=k)
+    params = out["cuda"][1]["params"]
+    before = K2.dsa_block_sparse_attention.launches
+    ce = {m: float(ST.make_eval_step(cfg, RunFlags(
+        mode="train", with_mse=False, dsa_mode=m))(params, batch)["ce"])
+        for m in ("block", "kernel")}
+    assert K2.dsa_block_sparse_attention.launches == before + cfg.n_layers
+    np.testing.assert_allclose(ce["kernel"], ce["block"], rtol=1e-5)
+
+
+def _to(tree, dev):
+    """A copy of a parameter tree on ``dev``, keeping requires_grad."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.detach().to(dev).requires_grad_(tree.requires_grad)
