@@ -112,7 +112,27 @@ fails:
      metrics, P unchanged, no kernel launched, the median step time,
      tokens/s, the 6 N D share of 989 TFLOP/s, peak memory and the bytes
      of params, grads and moments; and a torch.profiler trace of one more
-     step and of the optimizer update alone.
+     step and of the optimizer update alone;
+ 13. prefix reuse and per-request DSA modes in the continuous engine:
+     (a) a 2-layer full-width yi_6b in f32 (paged, chunked, 2 slots,
+     kernel mode): six requests declaring a 200-token shared prefix get
+     the tokens of the same requests undeclared, bit for bit, with hits,
+     fewer chunk steps and the pool holding only the registered page
+     after, f32 and int8/int8; requests of the four modes on one engine
+     (each mode's segments replays of its own graph) get the tokens of
+     the same segments eager and, kernel, block and off, of a solo eager
+     ``generate(dsa_mode=)``; a block engine's ``generate(dsa_mode=
+     "kernel")`` launches K2 once a layer and K1 once a layer a step and
+     gives a kernel engine's tokens.  (b) full-width yi_6b (32 layers,
+     bf16, paged, chunk 512, 4 slots, max_len 8192, segments of 16): 8
+     requests sharing a 2048-token system prompt (prompts 2304-3648), all
+     queued at the start, once declared and once not: equal tokens, K3
+     once a layer a chunk step and K4 once a layer a decode step, goodput,
+     latency, TTFT, chunk steps and prefix hits, then the pair with int8
+     K/V and selection (K3q, K4q); and the continuous slice's workload
+     with every other request on dsa_mode "off", with max_mode_wait_s
+     None and 0.5: every request ok, each mode's latency, segments and
+     switches, and two captured graphs with their pools' bytes.
 
 It then prints one JSON line of per-kernel results, the card's name and
 power limit again as ``nvidia-smi`` gives them, and as its last line
@@ -1547,6 +1567,319 @@ def train_slice(torch, seed: int) -> dict:
             "update_busy_ms": up[0]}
 
 
+# -- prefix reuse and per-request modes ---------------------------------------
+
+
+def _tokens_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        bool((a[k] == b[k]).all()) for k in a)
+
+
+def prefix_modes_parity_phase(torch, seed: int, card: str) -> dict:
+    """13a. yi_6b at full width, 2 layers, f32, paged, chunked (chunk 128,
+    the least a 128-row block allows), 2 slots, kernel mode.  Six greedy requests declaring a 200-token shared
+    prefix get the tokens of the same requests undeclared, bit for bit,
+    with hits and fewer chunk steps, and the pool ends holding only the
+    registered page; the same with int8 K/V and int8 selection.  Requests
+    of four modes on one kernel-mode engine (every segment a replay of its
+    mode's graph) get the tokens of the same engine's eager segments, and
+    of a solo eager ``generate(dsa_mode=)`` for kernel, block and off.  A
+    block engine's ``generate(dsa_mode="kernel")`` launches K2 once a
+    layer and K1 once a layer a step and gives a kernel engine's tokens.
+    Every request of a wave has the same n_new, so the waves' groups (and
+    the products' shapes) are the same in the runs compared."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.inference.engine import Engine
+    from repro_torch.inference.scheduler import ContinuousEngine, Request
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_model
+    cfg = dataclasses.replace(get_config("yi_6b"), n_layers=2,
+                              dtype="float32", param_dtype="float32")
+    params = init_model(seed, cfg)
+    rng = np.random.default_rng(seed + 5)
+    sys_p = rng.integers(1, cfg.vocab - 4, size=(200,)).astype(np.int32)
+    prompts = [np.concatenate([sys_p, rng.integers(
+        1, cfg.vocab - 4, size=(t,)).astype(np.int32)])
+        for t in (60, 100, 140, 180, 80, 120)]        # 260-380: bucket 512
+    kw = dict(max_len=640, slots=2, seg_len=16, chunk_tokens=128,
+              paged=True, long_context=True, dsa_mode="kernel")
+    out = {}
+    for quant in (None, "int8"):
+        qkw = {} if quant is None else dict(kv_quant=quant,
+                                            select_dtype="int8")
+        got, st, pool = {}, {}, {}
+        for declare in (True, False):
+            eng = ContinuousEngine(cfg, params, **kw, **qkw)
+            got[declare] = eng.run([
+                Request(i, p, 16, seed=i, prefix_len=200 if declare else 0)
+                for i, p in enumerate(prompts)])
+            st[declare] = dict(eng.stats)
+            pool[declare] = (eng.pool.available(), eng.pool_pages,
+                             len(eng.pool.prefixes))
+            del eng
+        n_sh = 200 // 128
+        same = _tokens_equal(got[True], got[False])
+        label = "f32" if quant is None else f"{quant} K/V, int8 selection"
+        print(f"prefix parity: 2-layer full-width yi_6b {label}, 6 requests "
+              f"sharing a 200-token prefix ({n_sh} page), chunk 128, 2 "
+              f"slots: declared == undeclared tokens: {same}; prefix hits "
+              f"{st[True]['prefix_hits']}, tokens reused "
+              f"{st[True]['prefix_tokens_reused']}, chunk steps "
+              f"{st[True]['chunks']} against {st[False]['chunks']}; pool "
+              f"{pool[True][0]} of {pool[True][1]} pages free, "
+              f"{pool[True][2]} registration [{card}]", flush=True)
+        if not same:
+            fail(f"prefix parity ({label}): declared and undeclared tokens "
+                 f"differ")
+        if (st[True]["prefix_hits"] == 0
+                or st[True]["chunks"] >= st[False]["chunks"]
+                or pool[True] != (pool[True][1] - 1 - n_sh, pool[True][1], 1)
+                or pool[False][0] != pool[False][1] - 1):
+            fail(f"prefix parity ({label}): stats {st[True]}, pool "
+                 f"{pool}")
+        out[f"prefix {label}"] = same
+    # per-request modes: two requests a mode, grouped by mode (FIFO)
+    modes = [None, "block", "faithful", "off"]
+    reqs = [Request(i, rng.integers(1, cfg.vocab - 4, size=(n,)).astype(
+        np.int32), 16, seed=i, dsa_mode=modes[i % 4])
+        for i, n in enumerate((300, 340, 380, 420, 460, 500, 320, 480))]
+    got = {}
+    for label in ("graphed", "eager"):
+        eng = ContinuousEngine(cfg, params, **kw)
+        if label == "eager":
+            eng.graphs = None            # the same segments, step by step
+        got[label] = eng.run(reqs)
+        if label == "graphed":
+            g, steps = eng.graphs, eng.stats["decode_steps"]
+            pools = {k[4]: x.pool_bytes for k, x in g.graphs.items()}
+        del eng
+    graphed = _tokens_equal(got["graphed"], got["eager"])
+    solo = Engine(cfg, params, loop="python", max_len=640,
+                  long_context=True, dsa_mode="kernel")
+    equal = {}
+    for r in reqs:
+        want = solo.generate(r.prompt[None], 16, seed=r.seed,
+                             dsa_mode=r.dsa_mode).tokens[0]
+        m = r.dsa_mode or "kernel"
+        equal[m] = equal.get(m, True) and bool(
+            (got["graphed"][r.rid] == want).all())
+    print(f"mode parity: 2-layer full-width yi_6b f32, a kernel engine "
+          f"serving kernel, block, faithful and off requests: segments "
+          f"(graph replays) == the same segments eager: {graphed}; == solo "
+          f"python generate(dsa_mode=) per mode: {equal} (faithful not "
+          f"required: a token top-k flips on the last bit of products of "
+          f"other shapes); {g.captures} captures, {g.replays} replays for "
+          f"{steps} decode steps; graph pool bytes per mode {pools} "
+          f"[{card}]", flush=True)
+    if (not graphed or not all(equal[m] for m in ("kernel", "block", "off"))
+            or g.captures != 4 or g.replays != steps):
+        fail(f"mode parity: graphed == eager {graphed}, == solo {equal}, "
+             f"{g.captures} captures, {g.replays} replays")
+    out["modes"] = equal
+    # the static override: a block engine's generate on the kernel path
+    prompts = rng.integers(1, cfg.vocab - 4, size=(2, 512)).astype(np.int32)
+    block = Engine(cfg, params, max_len=544, long_context=True,
+                   dsa_mode="block")
+    serve.reset_launch_counts()
+    res = block.generate(prompts, 16, dsa_mode="kernel")
+    n = {k: v for k, v in serve.launch_counts().items() if v}
+    want_n = {"K2": cfg.n_layers, "K1": cfg.n_layers * res.decode_steps}
+    kern = Engine(cfg, params, max_len=544, long_context=True,
+                  dsa_mode="kernel").generate(prompts, 16).tokens
+    same = bool((res.tokens == kern).all())
+    print(f"static override: a block engine's generate(dsa_mode=\"kernel\"), "
+          f"prompt 512, 16 new: launches {n} (want {want_n}), tokens == a "
+          f"kernel engine's: {same} [{card}]", flush=True)
+    if n != want_n or not same:
+        fail(f"static override: launches {n}, want {want_n}; tokens equal "
+             f"{same}")
+    out["static override"] = same
+    del params, solo, block
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_counted(eng, reqs) -> dict:
+    """Serve ``reqs`` (all queued at the start) on a warm engine: the
+    summary, the stats' increments, the launches, and per mode the
+    segments, decode steps and chunk steps with their host wall seconds
+    (a segment ends in its host sync), and the mode switches."""
+    from repro_torch.inference.scheduler import summarize
+    from repro_torch.launch import serve
+    per = {}
+    seq = []
+    seg, chunk = eng.run_segment, eng._chunk
+
+    def mode(m):
+        return per.setdefault(m, {"segments": 0, "decode_steps": 0,
+                                  "segment_s": 0.0, "chunks": 0})
+
+    def counted_segment(clock, results):
+        m = eng._cur_mode
+        d = eng.stats["decode_steps"]
+        t0 = time.monotonic()
+        seg(clock, results)
+        p = mode(m)
+        p["segment_s"] += time.monotonic() - t0
+        p["segments"] += 1
+        p["decode_steps"] += eng.stats["decode_steps"] - d
+        if not seq or seq[-1] != m:
+            seq.append(m)
+
+    def counted_chunk(pf):
+        mode(pf.mode)["chunks"] += 1
+        return chunk(pf)
+
+    eng.run_segment, eng._chunk = counted_segment, counted_chunk
+    st0 = dict(eng.stats)
+    serve.reset_launch_counts()
+    try:
+        results = eng.serve(reqs)
+    finally:
+        del eng.run_segment, eng._chunk
+    launches = serve.launch_counts()
+    st = {k: v - st0[k] for k, v in eng.stats.items()}
+    summ = summarize(results, max(r.finish_s for r in results))
+    bad = [r.rid for r in results
+           if r.status != "ok" or len(r.tokens) != r.n_new
+           or r.tokens.min() < 0 or r.tokens.max() >= eng.cfg.vocab]
+    if len(results) != len(reqs) or bad:
+        fail(f"{len(results)} results of {len(reqs)}, bad {bad}")
+    return {"results": results, "summary": summ, "stats": st,
+            "launches": launches, "per_mode": per,
+            "switches": max(0, len(seq) - 1)}
+
+
+def prefix_modes_slice(torch, seed: int, card: str) -> dict:
+    """13b. yi_6b at full width (32 layers, bf16, random weights from
+    ``seed``), paged, chunked (chunk 512), 4 slots, max_len 8192, segments
+    of 16, kernel mode, f32 cache.  The prefix run: 8 greedy requests, all
+    queued at the start, one 2048-token system prompt (16 pages) and tails
+    of 256-1600 tokens (prompts 2304-3648, bucket 4096), 16-64 new tokens
+    (the first four 48 each, so they retire together and the last four
+    admit as one group in every run), once declaring prefix_len 2048 and
+    once not: equal tokens, K3 once a layer a chunk step and K4 once a
+    layer a decode step; then the pair with int8 K/V and int8 selection
+    (K3q/K4q, and no K3/K4).  The mixed-mode run: the continuous slice's
+    workload with every other request on dsa_mode "off", with
+    max_mode_wait_s None and 0.5: every request ok, two graphs."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.inference.scheduler import (ContinuousEngine, Request,
+                                                 synthetic_workload)
+    from repro_torch.models.transformer import init_model
+    cfg = get_config("yi_6b")
+    n_layers = cfg.n_layers
+    params = init_model(seed, cfg)
+    rng = np.random.default_rng(seed + 7)
+    sys_p = rng.integers(1, cfg.vocab - 4, size=(2048,)).astype(np.int32)
+    tails = rng.integers(256, 1601, size=8)
+    n_new = [48] * 4 + [int(x) for x in rng.integers(16, 65, size=4)]
+    prompts = [np.concatenate([sys_p, rng.integers(
+        1, cfg.vocab - 4, size=(int(t),)).astype(np.int32)]) for t in tails]
+    kw = dict(max_len=8192, slots=4, seg_len=16, chunk_tokens=512,
+              paged=True, long_context=True, dsa_mode="kernel")
+    warm = Request(-1, prompts[0][:512], 2)
+    out = {"launches": {}}
+    for quant in (None, "int8"):
+        qkw = {} if quant is None else dict(kv_quant=quant,
+                                            select_dtype="int8")
+        eng = ContinuousEngine(cfg, params, **kw, **qkw)
+        eng.run([warm])                  # the capture, outside the timing
+        runs = {}
+        for declare in (False, True):
+            runs[declare] = r = _serve_counted(eng, [
+                Request(i, p, n_new[i], seed=i,
+                        prefix_len=2048 if declare else 0)
+                for i, p in enumerate(prompts)])
+            s, st, n = r["summary"], r["stats"], r["launches"]
+            label = (f"{'declared' if declare else 'undeclared'}, "
+                     + ("f32" if quant is None else
+                        f"{quant} K/V, int8 selection"))
+            ck, dk = ("K3q", "K4q") if quant else ("K3", "K4")
+            print(f"prefix slice ({label}): 8 requests, prompts "
+                  f"{min(map(len, prompts))}-{max(map(len, prompts))}: "
+                  f"{s['goodput_tok_s']} tok/s goodput, latency p50 "
+                  f"{s['p50_latency_s']} s / p95 {s['p95_latency_s']} s, "
+                  f"TTFT p50 {s['p50_ttft_s']} s / p95 {s['p95_ttft_s']} s, "
+                  f"{st['chunks']} chunk steps, {st['decode_steps']} decode "
+                  f"steps, prefix hits {st['prefix_hits']}, tokens reused "
+                  f"{st['prefix_tokens_reused']}, launches {ck} {n[ck]} "
+                  f"{dk} {n[dk]} [{card}]", flush=True)
+            want = {ck: n_layers * st["chunks"],
+                    dk: n_layers * st["decode_steps"]}
+            if {k: v for k, v in n.items() if v} != want:
+                fail(f"prefix slice ({label}): launches {n}, want {want}")
+            out["launches"][f"prefix {label}"] = n
+        tok = {d: {x.rid: x.tokens for x in runs[d]["results"]}
+               for d in runs}
+        same = _tokens_equal(tok[True], tok[False])
+        hits = runs[True]["stats"]["prefix_hits"]
+        fewer = runs[True]["stats"]["chunks"] < runs[False]["stats"]["chunks"]
+        print(f"  declared == undeclared tokens: {same}; hits {hits}; fewer "
+              f"chunk steps: {fewer}; pool {eng.pool.available()} of "
+              f"{eng.pool_pages} pages free, {len(eng.pool.prefixes)} "
+              f"registration", flush=True)
+        if not (same and hits and fewer):
+            fail(f"prefix slice: tokens equal {same}, hits {hits}, fewer "
+                 f"chunks {fewer}")
+        if eng.pool.available() != eng.pool_pages - 1 - 16:
+            fail("prefix slice: the pool holds more than the registration")
+        out[quant or "f32"] = {d: {k: runs[d][k] for k in (
+            "summary", "stats")} for d in runs}
+        del eng
+        torch.cuda.empty_cache()
+    # the mixed-mode run: the continuous slice's workload, odd rids "off"
+    eng = ContinuousEngine(cfg, params, **kw)
+    eng.run([warm])
+    for wait in (None, 0.5):
+        eng.max_mode_wait_s = wait
+        reqs = synthetic_workload(8, rate_rps=1e9, prompt_lens=(1024, 4096),
+                                  n_new_range=(16, 64), vocab=cfg.vocab,
+                                  seed=seed)
+        for r in reqs:
+            r.dsa_mode = "off" if r.rid % 2 else None
+        r = _serve_counted(eng, reqs)
+        lat = {}
+        for m in ("kernel", "off"):
+            xs = [x.latency_s for x in r["results"]
+                  if (reqs[x.rid].dsa_mode or "kernel") == m]
+            lat[m] = (round(float(np.percentile(xs, 50)), 3),
+                      round(float(np.percentile(xs, 95)), 3))
+        per = r["per_mode"]
+        n = r["launches"]
+        print(f"mixed-mode slice (max_mode_wait_s {wait}): "
+              f"{r['summary']['goodput_tok_s']} tok/s goodput; latency "
+              f"p50/p95 kernel {lat['kernel'][0]}/{lat['kernel'][1]} s, off "
+              f"{lat['off'][0]}/{lat['off'][1]} s; per mode (segments, "
+              f"decode steps, ms a decode step, chunk steps) "
+              + ", ".join(f"{m} {p['segments']}/{p['decode_steps']}/"
+                          f"{1e3 * p['segment_s'] / max(p['decode_steps'], 1):.2f}/"
+                          f"{p['chunks']}" for m, p in per.items())
+              + f"; {r['switches']} mode switches; launches K3 {n['K3']} K4 "
+              f"{n['K4']} [{card}]", flush=True)
+        k = per.get("kernel", {"chunks": 0, "decode_steps": 0})
+        want = {"K3": n_layers * k["chunks"],
+                "K4": n_layers * k["decode_steps"]}
+        if {x: v for x, v in n.items() if v} != {x: v for x, v in
+                                                 want.items() if v}:
+            fail(f"mixed-mode slice: launches {n}, want {want}")
+        out["launches"][f"mixed {wait}"] = n
+        out[f"mixed {wait}"] = {"summary": r["summary"], "latency": lat,
+                                "per_mode": per, "switches": r["switches"]}
+    g = eng.graphs
+    pools = {key[4]: x.pool_bytes for key, x in g.graphs.items()}
+    print(f"  segment graphs: {g.captures} captured, pool bytes per mode "
+          f"{pools} [{card}]", flush=True)
+    if g.captures != 2 or len(pools) != 2:
+        fail(f"mixed-mode slice: {g.captures} graphs captured, want 2")
+    out["graph_pool_bytes"] = pools
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
 def static_slice(torch, seed: int, arch: str, dsa_mode: str, want,
                  prompt_len: int = 4096, quant=None) -> dict:
     """Serve ``arch`` at full width through ``repro_torch.launch.serve``:
@@ -1862,6 +2195,11 @@ def main() -> None:
     # training: the plain model path, no kernel; eval runs K2
     train_parity_phase(torch, args.seed)
     train_slice(torch, args.seed)
+    torch.cuda.empty_cache()
+    # prefix reuse and per-request modes: K3/K4 (K3q/K4q) on the prefix
+    # runs, K3/K4 on the kernel-mode requests of the mixed-mode runs
+    prefix_modes_parity_phase(torch, args.seed, card)
+    launches.update(prefix_modes_slice(torch, args.seed, card)["launches"])
 
     src = "src/repro_torch/kernels/csrc/"
     rep = "src/repro/kernels/"

@@ -3,8 +3,21 @@
 ``Engine`` reads the shared and static-batch fields, ``ContinuousEngine``
 (inference/scheduler.py) the shared and continuous fields, so one config
 can parameterise a whole serving stack.  The port carries the fields of
-the paths ported so far; speculation, serving meshes, the request
-lifecycle knobs and telemetry come with the slices that port those paths.
+the paths ported so far.  Still unported (``UNPORTED``; each raises
+``NotImplementedError``): speculation (``spec``, ``draft``,
+``spec_rounds``), the request lifecycle and shedding (``queue_cap``,
+``shed_policy``, ``deadline_s``, ``admit_retries``, ``injector``),
+telemetry, serving meshes (``mesh``, ``shard_rules``) and MoE prefill
+(``moe_prefill``).  RWKV6 in the continuous engine is refused by the
+engine itself, whatever the config.
+
+Per-request DSA modes (continuous engine): segments are mode-affine, so a
+queued request of another ``dsa_mode`` waits for the engine to drain.
+
+  max_mode_wait_s  None (default): wait for a natural idle drain.  A
+                   number: once such a request has waited this many
+                   seconds, admission of current-mode traffic stops until
+                   the engine drains and switches modes.
 
 Mixed-precision serving:
 
@@ -52,6 +65,7 @@ class ServingConfig:
     chunk_tokens: int = 64           # admission chunk width (pow2-rounded)
     paged: bool = False              # page the resident KV cache
     pool_pages: Optional[int] = None  # None = every slot at max_len + 1
+    max_mode_wait_s: Optional[float] = None   # other-mode aging (see above)
 
     def __post_init__(self):
         for name, val, valid in (("dsa_mode", self.dsa_mode, DSA_MODES),
@@ -67,7 +81,7 @@ class ServingConfig:
 
 
 # the reference's ServingConfig fields of paths not ported yet
-UNPORTED = ("spec", "draft", "spec_rounds", "max_mode_wait_s", "mesh",
+UNPORTED = ("spec", "draft", "spec_rounds", "mesh",
             "shard_rules", "moe_prefill", "queue_cap", "shed_policy",
             "deadline_s", "admit_retries", "injector", "telemetry")
 

@@ -28,6 +28,12 @@ the same step runs eagerly.  ``loop="python"`` runs exactly ``n_new - 1``
 eager steps and copies each token to the host, the per-token baseline.
 Both give the same tokens.
 
+Per-call DSA modes: ``prefill``, ``generate`` and ``scan_step`` take a
+``dsa_mode`` override (``run_flags``) over the engine's cache layout
+(``long_context`` stays the engine's); each mode's decode step is a graph
+of its own over the same resident cache (``graphs.step_key`` holds the
+mode), as the reference compiles one program per mode in use.
+
 Throughput accounting: ``decode_steps`` counts the steps EXECUTED and
 ``tokens_per_s = B * decode_steps / decode_s``, the decode-phase step
 throughput (the first token comes from prefill and is not counted).
@@ -182,34 +188,47 @@ class Engine:
                 dtype=self.cache_dtype, device=self.device)
         return self._caches[batch]
 
-    def scan_step(self, batch: int) -> Callable:
-        """The scan loop's decode step over the resident cache of
-        ``batch``: ``step(tok (B, 1)) -> logits (B, 1, V)``.  On the card
-        a replay of the step's CUDA graph, captured on the first call
-        (whose warm-up steps write the cache, so capture before a
-        prefill); on the CPU the step run eagerly."""
+    def run_flags(self, mode: str, dsa_mode: Optional[str] = None
+                  ) -> RunFlags:
+        """The engine's prefill or decode flags, with ``dsa_mode`` in place
+        of the engine's when given (per-call and per-request modes)."""
+        base = self.prefill_flags if mode == "prefill" else self.decode_flags
+        if dsa_mode is None or dsa_mode == base.dsa_mode:
+            return base
+        return dataclasses.replace(base, dsa_mode=dsa_mode)
+
+    def scan_step(self, batch: int, flags: Optional[RunFlags] = None
+                  ) -> Callable:
+        """The scan loop's decode step under ``flags`` (default the
+        engine's decode flags) over the resident cache of ``batch``:
+        ``step(tok (B, 1)) -> logits (B, 1, V)``.  On the card a replay of
+        the CUDA graph of those flags, captured on the first call (whose
+        warm-up steps write the cache, so capture before a prefill); on
+        the CPU the step run eagerly."""
         caches = self.resident_cache(batch)
+        flags = flags or self.decode_flags
 
         def step(tok, mask=None):
-            return decode_step(self.params, self.cfg, self.decode_flags,
-                               tok, caches)[0]
+            return decode_step(self.params, self.cfg, flags, tok, caches)[0]
 
         if self.graphs is None:
             return step
         return self.graphs.step(
-            step_key(self.cfg, self.decode_flags, batch, paged=False), step,
+            step_key(self.cfg, flags, batch, paged=False), step,
             caches, batch, masked=False)
 
     @torch.inference_mode()
     def prefill(self, prompts: np.ndarray,
                 lengths: Optional[np.ndarray] = None,
-                cache_len: Optional[int] = None, caches: Optional[Dict] = None
+                cache_len: Optional[int] = None, caches: Optional[Dict] = None,
+                dsa_mode: Optional[str] = None
                 ) -> Tuple[torch.Tensor, Dict, float]:
         """Bucketed prefill of a (B, L) prompt batch into ``caches``,
         zeroed first (``generate`` passes the resident cache), or else
         into a fresh cache of ``cache_len`` rows (default the engine's
         max_len; the continuous scheduler passes the prompt bucket and
-        zero-extends at slot insertion).  Returns (last_logits (B, 1, V),
+        zero-extends at slot insertion).  ``dsa_mode`` overrides the
+        engine's DSA path for this call.  Returns (last_logits (B, 1, V),
         caches, prefill_seconds)."""
         prompts = np.asarray(prompts, np.int32)
         b, s = prompts.shape
@@ -234,8 +253,9 @@ class Engine:
                                device=self.device)
         _sync(self.device)
         t0 = time.monotonic()
-        logits, caches = forward(self.params, self.cfg, self.prefill_flags,
-                                 toks, caches)
+        logits, caches = forward(self.params, self.cfg,
+                                 self.run_flags("prefill", dsa_mode), toks,
+                                 caches)
         truncate_cache(self.cfg, caches, lens)
         last = logits[torch.arange(b, device=self.device), lens - 1][:, None]
         _sync(self.device)
@@ -244,10 +264,13 @@ class Engine:
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, n_new: int, greedy: bool = True,
                  seed: int = 0, lengths: Optional[np.ndarray] = None,
-                 temperature: float = 1.0) -> GenerationResult:
+                 temperature: float = 1.0,
+                 dsa_mode: Optional[str] = None) -> GenerationResult:
         """``lengths`` (B,): per-row true prompt lengths of a right-padded
         ragged batch; each row prefills and decodes at its own depth.
-        ``temperature`` scales sampled (non-greedy) logits."""
+        ``temperature`` scales sampled (non-greedy) logits; ``dsa_mode``
+        overrides the engine's DSA path for this call (the cache layout,
+        ``long_context`` included, stays the engine's)."""
         if n_new < 1:
             raise ValueError("generate() needs n_new >= 1")
         prompts = np.asarray(prompts, np.int32)
@@ -266,11 +289,13 @@ class Engine:
         if scan and self.bucket_steps and steps_exec:
             steps_exec = pow2_bucket(steps_exec, STEP_BUCKET_FLOOR)
         caches = self.resident_cache(b)
+        dflags = self.run_flags("decode", dsa_mode)
         # the step (and its graph's capture) comes before the prefill,
         # which zeroes what a capture's warm-up steps wrote
-        step = self.scan_step(b) if scan and steps_exec else None
+        step = self.scan_step(b, dflags) if scan and steps_exec else None
         logits, caches, t_prefill = self.prefill(prompts, lengths=lengths,
-                                                 caches=caches)
+                                                 caches=caches,
+                                                 dsa_mode=dsa_mode)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         t0 = time.monotonic()
         tok = _sample(logits[:, -1], gen, greedy, temperature)
@@ -279,8 +304,8 @@ class Engine:
             if scan:
                 logits = step(tok)
             else:
-                logits, caches = decode_step(self.params, self.cfg,
-                                             self.decode_flags, tok, caches)
+                logits, caches = decode_step(self.params, self.cfg, dflags,
+                                             tok, caches)
             tok = _sample(logits[:, -1], gen, greedy, temperature)
             if not scan:                       # host round trip per token
                 tok = tok.cpu().to(self.device)

@@ -36,9 +36,14 @@ eager.  A failed capture raises: a CUDA engine never runs these steps
 eagerly.
 
 One graph per key (batch, cache layout, K/V quantization, selection
-dtype, DSA mode, ring window, arch).  The graphs of one engine share one
-memory pool: they never run at once, and every replay's logits are read
-before the next replay.  Every engine captures on one stream per device:
+dtype, DSA mode, ring window, arch), so a continuous engine serving
+requests of several DSA modes holds one graph per mode over one resident
+cache; a mode's graph is captured when its first segment runs, over a
+cache that holds live slots, which its all-false warm-up steps leave as
+they found it.  Each graph has a memory pool of its own: the graphs of
+two modes replay interleaved in any order, and PyTorch allows a pool to
+be shared only by graphs that replay in the order they were captured.
+Every engine captures on one stream per device:
 what the first calls on a stream create and keep for the process's life
 (cuBLAS's workspace) then exists once, not once an engine.
 CUDA graphs exist only on the card; on the CPU the engines run the same
@@ -110,12 +115,11 @@ class StepGraph:
 
 
 class DecodeGraphs:
-    """The captured decode steps of one engine, one per key, sharing one
-    memory pool; captured on the device's capture stream."""
+    """The captured decode steps of one engine, one per key, each with a
+    memory pool of its own; captured on the device's capture stream."""
 
     def __init__(self, device: torch.device):
         self.device = device
-        self.pool = torch.cuda.graph_pool_handle()
         if device not in _CAPTURE_STREAMS:
             _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
         self.stream = _CAPTURE_STREAMS[device]
@@ -172,7 +176,7 @@ class DecodeGraphs:
         reserved = torch.cuda.memory_reserved(dev)
         warm = LN.read_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+        with torch.cuda.graph(graph, stream=self.stream):   # own pool
             logits = fn(tok, mask)
         torch.cuda.synchronize(dev)
         after = LN.read_counts()

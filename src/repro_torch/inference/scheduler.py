@@ -37,6 +37,24 @@ streams requests through it:
                   the host's account; page 0 is the permanent zero page).
                   Pages are zeroed before they are mapped, so a slot's
                   logical view equals the dense zero-extended row.
+  prefix reuse    a request declaring ``prefix_len`` (and a ``prefix_key``,
+                  by default the SHA-1 of its int32 prefix tokens, as the
+                  reference hashes them) shares the prefix's whole pages
+                  copy-on-write with every request of the same key, prompt
+                  bucket and mode (paged, chunked engines only).  The first
+                  group of a key allocates and registers the pages, and its
+                  members' inserts fill them; a later group (a registry
+                  HIT) maps them, seeds its staging cache's first rows
+                  from them (``_seed``: plain index copies on the device)
+                  and skips those chunks.  The registry is LRU: an
+                  unfundable admission evicts idle registrations first.
+  per-request     ``Request.dsa_mode`` overrides the engine's DSA path on a
+  modes           ``long_context`` engine.  Segments are mode-affine: one
+                  segment runs one mode (a CUDA graph per mode over the one
+                  resident cache), admission groups one mode, and the
+                  engine switches modes when it drains idle, or, with
+                  ``max_mode_wait_s``, when an other-mode request has
+                  waited that long.
 
 Token-exactness: a request served here gets the tokens of
 ``Engine(cfg, params, max_len=<same>).generate(prompt[None], n_new,
@@ -45,20 +63,25 @@ bucket-sized staging cache reproduces the bucketed whole-prompt prefill
 (same selection geometry), and each slot samples from its own
 ``torch.Generator`` seeded by ``Request.seed``, drawn once per token as
 the B=1 chain of ``Engine.generate`` is.  Paged serving gives the dense
-tokens.  Pinned by tests/test_torch_scheduler.py.
+tokens; a request with ``dsa_mode`` set gets ``generate(...,
+dsa_mode=...)``'s; a prefix hit gives the tokens of the same requests
+undeclared, since the seeded rows are the bytes the skipped chunks write.
+Pinned by tests/test_torch_scheduler.py, tests/test_torch_prefix.py and
+tests/test_torch_modes.py.
 
 Not ported yet (each raises ``NotImplementedError`` where a caller asks
-for it): declared prefixes (``Request.prefix_len``, the prefix registry
-and copy-on-write pages), a per-request ``dsa_mode`` other than the
-engine's, speculative segments, deadlines, cancellation, shedding and
-fault injection, telemetry and serving meshes; recurrent (RWKV6) archs.
-Every ``dsa_mode`` of the engine is served, ``faithful`` included.
+for it): speculative segments; the request lifecycle and shedding
+(deadlines, ``cancel``, ``queue_cap``/``shed_policy``, the fault
+injector and the unfundable anchor's ``admit_retries`` shedding: an
+unfundable anchor waits for pages); telemetry; serving meshes; recurrent
+(RWKV6) archs.  Every ``dsa_mode`` is served, ``faithful`` included.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Dict, Iterator, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -93,8 +116,12 @@ class Request:
     seed: int = 0
     arrival_s: float = 0.0        # offset from serve() start (open loop)
     temperature: float = 1.0      # sampled (non-greedy) logit scale
-    dsa_mode: Optional[str] = None  # only the engine's mode is ported
-    prefix_len: int = 0           # declared shared prefix (not ported)
+    dsa_mode: Optional[str] = None  # override the engine's DSA path
+    # copy-on-write prefix sharing (paged engines): the first prefix_len
+    # prompt tokens are shared with every request of the same prefix_key
+    # (submit hashes the prefix tokens when it is None)
+    prefix_len: int = 0
+    prefix_key: Optional[str] = None
     deadline_s: Optional[float] = None   # latency budget (not ported)
 
     def __post_init__(self):
@@ -143,12 +170,13 @@ class _SlotState:
 
 @dataclasses.dataclass
 class _PrefillGroup:
-    """An in-flight chunked admission: one same-bucket group streaming
-    through a bucket-sized staging cache."""
+    """An in-flight chunked admission: one same-bucket, same-mode group
+    streaming through a bucket-sized staging cache."""
     reqs: List[Request]
     slots: List[Optional[int]]    # reserved resident slot per member
     bucket: int
     chunk: int                    # chunk width (min(chunk_tokens, bucket))
+    mode: str                     # effective dsa_mode
     caches: object                # staging cache (dense, bpf rows)
     lengths: np.ndarray           # (bpf,) true prompt length per row
     j: int = 0                    # next chunk index
@@ -171,10 +199,21 @@ class PagePool:
     rows, indirected per slot through ``page_tbl``; this mirror decides
     which pages back which slot.  Page 0 is the permanent zero page,
     never allocated.  Invariant: every page in [1, n_pages) is either on
-    the free stack or held (refcount 1), never both; sharing a page
-    between slots comes with declared prefixes, which are not ported.
-    Pages freed with data in them land in ``dirty`` and are zeroed on the
-    device before their next mapping (``take_dirty``)."""
+    the free stack or has refcount > 0, never both.  A refcount passes 1
+    only for a copy-on-write shared prefix page: the prefix registry holds
+    one reference and each slot mapping the prefix another, so a retiring
+    slot returns exactly its private pages and a registered prefix
+    outlives its readers.  Pages freed with data in them land in
+    ``dirty`` and are zeroed on the device before their next mapping
+    (``take_dirty``).
+
+    ``prefixes`` is the LRU registry (prefix_key, prefix_len, bucket,
+    mode) -> shared pages; it lives in the cache, so ``reset`` rebuilds
+    it with the pool.  Not ported around it: the reference's shedding of
+    an anchor the pool cannot fund (``admit_retries``, the fault
+    injector's forced exhaustion), with the rest of the request
+    lifecycle; speculation, telemetry, serving meshes and RWKV6 in the
+    continuous engine are not ported either."""
 
     def __init__(self, n_pages: int, page_rows: int):
         if n_pages < 2:
@@ -184,8 +223,9 @@ class PagePool:
         self.page_rows = page_rows
         self.free: List[int] = list(range(n_pages - 1, 0, -1))
         self.ref = np.zeros((n_pages,), np.int32)
-        self.slot_pages: Dict[int, List[int]] = {}
+        self.slot_pages: Dict[int, Tuple[List[int], int]] = {}
         self.dirty: Set[int] = set()
+        self.prefixes: "OrderedDict[tuple, List[int]]" = OrderedDict()
 
     def available(self) -> int:
         return len(self.free)
@@ -200,6 +240,10 @@ class PagePool:
             self.ref[p] = 1
         return pages
 
+    def retain(self, pages: Sequence[int]) -> None:
+        for p in pages:
+            self.ref[p] += 1
+
     def release(self, pages: Sequence[int]) -> None:
         for p in pages:
             self.ref[p] -= 1
@@ -209,11 +253,15 @@ class PagePool:
                 self.free.append(p)
                 self.dirty.add(p)
 
-    def assign_slot(self, slot: int, pages: Sequence[int]) -> None:
-        self.slot_pages[slot] = list(pages)
+    def assign_slot(self, slot: int, pages: Sequence[int],
+                    n_shared: int = 0) -> None:
+        """``pages``: the slot's whole table, its first ``n_shared`` the
+        shared prefix pages (retained by the caller)."""
+        self.slot_pages[slot] = (list(pages), n_shared)
 
     def free_slot(self, slot: int) -> None:
-        self.release(self.slot_pages.pop(slot))
+        pages, _ = self.slot_pages.pop(slot)
+        self.release(pages)
 
     def take_dirty(self, pages: Sequence[int]) -> List[int]:
         """The subset of ``pages`` needing a device zero before use;
@@ -221,6 +269,29 @@ class PagePool:
         d = [p for p in pages if p in self.dirty]
         self.dirty.difference_update(d)
         return d
+
+    # -- copy-on-write prefix registry (LRU) --------------------------------
+
+    def lookup_prefix(self, key) -> Optional[List[int]]:
+        pages = self.prefixes.get(key)
+        if pages is not None:
+            self.prefixes.move_to_end(key)     # LRU refresh
+        return pages
+
+    def register_prefix(self, key, pages: Sequence[int]) -> None:
+        """The registry takes over ``alloc``'s reference."""
+        self.prefixes[key] = list(pages)
+
+    def evict_for(self, n: int, keep=None) -> None:
+        """Evict registrations, least recently used first and never
+        ``keep``, until ``n`` pages are free or none is left.  An evicted
+        page that a live slot still maps frees at that slot's
+        retirement."""
+        while len(self.free) < n:
+            key = next((k for k in self.prefixes if k != keep), None)
+            if key is None:
+                return
+            self.release(self.prefixes.pop(key))
 
 
 class ContinuousEngine:
@@ -273,14 +344,39 @@ class ContinuousEngine:
             self._chunk_floor = max(self._chunk_floor, cfg.dsa.block_q,
                                     cfg.dsa.block_k)
         self.chunk_tokens = pow2_bucket(c.chunk_tokens, self._chunk_floor)
+        # mode-affine aging: an other-mode request queued this long forces
+        # a drain and a mode switch (None: wait for an idle drain)
+        self.max_mode_wait_s = c.max_mode_wait_s
         self.queue: deque = deque()
-        self.graphs = self.engine.graphs  # one pool for the engine's graphs
+        self.graphs = self.engine.graphs  # the engine's graphs, one a key
         self.reset()
 
     # -- queue / admission --------------------------------------------------
 
+    def _eff_mode(self, req: Request) -> str:
+        return (req.dsa_mode if req.dsa_mode is not None
+                else self.engine.decode_flags.dsa_mode)
+
+    def _flags(self, mode: str):
+        """The decode and chunk-step flags of a dsa_mode."""
+        return self.engine.run_flags("decode", mode)
+
     def _pages_needed(self, req: Request) -> int:
         return -(-(len(req.prompt) + req.n_new) // self._page_rows)
+
+    def _prefix_ctx(self, req: Request, bucket: int, mode: str,
+                    chunked: bool):
+        """(registry key, whole shared pages) of a request's declared
+        prefix in this group's geometry; (None, 0) when it declares none,
+        the prefix spans no whole page, or the group admits blocking
+        (seeding needs the staging cache)."""
+        if not (self.paged and chunked and req.prefix_key
+                and req.prefix_len):
+            return None, 0
+        n_sh = req.prefix_len // self._page_rows
+        if n_sh == 0:
+            return None, 0
+        return (req.prefix_key, req.prefix_len, bucket, mode), n_sh
 
     @torch.inference_mode()
     def _zero_pages(self, ids: Sequence[int]) -> None:
@@ -321,24 +417,35 @@ class ContinuousEngine:
         if req.temperature <= 0.0:
             raise ValueError(f"request {req.rid}: temperature must be > 0")
         if req.prefix_len:
-            raise NotImplementedError(
-                "declared prefixes (prefix_len, copy-on-write pages) are not "
-                "ported to repro_torch yet")
+            if not 0 < req.prefix_len <= plen:
+                raise ValueError(
+                    f"request {req.rid}: prefix_len {req.prefix_len} "
+                    f"outside (0, prompt_len {plen}]")
+            if req.prefix_key is None:
+                # equal declared prefixes match without the callers
+                # agreeing on keys (the reference's hash, so keys agree
+                # across the two packages)
+                req.prefix_key = hashlib.sha1(np.ascontiguousarray(
+                    np.asarray(req.prompt, np.int32)[:req.prefix_len]
+                ).tobytes()).hexdigest()
         if req.deadline_s is not None:
             raise NotImplementedError(
                 "request deadlines are not ported to repro_torch yet")
-        if (req.dsa_mode is not None
-                and req.dsa_mode != self.engine.decode_flags.dsa_mode):
-            raise NotImplementedError(
-                f"request {req.rid}: a per-request dsa_mode "
-                f"({req.dsa_mode!r}) other than the engine's "
-                f"({self.engine.decode_flags.dsa_mode!r}) is not ported yet")
+        if req.dsa_mode is not None:
+            allowed = (set(DSA_MODES)
+                       if self.engine.decode_flags.long_context
+                       else {self.engine.decode_flags.dsa_mode})
+            if req.dsa_mode not in allowed:
+                raise ValueError(
+                    f"request {req.rid}: dsa_mode {req.dsa_mode!r} needs a "
+                    f"cache layout this engine doesn't hold ({allowed})")
         if self.paged and self._pages_needed(req) > self.pool_pages - 1:
             raise ValueError(
                 f"request {req.rid}: needs {self._pages_needed(req)} cache "
                 f"pages but the pool holds {self.pool_pages - 1} "
                 f"allocatable pages — raise pool_pages or shorten it")
         self._live.add(req.rid)
+        self._enq_s[req.rid] = time.monotonic()
         self.queue.append(req)
 
     def cancel(self, rid: int, now: float = 0.0) -> bool:
@@ -354,51 +461,97 @@ class ContinuousEngine:
                 or any(s is not None for s in self._slot))
 
     def _next_admissible(self) -> Optional[int]:
-        """Queue index of the next request to admit.  Every request runs
-        the engine's dsa_mode (the reference's mode-affine admission comes
-        with per-request modes), so the queue is FIFO."""
-        return 0 if self.queue else None
+        """Queue index of the first request admissible under the current
+        segment mode (any request when the engine is idle): segments are
+        mode-affine, so other-mode requests wait for an idle drain.
+
+        Aging (``max_mode_wait_s``): once an other-mode request has been
+        queued that long, admission stops (None) until the engine drains;
+        at the idle switch the queue's order puts it first.  Without aging
+        sustained same-mode traffic can starve it."""
+        if not self.queue:
+            return None
+        if self._pf is None and not any(s is not None for s in self._slot):
+            self._cur_mode = None         # idle: free to switch dsa_mode
+        if self._cur_mode is None:
+            return 0
+        if self.max_mode_wait_s is not None:
+            now = time.monotonic()
+            if any(self._eff_mode(r) != self._cur_mode
+                   and now - self._enq_s.get(r.rid, now)
+                   >= self.max_mode_wait_s for r in self.queue):
+                return None               # an aged other-mode request
+        for i, r in enumerate(self.queue):
+            if self._eff_mode(r) == self._cur_mode:
+                return i
+        return None
 
     def _group_for_admission(self, k: int, anchor: int) -> List[Request]:
         """Pop up to ``k`` queued requests sharing the anchor's prompt
-        bucket, for one shared prefill batch (a row's prefill must be the
-        one a solo ``Engine.generate`` at that bucket runs).  Skipped
-        requests keep their order.  A paged engine also caps the group at
-        what the pool can fund now; an unfundable anchor waits, with the
-        whole queue, for retirements to return pages (nothing is then in
-        flight only if every page is free, which funds any request that
-        ``submit`` accepted)."""
+        bucket, dsa_mode and declared (prefix_key, prefix_len), for one
+        shared prefill batch (a row's prefill must be the one a solo
+        ``Engine.generate`` at that bucket and mode runs).  Skipped
+        requests keep their order.
+
+        A paged engine also caps the group at what the pool can fund now:
+        shared prefix pages cost nothing on a registry hit, and on a miss
+        the first slotted member pays for them.  An unfundable anchor
+        first evicts idle registrations (LRU), then waits, with the whole
+        queue, for retirements to return pages (nothing is then in flight
+        only if every unregistered page is free, which funds any request
+        ``submit`` accepted).  The reference's bounded retry that sheds
+        such an anchor belongs to the request lifecycle, not ported."""
         rest: deque = deque()
         for _ in range(anchor):
             rest.append(self.queue.popleft())
         first = self.queue.popleft()
         b0 = self.engine.prompt_bucket(len(first.prompt))
+        m0 = self._eff_mode(first)
         budget = None
         if self.paged:
+            key0, n_sh = self._prefix_ctx(first, b0, m0, self.chunked)
+            hit = (key0 is not None
+                   and self.pool.lookup_prefix(key0) is not None)
+            shared_pending = 0 if hit else n_sh
+
             def cost(r):
-                return 0 if r.n_new <= 1 else self._pages_needed(r)
+                if r.n_new <= 1:
+                    return 0              # never slotted: staging only
+                return self._pages_needed(r) - n_sh + shared_pending
 
             need0 = cost(first)
+            if need0 > self.pool.available():
+                self.pool.evict_for(need0, keep=key0)
             if need0 > self.pool.available():
                 rest.append(first)
                 while rest:
                     self.queue.appendleft(rest.pop())
                 return []
             budget = self.pool.available() - need0
+            if first.n_new > 1:
+                shared_pending = 0
         group = [first]
         while self.queue and len(group) < k:
             r = self.queue.popleft()
-            if self.engine.prompt_bucket(len(r.prompt)) == b0:
+            if (self.engine.prompt_bucket(len(r.prompt)) == b0
+                    and self._eff_mode(r) == m0
+                    and (r.prefix_key, r.prefix_len)
+                    == (first.prefix_key, first.prefix_len)):
                 if budget is not None:
-                    if cost(r) > budget:
+                    c = cost(r)
+                    if c > budget:
                         rest.append(r)
                         continue
-                    budget -= cost(r)
+                    budget -= c
+                    if r.n_new > 1:
+                        shared_pending = 0
                 group.append(r)
             else:
                 rest.append(r)
         while rest:
             self.queue.appendleft(rest.pop())
+        for r in group:                   # admitted: drop their aging stamps
+            self._enq_s.pop(r.rid, None)
         return group
 
     def _sample_tok0(self, last_row: torch.Tensor, req: Request
@@ -459,11 +612,12 @@ class ContinuousEngine:
             res["page_tbl"][slot] = tbl.to(torch.int32)
             res["pos"][slot] = st["pos"][row]
 
-    def _admit_group(self, slots: List[int], group: List[Request], clock,
-                     results: List[RequestResult]) -> None:
-        """BLOCKING admission: prefill a same-bucket group in one padded
-        whole-prompt batch (``Engine.prefill``) and insert each row into a
-        free slot.  Two batch widths per bucket (1 row for a single
+    def _admit_group(self, slots: List[int], group: List[Request], mode: str,
+                     clock, results: List[RequestResult]) -> None:
+        """BLOCKING admission: prefill a same-bucket, same-mode group in one
+        padded whole-prompt batch (``Engine.prefill`` under ``mode``) and
+        insert each row into a free slot (paged: private pages only, no
+        prefix sharing).  Two batch widths per bucket (1 row for a single
         request, ``slots`` rows otherwise; surplus rows repeat a real
         prompt and are discarded), as the reference's fixed compile set
         has.  Every resident decoder waits for the whole prompt."""
@@ -477,7 +631,8 @@ class ContinuousEngine:
             mat[j, :len(p)] = p
             lengths[j] = len(p)
         last, pcaches, tp = self.engine.prefill(mat, lengths=lengths,
-                                                cache_len=bucket)
+                                                cache_len=bucket,
+                                                dsa_mode=mode)
         self.stats["prefill_s"] += tp
         if any(s is not None for s in self._slot):
             self.stats["stall_s"] += tp       # resident decoders sat idle
@@ -496,7 +651,7 @@ class ContinuousEngine:
                 npt = self._pages_needed(req)
                 pages = self.pool.alloc(npt)
                 self._zero_dirty(pages)
-                self.pool.assign_slot(slot, pages)
+                self.pool.assign_slot(slot, pages, 0)
                 row = np.zeros((self._n_kb,), np.int32)
                 row[:npt] = pages
                 self._insert_paged(pcaches, slot, j, row)
@@ -506,11 +661,21 @@ class ContinuousEngine:
 
     # -- chunked admission (default) ----------------------------------------
 
-    def _start_chunked_group(self, free: List[int],
-                             group: List[Request]) -> None:
-        """Begin streaming a same-bucket group through a fresh bucket-sized
-        staging cache; resident slots (and, paged, their pages) are
-        reserved now and filled as each member's prompt completes."""
+    def _start_chunked_group(self, free: List[int], group: List[Request],
+                             mode: str) -> None:
+        """Begin streaming a same-bucket, same-mode group through a fresh
+        bucket-sized staging cache; resident slots (and, paged, their
+        pages) are reserved now and filled as each member's prompt
+        completes.
+
+        Paged, with a declared prefix: on a registry MISS with a slotted
+        member the shared pages are allocated, zeroed and registered now,
+        and the members' inserts fill them (each writes the same bytes:
+        same prefix, same staging geometry; single-flight admission fills
+        them before a HIT group can start).  On a HIT every member maps
+        them, the staging cache is seeded from them and the group starts
+        past the whole prefix chunks, capped so that every member still
+        runs its finishing chunk, where its first token is sampled."""
         bucket = self.engine.prompt_bucket(len(group[0].prompt))
         c = min(self.chunk_tokens, pow2_bucket(bucket, self._chunk_floor))
         bpf = 1 if len(group) == 1 else self.slots
@@ -532,23 +697,67 @@ class ContinuousEngine:
                 self._reserved.add(slot)
             slots.append(slot)
         tbls = None
+        skip = 0
         if self.paged:
+            key, n_sh = self._prefix_ctx(group[0], bucket, mode, True)
+            shared = self.pool.lookup_prefix(key) if key else None
+            hit = shared is not None
+            if not hit and key is not None and any(
+                    s is not None for s in slots):
+                shared = self.pool.alloc(n_sh)
+                self._zero_dirty(shared)
+                self.pool.register_prefix(key, shared)
             tbls = []
             for r, slot in zip(group, slots):
                 if slot is None:
                     tbls.append(None)     # staging-only member: no pages
                     continue
                 npt = self._pages_needed(r)
-                pages = self.pool.alloc(npt)
-                self._zero_dirty(pages)
-                self.pool.assign_slot(slot, pages)
+                if shared is not None:
+                    self.pool.retain(shared)
+                    priv = self.pool.alloc(npt - n_sh)
+                    self._zero_dirty(priv)
+                    pages = list(shared) + priv
+                    self.pool.assign_slot(slot, pages, n_sh)
+                else:
+                    pages = self.pool.alloc(npt)
+                    self._zero_dirty(pages)
+                    self.pool.assign_slot(slot, pages, 0)
                 row = np.zeros((self._n_kb,), np.int32)
-                row[:npt] = pages
+                row[:len(pages)] = pages
                 tbls.append(row)
-        self._pf = _PrefillGroup(group, slots, bucket, c, caches,
-                                 lengths, n_chunks=n_chunks, mat=mat,
+            if hit:
+                skip = min(n_sh * self._page_rows // c,
+                           min(-(-len(r.prompt) // c) for r in group) - 1)
+                if skip > 0:
+                    self._seed(caches, shared[:skip * c // self._page_rows],
+                               skip * c)
+                self.stats["prefix_hits"] += len(group)
+                self.stats["prefix_tokens_reused"] += skip * c * len(group)
+        self._pf = _PrefillGroup(group, slots, bucket, c, mode, caches,
+                                 lengths, j=skip, n_chunks=n_chunks, mat=mat,
                                  tbls=tbls)
         self.stats["admitted"] += len(group)
+
+    @torch.inference_mode()
+    def _seed(self, staging, pages: Sequence[int], r_rows: int) -> None:
+        """Seed every row of a staging cache with the pool's shared-prefix
+        ``pages`` (a registry HIT): their rows go to the first ``r_rows``
+        rows (k, v, kt and their scales), their block rows to the first
+        blocks (ktb, ktb_s), and ``pos`` becomes ``r_rows``: the staging
+        state after chunking rows [0, r_rows), the chunks the group then
+        skips.  Index copies on the device, no host sync."""
+        bk = self._page_rows
+        ids = torch.as_tensor(list(pages), dtype=torch.long,
+                              device=self.device)
+        rows = (ids[:, None] * bk + torch.arange(
+            bk, device=self.device)[None, :]).reshape(-1)
+        for res, st in zip(_layers(self._caches), _layers(staging)):
+            for keys, at in ((_POOL_ROW_KEYS, rows), (_POOL_PAGE_KEYS, ids)):
+                for name in keys:
+                    if name in st:
+                        raw(st[name])[:, :at.shape[0]] = raw(res[name])[at]
+            st["pos"].fill_(r_rows)
 
     def _chunk_burst(self) -> int:
         """How many chunks to run before yielding to a decode segment: the
@@ -577,7 +786,7 @@ class ContinuousEngine:
         toks = torch.as_tensor(pf.mat[:, j * c:(j + 1) * c],
                                device=self.device)
         logits, _ = chunk_step(self.engine.params, self.cfg,
-                               self.engine.decode_flags, toks, pf.caches, cl,
+                               self._flags(pf.mode), toks, pf.caches, cl,
                                sel_len=pf.bucket)
         idx = cl.long().clamp(min=1) - 1
         return logits[torch.arange(logits.shape[0], device=self.device), idx]
@@ -653,16 +862,21 @@ class ContinuousEngine:
             group = self._group_for_admission(len(free), anchor)
             if not group:
                 break                     # the pool cannot fund the anchor
+            mode = self._eff_mode(group[0])
+            self._cur_mode = mode
+            # every mode of a ported arch chunks where the engine does (the
+            # reference's one mode outside the envelope is DSA over MLA)
             if self.chunked:
-                self._start_chunked_group(free, group)
+                self._start_chunked_group(free, group, mode)
                 break
-            self._admit_group(free, group, clock, results)
+            self._admit_group(free, group, mode, clock, results)
 
     def _emit(self, results: List[RequestResult], req: Request, tokens,
               admit_s: float, finish_s: float, first_s: float = 0.0) -> None:
         """Retire ``req``: its rid becomes reusable and its result is
         appended to ``results``."""
         self._live.discard(req.rid)
+        self._enq_s.pop(req.rid, None)
         results.append(RequestResult(
             req.rid, np.asarray(tokens, np.int32).reshape(-1),
             int(np.asarray(req.prompt).shape[-1]), req.n_new,
@@ -687,14 +901,18 @@ class ContinuousEngine:
     @torch.inference_mode()
     def reset(self) -> None:
         """Zero all slots, the queue and the stats; rebuild the resident
-        cache (and the page pool), dropping the decode graphs captured on
-        the old one: the next segment captures anew."""
+        cache (and the page pool with its prefix registry, whose pages the
+        old cache held), dropping the decode graphs captured on the old
+        one: the next segment captures anew."""
         if self.graphs is not None:
             self.graphs.clear()
         self.stats = {"segments": 0, "decode_steps": 0, "useful_tokens": 0,
                       "admitted": 0, "prefill_s": 0.0, "chunks": 0,
-                      "chunk_s": 0.0, "stall_s": 0.0, "segment_s": 0.0}
+                      "chunk_s": 0.0, "stall_s": 0.0, "segment_s": 0.0,
+                      "prefix_hits": 0, "prefix_tokens_reused": 0}
         self._live: Set[int] = set()
+        self._enq_s: Dict[int, float] = {}
+        self._cur_mode: Optional[str] = None
         self.pool = (PagePool(self.pool_pages, self._page_rows)
                      if self.paged else None)
         self._caches = None               # free the old cache first
@@ -719,7 +937,8 @@ class ContinuousEngine:
         ``slots``), reset, and capture the decode step's graph on the new
         resident cache.  This takes first-call set-up (library handles,
         allocator growth, the capture) out of the first requests'
-        latency."""
+        latency.  Another dsa_mode's graph is captured on its first
+        segment."""
         buckets = sorted({self.engine.prompt_bucket(int(n))
                           for n in prompt_lens})
         sink: List[RequestResult] = []
@@ -738,22 +957,25 @@ class ContinuousEngine:
         self.reset()
         self._segment_step()
 
-    def _segment_step(self):
-        """The segment's masked decode step over the resident cache:
-        ``step(tok (B, 1), mask (B,)) -> logits (B, 1, V)``.  On the card a
-        replay of its CUDA graph, captured on the first call after a
-        reset (its warm-up steps have no active row, so they change
-        nothing); on the CPU the step run eagerly."""
+    def _segment_step(self, mode: Optional[str] = None):
+        """The segment's masked decode step over the resident cache under
+        ``mode`` (default the current segment mode, else the engine's):
+        ``step(tok (B, 1), mask (B,)) -> logits (B, 1, V)``.  On the card
+        a replay of that mode's CUDA graph, captured on its first call
+        after a reset, perhaps with slots live (its warm-up steps have no
+        active row, so they change nothing); on the CPU the step run
+        eagerly."""
         e, caches = self.engine, self._caches
+        flags = self._flags(mode or self._cur_mode or e.decode_flags.dsa_mode)
 
         def step(tok, mask):
-            return decode_step(e.params, self.cfg, e.decode_flags, tok,
-                               caches, active=mask)[0]
+            return decode_step(e.params, self.cfg, flags, tok, caches,
+                               active=mask)[0]
 
         if self.graphs is None:
             return step
         return self.graphs.step(
-            step_key(self.cfg, e.decode_flags, self.slots, self.paged), step,
+            step_key(self.cfg, flags, self.slots, self.paged), step,
             caches, self.slots, masked=True)
 
     # -- decode segments ----------------------------------------------------

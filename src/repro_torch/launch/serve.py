@@ -21,6 +21,15 @@ admission in ``--chunk-tokens``-wide chunks (the chunk kernel K3 on
         --reduced --continuous --paged --dsa --dsa-mode kernel \
         --requests 6 --slots 2 --prompt-len 64 --new-tokens 8 --device cpu
 
+Requests may carry a ``dsa_mode`` of their own on a ``--dsa`` engine
+(the synthetic workload's do not); ``--max-mode-wait`` bounds how long
+such a request waits for the engine to switch modes:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b \
+        --reduced --continuous --paged --dsa --dsa-mode kernel \
+        --max-mode-wait 0.5 --requests 6 --slots 2 --prompt-len 64 \
+        --new-tokens 8 --device cpu
+
 ``--kv-quant int8|fp8`` stores the K/V caches narrow with per-row scales
 (the quantized kernels K1q, K3q, K4q) and ``--select-dtype int8`` (with
 ``--dsa``) the DSA selection caches; the run prints the resident cache's
@@ -196,6 +205,10 @@ def main(argv=None):
                     help="DSA selection precision (with --dsa): int8 stores "
                          "the predicted-key caches quantized with per-row "
                          "scales and runs the selection product in integers")
+    ap.add_argument("--max-mode-wait", type=float, default=None,
+                    help="seconds a queued other-dsa_mode request may "
+                         "wait before forcing a drain and mode switch "
+                         "(--continuous; default: wait for an idle drain)")
     ap.add_argument("--kv-quant", default=None, choices=["int8", "fp8"],
                     help="quantized K/V cache storage dtype with per-row "
                          "scales, dequantized on gather (default: off)")
@@ -223,7 +236,8 @@ def main(argv=None):
                            loop=args.loop, slots=args.slots or args.batch,
                            seg_len=args.seg_len,
                            chunk_tokens=args.chunk_tokens, paged=args.paged,
-                           pool_pages=args.pool_pages or None)
+                           pool_pages=args.pool_pages or None,
+                           max_mode_wait_s=args.max_mode_wait)
     if args.continuous:
         return _serve_continuous(cfg, args, params, config, device)
     eng = Engine(cfg, params, config=config, device=device)

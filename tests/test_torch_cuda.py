@@ -3,9 +3,11 @@ chunked wkv6 kernel K7 on the card against their plain versions, with
 K2's, K3's and K1/K4's tiling edges (GQA groups, head widths, block
 sizes, kv_len inside a tile, rows with no live key, ok = 0 blocks,
 strided model-layout views), K2's sliding-window edges on both bodies,
-and K7's head widths, chunks and segment counts; and the decode step's
+and K7's head widths, chunks and segment counts; the decode step's
 CUDA graphs against eager steps, faithful decode and SWA rings
-included.
+included; and prefix reuse and per-request DSA modes in the continuous
+engine (a hit's tokens equal the undeclared run's, mixed-mode graphed
+segments equal eager ones, a mid-run capture leaves the cache as it was).
 
 Needs a CUDA card and the CUDA toolkit; skips without a card.  Imports
 neither JAX nor the reference, so it runs where only PyTorch is installed:
@@ -977,6 +979,123 @@ def test_cuda_graph_faithful_and_ring_segments_equal_solo_eager(
         want = solo.generate(r.prompt[None], r.n_new, greedy=r.greedy,
                              seed=r.seed, temperature=r.temperature).tokens[0]
         np.testing.assert_array_equal(got[r.rid], want, err_msg=str(r.rid))
+
+
+# -- prefix reuse and per-request modes in the continuous engine --------------
+
+
+def _prefix_requests(vocab, declare):
+    """Six requests sharing a 40-token prefix (two whole 16-row pages),
+    greedy and sampled."""
+    import numpy as np
+    from repro_torch.inference.scheduler import Request
+    rng = np.random.default_rng(141)
+    sys_p = rng.integers(1, vocab - 4, size=(40,)).astype(np.int32)
+    return [Request(rid, np.concatenate([sys_p, rng.integers(
+        1, vocab - 4, size=(tail,)).astype(np.int32)]), n,
+        greedy=rid % 3 != 2, seed=7 * rid + 1, temperature=0.8,
+        prefix_len=40 if declare else 0)
+        for rid, (tail, n) in enumerate([(8, 6), (15, 5), (3, 7), (20, 4),
+                                         (11, 5), (6, 6)])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["f32", "int8"])
+def test_cuda_prefix_hit_equals_undeclared(cuda_device, kv):
+    """On the card, requests declaring a shared prefix (registry hits seed
+    the staging cache and skip chunks) get the tokens of the same
+    requests undeclared, bit for bit, greedy and sampled; K3 (K3q) runs
+    once a layer a chunk step and K4 (K4q) once a layer a decode step."""
+    import numpy as np
+    from repro_torch.inference.scheduler import ContinuousEngine
+    cfg, params = _model("yi_6b", cuda_device)
+    kw = dict(DSA_KW, max_len=GRAPH_MAX_LEN, slots=2, seg_len=4,
+              chunk_tokens=16, paged=True, **QUANT_KW[kv])
+    attr = "launches_quant" if kv else "launches"
+    got, stats = {}, {}
+    for declare in (True, False):
+        eng = ContinuousEngine(cfg, params, **kw)
+        k3 = getattr(K3.dsa_chunk_gather_attention, attr)
+        k4 = getattr(K1.dsa_decode_paged_gather_attention, attr)
+        got[declare] = eng.run(_prefix_requests(cfg.vocab, declare))
+        st = stats[declare] = dict(eng.stats)
+        assert (getattr(K3.dsa_chunk_gather_attention, attr) - k3
+                == cfg.n_layers * st["chunks"])
+        assert (getattr(K1.dsa_decode_paged_gather_attention, attr) - k4
+                == cfg.n_layers * st["decode_steps"])
+    for rid, toks in got[False].items():
+        np.testing.assert_array_equal(got[True][rid], toks, err_msg=str(rid))
+    assert stats[True]["prefix_hits"] > 0 == stats[False]["prefix_hits"]
+    assert stats[True]["chunks"] < stats[False]["chunks"]
+
+
+def _mixed_mode_requests(vocab):
+    """Prompts of ~200 tokens (13 blocks, past the 64-token local window,
+    so the decode modes differ), one mode each."""
+    import numpy as np
+    from repro_torch.inference.scheduler import Request
+    rng = np.random.default_rng(11)
+    modes = [None, "off", "faithful", "block", "off", None]
+    return [Request(rid, rng.integers(1, vocab - 4, size=(
+        190 + 5 * rid,)).astype(np.int32), 12, greedy=rid % 2 == 0,
+        seed=rid, temperature=0.8, dsa_mode=m)
+        for rid, m in enumerate(modes)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_cuda_mixed_mode_graphed_segments_equal_eager(cuda_device, paged):
+    """A kernel-mode continuous engine serving requests of four modes:
+    the segments' graph replays give the tokens of the same engine with
+    every step eager, bit for bit; one capture per mode served, one
+    replay a decode step."""
+    import numpy as np
+    from repro_torch.inference.scheduler import ContinuousEngine
+    cfg, params = _model("yi_6b", cuda_device)
+    kw = dict(DSA_KW, max_len=256, slots=2, seg_len=4, chunk_tokens=64,
+              paged=paged)
+    reqs = _mixed_mode_requests(cfg.vocab)
+    graphed = ContinuousEngine(cfg, params, **kw)
+    got = graphed.run(reqs)
+    g = graphed.graphs
+    assert g.captures == len({r.dsa_mode or "kernel" for r in reqs}) == 4
+    assert g.replays == graphed.stats["decode_steps"]
+    assert all(x.pool_bytes >= 0 for x in g.graphs.values())
+    eager = ContinuousEngine(cfg, params, **kw)
+    eager.graphs = None
+    want = eager.run(reqs)
+    for rid, toks in want.items():
+        np.testing.assert_array_equal(got[rid], toks, err_msg=str(rid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["f32", "int8"])
+def test_cuda_second_mode_capture_leaves_cache_unchanged(cuda_device, kv):
+    """Mid-run, with slots live, capturing another mode's segment graph
+    (two all-false warm-up steps, then the capture) leaves every leaf of
+    the paged resident cache bit for bit as it was."""
+    from repro_torch.inference.scheduler import ContinuousEngine
+    cfg, params = _model("yi_6b", cuda_device)
+    eng = ContinuousEngine(cfg, params, max_len=256, slots=2, seg_len=4,
+                           chunk_tokens=64, paged=True,
+                           **dict(DSA_KW, **QUANT_KW[kv]))
+    for r in _mixed_mode_requests(cfg.vocab)[:2]:
+        r.dsa_mode = None
+        eng.submit(r)
+    sink, clock = [], lambda: 0.0
+    while not any(s is not None for s in eng._slot):
+        eng.admit_ready(clock, sink)
+        eng.step_prefill(clock, sink)
+    eng.run_segment(clock, sink)
+    leaves = [t for grp in eng._caches["groups"] for sub in grp.values()
+              for t in sub["attn"].values()]
+    before = [t.clone() for t in leaves]
+    for mode in ("off", "faithful", "block"):
+        eng._segment_step(mode)
+        torch.cuda.synchronize()
+        for a, b in zip(before, leaves):
+            assert torch.equal(a, b), mode
+    assert eng.graphs.captures == 4
 
 
 def _kernel_calls(dev, requires_grad):

@@ -263,13 +263,15 @@ def test_submit_validates_and_refuses_unported_options():
         eng.submit(TS.Request(0, prompt[:0], 2))
     with pytest.raises(ValueError, match="temperature"):
         eng.submit(TS.Request(0, prompt, 2, temperature=0.0))
-    with pytest.raises(NotImplementedError, match="prefix"):
-        eng.submit(TS.Request(0, prompt, 2, prefix_len=4))
+    with pytest.raises(ValueError, match="prefix_len"):
+        eng.submit(TS.Request(0, prompt, 2, prefix_len=11))
     with pytest.raises(NotImplementedError, match="deadline"):
         eng.submit(TS.Request(0, prompt, 2, deadline_s=1.0))
-    with pytest.raises(NotImplementedError, match="dsa_mode"):
-        eng.submit(TS.Request(0, prompt, 2, dsa_mode="kernel"))
-    eng.submit(TS.Request(0, prompt, 2, dsa_mode="block"))
+    # a mode override needs the DSA caches of a long_context engine
+    with pytest.raises(ValueError, match="dsa_mode"):
+        _engine("stablelm_3b").submit(TS.Request(0, prompt, 2,
+                                                 dsa_mode="block"))
+    eng.submit(TS.Request(0, prompt, 2, dsa_mode="kernel"))
     with pytest.raises(ValueError, match="in flight"):
         eng.submit(TS.Request(0, prompt, 2))
     with pytest.raises(ValueError, match="dsa_mode"):
