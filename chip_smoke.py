@@ -132,7 +132,27 @@ fails:
      K/V and selection (K3q, K4q); and the continuous slice's workload
      with every other request on dsa_mode "off", with max_mode_wait_s
      None and 0.5: every request ok, each mode's latency, segments and
-     switches, and two captured graphs with their pools' bytes.
+     switches, and two captured graphs with their pools' bytes;
+ 14. speculative decoding (K = 4 drafts a round, K1 once a layer per
+     verified row): (a) a 2-layer full-width yi_6b in f32 on prompts of
+     2048: speculative tokens == the graphed plain tokens in kernel,
+     block and off mode and with fp8 K/V and int8 selection (K1q), with
+     n-gram, oracle (every draft accepted) and adversarial (every draft
+     rejected) proposers and sampled at B 1; a round's verify and commit
+     as graph replays == the same calls eager, bit for bit, in every mode,
+     faithful included (whose spec tokens are printed, not required); a
+     dense continuous engine with spec serves four requests their solo
+     tokens, and a paged one reports spec 0.  (b) ``launch.serve --spec
+     4`` on the static slice (K2 once a layer, K1 once a layer per verified
+     row), then the plain, n-gram, oracle and adversarial runs on one
+     engine: rounds, acceptance, tokens a round, delivered tok/s against
+     the plain run's, ms a verify replay, a commit replay, an eager commit
+     and a drafting call, and the share of positions where the bf16 tokens
+     equal the plain run's (printed, not required; where they differ,
+     ``scripts/spec_departure.py`` names the first op a verify row departs
+     at).  (c) the continuous slice's workload on
+     a dense cache, plain and with ``--spec 4``: every request ok,
+     goodput, latency, TTFT, acceptance and the K1/K3 launches.
 
 It then prints one JSON line of per-kernel results, the card's name and
 power limit again as ``nvidia-smi`` gives them, and as its last line
@@ -1739,7 +1759,8 @@ def _serve_counted(eng, reqs) -> dict:
     finally:
         del eng.run_segment, eng._chunk
     launches = serve.launch_counts()
-    st = {k: v - st0[k] for k, v in eng.stats.items()}
+    st = {k: v - st0[k] for k, v in eng.stats.items()
+          if not isinstance(v, list)}          # accept_hist is a list
     summ = summarize(results, max(r.finish_s for r in results))
     bad = [r.rid for r in results
            if r.status != "ok" or len(r.tokens) != r.n_new
@@ -1877,6 +1898,358 @@ def prefix_modes_slice(torch, seed: int, card: str) -> dict:
     out["graph_pool_bytes"] = pools
     del eng, params
     torch.cuda.empty_cache()
+    return out
+
+
+class _Oracle:
+    """A draft proposer that drafts the continuation of known sequences:
+    every draft accepted, or, shifted by one token id, every draft
+    rejected."""
+
+    def __init__(self, fulls, shift: int, vocab: int):
+        import numpy as np
+        self.fulls = [np.asarray(f, np.int32) for f in fulls]
+        self.shift = shift
+        self.vocab = vocab
+
+    def propose(self, contexts, k):
+        import numpy as np
+        out = np.empty((len(contexts), k), np.int32)
+        for r, ctx in enumerate(contexts):
+            full = self.fulls[r]
+            cont = full[len(ctx):len(ctx) + k]
+            row = np.full((k,), full[-1], np.int32)
+            row[:cont.size] = cont
+            out[r] = (row + self.shift) % self.vocab
+        return out
+
+
+def _verify_bitwise(torch, eng, prompts, k: int) -> bool:
+    """One round from the same prefilled state: the verify forward and
+    its commit as graph replays (``Engine.spec_steps``, over the resident
+    cache) against the same calls eager on a second cache.  True if the
+    logits and then every cache leaf after the commit are equal bit for
+    bit."""
+    from repro_torch.core.quantization import raw
+    from repro_torch.models.transformer import (commit_chunk, spec_scratch,
+                                                verify_step)
+    b, c = prompts.shape[0], k + 1
+    flags = dataclasses.replace(eng.decode_flags, spec_verify=True)
+    verify, commit = eng.spec_steps(b, k, flags)
+    _, graphed, _ = eng.prefill(prompts, caches=eng.resident_cache(b))
+    _, eager, _ = eng.prefill(prompts)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    chunk = torch.randint(1, eng.cfg.vocab - 4, (b, c), generator=gen,
+                          device="cuda")
+    mask = torch.ones((b,), dtype=torch.bool, device="cuda")
+    keep = torch.arange(b, device="cuda")[:, None] % c + 1
+    scratch = spec_scratch(eager, c)
+    with torch.inference_mode():
+        got = verify(chunk, mask).clone()
+        want = verify_step(eng.params, eng.cfg, flags, chunk, eager,
+                           active=mask, scratch=scratch)[0]
+        commit(keep, mask)
+        commit_chunk(eng.cfg, flags, eager, keep[:, 0], c, active=mask,
+                     scratch=scratch)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    for ga, ea in zip(graphed["groups"], eager["groups"]):
+        a, e = ga["b0"]["attn"], ea["b0"]["attn"]
+        same &= set(a) == set(e) and all(
+            torch.equal(raw(a[n]), raw(e[n])) for n in a)
+    del eager
+    return bool(same)
+
+
+def spec_parity_phase(torch, seed: int, card: str) -> dict:
+    """14a. yi_6b at full width, 2 layers, f32, long_context, K = 4,
+    prompts of 2048 (17 blocks of a 2176-row cache, 4 kept).  Static,
+    greedy: speculative tokens (n-gram drafts) == the graphed plain
+    tokens in kernel, block and off mode and with fp8 K/V and int8
+    selection on the kernel path, K1 (K1q) launched n_layers x C a verify
+    round; on the kernel path an oracle proposer (every draft accepted)
+    and an adversarial one (every draft rejected) give the plain tokens,
+    and so does temperature 1 at B 1.  A round's verify and commit as
+    graph replays == the same calls eager, bit for bit (logits, then
+    every cache leaf), in each mode, faithful included; faithful's spec
+    tokens are printed only (a token top-k flips on the last bit between
+    products of other shapes).  A dense chunked continuous engine with
+    spec on serves four requests their solo tokens; a paged one reports
+    spec 0."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.inference.engine import Engine
+    from repro_torch.inference.scheduler import ContinuousEngine, Request
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_model
+    cfg = dataclasses.replace(get_config("yi_6b"), n_layers=2,
+                              dtype="float32", param_dtype="float32")
+    params = init_model(seed, cfg)
+    k, c, n_new, max_len = 4, 5, 32, 2176
+    rng = np.random.default_rng(seed + 7)
+    prompts = rng.integers(1, cfg.vocab - 4, size=(2, 2048)).astype(np.int32)
+    out = {}
+    for mode, quant in (("kernel", None), ("block", None), ("off", None),
+                        ("kernel", "fp8"), ("faithful", None)):
+        qkw = {} if quant is None else dict(kv_quant=quant,
+                                            select_dtype="int8")
+        eng = Engine(cfg, params, max_len=max_len, long_context=True,
+                     dsa_mode=mode, **qkw)
+        plain = eng.generate(prompts, n_new).tokens
+        serve.reset_launch_counts()
+        res = eng.generate(prompts, n_new, spec=k)
+        n = serve.launch_counts()
+        kname = "K1q" if quant else "K1"
+        want = cfg.n_layers * c * res.spec_rounds if mode == "kernel" else 0
+        same = bool((res.tokens == plain).all())
+        bitwise = _verify_bitwise(torch, eng, prompts, k)
+        label = f"{mode}" + (f", {quant} K/V, int8 selection" if quant
+                             else "")
+        print(f"spec parity: 2-layer full-width yi_6b f32 {label}, prompt "
+              f"2048, {n_new} new, K {k}: spec == plain (graphed scan) "
+              f"tokens: {same}; {res.spec_rounds} rounds, accept hist "
+              f"{res.spec_accept_hist}; {kname} {n[kname]} (want {want}); "
+              f"graphed verify + commit == eager bit for bit: {bitwise} "
+              f"[{card}]", flush=True)
+        if not bitwise or n[kname] != want or (mode != "faithful"
+                                               and not same):
+            fail(f"spec parity ({label}): tokens equal {same}, bitwise "
+                 f"{bitwise}, {kname} {n[kname]} against {want}")
+        out[label] = {"same": same, "bitwise": bitwise,
+                      "rounds": res.spec_rounds}
+        if mode == "kernel" and quant is None:
+            fulls = [np.concatenate([prompts[r], plain[r]]) for r in range(2)]
+            for name, shift, rounds in (
+                    ("oracle", 0, -(-(n_new - 1) // c)),
+                    ("adversarial", 1, n_new - 1)):
+                serve.reset_launch_counts()
+                r = eng.generate(prompts, n_new, spec=k,
+                                 draft=_Oracle(fulls, shift, cfg.vocab))
+                n1 = serve.launch_counts()["K1"]
+                ok = bool((r.tokens == plain).all())
+                print(f"  {name} proposer: tokens == plain: {ok}, "
+                      f"{r.spec_rounds} rounds (want {rounds}), accept hist "
+                      f"{r.spec_accept_hist}, K1 {n1}", flush=True)
+                if not ok or r.spec_rounds != rounds or \
+                        n1 != cfg.n_layers * c * rounds:
+                    fail(f"spec parity: the {name} proposer")
+            one = prompts[:1, :1536]
+            want1 = eng.generate(one, 24, greedy=False, seed=11).tokens
+            serve.reset_launch_counts()
+            r = eng.generate(one, 24, greedy=False, seed=11, spec=k)
+            ok = bool((r.tokens == want1).all())
+            print(f"  sampled, temperature 1, B 1: spec == plain tokens: "
+                  f"{ok}", flush=True)
+            if not ok:
+                fail("spec parity: sampled spec tokens differ from plain")
+        del eng
+        torch.cuda.empty_cache()
+    reqs = [Request(i, rng.integers(1, cfg.vocab - 4, size=(n,)).astype(
+        np.int32), 16, greedy=i % 2 == 0, seed=i)
+        for i, n in enumerate((700, 1100, 512, 1900))]
+    kw = dict(max_len=max_len, long_context=True, dsa_mode="kernel")
+    eng = ContinuousEngine(cfg, params, slots=4, seg_len=16,
+                           chunk_tokens=512, spec=k, **kw)
+    serve.reset_launch_counts()
+    got = eng.run(reqs)
+    n1 = serve.launch_counts()["K1"]
+    st = eng.stats
+    solo = Engine(cfg, params, **kw)
+    same = all(bool((got[r.rid] == solo.generate(
+        r.prompt[None], 16, greedy=r.greedy, seed=r.seed).tokens[0]).all())
+        for r in reqs)
+    paged = ContinuousEngine(cfg, params, slots=4, paged=True, spec=k,
+                             **kw).spec
+    print(f"spec parity: continuous, dense, chunked, kernel, 4 requests "
+          f"(greedy and sampled): == solo generate: {same}; "
+          f"{st['spec_rounds']} rounds, accept hist {st['accept_hist']}, "
+          f"{st['decode_steps']} plain steps, K1 {n1}; a paged engine's "
+          f"spec: {paged} [{card}]", flush=True)
+    if (not same or paged != 0 or st["spec_rounds"] == 0 or n1 != cfg.n_layers
+            * (st["decode_steps"] + c * st["spec_rounds"])):
+        fail("spec parity: the continuous engine")
+    out["continuous"] = same
+    del params, eng, solo
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_slice(torch, seed: int, card: str) -> dict:
+    """14b. The static slice with speculation: yi_6b at full width (32
+    layers, bf16), batch 4, prompt 4096, 64 new, kernel path, through
+    ``launch.serve --spec 4`` (n-gram drafts): K2 once a layer and K1
+    once a layer per verified row; then on one engine of the same weights
+    the plain graphed run and the oracle and adversarial proposers.  Per
+    run: rounds, accept hist, tokens a round, delivered tok/s; ms a
+    verify replay, a commit replay, an eager commit and a drafting call.
+    Token agreement with the plain run is printed, not required (bf16
+    products over C rows may round otherwise than over one); where it
+    fails, the first differing position of each row."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.inference.engine import Engine
+    from repro_torch.inference.speculative import NGramProposer
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import commit_chunk, init_model
+    cfg = get_config("yi_6b")
+    k, c, b, plen, n_new = 4, 5, 4, 4096, 64
+    nl = cfg.n_layers
+    serve.reset_launch_counts()
+    res = serve.main(["--arch", "yi_6b", "--batch", str(b), "--prompt-len",
+                      str(plen), "--new-tokens", str(n_new), "--dsa",
+                      "--dsa-mode", "kernel", "--spec", str(k), "--seed",
+                      str(seed)])
+    n = serve.launch_counts()
+    want = {"K2": nl, "K1": nl * c * res.spec_rounds}
+    got_n = {x: v for x, v in n.items() if v}
+    print(f"spec slice (serve --spec {k}): {res.spec_rounds} rounds, accept "
+          f"hist {res.spec_accept_hist}, {res.delivered_tokens} tokens "
+          f"delivered in {res.decode_s:.3f} s -> {res.tokens_per_s:.1f} "
+          f"tok/s, launches {got_n} (want {want}) [{card}]", flush=True)
+    if got_n != want or res.tokens.shape != (b, n_new):
+        fail(f"spec slice: launches {got_n}, want {want}")
+    spec_launches = dict(n)
+    del res
+    torch.cuda.empty_cache()
+    params = init_model(seed, cfg)
+    eng = Engine(cfg, params, max_len=plen + n_new + 16, long_context=True,
+                 dsa_mode="kernel")
+    prompts = np.random.default_rng(seed).integers(
+        1, cfg.vocab - 4, size=(b, plen)).astype(np.int32)
+    plain = eng.generate(prompts, n_new)
+    plain_tok_s = plain.delivered_tokens / plain.decode_s
+    print(f"  plain (graphed scan): {plain.delivered_tokens} tokens in "
+          f"{plain.decode_s:.3f} s -> {plain_tok_s:.1f} delivered tok/s "
+          f"({plain.tokens_per_s:.1f} tok/s over {plain.decode_steps} "
+          f"steps)", flush=True)
+    fulls = [np.concatenate([prompts[r], plain.tokens[r]]) for r in range(b)]
+    runs = {}
+    # the n-gram run twice, first and last: the spread between them
+    for name, draft in (("ngram", NGramProposer()),
+                        ("oracle", _Oracle(fulls, 0, cfg.vocab)),
+                        ("adversarial", _Oracle(fulls, 1, cfg.vocab)),
+                        ("ngram again", NGramProposer())):
+        serve.reset_launch_counts()
+        r = eng.generate(prompts, n_new, spec=k, draft=draft)
+        n1, n2 = serve.launch_counts()["K1"], serve.launch_counts()["K2"]
+        same = bool((r.tokens == plain.tokens).all())
+        agree = float((r.tokens == plain.tokens).mean())
+        hist = r.spec_accept_hist
+        runs[name] = {"rounds": r.spec_rounds, "hist": hist,
+                      "tok_per_round": r.delivered_tokens / r.spec_rounds,
+                      "emit_per_row_round": sum(
+                          (e + 1) * x for e, x in enumerate(hist)) / sum(hist),
+                      "tok_s": r.delivered_tokens / r.decode_s,
+                      "decode_s": r.decode_s, "same": same, "agree": agree,
+                      "first_diff": [
+                          int(np.argmax(x != y)) if (x != y).any() else None
+                          for x, y in zip(r.tokens, plain.tokens)],
+                      "K1": n1}
+        print(f"  {name}: {r.spec_rounds} rounds, accept hist "
+              f"{r.spec_accept_hist}, {runs[name]['tok_per_round']:.2f} "
+              f"tokens a round ({runs[name]['emit_per_row_round']:.2f} a "
+              f"row), {runs[name]['tok_s']:.1f} delivered tok/s "
+              f"against plain {plain_tok_s:.1f}; tokens == plain: {same} "
+              f"({100 * agree:.1f} % of positions), K2 {n2}, K1 {n1} (want "
+              f"{nl}, {nl * c * r.spec_rounds})", flush=True)
+        if n1 != nl * c * r.spec_rounds or n2 != nl:
+            fail(f"spec slice ({name}): K1 {n1}, K2 {n2}")
+    # per-call times at the resident cache after the runs: a verify of C
+    # rows on every row, then a commit of none (the pair leaves the cache
+    # as it was), as graph replays and the commit also eager
+    flags = dataclasses.replace(eng.decode_flags, spec_verify=True)
+    verify, commit = eng.spec_steps(b, k, flags)
+    caches = eng.resident_cache(b)
+    chunk = torch.ones((b, c), dtype=torch.long, device="cuda")
+    mask = torch.ones((b,), dtype=torch.bool, device="cuda")
+    none = torch.zeros((b, 1), dtype=torch.long, device="cuda")
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(5)]
+          for _ in range(12)]
+    with torch.inference_mode():
+        for e in ev:
+            e[0].record()
+            verify(chunk, mask)
+            e[1].record()
+            commit(none, mask)
+            e[2].record()
+            verify(chunk, mask)
+            e[3].record()
+            commit_chunk(cfg, flags, caches, none[:, 0], c, active=mask)
+            e[4].record()
+    torch.cuda.synchronize()
+    times = {name: float(np.median([e[i].elapsed_time(e[i + 1])
+                                    for e in ev[2:]]))
+             for name, i in (("verify_ms", 0), ("commit_ms", 1),
+                             ("commit_eager_ms", 3))}
+    ctxs = [f[:plen + n_new // 2] for f in fulls]
+    dt = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        NGramProposer().propose(ctxs, k)
+        dt.append((time.perf_counter() - t0) * 1e3)
+    times["draft_ms"] = float(np.median(dt))
+    pools = {key[-2]: g.pool_bytes for key, g in eng.graphs.graphs.items()
+             if key[-2] in ("verify", "commit")}
+    print(f"  per call: verify replay {times['verify_ms']:.3f} ms, commit "
+          f"replay {times['commit_ms']:.3f} ms, commit eager "
+          f"{times['commit_eager_ms']:.3f} ms, n-gram drafting "
+          f"{times['draft_ms']:.3f} ms (4 rows of ~{plen + n_new // 2} "
+          f"tokens); graph pool bytes {pools} [{card}]", flush=True)
+    if not all(x["same"] for x in runs.values()):
+        print(f"  first position where the spec tokens differ from plain, "
+              f"per row: {runs['ngram again']['first_diff']} (where a "
+              f"verify row departs: scripts/spec_departure.py)", flush=True)
+    del eng, params
+    torch.cuda.empty_cache()
+    return {"runs": runs, "plain_tok_s": plain_tok_s, "times": times,
+            "pools": pools, "launches": spec_launches}
+
+
+def spec_continuous(torch, seed: int, card: str) -> dict:
+    """14c. The continuous slice's workload (8 requests, prompts
+    1152-3670, 16-64 new, all queued at the start; 4 slots, max_len 8192,
+    chunk 512, segments of 16) on a DENSE resident cache (speculation is
+    off on a paged one), kernel path, once plain and once with ``--spec
+    4`` (n-gram drafts): every request ok; goodput, latency and TTFT,
+    rounds, accept hist, proposer failures; K3 once a layer a chunk step
+    and K1 once a layer a plain step and per verified row."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.inference.scheduler import summarize
+    from repro_torch.launch import serve
+    nl = get_config("yi_6b").n_layers
+    out = {}
+    for spec in (0, 4):
+        serve.reset_launch_counts()
+        results, eng = serve.main([
+            "--arch", "yi_6b", "--continuous", "--dsa", "--dsa-mode",
+            "kernel", "--slots", "4", "--max-len", "8192", "--chunk-tokens",
+            "512", "--seg-len", "16", "--requests", "8", "--prompt-len",
+            "4096", "--new-tokens", "64", "--rate", "1e9", "--seed",
+            str(seed), "--spec", str(spec)])
+        n = serve.launch_counts()
+        st = dict(eng.stats)
+        summ = summarize(results, max(r.finish_s for r in results))
+        bad = [r.rid for r in results if r.status != "ok"
+               or len(r.tokens) != r.n_new]
+        label = f"spec {spec}" if spec else "plain"
+        print(f"spec continuous ({label}, dense): goodput "
+              f"{summ['goodput_tok_s']} tok/s, latency p50 "
+              f"{summ['p50_latency_s']} / p95 {summ['p95_latency_s']} s, "
+              f"TTFT p50 {summ['p50_ttft_s']} / p95 {summ['p95_ttft_s']} s, "
+              f"{st['spec_rounds']} rounds, accept hist {st['accept_hist']}, "
+              f"proposer failures {st['proposer_failures']}, "
+              f"{st['decode_steps']} plain steps, {st['chunks']} chunk "
+              f"steps, K1 {n['K1']}, K3 {n['K3']} [{card}]", flush=True)
+        want = {"K1": nl * (st["decode_steps"] + 5 * st["spec_rounds"]),
+                "K3": nl * st["chunks"]}
+        got = {x: v for x, v in n.items() if v}
+        if (len(results) != 8 or bad or eng.spec != spec or got != want
+                or (spec and st["spec_rounds"] == 0)):
+            fail(f"spec continuous ({label}): bad {bad}, spec {eng.spec}, "
+                 f"launches {got}, want {want}")
+        out[label] = {"summary": summ, "stats": st, "launches": n}
+        del eng, results
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2200,12 +2573,24 @@ def main() -> None:
     # runs, K3/K4 on the kernel-mode requests of the mixed-mode runs
     prefix_modes_parity_phase(torch, args.seed, card)
     launches.update(prefix_modes_slice(torch, args.seed, card)["launches"])
+    # speculative decoding: K1 (K1q) once a layer per verified row
+    t14 = time.monotonic()
+    spec_parity_phase(torch, args.seed, card)
+    launches["spec static"] = spec_slice(torch, args.seed, card)["launches"]
+    cont = spec_continuous(torch, args.seed, card)
+    launches["spec continuous"] = cont["spec 4"]["launches"]
+    print(f"phase 14: {time.monotonic() - t14:.1f} s", flush=True)
 
     src = "src/repro_torch/kernels/csrc/"
     rep = "src/repro/kernels/"
     # no model path runs K5 or K5q (the staging caches are dense): their
     # launches are the sum of their counts over the four path runs
     paths = {k: sum(n[k] for n in launches.values()) for k in ("K5", "K5q")}
+    # K1 runs on three main paths: the static slice, and the speculative
+    # static and continuous slices (each path's count read right after its
+    # own reset); its launches are their sum, each also given alone
+    k1_paths = {p: launches[p]["K1"]
+                for p in ("static", "spec static", "spec continuous")}
     kernels = []
     for name, cu, tpu, c, extra, n in (
             ("dsa_block_sparse_attention", "dsa_attention.cu",
@@ -2217,7 +2602,7 @@ def main() -> None:
              launches["h2o"]["K2"]),
             ("dsa_decode_gather_attention", "dsa_decode.cu",
              "dsa_decode.py:185", k1_checks[2], k1_checks,
-             launches["static"]["K1"]),
+             sum(k1_paths.values())),
             ("dsa_chunk_gather_attention", "dsa_chunk_prefill.cu",
              "dsa_chunk_prefill.py:198", k3_checks[1], k3_checks,
              launches["continuous"]["K3"]),
@@ -2256,6 +2641,8 @@ def main() -> None:
             "checks": [{k: x[k] for k in ("geometry", "max_abs_err", "tol",
                                           "tol_used")}
                        for x in extra]})
+    next(x for x in kernels if x["name"] == "dsa_decode_gather_attention")[
+        "launches_by_path"] = k1_paths
     c = k7_checks[2]
     kernels.append({
         "name": "wkv6_chunked", "route": "cuda", "source": src + "wkv6.cu",

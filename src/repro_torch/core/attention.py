@@ -18,6 +18,10 @@ Hq % Hkv == 0 (GQA).
   dsa_decode_paged_block_attention
                               the same over a flat page pool; the plain
                               twin of kernels.dsa_decode_paged (K4).
+  dsa_verify_block_attention  a speculative verify chunk's C rows, each
+                              the block-gather decode of its own
+                              selection and kv_len.
+  dsa_verify_attention        the same at token granularity (faithful).
   chunk_attention             C chunk queries against a cache prefix.
   dsa_chunk_block_attention   block-gather chunk prefill; the plain twin
                               of kernels.dsa_chunk_prefill (K3).
@@ -310,6 +314,43 @@ def dsa_decode_paged_block_attention(q, k_pool, v_pool, idx, pidx,
     s = torch.where(m[:, None, None, None], s, NEG)
     p = _softmax_f32(s)
     return _gqa_out(p.to(vs.dtype), vs)
+
+
+def dsa_verify_block_attention(q, k_cache, v_cache, idx, idx_valid, *,
+                               block_k: int, kv_len: torch.Tensor,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """Speculative-verify twin of ``dsa_decode_block_attention``: C chunk
+    rows, each with its OWN selected blocks and cache length, each run as
+    that decode step (its shapes and reduction order).
+
+    q: (B, C, Hq, hd) the verify chunk's queries (the pending token and
+    the drafts, already written into the cache); idx/idx_valid: (B, C, nb)
+    per-row selected blocks; kv_len: (B, C) per-row valid rows (row i sees
+    ``pos + i + 1``), so draft rows past it are as invisible as the
+    unwritten zeros of sequential decode.  k_scale/v_scale: optional
+    (B, S, Hkv) per-row scales, dequantized after the gather."""
+    return torch.cat([dsa_decode_block_attention(
+        q[:, i:i + 1], k_cache, v_cache, idx[:, i], idx_valid[:, i],
+        block_k=block_k, kv_len=kv_len[:, i], k_scale=k_scale,
+        v_scale=v_scale) for i in range(q.shape[1])], dim=1)
+
+
+def dsa_verify_attention(q, k_cache, v_cache, scores_tilde, *, keep: int,
+                         kv_len: torch.Tensor, local: int = 64
+                         ) -> torch.Tensor:
+    """Speculative-verify twin of ``dsa_decode_attention`` (faithful token
+    granularity): each chunk row that decode step, with its own top keep
+    + local rows of its predicted scores.
+
+    q: (B, C, Hq, hd); scores_tilde: (B, C, S) each row's predicted scores
+    against the kt cache, every chunk row written; kv_len: (B, C).  Rows
+    past a row's kv_len are never selected, so the draft rows ahead of it
+    are invisible."""
+    return torch.cat([dsa_decode_attention(
+        q[:, i:i + 1], k_cache, v_cache, scores_tilde[:, i], keep=keep,
+        kv_len=kv_len[:, i], local=local) for i in range(q.shape[1])], dim=1)
 
 
 def chunk_attention(q, k_cache, v_cache, q_pos: torch.Tensor, *,

@@ -149,6 +149,28 @@ def decode_block_topk_indices(block_scores: torch.Tensor, nb_keep: int, *,
     return idx.to(torch.int32), ok
 
 
+def verify_block_topk_indices(block_scores: torch.Tensor, nb_keep: int, *,
+                              kv_len: torch.Tensor, block_k: int,
+                              local: int = 64, sort: bool = True
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Speculative-verify block selection: ``decode_block_topk_indices``
+    applied to each of a verify chunk's C rows, (B, C) folded into one
+    batch axis.
+
+    block_scores: (B, C, nKb) each row's block scores against the
+    PRE-chunk ``ktb`` (every block the chunk touches lies inside row i's
+    trailing ``local`` window for C <= local, so it is force-kept or
+    invalid and its stale score never counts); kv_len: (B, C) per-row
+    valid cache rows.  Returns (idx, ok): (B, C, nb_keep), row i the
+    selection of the matching sequential decode step."""
+    b, c, n_kb = block_scores.shape
+    idx, ok = decode_block_topk_indices(
+        block_scores.reshape(b * c, n_kb), nb_keep,
+        kv_len=kv_len.reshape(b * c), block_k=block_k, local=local,
+        sort=sort)
+    return idx.reshape(b, c, -1), ok.reshape(b, c, -1)
+
+
 def chunk_block_topk_indices(block_scores: torch.Tensor, nb_keep: int, *,
                              q_block_offset: torch.Tensor,
                              local_blocks: int = 1, sort: bool = True

@@ -4,8 +4,7 @@
 (inference/scheduler.py) the shared and continuous fields, so one config
 can parameterise a whole serving stack.  The port carries the fields of
 the paths ported so far.  Still unported (``UNPORTED``; each raises
-``NotImplementedError``): speculation (``spec``, ``draft``,
-``spec_rounds``), the request lifecycle and shedding (``queue_cap``,
+``NotImplementedError``): the request lifecycle and shedding (``queue_cap``,
 ``shed_policy``, ``deadline_s``, ``admit_retries``, ``injector``),
 telemetry, serving meshes (``mesh``, ``shard_rules``) and MoE prefill
 (``moe_prefill``).  RWKV6 in the continuous engine is refused by the
@@ -29,12 +28,23 @@ Mixed-precision serving:
                 narrow with per-(row, head) scales, dequantized after each
                 gather and inside the kernels.
 
+Speculative decoding (continuous engine; ``Engine.generate`` takes
+``spec``/``draft`` per call):
+
+  spec         0 (default) | K: speculative segments, K drafts verified a
+               round (inference/speculative.py); 0 when paged or outside
+               ``speculative.can_speculate``.
+  draft        the proposer (None: ``NGramProposer()``).
+  spec_rounds  rounds a speculative segment (None: max(1, seg_len //
+               (K + 1)), about one plain segment's tokens at full
+               acceptance).
+
 The defaults leave every path as it was.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -66,6 +76,9 @@ class ServingConfig:
     paged: bool = False              # page the resident KV cache
     pool_pages: Optional[int] = None  # None = every slot at max_len + 1
     max_mode_wait_s: Optional[float] = None   # other-mode aging (see above)
+    spec: int = 0                    # speculative drafts a round (0 = off)
+    draft: Any = None                # proposer (None = NGramProposer)
+    spec_rounds: Optional[int] = None   # rounds a speculative segment
 
     def __post_init__(self):
         for name, val, valid in (("dsa_mode", self.dsa_mode, DSA_MODES),
@@ -78,11 +91,14 @@ class ServingConfig:
                 raise ValueError(
                     f"ServingConfig.{name}={val!r} is not a valid choice; "
                     f"valid: {valid}")
+        if self.spec < 0 or (self.spec_rounds is not None
+                             and self.spec_rounds < 1):
+            raise ValueError(f"ServingConfig: spec={self.spec} must be >= 0 "
+                             f"and spec_rounds={self.spec_rounds} >= 1")
 
 
 # the reference's ServingConfig fields of paths not ported yet
-UNPORTED = ("spec", "draft", "spec_rounds", "mesh",
-            "shard_rules", "moe_prefill", "queue_cap", "shed_policy",
+UNPORTED = ("mesh", "shard_rules", "moe_prefill", "queue_cap", "shed_policy",
             "deadline_s", "admit_retries", "injector", "telemetry")
 
 

@@ -41,6 +41,17 @@ throughput (the first token comes from prefill and is not counted).
 a step: a graph replay on the card's scan loop, an eager forward
 otherwise (the reference's scan is one dispatch for all its steps).
 
+Speculative decoding: ``generate(spec=K, draft=...)`` drafts K tokens
+per row and verifies them in one forward a round
+(inference/speculative.py): on the card two graph replays a round, the
+verify forward and its commit, captured before the prefill like the
+decode step's.  It gives the plain tokens, greedy at any batch size and
+sampled at B = 1 (a sampled B > 1 batch gets each row's solo chain).  Its
+``decode_steps`` count rounds x (K + 1), as the reference's do, and
+``delivered_tokens`` the tokens it emitted (the first, from prefill, not
+counted), so that ``delivered_tokens / decode_s`` compares with the
+plain path's.
+
 Sampling: greedy takes the first maximum (as ``jnp.argmax`` does), so
 greedy tokens are comparable with the reference.  Sampled decoding draws
 Gumbel noise from the port's own ``torch.Generator`` seeded by ``seed``,
@@ -63,8 +74,10 @@ from repro_torch.device import resolve_device
 from repro_torch.inference.config import ServingConfig, resolve_config
 from repro_torch.inference.graphs import DecodeGraphs, step_key
 from repro_torch.models.attention import RunFlags
-from repro_torch.models.transformer import (decode_step, forward, init_cache,
-                                            truncate_cache, zero_cache)
+from repro_torch.models.transformer import (commit_chunk, decode_step,
+                                            forward, init_cache,
+                                            spec_scratch, truncate_cache,
+                                            verify_step, zero_cache)
 
 PROMPT_BUCKET_FLOOR = 16
 STEP_BUCKET_FLOOR = 4
@@ -115,6 +128,18 @@ class GenerationResult:
     tokens_per_s: float          # B * decode_steps / decode_s (0 if no steps)
     decode_dispatches: int = 0   # step programs dispatched (see above)
     decode_steps: int = 0        # decode steps EXECUTED (bucketed on scan)
+    spec_rounds: int = 0         # verify rounds (speculative path only)
+    spec_accept_hist: Optional[List[int]] = None  # rounds by emitted count
+    delivered_tokens: int = 0    # tokens emitted after the first, B*(n_new-1)
+
+
+def _ro_view(a: np.ndarray, n) -> np.ndarray:
+    """Read-only prefix view of a history buffer: a draft proposer is
+    user code, and a writable view would let one that scribbles on its
+    contexts corrupt the history the next rounds draft from."""
+    v = a[:int(n)]
+    v.flags.writeable = False
+    return v
 
 
 def _sample(logits: torch.Tensor, gen: torch.Generator, greedy: bool,
@@ -170,6 +195,7 @@ class Engine:
         self.decode_flags = RunFlags(mode="decode", dsa_mode=c.dsa_mode,
                                      long_context=c.long_context, **quant)
         self._caches: Dict[int, Dict] = {}
+        self._spec_scratch: Dict[tuple, list] = {}
         self.graphs = (DecodeGraphs(self.device)
                        if self.device.type == "cuda" else None)
 
@@ -216,6 +242,39 @@ class Engine:
         return self.graphs.step(
             step_key(self.cfg, flags, batch, paged=False), step,
             caches, batch, masked=False)
+
+    def spec_steps(self, batch: int, k: int, flags: RunFlags,
+                   caches: Optional[Dict] = None
+                   ) -> Tuple[Callable, Callable]:
+        """The speculative verify forward and its commit over ``caches``
+        (default the resident cache of ``batch``) under ``flags``
+        (``spec_verify`` set): ``verify(chunk (B, K+1), mask (B,)) ->
+        logits (B, K+1, V)`` and ``commit(keep (B, 1), mask (B,))``.  On
+        the card each is a replay of its CUDA graph, captured on the first
+        call with an all-false mask, which changes no cache leaf; on the
+        CPU each runs eagerly.  The pair's ``spec_scratch`` is the
+        engine's, one per (batch, C, select dtype), kept for its graphs."""
+        caches = self.resident_cache(batch) if caches is None else caches
+        c = k + 1
+        skey = (batch, c, flags.select_dtype)
+        if skey not in self._spec_scratch:
+            self._spec_scratch[skey] = spec_scratch(caches, c)
+        scratch = self._spec_scratch[skey]
+
+        def verify(chunk, mask):
+            return verify_step(self.params, self.cfg, flags, chunk, caches,
+                               active=mask, scratch=scratch)[0]
+
+        def commit(keep, mask):
+            commit_chunk(self.cfg, flags, caches, keep[:, 0], c, active=mask,
+                         scratch=scratch)
+
+        if self.graphs is None:
+            return verify, commit
+        return tuple(self.graphs.step(
+            step_key(self.cfg, flags, batch, False, kind=(kind, c)), fn,
+            caches, batch, masked=True, width=w)
+            for kind, fn, w in (("verify", verify, c), ("commit", commit, 1)))
 
     @torch.inference_mode()
     def prefill(self, prompts: np.ndarray,
@@ -265,12 +324,18 @@ class Engine:
     def generate(self, prompts: np.ndarray, n_new: int, greedy: bool = True,
                  seed: int = 0, lengths: Optional[np.ndarray] = None,
                  temperature: float = 1.0,
-                 dsa_mode: Optional[str] = None) -> GenerationResult:
+                 dsa_mode: Optional[str] = None, spec: int = 0,
+                 draft=None) -> GenerationResult:
         """``lengths`` (B,): per-row true prompt lengths of a right-padded
         ragged batch; each row prefills and decodes at its own depth.
         ``temperature`` scales sampled (non-greedy) logits; ``dsa_mode``
         overrides the engine's DSA path for this call (the cache layout,
-        ``long_context`` included, stays the engine's)."""
+        ``long_context`` included, stays the engine's).  ``spec=K``
+        decodes speculatively, K drafts a round from ``draft`` (default
+        ``speculative.NGramProposer()``): the plain tokens, greedy at any
+        batch size and sampled at B = 1 (a sampled B > 1 batch gets each
+        row's solo B = 1 chain).  It raises ValueError outside
+        ``speculative.can_speculate``."""
         if n_new < 1:
             raise ValueError("generate() needs n_new >= 1")
         prompts = np.asarray(prompts, np.int32)
@@ -283,6 +348,9 @@ class Engine:
             raise ValueError(
                 f"prompt_len ({plen}) + n_new ({n_new}) exceeds the engine "
                 f"max_len ({self.max_len})")
+        if spec:
+            return self._generate_spec(prompts, n_new, spec, draft, greedy,
+                                       seed, lengths, temperature, dsa_mode)
         b = prompts.shape[0]
         scan = self.loop == "scan"
         steps_exec = n_new - 1
@@ -316,4 +384,83 @@ class Engine:
         tps = b * steps_exec / max(t_decode, 1e-9) if steps_exec else 0.0
         return GenerationResult(toks.numpy().astype(np.int32), t_prefill,
                                 t_decode, tps, decode_dispatches=steps_exec,
-                                decode_steps=steps_exec)
+                                decode_steps=steps_exec,
+                                delivered_tokens=b * (n_new - 1))
+
+    def _generate_spec(self, prompts: np.ndarray, n_new: int, spec: int,
+                       draft, greedy: bool, seed: int, lengths, temperature,
+                       dsa_mode: Optional[str]) -> GenerationResult:
+        """Speculative ``generate``: K = ``spec`` drafts a row from
+        ``draft``, verified and committed in one round each
+        (inference/speculative.py), until every row has its n_new tokens.
+        Each row keeps the history it drafts from (prompt, then every
+        emitted token) in a buffer appended in place; the proposer gets
+        read-only views of it."""
+        from repro_torch.inference.speculative import (NGramProposer,
+                                                       SpeculativeDecoder,
+                                                       can_speculate)
+        mode = dsa_mode or self.decode_flags.dsa_mode
+        if not can_speculate(self.cfg, mode, spec):
+            raise ValueError(
+                f"spec={spec} unsupported for arch {self.cfg.name!r} at "
+                f"dsa_mode {mode!r} (see speculative.can_speculate)")
+        b = prompts.shape[0]
+        if lengths is None:
+            lengths = np.full((b,), prompts.shape[1], np.int32)
+        caches = self.resident_cache(b)
+        flags = dataclasses.replace(self.run_flags("decode", dsa_mode),
+                                    spec_verify=True)
+        # the graphs (captured with an all-false mask, which writes
+        # nothing) come before the prefill, as the decode step's do
+        verify, commit = self.spec_steps(b, spec, flags)
+        logits, caches, t_prefill = self.prefill(prompts, lengths=lengths,
+                                                 caches=caches,
+                                                 dsa_mode=dsa_mode)
+        gens = [None if greedy else
+                torch.Generator(device=self.device).manual_seed(seed)
+                for _ in range(b)]
+        t0 = time.monotonic()
+        tok = torch.cat([_sample(logits[r:r + 1, -1], gens[r], greedy,
+                                 temperature) for r in range(b)])
+        tok_np = tok.cpu().numpy()
+        hists, hlens = [], np.empty((b,), np.int64)
+        for i in range(b):
+            plen = int(lengths[i])
+            hb = np.empty((plen + n_new,), np.int32)
+            hb[:plen] = prompts[i, :plen]
+            hb[plen] = tok_np[i, 0]
+            hists.append(hb)
+            hlens[i] = plen + 1
+        out_rows = [[int(tok_np[i, 0])] for i in range(b)]
+        remaining = np.full((b,), n_new - 1, np.int64)
+        active = remaining > 0
+        sd = SpeculativeDecoder(spec)
+        proposer = draft if draft is not None else NGramProposer()
+        accept_hist = [0] * (spec + 1)
+        rounds = 0
+        while active.any():
+            drafts = proposer.propose(
+                [_ro_view(hists[i], hlens[i]) for i in range(b)], spec)
+            tok, nxt, emit = sd.round(verify, commit, tok, drafts, active,
+                                      remaining, [greedy] * b,
+                                      [temperature] * b, gens)
+            for i in range(b):
+                e = int(emit[i])
+                if e:
+                    out_rows[i].extend(nxt[i, :e].tolist())
+                    hists[i][hlens[i]:hlens[i] + e] = nxt[i, :e]
+                    hlens[i] += e
+                    accept_hist[e - 1] += 1
+            remaining -= emit
+            active &= remaining > 0
+            rounds += 1
+        toks = np.asarray([r[:n_new] for r in out_rows], np.int32)
+        t_decode = time.monotonic() - t0
+        delivered = b * (n_new - 1)
+        tps = delivered / max(t_decode, 1e-9) if delivered else 0.0
+        return GenerationResult(toks, t_prefill, t_decode, tps,
+                                decode_dispatches=rounds,
+                                decode_steps=rounds * (spec + 1),
+                                spec_rounds=rounds,
+                                spec_accept_hist=accept_hist,
+                                delivered_tokens=delivered)

@@ -1,5 +1,6 @@
-"""CUDA graphs of the decode step: the port's counterpart of the
-reference's compiled decode programs.
+"""CUDA graphs of the decode step (and of the speculative verify and
+commit): the port's counterpart of the reference's compiled decode
+programs.
 
 The JAX reference runs each decode program as one compiled dispatch: the
 static engine's ``Engine._decode_loop`` (``repro/inference/engine.py``),
@@ -46,6 +47,14 @@ be shared only by graphs that replay in the order they were captured.
 Every engine captures on one stream per device:
 what the first calls on a stream create and keep for the process's life
 (cuBLAS's workspace) then exists once, not once an engine.
+Speculative decoding (inference/speculative.py) captures two more
+graphs per (batch, C) and mode through the same machinery: the verify
+forward, from a static (B, C) chunk and (B,) mask to static (B, C, V)
+logits, and its commit, from a static (B, 1) accepted count and the mask
+to nothing (the cache is its output).  Their warm-up calls have
+all-false masks, which change no cache leaf, so they are captured over
+live slots too.  Acceptance and the per-row generators' draws stay
+eager between the two replays.
 CUDA graphs exist only on the card; on the CPU the engines run the same
 step eagerly.
 """
@@ -66,12 +75,14 @@ _CAPTURE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
 
 
 def step_key(cfg: ArchConfig, flags: RunFlags, batch: int,
-             paged: bool) -> tuple:
+             paged: bool, kind: tuple = ("decode",)) -> tuple:
     """The key of a decode step's graph.  ``flags.decode_window`` sets
-    the cache's length, so two windows never share a graph."""
+    the cache's length, so two windows never share a graph.  ``kind``
+    tells a decode step from a speculative verify or commit of C rows
+    (``("verify", C)``, ``("commit", C)``)."""
     return (batch, "paged" if paged else "dense", flags.kv_quant,
             flags.select_dtype, flags.dsa_mode, flags.decode_window,
-            cfg.name)
+            cfg.name) + tuple(kind)
 
 
 class StepGraph:
@@ -144,13 +155,17 @@ class DecodeGraphs:
         self.graphs.clear()
 
     def step(self, key: tuple, fn: Callable, caches, batch: int,
-             masked: bool) -> StepGraph:
+             masked: bool, width: int = 1) -> StepGraph:
         """The graph of ``key``, captured now if there is none: ``fn(tok,
         mask)`` is the eager step over ``caches`` returning (B, 1, V)
-        logits, with ``mask`` None unless ``masked``."""
+        logits, with ``mask`` None unless ``masked``.  ``width``: the
+        token input's columns (a speculative verify takes C tokens a row;
+        its commit takes the (B, 1) accepted counts there and returns
+        nothing)."""
         g = self.graphs.get(key)
         if g is None:
-            g = self.graphs[key] = self._capture(fn, caches, batch, masked)
+            g = self.graphs[key] = self._capture(fn, caches, batch, masked,
+                                                 width)
             self.captures += 1
         elif g.caches is not caches:
             raise RuntimeError(f"the decode graph {key} was captured on "
@@ -158,10 +173,10 @@ class DecodeGraphs:
         return g
 
     @torch.inference_mode()
-    def _capture(self, fn: Callable, caches, batch: int,
-                 masked: bool) -> StepGraph:
+    def _capture(self, fn: Callable, caches, batch: int, masked: bool,
+                 width: int = 1) -> StepGraph:
         dev = self.device
-        tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+        tok = torch.zeros((batch, width), dtype=torch.long, device=dev)
         mask = (torch.zeros((batch,), dtype=torch.bool, device=dev)
                 if masked else None)
         torch.cuda.synchronize(dev)

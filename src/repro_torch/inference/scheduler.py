@@ -55,6 +55,18 @@ streams requests through it:
                   engine switches modes when it drains idle, or, with
                   ``max_mode_wait_s``, when an other-mode request has
                   waited that long.
+  speculation     ``spec=K`` (dense resident caches only, and only inside
+                  ``speculative.can_speculate``): a segment runs
+                  ``spec_rounds`` draft-and-verify rounds instead of
+                  ``seg_len`` steps.  Each round drafts K tokens a slot
+                  from the slot's token history (prompt, then every token
+                  it emitted, kept in a buffer appended in place), runs one
+                  verify forward and its commit (a graph replay each on
+                  the card), and collects 1 to K + 1 tokens a slot.  A
+                  segment whose mode is outside the envelope runs plain;
+                  a proposer that raises costs that round's segment
+                  (plain instead when no round ran) and three failures
+                  in a row turn speculation off for the engine's life.
 
 Token-exactness: a request served here gets the tokens of
 ``Engine(cfg, params, max_len=<same>).generate(prompt[None], n_new,
@@ -66,11 +78,14 @@ the B=1 chain of ``Engine.generate`` is.  Paged serving gives the dense
 tokens; a request with ``dsa_mode`` set gets ``generate(...,
 dsa_mode=...)``'s; a prefix hit gives the tokens of the same requests
 undeclared, since the seeded rows are the bytes the skipped chunks write.
-Pinned by tests/test_torch_scheduler.py, tests/test_torch_prefix.py and
-tests/test_torch_modes.py.
+Speculative segments give each request its plain tokens (on tokens: a
+verify product over C rows rounds otherwise than a step's, see
+inference/speculative.py).  Pinned by tests/test_torch_scheduler.py,
+tests/test_torch_prefix.py, tests/test_torch_modes.py and
+tests/test_torch_spec.py.
 
 Not ported yet (each raises ``NotImplementedError`` where a caller asks
-for it): speculative segments; the request lifecycle and shedding
+for it): the request lifecycle and shedding
 (deadlines, ``cancel``, ``queue_cap``/``shed_policy``, the fault
 injector and the unfundable anchor's ``admit_retries`` shedding: an
 unfundable anchor waits for pages); telemetry; serving meshes; recurrent
@@ -90,10 +105,13 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantization import raw
 from repro_torch.inference.config import ServingConfig, resolve_config
-from repro_torch.inference.engine import (Engine, _sample, _sync,
+from repro_torch.inference.engine import (Engine, _ro_view, _sample, _sync,
                                           can_chunk_prefill, can_page,
                                           pow2_bucket)
 from repro_torch.inference.graphs import step_key
+from repro_torch.inference.speculative import (NGramProposer,
+                                               SpeculativeDecoder,
+                                               can_speculate)
 from repro_torch.models.attention import (DSA_MODES, _pool_write,
                                           cache_page_size)
 from repro_torch.models.transformer import chunk_step, decode_step, init_cache
@@ -166,6 +184,16 @@ class _SlotState:
     remaining: int
     admit_s: float
     first_token_s: float = 0.0
+    # the slot's token history (prompt, tok0, then every collected
+    # token), appended in place: draft proposers read a view of it each
+    # round instead of a re-concatenation of the whole context
+    history: Optional[np.ndarray] = None
+    hist_len: int = 0
+
+    def extend_history(self, toks: np.ndarray) -> None:
+        n = toks.shape[0]
+        self.history[self.hist_len:self.hist_len + n] = toks
+        self.hist_len += n
 
 
 @dataclasses.dataclass
@@ -212,8 +240,8 @@ class PagePool:
     it with the pool.  Not ported around it: the reference's shedding of
     an anchor the pool cannot fund (``admit_retries``, the fault
     injector's forced exhaustion), with the rest of the request
-    lifecycle; speculation, telemetry, serving meshes and RWKV6 in the
-    continuous engine are not ported either."""
+    lifecycle; telemetry, serving meshes and RWKV6 in the continuous
+    engine are not ported either."""
 
     def __init__(self, n_pages: int, page_rows: int):
         if n_pages < 2:
@@ -347,6 +375,19 @@ class ContinuousEngine:
         # mode-affine aging: an other-mode request queued this long forces
         # a drain and a mode switch (None: wait for an idle drain)
         self.max_mode_wait_s = c.max_mode_wait_s
+        # speculative segments: off outside the envelope and on a paged
+        # cache (the verify writes dense rows), as in the reference
+        dsa_mode = self.engine.decode_flags.dsa_mode
+        self.spec = c.spec if (c.spec and not self.paged and can_speculate(
+            cfg, dsa_mode, c.spec)) else 0
+        self.draft = (c.draft if c.draft is not None else NGramProposer()
+                      ) if self.spec else None
+        # rounds a speculative segment: a fully accepted one emits about
+        # one plain segment's tokens
+        self.spec_rounds = (c.spec_rounds if c.spec_rounds is not None
+                            else max(1, self.seg_len // (self.spec + 1))
+                            ) if self.spec else 0
+        self._spec = SpeculativeDecoder(self.spec) if self.spec else None
         self.queue: deque = deque()
         self.graphs = self.engine.graphs  # the engine's graphs, one a key
         self.reset()
@@ -570,8 +611,13 @@ class ContinuousEngine:
         self._active[slot] = True
         self._greedy[slot] = req.greedy
         self._temps[slot] = req.temperature
+        prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+        hist = np.empty((prompt.size + req.n_new,), np.int32)
+        hist[:prompt.size] = prompt
+        hist[prompt.size] = tok0
         self._slot[slot] = _SlotState(req, tok0, [], req.n_new - 1, admit_s,
-                                      first_token_s=first_s)
+                                      first_token_s=first_s, history=hist,
+                                      hist_len=prompt.size + 1)
 
     @torch.inference_mode()
     def _insert(self, pre, slot: int, row: int) -> None:
@@ -909,7 +955,13 @@ class ContinuousEngine:
         self.stats = {"segments": 0, "decode_steps": 0, "useful_tokens": 0,
                       "admitted": 0, "prefill_s": 0.0, "chunks": 0,
                       "chunk_s": 0.0, "stall_s": 0.0, "segment_s": 0.0,
-                      "prefix_hits": 0, "prefix_tokens_reused": 0}
+                      "prefix_hits": 0, "prefix_tokens_reused": 0,
+                      "spec_rounds": 0, "spec_emitted": 0, "draft_s": 0.0,
+                      "accept_hist": [0] * (self.spec + 1),
+                      "proposer_failures": 0}
+        self._spec_degraded = False
+        self._spec_fail_streak = 0
+        self.last_proposer_error: Optional[str] = None
         self._live: Set[int] = set()
         self._enq_s: Dict[int, float] = {}
         self._cur_mode: Optional[str] = None
@@ -952,10 +1004,12 @@ class ContinuousEngine:
                     self.admit_ready(lambda: 0.0, sink)
                     self.step_prefill(lambda: 0.0, sink)
                     if any(s is not None for s in self._slot):
-                        self.run_segment(lambda: 0.0, sink)
+                        self._step_decode(lambda: 0.0, sink)
                 rid -= n
         self.reset()
         self._segment_step()
+        if self.spec:
+            self._spec_steps()
 
     def _segment_step(self, mode: Optional[str] = None):
         """The segment's masked decode step over the resident cache under
@@ -1029,12 +1083,100 @@ class ContinuousEngine:
                 continue
             emitted = min(st.remaining, self.seg_len)
             st.collected.append(toks[i, :emitted].astype(np.int32))
+            st.extend_history(st.collected[-1])
             st.remaining -= emitted
             self.stats["useful_tokens"] += emitted
             if st.remaining == 0:
                 self._emit(results, st.req, self._partial(st), st.admit_s,
                            now, first_s=st.first_token_s)
                 self._retire_slot(i)
+
+    # -- speculative segments ------------------------------------------------
+
+    def _spec_steps(self):
+        """The verify forward and commit of the current segment mode (the
+        engine's when none) over the resident cache: graph replays on the
+        card, captured on the first call after a reset, with all-false
+        masks that change nothing; eager on the CPU."""
+        flags = dataclasses.replace(
+            self._flags(self._cur_mode or self.engine.decode_flags.dsa_mode),
+            spec_verify=True)
+        return self.engine.spec_steps(self.slots, self.spec, flags,
+                                      caches=self._caches)
+
+    @torch.inference_mode()
+    def run_spec_segment(self, clock, results: List[RequestResult]) -> None:
+        """A speculative segment: up to ``spec_rounds`` draft-and-verify
+        rounds over all slots.  Each round hands the proposer a read-only
+        view of each slot's history, verifies and commits the drafts
+        (``SpeculativeDecoder.round``: one host sync) and collects each
+        slot's 1 to K + 1 tokens; a slot retires as soon as its budget is
+        spent.  Stats count only executed rounds, and ``segment_s``
+        leaves drafting out, so the chunk-burst tuner reads device-bound
+        time.  A proposer that raises ends the segment; three failures in
+        a row degrade the engine to plain segments, and a failure before
+        any round runs a plain segment in its place."""
+        verify, commit = self._spec_steps()
+        t0 = time.monotonic()
+        draft_s0 = self.stats["draft_s"]
+        rounds_run = 0
+        for _ in range(self.spec_rounds):
+            if not any(st is not None for st in self._slot):
+                break
+            ctxs = [_ro_view(st.history, st.hist_len) if st is not None
+                    else np.zeros((1,), np.int32) for st in self._slot]
+            td = time.monotonic()
+            try:
+                drafts = self.draft.propose(ctxs, self.spec)
+            except Exception as e:      # a proposer costs speed, never work
+                self.last_proposer_error = repr(e)
+                self.stats["draft_s"] += time.monotonic() - td
+                self.stats["proposer_failures"] += 1
+                self._spec_fail_streak += 1
+                if self._spec_fail_streak >= 3:
+                    self._spec_degraded = True
+                break
+            self._spec_fail_streak = 0
+            self.stats["draft_s"] += time.monotonic() - td
+            remaining = np.asarray(
+                [st.remaining if st else 0 for st in self._slot], np.int64)
+            self._tok, nxt, emit = self._spec.round(
+                verify, commit, self._tok, drafts, self._active, remaining,
+                self._greedy, self._temps, self._gens)
+            now = clock()                 # the round has synced
+            self.stats["spec_rounds"] += 1
+            rounds_run += 1
+            for i, st in enumerate(self._slot):
+                if st is None or not emit[i]:
+                    continue
+                e = int(emit[i])
+                st.collected.append(nxt[i, :e])
+                st.extend_history(nxt[i, :e])
+                st.remaining -= e
+                self.stats["useful_tokens"] += e
+                self.stats["spec_emitted"] += e
+                self.stats["accept_hist"][e - 1] += 1
+                if st.remaining == 0:
+                    self._emit(results, st.req, self._partial(st),
+                               st.admit_s, now, first_s=st.first_token_s)
+                    self._retire_slot(i)
+        if rounds_run:
+            self.stats["segments"] += 1
+            self.stats["segment_s"] += ((time.monotonic() - t0)
+                                        - (self.stats["draft_s"] - draft_s0))
+        elif any(s is not None for s in self._slot):
+            self.run_segment(clock, results)
+
+    def _step_decode(self, clock, results: List[RequestResult]) -> None:
+        """One decode segment in the current mode: speculative when the
+        engine speculates, has not degraded, and the mode is inside the
+        envelope (a per-request mode may not be); plain otherwise."""
+        mode = self._cur_mode or self.engine.decode_flags.dsa_mode
+        if (self.spec and not self._spec_degraded
+                and can_speculate(self.cfg, mode, self.spec)):
+            self.run_spec_segment(clock, results)
+        else:
+            self.run_segment(clock, results)
 
     # -- serving loops ------------------------------------------------------
 
@@ -1050,7 +1192,7 @@ class ContinuousEngine:
             self.admit_ready(clock, results)
             self.step_prefill(clock, results)
             if any(s is not None for s in self._slot):
-                self.run_segment(clock, results)
+                self._step_decode(clock, results)
         return {r.rid: r.tokens for r in results}
 
     def serve(self, workload: Sequence[Request]) -> List[RequestResult]:
@@ -1070,7 +1212,7 @@ class ContinuousEngine:
             self.admit_ready(clock, results)
             self.step_prefill(clock, results)
             if any(s is not None for s in self._slot):
-                self.run_segment(clock, results)
+                self._step_decode(clock, results)
             elif self._pf is None and not self.queue and i < len(items):
                 time.sleep(max(0.0, min(items[i].arrival_s - now, 0.05)))
         return sorted(results, key=lambda r: r.rid)

@@ -61,6 +61,20 @@ cache, as in the reference); ``--continuous`` admits it blocking:
         --arch h2o_danube_1_8b --reduced --batch 2 --prompt-len 160 \
         --new-tokens 8 --dsa --dsa-mode kernel --device cpu
 
+``--spec K`` decodes speculatively (repro_torch.inference.speculative):
+K tokens a row drafted by n-gram lookup over the row's history, verified
+in one forward a round (on ``--dsa-mode kernel`` K1 once per verified
+row per layer) and committed, with the plain tokens in f32 (in bf16 at
+full width a product over the chunk's rows may round otherwise than the
+decode step's and change a token: inference/speculative.py).  Outside the
+speculation envelope (RWKV6, a sliding-window ring, K + 1 > 64 on a DSA
+path) the static path prints a note and decodes plainly; the continuous
+engine turns it off there and on a ``--paged`` cache.  Both lines report
+the verify rounds and how many tokens each round emitted:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b \
+        --reduced --dsa --dsa-mode kernel --spec 4 --device cpu
+
 ``--arch rwkv6_3b`` serves the RWKV6 model through the static engine: its
 prefill runs the chunked wkv kernel K7 once per layer when the prompt is
 a multiple of 32 longer than 32; ``--dsa`` falls back to off (no score
@@ -83,6 +97,7 @@ from repro_torch.inference.config import ServingConfig
 from repro_torch.inference.engine import Engine
 from repro_torch.inference.scheduler import (ContinuousEngine, summarize,
                                              synthetic_workload)
+from repro_torch.inference.speculative import can_speculate
 from repro_torch.kernels.dsa_attention import dsa_block_sparse_attention
 from repro_torch.kernels.dsa_chunk_prefill import (
     dsa_chunk_gather_attention, dsa_chunk_paged_gather_attention)
@@ -162,6 +177,15 @@ def _serve_continuous(cfg, args, params, config, device):
                                   for k in KERNELS)
           + f", peak memory {peak}, resident cache "
           f"{cache_bytes(eng._caches) // eng.slots} bytes per slot")
+    if args.spec:
+        st = eng.stats
+        print(f"speculative: K {eng.spec}" + (
+            "" if eng.spec else " (off: paged cache or outside "
+            "speculative.can_speculate)")
+            + f", {st['spec_rounds']} verify rounds, {st['spec_emitted']} "
+            f"tokens, accept hist {st['accept_hist']}, drafting "
+            f"{st['draft_s']:.3f} s, proposer failures "
+            f"{st['proposer_failures']}")
     return results, eng
 
 
@@ -192,6 +216,9 @@ def main(argv=None):
                     help="synthetic requests to serve (--continuous)")
     ap.add_argument("--rate", type=float, default=4.0,
                     help="Poisson arrival rate, requests/s (--continuous)")
+    ap.add_argument("--spec", type=int, default=0,
+                    help="speculative decoding: K draft tokens verified "
+                         "per forward (0 = off; the plain tokens in f32)")
     ap.add_argument("--chunk-tokens", type=int, default=64,
                     help="chunked admission width in tokens (--continuous)")
     ap.add_argument("--paged", action="store_true",
@@ -237,7 +264,8 @@ def main(argv=None):
                            seg_len=args.seg_len,
                            chunk_tokens=args.chunk_tokens, paged=args.paged,
                            pool_pages=args.pool_pages or None,
-                           max_mode_wait_s=args.max_mode_wait)
+                           max_mode_wait_s=args.max_mode_wait,
+                           spec=args.spec)
     if args.continuous:
         return _serve_continuous(cfg, args, params, config, device)
     eng = Engine(cfg, params, config=config, device=device)
@@ -245,8 +273,13 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(1, cfg.vocab - 4,
                            size=(args.batch, args.prompt_len)).astype(np.int32)
+    spec = args.spec
+    if spec and not can_speculate(cfg, eng.decode_flags.dsa_mode, spec):
+        print(f"note: spec={spec} is outside the speculation envelope for "
+              f"{cfg.name}; decoding plainly")
+        spec = 0
     graphs = graph_counts(eng.graphs)
-    res = eng.generate(prompts, args.new_tokens)
+    res = eng.generate(prompts, args.new_tokens, spec=spec)
     captures, replays = (b - a for a, b in zip(graphs,
                                                graph_counts(eng.graphs)))
     row = cache_bytes(init_cache(cfg, 1, max_len, eng.decode_flags,
@@ -260,6 +293,10 @@ def main(argv=None):
     after = launch_counts()
     print(f"cache {row} bytes per batch row; launches "
           + " ".join(f"{k} {after[k] - before[k]}" for k in KERNELS))
+    if res.spec_rounds:
+        print(f"speculative: {res.spec_rounds} verify rounds, accept hist "
+              f"{res.spec_accept_hist}, {res.delivered_tokens} tokens "
+              f"delivered -> {res.tokens_per_s:.1f} tok/s")
     print("first new tokens:", res.tokens[:, :8].tolist())
     return res
 

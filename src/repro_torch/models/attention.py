@@ -42,6 +42,14 @@ per-slot ``page_tbl`` over the logical geometry; page 0 is the permanent
 zero page.  Paged decode gathers through the table, with K4
 (``kernels.ops.dsa_decode_paged``) on ``dsa_mode="kernel"``.
 
+Speculative verify (``RunFlags.spec_verify`` with ``chunk_len``,
+``_apply_verify``): a C-token draft chunk appended at ``pos`` like a
+chunk, each row attending with the decode step's own numerics (its own
+selection over the pre-chunk ktb and its own ``kv_len``; on the kernel
+path one K1 call per row, the decode step's call); ``commit_verify``
+then keeps the accepted rows, zeroes the rest and replays the decode
+step's ktb update for the kept ones.
+
 Mixed-precision serving (``RunFlags.kv_quant``, ``RunFlags.select_dtype``):
 ``kv_quant`` "int8" or "fp8" stores K/V narrow with one f32 scale per
 (row, head) (leaves ``k_s``/``v_s``), dequantized after every gather and
@@ -117,6 +125,9 @@ class RunFlags:
     # "int8" | "fp8": K/V stored narrow with per-(row, head) scales
     kv_quant: Optional[str] = None
     decode_window: int = 0         # ring-buffer cache size override
+    # speculative decoding: the chunk-append path verifies a draft chunk,
+    # each row with the decode step's own numerics (_apply_verify)
+    spec_verify: bool = False
 
 
 def dsa_active(cfg: ArchConfig, flags: RunFlags) -> bool:
@@ -260,13 +271,17 @@ def apply_attention(params, cfg: ArchConfig, flags: RunFlags, x, *,
     ``active`` (an ``Active``) freezes the other rows at decode; ``chunk_len``
     (B,) switches decode to the chunk-append path (x is a C-token chunk
     per row, rows past chunk_len are padding) with ``sel_len`` its
-    selection geometry.  ``aux`` holds the MSE term in train mode (with
-    ``flags.with_mse`` and DSA on) and is empty otherwise."""
+    selection geometry, or with ``flags.spec_verify`` to the speculative
+    verify of a whole C-token chunk (``_apply_verify``).  ``aux`` holds
+    the MSE term in train mode (with ``flags.with_mse`` and DSA on) and
+    is empty otherwise."""
     if flags.mode == "decode":
         if "page_tbl" in cache:
             if chunk_len is not None:
                 raise ValueError("paged caches decode one token at a time")
             out = _apply_paged_decode(params, cfg, flags, x, cache, active)
+        elif chunk_len is not None and flags.spec_verify:
+            out = _apply_verify(params, cfg, flags, x, cache, active)
         elif chunk_len is not None:
             out = _apply_chunk(params, cfg, flags, x, cache, active,
                                chunk_len, sel_len)
@@ -559,6 +574,24 @@ def _faithful_decode(cfg: ArchConfig, q, q_t, kt, kt_s, kv, kv_len, s: int):
                                   kv_len=kv_len, local=DECODE_LOCAL)
 
 
+def _ktb_add(cache: Dict, blk: torch.Tensor, kt: torch.Tensor,
+             active: Optional[Active]) -> None:
+    """The decode step's block-sum update, in place: each writing row adds
+    its predicted key ``kt`` (B, k) to its block ``blk`` (B,) of ktb.  An
+    int8 block sum cannot add across scales: it is dequantized, added in
+    f32 and requantized.  Each row adds to its own block, so a
+    gather-add-scatter needs no accumulating index_put (which sorts its
+    indices on the card).  ``commit_chunk`` replays it row by row."""
+    rows = torch.arange(kt.shape[0], device=kt.device)
+    if "ktb_s" in cache:
+        old = Q.dequant(cache["ktb"][rows, blk], cache["ktb_s"][rows, blk])
+        for leaf, val in zip(("ktb", "ktb_s"), Q.quant_store(old + kt)):
+            _put_step_rows(cache[leaf], blk, val, active)
+    else:
+        _put_step_rows(cache["ktb"], blk, cache["ktb"][rows, blk]
+                       + kt.to(cache["ktb"].dtype), active)
+
+
 def _dsa_decode(params, cfg: ArchConfig, flags: RunFlags, x, q, cache,
                 slot, kv_len, active: Optional[Active] = None):
     """DSA long-context decode step: update kt (and, on the block paths,
@@ -582,19 +615,8 @@ def _dsa_decode(params, cfg: ArchConfig, flags: RunFlags, x, q, cache,
     # bucketed step count can wrap, and its token is dropped; a
     # decode_window ring wraps for real and its block sums then go stale,
     # as the reference's do), so a plain add keeps the block sum exact
-    # for every delivered token; each row
-    # adds to its own block, so a gather-add-scatter needs no accumulating
-    # index_put (which sorts its indices on the card).  An int8 block sum
-    # cannot add across scales: dequantize it, add in f32, requantize.
-    blk = slot // bkd
-    rows = torch.arange(kc.shape[0], device=kc.device)
-    if "ktb_s" in cache:
-        old = Q.dequant(cache["ktb"][rows, blk], cache["ktb_s"][rows, blk])
-        for leaf, val in zip(("ktb", "ktb_s"), Q.quant_store(old + kt)):
-            _put_step_rows(cache[leaf], blk, val, active)
-    else:
-        _put_step_rows(cache["ktb"], blk, cache["ktb"][rows, blk]
-                       + kt.to(cache["ktb"].dtype), active)
+    # for every delivered token
+    _ktb_add(cache, slot // bkd, kt, active)
     idx, ok = _decode_select(cfg, q_t, cache["ktb"], cache.get("ktb_s"),
                              kv_len, s)
     scales = dict(k_scale=cache.get("k_s"), v_scale=cache.get("v_s"))
@@ -865,3 +887,177 @@ def _dsa_chunk_attend(cfg: ArchConfig, flags: RunFlags, q, kc, vc, q_t,
                                        block_k=bkd, q_offset=pos,
                                        kv_len=kv_len, k_scale=k_scale,
                                        v_scale=v_scale)
+
+
+# -- speculative verify (draft-and-verify decode) ----------------------------
+
+# the float K~ rows of a verify chunk (B, C, k), kept for commit_chunk's
+# ktb replay where ktb is int8 (the decode step adds the float row, not
+# the stored int8 one).  Scratch the caller owns
+# (``transformer.spec_scratch``), set beside the layer's leaves only in
+# the view of the cache a verify_step or commit_chunk passes down
+PEND_KEY = "kt_pend"
+
+
+def _pend(cache: Dict, flags: RunFlags, cfg: ArchConfig):
+    """The layer's verify scratch where the block paths' commit needs it
+    (an int8 ktb), else None; raises where it is needed and missing."""
+    if not ("ktb_s" in cache and dsa_active(cfg, flags)
+            and flags.dsa_mode != "faithful"):
+        return None
+    if cache.get(PEND_KEY) is None:
+        raise ValueError("an int8 ktb needs the verify's float K~ rows: "
+                         "pass transformer.spec_scratch(...) to verify_step "
+                         "and commit_chunk")
+    return cache[PEND_KEY]
+
+
+def _apply_verify(params, cfg: ArchConfig, flags: RunFlags, x, cache,
+                  active: Optional[Active]):
+    """Draft-verify chunk append: C tokens (the pending token and C-1
+    drafts) written at each row's ``pos`` as ``_apply_chunk`` writes, but
+    each row attends with the DECODE step's numerics: row i is the
+    ``_apply_decode`` step at depth ``pos + i``, with its own selection,
+    its own ``kv_len = pos + i + 1`` and the f32 softmax, over the whole
+    cache (there is no ``sel_len``).  Every product (the projections,
+    the predictor, the MLP) runs once over the C rows, so its bytes may
+    differ from the decode step's in the last bits (tokens are held, not
+    bytes: ``inference/speculative.py``).
+
+    Every row of K, V and kt (with their scales) is written, rows at or
+    past the cache's end dropped, never wrapped; ``pos`` advances by C on
+    active rows, and an inactive row writes nothing.  ``ktb`` is NOT
+    touched: every block the chunk touches lies inside each row's
+    DECODE_LOCAL window (C <= DECODE_LOCAL, ``speculative.can_speculate``),
+    so it is force-kept and its stale sum never counts; ``commit_chunk``
+    replays the decode step's ktb update for the accepted rows and zeroes
+    the rejected ones.  A verify step must be followed by that commit.
+    Under int8 selection on the block paths the rows' float K~ go to the
+    caller's scratch (``cache[PEND_KEY]``, (B, C, k)) for that replay."""
+    if cfg.swa_window:
+        raise NotImplementedError("speculative verify needs a non-wrapping "
+                                  "cache")
+    b, c = x.shape[:2]
+    s = cache["k"].shape[1]
+    pos = cache["pos"].long()                              # (B,)
+    q, k, v = _proj_qkv(params, cfg, x)
+    p = pos[:, None] + torch.arange(c, device=x.device)[None, :]
+    q = rope(q, p, cfg.rope_theta)
+    k = rope(k, p, cfg.rope_theta)
+    act = (torch.ones((b,), dtype=torch.bool, device=x.device)
+           if active is None else active.mask)
+    wok = act[:, None].expand(b, c)
+    for leaf, val in _kv_rows(cache, k, v, flags.kv_quant).items():
+        _write_rows(cache[leaf], p, val, wok)
+    cache["pos"].copy_(pos + torch.where(act, c, 0))
+    kv_row = torch.where(act[:, None], torch.clamp(p + 1, max=s),
+                         0).to(torch.int32)                # (B, C)
+    if "kt" in cache:
+        q_t, k_t = PRED.predict_qk(params["dsa"], x, None, cfg.dsa.quant_bits)
+        for leaf, val in _quant_rows(cache, "kt", k_t, "int8").items():
+            _write_rows(cache[leaf], p, val, wok)
+        if dsa_active(cfg, flags):
+            pend = _pend(cache, flags, cfg)
+            if pend is not None:
+                pend.copy_(k_t.float())
+            out = _dsa_verify_attend(cfg, flags, q, q_t, cache, kv_row)
+        else:
+            # off on a long-context cache: dense decode over the buffer
+            out = A.chunk_attention(q, *_kv_views(cache), p)
+    else:
+        out = A.chunk_attention(q, *_kv_views(cache), p)
+    out = mm(out.reshape(b, c, -1), params["wo"])
+    return out, cache
+
+
+def _dsa_verify_attend(cfg: ArchConfig, flags: RunFlags, q, q_t, cache,
+                       kv_row):
+    """Per-row DSA selection and attention of a verify chunk: the twin of
+    ``_dsa_decode``'s paths, each row with the decode step's shapes.
+    q_t: (B, C, k) the rows' predicted queries; kv_row: (B, C).  Faithful
+    scores all kt rows (every chunk row written; later rows are past a
+    row's kv_len); block and kernel score the PRE-chunk ktb.  In kernel
+    mode K1 (K1q on a quantized cache) runs once per row, each call the
+    decode step's: a (B, 1, Hq, hd) query with that row's idx, ok and
+    kv_len."""
+    kc, vc = cache["k"], cache["v"]
+    s = kc.shape[1]
+    c = q.shape[1]
+    if flags.dsa_mode == "faithful":
+        if "kt_s" in cache:
+            s_t = _int8_select_scores(q_t, cache["kt"], cache["kt_s"])
+        else:
+            s_t = torch.einsum("bck,bsk->bcs", q_t.float(),
+                               cache["kt"].float())
+        return A.dsa_verify_attention(
+            q, *_kv_views(cache), s_t,
+            keep=M.keep_count(s, cfg.dsa.sparsity), kv_len=kv_row,
+            local=DECODE_LOCAL)
+    dsa = cfg.dsa
+    bkd = dsa.block_k
+    ktb, ktb_s = cache["ktb"], cache.get("ktb_s")
+    n_kb = ktb.shape[1]
+    if ktb_s is not None:
+        s_blk = _int8_select_scores(q_t, ktb, ktb_s, block_k=bkd)
+    else:
+        s_blk = torch.einsum("bck,bjk->bcj", q_t.float(), ktb.float()) / bkd
+    keep = M.keep_count(s, dsa.sparsity)
+    nb_keep = min(n_kb, -(-keep // bkd) + -(-DECODE_LOCAL // bkd) + 1)
+    idx, ok = M.verify_block_topk_indices(s_blk, nb_keep, kv_len=kv_row,
+                                          block_k=bkd, local=DECODE_LOCAL)
+    scales = dict(k_scale=cache.get("k_s"), v_scale=cache.get("v_s"))
+    if flags.dsa_mode == "kernel":
+        return torch.cat([
+            ops.dsa_decode(q[:, i:i + 1].contiguous(), kc, vc,
+                           idx[:, i].contiguous(), ok[:, i].contiguous(),
+                           kv_row[:, i].contiguous(), block_k=bkd, **scales)
+            for i in range(c)], dim=1)
+    return A.dsa_verify_block_attention(q, kc, vc, idx, ok, block_k=bkd,
+                                        kv_len=kv_row, **scales)
+
+
+def commit_verify(cfg: ArchConfig, flags: RunFlags, cache: Dict,
+                  keep: torch.Tensor, c: int,
+                  active: Optional[Active] = None) -> None:
+    """Commit one layer's verify chunk in place (``transformer.
+    commit_chunk``): keep its first ``keep`` (B,) rows, zero the rejected
+    rows [start + keep, start + C) of every per-token leaf, and set
+    ``pos = start + keep``, where ``start = pos - C`` on active rows.  On
+    the block and kernel paths the accepted rows' ktb update is REPLAYED
+    as the decode step makes it (``_ktb_add``, float add or int8
+    dequant-add-requant), row by row in order, row i where i < keep, so
+    ktb/ktb_s end exactly as sequential decode leaves them; an int8 ktb
+    adds the float K~ rows the verify kept in ``cache[PEND_KEY]``.  (The
+    reference re-sums the touched blocks' kt rows instead; on the card a
+    block sum does not add in the per-step order, and under int8
+    selection the decode step adds the float row, not the stored int8
+    one.)  Faithful and off decode steps leave ktb alone, and so does
+    their commit.  An inactive row changes nothing.  Dense caches only."""
+    if "page_tbl" in cache:
+        raise ValueError("commit_chunk does not support paged caches: "
+                         "speculation is off on a paged engine")
+    b = cache["pos"].shape[0]
+    dev = cache["pos"].device
+    act = (torch.ones((b,), dtype=torch.bool, device=dev)
+           if active is None else active.mask)
+    keep = torch.where(act, keep.to(dev).long(), 0)
+    start = cache["pos"].long() - torch.where(act, c, 0)
+    offs = torch.arange(c, device=dev)
+    p = start[:, None] + offs[None, :]                     # (B, C)
+    rejected = (offs[None, :] >= keep[:, None]) & act[:, None]
+    for name in ("k", "v", "kt", "k_s", "v_s", "kt_s"):
+        if name in cache:
+            t = cache[name]
+            _write_rows(t, p, torch.zeros((b, c) + t.shape[2:], dtype=t.dtype,
+                                          device=dev), rejected)
+    cache["pos"].copy_(start + keep)
+    if "ktb" in cache and dsa_active(cfg, flags) and \
+            flags.dsa_mode != "faithful":
+        bkd = cfg.dsa.block_k
+        s = cache["kt"].shape[1]
+        rows = torch.arange(b, device=dev)
+        pend = _pend(cache, flags, cfg)
+        for i in range(c):
+            slot = p[:, i].clamp(max=s - 1)
+            kt = pend[:, i] if pend is not None else cache["kt"][rows, slot]
+            _ktb_add(cache, slot // bkd, kt, Active(act & (keep > i)))

@@ -8,6 +8,11 @@ Public API:
                                               -> (logits, caches)
   chunk_step(params, cfg, flags, tokens, caches, chunk_len, active=None,
              sel_len=None)                    -> (logits, caches)
+  verify_step(params, cfg, flags, tokens, caches, active=None,
+              scratch=None)                   -> (logits, caches)
+  commit_chunk(cfg, flags, caches, keep, c, active=None, scratch=None)
+                                              -> caches
+  spec_scratch(caches, c)                     -> the pair's scratch
   init_cache(cfg, batch, max_len, flags, ..., pages=None) -> caches
   zero_cache(caches)                          -> caches (in place)
   truncate_cache(cfg, caches, length)         -> caches (in place)
@@ -31,7 +36,7 @@ instead of holding them.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -41,7 +46,8 @@ from repro_torch.core.prediction import mm
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.core.quantization import raw
-from repro_torch.models.attention import RunFlags, _rebuild_ktb, as_active
+from repro_torch.models.attention import (PEND_KEY, RunFlags, _rebuild_ktb,
+                                          as_active, commit_verify)
 from repro_torch.models.common import dense_init, rms_norm
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -104,12 +110,14 @@ def forward_train(params, cfg: ArchConfig, flags: RunFlags,
         raise NotImplementedError(
             f"training {cfg.name}: the port's chunked wkv is the forward-only "
             f"kernel K7 on the card; training needs a differentiable chunked "
-            f"wkv (the reference's XLA _wkv_chunked), ROADMAP Queue 1, item 1")
+            f"wkv (the reference's XLA _wkv_chunked; ROADMAP.md Queue 1, "
+            f"checkpoints and the rest of training)")
     remat = cfg.remat and cfg.remat_policy != "none"
     if remat and cfg.remat_policy != "full":
         raise NotImplementedError(
             f"remat_policy {cfg.remat_policy!r} is not ported (only 'full' "
-            f"and 'none'; ROADMAP Queue 1, item 1)")
+            f"and 'none'; ROADMAP.md Queue 1, checkpoints and the rest of "
+            f"training)")
     x = params["embed"][tokens.long()].to(DTYPES[cfg.dtype])
     defs = B.group_defs(cfg)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -170,6 +178,84 @@ def chunk_step(params, cfg: ArchConfig, flags: RunFlags, tokens, caches,
     return forward(params, cfg, flags, tokens, caches,
                    active=as_active(active), chunk_len=chunk_len,
                    sel_len=sel_len)
+
+
+def spec_scratch(caches, c: int) -> List[Dict[str, Any]]:
+    """The scratch a ``verify_step`` and its ``commit_chunk`` share beside
+    ``caches``, one entry per layer (as ``caches["groups"]``): a (B, C, k)
+    f32 buffer where the layer's cache holds an int8 ktb (the verify keeps
+    its rows' float K~ there and the commit's ktb replay adds them, as the
+    decode step adds the float row), else None.  The cache's own layout
+    never changes; a graph captured over a scratch replays into it, so
+    its owner keeps it."""
+    def one(lc):
+        if "ktb_s" not in lc or "page_tbl" in lc:
+            return None
+        kt = lc["kt"]
+        return torch.zeros((kt.shape[0], c, kt.shape[-1]),
+                           dtype=torch.float32, device=kt.device)
+    return [{name: one(sub["attn"]) for name, sub in group.items()}
+            for group in caches["groups"]]
+
+
+def _with_scratch(caches, scratch):
+    """A view of ``caches`` (the same tensors, written in place) with each
+    layer's ``spec_scratch`` entry beside its leaves."""
+    if scratch is None:
+        return caches
+    return {**caches, "groups": [
+        {name: {**sub, "attn": {**sub["attn"], PEND_KEY: scratch[i][name]}}
+         for name, sub in group.items()}
+        for i, group in enumerate(caches["groups"])]}
+
+
+def verify_step(params, cfg: ArchConfig, flags: RunFlags, tokens, caches,
+                active=None, scratch=None):
+    """Speculative draft-verify step: ``chunk_step`` routed through the
+    per-row decode numerics of the verify attention (``flags.spec_verify``
+    must be set).  tokens: (B, C), each row's pending token followed by
+    C-1 drafts, appended at its ``pos``.  Returns (logits (B, C, V),
+    caches): row i's logits are those of the ``decode_step`` chain after
+    committing rows < i (the same tokens; the bytes differ where a product
+    over C rows rounds otherwise than one over 1 row), so the caller can
+    accept drafts and roll back the rest with ``commit_chunk``.  Every row
+    writes K/V/kt (ktb waits for the commit) and ``pos`` advances by C on
+    active rows: a verify step must be followed by ``commit_chunk``.
+    ``active``: a (B,) bool mask; an inactive row writes nothing.
+    ``scratch``: ``spec_scratch(caches, C)``, needed where a layer keeps
+    an int8 ktb on the block paths, and passed to the commit too."""
+    if flags.mode != "decode" or not flags.spec_verify:
+        raise ValueError("verify_step needs RunFlags(mode='decode', "
+                         "spec_verify=True)")
+    if cfg.rwkv is not None:
+        raise NotImplementedError(
+            f"verify_step: {cfg.name} is recurrent; its state cannot roll "
+            f"back rejected drafts")
+    b, c = tokens.shape
+    chunk_len = torch.full((b,), c, dtype=torch.int32, device=tokens.device)
+    logits, _ = forward(params, cfg, flags, tokens,
+                        _with_scratch(caches, scratch),
+                        active=as_active(active), chunk_len=chunk_len)
+    return logits, caches
+
+
+def commit_chunk(cfg: ArchConfig, flags: RunFlags, caches, keep, c: int,
+                 active=None, scratch=None):
+    """Commit the accepted prefix of a ``verify_step`` and roll back the
+    rejected tail, in place, every layer: keep (B,) accepted rows per row
+    (ignored on inactive rows); the verify wrote C rows at ``start = pos -
+    C``.  Zeroes every per-token row (k, v, kt and their scales) in
+    [start + keep, start + C), sets ``pos = start + keep`` and, on the
+    block and kernel paths, replays the decode step's ktb update for the
+    accepted rows (``models.attention.commit_verify``), so the cache is
+    what sequential decode leaves after ``keep`` steps of the same rows.
+    ``flags`` and ``scratch`` are the verify's.  Raises on a paged
+    cache."""
+    act = as_active(active)
+    for group in _with_scratch(caches, scratch)["groups"]:
+        for sub in group.values():
+            commit_verify(cfg, flags, sub["attn"], keep, c, act)
+    return caches
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, flags: RunFlags,

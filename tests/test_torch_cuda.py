@@ -7,7 +7,10 @@ and K7's head widths, chunks and segment counts; the decode step's
 CUDA graphs against eager steps, faithful decode and SWA rings
 included; and prefix reuse and per-request DSA modes in the continuous
 engine (a hit's tokens equal the undeclared run's, mixed-mode graphed
-segments equal eager ones, a mid-run capture leaves the cache as it was).
+segments equal eager ones, a mid-run capture leaves the cache as it was);
+and speculative decoding (a graphed verify and commit equal eager ones
+bit for bit, a mid-run capture of them leaves the cache as it was, the
+commit's ktb replay equals sequential K1-path decode's).
 
 Needs a CUDA card and the CUDA toolkit; skips without a card.  Imports
 neither JAX nor the reference, so it runs where only PyTorch is installed:
@@ -1216,3 +1219,184 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.detach().to(dev).requires_grad_(tree.requires_grad)
+
+
+# -- speculative decoding ------------------------------------------------------
+
+# reduced yi_6b past the 64-token local window: decode keeps 7 of 20
+# blocks, so the modes differ
+SPEC_MAX_LEN = 320
+SPEC_PLEN = 224
+
+
+def _spec_engine(dev, mode, kv=None, **kw):
+    from repro_torch.inference.engine import Engine
+    cfg, params = _model("yi_6b", dev)
+    return Engine(cfg, params, max_len=SPEC_MAX_LEN, long_context=True,
+                  dsa_mode=mode, **QUANT_KW[kv], **kw)
+
+
+def _spec_prompts(vocab, b=2, seed=0):
+    import numpy as np
+    return np.random.default_rng(seed).integers(
+        1, vocab - 4, size=(b, SPEC_PLEN)).astype(np.int32)
+
+
+def _attn_leaves(caches):
+    return [sub["attn"] for grp in caches["groups"] for sub in grp.values()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,kv", [("kernel", None), ("kernel", "fp8"),
+                                     ("kernel", "int8"), ("block", None),
+                                     ("faithful", None), ("off", None)])
+def test_cuda_graphed_verify_equals_eager(cuda_device, mode, kv):
+    """One round from the same prefilled state, the verify forward and
+    its commit as graph replays against the same calls eager: the logits,
+    then every cache leaf after the commit, bit for bit; K1 (K1q) counted
+    n_layers x C by the verify replay on the kernel path.  Then
+    ``generate(spec=4)`` gives the graphed plain tokens, with K1 (K1q)
+    n_layers x C a round."""
+    import dataclasses
+    from repro_torch.core.quantization import raw
+    from repro_torch.models import transformer as TT
+    eng = _spec_engine(cuda_device, mode, kv)
+    cfg, c = eng.cfg, 5
+    p = _spec_prompts(cfg.vocab)
+    flags = dataclasses.replace(eng.decode_flags, spec_verify=True)
+    verify, commit = eng.spec_steps(2, c - 1, flags)
+    _, graphed, _ = eng.prefill(p, caches=eng.resident_cache(2))
+    _, eager, _ = eng.prefill(p)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    chunk = torch.randint(1, cfg.vocab - 4, (2, c), generator=gen,
+                          device=cuda_device)
+    mask = torch.tensor([True, True], device=cuda_device)
+    keep = torch.tensor([[c], [2]], device=cuda_device)
+    fn, attr = _decode_count(kv)
+    before = getattr(fn, attr)
+    got = verify(chunk, mask).clone()
+    assert getattr(fn, attr) - before == (
+        cfg.n_layers * c if mode == "kernel" else 0)
+    scratch = TT.spec_scratch(eager, c)
+    with torch.inference_mode():
+        want = TT.verify_step(eng.params, cfg, flags, chunk, eager,
+                              active=mask, scratch=scratch)[0]
+        commit(keep, mask)
+        TT.commit_chunk(cfg, flags, eager, keep[:, 0], c, active=mask,
+                        scratch=scratch)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for a, b in zip(_attn_leaves(graphed), _attn_leaves(eager)):
+        assert set(a) == set(b)
+        for name in a:
+            assert torch.equal(raw(a[name]), raw(b[name])), name
+    import numpy as np
+    plain = eng.generate(p, 12).tokens
+    before = getattr(fn, attr)
+    res = eng.generate(p, 12, spec=c - 1)
+    np.testing.assert_array_equal(res.tokens, plain)
+    assert getattr(fn, attr) - before == (
+        cfg.n_layers * c * res.spec_rounds if mode == "kernel" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["f32", "int8"])
+def test_cuda_verify_capture_mid_run_leaves_cache_unchanged(cuda_device, kv):
+    """Mid-run, with slots live, capturing the verify and commit graphs
+    (all-false warm-up calls, then the captures) leaves every leaf of the
+    dense resident cache bit for bit as it was; the speculative segments
+    then give each request its solo tokens."""
+    import numpy as np
+    from repro_torch.inference.scheduler import ContinuousEngine
+    from repro_torch.core.quantization import raw
+    cfg, params = _model("yi_6b", cuda_device)
+    kw = dict(max_len=SPEC_MAX_LEN, long_context=True, dsa_mode="kernel",
+              **QUANT_KW[kv])
+    # int8 admits blocking: chunked admission attends a chunk's own rows
+    # quantized, whole-prompt prefill in full precision
+    eng = ContinuousEngine(cfg, params, spec=4, slots=2, seg_len=4,
+                           chunk_tokens=64, chunked_prefill=kv is None, **kw)
+    reqs = _requests(cfg.vocab, greedy_mix=True)
+    for r in reqs:
+        eng.submit(r)
+    sink, clock = [], lambda: 0.0
+    while not any(s is not None for s in eng._slot):
+        eng.admit_ready(clock, sink)
+        eng.step_prefill(clock, sink)
+    eng.run_segment(clock, sink)
+    leaves = [dict(lc) for lc in _attn_leaves(eng._caches)]
+    before = [{k: raw(t).clone() for k, t in lc.items()} for lc in leaves]
+    captures = eng.graphs.captures
+    eng._spec_steps()
+    torch.cuda.synchronize()
+    assert eng.graphs.captures == captures + 2
+    for lc, old in zip(leaves, before):
+        for k, t in old.items():
+            assert torch.equal(raw(lc[k]), t), k
+    while eng.has_work():
+        eng.admit_ready(clock, sink)
+        eng.step_prefill(clock, sink)
+        if any(s is not None for s in eng._slot):
+            eng._step_decode(clock, sink)
+    got = {r.rid: r.tokens for r in sink}
+    assert eng.stats["spec_rounds"] > 0
+    from repro_torch.inference.engine import Engine
+    solo = Engine(cfg, params, loop="python", **kw)
+    for r in reqs:
+        np.testing.assert_array_equal(got[r.rid], solo.generate(
+            r.prompt[None], r.n_new, greedy=r.greedy, seed=r.seed,
+            temperature=r.temperature).tokens[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["f32", "int8"])
+def test_cuda_commit_replays_the_decode_ktb(cuda_device, kv):
+    """Sequential decode on the K1 path (eager steps, row 1 frozen after
+    two) and a verify + commit of the same tokens fed the chain's K~ rows
+    (the chain's stored kt rows; under int8 selection the float rows it
+    added): ``pos`` equal and ktb (ktb_s) bit for bit the chain's."""
+    import dataclasses
+    from repro_torch.core import prediction as PRED
+    from repro_torch.models import transformer as TT
+    eng = _spec_engine(cuda_device, "kernel", kv)
+    cfg, c = eng.cfg, 5
+    p = _spec_prompts(cfg.vocab, seed=1)
+    _, seq, _ = eng.prefill(p)
+    _, ver, _ = eng.prefill(p)
+    chunk = torch.arange(1, 2 * c + 1, device=cuda_device).reshape(2, c)
+    keep = torch.tensor([c, 2], device=cuda_device)
+    flags = dataclasses.replace(eng.decode_flags, spec_verify=True)
+    rows, orig = [], PRED.predict_qk
+
+    def record(*a, **k):
+        out = orig(*a, **k)
+        rows.append(out[1][:, 0].float().clone())
+        return out
+
+    with torch.inference_mode():
+        PRED.predict_qk = record
+        try:
+            for i in range(c):
+                TT.decode_step(eng.params, cfg, eng.decode_flags,
+                               chunk[:, i:i + 1], seq, active=keep > i)
+        finally:
+            PRED.predict_qk = orig
+        scratch = TT.spec_scratch(ver, c)
+        TT.verify_step(eng.params, cfg, flags, chunk, ver, scratch=scratch)
+        layers = _attn_leaves(ver)
+        pend = [x for g in scratch for x in g.values()]
+        for li, lc in enumerate(layers):
+            chain = torch.stack([rows[i * len(layers) + li]
+                                 for i in range(c)], 1)
+            if "ktb_s" in lc:
+                pend[li].copy_(chain)
+            else:
+                lc["kt"][:, SPEC_PLEN:SPEC_PLEN + c] = chain.to(
+                    lc["kt"].dtype)
+        TT.commit_chunk(cfg, flags, ver, keep, c, scratch=scratch)
+    torch.cuda.synchronize()
+    for a, b in zip(_attn_leaves(seq), layers):
+        assert torch.equal(a["pos"], b["pos"])
+        for name in ("ktb", "ktb_s"):
+            if name in a:
+                assert torch.equal(a[name], b[name]), name

@@ -393,7 +393,8 @@ def test_unported_training_paths_raise():
             mode="train", dsa_mode="kernel"))(state, batch)
     _, rc = _cfgs("rwkv6_3b")
     rstate = TST.init_train_state(0, rc, TA.OptConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 1"):
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1, checkpoints and the rest of training"):
         TST.make_train_step(rc, TA.OptConfig())(rstate, batch)
     dots = dataclasses.replace(tc, remat=True, remat_policy="dots")
     with pytest.raises(NotImplementedError, match="dots"):
