@@ -152,7 +152,39 @@ fails:
      ``scripts/spec_departure.py`` names the first op a verify row departs
      at).  (c) the continuous slice's workload on
      a dense cache, plain and with ``--spec 4``: every request ok,
-     goodput, latency, TTFT, acceptance and the K1/K3 launches.
+     goodput, latency, TTFT, acceptance and the K1/K3 launches;
+ 15. the request lifecycle, fault injection and serving telemetry in the
+     continuous engine: (a) a 2-layer full-width yi_6b in f32 (paged,
+     kernel path, graphs on, 2 slots) with the fault fixtures of
+     tests/test_faults.py scaled up, each gated and each injected fault
+     the one that fired: ``nan_logits`` fails only its slot (a prefix of
+     its clean tokens, the co-resident request's bit for bit), a
+     transient ``dispatch`` leaves the tokens exact, a segment that raises
+     fails the in-flight requests and is scrubbed (graphs dropped and
+     captured again, the next request exact, the pool full),
+     ``pool_exhaust`` waits, an unfundable anchor on an idle engine is
+     shed after ``admit_retries``, ``cancel`` of a queued request, a
+     chunking member and a resident slot (a co-resident slot bit for
+     bit), deadlines in the queue and mid-decode, ``queue_cap`` under each
+     shed policy, ``slow_segment`` trips the watchdog, telemetry probing
+     every segment gives the plain tokens and a probe leaves every cache
+     leaf bitwise, and after ``warmup`` a mixed run captures no graph;
+     (b) full-width yi_6b (32 layers, bf16), phase 6's workload, three
+     plain and three traced runs interleaved on one set of weights:
+     goodput, latency, TTFT, K3/K4 launches (K4 once a layer per decode
+     and per probe step), the median traced/plain goodput ratio
+     (printed), the probe's ms, the trace's events and bytes, the
+     Prometheus text's bytes and per-status counts (equal to
+     ``summarize()``'s), the sparsity sample (keep rate, churn, layer
+     overlap); then, under queue_cap 4 shedding the oldest, a run with
+     no deadline that times the four survivors, and a lifecycle run with
+     the deadline inside one survivor's decode and another resident
+     request cancelled: every non-ok result carries its cause's status,
+     at least one request times out mid-decode with partial tokens, the
+     pool comes back full, with ``health()`` and the SLO attainment;
+     (c) phase 14c's dense
+     speculative run with the proposer injected to fail three times: it
+     degrades to plain segments and every request is ok.
 
 It then prints one JSON line of per-kernel results, the card's name and
 power limit again as ``nvidia-smi`` gives them, and as its last line
@@ -165,6 +197,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -828,7 +861,7 @@ def graph_parity(torch, cfg, params, prompts, seed: int, n_new: int = 16,
         eng = ContinuousEngine(cfg, params, slots=4, seg_len=16,
                                chunk_tokens=512, paged=True,
                                chunked_prefill=quant is None, **kw)
-        got = eng.run(reqs)
+        got = _run_clean(eng, reqs)
         solo = Engine(cfg, params, loop="python", **kw)
         same = all(bool((got[r.rid] == solo.generate(
             r.prompt[None], n_new, greedy=r.greedy, seed=r.seed,
@@ -879,7 +912,7 @@ def continuous_parity(torch, cfg, params, seed: int, lens=(700, 1100, 512,
             paged=True, dsa_mode="kernel", chunked_prefill=False)))
     for name, extra in runs:
         eng = ContinuousEngine(cfg, params, **kw, **extra)
-        got[name] = eng.run(reqs)
+        got[name] = _run_clean(eng, reqs)
         if eng.paged:
             full &= eng.pool.available() == eng.pool_pages - 1
         del eng
@@ -1280,7 +1313,7 @@ def faithful_parity_phase(torch, seed: int, n_new: int = 16) -> dict:
                                chunk_tokens=512, paged=True, **kw)
         if label == "eager":
             eng.graphs = None            # the same segments, step by step
-        got[label] = eng.run(reqs)
+        got[label] = _run_clean(eng, reqs)
         if label == "graphed":
             g, steps = eng.graphs, eng.stats["decode_steps"]
         del eng
@@ -1631,7 +1664,7 @@ def prefix_modes_parity_phase(torch, seed: int, card: str) -> dict:
         got, st, pool = {}, {}, {}
         for declare in (True, False):
             eng = ContinuousEngine(cfg, params, **kw, **qkw)
-            got[declare] = eng.run([
+            got[declare] = _run_clean(eng, [
                 Request(i, p, 16, seed=i, prefix_len=200 if declare else 0)
                 for i, p in enumerate(prompts)])
             st[declare] = dict(eng.stats)
@@ -1669,7 +1702,7 @@ def prefix_modes_parity_phase(torch, seed: int, card: str) -> dict:
         eng = ContinuousEngine(cfg, params, **kw)
         if label == "eager":
             eng.graphs = None            # the same segments, step by step
-        got[label] = eng.run(reqs)
+        got[label] = _run_clean(eng, reqs)
         if label == "graphed":
             g, steps = eng.graphs, eng.stats["decode_steps"]
             pools = {k[4]: x.pool_bytes for k, x in g.graphs.items()}
@@ -1718,6 +1751,23 @@ def prefix_modes_parity_phase(torch, seed: int, card: str) -> dict:
     del params, solo, block
     torch.cuda.empty_cache()
     return out
+
+
+def _run_clean(eng, reqs) -> dict:
+    """``eng.run(reqs)``, failing the smoke unless every request finished
+    ok.  The engine turns a segment that raised (a refused launch, a
+    failed capture, an OOM) into "failed" results and serves on, so a run
+    that injects nothing must show no failed, shed, timed-out or cancelled
+    request, no dispatch failure and no last error."""
+    got = eng.run(reqs)
+    h = eng.health()
+    bad = {k: h[k] for k in ("failed", "dispatch_failures", "shed",
+                             "timeout", "cancelled") if h[k]}
+    if bad or h["last_error"] is not None:
+        at = sys._getframe(1)
+        fail(f"{at.f_code.co_name} (line {at.f_lineno}): the continuous "
+             f"engine reported {bad}, last error {h['last_error']!r}")
+    return got
 
 
 def _serve_counted(eng, reqs) -> dict:
@@ -1807,7 +1857,7 @@ def prefix_modes_slice(torch, seed: int, card: str) -> dict:
         qkw = {} if quant is None else dict(kv_quant=quant,
                                             select_dtype="int8")
         eng = ContinuousEngine(cfg, params, **kw, **qkw)
-        eng.run([warm])                  # the capture, outside the timing
+        _run_clean(eng, [warm])          # the capture, outside the timing
         runs = {}
         for declare in (False, True):
             runs[declare] = r = _serve_counted(eng, [
@@ -1853,7 +1903,7 @@ def prefix_modes_slice(torch, seed: int, card: str) -> dict:
         torch.cuda.empty_cache()
     # the mixed-mode run: the continuous slice's workload, odd rids "off"
     eng = ContinuousEngine(cfg, params, **kw)
-    eng.run([warm])
+    _run_clean(eng, [warm])
     for wait in (None, 0.5):
         eng.max_mode_wait_s = wait
         reqs = synthetic_workload(8, rate_rps=1e9, prompt_lens=(1024, 4096),
@@ -2051,7 +2101,7 @@ def spec_parity_phase(torch, seed: int, card: str) -> dict:
     eng = ContinuousEngine(cfg, params, slots=4, seg_len=16,
                            chunk_tokens=512, spec=k, **kw)
     serve.reset_launch_counts()
-    got = eng.run(reqs)
+    got = _run_clean(eng, reqs)
     n1 = serve.launch_counts()["K1"]
     st = eng.stats
     solo = Engine(cfg, params, **kw)
@@ -2250,6 +2300,633 @@ def spec_continuous(torch, seed: int, card: str) -> dict:
         out[label] = {"summary": summ, "stats": st, "launches": n}
         del eng, results
         torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 15: request lifecycle, faults and telemetry -----------------------
+
+
+def _drive(eng, reqs, clock=lambda: 0.0) -> list:
+    """Queue ``reqs`` and serve them to empty with ``clock``; every result,
+    those made outside the loop (sheds, cancels) included."""
+    results = []
+    for r in reqs:
+        eng.submit(r)
+    while eng.has_work():
+        eng.admit_ready(clock, results)
+        eng.step_prefill(clock, results)
+        if any(s is not None for s in eng._slot):
+            eng._step_decode(clock, results)
+    results.extend(eng._pending)
+    eng._pending.clear()
+    return results
+
+
+def _by_rid(results) -> dict:
+    return {r.rid: r for r in results}
+
+
+def _clean_health(eng, label: str, failed: int = 0, dispatch: int = 0,
+                  error: str = None) -> None:
+    """Fail unless the engine saw exactly the failures the phase injected
+    (``error``: a text its last error must hold; None: no error)."""
+    h = eng.health()
+    last = h["last_error"]
+    if (h["failed"] != failed or h["dispatch_failures"] != dispatch
+            or (error is None and last is not None)
+            or (error is not None and (last is None or error not in last))):
+        fail(f"lifecycle ({label}): failed {h['failed']} (want {failed}), "
+             f"dispatch failures {h['dispatch_failures']} (want "
+             f"{dispatch}), last error {last!r}")
+
+
+def lifecycle_parity_phase(torch, seed: int, card: str) -> dict:
+    """15a. yi_6b at full width, 2 layers, f32, paged, kernel path (K3,
+    K4), graphs on, 2 slots, max_len 2048, chunks of 256, segments of 8:
+    the fault fixtures of tests/test_faults.py scaled up.  Each check
+    below is gated, each injected fault must be exactly the one that
+    fired, and no failure may show that the check did not inject."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.inference.faults import Fault, FaultInjector
+    from repro_torch.inference.scheduler import ContinuousEngine, Request
+    from repro_torch.inference.telemetry import Telemetry
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_model
+    cfg = dataclasses.replace(get_config("yi_6b"), n_layers=2,
+                              dtype="float32", param_dtype="float32")
+    params = init_model(seed, cfg)
+    kw = dict(slots=2, max_len=2048, seg_len=8, chunk_tokens=256,
+              paged=True, long_context=True, dsa_mode="kernel")
+    eng = ContinuousEngine(cfg, params, **kw)
+    t0 = time.monotonic()
+
+    def mk(shapes, **extra):
+        rng = np.random.default_rng(seed + 15)
+        return [Request(i, rng.integers(1, cfg.vocab - 4, size=(n,)).astype(
+            np.int32), m, seed=7 * i + 1, **extra)
+            for i, (n, m) in enumerate(shapes)]
+
+    def prefix(got, want, label):
+        if not (0 < len(got) < len(want)
+                and bool((got == want[:len(got)]).all())):
+            fail(f"lifecycle ({label}): {len(got)} tokens, not a strict "
+                 f"prefix of the clean run's {len(want)}")
+
+    def exact(got, want, label):
+        if len(got) != len(want) or not bool((got == want).all()):
+            fail(f"lifecycle ({label}): tokens differ from the clean run")
+
+    def statuses(res):
+        return {r.rid: r.status for r in res}
+
+    shapes = [(600, 40), (650, 48), (300, 24)]   # rid 0 + 1 co-resident
+    base = _by_rid(_drive(eng, mk(shapes)))
+    if {r.status for r in base.values()} != {"ok"}:
+        fail(f"lifecycle (clean run): {statuses(base.values())}")
+    _clean_health(eng, "clean run")
+    B = {rid: r.tokens for rid, r in base.items()}
+    out = {}
+
+    # 1. nan_logits on one resident request
+    eng.reset()
+    inj = eng.injector = FaultInjector(Fault("nan_logits", rid=1, after=1))
+    got = _by_rid(_drive(eng, mk(shapes)))
+    eng.injector = None
+    if inj.fired != [("nan_logits", 1)] or statuses(got.values()) != {
+            0: "ok", 1: "failed", 2: "ok"}:
+        fail(f"lifecycle (nan_logits): fired {inj.fired}, statuses "
+             f"{statuses(got.values())}")
+    prefix(got[1].tokens, B[1], "nan_logits, the poisoned request")
+    for rid in (0, 2):
+        exact(got[rid].tokens, B[rid], f"nan_logits, rid {rid}")
+    _clean_health(eng, "nan_logits", failed=1, error="non-finite")
+    out["nan_tokens"] = len(got[1].tokens)
+
+    # 2. a transient dispatch failure
+    eng.reset()
+    inj = eng.injector = FaultInjector(Fault("dispatch", count=2))
+    got = _by_rid(_drive(eng, mk(shapes)))
+    eng.injector = None
+    if inj.fired != [("dispatch", None)] * 2:
+        fail(f"lifecycle (dispatch): fired {inj.fired}")
+    for rid in B:
+        exact(got[rid].tokens, B[rid], f"dispatch, rid {rid}")
+    _clean_health(eng, "dispatch", dispatch=2)
+
+    # 3. a segment that raises once: scrub, recapture, serve on
+    eng.reset()
+    caps = eng.graphs.captures
+    orig, state = eng._segment_step, {"raised": False}
+
+    def boom(mode=None):
+        step = orig(mode)                 # the graph exists, then it fails
+        if not state["raised"]:
+            state["raised"] = True
+            raise RuntimeError("injected segment failure")
+        return step
+
+    eng._segment_step = boom
+    try:
+        got = _by_rid(_drive(eng, mk(shapes)))
+    finally:
+        del eng._segment_step
+    if statuses(got.values()) != {0: "failed", 1: "failed", 2: "ok"}:
+        fail(f"lifecycle (segment raise): {statuses(got.values())}")
+    for rid in (0, 1):
+        if len(got[rid].tokens) != 1 or got[rid].tokens[0] != B[rid][0]:
+            fail(f"lifecycle (segment raise): rid {rid} kept "
+                 f"{got[rid].tokens.tolist()}, not its first token")
+    exact(got[2].tokens, B[2], "segment raise, the next request")
+    if eng.graphs.captures != caps + 2:
+        fail(f"lifecycle (segment raise): {eng.graphs.captures - caps} "
+             f"captures, want 2 (before and after the scrub)")
+    if eng.pool.available() != eng.pool_pages - 1:
+        fail("lifecycle (segment raise): the pool did not come back full")
+    _clean_health(eng, "segment raise", failed=2, dispatch=1,
+                  error="injected")
+
+    # 4. pool_exhaust: transient, then an unfundable anchor on an idle
+    #    engine, shed after admit_retries
+    eng.reset()
+    inj = eng.injector = FaultInjector(Fault("pool_exhaust", count=3))
+    got = _by_rid(_drive(eng, mk(shapes)))
+    eng.injector = None
+    if inj.fired != [("pool_exhaust", None)] * 3:
+        fail(f"lifecycle (pool_exhaust): fired {inj.fired}")
+    for rid in B:
+        exact(got[rid].tokens, B[rid], f"pool_exhaust, rid {rid}")
+    _clean_health(eng, "pool_exhaust")
+    eng.reset()
+    eng.admit_retries = 3
+    inj = eng.injector = FaultInjector(Fault("pool_exhaust", count=100))
+    got = _by_rid(_drive(eng, mk(shapes[:1])))
+    eng.injector, eng.admit_retries = None, kw.get("admit_retries", 8)
+    if (inj.fired != [("pool_exhaust", None)] * 4
+            or got[0].status != "shed" or got[0].tokens.size
+            or eng.pool.available() != eng.pool_pages - 1):
+        fail(f"lifecycle (unfundable anchor): fired {len(inj.fired)}, "
+             f"status {got[0].status}")
+    _clean_health(eng, "unfundable anchor")
+
+    # 5. cancel: queued, chunking member, resident; then a resident
+    #    cancel beside a co-resident slot
+    eng.reset()
+    res, clock = [], lambda: 0.0
+    reqs = mk(shapes)
+    for r in reqs:
+        eng.submit(r)
+    ok = [not eng.cancel(99), eng.cancel(2), not eng.cancel(2)]
+    eng.admit_ready(clock, res)               # rid 0 + 1 start chunking
+    ok.append(eng.cancel(1))
+    while not any(s is not None and s.req.rid == 0 for s in eng._slot):
+        eng.admit_ready(clock, res)
+        eng.step_prefill(clock, res)
+    eng._step_decode(clock, res)
+    eng._step_decode(clock, res)
+    ok.append(eng.cancel(0))
+    res += _drive(eng, [], clock)
+    got = _by_rid(res)
+    if not all(ok) or statuses(got.values()) != {
+            0: "cancelled", 1: "cancelled", 2: "cancelled"} or len(res) != 3:
+        fail(f"lifecycle (cancel): {ok}, {statuses(res)}")
+    if got[1].tokens.size or got[2].tokens.size:
+        fail("lifecycle (cancel): a queued or chunking request kept tokens")
+    prefix(got[0].tokens, B[0], "cancel, the resident request")
+    eng.reset()
+    res = []
+    for r in mk([(600, 48), (650, 48)]):
+        eng.submit(r)
+    while not all(s is not None for s in eng._slot):
+        eng.admit_ready(clock, res)
+        eng.step_prefill(clock, res)
+    eng._step_decode(clock, res)
+    eng.cancel(0)
+    got = _by_rid(res + _drive(eng, [], clock))
+    if got[0].status != "cancelled" or got[1].status != "ok":
+        fail(f"lifecycle (cancel beside a co-resident slot): "
+             f"{statuses(got.values())}")
+    exact(got[1].tokens, B[1], "cancel, the co-resident slot")
+    _clean_health(eng, "cancel")
+
+    # 6. deadlines: one expires mid-decode, one in the queue
+    eng.reset()
+    t = [0.0]
+    clock = lambda: t[0]
+    res = []
+    reqs = mk([(600, 80), (650, 48)])
+    reqs[0].deadline_s = 5.0
+    for r in reqs:
+        eng.submit(r)
+    while not any(s is not None and s.req.rid == 0 for s in eng._slot):
+        eng.admit_ready(clock, res)
+        eng.step_prefill(clock, res)
+    eng._step_decode(clock, res)
+    eng._step_decode(clock, res)
+    t[0] = 10.0
+    got = _by_rid(res + _drive(eng, [], clock))
+    if (got[0].status, got[1].status) != ("timeout", "ok") or \
+            got[0].deadline_s != 5.0:
+        fail(f"lifecycle (deadline mid-decode): {statuses(got.values())}")
+    prefix(got[0].tokens, B[0], "deadline, the expired request")
+    exact(got[1].tokens, B[1], "deadline, the co-resident slot")
+    eng.reset()
+    t[0] = 0.0
+    r = mk([(600, 8)])[0]
+    r.deadline_s = 2.0
+    eng.submit(r)
+    t[0] = 3.0
+    res = []
+    eng.admit_ready(clock, res)
+    if [(x.rid, x.status, x.tokens.size) for x in res] != [(0, "timeout",
+                                                            0)]:
+        fail(f"lifecycle (deadline in the queue): {statuses(res)}")
+    _clean_health(eng, "deadlines")
+
+    # 7. queue_cap under each shed policy
+    eng.reset()
+    small = [(300, 8)] * 4
+    for policy, pri, shed, kept in (
+            ("reject", None, [2, 3], [0, 1]),
+            ("oldest", None, [0, 1], [2, 3]),
+            ("lowest-priority", (1, 0, 2, 0), [1, 3], [0, 2])):
+        eng.queue_cap, eng.shed_policy = 2, policy
+        reqs = mk(small)
+        for i, r in enumerate(reqs):
+            r.priority = 0 if pri is None else pri[i]
+            eng.submit(r)
+        pend = sorted(x.rid for x in eng._pending)
+        queued = [x.rid for x in eng.queue]
+        got = _by_rid(_drive(eng, []))
+        if (pend != shed or queued != kept
+                or any(got[i].status != "shed" for i in shed)
+                or any(got[i].status != "ok" for i in kept)):
+            fail(f"lifecycle (queue_cap, {policy}): shed {pend}, queued "
+                 f"{queued}, {statuses(got.values())}")
+    eng.queue_cap, eng.shed_policy = None, "reject"
+    _clean_health(eng, "queue_cap")
+
+    # 8. slow_segment trips the watchdog
+    eng.reset()
+    inj = eng.injector = FaultInjector(Fault("slow_segment", after=7,
+                                             delay_s=0.5))
+    got = _by_rid(_drive(eng, mk([(600, 81)])))
+    eng.injector = None
+    h = eng.health()
+    if (inj.fired != [("slow_segment", None)] or h["watchdog_slow"] < 1
+            or got[0].status != "ok"
+            or not bool((got[0].tokens[:40] == B[0]).all())):
+        fail(f"lifecycle (slow_segment): fired {inj.fired}, watchdog "
+             f"{h['watchdog_slow']}, {got[0].status}")
+    _clean_health(eng, "slow_segment")
+    out["median_segment_ms"] = h["median_segment_s"] * 1e3
+    del eng
+    torch.cuda.empty_cache()
+
+    # 9. telemetry, a probe every segment: the tokens of telemetry=None,
+    #    and every leaf of the resident cache as it was after a probe
+    tel = Telemetry(sample_every=1)
+    eng = ContinuousEngine(cfg, params, telemetry=tel, **kw)
+    got = _by_rid(_drive(eng, mk(shapes)))
+    for rid in B:
+        exact(got[rid].tokens, B[rid], f"telemetry, rid {rid}")
+    if eng.stats["probe_steps"] == 0:
+        fail("lifecycle (telemetry): the probe never ran")
+    eng.reset()
+    for r in mk(shapes[:2]):
+        eng.submit(r)
+    res = []
+    while not all(s is not None for s in eng._slot):
+        eng.admit_ready(lambda: 0.0, res)
+        eng.step_prefill(lambda: 0.0, res)
+    leaves = [t for grp in eng._caches["groups"] for sub in grp.values()
+              for _, t in sorted(sub["attn"].items())]
+    before = [t.clone() for t in leaves]
+    serve.reset_launch_counts()
+    eng._sparsity_probe("kernel")
+    torch.cuda.synchronize()
+    k4 = serve.launch_counts()["K4"]
+    same = all(torch.equal(a, b) for a, b in zip(before, leaves))
+    if not same or k4 != cfg.n_layers:
+        fail(f"lifecycle (probe): cache unchanged {same}, K4 {k4}")
+    _drive(eng, [])
+    _clean_health(eng, "telemetry")
+
+    # 10. after warmup a mixed run captures no graph and records no new
+    #     compile event (but zero_pages/seed, bounded by id counts)
+    eng.warmup([600, 650, 300])
+    caps, n_ev = eng.graphs.captures, tel.compile_count()
+    mixed = mk([(620, 12), (310, 20), (980, 9), (290, 16), (700, 8)])
+    got = _by_rid(_drive(eng, mixed))
+    fresh = [p for p, _, _ in tel.compiles[n_ev:]
+             if p not in ("zero_pages", "seed")]
+    if (eng.graphs.captures != caps or fresh
+            or any(r.status != "ok" for r in got.values())):
+        fail(f"lifecycle (warmup): {eng.graphs.captures - caps} captures, "
+             f"new compile events {fresh}")
+    _clean_health(eng, "warmup")
+    progs = sorted({p for p, _, _ in tel.compiles})
+    print(f"lifecycle 15a: 2-layer full-width yi_6b f32, paged, kernel, "
+          f"graphed: nan_logits fails only its slot ({out['nan_tokens']} "
+          f"of 48 tokens kept), dispatch x2 exact, a raising segment "
+          f"scrubbed and recaptured, pool_exhaust x3 exact, an unfundable "
+          f"anchor shed after 3 retries, cancel (queued, chunking, "
+          f"resident), deadlines (queue, mid-decode), queue_cap under "
+          f"reject/oldest/lowest-priority, slow_segment tripped the "
+          f"watchdog (median segment {out['median_segment_ms']:.2f} ms), "
+          f"telemetry tokens == plain, the probe left the cache bitwise, "
+          f"no capture after warmup: all passed in "
+          f"{time.monotonic() - t0:.1f} s [{card}]")
+    print("  compile events: " + ", ".join(
+        f"{p} {tel.compile_count(p)}" for p in progs), flush=True)
+    del eng, params, tel
+    torch.cuda.empty_cache()
+    return out
+
+
+def _prom_statuses(text: str) -> dict:
+    """Per-status request counts from Prometheus text."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith('serving_requests_total{status="'):
+            st = line.split('"')[1]
+            out[st] = int(float(line.rsplit(" ", 1)[1]))
+    return out
+
+
+def lifecycle_slice(torch, seed: int, card: str) -> dict:
+    """15b. yi_6b at full width (32 layers, bf16, random weights from
+    ``seed``), phase 6's workload (8 requests, prompts 1152-3670, 16-64
+    new, all queued at the start; 4 paged slots, max_len 8192, chunk 512,
+    segments of 16, kernel path).  Three runs each of a plain engine
+    (telemetry=None) and a traced one (Telemetry(sample_every=16), its
+    trace and Prometheus text written), interleaved, on one set of
+    weights: goodput, latency, TTFT and launches of each, the median
+    traced/plain goodput ratio (printed, not gated), the probe's ms, the
+    trace's and the text's bytes, the sparsity sample; the text's
+    per-status counts must equal summarize()'s.  Then, on the plain engine
+    under queue_cap 4 with the oldest shed, a run with no deadline times
+    the four survivors, and the lifecycle run puts the deadline in the
+    middle of the widest span in which a survivor is resident with more
+    than one segment to run, and cancels another resident request
+    mid-decode: every non-ok result must carry the status its cause
+    gives, at least one request must time out mid-decode with partial
+    tokens, and the pool must come back full.
+    15c. The same workload on a dense cache, once plain and once with
+    ``spec=4`` whose proposer is injected to fail three times: the engine
+    degrades to plain segments, every request is ok, and the tokens'
+    agreement with the plain run is printed (bf16 co-residents)."""
+    import os
+    import statistics
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.inference.config import ServingConfig
+    from repro_torch.inference.faults import Fault, FaultInjector
+    from repro_torch.inference.scheduler import (ContinuousEngine,
+                                                 summarize,
+                                                 synthetic_workload)
+    from repro_torch.inference.telemetry import Telemetry
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_model
+    cfg = get_config("yi_6b")
+    nl = cfg.n_layers
+    params = init_model(seed, cfg)
+    c = ServingConfig(max_len=8192, long_context=True, dsa_mode="kernel",
+                      slots=4, seg_len=16, chunk_tokens=512, paged=True)
+
+    def workload():
+        return synthetic_workload(8, rate_rps=1e9, prompt_lens=(1024, 4096),
+                                  n_new_range=(16, 64), vocab=cfg.vocab,
+                                  seed=seed)
+
+    tel = Telemetry(sample_every=16)
+    engines = {"plain": ContinuousEngine(cfg, params, config=c),
+               "traced": ContinuousEngine(
+                   cfg, params, config=dataclasses.replace(c, telemetry=tel))}
+    runs = {"plain": [], "traced": []}
+    traced_counts = {}                    # summarize()'s, over traced runs
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tel_")
+    t0 = time.monotonic()
+    for i in range(3):
+        for name in ("plain", "traced"):
+            eng = engines[name]
+            r = _serve_counted(eng, workload())
+            st, n = r["stats"], r["launches"]
+            summ = r["summary"]
+            probes = st.get("probe_steps", 0)
+            want = {"K3": nl * st["chunks"],
+                    "K4": nl * (st["decode_steps"] + probes)}
+            got = {k: v for k, v in n.items() if v}
+            if got != want or st["failed"] or st["dispatch_failures"]:
+                fail(f"lifecycle slice ({name} run {i}): launches {got}, "
+                     f"want {want}, failed {st['failed']}, dispatch "
+                     f"failures {st['dispatch_failures']}")
+            row = {"summary": summ, "K3": n["K3"], "K4": n["K4"],
+                   "decode_steps": st["decode_steps"], "chunks": st["chunks"],
+                   "probe_steps": probes, "probe_s": st.get("probe_s", 0.0)}
+            if name == "traced":
+                tp = os.path.join(tmp, f"trace{i}.json")
+                mp = os.path.join(tmp, f"metrics{i}.prom")
+                tel.write_chrome_trace(tp)
+                tel.write_prometheus(mp)
+                with open(mp) as f:
+                    text = f.read()
+                # the registry accumulates over the engine's runs
+                prom = _prom_statuses(text)
+                for s_ in ("ok", "timeout", "cancelled", "failed", "shed"):
+                    if summ[f"n_{s_}"]:
+                        traced_counts[s_] = (traced_counts.get(s_, 0)
+                                             + summ[f"n_{s_}"])
+                if prom != traced_counts:
+                    fail(f"lifecycle slice: Prometheus per-status counts "
+                         f"{prom} != summarize()'s {traced_counts}")
+                row.update(trace_events=len(tel.events),
+                           trace_bytes=os.path.getsize(tp),
+                           prom_bytes=os.path.getsize(mp), prom=prom)
+            runs[name].append(row)
+            extra = ""
+            if name == "traced":
+                extra = (f", {probes} probes "
+                         f"({row['probe_s'] * 1e3 / max(probes, 1):.1f} ms "
+                         f"each), {row['trace_events']} trace events "
+                         f"({row['trace_bytes']} bytes), Prometheus "
+                         f"{row['prom_bytes']} bytes, per status "
+                         f"{row['prom']}")
+            print(f"lifecycle slice ({name} {i}): goodput "
+                  f"{summ['goodput_tok_s']} tok/s, latency p50 "
+                  f"{summ['p50_latency_s']} / p95 {summ['p95_latency_s']} s, "
+                  f"TTFT p50 {summ['p50_ttft_s']} / p95 {summ['p95_ttft_s']} "
+                  f"s, K3 {n['K3']}, K4 {n['K4']} ({st['decode_steps']} "
+                  f"decode steps){extra}", flush=True)
+    med = {k: statistics.median(x["summary"]["goodput_tok_s"] for x in v)
+           for k, v in runs.items()}
+    ratio = med["traced"] / med["plain"]
+    print(f"lifecycle slice: median goodput plain {med['plain']} / traced "
+          f"{med['traced']} tok/s, traced/plain {ratio:.4f} (the reference "
+          f"gates >= 0.95 on its own benchmark; printed here) [{card}]")
+
+    def hist(name):
+        v = tel.metrics.value(name)
+        return v if isinstance(v, tuple) else (0, 0.0)
+
+    # one more traced run with a probe after every segment: the sparsity
+    # sample at full width (one in 16 segments gives a handful)
+    eng = engines.pop("traced")
+    tel.reset()
+    tel.sample_every = 1
+    r = _serve_counted(eng, workload())
+    st, summ = r["stats"], r["summary"]
+    sp = {k: hist(f"serving_dsa_{k}") for k in ("keep_rate", "block_churn",
+                                                "layer_overlap")}
+    prom = _prom_statuses(tel.prometheus_text())
+    if (prom != {"ok": summ["n_ok"]} or not sp["keep_rate"][0]
+            or not 0.0 < sp["keep_rate"][1] <= 1.0
+            or r["launches"]["K4"] != nl * (st["decode_steps"]
+                                            + st["probe_steps"])):
+        fail(f"lifecycle slice (probe every segment): per status {prom}, "
+             f"sparsity {sp}, K4 {r['launches']['K4']}, {st['decode_steps']}"
+             f" steps, {st['probe_steps']} probes")
+    print(f"  probe every segment: goodput {summ['goodput_tok_s']} tok/s, "
+          f"{st['probe_steps']} probes of "
+          f"{st['probe_s'] * 1e3 / max(st['probe_steps'], 1):.1f} ms; "
+          f"sparsity at full width: keep rate {sp['keep_rate'][0]} samples, "
+          f"mean {sp['keep_rate'][1]:.4f}; churn {sp['block_churn'][0]} "
+          f"samples, mean {sp['block_churn'][1]:.4f}; layer overlap "
+          f"{sp['layer_overlap'][0]} samples, mean "
+          f"{sp['layer_overlap'][1]:.4f}", flush=True)
+    runs["probe_every_segment"] = {"summary": summ, "sparsity": sp,
+                                   "probe_steps": st["probe_steps"],
+                                   "probe_s": st["probe_s"]}
+    del eng, r, tel
+
+    # the lifecycle runs, on the plain engine, under queue_cap 4 with the
+    # oldest shed: the four first arrivals are shed by the last four
+    eng = engines.pop("plain")
+    eng.queue_cap, eng.shed_policy = 4, "oldest"
+
+    def lifecycle_run(avoid=None):
+        """Serve the workload on the wall clock; with ``avoid`` set,
+        cancel the first resident request with tokens that is not
+        ``avoid`` at the first segment boundary where there is one."""
+        res, cancelled = [], None
+        ts = time.monotonic()
+        clock = lambda: time.monotonic() - ts
+        for r in workload():
+            eng.submit(r)
+        while eng.has_work():
+            eng.admit_ready(clock, res)
+            eng.step_prefill(clock, res)
+            if any(s is not None for s in eng._slot):
+                eng._step_decode(clock, res)
+            if avoid is not None and cancelled is None:
+                live = [s for s in eng._slot if s is not None
+                        and s.collected and s.req.rid != avoid]
+                if live:
+                    cancelled = live[0].req.rid
+                    eng.cancel(cancelled, clock())
+        res.extend(eng._pending)
+        eng._pending.clear()
+        return res, cancelled
+
+    # first with no deadline and no cancel: the survivors' own first-token
+    # and finish times.  The deadline then falls in the middle of the
+    # widest span in which a survivor is resident with more than one
+    # segment still to run, so that survivor must time out mid-decode
+    pre, _ = lifecycle_run()
+    seg_s = eng.health()["median_segment_s"]
+    surv = [r for r in pre if r.status == "ok"]
+    if (sorted(r.rid for r in surv) != [4, 5, 6, 7]
+            or any(r.tokens.size != r.n_new for r in surv)
+            or sorted(r.rid for r in pre if r.status == "shed")
+            != [0, 1, 2, 3]):
+        fail(f"lifecycle run (queue_cap 4, oldest, no deadline): "
+             f"{[(r.rid, r.status, r.tokens.size) for r in pre]}")
+    span = {r.rid: (r.ttft_s, r.latency_s - seg_s) for r in surv}
+    target = max(span, key=lambda k: span[k][1] - span[k][0])
+    deadline = sum(span[target]) / 2
+    print(f"lifecycle run (queue_cap 4, oldest shed, no deadline): "
+          f"survivors' (TTFT, latency) s "
+          + ", ".join(f"rid {r.rid} ({r.ttft_s:.3f}, {r.latency_s:.3f})"
+                      for r in surv)
+          + f"; median segment {seg_s:.4f} s; deadline {deadline:.3f} s, "
+          f"inside rid {target}'s decode", flush=True)
+    eng.deadline_s = deadline
+    res, cancelled = lifecycle_run(avoid=target)
+    h = eng.health()
+    summ = summarize(res, max(r.finish_s for r in res))
+    by = _by_rid(res)
+    bad = []
+    for r in res:
+        if r.rid in (0, 1, 2, 3):         # shed by the 5th to 8th arrivals
+            want = r.status == "shed" and r.tokens.size == 0
+        elif r.rid == cancelled:
+            want = (r.status == "cancelled"
+                    and 0 < r.tokens.size < r.n_new)
+        elif r.status == "timeout":
+            want = r.latency_s > deadline and r.tokens.size < r.n_new
+        else:
+            want = r.status == "ok" and r.tokens.size == r.n_new
+        if not want:
+            bad.append((r.rid, r.status, r.tokens.size))
+    resident_timeouts = [r.rid for r in res if r.status == "timeout"
+                         and 0 < r.tokens.size < r.n_new]
+    if (len(by) != 8 or bad or cancelled is None or not resident_timeouts
+            or eng.pool.available() != eng.pool_pages - 1 or h["failed"]
+            or h["dispatch_failures"] or h["last_error"] is not None):
+        fail(f"lifecycle run: {len(by)} results, wrong statuses {bad}, "
+             f"cancelled {cancelled}, timed out mid-decode "
+             f"{resident_timeouts}, pool free {eng.pool.available()} of "
+             f"{eng.pool_pages - 1}, health {h}")
+    print(f"lifecycle run (deadline {deadline:.3f} s, queue_cap 4, oldest "
+          f"shed, rid {cancelled} cancelled mid-decode, rids "
+          f"{resident_timeouts} timed out mid-decode, the pool back "
+          f"full): "
+          + ", ".join(f"{k[2:]} {summ[k]}" for k in
+                      ("n_ok", "n_timeout", "n_cancelled", "n_failed",
+                       "n_shed"))
+          + f"; SLO attainment {summ['slo_attainment']}; goodput "
+          f"{summ['goodput_tok_s']} tok/s; health {h}", flush=True)
+    out = {"runs": runs, "ratio": ratio, "lifecycle": summ, "health": h}
+    del eng
+    torch.cuda.empty_cache()
+
+    # 15c. speculation with a failing proposer, on a dense cache
+    cd = dataclasses.replace(c, paged=False)
+    eng = ContinuousEngine(cfg, params, config=cd)
+    plain = _serve_counted(eng, workload())
+    del eng
+    torch.cuda.empty_cache()
+    eng = ContinuousEngine(cfg, params, config=dataclasses.replace(cd,
+                                                                   spec=4))
+    inj = eng.injector = FaultInjector(Fault("proposer", count=3))
+    spec = _serve_counted(eng, workload())
+    h = eng.health()
+    st, n = spec["stats"], spec["launches"]
+    want = {"K1": nl * st["decode_steps"], "K3": nl * st["chunks"]}
+    got = {k: v for k, v in n.items() if v}
+    toks = {r.rid: r.tokens for r in spec["results"]}
+    ref = {r.rid: r.tokens for r in plain["results"]}
+    share = (sum(int((toks[k] == ref[k]).sum()) for k in ref)
+             / sum(len(v) for v in ref.values()))
+    if (inj.fired != [("proposer", None)] * 3 or not h["spec_degraded"]
+            or h["proposer_failures"] != 3 or st["spec_rounds"]
+            or got != want or h["failed"] or h["dispatch_failures"]
+            or "proposer" not in (h["last_error"] or "")):
+        fail(f"lifecycle 15c: fired {inj.fired}, health {h}, spec rounds "
+             f"{st['spec_rounds']}, launches {got}, want {want}")
+    print(f"lifecycle 15c (dense, spec 4, proposer injected x3): degraded "
+          f"{h['spec_degraded']}, {st['spec_rounds']} rounds, "
+          f"{st['decode_steps']} plain steps, every request ok, goodput "
+          f"{spec['summary']['goodput_tok_s']} tok/s (plain engine "
+          f"{plain['summary']['goodput_tok_s']}), K1 {n['K1']}, K3 "
+          f"{n['K3']}; tokens equal to the plain engine's at "
+          f"{share:.4f} of positions (bf16 co-residents, printed) [{card}]",
+          flush=True)
+    out["spec"] = {"share": share, "health": h}
+    print(f"phase 15b/c: {time.monotonic() - t0:.1f} s", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    del eng, params
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2580,6 +3257,12 @@ def main() -> None:
     cont = spec_continuous(torch, args.seed, card)
     launches["spec continuous"] = cont["spec 4"]["launches"]
     print(f"phase 14: {time.monotonic() - t14:.1f} s", flush=True)
+    # the request lifecycle, faults and telemetry (15a gated parity, 15b
+    # the full-width runs, 15c speculation with a failing proposer)
+    t15 = time.monotonic()
+    lifecycle_parity_phase(torch, args.seed, card)
+    lifecycle_slice(torch, args.seed, card)
+    print(f"phase 15: {time.monotonic() - t15:.1f} s", flush=True)
 
     src = "src/repro_torch/kernels/csrc/"
     rep = "src/repro/kernels/"

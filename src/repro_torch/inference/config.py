@@ -4,11 +4,29 @@
 (inference/scheduler.py) the shared and continuous fields, so one config
 can parameterise a whole serving stack.  The port carries the fields of
 the paths ported so far.  Still unported (``UNPORTED``; each raises
-``NotImplementedError``): the request lifecycle and shedding (``queue_cap``,
-``shed_policy``, ``deadline_s``, ``admit_retries``, ``injector``),
-telemetry, serving meshes (``mesh``, ``shard_rules``) and MoE prefill
-(``moe_prefill``).  RWKV6 in the continuous engine is refused by the
-engine itself, whatever the config.
+``NotImplementedError``): serving meshes (``mesh``, ``shard_rules``) and
+MoE prefill (``moe_prefill``).  RWKV6 in the continuous engine is refused
+by the engine itself, whatever the config.
+
+Request lifecycle and fault tolerance (continuous engine):
+
+  queue_cap      None (default: unbounded) | n >= 1: a submit that finds n
+                 requests queued sheds one (status "shed") by
+  shed_policy    "reject" (the arrival) | "oldest" (the longest queued) |
+                 "lowest-priority" (the lowest ``Request.priority``
+                 queued, unless the arrival is lower still).
+  deadline_s     the default latency budget of a request that sets none
+                 (None: no budget); past it a request retires "timeout"
+                 at the next segment boundary.
+  admit_retries  admission attempts (default 8) an anchor the page pool
+                 cannot fund gets on an otherwise idle engine before it
+                 is shed.
+  injector       an ``inference.faults.FaultInjector`` (None: no faults).
+
+Observability: ``telemetry`` (None, the default, records nothing and
+runs no hook) takes an ``inference.telemetry.Telemetry``: request spans,
+a Chrome trace, Prometheus text, compile events and the sampled DSA
+selection probe.
 
 Per-request DSA modes (continuous engine): segments are mode-affine, so a
 queued request of another ``dsa_mode`` waits for the engine to drain.
@@ -52,6 +70,7 @@ from repro_torch.models.attention import (DSA_MODES, KV_QUANT_DTYPES,
                                           SELECT_DTYPES)
 
 LOOPS = ("scan", "python")
+SHED_POLICIES = ("reject", "oldest", "lowest-priority")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +98,15 @@ class ServingConfig:
     spec: int = 0                    # speculative drafts a round (0 = off)
     draft: Any = None                # proposer (None = NGramProposer)
     spec_rounds: Optional[int] = None   # rounds a speculative segment
+    # -- fault tolerance (ContinuousEngine) ----------------------------------
+    queue_cap: Optional[int] = None  # bounded admission queue (None = inf)
+    shed_policy: str = "reject"      # overload victim: see SHED_POLICIES
+    deadline_s: Optional[float] = None   # default per-request latency budget
+    admit_retries: int = 8           # unfundable-anchor retries before shed
+    injector: Any = None             # FaultInjector (None = no injection)
+    # -- observability -------------------------------------------------------
+    telemetry: Any = None            # inference.telemetry.Telemetry (None:
+    #                                  nothing recorded, no hook)
 
     def __post_init__(self):
         for name, val, valid in (("dsa_mode", self.dsa_mode, DSA_MODES),
@@ -86,7 +114,9 @@ class ServingConfig:
                                   SELECT_DTYPES),
                                  ("kv_quant", self.kv_quant,
                                   KV_QUANT_DTYPES),
-                                 ("loop", self.loop, LOOPS)):
+                                 ("loop", self.loop, LOOPS),
+                                 ("shed_policy", self.shed_policy,
+                                  SHED_POLICIES)):
             if val not in valid:
                 raise ValueError(
                     f"ServingConfig.{name}={val!r} is not a valid choice; "
@@ -95,11 +125,15 @@ class ServingConfig:
                              and self.spec_rounds < 1):
             raise ValueError(f"ServingConfig: spec={self.spec} must be >= 0 "
                              f"and spec_rounds={self.spec_rounds} >= 1")
+        if self.queue_cap is not None and self.queue_cap < 1:
+            raise ValueError("ServingConfig.queue_cap must be >= 1 "
+                             "(None = unbounded)")
+        if self.admit_retries < 0:
+            raise ValueError("ServingConfig.admit_retries must be >= 0")
 
 
 # the reference's ServingConfig fields of paths not ported yet
-UNPORTED = ("mesh", "shard_rules", "moe_prefill", "queue_cap", "shed_policy",
-            "deadline_s", "admit_retries", "injector", "telemetry")
+UNPORTED = ("mesh", "shard_rules", "moe_prefill")
 
 
 def resolve_config(config: Optional[ServingConfig], kw: dict

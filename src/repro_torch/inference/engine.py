@@ -52,6 +52,14 @@ sampled at B = 1 (a sampled B > 1 batch gets each row's solo chain).  Its
 counted), so that ``delivered_tokens / decode_s`` compares with the
 plain path's.
 
+Telemetry (``ServingConfig.telemetry``, inference/telemetry.py): with a
+``Telemetry`` the eager entry points ``prefill``, ``decode`` (the python
+loop's step), ``decode_loop`` (the scan loop's step), ``verify`` and
+``commit`` record each new shape signature as a compile event
+(``Telemetry.note`` before the call); on the card the graphed ones record
+their captures instead (``DecodeGraphs.telemetry``).  None, the default,
+records nothing.
+
 Sampling: greedy takes the first maximum (as ``jnp.argmax`` does), so
 greedy tokens are comparable with the reference.  Sampled decoding draws
 Gumbel noise from the port's own ``torch.Generator`` seeded by ``seed``,
@@ -198,6 +206,17 @@ class Engine:
         self._spec_scratch: Dict[tuple, list] = {}
         self.graphs = (DecodeGraphs(self.device)
                        if self.device.type == "cuda" else None)
+        # with telemetry, each eager program call records its signature
+        # (``_note``) and each graph capture its capture
+        self.telemetry = c.telemetry
+        if self.telemetry is not None and self.graphs is not None:
+            self.graphs.telemetry = self.telemetry
+
+    def _note(self, program: str, *args) -> None:
+        """An eager call of ``program`` with ``args``: a compile event
+        when telemetry is on and the signature is new."""
+        if self.telemetry is not None:
+            self.telemetry.note(program, *args)
 
     def prompt_bucket(self, prompt_len: int) -> int:
         if not self.bucket_prompts:
@@ -238,10 +257,13 @@ class Engine:
             return decode_step(self.params, self.cfg, flags, tok, caches)[0]
 
         if self.graphs is None:
-            return step
+            def eager(tok, mask=None):
+                self._note("decode_loop", tok, caches, flags)
+                return step(tok)
+            return eager
         return self.graphs.step(
             step_key(self.cfg, flags, batch, paged=False), step,
-            caches, batch, masked=False)
+            caches, batch, masked=False, program="decode_loop")
 
     def spec_steps(self, batch: int, k: int, flags: RunFlags,
                    caches: Optional[Dict] = None
@@ -260,20 +282,25 @@ class Engine:
         if skey not in self._spec_scratch:
             self._spec_scratch[skey] = spec_scratch(caches, c)
         scratch = self._spec_scratch[skey]
+        eager = self.graphs is None      # a graph records its capture
 
         def verify(chunk, mask):
+            if eager:
+                self._note("verify", chunk, mask, caches, scratch, flags)
             return verify_step(self.params, self.cfg, flags, chunk, caches,
                                active=mask, scratch=scratch)[0]
 
         def commit(keep, mask):
+            if eager:
+                self._note("commit", keep, mask, caches, scratch, flags, c)
             commit_chunk(self.cfg, flags, caches, keep[:, 0], c, active=mask,
                          scratch=scratch)
 
-        if self.graphs is None:
+        if eager:
             return verify, commit
         return tuple(self.graphs.step(
             step_key(self.cfg, flags, batch, False, kind=(kind, c)), fn,
-            caches, batch, masked=True, width=w)
+            caches, batch, masked=True, width=w, program=kind)
             for kind, fn, w in (("verify", verify, c), ("commit", commit, 1)))
 
     @torch.inference_mode()
@@ -312,9 +339,9 @@ class Engine:
                                device=self.device)
         _sync(self.device)
         t0 = time.monotonic()
-        logits, caches = forward(self.params, self.cfg,
-                                 self.run_flags("prefill", dsa_mode), toks,
-                                 caches)
+        flags = self.run_flags("prefill", dsa_mode)
+        self._note("prefill", toks, caches, lens, flags)
+        logits, caches = forward(self.params, self.cfg, flags, toks, caches)
         truncate_cache(self.cfg, caches, lens)
         last = logits[torch.arange(b, device=self.device), lens - 1][:, None]
         _sync(self.device)
@@ -372,6 +399,7 @@ class Engine:
             if scan:
                 logits = step(tok)
             else:
+                self._note("decode", tok, caches, dflags)
                 logits, caches = decode_step(self.params, self.cfg, dflags,
                                              tok, caches)
             tok = _sample(logits[:, -1], gen, greedy, temperature)

@@ -57,6 +57,11 @@ live slots too.  Acceptance and the per-row generators' draws stay
 eager between the two replays.
 CUDA graphs exist only on the card; on the CPU the engines run the same
 step eagerly.
+
+Telemetry: with ``telemetry`` set (the engine's ``ServingConfig.telemetry``)
+each capture is recorded as a compile event (``Telemetry.on_capture``)
+named after the program the graph runs (``decode_loop``, ``segment``,
+``verify``, ``commit``), with its key, capture ms and pool bytes.
 """
 from __future__ import annotations
 
@@ -137,6 +142,7 @@ class DecodeGraphs:
         self.graphs: Dict[tuple, StepGraph] = {}
         self.captures = 0
         self._dropped_replays = 0
+        self.telemetry = None             # records each capture when set
 
     @property
     def replays(self) -> int:
@@ -155,18 +161,22 @@ class DecodeGraphs:
         self.graphs.clear()
 
     def step(self, key: tuple, fn: Callable, caches, batch: int,
-             masked: bool, width: int = 1) -> StepGraph:
+             masked: bool, width: int = 1,
+             program: str = "decode_loop") -> StepGraph:
         """The graph of ``key``, captured now if there is none: ``fn(tok,
         mask)`` is the eager step over ``caches`` returning (B, 1, V)
         logits, with ``mask`` None unless ``masked``.  ``width``: the
         token input's columns (a speculative verify takes C tokens a row;
         its commit takes the (B, 1) accepted counts there and returns
-        nothing)."""
+        nothing).  ``program`` names the capture's compile event."""
         g = self.graphs.get(key)
         if g is None:
             g = self.graphs[key] = self._capture(fn, caches, batch, masked,
                                                  width)
             self.captures += 1
+            if self.telemetry is not None:
+                self.telemetry.on_capture(program, key, g.capture_ms,
+                                          g.pool_bytes)
         elif g.caches is not caches:
             raise RuntimeError(f"the decode graph {key} was captured on "
                                f"another cache")

@@ -84,12 +84,48 @@ inference/speculative.py).  Pinned by tests/test_torch_scheduler.py,
 tests/test_torch_prefix.py, tests/test_torch_modes.py and
 tests/test_torch_spec.py.
 
+Request lifecycle: every request retires with a typed
+``RequestResult.status`` (``ok | timeout | cancelled | failed | shed``)
+through one path (``_emit``).  Deadlines (``Request.deadline_s``, else
+``ServingConfig.deadline_s``, on the serve clock: seconds since arrival)
+and ``cancel(rid)`` retire queued, chunking or resident requests at
+segment boundaries: a resident slot freezes through the ``active`` mask
+and returns its pages as a normal retirement does, so co-resident slots
+are bitwise untouched.  Overload sheds at a bounded queue (``queue_cap``,
+``shed_policy``); an anchor the page pool cannot fund retries, and on an
+otherwise idle engine is shed after ``admit_retries`` attempts.  A
+non-finite logits row fails only its slot (``fin``, kept on the device
+for every step and read at the segment's one sync); a draft proposer
+that raises degrades speculative segments to plain ones; a
+``StepWatchdog`` flags slow segments; ``health()`` snapshots it all.
+Results made outside a call that carries a results list (a shed at
+submit, ``cancel``) surface at the next admission point.
+
+Faults (``ServingConfig.injector``, inference/faults.py): the injector
+is consulted at five points (nan_logits, pool_exhaust, proposer,
+slow_segment, dispatch); with none armed every consult is skipped and
+the segments run exactly the steps they ran without it.  An exception
+raised by a segment itself fails every in-flight request and rebuilds
+the resident cache (``_scrub_all``): the graphs are dropped first, since
+they hold the old cache's addresses, and captured again by the next
+segment.  Only a fault that surfaces on the host as an exception can be
+scrubbed so: a raise in the step, a refused launch, an out-of-memory
+error at capture.  A sticky device fault (an illegal address, say)
+leaves the CUDA context unusable, and no rebuild inside the process
+recovers from it: the process must restart.
+
+Telemetry (``ServingConfig.telemetry``, inference/telemetry.py; None records
+nothing and runs no hook): request spans, segment, chunk-burst, admission
+and fault events, Prometheus metrics fed from ``_emit`` and ``health()``,
+compile events (each new shape signature of an eager entry point, each
+graph capture on the card) and, once every ``sample_every`` segments, a
+sparsity probe (``_sparsity_probe``): one eager decode step that reads
+back each layer's block selection and puts back every cache row it
+wrote.
+
 Not ported yet (each raises ``NotImplementedError`` where a caller asks
-for it): the request lifecycle and shedding
-(deadlines, ``cancel``, ``queue_cap``/``shed_policy``, the fault
-injector and the unfundable anchor's ``admit_retries`` shedding: an
-unfundable anchor waits for pages); telemetry; serving meshes; recurrent
-(RWKV6) archs.  Every ``dsa_mode`` is served, ``faithful`` included.
+for it): serving meshes; recurrent (RWKV6) archs.  Every ``dsa_mode`` is
+served, ``faithful`` included.
 """
 from __future__ import annotations
 
@@ -104,10 +140,12 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantization import raw
+from repro_torch.distributed.fault_tolerance import StepWatchdog
 from repro_torch.inference.config import ServingConfig, resolve_config
 from repro_torch.inference.engine import (Engine, _ro_view, _sample, _sync,
                                           can_chunk_prefill, can_page,
                                           pow2_bucket)
+from repro_torch.inference.faults import FaultError
 from repro_torch.inference.graphs import step_key
 from repro_torch.inference.speculative import (NGramProposer,
                                                SpeculativeDecoder,
@@ -140,7 +178,11 @@ class Request:
     # (submit hashes the prefix tokens when it is None)
     prefix_len: int = 0
     prefix_key: Optional[str] = None
-    deadline_s: Optional[float] = None   # latency budget (not ported)
+    # lifecycle: latency budget in seconds since arrival (None: the
+    # engine's ServingConfig.deadline_s), and the shedding priority under
+    # overload (higher survives "lowest-priority")
+    deadline_s: Optional[float] = None
+    priority: int = 0
 
     def __post_init__(self):
         if self.dsa_mode is not None and self.dsa_mode not in DSA_MODES:
@@ -149,15 +191,16 @@ class Request:
                 f"mode; valid: {DSA_MODES} (or None for the engine default)")
 
 
-# the reference's typed retirement statuses; the port's core path retires
-# every request "ok" (the lifecycle that gives the others is not ported)
+# the typed retirement statuses: "ok" delivered all n_new tokens; the rest
+# surface partial (timeout/cancelled/failed: whatever was collected before
+# the slot froze) or empty (shed, never admitted) token arrays
 STATUSES = ("ok", "timeout", "cancelled", "failed", "shed")
 
 
 @dataclasses.dataclass
 class RequestResult:
     rid: int
-    tokens: np.ndarray            # (n_new,)
+    tokens: np.ndarray            # (n_new,) when status == "ok", else fewer
     prompt_len: int
     n_new: int
     arrival_s: float
@@ -211,6 +254,13 @@ class _PrefillGroup:
     n_chunks: int = 0
     mat: Optional[np.ndarray] = None   # (bpf, n_chunks*chunk) padded tokens
     tbls: Optional[List] = None   # paged: per-member page-table row
+    # members no longer chunking: finished (activated or retired at their
+    # first token) or cancelled/expired mid-chunk.  A dead row keeps
+    # chunking (the group's geometry is fixed) but never activates
+    dead: Set[int] = dataclasses.field(default_factory=set)
+    # the prefix registration this group made on a registry miss, until a
+    # member's insert has filled its pages (None after that)
+    reg_key: Optional[tuple] = None
 
 
 def _layers(caches) -> Iterator[Dict]:
@@ -218,6 +268,49 @@ def _layers(caches) -> Iterator[Dict]:
     for group in caches["groups"]:
         for sub in group.values():
             yield sub["attn"]
+
+
+def _step_targets(lc: Dict, bk: int) -> Tuple[tuple, tuple]:
+    """The entries a decode step may write in a layer's cache ``lc``, as
+    index tuples: each row's token row (k, v, kt and their scales) and
+    its block row (ktb, ktb_s).  Dense: row b's slot at its ``pos`` and
+    that slot's block.  Paged: the pool row and page its ``pos`` maps to,
+    and the zero page's first row, where a write that does not land puts
+    zeros."""
+    pos = lc["pos"].long()
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    if "page_tbl" in lc:
+        tbl = lc["page_tbl"].long()
+        pg = tbl[rows, (pos // bk).clamp(0, tbl.shape[1] - 1)]
+        zero = torch.zeros((1,), dtype=torch.long, device=pos.device)
+        return (torch.cat([pg * bk + pos % bk, zero]),), (torch.cat([pg,
+                                                                     zero]),)
+    s = lc["k"].shape[1]
+    slot = torch.where(pos < s, pos, pos % s)
+    return (rows, slot), (rows, slot // bk)
+
+
+def _save_step_rows(lc: Dict, bk: int) -> Tuple[tuple, Dict]:
+    """What a decode step will overwrite in ``lc``: ``pos`` and the
+    entries ``_step_targets`` names, copied (a few rows a layer)."""
+    at_row, at_blk = _step_targets(lc, bk)
+    saved = {"pos": lc["pos"].clone()}
+    for keys, at in ((_POOL_ROW_KEYS, at_row), (_POOL_PAGE_KEYS, at_blk)):
+        for name in keys:
+            if name in lc:
+                saved[name] = raw(lc[name])[at].clone()
+    return (at_row, at_blk), saved
+
+
+def _restore_step_rows(lc: Dict, saved: Tuple[tuple, Dict]) -> None:
+    """Put back what ``_save_step_rows`` copied (repeated targets all hold
+    the same original bytes, so their order does not matter)."""
+    (at_row, at_blk), vals = saved
+    for keys, at in ((_POOL_ROW_KEYS, at_row), (_POOL_PAGE_KEYS, at_blk)):
+        for name in keys:
+            if name in lc:
+                raw(lc[name])[at] = vals[name]
+    lc["pos"].copy_(vals["pos"])
 
 
 class PagePool:
@@ -236,12 +329,8 @@ class PagePool:
     (``take_dirty``).
 
     ``prefixes`` is the LRU registry (prefix_key, prefix_len, bucket,
-    mode) -> shared pages; it lives in the cache, so ``reset`` rebuilds
-    it with the pool.  Not ported around it: the reference's shedding of
-    an anchor the pool cannot fund (``admit_retries``, the fault
-    injector's forced exhaustion), with the rest of the request
-    lifecycle; telemetry, serving meshes and RWKV6 in the continuous
-    engine are not ported either."""
+    mode) -> shared pages; it lives in the cache, so ``reset`` (and
+    ``_scrub_all``) rebuild it with the pool."""
 
     def __init__(self, n_pages: int, page_rows: int):
         if n_pages < 2:
@@ -388,6 +477,25 @@ class ContinuousEngine:
                             else max(1, self.seg_len // (self.spec + 1))
                             ) if self.spec else 0
         self._spec = SpeculativeDecoder(self.spec) if self.spec else None
+        # fault tolerance: bounded admission queue and shed policy, default
+        # latency budget, unfundable-anchor retry bound, fault injector
+        # (public and mutable: it never enters a graph, so tests swap it
+        # between runs on one engine)
+        self.queue_cap = c.queue_cap
+        self.shed_policy = c.shed_policy
+        self.deadline_s = c.deadline_s
+        self.admit_retries = c.admit_retries
+        self.injector = c.injector
+        # telemetry=None records nothing and runs no hook.  With a
+        # Telemetry, every eager entry point records its new shape
+        # signatures (``_note``; the inner engine records its own from the
+        # same config, and its graphs record their captures), and the
+        # request lifecycle and the segment, chunk and fault events land
+        # on the trace
+        self.telemetry = c.telemetry
+        self._probe_prev: Dict[int, tuple] = {}   # slot -> (rid, blocks)
+        if self.telemetry is not None:
+            self.telemetry.bind_engine(self)
         self.queue: deque = deque()
         self.graphs = self.engine.graphs  # the engine's graphs, one a key
         self.reset()
@@ -419,10 +527,17 @@ class ContinuousEngine:
             return None, 0
         return (req.prefix_key, req.prefix_len, bucket, mode), n_sh
 
+    def _note(self, program: str, *args) -> None:
+        """An eager call of ``program`` with ``args``: a compile event
+        when telemetry is on and the signature is new."""
+        if self.telemetry is not None:
+            self.telemetry.note(program, *args)
+
     @torch.inference_mode()
     def _zero_pages(self, ids: Sequence[int]) -> None:
         """Zero pool pages ``ids`` in every pool leaf of every layer, so a
         freshly mapped page reads as zeros."""
+        self._note("zero_pages", ids)
         bk = self._page_rows
         ids = torch.as_tensor(ids, dtype=torch.long, device=self.device)
         rows = (ids[:, None] * bk + torch.arange(
@@ -469,9 +584,6 @@ class ContinuousEngine:
                 req.prefix_key = hashlib.sha1(np.ascontiguousarray(
                     np.asarray(req.prompt, np.int32)[:req.prefix_len]
                 ).tobytes()).hexdigest()
-        if req.deadline_s is not None:
-            raise NotImplementedError(
-                "request deadlines are not ported to repro_torch yet")
         if req.dsa_mode is not None:
             allowed = (set(DSA_MODES)
                        if self.engine.decode_flags.long_context
@@ -485,13 +597,21 @@ class ContinuousEngine:
                 f"request {req.rid}: needs {self._pages_needed(req)} cache "
                 f"pages but the pool holds {self.pool_pages - 1} "
                 f"allocatable pages — raise pool_pages or shorten it")
+        if (self.queue_cap is not None
+                and len(self.queue) >= self.queue_cap):
+            victim = self._shed_victim(req)
+            if victim is not None:
+                # a shed request never touched a slot: empty tokens, admit
+                # == finish == arrival (no wall clock involved)
+                self._emit(None, victim, np.zeros((0,), np.int32),
+                           victim.arrival_s, victim.arrival_s, "shed")
+                if victim is req:
+                    return
         self._live.add(req.rid)
         self._enq_s[req.rid] = time.monotonic()
         self.queue.append(req)
-
-    def cancel(self, rid: int, now: float = 0.0) -> bool:
-        raise NotImplementedError(
-            "cancel (the request lifecycle) is not ported to repro_torch yet")
+        if self.telemetry is not None:
+            self.telemetry.on_submit(req.rid, len(self.queue))
 
     def free_slots(self) -> List[int]:
         return [i for i in range(self.slots)
@@ -536,12 +656,12 @@ class ContinuousEngine:
 
         A paged engine also caps the group at what the pool can fund now:
         shared prefix pages cost nothing on a registry hit, and on a miss
-        the first slotted member pays for them.  An unfundable anchor
-        first evicts idle registrations (LRU), then waits, with the whole
-        queue, for retirements to return pages (nothing is then in flight
-        only if every unregistered page is free, which funds any request
-        ``submit`` accepted).  The reference's bounded retry that sheds
-        such an anchor belongs to the request lifecycle, not ported."""
+        the first slotted member pays for them.  An unfundable anchor (or
+        one the injector's ``pool_exhaust`` makes so) first evicts idle
+        registrations (LRU), then retries: with work resident or chunking
+        it waits, with the whole queue, for retirements to return pages;
+        on an otherwise idle engine nothing will, and it is shed after
+        ``admit_retries`` attempts."""
         rest: deque = deque()
         for _ in range(anchor):
             rest.append(self.queue.popleft())
@@ -560,14 +680,26 @@ class ContinuousEngine:
                     return 0              # never slotted: staging only
                 return self._pages_needed(r) - n_sh + shared_pending
 
+            if self.injector is not None:
+                self.injector.telemetry = self.telemetry
+            forced = (self.injector is not None
+                      and self.injector.take("pool_exhaust") is not None)
             need0 = cost(first)
-            if need0 > self.pool.available():
+            if not forced and need0 > self.pool.available():
                 self.pool.evict_for(need0, keep=key0)
-            if need0 > self.pool.available():
-                rest.append(first)
+            if forced or need0 > self.pool.available():
+                n = self._unfundable.get(first.rid, 0) + 1
+                self._unfundable[first.rid] = n
+                if (n > self.admit_retries and self._pf is None
+                        and not any(s is not None for s in self._slot)):
+                    self._emit(None, first, np.zeros((0,), np.int32),
+                               first.arrival_s, first.arrival_s, "shed")
+                else:
+                    rest.append(first)
                 while rest:
                     self.queue.appendleft(rest.pop())
                 return []
+            self._unfundable.pop(first.rid, None)
             budget = self.pool.available() - need0
             if first.n_new > 1:
                 shared_pending = 0
@@ -618,6 +750,8 @@ class ContinuousEngine:
         self._slot[slot] = _SlotState(req, tok0, [], req.n_new - 1, admit_s,
                                       first_token_s=first_s, history=hist,
                                       hist_len=prompt.size + 1)
+        if self.telemetry is not None:
+            self.telemetry.on_first_token(req.rid)
 
     @torch.inference_mode()
     def _insert(self, pre, slot: int, row: int) -> None:
@@ -625,6 +759,7 @@ class ContinuousEngine:
         bucket-sized staging cache, zero-extending the per-token rows (a
         ring of min(prompt, window) rows into one of min(max_len,
         window): both place token i at slot i % window)."""
+        self._note("insert", pre, slot, row)
         for res, st in zip(_layers(self._caches), _layers(pre)):
             for name in _SEQ_KEYS:
                 if name in res:
@@ -642,6 +777,7 @@ class ContinuousEngine:
         Staged rows whose block is unmapped (beyond the slot's pages, all
         zero) are dropped; mapped pages were zeroed at allocation, so the
         slot's logical view equals the dense zero-extended insert."""
+        self._note("insert_paged", pre, slot, row, tbl_row)
         bk = self._page_rows
         tbl = torch.as_tensor(tbl_row, dtype=torch.long, device=self.device)
         for res, st in zip(_layers(self._caches), _layers(pre)):
@@ -676,9 +812,14 @@ class ContinuousEngine:
             p = np.asarray(r.prompt, np.int32)
             mat[j, :len(p)] = p
             lengths[j] = len(p)
+        tel = self.telemetry
+        tt0 = tel.now() if tel is not None else 0.0
         last, pcaches, tp = self.engine.prefill(mat, lengths=lengths,
                                                 cache_len=bucket,
                                                 dsa_mode=mode)
+        if tel is not None:
+            tel.on_admission(tt0, tp, len(group), bucket, mode,
+                             kind="blocking")
         self.stats["prefill_s"] += tp
         if any(s is not None for s in self._slot):
             self.stats["stall_s"] += tp       # resident decoders sat idle
@@ -689,8 +830,10 @@ class ContinuousEngine:
             tok0, gen = self._sample_tok0(last[j:j + 1, -1], req)
             self.stats["useful_tokens"] += 1
             if req.n_new == 1:       # first token IS the whole generation
+                if tel is not None:
+                    tel.on_first_token(req.rid)
                 self._emit(results, req, np.asarray([tok0], np.int32),
-                           now, now, first_s=now)
+                           now, now, "ok", first_s=now)
                 continue
             slot = next(free)
             if self.paged:
@@ -744,6 +887,7 @@ class ContinuousEngine:
             slots.append(slot)
         tbls = None
         skip = 0
+        reg_key = None
         if self.paged:
             key, n_sh = self._prefix_ctx(group[0], bucket, mode, True)
             shared = self.pool.lookup_prefix(key) if key else None
@@ -753,6 +897,7 @@ class ContinuousEngine:
                 shared = self.pool.alloc(n_sh)
                 self._zero_dirty(shared)
                 self.pool.register_prefix(key, shared)
+                reg_key = key
             tbls = []
             for r, slot in zip(group, slots):
                 if slot is None:
@@ -782,8 +927,13 @@ class ContinuousEngine:
                 self.stats["prefix_tokens_reused"] += skip * c * len(group)
         self._pf = _PrefillGroup(group, slots, bucket, c, mode, caches,
                                  lengths, j=skip, n_chunks=n_chunks, mat=mat,
-                                 tbls=tbls)
+                                 tbls=tbls, reg_key=reg_key)
         self.stats["admitted"] += len(group)
+        if self.telemetry is not None:
+            self.telemetry.on_admission(self.telemetry.now(), 0.0,
+                                        len(group), bucket, mode,
+                                        kind="chunked",
+                                        prefix_skip_chunks=skip)
 
     @torch.inference_mode()
     def _seed(self, staging, pages: Sequence[int], r_rows: int) -> None:
@@ -793,6 +943,7 @@ class ContinuousEngine:
         blocks (ktb, ktb_s), and ``pos`` becomes ``r_rows``: the staging
         state after chunking rows [0, r_rows), the chunks the group then
         skips.  Index copies on the device, no host sync."""
+        self._note("seed", staging, pages, r_rows)
         bk = self._page_rows
         ids = torch.as_tensor(list(pages), dtype=torch.long,
                               device=self.device)
@@ -831,9 +982,10 @@ class ContinuousEngine:
             np.int32), device=self.device)
         toks = torch.as_tensor(pf.mat[:, j * c:(j + 1) * c],
                                device=self.device)
-        logits, _ = chunk_step(self.engine.params, self.cfg,
-                               self._flags(pf.mode), toks, pf.caches, cl,
-                               sel_len=pf.bucket)
+        flags = self._flags(pf.mode)
+        self._note("chunk", toks, pf.caches, cl, flags, pf.bucket)
+        logits, _ = chunk_step(self.engine.params, self.cfg, flags, toks,
+                               pf.caches, cl, sel_len=pf.bucket)
         idx = cl.long().clamp(min=1) - 1
         return logits[torch.arange(logits.shape[0], device=self.device), idx]
 
@@ -859,7 +1011,8 @@ class ContinuousEngine:
             last = self._chunk(pf)
             pf.j += 1
             finishing = [i for i, r in enumerate(pf.reqs)
-                         if -(-len(r.prompt) // pf.chunk) == j + 1]
+                         if -(-len(r.prompt) // pf.chunk) == j + 1
+                         and i not in pf.dead]
             if not finishing:
                 continue
             _sync(self.device)            # this chunk has completed
@@ -867,17 +1020,21 @@ class ContinuousEngine:
             now = clock()
             for i in finishing:
                 req = pf.reqs[i]
+                pf.dead.add(i)            # no longer chunking
                 tok0, gen = self._sample_tok0(last[i:i + 1], req)
                 self.stats["useful_tokens"] += 1
                 if req.n_new == 1:        # retires without touching a slot
+                    if self.telemetry is not None:
+                        self.telemetry.on_first_token(req.rid)
                     self._emit(results, req, np.asarray([tok0], np.int32),
-                               now, now, first_s=now)
+                               now, now, "ok", first_s=now)
                     continue
                 slot = pf.slots[i]        # early activation: decode now
                 if self.paged:
                     self._insert_paged(pf.caches, slot, i, pf.tbls[i])
                 else:
                     self._insert(pf.caches, slot, i)
+                pf.reg_key = None         # the shared pages are written
                 self._reserved.discard(slot)
                 self._activate(slot, req, tok0, gen, now, now)
         if not synced:
@@ -887,6 +1044,9 @@ class ContinuousEngine:
         self.stats["chunk_s"] += dt
         if stalled:
             self.stats["stall_s"] += dt
+        if self.telemetry is not None:
+            self.telemetry.on_chunk_burst(dt, burst, pf.bucket, pf.mode,
+                                          len(pf.reqs))
         if pf.j >= pf.n_chunks:
             self._pf = None               # every member inserted already
 
@@ -895,7 +1055,13 @@ class ContinuousEngine:
         """Admit queued requests into free slots.  ``clock``: zero-arg
         callable giving seconds since serve start.  Chunked mode only
         STARTS a group here (one in flight at a time); its chunks run in
-        ``step_prefill`` between decode segments."""
+        ``step_prefill`` between decode segments.  Results made outside a
+        call that carries ``results`` (sheds at submit, ``cancel``) are
+        flushed here first, then deadline-expired work is reaped."""
+        if self._pending:
+            results.extend(self._pending)
+            self._pending.clear()
+        self._reap(clock, results)
         while self.queue:
             if self._pf is not None:
                 break                     # a chunked group is in flight
@@ -917,16 +1083,33 @@ class ContinuousEngine:
                 break
             self._admit_group(free, group, mode, clock, results)
 
-    def _emit(self, results: List[RequestResult], req: Request, tokens,
-              admit_s: float, finish_s: float, first_s: float = 0.0) -> None:
-        """Retire ``req``: its rid becomes reusable and its result is
-        appended to ``results``."""
+    # -- request lifecycle (deadlines / cancellation / shedding) ------------
+
+    def _eff_deadline(self, req: Request) -> Optional[float]:
+        return (req.deadline_s if req.deadline_s is not None
+                else self.deadline_s)
+
+    def _emit(self, results: Optional[List[RequestResult]], req: Request,
+              tokens, admit_s: float, finish_s: float, status: str,
+              first_s: float = 0.0) -> None:
+        """Retire ``req`` with a typed result, the single retirement path:
+        its rid becomes reusable, a non-ok status is counted in ``stats``,
+        telemetry sees every result once, and the result goes to
+        ``results``, or to ``_pending`` (flushed at the next admission
+        point) when the caller carries no list."""
         self._live.discard(req.rid)
         self._enq_s.pop(req.rid, None)
-        results.append(RequestResult(
+        self._unfundable.pop(req.rid, None)
+        if status != "ok":
+            self.stats[status] += 1
+        res = RequestResult(
             req.rid, np.asarray(tokens, np.int32).reshape(-1),
             int(np.asarray(req.prompt).shape[-1]), req.n_new,
-            req.arrival_s, admit_s, finish_s, first_token_s=first_s))
+            req.arrival_s, admit_s, finish_s, first_token_s=first_s,
+            status=status, deadline_s=self._eff_deadline(req))
+        if self.telemetry is not None:
+            self.telemetry.on_retire(res)
+        (results if results is not None else self._pending).append(res)
 
     def _partial(self, st: _SlotState) -> np.ndarray:
         """A slot's tokens so far: tok0 + every collected segment."""
@@ -935,35 +1118,188 @@ class ContinuousEngine:
 
     def _retire_slot(self, i: int) -> None:
         """Free slot ``i``: clearing the host ``active`` mirror freezes it
-        from the next segment on, and a paged slot returns its pages."""
+        from the next segment on (co-resident slots see no change), and a
+        paged slot returns its pages."""
         self._slot[i] = None
         self._gens[i] = None
         self._active[i] = False
         if self.paged:
             self.pool.free_slot(i)
 
+    def _kill_pf_member(self, pf: _PrefillGroup, i: int) -> None:
+        """Take member ``i`` out of an in-flight chunked admission: its
+        reserved slot and pages free now, its row keeps chunking but never
+        activates, and the group's chunk count shrinks to its chunking
+        members' longest prompt.  A prefix the group registered on a miss
+        is unregistered when no member is left to fill its pages."""
+        slot = pf.slots[i]
+        if slot is not None:
+            self._reserved.discard(slot)
+            if self.paged and slot in self.pool.slot_pages:
+                self.pool.free_slot(slot)
+            pf.slots[i] = None
+        pf.dead.add(i)
+        alive = [j for j in range(len(pf.reqs)) if j not in pf.dead]
+        if pf.reg_key is not None and not any(pf.slots[j] is not None
+                                              for j in alive):
+            self.pool.release(self.pool.prefixes.pop(pf.reg_key, ()))
+            pf.reg_key = None
+        if not alive:
+            self._pf = None
+        else:
+            pf.n_chunks = max(-(-len(pf.reqs[j].prompt) // pf.chunk)
+                              for j in alive)
+
+    def _shed_victim(self, req: Request) -> Optional[Request]:
+        """Overload: whom to shed when the queue holds ``queue_cap``
+        requests.  "reject" sheds the arrival, "oldest" the longest
+        queued, "lowest-priority" the lowest-priority queued request
+        unless the arrival is lower still (ties shed the arrival).  The
+        victim returned is off the queue already."""
+        if self.shed_policy == "reject":
+            return req
+        if self.shed_policy == "oldest":
+            return self.queue.popleft()
+        victim = min(self.queue, key=lambda r: r.priority)
+        if req.priority <= victim.priority:
+            return req
+        self.queue = deque(r for r in self.queue if r is not victim)
+        return victim
+
+    def _reap(self, clock, results: List[RequestResult]) -> None:
+        """Retire deadline-expired work at a segment boundary: queued
+        requests time out before admission (empty tokens), chunking
+        members leave their group, resident slots freeze through the
+        active mask and surface their partial tokens."""
+        if self.deadline_s is None and not self._any_deadlines:
+            return
+        now = clock()
+
+        def expired(r):
+            d = self._eff_deadline(r)
+            return d is not None and now - r.arrival_s > d
+
+        if any(expired(r) for r in self.queue):
+            keep: deque = deque()
+            for r in self.queue:
+                if expired(r):
+                    self._emit(results, r, np.zeros((0,), np.int32),
+                               now, now, "timeout")
+                else:
+                    keep.append(r)
+            self.queue = keep
+        pf = self._pf
+        if pf is not None:
+            for i, r in enumerate(pf.reqs):
+                if i not in pf.dead and expired(r):
+                    self._emit(results, r, np.zeros((0,), np.int32),
+                               now, now, "timeout")
+                    self._kill_pf_member(pf, i)
+        for i, st in enumerate(self._slot):
+            if st is not None and expired(st.req):
+                self._emit(results, st.req, self._partial(st), st.admit_s,
+                           now, "timeout", first_s=st.first_token_s)
+                self._retire_slot(i)
+
+    @property
+    def _any_deadlines(self) -> bool:
+        return (any(r.deadline_s is not None for r in self.queue)
+                or (self._pf is not None
+                    and any(r.deadline_s is not None
+                            for r in self._pf.reqs))
+                or any(s is not None and s.req.deadline_s is not None
+                       for s in self._slot))
+
+    def cancel(self, rid: int, now: float = 0.0) -> bool:
+        """Cancel a request wherever it is: queued (empty tokens), in a
+        chunked admission (the group shrinks, the other members are
+        untouched) or resident (its tokens so far; slot and pages free as
+        at a normal retirement, co-resident slots untouched).  False for
+        an unknown or finished rid.  The result (status "cancelled")
+        surfaces at the next admission point."""
+        for r in self.queue:
+            if r.rid == rid:
+                self.queue = deque(x for x in self.queue if x is not r)
+                self._emit(None, r, np.zeros((0,), np.int32), now, now,
+                           "cancelled")
+                return True
+        pf = self._pf
+        if pf is not None:
+            for i, r in enumerate(pf.reqs):
+                if r.rid == rid and i not in pf.dead:
+                    self._emit(None, r, np.zeros((0,), np.int32), now, now,
+                               "cancelled")
+                    self._kill_pf_member(pf, i)
+                    return True
+        for i, st in enumerate(self._slot):
+            if st is not None and st.req.rid == rid:
+                self._emit(None, st.req, self._partial(st), st.admit_s,
+                           now, "cancelled", first_s=st.first_token_s)
+                self._retire_slot(i)
+                return True
+        return False
+
+    def _scrub_all(self, clock, results: List[RequestResult]) -> None:
+        """A segment raised: the resident cache, written in place, may
+        hold a half-run segment, so every in-flight request fails
+        (resident slots with their pre-segment tokens, chunking members
+        empty), the graphs are dropped (they hold the old cache's
+        addresses), the resident cache and page pool are rebuilt (the
+        prefix registry lives in the pool's pages and goes with it) and
+        the queue keeps being served; the next segment captures anew.
+        Stats and queue are kept.  This recovers from faults that surface
+        on the host as exceptions; a sticky device fault leaves the CUDA
+        context unusable and needs a new process."""
+        now = clock()
+        for i, st in enumerate(self._slot):
+            if st is None:
+                continue
+            self._emit(results, st.req, self._partial(st), st.admit_s,
+                       now, "failed", first_s=st.first_token_s)
+        pf = self._pf
+        if pf is not None:
+            for i, r in enumerate(pf.reqs):
+                if i not in pf.dead:
+                    self._emit(results, r, np.zeros((0,), np.int32),
+                               now, now, "failed")
+        self._init_resident()
+
+    def health(self) -> Dict[str, object]:
+        """Liveness and degradation snapshot for a serving front door:
+        occupancy, watchdog timings, failure counters and the last error
+        recorded."""
+        pf = self._pf
+        return {
+            "resident": sum(s is not None for s in self._slot),
+            "queued": len(self.queue),
+            "reserved": len(self._reserved),
+            "chunking": 0 if pf is None else len(pf.reqs) - len(pf.dead),
+            "pool_free": self.pool.available() if self.paged else None,
+            "segments": self.stats["segments"],
+            "median_segment_s": self._watchdog.median_step_s,
+            "slow_segments": len(self._watchdog.slow_steps),
+            "watchdog_slow": self.stats["watchdog_slow"],
+            "dispatch_failures": self.stats["dispatch_failures"],
+            "proposer_failures": self.stats["proposer_failures"],
+            "spec_degraded": self._spec_degraded,
+            "failed": self.stats["failed"],
+            "shed": self.stats["shed"],
+            "cancelled": self.stats["cancelled"],
+            "timeout": self.stats["timeout"],
+            "last_error": self._last_error,
+        }
+
     # -- warmup / reset ------------------------------------------------------
 
     @torch.inference_mode()
-    def reset(self) -> None:
-        """Zero all slots, the queue and the stats; rebuild the resident
-        cache (and the page pool with its prefix registry, whose pages the
-        old cache held), dropping the decode graphs captured on the old
-        one: the next segment captures anew."""
+    def _init_resident(self) -> None:
+        """(Re)build the resident cache, the page pool (with its prefix
+        registry, whose pages the cache holds) and every per-slot host
+        mirror, dropping first the graphs captured on the old cache: the
+        next segment captures anew.  Shared by ``reset`` and
+        ``_scrub_all``."""
         if self.graphs is not None:
             self.graphs.clear()
-        self.stats = {"segments": 0, "decode_steps": 0, "useful_tokens": 0,
-                      "admitted": 0, "prefill_s": 0.0, "chunks": 0,
-                      "chunk_s": 0.0, "stall_s": 0.0, "segment_s": 0.0,
-                      "prefix_hits": 0, "prefix_tokens_reused": 0,
-                      "spec_rounds": 0, "spec_emitted": 0, "draft_s": 0.0,
-                      "accept_hist": [0] * (self.spec + 1),
-                      "proposer_failures": 0}
-        self._spec_degraded = False
-        self._spec_fail_streak = 0
-        self.last_proposer_error: Optional[str] = None
-        self._live: Set[int] = set()
-        self._enq_s: Dict[int, float] = {}
         self._cur_mode: Optional[str] = None
         self.pool = (PagePool(self.pool_pages, self._page_rows)
                      if self.paged else None)
@@ -981,7 +1317,34 @@ class ContinuousEngine:
         self._slot: List[Optional[_SlotState]] = [None] * self.slots
         self._reserved: Set[int] = set()
         self._pf: Optional[_PrefillGroup] = None
+        self._probe_prev.clear()
+
+    def reset(self) -> None:
+        """Zero all slots, the queue and the stats, and rebuild the
+        resident cache (``_init_resident``).  With telemetry, its metrics,
+        events and spans restart too; its compile log is kept."""
+        self.stats = {"segments": 0, "decode_steps": 0, "useful_tokens": 0,
+                      "admitted": 0, "prefill_s": 0.0, "chunks": 0,
+                      "chunk_s": 0.0, "stall_s": 0.0, "segment_s": 0.0,
+                      "prefix_hits": 0, "prefix_tokens_reused": 0,
+                      "spec_rounds": 0, "spec_emitted": 0, "draft_s": 0.0,
+                      "accept_hist": [0] * (self.spec + 1),
+                      "shed": 0, "cancelled": 0, "timeout": 0, "failed": 0,
+                      "dispatch_failures": 0, "proposer_failures": 0,
+                      "watchdog_slow": 0, "probe_steps": 0, "probe_s": 0.0}
+        self._spec_degraded = False
+        self._spec_fail_streak = 0
+        self.last_proposer_error: Optional[str] = None
+        self._last_error: Optional[str] = None
+        self._watchdog = StepWatchdog()
+        self._live: Set[int] = set()
+        self._enq_s: Dict[int, float] = {}
+        self._pending: List[RequestResult] = []
+        self._unfundable: Dict[int, int] = {}
+        self._init_resident()
         self.queue.clear()
+        if self.telemetry is not None:
+            self.telemetry.reset()
 
     def warmup(self, prompt_lens: Sequence[int]) -> None:
         """Run the admission and decode shapes of the prompt buckets
@@ -1015,10 +1378,10 @@ class ContinuousEngine:
         """The segment's masked decode step over the resident cache under
         ``mode`` (default the current segment mode, else the engine's):
         ``step(tok (B, 1), mask (B,)) -> logits (B, 1, V)``.  On the card
-        a replay of that mode's CUDA graph, captured on its first call
-        after a reset, perhaps with slots live (its warm-up steps have no
-        active row, so they change nothing); on the CPU the step run
-        eagerly."""
+        a replay of that mode's CUDA graph (program "segment"), captured
+        on its first call after a reset, perhaps with slots live (its
+        warm-up steps have no active row, so they change nothing); on the
+        CPU the step run eagerly."""
         e, caches = self.engine, self._caches
         flags = self._flags(mode or self._cur_mode or e.decode_flags.dsa_mode)
 
@@ -1027,10 +1390,13 @@ class ContinuousEngine:
                                active=mask)[0]
 
         if self.graphs is None:
-            return step
+            def eager(tok, mask):
+                self._note("segment", tok, mask, caches, flags)
+                return step(tok, mask)
+            return eager
         return self.graphs.step(
             step_key(self.cfg, flags, self.slots, self.paged), step,
-            caches, self.slots, masked=True)
+            caches, self.slots, masked=True, program="segment")
 
     # -- decode segments ----------------------------------------------------
 
@@ -1044,42 +1410,106 @@ class ContinuousEngine:
         mask row into the step's input and runs it (a graph replay on the
         card); each greedy slot takes the first maximum of the logits, each
         sampled slot draws from its own generator at its own temperature.
-        One host sync at the end collects the segment's tokens."""
+        Every step also folds the finiteness of each active row's logits
+        into ``fin`` on the device.  One host sync at the end collects the
+        segment's tokens and ``fin``: a slot whose logits went non-finite
+        fails with its pre-segment tokens, the others are untouched.
+
+        Faults (with an injector): ``nan_logits`` NaNs the target slot's
+        logits row after each step's forward (outside the graph, in this
+        segment only), ``dispatch`` skips the segment with nothing run,
+        ``slow_segment`` stalls inside the watchdog's window.  A segment
+        that raises is scrubbed (``_scrub_all``)."""
         remaining = np.asarray(
             [s.remaining if s else 0 for s in self._slot], np.int32)
+        mode = self._cur_mode or self.engine.decode_flags.dsa_mode
+        poison = None
+        inj = self.injector
+        if inj is not None:
+            inj.telemetry = self.telemetry
+            for i, st in enumerate(self._slot):
+                if st is not None and inj.take("nan_logits",
+                                               st.req.rid) is not None:
+                    if poison is None:
+                        poison = np.zeros((self.slots,), bool)
+                    poison[i] = True
+            if inj.take("dispatch") is not None:
+                # a transient dispatch failure: nothing runs, no state
+                # changes, and the serving loop retries next iteration
+                self.stats["dispatch_failures"] += 1
+                return
         act = (self._active[None, :]
                & (remaining[None, :] > np.arange(self.seg_len)[:, None]))
         sampled = [i for i in range(self.slots)
                    if self._slot[i] is not None and not self._greedy[i]]
         t0 = time.monotonic()
-        step = self._segment_step()
-        act_dev = torch.as_tensor(act, device=self.device)  # one upload
-        n_act = act.sum(axis=1)
-        tok = self._tok
-        outs = []
-        steps = 0
-        for t in range(self.seg_len):
-            if n_act[t] == 0:             # no slot decodes: skip the step
+        self._watchdog.start()
+        if inj is not None:
+            f = inj.take("slow_segment")
+            if f is not None:
+                time.sleep(f.delay_s)     # stall inside the watchdog window
+        try:
+            step = self._segment_step()
+            act_dev = torch.as_tensor(act, device=self.device)  # one upload
+            bad = (None if poison is None
+                   else torch.as_tensor(poison, device=self.device)[:, None])
+            n_act = act.sum(axis=1)
+            tok = self._tok
+            fin = torch.ones((self.slots,), dtype=torch.bool,
+                             device=self.device)
+            outs = []
+            steps = 0
+            for t in range(self.seg_len):
+                if n_act[t] == 0:         # no slot decodes: skip the step
+                    outs.append(tok)
+                    continue
+                lg = step(tok, act_dev[t])[:, -1]
+                if bad is not None:
+                    lg = torch.where(bad, float("nan"), lg)
+                fin &= ~act_dev[t] | torch.isfinite(lg).all(dim=-1)
+                steps += 1
+                nxt = lg.argmax(dim=-1, keepdim=True)
+                for i in sampled:
+                    if act[t, i]:
+                        nxt[i:i + 1] = _sample(lg[i:i + 1], self._gens[i],
+                                               False, self._temps[i])
+                tok = torch.where(act_dev[t][:, None], nxt, tok)
                 outs.append(tok)
-                continue
-            lg = step(tok, act_dev[t])[:, -1]
-            steps += 1
-            nxt = lg.argmax(dim=-1, keepdim=True)
-            for i in sampled:
-                if act[t, i]:
-                    nxt[i:i + 1] = _sample(lg[i:i + 1], self._gens[i], False,
-                                           self._temps[i])
-            tok = torch.where(act_dev[t][:, None], nxt, tok)
-            outs.append(tok)
-        toks = torch.cat(outs, dim=1).cpu().numpy()   # the segment's sync
+            # the segment's one sync: its tokens and each slot's fin
+            host = torch.cat(outs + [fin[:, None].long()], dim=1).cpu()
+        except Exception as e:            # a segment that raised: scrub
+            self._last_error = repr(e)
+            self.stats["dispatch_failures"] += 1
+            if self.telemetry is not None:
+                self.telemetry.on_error(repr(e))
+            self._scrub_all(clock, results)
+            return
+        toks = host[:, :-1].numpy()
+        fin = host[:, -1].numpy().astype(bool)
         self._tok = tok
         self._active = self._active & (remaining > self.seg_len)
         now = clock()
         self.stats["segments"] += 1
         self.stats["decode_steps"] += steps
-        self.stats["segment_s"] += time.monotonic() - t0
+        seg_wall = time.monotonic() - t0
+        self.stats["segment_s"] += seg_wall
+        slow = self._watchdog.stop(self.stats["segments"])
+        if slow:
+            self.stats["watchdog_slow"] += 1
+        ut0 = self.stats["useful_tokens"]
+        n_res = sum(s is not None for s in self._slot)
         for i, st in enumerate(self._slot):
             if st is None:
+                continue
+            if not fin[i]:
+                # a non-finite logits row: this slot's tokens are garbage
+                # from its first bad step on, so it fails with its
+                # pre-segment tokens; no other row read its logits
+                self._last_error = (f"request {st.req.rid}: non-finite "
+                                    f"logits row in decode segment")
+                self._emit(results, st.req, self._partial(st), st.admit_s,
+                           now, "failed", first_s=st.first_token_s)
+                self._retire_slot(i)
                 continue
             emitted = min(st.remaining, self.seg_len)
             st.collected.append(toks[i, :emitted].astype(np.int32))
@@ -1088,8 +1518,98 @@ class ContinuousEngine:
             self.stats["useful_tokens"] += emitted
             if st.remaining == 0:
                 self._emit(results, st.req, self._partial(st), st.admit_s,
-                           now, first_s=st.first_token_s)
+                           now, "ok", first_s=st.first_token_s)
                 self._retire_slot(i)
+        tel = self.telemetry
+        if tel is not None:
+            tel.on_segment(
+                "decode_segment", seg_wall, mode=mode, active=n_res,
+                tokens=self.stats["useful_tokens"] - ut0,
+                queued=len(self.queue),
+                resident=sum(s is not None for s in self._slot),
+                pool_free=(self.pool.available() if self.paged else None),
+                slow=slow)
+            if (tel.sample_every
+                    and self.stats["segments"] % tel.sample_every == 0):
+                self._sparsity_probe(mode)
+
+    # -- dynamic-sparsity sampling ------------------------------------------
+
+    @torch.inference_mode()
+    def _sparsity_probe(self, mode: str) -> None:
+        """Sample the DSA block selection of the resident state: one eager
+        decode step (program "probe", outside every graph) with
+        ``RunFlags.sel_probe`` set hands out each layer's (idx, ok, kv_len)
+        (logical block indices on a paged cache), and every cache row the
+        step wrote is put back as it was (``_probe_step``).  Records per
+        slot the keep rate, the churn of layer 0's selected blocks against
+        the previous sample of the same request, and the overlap between
+        adjacent layers' selections.  Its kernel launches (K4 or K1, one a
+        layer) are counted apart, in ``stats["probe_steps"]``."""
+        tel = self.telemetry
+        flags = self._flags(mode)
+        if not (flags.long_context and flags.dsa_mode in ("block", "kernel")
+                and self.cfg.dsa.enabled):
+            return                        # no block selection to sample
+        if not self._active.any():
+            return
+        t0 = time.monotonic()
+        mask = torch.as_tensor(self._active, device=self.device)
+        sel = self._probe_step(self._tok, mask, self._caches,
+                               dataclasses.replace(flags, sel_probe=True))
+        nl = len(sel)
+        host = torch.cat([torch.cat([i.long(), o.long()], dim=1)
+                          for i, o, _ in sel]
+                         + [sel[0][2].long()[:, None]], dim=1).cpu().numpy()
+        self.stats["probe_steps"] += 1
+        self.stats["probe_s"] += time.monotonic() - t0
+        kb = sel[0][0].shape[1]
+        idxs = [host[:, 2 * kb * li:2 * kb * li + kb] for li in range(nl)]
+        oks = [host[:, 2 * kb * li + kb:2 * kb * (li + 1)].astype(bool)
+               for li in range(nl)]
+        kvs = host[:, -1]
+        bk = self.cfg.dsa.block_k
+        samples = []
+        for b in range(self.slots):
+            st = self._slot[b]
+            if st is None or not self._active[b]:
+                continue
+            n_valid = max(1, -(-int(kvs[b]) // bk))
+            sets = [frozenset(idx[b][ok[b]].tolist())
+                    for idx, ok in zip(idxs, oks)]
+            keep = float(np.mean([min(1.0, len(x) / n_valid)
+                                  for x in sets]))
+            overlap = None
+            if len(sets) > 1:
+                js = [len(a & c) / max(len(a | c), 1)
+                      for a, c in zip(sets, sets[1:])]
+                overlap = float(np.mean(js))
+            churn = None
+            prev = self._probe_prev.get(b)
+            if prev is not None and prev[0] == st.req.rid and sets[0]:
+                u = len(sets[0] | prev[1])
+                churn = 1.0 - len(sets[0] & prev[1]) / max(u, 1)
+            self._probe_prev[b] = (st.req.rid, sets[0])
+            samples.append((b, st.req.rid, keep, churn, overlap))
+        tel.on_sparsity_sample(self.stats["segments"], samples)
+
+    def _probe_step(self, tok, mask, caches, flags) -> List[tuple]:
+        """The probe program: one decode step with ``flags.sel_probe``,
+        returning each layer's (idx, ok, kv_len).  The step writes
+        ``caches`` in place (each writing row's K/V/kt row and their
+        scales at its position, its ktb block or page, and ``pos``), so
+        those entries are saved first and put back after: the resident
+        cache ends bitwise as it was, at the cost of a few rows a layer
+        (cloning the cache would cost gigabytes at full width)."""
+        self._note("probe", tok, mask, caches, flags)
+        bk = self.cfg.dsa.block_k
+        saved = [_save_step_rows(lc, bk) for lc in _layers(caches)]
+        try:
+            return decode_step(self.engine.params, self.cfg, flags, tok,
+                               caches, active=mask)[2]
+        finally:
+            for lc, sv in zip(_layers(caches), saved):
+                _restore_step_rows(lc, sv)
 
     # -- speculative segments ------------------------------------------------
 
@@ -1115,10 +1635,13 @@ class ContinuousEngine:
         leaves drafting out, so the chunk-burst tuner reads device-bound
         time.  A proposer that raises ends the segment; three failures in
         a row degrade the engine to plain segments, and a failure before
-        any round runs a plain segment in its place."""
+        any round runs a plain segment in its place (the injector's
+        ``proposer`` point raises in its place)."""
         verify, commit = self._spec_steps()
         t0 = time.monotonic()
+        self._watchdog.start()
         draft_s0 = self.stats["draft_s"]
+        ut0 = self.stats["useful_tokens"]
         rounds_run = 0
         for _ in range(self.spec_rounds):
             if not any(st is not None for st in self._slot):
@@ -1127,9 +1650,13 @@ class ContinuousEngine:
                     else np.zeros((1,), np.int32) for st in self._slot]
             td = time.monotonic()
             try:
+                if self.injector is not None:
+                    self.injector.telemetry = self.telemetry
+                    if self.injector.take("proposer") is not None:
+                        raise FaultError("injected proposer fault")
                 drafts = self.draft.propose(ctxs, self.spec)
             except Exception as e:      # a proposer costs speed, never work
-                self.last_proposer_error = repr(e)
+                self.last_proposer_error = self._last_error = repr(e)
                 self.stats["draft_s"] += time.monotonic() - td
                 self.stats["proposer_failures"] += 1
                 self._spec_fail_streak += 1
@@ -1158,12 +1685,26 @@ class ContinuousEngine:
                 self.stats["accept_hist"][e - 1] += 1
                 if st.remaining == 0:
                     self._emit(results, st.req, self._partial(st),
-                               st.admit_s, now, first_s=st.first_token_s)
+                               st.admit_s, now, "ok",
+                               first_s=st.first_token_s)
                     self._retire_slot(i)
         if rounds_run:
             self.stats["segments"] += 1
-            self.stats["segment_s"] += ((time.monotonic() - t0)
-                                        - (self.stats["draft_s"] - draft_s0))
+            seg_dev = ((time.monotonic() - t0)
+                       - (self.stats["draft_s"] - draft_s0))
+            self.stats["segment_s"] += seg_dev
+            slow = self._watchdog.stop(self.stats["segments"])
+            if slow:
+                self.stats["watchdog_slow"] += 1
+            if self.telemetry is not None:
+                self.telemetry.on_segment(
+                    "spec_segment", seg_dev,
+                    mode=self._cur_mode or self.engine.decode_flags.dsa_mode,
+                    active=sum(s is not None for s in self._slot),
+                    tokens=self.stats["useful_tokens"] - ut0,
+                    queued=len(self.queue),
+                    resident=sum(s is not None for s in self._slot),
+                    slow=slow, rounds=rounds_run)
         elif any(s is not None for s in self._slot):
             self.run_segment(clock, results)
 
@@ -1193,6 +1734,8 @@ class ContinuousEngine:
             self.step_prefill(clock, results)
             if any(s is not None for s in self._slot):
                 self._step_decode(clock, results)
+        results.extend(self._pending)     # e.g. everything shed up front
+        self._pending.clear()
         return {r.rid: r.tokens for r in results}
 
     def serve(self, workload: Sequence[Request]) -> List[RequestResult]:
@@ -1215,6 +1758,13 @@ class ContinuousEngine:
                 self._step_decode(clock, results)
             elif self._pf is None and not self.queue and i < len(items):
                 time.sleep(max(0.0, min(items[i].arrival_s - now, 0.05)))
+            elif self._pf is None and self.queue and self._unfundable:
+                # an anchor the pool cannot fund and nothing else to do:
+                # bounded exponential backoff instead of a busy spin
+                n = max(self._unfundable.values())
+                time.sleep(min(0.001 * (1 << min(n, 6)), 0.05))
+        results.extend(self._pending)
+        self._pending.clear()
         return sorted(results, key=lambda r: r.rid)
 
 

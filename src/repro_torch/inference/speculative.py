@@ -45,7 +45,10 @@ continuous engine's slots do.  Greedy rows draw nothing.
 
 On the card the verify forward and the commit are each one CUDA graph
 replay (``inference/graphs.py``); acceptance runs eagerly between them,
-and each round syncs once, to hand the tokens to the proposer.
+and each round syncs once, to hand the tokens to the proposer.  With
+telemetry on, the two are the programs ``verify`` and ``commit`` of
+``Engine.spec_steps``: each new signature (on the CPU) or capture (on
+the card) is a compile event.
 Sharding is not ported (the reference's ``shard`` calls are dropped).
 """
 from __future__ import annotations

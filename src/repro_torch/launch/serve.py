@@ -30,6 +30,22 @@ such a request waits for the engine to switch modes:
         --max-mode-wait 0.5 --requests 6 --slots 2 --prompt-len 64 \
         --new-tokens 8 --device cpu
 
+The request lifecycle: ``--deadline`` gives every request a latency
+budget (status ``timeout`` past it), ``--queue-cap`` bounds the admission
+queue and ``--shed-policy`` picks whom to shed (status ``shed``); the
+run prints the dropped statuses and the SLO attainment.  Telemetry:
+``--trace-out`` writes a Chrome trace-event JSON timeline (Perfetto,
+chrome://tracing), ``--metrics-out`` a Prometheus text snapshot, and
+``--telemetry-sample N`` samples the DSA block selection once per N
+segments (each flag turns telemetry on; the sample defaults to 16):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b \
+        --reduced --continuous --paged --dsa --dsa-mode kernel \
+        --requests 6 --slots 2 --prompt-len 64 --new-tokens 8 \
+        --deadline 30 --queue-cap 4 --shed-policy oldest \
+        --trace-out /tmp/trace.json --metrics-out /tmp/metrics.prom \
+        --telemetry-sample 1 --device cpu
+
 ``--kv-quant int8|fp8`` stores the K/V caches narrow with per-row scales
 (the quantized kernels K1q, K3q, K4q) and ``--select-dtype int8`` (with
 ``--dsa``) the DSA selection caches; the run prints the resident cache's
@@ -98,6 +114,7 @@ from repro_torch.inference.engine import Engine
 from repro_torch.inference.scheduler import (ContinuousEngine, summarize,
                                              synthetic_workload)
 from repro_torch.inference.speculative import can_speculate
+from repro_torch.inference.telemetry import Telemetry
 from repro_torch.kernels.dsa_attention import dsa_block_sparse_attention
 from repro_torch.kernels.dsa_chunk_prefill import (
     dsa_chunk_gather_attention, dsa_chunk_paged_gather_attention)
@@ -157,6 +174,8 @@ def _serve_continuous(cfg, args, params, config, device):
     before = launch_counts()
     graphs = graph_counts(eng.graphs)
     results = eng.serve(workload)
+    # an all-shed or all-failed run completes no request: the wall clock
+    # defaults to 0 and the lifecycle line still says what happened
     wall = max((r.finish_s for r in results), default=0.0)
     s = summarize(results, wall)
     captures, replays = (b - a for a, b in zip(graphs,
@@ -186,6 +205,31 @@ def _serve_continuous(cfg, args, params, config, device):
             f"tokens, accept hist {st['accept_hist']}, drafting "
             f"{st['draft_s']:.3f} s, proposer failures "
             f"{st['proposer_failures']}")
+    dropped = [f"{s[k]} {k[2:]}" for k in ("n_timeout", "n_cancelled",
+                                           "n_failed", "n_shed") if s[k]]
+    if dropped or args.deadline is not None or not s["n_ok"]:
+        slo = (f", SLO attainment {s['slo_attainment']:.0%}"
+               if args.deadline is not None else "")
+        print(f"lifecycle : {s['n_ok']} ok"
+              + "".join(f", {d}" for d in dropped) + slo)
+    tel = eng.telemetry
+    if tel is not None:
+        if args.trace_out:
+            tel.write_chrome_trace(args.trace_out)
+            print(f"telemetry : {len(tel.events)} trace events -> "
+                  f"{args.trace_out} (load in Perfetto / chrome://tracing)")
+        if args.metrics_out:
+            tel.write_prometheus(args.metrics_out)
+            print(f"telemetry : Prometheus snapshot -> {args.metrics_out}")
+        progs = sorted({p for p, _, _ in tel.compiles})
+        print("compiles  : " + ", ".join(
+            f"{p}={tel.compile_count(p)}" for p in progs))
+        kr = tel.metrics.value("serving_dsa_keep_rate")
+        if isinstance(kr, tuple) and kr[0]:   # plain 0.0: no probe ran
+            print(f"sparsity  : {kr[0]} DSA selection samples, "
+                  f"mean keep-rate {kr[1]:.2f} "
+                  f"({eng.stats['probe_steps']} probe steps, "
+                  f"{eng.stats['probe_s'] * 1e3:.1f} ms)")
     return results, eng
 
 
@@ -239,6 +283,27 @@ def main(argv=None):
     ap.add_argument("--kv-quant", default=None, choices=["int8", "fp8"],
                     help="quantized K/V cache storage dtype with per-row "
                          "scales, dequantized on gather (default: off)")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="per-request latency budget in seconds "
+                         "(--continuous): requests retire with status "
+                         "'timeout' past it (default: no deadlines)")
+    ap.add_argument("--queue-cap", type=int, default=0,
+                    help="bounded admission queue for --continuous "
+                         "(0 = unbounded); overflow sheds per "
+                         "--shed-policy with status 'shed'")
+    ap.add_argument("--shed-policy", default="reject",
+                    choices=["reject", "oldest", "lowest-priority"],
+                    help="whom to shed when the queue is at --queue-cap")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome trace-event JSON timeline of the "
+                         "--continuous run here (enables telemetry)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write a Prometheus text-format metrics snapshot "
+                         "of the --continuous run here (enables telemetry)")
+    ap.add_argument("--telemetry-sample", type=int, default=0,
+                    help="sample the DSA block selection once per N decode "
+                         "segments (> 0 enables telemetry; default 0 = "
+                         "off, or 16 when another telemetry flag is on)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     ap.add_argument("--seed", type=int, default=0)
@@ -255,6 +320,9 @@ def main(argv=None):
         page = cache_page_size(cfg, RunFlags(mode="decode",
                                              long_context=dsa_on))
         max_len = -(-max_len // page) * page
+    tel = None
+    if args.trace_out or args.metrics_out or args.telemetry_sample:
+        tel = Telemetry(sample_every=args.telemetry_sample or 16)
     config = ServingConfig(max_len=max_len, long_context=dsa_on,
                            dsa_mode=args.dsa_mode if dsa_on else "off",
                            select_dtype=(args.select_dtype if dsa_on
@@ -265,7 +333,9 @@ def main(argv=None):
                            chunk_tokens=args.chunk_tokens, paged=args.paged,
                            pool_pages=args.pool_pages or None,
                            max_mode_wait_s=args.max_mode_wait,
-                           spec=args.spec)
+                           spec=args.spec, deadline_s=args.deadline,
+                           queue_cap=args.queue_cap or None,
+                           shed_policy=args.shed_policy, telemetry=tel)
     if args.continuous:
         return _serve_continuous(cfg, args, params, config, device)
     eng = Engine(cfg, params, config=config, device=device)

@@ -10,14 +10,16 @@ slices of the batch, with AdamW on a warmup-cosine schedule
 (``repro_torch.optim.adamw``).  ``--dsa-mode auto`` trains the DSA archs
 on the block path; ``faithful`` and ``off`` train too, and ``kernel``
 raises as the reference does (no kernel has a backward).  RWKV6 does not
-train yet (ROADMAP Queue 1, item 1).
+train yet (ROADMAP Queue 1, "Checkpoints, then what is left of
+training").
 
 It prints the reference's step lines (every ``--log-interval`` steps and
 the last), its ``[done]`` line and, on the card, the median step time,
 tokens/s and the peak memory.  Full-width archs recompute each layer in
 the backward pass (``ArchConfig.remat``); ``--reduced`` ones do not.
 Sharded training (``--mesh`` other than ``host``) and checkpoints
-(``--ckpt-dir``, ``--resume``) are not ported (ROADMAP Queue 1, item 7).
+(``--ckpt-dir``, ``--resume``) are not ported (ROADMAP Queue 1,
+"Distribution" and "Checkpoints, then what is left of training").
 """
 from __future__ import annotations
 
@@ -70,11 +72,11 @@ def main(argv=None) -> TrainResult:
     if args.mesh != "host":
         raise NotImplementedError(
             f"--mesh {args.mesh}: sharded training is not ported (ROADMAP "
-            f"Queue 1, item 7)")
+            f"Queue 1, \"Distribution\")")
     if args.ckpt_dir or args.resume:
         raise NotImplementedError(
             "--ckpt-dir/--resume: checkpoints are not ported (ROADMAP Queue "
-            "1, item 7)")
+            "1, \"Checkpoints, then what is left of training\")")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:

@@ -128,6 +128,11 @@ class RunFlags:
     # speculative decoding: the chunk-append path verifies a draft chunk,
     # each row with the decode step's own numerics (_apply_verify)
     spec_verify: bool = False
+    # observability (inference/telemetry.py): a block-path decode step
+    # hands its selection (idx, ok, kv_len) out through the aux output,
+    # under "sel" (logical block indices on a paged cache).  Only the
+    # telemetry probe's eager step sets it, never a captured one
+    sel_probe: bool = False
 
 
 def dsa_active(cfg: ArchConfig, flags: RunFlags) -> bool:
@@ -273,21 +278,26 @@ def apply_attention(params, cfg: ArchConfig, flags: RunFlags, x, *,
     per row, rows past chunk_len are padding) with ``sel_len`` its
     selection geometry, or with ``flags.spec_verify`` to the speculative
     verify of a whole C-token chunk (``_apply_verify``).  ``aux`` holds
-    the MSE term in train mode (with ``flags.with_mse`` and DSA on) and
-    is empty otherwise."""
+    the MSE term in train mode (with ``flags.with_mse`` and DSA on); with
+    ``flags.sel_probe``, a one-token decode step's block selection
+    (``"sel"``: a list of one (idx, ok, kv_len)); it is empty otherwise."""
     if flags.mode == "decode":
+        sel = None
         if "page_tbl" in cache:
             if chunk_len is not None:
                 raise ValueError("paged caches decode one token at a time")
-            out = _apply_paged_decode(params, cfg, flags, x, cache, active)
+            y, cache, sel = _apply_paged_decode(params, cfg, flags, x, cache,
+                                                active)
         elif chunk_len is not None and flags.spec_verify:
-            out = _apply_verify(params, cfg, flags, x, cache, active)
+            y, cache = _apply_verify(params, cfg, flags, x, cache, active)
         elif chunk_len is not None:
-            out = _apply_chunk(params, cfg, flags, x, cache, active,
-                               chunk_len, sel_len)
+            y, cache = _apply_chunk(params, cfg, flags, x, cache, active,
+                                    chunk_len, sel_len)
         else:
-            out = _apply_decode(params, cfg, flags, x, cache, active)
-        return (*out, {})
+            y, cache, sel = _apply_decode(params, cfg, flags, x, cache,
+                                          active)
+        return y, cache, ({"sel": [sel]} if flags.sel_probe
+                          and sel is not None else {})
     dsa = cfg.dsa
     aux: Dict[str, torch.Tensor] = {}
     q, k, v = _proj_qkv(params, cfg, x)
@@ -511,7 +521,9 @@ def _apply_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache,
                   active: Optional[Active] = None):
     """Single-token decode: every batch row at its own ``pos``.  With
     ``active`` given, only its rows land their writes and advance ``pos``;
-    the others attend with kv_len = 0."""
+    the others attend with kv_len = 0.  Returns (out, cache, sel): ``sel``
+    the block selection (idx, ok, kv_len) on the DSA block and kernel
+    paths, else None."""
     b = x.shape[0]
     pos = cache["pos"].long()                              # (B,)
     q, k, v = _proj_qkv(params, cfg, x)
@@ -528,9 +540,10 @@ def _apply_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache,
     for leaf, val in _kv_rows(cache, k[:, 0], v[:, 0],
                               flags.kv_quant).items():
         _put_step_rows(cache[leaf], slot, val, active)
+    sel = None
     if "kt" in cache:
-        out = _dsa_decode(params, cfg, flags, x, q, cache, slot, kv_len,
-                          active)
+        out, sel = _dsa_decode(params, cfg, flags, x, q, cache, slot, kv_len,
+                               active)
     else:
         # a ring of s <= swa_window rows holds one window by construction;
         # the slot-positional window mask is for larger caches, pre-wrap
@@ -538,7 +551,7 @@ def _apply_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache,
         out = A.decode_attention(q, *_kv_views(cache), kv_len=kv_len,
                                  window=win if win and s > win else 0)
     out = mm(out.reshape(b, 1, -1), params["wo"])
-    return out, cache
+    return out, cache, sel
 
 
 def _decode_select(cfg: ArchConfig, q_t, ktb_view, ktb_s_view, kv_len,
@@ -597,7 +610,8 @@ def _dsa_decode(params, cfg: ArchConfig, flags: RunFlags, x, q, cache,
     """DSA long-context decode step: update kt (and, on the block paths,
     ktb) in place at each writing row's ``slot``, select cache rows or
     blocks from predicted scores, gather + attend.  Returns the attention
-    output (B, 1, Hq, hd)."""
+    output (B, 1, Hq, hd) and the block selection (idx, ok, kv_len), None
+    off the block paths."""
     dsa = cfg.dsa
     kc, vc = cache["k"], cache["v"]
     s = kc.shape[1]
@@ -606,10 +620,10 @@ def _dsa_decode(params, cfg: ArchConfig, flags: RunFlags, x, q, cache,
     for leaf, val in _quant_rows(cache, "kt", kt, "int8").items():
         _put_step_rows(cache[leaf], slot, val, active)
     if flags.dsa_mode == "off":
-        return A.decode_attention(q, *_kv_views(cache), kv_len=kv_len)
+        return A.decode_attention(q, *_kv_views(cache), kv_len=kv_len), None
     if flags.dsa_mode == "faithful":
         return _faithful_decode(cfg, q, q_t, cache["kt"], cache.get("kt_s"),
-                                _kv_views(cache), kv_len, s)
+                                _kv_views(cache), kv_len, s), None
     bkd = dsa.block_k
     # the slot being written is still zero (only a surplus step of a
     # bucketed step count can wrap, and its token is dropped; a
@@ -621,10 +635,12 @@ def _dsa_decode(params, cfg: ArchConfig, flags: RunFlags, x, q, cache,
                              kv_len, s)
     scales = dict(k_scale=cache.get("k_s"), v_scale=cache.get("v_s"))
     if flags.dsa_mode == "kernel":
-        return ops.dsa_decode(q, kc, vc, idx, ok, kv_len, block_k=bkd,
-                              **scales)
-    return A.dsa_decode_block_attention(q, kc, vc, idx, ok, block_k=bkd,
-                                        kv_len=kv_len, **scales)
+        out = ops.dsa_decode(q, kc, vc, idx, ok, kv_len, block_k=bkd,
+                             **scales)
+    else:
+        out = A.dsa_decode_block_attention(q, kc, vc, idx, ok, block_k=bkd,
+                                           kv_len=kv_len, **scales)
+    return out, (idx, ok, kv_len)
 
 
 # -- paged decode (page-table indirection over a shared page pool) ---------
@@ -645,7 +661,8 @@ def _apply_paged_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache,
     through ``page_tbl`` to a pool row; an inactive row, or a slot whose
     block is unmapped (page 0), writes nothing.  Off-mode and dense decode
     gather the logical view; block/kernel DSA decode translate the
-    selected logical blocks to pages after top-k and gather those."""
+    selected logical blocks to pages after top-k and gather those.
+    Returns (out, cache, sel), as ``_apply_decode``."""
     b = x.shape[0]
     pos = cache["pos"].long()                              # (B,)
     q, k, v = _proj_qkv(params, cfg, x)
@@ -670,13 +687,14 @@ def _apply_paged_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache,
                               flags.kv_quant).items():
         _pool_write(cache[leaf], flat, val, okw)
     view = _paged_view_rows(tbl, bk)                       # (B, S)
+    sel = None
     if "kt" in cache:
-        out = _dsa_paged_decode(params, cfg, flags, x, q, cache, flat, okw,
-                                pg, kv_len, view)
+        out, sel = _dsa_paged_decode(params, cfg, flags, x, q, cache, flat,
+                                     okw, pg, kv_len, view)
     else:
         out = A.decode_attention(q, *_kv_views(cache, view), kv_len=kv_len)
     out = mm(out.reshape(b, 1, -1), params["wo"])
-    return out, cache
+    return out, cache, sel
 
 
 def _dsa_paged_decode(params, cfg: ArchConfig, flags: RunFlags, x, q, cache,
@@ -685,7 +703,9 @@ def _dsa_paged_decode(params, cfg: ArchConfig, flags: RunFlags, x, q, cache,
     pool row; ktb has one row per page, so the row a write adds to IS the
     write's page.  Block selection scores the logical ktb view
     ``ktb[tbl]`` and the selected logical blocks become pages only for
-    the gather; faithful selection scores the logical kt view."""
+    the gather (the selection handed out keeps the logical indices,
+    comparable across steps whatever pages back them); faithful selection
+    scores the logical kt view."""
     dsa = cfg.dsa
     bk = dsa.block_k
     kc, vc = cache["k"], cache["v"]
@@ -693,13 +713,14 @@ def _dsa_paged_decode(params, cfg: ArchConfig, flags: RunFlags, x, q, cache,
     for leaf, val in _quant_rows(cache, "kt", k_t[:, 0], "int8").items():
         _pool_write(cache[leaf], flat, val, okw)
     if flags.dsa_mode == "off":
-        return A.decode_attention(q, *_kv_views(cache, view), kv_len=kv_len)
+        return A.decode_attention(q, *_kv_views(cache, view),
+                                  kv_len=kv_len), None
     if flags.dsa_mode == "faithful":
         kt_s = cache.get("kt_s")
         return _faithful_decode(cfg, q, q_t, cache["kt"][view],
                                 None if kt_s is None else kt_s[view],
                                 _kv_views(cache, view), kv_len,
-                                view.shape[1])
+                                view.shape[1]), None
     # a write that does not land adds zero to the zero page's row: every
     # such entry stores 0 + 0 there, and the real targets (the slots'
     # own pages) are distinct, so no accumulating index_put is needed.
@@ -722,11 +743,13 @@ def _dsa_paged_decode(params, cfg: ArchConfig, flags: RunFlags, x, q, cache,
     pidx = torch.gather(tbl, 1, idx.long()).to(torch.int32)
     scales = dict(k_scale=cache.get("k_s"), v_scale=cache.get("v_s"))
     if flags.dsa_mode == "kernel":
-        return ops.dsa_decode_paged(q, kc, vc, idx, pidx, ok, kv_len,
-                                    block_k=bk, **scales)
-    return A.dsa_decode_paged_block_attention(q, kc, vc, idx, pidx, ok,
-                                              block_k=bk, kv_len=kv_len,
-                                              **scales)
+        out = ops.dsa_decode_paged(q, kc, vc, idx, pidx, ok, kv_len,
+                                   block_k=bk, **scales)
+    else:
+        out = A.dsa_decode_paged_block_attention(q, kc, vc, idx, pidx, ok,
+                                                 block_k=bk, kv_len=kv_len,
+                                                 **scales)
+    return out, (idx, ok, kv_len)
 
 
 # -- chunk-append path (chunked admission) ----------------------------------

@@ -123,7 +123,7 @@ def init_group(gen: torch.Generator, cfg: ArchConfig, *, device,
 def apply_group(params, cfg: ArchConfig, flags: RunFlags, defs, x,
                 cache=None, **step):
     """Returns (x, cache, aux), each aux term summed over the group's
-    sub-blocks."""
+    sub-blocks (a list, as the probe's ``"sel"``, concatenated)."""
     auxes: Dict[str, torch.Tensor] = {}
     for i, d in enumerate(defs):
         x, _, a = apply_subblock(params[f"b{i}"], cfg, flags, d, x,

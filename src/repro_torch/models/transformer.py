@@ -5,7 +5,7 @@ Public API:
   forward(params, cfg, flags, tokens, caches) -> (logits, caches)
   forward_train(params, cfg, flags, tokens)   -> (logits, aux)
   decode_step(params, cfg, flags, tokens, caches, active=None)
-                                              -> (logits, caches)
+                                              -> (logits, caches[, sel])
   chunk_step(params, cfg, flags, tokens, caches, chunk_len, active=None,
              sel_len=None)                    -> (logits, caches)
   verify_step(params, cfg, flags, tokens, caches, active=None,
@@ -75,15 +75,19 @@ def init_model(seed: int, cfg: ArchConfig, *, device=None) -> Dict[str, Any]:
 
 def forward(params, cfg: ArchConfig, flags: RunFlags, tokens: torch.Tensor,
             caches=None, **step):
-    """tokens: (B, S) int.  Returns (logits (B, S, V), caches).  ``step``:
-    the decode-time ``active``, ``chunk_len`` and ``sel_len`` (see
-    ``decode_step`` and ``chunk_step``)."""
+    """tokens: (B, S) int.  Returns (logits (B, S, V), caches), and with
+    ``flags.sel_probe`` the selection list of ``decode_step`` third.
+    ``step``: the decode-time ``active``, ``chunk_len`` and ``sel_len``
+    (see ``decode_step`` and ``chunk_step``)."""
     x = params["embed"][tokens.long()].to(DTYPES[cfg.dtype])
     defs = B.group_defs(cfg)
+    sel: List[tuple] = []
     for i, gp in enumerate(params["groups"]):
         c = None if caches is None else caches["groups"][i]
-        x, _, _ = B.apply_group(gp, cfg, flags, defs, x, cache=c, **step)
-    return _head(params, cfg, x), caches
+        x, _, aux = B.apply_group(gp, cfg, flags, defs, x, cache=c, **step)
+        sel += aux.get("sel", [])
+    logits = _head(params, cfg, x)
+    return (logits, caches, sel) if flags.sel_probe else (logits, caches)
 
 
 def _head(params, cfg: ArchConfig, x):
@@ -145,7 +149,12 @@ def decode_step(params, cfg: ArchConfig, flags: RunFlags, tokens, caches,
     (fixed shapes, no host sync: the form a CUDA graph captures), or a
     ``models.attention.Active`` that may also hold the indices of its
     rows.  An inactive row lands no write, keeps its ``pos`` and attends
-    nothing (its logits are garbage and must be ignored)."""
+    nothing (its logits are garbage and must be ignored).
+
+    With ``flags.sel_probe`` it returns (logits, caches, sel): ``sel``
+    lists each DSA layer's block selection (idx, ok, kv_len) in layer
+    order, on the block and kernel paths (logical block indices on a
+    paged cache)."""
     if flags.mode != "decode":
         raise ValueError("decode_step needs RunFlags(mode='decode')")
     return forward(params, cfg, flags, tokens, caches,

@@ -10,7 +10,11 @@ engine (a hit's tokens equal the undeclared run's, mixed-mode graphed
 segments equal eager ones, a mid-run capture leaves the cache as it was);
 and speculative decoding (a graphed verify and commit equal eager ones
 bit for bit, a mid-run capture of them leaves the cache as it was, the
-commit's ktb replay equals sequential K1-path decode's).
+commit's ktb replay equals sequential K1-path decode's); and the request
+lifecycle on graphed segments (a NaN row fails only its slot, a segment
+that raises is scrubbed and its graph captured again, the sparsity
+probe's K4 step leaves every cache leaf as it found it, and each capture
+is a compile event).
 
 Needs a CUDA card and the CUDA toolkit; skips without a card.  Imports
 neither JAX nor the reference, so it runs where only PyTorch is installed:
@@ -1400,3 +1404,122 @@ def test_cuda_commit_replays_the_decode_ktb(cuda_device, kv):
         for name in ("ktb", "ktb_s"):
             if name in a:
                 assert torch.equal(a[name], b[name]), name
+
+
+# -- request lifecycle, faults and telemetry on graphed segments -------------
+
+
+def _lifecycle_engine(dev, **kw):
+    from repro_torch.inference.scheduler import ContinuousEngine
+    cfg, params = _model("yi_6b", dev)
+    return cfg, ContinuousEngine(cfg, params, slots=2, seg_len=4,
+                                 paged=True, max_len=GRAPH_MAX_LEN,
+                                 **DSA_KW, **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_nan_row_fails_only_its_slot_on_graphs(cuda_device):
+    """The poison lands on a graph replay's logits outside the graph:
+    the target slot fails with a prefix of its clean tokens and the
+    co-resident slot's tokens are bitwise the clean run's."""
+    from repro_torch.inference.faults import Fault, FaultInjector
+    cfg, eng = _lifecycle_engine(cuda_device)
+    reqs = _requests(cfg.vocab)[:3]
+    base = eng.run(reqs)
+    eng.reset()
+    inj = FaultInjector(Fault("nan_logits", rid=1, after=1))
+    eng.injector = inj
+    got = eng.run(_requests(cfg.vocab)[:3])
+    eng.injector = None
+    assert inj.fired == [("nan_logits", 1)] and eng.stats["failed"] == 1
+    assert 0 < len(got[1]) < len(base[1])
+    assert (got[1] == base[1][:len(got[1])]).all()
+    for rid in (0, 2):
+        assert (got[rid] == base[rid]).all(), rid
+
+
+@pytest.mark.cuda
+def test_cuda_scrub_drops_and_recaptures_the_segment_graph(cuda_device):
+    """A segment that raises fails the in-flight requests, drops the
+    graph captured on the old cache (its replays would write freed
+    memory), rebuilds the cache and pool, and the next segment captures
+    anew: the next request gets its clean tokens and the pool is full."""
+    from repro_torch.inference.telemetry import Telemetry
+    tel = Telemetry(sample_every=0)
+    cfg, eng = _lifecycle_engine(cuda_device, telemetry=tel)
+    reqs = _requests(cfg.vocab)[:3]
+    clean = eng.run(reqs)
+    assert eng.graphs.captures == 1 and tel.compile_count("segment") == 1
+    eng.reset()
+    orig, state = eng._segment_step, {"raised": False}
+
+    def boom(mode=None):
+        step = orig(mode)
+        if not state["raised"]:
+            state["raised"] = True
+            raise RuntimeError("injected segment failure")
+        return step
+
+    eng._segment_step = boom
+    old = eng._caches
+    sink, clock = [], lambda: 0.0
+    try:
+        # rid 0 and 1 fall in two prompt buckets: rid 0 is resident when
+        # the segment raises, rid 1 still queued
+        for r in _requests(cfg.vocab)[:2]:
+            eng.submit(r)
+        while eng.has_work():
+            eng.admit_ready(clock, sink)
+            eng.step_prefill(clock, sink)
+            if any(x is not None for x in eng._slot):
+                eng._step_decode(clock, sink)
+    finally:
+        del eng._segment_step
+    by = {r.rid: r for r in sink}
+    assert eng._caches is not old
+    assert by[0].status == "failed" and len(by[0].tokens) == 1
+    assert by[0].tokens[0] == clean[0][0]
+    assert by[1].status == "ok" and (by[1].tokens == clean[1]).all()
+    # captured before the reset, then before the raise, then after it
+    assert eng.graphs.captures == 3
+    assert eng.pool.available() == eng.pool_pages - 1
+    assert tel.compile_count("segment") == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["f32", "int8"])
+def test_cuda_probe_restores_the_resident_cache(cuda_device, kv):
+    """The sparsity probe's eager step (K4 or K4q once a layer, counted
+    apart) writes the paged resident cache in place; every leaf is
+    bitwise what it was after it, and the tokens are those of an engine
+    that never probed."""
+    from repro_torch.inference.telemetry import Telemetry
+    tel = Telemetry(sample_every=1)
+    cfg, eng = _lifecycle_engine(cuda_device, telemetry=tel,
+                                 **QUANT_KW[kv])
+    _, plain = _lifecycle_engine(cuda_device, **QUANT_KW[kv])
+    want = plain.run(_requests(cfg.vocab))
+    for r in _requests(cfg.vocab)[:2]:
+        eng.submit(r)
+    sink, clock = [], lambda: 0.0
+    while not all(x is not None for x in eng._slot):
+        eng.admit_ready(clock, sink)
+        eng.step_prefill(clock, sink)
+    def leaves():
+        return [t for d in _attn_leaves(eng._caches)
+                for _, t in sorted(d.items())]
+
+    before = [t.clone() for t in leaves()]
+    fn, attr = _decode_count(kv, paged=True)
+    n0 = getattr(fn, attr)
+    eng._sparsity_probe("kernel")
+    torch.cuda.synchronize()
+    assert getattr(fn, attr) - n0 == cfg.n_layers
+    assert eng.stats["probe_steps"] == 1
+    for a, b in zip(before, leaves()):
+        assert torch.equal(a, b)
+    eng.reset()
+    got = eng.run(_requests(cfg.vocab))
+    for rid, toks in want.items():
+        assert (got[rid] == toks).all(), rid
+    assert eng.stats["probe_steps"] > 0

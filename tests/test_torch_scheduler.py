@@ -265,8 +265,9 @@ def test_submit_validates_and_refuses_unported_options():
         eng.submit(TS.Request(0, prompt, 2, temperature=0.0))
     with pytest.raises(ValueError, match="prefix_len"):
         eng.submit(TS.Request(0, prompt, 2, prefix_len=11))
-    with pytest.raises(NotImplementedError, match="deadline"):
-        eng.submit(TS.Request(0, prompt, 2, deadline_s=1.0))
+    # deadlines are ported: a request may carry one
+    eng.submit(TS.Request(5, prompt, 2, deadline_s=1.0))
+    assert eng.cancel(5) and eng._pending[-1].status == "cancelled"
     # a mode override needs the DSA caches of a long_context engine
     with pytest.raises(ValueError, match="dsa_mode"):
         _engine("stablelm_3b").submit(TS.Request(0, prompt, 2,
@@ -276,13 +277,23 @@ def test_submit_validates_and_refuses_unported_options():
         eng.submit(TS.Request(0, prompt, 2))
     with pytest.raises(ValueError, match="dsa_mode"):
         TS.Request(1, prompt, 2, dsa_mode="dense")
-    with pytest.raises(NotImplementedError, match="lifecycle"):
-        eng.cancel(0)
+    assert eng.cancel(0) and not eng.cancel(0)
+    assert not eng.cancel(99)
     _, _, tc, tparams = _params("yi_6b")
-    for field in ("deadline_s", "shed_policy", "queue_cap", "telemetry",
-                  "mesh"):
+    # the lifecycle fields are ported and validated; meshes and MoE
+    # prefill are not
+    for field, bad in (("queue_cap", 0), ("shed_policy", "drop-newest"),
+                       ("admit_retries", -1)):
+        with pytest.raises(ValueError, match=field):
+            TS.ContinuousEngine(tc, tparams, device="cpu", **{field: bad})
+    for field in ("mesh", "shard_rules", "moe_prefill"):
         with pytest.raises(NotImplementedError, match=field):
             TS.ContinuousEngine(tc, tparams, device="cpu", **{field: 1})
+    ce = TS.ContinuousEngine(tc, tparams, device="cpu", deadline_s=2.0,
+                             queue_cap=3, shed_policy="oldest")
+    assert (ce.deadline_s, ce.queue_cap, ce.shed_policy,
+            ce.admit_retries, ce.injector, ce.telemetry) == (
+        2.0, 3, "oldest", 8, None, None)
     # speculation is ported (tests/test_torch_spec.py)
     assert TS.ContinuousEngine(tc, tparams, device="cpu", spec=1).spec == 1
     # kv_quant is ported: a value outside KV_QUANT_DTYPES is refused

@@ -542,7 +542,8 @@ def test_train_cli(capsys):
         LT.main(["--arch", "yi_6b", "--reduced", "--steps", "1", "--seq",
                  "32", "--batch", "2", "--dsa-mode", "kernel", "--device",
                  "cpu"])
-    for extra in (["--mesh", "production"], ["--ckpt-dir", "x"]):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+    for extra, item in ((["--mesh", "production"], '"Distribution"'),
+                        (["--ckpt-dir", "x"], '"Checkpoints, then')):
+        with pytest.raises(NotImplementedError, match=f"Queue 1, {item}"):
             LT.main(["--arch", "yi_6b", "--reduced", "--device", "cpu"]
                     + extra)
