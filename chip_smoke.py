@@ -184,7 +184,24 @@ fails:
      pool comes back full, with ``health()`` and the SLO attainment;
      (c) phase 14c's dense
      speculative run with the proposer injected to fail three times: it
-     degrades to plain segments and every request is ok.
+     degrades to plain segments and every request is ok;
+ 16. checkpoints, RWKV6 training, the ``dots`` remat policy and yi_6b
+     training: (a) 2-layer full-width rwkv6_3b in f32, one train step
+     (the differentiable chunked wkv, no kernel) card against CPU, the
+     eval step on the trained model launching K7 once a layer with the
+     train form's ce, and 2-layer stablelm_3b's gradients under ``dots``
+     against ``full`` with each one's peak memory; (b) 4-layer
+     full-width stablelm_3b (bf16 params, f32 moments): a checkpoint
+     saved at step 2, restored into a state of another seed bit for bit,
+     and the resumed run against the uninterrupted one, at the tolerance
+     two uninterrupted runs agree to, with the bytes and the host-copy,
+     write and restore seconds; (c) ``repro_torch.launch.train`` trains
+     rwkv6_3b at full width (32 layers, bf16, 4 x 4096 in 2
+     microbatches, 4 steps), no kernel launched, profiled, then its eval
+     step launches K7 once a layer; (d) yi_6b at full width with bf16
+     moments, 4 x 4096 in 2 microbatches (4 if 2 run out of memory),
+     4 steps through ``steps.make_train_step``, P unchanged, no kernel,
+     profiled.  Each prints its seconds.
 
 It then prints one JSON line of per-kernel results, the card's name and
 power limit again as ``nvidia-smi`` gives them, and as its last line
@@ -2930,6 +2947,419 @@ def lifecycle_slice(torch, seed: int, card: str) -> dict:
     return out
 
 
+# -- phase 16: checkpoints, RWKV6 training, dots, yi_6b training --------------
+
+
+def _grads_close(torch, got, want, rel: float) -> tuple:
+    """Largest |got - want| over each gradient leaf's largest magnitude,
+    and whether every leaf is equal bit for bit."""
+    from repro_torch.tree import named_leaves
+    want = dict(named_leaves(want))
+    worst, bitwise = 0.0, True
+    for path, g in named_leaves(got):
+        w = want[path]
+        scale = max(float(w.abs().max()), 1e-12)
+        worst = max(worst, float((g - w).abs().max()) / scale)
+        bitwise = bitwise and bool(torch.equal(g, w))
+    return worst, bitwise
+
+
+def rwkv_train_parity_phase(torch, seed: int) -> dict:
+    """16a.  rwkv6_3b at full width (d 2560, 40 heads of 64, vocab 65536),
+    2 layers, f32: one train step (``lm_batches``, batch 2 x 512, 2
+    microbatches; the differentiable chunked wkv, 16 chunks) on the card
+    and on the CPU from the same params, gated as ``train_parity_phase``
+    (mse is 0: no DSA), no kernel launched in it.  Then the eval step on
+    the trained model launches K7 once a layer and gives the train
+    form's ce within f32's tolerance (rtol 1e-5).  Then stablelm_3b, 2
+    layers, f32, one microbatch of 2 x 512: the gradients under
+    ``remat_policy="dots"`` against "full" within 1e-4 of each leaf's
+    largest magnitude (the backward's ``index_add`` sums in no fixed
+    order), with each policy's peak memory."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import DataConfig, lm_batches
+    from repro_torch.launch import serve
+    from repro_torch.optim import adamw
+    from repro_torch.training import steps as ST
+    from repro_torch.tree import named_leaves
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(get_config("rwkv6_3b"), n_layers=2,
+                              dtype="float32", param_dtype="float32")
+    opt = adamw.OptConfig(lr=1e-3, total_steps=10, warmup_steps=2)
+    batch = next(lm_batches(DataConfig(vocab=cfg.vocab, seq_len=512,
+                                       global_batch=2, seed=seed)))
+    card = ST.init_train_state(seed, cfg, opt)
+    cpu_params = to_cpu(card["params"])
+    cpu = {"params": cpu_params, "opt": adamw.init(opt, cpu_params),
+           "step": 0}
+    step = ST.make_train_step(cfg, opt, microbatches=2)
+    serve.reset_launch_counts()
+    card, m_card = step(card, batch)
+    m_card = {k: float(v) for k, v in m_card.items()}
+    n = {k: v for k, v in serve.launch_counts().items() if v}
+    cpu, m_cpu = step(cpu, batch)
+    m_cpu = {k: float(v) for k, v in m_cpu.items()}
+    rel = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k])
+           for k in ("loss", "ce", "grad_norm")}
+    lr = m_cpu["lr"]
+    want = dict(named_leaves(cpu["params"]))
+    worst, within, total = 0.0, 0, 0
+    for path, p in named_leaves(card["params"]):
+        d = (p.detach().cpu() - want[path].detach()).abs()
+        worst = max(worst, float(d.max()))
+        within += int((d <= 1e-5).sum())
+        total += d.numel()
+    print(f"16a rwkv train parity: 2-layer full-width rwkv6_3b f32, batch 2 "
+          f"x 512, 2 microbatches: card vs CPU relative differences "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (rtol {TRAIN_METRIC_RTOL:g}), mse {m_card['mse']} / "
+          f"{m_cpu['mse']}; new params max |d| {worst:.3g} (bound 2 lr = "
+          f"{2 * lr:.3g}), {100 * within / total:.3f} % within 1e-5; "
+          f"kernels launched: {n or 'none'}", flush=True)
+    print(f"  card: {', '.join(f'{k} {m_card[k]:.6f}' for k in rel)}")
+    print(f"  cpu : {', '.join(f'{k} {m_cpu[k]:.6f}' for k in rel)}")
+    if (n or worst > 2 * lr or within < TRAIN_PARAM_SHARE * total
+            or max(rel.values()) > TRAIN_METRIC_RTOL
+            or m_card["mse"] != 0.0):
+        fail("rwkv6_3b training parity (card vs CPU) failed")
+    del cpu, cpu_params
+    serve.reset_launch_counts()
+    ev = float(ST.make_eval_step(cfg)(card["params"], batch)["ce"])
+    n_eval = {k: v for k, v in serve.launch_counts().items() if v}
+    serve.reset_launch_counts()
+    dev = card["params"]["embed"].device
+    on = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    _, m = ST.loss_fn(card["params"], cfg, ST.default_flags(cfg), on)
+    tr = float(m["ce"].detach())
+    n_train = {k: v for k, v in serve.launch_counts().items() if v}
+    same = abs(ev - tr) <= 1e-5 * abs(tr)
+    print(f"16a rwkv eval on the trained model: ce eval (K7) {ev:.7f}, train "
+          f"form {tr:.7f} (rtol 1e-5: {same}); launches eval {n_eval}, "
+          f"train form {n_train or 'none'}", flush=True)
+    if not same or n_eval != {"K7": cfg.n_layers} or n_train:
+        fail(f"rwkv6_3b eval: ce {ev} vs {tr}, launches {n_eval}, "
+             f"{n_train}")
+    del card, m
+    torch.cuda.empty_cache()
+
+    # dots against full
+    sl = dataclasses.replace(get_config("stablelm_3b"), n_layers=2,
+                             dtype="float32", param_dtype="float32")
+    batch = next(lm_batches(DataConfig(vocab=sl.vocab, seq_len=512,
+                                       global_batch=2, seed=seed)))
+    params = ST.init_train_state(seed, sl, adamw.OptConfig())["params"]
+    grads, peak = {}, {}
+    for pol in ("full", "dots"):
+        c = dataclasses.replace(sl, remat=True, remat_policy=pol)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        grads[pol], _ = ST.accumulate_grads(params, c, ST.default_flags(c),
+                                            batch)
+        torch.cuda.synchronize()
+        peak[pol] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    err, bitwise = _grads_close(torch, grads["dots"], grads["full"], 1e-4)
+    print(f"16a dots vs full: 2-layer full-width stablelm_3b f32, 2 x 512: "
+          f"gradients max |d| / leaf max {err:.3g} (bound 1e-4), bitwise "
+          f"{bitwise}; peak memory above the params: full {peak['full']:.3f} "
+          f"GiB, dots {peak['dots']:.3f} GiB", flush=True)
+    if err > 1e-4:
+        fail("remat_policy dots: gradients differ from full")
+    del params, grads
+    torch.cuda.empty_cache()
+    print(f"phase 16a: {time.monotonic() - t0:.1f} s", flush=True)
+    return {"rel": rel, "eval_ce": ev, "train_ce": tr, "dots_err": err,
+            "dots_bitwise": bitwise, "peak_gib": peak}
+
+
+def _same_bits(a, b) -> bool:
+    import numpy as np
+    return (a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+        np.ascontiguousarray(a).reshape(-1).view(np.uint8),
+        np.ascontiguousarray(b).reshape(-1).view(np.uint8)))
+
+
+def _state_diff(torch, a, b) -> tuple:
+    """The share of elements of two states' tensors that differ, and the
+    largest |difference| of the params."""
+    from repro_torch.tree import named_leaves
+    bl = dict(named_leaves(b))
+    diff = total = 0
+    worst = 0.0
+    for path, x in named_leaves(a):
+        if not isinstance(x, torch.Tensor):
+            continue
+        d = (x.detach().float() - bl[path].detach().float()).abs()
+        diff += int((d != 0).sum())
+        total += d.numel()
+        if path.startswith("/params/"):
+            worst = max(worst, float(d.max()))
+    return diff / total, worst
+
+
+def checkpoint_phase(torch, seed: int) -> dict:
+    """16b.  stablelm_3b at full width with 4 layers (bf16 params, f32
+    moments), 4 steps of 2 x 512 tokens: an uninterrupted run saves at
+    step 2 (``AsyncCheckpointer``, into a temporary directory removed
+    afterwards); a state made from another seed restores that checkpoint,
+    equal bit for bit to the state saved, and runs steps 2-3 on the same
+    batches.  A second uninterrupted run gives the tolerance: the resumed
+    run's metrics agree with the first run's within twice the two
+    uninterrupted runs' largest relative difference (at least 1e-5), and
+    its params and moments differ in no more than twice their share of
+    differing elements (at least 1 %).  Prints whether it is bitwise, the
+    bytes on disk and the host-copy, write and restore seconds."""
+    from repro_torch import convert
+    from repro_torch.checkpoint import checkpoint as C
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import DataConfig, lm_batches
+    from repro_torch.optim import adamw
+    from repro_torch.training import steps as ST
+    from repro_torch.tree import named_leaves
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(get_config("stablelm_3b"), n_layers=4)
+    opt = adamw.OptConfig(lr=1e-3, total_steps=4, warmup_steps=1)
+    data = lm_batches(DataConfig(vocab=cfg.vocab, seq_len=512,
+                                 global_batch=2, seed=seed))
+    batches = [next(data) for _ in range(4)]
+    step = ST.make_train_step(cfg, opt)
+
+    def run(state, first, last):
+        out = []
+        for i in range(first, last):
+            state, m = step(state, batches[i])
+            out.append({k: float(v) for k, v in m.items()})
+        return state, out
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        ck = C.AsyncCheckpointer(tmp)
+        a, ma = run(ST.init_train_state(seed, cfg, opt), 0, 2)
+        torch.cuda.synchronize()
+        snap = convert.state_to_reference(a)
+        t = time.perf_counter()
+        ck.save(a, 2)
+        copy_s = time.perf_counter() - t
+        ck.wait()
+        write_s = time.perf_counter() - t - copy_s
+        path = Path(tmp) / "ckpt_2"
+        nbytes = sum(f.stat().st_size for f in path.iterdir())
+        a, mb = run(a, 2, 4)
+        ma += mb
+        b, mb2 = run(ST.init_train_state(seed, cfg, opt), 0, 4)
+        other = ST.init_train_state(seed + 1, cfg, opt)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r, rstep = C.restore(str(path), other)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        del other
+        again = dict(named_leaves(convert.state_to_reference(r)))
+        exact = rstep == 2 and all(_same_bits(again[k], v)
+                                   for k, v in named_leaves(snap))
+        del again, snap
+        frozen = all(not p.requires_grad
+                     for k, p in named_leaves(r["params"])
+                     if k.endswith("/dsa/p"))
+        r, mr = run(r, 2, 4)
+    keys = ("loss", "ce", "mse", "grad_norm")
+
+    def mrel(x, y):
+        return max(abs(p[k] - q[k]) / abs(q[k]) for p, q in zip(x, y)
+                   for k in keys)
+    d_ab, d_ra = mrel(mb2, ma), mrel(mr, ma[2:])
+    s_ab, w_ab = _state_diff(torch, b, a)
+    s_ra, w_ra = _state_diff(torch, r, a)
+    bitwise = d_ra == 0 and s_ra == 0
+    ok = (exact and frozen and d_ra <= max(2 * d_ab, 1e-5)
+          and s_ra <= max(2 * s_ab, 0.01))
+    print(f"16b checkpoint: 4-layer full-width stablelm_3b (bf16 params, f32 "
+          f"moments), {nbytes:,} bytes on disk; host copy {copy_s:.3f} s "
+          f"(blocks the loop), write {write_s:.3f} s, restore "
+          f"{restore_s:.3f} s; restored == saved bit for bit: {exact}, P "
+          f"frozen: {frozen}; two uninterrupted runs: metrics max rel "
+          f"{d_ab:.3g}, {100 * s_ab:.4f} % of state elements differ, "
+          f"params max |d| {w_ab:.3g}; resumed (from seed {seed + 1}) vs "
+          f"uninterrupted: metrics max rel {d_ra:.3g}, {100 * s_ra:.4f} % "
+          f"differ, params max |d| {w_ra:.3g}; bitwise: {bitwise}",
+          flush=True)
+    print("  uninterrupted: " + "; ".join(
+        f"{m['loss']:.5f}" for m in ma) + "  resumed steps 2-3: "
+        + "; ".join(f"{m['loss']:.5f}" for m in mr))
+    if not ok:
+        fail("checkpoint: the restored state or the resumed run differs")
+    del a, b, r
+    torch.cuda.empty_cache()
+    out = {"bytes": nbytes, "copy_s": copy_s, "write_s": write_s,
+           "restore_s": restore_s, "bitwise": bitwise}
+    print(f"phase 16b: {time.monotonic() - t0:.1f} s", flush=True)
+    return out
+
+
+def _train_report(torch, label: str, cfg, state, metrics, step_s, b: int,
+                  s: int, mb: int, n: dict, peak: float) -> dict:
+    """Print and gate a full-width training run: the median step time over
+    steps 2 on, tokens/s, the 6 N D share of the bf16 peak (N: the
+    blocks' params and the lm head's; the embedding lookup and the remat
+    recompute are not counted), peak memory; every metric finite and no
+    kernel launched."""
+    import math
+    import statistics
+    from repro_torch.tree import named_leaves
+    med = statistics.median(step_s[1:])
+    leaves = list(named_leaves(state["params"]))
+    n_blocks = sum(p.numel() for k, p in leaves if k.startswith("/groups/"))
+    n_head = state["params"]["lm_head"].numel()
+    share = 6 * (n_blocks + n_head) * b * s / med / PEAK_FLOPS["bfloat16"]
+    finite = all(math.isfinite(v) for m in metrics for v in m.values())
+    print(f"{label} ({len(step_s)} steps of {b} x {s} in {mb} "
+          f"microbatches): step {med * 1e3:.1f} ms (median of steps "
+          f"2-{len(step_s)}; all: "
+          + ", ".join(f"{t * 1e3:.1f}" for t in step_s)
+          + f" ms), {b * s / med:.0f} tok/s; 6 N D / step time / 989 "
+          f"TFLOP/s = 6 x {n_blocks + n_head:,} x {b * s} / {med:.4f} s / "
+          f"989e12 = {100 * share:.2f} %; peak memory {peak:.2f} GiB; "
+          f"losses " + ", ".join(f"{m['loss']:.4f}" for m in metrics)
+          + f"; metrics finite: {finite}; kernels launched: {n or 'none'}",
+          flush=True)
+    if n or not finite:
+        fail(f"{label}: launched {n}, metrics finite {finite}")
+    return {"step_ms": med * 1e3, "tok_s": b * s / med, "mfu_6nd": share,
+            "peak_gib": peak, "microbatches": mb}
+
+
+def _profiled_step(torch, label: str, step, state, batch) -> tuple:
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        wall = time.perf_counter() - t0
+    tr = _device_time(prof, "train", 1)
+    _print_profile(label, wall * 1e3, *tr)
+    return wall * 1e3, tr[0], tr[1]
+
+
+def rwkv_train_slice(torch, seed: int) -> dict:
+    """16c.  rwkv6_3b at full width through ``repro_torch.launch.train``:
+    32 layers in bf16, remat, 4 steps of 4 x 4096 tokens in 2
+    microbatches (the differentiable chunked wkv, 128 chunks), no kernel
+    launched; then one profiled step, and the eval step on the trained
+    model, which launches K7 once a layer (its count is the K7 row's
+    "rwkv eval" path)."""
+    import math
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import DataConfig, lm_batches
+    from repro_torch.launch import serve, train
+    from repro_torch.optim import adamw
+    from repro_torch.training import steps as ST
+    t0 = time.monotonic()
+    cfg = get_config("rwkv6_3b")
+    b, s, steps = 4, 4096, 4
+    torch.cuda.empty_cache()
+    serve.reset_launch_counts()
+    res = train.main(["--arch", "rwkv6_3b", "--steps", str(steps), "--seq",
+                      str(s), "--batch", str(b), "--microbatches", "2",
+                      "--data", "lm", "--log-interval", "1", "--seed",
+                      str(seed)])
+    n = {k: v for k, v in serve.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = _train_report(torch, "16c rwkv train slice (rwkv6_3b, 32 layers "
+                        "bf16, remat)", cfg, res.state, res.metrics,
+                        res.step_s, b, s, 2, n, peak)
+    opt = adamw.OptConfig(total_steps=steps + 2, warmup_steps=1)
+    batch = next(lm_batches(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                       global_batch=b, seed=seed + 1)))
+    step = ST.make_train_step(cfg, opt, microbatches=2)
+    serve.reset_launch_counts()
+    out["profile"] = _profiled_step(
+        torch, f"rwkv6_3b train step ({b} x {s}, 2 microbatches)", step,
+        res.state, batch)
+    n = {k: v for k, v in serve.launch_counts().items() if v}
+    serve.reset_launch_counts()
+    ev = ST.make_eval_step(cfg)(res.state["params"], batch)
+    out["eval_ce"] = float(ev["ce"])
+    out["launches"] = serve.launch_counts()
+    print(f"16c rwkv eval step on the trained model ({b} x {s}): ce "
+          f"{out['eval_ce']:.5f}; launches "
+          + " ".join(f"{k} {v}" for k, v in out["launches"].items() if v)
+          + f"; the profiled train step launched {n or 'none'}", flush=True)
+    if n or out["launches"]["K7"] != cfg.n_layers or not math.isfinite(
+            out["eval_ce"]):
+        fail(f"16c: eval launches {out['launches']}, train step {n}")
+    del res, step, ev
+    torch.cuda.empty_cache()
+    print(f"phase 16c: {time.monotonic() - t0:.1f} s", flush=True)
+    return out
+
+
+def yi_train_slice(torch, seed: int) -> dict:
+    """16d.  yi_6b at full width (32 layers, bf16, remat, DSA block path)
+    with bf16 moments (``OptConfig(moment_dtype="bfloat16")``: 6 bytes a
+    parameter with the gradients) through ``steps.make_train_step``: 4
+    steps of 4 x 4096 tokens in 2 microbatches, or 4 where 2 run out of
+    memory; every metric finite, P unchanged, no kernel launched; then one
+    profiled step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import DataConfig, lm_batches
+    from repro_torch.launch import serve
+    from repro_torch.optim import adamw
+    from repro_torch.training import steps as ST
+    from repro_torch.tree import named_leaves
+    t0 = time.monotonic()
+    cfg = get_config("yi_6b")
+    b, s, steps = 4, 4096, 4
+    opt = adamw.OptConfig(moment_dtype="bfloat16", total_steps=steps + 1,
+                          warmup_steps=1)
+    data = lm_batches(DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b,
+                                 seed=seed))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = ST.init_train_state(seed, cfg, opt)
+    p0 = {k: v.clone() for k, v in _p_leaves(state["params"]).items()}
+    serve.reset_launch_counts()
+    metrics, step_s, mb = [], [], 2
+    batch = next(data)
+    while len(step_s) < steps:
+        step = ST.make_train_step(cfg, opt, microbatches=mb)
+        try:
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            step_s.append(time.perf_counter() - t)
+            batch = next(data)
+        except torch.cuda.OutOfMemoryError:
+            if mb == b or metrics:
+                raise
+            print(f"16d: {mb} microbatches ran out of memory; taking {b}",
+                  flush=True)
+            for _, p in named_leaves(state["params"]):
+                p.grad = None
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            mb = b
+    n = {k: v for k, v in serve.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = _train_report(torch, "16d yi train slice (yi_6b, 32 layers bf16, "
+                        "bf16 moments, remat, DSA block)", cfg, state,
+                        metrics, step_s, b, s, mb, n, peak)
+    out["profile"] = _profiled_step(
+        torch, f"yi_6b train step ({b} x {s}, {mb} microbatches)", step,
+        state, next(data))
+    frozen = all(torch.equal(p0[k], v)
+                 for k, v in _p_leaves(state["params"]).items())
+    n = {k: v for k, v in serve.launch_counts().items() if v}
+    print(f"16d: P unchanged after {steps + 1} updates: {frozen}; kernels "
+          f"launched: {n or 'none'}", flush=True)
+    if not frozen or n:
+        fail("16d: P moved or a kernel launched")
+    del state, p0
+    torch.cuda.empty_cache()
+    print(f"phase 16d: {time.monotonic() - t0:.1f} s", flush=True)
+    return out
+
+
 def static_slice(torch, seed: int, arch: str, dsa_mode: str, want,
                  prompt_len: int = 4096, quant=None) -> dict:
     """Serve ``arch`` at full width through ``repro_torch.launch.serve``:
@@ -3263,6 +3693,15 @@ def main() -> None:
     lifecycle_parity_phase(torch, args.seed, card)
     lifecycle_slice(torch, args.seed, card)
     print(f"phase 15: {time.monotonic() - t15:.1f} s", flush=True)
+    # checkpoints, RWKV6 training, dots and yi_6b training (16a gated
+    # parity, 16b checkpoints, 16c and 16d the full-width train slices;
+    # K7 once a layer in 16c's eval step)
+    t16 = time.monotonic()
+    rwkv_train_parity_phase(torch, args.seed)
+    checkpoint_phase(torch, args.seed)
+    launches["rwkv eval"] = rwkv_train_slice(torch, args.seed)["launches"]
+    yi_train_slice(torch, args.seed)
+    print(f"phase 16: {time.monotonic() - t16:.1f} s", flush=True)
 
     src = "src/repro_torch/kernels/csrc/"
     rep = "src/repro/kernels/"
@@ -3327,9 +3766,12 @@ def main() -> None:
     next(x for x in kernels if x["name"] == "dsa_decode_gather_attention")[
         "launches_by_path"] = k1_paths
     c = k7_checks[2]
+    # K7 runs on two main paths: rwkv6_3b's prefill and its eval step
+    k7_paths = {p: launches[p]["K7"] for p in ("rwkv", "rwkv eval")}
     kernels.append({
         "name": "wkv6_chunked", "route": "cuda", "source": src + "wkv6.cu",
-        "replaces": rep + "wkv6.py:75", "launches": launches["rwkv"]["K7"],
+        "replaces": rep + "wkv6.py:75", "launches": sum(k7_paths.values()),
+        "launches_by_path": k7_paths,
         "max_abs_err": c["max_abs_err"],
         "ms": c["ms"], "kernel_ms": c["ms"], "plain_ms": c["plain_ms"],
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

@@ -61,7 +61,8 @@ class ArchConfig:
     dtype: str = "bfloat16"       # activation dtype
     param_dtype: str = "bfloat16"
     # training memory policy: recompute each layer group in the backward
-    # pass ("full"); "none" keeps every activation ("dots" is not ported)
+    # pass ("full"), keeping the unbatched products' outputs ("dots"), or
+    # keep every activation ("none")
     remat: bool = True
     remat_policy: str = "full"
 

@@ -27,14 +27,20 @@ def bind(lib_name: str, fn_name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     return fn
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would take a gradient through an op on
+    ``tensors``: gradients enabled and one of them requiring grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def refuse_grad(kernel: str, *tensors) -> None:
     """Raise when autograd would need a gradient through ``kernel``: it
     has no backward, nor does the reference's Pallas kernel define a VJP,
     and a kernel output without one would cut the gradient silently.  The
     plain version on a CPU tensor refuses too, so that card and CPU train
     alike.  Under ``torch.no_grad()`` or ``inference_mode`` it passes."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    if needs_grad(*tensors):
         raise NotImplementedError(
             f"{kernel} has no backward (the reference's Pallas kernel "
             f"defines no VJP either): call it without gradients, or train "

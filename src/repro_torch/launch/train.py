@@ -9,17 +9,23 @@ the paper's joint objective (Eq. 7), accumulated over ``--microbatches``
 slices of the batch, with AdamW on a warmup-cosine schedule
 (``repro_torch.optim.adamw``).  ``--dsa-mode auto`` trains the DSA archs
 on the block path; ``faithful`` and ``off`` train too, and ``kernel``
-raises as the reference does (no kernel has a backward).  RWKV6 does not
-train yet (ROADMAP Queue 1, "Checkpoints, then what is left of
-training").
+raises as the reference does (no kernel has a backward).  RWKV6 trains
+through the differentiable chunked wkv (``models.ssm``).
+
+With ``--ckpt-dir`` the state is saved (``repro_torch.checkpoint``, the
+reference's format) every ``--save-interval`` steps in the background and
+once more, blocking, at the end; ``--resume`` restores the latest
+checkpoint there and prints ``[resume] from step N``.  Unlike the
+reference, which replays the data from its first batch, a resumed run
+draws and discards the N batches already consumed, so it is the
+uninterrupted run (ROADMAP Queue 3).
 
 It prints the reference's step lines (every ``--log-interval`` steps and
 the last), its ``[done]`` line and, on the card, the median step time,
 tokens/s and the peak memory.  Full-width archs recompute each layer in
 the backward pass (``ArchConfig.remat``); ``--reduced`` ones do not.
-Sharded training (``--mesh`` other than ``host``) and checkpoints
-(``--ckpt-dir``, ``--resume``) are not ported (ROADMAP Queue 1,
-"Distribution" and "Checkpoints, then what is left of training").
+Sharded training (``--mesh`` other than ``host``) is not ported (ROADMAP
+Queue 1, "Distribution").
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from typing import Dict, List
 
 import torch
 
+from repro_torch.checkpoint.checkpoint import AsyncCheckpointer
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.data.synthetic import DataConfig, make_batches
 from repro_torch.device import resolve_device
@@ -62,6 +69,7 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--mesh", default="host",
                     choices=["host", "production", "multipod"])
     ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--save-interval", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-interval", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
@@ -73,10 +81,6 @@ def main(argv=None) -> TrainResult:
         raise NotImplementedError(
             f"--mesh {args.mesh}: sharded training is not ported (ROADMAP "
             f"Queue 1, \"Distribution\")")
-    if args.ckpt_dir or args.resume:
-        raise NotImplementedError(
-            "--ckpt-dir/--resume: checkpoints are not ported (ROADMAP Queue "
-            "1, \"Checkpoints, then what is left of training\")")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -95,6 +99,17 @@ def main(argv=None) -> TrainResult:
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     state = ST.init_train_state(args.seed, cfg, opt, device=dev)
+    step0 = 0
+    ckpt = None
+    if args.ckpt_dir:
+        ckpt = AsyncCheckpointer(args.ckpt_dir)
+        if args.resume:
+            restored, rstep = ckpt.restore_latest(state, dev)
+            if restored is not None:
+                state, step0 = restored, rstep
+                print(f"[resume] from step {step0}", flush=True)
+                for _ in range(step0):      # the batches already consumed
+                    next(data)
     train_step = ST.make_train_step(cfg, opt, flags,
                                     microbatches=args.microbatches)
 
@@ -102,7 +117,7 @@ def main(argv=None) -> TrainResult:
     history: List[Dict[str, float]] = []
     step_s: List[float] = []
     t_start = time.monotonic()
-    for step in range(args.steps):
+    for step in range(step0, args.steps):
         batch = next(data)
         wd.start()
         state, metrics = train_step(state, batch)
@@ -117,10 +132,15 @@ def main(argv=None) -> TrainResult:
             print(f"step {step}: loss={metrics['loss']:.4f} "
                   f"ce={metrics['ce']:.4f} mse={metrics['mse']:.4f} "
                   f"gnorm={metrics['grad_norm']:.2f}", flush=True)
+        if ckpt and (step + 1) % args.save_interval == 0:
+            ckpt.save(state, step + 1)
+    if ckpt:
+        ckpt.save(state, args.steps, block=True)
     dt = time.monotonic() - t_start
-    print(f"[done] {args.steps} steps in {dt:.1f}s "
-          f"({args.batch * args.seq * args.steps / dt:.0f} tok/s)")
-    if cuda:
+    ntok = args.steps - step0
+    print(f"[done] {ntok} steps in {dt:.1f}s "
+          f"({args.batch * args.seq * ntok / dt:.0f} tok/s)")
+    if cuda and step_s:
         med = statistics.median(step_s[1:] or step_s)
         print(f"[card] {torch.cuda.get_device_name(dev)}: median step "
               f"{med * 1e3:.1f} ms over steps 2-{args.steps}, "

@@ -3,11 +3,14 @@ reference's ``repro.models.ssm`` RWKV6 half (Mamba is not ported yet).
 
 The time-mix block carries a per-head hd x hd f32 state ``s`` and the
 last token ``x_prev``; the channel-mix FFN carries its own last token
-``ffn_prev``.  Prefill runs the chunked form (``ops.wkv6``: the kernel K7
-on the card, its plain version on the CPU) when S is a multiple of 32 and
-longer than one chunk, as the reference dispatches; otherwise, decode
-included, the token recurrence ``_wkv_scan``.  DSA does not apply here
-(no score matrix).
+``ffn_prev``.  When S is a multiple of 32 and longer than one chunk the
+wkv runs chunked, as the reference dispatches; otherwise, decode
+included, it runs the token recurrence ``_wkv_scan``.  Without gradients
+(serving, the eval step) the chunked form is ``ops.wkv6``: the kernel K7
+on the card, its plain version on the CPU.  Where autograd takes a
+gradient through the wkv (training), it is ``_wkv_chunked_train``, the
+reference's differentiable XLA ``_wkv_chunked`` in plain PyTorch: K7 has
+no backward.  DSA does not apply here (no score matrix).
 
 Unlike the reference, the token shift casts the cached previous token to
 the activation dtype, so a bf16 model serves from an f32 cache (the
@@ -23,10 +26,12 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.prediction import mm
 from repro_torch.kernels import ops
+from repro_torch.kernels._launch import needs_grad
 from repro_torch.kernels.ref import wkv6_ref
 from repro_torch.models.common import dense_init, group_norm_heads
 
 WKV_CHUNK = 32
+CLAMP = -30.0
 
 
 def init_rwkv(gen: torch.Generator, cfg: ArchConfig, *, device,
@@ -60,6 +65,56 @@ _wkv_scan = wkv6_ref
 def _wkv_chunked(r, k, v, w, u, s0=None, chunk: int = WKV_CHUNK):
     """Chunk-parallel wkv6 through ``ops.wkv6`` (K7 on the card)."""
     return ops.wkv6(r, k, v, w, u, s0, chunk=chunk)
+
+
+def _wkv_chunked_train(r, k, v, w, u, s0=None, chunk: int = WKV_CHUNK):
+    """The reference's differentiable ``_wkv_chunked`` (``ssm.py:193``):
+    the same chunked arithmetic in f32, the -30 clamp included, made of
+    plain PyTorch ops so that autograd takes its gradient.  r,k,v,w:
+    (B,S,H,hd) with S a multiple of ``chunk``; u: (H,hd); s0: (B,H,hd,hd)
+    f32 or None.  Returns (y (B,S,H,hd) in r's dtype, s_last f32).
+
+    The reference steps through the chunks one at a time, each under
+    ``jax.checkpoint``.  Here everything that does not depend on the
+    carried state (rr, kk, the masked C x C scores, the diagonal bonus,
+    k_hat and the chunk decay) is computed for all chunks at once, and
+    only the carry ``S_c = decay_c * S_{c-1} + k_hat_c^T v_c`` loops over
+    the chunks (two elementwise ops a chunk, not a chunk's dozen).  The
+    states entering the chunks are kept (the reference keeps them too)
+    and ``rr_c @ S_{c-1}`` is one batched product.  No per-chunk
+    checkpoint: the layer's remat (``ArchConfig.remat``) recomputes the
+    whole block in the backward pass already."""
+    b, s, h, hd = r.shape
+    n = s // chunk
+
+    def chunks(t):                     # (B,S,H,hd) -> (B,H,n,C,hd) f32
+        return t.float().reshape(b, n, chunk, h, hd).permute(0, 3, 1, 2, 4)
+
+    rc, kc, vc, wc = (chunks(t) for t in (r, k, v, w))
+    logw = torch.log(torch.clamp(wc, min=1e-38))
+    cum = torch.cumsum(logw, dim=3)
+    cum_c = cum.clamp(CLAMP, 0.0)
+    rr = rc * torch.exp(cum_c - logw)                  # r_t * A_{t-1}
+    kk = kc * torch.exp(-cum_c)                        # k_s / A_s
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=r.device).tril(-1)
+    intra = torch.where(tri, rr @ kk.transpose(-1, -2), 0.0) @ vc
+    diag = (rc * u.float()[None, :, None, None, :] * kc).sum(-1)
+    cum_last = cum[..., -1:, :]
+    k_hat = kc * torch.exp((cum_last - cum).clamp(CLAMP, 0.0))
+    decay = torch.exp(cum_last.clamp(CLAMP, 0.0)).transpose(-1, -2)
+    upd = k_hat.transpose(-1, -2) @ vc                 # (B,H,n,hd,hd)
+    st = (torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
+          if s0 is None else s0.float())
+    states = []
+    # unbind, not indexing: each slice's backward would fill a zero
+    # tensor the size of all chunks, n times over
+    for dc, uc in zip(decay.unbind(2), upd.unbind(2)):
+        states.append(st)
+        st = dc * st + uc
+    y = rr @ torch.stack(states, 2) + intra + diag[..., None] * vc
+    y = y.permute(0, 2, 3, 1, 4).reshape(b, s, h, hd)
+    return y.to(r.dtype), st
 
 
 def _shift_delta(x, x_prev):
@@ -96,10 +151,13 @@ def apply_rwkv(params, cfg: ArchConfig, x, *, cache: Optional[Dict] = None):
         params["w_lora_b"].float())
     w = torch.exp(-torch.exp(wdec)).reshape(b, s, h, hd).to(x.dtype)
     s0 = cache["s"] if cache is not None else None
-    if s % WKV_CHUNK == 0 and s > WKV_CHUNK:
-        y, st = _wkv_chunked(r, k, v, w, params["u"], s0)
+    if not (s % WKV_CHUNK == 0 and s > WKV_CHUNK):
+        wkv = _wkv_scan
+    elif needs_grad(r, k, v, w, params["u"], s0):
+        wkv = _wkv_chunked_train
     else:
-        y, st = _wkv_scan(r, k, v, w, params["u"], s0)
+        wkv = _wkv_chunked
+    y, st = wkv(r, k, v, w, params["u"], s0)
     y = group_norm_heads(y.reshape(b, s, d), params["ln_x"].to(x.dtype), h)
     y = y * torch.nn.functional.silu(g)
     out = mm(y, params["wo"].to(x.dtype))

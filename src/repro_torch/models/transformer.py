@@ -29,17 +29,23 @@ instead of K/V rows.
 ``forward_train`` is the training forward (``RunFlags(mode="train")``, no
 cache): it also returns ``aux``, each of ``AUX_KEYS`` an f32 scalar summed
 over the layers (``mse``, the DSA predictor's Eq. 6 term; ``router``, 0
-here: no MoE arch is ported).  With ``cfg.remat`` and ``remat_policy``
-"full" each layer group runs under ``torch.utils.checkpoint`` when a
-gradient is being taken, so the backward pass recomputes its activations
-instead of holding them.
+here: no MoE arch is ported).  With ``cfg.remat`` each layer group runs
+under ``torch.utils.checkpoint`` when a gradient is being taken, so the
+backward pass recomputes its activations instead of holding them:
+``remat_policy`` "full" recomputes everything, "dots" (the reference's
+``dots_with_no_batch_dims_saveable``) keeps the outputs of the products
+with no batch dimension (``aten.mm``/``addmm``: every ``x @ W`` on
+(B, S, d)) and recomputes the rest (attention's batched products, norms,
+elementwise passes), and "none" keeps everything.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.prediction import mm
@@ -102,26 +108,34 @@ def _norm_aux(aux: Dict, zero: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {k: aux[k].float() if k in aux else zero for k in AUX_KEYS}
 
 
+# the products ``remat_policy="dots"`` keeps: a matmul with no batch
+# dimension (jax's dot_general without batch dims) lowers to these
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_policy)
+
+
 def forward_train(params, cfg: ArchConfig, flags: RunFlags,
                   tokens: torch.Tensor):
     """tokens: (B, S) int.  Returns (logits (B, S, V), aux): the training
     forward, each aux term summed over the layers (a sum, not a mean, as
-    the reference's layer scan carries it).  Raises for an RWKV6 arch and
-    for ``remat_policy="dots"``."""
+    the reference's layer scan carries it)."""
     if flags.mode != "train":
         raise ValueError("forward_train needs RunFlags(mode='train')")
-    if cfg.rwkv is not None:
-        raise NotImplementedError(
-            f"training {cfg.name}: the port's chunked wkv is the forward-only "
-            f"kernel K7 on the card; training needs a differentiable chunked "
-            f"wkv (the reference's XLA _wkv_chunked; ROADMAP.md Queue 1, "
-            f"checkpoints and the rest of training)")
+    if cfg.remat_policy not in ("full", "dots", "none"):
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: 'full', "
+                         f"'dots' or 'none'")
     remat = cfg.remat and cfg.remat_policy != "none"
-    if remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r} is not ported (only 'full' "
-            f"and 'none'; ROADMAP.md Queue 1, checkpoints and the rest of "
-            f"training)")
+    ckpt = dict(use_reentrant=False)
+    if cfg.remat_policy == "dots":
+        ckpt["context_fn"] = _DOTS_CONTEXT
     x = params["embed"][tokens.long()].to(DTYPES[cfg.dtype])
     defs = B.group_defs(cfg)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -134,7 +148,7 @@ def forward_train(params, cfg: ArchConfig, flags: RunFlags,
 
     for gp in params["groups"]:
         if remat and torch.is_grad_enabled():
-            x, *a = checkpoint(group, gp, x, use_reentrant=False)
+            x, *a = checkpoint(group, gp, x, **ckpt)
         else:
             x, *a = group(gp, x)
         aux = {k: aux[k] + v for k, v in zip(AUX_KEYS, a)}

@@ -1523,3 +1523,126 @@ def test_cuda_probe_restores_the_resident_cache(cuda_device, kv):
     for rid, toks in want.items():
         assert (got[rid] == toks).all(), rid
     assert eng.stats["probe_steps"] > 0
+
+
+# -- checkpoints, RWKV6 training, the dots remat policy ------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_checkpoint_round_trip(cuda_device, dtype, tmp_path):
+    """A training state on the card saved and restored onto the card (and
+    onto the CPU) bit for bit, P still frozen, the steps ints."""
+    import dataclasses
+    from repro_torch.checkpoint import checkpoint as C
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.optim import adamw
+    from repro_torch.training import steps as ST
+    from repro_torch.tree import named_leaves
+    cfg = dataclasses.replace(reduced(get_config("yi_6b")),
+                              param_dtype=str(dtype).split(".")[1])
+    opt = adamw.OptConfig(moment_dtype=str(dtype).split(".")[1])
+    state = ST.init_train_state(0, cfg, opt, device=cuda_device)
+    state["step"] = state["opt"]["step"] = 3
+    C.AsyncCheckpointer(str(tmp_path)).save(state, 3, block=True)
+    for dev in (cuda_device, torch.device("cpu")):
+        got, step = C.restore(str(tmp_path / "ckpt_3"), state, device=dev)
+        assert step == 3 and got["step"] == got["opt"]["step"] == 3
+        want = dict(named_leaves(state))
+        for path, t in named_leaves(got):
+            if isinstance(t, torch.Tensor):
+                assert t.device.type == dev.type and t.dtype == dtype, path
+                assert torch.equal(t.cpu(), want[path].detach().cpu()), path
+                assert t.requires_grad == want[path].requires_grad, path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zero_state", "random_state", "clamp"])
+def test_cuda_wkv_chunked_train_matches_cpu(cuda_device, case):
+    """The differentiable chunked wkv (``ssm._wkv_chunked_train``) on the
+    card against the CPU, f32: y and s_last within 1e-5 and the
+    gradients within 1e-4 of each one's largest magnitude; ``clamp``
+    holds the decay at 0.3 (a chunk's log-decay passes -30).  Not
+    elementwise: y sums terms of |y|'s largest size, so f32 holds it to
+    ~1e-6 of that size (against f64) and not elements near zero."""
+    from repro_torch.models import ssm
+    gen = torch.Generator().manual_seed(1)
+    b, s, h, hd = 2, 128, 4, 64
+    r, k, v = (torch.randn((b, s, h, hd), generator=gen) for _ in range(3))
+    w = (torch.full((b, s, h, hd), 0.3) if case == "clamp" else torch.exp(
+        -torch.exp(torch.randn((b, s, h, hd), generator=gen) * 0.5 - 2)))
+    u = torch.randn((h, hd), generator=gen) * 0.1
+    s0 = (torch.randn((b, h, hd, hd), generator=gen) * 0.5
+          if case == "random_state" else None)
+    gy, gs = torch.randn((b, s, h, hd), generator=gen), torch.randn(
+        (b, h, hd, hd), generator=gen)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        ins = [t.to(dev).requires_grad_() for t in (r, k * 0.3, v, w, u)]
+        st0 = None if s0 is None else s0.to(dev).requires_grad_()
+        y, st = ssm._wkv_chunked_train(*ins, st0)
+        ((y * gy.to(dev)).sum() + (st * gs.to(dev)).sum()).backward()
+        grads = [t.grad for t in ins + ([st0] if st0 is not None else [])]
+        out[dev.type] = [y.detach(), st.detach()] + grads
+    for i, (got, want) in enumerate(zip(out["cuda"], out["cpu"])):
+        scale = float(want.abs().max())
+        err = float((got.cpu() - want).abs().max())
+        assert err <= (1e-5 if i < 2 else 1e-4) * scale, (i, err, scale)
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv_eval_k7_matches_train_form(cuda_device):
+    """Reduced rwkv6_3b (f32) on the card: the eval step launches K7 once
+    a layer and gives the ce of the train form (the differentiable
+    chunked wkv, no launch) within rtol 1e-5."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.data.synthetic import DataConfig, lm_batches
+    from repro_torch.optim import adamw
+    from repro_torch.training import steps as ST
+    cfg = reduced(get_config("rwkv6_3b"))
+    state = ST.init_train_state(0, cfg, adamw.OptConfig(),
+                                device=cuda_device)
+    batch = next(lm_batches(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                       global_batch=2)))
+    before = K7.wkv6_chunked.launches
+    ev = float(ST.make_eval_step(cfg)(state["params"], batch)["ce"])
+    assert K7.wkv6_chunked.launches == before + cfg.n_layers
+    on = {k: torch.as_tensor(v, device=cuda_device) for k, v in batch.items()}
+    _, m = ST.loss_fn(state["params"], cfg, ST.default_flags(cfg), on)
+    assert K7.wkv6_chunked.launches == before + cfg.n_layers
+    tr = float(m["ce"].detach())
+    assert abs(ev - tr) <= 1e-5 * abs(tr), (ev, tr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi_6b", "rwkv6_3b"])
+def test_cuda_dots_matches_full(cuda_device, arch):
+    """Gradients of reduced ``arch`` (2 layers, f32) on the card under
+    ``remat_policy="dots"`` against "full", within 1e-4 of each leaf's
+    largest magnitude (the backward's ``index_add`` sums in no fixed
+    order), no kernel launched."""
+    import dataclasses
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.data.synthetic import DataConfig, lm_batches
+    from repro_torch.optim import adamw
+    from repro_torch.training import steps as ST
+    cfg = reduced(get_config(arch))
+    params = ST.init_train_state(0, cfg, adamw.OptConfig(),
+                                 device=cuda_device)["params"]
+    batch = next(lm_batches(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                       global_batch=2)))
+    before = (K2.dsa_block_sparse_attention.launches,
+              K7.wkv6_chunked.launches)
+    grads = {}
+    for pol in ("full", "dots"):
+        c = dataclasses.replace(cfg, remat=True, remat_policy=pol)
+        grads[pol], _ = ST.accumulate_grads(params, c, ST.default_flags(c),
+                                            batch)
+    assert (K2.dsa_block_sparse_attention.launches,
+            K7.wkv6_chunked.launches) == before
+    from repro_torch.tree import named_leaves
+    full = dict(named_leaves(grads["full"]))
+    for path, g in named_leaves(grads["dots"]):
+        scale = max(float(full[path].abs().max()), 1e-12)
+        assert float((g - full[path]).abs().max()) <= 1e-4 * scale, path
