@@ -201,7 +201,24 @@ fails:
      step launches K7 once a layer; (d) yi_6b at full width with bf16
      moments, 4 x 4096 in 2 microbatches (4 if 2 run out of memory),
      4 steps through ``steps.make_train_step``, P unchanged, no kernel,
-     profiled.  Each prints its seconds.
+     profiled.  Each prints its seconds;
+ 17. mixtral_8x22b, the mixture of experts on a 4096-token ring (K2's
+     window instance at hd 128, GQA group 6, held to its plain version in
+     phase 3, f32 and bf16, timed at the prefill's shape): (a) 2 layers at
+     full width in f32, prompts of 4352: kernel == block greedy tokens
+     (K2 twice a prefill), graphed == eager decode, ``moe_prefill=
+     "dense"`` runs, the continuous engine (blocking admission) == solo
+     generate, and the MoE layer at reduced width card == CPU (f32, 1e-5
+     of the largest magnitude, capacity drops included); (b) 8 layers at
+     full width in bf16 on a bf16 cache: the static slice through
+     ``launch.serve`` (batch 4, prompt 8192, 32 new; K2 once a layer, no
+     decode kernel), the share of pairs the capacity prefill dropped,
+     profiles of the prefill and of a graphed decode step against the
+     expert bytes' bound, one eager step on the default f32 cache, and
+     the continuous engine on 8 requests of 4096-8192 tokens; (c) 2
+     layers at full width through ``launch.train`` (bf16 moments, 4 x
+     4096, 4 steps): the step time, tokens/s, the 6 N D share with N
+     active and all, peak memory, the router term and a profiled step.
 
 It then prints one JSON line of per-kernel results, the card's name and
 power limit again as ``nvidia-smi`` gives them, and as its last line
@@ -213,6 +230,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import shutil
 import subprocess
@@ -3360,6 +3378,410 @@ def yi_train_slice(torch, seed: int) -> dict:
     return out
 
 
+# -- mixture of experts: mixtral_8x22b -------------------------------------------
+
+# the MoE layer card against CPU (f32, reduced width): of the largest
+# magnitude of y (and of the aux), the summation orders of the two devices'
+# products
+MOE_REL = 1e-5
+MIXTRAL_LAYERS = 8            # 17b's depth: 8 x 4.9 GB of bf16 experts
+
+
+def _moe_card_vs_cpu(torch) -> dict:
+    """Reduced mixtral's MoE layer (f32, capacity factor 1.0 so that the
+    capacity route drops pairs) on the card and on the CPU from the same
+    weights and inputs: the dispatch positions equal, y and the router
+    term within MOE_REL of the largest magnitude on the capacity and the
+    decode-dense routes."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models import moe
+    cfg = reduced(get_config("mixtral_8x22b"))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=1.0))
+    gen = torch.Generator().manual_seed(0)
+    params = moe.init_moe(gen, cfg, device="cpu")
+    dev = {k: v.cuda() for k, v in params.items()}
+    b, s = 4, 96
+    x = torch.randn((b, s, cfg.d_model), generator=gen)
+    out = {}
+    for route, decode in (("capacity", False), ("dense", True)):
+        y, a = moe.apply_moe(params, cfg, x, decode=decode)
+        dy, da = moe.apply_moe(dev, cfg, x.cuda(), decode=decode)
+        out[route] = max(
+            float((dy.cpu() - y).abs().max()) / float(y.abs().max()),
+            abs(float(da["router"]) - float(a["router"]))
+            / abs(float(a["router"])))
+    # each row's dispatch, as the capacity route makes it
+    cap = max(4, int(s * cfg.moe.top_k * 1.0 / cfg.moe.num_experts))
+    out.update(positions_equal=True, dropped=0, pairs=0)
+    for row in x:
+        e = moe._route(params["router"], row,
+                       cfg.moe.top_k)[0].reshape(-1).long()
+        pos = moe._dispatch_positions(e, cfg.moe.num_experts, cap)
+        out["positions_equal"] &= bool(torch.equal(moe._dispatch_positions(
+            e.cuda(), cfg.moe.num_experts, cap).cpu(), pos))
+        out["dropped"] += int((pos >= cap).sum())
+        out["pairs"] += int(pos.numel())
+    return out
+
+
+def mixtral_parity_phase(torch, seed: int, card: str, n_new: int = 16,
+                         prompt_len: int = 4352) -> dict:
+    """17a.  mixtral_8x22b at full width, 2 layers, f32, prompts of 4352
+    tokens (the 4096-token ring wraps at prefill and in decode), batch 2:
+    the kernel path (K2 with the window, once a layer) gives the block
+    path's greedy tokens; the graphed scan loop the eager python loop's;
+    ``moe_prefill="dense"`` runs (K2 once a layer); the continuous engine
+    (blocking admission into a dense ring, 2 slots, 4 requests) gives each
+    request its solo ``generate`` tokens; and the MoE layer at reduced
+    width on the card equals the CPU's (``_moe_card_vs_cpu``)."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.inference.engine import Engine
+    from repro_torch.inference.scheduler import ContinuousEngine, Request
+    from repro_torch.kernels.dsa_attention import dsa_block_sparse_attention
+    from repro_torch.models.transformer import init_model
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(get_config("mixtral_8x22b"), n_layers=2,
+                              dtype="float32", param_dtype="float32")
+    params = init_model(seed, cfg)
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(1, cfg.vocab - 4, size=(2, prompt_len)).astype(
+        np.int32)
+    max_len = prompt_len + n_new + 16
+    toks, k2 = {}, {}
+    captures = 0
+    for name, kw in (("block", dict(dsa_mode="block")),
+                     ("kernel", dict(dsa_mode="kernel")),
+                     ("eager", dict(dsa_mode="kernel", loop="python")),
+                     ("dense prefill", dict(dsa_mode="kernel",
+                                            moe_prefill="dense"))):
+        before = dsa_block_sparse_attention.launches
+        eng = Engine(cfg, params, max_len=max_len, long_context=True, **kw)
+        toks[name] = eng.generate(prompts, n_new).tokens
+        k2[name] = dsa_block_sparse_attention.launches - before
+        if name == "kernel":
+            captures = eng.graphs.captures
+        del eng
+        torch.cuda.empty_cache()
+    want_k2 = {"block": 0, "kernel": 2, "eager": 2, "dense prefill": 2}
+    same_k = bool((toks["kernel"] == toks["block"]).all())
+    graphed = bool((toks["kernel"] == toks["eager"]).all()) and captures == 1
+    dense_same = float((toks["dense prefill"] == toks["kernel"]).mean())
+    shapes = [(prompt_len, 16), (prompt_len, 12), (4200, 16), (3000, 10)]
+    reqs = [Request(i, rng.integers(1, cfg.vocab - 4, size=(n,)).astype(
+        np.int32), m) for i, (n, m) in enumerate(shapes)]
+    eng = ContinuousEngine(cfg, params, slots=2, seg_len=4, max_len=max_len,
+                           long_context=True, dsa_mode="kernel")
+    got = _run_clean(eng, reqs)
+    chunked = eng.chunked
+    del eng
+    solo = Engine(cfg, params, max_len=max_len, long_context=True,
+                  dsa_mode="kernel")
+    cont = all(bool((got[r.rid] == solo.generate(
+        r.prompt[None], r.n_new).tokens[0]).all()) for r in reqs)
+    del solo, params
+    torch.cuda.empty_cache()
+    layer = _moe_card_vs_cpu(torch)
+    print(f"17a parity: 2-layer full-width mixtral_8x22b f32, prompt "
+          f"{prompt_len}, {n_new} new: kernel (K2 with window, "
+          f"{k2['kernel']} launches a prefill) == block: {same_k}; graphed "
+          f"scan == eager python loop: {graphed} ({captures} capture); "
+          f"moe_prefill='dense' ran (K2 {k2['dense prefill']}; "
+          f"{100 * dense_same:.1f} % of its tokens equal the capacity "
+          f"prefill's); continuous (blocking, dense ring, "
+          f"{len(reqs)} requests) == solo generate: {cont}; MoE layer card "
+          f"vs CPU at reduced width, f32: capacity (cf 1.0, "
+          f"{layer['dropped']} of {layer['pairs']} pairs dropped, "
+          f"positions equal: {layer['positions_equal']}) "
+          f"{layer['capacity']:.2e}, decode-dense {layer['dense']:.2e} of "
+          f"the largest magnitude (limit {MOE_REL:g}); "
+          f"{time.monotonic() - t0:.1f} s [{card}]", flush=True)
+    for k, t in toks.items():
+        print(f"  {k:14s}: {t[:, :8].tolist()}")
+    if not (same_k and graphed and cont and not chunked
+            and k2 == want_k2 and layer["positions_equal"]
+            and layer["dropped"] > 0
+            and max(layer["capacity"], layer["dense"]) <= MOE_REL):
+        fail(f"17a mixtral parity failed: K2 {k2}, chunked {chunked}")
+    return {"kernel_block": same_k, "graphed": graphed, "continuous": cont,
+            "layer": layer, "k2": k2}
+
+
+def _timed_decode(torch, step, tok, steps: int) -> tuple:
+    """Run ``steps`` greedy steps from ``tok``; (ms a step on the host
+    clock around a synchronised run, the last token)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tok = step(tok)[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3, tok
+
+
+def mixtral_slice(torch, seed: int, card: str) -> dict:
+    """17b.  mixtral_8x22b at full width, MIXTRAL_LAYERS layers, bf16
+    weights and a bf16 cache (so the residual stream stays bf16 through
+    decode), random weights from the seed, DSA on the kernel path.  The
+    static slice through ``launch.serve`` (batch 4, prompt 8192, 32 new):
+    K2 once a layer, no decode kernel; then on one model: the share of
+    (token, slot) pairs the capacity prefill dropped, a torch.profiler
+    breakdown of the prefill and of a graphed decode step, one eager
+    decode step on the default f32 cache, and the continuous engine (4
+    slots, 8 requests of 4096-8192 tokens in whole blocks and 16-32 new,
+    all queued at the start, blocking admission into the ring, K2 once a
+    layer an admission)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_config
+    from repro_torch.inference.engine import Engine
+    from repro_torch.inference.scheduler import (ContinuousEngine, Request,
+                                                 summarize)
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.attention import RunFlags
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(get_config("mixtral_8x22b"),
+                              n_layers=MIXTRAL_LAYERS)
+    b, plen, n_new = 4, 8192, 32
+    max_len = plen + n_new + 16
+    torch.cuda.reset_peak_memory_stats()
+    serve.reset_launch_counts()
+    res = serve.main(["--arch", "mixtral_8x22b", "--layers",
+                      str(MIXTRAL_LAYERS), "--batch", str(b), "--prompt-len",
+                      str(plen), "--new-tokens", str(n_new), "--dsa",
+                      "--dsa-mode", "kernel", "--cache-dtype", "bfloat16",
+                      "--seed", str(seed)])
+    n = serve.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    flags = RunFlags(mode="decode", long_context=True)
+    row = serve.cache_bytes(TT.init_cache(cfg, 1, max_len, flags,
+                                          dtype=torch.bfloat16,
+                                          device="meta"))
+    out = {"prefill_ms": res.prefill_s * 1e3,
+           "decode_tok_s": res.tokens_per_s, "peak_gib": peak,
+           "cache_bytes_per_row": row, "launches": n}
+    tok = res.tokens
+    print(f"17b mixtral static slice ({MIXTRAL_LAYERS} layers bf16, bf16 "
+          f"cache, batch {b}, prompt {plen}, {n_new} new, kernel path): "
+          f"prefill {res.prefill_s * 1e3:.1f} ms, decode "
+          f"{res.tokens_per_s:.1f} tok/s over {res.decode_steps} steps "
+          f"({res.decode_dispatches} graph replays), peak memory "
+          f"{peak:.2f} GiB, cache {row} bytes per batch row, launches "
+          + " ".join(f"{k} {v}" for k, v in n.items()) + f" [{card}]",
+          flush=True)
+    bad = {k: v for k, v in n.items()
+           if v != (MIXTRAL_LAYERS if k == "K2" else 0)}
+    if (bad or res.decode_dispatches != res.decode_steps
+            or tok.shape != (b, n_new) or tok.min() < 0
+            or tok.max() >= cfg.vocab):
+        fail(f"17b static slice: launches {bad}, tokens {tok.shape}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = TT.init_model(seed, cfg)
+    prompts = np.random.default_rng(seed).integers(
+        1, cfg.vocab - 4, size=(b, plen)).astype(np.int32)
+    eng = Engine(cfg, params, max_len=max_len, long_context=True,
+                 dsa_mode="kernel", cache_dtype=torch.bfloat16)
+    drops = []
+    dispatch = moe._dispatch_positions
+
+    def counting(e_flat, num_experts, cap):
+        pos = dispatch(e_flat, num_experts, cap)
+        drops.append(((pos >= cap).sum(), pos.numel()))
+        return pos
+
+    acts = [ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        moe._dispatch_positions = counting
+        try:
+            eng.prefill(prompts)                                 # warm
+        finally:
+            moe._dispatch_positions = dispatch
+        dropped = int(sum(int(d) for d, _ in drops))
+        pairs = sum(p for _, p in drops)
+        _, _, prefill_s = eng.prefill(prompts)
+        with profile(activities=acts) as prof:
+            eng.prefill(prompts)
+        pre = _device_time(prof, "mixtral_prefill", 1)
+        step = eng.scan_step(b)                                  # capture
+        last, _, _ = eng.prefill(prompts, caches=eng.resident_cache(b))
+        tok = last[:, -1].argmax(-1, keepdim=True)
+        _, tok = _timed_decode(torch, step, tok, 2)              # warm
+        step_ms, tok = _timed_decode(torch, step, tok, 8)
+        with profile(activities=acts) as prof:
+            _, tok = _timed_decode(torch, step, tok, 2)
+        dec = _device_time(prof, "mixtral_decode", 2)
+    _print_profile(f"17b mixtral prefill ({b} x {plen}) [{card}]",
+                   prefill_s * 1e3, *pre)
+    _print_profile(f"17b mixtral decode step, graph replay (batch {b}) "
+                   f"[{card}]", step_ms, *dec)
+    # every expert read once a step: the least time a step could take
+    expert_bytes = sum(p.numel() * p.element_size()
+                       for g in params["groups"]
+                       for k, p in g["b0"]["mlp"].items() if k != "router")
+    bound_ms = expert_bytes / HBM_BYTES_PER_S * 1e3
+    out.update(dropped=dropped, pairs=pairs, prefill_busy_ms=pre[0],
+               step_ms=step_ms, step_busy_ms=dec[0],
+               expert_bound_ms=bound_ms, capture_ms=step.capture_ms)
+    print(f"17b: capacity prefill dropped {dropped} of {pairs} (token, "
+          f"slot) pairs ({100 * dropped / pairs:.3f} %); graphed decode step "
+          f"{step_ms:.3f} ms (capture {step.capture_ms:.1f} ms) against "
+          f"{bound_ms:.3f} ms to read the {expert_bytes / 1e9:.2f} GB of "
+          f"experts once at {HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+          f"({100 * bound_ms / step_ms:.1f} %) [{card}]", flush=True)
+    del eng, step
+    torch.cuda.empty_cache()
+
+    # the default f32 cache: the residual stream turns f32 after layer 0
+    # and each decode step copies every expert to f32 (ROADMAP Queue 3)
+    eng = Engine(cfg, params, max_len=max_len, long_context=True,
+                 dsa_mode="kernel", loop="python")
+    try:
+        with torch.inference_mode():
+            caches = eng.resident_cache(b)
+            last, _, _ = eng.prefill(prompts, caches=caches)
+            tok = last[:, -1].argmax(-1, keepdim=True)
+
+            def eager(t):
+                return TT.decode_step(params, cfg, eng.decode_flags, t,
+                                      caches)[0]
+
+            torch.cuda.reset_peak_memory_stats()
+            _, tok = _timed_decode(torch, eager, tok, 1)         # warm
+            f32_ms, tok = _timed_decode(torch, eager, tok, 2)
+        f32_peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"17b: one eager decode step on the default f32 cache "
+              f"{f32_ms:.3f} ms (peak memory {f32_peak:.2f} GiB) against "
+              f"the graphed bf16-cache step's {step_ms:.3f} ms [{card}]",
+              flush=True)
+        out.update(f32_cache_step_ms=f32_ms, f32_cache_peak_gib=f32_peak)
+    except torch.cuda.OutOfMemoryError:
+        print(f"17b: the eager decode step on the default f32 cache ran "
+              f"out of memory: not measured [{card}]", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+
+    # prompts of whole 128-token blocks: the block (K2) prefill needs
+    # them, another length takes the token path (as in the reference)
+    rng = np.random.default_rng(seed + 1)
+    reqs = [Request(i, rng.integers(1, cfg.vocab - 4, size=(128 * int(
+        rng.integers(32, 65)),)).astype(np.int32),
+        int(rng.integers(16, 33))) for i in range(8)]
+    ceng = ContinuousEngine(cfg, params, slots=4, seg_len=16,
+                            max_len=max_len, long_context=True,
+                            dsa_mode="kernel", cache_dtype=torch.bfloat16)
+    serve.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    results = ceng.serve(reqs)
+    n = serve.launch_counts()
+    st = ceng.stats
+    summ = summarize(results, max(r.finish_s for r in results))
+    cpeak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"17b mixtral continuous slice (4 slots, 8 requests, prompts "
+          f"{min(len(r.prompt) for r in reqs)}-"
+          f"{max(len(r.prompt) for r in reqs)}, blocking admission into "
+          f"the ring): {summ['goodput_tok_s']} tok/s goodput, latency p50 "
+          f"{summ['p50_latency_s']} s / p95 {summ['p95_latency_s']} s, TTFT "
+          f"p50 {summ['p50_ttft_s']} s / p95 {summ['p95_ttft_s']} s, "
+          f"{st['segments']} segments, {st['admitted']} admissions, "
+          f"{st['decode_steps']} decode steps, peak memory {cpeak:.2f} GiB, "
+          f"launches " + " ".join(f"{k} {v}" for k, v in n.items() if v)
+          + f" [{card}]", flush=True)
+    bad = [r.rid for r in results
+           if r.status != "ok" or len(r.tokens) != r.n_new]
+    others = {k: v for k, v in n.items() if k != "K2" and v}
+    if (len(results) != len(reqs) or bad or others or ceng.chunked
+            or n["K2"] == 0 or n["K2"] % MIXTRAL_LAYERS):
+        fail(f"17b continuous slice: bad {bad}, launches {n}")
+    out["continuous"] = {"summary": summ, "peak_gib": cpeak,
+                         "launches": n}
+    del ceng, params
+    torch.cuda.empty_cache()
+    print(f"phase 17b: {time.monotonic() - t0:.1f} s", flush=True)
+    return out
+
+
+def mixtral_train_slice(torch, seed: int, card: str) -> dict:
+    """17c.  mixtral_8x22b at full width, 2 layers, through
+    ``launch.train``: bf16 params with bf16 moments, remat full, DSA block
+    path, 4 steps of 4 x 4096 tokens in 2 microbatches (4 if 2 run out of
+    memory); finite metrics, no kernel launched; the step time, tokens/s,
+    the 6 N D share of 989 TFLOP/s with N the active parameters (2 of 8
+    experts a token) and with all of them, peak memory, the router term;
+    then one profiled step."""
+    import math
+    import statistics
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import DataConfig, lm_batches
+    from repro_torch.launch import serve, train
+    from repro_torch.optim import adamw
+    from repro_torch.training import steps as ST
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(get_config("mixtral_8x22b"), n_layers=2)
+    b, s, steps, mb = 4, 4096, 4, 2
+    while True:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        serve.reset_launch_counts()
+        try:
+            res = train.main([
+                "--arch", "mixtral_8x22b", "--layers", "2", "--steps",
+                str(steps), "--seq", str(s), "--batch", str(b),
+                "--microbatches", str(mb), "--moment-dtype", "bfloat16",
+                "--data", "lm", "--log-interval", "1", "--seed", str(seed)])
+            break
+        except torch.cuda.OutOfMemoryError:
+            if mb == b:
+                raise
+            print(f"17c: {mb} microbatches ran out of memory; taking {b}",
+                  flush=True)
+        mb = b
+    n = {k: v for k, v in serve.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(res.step_s[1:])
+    tok_s = b * s / med
+    n_act, n_all = cfg.num_active_params(), cfg.num_params()
+    share = {k: 6 * v * b * s / med / PEAK_FLOPS["bfloat16"]
+             for k, v in (("active", n_act), ("all", n_all))}
+    finite = all(math.isfinite(v) for m in res.metrics for v in m.values())
+    router = [m["router_aux"] for m in res.metrics]
+    opt = adamw.OptConfig(moment_dtype="bfloat16", total_steps=steps + 2,
+                          warmup_steps=1)
+    batch = next(lm_batches(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                       global_batch=b, seed=seed + 1)))
+    wall, busy, kernels = _profiled_step(
+        torch, f"17c mixtral train step ({b} x {s}, {mb} microbatches) "
+        f"[{card}]", ST.make_train_step(cfg, opt, microbatches=mb),
+        res.state, batch)
+    n2 = {k: v for k, v in serve.launch_counts().items() if v}
+    print(f"17c mixtral train slice (2 layers bf16, bf16 moments, remat "
+          f"full, DSA block; {steps} steps of {b} x {s} in {mb} "
+          f"microbatches): step {med * 1e3:.1f} ms (median of steps "
+          f"2-{steps}; all: " + ", ".join(f"{t * 1e3:.1f}"
+                                          for t in res.step_s)
+          + f" ms), {tok_s:.0f} tok/s; 6 N D / step time / 989 TFLOP/s: "
+          f"N active {n_act:,} -> {100 * share['active']:.2f} %, N all "
+          f"{n_all:,} -> {100 * share['all']:.2f} %; peak memory "
+          f"{peak:.2f} GiB; losses "
+          + ", ".join(f"{m['loss']:.4f}" for m in res.metrics)
+          + "; router aux " + ", ".join(f"{r:.6f}" for r in router)
+          + f"; profiled step busy {100 * busy / wall:.1f} % "
+          f"({kernels:.0f} kernels); metrics finite: {finite}; kernels "
+          f"launched: {n or n2 or 'none'} [{card}]", flush=True)
+    if n or n2 or not finite or not all(r > 0 for r in router):
+        fail(f"17c: launched {n or n2}, finite {finite}, router {router}")
+    del res
+    torch.cuda.empty_cache()
+    print(f"phase 17c: {time.monotonic() - t0:.1f} s", flush=True)
+    return {"step_ms": med * 1e3, "tok_s": tok_s, "share": share,
+            "peak_gib": peak, "microbatches": mb, "router_aux": router,
+            "busy_share": busy / wall}
+
+
 def static_slice(torch, seed: int, arch: str, dsa_mode: str, want,
                  prompt_len: int = 4096, quant=None) -> dict:
     """Serve ``arch`` at full width through ``repro_torch.launch.serve``:
@@ -3499,6 +3921,16 @@ def main() -> None:
         check_k2(torch, timer, b=4, hq=32, hkv=8, hd=80, l=8192, blk=128,
                  nb=6, window=4096, dtype="bfloat16", seed=args.seed,
                  timed=True)]
+    # the window path at mixtral_8x22b's geometry (hd 128, G 6): its f32
+    # parity run's (B 2, L 4352) and its prefill's (B 4, L 8192, bf16,
+    # timed: the kernels line's mixtral entry)
+    k2m_checks = [
+        check_k2(torch, timer, b=2, hq=48, hkv=8, hd=128, l=4352, blk=128,
+                 nb=6, window=4096, dtype="float32", seed=args.seed,
+                 timed=False),
+        check_k2(torch, timer, b=4, hq=48, hkv=8, hd=128, l=8192, blk=128,
+                 nb=6, window=4096, dtype="bfloat16", seed=args.seed,
+                 timed=True)]
     k3_checks = [
         check_k3(torch, timer, b=2, hq=8, hkv=2, hd=16, s=100, c=32, blk=16,
                  q_dt="float32", c_dt="float32", q_off=[64, 32],
@@ -3578,6 +4010,7 @@ def main() -> None:
     for name, checks in [("K1 dsa_decode", k1_checks),
                          ("K2 dsa_attention", k2_checks),
                          ("K2 dsa_attention (window)", k2w_checks),
+                         ("K2 dsa_attention (window, mixtral)", k2m_checks),
                          ("K3 dsa_chunk_prefill", k3_checks),
                          ("K4 dsa_decode_paged", k4_checks)] + [
             (f"{k} {q or ''}".strip(), v) for (k, q), v in q_checks.items()]:
@@ -3702,6 +4135,14 @@ def main() -> None:
     launches["rwkv eval"] = rwkv_train_slice(torch, args.seed)["launches"]
     yi_train_slice(torch, args.seed)
     print(f"phase 16: {time.monotonic() - t16:.1f} s", flush=True)
+    # mixtral_8x22b's mixture of experts (17a gated parity, 17b the
+    # full-width serving slices, K2 once a layer in the static prefill;
+    # 17c full-width training)
+    t17 = time.monotonic()
+    mixtral_parity_phase(torch, args.seed, card)
+    launches["mixtral"] = mixtral_slice(torch, args.seed, card)["launches"]
+    mixtral_train_slice(torch, args.seed, card)
+    print(f"phase 17: {time.monotonic() - t17:.1f} s", flush=True)
 
     src = "src/repro_torch/kernels/csrc/"
     rep = "src/repro/kernels/"
@@ -3722,6 +4163,10 @@ def main() -> None:
             ("dsa_block_sparse_attention (window)", "dsa_attention.cu",
              "dsa_attention.py:77", k2w_checks[-1], k2w_checks,
              launches["h2o"]["K2"]),
+            # and at mixtral_8x22b's (hd 128, G 6), the 17b static prefill
+            ("dsa_block_sparse_attention (window, mixtral)",
+             "dsa_attention.cu", "dsa_attention.py:77", k2m_checks[-1],
+             k2m_checks, launches["mixtral"]["K2"]),
             ("dsa_decode_gather_attention", "dsa_decode.cu",
              "dsa_decode.py:185", k1_checks[2], k1_checks,
              sum(k1_paths.values())),

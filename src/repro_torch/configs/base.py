@@ -1,5 +1,5 @@
 """Architecture configuration (the port's own copy of the dense-GQA,
-sliding-window and RWKV6 subset).
+sliding-window, mixture-of-experts and RWKV6 subset).
 
 Each architecture is an ``ArchConfig`` in its own module
 (``repro_torch/configs/<id>.py``) exposing ``CONFIG``.  ``get_config(name)``
@@ -11,6 +11,19 @@ from __future__ import annotations
 import dataclasses
 import importlib
 from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 8
+    top_k: int = 2
+    d_ff_expert: int = 0          # expert hidden dim (0 -> use arch d_ff)
+    num_shared_experts: int = 0   # deepseek-style always-on shared experts
+    layer_period: int = 1         # MoE every `period` layers (1 = all layers)
+    layer_offset: int = 0
+    first_k_dense: int = 0        # deepseek: first k layers stay dense MLP
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +56,7 @@ class DSAConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # dense | ssm (RWKV6)
+    family: str                   # dense | moe | ssm (RWKV6)
     n_layers: int
     d_model: int
     n_heads: int
@@ -56,6 +69,7 @@ class ArchConfig:
     rope_theta: float = 1e4
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
     rwkv: Optional[RWKVConfig] = None
     dsa: DSAConfig = dataclasses.field(default_factory=DSAConfig)
     dtype: str = "bfloat16"       # activation dtype
@@ -70,9 +84,65 @@ class ArchConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    def num_params(self) -> int:
+        """Analytic parameter count (embedding + blocks), for 6ND roofline
+        (the reference's count, less its MLA and Mamba branches)."""
+        d, v = self.d_model, self.vocab
+        n_q = self.n_heads * self.resolved_head_dim
+        n_kv = self.n_kv_heads * self.resolved_head_dim
+        total = v * d * (1 if self.tie_embeddings else 2)
+        for i in range(self.n_layers):
+            if layer_kind(self, i) == "rwkv":
+                total += 4 * d * d + d * d + 2 * d * self.rwkv.decay_lora
+                total += 2 * d * self.d_ff + self.d_ff * d  # channel-mix
+            else:
+                total += d * (n_q + 2 * n_kv) + n_q * d
+                total += self._mlp_params(i)
+        return total
+
+    def _mlp_params(self, layer_idx: int) -> int:
+        d, f = self.d_model, self.d_ff
+        dense = 3 * d * f  # gated (swiglu): gate+up+down
+        if self.moe is None:
+            return dense
+        mo = self.moe
+        if layer_idx < mo.first_k_dense:
+            return dense
+        if (layer_idx - mo.layer_offset) % mo.layer_period != 0:
+            return dense
+        fe = mo.d_ff_expert or f
+        routed = mo.num_experts * 3 * d * fe
+        shared = mo.num_shared_experts * 3 * d * fe
+        router = d * mo.num_experts
+        return routed + shared + router
+
+    def num_active_params(self) -> int:
+        """Active params per token (MoE top-k) for 6·N_active·D."""
+        if self.moe is None:
+            return self.num_params()
+        mo = self.moe
+        fe = mo.d_ff_expert or self.d_ff
+        n_moe = sum(is_moe_layer(self, i) for i in range(self.n_layers))
+        inactive = n_moe * (mo.num_experts - mo.top_k) * 3 * self.d_model * fe
+        return self.num_params() - inactive
+
+
+def is_moe_layer(cfg: ArchConfig, i: int) -> bool:
+    if cfg.moe is None or layer_kind(cfg, i) == "rwkv":
+        return False
+    mo = cfg.moe
+    if i < mo.first_k_dense:
+        return False
+    return (i - mo.layer_offset) % mo.layer_period == 0
+
+
+def layer_kind(cfg: ArchConfig, i: int) -> str:
+    """Which block kind layer ``i`` is: attn | rwkv (the ported kinds)."""
+    return "rwkv" if cfg.rwkv is not None else "attn"
+
 
 ARCH_IDS = ("yi_6b", "stablelm_3b", "qwen1_5_110b", "h2o_danube_1_8b",
-            "rwkv6_3b")
+            "rwkv6_3b", "mixtral_8x22b")
 
 
 def get_config(name: str) -> ArchConfig:
@@ -92,6 +162,13 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         swa_window=min(cfg.swa_window, 64) if cfg.swa_window else 0,
         remat=False, dtype="float32", param_dtype="float32",
     )
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=4, top_k=min(cfg.moe.top_k, 2),
+            d_ff_expert=64, first_k_dense=min(cfg.moe.first_k_dense, 1),
+            capacity_factor=8.0)   # no capacity drops at test scale
+        if cfg.moe.first_k_dense:
+            kw["n_layers"] = 3
     if cfg.rwkv is not None:
         kw["rwkv"] = RWKVConfig(head_dim=16, decay_lora=8)
     if cfg.dsa.enabled:

@@ -4,9 +4,19 @@
 (inference/scheduler.py) the shared and continuous fields, so one config
 can parameterise a whole serving stack.  The port carries the fields of
 the paths ported so far.  Still unported (``UNPORTED``; each raises
-``NotImplementedError``): serving meshes (``mesh``, ``shard_rules``) and
-MoE prefill (``moe_prefill``).  RWKV6 in the continuous engine is refused
-by the engine itself, whatever the config.
+``NotImplementedError``): serving meshes (``mesh``, ``shard_rules``).
+RWKV6 in the continuous engine is refused by the engine itself, whatever
+the config.
+
+MoE archs:
+
+  moe_prefill  "capacity" (default): prefill routes each row's tokens
+               through the capacity dispatch (a token past its expert's
+               capacity is dropped), decode steps through the dense path;
+               such an arch admits blocking.  "dense": prefill routes the
+               decode-dense path too, so whole-prompt prefill, chunk steps
+               and decode are token-exact and the arch can chunk-admit
+               (where it can bucket: not on an SWA ring).
 
 Request lifecycle and fault tolerance (continuous engine):
 
@@ -70,6 +80,7 @@ from repro_torch.models.attention import (DSA_MODES, KV_QUANT_DTYPES,
                                           SELECT_DTYPES)
 
 LOOPS = ("scan", "python")
+MOE_PREFILL_MODES = ("capacity", "dense")
 SHED_POLICIES = ("reject", "oldest", "lowest-priority")
 
 
@@ -81,6 +92,7 @@ class ServingConfig:
     dsa_mode: str = "off"            # default DSA execution path
     cache_dtype: torch.dtype = torch.float32   # K/V cache dtype
     pad_id: int = 0
+    moe_prefill: str = "capacity"    # "dense" = token-exact MoE prefill
     select_dtype: str = "float32"    # DSA selection precision (see above)
     kv_quant: Optional[str] = None   # K/V cache storage quant (see above)
     # -- Engine (static batch) ---------------------------------------------
@@ -115,6 +127,8 @@ class ServingConfig:
                                  ("kv_quant", self.kv_quant,
                                   KV_QUANT_DTYPES),
                                  ("loop", self.loop, LOOPS),
+                                 ("moe_prefill", self.moe_prefill,
+                                  MOE_PREFILL_MODES),
                                  ("shed_policy", self.shed_policy,
                                   SHED_POLICIES)):
             if val not in valid:
@@ -133,7 +147,7 @@ class ServingConfig:
 
 
 # the reference's ServingConfig fields of paths not ported yet
-UNPORTED = ("mesh", "shard_rules", "moe_prefill")
+UNPORTED = ("mesh", "shard_rules")
 
 
 def resolve_config(config: Optional[ServingConfig], kw: dict

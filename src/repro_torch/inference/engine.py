@@ -120,12 +120,18 @@ def can_quantize(cfg: ArchConfig) -> bool:
     return can_page(cfg)
 
 
-def can_chunk_prefill(cfg: ArchConfig) -> bool:
+def can_chunk_prefill(cfg: ArchConfig, dsa_mode: str = "off",
+                      moe_dense: bool = False) -> bool:
     """Chunked (interleavable) admission prefill is supported wherever it
     is token-exact against the whole-prompt bucketed prefill: everything
-    prompt bucketing covers.  (The reference also leaves out MoE,
-    cross-attention and DSA-over-MLA archs, none of which is ported.)"""
-    return can_bucket_prompts(cfg)
+    prompt bucketing covers, minus MoE archs, whose prefill routes the
+    capacity dispatch while chunk steps run the decode-dense expert path
+    (the same math in another summation order, and drops).  ``moe_dense``
+    (Engine(moe_prefill="dense")) re-admits them: prefill then routes the
+    decode-dense path too.  ``dsa_mode`` is the reference's argument (its
+    DSA-over-MLA clause; MLA, and the reference's cross-attention clause,
+    are not ported)."""
+    return can_bucket_prompts(cfg) and (cfg.moe is None or moe_dense)
 
 
 @dataclasses.dataclass
@@ -197,9 +203,14 @@ class Engine:
         self.bucket_prompts = c.prompt_buckets and can_bucket_prompts(cfg)
         self.bucket_steps = c.step_buckets
         self.cache_dtype = c.cache_dtype
+        # moe_prefill="dense": prefill routes the decode-dense expert path,
+        # so prefill, chunk steps and decode are token-exact (chunked
+        # admission for MoE archs)
+        self.moe_dense = c.moe_prefill == "dense" and cfg.moe is not None
         quant = dict(select_dtype=c.select_dtype, kv_quant=c.kv_quant)
         self.prefill_flags = RunFlags(mode="prefill", dsa_mode=c.dsa_mode,
-                                      long_context=c.long_context, **quant)
+                                      long_context=c.long_context,
+                                      moe_dense=self.moe_dense, **quant)
         self.decode_flags = RunFlags(mode="decode", dsa_mode=c.dsa_mode,
                                      long_context=c.long_context, **quant)
         self._caches: Dict[int, Dict] = {}

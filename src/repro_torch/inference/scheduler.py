@@ -27,7 +27,8 @@ streams requests through it:
                   whole slot row is overwritten, so no state leaks from an
                   earlier tenant).  BLOCKING (``chunked_prefill=False``,
                   and always where ``engine.can_chunk_prefill`` says no:
-                  SWA archs): the group runs one ``Engine.prefill`` while
+                  SWA archs, and MoE archs under ``moe_prefill=
+                  "capacity"``): the group runs one ``Engine.prefill`` while
                   every resident decoder waits.  An SWA arch's resident
                   cache is a dense ring of min(max_len, window) rows per
                   slot; the insert zero-extends a prefill ring of
@@ -435,8 +436,12 @@ class ContinuousEngine:
                              loop="scan")
         self.device = self.engine.device
         # chunked admission replays the bucketed whole-prompt prefill;
-        # SWA archs admit blocking (their prompts are not bucketed)
-        chunk_ok = self.engine.bucket_prompts and can_chunk_prefill(cfg)
+        # SWA archs admit blocking (their prompts are not bucketed), and
+        # MoE archs unless moe_prefill="dense" routes their prefill
+        # through the decode-dense expert path
+        chunk_ok = self.engine.bucket_prompts and can_chunk_prefill(
+            cfg, self.engine.decode_flags.dsa_mode,
+            moe_dense=self.engine.moe_dense)
         self.chunked = chunk_ok if c.chunked_prefill is None else (
             c.chunked_prefill and chunk_ok)
         self.paged = c.paged
@@ -670,7 +675,9 @@ class ContinuousEngine:
         m0 = self._eff_mode(first)
         budget = None
         if self.paged:
-            key0, n_sh = self._prefix_ctx(first, b0, m0, self.chunked)
+            use_chunked = self.chunked and can_chunk_prefill(
+                self.cfg, m0, moe_dense=self.engine.moe_dense)
+            key0, n_sh = self._prefix_ctx(first, b0, m0, use_chunked)
             hit = (key0 is not None
                    and self.pool.lookup_prefix(key0) is not None)
             shared_pending = 0 if hit else n_sh
@@ -1076,9 +1083,10 @@ class ContinuousEngine:
                 break                     # the pool cannot fund the anchor
             mode = self._eff_mode(group[0])
             self._cur_mode = mode
-            # every mode of a ported arch chunks where the engine does (the
-            # reference's one mode outside the envelope is DSA over MLA)
-            if self.chunked:
+            # a group's mode is held to the envelope as in the reference
+            # (whose one mode outside it, DSA over MLA, is not ported)
+            if self.chunked and can_chunk_prefill(
+                    self.cfg, mode, moe_dense=self.engine.moe_dense):
                 self._start_chunked_group(free, group, mode)
                 break
             self._admit_group(free, group, mode, clock, results)

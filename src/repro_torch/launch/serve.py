@@ -91,6 +91,20 @@ the verify rounds and how many tokens each round emitted:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b \
         --reduced --dsa --dsa-mode kernel --spec 4 --device cpu
 
+``--arch mixtral_8x22b`` serves the mixture-of-experts model (8 experts,
+top 2, on a 4096-token sliding-window ring): prefill routes each row's
+tokens through the capacity dispatch, decode steps run every expert on
+every token; ``--moe-prefill dense`` routes prefill decode-dense too
+(token-exact with chunk steps, so an MoE arch without a ring can
+chunk-admit).  Its full width does not fit one card at all 56 layers:
+``--layers N`` cuts the depth, and ``--cache-dtype bfloat16`` keeps the
+residual stream of a bf16 model in bf16 through decode (the default f32
+cache promotes it, and each step then copies every expert to f32):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral_8x22b \
+        --reduced --batch 2 --prompt-len 96 --new-tokens 8 --dsa \
+        --dsa-mode kernel --moe-prefill dense --device cpu
+
 ``--arch rwkv6_3b`` serves the RWKV6 model through the static engine: its
 prefill runs the chunked wkv kernel K7 once per layer when the prompt is
 a multiple of 32 longer than 32; ``--dsa`` falls back to off (no score
@@ -102,6 +116,7 @@ matrix), and the cache line reports the recurrent state's bytes:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 
@@ -241,6 +256,15 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=128)
     ap.add_argument("--new-tokens", type=int, default=64)
     ap.add_argument("--max-len", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the arch to its first N layers (0 = all)")
+    ap.add_argument("--cache-dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="K/V cache dtype (full-precision caches)")
+    ap.add_argument("--moe-prefill", default="capacity",
+                    choices=["capacity", "dense"],
+                    help="MoE prefill: capacity dispatch | decode-dense "
+                         "(token-exact with chunk steps)")
     ap.add_argument("--dsa", action="store_true",
                     help="DSA long-context decode (predicted-key cache)")
     ap.add_argument("--dsa-mode", default="block",
@@ -313,6 +337,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = init_model(args.seed, cfg, device=device)
     max_len = args.max_len or (args.prompt_len + args.new_tokens + 16)
     dsa_on = args.dsa and cfg.dsa.enabled
@@ -328,6 +354,8 @@ def main(argv=None):
                            select_dtype=(args.select_dtype if dsa_on
                                          else "float32"),
                            kv_quant=args.kv_quant,
+                           cache_dtype=getattr(torch, args.cache_dtype),
+                           moe_prefill=args.moe_prefill,
                            loop=args.loop, slots=args.slots or args.batch,
                            seg_len=args.seg_len,
                            chunk_tokens=args.chunk_tokens, paged=args.paged,

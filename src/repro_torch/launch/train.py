@@ -24,6 +24,9 @@ It prints the reference's step lines (every ``--log-interval`` steps and
 the last), its ``[done]`` line and, on the card, the median step time,
 tokens/s and the peak memory.  Full-width archs recompute each layer in
 the backward pass (``ArchConfig.remat``); ``--reduced`` ones do not.
+``--layers N`` cuts the arch to its first N layers (a full-width
+mixtral_8x22b layer holds 2.4 B expert parameters) and ``--moment-dtype
+bfloat16`` stores AdamW's moments in bf16.
 Sharded training (``--mesh`` other than ``host``) is not ported (ROADMAP
 Queue 1, "Distribution").
 """
@@ -66,6 +69,11 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--dsa-mode", default="auto",
                     choices=["auto", "off", "faithful", "block", "kernel"])
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the arch to its first N layers (0 = all)")
+    ap.add_argument("--moment-dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="AdamW moment storage dtype")
     ap.add_argument("--mesh", default="host",
                     choices=["host", "production", "multipod"])
     ap.add_argument("--ckpt-dir", default="")
@@ -85,13 +93,16 @@ def main(argv=None) -> TrainResult:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     dsa_mode = args.dsa_mode
     if dsa_mode == "auto":
         dsa_mode = "block" if cfg.dsa.enabled else "off"
     flags = RunFlags(mode="train", dsa_mode=dsa_mode)
 
     opt = adamw.OptConfig(lr=args.lr, total_steps=args.steps,
-                          warmup_steps=max(1, args.steps // 10))
+                          warmup_steps=max(1, args.steps // 10),
+                          moment_dtype=args.moment_dtype)
     data = make_batches(args.data, DataConfig(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
         seed=args.seed))

@@ -128,6 +128,9 @@ class RunFlags:
     # speculative decoding: the chunk-append path verifies a draft chunk,
     # each row with the decode step's own numerics (_apply_verify)
     spec_verify: bool = False
+    # MoE prefill through the decode-dense expert path, token-exact with
+    # chunk steps (Engine(moe_prefill="dense"))
+    moe_dense: bool = False
     # observability (inference/telemetry.py): a block-path decode step
     # hands its selection (idx, ok, kv_len) out through the aux output,
     # under "sel" (logical block indices on a paged cache).  Only the

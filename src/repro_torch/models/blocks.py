@@ -1,8 +1,10 @@
-"""Transformer blocks and layer groups (dense attention and RWKV6 archs).
+"""Transformer blocks and layer groups (dense attention, mixture-of-experts
+and RWKV6 archs).
 
 A *group* is the repeating unit of layers; for the archs ported so far a
-group is one pre-norm sub-block ("b0"): attention + SwiGLU MLP, or, for
-RWKV6, the time-mix block + the channel-mix FFN ("rwkv").
+group is one pre-norm sub-block ("b0"): attention + SwiGLU MLP, attention
++ a mixture of experts (``moe``: mixtral, every layer), or, for RWKV6,
+the time-mix block + the channel-mix FFN ("rwkv").
 """
 from __future__ import annotations
 
@@ -18,19 +20,30 @@ from repro_torch.models.attention import (RunFlags, apply_attention,
                                           init_cache_attention)
 from repro_torch.models import ssm
 from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.models.moe import apply_moe, init_moe
 
 
 @dataclasses.dataclass(frozen=True)
 class SubBlockDef:
     kind: str = "attn"
+    moe: bool = False
     causal: bool = True
 
 
 def group_defs(cfg: ArchConfig) -> List[SubBlockDef]:
-    """The sub-block structure of one group."""
+    """The sub-block structure of one group.  MoE: the reference's uniform
+    pattern only (an MoE FFN on every layer, mixtral); a dense prologue
+    (``first_k_dense``, deepseek_v3) and periodic MoE layers (jamba) are
+    not ported."""
     if cfg.rwkv is not None:
         return [SubBlockDef("rwkv")]
-    return [SubBlockDef("attn")]
+    mo = cfg.moe
+    if mo is not None and (mo.first_k_dense or mo.layer_period != 1):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE with first_k_dense={mo.first_k_dense}, "
+            f"layer_period={mo.layer_period} is not ported (ROADMAP Queue "
+            f"1, \"Remaining archs\")")
+    return [SubBlockDef("attn", moe=mo is not None)]
 
 
 def n_groups(cfg: ArchConfig) -> int:
@@ -63,7 +76,7 @@ def init_subblock(gen: torch.Generator, cfg: ArchConfig, d: SubBlockDef, *,
     if d.kind != "attn":
         raise NotImplementedError(f"sub-block kind {d.kind!r} is not ported")
     return {**norms, "attn": init_attention(gen, cfg, **kw),
-            "mlp": init_mlp(gen, cfg, **kw)}
+            "mlp": (init_moe if d.moe else init_mlp)(gen, cfg, **kw)}
 
 
 def init_subblock_cache(cfg: ArchConfig, d: SubBlockDef, batch: int,
@@ -81,8 +94,10 @@ def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
                    x, cache=None, **step):
     """Pre-norm residual block.  Returns (x, cache, aux); the cache is
     updated in place, ``aux`` is the attention's (the MSE term in train
-    mode).  ``step``: the decode-time ``active``, ``chunk_len`` and
-    ``sel_len`` of ``apply_attention``."""
+    mode) and an MoE FFN's ``router`` term.  ``step``: the decode-time
+    ``active``, ``chunk_len`` and ``sel_len`` of ``apply_attention``.
+    An MoE FFN routes decode-dense in decode mode (steps, chunks, verify
+    rows) and under ``flags.moe_dense``, by capacity otherwise."""
     if d.kind == "rwkv":
         return _apply_rwkv_subblock(params, cfg, x, cache, **step), cache, {}
     h = rms_norm(x, params["norm1"].to(x.dtype), cfg.norm_eps)
@@ -91,8 +106,13 @@ def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
                                 causal=d.causal, **step)
     x = x + y
     h = rms_norm(x, params["norm2"].to(x.dtype), cfg.norm_eps)
-    x = x + apply_mlp(params["mlp"], h)
-    return x, cache, aux
+    if d.moe:
+        y, a = apply_moe(params["mlp"], cfg, h,
+                         decode=flags.mode == "decode" or flags.moe_dense)
+        aux = {**aux, **a}
+    else:
+        y = apply_mlp(params["mlp"], h)
+    return x + y, cache, aux
 
 
 def _apply_rwkv_subblock(params, cfg: ArchConfig, x, cache=None,

@@ -28,8 +28,10 @@ instead of K/V rows.
 
 ``forward_train`` is the training forward (``RunFlags(mode="train")``, no
 cache): it also returns ``aux``, each of ``AUX_KEYS`` an f32 scalar summed
-over the layers (``mse``, the DSA predictor's Eq. 6 term; ``router``, 0
-here: no MoE arch is ported).  With ``cfg.remat`` each layer group runs
+over the layers (``mse``, the DSA predictor's Eq. 6 term; ``router``,
+the MoE load-balance term times ``router_aux_weight``, 0 on a dense
+arch).  An MoE layer trains on the capacity route; decode, chunk and
+verify steps run in decode mode and route decode-dense.  With ``cfg.remat`` each layer group runs
 under ``torch.utils.checkpoint`` when a gradient is being taken, so the
 backward pass recomputes its activations instead of holding them:
 ``remat_policy`` "full" recomputes everything, "dots" (the reference's
@@ -63,7 +65,8 @@ AUX_KEYS = ("mse", "router")
 
 def init_model(seed: int, cfg: ArchConfig, *, device=None) -> Dict[str, Any]:
     """Random weights from ``seed`` (a ``torch.Generator`` on the target
-    device), in ``cfg.param_dtype``.  ``device=None`` means the card."""
+    device), in ``cfg.param_dtype``, but for an MoE router, which is f32
+    as in the reference.  ``device=None`` means the card."""
     dev = resolve_device(device)
     dt = DTYPES[cfg.param_dtype]
     gen = torch.Generator(device=dev).manual_seed(seed)

@@ -14,7 +14,10 @@ commit's ktb replay equals sequential K1-path decode's); and the request
 lifecycle on graphed segments (a NaN row fails only its slot, a segment
 that raises is scrubbed and its graph captured again, the sparsity
 probe's K4 step leaves every cache leaf as it found it, and each capture
-is a compile event).
+is a compile event); and mixtral_8x22b's mixture of experts (K2's window
+at its geometry, hd 128 and GQA group 6; its ring's graphed decode equal
+to eager; the capacity dispatch on the card against the CPU's; the f32
+router of a bf16 model through a train step).
 
 Needs a CUDA card and the CUDA toolkit; skips without a card.  Imports
 neither JAX nor the reference, so it runs where only PyTorch is installed:
@@ -914,17 +917,21 @@ def test_cuda_graph_one_capture_per_key_and_recapture_after_reset(
     ("yi_6b", dict(long_context=True, dsa_mode="faithful", kv_quant="fp8",
                    select_dtype="int8"), 64),
     ("h2o_danube_1_8b", dict(long_context=True, dsa_mode="kernel"), 160),
-    ("h2o_danube_1_8b", {}, 90)],
+    ("h2o_danube_1_8b", {}, 90),
+    ("mixtral_8x22b", dict(long_context=True, dsa_mode="kernel"), 160),
+    ("mixtral_8x22b", {}, 90)],
     ids=["yi_6b-faithful", "yi_6b-faithful-fp8", "h2o-ring-kernel",
-         "h2o-ring-off"])
+         "h2o-ring-off", "mixtral-ring-kernel", "mixtral-ring-off"])
 @pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "sampled"])
 def test_cuda_graph_faithful_and_ring_scan_equals_eager_loop(
         cuda_device, arch, kw, plen, greedy):
     """Faithful decode (a top-k over every cached score, no kernel) and
     h2o's ring (prompts past the 64-token window, so the ring wraps at
-    prefill and again in decode): the scan loop's graph replays give the
+    prefill and again in decode), and mixtral's (the same ring, each step
+    routing every token through every expert, top-k and the routing
+    weights' scatter on the card): the scan loop's graph replays give the
     python loop's tokens bit for bit; one capture; no decode kernel
-    launches; h2o's kernel-mode prefill launches K2 once a layer."""
+    launches; a kernel-mode prefill launches K2 once a layer."""
     import numpy as np
     from repro_torch.inference.engine import Engine
     cfg, params = _model(arch, cuda_device)
@@ -953,13 +960,16 @@ def test_cuda_graph_faithful_and_ring_scan_equals_eager_loop(
 @pytest.mark.parametrize("arch,kw", [
     ("yi_6b", dict(long_context=True, dsa_mode="faithful", paged=True)),
     ("yi_6b", dict(long_context=True, dsa_mode="faithful")),
-    ("h2o_danube_1_8b", dict(long_context=True, dsa_mode="kernel"))],
-    ids=["yi_6b-faithful-paged", "yi_6b-faithful-dense", "h2o-ring"])
+    ("h2o_danube_1_8b", dict(long_context=True, dsa_mode="kernel")),
+    ("mixtral_8x22b", dict(long_context=True, dsa_mode="kernel"))],
+    ids=["yi_6b-faithful-paged", "yi_6b-faithful-dense", "h2o-ring",
+         "mixtral-ring"])
 def test_cuda_graph_faithful_and_ring_segments_equal_solo_eager(
         cuda_device, arch, kw):
     """Continuous serving with every decode step a replay of the masked
     step's graph: faithful decode (chunked admission, paged or dense),
-    and h2o's dense ring (blocking admission, prompts past the window);
+    and h2o's and mixtral's dense rings (blocking admission, prompts past
+    the window; mixtral's prefill by capacity, its steps decode-dense);
     each request's tokens equal a solo eager ``generate(loop="python")``,
     greedy and sampled.  One capture, one replay a decode step."""
     import numpy as np
@@ -1646,3 +1656,88 @@ def test_cuda_dots_matches_full(cuda_device, arch):
     for path, g in named_leaves(grads["dots"]):
         scale = max(float(full[path].abs().max()), 1e-12)
         assert float((g - full[path]).abs().max()) <= 1e-4 * scale, path
+
+
+# -- mixture of experts (mixtral_8x22b) --------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [4352, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_k2_window_mixtral_geometry(cuda_device, dtype, l):
+    """K2's window instance at mixtral_8x22b's prefill geometry: hd 128,
+    GQA group 6 (48 query heads over 8 KV heads; two KV heads here),
+    window 4096, block 128, L 4352 (past the window by 2 blocks) and
+    8192; at the dtype's tolerance."""
+    args = _k2_window_inputs(cuda_device, dtype, 6, 128, 128, l,
+                             seed=90 + l)
+    kw = dict(block_q=128, block_k=128, causal=True, window=4096)
+    got = K2.dsa_block_sparse_attention(*args, **kw)
+    want = K2.dsa_block_sparse_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [64, 12, 2])
+def test_cuda_moe_capacity_dispatch_matches_cpu(cuda_device, cap):
+    """Reduced mixtral's capacity dispatch (f32) on the card and on the
+    CPU from the same weights and tokens: the same dispatch positions
+    (so the same dropped pairs), the output and aux within 1e-5 of the
+    largest magnitude (other summation orders)."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models import moe
+    cfg = reduced(get_config("mixtral_8x22b"))
+    params = moe.init_moe(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    x = torch.randn((40, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    dev = {k: v.to(cuda_device) for k, v in params.items()}
+    ids = moe._route(params["router"], x, cfg.moe.top_k)[0]
+    dev_ids = moe._route(dev["router"], x.to(cuda_device), cfg.moe.top_k)[0]
+    assert torch.equal(dev_ids.cpu(), ids)
+    e_flat = ids.reshape(-1).long()
+    pos = moe._dispatch_positions(e_flat, cfg.moe.num_experts, cap)
+    dev_pos = moe._dispatch_positions(e_flat.to(cuda_device),
+                                      cfg.moe.num_experts, cap)
+    assert torch.equal(dev_pos.cpu(), pos)
+    y, a = moe._moe_local(params, cfg, x, cap)
+    dy, da = moe._moe_local(dev, cfg, x.to(cuda_device), cap)
+    scale = float(y.abs().max())
+    assert float((dy.cpu() - y).abs().max()) <= 1e-5 * scale
+    assert abs(float(da) - float(a)) <= 1e-5 * abs(float(a))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_moe_router_stays_f32_through_a_train_step(cuda_device):
+    """A bf16 reduced mixtral on the card: ``init_model`` makes the router
+    f32 and the experts bf16; a train step (capacity route, block path,
+    no kernel launched) moves the router and keeps its dtype; the metrics
+    are finite and the router term positive."""
+    import dataclasses
+    import math
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.data.synthetic import DataConfig, lm_batches
+    from repro_torch.optim import adamw
+    from repro_torch.training import steps as ST
+    cfg = dataclasses.replace(reduced(get_config("mixtral_8x22b")),
+                              dtype="bfloat16", param_dtype="bfloat16")
+    opt = adamw.OptConfig(moment_dtype="bfloat16", warmup_steps=1)
+    state = ST.init_train_state(0, cfg, opt, device=cuda_device)
+    mlp = state["params"]["groups"][0]["b0"]["mlp"]
+    assert mlp["router"].dtype == torch.float32
+    assert mlp["w1"].dtype == mlp["w2"].dtype == torch.bfloat16
+    r0 = mlp["router"].detach().clone()
+    batch = next(lm_batches(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                       global_batch=2)))
+    before = K2.dsa_block_sparse_attention.launches
+    state, m = ST.make_train_step(cfg, opt)(state, batch)
+    assert K2.dsa_block_sparse_attention.launches == before
+    mlp = state["params"]["groups"][0]["b0"]["mlp"]
+    assert mlp["router"].dtype == torch.float32
+    assert not torch.equal(mlp["router"], r0)
+    assert all(math.isfinite(float(v)) for v in m.values())
+    assert float(m["router_aux"]) > 0

@@ -280,15 +280,21 @@ def test_submit_validates_and_refuses_unported_options():
     assert eng.cancel(0) and not eng.cancel(0)
     assert not eng.cancel(99)
     _, _, tc, tparams = _params("yi_6b")
-    # the lifecycle fields are ported and validated; meshes and MoE
-    # prefill are not
+    # the lifecycle fields and MoE prefill are ported and validated (a
+    # bad moe_prefill raises ValueError, as the reference's
+    # tests/test_quant_serving.py holds); meshes are not
     for field, bad in (("queue_cap", 0), ("shed_policy", "drop-newest"),
-                       ("admit_retries", -1)):
+                       ("admit_retries", -1), ("moe_prefill", "sparse")):
         with pytest.raises(ValueError, match=field):
             TS.ContinuousEngine(tc, tparams, device="cpu", **{field: bad})
-    for field in ("mesh", "shard_rules", "moe_prefill"):
+    for field in ("mesh", "shard_rules"):
         with pytest.raises(NotImplementedError, match=field):
             TS.ContinuousEngine(tc, tparams, device="cpu", **{field: 1})
+    # a dense arch accepts either MoE prefill and is left as it was
+    for mp in ("capacity", "dense"):
+        ce = TS.ContinuousEngine(tc, tparams, device="cpu", moe_prefill=mp)
+        assert ce.engine.config.moe_prefill == mp
+        assert not ce.engine.moe_dense and ce.chunked
     ce = TS.ContinuousEngine(tc, tparams, device="cpu", deadline_s=2.0,
                              queue_cap=3, shed_policy="oldest")
     assert (ce.deadline_s, ce.queue_cap, ce.shed_policy,

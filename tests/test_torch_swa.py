@@ -282,9 +282,10 @@ def test_predicates_equal_reference(arch):
         assert TE.can_page(cfg_t) == JE.can_page(cfg_j)
         assert TE.can_quantize(cfg_t) == JE.can_quantize(cfg_j)
         for mode in ("off", "faithful", "block", "kernel"):
-            assert TE.can_chunk_prefill(cfg_t) == JE.can_chunk_prefill(
-                cfg_j, mode)
-    swa = arch == ARCH
+            for dense in (False, True):
+                assert TE.can_chunk_prefill(cfg_t, mode, dense) == \
+                    JE.can_chunk_prefill(cfg_j, mode, dense)
+    swa = get_config(arch).swa_window > 0     # h2o and mixtral
     assert TE.can_page(get_config(arch)) == (not swa
                                              and get_config(arch).rwkv is None)
 

@@ -2,7 +2,7 @@
 (f32, the CPU): cross-entropy, one train step (loss, ce, mse, grad_norm,
 every gradient and every new param) on yi_6b (GQA), stablelm_3b (MHA) and
 h2o_danube_1_8b (sliding window) for dsa_mode block, faithful and off with
-1 and 2 microbatches, AdamW on identical gradients, the eval step and the
+1 and 2 microbatches, and on mixtral_8x22b (MoE) block and off, AdamW on identical gradients, the eval step and the
 synthetic data; and the port's own copies of the reference's training
 semantics (microbatch equivalence, frozen P, loss and MSE decrease), remat,
 the kernels' refusal of autograd, and the CLI.  The reference's weights
@@ -181,6 +181,21 @@ def test_reference_step_composition_matches_its_train_step():
 @pytest.mark.parametrize("arch", ["yi_6b", "stablelm_3b", "h2o_danube_1_8b"])
 def test_train_step_matches_reference(arch, mode, mb):
     """One step on 2 rows a microbatch (a batch of 2 or 4 rows)."""
+    _check_train_step(arch, mode, mb)
+
+
+@pytest.mark.parametrize("mb", [1, 2])
+@pytest.mark.parametrize("mode", ["block", "off"])
+def test_moe_train_step_matches_reference(mode, mb):
+    """The same step on mixtral_8x22b: the router term in the loss, its
+    gradients through the top-k weights and the aux, the capacity
+    dispatch per row.  Not faithful: at the experts' init scale (ROADMAP
+    Queue 3) its token top-k and 4-bit predictor levels flip on the two
+    frameworks' last-bit differences (tests/test_torch_mixtral.py)."""
+    _check_train_step("mixtral_8x22b", mode, mb)
+
+
+def _check_train_step(arch, mode, mb):
     jc, tc = _cfgs(arch)
     jopt, topt = JA.OptConfig(**OPT), TA.OptConfig(**OPT)
     jstate, _ = JST.init_train_state(jax.random.PRNGKey(0), jc, jopt)
@@ -192,7 +207,7 @@ def test_train_step_matches_reference(arch, mode, mb):
         mode="train", dsa_mode=mode), batch, mb)
     _, _, om = TA.apply_updates(topt, tstate["params"], grads, tstate["opt"])
     tm.update(om)
-    for k in ("loss", "ce", "mse", "grad_norm", "lr"):
+    for k in ("loss", "ce", "mse", "router_aux", "grad_norm", "lr"):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]),
                                    rtol=METRIC_RTOL, atol=1e-7, err_msg=k)
     jg = _flat(jgrads)
@@ -568,13 +583,15 @@ def _grads_and_mm_counts(cfg, batch):
     return grads, m, count.n
 
 
-@pytest.mark.parametrize("arch", ["yi_6b", "rwkv6_3b"])
+@pytest.mark.parametrize("arch", ["yi_6b", "rwkv6_3b", "mixtral_8x22b"])
 def test_dots_remat_matches_full_and_none(arch):
     """``remat_policy="dots"`` gives the gradients of "full" and "none"
     bit for bit on the CPU (the same operations on the same inputs; dots
     only keeps the outputs of the unbatched products instead of running
     them again), and its backward runs no ``mm`` of the forward again but
-    every ``bmm`` (attention's batched products, the wkv's)."""
+    every ``bmm`` (attention's batched products, the wkv's, the experts':
+    the reference's policy saves the router's product and recomputes
+    the expert einsums, which have a batch axis)."""
     _, tc = _cfgs(arch)
     batch = _random_batch(tc.vocab)
     out = {pol: _grads_and_mm_counts(
@@ -602,12 +619,12 @@ def _ref_train_step(arch, opt):
     return jax.jit(JST.make_train_step(jc, opt))
 
 
-@pytest.mark.parametrize("arch", ["stablelm_3b", "yi_6b"])
+@pytest.mark.parametrize("arch", ["stablelm_3b", "yi_6b", "mixtral_8x22b"])
 def test_four_step_curve_matches_reference(arch):
     """Four steps with a one-step warmup (the schedule under which the
     full-width joint loss does not fall, ``scripts/train_curve.py``):
-    the port's loss, ce and mse at each step against the reference's
-    ``make_train_step`` from the same weights on the same ``lm`` batches,
+    the port's loss, ce, mse and router_aux at each step against the
+    reference's ``make_train_step`` from the same weights on the same ``lm`` batches,
     at the metric tolerance."""
     jc, tc = _cfgs(arch)
     kw = dict(lr=3e-4, total_steps=4, warmup_steps=1)
@@ -622,6 +639,7 @@ def test_four_step_curve_matches_reference(arch):
         batch = next(data)
         jstate, jm = jstep(jstate, batch)
         tstate, tm = tstep(tstate, batch)
-        for k in ("loss", "ce", "mse"):
+        for k in ("loss", "ce", "mse", "router_aux"):
             np.testing.assert_allclose(float(tm[k]), float(jm[k]),
-                                       rtol=METRIC_RTOL, err_msg=(i, k))
+                                       rtol=METRIC_RTOL, atol=1e-7,
+                                       err_msg=(i, k))
