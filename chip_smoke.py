@@ -218,7 +218,25 @@ fails:
      the continuous engine on 8 requests of 4096-8192 tokens; (c) 2
      layers at full width through ``launch.train`` (bf16 moments, 4 x
      4096, 4 steps): the step time, tokens/s, the 6 N D share with N
-     active and all, peak memory, the router term and a profiled step.
+     active and all, peak memory, the router term and a profiled step;
+ 18. deepseek_v3, multi-head latent attention after a dense prologue of
+     3 layers, then 256 experts (top 8, one shared), which launches none
+     of the kernels (the reference's MLA paths are plain: prefill's block
+     gather, decode's latent attention): (a) its prologue at full width
+     (3 layers, f32), prompts of 1024: graphed == eager, kernel == block
+     with no launch, continuous (blocking under block) == solo generate,
+     chunked admission under off == whole prefill, speculation (off, K 4)
+     == plain, one MLA layer card == CPU (1e-4 of the largest magnitude)
+     and reduced deepseek_v3 (MoE included) card == CPU in greedy tokens;
+     (b) 5 layers (the prologue and 2 MoE layers) at full width in bf16
+     on a bf16 cache through ``launch.serve`` (batch 4, prompt 4096, 32
+     new, dsa_mode kernel): no launch, the capacity prefill's drop share,
+     profiles of the prefill and of a graphed decode step against the
+     time to read its weights once; (c) the continuous engine on that
+     model (4 slots, dense cache, max_len 8192, blocking admission, 8
+     requests of 1024-4096 tokens); (d) ``launch.train --layers 3`` (the
+     prologue alone, 4 x 4096 in 2 microbatches, f32 moments, 4 steps):
+     step time, tokens/s, the 6 N D share, peak memory, a profiled step.
 
 It then prints one JSON line of per-kernel results, the card's name and
 power limit again as ``nvidia-smi`` gives them, and as its last line
@@ -1573,7 +1591,8 @@ def train_slice(torch, seed: int) -> dict:
     params = state["params"]
     med = statistics.median(res.step_s[1:])
     leaves = list(named_leaves(params))
-    n_blocks = sum(p.numel() for k, p in leaves if k.startswith("/groups/"))
+    n_blocks = sum(p.numel() for k, p in leaves
+                   if k.startswith(("/groups/", "/prologue/")))
     n_head = params["lm_head"].numel()
     flops = 6 * (n_blocks + n_head) * b * s
     share = flops / med / PEAK_FLOPS["bfloat16"]
@@ -3218,15 +3237,16 @@ def _train_report(torch, label: str, cfg, state, metrics, step_s, b: int,
                   s: int, mb: int, n: dict, peak: float) -> dict:
     """Print and gate a full-width training run: the median step time over
     steps 2 on, tokens/s, the 6 N D share of the bf16 peak (N: the
-    blocks' params and the lm head's; the embedding lookup and the remat
-    recompute are not counted), peak memory; every metric finite and no
-    kernel launched."""
+    blocks' params, a dense prologue's included, and the lm head's; the
+    embedding lookup and the remat recompute are not counted), peak
+    memory; every metric finite and no kernel launched."""
     import math
     import statistics
     from repro_torch.tree import named_leaves
     med = statistics.median(step_s[1:])
     leaves = list(named_leaves(state["params"]))
-    n_blocks = sum(p.numel() for k, p in leaves if k.startswith("/groups/"))
+    n_blocks = sum(p.numel() for k, p in leaves
+                   if k.startswith(("/groups/", "/prologue/")))
     n_head = state["params"]["lm_head"].numel()
     share = 6 * (n_blocks + n_head) * b * s / med / PEAK_FLOPS["bfloat16"]
     finite = all(math.isfinite(v) for m in metrics for v in m.values())
@@ -3782,6 +3802,359 @@ def mixtral_train_slice(torch, seed: int, card: str) -> dict:
             "busy_share": busy / wall}
 
 
+MLA_REL = 1e-4
+DEEPSEEK_LAYERS = 5           # 18b's depth: the prologue and 2 MoE layers
+
+
+def _mla_card_vs_cpu(torch, seed: int) -> float:
+    """One full-width deepseek_v3 MLA layer (f32, with its DSA predictor)
+    on the card and on the CPU from the same weights and inputs: a 1 x
+    256 prefill on the block path, two absorbed decode steps and a 4-row
+    verify.  Returns the largest error of any output or cache leaf over
+    the largest magnitude of that leaf."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import attention as TAT
+    from repro_torch.tree import map_tree
+    cfg = get_config("deepseek_v3")
+    gen = torch.Generator().manual_seed(seed)
+    params = TAT.init_mla(gen, cfg, device="cpu")
+    dev = map_tree(lambda t: t.cuda(), params)
+    caches = {d: TAT.init_cache_mla(cfg, 1, 384, device=d,
+                                    dtype=torch.float32)
+              for d in ("cpu", "cuda")}
+    worst = 0.0
+
+    def rel(got, want):
+        return float((got.cpu() - want).abs().max()) / max(
+            float(want.abs().max()), 1e-12)
+
+    def both(flags, s, **kw):
+        nonlocal worst
+        x = torch.randn((1, s, cfg.d_model), generator=gen)
+        outs = [TAT.apply_mla(p, cfg, flags, x.to(d), cache=caches[d],
+                              **{k: v.to(d) for k, v in kw.items()})[0]
+                for d, p in (("cpu", params), ("cuda", dev))]
+        worst = max(worst, rel(outs[1], outs[0]))
+        for name in ("c_kv", "k_rope"):
+            worst = max(worst, rel(caches["cuda"][name],
+                                   caches["cpu"][name]))
+        if not torch.equal(caches["cuda"]["pos"].cpu(), caches["cpu"]["pos"]):
+            fail("18a: the MLA layer's pos differs between card and CPU")
+
+    with torch.inference_mode():
+        both(TAT.RunFlags(mode="prefill", dsa_mode="block"), 256)
+        dflags = TAT.RunFlags(mode="decode", dsa_mode="block")
+        for _ in range(2):
+            both(dflags, 1)
+        both(TAT.RunFlags(mode="decode", dsa_mode="block", spec_verify=True),
+             4, chunk_len=torch.full((1,), 4, dtype=torch.int32))
+    return worst
+
+
+def deepseek_parity_phase(torch, seed: int, card: str, n_new: int = 16,
+                          prompt_len: int = 1024) -> dict:
+    """18a.  deepseek_v3 at full width cut to its dense prologue (3
+    layers, 3.6 B params) in f32, prompts of 1024 tokens (8 key blocks),
+    batch 2: the graphed scan loop gives the eager python loop's greedy
+    tokens (one capture); "kernel" gives "block"'s, with no kernel
+    launched by either (MLA's prefill is the plain block gather, its
+    decode the latent attention); the continuous engine (dense cache,
+    blocking admission under block, 2 slots, 4 requests) gives each
+    request its solo ``generate`` tokens, as does chunked admission
+    under "off" (chunks of 256 tokens) against whole-prompt prefill;
+    speculation (off, K 4) gives the plain tokens.  Then one MLA layer
+    card == CPU at full width (``_mla_card_vs_cpu``) and reduced
+    deepseek_v3 (the MoE layers included) card == CPU in greedy
+    tokens."""
+    import numpy as np
+    from repro_torch.configs.base import cut_layers, get_config, reduced
+    from repro_torch.inference.engine import Engine
+    from repro_torch.inference.scheduler import ContinuousEngine, Request
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_model
+    from repro_torch.tree import map_tree
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(cut_layers(get_config("deepseek_v3"), 3),
+                              dtype="float32", param_dtype="float32")
+    params = init_model(seed, cfg)
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(1, cfg.vocab - 4, size=(2, prompt_len)).astype(
+        np.int32)
+    max_len = prompt_len + n_new + 16
+    serve.reset_launch_counts()
+    toks, captures = {}, 0
+    for name, kw in (("block", dict(dsa_mode="block")),
+                     ("kernel", dict(dsa_mode="kernel")),
+                     ("eager", dict(dsa_mode="kernel", loop="python"))):
+        eng = Engine(cfg, params, max_len=max_len, long_context=True, **kw)
+        toks[name] = eng.generate(prompts, n_new).tokens
+        if name == "kernel":
+            captures = eng.graphs.captures
+        del eng
+        torch.cuda.empty_cache()
+    same_k = bool((toks["kernel"] == toks["block"]).all())
+    graphed = bool((toks["kernel"] == toks["eager"]).all()) and captures == 1
+    shapes = [(prompt_len, 16), (896, 12), (640, 16), (prompt_len, 10)]
+    reqs = [Request(i, rng.integers(1, cfg.vocab - 4, size=(n,)).astype(
+        np.int32), m) for i, (n, m) in enumerate(shapes)]
+    cont, chunked, chunks = {}, {}, {}
+    # an arch with experts chunk-admits under dense MoE prefill only (the
+    # prologue has no MoE layer: the option changes nothing else here)
+    for mode, kw in (("block", dict(long_context=True)),
+                     ("off", dict(moe_prefill="dense"))):
+        eng = ContinuousEngine(cfg, params, slots=2, seg_len=4,
+                               max_len=max_len, dsa_mode=mode,
+                               chunk_tokens=256, **kw)
+        got = _run_clean(eng, [dataclasses.replace(r) for r in reqs])
+        chunked[mode], chunks[mode] = eng.chunked, eng.stats["chunks"]
+        del eng
+        solo = Engine(cfg, params, max_len=max_len, dsa_mode=mode, **kw)
+        cont[mode] = all(bool((got[r.rid] == solo.generate(
+            r.prompt[None], r.n_new).tokens[0]).all()) for r in reqs)
+        del solo
+        torch.cuda.empty_cache()
+    eng = Engine(cfg, params, max_len=max_len)
+    plain = eng.generate(prompts, n_new).tokens
+    spec = eng.generate(prompts, n_new, spec=4)
+    spec_same = bool((spec.tokens == plain).all())
+    launched = {k: v for k, v in serve.launch_counts().items() if v}
+    del eng, params
+    torch.cuda.empty_cache()
+    layer = _mla_card_vs_cpu(torch, seed)
+    rcfg = reduced(get_config("deepseek_v3"))
+    rp = init_model(seed, rcfg, device="cpu")
+    rprompts = rng.integers(1, rcfg.vocab - 4, size=(2, 48)).astype(
+        np.int32)
+    kw = dict(max_len=80, long_context=True, dsa_mode="block")
+    rcpu = Engine(rcfg, rp, device="cpu", **kw).generate(rprompts, 8).tokens
+    rcard = Engine(rcfg, map_tree(lambda t: t.cuda(), rp), **kw).generate(
+        rprompts, 8).tokens
+    reduced_same = bool((rcpu == rcard).all())
+    print(f"18a parity: 3-layer (the dense prologue) full-width deepseek_v3 "
+          f"f32, prompt {prompt_len}, {n_new} new: kernel == block: "
+          f"{same_k}; graphed scan == eager python loop: {graphed} "
+          f"({captures} capture); continuous (dense, blocking under block, "
+          f"{len(reqs)} requests, chunked {chunked['block']}) == solo "
+          f"generate: {cont['block']}; chunked admission under off "
+          f"({chunks['off']} chunk steps) == whole-prompt prefill: "
+          f"{cont['off']}; spec (off, K 4, {spec.spec_rounds} rounds) == "
+          f"plain: {spec_same}; kernels launched: {launched or 'none'}; "
+          f"one MLA layer card vs CPU at full width, f32: {layer:.2e} of "
+          f"the largest magnitude (limit {MLA_REL:g}); reduced deepseek_v3 "
+          f"(MoE included) card == CPU greedy tokens: {reduced_same}; "
+          f"{time.monotonic() - t0:.1f} s [{card}]", flush=True)
+    for k, t in toks.items():
+        print(f"  {k:8s}: {t[:, :8].tolist()}")
+    if not (same_k and graphed and all(cont.values()) and spec_same
+            and not chunked["block"] and chunked["off"] and chunks["off"]
+            and not launched and layer <= MLA_REL and reduced_same):
+        fail(f"18a deepseek parity failed: launched {launched}, chunked "
+             f"{chunked}, chunks {chunks}")
+    return {"kernel_block": same_k, "graphed": graphed, "continuous": cont,
+            "spec": spec_same, "layer": layer, "reduced": reduced_same}
+
+
+def deepseek_slice(torch, seed: int, card: str) -> dict:
+    """18b and 18c.  deepseek_v3 at full width, DEEPSEEK_LAYERS layers
+    (the 3-layer dense prologue and 2 MoE layers of 256 experts, 26.6 B
+    params), bf16 weights on a bf16 cache, random weights from the seed.
+    18b, the static slice through ``launch.serve`` (batch 4, prompt 4096,
+    32 new, dsa_mode "kernel"): no kernel launched (MLA prefill is the
+    plain block gather, decode the latent attention), a graph replay a
+    step; then on one model: the share of (token, slot) pairs the
+    capacity prefill dropped, a torch.profiler breakdown of the prefill
+    and of a graphed decode step against the time to read the step's
+    weights once.  18c, the continuous engine (4 slots, dense cache,
+    max_len 8192, blocking admission): 8 requests of 1024-4096 tokens in
+    whole 128-token blocks and 16-64 new, all queued at the start."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import cut_layers, get_config
+    from repro_torch.inference.engine import Engine
+    from repro_torch.inference.scheduler import (ContinuousEngine, Request,
+                                                 summarize)
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.attention import RunFlags
+    t0 = time.monotonic()
+    cfg = cut_layers(get_config("deepseek_v3"), DEEPSEEK_LAYERS)
+    b, plen, n_new = 4, 4096, 32
+    max_len = plen + n_new + 16
+    torch.cuda.reset_peak_memory_stats()
+    serve.reset_launch_counts()
+    res = serve.main(["--arch", "deepseek_v3", "--layers",
+                      str(DEEPSEEK_LAYERS), "--batch", str(b),
+                      "--prompt-len", str(plen), "--new-tokens", str(n_new),
+                      "--dsa", "--dsa-mode", "kernel", "--cache-dtype",
+                      "bfloat16", "--seed", str(seed)])
+    n = serve.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    row = serve.cache_bytes(TT.init_cache(
+        cfg, 1, max_len, RunFlags(mode="decode", long_context=True),
+        dtype=torch.bfloat16, device="meta"))
+    out = {"prefill_ms": res.prefill_s * 1e3,
+           "decode_tok_s": res.tokens_per_s, "peak_gib": peak,
+           "cache_bytes_per_row": row, "launches": n}
+    tok = res.tokens
+    print(f"18b deepseek_v3 static slice ({DEEPSEEK_LAYERS} layers bf16, "
+          f"bf16 cache, batch {b}, prompt {plen}, {n_new} new, "
+          f"dsa_mode kernel): prefill {res.prefill_s * 1e3:.1f} ms, decode "
+          f"{res.tokens_per_s:.1f} tok/s over {res.decode_steps} steps "
+          f"({res.decode_dispatches} graph replays), peak memory "
+          f"{peak:.2f} GiB, cache {row} bytes per batch row, launches "
+          + " ".join(f"{k} {v}" for k, v in n.items()) + f" [{card}]",
+          flush=True)
+    if (any(n.values()) or res.decode_dispatches != res.decode_steps
+            or tok.shape != (b, n_new) or tok.min() < 0
+            or tok.max() >= cfg.vocab):
+        fail(f"18b static slice: launches {n}, tokens {tok.shape}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = TT.init_model(seed, cfg)
+    prompts = np.random.default_rng(seed).integers(
+        1, cfg.vocab - 4, size=(b, plen)).astype(np.int32)
+    eng = Engine(cfg, params, max_len=max_len, long_context=True,
+                 dsa_mode="kernel", cache_dtype=torch.bfloat16)
+    drops = []
+    dispatch = moe._dispatch_positions
+
+    def counting(e_flat, num_experts, cap):
+        pos = dispatch(e_flat, num_experts, cap)
+        drops.append(((pos >= cap).sum(), pos.numel()))
+        return pos
+
+    acts = [ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        moe._dispatch_positions = counting
+        try:
+            eng.prefill(prompts)                                 # warm
+        finally:
+            moe._dispatch_positions = dispatch
+        dropped = int(sum(int(d) for d, _ in drops))
+        pairs = sum(p for _, p in drops)
+        _, _, prefill_s = eng.prefill(prompts)
+        with profile(activities=acts) as prof:
+            eng.prefill(prompts)
+        pre = _device_time(prof, "deepseek_prefill", 1)
+        step = eng.scan_step(b)                                  # capture
+        last, _, _ = eng.prefill(prompts, caches=eng.resident_cache(b))
+        tok = last[:, -1].argmax(-1, keepdim=True)
+        _, tok = _timed_decode(torch, step, tok, 2)              # warm
+        step_ms, tok = _timed_decode(torch, step, tok, 8)
+        with profile(activities=acts) as prof:
+            _, tok = _timed_decode(torch, step, tok, 2)
+        dec = _device_time(prof, "deepseek_decode", 2)
+    _print_profile(f"18b deepseek_v3 prefill ({b} x {plen}) [{card}]",
+                   prefill_s * 1e3, *pre)
+    _print_profile(f"18b deepseek_v3 decode step, graph replay (batch {b}) "
+                   f"[{card}]", step_ms, *dec)
+    # a decode step reads every weight once but the embedding table
+    from repro_torch.tree import named_leaves
+    w_bytes = sum(p.numel() * p.element_size()
+                  for k, p in named_leaves(params) if k != "/embed")
+    bound_ms = w_bytes / HBM_BYTES_PER_S * 1e3
+    out.update(dropped=dropped, pairs=pairs, prefill_busy_ms=pre[0],
+               step_ms=step_ms, step_busy_ms=dec[0], weight_bound_ms=bound_ms,
+               capture_ms=step.capture_ms)
+    print(f"18b: capacity prefill dropped {dropped} of {pairs} (token, "
+          f"slot) pairs ({100 * dropped / pairs:.3f} %); graphed decode step "
+          f"{step_ms:.3f} ms (device busy {dec[0]:.3f} ms, capture "
+          f"{step.capture_ms:.1f} ms) against {bound_ms:.3f} ms to read the "
+          f"{w_bytes / 1e9:.2f} GB of weights once at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s ({100 * bound_ms / step_ms:.1f}"
+          f" %) [{card}]", flush=True)
+    del eng, step
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(seed + 1)
+    reqs = [Request(i, rng.integers(1, cfg.vocab - 4, size=(128 * int(
+        rng.integers(8, 33)),)).astype(np.int32),
+        int(rng.integers(16, 65))) for i in range(8)]
+    ceng = ContinuousEngine(cfg, params, slots=4, seg_len=16, max_len=8192,
+                            long_context=True, dsa_mode="kernel",
+                            cache_dtype=torch.bfloat16)
+    serve.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    results = ceng.serve(reqs)
+    n = serve.launch_counts()
+    st = ceng.stats
+    summ = summarize(results, max(r.finish_s for r in results))
+    cpeak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"18c deepseek_v3 continuous slice (4 slots, dense cache, max_len "
+          f"8192, 8 requests, prompts {min(len(r.prompt) for r in reqs)}-"
+          f"{max(len(r.prompt) for r in reqs)}, blocking admission): "
+          f"{summ['goodput_tok_s']} tok/s goodput, latency p50 "
+          f"{summ['p50_latency_s']} s / p95 {summ['p95_latency_s']} s, TTFT "
+          f"p50 {summ['p50_ttft_s']} s / p95 {summ['p95_ttft_s']} s, "
+          f"{st['segments']} segments, {st['admitted']} admissions, "
+          f"{st['decode_steps']} decode steps, peak memory {cpeak:.2f} GiB, "
+          f"launches {({k: v for k, v in n.items() if v}) or 'none'} "
+          f"[{card}]", flush=True)
+    bad = [r.rid for r in results
+           if r.status != "ok" or len(r.tokens) != r.n_new]
+    if len(results) != len(reqs) or bad or any(n.values()) or ceng.chunked:
+        fail(f"18c continuous slice: bad {bad}, launches {n}")
+    out["continuous"] = {"summary": summ, "peak_gib": cpeak}
+    del ceng, params
+    torch.cuda.empty_cache()
+    print(f"phase 18b-c: {time.monotonic() - t0:.1f} s", flush=True)
+    return out
+
+
+def deepseek_train_slice(torch, seed: int, card: str) -> dict:
+    """18d.  deepseek_v3 at full width cut to its dense prologue (3 MLA
+    layers with 18432-wide SwiGLUs, 3.6 B params) through
+    ``launch.train``: bf16 params with f32 moments, remat full, DSA block
+    path, 4 steps of 4 x 4096 tokens in 2 microbatches; finite metrics,
+    no kernel launched, the MSE term in the loss; the step time, tokens/s,
+    the 6 N D share of 989 TFLOP/s, peak memory, then one profiled step
+    (busy share, kernel count).  (Training with the experts at this width
+    does not fit one card: ROADMAP Queue 1, "Distribution".)"""
+    from repro_torch.configs.base import cut_layers, get_config
+    from repro_torch.data.synthetic import DataConfig, lm_batches
+    from repro_torch.launch import serve, train
+    from repro_torch.optim import adamw
+    from repro_torch.training import steps as ST
+    t0 = time.monotonic()
+    cfg = cut_layers(get_config("deepseek_v3"), 3)
+    b, s, steps, mb = 4, 4096, 4, 2
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    serve.reset_launch_counts()
+    res = train.main(["--arch", "deepseek_v3", "--layers", "3", "--steps",
+                      str(steps), "--seq", str(s), "--batch", str(b),
+                      "--microbatches", str(mb), "--data", "lm",
+                      "--log-interval", "1", "--seed", str(seed)])
+    n = {k: v for k, v in serve.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rep = _train_report(torch, f"18d deepseek_v3 train slice (3 layers: "
+                        f"the dense prologue, bf16, f32 moments, remat "
+                        f"full, DSA block) [{card}]", cfg, res.state,
+                        res.metrics, res.step_s, b, s, mb, n, peak)
+    opt = adamw.OptConfig(total_steps=steps + 2, warmup_steps=1)
+    batch = next(lm_batches(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                       global_batch=b, seed=seed + 1)))
+    wall, busy, kernels = _profiled_step(
+        torch, f"18d deepseek_v3 train step ({b} x {s}, {mb} microbatches) "
+        f"[{card}]", ST.make_train_step(cfg, opt, microbatches=mb),
+        res.state, batch)
+    mse = [m["mse"] for m in res.metrics]
+    n2 = {k: v for k, v in serve.launch_counts().items() if v}
+    print(f"18d: mse " + ", ".join(f"{v:.4f}" for v in mse)
+          + f"; profiled step busy {100 * busy / wall:.1f} % "
+          f"({kernels:.0f} kernels); kernels launched: {n2 or 'none'} "
+          f"[{card}]", flush=True)
+    if n2 or not all(v > 0 for v in mse) or len(res.step_s) != steps:
+        fail(f"18d: launched {n2}, mse {mse}, {len(res.step_s)} steps")
+    del res
+    torch.cuda.empty_cache()
+    print(f"phase 18d: {time.monotonic() - t0:.1f} s", flush=True)
+    return dict(rep, busy_share=busy / wall, kernels=kernels)
+
+
 def static_slice(torch, seed: int, arch: str, dsa_mode: str, want,
                  prompt_len: int = 4096, quant=None) -> dict:
     """Serve ``arch`` at full width through ``repro_torch.launch.serve``:
@@ -4143,6 +4516,15 @@ def main() -> None:
     launches["mixtral"] = mixtral_slice(torch, args.seed, card)["launches"]
     mixtral_train_slice(torch, args.seed, card)
     print(f"phase 17: {time.monotonic() - t17:.1f} s", flush=True)
+    # deepseek_v3's multi-head latent attention, dense prologue and 256
+    # experts (18a gated parity; 18b-c the full-width serving slices,
+    # which launch no kernel: MLA prefill is the plain block gather, its
+    # decode the latent attention; 18d full-width training)
+    t18 = time.monotonic()
+    deepseek_parity_phase(torch, args.seed, card)
+    launches["deepseek"] = deepseek_slice(torch, args.seed, card)["launches"]
+    deepseek_train_slice(torch, args.seed, card)
+    print(f"phase 18: {time.monotonic() - t18:.1f} s", flush=True)
 
     src = "src/repro_torch/kernels/csrc/"
     rep = "src/repro/kernels/"

@@ -1,5 +1,6 @@
 """Architecture configuration (the port's own copy of the dense-GQA,
-sliding-window, mixture-of-experts and RWKV6 subset).
+sliding-window, mixture-of-experts, multi-head latent attention and RWKV6
+subset).
 
 Each architecture is an ``ArchConfig`` in its own module
 (``repro_torch/configs/<id>.py``) exposing ``CONFIG``.  ``get_config(name)``
@@ -24,6 +25,16 @@ class MoEConfig:
     first_k_dense: int = 0        # deepseek: first k layers stay dense MLP
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek multi-head latent attention dims."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +81,7 @@ class ArchConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     rwkv: Optional[RWKVConfig] = None
     dsa: DSAConfig = dataclasses.field(default_factory=DSAConfig)
     dtype: str = "bfloat16"       # activation dtype
@@ -86,19 +98,30 @@ class ArchConfig:
 
     def num_params(self) -> int:
         """Analytic parameter count (embedding + blocks), for 6ND roofline
-        (the reference's count, less its MLA and Mamba branches)."""
+        (the reference's count, less its Mamba branch)."""
         d, v = self.d_model, self.vocab
-        n_q = self.n_heads * self.resolved_head_dim
-        n_kv = self.n_kv_heads * self.resolved_head_dim
         total = v * d * (1 if self.tie_embeddings else 2)
         for i in range(self.n_layers):
             if layer_kind(self, i) == "rwkv":
                 total += 4 * d * d + d * d + 2 * d * self.rwkv.decay_lora
                 total += 2 * d * self.d_ff + self.d_ff * d  # channel-mix
             else:
-                total += d * (n_q + 2 * n_kv) + n_q * d
-                total += self._mlp_params(i)
+                total += self._attn_params() + self._mlp_params(i)
         return total
+
+    def _attn_params(self) -> int:
+        d = self.d_model
+        m = self.mla
+        if m is None:
+            n_q = self.n_heads * self.resolved_head_dim
+            n_kv = self.n_kv_heads * self.resolved_head_dim
+            return d * (n_q + 2 * n_kv) + n_q * d
+        qk_h = m.qk_nope_head_dim + m.qk_rope_head_dim
+        return (d * m.q_lora_rank + m.q_lora_rank * self.n_heads * qk_h
+                + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                + m.kv_lora_rank * self.n_heads
+                * (m.qk_nope_head_dim + m.v_head_dim)
+                + self.n_heads * m.v_head_dim * d)
 
     def _mlp_params(self, layer_idx: int) -> int:
         d, f = self.d_model, self.d_ff
@@ -142,7 +165,7 @@ def layer_kind(cfg: ArchConfig, i: int) -> str:
 
 
 ARCH_IDS = ("yi_6b", "stablelm_3b", "qwen1_5_110b", "h2o_danube_1_8b",
-            "rwkv6_3b", "mixtral_8x22b")
+            "rwkv6_3b", "mixtral_8x22b", "deepseek_v3")
 
 
 def get_config(name: str) -> ArchConfig:
@@ -150,6 +173,18 @@ def get_config(name: str) -> ArchConfig:
     if name not in ARCH_IDS:
         raise ValueError(f"arch {name!r} is not ported; ported: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{name}").CONFIG
+
+
+def cut_layers(cfg: ArchConfig, n: int) -> ArchConfig:
+    """``cfg`` cut to its first ``n`` layers, a dense prologue
+    (``first_k_dense``) kept whole: deepseek_v3 at 3 layers is its
+    prologue alone, at 5 the prologue and 2 MoE layers.  Fewer layers
+    than the prologue is a ValueError."""
+    k = cfg.moe.first_k_dense if cfg.moe is not None else 0
+    if n < k:
+        raise ValueError(f"{cfg.name}: {n} layers is less than its dense "
+                         f"prologue's {k}")
+    return dataclasses.replace(cfg, n_layers=n)
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:
@@ -169,6 +204,10 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
             capacity_factor=8.0)   # no capacity drops at test scale
         if cfg.moe.first_k_dense:
             kw["n_layers"] = 3
+    if cfg.mla is not None:
+        kw["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=32,
+                              qk_nope_head_dim=16, qk_rope_head_dim=8,
+                              v_head_dim=16)
     if cfg.rwkv is not None:
         kw["rwkv"] = RWKVConfig(head_dim=16, decay_lora=8)
     if cfg.dsa.enabled:

@@ -11,7 +11,9 @@ stacks its layer groups over a leading axis::
     final_norm, lm_head
 
 The port keeps one dict per group in ``params["groups"]``, so the stacked
-leaves are split along that axis.  ``to_reference`` is the inverse: it
+leaves are split along that axis.  A dense prologue (deepseek_v3's
+``prologue``, a list of per-layer dicts) is unstacked in both packages
+and carried as it is.  ``to_reference`` is the inverse: it
 stacks the groups back into the reference's tree of numpy arrays.
 
 ``state_to_reference`` / ``state_from_reference`` do the same for a whole
@@ -53,7 +55,8 @@ def from_reference(tree: Dict[str, Any], *, device=None) -> Dict[str, Any]:
     groups = tree["groups"]
     n = len(next(named_leaves(groups))[1])
     out: Dict[str, Any] = {
-        k: _tensor(v, dev) for k, v in tree.items() if k != "groups"}
+        k: map_tree(lambda a: _tensor(a, dev), v)
+        for k, v in tree.items() if k != "groups"}
     out["groups"] = [map_tree(lambda a, i=i: _tensor(np.asarray(a)[i], dev),
                               groups)
                      for i in range(n)]

@@ -108,15 +108,17 @@ def can_page(cfg: ArchConfig) -> bool:
     """Paged resident caches (``ContinuousEngine(paged=True)``) need every
     per-slot cache leaf to be a page pool or a per-slot scalar: a
     recurrent (RWKV6) state and an SWA ring buffer have no token-row
-    geometry to page."""
-    return cfg.rwkv is None and cfg.swa_window == 0
+    geometry to page, and MLA's latent ``c_kv``/``k_rope`` leaves keep the
+    dense layout (they are already the compressed cache)."""
+    return cfg.rwkv is None and cfg.swa_window == 0 and cfg.mla is None
 
 
 def can_quantize(cfg: ArchConfig) -> bool:
     """Mixed-precision serving (ServingConfig select_dtype/kv_quant)
     covers the standard GQA attention cache layout, the same envelope as
     paging: a recurrent (RWKV6) state and an SWA ring buffer carry no
-    quantized token rows."""
+    quantized token rows, and MLA's latent leaves are already the
+    compressed cache."""
     return can_page(cfg)
 
 
@@ -128,10 +130,11 @@ def can_chunk_prefill(cfg: ArchConfig, dsa_mode: str = "off",
     capacity dispatch while chunk steps run the decode-dense expert path
     (the same math in another summation order, and drops).  ``moe_dense``
     (Engine(moe_prefill="dense")) re-admits them: prefill then routes the
-    decode-dense path too.  ``dsa_mode`` is the reference's argument (its
-    DSA-over-MLA clause; MLA, and the reference's cross-attention clause,
-    are not ported)."""
-    return can_bucket_prompts(cfg) and (cfg.moe is None or moe_dense)
+    decode-dense path too.  DSA over MLA (``dsa_mode`` other than "off")
+    is out: it has no predicted-key cache to resume per chunk.  (The
+    reference's cross-attention clause is not ported.)"""
+    return (can_bucket_prompts(cfg) and (cfg.moe is None or moe_dense)
+            and not (cfg.mla is not None and dsa_mode != "off"))
 
 
 @dataclasses.dataclass

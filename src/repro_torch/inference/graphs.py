@@ -55,6 +55,10 @@ to nothing (the cache is its output).  Their warm-up calls have
 all-false masks, which change no cache leaf, so they are captured over
 live slots too.  Acceptance and the per-row generators' draws stay
 eager between the two replays.
+An MLA layer (deepseek_v3) captures as any other: its absorbed decode
+and verify score every row of the latent cache and mask the rows at or
+past each row's ``kv_len``, so their shapes are the cache's and nothing
+asks the host; the commit zeroes the rejected latent rows in place.
 CUDA graphs exist only on the card; on the CPU the engines run the same
 step eagerly.
 

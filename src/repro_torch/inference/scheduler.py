@@ -134,7 +134,7 @@ import dataclasses
 import hashlib
 import time
 from collections import OrderedDict, deque
-from typing import Dict, Iterator, List, Optional, Sequence, Set, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -151,14 +151,17 @@ from repro_torch.inference.graphs import step_key
 from repro_torch.inference.speculative import (NGramProposer,
                                                SpeculativeDecoder,
                                                can_speculate)
+from repro_torch.inference.telemetry import probe_ok
 from repro_torch.models.attention import (DSA_MODES, _pool_write,
                                           cache_page_size)
-from repro_torch.models.transformer import chunk_step, decode_step, init_cache
+from repro_torch.models.transformer import (attn_caches, chunk_step,
+                                            decode_step, init_cache)
 
 # cache leaves with a per-token (or per-block) row axis after the batch
 # axis, quantization scales included: zero-extended from the staging
 # bucket to the resident length at insertion
-_SEQ_KEYS = ("k", "v", "kt", "ktb", "k_s", "v_s", "kt_s", "ktb_s")
+_SEQ_KEYS = ("k", "v", "kt", "ktb", "k_s", "v_s", "kt_s", "ktb_s", "c_kv",
+             "k_rope")
 # pool leaves holding one row per cached token, and one per page
 _POOL_ROW_KEYS = ("k", "v", "kt", "k_s", "v_s", "kt_s")
 _POOL_PAGE_KEYS = ("ktb", "ktb_s")
@@ -262,13 +265,6 @@ class _PrefillGroup:
     # the prefix registration this group made on a registry miss, until a
     # member's insert has filled its pages (None after that)
     reg_key: Optional[tuple] = None
-
-
-def _layers(caches) -> Iterator[Dict]:
-    """The attention cache dict of every layer."""
-    for group in caches["groups"]:
-        for sub in group.values():
-            yield sub["attn"]
 
 
 def _step_targets(lc: Dict, bk: int) -> Tuple[tuple, tuple]:
@@ -447,8 +443,10 @@ class ContinuousEngine:
         self.paged = c.paged
         if self.paged:
             if not can_page(cfg):
-                raise ValueError(f"paged=True: {cfg.name} is outside the "
-                                 f"paging envelope (no SWA ring caches)")
+                raise ValueError(
+                    f"paged=True: {cfg.name} is outside the paging envelope "
+                    f"(needs a pure-attention decoder: no ssm/rwkv/swa/mla/"
+                    f"enc-dec/cross-attn)")
             # init_cache (in reset) refuses a max_len the pages do not tile
             self._page_rows = cache_page_size(cfg, self.engine.decode_flags)
             self._n_kb = -(-max_len // self._page_rows)
@@ -547,7 +545,7 @@ class ContinuousEngine:
         ids = torch.as_tensor(ids, dtype=torch.long, device=self.device)
         rows = (ids[:, None] * bk + torch.arange(
             bk, device=self.device)[None, :]).reshape(-1)
-        for lc in _layers(self._caches):
+        for lc in attn_caches(self._caches):
             for keys, at in ((_POOL_ROW_KEYS, rows), (_POOL_PAGE_KEYS, ids)):
                 for name in keys:
                     if name in lc:
@@ -767,7 +765,7 @@ class ContinuousEngine:
         ring of min(prompt, window) rows into one of min(max_len,
         window): both place token i at slot i % window)."""
         self._note("insert", pre, slot, row)
-        for res, st in zip(_layers(self._caches), _layers(pre)):
+        for res, st in zip(attn_caches(self._caches), attn_caches(pre)):
             for name in _SEQ_KEYS:
                 if name in res:
                     src = raw(st[name])[row]
@@ -787,7 +785,7 @@ class ContinuousEngine:
         self._note("insert_paged", pre, slot, row, tbl_row)
         bk = self._page_rows
         tbl = torch.as_tensor(tbl_row, dtype=torch.long, device=self.device)
-        for res, st in zip(_layers(self._caches), _layers(pre)):
+        for res, st in zip(attn_caches(self._caches), attn_caches(pre)):
             r = torch.arange(st["k"].shape[1], device=self.device)
             pg = tbl[r // bk]
             flat = pg * bk + r % bk
@@ -956,7 +954,7 @@ class ContinuousEngine:
                               device=self.device)
         rows = (ids[:, None] * bk + torch.arange(
             bk, device=self.device)[None, :]).reshape(-1)
-        for res, st in zip(_layers(self._caches), _layers(staging)):
+        for res, st in zip(attn_caches(self._caches), attn_caches(staging)):
             for keys, at in ((_POOL_ROW_KEYS, rows), (_POOL_PAGE_KEYS, ids)):
                 for name in keys:
                     if name in st:
@@ -1083,8 +1081,8 @@ class ContinuousEngine:
                 break                     # the pool cannot fund the anchor
             mode = self._eff_mode(group[0])
             self._cur_mode = mode
-            # a group's mode is held to the envelope as in the reference
-            # (whose one mode outside it, DSA over MLA, is not ported)
+            # a per-request dsa_mode override can leave the chunk envelope
+            # (DSA over MLA): such groups fall back to blocking admission
             if self.chunked and can_chunk_prefill(
                     self.cfg, mode, moe_dense=self.engine.moe_dense):
                 self._start_chunked_group(free, group, mode)
@@ -1556,8 +1554,7 @@ class ContinuousEngine:
         layer) are counted apart, in ``stats["probe_steps"]``."""
         tel = self.telemetry
         flags = self._flags(mode)
-        if not (flags.long_context and flags.dsa_mode in ("block", "kernel")
-                and self.cfg.dsa.enabled):
+        if not probe_ok(self.cfg, flags):
             return                        # no block selection to sample
         if not self._active.any():
             return
@@ -1611,12 +1608,12 @@ class ContinuousEngine:
         (cloning the cache would cost gigabytes at full width)."""
         self._note("probe", tok, mask, caches, flags)
         bk = self.cfg.dsa.block_k
-        saved = [_save_step_rows(lc, bk) for lc in _layers(caches)]
+        saved = [_save_step_rows(lc, bk) for lc in attn_caches(caches)]
         try:
             return decode_step(self.engine.params, self.cfg, flags, tok,
                                caches, active=mask)[2]
         finally:
-            for lc, sv in zip(_layers(caches), saved):
+            for lc, sv in zip(attn_caches(caches), saved):
                 _restore_step_rows(lc, sv)
 
     # -- speculative segments ------------------------------------------------

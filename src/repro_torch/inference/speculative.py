@@ -70,12 +70,15 @@ def can_speculate(cfg: ArchConfig, dsa_mode: str = "off", k: int = 1
     decode numerics gives the decode step's tokens: non-wrapping caches
     (no recurrent RWKV6 state to roll back, no SWA ring), and on the DSA
     paths a chunk of K + 1 rows inside the DECODE_LOCAL force-keep window,
-    so the ktb entries the verify leaves stale are never read.  MoE archs
-    are served: decode steps and verify chunks both route the
-    decode-dense expert path.  (The reference also leaves out Mamba,
-    encoder-decoder, cross-attention and DSA-over-MLA archs, none of which
-    is ported.)"""
+    so the ktb entries the verify leaves stale are never read; no DSA
+    over MLA (no predicted-key cache, as in ``can_chunk_prefill``).  MoE
+    archs are served: decode steps and verify chunks both route the
+    decode-dense expert path, and MLA verifies absorbed, as its decode
+    step attends.  (The reference also leaves out Mamba,
+    encoder-decoder and cross-attention archs, none of which is
+    ported.)"""
     return (cfg.rwkv is None and cfg.swa_window == 0
+            and not (cfg.mla is not None and dsa_mode != "off")
             and (dsa_mode == "off" or k + 1 <= DECODE_LOCAL))
 
 

@@ -50,7 +50,10 @@ this module.  With telemetry enabled there are four layers:
                      observable per workload.  The step writes the
                      resident cache in place, so the engine saves what
                      it will overwrite and puts it back
-                     (``ContinuousEngine._sparsity_probe``).
+                     (``ContinuousEngine._sparsity_probe``).  Only a
+                     step that selects blocks is sampled (``probe_ok``:
+                     DSA on the block or kernel path of a long-context
+                     cache; not MLA, whose decode selects nothing).
 
 Overhead discipline: every hook is host-side and O(events); signature
 hashing walks leaf shapes/dtypes only (no device sync); the probe is the
@@ -203,6 +206,15 @@ class MetricsRegistry:
 
 # ---------------------------------------------------------------------------
 # compile watching
+
+
+def probe_ok(cfg, flags) -> bool:
+    """Whether a decode step under ``flags`` makes a block selection for
+    the sparsity probe to sample: DSA on the block or kernel path of a
+    long-context cache, and not over MLA (whose latent cache holds no
+    predicted keys: its decode attends every row)."""
+    return (cfg.dsa.enabled and cfg.mla is None and flags.long_context
+            and flags.dsa_mode in ("block", "kernel"))
 
 
 def _leaves(x, out: list) -> list:

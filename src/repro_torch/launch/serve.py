@@ -105,6 +105,19 @@ cache promotes it, and each step then copies every expert to f32):
         --reduced --batch 2 --prompt-len 96 --new-tokens 8 --dsa \
         --dsa-mode kernel --moe-prefill dense --device cpu
 
+``--arch deepseek_v3`` serves multi-head latent attention over 256
+experts (top 8, one shared) after a dense prologue of 3 layers: prefill
+expands the latent cache to per-head keys (DSA's block path is the plain
+gather: no kernel), decode attends in the latent space.  ``--layers N``
+keeps the prologue (3 is the prologue alone, 5 adds two MoE layers); the
+cache is 576 values a token a layer; serve it on ``--cache-dtype
+bfloat16`` (the absorbed decode on an f32 cache turns the residual
+stream f32):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_v3 \
+        --reduced --batch 2 --prompt-len 64 --new-tokens 8 --dsa \
+        --dsa-mode block --device cpu
+
 ``--arch rwkv6_3b`` serves the RWKV6 model through the static engine: its
 prefill runs the chunked wkv kernel K7 once per layer when the prompt is
 a multiple of 32 longer than 32; ``--dsa`` falls back to off (no score
@@ -116,13 +129,12 @@ matrix), and the cache line reports the recurrent state's bytes:
 from __future__ import annotations
 
 import argparse
-import dataclasses
 
 import numpy as np
 
 import torch
 
-from repro_torch.configs.base import get_config, reduced
+from repro_torch.configs.base import cut_layers, get_config, reduced
 from repro_torch.device import resolve_device
 from repro_torch.inference.config import ServingConfig
 from repro_torch.inference.engine import Engine
@@ -338,7 +350,7 @@ def main(argv=None):
     if args.reduced:
         cfg = reduced(cfg)
     if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        cfg = cut_layers(cfg, args.layers)
     params = init_model(args.seed, cfg, device=device)
     max_len = args.max_len or (args.prompt_len + args.new_tokens + 16)
     dsa_on = args.dsa and cfg.dsa.enabled

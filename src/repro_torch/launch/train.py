@@ -25,7 +25,8 @@ the last), its ``[done]`` line and, on the card, the median step time,
 tokens/s and the peak memory.  Full-width archs recompute each layer in
 the backward pass (``ArchConfig.remat``); ``--reduced`` ones do not.
 ``--layers N`` cuts the arch to its first N layers (a full-width
-mixtral_8x22b layer holds 2.4 B expert parameters) and ``--moment-dtype
+mixtral_8x22b layer holds 2.4 B expert parameters; deepseek_v3 keeps its
+dense prologue, so ``--layers 3`` trains the prologue alone) and ``--moment-dtype
 bfloat16`` stores AdamW's moments in bf16.
 Sharded training (``--mesh`` other than ``host``) is not ported (ROADMAP
 Queue 1, "Distribution").
@@ -41,7 +42,7 @@ from typing import Dict, List
 import torch
 
 from repro_torch.checkpoint.checkpoint import AsyncCheckpointer
-from repro_torch.configs.base import get_config, reduced
+from repro_torch.configs.base import cut_layers, get_config, reduced
 from repro_torch.data.synthetic import DataConfig, make_batches
 from repro_torch.device import resolve_device
 from repro_torch.distributed.fault_tolerance import StepWatchdog
@@ -94,7 +95,7 @@ def main(argv=None) -> TrainResult:
     if args.reduced:
         cfg = reduced(cfg)
     if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        cfg = cut_layers(cfg, args.layers)
     dsa_mode = args.dsa_mode
     if dsa_mode == "auto":
         dsa_mode = "block" if cfg.dsa.enabled else "off"

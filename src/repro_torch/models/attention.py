@@ -59,6 +59,17 @@ product in integers.  As in the reference, the PRESENCE of a scale leaf
 is what the apply paths branch on.  fp8 leaves move as uint8 views
 (``core.quantization.raw``); no arithmetic runs on them.
 
+Multi-head latent attention (``apply_mla``, deepseek_v3): queries and
+keys through low-rank latents, the cache holding only each token's
+latent ``c_kv`` (B, S, kv_lora_rank) and shared rope key ``k_rope``.
+Prefill and training expand the latents to per-head keys and values and
+run the attention above (DSA's pattern included, on the plain block
+path in kernel mode too, as the reference does); decode and the
+speculative verify attend in the latent space (W_uk absorbed into the
+query, W_uv applied after the weighted sum); chunks expand the cached
+latents as prefill does.  No DSA selection runs at decode: the latent
+cache holds no predicted keys.
+
 Caches are updated IN PLACE (the JAX reference returns new trees): each
 layer's cache dict is written row by row during decode, and prefill fills
 it in place.  No step replaces a leaf, and a decode step given a bare
@@ -91,7 +102,7 @@ from repro_torch.core import quantization as Q
 from repro_torch.core.prediction import einsum, mm
 from repro_torch.core.quantization import raw
 from repro_torch.kernels import ops
-from repro_torch.models.common import dense_init, rope
+from repro_torch.models.common import dense_init, rms_norm, rope
 
 # Trailing tokens always attended at decode.
 DECODE_LOCAL = 64
@@ -162,6 +173,13 @@ def as_active(active) -> Optional[Active]:
     if active is None or isinstance(active, Active):
         return active
     return Active(active)
+
+
+def _act_mask(active: Optional[Active], b: int, device) -> torch.Tensor:
+    """The (B,) mask of the rows that take part in a step: ``active``'s,
+    or every row."""
+    return (torch.ones((b,), dtype=torch.bool, device=device)
+            if active is None else active.mask)
 
 
 def _int8_select_scores(q_t, key_q, key_s, *, block_k: int = 1):
@@ -785,8 +803,7 @@ def _apply_chunk(params, cfg: ArchConfig, flags: RunFlags, x, cache,
     p = pos[:, None] + offs[None, :]                       # (B, C) global
     q = rope(q, p, cfg.rope_theta)
     k = rope(k, p, cfg.rope_theta)
-    act = (torch.ones((b,), dtype=torch.bool, device=x.device)
-           if active is None else active.mask)
+    act = _act_mask(active, b, x.device)
     live = (offs[None, :] < chunk_len.long()[:, None]) & act[:, None]
     wok = act[:, None].expand(b, c)        # active rows write all C rows
     lv = live[..., None, None]
@@ -970,8 +987,7 @@ def _apply_verify(params, cfg: ArchConfig, flags: RunFlags, x, cache,
     p = pos[:, None] + torch.arange(c, device=x.device)[None, :]
     q = rope(q, p, cfg.rope_theta)
     k = rope(k, p, cfg.rope_theta)
-    act = (torch.ones((b,), dtype=torch.bool, device=x.device)
-           if active is None else active.mask)
+    act = _act_mask(active, b, x.device)
     wok = act[:, None].expand(b, c)
     for leaf, val in _kv_rows(cache, k, v, flags.kv_quant).items():
         _write_rows(cache[leaf], p, val, wok)
@@ -1064,14 +1080,13 @@ def commit_verify(cfg: ArchConfig, flags: RunFlags, cache: Dict,
                          "speculation is off on a paged engine")
     b = cache["pos"].shape[0]
     dev = cache["pos"].device
-    act = (torch.ones((b,), dtype=torch.bool, device=dev)
-           if active is None else active.mask)
+    act = _act_mask(active, b, dev)
     keep = torch.where(act, keep.to(dev).long(), 0)
     start = cache["pos"].long() - torch.where(act, c, 0)
     offs = torch.arange(c, device=dev)
     p = start[:, None] + offs[None, :]                     # (B, C)
     rejected = (offs[None, :] >= keep[:, None]) & act[:, None]
-    for name in ("k", "v", "kt", "k_s", "v_s", "kt_s"):
+    for name in ("k", "v", "kt", "k_s", "v_s", "kt_s", "c_kv", "k_rope"):
         if name in cache:
             t = cache[name]
             _write_rows(t, p, torch.zeros((b, c) + t.shape[2:], dtype=t.dtype,
@@ -1087,3 +1102,233 @@ def commit_verify(cfg: ArchConfig, flags: RunFlags, cache: Dict,
             slot = p[:, i].clamp(max=s - 1)
             kt = pend[:, i] if pend is not None else cache["kt"][rows, slot]
             _ktb_add(cache, slot // bkd, kt, Active(act & (keep > i)))
+
+
+# ---------------------------------------------------------------------------
+# multi-head latent attention (DeepSeek MLA)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator, cfg: ArchConfig, *, device,
+             dtype=torch.float32) -> Dict:
+    """The latent projections: queries through a ``q_lora_rank``
+    bottleneck, keys and values through the ``kv_lora_rank`` latent
+    ``c_kv`` plus one shared rope key; with DSA, the predictor on
+    d_model."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk_h = m.qk_nope_head_dim + m.qk_rope_head_dim
+    kw = dict(device=device, dtype=dtype)
+    params = {
+        "q_a": dense_init(gen, (d, m.q_lora_rank), **kw),
+        "q_a_norm": torch.ones((m.q_lora_rank,), **kw),
+        "q_b": dense_init(gen, (m.q_lora_rank, h * qk_h), **kw),
+        "kv_a": dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim),
+                           **kw),
+        "kv_a_norm": torch.ones((m.kv_lora_rank,), **kw),
+        "kv_b": dense_init(gen, (m.kv_lora_rank,
+                                 h * (m.qk_nope_head_dim + m.v_head_dim)),
+                           **kw),
+        "wo": dense_init(gen, (h * m.v_head_dim, d), **kw),
+    }
+    if cfg.dsa.enabled:
+        params["dsa"] = PRED.init_predictor(gen, d, cfg.dsa.sigma, **kw)
+    return params
+
+
+def _mla_qkv(params, cfg: ArchConfig, x, pos):
+    """(q_nope (B, S, H, nope), q_rope (B, S, H, rope), c_kv (B, S, r),
+    k_rope (B, S, 1, rope)) at positions ``pos`` ((S,) or (B, S))."""
+    m = cfg.mla
+    b, s = x.shape[:2]
+    q = mm(rms_norm(mm(x, params["q_a"]), params["q_a_norm"]),
+           params["q_b"]).reshape(b, s, cfg.n_heads, -1)
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = rope(q[..., m.qk_nope_head_dim:], pos, cfg.rope_theta)
+    kv = mm(x, params["kv_a"])
+    c_kv = rms_norm(kv[..., :m.kv_lora_rank], params["kv_a_norm"])
+    k_rope = rope(kv[..., None, m.kv_lora_rank:], pos, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_expand(params, cfg: ArchConfig, c_kv, k_rope):
+    """The non-absorbed keys and values: c_kv (B, S, r) through ``kv_b``
+    to (k_nope, v) per head, the shared k_rope (B, S, rope) broadcast to
+    every head.  Returns k (B, S, H, nope + rope), v (B, S, H, v)."""
+    m = cfg.mla
+    b, s = c_kv.shape[:2]
+    h = cfg.n_heads
+    kvb = mm(c_kv, params["kv_b"]).reshape(
+        b, s, h, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kvb[..., :m.qk_nope_head_dim], kvb[..., m.qk_nope_head_dim:]
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(
+        b, s, h, m.qk_rope_head_dim).to(k_nope.dtype)], dim=-1)
+    return k, v
+
+
+def apply_mla(params, cfg: ArchConfig, flags: RunFlags, x, *, cache=None,
+              causal: bool = True, active=None, chunk_len=None,
+              sel_len=None):
+    """MLA's ``apply_attention``: returns (out, cache, aux), the cache
+    (``c_kv``, ``k_rope``, ``pos``) filled or appended to in place.
+
+    Prefill and training expand the latents to per-head keys and values
+    and attend as a GQA layer with one query head per KV head: with DSA,
+    the pattern of ``_dsa_train_mask_and_aux`` over the 192-wide q and k
+    (the token path, or ``core.attention.dsa_sparse_attention`` on the
+    block path, ``"kernel"`` included: the reference launches no kernel
+    for MLA, and K2 takes one head width for q, k and v), else dense
+    attention up to 1024 tokens and flash attention past them.  Decode
+    runs in the latent space (``_apply_mla_decode``); ``chunk_len`` takes
+    the chunk path (``_apply_mla_chunk``), with ``flags.spec_verify``
+    the verify (``_apply_mla_verify``).  Neither decode form selects:
+    DSA over MLA has no predicted-key cache."""
+    if flags.mode == "decode":
+        if chunk_len is not None and flags.spec_verify:
+            return _apply_mla_verify(params, cfg, x, cache, active), cache, {}
+        if chunk_len is not None:
+            return _apply_mla_chunk(params, cfg, x, cache, active, chunk_len,
+                                    sel_len), cache, {}
+        return _apply_mla_decode(params, cfg, x, cache, active), cache, {}
+    b, s = x.shape[:2]
+    pos = torch.arange(s, device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, cfg, x, pos)
+    k, v = _mla_expand(params, cfg, c_kv, k_rope[:, :, 0])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    aux: Dict[str, torch.Tensor] = {}
+    if dsa_active(cfg, flags):
+        (kind, pat), aux = _dsa_train_mask_and_aux(params, cfg, flags, x, q,
+                                                   k, True)
+        if kind == "token":
+            out = A.dense_attention(q, k, v, causal=True, token_mask=pat)
+        else:
+            out = A.dsa_sparse_attention(q, k, v, *pat,
+                                         block_q=cfg.dsa.block_q,
+                                         block_k=cfg.dsa.block_k, causal=True)
+    elif s <= 1024:
+        out = A.dense_attention(q, k, v, causal=True)
+    else:
+        out = A.flash_attention(q, k, v, causal=True)
+    if flags.mode == "prefill" and cache is not None:
+        cache["c_kv"][:, :s] = c_kv.to(cache["c_kv"].dtype)
+        cache["k_rope"][:, :s] = k_rope[:, :, 0].to(cache["k_rope"].dtype)
+        cache["pos"].fill_(s)
+    out = mm(out.reshape(b, s, -1), params["wo"])
+    return out, cache, aux
+
+
+def init_cache_mla(cfg: ArchConfig, batch: int, max_len: int, *, device,
+                   dtype=torch.bfloat16, pages=None) -> Dict:
+    """The latent cache: ``c_kv`` (B, S, kv_lora_rank), ``k_rope`` (B, S,
+    qk_rope_head_dim) and ``pos`` (B,): 576 values a token at
+    deepseek_v3's widths.  Dense only (``engine.can_page``)."""
+    if pages is not None:
+        raise ValueError("an MLA cache keeps the dense layout: it cannot "
+                         "be paged")
+    m = cfg.mla
+    kw = dict(device=device, dtype=dtype)
+    return {"c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), **kw),
+            "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim), **kw),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def _mla_append(params, cfg: ArchConfig, x, cache, act, live):
+    """Project a C-token chunk at each row's ``pos`` and write its latent
+    rows there in place: rows where ``live`` (B, C) as they are, the
+    others of an active row as zeros, nothing on an inactive row, rows
+    past the cache's end dropped (``_write_rows``).  Returns (q_nope,
+    q_rope, p (B, C) the rows' positions)."""
+    b, c = x.shape[:2]
+    pos = cache["pos"].long()
+    p = pos[:, None] + torch.arange(c, device=x.device)[None, :]
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, cfg, x, p)
+    wok = act[:, None].expand(b, c)
+    lv = live[..., None]
+    _write_rows(cache["c_kv"], p, torch.where(lv, c_kv, 0), wok)
+    _write_rows(cache["k_rope"], p, torch.where(lv, k_rope[:, :, 0], 0), wok)
+    return q_nope, q_rope, p
+
+
+def _apply_mla_chunk(params, cfg: ArchConfig, x, cache,
+                     active: Optional[Active], chunk_len, sel_len=None):
+    """Chunk append: C latent rows written at ``pos`` (pad rows zeroed,
+    the state ``truncate_cache`` leaves), ``pos`` advanced by chunk_len,
+    then the chunk's queries attend NON-absorbed: the cached latents of
+    the first ``sel_len`` rows are expanded through ``kv_b`` as
+    whole-prompt prefill expands them, so chunked MLA prefill gives its
+    numbers on real rows.  DSA over MLA does not chunk
+    (``engine.can_chunk_prefill``)."""
+    b, c = x.shape[:2]
+    act = _act_mask(active, b, x.device)
+    live = (torch.arange(c, device=x.device)[None, :]
+            < chunk_len.long()[:, None]) & act[:, None]
+    q_nope, q_rope, p = _mla_append(params, cfg, x, cache, act, live)
+    cache["pos"].add_(torch.where(act, chunk_len.long(), 0).to(torch.int32))
+    sel = cache["c_kv"].shape[1] if sel_len is None else sel_len
+    k, v = _mla_expand(params, cfg, cache["c_kv"][:, :sel].to(x.dtype),
+                       cache["k_rope"][:, :sel].to(x.dtype))
+    out = A.chunk_attention(torch.cat([q_nope, q_rope], dim=-1), k, v, p)
+    return mm(out.reshape(b, c, -1), params["wo"])
+
+
+def _mla_latent_attend(params, cfg: ArchConfig, q_nope, q_rope, cache,
+                       kv_len):
+    """ABSORBED attention over the whole latent cache: q_nope through
+    W_uk into the latent space, scores against every ``c_kv`` and
+    ``k_rope`` row (slots at or past ``kv_len`` (B, C) masked), the f32
+    softmax, values combined in the latent space and expanded through
+    W_uv.  q_*: (B, C, H, .).  Returns (B, C, H * v).  The casts are the
+    reference's: on an f32 cache the output is f32."""
+    m = cfg.mla
+    b, c, h = q_nope.shape[:3]
+    ckc, krc = cache["c_kv"], cache["k_rope"]
+    kvb = params["kv_b"].reshape(m.kv_lora_rank, h,
+                                 m.qk_nope_head_dim + m.v_head_dim)
+    w_uk, w_uv = kvb[..., :m.qk_nope_head_dim], kvb[..., m.qk_nope_head_dim:]
+    q_eff = einsum("bchn,rhn->bchr", q_nope, w_uk)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    s_all = (torch.einsum("bchr,bsr->bchs", q_eff, ckc.to(q_eff.dtype))
+             + torch.einsum("bchn,bsn->bchs", q_rope, krc.to(q_rope.dtype))
+             ) * scale
+    kj = torch.arange(ckc.shape[1], device=ckc.device)
+    s_all = torch.where(kj[None, None, None, :] < kv_len[:, :, None, None],
+                        s_all, A.NEG)
+    pattn = torch.softmax(s_all.float(), dim=-1)
+    o_lat = torch.einsum("bchs,bsr->bchr", pattn.to(ckc.dtype), ckc)
+    out = torch.einsum("bchr,rhv->bchv", o_lat, w_uv.to(o_lat.dtype))
+    return out.reshape(b, c, -1)
+
+
+def _apply_mla_decode(params, cfg: ArchConfig, x, cache,
+                      active: Optional[Active] = None):
+    """Absorbed decode, one token a row at its own ``pos``: its latent
+    row written there (an inactive row or one past the cache's end
+    writes nothing), ``pos`` advanced on active rows, and the row attends
+    slots [0, pos] (an inactive row nothing).  Fixed shapes, no host
+    sync: the form a CUDA graph captures."""
+    b = x.shape[0]
+    act = _act_mask(active, b, x.device)
+    live = act[:, None]
+    q_nope, q_rope, p = _mla_append(params, cfg, x, cache, act, live)
+    kv_len = torch.where(live, p + 1, 0)
+    cache["pos"].add_(act.to(torch.int32))
+    out = _mla_latent_attend(params, cfg, q_nope, q_rope, cache, kv_len)
+    return mm(out, params["wo"])
+
+
+def _apply_mla_verify(params, cfg: ArchConfig, x, cache,
+                      active: Optional[Active]):
+    """Draft verify: the C rows written at ``pos`` as the chunk path
+    writes them (every row real), ``pos`` advanced by C on active rows,
+    and each row scored ABSORBED as ``_apply_mla_decode`` scores it, with
+    its own ``kv_len = pos + i + 1``: row i is the decode step at depth
+    pos + i (the same tokens; a product over C rows may round otherwise
+    than one over 1).  ``commit_verify`` then zeroes the rejected rows."""
+    b, c = x.shape[:2]
+    act = _act_mask(active, b, x.device)
+    live = act[:, None].expand(b, c)
+    q_nope, q_rope, p = _mla_append(params, cfg, x, cache, act, live)
+    kv_len = torch.where(live, p + 1, 0)
+    cache["pos"].add_(torch.where(act, c, 0).to(torch.int32))
+    out = _mla_latent_attend(params, cfg, q_nope, q_rope, cache, kv_len)
+    return mm(out, params["wo"])

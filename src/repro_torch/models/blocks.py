@@ -1,10 +1,13 @@
-"""Transformer blocks and layer groups (dense attention, mixture-of-experts
-and RWKV6 archs).
+"""Transformer blocks and layer groups (dense attention, multi-head latent
+attention, mixture-of-experts and RWKV6 archs).
 
 A *group* is the repeating unit of layers; for the archs ported so far a
-group is one pre-norm sub-block ("b0"): attention + SwiGLU MLP, attention
-+ a mixture of experts (``moe``: mixtral, every layer), or, for RWKV6,
-the time-mix block + the channel-mix FFN ("rwkv").
+group is one pre-norm sub-block ("b0"): attention ("attn", or "mla" for
+DeepSeek's latent attention) + SwiGLU MLP, attention + a mixture of
+experts (``moe``: every layer after the dense prologue), or, for RWKV6,
+the time-mix block + the channel-mix FFN ("rwkv").  deepseek_v3's first
+``first_k_dense`` layers are a PROLOGUE of dense sub-blocks
+(``prologue_def``) before the groups, as in the reference.
 """
 from __future__ import annotations
 
@@ -16,8 +19,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.prediction import mm
 from repro_torch.models.attention import (RunFlags, apply_attention,
-                                          init_attention,
-                                          init_cache_attention)
+                                          apply_mla, init_attention,
+                                          init_cache_attention,
+                                          init_cache_mla, init_mla)
 from repro_torch.models import ssm
 from repro_torch.models.common import dense_init, rms_norm
 from repro_torch.models.moe import apply_moe, init_moe
@@ -32,22 +36,37 @@ class SubBlockDef:
 
 def group_defs(cfg: ArchConfig) -> List[SubBlockDef]:
     """The sub-block structure of one group.  MoE: the reference's uniform
-    pattern only (an MoE FFN on every layer, mixtral); a dense prologue
-    (``first_k_dense``, deepseek_v3) and periodic MoE layers (jamba) are
-    not ported."""
+    pattern (an MoE FFN on every layer after the dense prologue: mixtral,
+    deepseek_v3); periodic MoE layers (jamba) are not ported."""
     if cfg.rwkv is not None:
         return [SubBlockDef("rwkv")]
     mo = cfg.moe
-    if mo is not None and (mo.first_k_dense or mo.layer_period != 1):
+    if mo is not None and mo.layer_period != 1:
         raise NotImplementedError(
-            f"{cfg.name}: MoE with first_k_dense={mo.first_k_dense}, "
-            f"layer_period={mo.layer_period} is not ported (ROADMAP Queue "
-            f"1, \"Remaining archs\")")
-    return [SubBlockDef("attn", moe=mo is not None)]
+            f"{cfg.name}: MoE with layer_period={mo.layer_period} is not "
+            f"ported (ROADMAP Queue 1, \"Remaining archs\")")
+    return [SubBlockDef("mla" if cfg.mla is not None else "attn",
+                        moe=mo is not None)]
+
+
+def prologue_def(cfg: ArchConfig) -> SubBlockDef:
+    """A dense prologue layer: the arch's attention, a dense MLP."""
+    return SubBlockDef("mla" if cfg.mla is not None else "attn")
+
+
+def n_prologue(cfg: ArchConfig) -> int:
+    """The dense prologue's depth (``first_k_dense``; 0 without one)."""
+    return cfg.moe.first_k_dense if cfg.moe is not None else 0
 
 
 def n_groups(cfg: ArchConfig) -> int:
-    return cfg.n_layers // len(group_defs(cfg))
+    """The groups after the prologue.  A depth below the prologue's is
+    refused."""
+    n = cfg.n_layers - n_prologue(cfg)
+    if n < 0:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers is less than "
+                         f"the dense prologue's {n_prologue(cfg)}")
+    return n // len(group_defs(cfg))
 
 
 def init_mlp(gen: torch.Generator, cfg: ArchConfig, *, device,
@@ -73,9 +92,10 @@ def init_subblock(gen: torch.Generator, cfg: ArchConfig, d: SubBlockDef, *,
     if d.kind == "rwkv":
         return {**norms, "attn": ssm.init_rwkv(gen, cfg, **kw),
                 "mlp": ssm.init_rwkv_ffn(gen, cfg, **kw)}
-    if d.kind != "attn":
+    if d.kind not in ("attn", "mla"):
         raise NotImplementedError(f"sub-block kind {d.kind!r} is not ported")
-    return {**norms, "attn": init_attention(gen, cfg, **kw),
+    attn = init_mla if d.kind == "mla" else init_attention
+    return {**norms, "attn": attn(gen, cfg, **kw),
             "mlp": (init_moe if d.moe else init_mlp)(gen, cfg, **kw)}
 
 
@@ -85,6 +105,9 @@ def init_subblock_cache(cfg: ArchConfig, d: SubBlockDef, batch: int,
     if d.kind == "rwkv":
         return {"attn": ssm.init_cache_rwkv(cfg, batch, device=device,
                                             dtype=dtype)}
+    if d.kind == "mla":
+        return {"attn": init_cache_mla(cfg, batch, max_len, device=device,
+                                       dtype=dtype, pages=pages)}
     return {"attn": init_cache_attention(cfg, batch, max_len, flags,
                                          device=device, dtype=dtype,
                                          pages=pages)}
@@ -95,13 +118,15 @@ def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
     """Pre-norm residual block.  Returns (x, cache, aux); the cache is
     updated in place, ``aux`` is the attention's (the MSE term in train
     mode) and an MoE FFN's ``router`` term.  ``step``: the decode-time
-    ``active``, ``chunk_len`` and ``sel_len`` of ``apply_attention``.
+    ``active``, ``chunk_len`` and ``sel_len`` of ``apply_attention``
+    (``apply_mla`` for an "mla" sub-block).
     An MoE FFN routes decode-dense in decode mode (steps, chunks, verify
     rows) and under ``flags.moe_dense``, by capacity otherwise."""
     if d.kind == "rwkv":
         return _apply_rwkv_subblock(params, cfg, x, cache, **step), cache, {}
     h = rms_norm(x, params["norm1"].to(x.dtype), cfg.norm_eps)
-    y, _, aux = apply_attention(params["attn"], cfg, flags, h,
+    attn = apply_mla if d.kind == "mla" else apply_attention
+    y, _, aux = attn(params["attn"], cfg, flags, h,
                                 cache=None if cache is None else cache["attn"],
                                 causal=d.causal, **step)
     x = x + y

@@ -14,6 +14,7 @@ Public API:
                                               -> caches
   spec_scratch(caches, c)                     -> the pair's scratch
   init_cache(cfg, batch, max_len, flags, ..., pages=None) -> caches
+  attn_caches(caches)                         -> each layer's attention cache
   zero_cache(caches)                          -> caches (in place)
   truncate_cache(cfg, caches, length)         -> caches (in place)
 
@@ -24,11 +25,16 @@ per-layer list, ``caches["groups"][i]["b0"]["attn"]``: the layout the
 reference's ``unstack_group_caches`` produces for its decode loop, so no
 unstacking step is needed here.  An RWKV6 layer's cache holds its
 recurrent state ``s`` and the last tokens ``x_prev`` and ``ffn_prev``
-instead of K/V rows.
+instead of K/V rows, an MLA layer's the latent rows ``c_kv`` and
+``k_rope``.  A dense prologue (deepseek_v3's ``first_k_dense`` layers:
+the arch's attention and a dense MLP) runs before the groups, its
+params and caches in the per-layer lists ``params["prologue"]`` and
+``caches["prologue"]``, unstacked in the reference too.
 
 ``forward_train`` is the training forward (``RunFlags(mode="train")``, no
 cache): it also returns ``aux``, each of ``AUX_KEYS`` an f32 scalar summed
-over the layers (``mse``, the DSA predictor's Eq. 6 term; ``router``,
+over the layers, the prologue's included (``mse``, the DSA predictor's
+Eq. 6 term; ``router``,
 the MoE load-balance term times ``router_aux_weight``, 0 on a dense
 arch).  An MoE layer trains on the capacity route; decode, chunk and
 verify steps run in decode mode and route decode-dense.  With ``cfg.remat`` each layer group runs
@@ -43,7 +49,7 @@ elementwise passes), and "none" keeps everything.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, List
+from typing import Any, Dict, Iterator, List, Optional
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -79,6 +85,10 @@ def init_model(seed: int, cfg: ArchConfig, *, device=None) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab), **kw)
+    if B.n_prologue(cfg):
+        params["prologue"] = [B.init_subblock(gen, cfg, B.prologue_def(cfg),
+                                              **kw)
+                              for _ in range(B.n_prologue(cfg))]
     return params
 
 
@@ -89,6 +99,10 @@ def forward(params, cfg: ArchConfig, flags: RunFlags, tokens: torch.Tensor,
     ``step``: the decode-time ``active``, ``chunk_len`` and ``sel_len``
     (see ``decode_step`` and ``chunk_step``)."""
     x = params["embed"][tokens.long()].to(DTYPES[cfg.dtype])
+    pro = B.prologue_def(cfg)
+    for i, lp in enumerate(params.get("prologue", ())):
+        c = None if caches is None else caches["prologue"][i]
+        x, _, _ = B.apply_subblock(lp, cfg, flags, pro, x, cache=c, **step)
     defs = B.group_defs(cfg)
     sel: List[tuple] = []
     for i, gp in enumerate(params["groups"]):
@@ -149,11 +163,18 @@ def forward_train(params, cfg: ArchConfig, flags: RunFlags,
         a = _norm_aux(a, zero)
         return (x,) + tuple(a[k] for k in AUX_KEYS)
 
-    for gp in params["groups"]:
+    def prologue(lp, x):
+        x, _, a = B.apply_subblock(lp, cfg, flags, B.prologue_def(cfg), x)
+        a = _norm_aux(a, zero)
+        return (x,) + tuple(a[k] for k in AUX_KEYS)
+
+    layers = [(prologue, lp) for lp in params.get("prologue", ())]
+    layers += [(group, gp) for gp in params["groups"]]
+    for fn, lp in layers:
         if remat and torch.is_grad_enabled():
-            x, *a = checkpoint(group, gp, x, **ckpt)
+            x, *a = checkpoint(fn, lp, x, **ckpt)
         else:
-            x, *a = group(gp, x)
+            x, *a = fn(lp, x)
         aux = {k: aux[k] + v for k, v in zip(AUX_KEYS, a)}
     return _head(params, cfg, x), aux
 
@@ -206,22 +227,32 @@ def chunk_step(params, cfg: ArchConfig, flags: RunFlags, tokens, caches,
                    sel_len=sel_len)
 
 
-def spec_scratch(caches, c: int) -> List[Dict[str, Any]]:
+def attn_caches(caches) -> Iterator[Dict[str, Any]]:
+    """Every layer's attention cache dict (K/V, latent or recurrent
+    leaves), in layer order: the dense prologue's first, then each
+    group's sub-blocks."""
+    for sub in caches.get("prologue", ()):
+        yield sub["attn"]
+    for group in caches["groups"]:
+        for sub in group.values():
+            yield sub["attn"]
+
+
+def spec_scratch(caches, c: int) -> List[Optional[torch.Tensor]]:
     """The scratch a ``verify_step`` and its ``commit_chunk`` share beside
-    ``caches``, one entry per layer (as ``caches["groups"]``): a (B, C, k)
+    ``caches``, one entry per layer (``attn_caches`` order): a (B, C, k)
     f32 buffer where the layer's cache holds an int8 ktb (the verify keeps
     its rows' float K~ there and the commit's ktb replay adds them, as the
-    decode step adds the float row), else None.  The cache's own layout
-    never changes; a graph captured over a scratch replays into it, so
-    its owner keeps it."""
+    decode step adds the float row), else None (an MLA layer has no
+    ktb).  The cache's own layout never changes; a graph captured over a
+    scratch replays into it, so its owner keeps it."""
     def one(lc):
         if "ktb_s" not in lc or "page_tbl" in lc:
             return None
         kt = lc["kt"]
         return torch.zeros((kt.shape[0], c, kt.shape[-1]),
                            dtype=torch.float32, device=kt.device)
-    return [{name: one(sub["attn"]) for name, sub in group.items()}
-            for group in caches["groups"]]
+    return [one(lc) for lc in attn_caches(caches)]
 
 
 def _with_scratch(caches, scratch):
@@ -229,10 +260,17 @@ def _with_scratch(caches, scratch):
     layer's ``spec_scratch`` entry beside its leaves."""
     if scratch is None:
         return caches
-    return {**caches, "groups": [
-        {name: {**sub, "attn": {**sub["attn"], PEND_KEY: scratch[i][name]}}
-         for name, sub in group.items()}
-        for i, group in enumerate(caches["groups"])]}
+    it = iter(scratch)
+
+    def put(sub):
+        return {**sub, "attn": {**sub["attn"], PEND_KEY: next(it)}}
+
+    view = dict(caches)
+    if "prologue" in caches:
+        view["prologue"] = [put(sub) for sub in caches["prologue"]]
+    view["groups"] = [{name: put(sub) for name, sub in group.items()}
+                      for group in caches["groups"]]
+    return view
 
 
 def verify_step(params, cfg: ArchConfig, flags: RunFlags, tokens, caches,
@@ -270,7 +308,8 @@ def commit_chunk(cfg: ArchConfig, flags: RunFlags, caches, keep, c: int,
     """Commit the accepted prefix of a ``verify_step`` and roll back the
     rejected tail, in place, every layer: keep (B,) accepted rows per row
     (ignored on inactive rows); the verify wrote C rows at ``start = pos -
-    C``.  Zeroes every per-token row (k, v, kt and their scales) in
+    C``.  Zeroes every per-token row (k, v, kt and their scales, or an
+    MLA layer's c_kv and k_rope) in
     [start + keep, start + C), sets ``pos = start + keep`` and, on the
     block and kernel paths, replays the decode step's ktb update for the
     accepted rows (``models.attention.commit_verify``), so the cache is
@@ -278,9 +317,8 @@ def commit_chunk(cfg: ArchConfig, flags: RunFlags, caches, keep, c: int,
     ``flags`` and ``scratch`` are the verify's.  Raises on a paged
     cache."""
     act = as_active(active)
-    for group in _with_scratch(caches, scratch)["groups"]:
-        for sub in group.values():
-            commit_verify(cfg, flags, sub["attn"], keep, c, act)
+    for lc in attn_caches(_with_scratch(caches, scratch)):
+        commit_verify(cfg, flags, lc, keep, c, act)
     return caches
 
 
@@ -292,53 +330,55 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, flags: RunFlags,
     over the logical [0, max_len) geometry (see
     models.attention.init_cache_attention)."""
     dev = resolve_device(device)
+    kw = dict(device=dev, dtype=dtype, pages=pages)
     defs = B.group_defs(cfg)
-    return {"groups": [
-        {f"b{i}": B.init_subblock_cache(cfg, d, batch, max_len, flags,
-                                        device=dev, dtype=dtype, pages=pages)
+    caches: Dict[str, Any] = {"groups": [
+        {f"b{i}": B.init_subblock_cache(cfg, d, batch, max_len, flags, **kw)
          for i, d in enumerate(defs)}
         for _ in range(B.n_groups(cfg))]}
+    if B.n_prologue(cfg):
+        caches["prologue"] = [
+            B.init_subblock_cache(cfg, B.prologue_def(cfg), batch, max_len,
+                                  flags, **kw)
+            for _ in range(B.n_prologue(cfg))]
+    return caches
 
 
 def zero_cache(caches) -> Dict[str, Any]:
     """Zero every leaf of a cache in place: the state ``init_cache`` makes
     (fp8 leaves through their bytes)."""
-    for group in caches["groups"]:
-        for sub in group.values():
-            for t in sub["attn"].values():
-                raw(t).zero_()
+    for lc in attn_caches(caches):
+        for t in lc.values():
+            raw(t).zero_()
     return caches
 
 
 # per-token cache leaves (and their quantization scales), masked past the
 # true length
-_ROW_KEYS = ("k", "v", "kt", "k_s", "v_s", "kt_s")
+_ROW_KEYS = ("k", "v", "kt", "k_s", "v_s", "kt_s", "c_kv", "k_rope")
 
 
 def truncate_cache(cfg: ArchConfig, caches, length) -> Dict[str, Any]:
     """Sanitise a freshly prefilled cache to its true prompt length(s), in
-    place: zero every per-token row (and scale) at slots >= length (on a
-    ring, slots and not positions, as the reference does),
+    place, every layer, the prologue's included: zero every per-token
+    row (K/V, kt, MLA's c_kv and k_rope, and the scales) at slots >=
+    length (on a ring, slots and not positions, as the reference does),
     rebuild ktb (ktb_s) from the masked kt, and set every ``pos`` to
     ``length`` (a scalar or per-row (B,) lengths).  fp8 rows are zeroed
     through their bytes: no arithmetic runs on an fp8 tensor.  Recurrent
     (RWKV6) leaves are left untouched, as in the reference: their archs
     take no padded prompts."""
-    for group in caches["groups"]:
-        for sub in group.values():
-            c = sub["attn"]
-            if "k" not in c:
-                continue
-            b, s = c["k"].shape[:2]
-            ln = torch.as_tensor(length, device=c["k"].device).to(
-                torch.int32).expand(b)
-            keep = torch.arange(s, device=ln.device)[None, :] < ln[:, None]
-            for name in _ROW_KEYS:
-                if name in c:
-                    t = raw(c[name])
-                    t.mul_(keep.reshape(b, s, *([1] * (t.dim() - 2))).to(
-                        t.dtype))
-            c["pos"].copy_(ln)
-            if "ktb" in c:
-                _rebuild_ktb(cfg, c)
+    for c in attn_caches(caches):
+        rows = [c[name] for name in _ROW_KEYS if name in c]
+        if not rows:
+            continue
+        b, s = rows[0].shape[:2]
+        ln = torch.as_tensor(length, device=rows[0].device).to(
+            torch.int32).expand(b)
+        keep = torch.arange(s, device=ln.device)[None, :] < ln[:, None]
+        for t in map(raw, rows):
+            t.mul_(keep.reshape(b, s, *([1] * (t.dim() - 2))).to(t.dtype))
+        c["pos"].copy_(ln)
+        if "ktb" in c:
+            _rebuild_ktb(cfg, c)
     return caches

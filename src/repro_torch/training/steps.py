@@ -5,9 +5,10 @@ The train step implements the paper's joint objective (Eq. 7):
 
     L = L_model + lambda * L_MSE + router
 
-(``router``: the MoE load-balance term times ``router_aux_weight``,
-summed over the layers, each layer's the mean over the batch rows as the
-reference's per-row capacity dispatch gives it; 0 on a dense arch)
+(``L_MSE`` summed over every DSA layer, a dense prologue's included;
+``router``: the MoE load-balance term times ``router_aux_weight``,
+summed over the MoE layers, each layer's the mean over the batch rows as
+the reference's per-row capacity dispatch gives it; 0 on a dense arch)
 
 with microbatched gradient accumulation: each microbatch's backward adds
 its gradients into ``.grad`` in the param dtype, the sum is divided by the

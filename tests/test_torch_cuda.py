@@ -17,7 +17,9 @@ probe's K4 step leaves every cache leaf as it found it, and each capture
 is a compile event); and mixtral_8x22b's mixture of experts (K2's window
 at its geometry, hd 128 and GQA group 6; its ring's graphed decode equal
 to eager; the capacity dispatch on the card against the CPU's; the f32
-router of a bf16 model through a train step).
+router of a bf16 model through a train step); and deepseek_v3's
+multi-head latent attention (an MLA layer on the card against the CPU,
+its graphed decode, verify and commit against eager ones).
 
 Needs a CUDA card and the CUDA toolkit; skips without a card.  Imports
 neither JAX nor the reference, so it runs where only PyTorch is installed:
@@ -1398,7 +1400,7 @@ def test_cuda_commit_replays_the_decode_ktb(cuda_device, kv):
         scratch = TT.spec_scratch(ver, c)
         TT.verify_step(eng.params, cfg, flags, chunk, ver, scratch=scratch)
         layers = _attn_leaves(ver)
-        pend = [x for g in scratch for x in g.values()]
+        pend = scratch                     # one entry a layer
         for li, lc in enumerate(layers):
             chain = torch.stack([rows[i * len(layers) + li]
                                  for i in range(c)], 1)
@@ -1741,3 +1743,118 @@ def test_cuda_bf16_moe_router_stays_f32_through_a_train_step(cuda_device):
     assert not torch.equal(mlp["router"], r0)
     assert all(math.isfinite(float(v)) for v in m.values())
     assert float(m["router_aux"]) > 0
+
+
+# -- multi-head latent attention (deepseek_v3) ---------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["off", "block"])
+def test_cuda_mla_layer_matches_cpu(cuda_device, mode):
+    """Reduced deepseek_v3's MLA layer (f32) on the card and on the CPU
+    from the same weights and inputs: a 48-token prefill (the block path
+    under block), three absorbed decode steps with an inactive row, a
+    ragged chunk and a 4-row verify; every output and the latent cache
+    within 1e-4 of the largest magnitude (other summation orders), pos
+    exact.  No kernel launches."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models import attention as TAT
+    cfg = reduced(get_config("deepseek_v3"))
+    params = TAT.init_mla(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    dev = {k: _to(v, cuda_device) for k, v in params.items()}
+    gen = torch.Generator().manual_seed(1)
+    caches = {d: TAT.init_cache_mla(cfg, 2, 96, device=d,
+                                    dtype=torch.float32)
+              for d in ("cpu", cuda_device)}
+    before = K2.dsa_block_sparse_attention.launches
+
+    def both(flags, x, **kw):
+        outs = []
+        for d, p in (("cpu", params), (cuda_device, dev)):
+            step = {k: (v.to(d) if isinstance(v, torch.Tensor) else
+                        TAT.Active(v.mask.to(d)) if v is not None else None)
+                    for k, v in kw.items()}
+            with torch.no_grad():
+                outs.append(TAT.apply_mla(p, cfg, flags, x.to(d),
+                                          cache=caches[d], **step)[0])
+        scale = max(float(outs[0].abs().max()), 1e-6)
+        assert float((outs[1].cpu() - outs[0]).abs().max()) <= 1e-4 * scale
+        for name, t in caches["cpu"].items():
+            got = caches[cuda_device][name].cpu()
+            if name == "pos":
+                assert torch.equal(got, t)
+            else:
+                s = max(float(t.abs().max()), 1e-6)
+                assert float((got - t).abs().max()) <= 1e-4 * s, name
+
+    def x(s):
+        return torch.randn((2, s, cfg.d_model), generator=gen)
+
+    both(TAT.RunFlags(mode="prefill", dsa_mode=mode), x(48))
+    dflags = TAT.RunFlags(mode="decode", dsa_mode=mode)
+    for step in range(3):
+        both(dflags, x(1), active=TAT.Active(torch.tensor([True,
+                                                            step != 1])))
+    both(dflags, x(16), chunk_len=torch.tensor([16, 9], dtype=torch.int32))
+    both(TAT.RunFlags(mode="decode", dsa_mode=mode, spec_verify=True), x(4),
+         chunk_len=torch.tensor([4, 4], dtype=torch.int32))
+    assert K2.dsa_block_sparse_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_mla_graphed_decode_and_verify_equal_eager(cuda_device,
+                                                        cache_dtype):
+    """Reduced deepseek_v3 (MLA, prologue, MoE) on the card: the static
+    engine's graphed scan loop gives the python loop's tokens, one
+    capture; a verify and its commit as graph replays equal the same
+    calls eager bit for bit (logits and every latent leaf of every
+    layer, the prologue's included); ``generate(spec=3)`` gives the
+    plain tokens.  No kernel launches."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.inference.engine import Engine
+    from repro_torch.models import transformer as TT
+    cfg, params = _model("deepseek_v3", cuda_device)
+    p = np.random.default_rng(2).integers(
+        1, cfg.vocab - 4, size=(2, 40)).astype(np.int32)
+    before = K2.dsa_block_sparse_attention.launches
+    toks = {}
+    for loop in ("scan", "python"):
+        eng = Engine(cfg, params, max_len=96, loop=loop,
+                     cache_dtype=cache_dtype)
+        toks[loop] = eng.generate(p, 10).tokens
+        if loop == "scan":
+            assert eng.graphs.captures == 1
+    np.testing.assert_array_equal(toks["scan"], toks["python"])
+    c = 4
+    flags = dataclasses.replace(eng.decode_flags, spec_verify=True)
+    eng = Engine(cfg, params, max_len=96, cache_dtype=cache_dtype)
+    verify, commit = eng.spec_steps(2, c - 1, flags)
+    _, graphed, _ = eng.prefill(p, caches=eng.resident_cache(2))
+    _, eager, _ = eng.prefill(p)
+    chunk = torch.randint(1, cfg.vocab - 4, (2, c), device=cuda_device,
+                          generator=torch.Generator(
+                              device=cuda_device).manual_seed(3))
+    mask = torch.tensor([True, True], device=cuda_device)
+    keep = torch.tensor([[c], [2]], device=cuda_device)
+    got = verify(chunk, mask).clone()
+    commit(keep, mask)
+    with torch.inference_mode():
+        want = TT.verify_step(eng.params, cfg, flags, chunk, eager,
+                              active=mask)[0]
+        TT.commit_chunk(cfg, flags, eager, keep[:, 0], c, active=mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    pairs = list(zip(TT.attn_caches(graphed), TT.attn_caches(eager)))
+    assert len(pairs) == cfg.n_layers
+    for a, b in pairs:
+        assert set(a) == set(b) == {"c_kv", "k_rope", "pos"}
+        for name in a:
+            assert torch.equal(a[name], b[name]), name
+    plain = eng.generate(p, 12).tokens
+    np.testing.assert_array_equal(eng.generate(p, 12, spec=c - 1).tokens,
+                                  plain)
+    assert K2.dsa_block_sparse_attention.launches == before

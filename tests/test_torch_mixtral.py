@@ -128,13 +128,23 @@ def test_config_is_the_reference_config():
 
 
 def test_unported_moe_patterns_raise():
-    """A dense prologue (deepseek_v3's first_k_dense) and periodic MoE
-    layers (jamba's) are refused with ROADMAP's item."""
+    """Periodic MoE layers (jamba's) are refused with ROADMAP's item; a
+    dense prologue (deepseek_v3's first_k_dense) is ported and builds: one
+    dense layer before the MoE groups."""
     _, tc = _cfgs()
-    for moe in (dict(first_k_dense=1), dict(layer_period=2)):
-        cfg = dataclasses.replace(tc, moe=dataclasses.replace(tc.moe, **moe))
-        with pytest.raises(NotImplementedError, match="Remaining archs"):
-            TT.init_model(0, cfg, device="cpu")
+    cfg = dataclasses.replace(tc, moe=dataclasses.replace(tc.moe,
+                                                          layer_period=2))
+    with pytest.raises(NotImplementedError, match="Remaining archs"):
+        TT.init_model(0, cfg, device="cpu")
+    cfg = dataclasses.replace(tc, moe=dataclasses.replace(tc.moe,
+                                                          first_k_dense=1))
+    params = TT.init_model(0, cfg, device="cpu")
+    assert len(params["prologue"]) == 1 and len(params["groups"]) == 1
+    assert "w1" in params["prologue"][0]["mlp"]
+    assert "router" in params["groups"][0]["b0"]["mlp"]
+    caches = TT.init_cache(cfg, 1, 96, RunFlags(mode="decode"),
+                           device="cpu")
+    assert len(list(TT.attn_caches(caches))) == 2
 
 
 @pytest.mark.parametrize("mode", ["off", "block"])

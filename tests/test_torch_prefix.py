@@ -34,6 +34,7 @@ from repro_torch import convert
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.inference import engine as TE
 from repro_torch.inference import scheduler as TS
+from repro_torch.models import transformer as TT
 
 torch.set_num_threads(1)
 
@@ -254,7 +255,8 @@ def test_seeded_staging_equals_chunked_staging(quant):
     undeclared.step_prefill(lambda: 0.0, sink, max_chunks=hit.j)
     plain = undeclared._pf
     assert plain.j == hit.j and not sink
-    for a, b in zip(TS._layers(hit.caches), TS._layers(plain.caches)):
+    for a, b in zip(TT.attn_caches(hit.caches),
+                    TT.attn_caches(plain.caches)):
         assert a.keys() == b.keys()
         for name in a:
             assert torch.equal(a[name], b[name]), name

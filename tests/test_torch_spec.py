@@ -337,7 +337,7 @@ def test_verify_and_commit_against_the_decode_chain(mode, quant):
         if "ktb" in _leaves(ver)[0] and mode in ("block", "kernel"):
             # feed the commit the chain's K~ rows (where the product over
             # five rows rounded otherwise than over one)
-            pend = [x for g in scratch for x in g.values()]
+            pend = scratch                 # one entry a layer
             for li, lc in enumerate(_leaves(ver)):
                 chain = torch.stack([rows[i * n_layers + li]
                                      for i in range(c)], 1)

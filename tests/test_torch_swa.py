@@ -285,9 +285,10 @@ def test_predicates_equal_reference(arch):
             for dense in (False, True):
                 assert TE.can_chunk_prefill(cfg_t, mode, dense) == \
                     JE.can_chunk_prefill(cfg_j, mode, dense)
-    swa = get_config(arch).swa_window > 0     # h2o and mixtral
-    assert TE.can_page(get_config(arch)) == (not swa
-                                             and get_config(arch).rwkv is None)
+    full = get_config(arch)
+    swa = full.swa_window > 0                 # h2o and mixtral
+    assert TE.can_page(full) == (not swa and full.rwkv is None
+                                 and full.mla is None)
 
 
 SHAPES = [(48, 8), (70, 6), (130, 5), (20, 9), (70, 4)]

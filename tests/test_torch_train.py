@@ -2,7 +2,9 @@
 (f32, the CPU): cross-entropy, one train step (loss, ce, mse, grad_norm,
 every gradient and every new param) on yi_6b (GQA), stablelm_3b (MHA) and
 h2o_danube_1_8b (sliding window) for dsa_mode block, faithful and off with
-1 and 2 microbatches, and on mixtral_8x22b (MoE) block and off, AdamW on identical gradients, the eval step and the
+1 and 2 microbatches, and on mixtral_8x22b (MoE) and deepseek_v3 (MLA, a
+dense prologue, MoE) block and off, AdamW on identical gradients, the
+eval step and the
 synthetic data; and the port's own copies of the reference's training
 semantics (microbatch equivalence, frozen P, loss and MSE decrease), remat,
 the kernels' refusal of autograd, and the CLI.  The reference's weights
@@ -193,6 +195,17 @@ def test_moe_train_step_matches_reference(mode, mb):
     Queue 3) its token top-k and 4-bit predictor levels flip on the two
     frameworks' last-bit differences (tests/test_torch_mixtral.py)."""
     _check_train_step("mixtral_8x22b", mode, mb)
+
+
+@pytest.mark.parametrize("mb", [1, 2])
+@pytest.mark.parametrize("mode", ["block", "off"])
+def test_deepseek_train_step_matches_reference(mode, mb):
+    """The same step on deepseek_v3: multi-head latent attention, the
+    dense prologue's gradients (an unstacked layer list in both
+    packages) and its MSE term in the loss, the MoE layers' router term
+    and shared expert.  Not faithful, as for mixtral (the experts' init
+    scale)."""
+    _check_train_step("deepseek_v3", mode, mb)
 
 
 def _check_train_step(arch, mode, mb):
@@ -583,7 +596,8 @@ def _grads_and_mm_counts(cfg, batch):
     return grads, m, count.n
 
 
-@pytest.mark.parametrize("arch", ["yi_6b", "rwkv6_3b", "mixtral_8x22b"])
+@pytest.mark.parametrize("arch", ["yi_6b", "rwkv6_3b", "mixtral_8x22b",
+                                  "deepseek_v3"])
 def test_dots_remat_matches_full_and_none(arch):
     """``remat_policy="dots"`` gives the gradients of "full" and "none"
     bit for bit on the CPU (the same operations on the same inputs; dots
@@ -619,7 +633,8 @@ def _ref_train_step(arch, opt):
     return jax.jit(JST.make_train_step(jc, opt))
 
 
-@pytest.mark.parametrize("arch", ["stablelm_3b", "yi_6b", "mixtral_8x22b"])
+@pytest.mark.parametrize("arch", ["stablelm_3b", "yi_6b", "mixtral_8x22b",
+                                  "deepseek_v3"])
 def test_four_step_curve_matches_reference(arch):
     """Four steps with a one-step warmup (the schedule under which the
     full-width joint loss does not fall, ``scripts/train_curve.py``):
