@@ -236,7 +236,33 @@ fails:
      model (4 slots, dense cache, max_len 8192, blocking admission, 8
      requests of 1024-4096 tokens); (d) ``launch.train --layers 3`` (the
      prologue alone, 4 x 4096 in 2 microbatches, f32 moments, 4 steps):
-     step time, tokens/s, the 6 N D share, peak memory, a profiled step.
+     step time, tokens/s, the 6 N D share, peak memory, a profiled step;
+ 19. jamba_1_5_large (Mamba and attention 7:1, MoE on every other
+     sub-block) and recurrent archs in the continuous engine (K2 and K1
+     at jamba's geometry, hd 128 with 64 query heads on 8 KV heads, and
+     K7 at a continuous admission's batch of 1, held to their plain
+     versions in phase 3): (a) one full-width Mamba block in f32 card ==
+     CPU (a 1024-token prefill, 16 decode steps; output and state within
+     1e-4 of the largest magnitude); reduced jamba (one group of 8) in
+     f32 on the card: kernel == block greedy tokens (K2 once a prefill,
+     K1 once a step), graphed == eager decode bit for bit (logits and
+     every cache leaf, and tokens), continuous (blocking) == solo
+     generate, card == CPU tokens; rwkv6_3b at 2 layers, full width,
+     f32: continuous == solo generate, K7 once a layer an admission; (b)
+     ``launch.serve --arch jamba_1_5_large --layers 5`` ([m, m+MoE, m,
+     m+MoE, a], bf16 on a bf16 cache, batch 4, prompt 4096, 32 new,
+     dsa_mode kernel; K2 once a prefill, K1 once a step), the capacity
+     prefill's drop share, the Mamba scans' share of the prefill, a
+     profiled prefill and graphed decode step against the time to read
+     the step's weights once, peak memory; (c) the continuous engine on
+     that model (4 slots, dense cache, blocking admission, 8 requests of
+     1024-4096 tokens); (d) rwkv6_3b at full width (32 layers, bf16) in
+     the continuous engine (4 slots, 8 requests of 1024-4096 tokens in
+     whole 32-token chunks: K7 once a layer an admission); (e)
+     ``launch.train --arch jamba_1_5_large --layers 1`` (one Mamba block
+     and a dense MLP, 4 x 4096 in 2 microbatches, f32 moments, 4 steps,
+     the chunk-checkpointed scan) with a profiled step, and one reduced
+     jamba train step card == CPU.
 
 It then prints one JSON line of per-kernel results, the card's name and
 power limit again as ``nvidia-smi`` gives them, and as its last line
@@ -247,6 +273,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -4155,6 +4182,522 @@ def deepseek_train_slice(torch, seed: int, card: str) -> dict:
     return dict(rep, busy_share=busy / wall, kernels=kernels)
 
 
+MAMBA_REL = 1e-4
+JAMBA_LAYERS = 5              # 19b-c: [m, m+MoE, m, m+MoE, a], 48.2 GB bf16
+
+
+def _mamba_card_vs_cpu(torch, seed: int) -> dict:
+    """One full-width jamba_1_5_large Mamba block (d 8192, mi 16384,
+    state 16; f32) on the card and on the CPU from the same weights and
+    inputs: a 1 x 1024 prefill into a cache (eight 128-token chunks of
+    the scan), then 16 one-token decode steps.  Returns the largest
+    error of the outputs and of ``h`` and ``conv`` over the largest
+    magnitude of each, and the seconds each side took."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import ssm
+    cfg = get_config("jamba_1_5_large")
+    gen = torch.Generator().manual_seed(seed)
+    params = ssm.init_mamba(gen, cfg, device="cpu")
+    dev = {k: v.cuda() for k, v in params.items()}
+    caches = {d: ssm.init_cache_mamba(cfg, 1, device=d, dtype=torch.float32)
+              for d in ("cpu", "cuda")}
+    xs = [torch.randn((1, 1024, cfg.d_model), generator=gen)] + [
+        torch.randn((1, 1, cfg.d_model), generator=gen) for _ in range(16)]
+    out = {"y": 0.0, "h": 0.0, "conv": 0.0, "cpu_s": 0.0, "card_s": 0.0}
+
+    def rel(got, want):
+        return float((got.cpu() - want).abs().max()) / max(
+            float(want.abs().max()), 1e-12)
+
+    with torch.inference_mode():
+        for i, x in enumerate(xs):
+            ys = {}
+            for d, p in (("cpu", params), ("cuda", dev)):
+                t0 = time.perf_counter()
+                ys[d] = ssm.apply_mamba(p, cfg, x.to(d), cache=caches[d],
+                                        decode=i > 0)
+                if d == "cuda":
+                    torch.cuda.synchronize()
+                out[f"{'card' if d == 'cuda' else d}_s"] += (
+                    time.perf_counter() - t0)
+            out["y"] = max(out["y"], rel(ys["cuda"], ys["cpu"]))
+            for k in ("h", "conv"):
+                out[k] = max(out[k], rel(caches["cuda"][k],
+                                         caches["cpu"][k]))
+    return out
+
+
+@contextlib.contextmanager
+def _prefill_calls(eng):
+    """Count a continuous engine's blocking prefills (``eng.engine.
+    prefill`` calls) in the list it yields.  The counting wrapper holds
+    the engine, so it is taken off again on the way out: left in place,
+    it would keep the engine, its cache and its weights alive until the
+    cyclic collector ran."""
+    calls = []
+    real = eng.engine.prefill
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    eng.engine.prefill = counted
+    try:
+        yield calls
+    finally:
+        del eng.engine.prefill
+
+
+def _graph_bits(torch, eng, prompts, steps: int = 4) -> bool:
+    """The engine's graphed decode step against the eager step on a copy
+    of the same cache: ``steps`` steps from one prefill, logits and every
+    cache leaf equal bit for bit."""
+    from repro_torch.models.transformer import attn_caches, decode_step
+    from repro_torch.tree import map_tree
+    b = prompts.shape[0]
+    step = eng.scan_step(b)                       # capture before prefill
+    last, res, _ = eng.prefill(prompts, caches=eng.resident_cache(b))
+    with torch.inference_mode():
+        twin = map_tree(lambda t: t.clone(), res)
+        tok = last[:, -1].argmax(-1, keepdim=True)
+        same = True
+        for _ in range(steps):
+            g = step(tok).clone()
+            e = decode_step(eng.params, eng.cfg, eng.decode_flags, tok,
+                            twin)[0]
+            same &= bool(torch.equal(g, e))
+            tok = g[:, -1].argmax(-1, keepdim=True)
+        for a, c in zip(attn_caches(res), attn_caches(twin)):
+            same &= all(bool(torch.equal(a[k], c[k])) for k in a)
+    return same
+
+
+def jamba_parity_phase(torch, seed: int, card: str) -> dict:
+    """19a.  One full-width Mamba block card == CPU
+    (``_mamba_card_vs_cpu``).  Reduced jamba_1_5_large (the reference's
+    one group of 8: 4 Mamba, attention, 3 Mamba; MoE on b1, b3, b5, b7)
+    in f32 on the card, prompts of 256 (two chunks of the scan, 16 key
+    blocks), batch 2: the kernel path (K2 once a prefill, K1 once a
+    decode step: one attention layer) gives the block path's greedy
+    tokens, the graphed scan loop the eager python loop's (one capture)
+    and ``_graph_bits`` holds; the continuous engine (blocking admission,
+    2 slots, 4 requests, two of one length) gives each request its solo
+    ``generate`` tokens; the CPU gives the card's tokens.  Then rwkv6_3b
+    at full width, 2 layers, f32: the continuous engine (2 slots, 4
+    requests of 512-1024 tokens in whole 32-token chunks) gives each its
+    solo tokens, K7 once a layer per blocking prefill."""
+    import numpy as np
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.inference.engine import Engine
+    from repro_torch.inference.scheduler import ContinuousEngine, Request
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_model
+    from repro_torch.tree import map_tree
+    t0 = time.monotonic()
+    layer = _mamba_card_vs_cpu(torch, seed)
+    worst = max(layer[k] for k in ("y", "h", "conv"))
+    print(f"19a Mamba block card vs CPU: full-width jamba_1_5_large (d 8192, "
+          f"mi 16384, state 16), f32, 1 x 1024 prefill then 16 decode "
+          f"steps: y {layer['y']:.2e}, h {layer['h']:.2e}, conv "
+          f"{layer['conv']:.2e} of the largest magnitude (limit "
+          f"{MAMBA_REL:g}); card {layer['card_s']:.2f} s, CPU "
+          f"{layer['cpu_s']:.2f} s [{card}]", flush=True)
+    cfg = reduced(get_config("jamba_1_5_large"))
+    params = init_model(seed, cfg)
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(1, cfg.vocab - 4, size=(2, 256)).astype(np.int32)
+    n_new, max_len = 16, 256 + 32
+    kw = dict(max_len=max_len, long_context=True)
+    toks, n, captures = {}, {}, 0
+    for name, extra in (("block", dict(dsa_mode="block")),
+                        ("kernel", dict(dsa_mode="kernel")),
+                        ("eager", dict(dsa_mode="kernel", loop="python"))):
+        serve.reset_launch_counts()
+        eng = Engine(cfg, params, **kw, **extra)
+        res = eng.generate(prompts, n_new)
+        toks[name] = res.tokens
+        n[name] = {k: v for k, v in serve.launch_counts().items() if v}
+        if name == "kernel":
+            captures = eng.graphs.captures
+            steps = res.decode_steps
+    same_k = bool((toks["kernel"] == toks["block"]).all())
+    graphed = bool((toks["kernel"] == toks["eager"]).all()) and captures == 1
+    bits = _graph_bits(torch, Engine(cfg, params, dsa_mode="kernel", **kw),
+                       prompts)
+    shapes = [(256, 16), (256, 12), (200, 16), (128, 10)]
+    reqs = [Request(i, rng.integers(1, cfg.vocab - 4, size=(m,)).astype(
+        np.int32), k) for i, (m, k) in enumerate(shapes)]
+    ceng = ContinuousEngine(cfg, params, slots=2, seg_len=4,
+                            dsa_mode="kernel", **kw)
+    got = _run_clean(ceng, reqs)
+    solo = Engine(cfg, params, dsa_mode="kernel", **kw)
+    cont = all(bool((got[r.rid] == solo.generate(
+        r.prompt[None], r.n_new).tokens[0]).all()) for r in reqs)
+    cpu = Engine(cfg, map_tree(lambda t: t.cpu(), params), device="cpu",
+                 dsa_mode="kernel", **kw).generate(prompts, n_new).tokens
+    card_cpu = bool((cpu == toks["kernel"]).all())
+    chunked = ceng.chunked
+    del eng, ceng, solo, params
+    torch.cuda.empty_cache()
+    want_n = {"block": {}, "kernel": {"K2": 1, "K1": steps},
+              "eager": {"K2": 1, "K1": n_new - 1}}
+    print(f"19a parity: reduced jamba_1_5_large (8 sub-blocks) f32, prompt "
+          f"256, {n_new} new: kernel == block: {same_k} (launches "
+          f"{n}); graphed scan == eager python loop: {graphed} ({captures} "
+          f"capture); graphed step == eager step bit for bit (logits and "
+          f"every cache leaf, 4 steps): {bits}; continuous (blocking, "
+          f"{len(reqs)} requests, chunked {chunked}) == solo "
+          f"generate: {cont}; card == CPU tokens: {card_cpu} "
+          f"[{card}]", flush=True)
+    for k, t in toks.items():
+        print(f"  {k:8s}: {t[:, :8].tolist()}")
+    if not (same_k and graphed and bits and cont and card_cpu
+            and not chunked and n == want_n and worst <= MAMBA_REL):
+        fail(f"19a jamba parity failed: launches {n} (want {want_n}), "
+             f"Mamba block {layer}")
+
+    rcfg = dataclasses.replace(get_config("rwkv6_3b"), n_layers=2,
+                               dtype="float32", param_dtype="float32")
+    rp = init_model(seed, rcfg)
+    shapes = [(1024, 16), (1024, 12), (512, 16), (768, 10)]
+    reqs = [Request(i, rng.integers(1, rcfg.vocab - 4, size=(m,)).astype(
+        np.int32), k) for i, (m, k) in enumerate(shapes)]
+    ceng = ContinuousEngine(rcfg, rp, slots=2, seg_len=4, max_len=1056)
+    serve.reset_launch_counts()
+    with _prefill_calls(ceng) as prefills:
+        got = _run_clean(ceng, reqs)
+    k7 = serve.launch_counts()["K7"]
+    solo = Engine(rcfg, rp, max_len=1056)
+    rcont = all(bool((got[r.rid] == solo.generate(
+        r.prompt[None], r.n_new).tokens[0]).all()) for r in reqs)
+    print(f"19a rwkv continuous: 2-layer full-width rwkv6_3b f32, "
+          f"{len(reqs)} requests (prompts {[m for m, _ in shapes]}), 2 slots, "
+          f"blocking: continuous == solo generate: {rcont}; {len(prefills)} "
+          f"prefills, K7 {k7} (want {rcfg.n_layers} x {len(prefills)}); "
+          f"{time.monotonic() - t0:.1f} s [{card}]", flush=True)
+    if not rcont or ceng.chunked or k7 != rcfg.n_layers * len(prefills):
+        fail(f"19a rwkv continuous failed: K7 {k7}, {len(prefills)} "
+             f"prefills")
+    del ceng, solo, rp
+    torch.cuda.empty_cache()
+    return {"layer": layer, "kernel_block": same_k, "graphed": graphed,
+            "bits": bits, "continuous": cont, "card_cpu": card_cpu,
+            "rwkv_continuous": rcont}
+
+
+def jamba_slice(torch, seed: int, card: str) -> dict:
+    """19b and 19c.  jamba_1_5_large at full width cut to JAMBA_LAYERS
+    sub-blocks (four Mamba, MoE on the second and fourth, and the
+    attention one; 24.1 B params), bf16 weights on a bf16 cache, random
+    weights from the seed.  19b, the static slice through
+    ``launch.serve`` (batch 4, prompt 4096, 32 new, dsa_mode "kernel"):
+    K2 once a prefill, K1 once a step (one attention layer), a graph
+    replay a step; then on one model: the share of (token, slot) pairs
+    the capacity prefill dropped, the Mamba scans' share of a prefill
+    (host clock, synchronised around each scan), a torch.profiler
+    breakdown of the prefill and of a graphed decode step against the
+    time to read the step's weights once.  19c, the continuous engine (4
+    slots, dense cache, max_len 8192, blocking admission): 8 requests of
+    1024-4096 tokens in whole 128-token blocks and 16-64 new, all queued
+    at the start; every request ok, K2 once an admission, K1 once a
+    decode step."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import cut_layers, get_config
+    from repro_torch.inference.engine import Engine
+    from repro_torch.inference.scheduler import (ContinuousEngine, Request,
+                                                 summarize)
+    from repro_torch.launch import serve
+    from repro_torch.models import moe, ssm
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.attention import RunFlags
+    from repro_torch.tree import named_leaves
+    t0 = time.monotonic()
+    cfg = cut_layers(get_config("jamba_1_5_large"), JAMBA_LAYERS)
+    b, plen, n_new = 4, 4096, 32
+    max_len = plen + n_new + 16
+    torch.cuda.reset_peak_memory_stats()
+    serve.reset_launch_counts()
+    res = serve.main(["--arch", "jamba_1_5_large", "--layers",
+                      str(JAMBA_LAYERS), "--batch", str(b),
+                      "--prompt-len", str(plen), "--new-tokens", str(n_new),
+                      "--dsa", "--dsa-mode", "kernel", "--cache-dtype",
+                      "bfloat16", "--seed", str(seed)])
+    n = serve.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    row = serve.cache_bytes(TT.init_cache(
+        cfg, 1, max_len, RunFlags(mode="decode", long_context=True),
+        dtype=torch.bfloat16, device="meta"))
+    out = {"prefill_ms": res.prefill_s * 1e3,
+           "decode_tok_s": res.tokens_per_s, "peak_gib": peak,
+           "cache_bytes_per_row": row,
+           "launches": {k: v for k, v in n.items() if v}}
+    tok = res.tokens
+    print(f"19b jamba_1_5_large static slice ({JAMBA_LAYERS} layers bf16, "
+          f"bf16 cache, batch {b}, prompt {plen}, {n_new} new, dsa_mode "
+          f"kernel): prefill {res.prefill_s * 1e3:.1f} ms, decode "
+          f"{res.tokens_per_s:.1f} tok/s over {res.decode_steps} steps "
+          f"({res.decode_dispatches} graph replays), peak memory "
+          f"{peak:.2f} GiB, cache {row} bytes per batch row, launches "
+          + " ".join(f"{k} {v}" for k, v in n.items()) + f" [{card}]",
+          flush=True)
+    want = {"K2": 1, "K1": res.decode_steps}
+    if (out["launches"] != want or res.decode_dispatches != res.decode_steps
+            or tok.shape != (b, n_new) or tok.min() < 0
+            or tok.max() >= cfg.vocab):
+        fail(f"19b static slice: launches {n}, tokens {tok.shape}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = TT.init_model(seed, cfg)
+    prompts = np.random.default_rng(seed).integers(
+        1, cfg.vocab - 4, size=(b, plen)).astype(np.int32)
+    eng = Engine(cfg, params, max_len=max_len, long_context=True,
+                 dsa_mode="kernel", cache_dtype=torch.bfloat16)
+    drops, scans = [], []
+    dispatch, scan = moe._dispatch_positions, ssm._mamba_scan
+
+    def counting(e_flat, num_experts, cap):
+        pos = dispatch(e_flat, num_experts, cap)
+        drops.append(((pos >= cap).sum(), pos.numel()))
+        return pos
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = scan(*a, **k)
+        torch.cuda.synchronize()
+        scans.append(time.perf_counter() - t)
+        return r
+
+    acts = [ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        moe._dispatch_positions, ssm._mamba_scan = counting, timed
+        try:
+            _, _, scan_pf_s = eng.prefill(prompts)
+        finally:
+            moe._dispatch_positions, ssm._mamba_scan = dispatch, scan
+        dropped = int(sum(int(d) for d, _ in drops))
+        pairs = sum(p for _, p in drops)
+        scan_s = sum(scans)
+        _, _, prefill_s = eng.prefill(prompts)
+        with profile(activities=acts) as prof:
+            eng.prefill(prompts)
+        pre = _device_time(prof, "jamba_prefill", 1)
+        step = eng.scan_step(b)                                  # capture
+        last, _, _ = eng.prefill(prompts, caches=eng.resident_cache(b))
+        tok = last[:, -1].argmax(-1, keepdim=True)
+        _, tok = _timed_decode(torch, step, tok, 2)              # warm
+        step_ms, tok = _timed_decode(torch, step, tok, 8)
+        with profile(activities=acts) as prof:
+            _, tok = _timed_decode(torch, step, tok, 2)
+        dec = _device_time(prof, "jamba_decode", 2)
+    _print_profile(f"19b jamba_1_5_large prefill ({b} x {plen}) [{card}]",
+                   prefill_s * 1e3, *pre)
+    _print_profile(f"19b jamba_1_5_large decode step, graph replay (batch "
+                   f"{b}) [{card}]", step_ms, *dec)
+    # a decode step reads every weight once but the embedding table
+    w_bytes = sum(p.numel() * p.element_size()
+                  for k, p in named_leaves(params) if k != "/embed")
+    bound_ms = w_bytes / HBM_BYTES_PER_S * 1e3
+    out.update(dropped=dropped, pairs=pairs, prefill_busy_ms=pre[0],
+               scan_s=scan_s, scan_prefill_s=scan_pf_s, step_ms=step_ms,
+               step_busy_ms=dec[0], weight_bound_ms=bound_ms,
+               capture_ms=step.capture_ms)
+    print(f"19b: capacity prefill dropped {dropped} of {pairs} (token, "
+          f"slot) pairs ({100 * dropped / pairs:.3f} %); the {len(scans)} "
+          f"Mamba scans took {scan_s * 1e3:.1f} ms of a {scan_pf_s * 1e3:.1f}"
+          f" ms prefill ({100 * scan_s / scan_pf_s:.1f} %, host clock, "
+          f"synchronised around each scan); graphed decode step "
+          f"{step_ms:.3f} ms (device busy {dec[0]:.3f} ms, capture "
+          f"{step.capture_ms:.1f} ms) against {bound_ms:.3f} ms to read the "
+          f"{w_bytes / 1e9:.2f} GB of weights once at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s ({100 * bound_ms / step_ms:.1f}"
+          f" %) [{card}]", flush=True)
+    del eng, step
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(seed + 1)
+    reqs = [Request(i, rng.integers(1, cfg.vocab - 4, size=(128 * int(
+        rng.integers(8, 33)),)).astype(np.int32),
+        int(rng.integers(16, 65))) for i in range(8)]
+    ceng = ContinuousEngine(cfg, params, slots=4, seg_len=16, max_len=8192,
+                            long_context=True, dsa_mode="kernel",
+                            cache_dtype=torch.bfloat16)
+    serve.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with _prefill_calls(ceng) as prefills:
+        results = ceng.serve(reqs)
+    n = {k: v for k, v in serve.launch_counts().items() if v}
+    st = ceng.stats
+    summ = summarize(results, max(r.finish_s for r in results))
+    cpeak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"19c jamba_1_5_large continuous slice (4 slots, dense cache, "
+          f"max_len 8192, 8 requests, prompts "
+          f"{min(len(r.prompt) for r in reqs)}-"
+          f"{max(len(r.prompt) for r in reqs)}, blocking admission): "
+          f"{summ['goodput_tok_s']} tok/s goodput, latency p50 "
+          f"{summ['p50_latency_s']} s / p95 {summ['p95_latency_s']} s, TTFT "
+          f"p50 {summ['p50_ttft_s']} s / p95 {summ['p95_ttft_s']} s, "
+          f"{st['segments']} segments, {len(prefills)} prefills for "
+          f"{st['admitted']} admissions, {st['decode_steps']} decode steps, "
+          f"peak memory {cpeak:.2f} GiB, launches {n} [{card}]", flush=True)
+    bad = [r.rid for r in results
+           if r.status != "ok" or len(r.tokens) != r.n_new]
+    want = {"K2": len(prefills), "K1": st["decode_steps"]}
+    if len(results) != len(reqs) or bad or n != want or ceng.chunked:
+        fail(f"19c continuous slice: bad {bad}, launches {n} (want {want})")
+    out["continuous"] = {"summary": summ, "peak_gib": cpeak, "launches": n}
+    del ceng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 19b-c: {time.monotonic() - t0:.1f} s", flush=True)
+    return out
+
+
+def rwkv_continuous_slice(torch, seed: int, card: str) -> dict:
+    """19d.  rwkv6_3b at full width (32 layers, bf16 on a bf16 cache) in
+    the continuous engine: 4 slots, max_len 8192, blocking admission, 8
+    requests of 1024-4096 tokens in whole 32-token chunks (so K7 carries
+    each prefill) and 16-64 new, all queued at the start; every request
+    ok, K7 once a layer per prefill, no other kernel."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.inference.scheduler import (ContinuousEngine, Request,
+                                                 summarize)
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_model
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("rwkv6_3b")
+    params = init_model(seed, cfg)
+    rng = np.random.default_rng(seed + 2)
+    reqs = [Request(i, rng.integers(1, cfg.vocab - 4, size=(32 * int(
+        rng.integers(32, 129)),)).astype(np.int32),
+        int(rng.integers(16, 65))) for i in range(8)]
+    ceng = ContinuousEngine(cfg, params, slots=4, seg_len=16, max_len=8192,
+                            cache_dtype=torch.bfloat16)
+    serve.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with _prefill_calls(ceng) as prefills:
+        results = ceng.serve(reqs)
+    n = {k: v for k, v in serve.launch_counts().items() if v}
+    st = ceng.stats
+    summ = summarize(results, max(r.finish_s for r in results))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"19d rwkv6_3b continuous slice (32 layers bf16, bf16 cache, 4 "
+          f"slots, 8 requests, prompts {min(len(r.prompt) for r in reqs)}-"
+          f"{max(len(r.prompt) for r in reqs)}, blocking admission): "
+          f"{summ['goodput_tok_s']} tok/s goodput, latency p50 "
+          f"{summ['p50_latency_s']} s / p95 {summ['p95_latency_s']} s, TTFT "
+          f"p50 {summ['p50_ttft_s']} s / p95 {summ['p95_ttft_s']} s, "
+          f"{st['segments']} segments, {len(prefills)} prefills, "
+          f"{st['decode_steps']} decode steps, peak memory {peak:.2f} GiB, "
+          f"launches {n} [{card}]", flush=True)
+    bad = [r.rid for r in results
+           if r.status != "ok" or len(r.tokens) != r.n_new]
+    want = {"K7": cfg.n_layers * len(prefills)}
+    if len(results) != len(reqs) or bad or n != want or ceng.chunked:
+        fail(f"19d rwkv continuous: bad {bad}, launches {n} (want {want})")
+    del ceng, params
+    torch.cuda.empty_cache()
+    print(f"phase 19d: {time.monotonic() - t0:.1f} s", flush=True)
+    return {"summary": summ, "peak_gib": peak, "launches": n,
+            "prefills": len(prefills)}
+
+
+def jamba_train_slice(torch, seed: int, card: str) -> dict:
+    """19e.  jamba_1_5_large at full width cut to its first sub-block (a
+    Mamba block and a dense 24576-wide SwiGLU, 2.1 B params) through
+    ``launch.train``: bf16 params with f32 moments, remat full, 4 steps of
+    4 x 4096 tokens in 2 microbatches, each Mamba scan in 32 checkpointed
+    128-token chunks; finite metrics, no kernel launched, mse 0 (no
+    attention layer); the step time, tokens/s, the 6 N D share, peak
+    memory, then one profiled step.  Then reduced jamba (one group of 8,
+    f32): one train step (2 x 256, 2 microbatches, DSA block) on the card
+    and on the CPU from the same params, gated as ``train_parity_phase``.
+    (The MoE sub-blocks at full width train only across cards: ROADMAP
+    Queue 1, "Distribution".)"""
+    from repro_torch.configs.base import cut_layers, get_config, reduced
+    from repro_torch.data.synthetic import DataConfig, lm_batches
+    from repro_torch.launch import serve, train
+    from repro_torch.optim import adamw
+    from repro_torch.training import steps as ST
+    from repro_torch.tree import named_leaves
+    t0 = time.monotonic()
+    cfg = cut_layers(get_config("jamba_1_5_large"), 1)
+    b, s, steps, mb = 4, 4096, 4, 2
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    serve.reset_launch_counts()
+    res = train.main(["--arch", "jamba_1_5_large", "--layers", "1",
+                      "--steps", str(steps), "--seq", str(s), "--batch",
+                      str(b), "--microbatches", str(mb), "--data", "lm",
+                      "--log-interval", "1", "--seed", str(seed)])
+    n = {k: v for k, v in serve.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rep = _train_report(torch, f"19e jamba_1_5_large train slice (1 layer: "
+                        f"a Mamba block and a dense MLP, bf16, f32 moments, "
+                        f"remat full) [{card}]", cfg, res.state,
+                        res.metrics, res.step_s, b, s, mb, n, peak)
+    opt = adamw.OptConfig(total_steps=steps + 2, warmup_steps=1)
+    batch = next(lm_batches(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                       global_batch=b, seed=seed + 1)))
+    wall, busy, kernels = _profiled_step(
+        torch, f"19e jamba_1_5_large train step ({b} x {s}, {mb} "
+        f"microbatches) [{card}]", ST.make_train_step(cfg, opt,
+                                                      microbatches=mb),
+        res.state, batch)
+    mse = [m["mse"] for m in res.metrics]
+    if any(mse) or len(res.step_s) != steps:
+        fail(f"19e: mse {mse}, {len(res.step_s)} steps")
+    del res
+    torch.cuda.empty_cache()
+
+    rcfg = reduced(get_config("jamba_1_5_large"))
+    ropt = adamw.OptConfig(lr=1e-3, total_steps=10, warmup_steps=2)
+    rbatch = next(lm_batches(DataConfig(vocab=rcfg.vocab, seq_len=256,
+                                        global_batch=2, seed=seed)))
+    cardst = ST.init_train_state(seed, rcfg, ropt)
+    cpu_params = to_cpu(cardst["params"])
+    cpu = {"params": cpu_params, "opt": adamw.init(ropt, cpu_params),
+           "step": 0}
+    step = ST.make_train_step(rcfg, ropt, microbatches=2)
+    serve.reset_launch_counts()
+    cardst, m_card = step(cardst, rbatch)
+    m_card = {k: float(v) for k, v in m_card.items()}
+    n = {k: v for k, v in serve.launch_counts().items() if v}
+    cpu, m_cpu = step(cpu, rbatch)
+    m_cpu = {k: float(v) for k, v in m_cpu.items()}
+    rel = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k])
+           for k in ("loss", "ce", "mse", "router_aux", "grad_norm")}
+    lr = m_cpu["lr"]
+    want = dict(named_leaves(cpu["params"]))
+    worst, within, total = 0.0, 0, 0
+    for path, p in named_leaves(cardst["params"]):
+        d = (p.detach().cpu() - want[path].detach()).abs()
+        worst = max(worst, float(d.max()))
+        within += int((d <= 1e-5).sum())
+        total += d.numel()
+    print(f"19e jamba train parity: reduced jamba_1_5_large (8 sub-blocks) "
+          f"f32, batch 2 x 256, 2 microbatches: card vs CPU relative "
+          f"differences " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (rtol {TRAIN_METRIC_RTOL:g}); new params max |d| {worst:.3g} "
+          f"(bound 2 lr = {2 * lr:.3g}), {100 * within / total:.3f} % within "
+          f"1e-5; kernels launched: {n or 'none'}; "
+          f"{time.monotonic() - t0:.1f} s [{card}]", flush=True)
+    if (n or worst > 2 * lr or within < TRAIN_PARAM_SHARE * total
+            or max(rel.values()) > TRAIN_METRIC_RTOL):
+        fail("19e reduced jamba training parity (card vs CPU) failed")
+    del cardst, cpu
+    torch.cuda.empty_cache()
+    print(f"phase 19e: {time.monotonic() - t0:.1f} s", flush=True)
+    return dict(rep, busy_share=busy / wall, kernels=kernels, rel=rel)
+
+
 def static_slice(torch, seed: int, arch: str, dsa_mode: str, want,
                  prompt_len: int = 4096, quant=None) -> dict:
     """Serve ``arch`` at full width through ``repro_torch.launch.serve``:
@@ -4232,6 +4775,14 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    last = [time.monotonic()]
+
+    def mark(phase: str) -> None:
+        """Print the seconds since the previous mark (each phase's own)."""
+        now = time.monotonic()
+        print(f"phase {phase}: {now - last[0]:.1f} s", flush=True)
+        last[0] = now
+
     secs = build.build_all()
     print(f"build: {secs:.1f} s for {len(build.SOURCES)} sources")
     spills = []
@@ -4303,6 +4854,23 @@ def main() -> None:
                  timed=False),
         check_k2(torch, timer, b=4, hq=48, hkv=8, hd=128, l=8192, blk=128,
                  nb=6, window=4096, dtype="bfloat16", seed=args.seed,
+                 timed=True)]
+    # jamba_1_5_large's attention layer: hd 128, 64 query heads on 8 KV
+    # heads; its prefill (B 4, L 4096, bf16, timed) and decode step (a
+    # bf16 q against the 4144-row bf16 cache of the static slice, timed);
+    # the reduced parity run's geometry (hd 16, f32)
+    k2j_checks = [
+        check_k2(torch, timer, b=2, hq=4, hkv=2, hd=16, l=256, blk=16, nb=3,
+                 dtype="float32", seed=args.seed, timed=False),
+        check_k2(torch, timer, b=4, hq=64, hkv=8, hd=128, l=4096, blk=128,
+                 nb=3, dtype="bfloat16", seed=args.seed, timed=True)]
+    k1j_checks = [
+        check_k1(torch, timer, b=2, hq=4, hkv=2, hd=16, s=288, bk=16,
+                 q_dt="float32", c_dt="float32", kv_len=[270, 257], nb=5,
+                 seed=args.seed, timed=False),
+        check_k1(torch, timer, b=4, hq=64, hkv=8, hd=128, s=4144, bk=128,
+                 q_dt="bfloat16", c_dt="bfloat16",
+                 kv_len=[4100, 4127, 4097, 4111], nb=6, seed=args.seed,
                  timed=True)]
     k3_checks = [
         check_k3(torch, timer, b=2, hq=8, hkv=2, hd=16, s=100, c=32, blk=16,
@@ -4384,6 +4952,8 @@ def main() -> None:
                          ("K2 dsa_attention", k2_checks),
                          ("K2 dsa_attention (window)", k2w_checks),
                          ("K2 dsa_attention (window, mixtral)", k2m_checks),
+                         ("K2 dsa_attention (jamba)", k2j_checks),
+                         ("K1 dsa_decode (jamba)", k1j_checks),
                          ("K3 dsa_chunk_prefill", k3_checks),
                          ("K4 dsa_decode_paged", k4_checks)] + [
             (f"{k} {q or ''}".strip(), v) for (k, q), v in q_checks.items()]:
@@ -4420,6 +4990,9 @@ def main() -> None:
         # random state
         check_k7(torch, timer, b=4, h=40, s=4096, hd=64, dtype="bfloat16",
                  seed=args.seed + 1, timed=False, w_const=0.3),
+        # a blocking admission of the continuous engine: one row
+        check_k7(torch, timer, b=1, h=40, s=2048, hd=64, dtype="bfloat16",
+                 seed=args.seed, timed=False),
     ]
     for c in k7_checks:
         line = (f"K7 wkv6 [{c['geometry']}]: max abs err "
@@ -4436,16 +5009,20 @@ def main() -> None:
                      f"{c['bytes'] / 1e9:.3f} GB)")
         print(line, flush=True)
     torch.cuda.empty_cache()
+    mark("1-3 (card, build, kernels)")
 
     # each path: its launch counts set to 0 just before it, read just after
     parity_phase(torch, args.seed)
+    mark(4)
     # yi_6b: K2 once a layer in prefill, K1 (K1q) once a layer a step
     launches = {"static": static_slice(
         torch, args.seed, "yi_6b", "kernel",
         lambda n, steps: {"K2": n, "K1": n * steps})["launches"]}
     torch.cuda.empty_cache()
+    mark(5)
     launches["continuous"] = continuous_phase(torch, args.seed)["launches"]
     torch.cuda.empty_cache()
+    mark(6)
     launches["quant static"] = static_slice(
         torch, args.seed, "yi_6b", "kernel",
         lambda n, steps: {"K2": n, "K1q": n * steps},
@@ -4454,7 +5031,9 @@ def main() -> None:
     launches["quant continuous"] = continuous_phase(
         torch, args.seed, quant="int8")["launches"]
     torch.cuda.empty_cache()
+    mark(7)
     profile_phase(torch, args.seed)
+    mark(8)
     rwkv_parity_phase(torch, args.seed)
     # rwkv6_3b: K7 once a layer in prefill, no attention kernel
     launches["rwkv"] = static_slice(
@@ -4462,6 +5041,7 @@ def main() -> None:
         lambda n, steps: {"K7": n})["launches"]
     torch.cuda.empty_cache()
     profile_phase(torch, args.seed, arch="rwkv6_3b")
+    mark(9)
     faithful_parity_phase(torch, args.seed)
     h2o_parity_phase(torch, args.seed)
     # yi_6b faithful: the token path in prefill and a token top-k a decode
@@ -4471,6 +5051,7 @@ def main() -> None:
         lambda n, steps: {})["launches"]
     torch.cuda.empty_cache()
     profile_phase(torch, args.seed, dsa_mode="faithful")
+    mark(10)
     # h2o: K2 with the 4096-token window once a layer in prefill; decode
     # attends the ring with no kernel (an SWA cache has no kt)
     launches["h2o"] = static_slice(
@@ -4478,14 +5059,17 @@ def main() -> None:
         lambda n, steps: {"K2": n}, prompt_len=8192)["launches"]
     torch.cuda.empty_cache()
     profile_phase(torch, args.seed, arch="h2o_danube_1_8b", prompt_len=8192)
+    mark(11)
     # training: the plain model path, no kernel; eval runs K2
     train_parity_phase(torch, args.seed)
     train_slice(torch, args.seed)
     torch.cuda.empty_cache()
+    mark(12)
     # prefix reuse and per-request modes: K3/K4 (K3q/K4q) on the prefix
     # runs, K3/K4 on the kernel-mode requests of the mixed-mode runs
     prefix_modes_parity_phase(torch, args.seed, card)
     launches.update(prefix_modes_slice(torch, args.seed, card)["launches"])
+    mark(13)
     # speculative decoding: K1 (K1q) once a layer per verified row
     t14 = time.monotonic()
     spec_parity_phase(torch, args.seed, card)
@@ -4525,12 +5109,26 @@ def main() -> None:
     launches["deepseek"] = deepseek_slice(torch, args.seed, card)["launches"]
     deepseek_train_slice(torch, args.seed, card)
     print(f"phase 18: {time.monotonic() - t18:.1f} s", flush=True)
+    # jamba_1_5_large's Mamba hybrid and recurrent archs in the continuous
+    # engine (19a gated parity; 19b-c the full-width jamba serving slices,
+    # K2 once a prefill and K1 once a step; 19d rwkv6_3b continuous, K7
+    # once a layer a prefill; 19e training)
+    t19 = time.monotonic()
+    jamba_parity_phase(torch, args.seed, card)
+    jam = jamba_slice(torch, args.seed, card)
+    launches["jamba static"] = jam["launches"]
+    launches["jamba continuous"] = jam["continuous"]["launches"]
+    launches["rwkv continuous"] = rwkv_continuous_slice(
+        torch, args.seed, card)["launches"]
+    jamba_train_slice(torch, args.seed, card)
+    print(f"phase 19: {time.monotonic() - t19:.1f} s", flush=True)
 
     src = "src/repro_torch/kernels/csrc/"
     rep = "src/repro/kernels/"
     # no model path runs K5 or K5q (the staging caches are dense): their
     # launches are the sum of their counts over the four path runs
-    paths = {k: sum(n[k] for n in launches.values()) for k in ("K5", "K5q")}
+    paths = {k: sum(n.get(k, 0) for n in launches.values())
+             for k in ("K5", "K5q")}
     # K1 runs on three main paths: the static slice, and the speculative
     # static and continuous slices (each path's count read right after its
     # own reset); its launches are their sum, each also given alone
@@ -4592,9 +5190,32 @@ def main() -> None:
                        for x in extra]})
     next(x for x in kernels if x["name"] == "dsa_decode_gather_attention")[
         "launches_by_path"] = k1_paths
+    # jamba_1_5_large's attention layer: K2 in its static and continuous
+    # prefills, K1 in their decode steps
+    for name, cu, tpu, checks, k in (
+            ("dsa_block_sparse_attention (jamba)", "dsa_attention.cu",
+             "dsa_attention.py:77", k2j_checks, "K2"),
+            ("dsa_decode_gather_attention (jamba)", "dsa_decode.cu",
+             "dsa_decode.py:185", k1j_checks, "K1")):
+        c = checks[-1]
+        by_path = {p: launches[p].get(k, 0)
+                   for p in ("jamba static", "jamba continuous")}
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + cu,
+            "replaces": rep + tpu, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": c["max_abs_err"],
+            "ms": c["ms"], "kernel_ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"], "host_us": c["host_us"],
+            "geometry": c["geometry"],
+            "checks": [{k2: x[k2] for k2 in ("geometry", "max_abs_err",
+                                             "tol", "tol_used")}
+                       for x in checks]})
     c = k7_checks[2]
-    # K7 runs on two main paths: rwkv6_3b's prefill and its eval step
-    k7_paths = {p: launches[p]["K7"] for p in ("rwkv", "rwkv eval")}
+    # K7 runs on three main paths: rwkv6_3b's prefill, its eval step and
+    # its continuous engine's admissions
+    k7_paths = {p: launches[p].get("K7", 0)
+                for p in ("rwkv", "rwkv eval", "rwkv continuous")}
     kernels.append({
         "name": "wkv6_chunked", "route": "cuda", "source": src + "wkv6.cu",
         "replaces": rep + "wkv6.py:75", "launches": sum(k7_paths.values()),

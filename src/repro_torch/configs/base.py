@@ -1,6 +1,6 @@
 """Architecture configuration (the port's own copy of the dense-GQA,
-sliding-window, mixture-of-experts, multi-head latent attention and RWKV6
-subset).
+sliding-window, mixture-of-experts, multi-head latent attention, RWKV6
+and Mamba-hybrid subset).
 
 Each architecture is an ``ArchConfig`` in its own module
 (``repro_torch/configs/<id>.py``) exposing ``CONFIG``.  ``get_config(name)``
@@ -38,6 +38,13 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
 class RWKVConfig:
     head_dim: int = 64            # wkv state is head_dim x head_dim per head
     decay_lora: int = 64          # low-rank data-dependent decay
@@ -67,7 +74,7 @@ class DSAConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # dense | moe | ssm (RWKV6)
+    family: str                   # dense | moe | ssm (RWKV6) | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -82,7 +89,12 @@ class ArchConfig:
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    mamba: Optional[MambaConfig] = None
     rwkv: Optional[RWKVConfig] = None
+    # hybrid (jamba): one attention layer every ``attn_layer_period``
+    # layers, at ``attn_layer_offset`` within the period, Mamba elsewhere
+    attn_layer_period: int = 0    # 0 = all attention
+    attn_layer_offset: int = 0
     dsa: DSAConfig = dataclasses.field(default_factory=DSAConfig)
     dtype: str = "bfloat16"       # activation dtype
     param_dtype: str = "bfloat16"
@@ -98,15 +110,25 @@ class ArchConfig:
 
     def num_params(self) -> int:
         """Analytic parameter count (embedding + blocks), for 6ND roofline
-        (the reference's count, less its Mamba branch)."""
+        (the reference's count)."""
         d, v = self.d_model, self.vocab
         total = v * d * (1 if self.tie_embeddings else 2)
         for i in range(self.n_layers):
-            if layer_kind(self, i) == "rwkv":
+            kind = layer_kind(self, i)
+            if kind == "rwkv":
                 total += 4 * d * d + d * d + 2 * d * self.rwkv.decay_lora
                 total += 2 * d * self.d_ff + self.d_ff * d  # channel-mix
+                continue
+            if kind == "mamba":
+                mc = self.mamba
+                mi = d * mc.expand
+                total += (2 * d * mi          # in_proj (x, z)
+                          + mi * mc.d_conv
+                          + mi * (mc.d_state * 2 + mi // 16)
+                          + mi * d)           # out_proj
             else:
-                total += self._attn_params() + self._mlp_params(i)
+                total += self._attn_params()
+            total += self._mlp_params(i)
         return total
 
     def _attn_params(self) -> int:
@@ -160,12 +182,24 @@ def is_moe_layer(cfg: ArchConfig, i: int) -> bool:
 
 
 def layer_kind(cfg: ArchConfig, i: int) -> str:
-    """Which block kind layer ``i`` is: attn | rwkv (the ported kinds)."""
-    return "rwkv" if cfg.rwkv is not None else "attn"
+    """Which block kind layer ``i`` is: attn | mamba | rwkv."""
+    if cfg.rwkv is not None:
+        return "rwkv"
+    if cfg.mamba is not None and cfg.attn_layer_period:
+        if i % cfg.attn_layer_period == cfg.attn_layer_offset:
+            return "attn"
+        return "mamba"
+    return "attn"
+
+
+def is_recurrent(cfg: ArchConfig) -> bool:
+    """Whether some layer carries a recurrent state (RWKV6, Mamba): a
+    state that absorbs every token it is given and cannot roll back."""
+    return cfg.rwkv is not None or cfg.mamba is not None
 
 
 ARCH_IDS = ("yi_6b", "stablelm_3b", "qwen1_5_110b", "h2o_danube_1_8b",
-            "rwkv6_3b", "mixtral_8x22b", "deepseek_v3")
+            "rwkv6_3b", "mixtral_8x22b", "deepseek_v3", "jamba_1_5_large")
 
 
 def get_config(name: str) -> ArchConfig:
@@ -179,11 +213,19 @@ def cut_layers(cfg: ArchConfig, n: int) -> ArchConfig:
     """``cfg`` cut to its first ``n`` layers, a dense prologue
     (``first_k_dense``) kept whole: deepseek_v3 at 3 layers is its
     prologue alone, at 5 the prologue and 2 MoE layers.  Fewer layers
-    than the prologue is a ValueError."""
+    than the prologue is a ValueError.  A hybrid arch (jamba) is cut in
+    whole groups of ``attn_layer_period`` layers, or, below one period,
+    to ONE group of the period's first ``n`` sub-blocks (jamba at 5:
+    four Mamba sub-blocks, MoE on the second and fourth, and the
+    attention one); any other ``n`` is a ValueError."""
     k = cfg.moe.first_k_dense if cfg.moe is not None else 0
     if n < k:
         raise ValueError(f"{cfg.name}: {n} layers is less than its dense "
                          f"prologue's {k}")
+    period = cfg.attn_layer_period if cfg.mamba is not None else 0
+    if period and n > period and n % period:
+        raise ValueError(f"{cfg.name}: {n} layers is neither whole groups "
+                         f"of {period} nor one group's first sub-blocks")
     return dataclasses.replace(cfg, n_layers=n)
 
 
@@ -208,6 +250,9 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         kw["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=32,
                               qk_nope_head_dim=16, qk_rope_head_dim=8,
                               v_head_dim=16)
+    if cfg.mamba is not None:
+        kw["mamba"] = MambaConfig(d_state=8, d_conv=4, expand=2)
+        kw["n_layers"] = max(cfg.attn_layer_period, 4)
     if cfg.rwkv is not None:
         kw["rwkv"] = RWKVConfig(head_dim=16, decay_lora=8)
     if cfg.dsa.enabled:

@@ -5,8 +5,9 @@
 can parameterise a whole serving stack.  The port carries the fields of
 the paths ported so far.  Still unported (``UNPORTED``; each raises
 ``NotImplementedError``): serving meshes (``mesh``, ``shard_rules``).
-RWKV6 in the continuous engine is refused by the engine itself, whatever
-the config.
+A recurrent arch (RWKV6, a Mamba hybrid) in the continuous engine admits
+blocking on a dense cache, whatever ``chunked_prefill`` says; ``paged``
+and quantization are refused for it.
 
 MoE archs:
 

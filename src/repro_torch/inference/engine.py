@@ -5,11 +5,11 @@ Prefill bucketing: prompts are right-padded to a power-of-two bucket
 length (transformer.truncate_cache) and the logits row at ``length - 1``
 is taken, so a bucketed prefill leaves the cache an unpadded prefill
 would have (modulo the zeroed tail).  Bucketing is off where right
-padding is not a no-op for the live state (``can_bucket_prompts``: RWKV6,
-SWA ring buffers).  A ragged batch on a ring whose padded width exceeds
-the window is not exact for its shorter rows, as in the reference (the
-ring keeps the batch's last window of positions, pads included; ROADMAP
-Queue 3).
+padding is not a no-op for the live state (``can_bucket_prompts``: the
+recurrent archs, RWKV6 and Mamba hybrids, and SWA ring buffers).  A
+ragged batch on a ring whose padded width exceeds the window is not
+exact for its shorter rows, as in the reference (the ring keeps the
+batch's last window of positions, pads included; ROADMAP Queue 3).
 
 Resident cache: ``generate`` prefills into the engine's cache for its
 batch size (``resident_cache``: made on first use, zeroed by every
@@ -77,7 +77,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, is_recurrent
 from repro_torch.device import resolve_device
 from repro_torch.inference.config import ServingConfig, resolve_config
 from repro_torch.inference.graphs import DecodeGraphs, step_key
@@ -99,25 +99,25 @@ def pow2_bucket(n: int, floor: int = 1) -> int:
 
 def can_bucket_prompts(cfg: ArchConfig) -> bool:
     """Right-padded prefill is only sound when pad rows can be masked out
-    afterwards: a recurrent (RWKV6) state and an SWA ring buffer absorb
-    pad tokens irreversibly."""
-    return cfg.rwkv is None and cfg.swa_window == 0
+    afterwards: a recurrent (Mamba, RWKV6) state and an SWA ring buffer
+    absorb pad tokens irreversibly."""
+    return not is_recurrent(cfg) and cfg.swa_window == 0
 
 
 def can_page(cfg: ArchConfig) -> bool:
     """Paged resident caches (``ContinuousEngine(paged=True)``) need every
     per-slot cache leaf to be a page pool or a per-slot scalar: a
-    recurrent (RWKV6) state and an SWA ring buffer have no token-row
-    geometry to page, and MLA's latent ``c_kv``/``k_rope`` leaves keep the
-    dense layout (they are already the compressed cache)."""
-    return cfg.rwkv is None and cfg.swa_window == 0 and cfg.mla is None
+    recurrent (Mamba, RWKV6) state and an SWA ring buffer have no
+    token-row geometry to page, and MLA's latent ``c_kv``/``k_rope`` leaves
+    keep the dense layout (they are already the compressed cache)."""
+    return not is_recurrent(cfg) and cfg.swa_window == 0 and cfg.mla is None
 
 
 def can_quantize(cfg: ArchConfig) -> bool:
     """Mixed-precision serving (ServingConfig select_dtype/kv_quant)
     covers the standard GQA attention cache layout, the same envelope as
-    paging: a recurrent (RWKV6) state and an SWA ring buffer carry no
-    quantized token rows, and MLA's latent leaves are already the
+    paging: a recurrent (Mamba, RWKV6) state and an SWA ring buffer carry
+    no quantized token rows, and MLA's latent leaves are already the
     compressed cache."""
     return can_page(cfg)
 
@@ -126,9 +126,10 @@ def can_chunk_prefill(cfg: ArchConfig, dsa_mode: str = "off",
                       moe_dense: bool = False) -> bool:
     """Chunked (interleavable) admission prefill is supported wherever it
     is token-exact against the whole-prompt bucketed prefill: everything
-    prompt bucketing covers, minus MoE archs, whose prefill routes the
-    capacity dispatch while chunk steps run the decode-dense expert path
-    (the same math in another summation order, and drops).  ``moe_dense``
+    prompt bucketing covers (so no recurrent arch), minus MoE archs,
+    whose prefill routes the capacity dispatch while chunk steps run the
+    decode-dense expert path (the same math in another summation order,
+    and drops).  ``moe_dense``
     (Engine(moe_prefill="dense")) re-admits them: prefill then routes the
     decode-dense path too.  DSA over MLA (``dsa_mode`` other than "off")
     is out: it has no predicted-key cache to resume per chunk.  (The
@@ -338,7 +339,7 @@ class Engine:
             prompts = np.concatenate([prompts, pad], 1)
         if lengths is None:
             lengths = np.full((b,), s, np.int32)
-        elif self.cfg.rwkv is not None and int(np.min(lengths)) < s:
+        elif is_recurrent(self.cfg) and int(np.min(lengths)) < s:
             raise ValueError(f"{self.cfg.name} is recurrent: its state "
                              f"absorbs pad tokens, so it takes no ragged "
                              f"batch")

@@ -27,12 +27,20 @@ streams requests through it:
                   whole slot row is overwritten, so no state leaks from an
                   earlier tenant).  BLOCKING (``chunked_prefill=False``,
                   and always where ``engine.can_chunk_prefill`` says no:
-                  SWA archs, and MoE archs under ``moe_prefill=
-                  "capacity"``): the group runs one ``Engine.prefill`` while
-                  every resident decoder waits.  An SWA arch's resident
-                  cache is a dense ring of min(max_len, window) rows per
-                  slot; the insert zero-extends a prefill ring of
-                  min(prompt, window) rows into it.
+                  SWA archs, recurrent archs, and MoE archs under
+                  ``moe_prefill="capacity"``): the group runs one
+                  ``Engine.prefill`` while every resident decoder waits.
+                  An SWA arch's resident cache is a dense ring of
+                  min(max_len, window) rows per slot; the insert
+                  zero-extends a prefill ring of min(prompt, window) rows
+                  into it.  A recurrent arch (RWKV6, a Mamba hybrid)
+                  buckets no prompt, so a group is requests of one
+                  length; the insert overwrites every recurrent leaf of
+                  the slot (``s``, ``x_prev``, ``ffn_prev``; ``h``,
+                  ``conv``) with its prefill row, and zero-extends a
+                  hybrid's attention rows as any other.  A masked decode
+                  step leaves an inactive slot's recurrent leaves as
+                  they are (models/ssm.py).
   paged cache     ``paged=True`` replaces the dense (slots, max_len) rows
                   by a page table over one shared pool (``PagePool`` keeps
                   the host's account; page 0 is the permanent zero page).
@@ -124,9 +132,9 @@ sparsity probe (``_sparsity_probe``): one eager decode step that reads
 back each layer's block selection and puts back every cache row it
 wrote.
 
-Not ported yet (each raises ``NotImplementedError`` where a caller asks
-for it): serving meshes; recurrent (RWKV6) archs.  Every ``dsa_mode`` is
-served, ``faithful`` included.
+Not ported yet (raises ``NotImplementedError`` where a caller asks for
+it): serving meshes.  Every ``dsa_mode`` is served, ``faithful``
+included.
 """
 from __future__ import annotations
 
@@ -287,9 +295,12 @@ def _step_targets(lc: Dict, bk: int) -> Tuple[tuple, tuple]:
     return (rows, slot), (rows, slot // bk)
 
 
-def _save_step_rows(lc: Dict, bk: int) -> Tuple[tuple, Dict]:
+def _save_step_rows(lc: Dict, bk: int) -> Tuple[Optional[tuple], Dict]:
     """What a decode step will overwrite in ``lc``: ``pos`` and the
-    entries ``_step_targets`` names, copied (a few rows a layer)."""
+    entries ``_step_targets`` names, copied (a few rows a layer); a
+    recurrent layer's leaves whole (its state, a few MiB a layer)."""
+    if "pos" not in lc:
+        return None, {name: t.clone() for name, t in lc.items()}
     at_row, at_blk = _step_targets(lc, bk)
     saved = {"pos": lc["pos"].clone()}
     for keys, at in ((_POOL_ROW_KEYS, at_row), (_POOL_PAGE_KEYS, at_blk)):
@@ -302,7 +313,12 @@ def _save_step_rows(lc: Dict, bk: int) -> Tuple[tuple, Dict]:
 def _restore_step_rows(lc: Dict, saved: Tuple[tuple, Dict]) -> None:
     """Put back what ``_save_step_rows`` copied (repeated targets all hold
     the same original bytes, so their order does not matter)."""
-    (at_row, at_blk), vals = saved
+    at, vals = saved
+    if at is None:
+        for name, v in vals.items():
+            lc[name].copy_(v)
+        return
+    at_row, at_blk = at
     for keys, at in ((_POOL_ROW_KEYS, at_row), (_POOL_PAGE_KEYS, at_blk)):
         for name in keys:
             if name in lc:
@@ -416,11 +432,6 @@ class ContinuousEngine:
         """``config`` (or keyword arguments, which are ServingConfig
         fields) as for ``Engine``; ``device=None`` means the card."""
         c = resolve_config(config, kw)
-        if cfg.rwkv is not None:
-            raise NotImplementedError(
-                f"ContinuousEngine: {cfg.name} is recurrent; its slot "
-                f"insert (a state overwrite under blocking admission) is "
-                f"not ported yet: serve it with Engine.generate")
         self.config = c
         self.cfg = cfg
         self.slots = slots = c.slots
@@ -432,9 +443,9 @@ class ContinuousEngine:
                              loop="scan")
         self.device = self.engine.device
         # chunked admission replays the bucketed whole-prompt prefill;
-        # SWA archs admit blocking (their prompts are not bucketed), and
-        # MoE archs unless moe_prefill="dense" routes their prefill
-        # through the decode-dense expert path
+        # SWA and recurrent archs admit blocking (their prompts are not
+        # bucketed), and MoE archs unless moe_prefill="dense" routes their
+        # prefill through the decode-dense expert path
         chunk_ok = self.engine.bucket_prompts and can_chunk_prefill(
             cfg, self.engine.decode_flags.dsa_mode,
             moe_dense=self.engine.moe_dense)
@@ -761,18 +772,20 @@ class ContinuousEngine:
     @torch.inference_mode()
     def _insert(self, pre, slot: int, row: int) -> None:
         """Overwrite resident slot ``slot`` with row ``row`` of a
-        bucket-sized staging cache, zero-extending the per-token rows (a
-        ring of min(prompt, window) rows into one of min(max_len,
-        window): both place token i at slot i % window)."""
+        bucket-sized staging cache, every leaf: the per-token rows
+        zero-extended (a ring of min(prompt, window) rows into one of
+        min(max_len, window): both place token i at slot i % window),
+        ``pos`` and a recurrent layer's state copied whole."""
         self._note("insert", pre, slot, row)
         for res, st in zip(attn_caches(self._caches), attn_caches(pre)):
-            for name in _SEQ_KEYS:
-                if name in res:
-                    src = raw(st[name])[row]
-                    dst = raw(res[name])[slot]
+            for name, t in res.items():
+                src = raw(st[name])[row]
+                dst = raw(t)[slot]
+                if name in _SEQ_KEYS:
                     dst.zero_()
                     dst[:src.shape[0]] = src
-            res["pos"][slot] = st["pos"][row]
+                else:
+                    dst.copy_(src)
 
     @torch.inference_mode()
     def _insert_paged(self, pre, slot: int, row: int,
@@ -1550,8 +1563,11 @@ class ContinuousEngine:
         step wrote is put back as it was (``_probe_step``).  Records per
         slot the keep rate, the churn of layer 0's selected blocks against
         the previous sample of the same request, and the overlap between
-        adjacent layers' selections.  Its kernel launches (K4 or K1, one a
-        layer) are counted apart, in ``stats["probe_steps"]``."""
+        adjacent layers' selections.  On a hybrid arch (jamba) only the
+        attention layers select; the step's writes to the recurrent
+        layers' state are put back too.  Its kernel launches (K4 or K1,
+        one an attention layer) are counted apart, in
+        ``stats["probe_steps"]``."""
         tel = self.telemetry
         flags = self._flags(mode)
         if not probe_ok(self.cfg, flags):
@@ -1602,10 +1618,11 @@ class ContinuousEngine:
         """The probe program: one decode step with ``flags.sel_probe``,
         returning each layer's (idx, ok, kv_len).  The step writes
         ``caches`` in place (each writing row's K/V/kt row and their
-        scales at its position, its ktb block or page, and ``pos``), so
-        those entries are saved first and put back after: the resident
-        cache ends bitwise as it was, at the cost of a few rows a layer
-        (cloning the cache would cost gigabytes at full width)."""
+        scales at its position, its ktb block or page, and ``pos``; a
+        recurrent layer's state), so those entries are saved first and
+        put back after: the resident cache ends bitwise as it was, at
+        the cost of a few rows a layer (cloning the cache would cost
+        gigabytes at full width)."""
         self._note("probe", tok, mask, caches, flags)
         bk = self.cfg.dsa.block_k
         saved = [_save_step_rows(lc, bk) for lc in attn_caches(caches)]

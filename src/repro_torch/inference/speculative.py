@@ -58,7 +58,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, is_recurrent
 from repro_torch.inference.engine import _sample
 from repro_torch.models.attention import DECODE_LOCAL, RunFlags
 from repro_torch.models.transformer import forward_train
@@ -68,16 +68,15 @@ def can_speculate(cfg: ArchConfig, dsa_mode: str = "off", k: int = 1
                   ) -> bool:
     """Speculative verify is served wherever a chunk append with per-row
     decode numerics gives the decode step's tokens: non-wrapping caches
-    (no recurrent RWKV6 state to roll back, no SWA ring), and on the DSA
-    paths a chunk of K + 1 rows inside the DECODE_LOCAL force-keep window,
-    so the ktb entries the verify leaves stale are never read; no DSA
-    over MLA (no predicted-key cache, as in ``can_chunk_prefill``).  MoE
-    archs are served: decode steps and verify chunks both route the
+    (no recurrent Mamba or RWKV6 state to roll back, no SWA ring), and on
+    the DSA paths a chunk of K + 1 rows inside the DECODE_LOCAL force-keep
+    window, so the ktb entries the verify leaves stale are never read; no
+    DSA over MLA (no predicted-key cache, as in ``can_chunk_prefill``).
+    MoE archs are served: decode steps and verify chunks both route the
     decode-dense expert path, and MLA verifies absorbed, as its decode
-    step attends.  (The reference also leaves out Mamba,
-    encoder-decoder and cross-attention archs, none of which is
-    ported.)"""
-    return (cfg.rwkv is None and cfg.swa_window == 0
+    step attends.  (The reference also leaves out encoder-decoder and
+    cross-attention archs, neither of which is ported.)"""
+    return (not is_recurrent(cfg) and cfg.swa_window == 0
             and not (cfg.mla is not None and dsa_mode != "off")
             and (dsa_mode == "off" or k + 1 <= DECODE_LOCAL))
 

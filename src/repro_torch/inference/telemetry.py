@@ -212,7 +212,9 @@ def probe_ok(cfg, flags) -> bool:
     """Whether a decode step under ``flags`` makes a block selection for
     the sparsity probe to sample: DSA on the block or kernel path of a
     long-context cache, and not over MLA (whose latent cache holds no
-    predicted keys: its decode attends every row)."""
+    predicted keys: its decode attends every row).  The reference's gate
+    (its ``_sparsity_probe``) is this one without ``cfg.dsa.enabled``,
+    and fails on an arch that has no DSA layer (ROADMAP Queue 3)."""
     return (cfg.dsa.enabled and cfg.mla is None and flags.long_context
             and flags.dsa_mode in ("block", "kernel"))
 

@@ -118,13 +118,27 @@ stream f32):
         --reduced --batch 2 --prompt-len 64 --new-tokens 8 --dsa \
         --dsa-mode block --device cpu
 
-``--arch rwkv6_3b`` serves the RWKV6 model through the static engine: its
-prefill runs the chunked wkv kernel K7 once per layer when the prompt is
-a multiple of 32 longer than 32; ``--dsa`` falls back to off (no score
-matrix), and the cache line reports the recurrent state's bytes:
+``--arch rwkv6_3b`` serves the RWKV6 model: its prefill runs the chunked
+wkv kernel K7 once per layer when the prompt is a multiple of 32 longer
+than 32; ``--dsa`` falls back to off (no score matrix), and the cache
+line reports the recurrent state's bytes.  ``--continuous`` admits it
+blocking (requests of one prompt length share a prefill; the insert
+overwrites the slot's state):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b \
         --reduced --batch 2 --prompt-len 64 --new-tokens 8 --device cpu
+
+``--arch jamba_1_5_large`` serves the Mamba hybrid (a group of 8
+sub-blocks: Mamba but for one attention sub-block, MoE on every other
+one); DSA runs on its attention sub-block (K2 in prefill, K1 in decode),
+and ``--continuous`` admits it blocking, as RWKV6.  ``--layers N`` keeps
+whole groups or, below 8, one group's first N sub-blocks (5 has every
+kind); serve a bf16 model on ``--cache-dtype bfloat16``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba_1_5_large --reduced --continuous --dsa \
+        --dsa-mode kernel --requests 6 --slots 2 --prompt-len 64 \
+        --new-tokens 8 --device cpu
 """
 from __future__ import annotations
 

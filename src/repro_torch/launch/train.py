@@ -10,7 +10,8 @@ slices of the batch, with AdamW on a warmup-cosine schedule
 (``repro_torch.optim.adamw``).  ``--dsa-mode auto`` trains the DSA archs
 on the block path; ``faithful`` and ``off`` train too, and ``kernel``
 raises as the reference does (no kernel has a backward).  RWKV6 trains
-through the differentiable chunked wkv (``models.ssm``).
+through the differentiable chunked wkv, jamba's Mamba sub-blocks through
+the selective scan, checkpointed per 128-token chunk (``models.ssm``).
 
 With ``--ckpt-dir`` the state is saved (``repro_torch.checkpoint``, the
 reference's format) every ``--save-interval`` steps in the background and
@@ -26,7 +27,9 @@ tokens/s and the peak memory.  Full-width archs recompute each layer in
 the backward pass (``ArchConfig.remat``); ``--reduced`` ones do not.
 ``--layers N`` cuts the arch to its first N layers (a full-width
 mixtral_8x22b layer holds 2.4 B expert parameters; deepseek_v3 keeps its
-dense prologue, so ``--layers 3`` trains the prologue alone) and ``--moment-dtype
+dense prologue, so ``--layers 3`` trains the prologue alone; jamba_1_5_large
+keeps whole groups of 8 or one group's first N sub-blocks, so ``--layers
+1`` trains one Mamba sub-block and a dense MLP) and ``--moment-dtype
 bfloat16`` stores AdamW's moments in bf16.
 Sharded training (``--mesh`` other than ``host``) is not ported (ROADMAP
 Queue 1, "Distribution").

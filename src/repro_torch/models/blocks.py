@@ -1,13 +1,17 @@
 """Transformer blocks and layer groups (dense attention, multi-head latent
-attention, mixture-of-experts and RWKV6 archs).
+attention, mixture-of-experts, RWKV6 and Mamba-hybrid archs).
 
-A *group* is the repeating unit of layers; for the archs ported so far a
-group is one pre-norm sub-block ("b0"): attention ("attn", or "mla" for
-DeepSeek's latent attention) + SwiGLU MLP, attention + a mixture of
-experts (``moe``: every layer after the dense prologue), or, for RWKV6,
-the time-mix block + the channel-mix FFN ("rwkv").  deepseek_v3's first
-``first_k_dense`` layers are a PROLOGUE of dense sub-blocks
-(``prologue_def``) before the groups, as in the reference.
+A *group* is the repeating unit of layers.  For most archs it is one
+pre-norm sub-block ("b0"): attention ("attn", or "mla" for DeepSeek's
+latent attention) + SwiGLU MLP, attention + a mixture of experts
+(``moe``: every layer after the dense prologue), or, for RWKV6, the
+time-mix block + the channel-mix FFN ("rwkv").  A hybrid arch (jamba)
+groups ``attn_layer_period`` sub-blocks "b0".."b7": Mamba ("mamba") but
+for one attention sub-block at ``attn_layer_offset``, each with an MoE
+FFN where ``is_moe_layer`` says so (every other one) and a SwiGLU MLP
+otherwise.  deepseek_v3's first ``first_k_dense`` layers are a PROLOGUE
+of dense sub-blocks (``prologue_def``) before the groups, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ from typing import Dict, List
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, is_moe_layer
 from repro_torch.core.prediction import mm
 from repro_torch.models.attention import (RunFlags, apply_attention,
                                           apply_mla, init_attention,
@@ -35,16 +39,26 @@ class SubBlockDef:
 
 
 def group_defs(cfg: ArchConfig) -> List[SubBlockDef]:
-    """The sub-block structure of one group.  MoE: the reference's uniform
-    pattern (an MoE FFN on every layer after the dense prologue: mixtral,
-    deepseek_v3); periodic MoE layers (jamba) are not ported."""
+    """The sub-block structure of one group.  A hybrid arch: the period's
+    Mamba and attention sub-blocks, MoE where ``is_moe_layer`` (jamba's
+    periodic pattern); a depth cut below one period (``cut_layers``)
+    keeps the period's first ``n_layers`` sub-blocks.  Otherwise MoE is
+    the reference's uniform pattern (an MoE FFN on every layer after the
+    dense prologue: mixtral, deepseek_v3); periodic MoE outside a hybrid
+    group is not ported."""
     if cfg.rwkv is not None:
         return [SubBlockDef("rwkv")]
+    if cfg.mamba is not None and cfg.attn_layer_period:
+        n = min(cfg.attn_layer_period, cfg.n_layers)
+        return [SubBlockDef("attn" if i == cfg.attn_layer_offset
+                            else "mamba", moe=is_moe_layer(cfg, i))
+                for i in range(n)]
     mo = cfg.moe
     if mo is not None and mo.layer_period != 1:
         raise NotImplementedError(
-            f"{cfg.name}: MoE with layer_period={mo.layer_period} is not "
-            f"ported (ROADMAP Queue 1, \"Remaining archs\")")
+            f"{cfg.name}: MoE with layer_period={mo.layer_period} outside "
+            f"a Mamba-hybrid group is not ported (ROADMAP Queue 1, "
+            f"\"Remaining archs\")")
     return [SubBlockDef("mla" if cfg.mla is not None else "attn",
                         moe=mo is not None)]
 
@@ -92,9 +106,10 @@ def init_subblock(gen: torch.Generator, cfg: ArchConfig, d: SubBlockDef, *,
     if d.kind == "rwkv":
         return {**norms, "attn": ssm.init_rwkv(gen, cfg, **kw),
                 "mlp": ssm.init_rwkv_ffn(gen, cfg, **kw)}
-    if d.kind not in ("attn", "mla"):
+    attn = {"attn": init_attention, "mla": init_mla,
+            "mamba": ssm.init_mamba}.get(d.kind)
+    if attn is None:
         raise NotImplementedError(f"sub-block kind {d.kind!r} is not ported")
-    attn = init_mla if d.kind == "mla" else init_attention
     return {**norms, "attn": attn(gen, cfg, **kw),
             "mlp": (init_moe if d.moe else init_mlp)(gen, cfg, **kw)}
 
@@ -105,6 +120,9 @@ def init_subblock_cache(cfg: ArchConfig, d: SubBlockDef, batch: int,
     if d.kind == "rwkv":
         return {"attn": ssm.init_cache_rwkv(cfg, batch, device=device,
                                             dtype=dtype)}
+    if d.kind == "mamba":
+        return {"attn": ssm.init_cache_mamba(cfg, batch, device=device,
+                                             dtype=dtype)}
     if d.kind == "mla":
         return {"attn": init_cache_mla(cfg, batch, max_len, device=device,
                                        dtype=dtype, pages=pages)}
@@ -119,16 +137,25 @@ def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
     updated in place, ``aux`` is the attention's (the MSE term in train
     mode) and an MoE FFN's ``router`` term.  ``step``: the decode-time
     ``active``, ``chunk_len`` and ``sel_len`` of ``apply_attention``
-    (``apply_mla`` for an "mla" sub-block).
+    (``apply_mla`` for an "mla" sub-block; a recurrent one takes
+    ``active`` alone).
     An MoE FFN routes decode-dense in decode mode (steps, chunks, verify
     rows) and under ``flags.moe_dense``, by capacity otherwise."""
     if d.kind == "rwkv":
-        return _apply_rwkv_subblock(params, cfg, x, cache, **step), cache, {}
+        return (_apply_rwkv_subblock(params, cfg, x, cache, **step), cache,
+                {})
     h = rms_norm(x, params["norm1"].to(x.dtype), cfg.norm_eps)
-    attn = apply_mla if d.kind == "mla" else apply_attention
-    y, _, aux = attn(params["attn"], cfg, flags, h,
-                                cache=None if cache is None else cache["attn"],
-                                causal=d.causal, **step)
+    c = None if cache is None else cache["attn"]
+    if d.kind == "mamba":
+        _recurrent_step(**step)
+        y = ssm.apply_mamba(params["attn"], cfg, h, cache=c,
+                            decode=flags.mode == "decode",
+                            active=step.get("active"))
+        aux = {}
+    else:
+        attn = apply_mla if d.kind == "mla" else apply_attention
+        y, _, aux = attn(params["attn"], cfg, flags, h, cache=c,
+                         causal=d.causal, **step)
     x = x + y
     h = rms_norm(x, params["norm2"].to(x.dtype), cfg.norm_eps)
     if d.moe:
@@ -140,22 +167,28 @@ def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
     return x + y, cache, aux
 
 
-def _apply_rwkv_subblock(params, cfg: ArchConfig, x, cache=None,
-                         active=None, chunk_len=None, sel_len=None):
+def _recurrent_step(active=None, chunk_len=None, sel_len=None) -> None:
+    """A recurrent layer's state advances by the whole input: it takes a
+    decode step's ``active`` mask, but no chunk geometry."""
+    if chunk_len is not None or sel_len is not None:
+        raise NotImplementedError("a recurrent layer takes no chunk_len "
+                                  "or sel_len")
+
+
+def _apply_rwkv_subblock(params, cfg: ArchConfig, x, cache=None, **step):
     """Time-mix then channel-mix, each pre-norm and residual.  The cache
-    (``s``, ``x_prev``, ``ffn_prev``) advances by the whole input: a
-    recurrent layer has no per-row ``active`` or chunk geometry."""
-    if active is not None or chunk_len is not None or sel_len is not None:
-        raise NotImplementedError("a recurrent layer takes no active mask, "
-                                  "chunk_len or sel_len")
+    (``s``, ``x_prev``, ``ffn_prev``) advances by the whole input, on the
+    ``active`` rows of a masked decode step."""
+    _recurrent_step(**step)
+    active = step.get("active")
     c = None if cache is None else cache["attn"]
     h = rms_norm(x, params["norm1"].to(x.dtype), cfg.norm_eps)
-    x = x + ssm.apply_rwkv(params["attn"], cfg, h, cache=c)
+    x = x + ssm.apply_rwkv(params["attn"], cfg, h, cache=c, active=active)
     h = rms_norm(x, params["norm2"].to(x.dtype), cfg.norm_eps)
     x = x + ssm.apply_rwkv_ffn(params["mlp"], cfg, h,
                                None if c is None else c["ffn_prev"])
     if c is not None:
-        c["ffn_prev"].copy_(h[:, -1])
+        ssm.store(c, "ffn_prev", h[:, -1], active)
     return x
 
 

@@ -1,7 +1,21 @@
-"""RWKV6 (Finch): data-dependent decay linear attention, the port of the
-reference's ``repro.models.ssm`` RWKV6 half (Mamba is not ported yet).
+"""Attention-free sequence mixers: Mamba (jamba's layers) and RWKV6
+(Finch), the port of the reference's ``repro.models.ssm``.
 
-The time-mix block carries a per-head hd x hd f32 state ``s`` and the
+Mamba carries a per-channel f32 state ``h`` (B, mi, N) and the last
+``d_conv - 1`` inputs of its causal convolution ``conv`` (B, d_conv-1,
+mi).  Its selective scan ``_mamba_scan`` is the reference's token
+recurrence in plain PyTorch (the reference has no kernel for it): per
+128-token chunk the decays exp(dt a) and inputs dt x B are formed at
+once, a token loop carries the state through the chunk (two elementwise
+ops a token), and the outputs C h are one product over the chunk's
+states.  Each token's arithmetic is the reference's step: the state and
+exp(dt a) in f32, dt x formed in the activation dtype, y cast back to it.
+Where a gradient is taken and S is a multiple of 128 longer than one
+chunk, each chunk runs under ``torch.utils.checkpoint``, as the reference
+runs it under ``jax.checkpoint``: training keeps the chunks' entry states
+and not a state a token.
+
+RWKV6's time-mix block carries a per-head hd x hd f32 state ``s`` and the
 last token ``x_prev``; the channel-mix FFN carries its own last token
 ``ffn_prev``.  When S is a multiple of 32 and longer than one chunk the
 wkv runs chunked, as the reference dispatches; otherwise, decode
@@ -10,21 +24,31 @@ included, it runs the token recurrence ``_wkv_scan``.  Without gradients
 on the card, its plain version on the CPU.  Where autograd takes a
 gradient through the wkv (training), it is ``_wkv_chunked_train``, the
 reference's differentiable XLA ``_wkv_chunked`` in plain PyTorch: K7 has
-no backward.  DSA does not apply here (no score matrix).
+no backward.  DSA does not apply to either (no score matrix).
 
-Unlike the reference, the token shift casts the cached previous token to
-the activation dtype, so a bf16 model serves from an f32 cache (the
+Unlike the reference, RWKV6's token shift casts the cached previous token
+to the activation dtype, so a bf16 model serves from an f32 cache (the
 reference promotes the shifted token to f32 there and its layer scan
-refuses the f32 residual that results).
+refuses the f32 residual that results).  Mamba keeps the reference's
+promotion: a decode step concatenates the cached conv rows with the new
+input, so a bf16 model on an f32 cache turns f32 from the first Mamba
+layer of a decode step on, as the reference's does.
+
+A continuous engine's decode step passes ``active`` (a (B,) bool mask):
+an inactive row's recurrent leaves keep their values (the reference lets
+them run on, to be overwritten at the slot's next admission; the active
+rows' values are the same either way).  A masked step with no active row
+thus changes no leaf, which a graph capture over live slots needs.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.prediction import mm
+from repro_torch.core.prediction import einsum, mm
 from repro_torch.kernels import ops
 from repro_torch.kernels._launch import needs_grad
 from repro_torch.kernels.ref import wkv6_ref
@@ -32,6 +56,139 @@ from repro_torch.models.common import dense_init, group_norm_heads
 
 WKV_CHUNK = 32
 CLAMP = -30.0
+MAMBA_CHUNK = 128
+
+
+def store(cache: Dict, name: str, new: torch.Tensor, active=None) -> None:
+    """Write ``new`` into ``cache[name]`` in place (cast to its dtype),
+    where ``active`` (an ``attention.Active`` or None) names the rows
+    that take part; other rows keep their values."""
+    if active is not None:
+        m = active.mask.reshape(-1, *([1] * (new.dim() - 1)))
+        new = torch.where(m, new.to(cache[name].dtype), cache[name])
+    cache[name].copy_(new)
+
+
+# ---------------------------------------------------------------------------
+# Mamba (selective state space; jamba interleaves 7 of these per attention)
+# ---------------------------------------------------------------------------
+
+
+def init_mamba(gen: torch.Generator, cfg: ArchConfig, *, device,
+               dtype=torch.float32) -> Dict:
+    mc = cfg.mamba
+    d = cfg.d_model
+    mi = d * mc.expand
+    dt_rank = max(1, mi // 16)
+    kw = dict(device=device, dtype=dtype)
+    a = torch.arange(1, mc.d_state + 1, dtype=torch.float32, device=device)
+    return {
+        "in_proj": dense_init(gen, (d, 2 * mi), **kw),
+        "conv_w": dense_init(gen, (mc.d_conv, mi), **kw),
+        "conv_b": torch.zeros((mi,), **kw),
+        "x_proj": dense_init(gen, (mi, dt_rank + 2 * mc.d_state), **kw),
+        "dt_proj": dense_init(gen, (dt_rank, mi), **kw),
+        "dt_bias": torch.full((mi,), -4.6, **kw),   # softplus^-1(0.01)
+        "a_log": torch.log(a).expand(mi, mc.d_state).to(dtype).clone(),
+        "d_skip": torch.ones((mi,), **kw),
+        "out_proj": dense_init(gen, (mi, d), **kw),
+    }
+
+
+def _scan_chunk(h, a, xc, dt, bmat, cmat):
+    """The reference's scan step over one chunk of C tokens.  h (B,mi,N)
+    f32; a (mi,N) f32; xc, dt (B,C,mi) and bmat, cmat (B,C,N) in the
+    activation dtype.  Returns (h after the chunk, y (B,C,mi) in xc's
+    dtype)."""
+    da = torch.exp(dt[..., None].float() * a)              # (B,C,mi,N)
+    dbx = (dt * xc)[..., None].float() * bmat[:, :, None, :].float()
+    hs = []
+    # unbind, not indexing: each slice's backward would fill a zero
+    # tensor the size of the whole chunk, once a token
+    for da_t, dbx_t in zip(da.unbind(1), dbx.unbind(1)):
+        h = h * da_t + dbx_t
+        hs.append(h)
+    y = torch.einsum("bcmn,bcn->bcm", torch.stack(hs, 1), cmat.float())
+    return h, y.to(xc.dtype)
+
+
+def _mamba_scan(params, cfg: ArchConfig, xc, z, h0=None):
+    """xc: (B, S, mi) post-conv activations; z: (B, S, mi) the gate.
+    Returns (y (B,S,mi), h_last (B,mi,N) f32)."""
+    mc = cfg.mamba
+    b, s, mi = xc.shape
+    dt_rank = max(1, mi // 16)
+    proj = mm(xc, params["x_proj"].to(xc.dtype))
+    dt = torch.nn.functional.softplus(
+        mm(proj[..., :dt_rank], params["dt_proj"].to(xc.dtype))
+        + params["dt_bias"].to(xc.dtype))
+    bmat = proj[..., dt_rank:dt_rank + mc.d_state]
+    cmat = proj[..., dt_rank + mc.d_state:]
+    a = -torch.exp(params["a_log"].float())                # (mi, N)
+    h = (torch.zeros((b, mi, mc.d_state), dtype=torch.float32,
+                     device=xc.device) if h0 is None else h0)
+    # the reference checkpoints each chunk of a sequence of whole chunks
+    remat = (s % MAMBA_CHUNK == 0 and s > MAMBA_CHUNK
+             and needs_grad(xc, dt, bmat, cmat, h))
+    ys = []
+    for c0 in range(0, s, MAMBA_CHUNK):
+        part = (a, xc[:, c0:c0 + MAMBA_CHUNK], dt[:, c0:c0 + MAMBA_CHUNK],
+                bmat[:, c0:c0 + MAMBA_CHUNK], cmat[:, c0:c0 + MAMBA_CHUNK])
+        if remat:
+            h, y = checkpoint(_scan_chunk, h, *part, use_reentrant=False)
+        else:
+            h, y = _scan_chunk(h, *part)
+        ys.append(y)
+    y = (ys[0] if len(ys) == 1 else torch.cat(ys, 1)) + xc * params[
+        "d_skip"].to(xc.dtype)
+    return y * torch.nn.functional.silu(z), h
+
+
+def apply_mamba(params, cfg: ArchConfig, x, *, cache: Optional[Dict] = None,
+                decode: bool = False, active=None):
+    """x: (B,S,d) -> the block output.  cache: {"h": (B,mi,N) f32,
+    "conv": (B,d_conv-1,mi)}, updated in place (``active``: the rows of
+    a masked decode step).  ``decode`` (S = 1) continues from the cache;
+    a prefill starts from a zero state and zero history."""
+    mc = cfg.mamba
+    b, s, d = x.shape
+    mi = d * mc.expand
+    xz = mm(x, params["in_proj"].to(x.dtype))
+    xr, z = xz[..., :mi], xz[..., mi:]
+    dc = mc.d_conv
+    w = params["conv_w"].to(x.dtype)
+    if decode:
+        hist = torch.cat([cache["conv"], xr], dim=1)      # (B,dc,mi)
+        xc = einsum("btm,tm->bm", hist, w)
+        xc = torch.nn.functional.silu(
+            xc + params["conv_b"].to(x.dtype))[:, None]
+        y, h = _mamba_scan(params, cfg, xc, z, h0=cache["h"])
+        store(cache, "h", h, active)
+        store(cache, "conv", hist[:, 1:], active)
+    else:
+        pad = torch.zeros((b, dc - 1, mi), dtype=xr.dtype, device=x.device)
+        hist = torch.cat([pad, xr], dim=1)
+        xc = sum(hist[:, i:i + s] * w[i] for i in range(dc))
+        xc = torch.nn.functional.silu(xc + params["conv_b"].to(x.dtype))
+        y, h = _mamba_scan(params, cfg, xc, z)
+        if cache is not None:
+            store(cache, "h", h, active)
+            store(cache, "conv", hist[:, s:], active)
+    return mm(y, params["out_proj"].to(x.dtype))
+
+
+def init_cache_mamba(cfg: ArchConfig, batch: int, *, device,
+                     dtype=torch.bfloat16) -> Dict:
+    mi = cfg.d_model * cfg.mamba.expand
+    return {"h": torch.zeros((batch, mi, cfg.mamba.d_state),
+                             dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, cfg.mamba.d_conv - 1, mi),
+                                dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch): data-dependent decay linear attention
+# ---------------------------------------------------------------------------
 
 
 def init_rwkv(gen: torch.Generator, cfg: ArchConfig, *, device,
@@ -132,9 +289,11 @@ def _rwkv_mix(params, x, x_prev):
     return [x + mu[i] * delta for i in range(5)]  # r, k, v, w, g
 
 
-def apply_rwkv(params, cfg: ArchConfig, x, *, cache: Optional[Dict] = None):
+def apply_rwkv(params, cfg: ArchConfig, x, *, cache: Optional[Dict] = None,
+               active=None):
     """Time-mix block.  x: (B,S,d).  cache: {"s": (B,H,hd,hd) f32,
-    "x_prev": (B,d), ...}, updated in place.  Returns the block output."""
+    "x_prev": (B,d), ...}, updated in place (``active``: the rows of a
+    masked decode step).  Returns the block output."""
     rc = cfg.rwkv
     b, s, d = x.shape
     h, hd = d // rc.head_dim, rc.head_dim
@@ -162,8 +321,8 @@ def apply_rwkv(params, cfg: ArchConfig, x, *, cache: Optional[Dict] = None):
     y = y * torch.nn.functional.silu(g)
     out = mm(y, params["wo"].to(x.dtype))
     if cache is not None:
-        cache["s"].copy_(st)
-        cache["x_prev"].copy_(x[:, -1])
+        store(cache, "s", st, active)
+        store(cache, "x_prev", x[:, -1], active)
     return out
 
 

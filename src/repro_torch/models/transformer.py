@@ -25,9 +25,11 @@ per-layer list, ``caches["groups"][i]["b0"]["attn"]``: the layout the
 reference's ``unstack_group_caches`` produces for its decode loop, so no
 unstacking step is needed here.  An RWKV6 layer's cache holds its
 recurrent state ``s`` and the last tokens ``x_prev`` and ``ffn_prev``
-instead of K/V rows, an MLA layer's the latent rows ``c_kv`` and
-``k_rope``.  A dense prologue (deepseek_v3's ``first_k_dense`` layers:
-the arch's attention and a dense MLP) runs before the groups, its
+instead of K/V rows, a Mamba layer's its state ``h`` and its conv
+history ``conv`` (a hybrid group, jamba's, holds both kinds: "b0".."b7"),
+an MLA layer's the latent rows ``c_kv`` and ``k_rope``.  A dense
+prologue (deepseek_v3's ``first_k_dense`` layers: the arch's attention
+and a dense MLP) runs before the groups, its
 params and caches in the per-layer lists ``params["prologue"]`` and
 ``caches["prologue"]``, unstacked in the reference too.
 
@@ -55,7 +57,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, is_recurrent
 from repro_torch.core.prediction import mm
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
@@ -215,10 +217,10 @@ def chunk_step(params, cfg: ArchConfig, flags: RunFlags, tokens, caches,
     whole-prompt bucketed prefill.  Logits rows at or past chunk_len are
     garbage; inactive rows freeze.  On the DSA block path C and ``pos``
     are multiples of block_q and block_k.  Dense caches of attention
-    archs only: a recurrent (RWKV6) state absorbs pad rows."""
+    archs only: a recurrent (RWKV6, Mamba) state absorbs pad rows."""
     if flags.mode != "decode":
         raise ValueError("chunk_step needs RunFlags(mode='decode')")
-    if cfg.rwkv is not None:
+    if is_recurrent(cfg):
         raise NotImplementedError(
             f"chunk_step: {cfg.name} is recurrent; its state cannot skip a "
             f"chunk's pad rows")
@@ -291,7 +293,7 @@ def verify_step(params, cfg: ArchConfig, flags: RunFlags, tokens, caches,
     if flags.mode != "decode" or not flags.spec_verify:
         raise ValueError("verify_step needs RunFlags(mode='decode', "
                          "spec_verify=True)")
-    if cfg.rwkv is not None:
+    if is_recurrent(cfg):
         raise NotImplementedError(
             f"verify_step: {cfg.name} is recurrent; its state cannot roll "
             f"back rejected drafts")
@@ -366,8 +368,8 @@ def truncate_cache(cfg: ArchConfig, caches, length) -> Dict[str, Any]:
     rebuild ktb (ktb_s) from the masked kt, and set every ``pos`` to
     ``length`` (a scalar or per-row (B,) lengths).  fp8 rows are zeroed
     through their bytes: no arithmetic runs on an fp8 tensor.  Recurrent
-    (RWKV6) leaves are left untouched, as in the reference: their archs
-    take no padded prompts."""
+    (RWKV6, Mamba) leaves are left untouched, as in the reference: their
+    archs take no padded prompts."""
     for c in attn_caches(caches):
         rows = [c[name] for name in _ROW_KEYS if name in c]
         if not rows:

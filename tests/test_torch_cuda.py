@@ -19,7 +19,11 @@ at its geometry, hd 128 and GQA group 6; its ring's graphed decode equal
 to eager; the capacity dispatch on the card against the CPU's; the f32
 router of a bf16 model through a train step); and deepseek_v3's
 multi-head latent attention (an MLA layer on the card against the CPU,
-its graphed decode, verify and commit against eager ones).
+its graphed decode, verify and commit against eager ones); and Mamba
+and jamba_1_5_large (the Mamba block on the card against the CPU,
+jamba's graphed decode against eager and its graphed continuous segments
+against solo generate, the recurrent slot insert and a capture over live
+recurrent slots leaving them as they were).
 
 Needs a CUDA card and the CUDA toolkit; skips without a card.  Imports
 neither JAX nor the reference, so it runs where only PyTorch is installed:
@@ -1858,3 +1862,130 @@ def test_cuda_mla_graphed_decode_and_verify_equal_eager(cuda_device,
     np.testing.assert_array_equal(eng.generate(p, 12, spec=c - 1).tokens,
                                   plain)
     assert K2.dsa_block_sparse_attention.launches == before
+
+
+# -- Mamba and jamba_1_5_large; recurrent slots in the continuous engine ------
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_subblock_matches_cpu(cuda_device):
+    """Reduced jamba_1_5_large's Mamba block (f32) on the card and on the
+    CPU from the same weights and inputs: a 256-token prefill (two
+    128-token chunks of the scan), then four decode steps, the third with
+    an inactive row; every output and both cache leaves within 1e-5 of
+    the largest magnitude (other summation orders)."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models import ssm
+    from repro_torch.models.attention import Active
+    cfg = reduced(get_config("jamba_1_5_large"))
+    params = ssm.init_mamba(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    dev = {k: v.to(cuda_device) for k, v in params.items()}
+    caches = {d: ssm.init_cache_mamba(cfg, 2, device=d, dtype=torch.float32)
+              for d in ("cpu", cuda_device)}
+    gen = torch.Generator().manual_seed(1)
+
+    def both(x, **kw):
+        outs = [ssm.apply_mamba(p, cfg, x.to(d), cache=caches[d],
+                                **{k: (Active(v.mask.to(d))
+                                       if isinstance(v, Active) else v)
+                                   for k, v in kw.items()})
+                for d, p in (("cpu", params), (cuda_device, dev))]
+        for got, want in [(outs[1], outs[0])] + [
+                (caches[cuda_device][k], caches["cpu"][k])
+                for k in ("h", "conv")]:
+            scale = max(float(want.abs().max()), 1e-6)
+            assert float((got.cpu() - want).abs().max()) <= 1e-5 * scale
+
+    with torch.no_grad():
+        both(torch.randn((2, 256, cfg.d_model), generator=gen))
+        for step in range(4):
+            both(torch.randn((2, 1, cfg.d_model), generator=gen),
+                 decode=True, active=Active(torch.tensor([True, step != 2])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_jamba_graphed_decode_equals_eager(cuda_device, cache_dtype):
+    """Reduced jamba_1_5_large on the card, DSA kernel path: the static
+    engine's graphed scan loop gives the python loop's tokens bit for
+    bit, one capture (the Mamba state and conv history updated in place
+    inside the graph); K2 once a prefill (the one attention layer) and K1
+    once a decode step on both loops; the continuous engine's graphed
+    segments (blocking admission) give each request its solo tokens."""
+    import numpy as np
+    from repro_torch.inference.engine import Engine
+    from repro_torch.inference.scheduler import ContinuousEngine, Request
+    cfg, params = _model("jamba_1_5_large", cuda_device)
+    kw = dict(long_context=True, dsa_mode="kernel", cache_dtype=cache_dtype)
+    p = np.random.default_rng(2).integers(
+        1, cfg.vocab - 4, size=(2, 64)).astype(np.int32)
+    toks = {}
+    for loop in ("scan", "python"):
+        eng = Engine(cfg, params, max_len=96, loop=loop, **kw)
+        k1, k2 = (K1.dsa_decode_gather_attention.launches,
+                  K2.dsa_block_sparse_attention.launches)
+        res = eng.generate(p, 10)
+        toks[loop] = res.tokens
+        assert K2.dsa_block_sparse_attention.launches - k2 == 1
+        assert (K1.dsa_decode_gather_attention.launches - k1
+                == res.decode_steps)
+        if loop == "scan":
+            assert eng.graphs.captures == 1
+    np.testing.assert_array_equal(toks["scan"], toks["python"])
+    rng = np.random.default_rng(3)
+    reqs = [Request(i, rng.integers(1, cfg.vocab - 4, size=(n,)).astype(
+        np.int32), m) for i, (n, m) in enumerate([(48, 9), (48, 6),
+                                                  (33, 12), (64, 5)])]
+    ce = ContinuousEngine(cfg, params, slots=2, seg_len=4, max_len=96, **kw)
+    got = ce.run(reqs)
+    solo = Engine(cfg, params, max_len=96, **kw)
+    for r in reqs:
+        np.testing.assert_array_equal(
+            got[r.rid], solo.generate(r.prompt[None], r.n_new).tokens[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6_3b", "jamba_1_5_large"])
+def test_cuda_recurrent_slot_insert(cuda_device, arch):
+    """The continuous engine's insert on the card: every leaf of the
+    slot (the recurrent state, and on jamba the attention layer's rows,
+    zero-extended, and ``pos``) becomes its prefill row, the other slot
+    keeps its bytes; the segment graph's capture afterwards (its warm-up
+    steps have no active row) leaves every leaf as it was."""
+    import numpy as np
+    from repro_torch.inference.scheduler import _SEQ_KEYS, ContinuousEngine
+    from repro_torch.models import transformer as TT
+    cfg, params = _model(arch, cuda_device)
+    kw = {} if cfg.rwkv else dict(long_context=True, dsa_mode="kernel")
+    eng = ContinuousEngine(cfg, params, slots=2, max_len=96, **kw)
+    with torch.inference_mode():
+        for lc in TT.attn_caches(eng._caches):
+            for name, t in lc.items():
+                if t.is_floating_point():
+                    t.copy_(torch.randn(t.shape, device=cuda_device))
+        before = [{k: t.clone() for k, t in lc.items()}
+                  for lc in TT.attn_caches(eng._caches)]
+        prompts = np.random.default_rng(4).integers(
+            1, cfg.vocab - 4, size=(2, 48)).astype(np.int32)
+        _, pre, _ = eng.engine.prefill(prompts, cache_len=48)
+        eng._insert(pre, 1, 0)
+        for b, res, st in zip(before, TT.attn_caches(eng._caches),
+                              TT.attn_caches(pre)):
+            for k, t in res.items():
+                src = st[k][0]
+                if k in _SEQ_KEYS:
+                    assert torch.equal(t[1, :src.shape[0]], src), k
+                    assert not t[1, src.shape[0]:].any(), k
+                else:
+                    assert torch.equal(t[1], src), k
+                assert torch.equal(t[0], b[k][0]), k
+        after = [{k: t.clone() for k, t in lc.items()}
+                 for lc in TT.attn_caches(eng._caches)]
+    eng._segment_step()
+    torch.cuda.synchronize()
+    assert eng.graphs.captures == 1
+    for a, lc in zip(after, TT.attn_caches(eng._caches)):
+        for k, t in lc.items():
+            assert torch.equal(t, a[k]), k

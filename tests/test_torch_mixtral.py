@@ -128,10 +128,17 @@ def test_config_is_the_reference_config():
 
 
 def test_unported_moe_patterns_raise():
-    """Periodic MoE layers (jamba's) are refused with ROADMAP's item; a
-    dense prologue (deepseek_v3's first_k_dense) is ported and builds: one
-    dense layer before the MoE groups."""
+    """Periodic MoE layers build jamba's hybrid group (MoE on its odd
+    sub-blocks, a dense MLP on the even ones); outside a Mamba-hybrid
+    group they are still refused with ROADMAP's item.  A dense prologue
+    (deepseek_v3's first_k_dense) is ported and builds: one dense layer
+    before the MoE groups."""
     _, tc = _cfgs()
+    jamba = TB.reduced(TB.get_config("jamba_1_5_large"))
+    assert jamba.moe.layer_period == 2
+    group = TT.init_model(0, jamba, device="cpu")["groups"][0]
+    assert [("router" in group[f"b{i}"]["mlp"]) for i in range(8)] == [
+        i % 2 == 1 for i in range(8)]
     cfg = dataclasses.replace(tc, moe=dataclasses.replace(tc.moe,
                                                           layer_period=2))
     with pytest.raises(NotImplementedError, match="Remaining archs"):

@@ -2,7 +2,9 @@
 K7's plain version against the Pallas kernel (interpret mode, through
 ``repro.kernels.ops.wkv6``) and the reference model's ``_wkv_chunked``,
 the token scan, the time-mix and channel-mix blocks, full-model logits,
-and ``Engine.generate`` greedy tokens, with the reference's weights
+``Engine.generate`` greedy tokens, and the continuous engine's tokens
+against the reference's continuous engine and solo ``generate`` (its
+blocking admission overwriting a slot's state), with the reference's weights
 carried across by ``repro_torch.convert``.  Inputs come from numpy with a
 seed.
 
@@ -23,6 +25,8 @@ import torch
 
 from repro.configs.base import get_config as jget_config
 from repro.configs.base import reduced as jreduced
+from repro.inference import scheduler as JS
+from repro.inference.telemetry import Telemetry as JTel
 from repro.inference.engine import Engine as JEngine
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -33,7 +37,9 @@ from repro.models.attention import RunFlags as JFlags
 from repro_torch import convert
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.inference import engine as TE
+from repro_torch.inference import scheduler as TS
 from repro_torch.inference.scheduler import ContinuousEngine
+from repro_torch.inference.telemetry import Telemetry, probe_ok
 from repro_torch.kernels import ops, wkv6 as K7
 from repro_torch.kernels import ref as tref
 from repro_torch.launch import serve
@@ -360,7 +366,10 @@ def test_reference_fault_rwkv_bf16_with_f32_cache():
 
 def test_recurrent_arch_envelope():
     """No prompt buckets, no quantized cache, no ragged batch, no chunk
-    step, no continuous engine; truncate_cache leaves the state alone."""
+    step; the continuous engine builds with blocking admission on a dense
+    cache (``chunked`` and ``paged`` False, even when chunking is asked
+    for) and refuses a paged one; truncate_cache leaves the state
+    alone."""
     _, tc, _, tparams = _setup()
     assert not TE.can_bucket_prompts(tc)
     with pytest.raises(ValueError, match="unsupported for arch"):
@@ -369,8 +378,11 @@ def test_recurrent_arch_envelope():
     prompts = _prompts(48, tc.vocab)
     with pytest.raises(ValueError, match="ragged"):
         eng.generate(prompts, 2, lengths=np.array([48, 30]))
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        ContinuousEngine(tc, tparams, max_len=96, device="cpu")
+    ce = ContinuousEngine(tc, tparams, max_len=96, chunked_prefill=True,
+                          device="cpu")
+    assert not ce.chunked and not ce.paged
+    with pytest.raises(ValueError, match="paged=True"):
+        ContinuousEngine(tc, tparams, max_len=96, paged=True, device="cpu")
     _, caches, _ = eng.prefill(prompts)
     before = [{k: t.clone() for k, t in g["b0"]["attn"].items()}
               for g in caches["groups"]]
@@ -382,6 +394,102 @@ def test_recurrent_arch_envelope():
         TT.chunk_step(tparams, tc, eng.decode_flags,
                       torch.from_numpy(prompts[:, :16]), caches,
                       torch.tensor([16, 16]))
+
+
+CONT_SHAPES = [(64, 6), (64, 9), (40, 7), (64, 4), (40, 5)]
+CONT = dict(slots=2, max_len=96, seg_len=4)
+
+
+def _cont_requests(mod, vocab):
+    rng = np.random.default_rng(0)
+    return [mod.Request(rid, rng.integers(1, vocab - 4, size=(n,)).astype(
+        np.int32), n_new) for rid, (n, n_new) in enumerate(CONT_SHAPES)]
+
+
+def test_continuous_equals_reference_and_solo():
+    """The continuous engine on reduced rwkv6_3b: blocking admission (a
+    group per prompt length; 64 is two chunks of the wkv, 40 the token
+    scan), each insert overwriting the slot's ``s``, ``x_prev`` and
+    ``ffn_prev``, slots reused after retirements.  The tokens equal the
+    reference's continuous engine's and each request's solo
+    ``generate``."""
+    jc, tc, jparams, tparams = _setup()
+    eng = ContinuousEngine(tc, tparams, device="cpu", **CONT)
+    assert not eng.chunked
+    reqs = _cont_requests(TS, tc.vocab)
+    got = eng.run(reqs)
+    assert eng.stats["admitted"] == len(reqs) and eng.stats["chunks"] == 0
+    want = JS.ContinuousEngine(jc, jparams, **CONT).run(
+        _cont_requests(JS, jc.vocab))
+    solo = TE.Engine(tc, tparams, max_len=96, device="cpu")
+    for r in reqs:
+        np.testing.assert_array_equal(got[r.rid], np.asarray(want[r.rid]),
+                                      err_msg=f"rid {r.rid}")
+        np.testing.assert_array_equal(
+            got[r.rid], solo.generate(r.prompt[None], r.n_new).tokens[0],
+            err_msg=f"rid {r.rid} solo")
+
+
+def test_insert_overwrites_every_recurrent_leaf():
+    """A slot's insert copies every leaf of its prefill row (the state
+    and both previous tokens) over whatever the slot held, and leaves the
+    other slot as it was; a masked step with no active row changes no
+    leaf."""
+    _, tc, _, tparams = _setup()
+    eng = ContinuousEngine(tc, tparams, device="cpu", **CONT)
+    with torch.inference_mode():
+        for lc in TT.attn_caches(eng._caches):
+            for t in lc.values():
+                t.copy_(torch.randn(t.shape))
+        before = [{k: t.clone() for k, t in lc.items()}
+                  for lc in TT.attn_caches(eng._caches)]
+        _, pre, _ = eng.engine.prefill(_prompts(40, tc.vocab),
+                                       cache_len=40)
+        eng._insert(pre, 1, 0)
+        for b, res, st in zip(before, TT.attn_caches(eng._caches),
+                              TT.attn_caches(pre)):
+            assert set(res) == {"s", "x_prev", "ffn_prev"}
+            for k in res:
+                assert torch.equal(res[k][1], st[k][0])
+                assert torch.equal(res[k][0], b[k][0])
+        after = [{k: t.clone() for k, t in lc.items()}
+                 for lc in TT.attn_caches(eng._caches)]
+        TT.decode_step(tparams, tc, eng.engine.decode_flags,
+                       torch.ones((2, 1), dtype=torch.long), eng._caches,
+                       active=torch.zeros(2, dtype=torch.bool))
+        for a, lc in zip(after, TT.attn_caches(eng._caches)):
+            for k, t in lc.items():
+                assert torch.equal(t, a[k])
+
+
+def test_reference_fault_probe_on_an_arch_without_dsa():
+    """Found by the port: the reference's sparsity probe gates on the
+    flags alone (a long-context cache on the block or kernel path), so a
+    continuous engine serving rwkv6_3b so with telemetry probes a step
+    that selects nothing and fails on the empty selection list
+    (IndexError).  The port's gate (``telemetry.probe_ok``) also asks for
+    DSA on the arch: it probes nothing and serves the untraced tokens."""
+    jc, tc, jparams, tparams = _setup()
+    kw = dict(long_context=True, dsa_mode="block", **CONT)
+    shapes = [(40, 12), (40, 10)]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, tc.vocab - 4, size=(n,)).astype(np.int32)
+               for n, _ in shapes]
+    with pytest.raises(IndexError):
+        JS.ContinuousEngine(jc, jparams, telemetry=JTel(sample_every=1),
+                            **kw).run([JS.Request(i, p, m) for i, (p, (_, m))
+                                       in enumerate(zip(prompts, shapes))])
+    assert not probe_ok(tc, RunFlags(mode="decode", dsa_mode="block",
+                                     long_context=True))
+    reqs = [TS.Request(i, p, m) for i, (p, (_, m))
+            in enumerate(zip(prompts, shapes))]
+    plain = ContinuousEngine(tc, tparams, device="cpu", **kw).run(reqs)
+    eng = ContinuousEngine(tc, tparams, device="cpu",
+                           telemetry=Telemetry(sample_every=1), **kw)
+    got = eng.run(reqs)
+    assert eng.stats["probe_steps"] == 0 and eng.stats["segments"] > 1
+    for r in reqs:
+        np.testing.assert_array_equal(got[r.rid], plain[r.rid])
 
 
 def test_serve_rwkv_on_cpu_with_dsa_falls_back(capsys):

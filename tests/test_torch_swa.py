@@ -288,6 +288,7 @@ def test_predicates_equal_reference(arch):
     full = get_config(arch)
     swa = full.swa_window > 0                 # h2o and mixtral
     assert TE.can_page(full) == (not swa and full.rwkv is None
+                                 and full.mamba is None
                                  and full.mla is None)
 
 

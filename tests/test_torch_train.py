@@ -2,8 +2,9 @@
 (f32, the CPU): cross-entropy, one train step (loss, ce, mse, grad_norm,
 every gradient and every new param) on yi_6b (GQA), stablelm_3b (MHA) and
 h2o_danube_1_8b (sliding window) for dsa_mode block, faithful and off with
-1 and 2 microbatches, and on mixtral_8x22b (MoE) and deepseek_v3 (MLA, a
-dense prologue, MoE) block and off, AdamW on identical gradients, the
+1 and 2 microbatches, and on mixtral_8x22b (MoE), deepseek_v3 (MLA, a
+dense prologue, MoE) and jamba_1_5_large (Mamba and attention, periodic
+MoE) block and off, AdamW on identical gradients, the
 eval step and the
 synthetic data; and the port's own copies of the reference's training
 semantics (microbatch equivalence, frozen P, loss and MSE decrease), remat,
@@ -206,6 +207,17 @@ def test_deepseek_train_step_matches_reference(mode, mb):
     and shared expert.  Not faithful, as for mixtral (the experts' init
     scale)."""
     _check_train_step("deepseek_v3", mode, mb)
+
+
+@pytest.mark.parametrize("mb", [1, 2])
+@pytest.mark.parametrize("mode", ["block", "off"])
+def test_jamba_train_step_matches_reference(mode, mb):
+    """The same step on jamba_1_5_large (one hybrid group of 8): the
+    Mamba sub-blocks' gradients through the selective scan and the conv,
+    the ``router`` term of the four MoE sub-blocks and the ``mse`` of the
+    attention sub-block alone.  Not faithful, as for mixtral (the
+    experts' init scale)."""
+    _check_train_step("jamba_1_5_large", mode, mb)
 
 
 def _check_train_step(arch, mode, mb):
@@ -597,7 +609,7 @@ def _grads_and_mm_counts(cfg, batch):
 
 
 @pytest.mark.parametrize("arch", ["yi_6b", "rwkv6_3b", "mixtral_8x22b",
-                                  "deepseek_v3"])
+                                  "deepseek_v3", "jamba_1_5_large"])
 def test_dots_remat_matches_full_and_none(arch):
     """``remat_policy="dots"`` gives the gradients of "full" and "none"
     bit for bit on the CPU (the same operations on the same inputs; dots
@@ -634,7 +646,7 @@ def _ref_train_step(arch, opt):
 
 
 @pytest.mark.parametrize("arch", ["stablelm_3b", "yi_6b", "mixtral_8x22b",
-                                  "deepseek_v3"])
+                                  "deepseek_v3", "jamba_1_5_large"])
 def test_four_step_curve_matches_reference(arch):
     """Four steps with a one-step warmup (the schedule under which the
     full-width joint loss does not fall, ``scripts/train_curve.py``):
