@@ -262,7 +262,30 @@ fails:
      ``launch.train --arch jamba_1_5_large --layers 1`` (one Mamba block
      and a dense MLP, 4 x 4096 in 2 microbatches, f32 moments, 4 steps,
      the chunk-checkpointed scan) with a profiled step, and one reduced
-     jamba train step card == CPU.
+     jamba train step card == CPU;
+ 20. whisper_small (an encoder-decoder) and llama_3_2_vision (gated
+     cross-attention) (K2 and K1 at whisper's MHA geometry, hd 64 and
+     GQA group 1, K2 also non-causal, and at llama's, hd 128 and group 4,
+     held to their plain versions in phase 3), every cross gate at 0.5:
+     (a) whisper at full width with 2 encoder and 2 decoder layers
+     (1500 frames, prompts 384) and llama cut to one group of 5 (prompts
+     1024, 1601 image tokens), f32: kernel == block greedy tokens (K2
+     once a decoder layer a prefill, K1 once a decoder layer a step),
+     graphed == eager (tokens, and bit for bit: logits and every cache
+     leaf, the cross ``ck``/``cv`` too), continuous (blocking, no cross
+     input at admission) == solo generate, card == CPU at batch 1; the
+     reduced whisper encoder launches K2 non-causal, == the block path;
+     (b) ``launch.serve --arch whisper_small`` (12 + 12 layers, bf16 on
+     a bf16 cache, batch 4, prompt 384, 64 new: K2 12 a prefill, K1 12 a
+     step), the encoder's ms, profiles of the prefill and a graphed
+     decode step; (c) ``launch.serve --arch llama_3_2_vision`` at its
+     full 40 layers (batch 4, prompt 4096, 32 new: K2 40, K1 40 a step),
+     profiles, the decode step against the time to read its weights
+     once, peak memory, then the continuous engine on 8 requests of
+     1024-4096 tokens (blocking, bucketed, no images); (d) training with
+     the second input: whisper_small whole at 4 x 448, llama at 5
+     layers at 4 x 4096 in 2 microbatches, each profiled, and a reduced
+     whisper train step card == CPU.
 
 It then prints one JSON line of per-kernel results, the card's name and
 power limit again as ``nvidia-smi`` gives them, and as its last line
@@ -486,9 +509,10 @@ def check_k1(torch, timer, *, b, hq, hkv, hd, s, bk, q_dt, c_dt, kv_len,
 
 
 def check_k2(torch, timer, *, b, hq, hkv, hd, l, blk, nb, dtype, seed,
-             timed, window=0):
+             timed, window=0, causal=True):
     """K2 against its plain version on the model's selection (with
-    ``window``: the sliding-window selection and mask of an SWA arch)."""
+    ``window``: the sliding-window selection and mask of an SWA arch;
+    ``causal=False``: an encoder's selection and mask)."""
     from repro_torch.core.masks import block_topk_indices
     from repro_torch.kernels import dsa_attention as K2
     dev = torch.device("cuda")
@@ -502,14 +526,14 @@ def check_k2(torch, timer, *, b, hq, hkv, hd, l, blk, nb, dtype, seed,
     n = l // blk
     idx, ok = block_topk_indices(
         torch.randn((b, n, n), generator=gen, device=dev), nb,
-        window_blocks=window // blk)
-    kw = dict(block_q=blk, block_k=blk, causal=True, window=window)
+        causal=causal, window_blocks=window // blk)
+    kw = dict(block_q=blk, block_k=blk, causal=causal, window=window)
     got = K2.dsa_block_sparse_attention(q, k, v, idx, ok, **kw)
     want = K2.dsa_block_sparse_attention_plain(q, k, v, idx, ok, **kw)
     torch.cuda.synchronize()
     res = dict(geometry=f"B{b} Hq{hq} Hkv{hkv} hd{hd} L{l} block{blk} "
-                        f"nb{nb}{f' window{window}' if window else ''} "
-                        f"{dtype}",
+                        f"nb{nb}{f' window{window}' if window else ''}"
+                        f"{'' if causal else ' non-causal'} {dtype}",
                **compare(torch, got, want, dtype))
     if not res["ok"]:
         fail(f"K2 disagrees with its plain version: {res}")
@@ -522,7 +546,8 @@ def check_k2(torch, timer, *, b, hq, hkv, hd, l, blk, nb, dtype, seed,
     qpos = torch.arange(l, device=dev).reshape(1, n, 1, blk)
     k_lo = kb[..., None] * blk                            # (B, nQb, nb, 1)
     lo = torch.maximum(k_lo, qpos - window + 1) if window else k_lo
-    hi = torch.minimum(k_lo + blk - 1, qpos)
+    # (B, nQb, nb, Bq): each query row's last live key of each block
+    hi = torch.minimum(k_lo + blk - 1, qpos if causal else qpos + l)
     per = ((hi - lo + 1).clamp(min=0) * ok[..., None]).sum(-1)  # (B,nQb,nb)
     pairs = int(per.sum())
     live = per > 0
@@ -546,7 +571,8 @@ def check_k2(torch, timer, *, b, hq, hkv, hd, l, blk, nb, dtype, seed,
     bmask = (torch.nn.functional.one_hot(kb, n).bool()
              & ok[..., None]).any(dim=-2)
     tmask = bmask.repeat_interleave(blk, 1).repeat_interleave(blk, 2)
-    tmask &= torch.ones((l, l), dtype=torch.bool, device=dev).tril()
+    if causal:
+        tmask &= torch.ones((l, l), dtype=torch.bool, device=dev).tril()
     if window:
         tmask &= ~torch.ones((l, l), dtype=torch.bool,
                              device=dev).tril(-window)
@@ -1619,7 +1645,8 @@ def train_slice(torch, seed: int) -> dict:
     med = statistics.median(res.step_s[1:])
     leaves = list(named_leaves(params))
     n_blocks = sum(p.numel() for k, p in leaves
-                   if k.startswith(("/groups/", "/prologue/")))
+                   if k.startswith(("/groups/", "/prologue/",
+                                    "/enc_groups/")))
     n_head = params["lm_head"].numel()
     flops = 6 * (n_blocks + n_head) * b * s
     share = flops / med / PEAK_FLOPS["bfloat16"]
@@ -3264,16 +3291,17 @@ def _train_report(torch, label: str, cfg, state, metrics, step_s, b: int,
                   s: int, mb: int, n: dict, peak: float) -> dict:
     """Print and gate a full-width training run: the median step time over
     steps 2 on, tokens/s, the 6 N D share of the bf16 peak (N: the
-    blocks' params, a dense prologue's included, and the lm head's; the
-    embedding lookup and the remat recompute are not counted), peak
-    memory; every metric finite and no kernel launched."""
+    blocks' params, a dense prologue's and an encoder's included, and
+    the lm head's; the embedding lookup and the remat recompute are not
+    counted), peak memory; every metric finite and no kernel launched."""
     import math
     import statistics
     from repro_torch.tree import named_leaves
     med = statistics.median(step_s[1:])
     leaves = list(named_leaves(state["params"]))
     n_blocks = sum(p.numel() for k, p in leaves
-                   if k.startswith(("/groups/", "/prologue/")))
+                   if k.startswith(("/groups/", "/prologue/",
+                                    "/enc_groups/")))
     n_head = state["params"]["lm_head"].numel()
     share = 6 * (n_blocks + n_head) * b * s / med / PEAK_FLOPS["bfloat16"]
     finite = all(math.isfinite(v) for m in metrics for v in m.values())
@@ -4248,15 +4276,18 @@ def _prefill_calls(eng):
         del eng.engine.prefill
 
 
-def _graph_bits(torch, eng, prompts, steps: int = 4) -> bool:
+def _graph_bits(torch, eng, prompts, steps: int = 4, extras=None) -> bool:
     """The engine's graphed decode step against the eager step on a copy
-    of the same cache: ``steps`` steps from one prefill, logits and every
-    cache leaf equal bit for bit."""
-    from repro_torch.models.transformer import attn_caches, decode_step
+    of the same cache: ``steps`` steps from one prefill (with ``extras``,
+    an encoder or image input), logits and every cache leaf (the cross
+    sub-layers' ``ck``/``cv`` too) equal bit for bit."""
+    from repro_torch.models.transformer import (attn_caches, cross_caches,
+                                                decode_step)
     from repro_torch.tree import map_tree
     b = prompts.shape[0]
     step = eng.scan_step(b)                       # capture before prefill
-    last, res, _ = eng.prefill(prompts, caches=eng.resident_cache(b))
+    last, res, _ = eng.prefill(prompts, caches=eng.resident_cache(b),
+                               extras=extras)
     with torch.inference_mode():
         twin = map_tree(lambda t: t.clone(), res)
         tok = last[:, -1].argmax(-1, keepdim=True)
@@ -4267,7 +4298,8 @@ def _graph_bits(torch, eng, prompts, steps: int = 4) -> bool:
                             twin)[0]
             same &= bool(torch.equal(g, e))
             tok = g[:, -1].argmax(-1, keepdim=True)
-        for a, c in zip(attn_caches(res), attn_caches(twin)):
+        for a, c in zip([*attn_caches(res), *cross_caches(res)],
+                        [*attn_caches(twin), *cross_caches(twin)]):
             same &= all(bool(torch.equal(a[k], c[k])) for k in a)
     return same
 
@@ -4698,6 +4730,563 @@ def jamba_train_slice(torch, seed: int, card: str) -> dict:
     return dict(rep, busy_share=busy / wall, kernels=kernels, rel=rel)
 
 
+XATTN_GATE = 0.5              # every cross gate xgate in phase 20 (init: 0)
+XATTN_REL = 1e-4
+VISION_LAYERS = 5             # 20a and 20d: one group, cross-attention at 3
+
+
+def _gated(torch, params, gate: float = XATTN_GATE):
+    """``params`` with every cross gate ``xgate`` at ``gate``, in place: at
+    the initial 0, tanh(0) = 0 and neither the encoder nor the image
+    reaches the logits (the card's work is the same either way)."""
+    with torch.no_grad():
+        for group in params["groups"]:
+            for sub in group.values():
+                if "xgate" in sub:
+                    sub["xgate"].fill_(gate)
+    return params
+
+
+def _cross_extras(cfg, b: int, rng) -> dict:
+    """The arch's second input for ``b`` rows, drawn from ``rng`` as
+    ``launch.serve`` draws it: whisper's frames or llama's patches."""
+    import numpy as np
+    t = cfg.enc_seq_len if cfg.enc_dec else cfg.n_image_tokens
+    key = "enc_x" if cfg.enc_dec else "img"
+    return {key: rng.normal(size=(b, t, cfg.d_model)).astype(np.float32)}
+
+
+def _xattn_cfg(arch: str, layers: int, f32: bool):
+    """``arch`` at full width cut to ``layers`` decoder layers (whisper's
+    encoder to as many), f32 if asked."""
+    from repro_torch.configs.base import cut_layers, get_config
+    cfg = cut_layers(get_config(arch), layers)
+    if cfg.enc_dec:
+        cfg = dataclasses.replace(cfg, n_enc_layers=layers)
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype="float32",
+                                  param_dtype="float32")
+    return cfg
+
+
+def xattn_parity_phase(torch, seed: int, card: str) -> dict:
+    """20a.  whisper_small at full width with 2 encoder and 2 decoder
+    layers (1500 frames, prompts of 384) and llama_3_2_vision cut to one
+    group of 5 (prompts of 1024, 1601 image tokens), both f32 with the
+    gates at 0.5, batch 2, 16 new tokens, DSA long-context decode: the
+    kernel path gives the block path's greedy tokens (K2 once a decoder
+    layer a prefill, none in whisper's 1500-frame encoder, which takes
+    the token fallback; K1 once a decoder layer a step), the graphed scan
+    loop the eager python loop's (one capture), ``_graph_bits`` holds
+    (the cross ``ck``/``cv`` included); the continuous engine (blocking,
+    no encoder or image input at admission) gives each request its solo
+    tokens; the CPU gives the card's tokens and prefill logits (within
+    XATTN_REL of the largest magnitude) at batch 1 on the kernel path,
+    prompts of 384 and 256, whisper's encoder over 1024 of its frames
+    (a block multiple: its block path and K2 non-causal).  At 1500
+    frames whisper's encoder takes the token top-k (with DSA off it
+    cannot run at all: the reference's dense path needs a multiple of
+    256 above 1024 queries, ROADMAP Queue 3), which is discontinuous: a
+    predicted score a last bit apart (the card's and the CPU's products
+    round differently) moves a row's selection, so there the card's
+    logits are printed beside the CPU's with the count of rows of the
+    first encoder layer whose selection differs.
+    Then reduced whisper's encoder (64 frames, block 16) on the card: K2
+    non-causal once a layer, its output == the block path's within 1e-5
+    of the largest magnitude."""
+    import numpy as np
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.inference.engine import Engine
+    from repro_torch.inference.scheduler import ContinuousEngine, Request
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.attention import RunFlags
+    from repro_torch.tree import map_tree
+    t0 = time.monotonic()
+    out = {}
+    for arch, layers, plen, cpu_len, cpu_frames, shapes in (
+            ("whisper_small", 2, 384, 384, (1024, 1500),
+             [(384, 12), (384, 9), (256, 12), (200, 8)]),
+            ("llama_3_2_vision", VISION_LAYERS, 1024, 256, (0,),
+             [(1024, 12), (700, 9), (1024, 12), (512, 8)])):
+        cfg = _xattn_cfg(arch, layers, f32=True)
+        params = _gated(torch, TT.init_model(seed, cfg))
+        rng = np.random.default_rng(seed)
+        b, n_new = 2, 16
+        prompts = rng.integers(1, cfg.vocab - 4, size=(b, plen)).astype(
+            np.int32)
+        ex = _cross_extras(cfg, b, rng)
+        kw = dict(max_len=plen + n_new + 16, long_context=True)
+        toks, n, captures, steps = {}, {}, 0, 0
+        for name, extra in (("block", dict(dsa_mode="block")),
+                            ("kernel", dict(dsa_mode="kernel")),
+                            ("eager", dict(dsa_mode="kernel",
+                                           loop="python"))):
+            serve.reset_launch_counts()
+            eng = Engine(cfg, params, **kw, **extra)
+            res = eng.generate(prompts, n_new, extras=ex)
+            toks[name] = res.tokens
+            n[name] = {k: v for k, v in serve.launch_counts().items() if v}
+            if name == "kernel":
+                captures, steps = eng.graphs.captures, res.decode_steps
+            del eng
+        nl = cfg.n_layers
+        want_n = {"block": {}, "kernel": {"K2": nl, "K1": nl * steps},
+                  "eager": {"K2": nl, "K1": nl * (n_new - 1)}}
+        same_k = bool((toks["kernel"] == toks["block"]).all())
+        graphed = (bool((toks["kernel"] == toks["eager"]).all())
+                   and captures == 1)
+        bits = _graph_bits(torch, Engine(cfg, params, dsa_mode="kernel",
+                                         **kw), prompts, extras=ex)
+        reqs = [Request(i, rng.integers(1, cfg.vocab - 4, size=(m,)).astype(
+            np.int32), k) for i, (m, k) in enumerate(shapes)]
+        ceng = ContinuousEngine(cfg, params, slots=2, seg_len=4,
+                                dsa_mode="kernel", **kw)
+        got = _run_clean(ceng, reqs)
+        solo = Engine(cfg, params, dsa_mode="kernel", **kw)
+        cont = all(bool((got[r.rid] == solo.generate(
+            r.prompt[None], r.n_new).tokens[0]).all()) for r in reqs)
+        chunked = ceng.chunked
+        del ceng, solo
+        cpu_params = map_tree(lambda t: t.cpu(), params)
+        vs_cpu = {}
+        for frames in cpu_frames:
+            c = (dataclasses.replace(cfg, enc_seq_len=frames) if frames
+                 else cfg)
+            one = {k: v[:1, :frames or None] for k, v in ex.items()}
+            got = {}
+            for dev, p in (("card", params), ("cpu", cpu_params)):
+                e = Engine(c, p, device="cpu" if dev == "cpu" else None,
+                           dsa_mode="kernel", **kw)
+                last, _, _ = e.prefill(prompts[:1, :cpu_len], extras=one)
+                got[dev] = (last.cpu(), e.generate(
+                    prompts[:1, :cpu_len], 4, extras=one).tokens)
+                del e
+            rel = float((got["card"][0] - got["cpu"][0]).abs().max()) / \
+                float(got["cpu"][0].abs().max())
+            vs_cpu[frames] = (bool((got["card"][1] == got["cpu"][1]).all()),
+                              rel)
+        card_cpu = vs_cpu[cpu_frames[0]][0] and \
+            vs_cpu[cpu_frames[0]][1] <= XATTN_REL
+        flips = (_encoder_flips(torch, cfg, cpu_params, ex["enc_x"][:1])
+                 if cfg.enc_dec else None)
+        del params, cpu_params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"20a {arch} parity: full width, {nl} decoder layers"
+              + (f" and {cfg.n_enc_layers} encoder layers over "
+                 f"{cfg.enc_seq_len} frames" if cfg.enc_dec else
+                 f", {cfg.n_image_tokens} image tokens")
+              + f", f32, gates {XATTN_GATE}, prompt {plen}, {n_new} new: "
+              f"kernel == block: {same_k} (launches {n}); graphed scan == "
+              f"eager python loop: {graphed} ({captures} capture); graphed "
+              f"step == eager step bit for bit (logits, every cache leaf "
+              f"and ck/cv, 4 steps): {bits}; continuous (blocking, "
+              f"chunked {chunked}, {len(reqs)} requests, no cross input at "
+              f"admission) == solo generate: {cont}; card vs CPU (batch 1, "
+              f"prompt {cpu_len}, 4 new, kernel path): "
+              + "; ".join((f"{f} frames: " if f else "")
+                          + f"tokens equal {t}, prefill logits {r:.2e} of "
+                          f"the largest magnitude"
+                          for f, (t, r) in vs_cpu.items())
+              + f" (gated: {'the first' if cfg.enc_dec else 'it'}, limit "
+              f"{XATTN_REL:g})"
+              + ("" if flips is None else
+                 f"; the first encoder layer's token top-k differs between "
+                 f"card and CPU in {flips} of {cfg.enc_seq_len} rows")
+              + f"; {time.monotonic() - t0:.1f} s [{card}]", flush=True)
+        for k, t in toks.items():
+            print(f"  {k:8s}: {t[:, :8].tolist()}")
+        if not (same_k and graphed and bits and cont and card_cpu
+                and not chunked and n == want_n):
+            fail(f"20a {arch} parity failed: launches {n} (want {want_n})")
+        out[arch] = {"kernel_block": same_k, "graphed": graphed,
+                     "bits": bits, "continuous": cont, "card_cpu": vs_cpu,
+                     "encoder_flips": flips, "launches": n}
+
+    rcfg = reduced(get_config("whisper_small"))
+    rp = TT.init_model(seed, rcfg)
+    enc_x = torch.from_numpy(_cross_extras(
+        rcfg, 2, np.random.default_rng(seed))["enc_x"]).cuda()
+    encs, k2 = {}, {}
+    with torch.inference_mode():
+        for mode in ("block", "kernel"):
+            serve.reset_launch_counts()
+            encs[mode], _ = TT._encode(rp, rcfg, RunFlags(
+                mode="prefill", dsa_mode=mode), enc_x)
+            torch.cuda.synchronize()
+            k2[mode] = serve.launch_counts()["K2"]
+    erel = float((encs["kernel"] - encs["block"]).abs().max()) / float(
+        encs["block"].abs().max())
+    print(f"20a reduced whisper encoder ({rcfg.n_enc_layers} layers, "
+          f"{rcfg.enc_seq_len} frames, block {rcfg.dsa.block_q}, f32): K2 "
+          f"non-causal {k2['kernel']} (block path {k2['block']}), kernel vs "
+          f"block {erel:.2e} of the largest magnitude (limit 1e-5); "
+          f"{time.monotonic() - t0:.1f} s [{card}]", flush=True)
+    if k2 != {"block": 0, "kernel": rcfg.n_enc_layers} or erel > 1e-5:
+        fail(f"20a reduced encoder: K2 {k2}, kernel vs block {erel}")
+    out["encoder"] = {"k2": k2["kernel"], "rel": erel}
+    print(f"phase 20a: {time.monotonic() - t0:.1f} s", flush=True)
+    return out
+
+
+def _encoder_flips(torch, cfg, params, enc_x) -> int:
+    """Rows of whisper's first encoder layer whose token top-k selection
+    (the token fallback's predicted scores of ``enc_x``, one row) differs
+    between the card and the CPU: ``params`` on the CPU, f32."""
+    from repro_torch.core import masks as M
+    from repro_torch.core import prediction as PRED
+    from repro_torch.models.common import rms_norm, sinusoidal_embedding
+    from repro_torch.tree import map_tree
+    t = enc_x.shape[1]
+    keep = M.keep_count(t, cfg.dsa.sparsity)
+    masks = []
+    with torch.inference_mode():
+        for dev in ("cuda", "cpu"):
+            p = map_tree(lambda a: a.to(dev),
+                         params["enc_groups"][0]["b0"])
+            x = torch.from_numpy(enc_x).to(dev) + sinusoidal_embedding(
+                t, cfg.d_model, device=dev)[None]
+            h = rms_norm(x, p["norm1"], cfg.norm_eps)
+            s_t = PRED.predict_scores(p["attn"]["dsa"], h, None,
+                                      bits=cfg.dsa.quant_bits)
+            masks.append(M.row_topk_mask(s_t, keep).cpu())
+    return int((masks[0] != masks[1]).any(-1).sum())
+
+
+def _cross_prefill_profile(torch, label: str, eng, prompts, extras,
+                           card: str) -> dict:
+    """A warm prefill's ms and a torch.profiler breakdown of another;
+    then the graphed decode step's ms (8 steps after 2 warm ones) and
+    its breakdown over 2 more."""
+    from torch.profiler import ProfilerActivity, profile
+    b = prompts.shape[0]
+    acts = [ProfilerActivity.CUDA]
+    step = eng.scan_step(b)                                      # capture
+    with torch.inference_mode():
+        eng.prefill(prompts, extras=extras)
+        _, _, prefill_s = eng.prefill(prompts, extras=extras)
+        with profile(activities=acts) as prof:
+            eng.prefill(prompts, extras=extras)
+        pre = _device_time(prof, "xattn_prefill", 1)
+        last, _, _ = eng.prefill(prompts, caches=eng.resident_cache(b),
+                                 extras=extras)
+        tok = last[:, -1].argmax(-1, keepdim=True)
+        _, tok = _timed_decode(torch, step, tok, 2)               # warm
+        step_ms, tok = _timed_decode(torch, step, tok, 8)
+        with profile(activities=acts) as prof:
+            _, tok = _timed_decode(torch, step, tok, 2)
+        dec = _device_time(prof, "xattn_decode", 2)
+    _print_profile(f"{label} prefill ({b} x {prompts.shape[1]}) [{card}]",
+                   prefill_s * 1e3, *pre)
+    _print_profile(f"{label} decode step, graph replay (batch {b}) "
+                   f"[{card}]", step_ms, *dec)
+    return {"prefill_ms": prefill_s * 1e3, "prefill_busy_ms": pre[0],
+            "prefill_kernels": pre[1], "step_ms": step_ms,
+            "step_busy_ms": dec[0], "capture_ms": step.capture_ms}
+
+
+def whisper_slice(torch, seed: int, card: str) -> dict:
+    """20b.  whisper_small at full size (12 encoder and 12 decoder
+    layers, 0.34 B params), bf16 weights on a bf16 cache, through
+    ``launch.serve`` (batch 4, 1500 frames from the seed, prompt 384 and
+    64 new: the decoder's 448-token context; DSA kernel path): K2 once a
+    decoder layer a prefill (the 1500-frame encoder takes the token
+    fallback), K1 once a decoder layer a step, a graph replay a step.
+    Then on one model with the gates at 0.5: the encoder's ms alone, a
+    profiled prefill and graphed decode step."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.inference.engine import Engine
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.attention import RunFlags
+    t0 = time.monotonic()
+    cfg = get_config("whisper_small")
+    b, plen, n_new, max_len = 4, 384, 64, 448
+    torch.cuda.reset_peak_memory_stats()
+    serve.reset_launch_counts()
+    res = serve.main(["--arch", "whisper_small", "--batch", str(b),
+                      "--prompt-len", str(plen), "--new-tokens", str(n_new),
+                      "--max-len", str(max_len), "--dsa", "--dsa-mode",
+                      "kernel", "--cache-dtype", "bfloat16", "--seed",
+                      str(seed)])
+    n = {k: v for k, v in serve.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tok = res.tokens
+    print(f"20b whisper_small static slice (12 + 12 layers bf16, bf16 "
+          f"cache, batch {b}, {cfg.enc_seq_len} frames, prompt {plen}, "
+          f"{n_new} new, dsa_mode kernel): prefill "
+          f"{res.prefill_s * 1e3:.1f} ms (encoder included), decode "
+          f"{res.tokens_per_s:.1f} tok/s over {res.decode_steps} steps "
+          f"({res.decode_dispatches} graph replays), peak memory "
+          f"{peak:.2f} GiB, launches {n} [{card}]", flush=True)
+    want = {"K2": cfg.n_layers, "K1": cfg.n_layers * res.decode_steps}
+    if (n != want or res.decode_dispatches != res.decode_steps
+            or tok.shape != (b, n_new) or tok.min() < 0
+            or tok.max() >= cfg.vocab):
+        fail(f"20b whisper static slice: launches {n} (want {want}), "
+             f"tokens {tok.shape}")
+    out = {"prefill_ms": res.prefill_s * 1e3,
+           "decode_tok_s": res.tokens_per_s, "peak_gib": peak,
+           "launches": n}
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = _gated(torch, TT.init_model(seed, cfg))
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(1, cfg.vocab - 4, size=(b, plen)).astype(np.int32)
+    ex = _cross_extras(cfg, b, rng)
+    eng = Engine(cfg, params, max_len=max_len, long_context=True,
+                 dsa_mode="kernel", cache_dtype=torch.bfloat16)
+    enc_x = torch.from_numpy(ex["enc_x"]).cuda().to(torch.bfloat16)
+    flags = RunFlags(mode="prefill", dsa_mode="kernel")
+    with torch.inference_mode():
+        TT._encode(params, cfg, flags, enc_x)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            TT._encode(params, cfg, flags, enc_x)
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t) / 3 * 1e3
+    prof = _cross_prefill_profile(torch, "20b whisper_small", eng, prompts,
+                                  ex, card)
+    out.update(prof, encoder_ms=enc_ms)
+    print(f"20b whisper_small: encoder {enc_ms:.2f} ms of a "
+          f"{prof['prefill_ms']:.2f} ms prefill (batch {b}, "
+          f"{cfg.enc_seq_len} frames, host clock, synchronised); graphed "
+          f"decode step {prof['step_ms']:.3f} ms (device busy "
+          f"{prof['step_busy_ms']:.3f} ms, capture {prof['capture_ms']:.1f} "
+          f"ms); {time.monotonic() - t0:.1f} s [{card}]", flush=True)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 20b: {time.monotonic() - t0:.1f} s", flush=True)
+    return out
+
+
+def vision_slice(torch, seed: int, card: str) -> dict:
+    """20c.  llama_3_2_vision at full depth (40 layers, 10.4 B params,
+    ~20.7 GB of bf16 weights) on a bf16 cache through ``launch.serve``
+    (batch 4, prompt 4096, 1601 image tokens from the seed, 32 new, DSA
+    kernel path): K2 once a layer a prefill, K1 once a layer a step.
+    Then on one model with the gates at 0.5: a profiled prefill and
+    graphed decode step against the time to read every weight but the
+    embedding once; then the continuous engine (4 slots, dense cache,
+    max_len 8192, blocking, bucketed, no images) on 8 requests of
+    1024-4096 tokens and 16-64 new, all queued at the start: every
+    request ok, K2 40 an admission prefill, K1 40 a decode step."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.inference.engine import Engine
+    from repro_torch.inference.scheduler import (ContinuousEngine, Request,
+                                                 summarize)
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as TT
+    from repro_torch.tree import named_leaves
+    t0 = time.monotonic()
+    cfg = get_config("llama_3_2_vision")
+    b, plen, n_new = 4, 4096, 32
+    torch.cuda.reset_peak_memory_stats()
+    serve.reset_launch_counts()
+    res = serve.main(["--arch", "llama_3_2_vision", "--batch", str(b),
+                      "--prompt-len", str(plen), "--new-tokens", str(n_new),
+                      "--dsa", "--dsa-mode", "kernel", "--cache-dtype",
+                      "bfloat16", "--seed", str(seed)])
+    n = {k: v for k, v in serve.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tok = res.tokens
+    print(f"20c llama_3_2_vision static slice (40 layers bf16, bf16 cache, "
+          f"batch {b}, prompt {plen}, {cfg.n_image_tokens} image tokens, "
+          f"{n_new} new, dsa_mode kernel): prefill "
+          f"{res.prefill_s * 1e3:.1f} ms, decode {res.tokens_per_s:.1f} "
+          f"tok/s over {res.decode_steps} steps ({res.decode_dispatches} "
+          f"graph replays), peak memory {peak:.2f} GiB, launches {n} "
+          f"[{card}]", flush=True)
+    want = {"K2": cfg.n_layers, "K1": cfg.n_layers * res.decode_steps}
+    if (n != want or res.decode_dispatches != res.decode_steps
+            or tok.shape != (b, n_new) or tok.min() < 0
+            or tok.max() >= cfg.vocab):
+        fail(f"20c vision static slice: launches {n} (want {want}), "
+             f"tokens {tok.shape}")
+    out = {"prefill_ms": res.prefill_s * 1e3,
+           "decode_tok_s": res.tokens_per_s, "peak_gib": peak,
+           "launches": n}
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = _gated(torch, TT.init_model(seed, cfg))
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(1, cfg.vocab - 4, size=(b, plen)).astype(np.int32)
+    ex = _cross_extras(cfg, b, rng)
+    eng = Engine(cfg, params, max_len=plen + n_new + 16, long_context=True,
+                 dsa_mode="kernel", cache_dtype=torch.bfloat16)
+    prof = _cross_prefill_profile(torch, "20c llama_3_2_vision", eng,
+                                  prompts, ex, card)
+    w_bytes = sum(p.numel() * p.element_size()
+                  for k, p in named_leaves(params) if k != "/embed")
+    bound_ms = w_bytes / HBM_BYTES_PER_S * 1e3
+    out.update(prof, weight_bound_ms=bound_ms)
+    print(f"20c llama_3_2_vision: graphed decode step {prof['step_ms']:.3f}"
+          f" ms (device busy {prof['step_busy_ms']:.3f} ms, capture "
+          f"{prof['capture_ms']:.1f} ms) against {bound_ms:.3f} ms to read "
+          f"the {w_bytes / 1e9:.2f} GB of weights once at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+          f"({100 * bound_ms / prof['step_ms']:.1f} %) [{card}]", flush=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(seed + 1)
+    reqs = [Request(i, rng.integers(1, cfg.vocab - 4, size=(128 * int(
+        rng.integers(8, 33)),)).astype(np.int32),
+        int(rng.integers(16, 65))) for i in range(8)]
+    ceng = ContinuousEngine(cfg, params, slots=4, seg_len=16, max_len=8192,
+                            long_context=True, dsa_mode="kernel",
+                            cache_dtype=torch.bfloat16)
+    serve.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with _prefill_calls(ceng) as prefills:
+        results = ceng.serve(reqs)
+    n = {k: v for k, v in serve.launch_counts().items() if v}
+    st = ceng.stats
+    summ = summarize(results, max(r.finish_s for r in results))
+    cpeak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"20c llama_3_2_vision continuous slice (4 slots, dense cache, "
+          f"max_len 8192, 8 requests, prompts "
+          f"{min(len(r.prompt) for r in reqs)}-"
+          f"{max(len(r.prompt) for r in reqs)}, blocking admission, no "
+          f"image): {summ['goodput_tok_s']} tok/s goodput, latency p50 "
+          f"{summ['p50_latency_s']} s / p95 {summ['p95_latency_s']} s, TTFT "
+          f"p50 {summ['p50_ttft_s']} s / p95 {summ['p95_ttft_s']} s, "
+          f"{st['segments']} segments, {len(prefills)} prefills for "
+          f"{st['admitted']} admissions, {st['decode_steps']} decode steps, "
+          f"peak memory {cpeak:.2f} GiB, launches {n} [{card}]", flush=True)
+    bad = [r.rid for r in results
+           if r.status != "ok" or len(r.tokens) != r.n_new]
+    want = {"K2": cfg.n_layers * len(prefills),
+            "K1": cfg.n_layers * st["decode_steps"]}
+    if len(results) != len(reqs) or bad or n != want or ceng.chunked:
+        fail(f"20c continuous slice: bad {bad}, launches {n} (want {want})")
+    out["continuous"] = {"summary": summ, "peak_gib": cpeak, "launches": n}
+    del ceng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 20c: {time.monotonic() - t0:.1f} s", flush=True)
+    return out
+
+
+def xattn_train_slice(torch, seed: int, card: str) -> dict:
+    """20d.  Training with the second input (``launch.train`` feeds tokens
+    only, as the reference's does, so these go through
+    ``steps.make_train_step``): whisper_small whole (12 + 12 layers, bf16,
+    f32 moments, remat full), 3 steps of 4 x 448 tokens with 1500-frame
+    ``enc_x``; llama_3_2_vision cut to one group of 5 (2.1 B params), 3
+    steps of 4 x 4096 with 1601-token ``img`` in 2 microbatches; the gates
+    at 0.5; each with the step time, tokens/s, the 6 N D share over the
+    tree's parameters (the encoder's and the cross sub-layers' included,
+    which the reference's ``num_params`` leaves out), peak memory and a
+    profiled step.  Then reduced whisper_small (f32, ``enc_x`` of 64
+    frames): one train step (2 x 64, 2 microbatches, DSA block) on the
+    card and on the CPU from the same params, gated as
+    ``train_parity_phase``."""
+    import numpy as np
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.data.synthetic import DataConfig, lm_batches
+    from repro_torch.launch import serve
+    from repro_torch.optim import adamw
+    from repro_torch.training import steps as ST
+    from repro_torch.tree import named_leaves
+    t0 = time.monotonic()
+    out = {}
+    for arch, cfg, s, mb in (
+            ("whisper_small", get_config("whisper_small"), 448, 1),
+            ("llama_3_2_vision", _xattn_cfg("llama_3_2_vision",
+                                             VISION_LAYERS, f32=False),
+             4096, 2)):
+        b, steps = 4, 3
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        opt = adamw.OptConfig(total_steps=steps + 2, warmup_steps=1)
+        state = ST.init_train_state(seed, cfg, opt)
+        _gated(torch, state["params"])
+        rng = np.random.default_rng(seed)
+        data = lm_batches(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                     global_batch=b, seed=seed))
+        step = ST.make_train_step(cfg, opt, microbatches=mb)
+        serve.reset_launch_counts()
+        metrics, step_s = [], []
+        for _ in range(steps):
+            batch = dict(next(data), **_cross_extras(cfg, b, rng))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            step_s.append(time.perf_counter() - t)
+        n = {k: v for k, v in serve.launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rep = _train_report(torch, f"20d {arch} train slice "
+                            f"({cfg.n_layers} decoder layers"
+                            + (f" + {cfg.n_enc_layers} encoder layers"
+                               if cfg.enc_dec else "")
+                            + f", bf16, f32 moments, remat full, with "
+                            f"{'enc_x' if cfg.enc_dec else 'img'}) [{card}]",
+                            cfg, state, metrics, step_s, b, s, mb, n, peak)
+        batch = dict(next(data), **_cross_extras(cfg, b, rng))
+        wall, busy, kernels = _profiled_step(
+            torch, f"20d {arch} train step ({b} x {s}, {mb} microbatches) "
+            f"[{card}]", step, state, batch)
+        out[arch] = dict(rep, busy_share=busy / wall, kernels=kernels,
+                         profiled_ms=wall)
+        del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rcfg = reduced(get_config("whisper_small"))
+    ropt = adamw.OptConfig(lr=1e-3, total_steps=10, warmup_steps=2)
+    rbatch = dict(next(lm_batches(DataConfig(vocab=rcfg.vocab, seq_len=64,
+                                             global_batch=2, seed=seed))),
+                  **_cross_extras(rcfg, 2, np.random.default_rng(seed)))
+    cardst = ST.init_train_state(seed, rcfg, ropt)
+    _gated(torch, cardst["params"])
+    cpu_params = to_cpu(cardst["params"])
+    cpu = {"params": cpu_params, "opt": adamw.init(ropt, cpu_params),
+           "step": 0}
+    step = ST.make_train_step(rcfg, ropt, microbatches=2)
+    serve.reset_launch_counts()
+    cardst, m_card = step(cardst, rbatch)
+    m_card = {k: float(v) for k, v in m_card.items()}
+    n = {k: v for k, v in serve.launch_counts().items() if v}
+    cpu, m_cpu = step(cpu, rbatch)
+    m_cpu = {k: float(v) for k, v in m_cpu.items()}
+    rel = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
+           for k in ("loss", "ce", "mse", "grad_norm")}
+    lr = m_cpu["lr"]
+    want = dict(named_leaves(cpu["params"]))
+    worst, within, total = 0.0, 0, 0
+    for path, p in named_leaves(cardst["params"]):
+        d = (p.detach().cpu() - want[path].detach()).abs()
+        worst = max(worst, float(d.max()))
+        within += int((d <= 1e-5).sum())
+        total += d.numel()
+    print(f"20d whisper train parity: reduced whisper_small f32 with enc_x, "
+          f"batch 2 x 64, 2 microbatches: card vs CPU relative differences "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (rtol {TRAIN_METRIC_RTOL:g}); new params max |d| {worst:.3g} "
+          f"(bound 2 lr = {2 * lr:.3g}), {100 * within / total:.3f} % within "
+          f"1e-5; kernels launched: {n or 'none'}; "
+          f"{time.monotonic() - t0:.1f} s [{card}]", flush=True)
+    if (n or worst > 2 * lr or within < TRAIN_PARAM_SHARE * total
+            or max(rel.values()) > TRAIN_METRIC_RTOL):
+        fail("20d reduced whisper training parity (card vs CPU) failed")
+    out["parity"] = rel
+    del cardst, cpu
+    torch.cuda.empty_cache()
+    print(f"phase 20d: {time.monotonic() - t0:.1f} s", flush=True)
+    return out
+
+
 def static_slice(torch, seed: int, arch: str, dsa_mode: str, want,
                  prompt_len: int = 4096, quant=None) -> dict:
     """Serve ``arch`` at full width through ``repro_torch.launch.serve``:
@@ -4872,6 +5461,43 @@ def main() -> None:
                  q_dt="bfloat16", c_dt="bfloat16",
                  kv_len=[4100, 4127, 4097, 4111], nb=6, seed=args.seed,
                  timed=True)]
+    # whisper_small (MHA: hd 64, G 1; the launch_tc<64> instance in bf16):
+    # its decoder's prefill (B 4, L 384, 2 of 3 blocks kept; bf16 timed,
+    # and 20a's f32), its encoder's non-causal selection at 20a's reduced
+    # geometry (hd 16, block 16) and at full width (hd 64, 1536 frames:
+    # no model path takes it there, whose 1500 frames take the token
+    # fallback), and its decode step (a bf16 q against the 512-row bf16
+    # cache of 20b, 3 blocks kept; timed, and f32)
+    k2w_ = dict(hq=12, hkv=12, hd=64, blk=128, seed=args.seed)
+    k2x_checks = [
+        check_k2(torch, timer, b=4, l=384, nb=2, dtype="bfloat16",
+                 timed=True, **k2w_),
+        check_k2(torch, timer, b=2, l=384, nb=2, dtype="float32",
+                 timed=False, **k2w_),
+        check_k2(torch, timer, b=2, hq=4, hkv=4, hd=16, l=64, blk=16, nb=2,
+                 dtype="float32", seed=args.seed, timed=False,
+                 causal=False),
+        check_k2(torch, timer, b=4, l=1536, nb=2, dtype="bfloat16",
+                 timed=False, causal=False, **k2w_)]
+    k1x_checks = [
+        check_k1(torch, timer, b=4, hq=12, hkv=12, hd=64, s=512, bk=128,
+                 q_dt=dt, c_dt=dt, kv_len=[448, 421, 386, 400], nb=3,
+                 seed=args.seed, timed=dt == "bfloat16")
+        for dt in ("bfloat16", "float32")]
+    # llama_3_2_vision (hd 128, 32 query heads on 8 KV heads, G 4): its
+    # prefill (B 4, L 4096, 3 of 32 blocks kept; bf16 timed, and 20a's
+    # f32 at L 1024) and decode step (the 4224-row bf16 cache of 20c, 6
+    # blocks kept; timed, and f32)
+    k2v_checks = [
+        check_k2(torch, timer, b=4, hq=32, hkv=8, hd=128, l=4096, blk=128,
+                 nb=3, dtype="bfloat16", seed=args.seed, timed=True),
+        check_k2(torch, timer, b=2, hq=32, hkv=8, hd=128, l=1024, blk=128,
+                 nb=3, dtype="float32", seed=args.seed, timed=False)]
+    k1v_checks = [
+        check_k1(torch, timer, b=4, hq=32, hkv=8, hd=128, s=4224, bk=128,
+                 q_dt=dt, c_dt=dt, kv_len=[4129, 4100, 4097, 4111], nb=6,
+                 seed=args.seed, timed=dt == "bfloat16")
+        for dt in ("bfloat16", "float32")]
     k3_checks = [
         check_k3(torch, timer, b=2, hq=8, hkv=2, hd=16, s=100, c=32, blk=16,
                  q_dt="float32", c_dt="float32", q_off=[64, 32],
@@ -4954,6 +5580,10 @@ def main() -> None:
                          ("K2 dsa_attention (window, mixtral)", k2m_checks),
                          ("K2 dsa_attention (jamba)", k2j_checks),
                          ("K1 dsa_decode (jamba)", k1j_checks),
+                         ("K2 dsa_attention (whisper)", k2x_checks),
+                         ("K1 dsa_decode (whisper)", k1x_checks),
+                         ("K2 dsa_attention (llama vision)", k2v_checks),
+                         ("K1 dsa_decode (llama vision)", k1v_checks),
                          ("K3 dsa_chunk_prefill", k3_checks),
                          ("K4 dsa_decode_paged", k4_checks)] + [
             (f"{k} {q or ''}".strip(), v) for (k, q), v in q_checks.items()]:
@@ -5122,6 +5752,19 @@ def main() -> None:
         torch, args.seed, card)["launches"]
     jamba_train_slice(torch, args.seed, card)
     print(f"phase 19: {time.monotonic() - t19:.1f} s", flush=True)
+    # whisper_small's encoder-decoder and llama_3_2_vision's gated
+    # cross-attention (20a gated parity; 20b-c the full-size serving
+    # slices, K2 once a decoder layer a prefill and K1 once a decoder
+    # layer a step; 20d training with the second input)
+    t20 = time.monotonic()
+    xattn_parity_phase(torch, args.seed, card)
+    launches["whisper static"] = whisper_slice(
+        torch, args.seed, card)["launches"]
+    vis = vision_slice(torch, args.seed, card)
+    launches["vision static"] = vis["launches"]
+    launches["vision continuous"] = vis["continuous"]["launches"]
+    xattn_train_slice(torch, args.seed, card)
+    print(f"phase 20: {time.monotonic() - t20:.1f} s", flush=True)
 
     src = "src/repro_torch/kernels/csrc/"
     rep = "src/repro/kernels/"
@@ -5191,15 +5834,26 @@ def main() -> None:
     next(x for x in kernels if x["name"] == "dsa_decode_gather_attention")[
         "launches_by_path"] = k1_paths
     # jamba_1_5_large's attention layer: K2 in its static and continuous
-    # prefills, K1 in their decode steps
-    for name, cu, tpu, checks, k in (
+    # prefills, K1 in their decode steps; likewise whisper_small's decoder
+    # (static) and llama_3_2_vision's (static and continuous); each
+    # entry's timed check is its main path's shape
+    jam = ("jamba static", "jamba continuous")
+    vis_paths = ("vision static", "vision continuous")
+    for name, cu, tpu, checks, k, paths in (
             ("dsa_block_sparse_attention (jamba)", "dsa_attention.cu",
-             "dsa_attention.py:77", k2j_checks, "K2"),
+             "dsa_attention.py:77", k2j_checks, "K2", jam),
             ("dsa_decode_gather_attention (jamba)", "dsa_decode.cu",
-             "dsa_decode.py:185", k1j_checks, "K1")):
-        c = checks[-1]
-        by_path = {p: launches[p].get(k, 0)
-                   for p in ("jamba static", "jamba continuous")}
+             "dsa_decode.py:185", k1j_checks, "K1", jam),
+            ("dsa_block_sparse_attention (whisper)", "dsa_attention.cu",
+             "dsa_attention.py:77", k2x_checks, "K2", ("whisper static",)),
+            ("dsa_decode_gather_attention (whisper)", "dsa_decode.cu",
+             "dsa_decode.py:185", k1x_checks, "K1", ("whisper static",)),
+            ("dsa_block_sparse_attention (llama vision)", "dsa_attention.cu",
+             "dsa_attention.py:77", k2v_checks, "K2", vis_paths),
+            ("dsa_decode_gather_attention (llama vision)", "dsa_decode.cu",
+             "dsa_decode.py:185", k1v_checks, "K1", vis_paths)):
+        c = next(x for x in checks if "ms" in x)
+        by_path = {p: launches[p].get(k, 0) for p in paths}
         kernels.append({
             "name": name, "route": "cuda", "source": src + cu,
             "replaces": rep + tpu, "launches": sum(by_path.values()),

@@ -1,6 +1,7 @@
-"""Architecture configuration (the port's own copy of the dense-GQA,
-sliding-window, mixture-of-experts, multi-head latent attention, RWKV6
-and Mamba-hybrid subset).
+"""Architecture configuration (the port's own copy of the reference's:
+dense GQA, sliding window, mixture of experts, multi-head latent
+attention, RWKV6, the Mamba hybrid, the encoder-decoder and gated
+cross-attention).
 
 Each architecture is an ``ArchConfig`` in its own module
 (``repro_torch/configs/<id>.py``) exposing ``CONFIG``.  ``get_config(name)``
@@ -74,7 +75,7 @@ class DSAConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # dense | moe | ssm (RWKV6) | hybrid
+    family: str                   # dense | moe | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -95,6 +96,16 @@ class ArchConfig:
     # layers, at ``attn_layer_offset`` within the period, Mamba elsewhere
     attn_layer_period: int = 0    # 0 = all attention
     attn_layer_offset: int = 0
+    # encoder-decoder (whisper): an encoder of ``n_enc_layers`` over
+    # ``enc_seq_len`` precomputed frame embeddings (the frontend stub)
+    enc_dec: bool = False
+    n_enc_layers: int = 0
+    enc_seq_len: int = 1500
+    # gated cross-attention (llama-3.2-vision): one cross-attention
+    # sub-layer in every group of ``cross_attn_period`` layers, over
+    # ``n_image_tokens`` precomputed patch embeddings (the tower stub)
+    cross_attn_period: int = 0
+    n_image_tokens: int = 1601
     dsa: DSAConfig = dataclasses.field(default_factory=DSAConfig)
     dtype: str = "bfloat16"       # activation dtype
     param_dtype: str = "bfloat16"
@@ -110,7 +121,8 @@ class ArchConfig:
 
     def num_params(self) -> int:
         """Analytic parameter count (embedding + blocks), for 6ND roofline
-        (the reference's count)."""
+        (the reference's count, which leaves out an encoder and the
+        cross-attention sub-layers: ROADMAP Queue 3)."""
         d, v = self.d_model, self.vocab
         total = v * d * (1 if self.tie_embeddings else 2)
         for i in range(self.n_layers):
@@ -199,10 +211,12 @@ def is_recurrent(cfg: ArchConfig) -> bool:
 
 
 ARCH_IDS = ("yi_6b", "stablelm_3b", "qwen1_5_110b", "h2o_danube_1_8b",
-            "rwkv6_3b", "mixtral_8x22b", "deepseek_v3", "jamba_1_5_large")
+            "rwkv6_3b", "mixtral_8x22b", "deepseek_v3", "jamba_1_5_large",
+            "whisper_small", "llama_3_2_vision")
 
 
 def get_config(name: str) -> ArchConfig:
+    """The arch ``name`` (every arch of the reference is ported)."""
     name = name.replace("-", "_")
     if name not in ARCH_IDS:
         raise ValueError(f"arch {name!r} is not ported; ported: {ARCH_IDS}")
@@ -217,7 +231,10 @@ def cut_layers(cfg: ArchConfig, n: int) -> ArchConfig:
     whole groups of ``attn_layer_period`` layers, or, below one period,
     to ONE group of the period's first ``n`` sub-blocks (jamba at 5:
     four Mamba sub-blocks, MoE on the second and fourth, and the
-    attention one); any other ``n`` is a ValueError."""
+    attention one); any other ``n`` is a ValueError.  A cross-attention
+    arch (llama_3_2_vision) is cut in whole groups of
+    ``cross_attn_period`` layers; an encoder-decoder's cut is its
+    decoder's (the encoder keeps ``n_enc_layers``)."""
     k = cfg.moe.first_k_dense if cfg.moe is not None else 0
     if n < k:
         raise ValueError(f"{cfg.name}: {n} layers is less than its dense "
@@ -226,6 +243,10 @@ def cut_layers(cfg: ArchConfig, n: int) -> ArchConfig:
     if period and n > period and n % period:
         raise ValueError(f"{cfg.name}: {n} layers is neither whole groups "
                          f"of {period} nor one group's first sub-blocks")
+    xp = cfg.cross_attn_period
+    if xp and (n < 1 or n % xp):
+        raise ValueError(f"{cfg.name}: {n} layers is not whole groups of "
+                         f"{xp}")
     return dataclasses.replace(cfg, n_layers=n)
 
 
@@ -255,6 +276,12 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         kw["n_layers"] = max(cfg.attn_layer_period, 4)
     if cfg.rwkv is not None:
         kw["rwkv"] = RWKVConfig(head_dim=16, decay_lora=8)
+    if cfg.enc_dec:
+        kw["n_enc_layers"] = 2
+        kw["enc_seq_len"] = 64
+    if cfg.cross_attn_period:
+        kw["n_image_tokens"] = 32
+        kw["n_layers"] = max(cfg.cross_attn_period, 4)
     if cfg.dsa.enabled:
         kw["dsa"] = dataclasses.replace(cfg.dsa, block_q=16, block_k=16)
     return dataclasses.replace(cfg, **kw)

@@ -11,7 +11,8 @@ stacks its layer groups over a leading axis::
     final_norm, lm_head
 
 The port keeps one dict per group in ``params["groups"]``, so the stacked
-leaves are split along that axis.  A dense prologue (deepseek_v3's
+leaves are split along that axis; an encoder's ``enc_groups`` (whisper)
+likewise.  A dense prologue (deepseek_v3's
 ``prologue``, a list of per-layer dicts) is unstacked in both packages
 and carried as it is.  ``to_reference`` is the inverse: it
 stacks the groups back into the reference's tree of numpy arrays.
@@ -38,12 +39,16 @@ from repro_torch.tree import map_tree, named_leaves
 # how a bf16 leaf is held on the host: its bits as a 2-byte void
 BF16_HOST = np.dtype("V2")
 
+# the keys whose layer groups the reference stacks over a leading axis
+STACKED = ("groups", "enc_groups")
+
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16" or a.dtype == BF16_HOST:
+        # (ascontiguousarray makes a 0-d array 1-d: the shape is put back)
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).astype(
-            np.int16)).view(torch.bfloat16)
+            np.int16).reshape(a.shape)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))
     return t.to(device)
@@ -52,25 +57,27 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 def from_reference(tree: Dict[str, Any], *, device=None) -> Dict[str, Any]:
     """Reference params (nested dicts of numpy arrays) -> port params."""
     dev = resolve_device(device)
-    groups = tree["groups"]
+    return {k: (_unstack(v, dev) if k in STACKED
+                else map_tree(lambda a: _tensor(a, dev), v))
+            for k, v in tree.items()}
+
+
+def _unstack(groups, dev: torch.device) -> list:
+    """A stacked group tree -> the per-layer list of group trees."""
     n = len(next(named_leaves(groups))[1])
-    out: Dict[str, Any] = {
-        k: map_tree(lambda a: _tensor(a, dev), v)
-        for k, v in tree.items() if k != "groups"}
-    out["groups"] = [map_tree(lambda a, i=i: _tensor(np.asarray(a)[i], dev),
-                              groups)
-                     for i in range(n)]
-    return out
+    return [map_tree(lambda a, i=i: _tensor(np.asarray(a)[i], dev), groups)
+            for i in range(n)]
 
 
 def reference_layout(tree: Any, leaf: Callable, stacked: Callable) -> Any:
     """A port tree in the reference's layout: ``leaf(t)`` for a leaf
     outside the layer groups, ``stacked(ts)`` for the per-layer list of a
-    group leaf (under a ``"groups"`` key holding a list), a Python int as
-    an int32 0-d array; other leaves as they are."""
+    group leaf (under a ``"groups"`` or ``"enc_groups"`` key holding a
+    list), a Python int as an int32 0-d array; other leaves as they
+    are."""
     if isinstance(tree, dict):
         return {k: (map_tree(lambda *ts: stacked(ts), *v)
-                    if k == "groups" and isinstance(v, list)
+                    if k in STACKED and isinstance(v, list)
                     else reference_layout(v, leaf, stacked))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -131,8 +138,7 @@ def state_from_reference(tree: Dict[str, Any], *, device=None
 
     def walk(t):
         if isinstance(t, dict):
-            return {k: (from_reference({"groups": v}, device=dev)["groups"]
-                        if k == "groups" else walk(v))
+            return {k: (_unstack(v, dev) if k in STACKED else walk(v))
                     for k, v in t.items()}
         if isinstance(t, (list, tuple)):
             return type(t)(walk(v) for v in t)

@@ -6,10 +6,19 @@ length (transformer.truncate_cache) and the logits row at ``length - 1``
 is taken, so a bucketed prefill leaves the cache an unpadded prefill
 would have (modulo the zeroed tail).  Bucketing is off where right
 padding is not a no-op for the live state (``can_bucket_prompts``: the
-recurrent archs, RWKV6 and Mamba hybrids, and SWA ring buffers).  A
+recurrent archs, RWKV6 and Mamba hybrids, SWA ring buffers, and
+encoder-decoders, whose decoder positions run over the padded length).  A
 ragged batch on a ring whose padded width exceeds the window is not
 exact for its shorter rows, as in the reference (the ring keeps the
 batch's last window of positions, pads included; ROADMAP Queue 3).
+
+Encoder-decoder and cross-attention archs (whisper_small,
+llama_3_2_vision): ``prefill`` and ``generate`` take ``extras``, numpy
+arrays {"enc_x": (B, enc_seq_len, d)} or {"img": (B, n_image_tokens, d)}
+(the reference's batch extras), which the prefill encodes (whisper) and
+writes into the cross sub-layers' ``ck``/``cv``; the decode steps read
+those.  Without extras prefill skips the cross sub-layers and decode
+attends the zeroed ``ck``/``cv``, as in the reference.
 
 Resident cache: ``generate`` prefills into the engine's cache for its
 batch size (``resident_cache``: made on first use, zeroed by every
@@ -100,25 +109,32 @@ def pow2_bucket(n: int, floor: int = 1) -> int:
 def can_bucket_prompts(cfg: ArchConfig) -> bool:
     """Right-padded prefill is only sound when pad rows can be masked out
     afterwards: a recurrent (Mamba, RWKV6) state and an SWA ring buffer
-    absorb pad tokens irreversibly."""
-    return not is_recurrent(cfg) and cfg.swa_window == 0
+    absorb pad tokens irreversibly, and an encoder-decoder's decoder adds
+    sinusoidal positions over the padded length."""
+    return (not is_recurrent(cfg) and cfg.swa_window == 0
+            and not cfg.enc_dec)
 
 
 def can_page(cfg: ArchConfig) -> bool:
     """Paged resident caches (``ContinuousEngine(paged=True)``) need every
     per-slot cache leaf to be a page pool or a per-slot scalar: a
     recurrent (Mamba, RWKV6) state and an SWA ring buffer have no
-    token-row geometry to page, and MLA's latent ``c_kv``/``k_rope`` leaves
-    keep the dense layout (they are already the compressed cache)."""
-    return not is_recurrent(cfg) and cfg.swa_window == 0 and cfg.mla is None
+    token-row geometry to page, encoder-decoder and cross-attention
+    decoders carry per-slot encoder caches (``ck``/``cv``), and MLA's
+    latent ``c_kv``/``k_rope`` leaves keep the dense layout (they are
+    already the compressed cache)."""
+    return (not is_recurrent(cfg) and cfg.swa_window == 0
+            and not cfg.enc_dec and cfg.mla is None
+            and cfg.cross_attn_period == 0)
 
 
 def can_quantize(cfg: ArchConfig) -> bool:
     """Mixed-precision serving (ServingConfig select_dtype/kv_quant)
     covers the standard GQA attention cache layout, the same envelope as
     paging: a recurrent (Mamba, RWKV6) state and an SWA ring buffer carry
-    no quantized token rows, and MLA's latent leaves are already the
-    compressed cache."""
+    no quantized token rows, encoder-decoder and cross-attention decoders
+    hold encoder caches outside the scheme, and MLA's latent leaves are
+    already the compressed cache."""
     return can_page(cfg)
 
 
@@ -131,10 +147,12 @@ def can_chunk_prefill(cfg: ArchConfig, dsa_mode: str = "off",
     decode-dense expert path (the same math in another summation order,
     and drops).  ``moe_dense``
     (Engine(moe_prefill="dense")) re-admits them: prefill then routes the
-    decode-dense path too.  DSA over MLA (``dsa_mode`` other than "off")
-    is out: it has no predicted-key cache to resume per chunk.  (The
-    reference's cross-attention clause is not ported.)"""
+    decode-dense path too.  Cross-attention decoders are out (admission
+    has no image side channel), and so is DSA over MLA (``dsa_mode``
+    other than "off"): it has no predicted-key cache to resume per
+    chunk."""
     return (can_bucket_prompts(cfg) and (cfg.moe is None or moe_dense)
+            and cfg.cross_attn_period == 0
             and not (cfg.mla is not None and dsa_mode != "off"))
 
 
@@ -322,14 +340,16 @@ class Engine:
     def prefill(self, prompts: np.ndarray,
                 lengths: Optional[np.ndarray] = None,
                 cache_len: Optional[int] = None, caches: Optional[Dict] = None,
-                dsa_mode: Optional[str] = None
+                dsa_mode: Optional[str] = None,
+                extras: Optional[Dict[str, np.ndarray]] = None
                 ) -> Tuple[torch.Tensor, Dict, float]:
         """Bucketed prefill of a (B, L) prompt batch into ``caches``,
         zeroed first (``generate`` passes the resident cache), or else
         into a fresh cache of ``cache_len`` rows (default the engine's
         max_len; the continuous scheduler passes the prompt bucket and
         zero-extends at slot insertion).  ``dsa_mode`` overrides the
-        engine's DSA path for this call.  Returns (last_logits (B, 1, V),
+        engine's DSA path for this call; ``extras`` are the encoder or
+        image inputs (module docstring).  Returns (last_logits (B, 1, V),
         caches, prefill_seconds)."""
         prompts = np.asarray(prompts, np.int32)
         b, s = prompts.shape
@@ -352,11 +372,14 @@ class Engine:
         toks = torch.as_tensor(prompts, device=self.device)
         lens = torch.as_tensor(np.asarray(lengths, np.int64),
                                device=self.device)
+        extra = {k: torch.as_tensor(np.asarray(v), device=self.device)
+                 for k, v in (extras or {}).items()}
         _sync(self.device)
         t0 = time.monotonic()
         flags = self.run_flags("prefill", dsa_mode)
-        self._note("prefill", toks, caches, lens, flags)
-        logits, caches = forward(self.params, self.cfg, flags, toks, caches)
+        self._note("prefill", toks, caches, lens, flags, extra)
+        logits, caches = forward(self.params, self.cfg, flags, toks, caches,
+                                 extras=extra)
         truncate_cache(self.cfg, caches, lens)
         last = logits[torch.arange(b, device=self.device), lens - 1][:, None]
         _sync(self.device)
@@ -367,9 +390,13 @@ class Engine:
                  seed: int = 0, lengths: Optional[np.ndarray] = None,
                  temperature: float = 1.0,
                  dsa_mode: Optional[str] = None, spec: int = 0,
-                 draft=None) -> GenerationResult:
+                 draft=None,
+                 extras: Optional[Dict[str, np.ndarray]] = None
+                 ) -> GenerationResult:
         """``lengths`` (B,): per-row true prompt lengths of a right-padded
         ragged batch; each row prefills and decodes at its own depth.
+        ``extras``: the encoder or image inputs of an encoder-decoder or
+        cross-attention arch (module docstring).
         ``temperature`` scales sampled (non-greedy) logits; ``dsa_mode``
         overrides the engine's DSA path for this call (the cache layout,
         ``long_context`` included, stays the engine's).  ``spec=K``
@@ -405,7 +432,8 @@ class Engine:
         step = self.scan_step(b, dflags) if scan and steps_exec else None
         logits, caches, t_prefill = self.prefill(prompts, lengths=lengths,
                                                  caches=caches,
-                                                 dsa_mode=dsa_mode)
+                                                 dsa_mode=dsa_mode,
+                                                 extras=extras)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         t0 = time.monotonic()
         tok = _sample(logits[:, -1], gen, greedy, temperature)

@@ -72,11 +72,12 @@ def can_speculate(cfg: ArchConfig, dsa_mode: str = "off", k: int = 1
     the DSA paths a chunk of K + 1 rows inside the DECODE_LOCAL force-keep
     window, so the ktb entries the verify leaves stale are never read; no
     DSA over MLA (no predicted-key cache, as in ``can_chunk_prefill``).
-    MoE archs are served: decode steps and verify chunks both route the
-    decode-dense expert path, and MLA verifies absorbed, as its decode
-    step attends.  (The reference also leaves out encoder-decoder and
-    cross-attention archs, neither of which is ported.)"""
+    Encoder-decoder and cross-attention decoders are out, as in the
+    reference.  MoE archs are served: decode steps and verify chunks both
+    route the decode-dense expert path, and MLA verifies absorbed, as its
+    decode step attends."""
     return (not is_recurrent(cfg) and cfg.swa_window == 0
+            and not cfg.enc_dec and cfg.cross_attn_period == 0
             and not (cfg.mla is not None and dsa_mode != "off")
             and (dsa_mode == "off" or k + 1 <= DECODE_LOCAL))
 

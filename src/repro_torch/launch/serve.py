@@ -397,13 +397,24 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(1, cfg.vocab - 4,
                            size=(args.batch, args.prompt_len)).astype(np.int32)
+    # the frontends are stubs: frame or patch embeddings from the seed,
+    # drawn after the prompts, as the reference draws them
+    extras = {}
+    if cfg.enc_dec:
+        extras["enc_x"] = rng.normal(
+            size=(args.batch, cfg.enc_seq_len, cfg.d_model)).astype(np.float32)
+    if cfg.cross_attn_period:
+        extras["img"] = rng.normal(
+            size=(args.batch, cfg.n_image_tokens, cfg.d_model)
+        ).astype(np.float32)
     spec = args.spec
     if spec and not can_speculate(cfg, eng.decode_flags.dsa_mode, spec):
         print(f"note: spec={spec} is outside the speculation envelope for "
               f"{cfg.name}; decoding plainly")
         spec = 0
     graphs = graph_counts(eng.graphs)
-    res = eng.generate(prompts, args.new_tokens, spec=spec)
+    res = eng.generate(prompts, args.new_tokens, spec=spec,
+                       extras=extras or None)
     captures, replays = (b - a for a, b in zip(graphs,
                                                graph_counts(eng.graphs)))
     row = cache_bytes(init_cache(cfg, 1, max_len, eng.decode_flags,

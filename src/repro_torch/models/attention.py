@@ -70,6 +70,13 @@ query, W_uv applied after the weighted sum); chunks expand the cached
 latents as prefill does.  No DSA selection runs at decode: the latent
 cache holds no predicted keys.
 
+Gated cross-attention (``apply_cross_attention``; whisper_small's
+decoder, llama_3_2_vision's image layers): queries from the decoder,
+keys and values from the encoder's output or the image embeddings,
+dense, without RoPE or DSA, as in the reference; prefill writes them to
+the sub-layer's ``ck``/``cv`` and decode attends those.  An
+encoder-decoder's self-attention takes no RoPE either (``_rope_qk``).
+
 Caches are updated IN PLACE (the JAX reference returns new trees): each
 layer's cache dict is written row by row during decode, and prefill fills
 it in place.  No step replaces a leaf, and a decode step given a bare
@@ -206,7 +213,10 @@ def cache_page_size(cfg: ArchConfig, flags: RunFlags) -> int:
 
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig, *, device,
-                   dtype=torch.float32) -> Dict:
+                   dtype=torch.float32, cross: bool = False) -> Dict:
+    """wq/wk/wv/wo (and the biases with ``cfg.qkv_bias``); with DSA the
+    predictor ``dsa``, but on a cross-attention layer (``cross``), which
+    attends densely as in the reference."""
     hd = cfg.resolved_head_dim
     nq, nkv, d = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.d_model
     kw = dict(device=device, dtype=dtype)
@@ -220,20 +230,34 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, *, device,
         params.update(bq=torch.zeros((nq,), **kw),
                       bk=torch.zeros((nkv,), **kw),
                       bv=torch.zeros((nkv,), **kw))
-    if cfg.dsa.enabled:
+    if cfg.dsa.enabled and not cross:
         params["dsa"] = PRED.init_predictor(gen, d, cfg.dsa.sigma, **kw)
     return params
 
 
-def _proj_qkv(params, cfg: ArchConfig, x):
+def _proj_qkv(params, cfg: ArchConfig, x, x_kv=None):
+    """Q from ``x``, K and V from ``x_kv`` (cross-attention: the encoder's
+    output or the image embeddings) or else from ``x``."""
     hd = cfg.resolved_head_dim
-    q, k, v = (mm(x, params[w]) for w in ("wq", "wk", "wv"))
+    xk = x if x_kv is None else x_kv
+    q = mm(x, params["wq"])
+    k, v = mm(xk, params["wk"]), mm(xk, params["wv"])
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     b, l = x.shape[:2]
+    lk = xk.shape[1]
     return (q.reshape(b, l, cfg.n_heads, hd),
-            k.reshape(b, l, cfg.n_kv_heads, hd),
-            v.reshape(b, l, cfg.n_kv_heads, hd))
+            k.reshape(b, lk, cfg.n_kv_heads, hd),
+            v.reshape(b, lk, cfg.n_kv_heads, hd))
+
+
+def _rope_qk(cfg: ArchConfig, q, k, pos):
+    """RoPE on a self-attention layer's q and k, but for an
+    encoder-decoder's (whisper's positions are the sinusoidal embeddings
+    added to its inputs: the reference's ``use_rope=not cfg.enc_dec``)."""
+    if cfg.enc_dec:
+        return q, k
+    return rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
 
 
 def _mean_head_scores(q, k, stride: int = 1):
@@ -323,8 +347,7 @@ def apply_attention(params, cfg: ArchConfig, flags: RunFlags, x, *,
     aux: Dict[str, torch.Tensor] = {}
     q, k, v = _proj_qkv(params, cfg, x)
     pos = torch.arange(x.shape[1], device=x.device)
-    q = rope(q, pos, cfg.rope_theta)
-    k = rope(k, pos, cfg.rope_theta)
+    q, k = _rope_qk(cfg, q, k, pos)
     if dsa_active(cfg, flags):
         (kind, pat), aux = _dsa_train_mask_and_aux(params, cfg, flags, x, q,
                                                    k, causal)
@@ -347,6 +370,40 @@ def apply_attention(params, cfg: ArchConfig, flags: RunFlags, x, *,
         _fill_cache(cfg, flags, cache, k, v, params, x)
     out = mm(out.reshape(*x.shape[:2], -1), params["wo"])
     return out, cache, aux
+
+
+def apply_cross_attention(params, cfg: ArchConfig, flags: RunFlags, x,
+                          enc=None, cache=None) -> torch.Tensor:
+    """The attention of a gated cross-attention sub-layer (the
+    reference's ``apply_attention`` with ``x_kv``, or on a cache holding
+    ``ck``/``cv``).  Returns (B, S, d).
+
+    Train and prefill: queries from ``x``, keys and values from ``enc``
+    (B, T, d), the encoder's output or the image embeddings; no RoPE, no
+    mask, no DSA: dense attention up to 1024 queries, the q-chunked
+    ``flash_attention`` above.  Prefill also writes the keys and values
+    into the cache's ``ck``/``cv`` (B, T, Hkv, hd), in place, cast to the
+    cache's dtype.  Decode (one token or more a row): the queries attend
+    the whole static ``ck``/``cv`` (no ``kv_len``), which no step writes;
+    a cache that no prefill filled holds zeros, and then the output is
+    zero.  A bf16 query against an f32 cache returns f32, as in the
+    reference."""
+    hd = cfg.resolved_head_dim
+    b, s = x.shape[:2]
+    if flags.mode == "decode":
+        q = mm(x, params["wq"])
+        if cfg.qkv_bias:
+            q = q + params["bq"]
+        out = A.decode_attention(q.reshape(b, s, cfg.n_heads, hd),
+                                 cache["ck"], cache["cv"])
+    else:
+        q, k, v = _proj_qkv(params, cfg, x, enc)
+        attend = A.dense_attention if s <= 1024 else A.flash_attention
+        out = attend(q, k, v, causal=False, window=cfg.swa_window)
+        if flags.mode == "prefill" and cache is not None:
+            cache["ck"].copy_(k)
+            cache["cv"].copy_(v)
+    return mm(out.reshape(b, s, -1), params["wo"])
 
 
 def init_cache_attention(cfg: ArchConfig, batch: int, max_len: int,
@@ -548,8 +605,7 @@ def _apply_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache,
     b = x.shape[0]
     pos = cache["pos"].long()                              # (B,)
     q, k, v = _proj_qkv(params, cfg, x)
-    q = rope(q, pos[:, None], cfg.rope_theta)
-    k = rope(k, pos[:, None], cfg.rope_theta)
+    q, k = _rope_qk(cfg, q, k, pos[:, None])
     s = cache["k"].shape[1]
     slot = torch.where(pos < s, pos, pos % s)              # ring wrap
     kv_len = torch.clamp(pos + 1, max=s).to(torch.int32)
@@ -687,8 +743,7 @@ def _apply_paged_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache,
     b = x.shape[0]
     pos = cache["pos"].long()                              # (B,)
     q, k, v = _proj_qkv(params, cfg, x)
-    q = rope(q, pos[:, None], cfg.rope_theta)
-    k = rope(k, pos[:, None], cfg.rope_theta)
+    q, k = _rope_qk(cfg, q, k, pos[:, None])
     tbl = cache["page_tbl"].long()
     n_kb = tbl.shape[1]
     bk = cache_page_size(cfg, flags)
@@ -801,8 +856,7 @@ def _apply_chunk(params, cfg: ArchConfig, flags: RunFlags, x, cache,
     q, k, v = _proj_qkv(params, cfg, x)
     offs = torch.arange(c, device=x.device)
     p = pos[:, None] + offs[None, :]                       # (B, C) global
-    q = rope(q, p, cfg.rope_theta)
-    k = rope(k, p, cfg.rope_theta)
+    q, k = _rope_qk(cfg, q, k, p)
     act = _act_mask(active, b, x.device)
     live = (offs[None, :] < chunk_len.long()[:, None]) & act[:, None]
     wok = act[:, None].expand(b, c)        # active rows write all C rows
@@ -985,8 +1039,7 @@ def _apply_verify(params, cfg: ArchConfig, flags: RunFlags, x, cache,
     pos = cache["pos"].long()                              # (B,)
     q, k, v = _proj_qkv(params, cfg, x)
     p = pos[:, None] + torch.arange(c, device=x.device)[None, :]
-    q = rope(q, p, cfg.rope_theta)
-    k = rope(k, p, cfg.rope_theta)
+    q, k = _rope_qk(cfg, q, k, p)
     act = _act_mask(active, b, x.device)
     wok = act[:, None].expand(b, c)
     for leaf, val in _kv_rows(cache, k, v, flags.kv_quant).items():

@@ -1,5 +1,6 @@
 """Transformer blocks and layer groups (dense attention, multi-head latent
-attention, mixture-of-experts, RWKV6 and Mamba-hybrid archs).
+attention, mixture-of-experts, RWKV6, Mamba-hybrid, encoder-decoder and
+cross-attention archs).
 
 A *group* is the repeating unit of layers.  For most archs it is one
 pre-norm sub-block ("b0"): attention ("attn", or "mla" for DeepSeek's
@@ -11,7 +12,15 @@ for one attention sub-block at ``attn_layer_offset``, each with an MoE
 FFN where ``is_moe_layer`` says so (every other one) and a SwiGLU MLP
 otherwise.  deepseek_v3's first ``first_k_dense`` layers are a PROLOGUE
 of dense sub-blocks (``prologue_def``) before the groups, as in the
-reference.
+reference.  A sub-block with ``cross`` adds a gated cross-attention
+sub-layer after its self-attention (``xattn``, ``xnorm`` and the scalar
+gate ``xgate``: x + tanh(xgate) * attn(norm(x), enc)): llama_3_2_vision
+groups ``cross_attn_period`` attention sub-blocks, the one at
+``period - 2`` with cross-attention over the image embeddings;
+whisper's decoder group is one attention sub-block with cross-attention
+over the encoder's output, and its ENCODER groups
+(``group_defs(cfg, decoder=False)``, ``n_enc_layers`` of them) one
+non-causal attention sub-block each.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, is_moe_layer
 from repro_torch.core.prediction import mm
 from repro_torch.models.attention import (RunFlags, apply_attention,
+                                          apply_cross_attention,
                                           apply_mla, init_attention,
                                           init_cache_attention,
                                           init_cache_mla, init_mla)
@@ -35,17 +45,24 @@ from repro_torch.models.moe import apply_moe, init_moe
 class SubBlockDef:
     kind: str = "attn"
     moe: bool = False
+    cross: bool = False    # a gated cross-attention sub-layer after attn
     causal: bool = True
 
 
-def group_defs(cfg: ArchConfig) -> List[SubBlockDef]:
-    """The sub-block structure of one group.  A hybrid arch: the period's
-    Mamba and attention sub-blocks, MoE where ``is_moe_layer`` (jamba's
-    periodic pattern); a depth cut below one period (``cut_layers``)
-    keeps the period's first ``n_layers`` sub-blocks.  Otherwise MoE is
-    the reference's uniform pattern (an MoE FFN on every layer after the
-    dense prologue: mixtral, deepseek_v3); periodic MoE outside a hybrid
-    group is not ported."""
+def group_defs(cfg: ArchConfig, decoder: bool = True) -> List[SubBlockDef]:
+    """The sub-block structure of one group.  An encoder-decoder's encoder
+    group (``decoder=False``): one non-causal attention sub-block.  A
+    hybrid arch: the period's Mamba and attention sub-blocks, MoE where
+    ``is_moe_layer`` (jamba's periodic pattern); a depth cut below one
+    period (``cut_layers``) keeps the period's first ``n_layers``
+    sub-blocks.  A cross-attention arch: ``cross_attn_period`` attention
+    sub-blocks, cross-attention at ``period - 2``; an encoder-decoder's
+    decoder: one attention sub-block with cross-attention.  Otherwise MoE
+    is the reference's uniform pattern (an MoE FFN on every layer after
+    the dense prologue: mixtral, deepseek_v3); periodic MoE outside a
+    hybrid group is not ported."""
+    if cfg.enc_dec and not decoder:
+        return [SubBlockDef("attn", causal=False)]
     if cfg.rwkv is not None:
         return [SubBlockDef("rwkv")]
     if cfg.mamba is not None and cfg.attn_layer_period:
@@ -53,6 +70,12 @@ def group_defs(cfg: ArchConfig) -> List[SubBlockDef]:
         return [SubBlockDef("attn" if i == cfg.attn_layer_offset
                             else "mamba", moe=is_moe_layer(cfg, i))
                 for i in range(n)]
+    if cfg.cross_attn_period:
+        period = cfg.cross_attn_period
+        return [SubBlockDef("attn", cross=i == period - 2)
+                for i in range(period)]
+    if cfg.enc_dec:
+        return [SubBlockDef("attn", cross=True)]
     mo = cfg.moe
     if mo is not None and mo.layer_period != 1:
         raise NotImplementedError(
@@ -73,9 +96,11 @@ def n_prologue(cfg: ArchConfig) -> int:
     return cfg.moe.first_k_dense if cfg.moe is not None else 0
 
 
-def n_groups(cfg: ArchConfig) -> int:
-    """The groups after the prologue.  A depth below the prologue's is
-    refused."""
+def n_groups(cfg: ArchConfig, decoder: bool = True) -> int:
+    """The groups after the prologue (an encoder's: ``n_enc_layers``).  A
+    depth below the prologue's is refused."""
+    if cfg.enc_dec and not decoder:
+        return cfg.n_enc_layers
     n = cfg.n_layers - n_prologue(cfg)
     if n < 0:
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers is less than "
@@ -110,13 +135,23 @@ def init_subblock(gen: torch.Generator, cfg: ArchConfig, d: SubBlockDef, *,
             "mamba": ssm.init_mamba}.get(d.kind)
     if attn is None:
         raise NotImplementedError(f"sub-block kind {d.kind!r} is not ported")
-    return {**norms, "attn": attn(gen, cfg, **kw),
-            "mlp": (init_moe if d.moe else init_mlp)(gen, cfg, **kw)}
+    out = {**norms, "attn": attn(gen, cfg, **kw)}
+    if d.cross:
+        out.update(xattn=init_attention(gen, cfg, cross=True, **kw),
+                   xnorm=torch.ones((cfg.d_model,), **kw),
+                   xgate=torch.zeros((), **kw))
+    out["mlp"] = (init_moe if d.moe else init_mlp)(gen, cfg, **kw)
+    return out
 
 
 def init_subblock_cache(cfg: ArchConfig, d: SubBlockDef, batch: int,
                         max_len: int, flags: RunFlags, *, device,
-                        dtype=torch.bfloat16, pages=None) -> Dict:
+                        dtype=torch.bfloat16, pages=None,
+                        enc_len: int = 0) -> Dict:
+    """The sub-block's cache: its attention (or recurrent) leaves under
+    "attn" and, with ``d.cross``, the cross-attention's keys and values
+    ``ck``/``cv`` (B, enc_len, Hkv, hd) under "xattn", which a prefill
+    with an encoder or image input writes whole and no step changes."""
     if d.kind == "rwkv":
         return {"attn": ssm.init_cache_rwkv(cfg, batch, device=device,
                                             dtype=dtype)}
@@ -126,13 +161,18 @@ def init_subblock_cache(cfg: ArchConfig, d: SubBlockDef, batch: int,
     if d.kind == "mla":
         return {"attn": init_cache_mla(cfg, batch, max_len, device=device,
                                        dtype=dtype, pages=pages)}
-    return {"attn": init_cache_attention(cfg, batch, max_len, flags,
-                                         device=device, dtype=dtype,
-                                         pages=pages)}
+    c = {"attn": init_cache_attention(cfg, batch, max_len, flags,
+                                      device=device, dtype=dtype,
+                                      pages=pages)}
+    if d.cross:
+        shape = (batch, enc_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        c["xattn"] = {name: torch.zeros(shape, device=device, dtype=dtype)
+                      for name in ("ck", "cv")}
+    return c
 
 
 def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
-                   x, cache=None, **step):
+                   x, cache=None, enc=None, **step):
     """Pre-norm residual block.  Returns (x, cache, aux); the cache is
     updated in place, ``aux`` is the attention's (the MSE term in train
     mode) and an MoE FFN's ``router`` term.  ``step``: the decode-time
@@ -140,7 +180,10 @@ def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
     (``apply_mla`` for an "mla" sub-block; a recurrent one takes
     ``active`` alone).
     An MoE FFN routes decode-dense in decode mode (steps, chunks, verify
-    rows) and under ``flags.moe_dense``, by capacity otherwise."""
+    rows) and under ``flags.moe_dense``, by capacity otherwise.
+    A ``cross`` sub-block's cross-attention sub-layer runs, as in the
+    reference, in train and prefill mode only when ``enc`` (B, T, d) is
+    given, and in decode mode always, over the cached ``ck``/``cv``."""
     if d.kind == "rwkv":
         return (_apply_rwkv_subblock(params, cfg, x, cache, **step), cache,
                 {})
@@ -157,6 +200,11 @@ def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
         y, _, aux = attn(params["attn"], cfg, flags, h, cache=c,
                          causal=d.causal, **step)
     x = x + y
+    if d.cross and (enc is not None or flags.mode == "decode"):
+        h = rms_norm(x, params["xnorm"].to(x.dtype), cfg.norm_eps)
+        y = apply_cross_attention(params["xattn"], cfg, flags, h, enc,
+                                  None if cache is None else cache["xattn"])
+        x = x + torch.tanh(params["xgate"].to(x.dtype)) * y
     h = rms_norm(x, params["norm2"].to(x.dtype), cfg.norm_eps)
     if d.moe:
         y, a = apply_moe(params["mlp"], cfg, h,
@@ -193,20 +241,20 @@ def _apply_rwkv_subblock(params, cfg: ArchConfig, x, cache=None, **step):
 
 
 def init_group(gen: torch.Generator, cfg: ArchConfig, *, device,
-               dtype=torch.float32) -> Dict:
+               dtype=torch.float32, decoder: bool = True) -> Dict:
     return {f"b{i}": init_subblock(gen, cfg, d, device=device, dtype=dtype)
-            for i, d in enumerate(group_defs(cfg))}
+            for i, d in enumerate(group_defs(cfg, decoder))}
 
 
 def apply_group(params, cfg: ArchConfig, flags: RunFlags, defs, x,
-                cache=None, **step):
+                cache=None, enc=None, **step):
     """Returns (x, cache, aux), each aux term summed over the group's
     sub-blocks (a list, as the probe's ``"sel"``, concatenated)."""
     auxes: Dict[str, torch.Tensor] = {}
     for i, d in enumerate(defs):
         x, _, a = apply_subblock(params[f"b{i}"], cfg, flags, d, x,
                                  cache=None if cache is None
-                                 else cache[f"b{i}"], **step)
+                                 else cache[f"b{i}"], enc=enc, **step)
         for k, v in a.items():
             auxes[k] = auxes[k] + v if k in auxes else v
     return x, cache, auxes

@@ -1,6 +1,8 @@
-"""Shared model primitives: initializer, RMS norm, per-head group norm,
-RoPE."""
+"""Shared model primitives: initializer, RMS norm, layer norm, per-head
+group norm, RoPE, sinusoidal positions."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -20,6 +22,18 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(dt) * gamma
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in the reference's order: normalise in f32, cast back,
+    then scale by gamma and shift by beta in the working dtype.  (No arch
+    of either package calls it.)"""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(dt) * gamma + beta
 
 
 def group_norm_heads(x: torch.Tensor, gamma: torch.Tensor, n_heads: int,
@@ -50,3 +64,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., ::2], x[..., 1::2]
     out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.reshape(b, s, h, hd)
+
+
+def sinusoidal_embedding(length: int, d: int, dtype=torch.float32, *,
+                         device=None) -> torch.Tensor:
+    """(length, d) absolute positions: sin at the even features, cos at
+    the odd ones, of pos * 10000^(-i/d) for even i (whisper's encoder
+    and decoder).  Computed in f32, then cast."""
+    pos = torch.arange(length, device=device, dtype=torch.float32)[:, None]
+    i = torch.arange(0, d, 2, device=device, dtype=torch.float32)
+    ang = pos * torch.exp(-math.log(10000.0) * i / d)[None]
+    emb = torch.zeros((length, d), device=device)
+    emb[:, 0::2] = torch.sin(ang)
+    emb[:, 1::2] = torch.cos(ang)
+    return emb.to(dtype)

@@ -2,8 +2,10 @@
 
 Public API:
   init_model(seed, cfg, device=None)          -> params
-  forward(params, cfg, flags, tokens, caches) -> (logits, caches)
-  forward_train(params, cfg, flags, tokens)   -> (logits, aux)
+  forward(params, cfg, flags, tokens, caches, extras=None)
+                                              -> (logits, caches)
+  forward_train(params, cfg, flags, tokens, extras=None)
+                                              -> (logits, aux)
   decode_step(params, cfg, flags, tokens, caches, active=None)
                                               -> (logits, caches[, sel])
   chunk_step(params, cfg, flags, tokens, caches, chunk_len, active=None,
@@ -15,6 +17,7 @@ Public API:
   spec_scratch(caches, c)                     -> the pair's scratch
   init_cache(cfg, batch, max_len, flags, ..., pages=None) -> caches
   attn_caches(caches)                         -> each layer's attention cache
+  cross_caches(caches)                        -> each cross sub-layer's cache
   zero_cache(caches)                          -> caches (in place)
   truncate_cache(cfg, caches, length)         -> caches (in place)
 
@@ -32,6 +35,24 @@ prologue (deepseek_v3's ``first_k_dense`` layers: the arch's attention
 and a dense MLP) runs before the groups, its
 params and caches in the per-layer lists ``params["prologue"]`` and
 ``caches["prologue"]``, unstacked in the reference too.
+
+Encoder-decoder and cross-attention archs take their second input in
+``extras``, as the reference's batch dict does: ``{"enc_x": (B, T, d)}``,
+whisper's precomputed frame embeddings, which the encoder
+(``params["enc_groups"]``, ``n_enc_layers`` groups of one non-causal
+attention sub-block, then ``enc_norm``) turns into the cross-attention's
+input after adding sinusoidal positions; ``{"img": (B, T, d)}``,
+llama_3_2_vision's patch embeddings, used as they are.  Whisper's decoder
+adds sinusoidal positions to its token embeddings over the INPUT's
+length, as the reference does, so a decode step's token gets position
+0's (a reference fault, ROADMAP Queue 3); its attention uses no RoPE.  A
+cross sub-layer's cache (``caches["groups"][i][name]["xattn"]``:
+``ck``/``cv`` of ``enc_seq_len`` or ``n_image_tokens`` rows) is written
+whole by a prefill with extras and read by every decode step; without
+extras prefill skips the sub-layer and decode reads what the cache
+holds (zeros after ``init_cache`` or ``zero_cache``).  The encoder runs
+in train mode with the call's ``dsa_mode`` (its ``mse`` joins ``aux`` in
+training), the prefill's block or token path by its frame count.
 
 ``forward_train`` is the training forward (``RunFlags(mode="train")``, no
 cache): it also returns ``aux``, each of ``AUX_KEYS`` an f32 scalar summed
@@ -64,7 +85,8 @@ from repro_torch.models import blocks as B
 from repro_torch.core.quantization import raw
 from repro_torch.models.attention import (PEND_KEY, RunFlags, _rebuild_ktb,
                                           as_active, commit_verify)
-from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.models.common import (dense_init, rms_norm,
+                                      sinusoidal_embedding)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -91,25 +113,81 @@ def init_model(seed: int, cfg: ArchConfig, *, device=None) -> Dict[str, Any]:
         params["prologue"] = [B.init_subblock(gen, cfg, B.prologue_def(cfg),
                                               **kw)
                               for _ in range(B.n_prologue(cfg))]
+    if cfg.enc_dec:
+        params["enc_groups"] = [B.init_group(gen, cfg, decoder=False, **kw)
+                                for _ in range(B.n_groups(cfg, False))]
+        params["enc_norm"] = torch.ones((cfg.d_model,), **kw)
     return params
 
 
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _encode(params, cfg: ArchConfig, flags: RunFlags, enc_x, run=_call):
+    """Whisper's encoder over precomputed frame embeddings (B, T, d):
+    sinusoidal positions, the encoder groups under train-mode flags with
+    the call's ``dsa_mode`` (the MSE only when the call trains), then
+    ``enc_norm``.  ``run(fn, gp, x)`` runs one group (under a checkpoint
+    when training with remat).  Returns (enc (B, T, d), aux)."""
+    x = enc_x + sinusoidal_embedding(enc_x.shape[1], cfg.d_model,
+                                     enc_x.dtype, device=enc_x.device)[None]
+    defs = B.group_defs(cfg, decoder=False)
+    eflags = RunFlags(mode="train", dsa_mode=flags.dsa_mode,
+                      with_mse=flags.with_mse and flags.mode == "train")
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {k: zero for k in AUX_KEYS}
+
+    def group(gp, x):
+        x, _, a = B.apply_group(gp, cfg, eflags, defs, x)
+        a = _norm_aux(a, zero)
+        return (x,) + tuple(a[k] for k in AUX_KEYS)
+
+    for gp in params["enc_groups"]:
+        x, *a = run(group, gp, x)
+        aux = {k: aux[k] + v for k, v in zip(AUX_KEYS, a)}
+    return rms_norm(x, params["enc_norm"].to(x.dtype), cfg.norm_eps), aux
+
+
+def _embed(params, cfg: ArchConfig, flags: RunFlags, tokens, extras,
+           run=_call):
+    """The token embeddings (whisper's with sinusoidal positions over
+    their length) and the cross-attention input from ``extras`` (None
+    without one): (x, enc, encoder aux or None)."""
+    dt = DTYPES[cfg.dtype]
+    x = params["embed"][tokens.long()].to(dt)
+    extras = extras or {}
+    enc, aux = None, None
+    if cfg.enc_dec and "enc_x" in extras:
+        enc, aux = _encode(params, cfg, flags, extras["enc_x"].to(dt), run)
+    elif cfg.cross_attn_period and "img" in extras:
+        enc = extras["img"].to(dt)
+    if cfg.enc_dec:
+        x = x + sinusoidal_embedding(x.shape[1], cfg.d_model, dt,
+                                     device=x.device)[None]
+    return x, enc, aux
+
+
 def forward(params, cfg: ArchConfig, flags: RunFlags, tokens: torch.Tensor,
-            caches=None, **step):
-    """tokens: (B, S) int.  Returns (logits (B, S, V), caches), and with
-    ``flags.sel_probe`` the selection list of ``decode_step`` third.
-    ``step``: the decode-time ``active``, ``chunk_len`` and ``sel_len``
-    (see ``decode_step`` and ``chunk_step``)."""
-    x = params["embed"][tokens.long()].to(DTYPES[cfg.dtype])
+            caches=None, extras=None, **step):
+    """tokens: (B, S) int; ``extras``: {"enc_x" | "img": (B, T, d)}
+    tensors (see the module docstring).  Returns (logits (B, S, V),
+    caches), and with ``flags.sel_probe`` the selection list of
+    ``decode_step`` third.  ``step``: the decode-time ``active``,
+    ``chunk_len`` and ``sel_len`` (see ``decode_step`` and
+    ``chunk_step``)."""
+    x, enc, _ = _embed(params, cfg, flags, tokens, extras)
     pro = B.prologue_def(cfg)
     for i, lp in enumerate(params.get("prologue", ())):
         c = None if caches is None else caches["prologue"][i]
-        x, _, _ = B.apply_subblock(lp, cfg, flags, pro, x, cache=c, **step)
+        x, _, _ = B.apply_subblock(lp, cfg, flags, pro, x, cache=c, enc=enc,
+                                   **step)
     defs = B.group_defs(cfg)
     sel: List[tuple] = []
     for i, gp in enumerate(params["groups"]):
         c = None if caches is None else caches["groups"][i]
-        x, _, aux = B.apply_group(gp, cfg, flags, defs, x, cache=c, **step)
+        x, _, aux = B.apply_group(gp, cfg, flags, defs, x, cache=c, enc=enc,
+                                  **step)
         sel += aux.get("sel", [])
     logits = _head(params, cfg, x)
     return (logits, caches, sel) if flags.sel_probe else (logits, caches)
@@ -142,10 +220,11 @@ _DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
 
 
 def forward_train(params, cfg: ArchConfig, flags: RunFlags,
-                  tokens: torch.Tensor):
-    """tokens: (B, S) int.  Returns (logits (B, S, V), aux): the training
-    forward, each aux term summed over the layers (a sum, not a mean, as
-    the reference's layer scan carries it)."""
+                  tokens: torch.Tensor, extras=None):
+    """tokens: (B, S) int; ``extras`` as for ``forward``.  Returns (logits
+    (B, S, V), aux): the training forward, each aux term summed over the
+    layers, an encoder's included (a sum, not a mean, as the reference's
+    layer scan carries it)."""
     if flags.mode != "train":
         raise ValueError("forward_train needs RunFlags(mode='train')")
     if cfg.remat_policy not in ("full", "dots", "none"):
@@ -155,29 +234,35 @@ def forward_train(params, cfg: ArchConfig, flags: RunFlags,
     ckpt = dict(use_reentrant=False)
     if cfg.remat_policy == "dots":
         ckpt["context_fn"] = _DOTS_CONTEXT
-    x = params["embed"][tokens.long()].to(DTYPES[cfg.dtype])
+
+    def run(fn, *args):
+        if remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, **ckpt)
+        return fn(*args)
+
+    x, enc, enc_aux = _embed(params, cfg, flags, tokens, extras, run)
     defs = B.group_defs(cfg)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {k: zero for k in AUX_KEYS}
 
-    def group(gp, x):
-        x, _, a = B.apply_group(gp, cfg, flags, defs, x)
+    def group(gp, x, enc):
+        x, _, a = B.apply_group(gp, cfg, flags, defs, x, enc=enc)
         a = _norm_aux(a, zero)
         return (x,) + tuple(a[k] for k in AUX_KEYS)
 
-    def prologue(lp, x):
-        x, _, a = B.apply_subblock(lp, cfg, flags, B.prologue_def(cfg), x)
+    def prologue(lp, x, enc):
+        x, _, a = B.apply_subblock(lp, cfg, flags, B.prologue_def(cfg), x,
+                                   enc=enc)
         a = _norm_aux(a, zero)
         return (x,) + tuple(a[k] for k in AUX_KEYS)
 
     layers = [(prologue, lp) for lp in params.get("prologue", ())]
     layers += [(group, gp) for gp in params["groups"]]
     for fn, lp in layers:
-        if remat and torch.is_grad_enabled():
-            x, *a = checkpoint(fn, lp, x, **ckpt)
-        else:
-            x, *a = fn(lp, x)
+        x, *a = run(fn, lp, x, enc)
         aux = {k: aux[k] + v for k, v in zip(AUX_KEYS, a)}
+    if enc_aux is not None:
+        aux = {k: aux[k] + enc_aux[k] for k in AUX_KEYS}
     return _head(params, cfg, x), aux
 
 
@@ -227,6 +312,15 @@ def chunk_step(params, cfg: ArchConfig, flags: RunFlags, tokens, caches,
     return forward(params, cfg, flags, tokens, caches,
                    active=as_active(active), chunk_len=chunk_len,
                    sel_len=sel_len)
+
+
+def cross_caches(caches) -> Iterator[Dict[str, Any]]:
+    """Every cross-attention sub-layer's cache dict (``ck``/``cv``), in
+    layer order."""
+    for group in caches["groups"]:
+        for sub in group.values():
+            if "xattn" in sub:
+                yield sub["xattn"]
 
 
 def attn_caches(caches) -> Iterator[Dict[str, Any]]:
@@ -330,9 +424,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, flags: RunFlags,
     """pages: page count of a PAGED cache: every layer's k/v (and DSA
     kt/ktb) become flat page pools indirected by a per-slot ``page_tbl``
     over the logical [0, max_len) geometry (see
-    models.attention.init_cache_attention)."""
+    models.attention.init_cache_attention).  A cross sub-layer's
+    ``ck``/``cv`` hold ``enc_seq_len`` (whisper) or ``n_image_tokens``
+    (llama_3_2_vision) rows."""
     dev = resolve_device(device)
-    kw = dict(device=dev, dtype=dtype, pages=pages)
+    enc_len = (cfg.enc_seq_len if cfg.enc_dec else
+               cfg.n_image_tokens if cfg.cross_attn_period else 0)
+    kw = dict(device=dev, dtype=dtype, pages=pages, enc_len=enc_len)
     defs = B.group_defs(cfg)
     caches: Dict[str, Any] = {"groups": [
         {f"b{i}": B.init_subblock_cache(cfg, d, batch, max_len, flags, **kw)
@@ -348,8 +446,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, flags: RunFlags,
 
 def zero_cache(caches) -> Dict[str, Any]:
     """Zero every leaf of a cache in place: the state ``init_cache`` makes
-    (fp8 leaves through their bytes)."""
-    for lc in attn_caches(caches):
+    (fp8 leaves through their bytes), the cross sub-layers' ``ck``/``cv``
+    included."""
+    for lc in (*attn_caches(caches), *cross_caches(caches)):
         for t in lc.values():
             raw(t).zero_()
     return caches
@@ -369,7 +468,8 @@ def truncate_cache(cfg: ArchConfig, caches, length) -> Dict[str, Any]:
     ``length`` (a scalar or per-row (B,) lengths).  fp8 rows are zeroed
     through their bytes: no arithmetic runs on an fp8 tensor.  Recurrent
     (RWKV6, Mamba) leaves are left untouched, as in the reference: their
-    archs take no padded prompts."""
+    archs take no padded prompts; so are a cross sub-layer's ``ck``/``cv``,
+    which are not token rows."""
     for c in attn_caches(caches):
         rows = [c[name] for name in _ROW_KEYS if name in c]
         if not rows:

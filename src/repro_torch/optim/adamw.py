@@ -12,7 +12,8 @@ moments and masters in place.
 Frozen: the DSA projection ``P`` (paths ending ``/dsa/p``) never moves;
 its moments stay zero.  Weight decay applies to every leaf of two or more
 dimensions in the REFERENCE's layout, where the layer groups are stacked
-over a leading axis: a leaf under ``/groups/`` counts that axis too.  So
+over a leading axis: a leaf under ``/groups/`` (or an encoder's
+``/enc_groups/``) counts that axis too.  So
 the per-layer norms ``norm1``/``norm2`` and biases are decayed and
 ``final_norm`` is not, as in the reference, whose docstring says that
 norms and biases are skipped (ROADMAP Queue 3 records the difference).
@@ -52,7 +53,7 @@ def is_frozen(path: str) -> bool:
 def decay_ok(path: str, leaf: torch.Tensor) -> bool:
     """The reference's ``leaf.ndim >= 2`` on its stacked layout: a leaf
     of a layer group has one more axis there."""
-    ndim = leaf.dim() + path.startswith("/groups/")
+    ndim = leaf.dim() + path.startswith(("/groups/", "/enc_groups/"))
     return ndim >= 2 and not is_frozen(path)
 
 

@@ -52,10 +52,21 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return (nll * mask).sum() / mask.sum().clamp(min=1.0)
 
 
+EXTRAS = ("enc_x", "img")
+
+
+def _extras(batch) -> Dict[str, torch.Tensor]:
+    """A batch's encoder or image input (``forward``'s ``extras``)."""
+    return {k: batch[k] for k in EXTRAS if k in batch}
+
+
 def loss_fn(params, cfg: ArchConfig, flags: RunFlags,
             batch: Dict[str, torch.Tensor]):
-    """Returns (loss, metrics {"loss", "ce", "mse", "router_aux"})."""
-    logits, aux = forward_train(params, cfg, flags, batch["tokens"])
+    """Returns (loss, metrics {"loss", "ce", "mse", "router_aux"}).
+    ``batch`` may carry an encoder-decoder's ``enc_x`` or a
+    cross-attention arch's ``img`` (B, T, d)."""
+    logits, aux = forward_train(params, cfg, flags, batch["tokens"],
+                                _extras(batch))
     ce = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
     loss = ce + cfg.dsa.lambda_mse * aux["mse"] + aux["router"]
     return loss, {"loss": loss, "ce": ce, "mse": aux["mse"],
@@ -113,8 +124,9 @@ def make_train_step(cfg: ArchConfig, opt: adamw.OptConfig,
                     microbatches: int = 1) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
-    batch: {"tokens": (GB, S), "labels": (GB, S), ["loss_mask": (GB, S)]},
-    numpy arrays or tensors.  metrics: loss, ce, mse, router_aux, lr,
+    batch: {"tokens": (GB, S), "labels": (GB, S), ["loss_mask": (GB, S)],
+    ["enc_x" | "img": (GB, T, d)]}, numpy arrays or tensors; every entry
+    is split by rows into the microbatches.  metrics: loss, ce, mse, router_aux, lr,
     grad_norm (f32 scalar tensors)."""
     flags = flags or default_flags(cfg)
 
@@ -139,7 +151,8 @@ def make_eval_step(cfg: ArchConfig, flags: Optional[RunFlags] = None):
     @torch.no_grad()
     def eval_step(params, batch):
         batch = _on(batch, _device_of(params))
-        logits, _ = forward_train(params, cfg, flags, batch["tokens"])
+        logits, _ = forward_train(params, cfg, flags, batch["tokens"],
+                                  _extras(batch))
         ce = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
         acc = (logits[:, -1].argmax(-1) == batch["labels"][:, -1]).float()
         return {"ce": ce, "last_tok_acc": acc.mean()}
@@ -150,7 +163,8 @@ def make_eval_step(cfg: ArchConfig, flags: Optional[RunFlags] = None):
 def make_prefill_step(cfg: ArchConfig, flags: RunFlags):
     """prefill(params, batch, caches) -> (last logits (B, 1, V), caches)."""
     def prefill(params, batch, caches):
-        logits, caches = forward(params, cfg, flags, batch["tokens"], caches)
+        logits, caches = forward(params, cfg, flags, batch["tokens"], caches,
+                                 extras=_extras(batch))
         return logits[:, -1:], caches
     return prefill
 

@@ -1895,7 +1895,7 @@ def test_cuda_mamba_subblock_matches_cpu(cuda_device):
                 (caches[cuda_device][k], caches["cpu"][k])
                 for k in ("h", "conv")]:
             scale = max(float(want.abs().max()), 1e-6)
-            assert float((got.cpu() - want).abs().max()) <= 1e-5 * scale
+            assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
 
     with torch.no_grad():
         both(torch.randn((2, 256, cfg.d_model), generator=gen))
@@ -1989,3 +1989,176 @@ def test_cuda_recurrent_slot_insert(cuda_device, arch):
     for a, lc in zip(after, TT.attn_caches(eng._caches)):
         for k, t in lc.items():
             assert torch.equal(t, a[k]), k
+
+
+# -- encoder-decoder and gated cross-attention (whisper_small,
+#    llama_3_2_vision) ---------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,hd,causal,l", [
+    (1, 64, True, 512), (1, 64, False, 512), (1, 64, False, 1024),
+    (4, 128, True, 1024)],
+    ids=["whisper-decoder", "whisper-encoder", "whisper-encoder-1024",
+         "vision"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_k2_cross_arch_geometries(cuda_device, dtype, g, hd, causal,
+                                       l):
+    """K2 at whisper_small's geometry (MHA: hd 64, GQA group 1; its
+    decoder's causal prefill and its encoder's non-causal one, the
+    ``launch_tc<64>`` instance in bf16) and llama_3_2_vision's (hd 128,
+    group 4), block 128, model-layout views, the diagonal block among 4
+    selected, at the dtype's tolerance."""
+    args = _k2_window_inputs(cuda_device, dtype, g, hd, 128, l,
+                             seed=110 + g + hd + l + causal)
+    kw = dict(block_q=128, block_k=128, causal=causal)
+    got = K2.dsa_block_sparse_attention(*args, **kw)
+    want = K2.dsa_block_sparse_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,hd", [(1, 64), (4, 128)],
+                         ids=["whisper", "vision"])
+@pytest.mark.parametrize("qdt,cdt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32)],
+                         ids=["bf16-bf16", "f32-f32"])
+def test_cuda_k1_cross_arch_geometries(cuda_device, g, hd, qdt, cdt):
+    """K1 at whisper_small's decode geometry (hd 64, group 1; its 448-row
+    decoder context) and llama_3_2_vision's (hd 128, group 4), ragged
+    kv_len, an ok = 0 block, against its plain version at the query
+    dtype's tolerance."""
+    gen = torch.Generator(device=cuda_device).manual_seed(120 + g + hd)
+    b, hkv, bk = 3, 2, 128
+    s = 512 if hd == 64 else 4224
+    q = torch.randn((b, hkv * g, 1, hd), generator=gen,
+                    device=cuda_device).to(qdt)
+    kc, vc = (torch.randn((b, s, hkv, hd), generator=gen,
+                          device=cuda_device).to(cdt) for _ in range(2))
+    kv_len = torch.tensor([s - 64, s // 2 + 3, 200], dtype=torch.int32,
+                          device=cuda_device)
+    nb = 2
+    idx = torch.stack([torch.randperm(-(-int(n) // bk), generator=torch.
+                                      Generator().manual_seed(i))[:nb]
+                       for i, n in enumerate(kv_len.tolist())]).sort(
+        -1).values.to(torch.int32).to(cuda_device)
+    ok = torch.ones((b, nb), dtype=torch.bool, device=cuda_device)
+    ok[1, 0] = False
+    args = (q, kc, vc, idx, ok, kv_len)
+    got = K1.dsa_decode_gather_attention(*args, block_k=bk)
+    want = K1.dsa_decode_gather_attention_plain(*args, block_k=bk)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[qdt]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def _cross_inputs(cfg, b, seed=5):
+    """The arch's frame or patch embeddings for ``b`` rows (numpy)."""
+    import numpy as np
+    t = cfg.enc_seq_len if cfg.enc_dec else cfg.n_image_tokens
+    key = "enc_x" if cfg.enc_dec else "img"
+    return {key: np.random.default_rng(seed).standard_normal(
+        (b, t, cfg.d_model)).astype(np.float32)}
+
+
+def _gated_model(arch, dev):
+    """The reduced arch with every cross gate ``xgate`` at 0.5 (at 0 the
+    cross sub-layer would not reach the logits)."""
+    cfg, params = _model(arch, dev)
+    for group in params["groups"]:
+        for sub in group.values():
+            if "xgate" in sub:
+                sub["xgate"].fill_(0.5)
+    return cfg, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("arch", ["whisper_small", "llama_3_2_vision"])
+def test_cuda_cross_graphed_decode_equals_eager(cuda_device, arch,
+                                                cache_dtype):
+    """A reduced cross-attention arch on the card, DSA kernel path, with
+    its encoder or image input: the graphed scan loop gives the python
+    loop's tokens, one capture; a graphed step equals the eager step on a
+    copy of the cache bit for bit over 4 steps (the logits, every
+    self-attention leaf and the cross sub-layers' ``ck``/``cv``, which
+    the graph reads at the addresses the prefill wrote); K2 once a DSA
+    layer a prefill (whisper's 2 decoder and 2 encoder layers: 64 frames
+    and 64 tokens take the block path) and K1 once a decoder layer a
+    step."""
+    import numpy as np
+    from repro_torch.inference.engine import Engine
+    from repro_torch.models.transformer import (attn_caches, cross_caches,
+                                                decode_step)
+    from repro_torch.tree import map_tree
+    cfg, params = _gated_model(arch, cuda_device)
+    kw = dict(long_context=True, dsa_mode="kernel", cache_dtype=cache_dtype)
+    p = np.random.default_rng(2).integers(
+        1, cfg.vocab - 4, size=(2, 64)).astype(np.int32)
+    ex = _cross_inputs(cfg, 2)
+    n_k2 = cfg.n_layers + (cfg.n_enc_layers if cfg.enc_dec else 0)
+    toks = {}
+    for loop in ("scan", "python"):
+        eng = Engine(cfg, params, max_len=96, loop=loop, **kw)
+        k1, k2 = (K1.dsa_decode_gather_attention.launches,
+                  K2.dsa_block_sparse_attention.launches)
+        res = eng.generate(p, 10, extras=ex)
+        toks[loop] = res.tokens
+        assert K2.dsa_block_sparse_attention.launches - k2 == n_k2
+        assert (K1.dsa_decode_gather_attention.launches - k1
+                == cfg.n_layers * res.decode_steps)
+        if loop == "scan":
+            assert eng.graphs.captures == 1
+    np.testing.assert_array_equal(toks["scan"], toks["python"])
+    eng = Engine(cfg, params, max_len=96, **kw)
+    step = eng.scan_step(2)
+    last, res, _ = eng.prefill(p, caches=eng.resident_cache(2), extras=ex)
+    with torch.inference_mode():
+        twin = map_tree(lambda t: t.clone(), res)
+        tok = last[:, -1].argmax(-1, keepdim=True)
+        for _ in range(4):
+            g = step(tok).clone()
+            e = decode_step(eng.params, cfg, eng.decode_flags, tok, twin)[0]
+            assert torch.equal(g, e)
+            tok = g[:, -1].argmax(-1, keepdim=True)
+        for a, c in zip([*attn_caches(res), *cross_caches(res)],
+                        [*attn_caches(twin), *cross_caches(twin)]):
+            for k in a:
+                assert torch.equal(a[k], c[k]), k
+        assert any(c["ck"].any() for c in cross_caches(res))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames,mode", [(64, "kernel"), (60, "kernel"),
+                                         (64, "off")])
+def test_cuda_reduced_encoder_matches_cpu(cuda_device, frames, mode):
+    """Reduced whisper_small's encoder (f32) on the card and on the CPU
+    from the same weights and frames: 64 frames run K2 non-causal on the
+    card (its plain version on the CPU), 60 the token fallback; output
+    within 1e-4 of its largest magnitude (other summation orders, as the
+    CPU parity tests hold the port to the reference)."""
+    import dataclasses
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.attention import RunFlags
+    from repro_torch.tree import map_tree
+    cfg, params = _model("whisper_small", torch.device("cpu"))
+    cfg = dataclasses.replace(cfg, enc_seq_len=frames)
+    enc_x = torch.from_numpy(_cross_inputs(cfg, 2)["enc_x"])
+    flags = RunFlags(mode="prefill", dsa_mode=mode)
+    k2 = K2.dsa_block_sparse_attention.launches
+    with torch.inference_mode():
+        want, _ = TT._encode(params, cfg, flags, enc_x)
+        got, _ = TT._encode(map_tree(lambda t: t.to(cuda_device), params),
+                            cfg, flags, enc_x.to(cuda_device))
+    torch.cuda.synchronize()
+    launched = K2.dsa_block_sparse_attention.launches - k2
+    assert launched == (cfg.n_enc_layers if (frames, mode) == (64, "kernel")
+                        else 0)
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale

@@ -289,7 +289,8 @@ def test_predicates_equal_reference(arch):
     swa = full.swa_window > 0                 # h2o and mixtral
     assert TE.can_page(full) == (not swa and full.rwkv is None
                                  and full.mamba is None
-                                 and full.mla is None)
+                                 and full.mla is None and not full.enc_dec
+                                 and not full.cross_attn_period)
 
 
 SHAPES = [(48, 8), (70, 6), (130, 5), (20, 9), (70, 4)]
