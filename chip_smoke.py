@@ -4735,27 +4735,6 @@ XATTN_REL = 1e-4
 VISION_LAYERS = 5             # 20a and 20d: one group, cross-attention at 3
 
 
-def _gated(torch, params, gate: float = XATTN_GATE):
-    """``params`` with every cross gate ``xgate`` at ``gate``, in place: at
-    the initial 0, tanh(0) = 0 and neither the encoder nor the image
-    reaches the logits (the card's work is the same either way)."""
-    with torch.no_grad():
-        for group in params["groups"]:
-            for sub in group.values():
-                if "xgate" in sub:
-                    sub["xgate"].fill_(gate)
-    return params
-
-
-def _cross_extras(cfg, b: int, rng) -> dict:
-    """The arch's second input for ``b`` rows, drawn from ``rng`` as
-    ``launch.serve`` draws it: whisper's frames or llama's patches."""
-    import numpy as np
-    t = cfg.enc_seq_len if cfg.enc_dec else cfg.n_image_tokens
-    key = "enc_x" if cfg.enc_dec else "img"
-    return {key: rng.normal(size=(b, t, cfg.d_model)).astype(np.float32)}
-
-
 def _xattn_cfg(arch: str, layers: int, f32: bool):
     """``arch`` at full width cut to ``layers`` decoder layers (whisper's
     encoder to as many), f32 if asked."""
@@ -4767,6 +4746,34 @@ def _xattn_cfg(arch: str, layers: int, f32: bool):
         cfg = dataclasses.replace(cfg, dtype="float32",
                                   param_dtype="float32")
     return cfg
+
+
+@contextlib.contextmanager
+def _token_topk(M, masks: list, flips=None):
+    """Within it the model's token top-k (``M.row_topk_mask``: the DSA
+    token path, which whisper's 1500-frame encoder takes) appends each
+    mask it returns to ``masks``; or, with ``flips`` a list, returns the
+    masks recorded before, in order, in place of its own, and appends to
+    ``flips`` the count of rows where its own selection differs.  So the
+    CPU replays the card's selection and the comparison stays continuous:
+    a predicted score a last bit apart moves a row's top-k."""
+    own = M.row_topk_mask
+    replay = None if flips is None else iter(list(masks))
+
+    def topk(scores, keep, valid=None):
+        mine = own(scores, keep, valid)
+        if replay is None:
+            masks.append(mine)
+            return mine
+        theirs = next(replay).to(mine.device)
+        flips.append(int((theirs != mine).any(-1).sum()))
+        return theirs
+
+    M.row_topk_mask = topk
+    try:
+        yield
+    finally:
+        M.row_topk_mask = own
 
 
 def xattn_parity_phase(torch, seed: int, card: str) -> dict:
@@ -4783,19 +4790,21 @@ def xattn_parity_phase(torch, seed: int, card: str) -> dict:
     tokens; the CPU gives the card's tokens and prefill logits (within
     XATTN_REL of the largest magnitude) at batch 1 on the kernel path,
     prompts of 384 and 256, whisper's encoder over 1024 of its frames
-    (a block multiple: its block path and K2 non-causal).  At 1500
-    frames whisper's encoder takes the token top-k (with DSA off it
-    cannot run at all: the reference's dense path needs a multiple of
-    256 above 1024 queries, ROADMAP Queue 3), which is discontinuous: a
-    predicted score a last bit apart (the card's and the CPU's products
-    round differently) moves a row's selection, so there the card's
-    logits are printed beside the CPU's with the count of rows of the
-    first encoder layer whose selection differs.
+    (a block multiple: its block path and K2 non-causal) and over all
+    1500 (the main path's: the token fallback).  The token top-k is
+    discontinuous (with DSA off the encoder cannot run 1500 frames at
+    all: the reference's dense path needs a multiple of 256 above 1024
+    queries, ROADMAP Queue 3): a predicted score a last bit apart (the
+    card's and the CPU's products round differently) moves a row's
+    selection, so at 1500 frames the CPU replays the card's selection
+    (``_token_topk``) and the rows where its own would differ are
+    printed.
     Then reduced whisper's encoder (64 frames, block 16) on the card: K2
     non-causal once a layer, its output == the block path's within 1e-5
     of the largest magnitude."""
     import numpy as np
     from repro_torch.configs.base import get_config, reduced
+    from repro_torch.core import masks as M
     from repro_torch.inference.engine import Engine
     from repro_torch.inference.scheduler import ContinuousEngine, Request
     from repro_torch.launch import serve
@@ -4810,12 +4819,12 @@ def xattn_parity_phase(torch, seed: int, card: str) -> dict:
             ("llama_3_2_vision", VISION_LAYERS, 1024, 256, (0,),
              [(1024, 12), (700, 9), (1024, 12), (512, 8)])):
         cfg = _xattn_cfg(arch, layers, f32=True)
-        params = _gated(torch, TT.init_model(seed, cfg))
+        params = TT.set_cross_gates(TT.init_model(seed, cfg), XATTN_GATE)
         rng = np.random.default_rng(seed)
         b, n_new = 2, 16
         prompts = rng.integers(1, cfg.vocab - 4, size=(b, plen)).astype(
             np.int32)
-        ex = _cross_extras(cfg, b, rng)
+        ex = serve.draw_extras(cfg, b, rng)
         kw = dict(max_len=plen + n_new + 16, long_context=True)
         toks, n, captures, steps = {}, {}, 0, 0
         for name, extra in (("block", dict(dsa_mode="block")),
@@ -4854,22 +4863,25 @@ def xattn_parity_phase(torch, seed: int, card: str) -> dict:
             c = (dataclasses.replace(cfg, enc_seq_len=frames) if frames
                  else cfg)
             one = {k: v[:1, :frames or None] for k, v in ex.items()}
-            got = {}
+            got, sel, flips = {}, [], []
             for dev, p in (("card", params), ("cpu", cpu_params)):
                 e = Engine(c, p, device="cpu" if dev == "cpu" else None,
                            dsa_mode="kernel", **kw)
-                last, _, _ = e.prefill(prompts[:1, :cpu_len], extras=one)
-                got[dev] = (last.cpu(), e.generate(
-                    prompts[:1, :cpu_len], 4, extras=one).tokens)
+                with _token_topk(M, sel, flips if dev == "cpu" else None):
+                    last, _, _ = e.prefill(prompts[:1, :cpu_len],
+                                           extras=one)
+                    got[dev] = (last.cpu(), e.generate(
+                        prompts[:1, :cpu_len], 4, extras=one).tokens)
                 del e
             rel = float((got["card"][0] - got["cpu"][0]).abs().max()) / \
                 float(got["cpu"][0].abs().max())
-            vs_cpu[frames] = (bool((got["card"][1] == got["cpu"][1]).all()),
-                              rel)
-        card_cpu = vs_cpu[cpu_frames[0]][0] and \
-            vs_cpu[cpu_frames[0]][1] <= XATTN_REL
-        flips = (_encoder_flips(torch, cfg, cpu_params, ex["enc_x"][:1])
-                 if cfg.enc_dec else None)
+            vs_cpu[frames] = {
+                "tokens_equal": bool((got["card"][1] == got["cpu"][1]).all()),
+                "rel": rel, "imposed": len(sel), "replayed": len(flips),
+                "flips": flips}
+        card_cpu = all(v["tokens_equal"] and v["rel"] <= XATTN_REL
+                       and v["replayed"] == v["imposed"]
+                       for v in vs_cpu.values())
         del params, cpu_params
         gc.collect()
         torch.cuda.empty_cache()
@@ -4884,16 +4896,16 @@ def xattn_parity_phase(torch, seed: int, card: str) -> dict:
               f"and ck/cv, 4 steps): {bits}; continuous (blocking, "
               f"chunked {chunked}, {len(reqs)} requests, no cross input at "
               f"admission) == solo generate: {cont}; card vs CPU (batch 1, "
-              f"prompt {cpu_len}, 4 new, kernel path): "
+              f"prompt {cpu_len}, 4 new, kernel path; limit {XATTN_REL:g}): "
               + "; ".join((f"{f} frames: " if f else "")
-                          + f"tokens equal {t}, prefill logits {r:.2e} of "
-                          f"the largest magnitude"
-                          for f, (t, r) in vs_cpu.items())
-              + f" (gated: {'the first' if cfg.enc_dec else 'it'}, limit "
-              f"{XATTN_REL:g})"
-              + ("" if flips is None else
-                 f"; the first encoder layer's token top-k differs between "
-                 f"card and CPU in {flips} of {cfg.enc_seq_len} rows")
+                          + f"tokens equal {v['tokens_equal']}, prefill "
+                          f"logits {v['rel']:.2e} of the largest magnitude"
+                          + (f" under the card's token top-k ({v['imposed']} "
+                             f"masks imposed on the CPU, {v['replayed']} "
+                             f"replayed; the CPU's own differs in "
+                             f"{v['flips']} of {f} rows)"
+                             if v["imposed"] else "")
+                          for f, v in vs_cpu.items())
               + f"; {time.monotonic() - t0:.1f} s [{card}]", flush=True)
         for k, t in toks.items():
             print(f"  {k:8s}: {t[:, :8].tolist()}")
@@ -4902,11 +4914,11 @@ def xattn_parity_phase(torch, seed: int, card: str) -> dict:
             fail(f"20a {arch} parity failed: launches {n} (want {want_n})")
         out[arch] = {"kernel_block": same_k, "graphed": graphed,
                      "bits": bits, "continuous": cont, "card_cpu": vs_cpu,
-                     "encoder_flips": flips, "launches": n}
+                     "launches": n}
 
     rcfg = reduced(get_config("whisper_small"))
     rp = TT.init_model(seed, rcfg)
-    enc_x = torch.from_numpy(_cross_extras(
+    enc_x = torch.from_numpy(serve.draw_extras(
         rcfg, 2, np.random.default_rng(seed))["enc_x"]).cuda()
     encs, k2 = {}, {}
     with torch.inference_mode():
@@ -4928,30 +4940,6 @@ def xattn_parity_phase(torch, seed: int, card: str) -> dict:
     out["encoder"] = {"k2": k2["kernel"], "rel": erel}
     print(f"phase 20a: {time.monotonic() - t0:.1f} s", flush=True)
     return out
-
-
-def _encoder_flips(torch, cfg, params, enc_x) -> int:
-    """Rows of whisper's first encoder layer whose token top-k selection
-    (the token fallback's predicted scores of ``enc_x``, one row) differs
-    between the card and the CPU: ``params`` on the CPU, f32."""
-    from repro_torch.core import masks as M
-    from repro_torch.core import prediction as PRED
-    from repro_torch.models.common import rms_norm, sinusoidal_embedding
-    from repro_torch.tree import map_tree
-    t = enc_x.shape[1]
-    keep = M.keep_count(t, cfg.dsa.sparsity)
-    masks = []
-    with torch.inference_mode():
-        for dev in ("cuda", "cpu"):
-            p = map_tree(lambda a: a.to(dev),
-                         params["enc_groups"][0]["b0"])
-            x = torch.from_numpy(enc_x).to(dev) + sinusoidal_embedding(
-                t, cfg.d_model, device=dev)[None]
-            h = rms_norm(x, p["norm1"], cfg.norm_eps)
-            s_t = PRED.predict_scores(p["attn"]["dsa"], h, None,
-                                      bits=cfg.dsa.quant_bits)
-            masks.append(M.row_topk_mask(s_t, keep).cpu())
-    return int((masks[0] != masks[1]).any(-1).sum())
 
 
 def _cross_prefill_profile(torch, label: str, eng, prompts, extras,
@@ -5033,10 +5021,10 @@ def whisper_slice(torch, seed: int, card: str) -> dict:
     del res
     gc.collect()
     torch.cuda.empty_cache()
-    params = _gated(torch, TT.init_model(seed, cfg))
+    params = TT.set_cross_gates(TT.init_model(seed, cfg), XATTN_GATE)
     rng = np.random.default_rng(seed)
     prompts = rng.integers(1, cfg.vocab - 4, size=(b, plen)).astype(np.int32)
-    ex = _cross_extras(cfg, b, rng)
+    ex = serve.draw_extras(cfg, b, rng)
     eng = Engine(cfg, params, max_len=max_len, long_context=True,
                  dsa_mode="kernel", cache_dtype=torch.bfloat16)
     enc_x = torch.from_numpy(ex["enc_x"]).cuda().to(torch.bfloat16)
@@ -5115,10 +5103,10 @@ def vision_slice(torch, seed: int, card: str) -> dict:
     del res
     gc.collect()
     torch.cuda.empty_cache()
-    params = _gated(torch, TT.init_model(seed, cfg))
+    params = TT.set_cross_gates(TT.init_model(seed, cfg), XATTN_GATE)
     rng = np.random.default_rng(seed)
     prompts = rng.integers(1, cfg.vocab - 4, size=(b, plen)).astype(np.int32)
-    ex = _cross_extras(cfg, b, rng)
+    ex = serve.draw_extras(cfg, b, rng)
     eng = Engine(cfg, params, max_len=plen + n_new + 16, long_context=True,
                  dsa_mode="kernel", cache_dtype=torch.bfloat16)
     prof = _cross_prefill_profile(torch, "20c llama_3_2_vision", eng,
@@ -5194,6 +5182,7 @@ def xattn_train_slice(torch, seed: int, card: str) -> dict:
     from repro_torch.configs.base import get_config, reduced
     from repro_torch.data.synthetic import DataConfig, lm_batches
     from repro_torch.launch import serve
+    from repro_torch.models import transformer as TT
     from repro_torch.optim import adamw
     from repro_torch.training import steps as ST
     from repro_torch.tree import named_leaves
@@ -5210,7 +5199,7 @@ def xattn_train_slice(torch, seed: int, card: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         opt = adamw.OptConfig(total_steps=steps + 2, warmup_steps=1)
         state = ST.init_train_state(seed, cfg, opt)
-        _gated(torch, state["params"])
+        TT.set_cross_gates(state["params"], XATTN_GATE)
         rng = np.random.default_rng(seed)
         data = lm_batches(DataConfig(vocab=cfg.vocab, seq_len=s,
                                      global_batch=b, seed=seed))
@@ -5218,7 +5207,7 @@ def xattn_train_slice(torch, seed: int, card: str) -> dict:
         serve.reset_launch_counts()
         metrics, step_s = [], []
         for _ in range(steps):
-            batch = dict(next(data), **_cross_extras(cfg, b, rng))
+            batch = dict(next(data), **serve.draw_extras(cfg, b, rng))
             torch.cuda.synchronize()
             t = time.perf_counter()
             state, m = step(state, batch)
@@ -5233,7 +5222,7 @@ def xattn_train_slice(torch, seed: int, card: str) -> dict:
                             + f", bf16, f32 moments, remat full, with "
                             f"{'enc_x' if cfg.enc_dec else 'img'}) [{card}]",
                             cfg, state, metrics, step_s, b, s, mb, n, peak)
-        batch = dict(next(data), **_cross_extras(cfg, b, rng))
+        batch = dict(next(data), **serve.draw_extras(cfg, b, rng))
         wall, busy, kernels = _profiled_step(
             torch, f"20d {arch} train step ({b} x {s}, {mb} microbatches) "
             f"[{card}]", step, state, batch)
@@ -5247,9 +5236,9 @@ def xattn_train_slice(torch, seed: int, card: str) -> dict:
     ropt = adamw.OptConfig(lr=1e-3, total_steps=10, warmup_steps=2)
     rbatch = dict(next(lm_batches(DataConfig(vocab=rcfg.vocab, seq_len=64,
                                              global_batch=2, seed=seed))),
-                  **_cross_extras(rcfg, 2, np.random.default_rng(seed)))
+                  **serve.draw_extras(rcfg, 2, np.random.default_rng(seed)))
     cardst = ST.init_train_state(seed, rcfg, ropt)
-    _gated(torch, cardst["params"])
+    TT.set_cross_gates(cardst["params"], XATTN_GATE)
     cpu_params = to_cpu(cardst["params"])
     cpu = {"params": cpu_params, "opt": adamw.init(ropt, cpu_params),
            "step": 0}

@@ -202,6 +202,22 @@ def cache_bytes(caches) -> int:
     return caches.numel() * caches.element_size()
 
 
+def draw_extras(cfg, batch: int, rng) -> dict:
+    """The stub frontends' input for ``batch`` rows, standard normal from
+    ``rng`` (numpy, f32): whisper's ``enc_x`` (``enc_seq_len`` frame
+    embeddings), llama vision's ``img`` (``n_image_tokens`` patch
+    embeddings); empty for an arch with neither.  ``main`` draws it after
+    the prompts, as the reference does."""
+    extras = {}
+    if cfg.enc_dec:
+        extras["enc_x"] = rng.normal(
+            size=(batch, cfg.enc_seq_len, cfg.d_model)).astype(np.float32)
+    if cfg.cross_attn_period:
+        extras["img"] = rng.normal(
+            size=(batch, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    return extras
+
+
 def _serve_continuous(cfg, args, params, config, device):
     """Serve the synthetic workload; returns (results, engine)."""
     eng = ContinuousEngine(cfg, params, config=config, device=device)
@@ -397,16 +413,7 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(1, cfg.vocab - 4,
                            size=(args.batch, args.prompt_len)).astype(np.int32)
-    # the frontends are stubs: frame or patch embeddings from the seed,
-    # drawn after the prompts, as the reference draws them
-    extras = {}
-    if cfg.enc_dec:
-        extras["enc_x"] = rng.normal(
-            size=(args.batch, cfg.enc_seq_len, cfg.d_model)).astype(np.float32)
-    if cfg.cross_attn_period:
-        extras["img"] = rng.normal(
-            size=(args.batch, cfg.n_image_tokens, cfg.d_model)
-        ).astype(np.float32)
+    extras = draw_extras(cfg, args.batch, rng)
     spec = args.spec
     if spec and not can_speculate(cfg, eng.decode_flags.dsa_mode, spec):
         print(f"note: spec={spec} is outside the speculation envelope for "

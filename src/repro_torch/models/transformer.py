@@ -120,6 +120,19 @@ def init_model(seed: int, cfg: ArchConfig, *, device=None) -> Dict[str, Any]:
     return params
 
 
+def set_cross_gates(params, gate: float) -> Dict[str, Any]:
+    """``params`` with every cross gate ``xgate`` filled with ``gate``, in
+    place.  The gates start at 0, and tanh(0) = 0: until they move,
+    neither whisper's encoder nor llama's image reaches the logits, so a
+    check of the cross path sets them first."""
+    with torch.no_grad():
+        for group in params["groups"]:
+            for sub in group.values():
+                if "xgate" in sub:
+                    sub["xgate"].fill_(gate)
+    return params
+
+
 def _call(fn, *args):
     return fn(*args)
 

@@ -44,6 +44,7 @@ from repro_torch.data import synthetic as TD
 from repro_torch.inference import engine as TE
 from repro_torch.inference import scheduler as TS
 from repro_torch.inference import speculative as TSP
+from repro_torch.launch.serve import draw_extras
 from repro_torch.models import transformer as TT
 from repro_torch.models.attention import RunFlags
 from repro_torch.optim import adamw as TA
@@ -101,16 +102,11 @@ def params(arch, gate=GATE, **kw):
             convert.from_reference(tree, device="cpu"))
 
 
-def extra_key(cfg) -> str:
-    return "enc_x" if cfg.enc_dec else "img"
-
-
 def extras(cfg, b: int, seed: int = 7):
-    """The arch's second input for ``b`` rows: whisper's frame or
-    llama's patch embeddings, standard normal."""
-    t = cfg.enc_seq_len if cfg.enc_dec else cfg.n_image_tokens
-    return {extra_key(cfg): np.random.default_rng(seed).standard_normal(
-        (b, t, cfg.d_model)).astype(np.float32)}
+    """The arch's second input for ``b`` rows, drawn as ``launch.serve``
+    draws it: whisper's frame or llama's patch embeddings, standard
+    normal."""
+    return draw_extras(cfg, b, np.random.default_rng(seed))
 
 
 def toks(seed, b, n, vocab=512):
