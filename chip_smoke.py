@@ -107,8 +107,8 @@ fails:
      the new params agree within the first AdamW step's sign bound, P is
      unchanged and no kernel launches; the eval step on the kernel path
      (K2 once a layer) gives the block path's ce; then
-     ``repro_torch.launch.train`` trains stablelm_3b at full width (32
-     layers, bf16, remat, 4 steps of 4 x 4096 in 2 microbatches): finite
+     ``repro_torch.launch.train`` trains stablelm_3b at full width (8 of
+     its 32 layers, bf16, remat, 4 steps of 4 x 4096 in 2 microbatches): finite
      metrics, P unchanged, no kernel launched, the median step time,
      tokens/s, the 6 N D share of 989 TFLOP/s, peak memory and the bytes
      of params, grads and moments; and a torch.profiler trace of one more
@@ -123,8 +123,8 @@ fails:
      the same segments eager and, kernel, block and off, of a solo eager
      ``generate(dsa_mode=)``; a block engine's ``generate(dsa_mode=
      "kernel")`` launches K2 once a layer and K1 once a layer a step and
-     gives a kernel engine's tokens.  (b) full-width yi_6b (32 layers,
-     bf16, paged, chunk 512, 4 slots, max_len 8192, segments of 16): 8
+     gives a kernel engine's tokens.  (b) full-width yi_6b (16 of its 32
+     layers, bf16, paged, chunk 512, 4 slots, max_len 8192, segments of 16): 8
      requests sharing a 2048-token system prompt (prompts 2304-3648), all
      queued at the start, once declared and once not: equal tokens, K3
      once a layer a chunk step and K4 once a layer a decode step, goodput,
@@ -169,7 +169,7 @@ fails:
      shed policy, ``slow_segment`` trips the watchdog, telemetry probing
      every segment gives the plain tokens and a probe leaves every cache
      leaf bitwise, and after ``warmup`` a mixed run captures no graph;
-     (b) full-width yi_6b (32 layers, bf16), phase 6's workload, three
+     (b) full-width yi_6b (16 of its 32 layers, bf16), phase 6's workload, three
      plain and three traced runs interleaved on one set of weights:
      goodput, latency, TTFT, K3/K4 launches (K4 once a layer per decode
      and per probe step), the median traced/plain goodput ratio
@@ -196,10 +196,10 @@ fails:
      and the resumed run against the uninterrupted one, at the tolerance
      two uninterrupted runs agree to, with the bytes and the host-copy,
      write and restore seconds; (c) ``repro_torch.launch.train`` trains
-     rwkv6_3b at full width (32 layers, bf16, 4 x 4096 in 2
+     rwkv6_3b at full width (8 of its 32 layers, bf16, 4 x 4096 in 2
      microbatches, 4 steps), no kernel launched, profiled, then its eval
-     step launches K7 once a layer; (d) yi_6b at full width with bf16
-     moments, 4 x 4096 in 2 microbatches (4 if 2 run out of memory),
+     step launches K7 once a layer; (d) yi_6b at full width (8 of its 32
+     layers) with bf16 moments, 4 x 4096 in 2 microbatches (4 if 2 run out of memory),
      4 steps through ``steps.make_train_step``, P unchanged, no kernel,
      profiled.  Each prints its seconds;
  17. mixtral_8x22b, the mixture of experts on a 4096-token ring (K2's
@@ -285,7 +285,26 @@ fails:
      1024-4096 tokens (blocking, bucketed, no images); (d) training with
      the second input: whisper_small whole at 4 x 448, llama at 5
      layers at 4 x 4096 in 2 microbatches, each profiled, and a reduced
-     whisper train step card == CPU.
+     whisper train step card == CPU;
+ 21. distributed serving (one process a device; K1 and K2 at one tp-2
+     shard of yi_6b, 16 query heads on 2 KV heads, held to their plain
+     versions in phase 3): (a) two processes on the one card over gloo,
+     2-layer full-width yi_6b in f32, kernel DSA: the static engine at tp
+     2 and at dp 2, greedy and sampled, and the continuous engine at tp
+     2, chunked and then paged with int8 K/V, each with the tokens of
+     ``mesh=None`` on the card; each rank's launches and collectives
+     (tp: 2 x 2 + 1 all-reduces and one all-gather a step and a
+     prefill); (b) yi_6b cut to 8 layers in bf16 at tp 2 (4 x 4096, 32
+     new): prefill ms and decode tok/s against the unsharded run, the
+     last-row logit gap with DSA off (gated by ``TP_LOGIT_TOL``) and on
+     the kernel path (printed), the greedy agreement, each rank's weight
+     bytes against the replicated figure and its peak memory; (c) NCCL at
+     world size 1 on a ("data", "model") mesh of (1, 1), yi_6b at 8
+     layers: the decode graph captures the collectives, graphed == eager
+     bit for bit, tokens == ``mesh=None``, the collective counters
+     against the budget and the NCCL kernels in a profiler trace.
+     Phases 12, 13b, 15b-c and 16c-d run at cut depths since phase 21
+     joined the run (8, 16, 16 and 8 layers).
 
 It then prints one JSON line of per-kernel results, the card's name and
 power limit again as ``nvidia-smi`` gives them, and as its last line
@@ -1611,9 +1630,10 @@ def train_parity_phase(torch, seed: int) -> dict:
     return {"rel": rel, "params_max_abs": worst, "eval_ce": ce}
 
 
-def train_slice(torch, seed: int) -> dict:
+def train_slice(torch, seed: int, layers: int = 8) -> dict:
     """Train stablelm_3b at full width through ``repro_torch.launch.train``:
-    32 layers in bf16, DSA on the block path, remat, 4 steps of batch 4 x
+    ``layers`` of its 32 layers (8 since phase 21 joined the run) in bf16,
+    DSA on the block path, remat, 4 steps of batch 4 x
     4096 tokens in 2 microbatches.  Every metric finite, P unchanged, no
     kernel launched.  Prints the median step time over steps 2-4,
     tokens/s, the 6 N D share of the bf16 peak, peak memory and the bytes
@@ -1622,19 +1642,20 @@ def train_slice(torch, seed: int) -> dict:
     import math
     import statistics
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs.base import get_config
+    from repro_torch.configs.base import cut_layers, get_config
     from repro_torch.data.synthetic import DataConfig, lm_batches
     from repro_torch.launch import serve, train
     from repro_torch.models.transformer import init_model
     from repro_torch.optim import adamw
     from repro_torch.training import steps as ST
     from repro_torch.tree import named_leaves
-    cfg = get_config("stablelm_3b")
+    cfg = cut_layers(get_config("stablelm_3b"), layers)
     b, s, steps = 4, 4096, 4
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated() / 2**30
     serve.reset_launch_counts()
-    res = train.main(["--arch", "stablelm_3b", "--steps", str(steps),
+    res = train.main(["--arch", "stablelm_3b", "--layers", str(layers),
+                      "--steps", str(steps),
                       "--seq", str(s), "--batch", str(b), "--microbatches",
                       "2", "--data", "lm", "--log-interval", "1",
                       "--seed", str(seed)])
@@ -1656,13 +1677,14 @@ def train_slice(torch, seed: int) -> dict:
     m_bytes = nbytes(t for name in ("m", "v")
                      for _, t in named_leaves(state["opt"][name]))
     finite = all(math.isfinite(v) for m in res.metrics for v in m.values())
-    print(f"train slice (stablelm_3b, 32 layers bf16, DSA block path, "
+    print(f"train slice (stablelm_3b, {layers} layers bf16, DSA block path, "
           f"remat, {steps} steps of {b} x {s} in 2 microbatches): step "
           f"{med * 1e3:.1f} ms (median of steps 2-{steps}; all: "
           + ", ".join(f"{t * 1e3:.1f}" for t in res.step_s)
           + f" ms), {b * s / med:.0f} tok/s; 6 N D / step time / 989 "
           f"TFLOP/s = 6 x {n_blocks + n_head:,} x {b * s} / {med:.4f} s / "
-          f"989e12 = {100 * share:.2f} % (N: the 32 blocks' {n_blocks:,} "
+          f"989e12 = {100 * share:.2f} % (N: the {layers} blocks' "
+          f"{n_blocks:,} "
           f"params and the lm head's {n_head:,}; the embedding lookup and "
           f"the remat recompute are not counted); peak memory {peak:.2f} "
           f"GiB ({held:.2f} held at its start); params {p_bytes:,} B, "
@@ -1931,7 +1953,8 @@ def _serve_counted(eng, reqs) -> dict:
 
 
 def prefix_modes_slice(torch, seed: int, card: str) -> dict:
-    """13b. yi_6b at full width (32 layers, bf16, random weights from
+    """13b. yi_6b at full width (16 of its 32 layers since phase 21
+    joined the run, bf16, random weights from
     ``seed``), paged, chunked (chunk 512), 4 slots, max_len 8192, segments
     of 16, kernel mode, f32 cache.  The prefix run: 8 greedy requests, all
     queued at the start, one 2048-token system prompt (16 pages) and tails
@@ -1944,11 +1967,11 @@ def prefix_modes_slice(torch, seed: int, card: str) -> dict:
     workload with every other request on dsa_mode "off", with
     max_mode_wait_s None and 0.5: every request ok, two graphs."""
     import numpy as np
-    from repro_torch.configs.base import get_config
+    from repro_torch.configs.base import cut_layers, get_config
     from repro_torch.inference.scheduler import (ContinuousEngine, Request,
                                                  synthetic_workload)
     from repro_torch.models.transformer import init_model
-    cfg = get_config("yi_6b")
+    cfg = cut_layers(get_config("yi_6b"), 16)
     n_layers = cfg.n_layers
     params = init_model(seed, cfg)
     rng = np.random.default_rng(seed + 7)
@@ -2763,7 +2786,8 @@ def _prom_statuses(text: str) -> dict:
 
 
 def lifecycle_slice(torch, seed: int, card: str) -> dict:
-    """15b. yi_6b at full width (32 layers, bf16, random weights from
+    """15b. yi_6b at full width (16 of its 32 layers since phase 21
+    joined the run, bf16, random weights from
     ``seed``), phase 6's workload (8 requests, prompts 1152-3670, 16-64
     new, all queued at the start; 4 paged slots, max_len 8192, chunk 512,
     segments of 16, kernel path).  Three runs each of a plain engine
@@ -2787,7 +2811,7 @@ def lifecycle_slice(torch, seed: int, card: str) -> dict:
     import os
     import statistics
     import numpy as np
-    from repro_torch.configs.base import get_config
+    from repro_torch.configs.base import cut_layers, get_config
     from repro_torch.inference.config import ServingConfig
     from repro_torch.inference.faults import Fault, FaultInjector
     from repro_torch.inference.scheduler import (ContinuousEngine,
@@ -2796,7 +2820,7 @@ def lifecycle_slice(torch, seed: int, card: str) -> dict:
     from repro_torch.inference.telemetry import Telemetry
     from repro_torch.launch import serve
     from repro_torch.models.transformer import init_model
-    cfg = get_config("yi_6b")
+    cfg = cut_layers(get_config("yi_6b"), 16)
     nl = cfg.n_layers
     params = init_model(seed, cfg)
     c = ServingConfig(max_len=8192, long_context=True, dsa_mode="kernel",
@@ -3334,32 +3358,34 @@ def _profiled_step(torch, label: str, step, state, batch) -> tuple:
     return wall * 1e3, tr[0], tr[1]
 
 
-def rwkv_train_slice(torch, seed: int) -> dict:
+def rwkv_train_slice(torch, seed: int, layers: int = 8) -> dict:
     """16c.  rwkv6_3b at full width through ``repro_torch.launch.train``:
-    32 layers in bf16, remat, 4 steps of 4 x 4096 tokens in 2
-    microbatches (the differentiable chunked wkv, 128 chunks), no kernel
-    launched; then one profiled step, and the eval step on the trained
-    model, which launches K7 once a layer (its count is the K7 row's
-    "rwkv eval" path)."""
+    ``layers`` of its 32 layers (8 since phase 21 joined the run) in
+    bf16, remat, 4 steps of 4 x 4096 tokens in 2 microbatches (the
+    differentiable chunked wkv, 128 chunks), no kernel launched; then one
+    profiled step, and the eval step on the trained model, which
+    launches K7 once a layer (its count is the K7 row's "rwkv eval"
+    path)."""
     import math
-    from repro_torch.configs.base import get_config
+    from repro_torch.configs.base import cut_layers, get_config
     from repro_torch.data.synthetic import DataConfig, lm_batches
     from repro_torch.launch import serve, train
     from repro_torch.optim import adamw
     from repro_torch.training import steps as ST
     t0 = time.monotonic()
-    cfg = get_config("rwkv6_3b")
+    cfg = cut_layers(get_config("rwkv6_3b"), layers)
     b, s, steps = 4, 4096, 4
     torch.cuda.empty_cache()
     serve.reset_launch_counts()
-    res = train.main(["--arch", "rwkv6_3b", "--steps", str(steps), "--seq",
+    res = train.main(["--arch", "rwkv6_3b", "--layers", str(layers),
+                      "--steps", str(steps), "--seq",
                       str(s), "--batch", str(b), "--microbatches", "2",
                       "--data", "lm", "--log-interval", "1", "--seed",
                       str(seed)])
     n = {k: v for k, v in serve.launch_counts().items() if v}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    out = _train_report(torch, "16c rwkv train slice (rwkv6_3b, 32 layers "
-                        "bf16, remat)", cfg, res.state, res.metrics,
+    out = _train_report(torch, f"16c rwkv train slice (rwkv6_3b, {layers} "
+                        f"layers bf16, remat)", cfg, res.state, res.metrics,
                         res.step_s, b, s, 2, n, peak)
     opt = adamw.OptConfig(total_steps=steps + 2, warmup_steps=1)
     batch = next(lm_batches(DataConfig(vocab=cfg.vocab, seq_len=s,
@@ -3387,21 +3413,22 @@ def rwkv_train_slice(torch, seed: int) -> dict:
     return out
 
 
-def yi_train_slice(torch, seed: int) -> dict:
-    """16d.  yi_6b at full width (32 layers, bf16, remat, DSA block path)
-    with bf16 moments (``OptConfig(moment_dtype="bfloat16")``: 6 bytes a
+def yi_train_slice(torch, seed: int, layers: int = 8) -> dict:
+    """16d.  yi_6b at full width (``layers`` of its 32 layers, 8 since
+    phase 21 joined the run; bf16, remat, DSA block path) with bf16
+    moments (``OptConfig(moment_dtype="bfloat16")``: 6 bytes a
     parameter with the gradients) through ``steps.make_train_step``: 4
     steps of 4 x 4096 tokens in 2 microbatches, or 4 where 2 run out of
     memory; every metric finite, P unchanged, no kernel launched; then one
     profiled step."""
-    from repro_torch.configs.base import get_config
+    from repro_torch.configs.base import cut_layers, get_config
     from repro_torch.data.synthetic import DataConfig, lm_batches
     from repro_torch.launch import serve
     from repro_torch.optim import adamw
     from repro_torch.training import steps as ST
     from repro_torch.tree import named_leaves
     t0 = time.monotonic()
-    cfg = get_config("yi_6b")
+    cfg = cut_layers(get_config("yi_6b"), layers)
     b, s, steps = 4, 4096, 4
     opt = adamw.OptConfig(moment_dtype="bfloat16", total_steps=steps + 1,
                           warmup_steps=1)
@@ -3434,8 +3461,8 @@ def yi_train_slice(torch, seed: int) -> dict:
             mb = b
     n = {k: v for k, v in serve.launch_counts().items() if v}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    out = _train_report(torch, "16d yi train slice (yi_6b, 32 layers bf16, "
-                        "bf16 moments, remat, DSA block)", cfg, state,
+    out = _train_report(torch, f"16d yi train slice (yi_6b, {layers} layers "
+                        f"bf16, bf16 moments, remat, DSA block)", cfg, state,
                         metrics, step_s, b, s, mb, n, peak)
     out["profile"] = _profiled_step(
         torch, f"yi_6b train step ({b} x {s}, {mb} microbatches)", step,
@@ -4294,7 +4321,7 @@ def _graph_bits(torch, eng, prompts, steps: int = 4, extras=None) -> bool:
         same = True
         for _ in range(steps):
             g = step(tok).clone()
-            e = decode_step(eng.params, eng.cfg, eng.decode_flags, tok,
+            e = decode_step(eng.params, eng.mcfg, eng.decode_flags, tok,
                             twin)[0]
             same &= bool(torch.equal(g, e))
             tok = g[:, -1].argmax(-1, keepdim=True)
@@ -5330,6 +5357,353 @@ def static_slice(torch, seed: int, arch: str, dsa_mode: str, want,
             "cache_bytes_per_row": row, "launches": n}
 
 
+# -- phase 21: distributed serving (dp x tp) -----------------------------------
+#
+# The card is one: tp 2 and dp 2 run as two processes on it over gloo
+# (launch.mesh.run_spmd; gloo stages CUDA tensors through the host and
+# cannot be captured, so those engines decode eagerly), and the NCCL path
+# runs at world size 1 on a ("data", "model") mesh of (1, 1).  Each rank
+# function below runs in a spawned process and returns what the phase
+# prints and gates.
+
+# 21b's prediction, written before its first run: the tp-2 prefill's
+# last-row logits against the unsharded run's, max |gap| over max |logit|
+# (bf16: each rank rounds its partial product to bf16 and the gloo sum
+# rounds again, ~2^-8 a projection, over 8 layers).  The first run
+# showed that it holds only where no block selection runs: on the kernel
+# path the predictor's 4-bit fake quant turns those last bits into other
+# selected blocks (0.895 there at 4 x 4096, PERF.md §6), so the gate compares
+# the prefill with DSA off and the kernel path's gap is printed
+TP_LOGIT_TOL = 5e-2
+
+# 21a's gate of the kernel path under tp at the main path's selection
+# geometry (4 x 4096, 32 key blocks a row): in f32 the tp sums differ
+# from the unsharded products in the last f32 bits, too few to flip a
+# block, so the last-row logits agree to max |gap| / max |logit| <= 1e-4
+TP_F32_LOGIT_TOL = 1e-4
+
+
+def _yi_cut(layers: int, f32: bool):
+    from repro_torch.configs.base import cut_layers, get_config
+    cfg = cut_layers(get_config("yi_6b"), layers)
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    return cfg
+
+
+def _collectives_line(counts: dict) -> str:
+    return ", ".join(f"{op} {n}" for op, n in counts.items())
+
+
+def _p21a_rank(rank: int, seed: int) -> dict:
+    """21a on one rank: 2-layer full-width yi_6b f32, kernel DSA.  The
+    static engine at tp 2 and at dp 2, greedy and sampled (4 x 512, 16
+    new), then the continuous engine at tp 2, chunked and then paged with
+    int8 K/V (6 requests, 4 slots), each against the unsharded engine
+    (graphed) on the same card; each run's kernel launches and
+    collectives on this rank.  Last, the tp-2 prefill's last-row logits
+    at 4 x 4096 (32 key blocks a row, the main path's selection) against
+    the unsharded prefill's (``TP_F32_LOGIT_TOL``)."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.inference.engine import Engine
+    from repro_torch.inference.scheduler import ContinuousEngine, Request
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.transformer import init_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _yi_cut(2, f32=True)
+    params = init_model(seed, cfg)
+    kw = dict(long_context=True, dsa_mode="kernel")
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(1, cfg.vocab - 4, size=(4, 512)).astype(np.int32)
+    plain = Engine(cfg, params, max_len=640, **kw)
+    meshes = {"tp 2": make_serving_mesh(dp=1, tp=2, cfg=cfg),
+              "dp 2": make_serving_mesh()}
+    out = {}
+    for name, mesh in meshes.items():
+        eng = Engine(cfg, params, max_len=640, mesh=mesh, **kw)
+        for greedy in (True, False):
+            want = plain.generate(prompts, 16, greedy=greedy,
+                                  seed=seed).tokens
+            serve.reset_launch_counts()
+            before = C.snapshot()
+            res = eng.generate(prompts, 16, greedy=greedy, seed=seed)
+            out[name, greedy] = dict(
+                equal=bool((res.tokens == want).all()),
+                launches=serve.launch_counts(), steps=res.decode_steps,
+                model=C.count_collectives(before, "model"),
+                data=C.count_collectives(before, "data"),
+                graphs=eng.graphs is not None)
+        del eng
+
+    def reqs():
+        r = np.random.default_rng(seed + 1)
+        return [Request(i, r.integers(1, cfg.vocab - 4, size=(n,)).astype(
+            np.int32), k, seed=i) for i, (n, k) in enumerate(
+            [(700, 12), (300, 16), (512, 8), (640, 10), (256, 14),
+             (480, 9)])]
+
+    ckw = dict(slots=4, max_len=1024, seg_len=8, chunk_tokens=256, **kw)
+    for name, extra in (("chunked", {}),
+                        ("paged int8", dict(paged=True, kv_quant="int8",
+                                            select_dtype="int8"))):
+        p = ContinuousEngine(cfg, params, **ckw, **extra)
+        want = p.run(reqs())
+        del p
+        s = ContinuousEngine(cfg, params, mesh=meshes["tp 2"], **ckw,
+                             **extra)
+        serve.reset_launch_counts()
+        got = s.run(reqs())
+        out[name] = dict(
+            equal=set(got) == set(want) and all(
+                bool((got[r] == want[r]).all()) for r in want),
+            launches=serve.launch_counts(), chunks=s.stats["chunks"],
+            steps=s.stats["decode_steps"])
+        del s
+    # the kernel path at the main path's selection geometry, 4 x 4096
+    big = dict(kw, max_len=4096 + 16)
+    long = rng.integers(1, cfg.vocab - 4, size=(4, 4096)).astype(np.int32)
+    last = {}
+    for name, mesh in (("tp 2", meshes["tp 2"]), ("plain", None)):
+        eng = Engine(cfg, params, mesh=mesh, **big)
+        last[name] = eng.prefill(long, caches=eng.resident_cache(4))[0] \
+            .float().cpu()
+        del eng
+    got, want = last["tp 2"], last["plain"]
+    out["4k"] = dict(gap=float((got - want).abs().max()),
+                     scale=float(want.abs().max()),
+                     first_equal=bool((got.argmax(-1)
+                                       == want.argmax(-1)).all()))
+    return out
+
+
+def _p21b_rank(rank: int, seed: int) -> dict:
+    """21b on one rank: full-width yi_6b cut to 8 layers, bf16 on the
+    default f32 cache, kernel DSA, at tp 2.  The engine draws the weights
+    itself (``init_model`` with its ``place``) and keeps this rank's
+    shard of each piece: the peak memory of the process up to then is
+    the placement's.  Then the prefill's last-row logits (4 x 4096),
+    ``generate`` (32 new) timed, the launches and the serving peak.  Rank
+    0 then serves the same prompts unsharded at the same depth (the same
+    weights: the card's generator from the same seed) for the logit gap
+    and the greedy agreement."""
+    import functools
+    import numpy as np
+    import torch
+    from repro_torch.distributed.sharding import tree_bytes
+    from repro_torch.inference.engine import Engine
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.transformer import init_model
+    cfg = _yi_cut(8, f32=False)
+    kw = dict(max_len=4096 + 32 + 16, long_context=True, dsa_mode="kernel")
+    prompts = np.random.default_rng(seed).integers(
+        1, cfg.vocab - 4, size=(4, 4096)).astype(np.int32)
+    eng = Engine(cfg, functools.partial(init_model, seed, cfg),
+                 mesh=make_serving_mesh(dp=1, tp=2, cfg=cfg), **kw)
+    place_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    last = {m: eng.prefill(prompts, caches=eng.resident_cache(4),
+                           dsa_mode=m)[0].float().cpu()
+            for m in ("off", "kernel")}
+    serve.reset_launch_counts()
+    res = eng.generate(prompts, 32)
+    out = dict(shard=eng.weight_bytes_per_device(), place_peak=place_peak,
+               prefill_ms=res.prefill_s * 1e3, tok_s=res.tokens_per_s,
+               steps=res.decode_steps, launches=serve.launch_counts(),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               graphs=eng.graphs is not None)
+    del eng
+    torch.cuda.empty_cache()
+    if rank == 0:
+        params = init_model(seed, cfg)
+        out["whole"] = tree_bytes(params)
+        # the largest leaf, which its draw holds in f32 beside its cast
+        out["leaf"] = max(t.numel() for t in (
+            params["embed"], params["lm_head"]))
+        plain = Engine(cfg, params, **kw)
+        del params
+        for m, got in last.items():
+            want = plain.prefill(prompts, caches=plain.resident_cache(4),
+                                 dsa_mode=m)[0].float().cpu()
+            out["gap", m] = float((got - want).abs().max())
+            out["scale", m] = float(want.abs().max())
+            out["first_equal", m] = bool((got.argmax(-1)
+                                          == want.argmax(-1)).all())
+        ref = plain.generate(prompts, 32)
+        out["agree"] = float((res.tokens == ref.tokens).mean())
+        out["plain_prefill_ms"] = ref.prefill_s * 1e3
+        out["plain_tok_s"] = ref.tokens_per_s
+    return out
+
+
+def _p21c_rank(rank: int, seed: int) -> dict:
+    """21c: NCCL at world size 1 on a ("data", "model") mesh of (1, 1),
+    full-width yi_6b cut to 8 layers (bf16, kernel DSA, 4 x 1024): the
+    sharded code path with every collective.  Its decode graph captures
+    them; graphed == eager bit for bit (``_graph_bits``), tokens ==
+    ``mesh=None``, the counters of a generate against (steps + 1) x the
+    budget, and the NCCL kernels of 4 graph replays in a profiler
+    trace."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.inference.engine import Engine
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import init_model
+    cfg = _yi_cut(8, f32=False)
+    kw = dict(max_len=1024 + 16 + 16, long_context=True, dsa_mode="kernel")
+    prompts = np.random.default_rng(seed).integers(
+        1, cfg.vocab - 4, size=(4, 1024)).astype(np.int32)
+    params = init_model(seed, cfg)
+    eng = Engine(cfg, params, mesh=make_host_mesh(model=1), **kw)
+    out = dict(bits=_graph_bits(torch, eng, prompts))
+    before = C.snapshot()
+    res = eng.generate(prompts, 16)
+    out["model"] = C.count_collectives(before, "model")
+    out["data"] = C.count_collectives(before, "data")
+    out["steps"] = res.decode_steps
+    out["captured"] = eng.graphs is not None and eng.graphs.captures
+    want = Engine(cfg, params, **kw).generate(prompts, 16)
+    out["equal"] = bool((res.tokens == want.tokens).all())
+    step = eng.scan_step(4)
+    tok = torch.as_tensor(res.tokens[:, -1:], device="cuda").long()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(4):
+            step(tok)
+        torch.cuda.synchronize()
+    out["kernels"] = C.kernel_collectives(prof)
+    out["n_layers"] = cfg.n_layers
+    return out
+
+
+def distributed_phase(torch, seed: int) -> dict:
+    """Phase 21, distributed serving: 21a (two gloo processes on the card,
+    2-layer f32: tp 2, dp 2 and the continuous engine at tp 2, each ==
+    ``mesh=None``, launches and collectives per rank), 21b (tp 2 at full
+    width in bf16, 8 layers: prefill ms, decode tok/s, the logit gap
+    against ``TP_LOGIT_TOL``, the greedy agreement, weight bytes per
+    device, each rank's peak memory) and 21c (NCCL at world size 1:
+    graphed == eager, tokens, the collective budget by counters and by
+    the profiler).  Returns 21b's rank-0 launches (the yi tp-2 kernel
+    rows)."""
+    from repro_torch.launch.mesh import run_spmd
+    t0 = time.monotonic()
+    store = tempfile.mkdtemp()
+    gloo = dict(store_dir=store, backend="gloo", device_ids=[0, 0],
+                timeout_s=300, args=(seed,))
+    try:
+        a = run_spmd(_p21a_rank, 2, **gloo)
+        ta = time.monotonic()
+        b = run_spmd(_p21b_rank, 2, **gloo)
+        tb = time.monotonic()
+        c = run_spmd(_p21c_rank, 1, store_dir=store, backend="nccl",
+                     device_ids=[0], timeout_s=300, args=(seed,))[0]
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    budget = 2 * 2 + 1
+    bad = []
+    for key in [k for k in a[0] if isinstance(k, tuple)]:
+        name, greedy = key
+        for r, res in enumerate(a):
+            x = res[key]
+            n = {k: v for k, v in x["launches"].items() if v}
+            print(f"21a {name} static {'greedy' if greedy else 'sampled'}, "
+                  f"rank {r}: == mesh=None {x['equal']}, {x['steps']} "
+                  f"steps ({'graphed' if x['graphs'] else 'eager'}), "
+                  f"launches {n}, collectives model "
+                  f"[{_collectives_line(x['model'])}] data "
+                  f"[{_collectives_line(x['data'])}]", flush=True)
+            want = ({"all-reduce": budget * (x["steps"] + 1),
+                     "all-gather": x["steps"] + 1} if name == "tp 2"
+                    else {"all-reduce": 0, "all-gather": 0})
+            if (not x["equal"] or x["model"] != want
+                    or n != {"K2": 2, "K1": 2 * x["steps"]}):
+                bad.append(f"21a {name} greedy={greedy} rank {r}")
+    for name in ("chunked", "paged int8"):
+        for r, res in enumerate(a):
+            x = res[name]
+            n = {k: v for k, v in x["launches"].items() if v}
+            print(f"21a continuous tp 2 {name}, rank {r}: == mesh=None "
+                  f"{x['equal']}, {x['chunks']} chunk steps, {x['steps']} "
+                  f"decode steps, launches {n}", flush=True)
+            k3, k4 = (("K3q", "K4q") if name == "paged int8"
+                      else ("K3", "K1"))
+            if not x["equal"] or not n.get(k3) or not n.get(k4):
+                bad.append(f"21a continuous {name} rank {r}")
+    for r, res in enumerate(a):
+        x = res["4k"]
+        rel4k = x["gap"] / max(x["scale"], 1e-30)
+        print(f"21a tp 2 prefill 4 x 4096 f32, kernel DSA, rank {r}: "
+              f"last-row logits max |gap| {x['gap']:.4g} of max |logit| "
+              f"{x['scale']:.4g} = {rel4k:.3g} (gated: <= "
+              f"{TP_F32_LOGIT_TOL:g}), first tokens equal "
+              f"{x['first_equal']}", flush=True)
+        if not rel4k <= TP_F32_LOGIT_TOL:
+            bad.append(f"21a 4 x 4096 logit gap rank {r} {rel4k:.3g}")
+    print(f"phase 21a: {ta - t0:.1f} s", flush=True)
+    r0 = b[0]
+    rel = {m: r0["gap", m] / max(r0["scale", m], 1e-30)
+           for m in ("off", "kernel")}
+    print(f"21b yi_6b 8 layers bf16, tp 2 over gloo on one card, 4 x 4096, "
+          f"32 new, kernel DSA: prefill {r0['prefill_ms']:.1f} ms "
+          f"(unsharded {r0['plain_prefill_ms']:.1f}), decode "
+          f"{r0['tok_s']:.1f} tok/s over {r0['steps']} eager steps "
+          f"(unsharded graphed {r0['plain_tok_s']:.1f}), greedy agreement "
+          f"{r0['agree']:.3f}", flush=True)
+    for m in ("off", "kernel"):
+        print(f"  last-row logits, DSA {m}: max |gap| {r0['gap', m]:.4g} of "
+              f"max |logit| {r0['scale', m]:.4g} = {rel[m]:.3g}"
+              + (f" (gated: <= {TP_LOGIT_TOL:g})" if m == "off" else
+                 " (printed: other selected blocks)")
+              + f", first tokens equal {r0['first_equal', m]}", flush=True)
+    whole = r0["whole"]
+    for r, x in enumerate(b):
+        n = {k: v for k, v in x["launches"].items() if v}
+        # placing: the shards drawn so far, the last leaf (lm_head) whole
+        # in bf16 and in f32 while it is drawn
+        bound = x["shard"] + r0["leaf"] * (2 + 4)
+        print(f"  rank {r}: weight bytes {x['shard']} of {whole} "
+              f"replicated ({x['shard'] / whole:.4f}); peak memory placing "
+              f"the weights {x['place_peak'] / 2**30:.2f} GiB (the whole "
+              f"tree {whole / 2**30:.2f} GiB, shard + the largest leaf's "
+              f"draw {bound / 2**30:.2f} GiB), serving "
+              f"{x['peak_gib']:.2f} GiB; launches {n}", flush=True)
+        if (x["shard"] > 0.5 * whole + 0.08 * whole
+                or not x["place_peak"] < whole
+                or n != {"K2": 8, "K1": 8 * x["steps"]}):
+            bad.append(f"21b rank {r}")
+    if rel["off"] > TP_LOGIT_TOL:
+        bad.append(f"21b logit gap (DSA off) {rel['off']:.3g} > "
+                   f"{TP_LOGIT_TOL}")
+    print(f"phase 21b: {tb - ta:.1f} s", flush=True)
+    want = {"all-reduce": (2 * c["n_layers"] + 1) * (c["steps"] + 1),
+            "all-gather": c["steps"] + 1}
+    kern = {op: n / 4 for op, n in c["kernels"].items()}
+    print(f"21c NCCL world 1, mesh (data 1, model 1), yi_6b 8 layers bf16, "
+          f"4 x 1024: graphed == eager bit for bit {c['bits']} "
+          f"({c['captured']} graphs captured), tokens == mesh=None "
+          f"{c['equal']}; collectives over {c['steps']} steps + the prefill: "
+          f"model [{_collectives_line(c['model'])}] (budget "
+          f"[{_collectives_line(want)}]), data "
+          f"[{_collectives_line(c['data'])}]; NCCL kernels a graph replay "
+          f"(profiler): {kern} against 2 x {c['n_layers']} + 1 all-reduces "
+          f"and 1 all-gather", flush=True)
+    if not (c["bits"] and c["equal"] and c["captured"]) or \
+            c["model"] != want or any(c["data"].values()):
+        bad.append("21c")
+    print(f"phase 21c: {time.monotonic() - tb:.1f} s", flush=True)
+    print(f"phase 21: {time.monotonic() - t0:.1f} s", flush=True)
+    if bad:
+        fail(f"phase 21: {bad}")
+    return {"launches": b[0]["launches"]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5487,6 +5861,17 @@ def main() -> None:
                  q_dt=dt, c_dt=dt, kv_len=[4129, 4100, 4097, 4111], nb=6,
                  seed=args.seed, timed=dt == "bfloat16")
         for dt in ("bfloat16", "float32")]
+    # yi_6b at tp 2 (phase 21b): one rank's 16 query heads on 2 KV heads
+    # (G 8, as unsharded); its prefill (B 4, L 4096, bf16, timed) and
+    # decode step (a bf16 q against the 4224-row default f32 cache, timed)
+    k2t_checks = [
+        check_k2(torch, timer, b=4, hq=16, hkv=2, hd=128, l=4096, blk=128,
+                 nb=3, dtype="bfloat16", seed=args.seed, timed=True)]
+    k1t_checks = [
+        check_k1(torch, timer, b=4, hq=16, hkv=2, hd=128, s=4224, bk=128,
+                 q_dt="bfloat16", c_dt="float32",
+                 kv_len=[4129, 4100, 4097, 4111], nb=6, seed=args.seed,
+                 timed=True)]
     k3_checks = [
         check_k3(torch, timer, b=2, hq=8, hkv=2, hd=16, s=100, c=32, blk=16,
                  q_dt="float32", c_dt="float32", q_off=[64, 32],
@@ -5573,6 +5958,8 @@ def main() -> None:
                          ("K1 dsa_decode (whisper)", k1x_checks),
                          ("K2 dsa_attention (llama vision)", k2v_checks),
                          ("K1 dsa_decode (llama vision)", k1v_checks),
+                         ("K2 dsa_attention (yi tp 2)", k2t_checks),
+                         ("K1 dsa_decode (yi tp 2)", k1t_checks),
                          ("K3 dsa_chunk_prefill", k3_checks),
                          ("K4 dsa_decode_paged", k4_checks)] + [
             (f"{k} {q or ''}".strip(), v) for (k, q), v in q_checks.items()]:
@@ -5754,6 +6141,10 @@ def main() -> None:
     launches["vision continuous"] = vis["continuous"]["launches"]
     xattn_train_slice(torch, args.seed, card)
     print(f"phase 20: {time.monotonic() - t20:.1f} s", flush=True)
+    # distributed serving: tp 2 and dp 2 as two gloo processes on the card
+    # (21a-b; 21b at full width, K2 once a layer a prefill and K1 once a
+    # layer a step on each rank's 16 heads), NCCL at world size 1 (21c)
+    launches["yi tp 2"] = distributed_phase(torch, args.seed)["launches"]
 
     src = "src/repro_torch/kernels/csrc/"
     rep = "src/repro/kernels/"
@@ -5840,7 +6231,12 @@ def main() -> None:
             ("dsa_block_sparse_attention (llama vision)", "dsa_attention.cu",
              "dsa_attention.py:77", k2v_checks, "K2", vis_paths),
             ("dsa_decode_gather_attention (llama vision)", "dsa_decode.cu",
-             "dsa_decode.py:185", k1v_checks, "K1", vis_paths)):
+             "dsa_decode.py:185", k1v_checks, "K1", vis_paths),
+            # yi_6b at tp 2: one rank's launches in phase 21b
+            ("dsa_block_sparse_attention (yi tp 2)", "dsa_attention.cu",
+             "dsa_attention.py:77", k2t_checks, "K2", ("yi tp 2",)),
+            ("dsa_decode_gather_attention (yi tp 2)", "dsa_decode.cu",
+             "dsa_decode.py:185", k1t_checks, "K1", ("yi tp 2",))):
         c = next(x for x in checks if "ms" in x)
         by_path = {p: launches[p].get(k, 0) for p in paths}
         kernels.append({

@@ -49,6 +49,13 @@ def predictor_k(d_model: int, sigma: float) -> int:
     return max(8, int(round(sigma * d_model / 8)) * 8)
 
 
+def predictor_specs() -> Dict[str, tuple]:
+    """Logical axes of the predictor's leaves (replicated under the
+    serving rules: every shard selects the same blocks)."""
+    return {"p": ("embed", "pred_k"), "wq": ("pred_k", "pred_k"),
+            "wk": ("pred_k", "pred_k")}
+
+
 def init_predictor(gen: torch.Generator, d_model: int, sigma: float, *,
                    device, dtype=torch.float32) -> Dict[str, torch.Tensor]:
     k = predictor_k(d_model, sigma)

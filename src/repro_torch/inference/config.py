@@ -2,10 +2,7 @@
 
 ``Engine`` reads the shared and static-batch fields, ``ContinuousEngine``
 (inference/scheduler.py) the shared and continuous fields, so one config
-can parameterise a whole serving stack.  The port carries the fields of
-the paths ported so far.  Still unported (``UNPORTED``; each raises
-``NotImplementedError``): serving meshes (``mesh``, ``shard_rules``).
-A recurrent arch (RWKV6, a Mamba hybrid) in the continuous engine admits
+can parameterise a whole serving stack.  A recurrent arch (RWKV6, a Mamba hybrid) in the continuous engine admits
 blocking on a dense cache, whatever ``chunked_prefill`` says; ``paged``
 and quantization are refused for it.
 
@@ -68,6 +65,19 @@ Speculative decoding (continuous engine; ``Engine.generate`` takes
                (K + 1)), about one plain segment's tokens at full
                acceptance).
 
+Serving meshes (both engines; inference/engine.py):
+
+  mesh         None (default) | a ``torch.distributed`` DeviceMesh from
+               ``launch.mesh.make_serving_mesh``: ("data",) shards the
+               batch (slots) over data-parallel ranks with replicated
+               weights; ("data", "model") also shards the weights and KV
+               heads over tensor-parallel ranks.  Every rank runs the
+               same engine on the same requests (one process a device).
+  shard_rules  None (default: ``sharding.make_serving_rules``) | a
+               ``ShardingRules``.  Rules that shard the cache's sequence
+               (``cache_seq``: the long-context cache) raise
+               NotImplementedError: the port does not serve them.
+
 The defaults leave every path as it was.
 """
 from __future__ import annotations
@@ -77,6 +87,7 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.models.attention import (DSA_MODES, KV_QUANT_DTYPES,
                                           SELECT_DTYPES)
 
@@ -96,6 +107,8 @@ class ServingConfig:
     moe_prefill: str = "capacity"    # "dense" = token-exact MoE prefill
     select_dtype: str = "float32"    # DSA selection precision (see above)
     kv_quant: Optional[str] = None   # K/V cache storage quant (see above)
+    mesh: Any = None                 # serving mesh (see above)
+    shard_rules: Any = None          # logical-axis rules (None = default)
     # -- Engine (static batch) ---------------------------------------------
     loop: str = "scan"               # fused step loop vs per-token loop
     prompt_buckets: bool = True
@@ -145,22 +158,26 @@ class ServingConfig:
                              "(None = unbounded)")
         if self.admit_retries < 0:
             raise ValueError("ServingConfig.admit_retries must be >= 0")
-
-
-# the reference's ServingConfig fields of paths not ported yet
-UNPORTED = ("mesh", "shard_rules")
+        if self.mesh is not None and not hasattr(self.mesh,
+                                                 "mesh_dim_names"):
+            raise TypeError(f"ServingConfig.mesh must be a DeviceMesh "
+                            f"(launch.mesh.make_serving_mesh), got "
+                            f"{type(self.mesh).__name__}")
+        if self.shard_rules is not None:
+            if not isinstance(self.shard_rules, ShardingRules):
+                raise TypeError(f"ServingConfig.shard_rules must be a "
+                                f"ShardingRules, got "
+                                f"{type(self.shard_rules).__name__}")
+            if self.shard_rules.cache_seq is not None:
+                raise NotImplementedError(
+                    "ServingConfig.shard_rules with cache_seq set (the "
+                    "sequence-sharded long-context cache) is not ported "
+                    "(ROADMAP Queue 1, \"Distribution\")")
 
 
 def resolve_config(config: Optional[ServingConfig], kw: dict
                    ) -> ServingConfig:
-    """Merge keyword arguments into a ``ServingConfig`` (kwargs win).  A
-    field of the reference that the port does not have yet raises
-    ``NotImplementedError``."""
-    asked = sorted(set(kw) & set(UNPORTED))
-    if asked:
-        raise NotImplementedError(
-            f"{asked} {'is' if len(asked) == 1 else 'are'} not ported to "
-            f"repro_torch yet (see ROADMAP.md)")
+    """Merge keyword arguments into a ``ServingConfig`` (kwargs win)."""
     if config is None:
         return ServingConfig(**kw)
     if not isinstance(config, ServingConfig):

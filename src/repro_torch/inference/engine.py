@@ -69,6 +69,26 @@ loop's step), ``decode_loop`` (the scan loop's step), ``verify`` and
 their captures instead (``DecodeGraphs.telemetry``).  None, the default,
 records nothing.
 
+Serving meshes (``ServingConfig.mesh``, launch/mesh.py): one process a
+device, every rank running the same engine on the same requests and
+seeds.  Under data parallelism ("data") ``generate`` runs this rank's
+rows of the batch (``local_rows``: B / dp of them when dp divides B,
+every row otherwise), draws each token's noise for the whole batch and
+keeps its rows, and gathers the tokens over "data" at the end (each
+speculative round gathers its tokens and emit counts).  Under tensor
+parallelism ("model", ``_place``) the weights are this rank's shard
+(``model_param_specs`` resolved by ``sharding.make_serving_rules``;
+given ``functools.partial(init_model, seed, cfg)`` the engine keeps
+each piece's shard as it is drawn, so the card never holds the whole),
+the model runs the shard's geometry (``mcfg``: n_heads / tp heads,
+n_kv_heads / tp KV heads) with ``RunFlags.tp`` set, so each layer
+all-reduces its contracting products and the head all-gathers the
+logits before sampling: every rank samples the same tokens.  A gloo
+"model" group cannot be captured: such an engine on the card decodes
+eagerly (its construction prints so); on NCCL the decode graphs capture
+the collectives.  ``prefill`` runs the rows it is given (the continuous
+engine's admission runs replicated over "data").
+
 Sampling: greedy takes the first maximum (as ``jnp.argmax`` does), so
 greedy tokens are comparable with the reference.  Sampled decoding draws
 Gumbel noise from the port's own ``torch.Generator`` seeded by ``seed``,
@@ -85,16 +105,26 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig, is_recurrent
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import (make_serving_rules,
+                                              mesh_axis_sizes,
+                                              replicate_put,
+                                              serving_tp_issues,
+                                              shard_config, shard_put_tree,
+                                              tp_unsupported,
+                                              tree_bytes)
 from repro_torch.inference.config import ServingConfig, resolve_config
 from repro_torch.inference.graphs import DecodeGraphs, step_key
 from repro_torch.models.attention import RunFlags
 from repro_torch.models.transformer import (commit_chunk, decode_step,
                                             forward, init_cache,
-                                            spec_scratch, truncate_cache,
-                                            verify_step, zero_cache)
+                                            model_param_specs, spec_scratch,
+                                            truncate_cache, verify_step,
+                                            zero_cache)
 
 PROMPT_BUCKET_FLOOR = 16
 STEP_BUCKET_FLOOR = 4
@@ -179,13 +209,21 @@ def _ro_view(a: np.ndarray, n) -> np.ndarray:
 
 
 def _sample(logits: torch.Tensor, gen: torch.Generator, greedy: bool,
-            temperature: float = 1.0) -> torch.Tensor:
+            temperature: float = 1.0, rows: Optional[slice] = None,
+            total: int = 0) -> torch.Tensor:
     """Next token from (B, V) logits -> (B, 1) int64.  Greedy draws no
     random numbers.  ``temperature`` scales sampled logits only; 1.0
-    divides exactly, so the default is the unscaled chain bit for bit."""
+    divides exactly, so the default is the unscaled chain bit for bit.
+    ``rows`` (with ``total``): ``logits`` are rows ``rows`` of a batch of
+    ``total`` (a data-parallel rank's): the draw is the whole batch's,
+    cut to those rows, so every rank's generator advances alike and each
+    row gets the unsharded batch's noise."""
     if greedy:
         return logits.argmax(dim=-1, keepdim=True)
-    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    shape = logits.shape if rows is None else (total, logits.shape[-1])
+    u = torch.rand(shape, generator=gen, device=logits.device)
+    if rows is not None:
+        u = u[rows]
     gumbel = -torch.log(-torch.log(u))
     return (logits.float() / temperature + gumbel).argmax(dim=-1,
                                                           keepdim=True)
@@ -200,8 +238,9 @@ class Engine:
     def __init__(self, cfg: ArchConfig, params, *,
                  config: Optional[ServingConfig] = None, device=None, **kw):
         """``device=None`` means the card (raises without one); pass
-        ``device="cpu"`` for the plain PyTorch path.  Keyword arguments
-        are ServingConfig fields."""
+        ``device="cpu"`` for the plain PyTorch path.  ``params``: the
+        weight tree, or a callable that draws it piece by piece
+        (``_place``).  Keyword arguments are ServingConfig fields."""
         c = resolve_config(config, kw)
         if (c.select_dtype != "float32" or c.kv_quant) and \
                 not can_quantize(cfg):
@@ -215,10 +254,7 @@ class Engine:
         self.config = c
         self.cfg = cfg
         self.device = resolve_device(device)
-        if params["embed"].device != self.device:
-            raise ValueError(f"params are on {params['embed'].device}, the "
-                             f"engine on {self.device}")
-        self.params = params
+        self._place(params)
         self.max_len = c.max_len
         self.loop = c.loop
         self.pad_id = c.pad_id
@@ -235,10 +271,21 @@ class Engine:
                                       moe_dense=self.moe_dense, **quant)
         self.decode_flags = RunFlags(mode="decode", dsa_mode=c.dsa_mode,
                                      long_context=c.long_context, **quant)
+        if self._tp is not None:
+            self.prefill_flags = dataclasses.replace(self.prefill_flags,
+                                                     tp=self._tp)
+            self.decode_flags = dataclasses.replace(self.decode_flags,
+                                                    tp=self._tp)
         self._caches: Dict[int, Dict] = {}
         self._spec_scratch: Dict[tuple, list] = {}
+        # a gloo "model" group cannot be captured: its collectives run on
+        # the host, inside the step
+        eager = self._tp is not None and self._tp.staged
         self.graphs = (DecodeGraphs(self.device)
-                       if self.device.type == "cuda" else None)
+                       if self.device.type == "cuda" and not eager else None)
+        if eager and self.device.type == "cuda" and dist.get_rank() == 0:
+            print(f"engine: tp={self.tp} over gloo, whose collectives a CUDA "
+                  f"graph cannot capture: decode runs eager", flush=True)
         # with telemetry, each eager program call records its signature
         # (``_note``) and each graph capture its capture
         self.telemetry = c.telemetry
@@ -251,6 +298,102 @@ class Engine:
         if self.telemetry is not None:
             self.telemetry.note(program, *args)
 
+    # -- mesh placement -----------------------------------------------------
+
+    def _place(self, params) -> None:
+        """Set the mesh state and put the weights on this rank's device:
+        whole without a mesh (where they must already lie) or on a
+        dp-only mesh; this rank's shard (``model_param_specs`` resolved
+        by the serving rules) on a mesh with a "model" axis whose dims
+        ``tp`` divides.  An indivisible tp falls back to replicated
+        weights (``tp`` 1, no "model" collective), as the reference's
+        engine does; an arch with no tensor-parallel form raises at tp >
+        1.  At tp 1 on a ("data", "model") mesh the sharded path runs
+        with every collective, over groups of one.
+
+        ``params`` is the weight tree, or a callable that draws it and
+        hands each piece to the ``place`` it is given (``init_model``'s
+        ``place``, e.g. ``functools.partial(init_model, seed, cfg)``):
+        the engine keeps this rank's shard of each piece as it comes, so
+        the whole tree never exists on the device."""
+        c, cfg = self.config, self.cfg
+        self.mesh = c.mesh
+        self.shard_rules = None
+        self.tp = 1
+        self.mcfg = cfg            # the geometry this rank's layers compute
+        self._tp: Optional[C.AxisGroup] = None   # "model": layers' group
+        self._dp: Optional[C.AxisGroup] = None   # "data": batch rows
+        if c.mesh is None:
+            if callable(params):
+                params = params(place=lambda piece, specs: replicate_put(
+                    piece, self.device))
+            if params["embed"].device != self.device:
+                raise ValueError(f"params are on {params['embed'].device}, "
+                                 f"the engine on {self.device}")
+            self.params = params
+            return
+        sizes = mesh_axis_sizes(c.mesh)
+        tp = sizes.get("model", 1)
+        why = tp_unsupported(cfg)
+        if tp > 1 and why is not None:
+            raise NotImplementedError(
+                f"tp={tp}: {cfg.name}'s {why} have no tensor-parallel form "
+                f"in the port (ROADMAP Queue 1, \"Distribution\"); serve "
+                f"it on a dp-only mesh")
+        tp_ok = "model" in sizes and not serving_tp_issues(cfg, tp)
+        rules = (c.shard_rules if c.shard_rules is not None else
+                 make_serving_rules(tp=tp_ok))
+        self.shard_rules = rules
+        split = {rules.heads, rules.kv_heads, rules.mlp}
+        if len(split) > 1:
+            raise NotImplementedError(
+                f"shard_rules heads={rules.heads!r}, kv_heads="
+                f"{rules.kv_heads!r}, mlp={rules.mlp!r}: the port shards "
+                f"all three over \"model\" or none")
+        if tp_ok and split == {"model"}:
+            def place(piece, specs):
+                return shard_put_tree(piece, specs, c.mesh, rules,
+                                      device=self.device)
+            self.tp = tp
+            self.mcfg = shard_config(cfg, tp)
+            self._tp = C.axis_group(c.mesh, "model")
+        else:
+            def place(piece, specs):
+                return replicate_put(piece, self.device)
+        self.params = (params(place=place) if callable(params)
+                       else place(params, model_param_specs(cfg)))
+        if "data" in sizes:
+            self._dp = C.axis_group(c.mesh, "data")
+
+    def weight_bytes_per_device(self) -> int:
+        """Resident weight bytes on this rank's device (shard shapes):
+        about 1 / tp of the whole under tensor parallelism (norms, the
+        predictor and the router stay whole), the whole otherwise."""
+        return tree_bytes(self.params)
+
+    def local_rows(self, batch: int) -> slice:
+        """This rank's rows of a ``batch``-row batch: a 1 / dp slice when
+        the data axis divides the batch, every row otherwise (and
+        without a mesh)."""
+        g = self._dp
+        if g is None or g.size == 1 or batch % g.size:
+            return slice(0, batch)
+        n = batch // g.size
+        return slice(g.rank * n, (g.rank + 1) * n)
+
+    def gather_rows(self, x, batch: int):
+        """The whole batch of ``batch`` rows from this rank's rows ``x``
+        (a tensor or a numpy array, rows first): one all-gather over
+        "data" when ``local_rows`` split the batch, ``x`` as it is
+        otherwise."""
+        g = self._dp
+        if g is None or g.size == 1 or batch % g.size:
+            return x
+        if isinstance(x, np.ndarray):
+            t = torch.as_tensor(x, device=self.device)
+            return C.all_gather(t, g, 0).cpu().numpy()
+        return C.all_gather(x, g, 0)
+
     def prompt_bucket(self, prompt_len: int) -> int:
         if not self.bucket_prompts:
             return prompt_len
@@ -262,7 +405,7 @@ class Engine:
         of that batch size is captured over it."""
         if batch not in self._caches:
             self._caches[batch] = init_cache(
-                self.cfg, batch, self.max_len, self.decode_flags,
+                self.mcfg, batch, self.max_len, self.decode_flags,
                 dtype=self.cache_dtype, device=self.device)
         return self._caches[batch]
 
@@ -287,7 +430,7 @@ class Engine:
         flags = flags or self.decode_flags
 
         def step(tok, mask=None):
-            return decode_step(self.params, self.cfg, flags, tok, caches)[0]
+            return decode_step(self.params, self.mcfg, flags, tok, caches)[0]
 
         if self.graphs is None:
             def eager(tok, mask=None):
@@ -295,7 +438,7 @@ class Engine:
                 return step(tok)
             return eager
         return self.graphs.step(
-            step_key(self.cfg, flags, batch, paged=False), step,
+            step_key(self.mcfg, flags, batch, paged=False), step,
             caches, batch, masked=False, program="decode_loop")
 
     def spec_steps(self, batch: int, k: int, flags: RunFlags,
@@ -320,19 +463,19 @@ class Engine:
         def verify(chunk, mask):
             if eager:
                 self._note("verify", chunk, mask, caches, scratch, flags)
-            return verify_step(self.params, self.cfg, flags, chunk, caches,
+            return verify_step(self.params, self.mcfg, flags, chunk, caches,
                                active=mask, scratch=scratch)[0]
 
         def commit(keep, mask):
             if eager:
                 self._note("commit", keep, mask, caches, scratch, flags, c)
-            commit_chunk(self.cfg, flags, caches, keep[:, 0], c, active=mask,
+            commit_chunk(self.mcfg, flags, caches, keep[:, 0], c, active=mask,
                          scratch=scratch)
 
         if eager:
             return verify, commit
         return tuple(self.graphs.step(
-            step_key(self.cfg, flags, batch, False, kind=(kind, c)), fn,
+            step_key(self.mcfg, flags, batch, False, kind=(kind, c)), fn,
             caches, batch, masked=True, width=w, program=kind)
             for kind, fn, w in (("verify", verify, c), ("commit", commit, 1)))
 
@@ -364,7 +507,7 @@ class Engine:
                              f"absorbs pad tokens, so it takes no ragged "
                              f"batch")
         if caches is None:
-            caches = init_cache(self.cfg, b, cache_len or self.max_len,
+            caches = init_cache(self.mcfg, b, cache_len or self.max_len,
                                 self.decode_flags, dtype=self.cache_dtype,
                                 device=self.device)
         else:
@@ -378,10 +521,9 @@ class Engine:
         t0 = time.monotonic()
         flags = self.run_flags("prefill", dsa_mode)
         self._note("prefill", toks, caches, lens, flags, extra)
-        logits, caches = forward(self.params, self.cfg, flags, toks, caches,
-                                 extras=extra)
-        truncate_cache(self.cfg, caches, lens)
-        last = logits[torch.arange(b, device=self.device), lens - 1][:, None]
+        last, caches = forward(self.params, self.mcfg, flags, toks, caches,
+                               extras=extra, last=lens - 1)
+        truncate_cache(self.mcfg, caches, lens)
         _sync(self.device)
         return last, caches, time.monotonic() - t0
 
@@ -421,35 +563,40 @@ class Engine:
             return self._generate_spec(prompts, n_new, spec, draft, greedy,
                                        seed, lengths, temperature, dsa_mode)
         b = prompts.shape[0]
+        # under a data-parallel mesh this rank runs its rows of the batch
+        rows = self.local_rows(b)
+        lb = rows.stop - rows.start
+        draw = dict(rows=rows, total=b) if lb < b else {}
         scan = self.loop == "scan"
         steps_exec = n_new - 1
         if scan and self.bucket_steps and steps_exec:
             steps_exec = pow2_bucket(steps_exec, STEP_BUCKET_FLOOR)
-        caches = self.resident_cache(b)
+        caches = self.resident_cache(lb)
         dflags = self.run_flags("decode", dsa_mode)
         # the step (and its graph's capture) comes before the prefill,
         # which zeroes what a capture's warm-up steps wrote
-        step = self.scan_step(b, dflags) if scan and steps_exec else None
-        logits, caches, t_prefill = self.prefill(prompts, lengths=lengths,
-                                                 caches=caches,
-                                                 dsa_mode=dsa_mode,
-                                                 extras=extras)
+        step = self.scan_step(lb, dflags) if scan and steps_exec else None
+        logits, caches, t_prefill = self.prefill(
+            prompts[rows], lengths=None if lengths is None else
+            np.asarray(lengths)[rows], caches=caches, dsa_mode=dsa_mode,
+            extras=None if extras is None else
+            {k: np.asarray(v)[rows] for k, v in extras.items()})
         gen = torch.Generator(device=self.device).manual_seed(seed)
         t0 = time.monotonic()
-        tok = _sample(logits[:, -1], gen, greedy, temperature)
+        tok = _sample(logits[:, -1], gen, greedy, temperature, **draw)
         out: List[torch.Tensor] = [tok]
         for _ in range(steps_exec):
             if scan:
                 logits = step(tok)
             else:
                 self._note("decode", tok, caches, dflags)
-                logits, caches = decode_step(self.params, self.cfg, dflags,
+                logits, caches = decode_step(self.params, self.mcfg, dflags,
                                              tok, caches)
-            tok = _sample(logits[:, -1], gen, greedy, temperature)
+            tok = _sample(logits[:, -1], gen, greedy, temperature, **draw)
             if not scan:                       # host round trip per token
                 tok = tok.cpu().to(self.device)
             out.append(tok)
-        toks = torch.cat([t.cpu() for t in out], dim=1)[:, :n_new]
+        toks = self.gather_rows(torch.cat(out, dim=1), b).cpu()[:, :n_new]
         _sync(self.device)
         t_decode = time.monotonic() - t0
         tps = b * steps_exec / max(t_decode, 1e-9) if steps_exec else 0.0
@@ -478,22 +625,27 @@ class Engine:
         b = prompts.shape[0]
         if lengths is None:
             lengths = np.full((b,), prompts.shape[1], np.int32)
-        caches = self.resident_cache(b)
+        # under a data-parallel mesh this rank verifies its rows; the
+        # histories, drafts and budgets stay the whole batch's on every
+        # rank, and each round's tokens are gathered
+        rows = self.local_rows(b)
+        lb = rows.stop - rows.start
+        caches = self.resident_cache(lb)
         flags = dataclasses.replace(self.run_flags("decode", dsa_mode),
                                     spec_verify=True)
         # the graphs (captured with an all-false mask, which writes
         # nothing) come before the prefill, as the decode step's do
-        verify, commit = self.spec_steps(b, spec, flags)
-        logits, caches, t_prefill = self.prefill(prompts, lengths=lengths,
-                                                 caches=caches,
-                                                 dsa_mode=dsa_mode)
+        verify, commit = self.spec_steps(lb, spec, flags)
+        logits, caches, t_prefill = self.prefill(
+            prompts[rows], lengths=np.asarray(lengths)[rows], caches=caches,
+            dsa_mode=dsa_mode)
         gens = [None if greedy else
                 torch.Generator(device=self.device).manual_seed(seed)
-                for _ in range(b)]
+                for _ in range(lb)]
         t0 = time.monotonic()
         tok = torch.cat([_sample(logits[r:r + 1, -1], gens[r], greedy,
-                                 temperature) for r in range(b)])
-        tok_np = tok.cpu().numpy()
+                                 temperature) for r in range(lb)])
+        tok_np = self.gather_rows(tok.cpu().numpy(), b)
         hists, hlens = [], np.empty((b,), np.int64)
         for i in range(b):
             plen = int(lengths[i])
@@ -512,9 +664,11 @@ class Engine:
         while active.any():
             drafts = proposer.propose(
                 [_ro_view(hists[i], hlens[i]) for i in range(b)], spec)
-            tok, nxt, emit = sd.round(verify, commit, tok, drafts, active,
-                                      remaining, [greedy] * b,
-                                      [temperature] * b, gens)
+            tok, nxt, emit = sd.round(verify, commit, tok, drafts[rows],
+                                      active[rows], remaining[rows],
+                                      [greedy] * lb, [temperature] * lb,
+                                      gens)
+            nxt, emit = self.gather_rows(nxt, b), self.gather_rows(emit, b)
             for i in range(b):
                 e = int(emit[i])
                 if e:

@@ -132,8 +132,23 @@ sparsity probe (``_sparsity_probe``): one eager decode step that reads
 back each layer's block selection and puts back every cache row it
 wrote.
 
-Not ported yet (raises ``NotImplementedError`` where a caller asks for
-it): serving meshes.  Every ``dsa_mode`` is served, ``faithful``
+Serving meshes (``ServingConfig.mesh``, launch/mesh.py): one process a
+device, every rank running this engine on the same requests.  Under
+data parallelism ("data") the resident cache holds this rank's slots
+[lo, hi) (``Engine.local_rows``; every slot when the data axis does not
+divide them), each segment decodes them, and its one sync becomes one
+all-gather over "data" of every slot's tokens and finiteness flag, so
+every rank's host state (slots, queue, page-pool account) stays the
+same; a speculative round gathers its drawn tokens and emit counts.
+Admission runs replicated over "data" (every rank chunks or prefills
+the whole group into its own staging cache, and the first tokens every
+rank acts on are data rank 0's); the insert writes only the slot's
+rank.  A paged pool is the whole pool on every rank: inserts write its
+pages everywhere (a shared prefix page may back any rank's slot), the
+decode steps only their own slots' pages.  Under tensor parallelism
+("model") the weights, the K/V rows and the pool's head axis are this
+rank's shard and the layers all-reduce (models/); the kt/ktb selection
+caches stay whole.  Every ``dsa_mode`` is served, ``faithful``
 included.
 """
 from __future__ import annotations
@@ -149,6 +164,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantization import raw
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed.fault_tolerance import StepWatchdog
 from repro_torch.inference.config import ServingConfig, resolve_config
 from repro_torch.inference.engine import (Engine, _ro_view, _sample, _sync,
@@ -442,6 +458,14 @@ class ContinuousEngine:
         self.engine = Engine(cfg, params, config=c, device=device,
                              loop="scan")
         self.device = self.engine.device
+        self.mesh = self.engine.mesh
+        # under a data-parallel mesh the resident cache holds this rank's
+        # slots [lo, hi) (every slot when the data axis does not divide
+        # them); the host state (queue, slots, pool account) is the whole
+        # engine's on every rank
+        rows = self.engine.local_rows(slots)
+        self._lo, self._hi = rows.start, rows.stop
+        self._world = C.world_group(self.mesh)
         # chunked admission replays the bucketed whole-prompt prefill;
         # SWA and recurrent archs admit blocking (their prompts are not
         # bucketed), and MoE archs unless moe_prefill="dense" routes their
@@ -546,6 +570,12 @@ class ContinuousEngine:
         when telemetry is on and the signature is new."""
         if self.telemetry is not None:
             self.telemetry.note(program, *args)
+
+    def _agree(self, value: float) -> float:
+        """Rank 0's ``value`` on every rank of the mesh (``value`` without
+        one): a host decision from a local clock or timing must be every
+        rank's, or their collectives fall out of step."""
+        return C.agree(value, self._world, self.device)
 
     @torch.inference_mode()
     def _zero_pages(self, ids: Sequence[int]) -> None:
@@ -652,9 +682,10 @@ class ContinuousEngine:
             return 0
         if self.max_mode_wait_s is not None:
             now = time.monotonic()
-            if any(self._eff_mode(r) != self._cur_mode
-                   and now - self._enq_s.get(r.rid, now)
-                   >= self.max_mode_wait_s for r in self.queue):
+            if self._agree(any(self._eff_mode(r) != self._cur_mode
+                               and now - self._enq_s.get(r.rid, now)
+                               >= self.max_mode_wait_s
+                               for r in self.queue)):
                 return None               # an aged other-mode request
         for i, r in enumerate(self.queue):
             if self._eff_mode(r) == self._cur_mode:
@@ -743,18 +774,30 @@ class ContinuousEngine:
             self._enq_s.pop(r.rid, None)
         return group
 
-    def _sample_tok0(self, last_row: torch.Tensor, req: Request
-                     ) -> Tuple[int, torch.Generator]:
-        """A request's first token from its prefill logits row (1, V), with
-        a generator of its own seeded as ``Engine.generate`` seeds."""
-        gen = torch.Generator(device=self.device).manual_seed(req.seed)
-        tok0 = _sample(last_row, gen, req.greedy, req.temperature)
-        return int(tok0[0, 0]), gen
+    def _first_tokens(self, last: torch.Tensor, reqs: Sequence[Request]
+                      ) -> List[Tuple[int, torch.Generator]]:
+        """Each request's first token from its prefill logits row of
+        ``last`` (n, V), with a generator of its own seeded as
+        ``Engine.generate`` seeds.  Admission runs replicated over a
+        data-parallel mesh; the tokens every rank acts on are data rank
+        0's (one all-gather over "data")."""
+        out = []
+        for i, req in enumerate(reqs):
+            gen = torch.Generator(device=self.device).manual_seed(req.seed)
+            tok0 = _sample(last[i:i + 1], gen, req.greedy, req.temperature)
+            out.append((tok0, gen))
+        toks = torch.cat([t for t, _ in out], dim=1) if out else None
+        g = self.engine._dp
+        if toks is not None and g is not None and g.size > 1:
+            toks = C.all_gather(toks, g, 0)[:1]
+        host = [] if toks is None else toks[0].tolist()
+        return [(int(t), gen) for t, (_, gen) in zip(host, out)]
 
     def _activate(self, slot: int, req: Request, tok0: int,
                   gen: torch.Generator, admit_s: float,
                   first_s: float) -> None:
-        self._tok[slot, 0] = tok0
+        if self._lo <= slot < self._hi:
+            self._tok[slot - self._lo, 0] = tok0
         self._gens[slot] = gen
         self._active[slot] = True
         self._greedy[slot] = req.greedy
@@ -775,12 +818,16 @@ class ContinuousEngine:
         bucket-sized staging cache, every leaf: the per-token rows
         zero-extended (a ring of min(prompt, window) rows into one of
         min(max_len, window): both place token i at slot i % window),
-        ``pos`` and a recurrent layer's state copied whole."""
+        ``pos`` and a recurrent layer's state copied whole.  Under a
+        data-parallel mesh the staging cache is every rank's (admission
+        runs replicated over "data") and only the slot's rank writes."""
+        if not self._lo <= slot < self._hi:
+            return
         self._note("insert", pre, slot, row)
         for res, st in zip(attn_caches(self._caches), attn_caches(pre)):
             for name, t in res.items():
                 src = raw(st[name])[row]
-                dst = raw(t)[slot]
+                dst = raw(t)[slot - self._lo]
                 if name in _SEQ_KEYS:
                     dst.zero_()
                     dst[:src.shape[0]] = src
@@ -794,7 +841,10 @@ class ContinuousEngine:
         into the pages ``tbl_row`` maps and install the page-table row.
         Staged rows whose block is unmapped (beyond the slot's pages, all
         zero) are dropped; mapped pages were zeroed at allocation, so the
-        slot's logical view equals the dense zero-extended insert."""
+        slot's logical view equals the dense zero-extended insert.  Under
+        a data-parallel mesh every rank keeps the whole pool and writes
+        the pages (a shared prefix page may be read by any rank's slot);
+        the table row and ``pos`` land on the slot's rank."""
         self._note("insert_paged", pre, slot, row, tbl_row)
         bk = self._page_rows
         tbl = torch.as_tensor(tbl_row, dtype=torch.long, device=self.device)
@@ -809,8 +859,9 @@ class ContinuousEngine:
                 if name in res:
                     pgs = tbl[:st[name].shape[1]]
                     _pool_write(res[name], pgs, st[name][row], pgs > 0)
-            res["page_tbl"][slot] = tbl.to(torch.int32)
-            res["pos"][slot] = st["pos"][row]
+            if self._lo <= slot < self._hi:
+                res["page_tbl"][slot - self._lo] = tbl.to(torch.int32)
+                res["pos"][slot - self._lo] = st["pos"][row]
 
     def _admit_group(self, slots: List[int], group: List[Request], mode: str,
                      clock, results: List[RequestResult]) -> None:
@@ -844,8 +895,9 @@ class ContinuousEngine:
         self.stats["admitted"] += len(group)
         now = clock()
         free = iter(slots)
+        first = self._first_tokens(last[:len(group), -1], group)
         for j, req in enumerate(group):
-            tok0, gen = self._sample_tok0(last[j:j + 1, -1], req)
+            tok0, gen = first[j]
             self.stats["useful_tokens"] += 1
             if req.n_new == 1:       # first token IS the whole generation
                 if tel is not None:
@@ -894,7 +946,8 @@ class ContinuousEngine:
             p = np.asarray(r.prompt, np.int32)
             mat[j, :len(p)] = p
             lengths[j] = len(p)
-        caches = init_cache(self.cfg, bpf, bucket, self.engine.decode_flags,
+        caches = init_cache(self.engine.mcfg, bpf, bucket,
+                            self.engine.decode_flags,
                             dtype=self.engine.cache_dtype, device=self.device)
         slots: List[Optional[int]] = []
         it = iter(free)
@@ -986,8 +1039,9 @@ class ContinuousEngine:
         if st["chunks"] and st["segments"] and st["chunk_s"] > 0:
             per_chunk = st["chunk_s"] / st["chunks"]
             per_seg = st["segment_s"] / st["segments"]
-            return int(np.clip(round(per_seg / max(per_chunk, 1e-9)),
-                               1, remaining))
+            # a local timing: every rank of a mesh takes rank 0's
+            return int(self._agree(np.clip(
+                round(per_seg / max(per_chunk, 1e-9)), 1, remaining)))
         return 1                  # cold start: no timings yet
 
     @torch.inference_mode()
@@ -1002,10 +1056,10 @@ class ContinuousEngine:
                                device=self.device)
         flags = self._flags(pf.mode)
         self._note("chunk", toks, pf.caches, cl, flags, pf.bucket)
-        logits, _ = chunk_step(self.engine.params, self.cfg, flags, toks,
-                               pf.caches, cl, sel_len=pf.bucket)
-        idx = cl.long().clamp(min=1) - 1
-        return logits[torch.arange(logits.shape[0], device=self.device), idx]
+        logits, _ = chunk_step(self.engine.params, self.engine.mcfg, flags,
+                               toks, pf.caches, cl, sel_len=pf.bucket,
+                               last=cl.long().clamp(min=1) - 1)
+        return logits[:, 0]
 
     @torch.inference_mode()
     def step_prefill(self, clock, results: List[RequestResult],
@@ -1036,10 +1090,11 @@ class ContinuousEngine:
             _sync(self.device)            # this chunk has completed
             synced = True
             now = clock()
-            for i in finishing:
+            first = self._first_tokens(last[finishing],
+                                       [pf.reqs[i] for i in finishing])
+            for i, (tok0, gen) in zip(finishing, first):
                 req = pf.reqs[i]
                 pf.dead.add(i)            # no longer chunking
-                tok0, gen = self._sample_tok0(last[i:i + 1], req)
                 self.stats["useful_tokens"] += 1
                 if req.n_new == 1:        # retires without touching a slot
                     if self.telemetry is not None:
@@ -1308,6 +1363,10 @@ class ContinuousEngine:
             "last_error": self._last_error,
         }
 
+    def weight_bytes_per_device(self) -> int:
+        """The engine's resident weight bytes on this rank's device."""
+        return self.engine.weight_bytes_per_device()
+
     # -- warmup / reset ------------------------------------------------------
 
     @torch.inference_mode()
@@ -1324,10 +1383,12 @@ class ContinuousEngine:
                      if self.paged else None)
         self._caches = None               # free the old cache first
         self._caches = init_cache(
-            self.cfg, self.slots, self.max_len, self.engine.decode_flags,
-            dtype=self.engine.cache_dtype, device=self.device,
+            self.engine.mcfg, self._hi - self._lo, self.max_len,
+            self.engine.decode_flags, dtype=self.engine.cache_dtype,
+            device=self.device,
             pages=self.pool_pages if self.paged else None)
-        self._tok = torch.zeros((self.slots, 1), dtype=torch.long,
+        # this rank's slots' pending tokens
+        self._tok = torch.zeros((self._hi - self._lo, 1), dtype=torch.long,
                                 device=self.device)
         self._gens: List[Optional[torch.Generator]] = [None] * self.slots
         self._active = np.zeros((self.slots,), bool)
@@ -1405,7 +1466,7 @@ class ContinuousEngine:
         flags = self._flags(mode or self._cur_mode or e.decode_flags.dsa_mode)
 
         def step(tok, mask):
-            return decode_step(e.params, self.cfg, flags, tok, caches,
+            return decode_step(e.params, e.mcfg, flags, tok, caches,
                                active=mask)[0]
 
         if self.graphs is None:
@@ -1414,8 +1475,8 @@ class ContinuousEngine:
                 return step(tok, mask)
             return eager
         return self.graphs.step(
-            step_key(self.cfg, flags, self.slots, self.paged), step,
-            caches, self.slots, masked=True, program="segment")
+            step_key(e.mcfg, flags, self._hi - self._lo, self.paged), step,
+            caches, self._hi - self._lo, masked=True, program="segment")
 
     # -- decode segments ----------------------------------------------------
 
@@ -1459,7 +1520,8 @@ class ContinuousEngine:
                 return
         act = (self._active[None, :]
                & (remaining[None, :] > np.arange(self.seg_len)[:, None]))
-        sampled = [i for i in range(self.slots)
+        lo, hi = self._lo, self._hi       # this rank's slots
+        sampled = [i for i in range(lo, hi)
                    if self._slot[i] is not None and not self._greedy[i]]
         t0 = time.monotonic()
         self._watchdog.start()
@@ -1469,12 +1531,13 @@ class ContinuousEngine:
                 time.sleep(f.delay_s)     # stall inside the watchdog window
         try:
             step = self._segment_step()
-            act_dev = torch.as_tensor(act, device=self.device)  # one upload
-            bad = (None if poison is None
-                   else torch.as_tensor(poison, device=self.device)[:, None])
-            n_act = act.sum(axis=1)
+            act_dev = torch.as_tensor(act[:, lo:hi],
+                                      device=self.device)  # one upload
+            bad = (None if poison is None else torch.as_tensor(
+                poison[lo:hi], device=self.device)[:, None])
+            n_act = act.sum(axis=1)       # every rank runs the same steps
             tok = self._tok
-            fin = torch.ones((self.slots,), dtype=torch.bool,
+            fin = torch.ones((hi - lo,), dtype=torch.bool,
                              device=self.device)
             outs = []
             steps = 0
@@ -1490,12 +1553,16 @@ class ContinuousEngine:
                 nxt = lg.argmax(dim=-1, keepdim=True)
                 for i in sampled:
                     if act[t, i]:
-                        nxt[i:i + 1] = _sample(lg[i:i + 1], self._gens[i],
+                        r = i - lo
+                        nxt[r:r + 1] = _sample(lg[r:r + 1], self._gens[i],
                                                False, self._temps[i])
                 tok = torch.where(act_dev[t][:, None], nxt, tok)
                 outs.append(tok)
-            # the segment's one sync: its tokens and each slot's fin
-            host = torch.cat(outs + [fin[:, None].long()], dim=1).cpu()
+            # the segment's one sync: its tokens and each slot's fin, every
+            # rank's slots (one all-gather over "data" under a mesh)
+            host = self.engine.gather_rows(
+                torch.cat(outs + [fin[:, None].long()], dim=1),
+                self.slots).cpu()
         except Exception as e:            # a segment that raised: scrub
             self._last_error = repr(e)
             self.stats["dispatch_failures"] += 1
@@ -1575,13 +1642,15 @@ class ContinuousEngine:
         if not self._active.any():
             return
         t0 = time.monotonic()
-        mask = torch.as_tensor(self._active, device=self.device)
+        mask = torch.as_tensor(self._active[self._lo:self._hi],
+                               device=self.device)
         sel = self._probe_step(self._tok, mask, self._caches,
                                dataclasses.replace(flags, sel_probe=True))
         nl = len(sel)
-        host = torch.cat([torch.cat([i.long(), o.long()], dim=1)
-                          for i, o, _ in sel]
-                         + [sel[0][2].long()[:, None]], dim=1).cpu().numpy()
+        host = self.engine.gather_rows(
+            torch.cat([torch.cat([i.long(), o.long()], dim=1)
+                       for i, o, _ in sel] + [sel[0][2].long()[:, None]],
+                      dim=1), self.slots).cpu().numpy()
         self.stats["probe_steps"] += 1
         self.stats["probe_s"] += time.monotonic() - t0
         kb = sel[0][0].shape[1]
@@ -1627,8 +1696,8 @@ class ContinuousEngine:
         bk = self.cfg.dsa.block_k
         saved = [_save_step_rows(lc, bk) for lc in attn_caches(caches)]
         try:
-            return decode_step(self.engine.params, self.cfg, flags, tok,
-                               caches, active=mask)[2]
+            return decode_step(self.engine.params, self.engine.mcfg, flags,
+                               tok, caches, active=mask)[2]
         finally:
             for lc, sv in zip(attn_caches(caches), saved):
                 _restore_step_rows(lc, sv)
@@ -1643,7 +1712,7 @@ class ContinuousEngine:
         flags = dataclasses.replace(
             self._flags(self._cur_mode or self.engine.decode_flags.dsa_mode),
             spec_verify=True)
-        return self.engine.spec_steps(self.slots, self.spec, flags,
+        return self.engine.spec_steps(self._hi - self._lo, self.spec, flags,
                                       caches=self._caches)
 
     @torch.inference_mode()
@@ -1689,9 +1758,13 @@ class ContinuousEngine:
             self.stats["draft_s"] += time.monotonic() - td
             remaining = np.asarray(
                 [st.remaining if st else 0 for st in self._slot], np.int64)
+            lo, hi = self._lo, self._hi   # this rank's slots
             self._tok, nxt, emit = self._spec.round(
-                verify, commit, self._tok, drafts, self._active, remaining,
-                self._greedy, self._temps, self._gens)
+                verify, commit, self._tok, drafts[lo:hi],
+                self._active[lo:hi], remaining[lo:hi], self._greedy[lo:hi],
+                self._temps[lo:hi], self._gens[lo:hi])
+            nxt = self.engine.gather_rows(nxt, self.slots)
+            emit = self.engine.gather_rows(emit, self.slots)
             now = clock()                 # the round has synced
             self.stats["spec_rounds"] += 1
             rounds_run += 1
@@ -1768,7 +1841,8 @@ class ContinuousEngine:
         results: List[RequestResult] = []
         i = 0
         t0 = time.monotonic()
-        clock = lambda: time.monotonic() - t0
+        # every rank of a mesh reads rank 0's clock
+        clock = lambda: self._agree(time.monotonic() - t0)
         while i < len(items) or self.has_work():
             now = clock()
             while i < len(items) and items[i].arrival_s <= now:

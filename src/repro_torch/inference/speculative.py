@@ -49,7 +49,11 @@ and each round syncs once, to hand the tokens to the proposer.  With
 telemetry on, the two are the programs ``verify`` and ``commit`` of
 ``Engine.spec_steps``: each new signature (on the CPU) or capture (on
 the card) is a compile event.
-Sharding is not ported (the reference's ``shard`` calls are dropped).
+Under a serving mesh a round runs on this rank's rows (data
+parallelism) over this rank's heads (tensor parallelism: the verify's
+logits are gathered over "model" before acceptance); the caller gathers
+each round's tokens and emit counts over "data"
+(``Engine.gather_rows``).
 """
 from __future__ import annotations
 

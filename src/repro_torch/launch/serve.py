@@ -139,14 +139,37 @@ kind); serve a bf16 model on ``--cache-dtype bfloat16``:
         --arch jamba_1_5_large --reduced --continuous --dsa \
         --dsa-mode kernel --requests 6 --slots 2 --prompt-len 64 \
         --new-tokens 8 --device cpu
+
+``--tp N`` and ``--dp N`` (or ``--mesh``, data parallelism over every
+process) serve on a mesh of processes, one a device, each running this
+same command (repro_torch.launch.mesh): under ``torchrun``, which sets
+RANK / WORLD_SIZE / LOCAL_RANK, or with ``--nodes``, ``--node-id`` and
+``--coordinator`` per process.  Rank 0 prints the ``serving mesh:`` line
+and the results; every rank exits non-zero if any rank fails.  The
+engine draws the weights piece by piece and keeps this rank's shard of
+each, so a card holds its shard and one piece whole, never the whole
+model.  On two cards:
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch yi_6b --tp 2 --batch 4 --prompt-len 4096 --new-tokens 64 \
+        --dsa --dsa-mode kernel
+
+NCCL is the default backend; ``--backend gloo`` is what the CPU takes
+(``--device cpu``), and what two processes sharing one card take.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
+import io
+import os
+import tempfile
 
 import numpy as np
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import cut_layers, get_config, reduced
 from repro_torch.device import resolve_device
@@ -162,8 +185,12 @@ from repro_torch.kernels.dsa_chunk_prefill import (
 from repro_torch.kernels.dsa_decode import (dsa_decode_gather_attention,
                                             dsa_decode_paged_gather_attention)
 from repro_torch.kernels.wkv6 import wkv6_chunked
+from repro_torch.launch.mesh import init_serving_processes, make_serving_mesh
 from repro_torch.models.attention import RunFlags, cache_page_size
 from repro_torch.models.transformer import init_cache, init_model
+
+# seconds a collective waits for a peer before the rank fails
+PEER_TIMEOUT_S = 600.0
 
 # the kernels whose launch counts a run reports: (wrapper, counter)
 KERNELS = {"K1": (dsa_decode_gather_attention, "launches"),
@@ -202,6 +229,14 @@ def cache_bytes(caches) -> int:
     return caches.numel() * caches.element_size()
 
 
+def _print_tp(eng) -> None:
+    """Under tensor parallelism, the weight bytes on each device."""
+    if eng.mesh is not None and eng.tp > 1:
+        print(f"tensor parallel: tp={eng.tp}, "
+              f"{eng.weight_bytes_per_device() / 2**20:.2f} MiB "
+              f"weights/device")
+
+
 def draw_extras(cfg, batch: int, rng) -> dict:
     """The stub frontends' input for ``batch`` rows, standard normal from
     ``rng`` (numpy, f32): whisper's ``enc_x`` (``enc_seq_len`` frame
@@ -218,9 +253,10 @@ def draw_extras(cfg, batch: int, rng) -> dict:
     return extras
 
 
-def _serve_continuous(cfg, args, params, config, device):
-    """Serve the synthetic workload; returns (results, engine)."""
-    eng = ContinuousEngine(cfg, params, config=config, device=device)
+def _serve_continuous(cfg, args, eng, device):
+    """Serve the synthetic workload on ``eng``; returns (results,
+    engine)."""
+    _print_tp(eng.engine)
     workload = synthetic_workload(
         args.requests, rate_rps=args.rate,
         prompt_lens=(max(8, args.prompt_len // 4), args.prompt_len),
@@ -252,7 +288,8 @@ def _serve_continuous(cfg, args, params, config, device):
           f"launches " + " ".join(f"{k} {after[k] - before[k]}"
                                   for k in KERNELS)
           + f", peak memory {peak}, resident cache "
-          f"{cache_bytes(eng._caches) // eng.slots} bytes per slot")
+          f"{cache_bytes(eng._caches) // (eng._hi - eng._lo)} bytes per "
+          f"slot")
     if args.spec:
         st = eng.stats
         print(f"speculative: K {eng.spec}" + (
@@ -373,25 +410,93 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", action="store_true",
+                    help="serve on a data-parallel mesh of every process "
+                         "(the slots / batch rows shard over 'data')")
+    ap.add_argument("--dp", type=int, default=0,
+                    help="data-parallel ranks of the mesh (0 = all, or "
+                         "all / --tp)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks: a (data, model) mesh "
+                         "sharding weights and KV heads over 'model'")
+    ap.add_argument("--nodes", type=int, default=1,
+                    help="processes of the run, one a device, each "
+                         "started with its own --node-id (torchrun's "
+                         "WORLD_SIZE / RANK / LOCAL_RANK take precedence)")
+    ap.add_argument("--coordinator", default="127.0.0.1:12321",
+                    help="host:port of process 0 (or an init_method URL, "
+                         "e.g. file:///path) for --nodes > 1")
+    ap.add_argument("--node-id", type=int, default=0,
+                    help="this process's rank in [0, --nodes)")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="process-group backend (default nccl on the card; "
+                         "the CPU needs an explicit gloo)")
     args = ap.parse_args(argv)
 
+    env = os.environ
+    if "WORLD_SIZE" in env and "RANK" in env:        # launched by torchrun
+        world, rank = int(env["WORLD_SIZE"]), int(env["RANK"])
+        local = int(env.get("LOCAL_RANK", 0))
+        url = "env://"
+    else:
+        world, rank, local = args.nodes, args.node_id, None
+        url = args.coordinator
+    if not (args.mesh or args.dp or args.tp > 1 or world > 1):
+        return _serve(args, None)
+    backend = args.backend
+    if backend is None:
+        if args.device not in (None, "cuda") and not str(
+                args.device).startswith("cuda"):
+            raise SystemExit("a mesh on the CPU needs --backend gloo")
+        backend = "nccl"
+    if world == 1 and "://" not in url:
+        # one process: its own rendezvous file, no TCP port
+        url = "file://" + os.path.join(tempfile.mkdtemp(), "store")
+    init_serving_processes(url, world, rank, local, backend=backend,
+                           timeout_s=PEER_TIMEOUT_S)
+    try:
+        # rank 0 prints; the others serve silently
+        quiet = (contextlib.nullcontext() if rank == 0
+                 else contextlib.redirect_stdout(io.StringIO()))
+        with quiet:
+            res = _serve(args, dict(backend=backend, world=world))
+        # every rank waits here: one that failed earlier never arrives,
+        # and the others' collective fails instead of returning 0
+        dist.barrier()
+        return res
+    finally:
+        dist.destroy_process_group()
+
+
+def _serve(args, group):
+    """The run of ``main``; ``group`` is None without a mesh, else the
+    process group's backend and world size."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     if args.layers:
         cfg = cut_layers(cfg, args.layers)
-    params = init_model(args.seed, cfg, device=device)
+    # the engine draws the weights itself, piece by piece, and under
+    # tensor parallelism keeps only this rank's shard of each on the card
+    params = functools.partial(init_model, args.seed, cfg, device=device)
     max_len = args.max_len or (args.prompt_len + args.new_tokens + 16)
     dsa_on = args.dsa and cfg.dsa.enabled
     if args.paged:
         page = cache_page_size(cfg, RunFlags(mode="decode",
                                              long_context=dsa_on))
         max_len = -(-max_len // page) * page
+    mesh = None
+    if group is not None:
+        mesh = make_serving_mesh(args.dp, tp=args.tp, cfg=cfg)
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        print(f"serving mesh: {sizes} over {group['world']} "
+              f"{'devices' if device.type == 'cuda' else 'processes'} "
+              f"({group['backend']})")
     tel = None
     if args.trace_out or args.metrics_out or args.telemetry_sample:
         tel = Telemetry(sample_every=args.telemetry_sample or 16)
-    config = ServingConfig(max_len=max_len, long_context=dsa_on,
+    config = ServingConfig(max_len=max_len, long_context=dsa_on, mesh=mesh,
                            dsa_mode=args.dsa_mode if dsa_on else "off",
                            select_dtype=(args.select_dtype if dsa_on
                                          else "float32"),
@@ -407,8 +512,10 @@ def main(argv=None):
                            queue_cap=args.queue_cap or None,
                            shed_policy=args.shed_policy, telemetry=tel)
     if args.continuous:
-        return _serve_continuous(cfg, args, params, config, device)
+        eng = ContinuousEngine(cfg, params, config=config, device=device)
+        return _serve_continuous(cfg, args, eng, device)
     eng = Engine(cfg, params, config=config, device=device)
+    _print_tp(eng)
     before = launch_counts()
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(1, cfg.vocab - 4,
@@ -424,7 +531,7 @@ def main(argv=None):
                        extras=extras or None)
     captures, replays = (b - a for a, b in zip(graphs,
                                                graph_counts(eng.graphs)))
-    row = cache_bytes(init_cache(cfg, 1, max_len, eng.decode_flags,
+    row = cache_bytes(init_cache(eng.mcfg, 1, max_len, eng.decode_flags,
                                  dtype=eng.cache_dtype, device="meta"))
     print(f"prefill: {res.prefill_s * 1e3:.1f} ms   "
           f"decode: {res.decode_s:.2f} s   "

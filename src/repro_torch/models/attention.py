@@ -97,7 +97,7 @@ chunk row past the cache end writes back what its target holds
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -108,6 +108,7 @@ from repro_torch.core import prediction as PRED
 from repro_torch.core import quantization as Q
 from repro_torch.core.prediction import einsum, mm
 from repro_torch.core.quantization import raw
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops
 from repro_torch.models.common import dense_init, rms_norm, rope
 
@@ -154,6 +155,20 @@ class RunFlags:
     # under "sel" (logical block indices on a paged cache).  Only the
     # telemetry probe's eager step sets it, never a captured one
     sel_probe: bool = False
+    # tensor parallelism (inference/engine.py under a serving mesh with a
+    # "model" axis): the "model" group (distributed.collectives.AxisGroup)
+    # the layers all-reduce their contracting products over; the weights
+    # and cache are this rank's shard (n_heads / tp heads, n_kv_heads /
+    # tp KV heads).  None: no collective
+    tp: Any = None
+
+
+def _out_proj(params, flags: RunFlags, out: torch.Tensor) -> torch.Tensor:
+    """The out-projection ``out @ wo``; under tensor parallelism ``out``
+    holds this rank's heads and the partial products are summed over
+    "model" (one all-reduce)."""
+    y = mm(out, params["wo"])
+    return y if flags.tp is None else C.all_reduce(y, flags.tp)
 
 
 def dsa_active(cfg: ArchConfig, flags: RunFlags) -> bool:
@@ -368,7 +383,7 @@ def apply_attention(params, cfg: ArchConfig, flags: RunFlags, x, *,
         out = A.flash_attention(q, k, v, causal=causal, window=cfg.swa_window)
     if flags.mode == "prefill" and cache is not None:
         _fill_cache(cfg, flags, cache, k, v, params, x)
-    out = mm(out.reshape(*x.shape[:2], -1), params["wo"])
+    out = _out_proj(params, flags, out.reshape(*x.shape[:2], -1))
     return out, cache, aux
 
 
@@ -465,6 +480,52 @@ def init_cache_attention(cfg: ArchConfig, batch: int, max_len: int,
             c["kt_s"] = torch.zeros(rows, **f32)
             c["ktb_s"] = torch.zeros(blocks, **f32)
     return c
+
+
+def param_specs_attention(cfg: ArchConfig, cross: bool = False) -> Dict:
+    """Logical axes of ``init_attention``'s leaves (the reference's
+    spec tree): Q/O over heads, K/V over kv_heads, the DSA predictor
+    over its projection dim (replicated under the serving rules)."""
+    out = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+           "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+    if cfg.qkv_bias:
+        out.update(bq=("heads",), bk=("kv_heads",), bv=("kv_heads",))
+    if cfg.dsa.enabled and not cross:
+        out["dsa"] = PRED.predictor_specs()
+    return out
+
+
+def cache_specs_attention(cache) -> Dict:
+    """Logical axes of an attention cache's leaves: dense rows over the
+    batch (slots) axis and KV heads, a paged pool's rows over its pages;
+    the DSA caches kt/ktb have no head axis."""
+    if "page_tbl" in cache:
+        out = {"k": ("pages", "kv_heads", "qkv"),
+               "v": ("pages", "kv_heads", "qkv"),
+               "pos": ("batch",), "page_tbl": ("batch", None)}
+        if "k_s" in cache:
+            out["k_s"] = ("pages", "kv_heads")
+            out["v_s"] = ("pages", "kv_heads")
+        if "kt" in cache:
+            out["kt"] = ("pages", "pred_k")
+            out["ktb"] = ("pages", "pred_k")
+        if "kt_s" in cache:
+            out["kt_s"] = ("pages",)
+            out["ktb_s"] = ("pages",)
+        return out
+    out = {"k": ("batch", "cache_seq", "kv_heads", "qkv"),
+           "v": ("batch", "cache_seq", "kv_heads", "qkv"),
+           "pos": ("batch",)}
+    if "k_s" in cache:
+        out["k_s"] = ("batch", "cache_seq", "kv_heads")
+        out["v_s"] = ("batch", "cache_seq", "kv_heads")
+    if "kt" in cache:
+        out["kt"] = ("batch", "cache_seq", "pred_k")
+        out["ktb"] = ("batch", "blocks", "pred_k")
+    if "kt_s" in cache:
+        out["kt_s"] = ("batch", "cache_seq")
+        out["ktb_s"] = ("batch", "blocks")
+    return out
 
 
 def _block_sums(kt: torch.Tensor, block_k: int, n_kb: int) -> torch.Tensor:
@@ -627,7 +688,7 @@ def _apply_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache,
         win = cfg.swa_window
         out = A.decode_attention(q, *_kv_views(cache), kv_len=kv_len,
                                  window=win if win and s > win else 0)
-    out = mm(out.reshape(b, 1, -1), params["wo"])
+    out = _out_proj(params, flags, out.reshape(b, 1, -1))
     return out, cache, sel
 
 
@@ -769,7 +830,7 @@ def _apply_paged_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache,
                                      okw, pg, kv_len, view)
     else:
         out = A.decode_attention(q, *_kv_views(cache, view), kv_len=kv_len)
-    out = mm(out.reshape(b, 1, -1), params["wo"])
+    out = _out_proj(params, flags, out.reshape(b, 1, -1))
     return out, cache, sel
 
 
@@ -887,7 +948,7 @@ def _apply_chunk(params, cfg: ArchConfig, flags: RunFlags, x, cache,
             _write_rows(cache[leaf], p, val, wok)
     else:
         out = A.chunk_attention(q, *_kv_views(cache, *head), p)
-    out = mm(out.reshape(b, c, -1), params["wo"])
+    out = _out_proj(params, flags, out.reshape(b, c, -1))
     return out, cache
 
 
@@ -1061,7 +1122,7 @@ def _apply_verify(params, cfg: ArchConfig, flags: RunFlags, x, cache,
             out = A.chunk_attention(q, *_kv_views(cache), p)
     else:
         out = A.chunk_attention(q, *_kv_views(cache), p)
-    out = mm(out.reshape(b, c, -1), params["wo"])
+    out = _out_proj(params, flags, out.reshape(b, c, -1))
     return out, cache
 
 
@@ -1187,6 +1248,23 @@ def init_mla(gen: torch.Generator, cfg: ArchConfig, *, device,
     if cfg.dsa.enabled:
         params["dsa"] = PRED.init_predictor(gen, d, cfg.dsa.sigma, **kw)
     return params
+
+
+def param_specs_mla(cfg: ArchConfig) -> Dict:
+    """Logical axes of ``init_mla``'s leaves."""
+    out = {"q_a": ("embed", "lora"), "q_a_norm": ("lora",),
+           "q_b": ("lora", "heads"),
+           "kv_a": ("embed", "lora"), "kv_a_norm": ("lora",),
+           "kv_b": ("lora", "heads"), "wo": ("heads", "embed")}
+    if cfg.dsa.enabled:
+        out["dsa"] = PRED.predictor_specs()
+    return out
+
+
+def cache_specs_mla(cache) -> Dict:
+    """Logical axes of an MLA cache's leaves."""
+    return {"c_kv": ("batch", "cache_seq", "lora"),
+            "k_rope": ("batch", "cache_seq", None), "pos": ("batch",)}
 
 
 def _mla_qkv(params, cfg: ArchConfig, x, pos):

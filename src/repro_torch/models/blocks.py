@@ -30,15 +30,19 @@ from typing import Dict, List
 import torch
 
 from repro_torch.configs.base import ArchConfig, is_moe_layer
+from repro_torch.distributed import collectives as C
 from repro_torch.core.prediction import mm
 from repro_torch.models.attention import (RunFlags, apply_attention,
                                           apply_cross_attention,
-                                          apply_mla, init_attention,
+                                          apply_mla, cache_specs_attention,
+                                          cache_specs_mla, init_attention,
                                           init_cache_attention,
-                                          init_cache_mla, init_mla)
+                                          init_cache_mla, init_mla,
+                                          param_specs_attention,
+                                          param_specs_mla)
 from repro_torch.models import ssm
 from repro_torch.models.common import dense_init, rms_norm
-from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.models.moe import apply_moe, init_moe, param_specs_moe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,6 +175,39 @@ def init_subblock_cache(cfg: ArchConfig, d: SubBlockDef, batch: int,
     return c
 
 
+def subblock_param_specs(cfg: ArchConfig, d: SubBlockDef) -> Dict:
+    """Logical axes of ``init_subblock``'s leaves (the reference's spec
+    tree, without its stacked layer axis)."""
+    norms = {"norm1": ("embed_act",), "norm2": ("embed_act",)}
+    if d.kind == "rwkv":
+        return {**norms, "attn": ssm.param_specs_rwkv(),
+                "mlp": ssm.param_specs_rwkv_ffn()}
+    attn = {"attn": lambda: param_specs_attention(cfg),
+            "mla": lambda: param_specs_mla(cfg),
+            "mamba": ssm.param_specs_mamba}[d.kind]
+    out = {**norms, "attn": attn()}
+    if d.cross:
+        out.update(xattn=param_specs_attention(cfg, cross=True),
+                   xnorm=("embed_act",), xgate=())
+    out["mlp"] = (param_specs_moe(cfg) if d.moe else
+                  {"w1": ("embed", "mlp"), "w3": ("embed", "mlp"),
+                   "w2": ("mlp", "embed")})
+    return out
+
+
+def subblock_cache_specs(cfg: ArchConfig, d: SubBlockDef, cache) -> Dict:
+    """Logical axes of ``init_subblock_cache``'s leaves (``cache``: that
+    sub-block's cache, whose layout, dense or paged, quantized or not,
+    the specs follow)."""
+    kind = {"attn": cache_specs_attention, "mla": cache_specs_mla,
+            "mamba": ssm.cache_specs_mamba, "rwkv": ssm.cache_specs_rwkv}
+    out = {"attn": kind[d.kind](cache["attn"])}
+    if d.cross:
+        out["xattn"] = {"ck": ("batch", None, "kv_heads", "qkv"),
+                        "cv": ("batch", None, "kv_heads", "qkv")}
+    return out
+
+
 def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
                    x, cache=None, enc=None, **step):
     """Pre-norm residual block.  Returns (x, cache, aux); the cache is
@@ -180,7 +217,10 @@ def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
     (``apply_mla`` for an "mla" sub-block; a recurrent one takes
     ``active`` alone).
     An MoE FFN routes decode-dense in decode mode (steps, chunks, verify
-    rows) and under ``flags.moe_dense``, by capacity otherwise.
+    rows) and under ``flags.moe_dense``, by capacity otherwise.  Under
+    tensor parallelism (``flags.tp``) the MLP's down-projection (or the
+    MoE combine) gives this rank's partial sum, and one all-reduce over
+    "model" adds them; the attention all-reduces its own.
     A ``cross`` sub-block's cross-attention sub-layer runs, as in the
     reference, in train and prefill mode only when ``enc`` (B, T, d) is
     given, and in decode mode always, over the cached ``ck``/``cv``."""
@@ -208,10 +248,13 @@ def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
     h = rms_norm(x, params["norm2"].to(x.dtype), cfg.norm_eps)
     if d.moe:
         y, a = apply_moe(params["mlp"], cfg, h,
-                         decode=flags.mode == "decode" or flags.moe_dense)
+                         decode=flags.mode == "decode" or flags.moe_dense,
+                         tp=flags.tp)
         aux = {**aux, **a}
     else:
         y = apply_mlp(params["mlp"], h)
+    if flags.tp is not None:          # the down-projection's partial sums
+        y = C.all_reduce(y, flags.tp)
     return x + y, cache, aux
 
 

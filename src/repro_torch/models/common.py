@@ -11,7 +11,9 @@ def dense_init(gen: torch.Generator, shape, scale: float = 1.0, *, device,
                dtype=torch.float32) -> torch.Tensor:
     fan_in = shape[0] if len(shape) > 1 else 1
     std = scale / (fan_in ** 0.5)
-    return (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
+    # scaled in place: one f32 draw on the device beside the cast
+    return torch.randn(shape, generator=gen, device=device).mul_(std).to(
+        dtype)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,

@@ -10,10 +10,14 @@
      reads every expert's weights once and has fixed shapes (a CUDA graph
      captures it).
 
-The reference's expert-parallel path (experts sharded over a ``model``
-mesh axis, two all-to-alls) needs more than one device and is not ported
-(ROADMAP Queue 1, "Distribution"); without a mesh the reference takes the
-capacity path, as this module does.
+Tensor-parallel serving (a "model" axis, ``param_specs_moe``): each rank
+holds E / tp whole experts, or, where tp does not divide E, every
+expert's f / tp columns; routing is replicated, each rank combines its
+own experts' (or columns') outputs, and ``blocks.apply_subblock`` sums
+the partial combines with one all-reduce, as the reference's serving
+rules (``moe_ep`` off) do.  The reference's expert-parallel path
+(experts over "model" with two all-to-alls, its training default) is not
+ported (ROADMAP Queue 1, "Distribution").
 
 The expert products are plain ``torch.bmm``s (no kernel: the reference
 computes them outside any Pallas kernel).  The router's logits are f32
@@ -59,6 +63,19 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig, *, device,
     return params
 
 
+def param_specs_moe(cfg: ArchConfig) -> Dict:
+    """Logical axes of ``init_moe``'s leaves: the experts over "expert"
+    and then "mlp" (whichever a mesh axis divides first), the router
+    replicated."""
+    out = {"router": ("embed", None),
+           "w1": ("expert", "embed", "mlp"), "w3": ("expert", "embed", "mlp"),
+           "w2": ("expert", "mlp", "embed")}
+    if cfg.moe.num_shared_experts:
+        out.update(sw1=("embed", "mlp"), sw3=("embed", "mlp"),
+                   sw2=("mlp", "embed"))
+    return out
+
+
 def _route(router_w, x, top_k: int):
     """x (..., d) -> (ids (..., K) int32, w (..., K) f32, aux): the top-k
     of the f32 router logits (descending), a softmax over the k kept
@@ -98,14 +115,27 @@ def _expert_ffn(w1, w3, w2, xb):
     return torch.bmm(h, w2)
 
 
-def _moe_local(params, cfg: ArchConfig, x2, cap: int):
+def _local_experts(params, cfg: ArchConfig, tp) -> Tuple[int, int]:
+    """(first expert, experts) this rank holds: all of them unsharded or
+    when the experts' f is what "model" splits; a contiguous E / tp under
+    tensor parallelism over "expert" (``param_specs_moe``)."""
+    el = params["w1"].shape[0]
+    if el == cfg.moe.num_experts:
+        return 0, el
+    return tp.rank * el, el
+
+
+def _moe_local(params, cfg: ArchConfig, x2, cap: int, tp=None):
     """Capacity dispatch -> expert FFNs -> combine on one token slab
     x2 (T, d).  Returns (y (T, d), aux).
 
     The buffers hold ``cap + 1`` rows per expert: a dropped pair is
     written to (and read back from) row ``cap``, which is cut before the
     experts run and reads as 0, so the shapes are static and a dropped
-    pair takes no gradient."""
+    pair takes no gradient.  Under tensor parallelism over "expert" the
+    routing and every pair's position are the unsharded ones, the pairs
+    of another rank's experts go to the cut row, and the partial combine
+    is summed by the caller's all-reduce."""
     mo = cfg.moe
     e, k = mo.num_experts, mo.top_k
     ids, w, aux = _route(params["router"], x2, k)             # (T, K)
@@ -113,23 +143,29 @@ def _moe_local(params, cfg: ArchConfig, x2, cap: int):
     e_flat = ids.reshape(-1).long()                           # (T*K,)
     pos = _dispatch_positions(e_flat, e, cap)
     ok = pos < cap
+    lo, el = _local_experts(params, cfg, tp)
+    le = e_flat - lo
+    if el < e:
+        ok = ok & (le >= 0) & (le < el)
+        le = le.clamp(0, el - 1)
     slot = torch.where(ok, pos, cap)
     tok_idx = torch.arange(t, device=x2.device).repeat_interleave(k)
     dt = x2.dtype
-    buf = torch.zeros((e, cap + 1, d), dtype=dt, device=x2.device)
-    buf = buf.index_put((e_flat, slot), x2[tok_idx])
+    buf = torch.zeros((el, cap + 1, d), dtype=dt, device=x2.device)
+    buf = buf.index_put((le, slot), x2[tok_idx])
     yb = _expert_ffn(params["w1"].to(dt), params["w3"].to(dt),
                      params["w2"].to(dt), buf[:, :cap])
-    yb = torch.cat([yb, yb.new_zeros((e, 1, d))], dim=1)
-    y_slots = yb[e_flat, slot] * ok[:, None]
+    yb = torch.cat([yb, yb.new_zeros((el, 1, d))], dim=1)
+    y_slots = yb[le, slot] * ok[:, None]
     y = torch.sum(y_slots.reshape(t, k, d) * w.reshape(t, k, 1).to(dt),
                   dim=1)
     return y, aux
 
 
-def _moe_decode_dense(params, cfg: ArchConfig, x):
-    """Every expert on every token; the routing weights mask the
-    combine.  x (B, S, d) -> (y (B, S, d), aux over all B*S tokens)."""
+def _moe_decode_dense(params, cfg: ArchConfig, x, tp=None):
+    """Every expert on every token (this rank's experts under tensor
+    parallelism); the routing weights mask the combine.  x (B, S, d) ->
+    (y (B, S, d), aux over all B*S tokens)."""
     mo = cfg.moe
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
@@ -137,16 +173,21 @@ def _moe_decode_dense(params, cfg: ArchConfig, x):
     dt = x.dtype
     cw = torch.zeros((b * s, mo.num_experts), dtype=dt, device=x.device)
     cw = cw.scatter(1, ids.long(), w.to(dt))
-    xb = x2[None].expand(mo.num_experts, b * s, d)
+    lo, el = _local_experts(params, cfg, tp)
+    if el < mo.num_experts:
+        cw = cw[:, lo:lo + el]
+    xb = x2[None].expand(el, b * s, d)
     yb = _expert_ffn(params["w1"].to(dt), params["w3"].to(dt),
                      params["w2"].to(dt), xb)                 # (E, T, d)
     y = torch.einsum("etd,te->td", yb, cw)
     return y.reshape(b, s, d), aux
 
 
-def apply_moe(params, cfg: ArchConfig, x, *, decode: bool = False
-              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x (B, S, d) -> (y, {"router": aux * router_aux_weight}).
+def apply_moe(params, cfg: ArchConfig, x, *, decode: bool = False,
+              tp=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x (B, S, d) -> (y, {"router": aux * router_aux_weight}); under
+    tensor parallelism (``tp``, the "model" group) ``y`` is this rank's
+    partial combine, which the caller all-reduces.
 
     ``decode`` or a single token: the decode-dense path, its aux over all
     tokens.  Otherwise the capacity path row by row (the reference's
@@ -156,12 +197,12 @@ def apply_moe(params, cfg: ArchConfig, x, *, decode: bool = False
     added to every token after."""
     mo = cfg.moe
     if decode or x.shape[1] == 1:
-        y, a = _moe_decode_dense(params, cfg, x)
+        y, a = _moe_decode_dense(params, cfg, x, tp)
     else:
         b, s, _ = x.shape
         cap = max(4, int(s * mo.top_k * mo.capacity_factor
                          / mo.num_experts))
-        rows = [_moe_local(params, cfg, x[i], cap) for i in range(b)]
+        rows = [_moe_local(params, cfg, x[i], cap, tp) for i in range(b)]
         y = torch.stack([r[0] for r in rows])
         a = torch.stack([r[1] for r in rows]).mean()
     aux = {"router": a * mo.router_aux_weight}

@@ -177,6 +177,20 @@ def apply_mamba(params, cfg: ArchConfig, x, *, cache: Optional[Dict] = None,
     return mm(y, params["out_proj"].to(x.dtype))
 
 
+def param_specs_mamba() -> Dict:
+    """Logical axes of ``init_mamba``'s leaves."""
+    return {"in_proj": ("embed", "mlp"), "conv_w": ("conv", "mlp"),
+            "conv_b": ("mlp",), "x_proj": ("mlp", None),
+            "dt_proj": (None, "mlp"), "dt_bias": ("mlp",),
+            "a_log": ("mlp", "state"), "d_skip": ("mlp",),
+            "out_proj": ("mlp", "embed")}
+
+
+def cache_specs_mamba(cache) -> Dict:
+    """Logical axes of a Mamba cache's leaves."""
+    return {"h": ("batch", "mlp", "state"), "conv": ("batch", None, "mlp")}
+
+
 def init_cache_mamba(cfg: ArchConfig, batch: int, *, device,
                      dtype=torch.bfloat16) -> Dict:
     mi = cfg.d_model * cfg.mamba.expand
@@ -324,6 +338,29 @@ def apply_rwkv(params, cfg: ArchConfig, x, *, cache: Optional[Dict] = None,
         store(cache, "s", st, active)
         store(cache, "x_prev", x[:, -1], active)
     return out
+
+
+def param_specs_rwkv() -> Dict:
+    """Logical axes of ``init_rwkv``'s leaves."""
+    return {"mu": (None, "embed_act"), "w_lora_a": ("embed", "lora"),
+            "w_lora_b": ("lora", "embed_act"), "w0": ("embed_act",),
+            "u": ("heads", "qkv"), "wr": ("embed", "heads"),
+            "wk": ("embed", "heads"), "wv": ("embed", "heads"),
+            "wg": ("embed", "heads"), "wo": ("heads", "embed"),
+            "ln_x": ("embed_act",)}
+
+
+def param_specs_rwkv_ffn() -> Dict:
+    """Logical axes of ``init_rwkv_ffn``'s leaves."""
+    return {"mu": (None, "embed_act"), "wk": ("embed", "mlp"),
+            "wv": ("mlp", "embed"), "wr": ("embed", "embed_act")}
+
+
+def cache_specs_rwkv(cache) -> Dict:
+    """Logical axes of an RWKV6 cache's leaves."""
+    return {"s": ("batch", "heads", "qkv", None),
+            "x_prev": ("batch", "embed_act"),
+            "ffn_prev": ("batch", "embed_act")}
 
 
 def init_cache_rwkv(cfg: ArchConfig, batch: int, *, device,

@@ -1,7 +1,7 @@
 """Top-level model: embedding -> layer groups -> head.
 
 Public API:
-  init_model(seed, cfg, device=None)          -> params
+  init_model(seed, cfg, device=None, place=None) -> params
   forward(params, cfg, flags, tokens, caches, extras=None)
                                               -> (logits, caches)
   forward_train(params, cfg, flags, tokens, extras=None)
@@ -16,6 +16,8 @@ Public API:
                                               -> caches
   spec_scratch(caches, c)                     -> the pair's scratch
   init_cache(cfg, batch, max_len, flags, ..., pages=None) -> caches
+  model_param_specs(cfg)                      -> logical axes of params
+  unstacked_cache_specs(cfg, caches)          -> logical axes of caches
   attn_caches(caches)                         -> each layer's attention cache
   cross_caches(caches)                        -> each cross sub-layer's cache
   zero_cache(caches)                          -> caches (in place)
@@ -54,6 +56,15 @@ holds (zeros after ``init_cache`` or ``zero_cache``).  The encoder runs
 in train mode with the call's ``dsa_mode`` (its ``mse`` joins ``aux`` in
 training), the prefill's block or token path by its frame count.
 
+Tensor parallelism (``flags.tp``, the "model" group of a serving mesh;
+inference/engine.py): the weights are this rank's shard and ``cfg``
+its geometry.  The embedding lookup reads this rank's vocab rows and
+all-reduces, each layer all-reduces its attention out-projection and
+its MLP down-projection (or MoE combine), and the head all-gathers its
+V / tp logit columns (only the ``last`` rows of a prefill or a chunk):
+2 * n_layers + 1 all-reduces and one all-gather a decode step
+(distributed/collectives.py).
+
 ``forward_train`` is the training forward (``RunFlags(mode="train")``, no
 cache): it also returns ``aux``, each of ``AUX_KEYS`` an f32 scalar summed
 over the layers, the prologue's included (``mse``, the DSA predictor's
@@ -72,7 +83,7 @@ elementwise passes), and "none" keeps everything.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -81,6 +92,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ArchConfig, is_recurrent
 from repro_torch.core.prediction import mm
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as C
 from repro_torch.models import blocks as B
 from repro_torch.core.quantization import raw
 from repro_torch.models.attention import (PEND_KEY, RunFlags, _rebuild_ktb,
@@ -93,31 +105,74 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 AUX_KEYS = ("mse", "router")
 
 
-def init_model(seed: int, cfg: ArchConfig, *, device=None) -> Dict[str, Any]:
+def init_model(seed: int, cfg: ArchConfig, *, device=None,
+               place: Optional[Callable] = None) -> Dict[str, Any]:
     """Random weights from ``seed`` (a ``torch.Generator`` on the target
     device), in ``cfg.param_dtype``, but for an MoE router, which is f32
-    as in the reference.  ``device=None`` means the card."""
+    as in the reference.  ``device=None`` means the card.
+
+    ``place(piece, specs)``, when given, takes each top-level piece as
+    soon as it is drawn (the embedding, each layer group, the final
+    norm, the head, ...) with its subtree of ``model_param_specs``, and
+    returns what the tree keeps of it: an engine on a serving mesh
+    passes one that keeps this rank's shard (``Engine``), so the device
+    holds the shards drawn so far and one piece whole, never the whole
+    tree.  The draws, and so the weights, are those of ``place=None``."""
     dev = resolve_device(device)
     dt = DTYPES[cfg.param_dtype]
     gen = torch.Generator(device=dev).manual_seed(seed)
     kw = dict(device=dev, dtype=dt)
+    keep = place or (lambda piece, specs: piece)
+    specs = model_param_specs(cfg)
     params: Dict[str, Any] = {
-        "embed": dense_init(gen, (cfg.vocab, cfg.d_model), **kw),
-        "groups": [B.init_group(gen, cfg, **kw)
-                   for _ in range(B.n_groups(cfg))],
-        "final_norm": torch.ones((cfg.d_model,), **kw),
+        "embed": keep(dense_init(gen, (cfg.vocab, cfg.d_model), **kw),
+                      specs["embed"]),
+        "groups": [keep(B.init_group(gen, cfg, **kw), s)
+                   for s in specs["groups"]],
+        "final_norm": keep(torch.ones((cfg.d_model,), **kw),
+                           specs["final_norm"]),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab), **kw)
+        params["lm_head"] = keep(dense_init(gen, (cfg.d_model, cfg.vocab),
+                                            **kw), specs["lm_head"])
     if B.n_prologue(cfg):
-        params["prologue"] = [B.init_subblock(gen, cfg, B.prologue_def(cfg),
-                                              **kw)
-                              for _ in range(B.n_prologue(cfg))]
+        params["prologue"] = [keep(B.init_subblock(gen, cfg,
+                                                   B.prologue_def(cfg), **kw),
+                                   s)
+                              for s in specs["prologue"]]
     if cfg.enc_dec:
-        params["enc_groups"] = [B.init_group(gen, cfg, decoder=False, **kw)
-                                for _ in range(B.n_groups(cfg, False))]
-        params["enc_norm"] = torch.ones((cfg.d_model,), **kw)
+        params["enc_groups"] = [keep(B.init_group(gen, cfg, decoder=False,
+                                                  **kw), s)
+                                for s in specs["enc_groups"]]
+        params["enc_norm"] = keep(torch.ones((cfg.d_model,), **kw),
+                                  specs["enc_norm"])
     return params
+
+
+def model_param_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    """Logical-axis spec tree parallel to ``init_model(seed, cfg)``, built
+    from ``cfg`` alone, without allocating (the reference's, without its
+    stacked layer axis: the port's ``groups`` is a per-group list).  The
+    serving engines resolve it against a tensor-parallel mesh to place
+    each rank's shard of the weights (inference/engine.py)."""
+    def group(decoder=True):
+        return {f"b{i}": B.subblock_param_specs(cfg, d)
+                for i, d in enumerate(B.group_defs(cfg, decoder))}
+
+    specs: Dict[str, Any] = {
+        "embed": ("vocab", "embed"),
+        "groups": [group() for _ in range(B.n_groups(cfg))],
+        "final_norm": ("embed_act",)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("embed", "vocab")
+    if B.n_prologue(cfg):
+        specs["prologue"] = [B.subblock_param_specs(cfg, B.prologue_def(cfg))
+                             for _ in range(B.n_prologue(cfg))]
+    if cfg.enc_dec:
+        specs["enc_groups"] = [group(False)
+                               for _ in range(B.n_groups(cfg, False))]
+        specs["enc_norm"] = ("embed_act",)
+    return specs
 
 
 def set_cross_gates(params, gate: float) -> Dict[str, Any]:
@@ -168,7 +223,17 @@ def _embed(params, cfg: ArchConfig, flags: RunFlags, tokens, extras,
     their length) and the cross-attention input from ``extras`` (None
     without one): (x, enc, encoder aux or None)."""
     dt = DTYPES[cfg.dtype]
-    x = params["embed"][tokens.long()].to(dt)
+    emb, tp = params["embed"], flags.tp
+    if tp is not None and emb.shape[0] * tp.size == cfg.vocab:
+        # this rank's vocab rows: the others' tokens read zeros, and one
+        # all-reduce over "model" puts every row back
+        vl = emb.shape[0]
+        ids = tokens.long() - tp.rank * vl
+        ok = (ids >= 0) & (ids < vl)
+        x = torch.where(ok[..., None], emb[ids.clamp(0, vl - 1)], 0)
+        x = C.all_reduce(x.to(dt), tp)
+    else:
+        x = emb[tokens.long()].to(dt)
     extras = extras or {}
     enc, aux = None, None
     if cfg.enc_dec and "enc_x" in extras:
@@ -182,13 +247,15 @@ def _embed(params, cfg: ArchConfig, flags: RunFlags, tokens, extras,
 
 
 def forward(params, cfg: ArchConfig, flags: RunFlags, tokens: torch.Tensor,
-            caches=None, extras=None, **step):
+            caches=None, extras=None, last=None, **step):
     """tokens: (B, S) int; ``extras``: {"enc_x" | "img": (B, T, d)}
     tensors (see the module docstring).  Returns (logits (B, S, V),
     caches), and with ``flags.sel_probe`` the selection list of
-    ``decode_step`` third.  ``step``: the decode-time ``active``,
-    ``chunk_len`` and ``sel_len`` (see ``decode_step`` and
-    ``chunk_step``)."""
+    ``decode_step`` third.  ``last`` (B,): return only each row's logits
+    row at that position, (B, 1, V) (a prefill's or a chunk's last real
+    token; under tensor parallelism only those rows are gathered).
+    ``step``: the decode-time ``active``, ``chunk_len`` and ``sel_len``
+    (see ``decode_step`` and ``chunk_step``)."""
     x, enc, _ = _embed(params, cfg, flags, tokens, extras)
     pro = B.prologue_def(cfg)
     for i, lp in enumerate(params.get("prologue", ())):
@@ -202,14 +269,25 @@ def forward(params, cfg: ArchConfig, flags: RunFlags, tokens: torch.Tensor,
         x, _, aux = B.apply_group(gp, cfg, flags, defs, x, cache=c, enc=enc,
                                   **step)
         sel += aux.get("sel", [])
-    logits = _head(params, cfg, x)
+    logits = _head(params, cfg, x, flags, last)
     return (logits, caches, sel) if flags.sel_probe else (logits, caches)
 
 
-def _head(params, cfg: ArchConfig, x):
+def _head(params, cfg: ArchConfig, x, flags: Optional[RunFlags] = None,
+          last=None):
+    """Logits (B, S, V), or (B, 1, V) at the rows ``last`` (B,).  Under
+    tensor parallelism a vocab-sharded head gives this rank's V / tp
+    columns, and one all-gather over "model" assembles the rows."""
     x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
-    return mm(x, head.to(x.dtype))
+    logits = mm(x, head.to(x.dtype))
+    if last is not None:
+        rows = torch.arange(logits.shape[0], device=logits.device)
+        logits = logits[rows, last.long()][:, None]
+    tp = None if flags is None else flags.tp
+    if tp is not None and logits.shape[-1] * tp.size == cfg.vocab:
+        logits = C.all_gather(logits, tp, dim=-1)
+    return logits
 
 
 def _norm_aux(aux: Dict, zero: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -300,7 +378,7 @@ def decode_step(params, cfg: ArchConfig, flags: RunFlags, tokens, caches,
 
 
 def chunk_step(params, cfg: ArchConfig, flags: RunFlags, tokens, caches,
-               chunk_len, active=None, sel_len=None):
+               chunk_len, active=None, sel_len=None, last=None):
     """``decode_step`` generalised from 1 token to a C-token chunk
     (chunked admission).  tokens: (B, C), each row's next C prompt tokens
     appended at its ``pos``, right-padded; chunk_len: (B,) true token
@@ -313,7 +391,8 @@ def chunk_step(params, cfg: ArchConfig, flags: RunFlags, tokens, caches,
     cache length) is the selection and attention geometry: chunks over a
     prompt-bucket cache leave the cache (and final-row logits) of a
     whole-prompt bucketed prefill.  Logits rows at or past chunk_len are
-    garbage; inactive rows freeze.  On the DSA block path C and ``pos``
+    garbage; inactive rows freeze; ``last`` (B,) returns only each row's
+    row there, (B, 1, V), as ``forward``.  On the DSA block path C and ``pos``
     are multiples of block_q and block_k.  Dense caches of attention
     archs only: a recurrent (RWKV6, Mamba) state absorbs pad rows."""
     if flags.mode != "decode":
@@ -322,7 +401,7 @@ def chunk_step(params, cfg: ArchConfig, flags: RunFlags, tokens, caches,
         raise NotImplementedError(
             f"chunk_step: {cfg.name} is recurrent; its state cannot skip a "
             f"chunk's pad rows")
-    return forward(params, cfg, flags, tokens, caches,
+    return forward(params, cfg, flags, tokens, caches, last=last,
                    active=as_active(active), chunk_len=chunk_len,
                    sel_len=sel_len)
 
@@ -455,6 +534,22 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, flags: RunFlags,
                                   flags, **kw)
             for _ in range(B.n_prologue(cfg))]
     return caches
+
+
+def unstacked_cache_specs(cfg: ArchConfig, caches) -> Dict[str, Any]:
+    """Logical-axis spec tree parallel to ``caches`` (``init_cache``'s
+    per-layer layout, which is the reference's unstacked one): what the
+    serving engines resolve to shard the resident cache's slot axis over
+    "data" and its KV heads over "model"."""
+    defs = B.group_defs(cfg)
+    specs: Dict[str, Any] = {"groups": [
+        {f"b{i}": B.subblock_cache_specs(cfg, d, g[f"b{i}"])
+         for i, d in enumerate(defs)} for g in caches["groups"]]}
+    if "prologue" in caches:
+        specs["prologue"] = [B.subblock_cache_specs(cfg, B.prologue_def(cfg),
+                                                    c)
+                             for c in caches["prologue"]]
+    return specs
 
 
 def zero_cache(caches) -> Dict[str, Any]:

@@ -31,6 +31,11 @@ neither JAX nor the reference, so it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider \
         tests/test_torch_cuda.py
 
+Distributed serving: K1 and K2 at a tp-2 shard of yi_6b, tp 2 as two
+gloo processes on the one card (tokens equal the unsharded engines'),
+and NCCL at world size 1 (the graphed step with its collectives equal
+to the eager step bit for bit, the collective budget).
+
 Tolerances, as |got - want| <= atol + rtol * |want|: f32 atol/rtol 1e-5
 (summation order); bf16 atol 1e-4, rtol 1e-2 (both sides round an f32
 result to bf16 once, and one bf16 step is at most 2^-7 of the value).
@@ -2158,3 +2163,102 @@ def test_cuda_reduced_encoder_matches_cpu(cuda_device, frames, mode):
                         else 0)
     scale = float(want.abs().max())
     assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+
+# -- distributed serving: the tp-2 shard geometry, tp 2 over gloo on one
+#    card, NCCL at world size 1 ---------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,cdt", [(torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32)],
+                         ids=["bf16-f32", "bf16-bf16", "f32-f32"])
+def test_cuda_k1_yi_tp2_shard_geometry(cuda_device, qdt, cdt):
+    """K1 at one tp-2 shard of yi_6b: 16 query heads on 2 KV heads (G 8,
+    as unsharded), hd 128, 4224 cache rows, ragged kv_len and an ok = 0
+    block, against its plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(131)
+    b, hkv, g, hd, s, bk, nb = 4, 2, 8, 128, 4224, 128, 6
+    q = torch.randn((b, hkv * g, 1, hd), generator=gen,
+                    device=cuda_device).to(qdt)
+    kc, vc = (torch.randn((b, s, hkv, hd), generator=gen,
+                          device=cuda_device).to(cdt) for _ in range(2))
+    kv_len = torch.tensor([4160, 4100, 4097, 4133], dtype=torch.int32,
+                          device=cuda_device)
+    idx = torch.stack([torch.randperm(-(-int(n) // bk), generator=torch.
+                                      Generator().manual_seed(i))[:nb]
+                       for i, n in enumerate(kv_len.tolist())]).sort(
+        -1).values.to(torch.int32).to(cuda_device)
+    ok = torch.ones((b, nb), dtype=torch.bool, device=cuda_device)
+    ok[2, 1] = False
+    args = (q, kc, vc, idx, ok, kv_len)
+    got = K1.dsa_decode_gather_attention(*args, block_k=bk)
+    want = K1.dsa_decode_gather_attention_plain(*args, block_k=bk)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[qdt]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_k2_yi_tp2_shard_geometry(cuda_device, dtype):
+    """K2 at one tp-2 shard of yi_6b's prefill: 16 query heads on 2 KV
+    heads (G 8), hd 128, block 128, L 2048, model-layout views, the
+    diagonal block among 4 selected."""
+    args = _k2_window_inputs(cuda_device, dtype, 8, 128, 128, 2048,
+                             seed=137)
+    kw = dict(block_q=128, block_k=128, causal=True)
+    got = K2.dsa_block_sparse_attention(*args, **kw)
+    want = K2.dsa_block_sparse_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def _pairs_equal(pair):
+    plain, sharded = pair
+    assert set(plain) == set(sharded)
+    for rid in plain:
+        assert (plain[rid] == sharded[rid]).all(), rid
+
+
+@pytest.mark.cuda
+def test_cuda_tp2_gloo_one_card_equals_unsharded(cuda_device, tmp_path):
+    """tp 2 as two processes on the one card over gloo (reduced yi_6b,
+    f32, kernel DSA): static generate greedy and sampled, and continuous
+    serving chunked and paged with int8 K/V, give the unsharded engines'
+    tokens; the gloo engine decodes eagerly (no graph)."""
+    import spmd_scenarios as S
+    from repro_torch.launch.mesh import run_spmd
+    out = run_spmd(S.card_tp2, 2, store_dir=str(tmp_path), backend="gloo",
+                   device_ids=[0, 0], timeout_s=300)[0]
+    for greedy, (plain, sharded) in out["generate"].items():
+        assert (plain == sharded).all(), greedy
+    assert out["graphs"]
+    _pairs_equal(out["chunked"])
+    _pairs_equal(out["paged int8"])
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world1_graphed_equals_eager(cuda_device, tmp_path):
+    """NCCL at world size 1 on a (1, 1) ("data", "model") mesh: the
+    decode graph captures the step's collectives, its logits and cache
+    equal the eager step's bit for bit, the tokens equal the unsharded
+    engine's, and a generate issues (steps + 1) x (2 n_layers + 1)
+    all-reduces and steps + 1 all-gathers over "model" (the prefill's and
+    each step's), nothing over "data"."""
+    import spmd_scenarios as S
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import run_spmd
+    out = run_spmd(S.card_nccl1, 1, store_dir=str(tmp_path), backend="nccl",
+                   device_ids=[0], timeout_s=300)[0]
+    for greedy, (plain, sharded) in out["generate"].items():
+        assert (plain == sharded).all(), greedy
+    assert out["captured"] and out["graph_bits"]
+    model, data, steps, n_layers = out["counts"]
+    C.check_tp_decode_collectives(model, n_layers, steps + 1)
+    assert data == {"all-reduce": 0, "all-gather": 0}

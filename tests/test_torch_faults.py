@@ -3,7 +3,7 @@ inference/scheduler.py), on the CPU at the reference's reduced fixtures
 (max_len 96, 2 slots, segments of 4).
 
 Every test of ``tests/test_faults.py`` is mirrored against the port (its
-sharded NaN test waits for serving meshes): each injected fault class
+sharded NaN test in tests/test_torch_multidevice.py): each injected fault class
 (NaN logits row, page-pool exhaustion, proposer crash, slow segment,
 dispatch failure), a segment that raises, deadlines, cancellation and
 load shedding leave the surviving requests bitwise token-exact against a

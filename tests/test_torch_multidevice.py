@@ -1,0 +1,546 @@
+"""Serving meshes in the port: the reference's tests/test_multidevice.py
+against the port's own ``mesh=None`` engines, in real process groups.
+
+The reference runs one controller over forced host devices; the port
+runs one process per device.  Here each process group is spawned once
+per module (``launch.mesh.run_spmd``, gloo on the CPU, rendezvous through
+a FileStore under the test's temporary directory) and runs every
+scenario of ``spmd_scenarios.py``: 2 ranks as a ("data",) mesh (dp 2),
+2 ranks as a (1, 2) mesh (tp 2), 4 ranks as (2, 2) and (1, 4) meshes.
+Each test asserts on the results of its scenario.
+
+What must hold: the sharded engines' tokens equal the unsharded
+engines' (greedy and sampled, static and continuous, chunked, blocking,
+paged with prefix reuse, int8, speculative, every DSA mode), which hold
+on tokens, not bytes: a rank's products see B / dp rows and tp sums
+partial products (ROADMAP, "Products are not row-invariant").  The
+reference's own engine at dp 2 x tp 2 gives the same tokens on the same
+weights (a subprocess with four forced host devices).  The collective
+counters show the pure-tp decode budget at two segment lengths.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+
+from repro.configs import get_config as ref_get_config
+from repro.configs import reduced as ref_reduced
+from repro.distributed import sharding as RS
+from repro.models.transformer import init_model as ref_init_model
+from repro.models.transformer import \
+    model_param_specs as ref_model_param_specs
+from repro_torch.configs.base import ARCH_IDS, get_config, reduced
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as TS
+from repro_torch.inference.config import ServingConfig
+from repro_torch.launch.mesh import make_serving_mesh, run_spmd
+from repro_torch.models.attention import RunFlags
+from repro_torch.models.transformer import (init_cache, init_model,
+                                            model_param_specs,
+                                            unstacked_cache_specs)
+
+import spmd_scenarios as S
+
+TIMEOUT_S = 240
+SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
+TP_GRID = [(1, 2), (2, 2), (1, 4)]
+
+
+def _tp_ids(val):
+    return f"dp{val[0]}xtp{val[1]}"
+
+
+def _equal(pair):
+    plain, sharded = pair
+    assert set(plain) == set(sharded)
+    for rid in plain:
+        np.testing.assert_array_equal(sharded[rid], plain[rid],
+                                      err_msg=f"rid {rid}")
+
+
+@pytest.fixture(scope="module")
+def store(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("spmd"))
+
+
+def _group(store, world, name, ref=None):
+    return run_spmd(S.run, world, store_dir=store, args=(name, ref),
+                    timeout_s=TIMEOUT_S)
+
+
+@pytest.fixture(scope="module")
+def dp(store):
+    return _group(store, 2, "dp")
+
+
+@pytest.fixture(scope="module")
+def tp(store):
+    return _group(store, 2, "tp")
+
+
+# the reference's serving at dp 2 x tp 2 on four forced host devices.  Its
+# own make_serving_mesh builds a mesh of Explicit axes under jax 0.9,
+# on which its tp engine refuses the embedding gather (ROADMAP Queue 3);
+# the subprocess records that, then serves on a mesh of Auto axes, the
+# kind its make_production_mesh builds
+REF_SCRIPT = r"""
+import json, sys
+import jax, numpy as np
+from repro.configs import get_config, reduced
+from repro.inference.engine import Engine
+from repro.inference.scheduler import ContinuousEngine, Request
+from repro.launch.mesh import make_serving_mesh
+from repro.models.transformer import init_model
+spec = json.loads(sys.argv[1])
+cfg = reduced(get_config(spec["arch"]))
+params, _ = init_model(jax.random.PRNGKey(spec["key"]), cfg)
+prompts = np.asarray(spec["prompts"], np.int32)
+out = {}
+try:
+    eng = Engine(cfg, params, max_len=96,
+                 mesh=make_serving_mesh(dp=2, tp=2, cfg=cfg))
+    eng.generate(prompts, 2)
+    out["serving_mesh"] = "ok"
+except Exception as e:
+    out["serving_mesh"] = type(e).__name__ + ": " + str(e).splitlines()[0]
+mesh = jax.make_mesh((2, 2), ("data", "model"),
+                     axis_types=(jax.sharding.AxisType.Auto,) * 2)
+eng = Engine(cfg, params, max_len=96, mesh=mesh)
+out["tp"] = eng.tp
+out["gen"] = np.asarray(eng.generate(prompts, spec["n_new"], seed=5)
+                        .tokens).tolist()
+rng = np.random.default_rng(spec["seed"])
+reqs = [Request(rid, rng.integers(1, cfg.vocab - 4, size=(n,)).astype(
+    np.int32), k, seed=rid * 7 + 1) for rid, (n, k) in enumerate(
+    spec["shapes"])]
+cont = ContinuousEngine(cfg, params, slots=8, max_len=96, seg_len=4,
+                        mesh=mesh).run(reqs)
+out["cont"] = {str(k): np.asarray(v).tolist() for k, v in cont.items()}
+print(json.dumps(out))
+"""
+
+REF = dict(arch="stablelm_3b", key=0, n_new=12, seed=19,
+           shapes=[(20, 5), (33, 9), (7, 1), (40, 12), (12, 6), (25, 3)])
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """(the reference subprocess, running; the port's inputs: the
+    reference's weights as numpy and the shared prompts)."""
+    cfg = ref_reduced(ref_get_config(REF["arch"]))
+    params, _ = ref_init_model(jax.random.PRNGKey(REF["key"]), cfg)
+    prompts = np.random.default_rng(3).integers(
+        1, cfg.vocab - 4, size=(8, 24)).astype(np.int32)
+    spec = dict(REF, prompts=prompts.tolist())
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=SRC,
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    proc = subprocess.Popen([sys.executable, "-c", REF_SCRIPT,
+                             json.dumps(spec)], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    ref = dict(REF, params=jax.tree.map(np.asarray, params),
+               prompts=prompts)
+    yield proc, ref
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def reference_out(reference):
+    proc, _ = reference
+    out, err = proc.communicate(timeout=TIMEOUT_S)
+    assert proc.returncode == 0, err[-3000:]
+    return json.loads(out.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def dp_tp(store, reference):
+    return _group(store, 4, "dp_tp", reference[1])
+
+
+def _grid(dp, tp, dp_tp, grid):
+    return tp[0] if grid == (1, 2) else dp_tp[0][grid]
+
+
+# -- data parallelism ---------------------------------------------------------
+
+
+def test_resident_cache_is_sharded_over_data(dp):
+    """Each rank's resident cache holds its half of the slots."""
+    (shape0, lo0, hi0), (shape1, lo1, hi1) = (r["resident"] for r in dp)
+    assert shape0[0] == shape1[0] == S.SLOTS // 2
+    assert (lo0, hi0, lo1, hi1) == (0, 4, 4, 8)
+
+
+@pytest.mark.parametrize("case", ["dp2", "dp2xtp2-paged",
+                                  "tp2-paged-int8"])
+def test_resident_cache_is_the_resolved_cache_specs(dp, tp, dp_tp, case):
+    """On every rank the continuous engine's resident cache has the
+    shapes its rules resolve ``unstacked_cache_specs`` to: slots over
+    "data", K/V heads and their scales over "model", the page pool and
+    the selection caches whole."""
+    runs = {"dp2": (dp, "layout"), "dp2xtp2-paged": (dp_tp, "layout"),
+            "tp2-paged-int8": (tp, "int8_layout")}
+    ranks, key = runs[case]
+    for rank, res in enumerate(ranks):
+        got, want = res[key]
+        assert got == want, (case, rank)
+
+
+def test_sharded_run_bitwise_chunked_and_segments(dp):
+    """Chunked admission and decode segments, mixed lengths and n_new = 1
+    requests: the dp engine's tokens are the unsharded engine's."""
+    _equal(dp[0]["chunked"])
+    plain_chunked, sharded_chunked, chunks = dp[0]["chunked_stats"]
+    assert plain_chunked and sharded_chunked and chunks > 0
+
+
+def test_sharded_run_bitwise_sampled_chains(dp):
+    """Sampled per-slot chains with per-request temperatures."""
+    _equal(dp[0]["sampled"])
+
+
+def test_sharded_run_matches_solo_engine(dp):
+    """Sharded continuous serving equals solo ``Engine.generate``."""
+    got, solo = dp[0]["solo"]
+    for rid, toks in solo.items():
+        np.testing.assert_array_equal(got[rid], toks, err_msg=f"rid {rid}")
+
+
+def test_sharded_blocking_admission_bitwise(dp):
+    """Blocking whole-prompt admission under the mesh."""
+    _equal(dp[0]["blocking"])
+    assert not dp[0]["blocking_chunked"]
+
+
+def test_sharded_speculative_segments_bitwise(dp):
+    """Speculative segments: each round's tokens and emit counts are
+    gathered over "data"."""
+    _equal(dp[0]["spec"])
+    k, rounds = dp[0]["spec_stats"]
+    assert k == 3 and rounds > 0
+
+
+def test_sharded_dsa_long_context_bitwise(dp):
+    """DSA block decode over the predicted-key cache, slots sharded."""
+    _equal(dp[0]["dsa_long"])
+
+
+def test_sharded_paged_serving_bitwise(dp):
+    """A paged resident cache with a copy-on-write prefix group, a miss
+    wave then a hit wave; both engines drain the pool."""
+    waves, (reused, available, expect) = dp[0]["paged"]
+    for wave in waves:
+        _equal(wave)
+    assert reused > 0 and available == expect
+
+
+def test_sharded_engine_generate_bitwise(dp):
+    """Static ``generate`` over the batch's rows, greedy and sampled (a
+    rank draws the whole batch's noise and keeps its rows)."""
+    for greedy, pair in dp[0]["generate"].items():
+        np.testing.assert_array_equal(pair[1], pair[0],
+                                      err_msg=f"greedy={greedy}")
+
+
+def test_sharded_nan_isolation_matches_unsharded(dp):
+    """Fault isolation on the dp-2 resident engine (the reference's
+    tests/test_faults.py case): the poisoned slot fails with a prefix of
+    its fault-free tokens, the survivors equal the unsharded fault-free
+    run, and the engine drains clean."""
+    base, got, failed, clean = dp[0]["nan"]
+    assert failed == 1 and clean
+    assert 0 < len(got[1]) < len(base[1])
+    np.testing.assert_array_equal(got[1], base[1][:len(got[1])])
+    for rid in (0, 2):
+        np.testing.assert_array_equal(got[rid], base[rid], err_msg=f"{rid}")
+
+
+def test_sharded_segment_compiles_once(dp):
+    """One segment signature, across a reset too."""
+    assert dp[0]["compiles"] == (1, 1)
+
+
+# -- tensor parallelism ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("grid", TP_GRID, ids=_tp_ids)
+def test_tp_weights_shard_over_model(dp, tp, dp_tp, grid):
+    """Weights shard: ``tp`` is the model axis's width, wq holds n_heads /
+    tp heads, and the bytes on a rank are about 1 / tp of the whole."""
+    eng_tp, per_dev, full, wq = _grid(dp, tp, dp_tp, grid)["weights"]
+    cfg = reduced(get_config("stablelm_3b"))
+    assert eng_tp == grid[1]
+    assert wq == (cfg.d_model, cfg.n_heads * cfg.resolved_head_dim
+                  // grid[1])
+    assert per_dev / full <= 1.0 / grid[1] + 0.08, per_dev / full
+
+
+@pytest.mark.parametrize("grid", TP_GRID, ids=_tp_ids)
+def test_tp_continuous_chunked_bitwise(dp, tp, dp_tp, grid):
+    """Chunked admission and segments under dp x tp."""
+    res = _grid(dp, tp, dp_tp, grid)
+    _equal(res["chunked"])
+    eng_tp, chunks = res["chunked_stats"]
+    assert eng_tp == grid[1] and chunks > 0
+
+
+@pytest.mark.parametrize("dsa_mode", ["block", "kernel"])
+def test_tp_dsa_modes_bitwise(dp_tp, dsa_mode):
+    """DSA under tp: kt/ktb stay whole, every shard selects the same
+    blocks and gathers its own heads (dp 2 x tp 2)."""
+    _equal(dp_tp[0][("dsa", dsa_mode)])
+
+
+def test_tp_streamed_weights_equal_whole_tree_placement(tp):
+    """An engine given ``init_model`` to call keeps each piece's shard as
+    it is drawn: the same shards, bit for bit, and the same tokens as an
+    engine given the whole tree."""
+    shapes, same, streamed, whole = tp[0]["streamed"]
+    cfg = reduced(get_config("stablelm_3b"))
+    assert (cfg.vocab // 2, cfg.d_model) in shapes
+    assert same
+    np.testing.assert_array_equal(streamed, whole)
+
+
+def test_tp_sampled_chains_bitwise(tp):
+    """Sampled chains under tp: the logits are gathered before sampling,
+    so every rank draws the same tokens."""
+    _equal(tp[0]["sampled"])
+
+
+def test_tp_blocking_admission_bitwise(dp_tp):
+    _equal(dp_tp[0]["blocking"])
+    assert not dp_tp[0]["blocking_chunked"]
+
+
+def test_tp_paged_bitwise(dp_tp):
+    """Paged pool rows head-sharded over "model", slots over "data"."""
+    _equal(dp_tp[0]["paged"])
+
+
+@pytest.mark.parametrize("grid", TP_GRID, ids=_tp_ids)
+def test_tp_static_generate_bitwise(dp, tp, dp_tp, grid):
+    for greedy, pair in _grid(dp, tp, dp_tp, grid)["generate"].items():
+        np.testing.assert_array_equal(pair[1], pair[0],
+                                      err_msg=f"greedy={greedy}")
+
+
+def test_tp_segment_compiles_once(dp_tp):
+    assert dp_tp[0]["compiles"] == (1, 1)
+
+
+def test_tp_mesh_divisibility_error():
+    """An indivisible tp with a cfg raises a ValueError naming the axis,
+    before any process is asked."""
+    cfg = reduced(get_config("yi_6b"))        # n_kv_heads 2: tp 4 fails
+    with pytest.raises(ValueError, match="kv_heads"):
+        make_serving_mesh(dp=2, tp=4, cfg=cfg)
+
+
+def test_tp_indivisible_falls_back_replicated(dp_tp):
+    """A (1, 4) mesh without a cfg on reduced yi_6b (2 KV heads): the
+    engine serves replicated weights (tp 1, every byte on each rank) and
+    gives the unsharded tokens."""
+    eng_tp, per_dev, full = dp_tp[0]["fallback_weights"]
+    assert eng_tp == 1 and per_dev == full
+    for greedy, pair in dp_tp[0]["fallback"].items():
+        np.testing.assert_array_equal(pair[1], pair[0],
+                                      err_msg=f"greedy={greedy}")
+
+
+def test_tp_decode_segment_collective_budget(tp):
+    """A pure-tp decode segment issues 2 * n_layers + 1 all-reduces and 1
+    all-gather over "model" a step and nothing over "data", at seg_len 4
+    and 8 alike (no collective added per token)."""
+    cfg = reduced(get_config("stablelm_3b"))
+    budget = tp[0]["budget"]
+    for seg, (model, data, steps) in budget.items():
+        assert steps == seg
+        C.check_tp_decode_collectives(model, cfg.n_layers, steps)
+        assert data == {"all-reduce": 0, "all-gather": 0}
+    C.assert_collectives_token_invariant(budget[4][0], budget[8][0],
+                                         budget[4][2], budget[8][2])
+
+
+def test_tp_mixtral_bitwise(tp):
+    """mixtral at tp 2: 2 of the 4 reduced experts on each rank, the
+    capacity prefill and the decode-dense steps combine locally and
+    all-reduce; static (kernel DSA on the ring) and continuous."""
+    assert tp[0]["mixtral_experts"] == (2, 4)
+    for greedy, pair in tp[0]["mixtral_generate"].items():
+        np.testing.assert_array_equal(pair[1], pair[0],
+                                      err_msg=f"greedy={greedy}")
+    _equal(tp[0]["mixtral_continuous"])
+
+
+@pytest.mark.parametrize("arch", ["h2o_danube_1_8b", "qwen1_5_110b"])
+def test_tp_other_dense_archs_bitwise(tp, arch):
+    """tp 2 on h2o_danube_1_8b (an SWA ring, kernel DSA with the window,
+    blocking admission) and qwen1_5_110b (QKV biases sharded with their
+    heads): static generate greedy and sampled, and continuous serving."""
+    gen, cont = tp[0][arch]
+    for greedy, pair in gen.items():
+        np.testing.assert_array_equal(pair[1], pair[0],
+                                      err_msg=f"greedy={greedy}")
+    _equal(cont)
+
+
+def test_tp_int8_kv_paged_bitwise(tp):
+    """int8 K/V and int8 selection on a paged pool at tp 2: the pool's
+    rows and their scales hold one KV head of the two."""
+    _equal(tp[0]["int8"])
+    dtype, k, k_s = tp[0]["int8_cache"]
+    assert str(dtype) == "torch.int8" and k[1] == 1 and k_s[1] == 1
+
+
+def test_reference_dp2_tp2_tokens(dp_tp, reference_out):
+    """The port's 4-process dp 2 x tp 2 engines on the reference's
+    weights give the reference's own sharded engines' greedy tokens."""
+    gen, cont = dp_tp[0]["reference"]
+    assert reference_out["tp"] == 2
+    np.testing.assert_array_equal(gen, np.asarray(reference_out["gen"]))
+    assert {str(k) for k in cont} == set(reference_out["cont"])
+    for rid, toks in cont.items():
+        np.testing.assert_array_equal(toks,
+                                      reference_out["cont"][str(rid)])
+
+
+def test_reference_fault_explicit_axis_serving_mesh(reference_out):
+    """Reference fault (ROADMAP Queue 3): under jax 0.9 the reference's
+    ``make_serving_mesh`` builds a mesh of Explicit axes, on which its
+    tp engine refuses the vocab-sharded embedding gather."""
+    assert reference_out["serving_mesh"].startswith("ShardingTypeError")
+
+
+# -- refusals, rules and spec trees (no process group) -------------------------
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v3", "rwkv6_3b",
+                                  "jamba_1_5_large", "whisper_small",
+                                  "llama_3_2_vision"])
+def test_tp_unsupported_archs_raise(arch):
+    """tp > 1 on MLA, RWKV6, Mamba and cross-attention archs raises
+    NotImplementedError naming "Distribution"."""
+    with pytest.raises(NotImplementedError, match="Distribution"):
+        make_serving_mesh(dp=1, tp=2, cfg=reduced(get_config(arch)))
+
+
+def test_tp_unsupported_engine_raises(tp):
+    """The engine raises too, on a tp mesh built without a cfg."""
+    assert "Distribution" in tp[0]["rwkv_tp"]
+
+
+def test_serving_config_mesh_fields():
+    """``mesh`` and ``shard_rules`` are served; a wrong type raises, and
+    rules that shard the cache's sequence (long context) are refused."""
+    with pytest.raises(TypeError, match="mesh"):
+        ServingConfig(mesh=1)
+    with pytest.raises(TypeError, match="shard_rules"):
+        ServingConfig(shard_rules=1)
+    long_context = dataclasses.replace(TS.make_serving_rules(),
+                                       cache_seq="model")
+    with pytest.raises(NotImplementedError, match="Distribution"):
+        ServingConfig(shard_rules=long_context)
+    rules = TS.make_serving_rules(tp=True)
+    assert ServingConfig(shard_rules=rules).shard_rules is rules
+
+
+class _Mesh:
+    """A DeviceMesh's names and shape, enough for ``resolve_spec``."""
+
+    def __init__(self, shape, names):
+        self.mesh_dim_names = names
+        self.mesh = np.zeros(shape)
+
+
+@pytest.mark.parametrize("tp_rules", [False, True])
+def test_resolve_spec_matches_reference(tp_rules):
+    """Divisibility and one use per mesh axis, as the reference resolves
+    them, over every leaf of the reduced archs' weights."""
+    amesh = jax.sharding.AbstractMesh((2, 4), ("data", "model"))
+    mesh = _Mesh((2, 4), ("data", "model"))
+    rrules = RS.make_serving_rules(tp=tp_rules)
+    trules = TS.make_serving_rules(tp=tp_rules)
+    for arch in ("stablelm_3b", "yi_6b", "mixtral_8x22b", "deepseek_v3"):
+        cfg = reduced(get_config(arch))
+        params = init_model(0, cfg, device="cpu")
+        specs = model_param_specs(cfg)
+
+        def one(p, log):
+            got = TS.resolve_spec(tuple(p.shape), log, trules, mesh)
+            want = tuple(RS.resolve_spec(tuple(p.shape), log, rrules,
+                                         amesh))
+            assert got[:len(want)] == want, (arch, log, got, want)
+            assert all(a is None for a in got[len(want):])
+        TS._map2(one, params, specs)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_model_param_specs_match_init(arch):
+    """The spec tree built from the cfg alone covers every leaf of
+    ``init_model`` with one logical axis per dimension, and names the
+    reference's logical axes (its stacked layer axis aside)."""
+    cfg = reduced(get_config(arch))
+    params = init_model(0, cfg, device="cpu")
+    specs = model_param_specs(cfg)
+    TS._map2(lambda p, log: None if p.dim() == len(log) else pytest.fail(
+        f"{arch}: {tuple(p.shape)} vs {log}"), params, specs)
+    rspecs = ref_model_param_specs(ref_reduced(ref_get_config(arch)))
+    assert specs["embed"] == rspecs["embed"]
+    rgroup = RS.map_specs(lambda s: tuple(s[1:]), rspecs["groups"])
+    assert specs["groups"][0] == rgroup
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged", "int8", "ring"])
+def test_unstacked_cache_specs_match_cache(layout):
+    """The cache spec tree covers every leaf of ``init_cache`` in each
+    layout: slot rows over "batch", a pool's rows over "pages", K/V heads
+    over "kv_heads", the selection caches without a head axis."""
+    arch = "h2o_danube_1_8b" if layout == "ring" else "yi_6b"
+    cfg = reduced(get_config(arch))
+    flags = RunFlags(mode="decode", long_context=True,
+                     kv_quant="int8" if layout == "int8" else None,
+                     select_dtype="int8" if layout == "int8" else "float32")
+    caches = init_cache(cfg, 4, 96, flags, device="cpu",
+                        pages=13 if layout == "paged" else None)
+    specs = unstacked_cache_specs(cfg, caches)
+    TS._map2(lambda t, log: None if t.dim() == len(log) else pytest.fail(
+        f"{layout}: {tuple(t.shape)} vs {log}"), caches, specs)
+    attn = specs["groups"][0]["b0"]["attn"]
+    assert attn["k"][-2] == "kv_heads"
+    assert attn["k"][0] == ("pages" if layout == "paged" else "batch")
+    if layout != "ring":
+        assert "kv_heads" not in attn["kt"]
+
+
+def test_a_failing_rank_fails_the_group_without_hanging(tmp_path):
+    """One rank raising fails ``run_spmd`` (the peers' collective errors
+    out instead of waiting) well inside the group's timeout, and the
+    failure names a rank."""
+    import time
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="rank"):
+        run_spmd(S.fail_rank, 2, store_dir=str(tmp_path), args=(1,),
+                 timeout_s=60)
+    assert time.monotonic() - t0 < 60
+
+
+def test_collective_budget_checks():
+    """The budget check names the op whose count is off, and the token
+    invariance check catches a per-token collective."""
+    ok = {"all-reduce": 5 * 3, "all-gather": 3}
+    assert C.check_tp_decode_collectives(ok, 2, steps=3) == ok
+    with pytest.raises(AssertionError, match="all-reduce"):
+        C.check_tp_decode_collectives({"all-reduce": 4, "all-gather": 1}, 2)
+    with pytest.raises(AssertionError, match="all-gather"):
+        C.check_tp_decode_collectives({"all-reduce": 5, "all-gather": 2}, 2)
+    with pytest.raises(AssertionError, match="varies"):
+        C.assert_collectives_token_invariant(
+            {"all-reduce": 20}, {"all-reduce": 41}, 4, 8)

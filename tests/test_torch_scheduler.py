@@ -282,13 +282,14 @@ def test_submit_validates_and_refuses_unported_options():
     _, _, tc, tparams = _params("yi_6b")
     # the lifecycle fields and MoE prefill are ported and validated (a
     # bad moe_prefill raises ValueError, as the reference's
-    # tests/test_quant_serving.py holds); meshes are not
+    # tests/test_quant_serving.py holds); so are the mesh fields, whose
+    # values must be a DeviceMesh and ShardingRules
     for field, bad in (("queue_cap", 0), ("shed_policy", "drop-newest"),
                        ("admit_retries", -1), ("moe_prefill", "sparse")):
         with pytest.raises(ValueError, match=field):
             TS.ContinuousEngine(tc, tparams, device="cpu", **{field: bad})
     for field in ("mesh", "shard_rules"):
-        with pytest.raises(NotImplementedError, match=field):
+        with pytest.raises(TypeError, match=field):
             TS.ContinuousEngine(tc, tparams, device="cpu", **{field: 1})
     # a dense arch accepts either MoE prefill and is left as it was
     for mp in ("capacity", "dense"):
