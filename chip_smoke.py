@@ -85,7 +85,7 @@ fails:
      exactly once per layer in prefill and no attention kernel; a
      torch.profiler trace of its prefill and decode steps; and one timed
      prefill of 4 x 4095 tokens, a length that takes the token scan and
-     not K7;
+     not K7, at 8 layers (``UNALIGNED_LAYERS``) against an aligned one;
  10. faithful DSA (the paper's token granularity, no kernel): a 2-layer
      full-width yi_6b in f32 serves the same greedy tokens on the card as
      on the CPU, full precision and with fp8 K/V and int8 selection; the
@@ -190,8 +190,9 @@ fails:
      (the differentiable chunked wkv, no kernel) card against CPU, the
      eval step on the trained model launching K7 once a layer with the
      train form's ce, and 2-layer stablelm_3b's gradients under ``dots``
-     against ``full`` with each one's peak memory; (b) 4-layer
-     full-width stablelm_3b (bf16 params, f32 moments): a checkpoint
+     against ``full`` with each one's peak memory; (b) 2-layer
+     (``CKPT_LAYERS``) full-width stablelm_3b (bf16 params, f32
+     moments): a checkpoint
      saved at step 2, restored into a state of another seed bit for bit,
      and the resumed run against the uninterrupted one, at the tolerance
      two uninterrupted runs agree to, with the bytes and the host-copy,
@@ -304,7 +305,32 @@ fails:
      bit for bit, tokens == ``mesh=None``, the collective counters
      against the budget and the NCCL kernels in a profiler trace.
      Phases 12, 13b, 15b-c and 16c-d run at cut depths since phase 21
-     joined the run (8, 16, 16 and 8 layers).
+     joined the run (8, 16, 16 and 8 layers), the token-scan prefill of
+     phase 9 and the checkpoint of 16b since phase 22 did (8 and 2).
+ 22. sharded training (``training.steps.make_train_step(mesh=, rules=)``,
+     the reference's ``make_rules`` tables; no kernel: training takes the
+     block path): (a) two gloo processes on the card, yi_6b at full width
+     cut to 2 layers in f32 (remat), 3 steps of 4 x 512, on the block
+     path and with DSA off: FSDP 2 (``make_rules(tp=False)`` on (2, 1))
+     and TP 2 + SP (``make_rules()`` on (1, 2)) against the unsharded run
+     on the same rank: with DSA off each step's loss (gated by
+     ``SHARD_F32_RTOL``); on the block path FSDP's first loss against the
+     unsharded model's on each rank's rows (gated by ``SHARD_ROWS_RTOL``)
+     and every gap printed (the 4-bit predictor turns the products' last
+     bits into other levels); the collective counters against the budget
+     (gated); each rank's bytes of params, grads and moments against the
+     unsharded figure; (b) yi_6b at 8 layers in bf16 (bf16 moments, remat,
+     4 x 4096 in 2 microbatches: 16d's run) under ``make_rules()`` on
+     (2, 1), FSDP over two gloo processes: the median step ms of steps
+     2-3, each rank's state bytes against the replicated figure and its
+     peak memory, each step's loss gap against 16d's unsharded losses
+     beside the predicted tolerance (printed); (c) NCCL at world size 1
+     on a (1, 1) mesh under ``make_rules()`` (every collective a group of
+     one), yi_6b at 8 layers in bf16, 2 steps of 2 x 512 in 2
+     microbatches, deterministic algorithms: the losses and updated
+     params against ``mesh=None`` bit for bit (or the first leaf that
+     departs and by how much), the counters against the budget (gated),
+     the NCCL kernels of one profiled step.
 
 It then prints one JSON line of per-kernel results, the card's name and
 power limit again as ``nvidia-smi`` gives them, and as its last line
@@ -1295,33 +1321,52 @@ def profile_phase(torch, seed: int, steps: int = 8, traced: int = 2,
            "step_ms": step_ms, "step_busy_ms": dec[0],
            "step_event_ms": event_ms, "capture_ms": step.capture_ms,
            "pool_bytes": step.pool_bytes}
-    if cfg.rwkv is not None:
-        out["unaligned_prefill_ms"] = unaligned_prefill(
-            torch, eng, prompts[:, :-1], prefill_s * 1e3)
     del eng
     torch.cuda.empty_cache()
+    if cfg.rwkv is not None:
+        out["unaligned_prefill_ms"] = unaligned_prefill(torch, seed, cfg,
+                                                        prompts)
     return out
 
 
-def unaligned_prefill(torch, eng, prompts, aligned_ms: float) -> float:
-    """One prefill whose length is no multiple of 32 (4 x 4095): the
-    reference's dispatch sends it through the token scan, a Python loop
-    over the tokens of every layer, and never through K7."""
+# the token-scan prefill's depth: all 32 layers until phase 22 joined the
+# run (~33 s of it), 8 since
+UNALIGNED_LAYERS = 8
+
+
+def unaligned_prefill(torch, seed: int, cfg, prompts) -> float:
+    """One prefill whose length is no multiple of 32 (4 x 4095) on
+    ``cfg`` cut to ``UNALIGNED_LAYERS`` layers: the reference's dispatch
+    sends it through the token scan, a Python loop over the tokens of
+    every layer, and never through K7; against a 4 x 4096 prefill
+    through K7 at the same depth."""
+    from repro_torch.configs.base import cut_layers
+    from repro_torch.inference.engine import Engine
     from repro_torch.kernels.wkv6 import wkv6_chunked
+    from repro_torch.models.transformer import init_model
+    cfg = cut_layers(cfg, UNALIGNED_LAYERS)
+    eng = Engine(cfg, init_model(seed, cfg), max_len=prompts.shape[1] + 80)
+    with torch.inference_mode():
+        eng.prefill(prompts)                           # warm
+        _, _, aligned = eng.prefill(prompts)
+    aligned_ms = aligned * 1e3
+    prompts = prompts[:, :-1]
     before = wkv6_chunked.launches
     with torch.inference_mode():
         last, caches, sec = eng.prefill(prompts)
     k7 = wkv6_chunked.launches - before
     finite = bool(torch.isfinite(last).all())
     b, s = prompts.shape
-    print(f"{eng.cfg.name} unaligned prefill ({b} x {s}, the token scan): "
+    print(f"{eng.cfg.name} at {cfg.n_layers} layers, unaligned prefill "
+          f"({b} x {s}, the token scan): "
           f"{sec * 1e3:.1f} ms ({sec * 1e3 / aligned_ms:.1f} x the {b} x "
-          f"{s + 1} prefill through K7; "
+          f"{s + 1} prefill through K7, {aligned_ms:.1f} ms; "
           f"{sec * 1e6 / (s * eng.cfg.n_layers):.1f} us a token a layer), "
           f"K7 launches {k7}, logits finite: {finite}", flush=True)
     if k7 or not finite:
         fail(f"unaligned prefill: K7 launched {k7} times, finite {finite}")
-    del caches
+    del caches, eng
+    torch.cuda.empty_cache()
     return sec * 1e3
 
 
@@ -1571,7 +1616,7 @@ def train_parity_phase(torch, seed: int) -> dict:
     opt = adamw.OptConfig(lr=1e-3, total_steps=10, warmup_steps=2)
     batch = next(lm_batches(DataConfig(vocab=cfg.vocab, seq_len=512,
                                        global_batch=2, seed=seed)))
-    card = ST.init_train_state(seed, cfg, opt)
+    card, _ = ST.init_train_state(seed, cfg, opt)
     cpu_params = to_cpu(card["params"])
     cpu = {"params": cpu_params, "opt": adamw.init(opt, cpu_params),
            "step": 0}
@@ -3103,7 +3148,7 @@ def rwkv_train_parity_phase(torch, seed: int) -> dict:
     opt = adamw.OptConfig(lr=1e-3, total_steps=10, warmup_steps=2)
     batch = next(lm_batches(DataConfig(vocab=cfg.vocab, seq_len=512,
                                        global_batch=2, seed=seed)))
-    card = ST.init_train_state(seed, cfg, opt)
+    card, _ = ST.init_train_state(seed, cfg, opt)
     cpu_params = to_cpu(card["params"])
     cpu = {"params": cpu_params, "opt": adamw.init(opt, cpu_params),
            "step": 0}
@@ -3162,7 +3207,7 @@ def rwkv_train_parity_phase(torch, seed: int) -> dict:
                              dtype="float32", param_dtype="float32")
     batch = next(lm_batches(DataConfig(vocab=sl.vocab, seq_len=512,
                                        global_batch=2, seed=seed)))
-    params = ST.init_train_state(seed, sl, adamw.OptConfig())["params"]
+    params = ST.init_train_state(seed, sl, adamw.OptConfig())[0]["params"]
     grads, peak = {}, {}
     for pol in ("full", "dots"):
         c = dataclasses.replace(sl, remat=True, remat_policy=pol)
@@ -3212,9 +3257,13 @@ def _state_diff(torch, a, b) -> tuple:
     return diff / total, worst
 
 
+# 16b's depth: 4 layers until phase 22 joined the run, 2 since
+CKPT_LAYERS = 2
+
+
 def checkpoint_phase(torch, seed: int) -> dict:
-    """16b.  stablelm_3b at full width with 4 layers (bf16 params, f32
-    moments), 4 steps of 2 x 512 tokens: an uninterrupted run saves at
+    """16b.  stablelm_3b at full width with ``CKPT_LAYERS`` layers (bf16
+    params, f32 moments), 4 steps of 2 x 512 tokens: an uninterrupted run saves at
     step 2 (``AsyncCheckpointer``, into a temporary directory removed
     afterwards); a state made from another seed restores that checkpoint,
     equal bit for bit to the state saved, and runs steps 2-3 on the same
@@ -3232,7 +3281,8 @@ def checkpoint_phase(torch, seed: int) -> dict:
     from repro_torch.training import steps as ST
     from repro_torch.tree import named_leaves
     t0 = time.monotonic()
-    cfg = dataclasses.replace(get_config("stablelm_3b"), n_layers=4)
+    cfg = dataclasses.replace(get_config("stablelm_3b"),
+                              n_layers=CKPT_LAYERS)
     opt = adamw.OptConfig(lr=1e-3, total_steps=4, warmup_steps=1)
     data = lm_batches(DataConfig(vocab=cfg.vocab, seq_len=512,
                                  global_batch=2, seed=seed))
@@ -3249,7 +3299,7 @@ def checkpoint_phase(torch, seed: int) -> dict:
     out = {}
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         ck = C.AsyncCheckpointer(tmp)
-        a, ma = run(ST.init_train_state(seed, cfg, opt), 0, 2)
+        a, ma = run(ST.init_train_state(seed, cfg, opt)[0], 0, 2)
         torch.cuda.synchronize()
         snap = convert.state_to_reference(a)
         t = time.perf_counter()
@@ -3261,8 +3311,8 @@ def checkpoint_phase(torch, seed: int) -> dict:
         nbytes = sum(f.stat().st_size for f in path.iterdir())
         a, mb = run(a, 2, 4)
         ma += mb
-        b, mb2 = run(ST.init_train_state(seed, cfg, opt), 0, 4)
-        other = ST.init_train_state(seed + 1, cfg, opt)
+        b, mb2 = run(ST.init_train_state(seed, cfg, opt)[0], 0, 4)
+        other, _ = ST.init_train_state(seed + 1, cfg, opt)
         torch.cuda.synchronize()
         t = time.perf_counter()
         r, rstep = C.restore(str(path), other)
@@ -3288,8 +3338,8 @@ def checkpoint_phase(torch, seed: int) -> dict:
     bitwise = d_ra == 0 and s_ra == 0
     ok = (exact and frozen and d_ra <= max(2 * d_ab, 1e-5)
           and s_ra <= max(2 * s_ab, 0.01))
-    print(f"16b checkpoint: 4-layer full-width stablelm_3b (bf16 params, f32 "
-          f"moments), {nbytes:,} bytes on disk; host copy {copy_s:.3f} s "
+    print(f"16b checkpoint: {CKPT_LAYERS}-layer full-width stablelm_3b (bf16 "
+          f"params, f32 moments), {nbytes:,} bytes on disk; host copy {copy_s:.3f} s "
           f"(blocks the loop), write {write_s:.3f} s, restore "
           f"{restore_s:.3f} s; restored == saved bit for bit: {exact}, P "
           f"frozen: {frozen}; two uninterrupted runs: metrics max rel "
@@ -3436,7 +3486,7 @@ def yi_train_slice(torch, seed: int, layers: int = 8) -> dict:
                                  seed=seed))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    state = ST.init_train_state(seed, cfg, opt)
+    state, _ = ST.init_train_state(seed, cfg, opt)
     p0 = {k: v.clone() for k, v in _p_leaves(state["params"]).items()}
     serve.reset_launch_counts()
     metrics, step_s, mb = [], [], 2
@@ -3464,6 +3514,7 @@ def yi_train_slice(torch, seed: int, layers: int = 8) -> dict:
     out = _train_report(torch, f"16d yi train slice (yi_6b, {layers} layers "
                         f"bf16, bf16 moments, remat, DSA block)", cfg, state,
                         metrics, step_s, b, s, mb, n, peak)
+    out["losses"] = [m["loss"] for m in metrics]
     out["profile"] = _profiled_step(
         torch, f"yi_6b train step ({b} x {s}, {mb} microbatches)", step,
         state, next(data))
@@ -4720,7 +4771,7 @@ def jamba_train_slice(torch, seed: int, card: str) -> dict:
     ropt = adamw.OptConfig(lr=1e-3, total_steps=10, warmup_steps=2)
     rbatch = next(lm_batches(DataConfig(vocab=rcfg.vocab, seq_len=256,
                                         global_batch=2, seed=seed)))
-    cardst = ST.init_train_state(seed, rcfg, ropt)
+    cardst, _ = ST.init_train_state(seed, rcfg, ropt)
     cpu_params = to_cpu(cardst["params"])
     cpu = {"params": cpu_params, "opt": adamw.init(ropt, cpu_params),
            "step": 0}
@@ -5225,7 +5276,7 @@ def xattn_train_slice(torch, seed: int, card: str) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         opt = adamw.OptConfig(total_steps=steps + 2, warmup_steps=1)
-        state = ST.init_train_state(seed, cfg, opt)
+        state, _ = ST.init_train_state(seed, cfg, opt)
         TT.set_cross_gates(state["params"], XATTN_GATE)
         rng = np.random.default_rng(seed)
         data = lm_batches(DataConfig(vocab=cfg.vocab, seq_len=s,
@@ -5264,7 +5315,7 @@ def xattn_train_slice(torch, seed: int, card: str) -> dict:
     rbatch = dict(next(lm_batches(DataConfig(vocab=rcfg.vocab, seq_len=64,
                                              global_batch=2, seed=seed))),
                   **serve.draw_extras(rcfg, 2, np.random.default_rng(seed)))
-    cardst = ST.init_train_state(seed, rcfg, ropt)
+    cardst, _ = ST.init_train_state(seed, rcfg, ropt)
     TT.set_cross_gates(cardst["params"], XATTN_GATE)
     cpu_params = to_cpu(cardst["params"])
     cpu = {"params": cpu_params, "opt": adamw.init(ropt, cpu_params),
@@ -5704,6 +5755,313 @@ def distributed_phase(torch, seed: int) -> dict:
     return {"launches": b[0]["launches"]}
 
 
+# -- phase 22: sharded training -------------------------------------------------
+
+# 22a's gates, f32.  Predicted before the first run: the sharded losses
+# within ~1e-6 of the unsharded run on the card, gated at 1e-4.  Measured
+# (first run): so with DSA off, but 1.4e-4 on the block path, where the
+# unsharded model computing its rows in two halves gives the FSDP run's
+# loss bit for bit: the 4-bit predictor turns the products' last bits
+# (which follow their shapes) into other levels.  So DSA off is gated at
+# SHARD_F32_RTOL, and on the block path FSDP's first loss against the
+# unsharded model on each rank's rows (SHARD_ROWS_RTOL); the block-path
+# gaps against the whole-batch run are printed
+SHARD_F32_RTOL = 1e-4
+SHARD_ROWS_RTOL = 1e-6
+# 22b's prediction, printed: the bf16 loss gap of FSDP 2 against 16d's
+# unsharded run, relative (the gradients' bf16 reduce-scatter and the
+# half-batch products round otherwise; the predictor's selection may move)
+SHARD_BF16_PRED = 2e-2
+SHARD_SEQ, SHARD_BATCH, SHARD_STEPS = 512, 4, 3
+
+
+def _p22_opt(steps: int, moment_dtype: str = "float32"):
+    from repro_torch.optim import adamw
+    return adamw.OptConfig(moment_dtype=moment_dtype, total_steps=steps + 1,
+                           warmup_steps=1)
+
+
+def _p22_batches(vocab: int, seq: int, batch: int, n: int, seed: int):
+    from repro_torch.data.synthetic import DataConfig, lm_batches
+    data = lm_batches(DataConfig(vocab=vocab, seq_len=seq,
+                                 global_batch=batch, seed=seed))
+    return [next(data) for _ in range(n)]
+
+
+def _p22a_plain(cfg, opt, flags, bs, seed: int) -> dict:
+    """22a's unsharded run on this rank's card: each step's loss, and the
+    first step's loss of the same model computed on the batch's two
+    halves of rows (FSDP 2's rows), averaged."""
+    import torch
+    from repro_torch.training import steps as ST
+    state, _ = ST.init_train_state(seed, cfg, opt)
+    dev = state["params"]["embed"].device
+    with torch.no_grad():
+        halves = [float(ST.loss_fn(state["params"], cfg, flags, ST._on(
+            {k: v[i:i + 2] for k, v in bs[0].items()}, dev))[0])
+            for i in (0, 2)]
+    step = ST.make_train_step(cfg, opt, flags)
+    losses = [float(step(state, b)[1]["loss"]) for b in bs]
+    del state, step
+    torch.cuda.empty_cache()
+    return dict(losses=losses, halves=sum(halves) / 2)
+
+
+def _p22_rank(rank: int, seed: int) -> dict:
+    """22a and 22b on one rank of two gloo processes sharing the card."""
+    import statistics
+    import torch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import make_rules, tree_bytes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.attention import RunFlags
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training import steps as ST
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    cfg = _yi_cut(2, f32=True)
+    opt = _p22_opt(SHARD_STEPS)
+    bs = _p22_batches(cfg.vocab, SHARD_SEQ, SHARD_BATCH, SHARD_STEPS, seed)
+    meta = init_model(0, cfg, device="meta")
+    out["whole"] = tree_bytes(meta)
+    for mode in ("block", "off"):
+        flags = RunFlags(mode="train", dsa_mode=mode)
+        if rank == 0:           # the ranks share the card: one runs it
+            out[mode, "plain"] = _p22a_plain(cfg, opt, flags, bs, seed)
+        for name, model, rules in (("FSDP 2", 1, make_rules(tp=False)),
+                                   ("TP 2 + SP", 2, make_rules())):
+            t0 = time.monotonic()
+            mesh = make_host_mesh(model=model)
+            state, _ = ST.init_train_state(seed, cfg, opt, mesh=mesh,
+                                           rules=rules)
+            step = ST.make_train_step(cfg, opt, flags, mesh=mesh,
+                                      rules=rules)
+            before = C.snapshot()
+            losses = [float(step(state, b)[1]["loss"]) for b in bs]
+            out[mode, name] = dict(
+                losses=losses, counts=C.count_by_axis(before),
+                budget=step.plan.collective_budget(
+                    1, seq_len=SHARD_SEQ, remat=cfg.remat,
+                    mse=mode != "off", steps=SHARD_STEPS),
+                params=tree_bytes(state["params"]),
+                moments=tree_bytes(state["opt"]["m"])
+                + tree_bytes(state["opt"]["v"]),
+                s=time.monotonic() - t0)
+            del state, step
+            torch.cuda.empty_cache()
+    # 22b: 16d's run under make_rules() on (2, 1), FSDP over the two ranks
+    cfg = _yi_cut(8, f32=False)
+    opt = _p22_opt(4, "bfloat16")
+    mesh = make_host_mesh(model=1)
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = ST.init_train_state(seed, cfg, opt, mesh=mesh,
+                                   rules=make_rules())
+    step = ST.make_train_step(cfg, opt, microbatches=2, mesh=mesh,
+                              rules=make_rules())
+    bs = _p22_batches(cfg.vocab, 4096, 4, 3, seed)
+    losses, step_s = [], []
+    for b in bs:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(step(state, b)[1]["loss"]))
+        step_s.append(time.perf_counter() - t)
+    whole = tree_bytes(init_model(0, cfg, device="meta"))
+    out["22b"] = dict(
+        losses=losses, step_s=step_s,
+        median_ms=statistics.median(step_s[1:]) * 1e3,
+        state=tree_bytes(state["params"]) * 2 + tree_bytes(state["opt"]["m"])
+        + tree_bytes(state["opt"]["v"]),
+        whole=whole * 2 + 2 * whole,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _p22c_rank(rank: int, seed: int) -> dict:
+    """22c: NCCL at world size 1 on a (1, 1) mesh under ``make_rules()``,
+    yi_6b at 8 layers in bf16 (bf16 moments), 2 steps of 2 x 512 in 2
+    microbatches, deterministic algorithms, against ``mesh=None`` in the
+    same process; then one profiled sharded step's NCCL kernels."""
+    import os
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training import steps as ST
+    from repro_torch.tree import named_leaves
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg = _yi_cut(8, f32=False)
+    opt = _p22_opt(3, "bfloat16")
+    bs = _p22_batches(cfg.vocab, 512, 2, 3, seed)
+    mesh = make_host_mesh(model=1)
+    runs, secs = {}, {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        t0 = time.monotonic()
+        rules = None if m is None else make_rules()
+        state, _ = ST.init_train_state(seed, cfg, opt, mesh=m, rules=rules)
+        step = ST.make_train_step(cfg, opt, microbatches=2, mesh=m,
+                                  rules=rules)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        before = C.snapshot()
+        metrics = [{k: float(v) for k, v in step(state, b)[1].items()}
+                   for b in bs[:2]]
+        counts = C.count_by_axis(before)
+        secs[name] = (t1 - t0, time.monotonic() - t1)
+        runs[name] = dict(metrics=metrics, counts=counts, params={
+            p: t.detach().clone() for p, t in named_leaves(state["params"])})
+        if m is not None:
+            runs[name]["budget"] = step.plan.collective_budget(
+                2, seq_len=512, remat=cfg.remat, mse=True, steps=2)
+            t2 = time.monotonic()
+            acts = [torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                step(state, bs[2])
+                torch.cuda.synchronize()
+            runs[name]["kernels"] = C.kernel_collectives(prof)
+            secs["profile"] = time.monotonic() - t2
+        del state, step
+        torch.cuda.empty_cache()
+    plain, got = runs["plain"], runs["mesh"]
+    first = None
+    gaps = {}
+    for p, t in got["params"].items():
+        d = (t.float() - plain["params"][p].float()).abs()
+        gaps[p] = (float(d.max()), int((d > 0).sum()), d.numel())
+        if first is None and gaps[p][1]:
+            first = p
+    return dict(metrics=(plain["metrics"], got["metrics"]),
+                counts=got["counts"], budget=got["budget"],
+                kernels=got["kernels"], first=first,
+                gaps={p: g for p, g in gaps.items() if g[1]},
+                bitwise=first is None
+                and plain["metrics"] == got["metrics"], secs=secs)
+
+
+def distributed_train_phase(torch, seed: int, yi16d: dict) -> dict:
+    """Phase 22, sharded training: 22a (two gloo processes on the card,
+    2-layer f32, block DSA and DSA off: FSDP 2 and TP 2 + SP against the
+    unsharded run on each rank, the gates of ``SHARD_F32_RTOL`` and
+    ``SHARD_ROWS_RTOL``, the collectives against the budget; bytes a
+    rank), 22b (FSDP 2 at 8 layers in bf16, 16d's run: step ms, state
+    bytes a rank, peak memory, the loss gaps against 16d's printed beside
+    their prediction), 22c (NCCL at world size 1: bit for bit against
+    ``mesh=None`` or the first departing leaf, the budget, the NCCL
+    kernels)."""
+    import math
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import run_spmd
+    t0 = time.monotonic()
+    store = tempfile.mkdtemp()
+    try:
+        ab = run_spmd(_p22_rank, 2, store_dir=store, backend="gloo",
+                      device_ids=[0, 0], timeout_s=400, args=(seed,))
+        tab = time.monotonic()
+        c = run_spmd(_p22c_rank, 1, store_dir=store, backend="nccl",
+                     device_ids=[0], timeout_s=300, args=(seed,))[0]
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    bad = []
+
+    def budget_ok(x):
+        try:
+            C.check_train_collectives(x["counts"], x["budget"])
+            return True
+        except AssertionError as e:
+            print(f"  {e}", flush=True)
+            return False
+
+    whole = ab[0]["whole"]
+    for mode in ("block", "off"):
+        plain = ab[0][mode, "plain"]
+        print(f"22a unsharded yi_6b 2 layers f32, DSA {mode} (rank 0): "
+              f"{SHARD_STEPS} steps of {SHARD_BATCH} x {SHARD_SEQ}, losses "
+              + ", ".join(f"{v:.6f}" for v in plain["losses"])
+              + f"; first loss on the two halves of the rows "
+              f"{plain['halves']:.6f}", flush=True)
+        for r, res in enumerate(ab):
+            for name in ("FSDP 2", "TP 2 + SP"):
+                x = res[mode, name]
+                rel = [abs(a - b) / abs(b) for a, b in zip(
+                    x["losses"], plain["losses"])]
+                rows = abs(x["losses"][0] - plain["halves"]) / abs(
+                    plain["halves"])
+                gate = (f"gated: <= {SHARD_F32_RTOL:g}" if mode == "off"
+                        else "printed: the predictor's levels")
+                ok = budget_ok(x)
+                print(f"  {name}, rank {r} ({x['s']:.1f} s): losses "
+                      + ", ".join(f"{v:.6f}" for v in x["losses"])
+                      + "; gap / loss " + ", ".join(f"{v:.3g}" for v in rel)
+                      + f" ({gate})"
+                      + (f"; first loss against the halves {rows:.3g} "
+                         f"(gated: <= {SHARD_ROWS_RTOL:g})"
+                         if mode == "block" and name == "FSDP 2" else "")
+                      + "; collectives " + ", ".join(
+                          f"{op} {a} {n}" for (op, a), n in sorted(
+                              x["counts"].items()))
+                      + f" == budget {ok}"
+                      + (f"; bytes params {x['params']} of {whole} "
+                         f"({x['params'] / whole:.4f}), grads the params' "
+                         f"shapes, moments {x['moments']} of {2 * whole} "
+                         f"({x['moments'] / whole / 2:.4f})"
+                         if mode == "block" else ""), flush=True)
+                if not ok:
+                    bad.append(f"22a {mode} {name} rank {r} budget")
+                if mode == "off" and max(rel) > SHARD_F32_RTOL:
+                    bad.append(f"22a off {name} rank {r} {max(rel):.3g}")
+                if (mode == "block" and name == "FSDP 2"
+                        and rows > SHARD_ROWS_RTOL):
+                    bad.append(f"22a block FSDP 2 rank {r} rows {rows:.3g}")
+    ref = yi16d["losses"][:3]
+    for r, res in enumerate(ab):
+        x = res["22b"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(x["losses"], ref)]
+        print(f"22b yi_6b 8 layers bf16, FSDP 2 over gloo on one card "
+              f"(make_rules() on (2, 1)), 4 x 4096 in 2 microbatches, rank "
+              f"{r}: step ms " + ", ".join(f"{t * 1e3:.1f}"
+                                           for t in x["step_s"])
+              + f" (median of steps 2-3 {x['median_ms']:.1f}; 16d "
+              f"unsharded {yi16d['step_ms']:.1f}); state bytes "
+              f"{x['state']} of {x['whole']} replicated "
+              f"({x['state'] / x['whole']:.4f}, predicted ~0.5); peak "
+              f"{x['peak_gib']:.2f} GiB; losses "
+              + ", ".join(f"{v:.4f}" for v in x["losses"])
+              + " against 16d's " + ", ".join(f"{v:.4f}" for v in ref)
+              + ": gap / loss " + ", ".join(f"{v:.3g}" for v in rel)
+              + f" (predicted <= {SHARD_BF16_PRED:g}; printed)",
+              flush=True)
+        if not all(map(math.isfinite, x["losses"])):
+            bad.append(f"22b rank {r}: a loss is not finite")
+    print(f"phase 22a-b: {tab - t0:.1f} s", flush=True)
+    ok = budget_ok(c)
+    (pm, gm) = c["metrics"]
+    print(f"22c NCCL world 1, (1, 1) mesh under make_rules(), yi_6b 8 "
+          f"layers bf16, 2 steps of 2 x 512 in 2 microbatches: losses "
+          + ", ".join(f"{m['loss']:.6f}" for m in gm) + " (mesh=None "
+          + ", ".join(f"{m['loss']:.6f}" for m in pm) + "); bit for bit "
+          f"(metrics and every updated param) {c['bitwise']}"
+          + ("" if c["bitwise"] else
+             f"; first departing leaf {c['first']}: "
+             + "; ".join(f"{p} max |gap| {g[0]:.3g} on {g[1]} of {g[2]}"
+                         for p, g in list(c["gaps"].items())[:4]))
+          + "; collectives " + ", ".join(
+              f"{op} {a} {n}" for (op, a), n in sorted(c["counts"].items()))
+          + f" == budget {ok}; NCCL kernels in one profiled step "
+          f"{c['kernels']}; s (init, 2 steps): mesh=None "
+          f"{c['secs']['plain'][0]:.1f}, {c['secs']['plain'][1]:.1f}; "
+          f"sharded {c['secs']['mesh'][0]:.1f}, {c['secs']['mesh'][1]:.1f}; "
+          f"profiled step {c['secs']['profile']:.1f}", flush=True)
+    if not ok:
+        bad.append("22c budget")
+    print(f"phase 22c: {time.monotonic() - tab:.1f} s", flush=True)
+    print(f"phase 22: {time.monotonic() - t0:.1f} s", flush=True)
+    if bad:
+        fail(f"phase 22: {bad}")
+    return {"22b": ab[0]["22b"], "22c": c}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6096,7 +6454,7 @@ def main() -> None:
     rwkv_train_parity_phase(torch, args.seed)
     checkpoint_phase(torch, args.seed)
     launches["rwkv eval"] = rwkv_train_slice(torch, args.seed)["launches"]
-    yi_train_slice(torch, args.seed)
+    yi16d = yi_train_slice(torch, args.seed)
     print(f"phase 16: {time.monotonic() - t16:.1f} s", flush=True)
     # mixtral_8x22b's mixture of experts (17a gated parity, 17b the
     # full-width serving slices, K2 once a layer in the static prefill;
@@ -6145,6 +6503,10 @@ def main() -> None:
     # (21a-b; 21b at full width, K2 once a layer a prefill and K1 once a
     # layer a step on each rank's 16 heads), NCCL at world size 1 (21c)
     launches["yi tp 2"] = distributed_phase(torch, args.seed)["launches"]
+    # sharded training: FSDP and TP + SP as two gloo processes on the card
+    # (22a-b; 22b against 16d's unsharded losses), NCCL at world size 1
+    # (22c); no kernel launches (training takes the block path)
+    distributed_train_phase(torch, args.seed, yi16d)
 
     src = "src/repro_torch/kernels/csrc/"
     rep = "src/repro/kernels/"

@@ -15,6 +15,13 @@
   save; the train loop only blocks if it laps the writer.  The copy to
   host memory is made before ``save`` returns: the train step updates
   params and moments in place.
+- on a mesh (``plan``, a ``distributed.sharding.TrainPlan``) the file is
+  the same logical whole tree: every leaf is gathered from its shards,
+  one leaf at a time (a device holds one whole leaf beside its shards),
+  and rank 0 keeps the host copy and writes it.  ``restore`` with a plan
+  reads the file on the host and keeps this rank's shard of each leaf,
+  so a run saved on one mesh resumes on another, or on none, and a run
+  saved on none resumes on a mesh.
 """
 from __future__ import annotations
 
@@ -30,6 +37,61 @@ import torch
 
 from repro_torch import convert
 from repro_torch.tree import named_leaves
+
+# the state's subtrees whose leaves are laid out as the params are
+_PARAM_LIKE = ("/params", "/opt/m", "/opt/v", "/opt/master")
+
+
+def _param_path(path: str) -> Optional[str]:
+    """The param path a state leaf is laid out by (its moment's, its
+    master copy's), None for the steps."""
+    for pre in _PARAM_LIKE:
+        if path.startswith(pre + "/"):
+            return path[len(pre):]
+    return None
+
+
+@torch.no_grad()
+def gather_state(tree, plan):
+    """The logical whole state on the host at the plan's rank 0 (None on
+    the other ranks): each leaf all-gathered from its shards, one at a
+    time, and copied to host memory before the next."""
+    keep = plan.world.rank == 0
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, f"{path}/{i}") for i, v in enumerate(t))
+        if not isinstance(t, torch.Tensor):
+            return t
+        pp = _param_path(path)
+        w = t if pp is None else plan.whole(t, pp)
+        return w.detach().to("cpu", copy=True) if keep else None
+
+    out = walk(tree, "")
+    return out if keep else None
+
+
+@torch.no_grad()
+def shard_state(tree, plan, device=None):
+    """This rank's shards of a whole port state ``tree`` (on the host),
+    on ``device``; params keep their ``requires_grad``."""
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, f"{path}/{i}") for i, v in enumerate(t))
+        if not isinstance(t, torch.Tensor):
+            return t
+        pp = _param_path(path)
+        piece = t if pp is None else plan.shard(t, pp)
+        out = piece.detach().to(device).contiguous()
+        if out.untyped_storage().data_ptr() == t.untyped_storage(
+                ).data_ptr():
+            out = out.clone()
+        return out.requires_grad_(t.requires_grad)
+    return walk(tree, "")
 
 
 def _flatten(tree, prefix="") -> Dict[str, Any]:
@@ -105,13 +167,15 @@ def _spec(t) -> str:
             else type(t).__name__)
 
 
-def restore(path: str, like, device=None,
-            verify: bool = True) -> Tuple[Any, int]:
+def restore(path: str, like, device=None, verify: bool = True,
+            plan=None) -> Tuple[Any, int]:
     """like: a port tree with the target structure (the training state).
     Returns (the port's tree on ``device``, the step saved): groups split
     per layer, steps as ints, params requiring grad as
     ``steps.init_train_state`` sets them, each leaf in ``like``'s dtype
-    and shape (``ValueError`` otherwise)."""
+    and shape (``ValueError`` otherwise).  With a ``plan`` (``like`` is a
+    state on its mesh) the file is read on the host and each leaf's shard
+    kept."""
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     skeleton = convert.reference_layout(like, lambda t: t, lambda ts: ts[0])
@@ -123,8 +187,11 @@ def restore(path: str, like, device=None,
             if d != meta["digests"].get(name):
                 raise IOError(f"checkpoint digest mismatch for {name}")
         flat[name] = a
-    tree = convert.state_from_reference(_unflatten_into(skeleton, flat),
-                                        device=device)
+    tree = convert.state_from_reference(
+        _unflatten_into(skeleton, flat),
+        device="cpu" if plan is not None else device)
+    if plan is not None:
+        tree = shard_state(tree, plan, device)
     _check_like(tree, like)
     return tree, meta["step"]
 
@@ -146,10 +213,17 @@ class AsyncCheckpointer:
         self._thread: Optional[threading.Thread] = None
         os.makedirs(root, exist_ok=True)
 
-    def save(self, tree, step: int, extra=None, block: bool = False) -> None:
+    def save(self, tree, step: int, extra=None, block: bool = False,
+             plan=None) -> None:
+        """Save ``tree`` as step ``step``; on a mesh (``plan``) every rank
+        calls it, each leaf is gathered whole and rank 0 writes."""
         self.wait()
         # the host copy, here and not in the thread: the next train step
         # updates the state in place
+        if plan is not None:
+            tree = gather_state(tree, plan)
+            if tree is None:
+                return
         host_tree = convert.state_to_reference(tree)
 
         def work():
@@ -167,11 +241,12 @@ class AsyncCheckpointer:
             self._thread.join()
             self._thread = None
 
-    def restore_latest(self, like, device=None):
+    def restore_latest(self, like, device=None, plan=None):
         step = latest_step(self.root)
         if step is None:
             return None, None
-        return restore(os.path.join(self.root, f"ckpt_{step}"), like, device)
+        return restore(os.path.join(self.root, f"ckpt_{step}"), like, device,
+                       plan=plan)
 
     def _gc(self) -> None:
         steps = sorted(int(d.split("_")[-1]) for d in os.listdir(self.root)

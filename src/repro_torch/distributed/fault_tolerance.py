@@ -1,16 +1,44 @@
-"""Straggler detection for training (the port's own copy of the reference's
-``StepWatchdog``; its ``elastic_mesh`` waits for distributed training).
+"""Fault tolerance for training (the port of the reference's
+``repro/distributed/fault_tolerance.py``): ``elastic_mesh`` and
+``StepWatchdog``.
 
-``StepWatchdog`` keeps a robust step-time estimate: a step longer than
-``threshold`` x the median of the last ``window`` steps (after ``warmup``
-steps) is marked slow and recorded, so that a scheduler can cordon the
-host at the next restart.
+- bounded-loss restart: ``launch.train --ckpt-dir`` saves every
+  ``--save-interval`` steps (``checkpoint.AsyncCheckpointer``), and a
+  run restarts from the latest checkpoint.  Checkpoints are logical
+  (unsharded) trees: a run saved on one mesh resumes on another, or on
+  none;
+- elastic re-mesh: ``elastic_mesh`` builds the largest ("data", "model")
+  mesh the running processes give, halving "model" until it divides
+  them; the shardings come again from the same logical rules;
+- stragglers: ``StepWatchdog`` keeps a robust step-time estimate: a
+  step longer than ``threshold`` x the median of the last ``window``
+  steps (after ``warmup`` steps) is marked slow and recorded, so that a
+  scheduler can cordon the host at the next restart.
 """
 from __future__ import annotations
 
 import statistics
 import time
 from typing import List, Optional, Tuple
+
+
+def elastic_shape(world: int, model_parallel: int = 16) -> Tuple[int, int]:
+    """(data, model) of ``elastic_mesh`` over ``world`` processes."""
+    model = model_parallel
+    while model > 1 and world % model:
+        model //= 2
+    return world // model, model
+
+
+def elastic_mesh(axis_order: Tuple[str, ...] = ("data", "model"),
+                 model_parallel: int = 16):
+    """The largest (data, model) mesh over the running processes: "model"
+    is ``model_parallel`` halved until it divides the world, "data" the
+    rest (the reference's, over processes instead of devices)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import mesh_over
+    return mesh_over(elastic_shape(dist.get_world_size(), model_parallel),
+                     tuple(axis_order[:2]))
 
 
 class StepWatchdog:

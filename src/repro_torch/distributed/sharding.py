@@ -1,39 +1,62 @@
-"""Logical-axis sharding rules resolved against a serving mesh (the
+"""Logical-axis sharding rules resolved against a mesh of processes (the
 port of the reference's ``repro/distributed/sharding.py``).
 
-Weights and caches are described by *logical* axis names (the spec
-trees of ``models/transformer.model_param_specs`` and
+Weights, caches and activations are described by *logical* axis names
+(the spec trees of ``models/transformer.model_param_specs`` and
 ``unstacked_cache_specs``); a rule table maps logical axes to the mesh
 axes of a ``torch.distributed.device_mesh.DeviceMesh``.  ``resolve_spec``
-drops a mesh axis that does not divide the dimension and never uses a
-mesh axis twice in one spec, as the reference's does, so one rule table
-serves every arch.
+drops a mesh axis that does not divide the dimension (that dimension
+stays whole; it never raises) and never uses a mesh axis twice in one
+spec, as the reference's does, so one rule table serves every arch.
 
 Placement is explicit: the port runs one process per device (SPMD over
-processes), the mesh and the rules are arguments (no module state), and
-``shard_put`` slices this rank's local shard out of a tensor before it
-moves to the device.  An engine on a mesh takes the weights piece by
-piece as ``init_model`` draws them (its ``place``), so a rank's card
-holds its shard and at most one piece of the tree whole, never the
-whole tree.  The reference's ``shard()`` activation constraint has no
-counterpart: the port's layers place their collectives themselves
-(``distributed/collectives.py``).
+processes), and ``shard_put`` slices this rank's local shard out of a
+tensor before it moves to the device.  A serving engine or a training
+state on a mesh takes the weights piece by piece as ``init_model`` draws
+them (its ``place``), so a rank's card holds its shard and at most one
+piece of the tree whole, never the whole tree.  The reference's
+``shard()`` activation constraint has no counterpart: the port's layers
+place their collectives themselves (``distributed/collectives.py``),
+and take their groups through ``RunFlags`` (``tp``, ``sp``, ``fsdp``).
 
-Parallelism served here (the serving half of the reference's table):
-  DP : "batch" -> "data" (the static batch rows, the resident slots)
-  TP : "heads"/"kv_heads"/"mlp"/"vocab"/"expert" -> "model"
-The training half (the reference's ``make_rules``: FSDP "embed" ->
-"data", SP "seq_sp" -> "model", EP; its rule context and production
-mesh) waits for the port's training mesh (ROADMAP Queue 1,
+The reference's rule context is ported for callers written against its
+API: ``set_rules``/``get_rules``, ``rules_context`` (restores the
+previous table) and ``compute_context(mesh, rules)``, which
+``resolve_spec`` and ``tree_specs`` fall back on when given no rules
+or mesh.  No layer reads it.
+
+The tables:
+  ``make_serving_rules`` (the serving engines):
+    DP : "batch" -> "data" (the static batch rows, the resident slots)
+    TP : "heads"/"kv_heads"/"mlp"/"vocab"/"expert" -> "model"
+  ``make_rules`` (training, the reference's, field for field):
+    DP   : "batch" -> ("pod",) "data"
+    FSDP : "embed" -> "data" (ZeRO-3: weights, gradients and AdamW
+           moments sharded)
+    TP   : "heads"/"kv_heads"/"mlp"/"vocab" -> "model"
+    SP   : the residual stream's "seq_sp" -> "model" between blocks
+    logits' "vocab_act" -> "model"
+    ``tp=False``: batch and weights over every axis, vocab over "model".
+
+``TrainPlan`` is a training run's layout on a mesh: which dimensions of
+each leaf are gathered before use (those split over the rule's batch
+axes, FSDP's role), which are computed locally (those split over a
+"model" axis that holds no batch rows: tensor parallelism), and how
+each gradient is reduced so that it is the matching shard of the
+unsharded gradient.  The expert-parallel MoE path (``moe_ep``) is not
+ported: an MoE arch on a "model" axis above 1 raises (ROADMAP Queue 1,
 "Distribution").
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from repro_torch.distributed import collectives as C
 
 Axis = Union[None, str, Tuple[str, ...]]
 
@@ -66,6 +89,36 @@ class ShardingRules:
         if name is None:
             return None
         return getattr(self, name)
+
+
+def make_rules(*, multi_pod: bool = False, fsdp: bool = True,
+               seq_parallel: bool = True, long_context: bool = False,
+               fsdp_pod: bool = False, tp: bool = True,
+               cache_axis: Axis = "auto") -> ShardingRules:
+    """The training rule table, the reference's field for field.
+
+    ``fsdp_pod``: shard the weights over the pod axis too.  ``cache_axis``:
+    the KV cache's sequence axis ("auto": "model", or ("data", "model")
+    with ``long_context``).  ``tp=False``: pure FSDP/DP, the batch and
+    the weights over every axis, no tensor parallelism; the vocab stays
+    on "model" (the embedding and head gradients would otherwise be
+    all-reduced whole)."""
+    if cache_axis == "auto":
+        cache_axis = ("data", "model") if long_context else "model"
+    if not tp:
+        both = (("pod", "data", "model") if multi_pod
+                else ("data", "model"))
+        return ShardingRules(
+            batch=both, embed=both if fsdp else None, seq_sp=None,
+            mlp=None, heads=None, kv_heads=None, expert=None,
+            vocab="model", cache_seq=cache_axis)
+    batch: Axis = ("pod", "data") if multi_pod else "data"
+    embed: Axis = None
+    if fsdp:
+        embed = ("pod", "data") if (multi_pod and fsdp_pod) else "data"
+    return ShardingRules(batch=batch, embed=embed,
+                         seq_sp="model" if seq_parallel else None,
+                         cache_seq=cache_axis)
 
 
 def make_serving_rules(*, tp: bool = False) -> ShardingRules:
@@ -163,20 +216,74 @@ def shard_config(cfg, tp: int):
                                head_dim=cfg.resolved_head_dim)
 
 
+# the reference's rule context: installed by callers written against its
+# API; resolve_spec and tree_specs fall back on it, no layer reads it
+_RULES = ShardingRules()
+_MESH: List[Any] = [None]
+
+
+def set_rules(rules: ShardingRules) -> None:
+    global _RULES
+    _RULES = rules
+
+
+def get_rules() -> ShardingRules:
+    return _RULES
+
+
+@contextlib.contextmanager
+def rules_context(rules: ShardingRules):
+    """Install ``rules`` for the block; the previous table comes back on
+    exit, an exception's too."""
+    global _RULES
+    prev = _RULES
+    _RULES = rules
+    try:
+        yield
+    finally:
+        _RULES = prev
+
+
+@contextlib.contextmanager
+def compute_context(mesh, rules: Optional[ShardingRules] = None):
+    """Install ``mesh`` (and ``rules``) for the block, as the mesh and the
+    table ``resolve_spec`` and ``tree_specs`` fall back on; a no-op when
+    ``mesh`` is None."""
+    if mesh is None:
+        yield
+        return
+    with contextlib.ExitStack() as stack:
+        if rules is not None:
+            stack.enter_context(rules_context(rules))
+        prev = _MESH[0]
+        _MESH[0] = mesh
+        stack.callback(_MESH.__setitem__, 0, prev)
+        yield
+
+
+def current_mesh():
+    """The mesh ``compute_context`` installed, or None."""
+    return _MESH[0]
+
+
 def mesh_axis_sizes(mesh) -> Dict[str, int]:
     """{axis name: size} of a DeviceMesh."""
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
 
 
 def resolve_spec(shape: Tuple[int, ...], logical: Tuple[Optional[str], ...],
-                 rules: ShardingRules, mesh) -> Tuple[Axis, ...]:
+                 rules: Optional[ShardingRules] = None,
+                 mesh=None) -> Tuple[Axis, ...]:
     """Map logical axes to mesh axes, one entry per dimension (None: the
     dimension is whole on every rank; a name or a tuple of names: it is
     split over those axes in order), enforcing divisibility and one use
-    per mesh axis.  Without a mesh (None) every entry is None."""
+    per mesh axis.  ``rules`` and ``mesh`` default to those of the rule
+    context (``compute_context``); with no mesh every entry is None."""
     if len(shape) != len(logical):
         raise ValueError(f"shape {shape} and logical spec {logical} differ "
                          f"in rank")
+    rules = rules or _RULES
+    mesh = mesh if mesh is not None else current_mesh()
     if mesh is None:
         return (None,) * len(shape)
     sizes = mesh_axis_sizes(mesh)
@@ -205,6 +312,25 @@ def resolve_spec(shape: Tuple[int, ...], logical: Tuple[Optional[str], ...],
 def is_spec_leaf(x) -> bool:
     return isinstance(x, tuple) and all(
         isinstance(e, (str, type(None))) for e in x)
+
+
+def map_specs(f, spec_tree):
+    """``f`` over every leaf (logical-axis tuple) of a spec tree."""
+    if is_spec_leaf(spec_tree):
+        return f(spec_tree)
+    if isinstance(spec_tree, dict):
+        return {k: map_specs(f, v) for k, v in spec_tree.items()}
+    return [map_specs(f, v) for v in spec_tree]
+
+
+def tree_specs(param_tree, logical_tree, rules: Optional[ShardingRules] = None,
+               mesh=None):
+    """The resolved axes (``resolve_spec``, one entry per dimension) of
+    every leaf of ``param_tree`` (tensors, meta tensors included, or
+    anything with a ``shape``) under its logical spec."""
+    return _map2(lambda p, log: resolve_spec(tuple(p.shape), tuple(log),
+                                             rules, mesh),
+                 param_tree, logical_tree)
 
 
 def _map2(f, tree, specs):
@@ -298,3 +424,267 @@ def tree_bytes(tree) -> int:
         return sum(tree_bytes(v) for v in tree)
     return tree.numel() * tree.element_size()
 
+
+
+# -- training on a mesh --------------------------------------------------------
+
+
+def _axes(ax: Axis) -> Tuple[str, ...]:
+    return () if ax is None else (ax,) if isinstance(ax, str) else tuple(ax)
+
+
+def _flat_specs(tree, specs, prefix: str = "") -> Dict[str, Any]:
+    """{leaf path (``tree.named_leaves``'s): its spec} over a tensor tree
+    and its parallel spec tree, in the tensor tree's order."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_specs(v, specs[k], f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flat_specs(v, specs[i], f"{prefix}/{i}"))
+        return out
+    return {prefix: specs}
+
+
+# a leaf under SP whose gradient is summed over "model": a norm's scale,
+# applied to this rank's sequence rows (the reference's "embed_act" leaves)
+_SEQ_PARTIAL = ("embed_act",)
+
+
+@dataclasses.dataclass(eq=False)
+class TrainPlan:
+    """A training run's layout on a mesh (``make_train_plan``).
+
+    Each leaf dimension that the rules split is either gathered before use
+    (its mesh axes are batch axes of the rules: FSDP's "embed" -> "data",
+    and every axis under ``make_rules(tp=False)``; ``gathers``) or
+    computed where it lies (a "model" axis holding no batch rows: tensor
+    parallelism, ``tp``, with ``cfg`` the shard's geometry).  The
+    gradients come out of the backward pass as this rank's shards:
+    reduce-scattered (a mean) over a gathered dimension's axes by the
+    gather's backward, and, per step, averaged over the batch axes no
+    reduce-scatter covered (``buckets``: norms, biases, the predictor's
+    square matrices, a dimension that does not divide); under sequence
+    parallelism the norms' gradients are summed over "model" too
+    (``norms``: their rows were sequence shards).  Every rank then holds
+    the matching shard of the unsharded gradient."""
+    cfg: Any
+    mesh: Any
+    rules: ShardingRules
+    axes: Dict[str, Tuple[Axis, ...]]
+    gathers: Dict[str, tuple]
+    tp: Optional[C.AxisGroup]
+    batch: Optional[C.AxisGroup]
+    world: C.AxisGroup
+    buckets: List[Tuple[C.AxisGroup, List[str]]]
+    norms: List[str]
+    replicas: Dict[str, int]
+    frozen: Tuple[str, ...]
+
+    def seq_parallel(self, seq_len: int) -> bool:
+        """Whether the residual stream of a ``seq_len``-token batch is
+        split over "model" ("seq_sp" resolves to it: SP needs the
+        sequence to divide by tp)."""
+        return self.tp is not None and resolve_spec(
+            (seq_len,), ("seq_sp",), self.rules, self.mesh) == ("model",)
+
+    def run_flags(self, flags, seq_len: int):
+        """``flags`` with this plan's groups, for a ``seq_len``-token
+        batch."""
+        return dataclasses.replace(flags, tp=self.tp, fsdp=self,
+                                   sp=self.seq_parallel(seq_len))
+
+    def local_rows(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's rows of a (global) batch: axis 0 split over the
+        batch axes that divide it (the others hold the same rows)."""
+        n = len(next(iter(batch.values())))
+        spec = resolve_spec((n,), ("batch",), self.rules, self.mesh)
+        return {k: local_shard(_as_tensor(v), spec + (None,) * (
+            np.ndim(v) - 1), self.mesh) for k, v in batch.items()}
+
+    def place(self, device=None):
+        """``init_model``'s ``place``: this rank's shard of each piece."""
+        return lambda piece, specs: shard_put_tree(piece, specs, self.mesh,
+                                                   self.rules, device)
+
+    def shard(self, whole: torch.Tensor, path: str) -> torch.Tensor:
+        """This rank's shard of the whole leaf at ``path`` (a param's
+        path, or its moment's)."""
+        return local_shard(whole, self.axes[path], self.mesh)
+
+    def whole(self, t: torch.Tensor, path: str) -> torch.Tensor:
+        """The whole leaf from every rank's shard ``t`` (an all-gather a
+        split dimension; a checkpoint's, outside the step's budget)."""
+        for dim, ax in enumerate(self.axes[path]):
+            if _axes(ax):
+                t = C.all_gather(t, C.axes_group(self.mesh, _axes(ax)), dim)
+        return t
+
+    def reduce_grads(self, grads: Dict[str, torch.Tensor],
+                     sp: bool) -> None:
+        """The step's gradient reductions, in place on ``grads`` ({path:
+        gradient}): one all-reduce (a mean) over each bucket's batch axes,
+        and with ``sp`` one (a sum) over "model" of the norms'."""
+        def flat(paths, g, mean):
+            if not paths:
+                return
+            buf = torch.cat([grads[p].float().reshape(-1) for p in paths])
+            C.all_reduce(buf, g)
+            if mean and g.size > 1:
+                buf.div_(g.size)
+            i = 0
+            for p in paths:
+                n = grads[p].numel()
+                grads[p].copy_(buf[i:i + n].view_as(grads[p]))
+                i += n
+        for g, paths in self.buckets:
+            flat(paths, g, True)
+        if sp:
+            flat(self.norms, self.tp, False)
+
+    def reduce_metrics(self, metrics: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        """The metrics' means over the batch axes (one all-reduce)."""
+        if self.batch is None:
+            return metrics
+        keys = list(metrics)
+        buf = torch.stack([metrics[k].float() for k in keys])
+        C.all_reduce(buf, self.batch)
+        if self.batch.size > 1:
+            buf.div_(self.batch.size)
+        return {k: buf[i] for i, k in enumerate(keys)}
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """The unsharded gradient tree's global norm: each leaf's squares
+        summed over its shard, divided by the ranks that hold the same
+        shard, then summed over the world (one all-reduce), so every rank
+        takes the same clip scale."""
+        from repro_torch.tree import named_leaves
+        total = 0
+        for path, g in named_leaves(grads):
+            s = g.float().square().sum()
+            total = total + (s / self.replicas[path]
+                             if self.replicas[path] != 1 else s)
+        buf = total.reshape(1).clone()
+        C.all_reduce(buf, self.world)
+        return torch.sqrt(buf[0])
+
+    def collective_budget(self, microbatches: int = 1, *, seq_len: int,
+                          remat: bool, mse: bool, mask: bool = True,
+                          steps: int = 1) -> Dict[Tuple[str, str], int]:
+        """{(op, axis): calls} of ``steps`` training steps: the table in
+        ``distributed/collectives.py``'s docstring, counted over this
+        plan's leaves (the dense GQA decoder's sites; an arch without a
+        tensor-parallel form has no "model" role)."""
+        out: Dict[Tuple[str, str], int] = {}
+
+        def add(op, axis, n):
+            if n:
+                out[op, axis] = out.get((op, axis), 0) + n * steps
+
+        r, m, mb = int(remat), int(mse), microbatches
+        layer = ("/groups/", "/prologue/", "/enc_groups/")
+        for path, dims in self.gathers.items():
+            trains = path not in self.frozen
+            for _, g in dims:
+                again = r if path.startswith(layer) else 0
+                add("all-gather", g.axis, mb * (1 + again))
+                add("reduce-scatter", g.axis, mb * trains)
+        if self.tp is not None:
+            n_layers = self.cfg.n_layers
+            if self.seq_parallel(seq_len):
+                add("all-gather", "model", mb * (n_layers * (4 + 2 * r) + 2))
+                add("reduce-scatter", "model", mb * (n_layers * (4 + r) + 2))
+                add("all-reduce", "model", mb * n_layers * m * (1 + r))
+                add("all-reduce", "model", 1)            # the norms' sums
+            else:
+                add("all-reduce", "model",
+                    mb * (n_layers * (4 + m + r * (1 + m)) + 2))
+            add("all-reduce", "model", mb * 2)           # vocab-parallel CE
+        if self.batch is not None:
+            add("all-reduce", self.batch.axis, mb * mask + 1)
+        for g, paths in self.buckets:
+            add("all-reduce", g.axis, 1 if paths else 0)
+        add("all-reduce", "world", 1)
+        return out
+
+
+def make_train_plan(cfg, mesh, rules: Optional[ShardingRules] = None
+                    ) -> TrainPlan:
+    """The layout of training ``cfg`` on ``mesh`` under ``rules`` (the
+    rule context's by default).  Tensor parallelism needs an arch whose
+    layers have a tensor-parallel form (dense GQA attention and MLPs):
+    on a "model" axis above 1 that holds no batch rows, MLA, RWKV6,
+    Mamba and cross-attention archs and mixtures of experts (the
+    expert-parallel path) raise ``NotImplementedError`` naming
+    "Distribution", and heads, KV heads, d_ff or a vocab that the axis
+    does not divide raise ``ValueError``; on a "model" axis of one such
+    archs take no "model" role at all."""
+    from repro_torch.models.transformer import init_model, model_param_specs
+    from repro_torch.optim.adamw import is_frozen
+    rules = rules or _RULES
+    sizes = mesh_axis_sizes(mesh)
+    names = tuple(mesh.mesh_dim_names)
+    rb = _axes(rules.batch)
+    batch_axes = tuple(a for a in names if a in rb)
+    tp_axis = "model" in sizes and "model" not in batch_axes
+    tp_n = sizes["model"] if tp_axis else 1
+    why = tp_unsupported(cfg)
+    if why is None and cfg.moe is not None:
+        why = "mixture-of-experts layers (their expert-parallel path)"
+    if tp_n > 1:
+        if why is not None:
+            raise NotImplementedError(
+                f"training {cfg.name} at tp={tp_n}: its {why} have no "
+                f"tensor-parallel form in the port (ROADMAP Queue 1, "
+                f"\"Distribution\"); train it with make_rules(tp=False) or "
+                f"on a \"model\" axis of 1")
+        issues = serving_tp_issues(cfg, tp_n)
+        if cfg.vocab % tp_n:
+            issues.append(f"vocab ({cfg.vocab} % tp={tp_n} != 0)")
+        if issues:
+            raise ValueError(f"tp={tp_n} does not divide arch {cfg.name!r} "
+                             f"on axis " + "; ".join(issues))
+    tp = C.axis_group(mesh, "model") if tp_axis and why is None else None
+    meta = init_model(0, cfg, device="meta")
+    logical = _flat_specs(meta, model_param_specs(cfg))
+    resolved = _flat_specs(meta, tree_specs(meta, model_param_specs(cfg),
+                                            rules, mesh))
+    world = C.world_group(mesh)
+    gathers, replicas, norms = {}, {}, []
+    bucket: Dict[tuple, List[str]] = {}
+    for path, spec in resolved.items():
+        dims, shard = [], 1
+        for d, ax in enumerate(spec):
+            t = _axes(ax)
+            for a in t:
+                shard *= sizes[a]
+            if t and set(t) <= set(batch_axes):
+                dims.append((d, C.axes_group(mesh, t)))
+            elif t and t != ("model",):
+                raise ValueError(f"{path}: dimension {d} split over {t}, "
+                                 f"batch and tensor-parallel axes at once")
+            elif t and tp is None and sizes["model"] > 1:
+                raise ValueError(f"{path}: dimension {d} split over "
+                                 f"\"model\" with no tensor-parallel role")
+        gathers[path] = tuple(dims)
+        replicas[path] = world.size // shard
+        if is_frozen(path):
+            continue
+        covered = {a for _, g in dims for a in g.axis.split("+")}
+        rest = tuple(a for a in batch_axes if a not in covered)
+        if rest:
+            bucket.setdefault(rest, []).append(path)
+        if tp is not None and tuple(logical[path]) == _SEQ_PARTIAL:
+            norms.append(path)
+    return TrainPlan(
+        cfg=shard_config(cfg, tp.size) if tp is not None else cfg,
+        mesh=mesh, rules=rules, axes=resolved, gathers=gathers, tp=tp,
+        batch=C.axes_group(mesh, batch_axes) if batch_axes else None,
+        world=world,
+        buckets=[(C.axes_group(mesh, k), v) for k, v in bucket.items()],
+        norms=norms, replicas=replicas,
+        frozen=tuple(p for p in resolved if is_frozen(p)))

@@ -1,5 +1,5 @@
-"""Serving meshes over processes (the port of the reference's
-``repro/launch/mesh.py``).
+"""Meshes over processes (the port of the reference's
+``repro/launch/mesh.py``): serving, host and production meshes.
 
 The reference builds a ``jax`` mesh over the devices one controller
 sees; the port runs ONE PROCESS PER DEVICE (SPMD over processes): every
@@ -7,7 +7,9 @@ rank runs the same host program on the same requests, seeds and
 configuration, and its device holds that rank's shard.  A mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` over the default process
 group, with the reference's axis names: ``("data",)`` for data
-parallelism, ``("data", "model")`` for data x tensor parallelism.
+parallelism, ``("data", "model")`` for data x tensor parallelism, and
+the production meshes of training, ``("data", "model")`` of (16, 16) or
+``("pod", "data", "model")`` of (2, 16, 16).
 
 ``init_serving_processes`` joins the process group first: an explicit
 backend (``nccl`` on CUDA, ``gloo`` when the caller asks: the CPU tests,
@@ -22,6 +24,7 @@ Nothing here runs when the module is imported.
 from __future__ import annotations
 
 import datetime
+import math
 import multiprocessing
 import os
 import queue
@@ -42,10 +45,11 @@ def init_serving_processes(coordinator: str, num_processes: int,
                            process_id: int, local_device_ids=None, *,
                            backend: str = "nccl",
                            timeout_s: float = 600.0) -> None:
-    """Join the serving process group: ``init_process_group`` with the
-    explicit ``backend`` and ``timeout_s``.  ``coordinator``: "host:port"
-    of rank 0 (TCP), or an ``init_method`` URL ("file:///path" for a
-    FileStore, "env://" under torchrun).  ``local_device_ids``: this
+    """Join the process group (serving or training):
+    ``init_process_group`` with the explicit ``backend`` and
+    ``timeout_s``.  ``coordinator``: "host:port" of rank 0 (TCP), or an
+    ``init_method`` URL ("file:///path" for a FileStore, "env://" under
+    torchrun).  ``local_device_ids``: this
     process's card (an int, or a one-entry sequence); on the nccl backend
     the default is the process's local rank, on gloo none is pinned
     unless asked.  A rank asked for nccl that finds no card raises, it
@@ -79,10 +83,41 @@ def _device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
-def _mesh(shape, names):
+def mesh_over(shape, names):
+    """A DeviceMesh of ``shape`` with axes ``names`` over every process
+    (rank-major: rank = row-major index), on the group's device type."""
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(_device_type(), tuple(shape),
                             mesh_dim_names=tuple(names))
+
+
+def _production_shape(multi_pod: bool = False):
+    """(shape, axis names) of the production mesh: one pod of 16 x 16, or
+    two pods."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def check_production_world(world: int, multi_pod: bool = False) -> None:
+    """ValueError unless ``world`` processes make the production mesh."""
+    shape, _ = _production_shape(multi_pod)
+    need = math.prod(shape)
+    if world != need:
+        raise ValueError(
+            f"the {'multipod' if multi_pod else 'production'} mesh "
+            f"{shape} needs {need} processes, one a device; the world has "
+            f"{world}")
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh over the processes: ("data",
+    "model") of (16, 16), or ("pod", "data", "model") of (2, 16, 16) with
+    ``multi_pod``.  A world of another size raises ``ValueError`` naming
+    both (256 or 512 processes; 1 when no process group is running)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    check_production_world(world, multi_pod)
+    return mesh_over(*_production_shape(multi_pod))
 
 
 def make_serving_mesh(dp: int = 0, tp: int = 1, cfg=None):
@@ -118,7 +153,7 @@ def make_serving_mesh(dp: int = 0, tp: int = 1, cfg=None):
         if dp != n:
             raise ValueError(f"dp={dp}: the serving mesh spans all {n} "
                              f"processes")
-        return _mesh((dp,), ("data",))
+        return mesh_over((dp,), ("data",))
     if n % tp:
         raise ValueError(f"tp={tp} does not divide the {n} processes")
     dp = dp or n // tp
@@ -128,7 +163,7 @@ def make_serving_mesh(dp: int = 0, tp: int = 1, cfg=None):
     if dp * tp != n:
         raise ValueError(f"dp={dp} x tp={tp} = {dp * tp}: the serving mesh "
                          f"spans all {n} processes")
-    return _mesh((dp, tp), ("data", "model"))
+    return mesh_over((dp, tp), ("data", "model"))
 
 
 def make_host_mesh(model: int = 1):
@@ -139,7 +174,7 @@ def make_host_mesh(model: int = 1):
     if n % model:
         raise ValueError(f"model={model} does not divide the {n} "
                          f"processes")
-    return _mesh((n // model, model), ("data", "model"))
+    return mesh_over((n // model, model), ("data", "model"))
 
 
 # -- spawning a group (tests, chip_smoke.py) ---------------------------------

@@ -159,16 +159,26 @@ class RunFlags:
     # "model" axis): the "model" group (distributed.collectives.AxisGroup)
     # the layers all-reduce their contracting products over; the weights
     # and cache are this rank's shard (n_heads / tp heads, n_kv_heads /
-    # tp KV heads).  None: no collective
+    # tp KV heads).  None: no collective.  In training (a
+    # distributed.sharding.TrainPlan's) the collectives carry gradients
     tp: Any = None
+    # sequence parallelism (training): the residual stream between the
+    # layers is this rank's 1/tp of the sequence rows; a layer all-gathers
+    # its input and reduce-scatters its output over "model"
+    sp: bool = False
+    # training on a mesh: the distributed.sharding.TrainPlan whose
+    # ``gathers`` forward_train all-gathers each layer's data-sharded
+    # leaves by (FSDP), inside the layer's remat region
+    fsdp: Any = None
 
 
 def _out_proj(params, flags: RunFlags, out: torch.Tensor) -> torch.Tensor:
     """The out-projection ``out @ wo``; under tensor parallelism ``out``
     holds this rank's heads and the partial products are summed over
-    "model" (one all-reduce)."""
+    "model": one all-reduce, or in training under sequence parallelism a
+    reduce-scatter to this rank's sequence rows."""
     y = mm(out, params["wo"])
-    return y if flags.tp is None else C.all_reduce(y, flags.tp)
+    return C.tp_exit(y, flags.tp, train=flags.mode == "train", sp=flags.sp)
 
 
 def dsa_active(cfg: ArchConfig, flags: RunFlags) -> bool:
@@ -275,16 +285,20 @@ def _rope_qk(cfg: ArchConfig, q, k, pos):
     return rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
 
 
-def _mean_head_scores(q, k, stride: int = 1):
+def _mean_head_scores(q, k, stride: int = 1, tp=None):
     """Mean-over-heads Q K^T, the MSE target S of Eq. 6 (GQA: each KV head
     serves its group of query heads), over every ``stride``-th query row.
     Unscaled and not detached: the MSE trains q and k too, as in the
-    reference."""
+    reference.  Under tensor parallelism (``tp``, training) q and k are
+    this rank's heads: their sum is divided by the whole head count and
+    summed over "model" (its gradient reaches every rank's heads)."""
     hq, hkv = q.shape[2], k.shape[2]
     qs = q[:, ::stride]
     s = einsum("bqhgd,bkhd->bqk",
                qs.reshape(*qs.shape[:2], hkv, hq // hkv, -1), k)
-    return s / hq
+    if tp is None:
+        return s / hq
+    return C.reduce_from_tp(s / (hq * tp.size), tp)
 
 
 def _dsa_train_mask_and_aux(params, cfg: ArchConfig, flags: RunFlags, x,
@@ -308,7 +322,8 @@ def _dsa_train_mask_and_aux(params, cfg: ArchConfig, flags: RunFlags, x,
         valid = None if pm is None else pm.expand(b, l, l)
         keep = M.keep_count(l, dsa.sparsity)
         if with_mse:
-            aux["mse"] = PRED.mse_loss(_mean_head_scores(q, k), s_t)
+            aux["mse"] = PRED.mse_loss(_mean_head_scores(q, k, tp=flags.tp),
+                                       s_t)
         return ("token", M.row_topk_mask(s_t, keep, valid)), aux
     bs = PRED.predict_block_scores(params["dsa"], x, None, bits=dsa.quant_bits,
                                    block_q=dsa.block_q, block_k=dsa.block_k)
@@ -324,7 +339,8 @@ def _dsa_train_mask_and_aux(params, cfg: ArchConfig, flags: RunFlags, x,
         stride = max(1, l // flags.mse_stride_cap)
         q_t, k_t = PRED.predict_qk(params["dsa"], x, None, dsa.quant_bits)
         s_t_sub = einsum("bqk,bsk->bqs", q_t[:, ::stride], k_t)
-        aux["mse"] = PRED.mse_loss(_mean_head_scores(q, k, stride), s_t_sub)
+        aux["mse"] = PRED.mse_loss(_mean_head_scores(q, k, stride, flags.tp),
+                                   s_t_sub)
     return ("block", (idx, ok)), aux
 
 
@@ -360,12 +376,18 @@ def apply_attention(params, cfg: ArchConfig, flags: RunFlags, x, *,
                           and sel is not None else {})
     dsa = cfg.dsa
     aux: Dict[str, torch.Tensor] = {}
+    # training under tensor parallelism: the heads' input, all-gathered
+    # over the sequence under SP
+    x = C.tp_enter(x, flags.tp, train=flags.mode == "train", sp=flags.sp)
     q, k, v = _proj_qkv(params, cfg, x)
     pos = torch.arange(x.shape[1], device=x.device)
     q, k = _rope_qk(cfg, q, k, pos)
     if dsa_active(cfg, flags):
-        (kind, pat), aux = _dsa_train_mask_and_aux(params, cfg, flags, x, q,
-                                                   k, causal)
+        # the predictor runs alike on every rank of "model"
+        x_rep = (C.replicated_input(x, flags.tp)
+                 if flags.mode == "train" else x)
+        (kind, pat), aux = _dsa_train_mask_and_aux(params, cfg, flags, x_rep,
+                                                   q, k, causal)
         if kind == "token":
             out = A.dense_attention(q, k, v, causal=causal,
                                     window=cfg.swa_window, token_mask=pat)

@@ -220,7 +220,11 @@ def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
     rows) and under ``flags.moe_dense``, by capacity otherwise.  Under
     tensor parallelism (``flags.tp``) the MLP's down-projection (or the
     MoE combine) gives this rank's partial sum, and one all-reduce over
-    "model" adds them; the attention all-reduces its own.
+    "model" adds them; the attention all-reduces its own.  In training
+    the MLP's input carries its gradient's sum over "model" and, under
+    sequence parallelism (``flags.sp``: ``x`` is this rank's sequence
+    rows), is all-gathered over the sequence, its output
+    reduce-scattered back (``collectives.tp_enter``/``tp_exit``).
     A ``cross`` sub-block's cross-attention sub-layer runs, as in the
     reference, in train and prefill mode only when ``enc`` (B, T, d) is
     given, and in decode mode always, over the cached ``ck``/``cv``."""
@@ -246,6 +250,8 @@ def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
                                   None if cache is None else cache["xattn"])
         x = x + torch.tanh(params["xgate"].to(x.dtype)) * y
     h = rms_norm(x, params["norm2"].to(x.dtype), cfg.norm_eps)
+    train = flags.mode == "train"
+    h = C.tp_enter(h, flags.tp, train=train, sp=flags.sp)
     if d.moe:
         y, a = apply_moe(params["mlp"], cfg, h,
                          decode=flags.mode == "decode" or flags.moe_dense,
@@ -253,8 +259,8 @@ def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
         aux = {**aux, **a}
     else:
         y = apply_mlp(params["mlp"], h)
-    if flags.tp is not None:          # the down-projection's partial sums
-        y = C.all_reduce(y, flags.tp)
+    # the down-projection's partial sums
+    y = C.tp_exit(y, flags.tp, train=train, sp=flags.sp)
     return x + y, cache, aux
 
 

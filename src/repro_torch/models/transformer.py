@@ -63,7 +63,16 @@ all-reduces, each layer all-reduces its attention out-projection and
 its MLP down-projection (or MoE combine), and the head all-gathers its
 V / tp logit columns (only the ``last`` rows of a prefill or a chunk):
 2 * n_layers + 1 all-reduces and one all-gather a decode step
-(distributed/collectives.py).
+(distributed/collectives.py).  In training (``forward_train`` under a
+``distributed.sharding.TrainPlan``: ``flags.tp``, ``flags.sp``,
+``flags.fsdp``) the same sites carry gradients: under sequence
+parallelism the residual stream between the layers is this rank's
+sequence rows, the embedding lookup reduce-scatters, each layer
+all-gathers its inputs and reduce-scatters its outputs, and the head
+gathers the normed rows and keeps its V / tp logit columns (the loss is
+vocab-parallel); each layer's data-sharded (FSDP) leaves are gathered
+inside its remat region, so the recompute gathers them again and none
+is saved for the backward pass.
 
 ``forward_train`` is the training forward (``RunFlags(mode="train")``, no
 cache): it also returns ``aux``, each of ``AUX_KEYS`` an f32 scalar summed
@@ -120,7 +129,9 @@ def init_model(seed: int, cfg: ArchConfig, *, device=None,
     tree.  The draws, and so the weights, are those of ``place=None``."""
     dev = resolve_device(device)
     dt = DTYPES[cfg.param_dtype]
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # on "meta" (shapes alone: a training plan's) there is no generator
+    gen = (None if dev.type == "meta" else
+           torch.Generator(device=dev).manual_seed(seed))
     kw = dict(device=dev, dtype=dt)
     keep = place or (lambda piece, specs: piece)
     specs = model_param_specs(cfg)
@@ -188,16 +199,17 @@ def set_cross_gates(params, gate: float) -> Dict[str, Any]:
     return params
 
 
-def _call(fn, *args):
-    return fn(*args)
+def _call(fn, lp, prefix, *args):
+    return fn(lp, *args)
 
 
 def _encode(params, cfg: ArchConfig, flags: RunFlags, enc_x, run=_call):
     """Whisper's encoder over precomputed frame embeddings (B, T, d):
     sinusoidal positions, the encoder groups under train-mode flags with
     the call's ``dsa_mode`` (the MSE only when the call trains), then
-    ``enc_norm``.  ``run(fn, gp, x)`` runs one group (under a checkpoint
-    when training with remat).  Returns (enc (B, T, d), aux)."""
+    ``enc_norm``.  ``run(fn, gp, prefix, x)`` runs one group (its leaves
+    at ``prefix``; under a checkpoint when training with remat).  Returns
+    (enc (B, T, d), aux)."""
     x = enc_x + sinusoidal_embedding(enc_x.shape[1], cfg.d_model,
                                      enc_x.dtype, device=enc_x.device)[None]
     defs = B.group_defs(cfg, decoder=False)
@@ -211,8 +223,8 @@ def _encode(params, cfg: ArchConfig, flags: RunFlags, enc_x, run=_call):
         a = _norm_aux(a, zero)
         return (x,) + tuple(a[k] for k in AUX_KEYS)
 
-    for gp in params["enc_groups"]:
-        x, *a = run(group, gp, x)
+    for i, gp in enumerate(params["enc_groups"]):
+        x, *a = run(group, gp, f"/enc_groups/{i}", x)
         aux = {k: aux[k] + v for k, v in zip(AUX_KEYS, a)}
     return rms_norm(x, params["enc_norm"].to(x.dtype), cfg.norm_eps), aux
 
@@ -226,12 +238,13 @@ def _embed(params, cfg: ArchConfig, flags: RunFlags, tokens, extras,
     emb, tp = params["embed"], flags.tp
     if tp is not None and emb.shape[0] * tp.size == cfg.vocab:
         # this rank's vocab rows: the others' tokens read zeros, and one
-        # all-reduce over "model" puts every row back
+        # all-reduce over "model" puts every row back (in training under
+        # sequence parallelism a reduce-scatter: this rank's rows)
         vl = emb.shape[0]
         ids = tokens.long() - tp.rank * vl
         ok = (ids >= 0) & (ids < vl)
         x = torch.where(ok[..., None], emb[ids.clamp(0, vl - 1)], 0)
-        x = C.all_reduce(x.to(dt), tp)
+        x = C.tp_exit(x.to(dt), tp, train=flags.mode == "train", sp=flags.sp)
     else:
         x = emb[tokens.long()].to(dt)
     extras = extras or {}
@@ -277,15 +290,21 @@ def _head(params, cfg: ArchConfig, x, flags: Optional[RunFlags] = None,
           last=None):
     """Logits (B, S, V), or (B, 1, V) at the rows ``last`` (B,).  Under
     tensor parallelism a vocab-sharded head gives this rank's V / tp
-    columns, and one all-gather over "model" assembles the rows."""
+    columns, and one all-gather over "model" assembles the rows.  In
+    training the columns stay apart (the loss is vocab-parallel,
+    ``training.steps.cross_entropy``), and under sequence parallelism the
+    normed rows are all-gathered over the sequence first."""
     x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+    tp = None if flags is None else flags.tp
+    train = flags is not None and flags.mode == "train"
+    x = C.tp_enter(x, tp, train=train, sp=train and flags.sp)
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
     logits = mm(x, head.to(x.dtype))
     if last is not None:
         rows = torch.arange(logits.shape[0], device=logits.device)
         logits = logits[rows, last.long()][:, None]
-    tp = None if flags is None else flags.tp
-    if tp is not None and logits.shape[-1] * tp.size == cfg.vocab:
+    if (tp is not None and not train
+            and logits.shape[-1] * tp.size == cfg.vocab):
         logits = C.all_gather(logits, tp, dim=-1)
     return logits
 
@@ -326,10 +345,22 @@ def forward_train(params, cfg: ArchConfig, flags: RunFlags,
     if cfg.remat_policy == "dots":
         ckpt["context_fn"] = _DOTS_CONTEXT
 
-    def run(fn, *args):
+    plan = flags.fsdp
+    if plan is not None:
+        # the non-layer leaves' data-sharded dims, gathered once a call
+        top = {k: v for k, v in params.items()
+               if k not in ("groups", "prologue", "enc_groups")}
+        params = {**params, **C.fsdp_gather_tree(top, "", plan.gathers)}
+
+    def run(fn, lp, prefix, *args):
+        # a layer: its data-sharded leaves gathered inside the remat
+        # region, so the recompute gathers again and none is saved
+        body = fn if plan is None else (
+            lambda lp, *a: fn(C.fsdp_gather_tree(lp, prefix, plan.gathers),
+                              *a))
         if remat and torch.is_grad_enabled():
-            return checkpoint(fn, *args, **ckpt)
-        return fn(*args)
+            return checkpoint(body, lp, *args, **ckpt)
+        return body(lp, *args)
 
     x, enc, enc_aux = _embed(params, cfg, flags, tokens, extras, run)
     defs = B.group_defs(cfg)
@@ -347,14 +378,16 @@ def forward_train(params, cfg: ArchConfig, flags: RunFlags,
         a = _norm_aux(a, zero)
         return (x,) + tuple(a[k] for k in AUX_KEYS)
 
-    layers = [(prologue, lp) for lp in params.get("prologue", ())]
-    layers += [(group, gp) for gp in params["groups"]]
-    for fn, lp in layers:
-        x, *a = run(fn, lp, x, enc)
+    layers = [(prologue, lp, f"/prologue/{i}")
+              for i, lp in enumerate(params.get("prologue", ()))]
+    layers += [(group, gp, f"/groups/{i}")
+               for i, gp in enumerate(params["groups"])]
+    for fn, lp, prefix in layers:
+        x, *a = run(fn, lp, prefix, x, enc)
         aux = {k: aux[k] + v for k, v in zip(AUX_KEYS, a)}
     if enc_aux is not None:
         aux = {k: aux[k] + enc_aux[k] for k in AUX_KEYS}
-    return _head(params, cfg, x), aux
+    return _head(params, cfg, x, flags), aux
 
 
 def decode_step(params, cfg: ArchConfig, flags: RunFlags, tokens, caches,

@@ -17,6 +17,16 @@ over a leading axis: a leaf under ``/groups/`` (or an encoder's
 the per-layer norms ``norm1``/``norm2`` and biases are decayed and
 ``final_norm`` is not, as in the reference, whose docstring says that
 norms and biases are skipped (ROADMAP Queue 3 records the difference).
+
+Sharded (``apply_updates(..., plan=)``, a ``distributed.sharding.
+TrainPlan``'s state): params, gradients and moments are this rank's
+shards (``init`` makes the moments in each shard's shape, on its
+device), and the update is elementwise, so it runs on them unchanged;
+the gradient norm is the unsharded tree's (``TrainPlan.global_norm``:
+each leaf's squares counted once over the world), so every rank takes
+the same clip scale.  ``state_specs`` is the reference's: the moments
+take their params' logical specs, so under the FSDP rules the whole
+state is ZeRO-3 sharded.
 """
 from __future__ import annotations
 
@@ -86,18 +96,27 @@ def init(cfg: OptConfig, params) -> Dict[str, Any]:
     return state
 
 
+def state_specs(cfg: OptConfig, param_specs) -> Dict[str, Any]:
+    """Logical specs of the optimizer state tree (the reference's)."""
+    out = {"m": param_specs, "v": param_specs, "step": ()}
+    if cfg.master_dtype:
+        out["master"] = param_specs
+    return out
+
+
 def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(x.float().square().sum()
                           for _, x in named_leaves(tree)))
 
 
 @torch.no_grad()
-def apply_updates(cfg: OptConfig, params, grads, state):
+def apply_updates(cfg: OptConfig, params, grads, state, plan=None):
     """One AdamW step over ``params`` with ``grads`` (a tree of the same
-    structure), in place.  Returns (params, state, {"lr", "grad_norm"})."""
+    structure), in place.  Returns (params, state, {"lr", "grad_norm"}).
+    ``plan``: the ``TrainPlan`` whose shards these are."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if plan is None else plan.global_norm(grads)
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
              if cfg.grad_clip else 1.0)
     b1, b2 = cfg.b1, cfg.b2

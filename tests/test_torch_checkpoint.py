@@ -142,7 +142,7 @@ def test_reference_checkpoint_restores_in_port(tmp_path):
     JC.save(str(tmp_path / "ck"), jstate, step=3)
     want = convert.state_from_reference(jax.tree.map(np.asarray, jstate),
                                         device="cpu")
-    like = TST.init_train_state(1, reduced(get_config("yi_6b")),
+    like, _ = TST.init_train_state(1, reduced(get_config("yi_6b")),
                                 TA.OptConfig(), device="cpu")
     got, step = C.restore(str(tmp_path / "ck"), like, device="cpu")
     assert step == 3
@@ -164,9 +164,9 @@ def test_reference_checkpoint_restores_in_port(tmp_path):
 def test_restore_refuses_another_layout(tmp_path):
     """A checkpoint whose leaves do not have ``like``'s dtypes raises."""
     cfg = reduced(get_config("yi_6b"))
-    state = TST.init_train_state(0, cfg, TA.OptConfig(), device="cpu")
+    state, _ = TST.init_train_state(0, cfg, TA.OptConfig(), device="cpu")
     C.save(str(tmp_path / "ck"), state, step=1)
-    other = TST.init_train_state(
+    other, _ = TST.init_train_state(
         0, dataclasses.replace(cfg, param_dtype="bfloat16"), TA.OptConfig(),
         device="cpu")
     with pytest.raises(ValueError, match="params/embed"):
@@ -177,7 +177,7 @@ def test_host_copy_is_taken_before_save_returns(tmp_path):
     """The train step updates params and moments in place right after the
     save is started: the files hold the values at the save."""
     cfg = reduced(get_config("yi_6b"))
-    state = TST.init_train_state(0, cfg, TA.OptConfig(), device="cpu")
+    state, _ = TST.init_train_state(0, cfg, TA.OptConfig(), device="cpu")
     want = convert.state_to_reference(state)
     ck = C.AsyncCheckpointer(str(tmp_path))
     ck.save(state, 1)

@@ -1213,7 +1213,7 @@ def test_cuda_train_step_matches_cpu(cuda_device, mode):
     flags = RunFlags(mode="train", dsa_mode=mode)
     out = {}
     for dev in (cuda_device, torch.device("cpu")):
-        state = ST.init_train_state(0, cfg, opt, device="cpu")
+        state, _ = ST.init_train_state(0, cfg, opt, device="cpu")
         if dev.type == "cuda":
             state["params"] = _to(state["params"], dev)
             state["opt"] = adamw.init(opt, state["params"])
@@ -1564,7 +1564,7 @@ def test_cuda_checkpoint_round_trip(cuda_device, dtype, tmp_path):
     cfg = dataclasses.replace(reduced(get_config("yi_6b")),
                               param_dtype=str(dtype).split(".")[1])
     opt = adamw.OptConfig(moment_dtype=str(dtype).split(".")[1])
-    state = ST.init_train_state(0, cfg, opt, device=cuda_device)
+    state, _ = ST.init_train_state(0, cfg, opt, device=cuda_device)
     state["step"] = state["opt"]["step"] = 3
     C.AsyncCheckpointer(str(tmp_path)).save(state, 3, block=True)
     for dev in (cuda_device, torch.device("cpu")):
@@ -1622,7 +1622,7 @@ def test_cuda_rwkv_eval_k7_matches_train_form(cuda_device):
     from repro_torch.optim import adamw
     from repro_torch.training import steps as ST
     cfg = reduced(get_config("rwkv6_3b"))
-    state = ST.init_train_state(0, cfg, adamw.OptConfig(),
+    state, _ = ST.init_train_state(0, cfg, adamw.OptConfig(),
                                 device=cuda_device)
     batch = next(lm_batches(DataConfig(vocab=cfg.vocab, seq_len=128,
                                        global_batch=2)))
@@ -1650,7 +1650,7 @@ def test_cuda_dots_matches_full(cuda_device, arch):
     from repro_torch.training import steps as ST
     cfg = reduced(get_config(arch))
     params = ST.init_train_state(0, cfg, adamw.OptConfig(),
-                                 device=cuda_device)["params"]
+                                 device=cuda_device)[0]["params"]
     batch = next(lm_batches(DataConfig(vocab=cfg.vocab, seq_len=128,
                                        global_batch=2)))
     before = (K2.dsa_block_sparse_attention.launches,
@@ -1737,7 +1737,7 @@ def test_cuda_bf16_moe_router_stays_f32_through_a_train_step(cuda_device):
     cfg = dataclasses.replace(reduced(get_config("mixtral_8x22b")),
                               dtype="bfloat16", param_dtype="bfloat16")
     opt = adamw.OptConfig(moment_dtype="bfloat16", warmup_steps=1)
-    state = ST.init_train_state(0, cfg, opt, device=cuda_device)
+    state, _ = ST.init_train_state(0, cfg, opt, device=cuda_device)
     mlp = state["params"]["groups"][0]["b0"]["mlp"]
     assert mlp["router"].dtype == torch.float32
     assert mlp["w1"].dtype == mlp["w2"].dtype == torch.bfloat16
@@ -2262,3 +2262,50 @@ def test_cuda_nccl_world1_graphed_equals_eager(cuda_device, tmp_path):
     model, data, steps, n_layers = out["counts"]
     C.check_tp_decode_collectives(model, n_layers, steps + 1)
     assert data == {"all-reduce": 0, "all-gather": 0}
+
+
+def _train_pair_close(out, rel=1e-5):
+    """A sharded step on the card against the unsharded one: the metrics
+    to ``rel``, each leaf's gradient to ``rel`` of its largest magnitude,
+    every updated element within 2 lr and 99 % within 1e-5."""
+    import spmd_train_scenarios as S
+    (plain,), (sharded,) = out["metrics"]
+    for k in ("loss", "ce", "mse", "grad_norm"):
+        assert abs(sharded[k] - plain[k]) <= rel * abs(plain[k]) + 1e-7, k
+    bad = {p: e for p, e in out["grads"].items() if e > rel}
+    assert not bad, bad
+    assert all(g[0] <= 2 * S.OPT.lr for g in out["params"].values())
+    within = sum(g[1] for g in out["params"].values())
+    total = sum(g[2] for g in out["params"].values())
+    assert within >= 0.99 * total, (within, total)
+
+
+@pytest.mark.cuda
+def test_cuda_fsdp2_gloo_train_step_equals_unsharded(cuda_device, tmp_path):
+    """FSDP 2 (``make_rules(tp=False)`` on (2, 1)) as two gloo processes on
+    the one card, reduced yi_6b in f32: one step's metrics, gradients and
+    updated params equal the unsharded step's on the card, and the
+    collectives equal the budget."""
+    import spmd_train_scenarios as S
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import run_spmd
+    outs = run_spmd(S.card_fsdp2, 2, store_dir=str(tmp_path),
+                    backend="gloo", device_ids=[0, 0], timeout_s=300)
+    for out in outs:
+        _train_pair_close(out)
+        C.check_train_collectives(*out["budget"])
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world1_train_step_equals_unsharded(cuda_device,
+                                                      tmp_path):
+    """NCCL at world size 1 on a (1, 1) mesh under ``make_rules()`` (every
+    collective a group of one), reduced yi_6b in f32, 2 microbatches: the
+    step equals the unsharded one and its collectives the budget."""
+    import spmd_train_scenarios as S
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import run_spmd
+    out = run_spmd(S.card_nccl1_train, 1, store_dir=str(tmp_path),
+                   backend="nccl", device_ids=[0], timeout_s=300)[0]
+    _train_pair_close(out)
+    C.check_train_collectives(*out["budget"])

@@ -410,7 +410,7 @@ def test_moe_state_checkpoints_in_reference_format(tmp_path):
             assert (tmp_path / "ref" / name).read_bytes() == \
                 (tmp_path / "port" / name).read_bytes(), name
     bf = dataclasses.replace(tc, param_dtype="bfloat16", dtype="bfloat16")
-    like = TST.init_train_state(1, bf, TA.OptConfig(moment_dtype="bfloat16"),
+    like, _ = TST.init_train_state(1, bf, TA.OptConfig(moment_dtype="bfloat16"),
                                 device="cpu")
     back, step = C.restore(str(tmp_path / "ref"), like, device="cpu")
     assert step == 2

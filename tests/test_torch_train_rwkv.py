@@ -211,7 +211,7 @@ def test_rwkv_eval_step_takes_the_kernel_path():
     a layer and gives the ce of the train form (``_wkv_chunked_train``
     once a layer) on params that require grad, at f32's tolerance."""
     tc = reduced(get_config("rwkv6_3b"))
-    state = TST.init_train_state(0, tc, TA.OptConfig(), device="cpu")
+    state, _ = TST.init_train_state(0, tc, TA.OptConfig(), device="cpu")
     batch = _batch(tc.vocab, 2, 128)
     calls = {"K7": 0, "train": 0}
 

@@ -396,7 +396,7 @@ def check_checkpoint(arch, tmp_path):
         if name != "meta.json":
             assert (tmp_path / "ref" / name).read_bytes() == \
                 (tmp_path / "port" / name).read_bytes(), name
-    like = TST.init_train_state(1, tc, TA.OptConfig(moment_dtype="bfloat16"),
+    like, _ = TST.init_train_state(1, tc, TA.OptConfig(moment_dtype="bfloat16"),
                                 device="cpu")
     back, step = C.restore(str(tmp_path / "ref"), like, device="cpu")
     assert step == 3
