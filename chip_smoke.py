@@ -5591,9 +5591,14 @@ def _p21b_rank(rank: int, seed: int) -> dict:
     return out
 
 
+# 21c's and 22c's depth (it was 8): NCCL at world size 1 is held to
+# mesh=None bit for bit, layer by layer alike, so depth adds time only
+NCCL1_LAYERS = 2
+
+
 def _p21c_rank(rank: int, seed: int) -> dict:
     """21c: NCCL at world size 1 on a ("data", "model") mesh of (1, 1),
-    full-width yi_6b cut to 8 layers (bf16, kernel DSA, 4 x 1024): the
+    full-width yi_6b cut to ``NCCL1_LAYERS`` (bf16, kernel DSA, 4 x 1024): the
     sharded code path with every collective.  Its decode graph captures
     them; graphed == eager bit for bit (``_graph_bits``), tokens ==
     ``mesh=None``, the counters of a generate against (steps + 1) x the
@@ -5605,7 +5610,7 @@ def _p21c_rank(rank: int, seed: int) -> dict:
     from repro_torch.inference.engine import Engine
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.transformer import init_model
-    cfg = _yi_cut(8, f32=False)
+    cfg = _yi_cut(NCCL1_LAYERS, f32=False)
     kw = dict(max_len=1024 + 16 + 16, long_context=True, dsa_mode="kernel")
     prompts = np.random.default_rng(seed).integers(
         1, cfg.vocab - 4, size=(4, 1024)).astype(np.int32)
@@ -5736,7 +5741,8 @@ def distributed_phase(torch, seed: int) -> dict:
     want = {"all-reduce": (2 * c["n_layers"] + 1) * (c["steps"] + 1),
             "all-gather": c["steps"] + 1}
     kern = {op: n / 4 for op, n in c["kernels"].items()}
-    print(f"21c NCCL world 1, mesh (data 1, model 1), yi_6b 8 layers bf16, "
+    print(f"21c NCCL world 1, mesh (data 1, model 1), yi_6b "
+          f"{c['n_layers']} layers bf16, "
           f"4 x 1024: graphed == eager bit for bit {c['bits']} "
           f"({c['captured']} graphs captured), tokens == mesh=None "
           f"{c['equal']}; collectives over {c['steps']} steps + the prefill: "
@@ -5880,7 +5886,7 @@ def _p22_rank(rank: int, seed: int) -> dict:
 
 def _p22c_rank(rank: int, seed: int) -> dict:
     """22c: NCCL at world size 1 on a (1, 1) mesh under ``make_rules()``,
-    yi_6b at 8 layers in bf16 (bf16 moments), 2 steps of 2 x 512 in 2
+    yi_6b at ``NCCL1_LAYERS`` in bf16 (bf16 moments), 2 steps of 2 x 512 in 2
     microbatches, deterministic algorithms, against ``mesh=None`` in the
     same process; then one profiled sharded step's NCCL kernels."""
     import os
@@ -5892,7 +5898,7 @@ def _p22c_rank(rank: int, seed: int) -> dict:
     from repro_torch.training import steps as ST
     from repro_torch.tree import named_leaves
     torch.use_deterministic_algorithms(True, warn_only=True)
-    cfg = _yi_cut(8, f32=False)
+    cfg = _yi_cut(NCCL1_LAYERS, f32=False)
     opt = _p22_opt(3, "bfloat16")
     bs = _p22_batches(cfg.vocab, 512, 2, 3, seed)
     mesh = make_host_mesh(model=1)
@@ -6037,8 +6043,9 @@ def distributed_train_phase(torch, seed: int, yi16d: dict) -> dict:
     print(f"phase 22a-b: {tab - t0:.1f} s", flush=True)
     ok = budget_ok(c)
     (pm, gm) = c["metrics"]
-    print(f"22c NCCL world 1, (1, 1) mesh under make_rules(), yi_6b 8 "
-          f"layers bf16, 2 steps of 2 x 512 in 2 microbatches: losses "
+    print(f"22c NCCL world 1, (1, 1) mesh under make_rules(), yi_6b "
+          f"{NCCL1_LAYERS} layers bf16, 2 steps of 2 x 512 in 2 "
+          f"microbatches: losses "
           + ", ".join(f"{m['loss']:.6f}" for m in gm) + " (mesh=None "
           + ", ".join(f"{m['loss']:.6f}" for m in pm) + "); bit for bit "
           f"(metrics and every updated param) {c['bitwise']}"
@@ -6060,6 +6067,217 @@ def distributed_train_phase(torch, seed: int, yi16d: dict) -> dict:
     if bad:
         fail(f"phase 22: {bad}")
     return {"22b": ab[0]["22b"], "22c": c}
+
+
+# -- phase 23: expert-parallel MoE training ------------------------------------
+
+# 23a's gate, f32, DSA off (22a's reason: the predictor's 4-bit levels turn
+# the products' last bits into other blocks), no pair dropped (capacity
+# factor E / top_k), the router term off: EP's losses against the
+# unsharded run's.  Predicted before the first run: within ~1e-6
+EP_F32_RTOL = 1e-4
+EP_SEQ, EP_BATCH, EP_STEPS = 512, 4, 3
+# 23b's predictions, printed: a call moves E cap d 2
+# bytes, ~126 MB at 4096 tokens a rank and capacity factor 1.25; six calls
+# a layer a microbatch (two forward, two backward, two in the recompute)
+# at ~1.4 GB/s through the LANES gloo groups
+EP_STEP_PRED_MS = (2000.0, 6000.0)
+EP_STATE_PRED = (0.50, 0.52)
+
+
+def _mixtral_cut(layers: int, f32: bool, cf=None, aux=None):
+    from repro_torch.configs.base import cut_layers, get_config
+    cfg = cut_layers(get_config("mixtral_8x22b"), layers)
+    mo = cfg.moe
+    if cf is not None:
+        mo = dataclasses.replace(mo, capacity_factor=cf)
+    if aux is not None:
+        mo = dataclasses.replace(mo, router_aux_weight=aux)
+    cfg = dataclasses.replace(cfg, moe=mo)
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype="float32",
+                                  param_dtype="float32")
+    return cfg
+
+
+def _p23_rank(rank: int, seed: int) -> dict:
+    """23a and 23b on one rank of two gloo processes sharing the card,
+    mixtral_8x22b at full width on (1, 2) under ``make_rules()``: EP 2 x
+    TP 2 + SP."""
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import make_rules, tree_bytes
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.attention import RunFlags
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training import steps as ST
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    # 23a: 1 layer f32, DSA off, no drops, the router term off
+    e = 8
+    cfg = _mixtral_cut(1, f32=True, cf=e / 2, aux=0.0)
+    opt = _p22_opt(EP_STEPS)
+    flags = RunFlags(mode="train", dsa_mode="off")
+    bs = _p22_batches(cfg.vocab, EP_SEQ, EP_BATCH, EP_STEPS, seed)
+    out["whole"] = tree_bytes(init_model(0, cfg, device="meta"))
+    t0 = time.monotonic()
+    if rank == 0:           # alone on the card: the other rank waits
+        state, _ = ST.init_train_state(seed, cfg, opt)
+        step = ST.make_train_step(cfg, opt, flags)
+        out["plain"] = [float(step(state, b)[1]["loss"]) for b in bs]
+        del state, step
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out["plain_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    mesh = make_host_mesh(model=2)
+    rules = make_rules()
+    state, _ = ST.init_train_state(seed, cfg, opt, mesh=mesh, rules=rules)
+    step = ST.make_train_step(cfg, opt, flags, mesh=mesh, rules=rules)
+    before = C.snapshot()
+    losses = [float(step(state, b)[1]["loss"]) for b in bs]
+    out["23a"] = dict(
+        losses=losses, counts=C.count_by_axis(before),
+        budget=step.plan.collective_budget(
+            1, seq_len=EP_SEQ, remat=cfg.remat, mse=False, steps=EP_STEPS),
+        ep=step.plan.ep_active(EP_SEQ),
+        params=tree_bytes(state["params"]),
+        moments=tree_bytes(state["opt"]["m"]) + tree_bytes(state["opt"]["v"]),
+        s=time.monotonic() - t0)
+    del state, step
+    torch.cuda.empty_cache()
+    # 23b: launch.train's run at 2 layers bf16 with bf16 moments, the
+    # config's capacity factor and router term, 4 x 4096 in 2 microbatches
+    t0 = time.monotonic()
+    layers, b, s, mb, steps = 2, 4, 4096, 2, 3
+    cfg = _mixtral_cut(layers, f32=False)
+    torch.cuda.reset_peak_memory_stats()
+    moe.ep_drops(reset=True)
+    before = C.snapshot()
+    res = LT.train(LT.parse_args([
+        "--arch", "mixtral_8x22b", "--layers", str(layers), "--steps",
+        str(steps), "--seq", str(s), "--batch", str(b),
+        "--microbatches", str(mb), "--moment-dtype", "bfloat16",
+        "--data", "lm", "--log-interval", "100", "--seed", str(seed)]),
+        mesh, rules)
+    counts = C.count_by_axis(before)
+    dropped, pairs = moe.ep_drops()
+    plan = ST.make_train_step(cfg, opt, mesh=mesh, rules=rules).plan
+    cap = moe.ep_cap(cfg, b // mb, plan.batch_ranks, s, 2)
+    st = res.state
+    out["23b"] = dict(
+        layers=layers, losses=[m["loss"] for m in res.metrics],
+        router=[m["router_aux"] for m in res.metrics],
+        step_s=res.step_s, median_ms=statistics.median(res.step_s[1:]) * 1e3,
+        dropped=dropped, pairs=pairs, cap=cap,
+        call_bytes=e * cap * cfg.d_model * 2,
+        calls=counts.get(("all-to-all", "model"), 0) // steps,
+        budget_calls=plan.collective_budget(
+            mb, seq_len=s, remat=cfg.remat, mse=True).get(
+                ("all-to-all", "model"), 0),
+        state=tree_bytes(st["params"]) * 2 + tree_bytes(st["opt"]["m"])
+        + tree_bytes(st["opt"]["v"]),
+        whole=tree_bytes(init_model(0, cfg, device="meta")) * 4,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        s=time.monotonic() - t0)
+    del res, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_train_phase(torch, seed: int, mix17c: dict) -> dict:
+    """Phase 23, expert-parallel MoE training: mixtral_8x22b at full width
+    as two gloo processes on the card, (1, 2) under ``make_rules()`` (EP 2
+    x TP 2 + SP).  23a: 1 layer f32, no drops, the router term off, DSA
+    off: the losses against the unsharded run's (gated,
+    ``EP_F32_RTOL``), the all-to-alls and every other collective against
+    the budget (gated), bytes a rank.  23b: ``launch.train`` at 2 layers
+    bf16, capacity factor 1.25, the router term on, 4 x 4096 in 2
+    microbatches: step ms against 17c's unsharded step, dropped share,
+    all-to-all bytes, state bytes and peak a rank, losses (printed)."""
+    import math
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import run_spmd
+    t0 = time.monotonic()
+    card = smi()
+    store = tempfile.mkdtemp()
+    try:
+        res = run_spmd(_p23_rank, 2, store_dir=store, backend="gloo",
+                       device_ids=[0, 0], timeout_s=400, args=(seed,))
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    bad = []
+    plain = res[0]["plain"]
+    whole = res[0]["whole"]
+    print(f"23a unsharded mixtral_8x22b 1 layer f32 (rank 0 alone, "
+          f"{res[0]['plain_s']:.1f} s): {EP_STEPS} steps of {EP_BATCH} x "
+          f"{EP_SEQ}, DSA off, capacity factor 4 (no drops), router term "
+          f"off: losses " + ", ".join(f"{v:.6f}" for v in plain)
+          + f" [{card}]", flush=True)
+    for r, x in enumerate(res):
+        a = x["23a"]
+        rel = [abs(u - v) / abs(v) for u, v in zip(a["losses"], plain)]
+        try:
+            C.check_train_collectives(a["counts"], a["budget"])
+            ok = True
+        except AssertionError as e:
+            print(f"  {e}", flush=True)
+            ok = False
+        print(f"  EP 2 x TP 2 + SP, rank {r} ({a['s']:.1f} s): EP taken "
+              f"{a['ep']}; losses " + ", ".join(f"{v:.6f}"
+                                                for v in a["losses"])
+              + "; gap / loss " + ", ".join(f"{v:.3g}" for v in rel)
+              + f" (gated: <= {EP_F32_RTOL:g}); all-to-all over model "
+              f"{a['counts'].get(('all-to-all', 'model'), 0)} (budget "
+              f"{a['budget'].get(('all-to-all', 'model'), 0)}); "
+              "collectives " + ", ".join(
+                  f"{op} {ax} {n}" for (op, ax), n in sorted(
+                      a["counts"].items()))
+              + f" == budget {ok}; bytes params {a['params']} of {whole} "
+              f"({a['params'] / whole:.4f}; predicted {EP_STATE_PRED[0]}-"
+              f"{EP_STATE_PRED[1]}), grads the params' shapes, moments "
+              f"{a['moments']} of {2 * whole} "
+              f"({a['moments'] / whole / 2:.4f}) [{card}]", flush=True)
+        if not ok:
+            bad.append(f"23a rank {r} budget")
+        if not a["ep"] or max(rel) > EP_F32_RTOL:
+            bad.append(f"23a rank {r}: EP {a['ep']}, gap {max(rel):.3g}")
+    for r, x in enumerate(res):
+        bb = x["23b"]
+        tok = 4 * 4096
+        print(f"23b mixtral_8x22b {bb['layers']} layers bf16, bf16 "
+              f"moments, EP 2 x TP 2 + SP over gloo on one card "
+              f"(launch.train, make_rules() on (1, 2)), 4 x 4096 in 2 "
+              f"microbatches, capacity factor 1.25, router term on, rank "
+              f"{r} ({bb['s']:.1f} s): step ms " + ", ".join(
+                  f"{t * 1e3:.1f}" for t in bb["step_s"])
+              + f" (median of steps 2-3 {bb['median_ms']:.1f}; predicted "
+              f"{EP_STEP_PRED_MS[0]:.0f}-{EP_STEP_PRED_MS[1]:.0f}; 17c "
+              f"unsharded {mix17c['step_ms']:.1f}), "
+              f"{tok / bb['median_ms'] * 1e3:.0f} tok/s; dropped {bb['dropped']} of {bb['pairs']} (token, "
+              f"slot) pairs ({100 * bb['dropped'] / bb['pairs']:.3f} %, "
+              f"forward and recompute); cap {bb['cap']}; all-to-all "
+              f"{bb['call_bytes'] / 1e6:.1f} MB a call (predicted ~126), "
+              f"{bb['calls']} calls a step (budget {bb['budget_calls']}), "
+              f"{bb['call_bytes'] * bb['calls'] / 1e9:.2f} GB a step; "
+              f"state bytes {bb['state']} of {bb['whole']} unsharded "
+              f"({bb['state'] / bb['whole']:.4f}); peak "
+              f"{bb['peak_gib']:.2f} GiB; losses " + ", ".join(
+                  f"{v:.4f}" for v in bb["losses"]) + "; router term "
+              + ", ".join(f"{v:.6f}" for v in bb["router"])
+              + f" (printed) [{card}]", flush=True)
+        if not all(map(math.isfinite, bb["losses"])) or (
+                bb["calls"] != bb["budget_calls"]):
+            bad.append(f"23b rank {r}: losses {bb['losses']}, calls "
+                       f"{bb['calls']} of {bb['budget_calls']}")
+    print(f"phase 23: {time.monotonic() - t0:.1f} s", flush=True)
+    if bad:
+        fail(f"phase 23: {bad}")
+    return {"23a": res[0]["23a"], "23b": res[0]["23b"]}
 
 
 def main() -> None:
@@ -6462,7 +6680,7 @@ def main() -> None:
     t17 = time.monotonic()
     mixtral_parity_phase(torch, args.seed, card)
     launches["mixtral"] = mixtral_slice(torch, args.seed, card)["launches"]
-    mixtral_train_slice(torch, args.seed, card)
+    mix17c = mixtral_train_slice(torch, args.seed, card)
     print(f"phase 17: {time.monotonic() - t17:.1f} s", flush=True)
     # deepseek_v3's multi-head latent attention, dense prologue and 256
     # experts (18a gated parity; 18b-c the full-width serving slices,
@@ -6507,6 +6725,11 @@ def main() -> None:
     # (22a-b; 22b against 16d's unsharded losses), NCCL at world size 1
     # (22c); no kernel launches (training takes the block path)
     distributed_train_phase(torch, args.seed, yi16d)
+    # expert-parallel MoE training: mixtral_8x22b at full width, EP 2 x TP
+    # 2 + SP as two gloo processes on the card (23a gated against the
+    # unsharded run and the budget, 23b launch.train at 2 layers bf16);
+    # no kernel launches (training takes the block path)
+    ep_train_phase(torch, args.seed, mix17c)
 
     src = "src/repro_torch/kernels/csrc/"
     rep = "src/repro/kernels/"

@@ -5,7 +5,8 @@ The reference writes no collective: GSPMD inserts them from its sharding
 constraints, and ``hlo_analysis`` reads them back out of the compiled
 per-device program.  The port runs one process per device and calls its
 collectives itself, here and nowhere else: ``all_reduce``,
-``all_gather`` and ``reduce_scatter`` over a mesh axis's process group
+``all_gather``, ``reduce_scatter`` and ``all_to_all`` over a mesh
+axis's process group
 (``axis_group``: "model" for tensor parallelism, "data" for data
 parallelism; ``axes_group`` for several axes at once, such as the
 reference's composite ("pod", "data") batch axis).  Each call adds one
@@ -32,7 +33,11 @@ flag) and the static engine one at the end of ``generate``, outside the
 step.
 
 Training (``distributed/sharding.TrainPlan``).  The autograd-aware
-collectives below carry a gradient: ``copy_to_tp`` (identity forward,
+collectives below carry a gradient: ``exchange`` (the all-to-all
+forward and backward: expert parallelism's dispatch and return, the
+exchange being its own adjoint), ``mean_over`` (an all-reduce's mean
+forward, the gradient scaled on each rank's own input backward: the
+router term over "model"), ``copy_to_tp`` (identity forward,
 all-reduce backward: a column-parallel product's replicated input) and
 ``reduce_from_tp`` (all-reduce forward, identity backward: a
 row-parallel product's partial output, and the MSE target's partial
@@ -70,11 +75,23 @@ E' those that train.
                                       down-proj's reduce-scatter is not
                                       run again)
     all-reduce "model"      m (1 + r) (the MSE target's head sum)
+  an MoE sub-layer on the expert-parallel dispatch (``TrainPlan.ep``),
+  any table where its gate holds:
+    all-to-all "model"      4 + 2r   (dispatch and return forward, their
+                                      backward, again in the recompute)
+    all-reduce "model"      1        (the router term's mean; after the
+                                      last saved tensor, so the recompute
+                                      stops before it)
+    and under TP with SP it drops its own gather and scatter: the
+    layer's all-gathers 2 + r, reduce-scatters 2 (its attention's)
   TP without SP:
     all-reduce "model"      4 + m + r (1 + m)  (out-proj and down-proj
                                       forward, their inputs' gradients
                                       backward, the MSE sum; the
                                       recompute's out-proj and MSE sum)
+    (an EP sub-layer in place of the MLP: its input's gradient sum and
+    the router term's mean in place of the down-proj's two, the same
+    count)
   FSDP, any table:
     all-gather <data axes>  A (1 + r)
     reduce-scatter <axes>   A'
@@ -93,8 +110,9 @@ E' those that train.
       matrices, a leaf whose "embed" dimension does not divide), and
       one per further group of leaves that lack other batch axes (the
       "pod" axis of the multipod table); 1 all-reduce of the metrics
-    "model" with SP: 1 all-reduce of the norms' gradients (their rows
-      are sequence shards)
+    "model" with SP or an MoE arch: 1 all-reduce of the norms'
+      gradients (their rows are sequence shards) and the routers'
+      (each rank's part: its rows, or its experts' pairs)
     "world": 1 all-reduce (the gradient norm's sum of squares)
 
 A group of one rank counts its calls like any other; on gloo it moves
@@ -364,11 +382,30 @@ def reduce_scatter(x: torch.Tensor, g: AxisGroup,
     return out.movedim(0, dim).contiguous()
 
 
+def all_to_all(x: torch.Tensor, g: AxisGroup) -> torch.Tensor:
+    """The group's all-to-all of ``x`` (size, ...): block q goes to rank
+    q, and block q of the result came from rank q (the reference's
+    ``jax.lax.all_to_all(x, axis, 0, 0, tiled=False)``).  A new tensor."""
+    _count(all_to_all, g)
+    if x.shape[0] != g.size:
+        raise ValueError(f"all_to_all: dim 0 of {tuple(x.shape)} is not "
+                         f"the group size {g.size}")
+    if not g.moves:
+        return x.clone()
+    src = x.contiguous()
+    if x.is_cuda and g.staged:
+        return _exchange(src.view(g.size, -1), g).view(x.shape)
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=g.group)
+    return out
+
+
 LN.counters(all_reduce, *AXES)
 LN.counters(all_gather, *AXES)
 LN.counters(reduce_scatter, *AXES)
+LN.counters(all_to_all, *AXES)
 _FNS = {"all-reduce": all_reduce, "all-gather": all_gather,
-        "reduce-scatter": reduce_scatter}
+        "reduce-scatter": reduce_scatter, "all-to-all": all_to_all}
 _COUNTERS = {(op, a): (fn, a) for op, fn in _FNS.items() for a in AXES}
 
 
@@ -525,6 +562,28 @@ class _ScatterSeq(torch.autograd.Function):
         return all_gather(grad, ctx.g, 1), None
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return all_to_all(x, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_to_all(grad, ctx.g), None
+
+
+class _MeanOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, grad_scale):
+        ctx.scale = grad_scale
+        return all_reduce(x.clone(), g).div_(g.size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None, None
+
+
 class _FSDPGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, g, dim):
@@ -568,6 +627,23 @@ def scatter_seq(x: torch.Tensor, g: AxisGroup) -> torch.Tensor:
     """The sum of ``x`` (B, S, ...) over ``g``, each rank keeping its
     (B, S/n, ...) sequence shard; the gradient is all-gathered."""
     return _ScatterSeq.apply(x, g)
+
+
+def exchange(x: torch.Tensor, g: AxisGroup) -> torch.Tensor:
+    """``all_to_all`` with a gradient: the all-to-all is its own adjoint,
+    so the gradient goes back by the same exchange (expert parallelism's
+    dispatch and return)."""
+    return _AllToAll.apply(x, g)
+
+
+def mean_over(x: torch.Tensor, g: AxisGroup,
+              grad_scale: float) -> torch.Tensor:
+    """The mean of ``x`` over ``g`` (one all-reduce); its gradient is the
+    incoming one times ``grad_scale`` on each rank's own ``x``: 1 / size
+    where the group's ranks compute one loss between them (tensor
+    parallelism), 1 where each rank's loss is its own and the step
+    averages them (the group is a batch axis)."""
+    return _MeanOver.apply(x, g, grad_scale)
 
 
 def fsdp_gather(w: torch.Tensor, g: AxisGroup, dim: int) -> torch.Tensor:

@@ -43,9 +43,13 @@ each leaf are gathered before use (those split over the rule's batch
 axes, FSDP's role), which are computed locally (those split over a
 "model" axis that holds no batch rows: tensor parallelism), and how
 each gradient is reduced so that it is the matching shard of the
-unsharded gradient.  The expert-parallel MoE path (``moe_ep``) is not
-ported: an MoE arch on a "model" axis above 1 raises (ROADMAP Queue 1,
-"Distribution").
+unsharded gradient.  An MoE layer takes the reference's
+expert-parallel dispatch where its gate holds (``moe_ep``, a "model"
+axis above 1 that divides E and the sequence): each rank routes its own
+rows and two all-to-alls over "model" carry them to the experts' ranks
+and back (``models/moe.py``, ``EPContext``), under ``make_rules()``
+beside tensor parallelism and under ``make_rules(tp=False)`` with
+"model" a batch axis.
 """
 from __future__ import annotations
 
@@ -470,7 +474,20 @@ class TrainPlan:
     square matrices, a dimension that does not divide); under sequence
     parallelism the norms' gradients are summed over "model" too
     (``norms``: their rows were sequence shards).  Every rank then holds
-    the matching shard of the unsharded gradient."""
+    the matching shard of the unsharded gradient.
+
+    Mixture of experts: where the reference's EP gate holds (``ep``, the
+    "model" group; ``ep_active``), ``run_flags`` gives an MoE layer the
+    batch's ``models.moe.EPContext``.  Under tensor parallelism the
+    expert leaves' "expert" dimension lies over "model" (a rank's E / tp
+    experts, computed locally); under ``make_rules(tp=False)`` they are
+    gathered whole like any FSDP leaf and a rank slices its E / n
+    experts (the slice's gradient is zero elsewhere, and the gather's
+    reduce-scatter adds the ranks').  The routers' gradients under tensor
+    parallelism are each rank's part (its rows, or its experts' pairs),
+    summed over "model" a step (``routers``).  The router term's value
+    is data shard 0's under EP (``reduce_metrics``), as the reference's
+    shard_map returns it (ROADMAP Queue 3)."""
     cfg: Any
     mesh: Any
     rules: ShardingRules
@@ -483,6 +500,19 @@ class TrainPlan:
     norms: List[str]
     replicas: Dict[str, int]
     frozen: Tuple[str, ...]
+    routers: List[str] = dataclasses.field(default_factory=list)
+    ep: Optional[C.AxisGroup] = None
+    batch_ranks: int = 1
+    # under EP, the router term's factor in the metrics' mean: the data
+    # shards' count on data shard 0's ranks, 0 on the others
+    aux_scale: Optional[int] = None
+
+    def ep_active(self, seq_len: int) -> bool:
+        """Whether an MoE layer takes the expert-parallel dispatch on a
+        ``seq_len``-token batch: the reference's gate (``moe_ep``, a
+        "model" axis above 1 that divides E, checked by
+        ``make_train_plan``, and the sequence)."""
+        return self.ep is not None and seq_len % self.ep.size == 0
 
     def seq_parallel(self, seq_len: int) -> bool:
         """Whether the residual stream of a ``seq_len``-token batch is
@@ -491,11 +521,20 @@ class TrainPlan:
         return self.tp is not None and resolve_spec(
             (seq_len,), ("seq_sp",), self.rules, self.mesh) == ("model",)
 
-    def run_flags(self, flags, seq_len: int):
-        """``flags`` with this plan's groups, for a ``seq_len``-token
-        batch."""
-        return dataclasses.replace(flags, tp=self.tp, fsdp=self,
-                                   sp=self.seq_parallel(seq_len))
+    def run_flags(self, flags, seq_len: int, rows: int):
+        """``flags`` with this plan's groups, for a global batch of
+        ``rows`` x ``seq_len`` tokens (a microbatch's), with its
+        ``EPContext`` where the EP gate holds."""
+        from repro_torch.models.moe import EPContext, ep_cap
+        sp = self.seq_parallel(seq_len)
+        ep = None
+        if self.ep_active(seq_len):
+            ep = EPContext(self.ep, ep_cap(self.cfg, rows, self.batch_ranks,
+                                           seq_len, self.ep.size),
+                           tp=self.tp is not None,
+                           replicated=self.tp is not None and not sp)
+        return dataclasses.replace(flags, tp=self.tp, fsdp=self, sp=sp,
+                                   ep=ep)
 
     def local_rows(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """This rank's rows of a (global) batch: axis 0 split over the
@@ -527,7 +566,8 @@ class TrainPlan:
                      sp: bool) -> None:
         """The step's gradient reductions, in place on ``grads`` ({path:
         gradient}): one all-reduce (a mean) over each bucket's batch axes,
-        and with ``sp`` one (a sum) over "model" of the norms'."""
+        and one (a sum) over "model" of the routers' and, with ``sp``, the
+        norms'."""
         def flat(paths, g, mean):
             if not paths:
                 return
@@ -542,14 +582,22 @@ class TrainPlan:
                 i += n
         for g, paths in self.buckets:
             flat(paths, g, True)
-        if sp:
-            flat(self.norms, self.tp, False)
+        flat((self.norms if sp else []) + self.routers, self.tp, False)
 
-    def reduce_metrics(self, metrics: Dict[str, torch.Tensor]
-                       ) -> Dict[str, torch.Tensor]:
-        """The metrics' means over the batch axes (one all-reduce)."""
+    def reduce_metrics(self, metrics: Dict[str, torch.Tensor],
+                       ep: bool = False) -> Dict[str, torch.Tensor]:
+        """The metrics' means over the batch axes (one all-reduce).  With
+        ``ep`` (the step took the EP dispatch) the router term, and the
+        loss with it, is data shard 0's: the reference's shard_map
+        returns its aux with ``out_specs`` P() unchecked, so the value
+        read is the first device's (ROADMAP Queue 3)."""
         if self.batch is None:
             return metrics
+        if ep and self.aux_scale is not None:
+            r = metrics["router_aux"]
+            keep = r * self.aux_scale
+            metrics = {**metrics, "router_aux": keep,
+                       "loss": metrics["loss"] - r + keep}
         keys = list(metrics)
         buf = torch.stack([metrics[k].float() for k in keys])
         C.all_reduce(buf, self.batch)
@@ -577,8 +625,10 @@ class TrainPlan:
                           steps: int = 1) -> Dict[Tuple[str, str], int]:
         """{(op, axis): calls} of ``steps`` training steps: the table in
         ``distributed/collectives.py``'s docstring, counted over this
-        plan's leaves (the dense GQA decoder's sites; an arch without a
-        tensor-parallel form has no "model" role)."""
+        plan's leaves (the dense GQA decoder's and mixtral's sites; an
+        arch without a tensor-parallel form has no "model" role but
+        expert parallelism's)."""
+        from repro_torch.models import blocks as B
         out: Dict[Tuple[str, str], int] = {}
 
         def add(op, axis, n):
@@ -593,16 +643,31 @@ class TrainPlan:
                 again = r if path.startswith(layer) else 0
                 add("all-gather", g.axis, mb * (1 + again))
                 add("reduce-scatter", g.axis, mb * trains)
+        n_ep = 0
+        if self.ep_active(seq_len):
+            # the MoE sub-layers: two all-to-alls forward, two backward,
+            # two in the recompute; the router term's mean over "model"
+            n_ep = B.n_groups(self.cfg) * sum(
+                d.moe for d in B.group_defs(self.cfg))
+            add("all-to-all", "model", mb * n_ep * (4 + 2 * r))
+            add("all-reduce", "model", mb * n_ep)
         if self.tp is not None:
             n_layers = self.cfg.n_layers
             if self.seq_parallel(seq_len):
-                add("all-gather", "model", mb * (n_layers * (4 + 2 * r) + 2))
-                add("reduce-scatter", "model", mb * (n_layers * (4 + r) + 2))
+                # an EP sub-layer's input and output keep the stream's
+                # sequence shards: no gather or scatter around it
+                add("all-gather", "model",
+                    mb * (n_layers * (4 + 2 * r) - n_ep * (2 + r) + 2))
+                add("reduce-scatter", "model",
+                    mb * (n_layers * (4 + r) - n_ep * 2 + 2))
                 add("all-reduce", "model", mb * n_layers * m * (1 + r))
-                add("all-reduce", "model", 1)            # the norms' sums
             else:
+                # an EP sub-layer's replicated input sums its gradient
+                # where the down-projection's partial sums were
                 add("all-reduce", "model",
-                    mb * (n_layers * (4 + m + r * (1 + m)) + 2))
+                    mb * (n_layers * (4 + m + r * (1 + m)) - n_ep + 2))
+            if self.seq_parallel(seq_len) or self.routers:
+                add("all-reduce", "model", 1)   # the norms' and routers'
             add("all-reduce", "model", mb * 2)           # vocab-parallel CE
         if self.batch is not None:
             add("all-reduce", self.batch.axis, mb * mask + 1)
@@ -616,13 +681,16 @@ def make_train_plan(cfg, mesh, rules: Optional[ShardingRules] = None
                     ) -> TrainPlan:
     """The layout of training ``cfg`` on ``mesh`` under ``rules`` (the
     rule context's by default).  Tensor parallelism needs an arch whose
-    layers have a tensor-parallel form (dense GQA attention and MLPs):
-    on a "model" axis above 1 that holds no batch rows, MLA, RWKV6,
-    Mamba and cross-attention archs and mixtures of experts (the
-    expert-parallel path) raise ``NotImplementedError`` naming
-    "Distribution", and heads, KV heads, d_ff or a vocab that the axis
-    does not divide raise ``ValueError``; on a "model" axis of one such
-    archs take no "model" role at all."""
+    layers have a tensor-parallel form (dense GQA attention, MLPs and
+    mixtures of experts, the latter by expert parallelism where the
+    reference's gate holds): on a "model" axis above 1 that holds no
+    batch rows, MLA, RWKV6, Mamba and cross-attention archs raise
+    ``NotImplementedError`` naming "Distribution", and heads, KV heads,
+    d_ff or a vocab that the axis does not divide raise ``ValueError``;
+    on a "model" axis of one such archs take no "model" role at all.  An
+    MoE arch takes the expert-parallel dispatch (``TrainPlan.ep``) on a
+    "model" axis above 1 that divides E under ``rules.moe_ep``, whether
+    "model" is tensor-parallel or a batch axis."""
     from repro_torch.models.transformer import init_model, model_param_specs
     from repro_torch.optim.adamw import is_frozen
     rules = rules or _RULES
@@ -633,8 +701,6 @@ def make_train_plan(cfg, mesh, rules: Optional[ShardingRules] = None
     tp_axis = "model" in sizes and "model" not in batch_axes
     tp_n = sizes["model"] if tp_axis else 1
     why = tp_unsupported(cfg)
-    if why is None and cfg.moe is not None:
-        why = "mixture-of-experts layers (their expert-parallel path)"
     if tp_n > 1:
         if why is not None:
             raise NotImplementedError(
@@ -680,6 +746,18 @@ def make_train_plan(cfg, mesh, rules: Optional[ShardingRules] = None
             bucket.setdefault(rest, []).append(path)
         if tp is not None and tuple(logical[path]) == _SEQ_PARTIAL:
             norms.append(path)
+    n_model = sizes.get("model", 1)
+    ep = None
+    if (cfg.moe is not None and rules.moe_ep and n_model > 1
+            and cfg.moe.num_experts % n_model == 0):
+        ep = C.axis_group(mesh, "model")
+    # data shard 0: the ranks whose batch coordinates off "model" are 0
+    lead_axes = [a for a in batch_axes if a != "model"]
+    aux_scale = None
+    if ep is not None and lead_axes:
+        coord = dict(zip(names, mesh.get_coordinate()))
+        aux_scale = (int(np.prod([sizes[a] for a in lead_axes]))
+                     if all(coord[a] == 0 for a in lead_axes) else 0)
     return TrainPlan(
         cfg=shard_config(cfg, tp.size) if tp is not None else cfg,
         mesh=mesh, rules=rules, axes=resolved, gathers=gathers, tp=tp,
@@ -687,4 +765,9 @@ def make_train_plan(cfg, mesh, rules: Optional[ShardingRules] = None
         world=world,
         buckets=[(C.axes_group(mesh, k), v) for k, v in bucket.items()],
         norms=norms, replicas=replicas,
-        frozen=tuple(p for p in resolved if is_frozen(p)))
+        frozen=tuple(p for p in resolved if is_frozen(p)),
+        routers=[p for p in resolved if p.endswith("/mlp/router")]
+        if tp is not None else [],
+        ep=ep, batch_ranks=int(np.prod([sizes.get(a, 1)
+                                        for a in _axes(rules.batch)])),
+        aux_scale=aux_scale)

@@ -170,6 +170,11 @@ class RunFlags:
     # ``gathers`` forward_train all-gathers each layer's data-sharded
     # leaves by (FSDP), inside the layer's remat region
     fsdp: Any = None
+    # expert parallelism (training on a mesh, the reference's moe_ep
+    # gate): the models.moe.EPContext of the batch, set by the plan's
+    # run_flags; an MoE sub-layer then dispatches by all-to-all over
+    # "model".  None: the capacity path
+    ep: Any = None
 
 
 def _out_proj(params, flags: RunFlags, out: torch.Tensor) -> torch.Tensor:

@@ -224,7 +224,11 @@ def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
     the MLP's input carries its gradient's sum over "model" and, under
     sequence parallelism (``flags.sp``: ``x`` is this rank's sequence
     rows), is all-gathered over the sequence, its output
-    reduce-scattered back (``collectives.tp_enter``/``tp_exit``).
+    reduce-scattered back (``collectives.tp_enter``/``tp_exit``).  Under
+    expert parallelism (``flags.ep``, training) the MoE sub-layer takes
+    this rank's rows of the residual stream as they are (its sequence
+    shard under SP) and gives its output whole for them: no gather,
+    scatter or partial sum.
     A ``cross`` sub-block's cross-attention sub-layer runs, as in the
     reference, in train and prefill mode only when ``enc`` (B, T, d) is
     given, and in decode mode always, over the cached ``ck``/``cv``."""
@@ -250,12 +254,20 @@ def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
                                   None if cache is None else cache["xattn"])
         x = x + torch.tanh(params["xgate"].to(x.dtype)) * y
     h = rms_norm(x, params["norm2"].to(x.dtype), cfg.norm_eps)
+    if d.moe and flags.ep is not None:
+        # expert parallelism: the residual stream's own rows, y whole
+        y, a = apply_moe(params["mlp"], cfg, h, ep=flags.ep)
+        return x + y, cache, {**aux, **a}
     train = flags.mode == "train"
     h = C.tp_enter(h, flags.tp, train=train, sp=flags.sp)
     if d.moe:
         y, a = apply_moe(params["mlp"], cfg, h,
                          decode=flags.mode == "decode" or flags.moe_dense,
                          tp=flags.tp)
+        if train and flags.tp is not None:
+            # every rank routes the same rows: the router term's gradient
+            # is counted once over "model"
+            a = {k: C.replicated_input(v, flags.tp) for k, v in a.items()}
         aux = {**aux, **a}
     else:
         y = apply_mlp(params["mlp"], h)

@@ -1,5 +1,5 @@
 """Mixture-of-experts layer (the port of the reference's
-``repro/models/moe.py``, its single-device paths).
+``repro/models/moe.py``).
 
   capacity (prefill, train): each batch row dispatches its (token, slot)
      pairs into per-expert buffers of ``cap`` rows, runs the expert FFNs
@@ -9,15 +9,19 @@
      on every token and the routing weights mask the combine, so the step
      reads every expert's weights once and has fixed shapes (a CUDA graph
      captures it).
+  expert-parallel (training on a mesh whose "model" axis divides E, the
+     reference's ``_moe_ep_shardmap``; ``RunFlags.ep``, an ``EPContext``):
+     each rank routes its own token slab into (E, cap) buffers, sends each
+     expert's rows to the rank that holds it (one all-to-all over
+     "model"), runs its E / n experts on what every rank sent, sends the
+     results back (a second all-to-all) and combines.
 
 Tensor-parallel serving (a "model" axis, ``param_specs_moe``): each rank
 holds E / tp whole experts, or, where tp does not divide E, every
 expert's f / tp columns; routing is replicated, each rank combines its
 own experts' (or columns') outputs, and ``blocks.apply_subblock`` sums
 the partial combines with one all-reduce, as the reference's serving
-rules (``moe_ep`` off) do.  The reference's expert-parallel path
-(experts over "model" with two all-to-alls, its training default) is not
-ported (ROADMAP Queue 1, "Distribution").
+rules (``moe_ep`` off) do.
 
 The expert products are plain ``torch.bmm``s (no kernel: the reference
 computes them outside any Pallas kernel).  The router's logits are f32
@@ -25,14 +29,51 @@ whatever the model's dtype; the router weight itself is kept f32.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import dataclasses
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.prediction import mm
+from repro_torch.distributed import collectives as C
 from repro_torch.models.common import dense_init
+
+# the EP dispatches' (token, slot) pairs since the last ``ep_drops(reset=
+# True)`` and how many of them were dropped (a tensor on the pairs'
+# device: counting takes no host sync, reading it does)
+_EP_DROPS: Dict[str, Any] = {"pairs": 0, "dropped": 0}
+
+
+def ep_drops(reset: bool = False) -> Tuple[int, int]:
+    """(dropped, pairs) over the expert-parallel dispatches since the
+    last reset, a recompute's counted again; ``reset`` then sets both to
+    0."""
+    out = int(_EP_DROPS["dropped"]), _EP_DROPS["pairs"]
+    if reset:
+        _EP_DROPS.update(pairs=0, dropped=0)
+    return out
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class EPContext:
+    """One training batch's expert-parallel dispatch
+    (``distributed.sharding.TrainPlan.run_flags`` makes it).
+
+    ``group``: the "model" axis (``collectives.AxisGroup``), whose rank q
+    holds experts [q E / n, (q + 1) E / n).  ``cap``: each expert's rows
+    per source rank, the reference's ``max(4, ceil4(int((B // |batch|) *
+    (S // n) * top_k * capacity_factor / E)))`` from the global batch
+    rows B and length S, whatever slab a rank holds.  ``tp``: the group's
+    ranks compute one loss between them (tensor parallelism; else
+    "model" is a batch axis and each rank's loss is its own).
+    ``replicated``: every rank of the group holds the same rows (tensor
+    parallelism without sequence parallelism)."""
+    group: Any
+    cap: int
+    tp: bool
+    replicated: bool = False
 
 
 def expert_ff(cfg: ArchConfig) -> int:
@@ -162,6 +203,80 @@ def _moe_local(params, cfg: ArchConfig, x2, cap: int, tp=None):
     return y, aux
 
 
+def ep_cap(cfg: ArchConfig, rows: int, batch_ranks: int, seq_len: int,
+           n_model: int) -> int:
+    """The reference's EP capacity (``repro/models/moe.py:122-126``):
+    a rank's tokens taken as (rows // batch ranks) * (seq_len // n),
+    times top_k and the capacity factor over E, rounded up to a multiple
+    of 4, at least 4."""
+    mo = cfg.moe
+    t = (rows // batch_ranks) * (seq_len // n_model)
+    cap = int(t * mo.top_k * mo.capacity_factor / mo.num_experts)
+    return max(4, -(-cap // 4) * 4)
+
+
+def _moe_ep_inner(params, cfg: ArchConfig, x2, ep: EPContext):
+    """One rank's slab x2 (T, d) through the expert-parallel dispatch
+    (the reference's ``_moe_ep_inner``).  Returns (y (T, d), the slab's
+    aux).  The send buffer keeps the trash row at ``cap`` (a dropped pair
+    goes there and reads back 0), cut before it is sent."""
+    mo = cfg.moe
+    e, k = mo.num_experts, mo.top_k
+    g = ep.group
+    n, cap = g.size, ep.cap
+    el = e // n
+    ids, w, aux = _route(params["router"], x2, k)
+    t, d = x2.shape
+    e_flat = ids.reshape(-1).long()
+    pos = _dispatch_positions(e_flat, e, cap)
+    ok = pos < cap
+    _EP_DROPS["pairs"] += ok.numel()
+    _EP_DROPS["dropped"] = _EP_DROPS["dropped"] + (~ok).sum()
+    slot = torch.where(ok, pos, cap)
+    tok_idx = torch.arange(t, device=x2.device).repeat_interleave(k)
+    dt = x2.dtype
+    buf = torch.zeros((e, cap + 1, d), dtype=dt, device=x2.device)
+    buf = buf.index_put((e_flat, slot), x2[tok_idx])
+    # block q of the send buffer (rank q's experts) goes to rank q; block
+    # q of what arrives came from rank q; each local expert then takes its
+    # rows from every source in turn (the reference reshapes without this
+    # transpose, ROADMAP Queue 3)
+    recv = C.exchange(buf[:, :cap].reshape(n, el, cap, d), g)
+    rows = recv.transpose(0, 1).reshape(el, n * cap, d)
+    w1, w3, w2 = params["w1"], params["w3"], params["w2"]
+    if w1.shape[0] == e:          # the whole leaf (FSDP over "model")
+        lo = g.rank * el
+        w1, w3, w2 = w1[lo:lo + el], w3[lo:lo + el], w2[lo:lo + el]
+    yb = _expert_ffn(w1.to(dt), w3.to(dt), w2.to(dt), rows)
+    yb = yb.reshape(el, n, cap, d).transpose(0, 1)
+    back = C.exchange(yb.reshape(n, el, cap, d), g).reshape(e, cap, d)
+    back = torch.cat([back, back.new_zeros((e, 1, d))], dim=1)
+    y_slots = back[e_flat, slot] * ok[:, None]
+    y = torch.sum(y_slots.reshape(t, k, d) * w.reshape(t, k, 1).to(dt),
+                  dim=1)
+    return y, aux
+
+
+def _moe_ep(params, cfg: ArchConfig, x, ep: EPContext):
+    """The expert-parallel dispatch of this rank's rows x (B_l, S_l, d)
+    (the reference's ``_moe_ep_shardmap``).  Returns (y (B_l, S_l, d),
+    aux): aux is the slab's Switch term averaged over "model" (one
+    all-reduce).  Where every rank of "model" holds the same rows
+    (``ep.replicated``), each routes all of them, as the reference's
+    shard_map does there: the input's gradient is summed over "model"
+    and the output's divided by n."""
+    g = ep.group
+    if ep.replicated:
+        x = C.copy_to_tp(x, g)
+    b, s, d = x.shape
+    y, aux = _moe_ep_inner(params, cfg, x.reshape(b * s, d), ep)
+    aux = C.mean_over(aux, g, 1.0 / g.size if ep.tp else 1.0)
+    y = y.reshape(b, s, d)
+    if ep.replicated:
+        y = C.replicated_input(y, g)
+    return y, aux
+
+
 def _moe_decode_dense(params, cfg: ArchConfig, x, tp=None):
     """Every expert on every token (this rank's experts under tensor
     parallelism); the routing weights mask the combine.  x (B, S, d) ->
@@ -184,19 +299,29 @@ def _moe_decode_dense(params, cfg: ArchConfig, x, tp=None):
 
 
 def apply_moe(params, cfg: ArchConfig, x, *, decode: bool = False,
-              tp=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+              tp=None, ep: EPContext = None
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x (B, S, d) -> (y, {"router": aux * router_aux_weight}); under
     tensor parallelism (``tp``, the "model" group) ``y`` is this rank's
     partial combine, which the caller all-reduces.
 
-    ``decode`` or a single token: the decode-dense path, its aux over all
-    tokens.  Otherwise the capacity path row by row (the reference's
-    ``vmap`` over the batch), ``cap = max(4, int(S * top_k *
-    capacity_factor / E))`` from the row's padded length S, its aux the
-    mean of the rows'.  Shared experts, where the config has any, are
-    added to every token after."""
+    ``ep`` (training on a mesh where the reference's gate holds,
+    ``TrainPlan.run_flags``): the expert-parallel dispatch of this rank's
+    rows, ``y`` whole for them.  ``decode`` or a single token: the
+    decode-dense path, its aux over all tokens.  Otherwise the capacity
+    path row by row (the reference's ``vmap`` over the batch), ``cap = max(4,
+    int(S * top_k * capacity_factor / E))`` from the row's padded length
+    S, its aux the mean of the rows'.  Shared experts, where the config
+    has any, are added to every token after, on the same rows."""
     mo = cfg.moe
-    if decode or x.shape[1] == 1:
+    if ep is not None:
+        # (the gate saw the whole sequence: a rank's shard may be 1 row)
+        if mo.num_shared_experts and ep.tp:
+            raise NotImplementedError(
+                f"{cfg.name}: shared experts under expert parallelism with "
+                f"tensor parallelism have no form in the port")
+        y, a = _moe_ep(params, cfg, x, ep)
+    elif decode or x.shape[1] == 1:
         y, a = _moe_decode_dense(params, cfg, x, tp)
     else:
         b, s, _ = x.shape

@@ -174,7 +174,7 @@ def accumulate_grads(params, cfg: ArchConfig, flags: RunFlags, batch,
     n = gb // microbatches
     if plan is not None:
         cfg = plan.cfg
-        flags = plan.run_flags(flags, batch["tokens"].shape[1])
+        flags = plan.run_flags(flags, batch["tokens"].shape[1], n)
     m_sum: Dict[str, torch.Tensor] = {}
     for i in range(microbatches):
         mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
@@ -195,7 +195,7 @@ def accumulate_grads(params, cfg: ArchConfig, flags: RunFlags, batch,
     grads = map_tree(take, params)
     if plan is not None:
         plan.reduce_grads(dict(named_leaves(grads)), flags.sp)
-        metrics = plan.reduce_metrics(metrics)
+        metrics = plan.reduce_metrics(metrics, ep=flags.ep is not None)
     return grads, metrics
 
 

@@ -155,6 +155,12 @@ def two(rank):
     except ValueError as e:
         out["production"] = str(e)
     out["staged"] = staged(fsdp)
+    plan = ST.make_train_step(cfg_of("mixtral_8x22b"), OPT,
+                              mesh=mesh_of((1, 2)), rules=make_rules()).plan
+    out["mixtral_tp2_plan"] = dict(
+        ep=plan.ep_active(SEQ), tp=plan.tp.size,
+        budget=plan.collective_budget(1, seq_len=SEQ, remat=False,
+                                      mse=True))
     return out
 
 

@@ -2309,3 +2309,24 @@ def test_cuda_nccl_world1_train_step_equals_unsharded(cuda_device,
                    backend="nccl", device_ids=[0], timeout_s=300)[0]
     _train_pair_close(out)
     C.check_train_collectives(*out["budget"])
+
+
+@pytest.mark.cuda
+def test_cuda_ep2_gloo_train_equals_cpu(cuda_device, tmp_path):
+    """mixtral EP 2 x TP 2 + SP (``make_rules()`` on (1, 2)) as two gloo
+    processes on the one card, reduced width in f32 with the router term
+    on, 2 steps: each rank's losses equal the same EP run's on the CPU
+    within 1e-4 (predicted), and the card run's all-to-alls and other
+    collectives equal the budget."""
+    import spmd_ep_scenarios as E
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import run_spmd
+    outs = run_spmd(E.card_ep2, 2, store_dir=str(tmp_path),
+                    backend="gloo", device_ids=[0, 0], timeout_s=300)
+    for out in outs:
+        for a, b in zip(out["cpu"], out["card"]):
+            for k in ("loss", "ce", "router_aux"):
+                assert abs(b[k] - a[k]) <= 1e-4 * abs(a[k]) + 1e-7, (k, a, b)
+        assert out["card", "counts"][("all-to-all", "model")] > 0
+        C.check_train_collectives(out["card", "counts"],
+                                  out["card", "budget"])

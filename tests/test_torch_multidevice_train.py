@@ -330,12 +330,21 @@ def test_production_mesh_needs_256_ranks():
 @pytest.mark.parametrize("arch", ["mixtral_8x22b", "deepseek_v3",
                                   "jamba_1_5_large", "rwkv6_3b",
                                   "whisper_small"])
-def test_tp_training_refusals(arch):
-    """At tp 2 an MoE arch (the expert-parallel path), an MLA, a Mamba,
-    an RWKV6 and a cross-attention arch raise naming "Distribution"; on
-    a "model" axis of 1, or under ``make_rules(tp=False)``, they plan."""
+def test_tp_training_refusals(arch, request):
+    """At tp 2 an MLA (deepseek_v3), a Mamba (jamba_1_5_large), an RWKV6
+    and a cross-attention arch raise naming "Distribution" and their
+    layers; mixtral_8x22b plans there, its MoE layers on the
+    expert-parallel dispatch, whose all-to-alls its budget holds (the
+    plan made in the 2-rank group's (1, 2) mesh)."""
     cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match="Distribution"):
+    if arch == "mixtral_8x22b":
+        plan = request.getfixturevalue("two")[0]["mixtral_tp2_plan"]
+        assert plan["ep"] and plan["tp"] == 2
+        assert plan["budget"][("all-to-all", "model")] == 4 * cfg.n_layers
+        return
+    why = {"deepseek_v3": "latent attention", "jamba_1_5_large": "Mamba",
+           "rwkv6_3b": "RWKV6", "whisper_small": "cross-attention"}[arch]
+    with pytest.raises(NotImplementedError, match=f"{why}.*Distribution"):
         TS.make_train_plan(cfg, _Mesh((1, 2), ("data", "model")),
                            TS.make_rules())
 
