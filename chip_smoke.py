@@ -331,6 +331,17 @@ fails:
      params against ``mesh=None`` bit for bit (or the first leaf that
      departs and by how much), the counters against the budget (gated),
      the NCCL kernels of one profiled step.
+ 23. expert-parallel MoE training (``ep_train_phase``): mixtral_8x22b
+     at EP 2 x TP 2 + SP as two gloo processes on the card.
+ 24. the dry run's count against the card (``dryrun_phase``): (a) 16d's
+     and 17c's train runs counted as ``launch/dryrun.py`` counts a cell
+     (fake tensors, the 1-/2-group form) at world 1 with the H100's
+     constants: compute_s gated at or below the measured median step,
+     memory_s printed against 16d's profiled busy time; (b) yi_6b's one
+     rank at tp 16 (``sharding.shard_config``: 2 query heads on the one
+     KV head of their group, G 2) served at 4 x 4096 with 32 new tokens,
+     without the collectives: K2 once a layer in prefill, K1 once a
+     layer a step, whose checks at that geometry run in phase 3.
 
 It then prints one JSON line of per-kernel results, the card's name and
 power limit again as ``nvidia-smi`` gives them, and as its last line
@@ -6280,6 +6291,111 @@ def ep_train_phase(torch, seed: int, mix17c: dict) -> dict:
     return {"23a": res[0]["23a"], "23b": res[0]["23b"]}
 
 
+# -- the dry run's count against the card (phase 24) ---------------------------
+
+
+def _dryrun_count(cfg, b: int, s: int, mb: int, opt) -> dict:
+    """The dry run's count (``launch/dryrun.py``: fake tensors, the
+    1-/2-group form) of one train step of ``cfg`` on ``b`` x ``s`` tokens
+    in ``mb`` microbatches at world 1 (``mesh=None``), with the roofline
+    at the H100's constants: FLOPs, bytes, compute_s, memory_s, the bound
+    and mfu_bound (6 N_active D over the bound at 989 TFLOP/s)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import hlo_analysis as H
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.training import steps as ST
+    t0 = time.monotonic()
+    shape = ShapeConfig("chip", s, b, "train")
+    with DR._fake_mode():
+        cost = DR.component_costs(cfg, shape, opt, None, None,
+                                  ST.default_flags(cfg), mb)
+    roof = H.roofline(cost["flops"], cost["bytes"], cost["coll"],
+                      model_flops_global=6.0 * cfg.num_active_params()
+                      * b * s, n_chips=1)
+    return {"flops": cost["flops"], "bytes": cost["bytes"],
+            "count_s": time.monotonic() - t0, **roof}
+
+
+def dryrun_phase(torch, seed: int, yi16d: dict, mix17c: dict) -> dict:
+    """24a.  The dry run's count of 16d's yi_6b train run (8 layers, 4 x
+    4096, 2 microbatches, bf16 moments) and 17c's mixtral run (2 layers),
+    at world 1 with the H100's constants, beside the steps this process
+    measured: gated on compute_s <= the measured median (a step faster
+    than its FLOPs allow means a wrong count or constant); memory_s
+    printed against 16d's profiled busy time, not gated (eager ops that
+    hit L2 beat it).  24b.  yi_6b's one rank at tp 16 served on the card
+    (``shard_config``: 2 of its 32 query heads on 1 of its 4 KV heads,
+    G 2, d_ff 688, all 32 layers, bf16, 4 x 4096, 32 new, DSA kernel),
+    without the collectives: K2 once a layer in prefill, K1 once a layer
+    a step, the tokens finite and in the vocab."""
+    import functools
+
+    import numpy as np
+    from repro_torch.configs.base import cut_layers, get_config
+    from repro_torch.distributed.sharding import shard_config
+    from repro_torch.inference.engine import Engine
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim import adamw
+    t0 = time.monotonic()
+    out = {}
+    opt = adamw.OptConfig(moment_dtype="bfloat16")
+    runs = (("16d yi_6b", cut_layers(get_config("yi_6b"), 8), yi16d),
+            ("17c mixtral_8x22b", dataclasses.replace(
+                get_config("mixtral_8x22b"), n_layers=2), mix17c))
+    for label, cfg, meas in runs:
+        c = _dryrun_count(cfg, 4, 4096, meas["microbatches"], opt)
+        med = meas["step_ms"] / 1e3
+        line = (f"24a dry-run count of {label} ({cfg.n_layers} layers, 4 x "
+                f"4096, {meas['microbatches']} microbatches, H100 "
+                f"constants): {c['flops'] / 1e12:.2f} TFLOP, "
+                f"{c['bytes'] / 1e9:.1f} GB; compute_s "
+                f"{c['compute_s']:.4f}, memory_s {c['memory_s']:.4f}, "
+                f"bound {c['bound_step_time_s']:.4f} s ({c['dominant']}), "
+                f"mfu_bound {c['mfu_bound']:.3f}; measured median step "
+                f"{med:.4f} s: compute_s / step {c['compute_s'] / med:.3f}, "
+                f"bound / step {c['bound_step_time_s'] / med:.3f}")
+        if "profile" in meas:
+            busy = meas["profile"][1] / 1e3
+            line += (f"; memory_s / profiled busy {busy:.4f} s = "
+                     f"{c['memory_s'] / busy:.3f}")
+        print(line + f" (counted in {c['count_s']:.1f} s)", flush=True)
+        out[label] = dict(c, step_s=med)
+        if not c["compute_s"] <= med:
+            fail(f"24a: {label}'s compute_s {c['compute_s']:.4f} s exceeds "
+                 f"the measured step {med:.4f} s")
+    # 24b: one rank's layers at tp 16, collectives left out
+    yi = get_config("yi_6b")
+    mcfg = shard_config(yi, 16)
+    b, prompt, n_new = 4, 4096, 32
+    torch.cuda.empty_cache()
+    serve.reset_launch_counts()
+    eng = Engine(mcfg, functools.partial(init_model, seed, mcfg),
+                 max_len=prompt + n_new + 16, long_context=True,
+                 dsa_mode="kernel")
+    prompts = np.random.default_rng(seed).integers(
+        1, yi.vocab - 4, size=(b, prompt)).astype(np.int32)
+    res = eng.generate(prompts, n_new)
+    n = serve.launch_counts()
+    want = {"K2": mcfg.n_layers, "K1": mcfg.n_layers * res.decode_steps}
+    ok = bool((res.tokens >= 0).all() and (res.tokens < yi.vocab).all())
+    print(f"24b yi_6b one rank at tp 16 (n_heads {mcfg.n_heads}, n_kv_heads "
+          f"{mcfg.n_kv_heads}, d_ff {mcfg.d_ff}, {mcfg.n_layers} layers "
+          f"bf16, {b} x {prompt}, {n_new} new, kernel): prefill "
+          f"{res.prefill_s * 1e3:.1f} ms, decode {res.tokens_per_s:.1f} "
+          f"tok/s over {res.decode_steps} steps; launches "
+          + " ".join(f"{k} {v}" for k, v in n.items() if v)
+          + f"; tokens in the vocab: {ok}", flush=True)
+    bad = {k: v for k, v in n.items() if v != want.get(k, 0)}
+    if bad or not ok:
+        fail(f"24b: launches {bad} (want {want}), tokens ok {ok}")
+    out["launches"] = dict(n)
+    del eng
+    torch.cuda.empty_cache()
+    print(f"phase 24: {time.monotonic() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6448,6 +6564,16 @@ def main() -> None:
                  q_dt="bfloat16", c_dt="float32",
                  kv_len=[4129, 4100, 4097, 4111], nb=6, seed=args.seed,
                  timed=True)]
+    # yi_6b at tp 16 (phase 24b): one rank's 2 query heads on the one KV
+    # head of their group (G 2); its prefill and decode step, as above
+    k2t16_checks = [
+        check_k2(torch, timer, b=4, hq=2, hkv=1, hd=128, l=4096, blk=128,
+                 nb=3, dtype="bfloat16", seed=args.seed, timed=True)]
+    k1t16_checks = [
+        check_k1(torch, timer, b=4, hq=2, hkv=1, hd=128, s=4224, bk=128,
+                 q_dt="bfloat16", c_dt="float32",
+                 kv_len=[4129, 4100, 4097, 4111], nb=6, seed=args.seed,
+                 timed=True)]
     k3_checks = [
         check_k3(torch, timer, b=2, hq=8, hkv=2, hd=16, s=100, c=32, blk=16,
                  q_dt="float32", c_dt="float32", q_off=[64, 32],
@@ -6536,6 +6662,8 @@ def main() -> None:
                          ("K1 dsa_decode (llama vision)", k1v_checks),
                          ("K2 dsa_attention (yi tp 2)", k2t_checks),
                          ("K1 dsa_decode (yi tp 2)", k1t_checks),
+                         ("K2 dsa_attention (yi tp 16 rank)", k2t16_checks),
+                         ("K1 dsa_decode (yi tp 16 rank)", k1t16_checks),
                          ("K3 dsa_chunk_prefill", k3_checks),
                          ("K4 dsa_decode_paged", k4_checks)] + [
             (f"{k} {q or ''}".strip(), v) for (k, q), v in q_checks.items()]:
@@ -6730,6 +6858,11 @@ def main() -> None:
     # unsharded run and the budget, 23b launch.train at 2 layers bf16);
     # no kernel launches (training takes the block path)
     ep_train_phase(torch, args.seed, mix17c)
+    # the dry run's count against 16d's and 17c's measured steps (24a) and
+    # yi_6b's one rank at tp 16 on the card (24b: K2 once a layer a
+    # prefill, K1 once a layer a step, at G 2 on one KV head)
+    launches["yi tp 16 rank"] = dryrun_phase(torch, args.seed, yi16d,
+                                             mix17c)["launches"]
 
     src = "src/repro_torch/kernels/csrc/"
     rep = "src/repro/kernels/"
@@ -6821,7 +6954,13 @@ def main() -> None:
             ("dsa_block_sparse_attention (yi tp 2)", "dsa_attention.cu",
              "dsa_attention.py:77", k2t_checks, "K2", ("yi tp 2",)),
             ("dsa_decode_gather_attention (yi tp 2)", "dsa_decode.cu",
-             "dsa_decode.py:185", k1t_checks, "K1", ("yi tp 2",))):
+             "dsa_decode.py:185", k1t_checks, "K1", ("yi tp 2",)),
+            # yi_6b's one rank at tp 16: phase 24b's launches
+            ("dsa_block_sparse_attention (yi tp 16 rank)",
+             "dsa_attention.cu", "dsa_attention.py:77", k2t16_checks, "K2",
+             ("yi tp 16 rank",)),
+            ("dsa_decode_gather_attention (yi tp 16 rank)", "dsa_decode.cu",
+             "dsa_decode.py:185", k1t16_checks, "K1", ("yi tp 16 rank",))):
         c = next(x for x in checks if "ms" in x)
         by_path = {p: launches[p].get(k, 0) for p in paths}
         kernels.append({

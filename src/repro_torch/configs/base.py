@@ -215,6 +215,29 @@ ARCH_IDS = ("yi_6b", "stablelm_3b", "qwen1_5_110b", "h2o_danube_1_8b",
             "whisper_small", "llama_3_2_vision")
 
 
+# -- shapes (the reference's cells: seq_len x global_batch) -----------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+# long_500k applicability: the archs with a sub-quadratic path
+LONG_CTX_ARCHS = ("rwkv6_3b", "jamba_1_5_large", "h2o_danube_1_8b",
+                  "mixtral_8x22b", "yi_6b")
+
+
 def get_config(name: str) -> ArchConfig:
     """The arch ``name`` (every arch of the reference is ported)."""
     name = name.replace("-", "_")

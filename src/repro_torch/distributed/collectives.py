@@ -110,9 +110,11 @@ E' those that train.
       matrices, a leaf whose "embed" dimension does not divide), and
       one per further group of leaves that lack other batch axes (the
       "pod" axis of the multipod table); 1 all-reduce of the metrics
-    "model" with SP or an MoE arch: 1 all-reduce of the norms'
-      gradients (their rows are sequence shards) and the routers'
-      (each rank's part: its rows, or its experts' pairs)
+    "model" with SP, an MoE arch or tp above the KV heads: 1
+      all-reduce of the norms' gradients (their rows are sequence
+      shards), the routers' (each rank's part: its rows, or its
+      experts' pairs) and the whole KV leaves' (each rank's head's
+      slice, ``TrainPlan.kv_slices``)
     "world": 1 all-reduce (the gradient norm's sum of squares)
 
 A group of one rank counts its calls like any other; on gloo it moves
@@ -120,9 +122,11 @@ nothing (the result is the input), on NCCL it calls the library.
 
 Two sources count them: the counters (every backend), and on the card
 the NCCL kernels of a ``torch.profiler`` trace (``kernel_collectives``).
-The reference's ``parse_collectives`` (wire bytes) and ``roofline``
-serve its dry run and wait for the port's (ROADMAP Queue 1); their TPU
-constants are not the card's.
+The dry run (``launch/dryrun.py``) also takes their bytes: under
+``recording()`` each call appends an ``Issued`` record (op, axis, the
+group's size and ranks, the per-device output's bytes), which
+``distributed/hlo_analysis.parse_collectives`` turns into the
+reference's wire bytes.  Off, the record costs one test a call.
 
 Backends: NCCL moves CUDA tensors and can be captured in a CUDA graph.
 gloo moves CPU tensors (the CPU tests); on the card a gloo group stages
@@ -132,8 +136,9 @@ decodes eagerly (``inference/engine.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -247,6 +252,58 @@ def _count(fn, g: AxisGroup) -> None:
     setattr(fn, g.axis, getattr(fn, g.axis) + 1)
 
 
+# -- the record (the dry run's accounting) -----------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Issued:
+    """One collective as it was issued: ``op``, the mesh ``axis`` (the
+    counters' name), the group's ``size`` and world ``ranks``, and
+    ``payload_bytes``, the per-device output (the reference's
+    definition: the whole gathered tensor, one reduce-scattered block)."""
+    op: str
+    axis: str
+    size: int
+    ranks: Tuple[int, ...]
+    payload_bytes: int
+
+
+# the open record, or None: off by default, and then a call pays one test
+_RECORD: List[Optional[List[Issued]]] = [None]
+_RANKS: Dict[Any, Tuple[int, ...]] = {}
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every collective issued in the block, on every backend
+    (``hlo_analysis.parse_collectives`` reads the list): yields the list
+    of ``Issued``, in the order issued.  The previous record, if any,
+    comes back on exit."""
+    prev = _RECORD[0]
+    _RECORD[0] = out = []
+    try:
+        yield out
+    finally:
+        _RECORD[0] = prev
+
+
+def _ranks(g: AxisGroup) -> Tuple[int, ...]:
+    key = ("world", g.size) if g.group is None else g.group
+    if key not in _RANKS:
+        _RANKS[key] = tuple(
+            range(g.size) if g.group is None     # the world
+            else dist.get_process_group_ranks(g.group))
+    return _RANKS[key]
+
+
+def _note(op: str, g: AxisGroup, numel: int, x: torch.Tensor) -> None:
+    """Add the call to the open record (``numel``: the per-device
+    output's elements, of ``x``'s dtype)."""
+    if _RECORD[0] is not None:
+        _RECORD[0].append(Issued(op, g.axis, g.size, _ranks(g),
+                                 numel * x.element_size()))
+
+
 # Staging (a gloo group on the card): gloo moves host memory, so a CUDA
 # tensor goes through two host buffers that are kept and reused (pinned
 # where there is a card: the copies run at the bus's rate, and gloo
@@ -327,6 +384,7 @@ def all_reduce(x: torch.Tensor, g: AxisGroup,
     """Sum (or, with ``op="max"``, the maximum of) ``x`` over the group,
     in place; returns ``x``."""
     _count(all_reduce, g)
+    _note("all-reduce", g, x.numel(), x)
     if not g.moves:
         return x
     rop = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
@@ -344,6 +402,7 @@ def all_gather(x: torch.Tensor, g: AxisGroup, dim: int = 0) -> torch.Tensor:
     """The group's ``x`` concatenated along ``dim`` in rank order (every
     rank's ``x`` has the same shape)."""
     _count(all_gather, g)
+    _note("all-gather", g, x.numel() * g.size, x)
     if not g.moves:
         return x.clone()
     dim = dim % x.dim()
@@ -366,6 +425,7 @@ def reduce_scatter(x: torch.Tensor, g: AxisGroup,
     of the group's sum of ``x``; ``x.shape[dim]`` must divide by the
     group size.  A new tensor."""
     _count(reduce_scatter, g)
+    _note("reduce-scatter", g, x.numel() // g.size, x)
     if not g.moves:
         return x.clone()
     dim = dim % x.dim()
@@ -387,6 +447,7 @@ def all_to_all(x: torch.Tensor, g: AxisGroup) -> torch.Tensor:
     q, and block q of the result came from rank q (the reference's
     ``jax.lax.all_to_all(x, axis, 0, 0, tiled=False)``).  A new tensor."""
     _count(all_to_all, g)
+    _note("all-to-all", g, x.numel(), x)
     if x.shape[0] != g.size:
         raise ValueError(f"all_to_all: dim 0 of {tuple(x.shape)} is not "
                          f"the group size {g.size}")
@@ -675,17 +736,22 @@ def tp_exit(y: torch.Tensor, tp: Optional[AxisGroup], *, train: bool,
     return scatter_seq(y, tp) if sp else reduce_from_tp(y, tp)
 
 
-def fsdp_gather_tree(tree, prefix: str, gathers: Dict[str, tuple]):
+def fsdp_gather_tree(tree, prefix: str, gathers: Dict[str, tuple],
+                     slices: Optional[Dict[str, tuple]] = None):
     """``tree`` (the leaves at ``prefix``, the paths of
     ``tree.named_leaves``) with each leaf's data-sharded dimensions
     gathered (``gathers``: {path: ((dim, AxisGroup), ...)}, a
-    ``TrainPlan``'s)."""
+    ``TrainPlan``'s), then cut to ``slices`` ({path: (dim, start,
+    width)}: a rank's KV head where tp exceeds the KV heads, the plan's
+    ``kv_slices``)."""
     if isinstance(tree, dict):
-        return {k: fsdp_gather_tree(v, f"{prefix}/{k}", gathers)
+        return {k: fsdp_gather_tree(v, f"{prefix}/{k}", gathers, slices)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [fsdp_gather_tree(v, f"{prefix}/{i}", gathers)
+        return [fsdp_gather_tree(v, f"{prefix}/{i}", gathers, slices)
                 for i, v in enumerate(tree)]
     for dim, g in gathers.get(prefix, ()):
         tree = fsdp_gather(tree, g, dim)
+    if slices and prefix in slices:
+        tree = tree.narrow(*slices[prefix])
     return tree

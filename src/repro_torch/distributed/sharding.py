@@ -59,6 +59,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.distributed import collectives as C
 
@@ -164,13 +165,45 @@ def make_serving_rules(*, tp: bool = False) -> ShardingRules:
         moe_ep=False)
 
 
+def kv_group(cfg, tp: int) -> int:
+    """Ranks of a ``tp``-way "model" axis that share one KV head: tp /
+    n_kv_heads where tp is a multiple of n_kv_heads above it and divides
+    n_heads (the reference's ``resolve_spec`` leaves such a cache's KV
+    heads whole, and each query head still attends its group's), 1
+    otherwise.  Rank r then computes query heads r hq_l ... (r + 1) hq_l
+    - 1 (hq_l = n_heads / tp) on the one KV head of their group,
+    ``kv_head(cfg, tp, r)``."""
+    tp, n_kv = int(tp), cfg.n_kv_heads
+    if tp > n_kv and tp % n_kv == 0 and cfg.n_heads % tp == 0:
+        return tp // n_kv
+    return 1
+
+
+def kv_head(cfg, tp: int, rank: int) -> int:
+    """The KV head that rank ``rank`` of a ``tp``-way "model" axis
+    computes with: floor(rank hq_l / (n_heads / n_kv_heads)), where
+    ``kv_group`` is above 1."""
+    return rank // kv_group(cfg, tp)
+
+
+def kv_rules(rules: ShardingRules) -> ShardingRules:
+    """``rules`` with the KV weights whole over "model": where tp exceeds
+    the KV heads (``kv_group``) each rank takes its head's slice of the
+    whole leaf (the reference's ``resolve_spec`` would split their
+    columns over "model", a quarter head a rank at yi_6b's tp 16, and
+    let GSPMD gather them)."""
+    return dataclasses.replace(rules, kv_heads=None)
+
+
 def serving_tp_issues(cfg, tp: int) -> list:
     """Names of the logical weight axes whose dims do NOT divide a
     ``tp``-way "model" axis (empty: ``cfg`` shards cleanly).  Shared by
     ``launch.mesh.make_serving_mesh`` (an up-front ``ValueError`` naming
-    the axis) and ``inference.engine.Engine`` (the fallback to
-    replicated weights).  vocab is not checked: a vocab that does not
-    divide leaves the embedding and the head replicated."""
+    the axis), ``inference.engine.Engine`` (the fallback to replicated
+    weights) and ``make_train_plan``.  KV heads pass where tp divides
+    them or is a multiple of them that divides the query heads
+    (``kv_group``).  vocab is not checked: a vocab that does not divide
+    leaves the embedding and the head replicated."""
     tp = int(tp)
     if tp <= 1:
         return []
@@ -178,8 +211,9 @@ def serving_tp_issues(cfg, tp: int) -> list:
     if cfg.n_heads % tp:
         issues.append(f'heads (n_heads={cfg.n_heads} % tp={tp} != 0)')
     n_kv = getattr(cfg, "n_kv_heads", None) or cfg.n_heads
-    if n_kv % tp:
-        issues.append(f'kv_heads (n_kv_heads={n_kv} % tp={tp} != 0)')
+    if n_kv % tp and tp % n_kv:
+        issues.append(f'kv_heads (n_kv_heads={n_kv} and tp={tp}: neither '
+                      f'divides the other)')
     if cfg.d_ff % tp:
         issues.append(f'mlp (d_ff={cfg.d_ff} % tp={tp} != 0)')
     moe = getattr(cfg, "moe", None)
@@ -206,16 +240,32 @@ def tp_unsupported(cfg) -> Optional[str]:
     return None
 
 
+def refuse_tp(cfg, tp: int, what: str, instead: str) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP's "Distribution" when
+    ``what`` ("serving", "training") of ``cfg`` at ``tp`` > 1 needs a
+    tensor-parallel form its layers lack (``tp_unsupported``);
+    ``instead`` says what runs."""
+    why = tp_unsupported(cfg)
+    if int(tp) > 1 and why is not None:
+        raise NotImplementedError(
+            f"{what} {cfg.name} at tp={tp}: its {why} have no "
+            f"tensor-parallel form in the port (ROADMAP Queue 1, "
+            f"\"Distribution\"); {instead}")
+
+
 def shard_config(cfg, tp: int):
     """The geometry one rank of a ``tp``-way "model" axis computes:
     n_heads / tp query heads and n_kv_heads / tp KV heads (so the GQA
-    group G is unchanged), d_ff / tp, head_dim made explicit.  An MoE
-    keeps routing over all its experts: a layer reads its local experts
-    off its weights (``models/moe.py``).  tp 1 returns ``cfg``."""
+    group G is unchanged), or one KV head where tp exceeds them
+    (``kv_group``: G is n_heads / tp), d_ff / tp, head_dim made
+    explicit.  An MoE keeps routing over all its experts: a layer reads
+    its local experts off its weights (``models/moe.py``).  tp 1 returns
+    ``cfg``."""
     if tp == 1:
         return cfg
+    n_kv = cfg.n_kv_heads // tp if kv_group(cfg, tp) == 1 else 1
     return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
-                               n_kv_heads=cfg.n_kv_heads // tp,
+                               n_kv_heads=n_kv,
                                d_ff=cfg.d_ff // tp,
                                head_dim=cfg.resolved_head_dim)
 
@@ -387,14 +437,24 @@ def _as_tensor(x) -> torch.Tensor:
 
 
 def shard_put(x, *logical, mesh, rules: ShardingRules,
-              device=None) -> torch.Tensor:
+              device=None, kv_head: Optional[Tuple[int, int]] = None
+              ) -> torch.Tensor:
     """This rank's shard of one array, sliced before it moves to
-    ``device`` (contiguous there, and never a view of the whole)."""
+    ``device`` (contiguous there, and never a view of the whole).
+    ``kv_head`` (index, width): each "kv_heads" dimension is cut to that
+    head's ``width`` entries (a rank's KV head where tp exceeds them,
+    under ``kv_rules``)."""
     x = _as_tensor(x)
     spec = resolve_spec(tuple(x.shape), tuple(logical), rules=rules,
                         mesh=mesh)
-    out = local_shard(x, spec, mesh).to(device).contiguous()
-    if any(a is not None for a in spec) and (
+    out = local_shard(x, spec, mesh)
+    if kv_head is not None:
+        for dim, name in enumerate(logical):
+            if name == "kv_heads":
+                out = out.narrow(dim, kv_head[0] * kv_head[1], kv_head[1])
+    out = out.to(device).contiguous()
+    cut = kv_head is not None or any(a is not None for a in spec)
+    if cut and not is_fake(out) and (
             out.untyped_storage().data_ptr()
             == x.untyped_storage().data_ptr()):
         out = out.clone()         # a shard must not keep the whole alive
@@ -402,11 +462,11 @@ def shard_put(x, *logical, mesh, rules: ShardingRules,
 
 
 def shard_put_tree(tree, logical_tree, mesh, rules: ShardingRules,
-                   device=None):
+                   device=None, kv_head: Optional[Tuple[int, int]] = None):
     """``shard_put`` over a tree of arrays and its parallel logical-spec
     tree."""
     return _map2(lambda x, log: shard_put(x, *log, mesh=mesh, rules=rules,
-                                          device=device),
+                                          device=device, kv_head=kv_head),
                  tree, logical_tree)
 
 
@@ -473,8 +533,14 @@ class TrainPlan:
     reduce-scatter covered (``buckets``: norms, biases, the predictor's
     square matrices, a dimension that does not divide); under sequence
     parallelism the norms' gradients are summed over "model" too
-    (``norms``: their rows were sequence shards).  Every rank then holds
-    the matching shard of the unsharded gradient.
+    (``norms``: their rows were sequence shards).  Where tp exceeds the
+    KV heads (``kv_group``) the KV leaves are whole over "model" (the
+    plan resolves them under ``kv_rules``), each rank computes with its
+    head's slice (``kv_slices``: {path: (dim, start, width)}, taken
+    after the FSDP gather) and feeds only that slice, so their gradients
+    are summed over "model" a step: each head's is the sum over the
+    ranks that share it.  Every rank then holds the matching shard of
+    the unsharded gradient.
 
     Mixture of experts: where the reference's EP gate holds (``ep``, the
     "model" group; ``ep_active``), ``run_flags`` gives an MoE layer the
@@ -501,6 +567,8 @@ class TrainPlan:
     replicas: Dict[str, int]
     frozen: Tuple[str, ...]
     routers: List[str] = dataclasses.field(default_factory=list)
+    kv_slices: Dict[str, Tuple[int, int, int]] = dataclasses.field(
+        default_factory=dict)
     ep: Optional[C.AxisGroup] = None
     batch_ranks: int = 1
     # under EP, the router term's factor in the metrics' mean: the data
@@ -566,8 +634,8 @@ class TrainPlan:
                      sp: bool) -> None:
         """The step's gradient reductions, in place on ``grads`` ({path:
         gradient}): one all-reduce (a mean) over each bucket's batch axes,
-        and one (a sum) over "model" of the routers' and, with ``sp``, the
-        norms'."""
+        and one (a sum) over "model" of the routers', the shared KV
+        leaves' and, with ``sp``, the norms'."""
         def flat(paths, g, mean):
             if not paths:
                 return
@@ -582,7 +650,8 @@ class TrainPlan:
                 i += n
         for g, paths in self.buckets:
             flat(paths, g, True)
-        flat((self.norms if sp else []) + self.routers, self.tp, False)
+        flat((self.norms if sp else []) + self.routers
+             + list(self.kv_slices), self.tp, False)
 
     def reduce_metrics(self, metrics: Dict[str, torch.Tensor],
                        ep: bool = False) -> Dict[str, torch.Tensor]:
@@ -666,8 +735,9 @@ class TrainPlan:
                 # where the down-projection's partial sums were
                 add("all-reduce", "model",
                     mb * (n_layers * (4 + m + r * (1 + m)) - n_ep + 2))
-            if self.seq_parallel(seq_len) or self.routers:
-                add("all-reduce", "model", 1)   # the norms' and routers'
+            if self.seq_parallel(seq_len) or self.routers or self.kv_slices:
+                # the norms', routers' and shared KV leaves'
+                add("all-reduce", "model", 1)
             add("all-reduce", "model", mb * 2)           # vocab-parallel CE
         if self.batch is not None:
             add("all-reduce", self.batch.axis, mb * mask + 1)
@@ -687,7 +757,9 @@ def make_train_plan(cfg, mesh, rules: Optional[ShardingRules] = None
     batch rows, MLA, RWKV6, Mamba and cross-attention archs raise
     ``NotImplementedError`` naming "Distribution", and heads, KV heads,
     d_ff or a vocab that the axis does not divide raise ``ValueError``;
-    on a "model" axis of one such archs take no "model" role at all.  An
+    on a "model" axis of one such archs take no "model" role at all.  A
+    tp above the KV heads that is a multiple of them (``kv_group``)
+    keeps the KV leaves whole over "model" (``TrainPlan.kv_slices``).  An
     MoE arch takes the expert-parallel dispatch (``TrainPlan.ep``) on a
     "model" axis above 1 that divides E under ``rules.moe_ep``, whether
     "model" is tensor-parallel or a batch axis."""
@@ -702,12 +774,8 @@ def make_train_plan(cfg, mesh, rules: Optional[ShardingRules] = None
     tp_n = sizes["model"] if tp_axis else 1
     why = tp_unsupported(cfg)
     if tp_n > 1:
-        if why is not None:
-            raise NotImplementedError(
-                f"training {cfg.name} at tp={tp_n}: its {why} have no "
-                f"tensor-parallel form in the port (ROADMAP Queue 1, "
-                f"\"Distribution\"); train it with make_rules(tp=False) or "
-                f"on a \"model\" axis of 1")
+        refuse_tp(cfg, tp_n, "training", "train it with make_rules(tp=False) "
+                  "or on a \"model\" axis of 1")
         issues = serving_tp_issues(cfg, tp_n)
         if cfg.vocab % tp_n:
             issues.append(f"vocab ({cfg.vocab} % tp={tp_n} != 0)")
@@ -715,14 +783,21 @@ def make_train_plan(cfg, mesh, rules: Optional[ShardingRules] = None
             raise ValueError(f"tp={tp_n} does not divide arch {cfg.name!r} "
                              f"on axis " + "; ".join(issues))
     tp = C.axis_group(mesh, "model") if tp_axis and why is None else None
+    shared = kv_group(cfg, tp.size) if tp is not None else 1
+    if shared > 1:
+        rules = kv_rules(rules)
     meta = init_model(0, cfg, device="meta")
     logical = _flat_specs(meta, model_param_specs(cfg))
     resolved = _flat_specs(meta, tree_specs(meta, model_param_specs(cfg),
                                             rules, mesh))
     world = C.world_group(mesh)
-    gathers, replicas, norms = {}, {}, []
+    gathers, replicas, norms, kv_slices = {}, {}, [], {}
     bucket: Dict[tuple, List[str]] = {}
+    hd = cfg.resolved_head_dim
     for path, spec in resolved.items():
+        if shared > 1 and "kv_heads" in logical[path]:
+            kv_slices[path] = (tuple(logical[path]).index("kv_heads"),
+                               kv_head(cfg, tp.size, tp.rank) * hd, hd)
         dims, shard = [], 1
         for d, ax in enumerate(spec):
             t = _axes(ax)
@@ -768,6 +843,7 @@ def make_train_plan(cfg, mesh, rules: Optional[ShardingRules] = None
         frozen=tuple(p for p in resolved if is_frozen(p)),
         routers=[p for p in resolved if p.endswith("/mlp/router")]
         if tp is not None else [],
+        kv_slices=kv_slices,
         ep=ep, batch_ranks=int(np.prod([sizes.get(a, 1)
                                         for a in _axes(rules.batch)])),
         aux_scale=aux_scale)

@@ -110,12 +110,12 @@ import torch.distributed as dist
 from repro_torch.configs.base import ArchConfig, is_recurrent
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import (make_serving_rules,
-                                              mesh_axis_sizes,
+from repro_torch.distributed.sharding import (kv_group, kv_head, kv_rules,
+                                              make_serving_rules,
+                                              mesh_axis_sizes, refuse_tp,
                                               replicate_put,
                                               serving_tp_issues,
                                               shard_config, shard_put_tree,
-                                              tp_unsupported,
                                               tree_bytes)
 from repro_torch.inference.config import ServingConfig, resolve_config
 from repro_torch.inference.graphs import DecodeGraphs, step_key
@@ -308,8 +308,10 @@ class Engine:
         ``tp`` divides.  An indivisible tp falls back to replicated
         weights (``tp`` 1, no "model" collective), as the reference's
         engine does; an arch with no tensor-parallel form raises at tp >
-        1.  At tp 1 on a ("data", "model") mesh the sharded path runs
-        with every collective, over groups of one.
+        1, unless ``shard_rules`` shard nothing over "model" (then every
+        rank of a "model" group computes the same rows whole).  At tp 1
+        on a ("data", "model") mesh the sharded path runs with every
+        collective, over groups of one.
 
         ``params`` is the weight tree, or a callable that draws it and
         hands each piece to the ``place`` it is given (``init_model``'s
@@ -334,12 +336,6 @@ class Engine:
             return
         sizes = mesh_axis_sizes(c.mesh)
         tp = sizes.get("model", 1)
-        why = tp_unsupported(cfg)
-        if tp > 1 and why is not None:
-            raise NotImplementedError(
-                f"tp={tp}: {cfg.name}'s {why} have no tensor-parallel form "
-                f"in the port (ROADMAP Queue 1, \"Distribution\"); serve "
-                f"it on a dp-only mesh")
         tp_ok = "model" in sizes and not serving_tp_issues(cfg, tp)
         rules = (c.shard_rules if c.shard_rules is not None else
                  make_serving_rules(tp=tp_ok))
@@ -350,10 +346,22 @@ class Engine:
                 f"shard_rules heads={rules.heads!r}, kv_heads="
                 f"{rules.kv_heads!r}, mlp={rules.mlp!r}: the port shards "
                 f"all three over \"model\" or none")
+        if c.shard_rules is None or split == {"model"}:
+            # rules that shard nothing over "model" serve any arch
+            refuse_tp(cfg, tp, "serving", "serve it on a dp-only mesh")
         if tp_ok and split == {"model"}:
+            # where tp exceeds the KV heads, this rank keeps its head's
+            # slice of the KV weights (``kv_group``)
+            kv = None
+            if kv_group(cfg, tp) > 1:
+                rank = C.axis_group(c.mesh, "model").rank
+                kv = (kv_head(cfg, tp, rank), cfg.resolved_head_dim)
+
             def place(piece, specs):
-                return shard_put_tree(piece, specs, c.mesh, rules,
-                                      device=self.device)
+                return shard_put_tree(
+                    piece, specs, c.mesh,
+                    rules if kv is None else kv_rules(rules),
+                    device=self.device, kv_head=kv)
             self.tp = tp
             self.mcfg = shard_config(cfg, tp)
             self._tp = C.axis_group(c.mesh, "model")

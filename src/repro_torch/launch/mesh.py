@@ -35,8 +35,7 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import (serving_tp_issues,
-                                              tp_unsupported)
+from repro_torch.distributed.sharding import refuse_tp, serving_tp_issues
 
 BACKENDS = ("nccl", "gloo")
 
@@ -134,12 +133,7 @@ def make_serving_mesh(dp: int = 0, tp: int = 1, cfg=None):
     spans every process: dp x tp must be the world size."""
     tp = max(1, int(tp))
     if cfg is not None and tp > 1:
-        why = tp_unsupported(cfg)
-        if why is not None:
-            raise NotImplementedError(
-                f"tp={tp}: {cfg.name}'s {why} have no tensor-parallel form "
-                f"in the port (ROADMAP Queue 1, \"Distribution\"); serve "
-                f"it dp-only (replicated weights)")
+        refuse_tp(cfg, tp, "serving", "serve it dp-only (replicated weights)")
         issues = serving_tp_issues(cfg, tp)
         if issues:
             raise ValueError(

@@ -356,8 +356,8 @@ def forward_train(params, cfg: ArchConfig, flags: RunFlags,
         # a layer: its data-sharded leaves gathered inside the remat
         # region, so the recompute gathers again and none is saved
         body = fn if plan is None else (
-            lambda lp, *a: fn(C.fsdp_gather_tree(lp, prefix, plan.gathers),
-                              *a))
+            lambda lp, *a: fn(C.fsdp_gather_tree(lp, prefix, plan.gathers,
+                                                 plan.kv_slices), *a))
         if remat and torch.is_grad_enabled():
             return checkpoint(body, lp, *args, **ckpt)
         return body(lp, *args)

@@ -185,6 +185,17 @@ def accumulate_grads(params, cfg: ArchConfig, flags: RunFlags, batch,
         for k, v in m.items():
             v = v.detach()
             m_sum[k] = m_sum[k] + v if k in m_sum else v
+    return finish_grads(params, m_sum, microbatches, plan, flags)
+
+
+def finish_grads(params, m_sum: Dict[str, torch.Tensor], microbatches: int,
+                 plan: Optional[TrainPlan] = None,
+                 flags: Optional[RunFlags] = None):
+    """``accumulate_grads``'s per-step tail: the params' ``.grad`` (zeros
+    where a leaf took none) taken off and divided by the microbatch
+    count, the metric sums ``m_sum`` divided likewise, and on a mesh
+    (``plan``, with the ``flags`` its ``run_flags`` gave) the gradient and
+    metric reductions.  Returns (grads, metrics)."""
     metrics = {k: v / microbatches for k, v in m_sum.items()}
 
     def take(p):

@@ -10,12 +10,14 @@ never import JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import get_config, reduced
+from repro_torch.convert import from_reference
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as TS
 from repro_torch.inference.engine import Engine
@@ -337,22 +339,41 @@ def dp_tp_scenarios(rank, ref=None):
     s.run(requests(cfg.vocab, [(9, 2), (41, 4)], seed=6))
     out["compiles"] = (first, tel.compile_count("segment"))
 
+    # tp 4 above reduced yi_6b's 2 KV heads: each rank one query head on
+    # the one KV head of its group
     ycfg, yparams = model("yi_6b")
+    kv_mesh = make_serving_mesh(dp=1, tp=4, cfg=ycfg)
+    out["kv_generate"], eng = generate_both(ycfg, yparams, kv_mesh,
+                                            n_new=10)
+    attn = eng.params["groups"][0]["b0"]["attn"]
+    out["kv_weights"] = (eng.tp, eng.mcfg.n_heads, eng.mcfg.n_kv_heads,
+                         tuple(attn["wk"].shape), torch.equal(
+                             attn["wk"], yparams["groups"][0]["b0"]["attn"]
+                             ["wk"][:, rank // 2 * 16:(rank // 2 + 1) * 16]))
+    p, s = pair(ycfg, yparams, kv_mesh)
+    out["kv_continuous"] = both(p, s, lambda: requests(
+        ycfg.vocab, [(20, 6), (33, 9), (14, 4), (27, 8)], seed=43))
+    # 2 query heads on 2 KV heads: tp 4 divides neither
+    fcfg = dataclasses.replace(ycfg, n_heads=2, n_kv_heads=2, head_dim=32)
+    fparams = init_model(0, fcfg, **DEV)
     fallback = make_serving_mesh(dp=1, tp=4)      # no cfg: not validated
-    out["fallback"] = generate_both(ycfg, yparams, fallback, n_new=10)[0]
-    eng = Engine(ycfg, yparams, max_len=MAX_LEN, mesh=fallback, **DEV)
+    out["fallback"] = generate_both(fcfg, fparams, fallback, n_new=10)[0]
+    eng = Engine(fcfg, fparams, max_len=MAX_LEN, mesh=fallback, **DEV)
     out["fallback_weights"] = (
         eng.tp, eng.weight_bytes_per_device(),
-        sum(t.numel() * t.element_size() for t in _leaves(yparams)))
+        sum(t.numel() * t.element_size() for t in _leaves(fparams)))
     if ref is not None:
         out["reference"] = _reference(ref, mesh)
+        eng = Engine(ycfg, from_reference(ref["kv_params"], device="cpu"),
+                     max_len=MAX_LEN, mesh=kv_mesh, **DEV)
+        out["reference_kv"] = (eng.tp, eng.generate(
+            ref["prompts"], ref["n_new"], seed=5).tokens)
     return out
 
 
 def _reference(ref, mesh):
     """The port at dp 2 x tp 2 on the reference's weights (numpy, through
     ``repro_torch.convert``): static generate and continuous serving."""
-    from repro_torch.convert import from_reference
     cfg = reduced(get_config(ref["arch"]))
     params = from_reference(ref["params"], device="cpu")
     eng = Engine(cfg, params, max_len=MAX_LEN, mesh=mesh, **DEV)

@@ -14,6 +14,7 @@ the spawned ranks never import JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 
@@ -21,7 +22,8 @@ import torch
 
 from repro_torch import convert
 from repro_torch.checkpoint import checkpoint as CK
-from repro_torch.configs.base import cut_layers, get_config, reduced
+from repro_torch.configs.base import (ShapeConfig, cut_layers, get_config,
+                                      reduced)
 from repro_torch.data.synthetic import DataConfig, lm_batches
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.fault_tolerance import elastic_mesh
@@ -37,6 +39,7 @@ SEQ = 64
 BATCH = 8
 STEPS = 3
 OPT = adamw.OptConfig(lr=3e-4, total_steps=10, warmup_steps=1)
+DRYRUN_SHAPE = ShapeConfig("train_64", SEQ, BATCH, "train")
 
 
 def cfg_of(arch, layers=0, remat=False):
@@ -211,6 +214,11 @@ def four(rank, ref_params, ckpt_dir):
     out["dp2xtp2"] = compare(plain, yi, 1, m22, make_rules())
     out["multipod"] = compare(plain, yi, 1, mesh_of((2, 1, 2)),
                               make_rules(multi_pod=True))
+    # tp 4 above the 2 KV heads: the KV leaves whole over "model", each
+    # rank's head sliced, their gradients summed over "model"
+    out["tp4_kv"] = compare(plain, yi, 1, mesh_of((1, 4)), make_rules())
+    out["tp4_kv_slices"] = ST.make_train_step(
+        yi, OPT, mesh=mesh_of((1, 4)), rules=make_rules()).plan.kv_slices
     for layers in (1, 2):
         for remat in (False, True):
             cfg = cfg_of("yi_6b", layers, remat)
@@ -227,6 +235,15 @@ def four(rank, ref_params, ckpt_dir):
                             "step": 0}, plan)
     out["reference"] = train_run(yi, 1, m22, make_rules(),
                                  state=state)["metrics"]
+    m14 = mesh_of((1, 4))
+    plan = ST.make_train_step(yi, OPT, mesh=m14, rules=make_rules()).plan
+    whole = convert.from_reference(ref_params, device="cpu")
+    for path, p in named_leaves(whole):
+        p.requires_grad_(not adamw.is_frozen(path))
+    state = CK.shard_state({"params": whole, "opt": adamw.init(OPT, whole),
+                            "step": 0}, plan)
+    out["reference_tp4"] = train_run(yi, 1, m14, make_rules(),
+                                     state=state)["metrics"]
     # elastic checkpoints: save at step 2 on (2, 2), resume on (4, 1)
     state, _ = ST.init_train_state(SEED, yi, OPT, device="cpu", mesh=m22,
                                    rules=make_rules())
@@ -299,8 +316,65 @@ def one(rank, ckpt_dir):
     return out
 
 
+@contextlib.contextmanager
+def _backend_unseen():
+    """The process group's own calls run with the dispatch modes off: gloo
+    stages a gathered or scattered tensor through copies of its own
+    (aten ``copy_``), which NCCL does not make and the fake backend of
+    the dry run does not either."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    dist = torch.distributed
+
+    def hidden(fn):
+        def call(*a, **k):
+            with _disable_current_modes():
+                return fn(*a, **k)
+        return call
+
+    names = ("all_reduce", "reduce_scatter_tensor", "all_to_all_single")
+    saved = {n: getattr(dist, n) for n in names}
+    flat = C._gather_flat
+    try:
+        for n in names:
+            setattr(dist, n, hidden(saved[n]))
+        C._gather_flat = hidden(flat)
+        yield
+    finally:
+        for n in names:
+            setattr(dist, n, saved[n])
+        C._gather_flat = flat
+
+
+def dryrun_real(rank):
+    """The dry run's counters (``launch.dryrun.counted``) over one real
+    train step of reduced yi_6b at (2, 2) under ``make_rules()``, 2
+    microbatches of the dry run's own batch (``dryrun._train_batch``):
+    FLOPs, bytes, the recorded collectives, the counters and the
+    budget, and the bytes of this rank's params and moments."""
+    from repro_torch.launch import dryrun as DR
+    yi = cfg_of("yi_6b")
+    mesh, rules = mesh_of((2, 2)), make_rules()
+    state, _ = ST.init_train_state(SEED, yi, OPT, device="cpu", mesh=mesh,
+                                   rules=rules)
+    step = ST.make_train_step(yi, OPT, ST.default_flags(yi),
+                              microbatches=2, mesh=mesh, rules=rules)
+    batch = DR._train_batch(yi, DRYRUN_SHAPE, BATCH)
+    before = C.snapshot()
+    with _backend_unseen(), DR.counted((state, batch)) as res:
+        step(state, batch)
+    return dict(flops=res["flops"], bytes=res["bytes"], peak=res["peak"],
+                colls=[dataclasses.astuple(r) for r in res["colls"]],
+                counts=C.count_by_axis(before),
+                budget=step.plan.collective_budget(
+                    2, seq_len=SEQ, remat=yi.remat, mse=True),
+                state_bytes=tree_bytes(state["params"])
+                + tree_bytes(state["opt"]["m"])
+                + tree_bytes(state["opt"]["v"]))
+
+
 def run(rank, name, *args):
-    return {"two": two, "four": four, "one": one}[name](rank, *args)
+    return {"two": two, "four": four, "one": one,
+            "dryrun": dryrun_real}[name](rank, *args)
 
 
 # -- on the card (tests/test_torch_cuda.py, ``cuda`` marker) -------------------

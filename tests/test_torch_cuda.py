@@ -196,13 +196,13 @@ def test_cuda_k2_blocks_and_masks_match_plain(cuda_device, bq, bk, causal,
     _check_k2(args, causal=causal, block_q=bq, block_k=bk, window=window)
 
 
-def _k2_window_inputs(dev, dtype, g, hd, blk, l, seed):
+def _k2_window_inputs(dev, dtype, g, hd, blk, l, seed, hkv=2):
     """q, k and v in ``dtype`` as (B,H,L,hd) views of model-layout
-    tensors, two KV heads, 4 random distinct key blocks per query block
+    tensors, ``hkv`` KV heads, 4 random distinct key blocks per query block
     (some behind the window, some above the diagonal), the diagonal
     block among them, about a fifth valid = 0 off the diagonal."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    b, hkv, nb = 2, 2, 4
+    b, nb = 2, 4
     n = l // blk
 
     def view(h):
@@ -2178,8 +2178,24 @@ def test_cuda_k1_yi_tp2_shard_geometry(cuda_device, qdt, cdt):
     """K1 at one tp-2 shard of yi_6b: 16 query heads on 2 KV heads (G 8,
     as unsharded), hd 128, 4224 cache rows, ragged kv_len and an ok = 0
     block, against its plain version."""
+    _k1_shard(cuda_device, qdt, cdt, hkv=2, g=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,cdt", [(torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32)],
+                         ids=["bf16-f32", "bf16-bf16", "f32-f32"])
+def test_cuda_k1_yi_tp16_rank_geometry(cuda_device, qdt, cdt):
+    """K1 at one rank of yi_6b at tp 16, above its 4 KV heads: 2 query
+    heads on the one KV head of their group (G 2), otherwise as the tp-2
+    case."""
+    _k1_shard(cuda_device, qdt, cdt, hkv=1, g=2)
+
+
+def _k1_shard(cuda_device, qdt, cdt, hkv, g):
     gen = torch.Generator(device=cuda_device).manual_seed(131)
-    b, hkv, g, hd, s, bk, nb = 4, 2, 8, 128, 4224, 128, 6
+    b, hd, s, bk, nb = 4, 128, 4224, 128, 6
     q = torch.randn((b, hkv * g, 1, hd), generator=gen,
                     device=cuda_device).to(qdt)
     kc, vc = (torch.randn((b, s, hkv, hd), generator=gen,
@@ -2210,6 +2226,23 @@ def test_cuda_k2_yi_tp2_shard_geometry(cuda_device, dtype):
     diagonal block among 4 selected."""
     args = _k2_window_inputs(cuda_device, dtype, 8, 128, 128, 2048,
                              seed=137)
+    kw = dict(block_q=128, block_k=128, causal=True)
+    got = K2.dsa_block_sparse_attention(*args, **kw)
+    want = K2.dsa_block_sparse_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_k2_yi_tp16_rank_geometry(cuda_device, dtype):
+    """K2 at one rank of yi_6b's prefill at tp 16: 2 query heads on the
+    one KV head of their group (G 2), hd 128, block 128, L 2048."""
+    args = _k2_window_inputs(cuda_device, dtype, 2, 128, 128, 2048,
+                             seed=139, hkv=1)
     kw = dict(block_q=128, block_k=128, causal=True)
     got = K2.dsa_block_sparse_attention(*args, **kw)
     want = K2.dsa_block_sparse_attention_plain(*args, **kw)

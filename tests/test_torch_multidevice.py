@@ -121,10 +121,19 @@ reqs = [Request(rid, rng.integers(1, cfg.vocab - 4, size=(n,)).astype(
 cont = ContinuousEngine(cfg, params, slots=8, max_len=96, seg_len=4,
                         mesh=mesh).run(reqs)
 out["cont"] = {str(k): np.asarray(v).tolist() for k, v in cont.items()}
+# tp 4 above reduced yi_6b's 2 KV heads on a (1, 4) mesh of Auto axes
+kcfg = reduced(get_config(spec["kv_arch"]))
+kparams, _ = init_model(jax.random.PRNGKey(spec["key"]), kcfg)
+kmesh = jax.make_mesh((1, 4), ("data", "model"),
+                      axis_types=(jax.sharding.AxisType.Auto,) * 2)
+eng = Engine(kcfg, kparams, max_len=96, mesh=kmesh)
+out["kv_tp"] = eng.tp
+out["kv_gen"] = np.asarray(eng.generate(prompts, spec["n_new"], seed=5)
+                           .tokens).tolist()
 print(json.dumps(out))
 """
 
-REF = dict(arch="stablelm_3b", key=0, n_new=12, seed=19,
+REF = dict(arch="stablelm_3b", kv_arch="yi_6b", key=0, n_new=12, seed=19,
            shapes=[(20, 5), (33, 9), (7, 1), (40, 12), (12, 6), (25, 3)])
 
 
@@ -136,6 +145,8 @@ def reference():
     params, _ = ref_init_model(jax.random.PRNGKey(REF["key"]), cfg)
     prompts = np.random.default_rng(3).integers(
         1, cfg.vocab - 4, size=(8, 24)).astype(np.int32)
+    kparams, _ = ref_init_model(jax.random.PRNGKey(REF["key"]),
+                                ref_reduced(ref_get_config(REF["kv_arch"])))
     spec = dict(REF, prompts=prompts.tolist())
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=SRC,
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
@@ -144,6 +155,7 @@ def reference():
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
     ref = dict(REF, params=jax.tree.map(np.asarray, params),
+               kv_params=jax.tree.map(np.asarray, kparams),
                prompts=prompts)
     yield proc, ref
     if proc.poll() is None:
@@ -338,19 +350,38 @@ def test_tp_segment_compiles_once(dp_tp):
 
 def test_tp_mesh_divisibility_error():
     """An indivisible tp with a cfg raises a ValueError naming the axis,
-    before any process is asked."""
-    cfg = reduced(get_config("yi_6b"))        # n_kv_heads 2: tp 4 fails
+    before any process is asked: 3 KV heads at tp 4, which neither
+    divides nor is a multiple of them."""
+    cfg = dataclasses.replace(reduced(get_config("yi_6b")), n_heads=12,
+                              n_kv_heads=3)
     with pytest.raises(ValueError, match="kv_heads"):
         make_serving_mesh(dp=2, tp=4, cfg=cfg)
 
 
 def test_tp_indivisible_falls_back_replicated(dp_tp):
-    """A (1, 4) mesh without a cfg on reduced yi_6b (2 KV heads): the
-    engine serves replicated weights (tp 1, every byte on each rank) and
-    gives the unsharded tokens."""
+    """A (1, 4) mesh without a cfg on reduced yi_6b cut to 2 query
+    heads: the engine serves replicated weights (tp 1, every byte on
+    each rank) and gives the unsharded tokens."""
     eng_tp, per_dev, full = dp_tp[0]["fallback_weights"]
     assert eng_tp == 1 and per_dev == full
     for greedy, pair in dp_tp[0]["fallback"].items():
+        np.testing.assert_array_equal(pair[1], pair[0],
+                                      err_msg=f"greedy={greedy}")
+
+
+@pytest.mark.parametrize("case", ["static", "continuous"])
+def test_tp_above_kv_heads_equals_unsharded(dp_tp, case):
+    """tp 4 on reduced yi_6b's 4 query heads and 2 KV heads: each rank
+    computes one query head on its group's KV head (``kv_group`` 2), its
+    slice of the whole KV weights, and the static engine (greedy and
+    sampled) and the continuous engine give the unsharded tokens."""
+    for res in dp_tp:
+        tp, hq, hkv, wk, own_head = res["kv_weights"]
+        assert (tp, hq, hkv, wk, own_head) == (4, 1, 1, (64, 16), True)
+    if case == "continuous":
+        _equal(dp_tp[0]["kv_continuous"])
+        return
+    for greedy, pair in dp_tp[0]["kv_generate"].items():
         np.testing.assert_array_equal(pair[1], pair[0],
                                       err_msg=f"greedy={greedy}")
 
@@ -410,6 +441,20 @@ def test_reference_dp2_tp2_tokens(dp_tp, reference_out):
     for rid, toks in cont.items():
         np.testing.assert_array_equal(toks,
                                       reference_out["cont"][str(rid)])
+
+
+def test_reference_tp_above_kv_heads_tokens(dp_tp, reference_out):
+    """At tp 4 above reduced yi_6b's 2 KV heads, the port's (1, 4)
+    engine (tp 4) on the reference's weights gives the reference's own
+    (1, 4) engine's greedy tokens.  The reference's engine does not
+    shard there: its divisibility check falls back to replicated
+    weights (tp 1), so this holds the port's sharded serving against
+    the reference's unsharded arithmetic on a (1, 4) mesh of Auto axes
+    (its Explicit-axis serving mesh cannot serve at tp > 1, the fault
+    below)."""
+    assert reference_out["kv_tp"] == 1 and dp_tp[0]["reference_kv"][0] == 4
+    np.testing.assert_array_equal(dp_tp[0]["reference_kv"][1],
+                                  np.asarray(reference_out["kv_gen"]))
 
 
 def test_reference_fault_explicit_axis_serving_mesh(reference_out):

@@ -96,27 +96,32 @@ from repro.training import steps as ST
 spec = json.loads(sys.argv[1])
 cfg = reduced(get_config("yi_6b"))
 opt = adamw.OptConfig(**spec["opt"])
-mesh = jax.make_mesh((2, 2), ("data", "model"),
-                     axis_types=(jax.sharding.AxisType.Auto,) * 2)
 rules = make_rules()
 set_rules(rules)
-data = lm_batches(DataConfig(vocab=cfg.vocab, seq_len=spec["seq"],
-                             global_batch=spec["batch"], seed=0))
 out = {}
-with mesh_context(mesh):
-    state, log = ST.init_train_state(jax.random.PRNGKey(spec["key"]), cfg,
-                                     opt)
-    specs = tree_specs(state, log, rules, mesh)
-    out["embed_spec"] = [str(a) for a in specs["params"]["embed"]]
-    state = jax.tree.map(
-        lambda x, s: jax.device_put(x, jax.NamedSharding(mesh, s)),
-        state, specs)
-    step = jax.jit(ST.make_train_step(cfg, opt), in_shardings=(specs, None),
-                   donate_argnums=(0,))
-    out["losses"] = []
-    for _ in range(spec["steps"]):
-        state, m = step(state, next(data))
-        out["losses"].append(float(m["loss"]))
+# (2, 2), then (1, 4): tp 4 above the 2 KV heads, whose weights its
+# resolve_spec splits by columns over "model"
+for shape, key in (((2, 2), ""), ((1, 4), "_1x4")):
+    mesh = jax.make_mesh(shape, ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    data = lm_batches(DataConfig(vocab=cfg.vocab, seq_len=spec["seq"],
+                                 global_batch=spec["batch"], seed=0))
+    with mesh_context(mesh):
+        state, log = ST.init_train_state(jax.random.PRNGKey(spec["key"]),
+                                         cfg, opt)
+        specs = tree_specs(state, log, rules, mesh)
+        out["embed_spec" + key] = [str(a) for a in specs["params"]["embed"]]
+        out["wk_spec" + key] = [str(a) for a in specs["params"]["groups"][
+            "b0"]["attn"]["wk"]]
+        state = jax.tree.map(
+            lambda x, s: jax.device_put(x, jax.NamedSharding(mesh, s)),
+            state, specs)
+        step = jax.jit(ST.make_train_step(cfg, opt),
+                       in_shardings=(specs, None), donate_argnums=(0,))
+        out["losses" + key] = []
+        for _ in range(spec["steps"]):
+            state, m = step(state, next(data))
+            out["losses" + key].append(float(m["loss"]))
 print(json.dumps(out))
 """
 
@@ -472,6 +477,23 @@ def test_multipod_rules_equal_mesh_none(four):
         _budget(res["multipod"]["budget"])
 
 
+def test_tp_above_kv_heads_equals_mesh_none(four):
+    """tp 4 under ``make_rules()`` on reduced yi_6b (4 query heads, 2
+    KV heads): each rank slices its group's KV head out of the whole
+    leaf, and the KV gradients are summed over "model".  Losses, every
+    gradient and the params after one update, the K/V weights
+    included, equal ``mesh=None``, and the counters the budget."""
+    for rank, res in enumerate(four):
+        _check(res["tp4_kv"])
+        _budget(res["tp4_kv"]["budget"])
+        kv = {p: s for p, s in res["tp4_kv_slices"].items()}
+        assert sorted(p.rsplit("/", 1)[1] for p in kv) == ["wk", "wk",
+                                                           "wv", "wv"]
+        assert set(kv.values()) == {(1, rank // 2 * 16, 16)}
+        for p in kv:
+            assert p in res["tp4_kv"]["params"] and p in res["tp4_kv"]["grads"]
+
+
 @pytest.mark.parametrize("layers", [1, 2])
 @pytest.mark.parametrize("remat", [False, True])
 def test_train_collective_budget(four, layers, remat):
@@ -487,6 +509,17 @@ def test_reference_dp2_tp2_losses(four, reference_out):
     assert reference_out["embed_spec"] == ["model", "data"]
     got = [m["loss"] for m in four[0]["reference"]]
     np.testing.assert_allclose(got, reference_out["losses"], rtol=REL)
+
+
+def test_reference_tp_above_kv_heads_losses(four, reference_out):
+    """tp 4 on (1, 4) above reduced yi_6b's 2 KV heads: the port (KV
+    leaves whole over "model", each rank's head sliced) on the
+    reference's weights and batches gives the reference's own sharded
+    losses, whose ``resolve_spec`` splits the KV weights' columns over
+    "model" (a head's half a rank) for GSPMD to gather."""
+    assert reference_out["wk_spec_1x4"][-1] == "model"
+    got = [m["loss"] for m in four[0]["reference_tp4"]]
+    np.testing.assert_allclose(got, reference_out["losses_1x4"], rtol=REL)
 
 
 def test_checkpoint_resumes_on_another_mesh(four):
