@@ -169,7 +169,7 @@ fails:
      shed policy, ``slow_segment`` trips the watchdog, telemetry probing
      every segment gives the plain tokens and a probe leaves every cache
      leaf bitwise, and after ``warmup`` a mixed run captures no graph;
-     (b) full-width yi_6b (16 of its 32 layers, bf16), phase 6's workload, three
+     (b) full-width yi_6b (8 of its 32 layers, bf16), phase 6's workload, three
      plain and three traced runs interleaved on one set of weights:
      goodput, latency, TTFT, K3/K4 launches (K4 once a layer per decode
      and per probe step), the median traced/plain goodput ratio
@@ -199,7 +199,7 @@ fails:
      write and restore seconds; (c) ``repro_torch.launch.train`` trains
      rwkv6_3b at full width (8 of its 32 layers, bf16, 4 x 4096 in 2
      microbatches, 4 steps), no kernel launched, profiled, then its eval
-     step launches K7 once a layer; (d) yi_6b at full width (8 of its 32
+     step launches K7 once a layer; (d) yi_6b at full width (4 of its 32
      layers) with bf16 moments, 4 x 4096 in 2 microbatches (4 if 2 run out of memory),
      4 steps through ``steps.make_train_step``, P unchanged, no kernel,
      profiled.  Each prints its seconds;
@@ -306,7 +306,9 @@ fails:
      against the budget and the NCCL kernels in a profiler trace.
      Phases 12, 13b, 15b-c and 16c-d run at cut depths since phase 21
      joined the run (8, 16, 16 and 8 layers), the token-scan prefill of
-     phase 9 and the checkpoint of 16b since phase 22 did (8 and 2).
+     phase 9 and the checkpoint of 16b since phase 22 did (8 and 2), and
+     12, 15b-c and 16d (with 22b and 24a, which read its run) since
+     phase 25 did (4, 8 and 4).
  22. sharded training (``training.steps.make_train_step(mesh=, rules=)``,
      the reference's ``make_rules`` tables; no kernel: training takes the
      block path): (a) two gloo processes on the card, yi_6b at full width
@@ -319,7 +321,7 @@ fails:
      and every gap printed (the 4-bit predictor turns the products' last
      bits into other levels); the collective counters against the budget
      (gated); each rank's bytes of params, grads and moments against the
-     unsharded figure; (b) yi_6b at 8 layers in bf16 (bf16 moments, remat,
+     unsharded figure; (b) yi_6b at 4 layers in bf16 (bf16 moments, remat,
      4 x 4096 in 2 microbatches: 16d's run) under ``make_rules()`` on
      (2, 1), FSDP over two gloo processes: the median step ms of steps
      2-3, each rank's state bytes against the replicated figure and its
@@ -342,6 +344,23 @@ fails:
      KV head of their group, G 2) served at 4 x 4096 with 32 new tokens,
      without the collectives: K2 once a layer in prefill, K1 once a
      layer a step, whose checks at that geometry run in phase 3.
+ 25. tensor parallelism for cross-attention and RWKV6 (``xtp_phase``),
+     two gloo processes on the card at tp 2, every cross gate at 0.5:
+     (a) whisper_small whole (12 + 12 layers bf16, 4 x 384 and 1500
+     frames, 32 new) and its continuous engine on 8 requests, (b)
+     llama_3_2_vision at one group of 5 (4 x 4096, 1601 image tokens),
+     (c) rwkv6_3b at 4 layers (4 x 4096: K7 on each rank's 20 heads):
+     greedy agreement with the unsharded run on rank 0 (printed), the
+     last-row logit gap with DSA off (gated by ``TP_LOGIT_TOL``), weight
+     bytes a rank, prefill ms, decode tok/s, launches (gated: K2 once a
+     decoder layer a prefill and K1 once a step, K7 once a layer a
+     prefill) and the collectives against the budget (gated); (d) TP 2 +
+     SP training in f32 with DSA off, 2 steps of 2 x 1024 with the second
+     input (whisper at 2 + 2 layers, llama at its group of 5, rwkv6_3b at
+     2): the losses against the unsharded run on rank 0 (gated by
+     ``SHARD_F32_RTOL``) and the counters against the budget (gated).
+     Phase 3 checks K1 and K2 at whisper's and llama's tp-2 ranks and K7
+     at H 20.
 
 It then prints one JSON line of per-kernel results, the card's name and
 power limit again as ``nvidia-smi`` gives them, and as its last line
@@ -1686,9 +1705,10 @@ def train_parity_phase(torch, seed: int) -> dict:
     return {"rel": rel, "params_max_abs": worst, "eval_ce": ce}
 
 
-def train_slice(torch, seed: int, layers: int = 8) -> dict:
+def train_slice(torch, seed: int, layers: int = 4) -> dict:
     """Train stablelm_3b at full width through ``repro_torch.launch.train``:
-    ``layers`` of its 32 layers (8 since phase 21 joined the run) in bf16,
+    ``layers`` of its 32 layers (8 since phase 21 joined the run, 4 since
+    phase 25 did) in bf16,
     DSA on the block path, remat, 4 steps of batch 4 x
     4096 tokens in 2 microbatches.  Every metric finite, P unchanged, no
     kernel launched.  Prints the median step time over steps 2-4,
@@ -2841,9 +2861,14 @@ def _prom_statuses(text: str) -> dict:
     return out
 
 
+# 15b-c's depth: 16 of yi_6b's 32 layers since phase 21 joined the run,
+# 8 since phase 25 did
+LIFECYCLE_LAYERS = 8
+
+
 def lifecycle_slice(torch, seed: int, card: str) -> dict:
-    """15b. yi_6b at full width (16 of its 32 layers since phase 21
-    joined the run, bf16, random weights from
+    """15b. yi_6b at full width (``LIFECYCLE_LAYERS`` of its 32 layers,
+    bf16, random weights from
     ``seed``), phase 6's workload (8 requests, prompts 1152-3670, 16-64
     new, all queued at the start; 4 paged slots, max_len 8192, chunk 512,
     segments of 16, kernel path).  Three runs each of a plain engine
@@ -2876,7 +2901,7 @@ def lifecycle_slice(torch, seed: int, card: str) -> dict:
     from repro_torch.inference.telemetry import Telemetry
     from repro_torch.launch import serve
     from repro_torch.models.transformer import init_model
-    cfg = cut_layers(get_config("yi_6b"), 16)
+    cfg = cut_layers(get_config("yi_6b"), LIFECYCLE_LAYERS)
     nl = cfg.n_layers
     params = init_model(seed, cfg)
     c = ServingConfig(max_len=8192, long_context=True, dsa_mode="kernel",
@@ -3474,9 +3499,15 @@ def rwkv_train_slice(torch, seed: int, layers: int = 8) -> dict:
     return out
 
 
-def yi_train_slice(torch, seed: int, layers: int = 8) -> dict:
-    """16d.  yi_6b at full width (``layers`` of its 32 layers, 8 since
-    phase 21 joined the run; bf16, remat, DSA block path) with bf16
+# 16d's depth, and 22b's and 24a's, which read its run: 8 of yi_6b's 32
+# layers since phase 21 joined the run, 4 since phase 25 did
+YI_TRAIN_LAYERS = 4
+
+
+def yi_train_slice(torch, seed: int,
+                   layers: int = YI_TRAIN_LAYERS) -> dict:
+    """16d.  yi_6b at full width (``layers`` of its 32 layers; bf16,
+    remat, DSA block path) with bf16
     moments (``OptConfig(moment_dtype="bfloat16")``: 6 bytes a
     parameter with the gradients) through ``steps.make_train_step``: 4
     steps of 4 x 4096 tokens in 2 microbatches, or 4 where 2 run out of
@@ -5867,7 +5898,7 @@ def _p22_rank(rank: int, seed: int) -> dict:
             del state, step
             torch.cuda.empty_cache()
     # 22b: 16d's run under make_rules() on (2, 1), FSDP over the two ranks
-    cfg = _yi_cut(8, f32=False)
+    cfg = _yi_cut(YI_TRAIN_LAYERS, f32=False)
     opt = _p22_opt(4, "bfloat16")
     mesh = make_host_mesh(model=1)
     torch.cuda.reset_peak_memory_stats()
@@ -5962,7 +5993,7 @@ def distributed_train_phase(torch, seed: int, yi16d: dict) -> dict:
     2-layer f32, block DSA and DSA off: FSDP 2 and TP 2 + SP against the
     unsharded run on each rank, the gates of ``SHARD_F32_RTOL`` and
     ``SHARD_ROWS_RTOL``, the collectives against the budget; bytes a
-    rank), 22b (FSDP 2 at 8 layers in bf16, 16d's run: step ms, state
+    rank), 22b (FSDP 2 at 4 layers in bf16, 16d's run: step ms, state
     bytes a rank, peak memory, the loss gaps against 16d's printed beside
     their prediction), 22c (NCCL at world size 1: bit for bit against
     ``mesh=None`` or the first departing leaf, the budget, the NCCL
@@ -6035,7 +6066,8 @@ def distributed_train_phase(torch, seed: int, yi16d: dict) -> dict:
     for r, res in enumerate(ab):
         x = res["22b"]
         rel = [abs(a - b) / abs(b) for a, b in zip(x["losses"], ref)]
-        print(f"22b yi_6b 8 layers bf16, FSDP 2 over gloo on one card "
+        print(f"22b yi_6b {YI_TRAIN_LAYERS} layers bf16, FSDP 2 over gloo on "
+              f"one card "
               f"(make_rules() on (2, 1)), 4 x 4096 in 2 microbatches, rank "
               f"{r}: step ms " + ", ".join(f"{t * 1e3:.1f}"
                                            for t in x["step_s"])
@@ -6317,7 +6349,7 @@ def _dryrun_count(cfg, b: int, s: int, mb: int, opt) -> dict:
 
 
 def dryrun_phase(torch, seed: int, yi16d: dict, mix17c: dict) -> dict:
-    """24a.  The dry run's count of 16d's yi_6b train run (8 layers, 4 x
+    """24a.  The dry run's count of 16d's yi_6b train run (4 layers, 4 x
     4096, 2 microbatches, bf16 moments) and 17c's mixtral run (2 layers),
     at world 1 with the H100's constants, beside the steps this process
     measured: gated on compute_s <= the measured median (a step faster
@@ -6340,7 +6372,8 @@ def dryrun_phase(torch, seed: int, yi16d: dict, mix17c: dict) -> dict:
     t0 = time.monotonic()
     out = {}
     opt = adamw.OptConfig(moment_dtype="bfloat16")
-    runs = (("16d yi_6b", cut_layers(get_config("yi_6b"), 8), yi16d),
+    runs = (("16d yi_6b", cut_layers(get_config("yi_6b"), YI_TRAIN_LAYERS),
+             yi16d),
             ("17c mixtral_8x22b", dataclasses.replace(
                 get_config("mixtral_8x22b"), n_layers=2), mix17c))
     for label, cfg, meas in runs:
@@ -6394,6 +6427,319 @@ def dryrun_phase(torch, seed: int, yi16d: dict, mix17c: dict) -> dict:
     torch.cuda.empty_cache()
     print(f"phase 24: {time.monotonic() - t0:.1f} s", flush=True)
     return out
+
+
+# -- phase 25: tensor parallelism for cross-attention and RWKV6 ----------------
+
+# the serving cells of 25a-c: (arch, decoder layers, batch, prompt, max_len);
+# whisper whole (12 + 12), llama_3_2_vision at one group of 5 (its cross
+# layer at 3), rwkv6_3b at 4 layers; 32 new tokens each, bf16 weights on a
+# bf16 cache, kernel DSA
+X_TP_CELLS = (("whisper_small", 12, 4, 384, 448),
+              ("llama_3_2_vision", 5, 4, 4096, 4096 + 32 + 16),
+              ("rwkv6_3b", 4, 4, 4096, 4096 + 32 + 16))
+X_TP_NEW = 32
+# 25d: TP 2 + SP training, f32, DSA off (the 4-bit predictor turns the tp
+# sums' last bits into other blocks, 22a), 2 steps of 2 x 1024; whisper at
+# 2 + 2 layers over 1024 frames, llama at its one group of 5 (cut_layers
+# keeps whole groups) with 1601 image tokens, rwkv6_3b at 2
+X_TRAIN_CELLS = (("whisper_small", 2), ("llama_3_2_vision", 5),
+                 ("rwkv6_3b", 2))
+X_TRAIN_SEQ, X_TRAIN_BATCH, X_TRAIN_STEPS = 1024, 2, 2
+
+
+def _x_serve(rank: int, seed: int, arch: str, layers: int, b: int,
+             plen: int, max_len: int) -> dict:
+    """One of 25a-c on this rank: the engine at tp 2 draws its own
+    weights (``init_model`` with its ``place``), every cross gate at 0.5;
+    its prefill's last-row logits with DSA off and on the kernel path,
+    then ``generate`` (``X_TP_NEW`` new) timed with its launches and
+    collectives; rank 0 then the same unsharded for the gap and the
+    greedy agreement.  With DSA off the last-row logits come from a
+    forward without a cache, whisper's over its first 1024 frames: its
+    1500-frame encoder has no DSA-off path (the q-chunked attention above
+    1024 queries needs a multiple of 256, in the reference too).  whisper
+    also runs the continuous engine on 8 requests (blocking admission),
+    sharded and on rank 0 unsharded."""
+    import functools
+    import numpy as np
+    import torch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import tree_bytes
+    from repro_torch.inference.engine import Engine
+    from repro_torch.inference.scheduler import ContinuousEngine, Request
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import transformer as TT
+    from repro_torch.distributed.sharding import tp_decode_all_reduces
+    cfg = _xattn_cfg(arch, layers, f32=False)
+    kw = dict(max_len=max_len, long_context=True, dsa_mode="kernel",
+              cache_dtype=torch.bfloat16)
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(1, cfg.vocab - 4, size=(b, plen)).astype(np.int32)
+    ex = serve.draw_extras(cfg, b, rng)
+    ex_off = ({"enc_x": ex["enc_x"][:, :1024]} if cfg.enc_dec else ex)
+
+    def logits(e):
+        """Last-row logits with DSA off (no cache) and on the kernel path
+        (the engine's prefill)."""
+        toks = torch.as_tensor(prompts, device=e.device)
+        with torch.inference_mode():
+            off = TT.forward(e.params, e.mcfg, e.run_flags("prefill", "off"),
+                             toks, None, extras={
+                                 k: torch.as_tensor(v, device=e.device)
+                                 for k, v in ex_off.items()},
+                             last=torch.full((b,), plen - 1,
+                                             device=e.device))[0]
+        kern = e.prefill(prompts, caches=e.resident_cache(b),
+                         dsa_mode="kernel", extras=ex)[0]
+        return {"off": off.float().cpu(), "kernel": kern.float().cpu()}
+
+    mesh = make_serving_mesh(dp=1, tp=2, cfg=cfg)
+    t0 = time.monotonic()
+    eng = Engine(cfg, functools.partial(TT.init_model, seed, cfg), mesh=mesh,
+                 **kw)
+    TT.set_cross_gates(eng.params, XATTN_GATE)
+    last = logits(eng)
+    serve.reset_launch_counts()
+    before = C.snapshot()
+    res = eng.generate(prompts, X_TP_NEW, extras=ex)
+    out = dict(shard=eng.weight_bytes_per_device(),
+               prefill_ms=res.prefill_s * 1e3, tok_s=res.tokens_per_s,
+               steps=res.decode_steps, launches=serve.launch_counts(),
+               model=C.count_collectives(before, "model"),
+               per_step=tp_decode_all_reduces(eng.mcfg), mcfg=(
+                   eng.mcfg.n_heads, eng.mcfg.n_kv_heads, eng.mcfg.d_ff),
+               tokens_ok=bool(res.tokens.min() >= 0
+                              and res.tokens.max() < cfg.vocab))
+    del eng
+    torch.cuda.empty_cache()
+    cont = None
+    if cfg.enc_dec:
+        def reqs():
+            r = np.random.default_rng(seed + 1)
+            return [Request(i, r.integers(1, cfg.vocab - 4, size=(n,))
+                            .astype(np.int32), k, seed=i)
+                    for i, (n, k) in enumerate(
+                        [(384, 32), (200, 24), (320, 16), (96, 32),
+                         (256, 20), (128, 28), (300, 12), (64, 30)])]
+        ckw = dict(slots=4, seg_len=8, **kw)
+        s = ContinuousEngine(cfg, functools.partial(TT.init_model, seed,
+                                                    cfg), mesh=mesh, **ckw)
+        TT.set_cross_gates(s.engine.params, XATTN_GATE)
+        serve.reset_launch_counts()
+        t1 = time.monotonic()
+        got = s.run(reqs())
+        cont = dict(s=time.monotonic() - t1, n=len(got),
+                    launches=serve.launch_counts(),
+                    steps=s.stats["decode_steps"])
+        del s
+        torch.cuda.empty_cache()
+    out["s"] = time.monotonic() - t0
+    if rank == 0:
+        params = TT.set_cross_gates(TT.init_model(seed, cfg), XATTN_GATE)
+        out["whole"] = tree_bytes(params)
+        plain = Engine(cfg, params, **kw)
+        for m, want in logits(plain).items():
+            out["gap", m] = float((last[m] - want).abs().max())
+            out["scale", m] = float(want.abs().max())
+        ref = plain.generate(prompts, X_TP_NEW, extras=ex)
+        out["agree"] = float((res.tokens == ref.tokens).mean())
+        out["plain_prefill_ms"] = ref.prefill_s * 1e3
+        out["plain_tok_s"] = ref.tokens_per_s
+        if cont is not None:
+            p = ContinuousEngine(cfg, params, slots=4, seg_len=8, **kw)
+            want = p.run(reqs())
+            cont["agree"] = float(np.mean([np.mean(got[r] == want[r])
+                                           for r in want]))
+            del p
+        del plain, params
+        torch.cuda.empty_cache()
+    out["cont"] = cont
+    return out
+
+
+def _x_train(rank: int, seed: int, arch: str, layers: int) -> dict:
+    """25d on this rank: ``arch`` at ``layers`` (f32, DSA off, every cross
+    gate at 0.5), ``X_TRAIN_STEPS`` steps of ``X_TRAIN_BATCH`` x
+    ``X_TRAIN_SEQ`` with the second input, unsharded on rank 0 alone
+    (the other rank waits), then TP 2 + SP (``make_rules()`` on (1, 2))
+    on both: the losses, the counters and the budget."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import make_rules, tree_bytes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.attention import RunFlags
+    from repro_torch.training import steps as ST
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _xattn_cfg(arch, layers, f32=True)
+    opt = _p22_opt(X_TRAIN_STEPS)
+    flags = RunFlags(mode="train", dsa_mode="off")
+    bs = _p22_batches(cfg.vocab, X_TRAIN_SEQ, X_TRAIN_BATCH, X_TRAIN_STEPS,
+                      seed)
+    rng = np.random.default_rng(seed + 2)
+    # whisper over 1024 frames: with DSA off its 1500 have no path (the
+    # q-chunked attention above 1024 queries takes multiples of 256)
+    key, t = (("enc_x", 1024) if cfg.enc_dec else
+              ("img", cfg.n_image_tokens) if cfg.cross_attn_period else
+              (None, 0))
+    for b in bs if key else ():
+        b[key] = rng.standard_normal((X_TRAIN_BATCH, t, cfg.d_model)
+                                     ).astype(np.float32)
+    out = {}
+
+    def run(mesh, rules):
+        t0 = time.monotonic()
+        state, _ = ST.init_train_state(seed, cfg, opt, mesh=mesh,
+                                       rules=rules)
+        TT.set_cross_gates(state["params"], XATTN_GATE)
+        step = ST.make_train_step(cfg, opt, flags, mesh=mesh, rules=rules)
+        before = C.snapshot()
+        losses = [float(step(state, b)[1]["loss"]) for b in bs]
+        res = dict(losses=losses, counts=C.count_by_axis(before),
+                   params=tree_bytes(state["params"]),
+                   s=time.monotonic() - t0)
+        if mesh is not None:
+            res["budget"] = step.plan.collective_budget(
+                1, seq_len=X_TRAIN_SEQ, remat=cfg.remat, mse=False,
+                steps=X_TRAIN_STEPS)
+        del state, step
+        torch.cuda.empty_cache()
+        return res
+
+    if rank == 0:           # alone on the card: the other rank waits
+        out["plain"] = run(None, None)
+    dist.barrier()
+    out["tp"] = run(make_host_mesh(model=2), make_rules())
+    out["whole"] = tree_bytes(TT.init_model(0, cfg, device="meta"))
+    return out
+
+
+def _p25_rank(rank: int, seed: int) -> dict:
+    """Phase 25 on one rank of two gloo processes sharing the card."""
+    out = {}
+    for arch, layers, b, plen, max_len in X_TP_CELLS:
+        out["serve", arch] = _x_serve(rank, seed, arch, layers, b, plen,
+                                      max_len)
+    for arch, layers in X_TRAIN_CELLS:
+        out["train", arch] = _x_train(rank, seed, arch, layers)
+    return out
+
+
+def xtp_phase(torch, seed: int) -> dict:
+    """Phase 25, tensor parallelism for cross-attention and RWKV6: two
+    gloo processes on the card at tp 2.  25a whisper_small whole (12 + 12
+    layers, 4 x 384, 1500 frames) and its continuous engine on 8
+    requests, 25b llama_3_2_vision at one group of 5 (4 x 4096, 1601
+    image tokens), 25c rwkv6_3b at 4 layers (4 x 4096, K7 on each rank's
+    20 heads), bf16, 32 new: greedy agreement with the unsharded run on
+    rank 0 (printed), the last-row logit gap with DSA off (gated,
+    ``TP_LOGIT_TOL``), weight bytes a rank, prefill ms, decode tok/s,
+    launches (gated) and collectives against the budget (gated).  25d
+    TP 2 + SP training in f32, DSA off: losses against the unsharded run
+    (gated, ``SHARD_F32_RTOL``), counters against the budget (gated).
+    Returns rank 0's launches of each serving cell."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import run_spmd
+    t0 = time.monotonic()
+    card = smi()
+    store = tempfile.mkdtemp()
+    try:
+        res = run_spmd(_p25_rank, 2, store_dir=store, backend="gloo",
+                       device_ids=[0, 0], timeout_s=600, args=(seed,))
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    bad = []
+    tag = {"whisper_small": "25a", "llama_3_2_vision": "25b",
+           "rwkv6_3b": "25c"}
+    for arch, layers, b, plen, _ in X_TP_CELLS:
+        r0 = res[0]["serve", arch]
+        rel = {m: r0["gap", m] / max(r0["scale", m], 1e-30)
+               for m in ("off", "kernel")}
+        print(f"{tag[arch]} {arch} {layers} layers bf16 (a rank: heads, "
+              f"KV heads, d_ff {r0['mcfg']}), tp 2 over gloo on one card, "
+              f"{b} x {plen}, {X_TP_NEW} new, kernel DSA: prefill "
+              f"{r0['prefill_ms']:.1f} ms (unsharded "
+              f"{r0['plain_prefill_ms']:.1f}), decode {r0['tok_s']:.1f} "
+              f"tok/s over {r0['steps']} eager steps (unsharded graphed "
+              f"{r0['plain_tok_s']:.1f}), greedy agreement "
+              f"{r0['agree']:.3f} (printed) [{card}]", flush=True)
+        for m in ("off", "kernel"):
+            print(f"  last-row logits, DSA {m}: max |gap| "
+                  f"{r0['gap', m]:.4g} of max |logit| {r0['scale', m]:.4g} "
+                  f"= {rel[m]:.3g}" + (f" (gated: <= {TP_LOGIT_TOL:g})"
+                                      if m == "off" else " (printed)"),
+                  flush=True)
+        if rel["off"] > TP_LOGIT_TOL:
+            bad.append(f"{tag[arch]} logit gap (DSA off) {rel['off']:.3g}")
+        whole = r0["whole"]
+        for r, x in enumerate(res):
+            x = x["serve", arch]
+            n = {k: v for k, v in x["launches"].items() if v}
+            steps = x["steps"]
+            n_dec = layers
+            want_n = ({"K7": layers} if arch == "rwkv6_3b" else
+                      {"K2": n_dec, "K1": n_dec * steps})
+            enc = 2 * layers if arch == "whisper_small" else 0
+            want_c = {"all-reduce": x["per_step"] * (steps + 1) + enc,
+                      "all-gather": steps + 1}
+            print(f"  rank {r} ({x['s']:.1f} s): weight bytes {x['shard']} "
+                  f"of {whole} replicated ({x['shard'] / whole:.4f}); "
+                  f"launches {n} (want {want_n}); collectives over model "
+                  f"[{_collectives_line(x['model'])}] (budget "
+                  f"[{_collectives_line(want_c)}]: {x['per_step']} "
+                  f"all-reduces a decode step, the prefill the same"
+                  + (f" + {enc} of the encoder" if enc else "") + ")",
+                  flush=True)
+            if (n != want_n or x["model"] != want_c or not x["tokens_ok"]
+                    or x["shard"] > 0.5 * whole + 0.1 * whole):
+                bad.append(f"{tag[arch]} rank {r}")
+            c = x["cont"]
+            if c is not None:
+                nc = {k: v for k, v in c["launches"].items() if v}
+                print(f"  continuous, rank {r}: {c['n']} of 8 requests in "
+                      f"{c['s']:.1f} s, {c['steps']} decode steps, launches "
+                      f"{nc}" + (f", greedy agreement with the unsharded "
+                                 f"engine {c['agree']:.3f} (printed)"
+                                 if "agree" in c else ""), flush=True)
+                if c["n"] != 8 or not nc.get("K1"):
+                    bad.append(f"{tag[arch]} continuous rank {r}")
+    for arch, layers in X_TRAIN_CELLS:
+        plain = res[0]["train", arch]["plain"]
+        print(f"25d {arch} {layers} layers f32 (rank 0 alone, "
+              f"{plain['s']:.1f} s): {X_TRAIN_STEPS} steps of "
+              f"{X_TRAIN_BATCH} x {X_TRAIN_SEQ}, DSA off, gates "
+              f"{XATTN_GATE}: losses " + ", ".join(
+                  f"{v:.6f}" for v in plain["losses"]) + f" [{card}]",
+              flush=True)
+        for r, x in enumerate(res):
+            a = x["train", arch]["tp"]
+            rel = [abs(u - v) / abs(v) for u, v in zip(a["losses"],
+                                                        plain["losses"])]
+            try:
+                C.check_train_collectives(a["counts"], a["budget"])
+                ok = True
+            except AssertionError as e:
+                print(f"  {e}", flush=True)
+                ok = False
+            print(f"  TP 2 + SP, rank {r} ({a['s']:.1f} s): losses "
+                  + ", ".join(f"{v:.6f}" for v in a["losses"])
+                  + "; gap / loss " + ", ".join(f"{v:.3g}" for v in rel)
+                  + f" (gated: <= {SHARD_F32_RTOL:g}); collectives "
+                  + ", ".join(f"{op} {ax} {n}" for (op, ax), n in sorted(
+                      a["counts"].items()))
+                  + f" == budget {ok}; params {a['params']} of "
+                  f"{x['train', arch]['whole']} bytes", flush=True)
+            if not ok or max(rel) > SHARD_F32_RTOL:
+                bad.append(f"25d {arch} rank {r}")
+    print(f"phase 25: {time.monotonic() - t0:.1f} s", flush=True)
+    if bad:
+        fail(f"phase 25: {bad}")
+    return {arch: res[0]["serve", arch]["launches"]
+            for arch, *_ in X_TP_CELLS}
 
 
 def main() -> None:
@@ -6574,6 +6920,29 @@ def main() -> None:
                  q_dt="bfloat16", c_dt="float32",
                  kv_len=[4129, 4100, 4097, 4111], nb=6, seed=args.seed,
                  timed=True)]
+    # phase 25's tp-2 ranks: whisper_small's 6 query heads on 6 KV heads
+    # (G 1, hd 64: the launch_tc<64> instance; 4 x 384, its 512-row bf16
+    # cache) and llama_3_2_vision's 16 on 4 (G 4, hd 128; 4 x 4096, its
+    # 4224-row bf16 cache); prefill and decode step, bf16 timed, and f32
+    k2xt_checks = [
+        check_k2(torch, timer, b=4, hq=6, hkv=6, hd=64, l=384, blk=128,
+                 nb=2, dtype=dt, seed=args.seed, timed=dt == "bfloat16")
+        for dt in ("bfloat16", "float32")]
+    k1xt_checks = [
+        check_k1(torch, timer, b=4, hq=6, hkv=6, hd=64, s=512, bk=128,
+                 q_dt=dt, c_dt=dt, kv_len=[448, 421, 386, 400], nb=3,
+                 seed=args.seed, timed=dt == "bfloat16")
+        for dt in ("bfloat16", "float32")]
+    k2vt_checks = [
+        check_k2(torch, timer, b=4, hq=16, hkv=4, hd=128, l=4096, blk=128,
+                 nb=3, dtype="bfloat16", seed=args.seed, timed=True),
+        check_k2(torch, timer, b=2, hq=16, hkv=4, hd=128, l=1024, blk=128,
+                 nb=3, dtype="float32", seed=args.seed, timed=False)]
+    k1vt_checks = [
+        check_k1(torch, timer, b=4, hq=16, hkv=4, hd=128, s=4224, bk=128,
+                 q_dt=dt, c_dt=dt, kv_len=[4129, 4100, 4097, 4111], nb=6,
+                 seed=args.seed, timed=dt == "bfloat16")
+        for dt in ("bfloat16", "float32")]
     k3_checks = [
         check_k3(torch, timer, b=2, hq=8, hkv=2, hd=16, s=100, c=32, blk=16,
                  q_dt="float32", c_dt="float32", q_off=[64, 32],
@@ -6664,6 +7033,10 @@ def main() -> None:
                          ("K1 dsa_decode (yi tp 2)", k1t_checks),
                          ("K2 dsa_attention (yi tp 16 rank)", k2t16_checks),
                          ("K1 dsa_decode (yi tp 16 rank)", k1t16_checks),
+                         ("K2 dsa_attention (whisper tp 2)", k2xt_checks),
+                         ("K1 dsa_decode (whisper tp 2)", k1xt_checks),
+                         ("K2 dsa_attention (llama tp 2)", k2vt_checks),
+                         ("K1 dsa_decode (llama tp 2)", k1vt_checks),
                          ("K3 dsa_chunk_prefill", k3_checks),
                          ("K4 dsa_decode_paged", k4_checks)] + [
             (f"{k} {q or ''}".strip(), v) for (k, q), v in q_checks.items()]:
@@ -6704,7 +7077,13 @@ def main() -> None:
         check_k7(torch, timer, b=1, h=40, s=2048, hd=64, dtype="bfloat16",
                  seed=args.seed, timed=False),
     ]
-    for c in k7_checks:
+    # one tp-2 rank of rwkv6_3b's prefill (phase 25c): its 20 heads, bf16
+    # timed, and f32, from a zero and a random state
+    k7t_checks = [
+        check_k7(torch, timer, b=4, h=20, s=4096, hd=64, dtype=dt,
+                 seed=args.seed, timed=dt == "bfloat16")
+        for dt in ("bfloat16", "float32")]
+    for c in k7_checks + k7t_checks:
         line = (f"K7 wkv6 [{c['geometry']}]: max abs err "
                 f"{c['max_abs_err']:.3g} (atol {c['tol'][0]:g} + rtol "
                 f"{c['tol'][1]:g} x |plain|; {100 * c['tol_used']:.1f} % of "
@@ -6863,6 +7242,15 @@ def main() -> None:
     # prefill, K1 once a layer a step, at G 2 on one KV head)
     launches["yi tp 16 rank"] = dryrun_phase(torch, args.seed, yi16d,
                                              mix17c)["launches"]
+    # tensor parallelism for cross-attention and RWKV6: whisper_small,
+    # llama_3_2_vision and rwkv6_3b at tp 2 as two gloo processes on the
+    # card (25a-c: K2 once a decoder layer a prefill and K1 once a decoder
+    # layer a step on each rank's heads, K7 once a layer a prefill on its
+    # 20 heads), TP 2 + SP training (25d, no kernel: the block path is off)
+    xtp = xtp_phase(torch, args.seed)
+    launches["whisper tp 2"] = xtp["whisper_small"]
+    launches["vision tp 2"] = xtp["llama_3_2_vision"]
+    launches["rwkv tp 2"] = xtp["rwkv6_3b"]
 
     src = "src/repro_torch/kernels/csrc/"
     rep = "src/repro/kernels/"
@@ -6960,7 +7348,16 @@ def main() -> None:
              "dsa_attention.cu", "dsa_attention.py:77", k2t16_checks, "K2",
              ("yi tp 16 rank",)),
             ("dsa_decode_gather_attention (yi tp 16 rank)", "dsa_decode.cu",
-             "dsa_decode.py:185", k1t16_checks, "K1", ("yi tp 16 rank",))):
+             "dsa_decode.py:185", k1t16_checks, "K1", ("yi tp 16 rank",)),
+            # phase 25's tp-2 ranks, rank 0's launches
+            ("dsa_block_sparse_attention (whisper tp 2)", "dsa_attention.cu",
+             "dsa_attention.py:77", k2xt_checks, "K2", ("whisper tp 2",)),
+            ("dsa_decode_gather_attention (whisper tp 2)", "dsa_decode.cu",
+             "dsa_decode.py:185", k1xt_checks, "K1", ("whisper tp 2",)),
+            ("dsa_block_sparse_attention (llama tp 2)", "dsa_attention.cu",
+             "dsa_attention.py:77", k2vt_checks, "K2", ("vision tp 2",)),
+            ("dsa_decode_gather_attention (llama tp 2)", "dsa_decode.cu",
+             "dsa_decode.py:185", k1vt_checks, "K1", ("vision tp 2",))):
         c = next(x for x in checks if "ms" in x)
         by_path = {p: launches[p].get(k, 0) for p in paths}
         kernels.append({
@@ -6991,6 +7388,21 @@ def main() -> None:
         "checks": [{k: x[k] for k in ("geometry", "max_abs_err", "tol",
                                       "tol_used", "parts")}
                    for x in k7_checks]})
+    c = k7t_checks[0]
+    kernels.append({
+        "name": "wkv6_chunked (rwkv tp 2 rank)", "route": "cuda",
+        "source": src + "wkv6.cu", "replaces": rep + "wkv6.py:75",
+        "launches": launches["rwkv tp 2"].get("K7", 0),
+        "launches_by_path": {"rwkv tp 2": launches["rwkv tp 2"].get("K7",
+                                                                    0)},
+        "max_abs_err": c["max_abs_err"],
+        "ms": c["ms"], "kernel_ms": c["ms"], "plain_ms": c["plain_ms"],
+        "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+        "library_ms": None, "host_us": c["host_us"],
+        "geometry": c["geometry"],
+        "checks": [{k: x[k] for k in ("geometry", "max_abs_err", "tol",
+                                      "tol_used", "parts")}
+                   for x in k7t_checks]})
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

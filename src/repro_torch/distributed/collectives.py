@@ -23,7 +23,11 @@ Serving.  The tensor-parallel decode budget
 n_layers + 1 all-reduces over "model" (each layer's attention
 out-projection and MLP down-projection, which contract over the sharded
 heads and d_ff, plus the vocab-sharded embedding lookup), 1 all-gather
-(the logits), and nothing else.  The port gathers the (B, V/tp) logits
+(the logits), and nothing else.  A cross sub-layer adds its
+out-projection's (whisper_small: 3 a decoder layer; llama_3_2_vision: 1
+a group of 5), RWKV6 has two a layer (the time-mix's ``wo``, the FFN's
+``wv``): ``sharding.tp_decode_all_reduces``.  A prefill issues the same
+per layer and, on whisper_small, 2 more a layer of its encoder.  The port gathers the (B, V/tp) logits
 where the reference gathers the lm-head weight (hoisted out of its
 decode loop): a per-step weight gather would move d_model x V x 2
 bytes, 0.5 GB a step at yi_6b's vocab of 64,000 in bf16, against B x V
@@ -95,8 +99,19 @@ E' those that train.
   FSDP, any table:
     all-gather <data axes>  A (1 + r)
     reduce-scatter <axes>   A'
+  other sub-layers (``sharding.tp_sites``, per checkpoint region, a
+  layer group): a cross-attention sub-layer and RWKV6's time-mix and FFN
+  count as an attention sub-layer (2 + r gathers and 2 + r scatters
+  under SP, 2 + r all-reduces without), as does every MLP but a group's
+  last (llama_3_2_vision's group of 5: its recompute reaches them); a
+  cross sub-layer's and an RWKV6 FFN's output is multiplied by a gate,
+  which saves it, so their recompute runs the exit again wherever they
+  stand.  whisper_small's encoder layers count as decoder layers, and
+  its output adds 1 all-gather and 1 reduce-scatter under SP (gathered
+  once for every cross sub-layer), 1 all-reduce without (its partial
+  key/value gradients)
   per microbatch, outside the layers:
-    all-gather <data axes>  E;  reduce-scatter <data axes> E'
+    all-gather <data axes>  E;  reduce-scatter <data axes> E
     "model" with SP: 2 all-gathers and 2 reduce-scatters (the embedding
       lookup's reduce-scatter and the head's sequence gather, and their
       backward); without SP: 2 all-reduces (the lookup's sum forward, the
@@ -110,11 +125,12 @@ E' those that train.
       matrices, a leaf whose "embed" dimension does not divide), and
       one per further group of leaves that lack other batch axes (the
       "pod" axis of the multipod table); 1 all-reduce of the metrics
-    "model" with SP, an MoE arch or tp above the KV heads: 1
+    "model" with SP, an MoE arch, tp above the KV heads or RWKV6: 1
       all-reduce of the norms' gradients (their rows are sequence
-      shards), the routers' (each rank's part: its rows, or its
-      experts' pairs) and the whole KV leaves' (each rank's head's
-      slice, ``TrainPlan.kv_slices``)
+      shards; a cross gate's too), the routers' (each rank's part: its
+      rows, or its experts' pairs), the whole KV leaves' (each rank's
+      head's slice, ``TrainPlan.kv_slices``) and RWKV6's whole leaves
+      that feed a rank's heads (``TrainPlan.partials``)
     "world": 1 all-reduce (the gradient norm's sum of squares)
 
 A group of one rank counts its calls like any other; on gloo it moves
@@ -515,16 +531,20 @@ def kernel_collectives(prof) -> Dict[str, int]:
 
 
 def check_tp_decode_collectives(counts: Dict[str, int], n_layers: int,
-                                steps: int = 1) -> Dict[str, int]:
+                                steps: int = 1,
+                                all_reduces: Optional[int] = None
+                                ) -> Dict[str, int]:
     """Raise AssertionError unless ``counts`` (``count_collectives`` over
     ``steps`` pure-tp decode steps) is the budget: 2 * n_layers + 1
-    all-reduces and 1 all-gather a step, and no other collective.
-    Returns ``counts``."""
-    expect = {"all-reduce": (2 * n_layers + 1) * steps,
-              "all-gather": steps}
-    why = {"all-reduce": "2 * n_layers + 1 a step: attention out-proj and "
-                         "MLP down-proj per layer, and the vocab-sharded "
-                         "embedding lookup",
+    all-reduces (``all_reduces`` a step where given: an arch with cross
+    sub-layers, ``sharding.tp_decode_all_reduces``) and 1 all-gather a
+    step, and no other collective.  Returns ``counts``."""
+    per = 2 * n_layers + 1 if all_reduces is None else all_reduces
+    expect = {"all-reduce": per * steps, "all-gather": steps}
+    why = {"all-reduce": f"{per} a step: each layer's contracting products "
+                         "(attention out-proj, a cross sub-layer's, MLP "
+                         "down-proj; RWKV6's wo and FFN wv), and the "
+                         "vocab-sharded embedding lookup",
            "all-gather": "1 a step: the (B, V/tp) logits"}
     for op, n in counts.items():
         if op not in expect and n:

@@ -202,8 +202,13 @@ def serving_tp_issues(cfg, tp: int) -> list:
     the axis), ``inference.engine.Engine`` (the fallback to replicated
     weights) and ``make_train_plan``.  KV heads pass where tp divides
     them or is a multiple of them that divides the query heads
-    (``kv_group``).  vocab is not checked: a vocab that does not divide
-    leaves the embedding and the head replicated."""
+    (``kv_group``).  A cross-attention sub-layer has the self-attention's
+    heads and KV heads, so the same checks cover it; RWKV6's heads are
+    its ``n_heads`` (d_model / rwkv.head_dim, ``ssm.init_rwkv`` checks).
+    vocab is not checked: a vocab that does not divide leaves the
+    embedding and the head replicated.  The reference leaves an axis that tp does not divide
+    whole and shards the others; the port refuses such a tp (ROADMAP
+    Queue 1, "Distribution", per-dimension replication)."""
     tp = int(tp)
     if tp <= 1:
         return []
@@ -211,7 +216,7 @@ def serving_tp_issues(cfg, tp: int) -> list:
     if cfg.n_heads % tp:
         issues.append(f'heads (n_heads={cfg.n_heads} % tp={tp} != 0)')
     n_kv = getattr(cfg, "n_kv_heads", None) or cfg.n_heads
-    if n_kv % tp and tp % n_kv:
+    if cfg.rwkv is None and n_kv % tp and tp % n_kv:     # RWKV6: no KV
         issues.append(f'kv_heads (n_kv_heads={n_kv} and tp={tp}: neither '
                       f'divides the other)')
     if cfg.d_ff % tp:
@@ -227,16 +232,13 @@ def serving_tp_issues(cfg, tp: int) -> list:
 
 
 def tp_unsupported(cfg) -> Optional[str]:
-    """Why ``cfg`` cannot be served at tp > 1 by the port (None when it
-    can): its layers have no tensor-parallel form yet."""
+    """Why ``cfg`` cannot be served or trained at tp > 1 by the port (None
+    when it can): its layers have no tensor-parallel form yet.  Dense and
+    cross-attention, MLPs, mixtures of experts and RWKV6 have one."""
     if cfg.mla is not None:
         return "multi-head latent attention"
-    if cfg.rwkv is not None:
-        return "RWKV6 layers"
     if cfg.mamba is not None:
         return "Mamba layers"
-    if cfg.enc_dec or cfg.cross_attn_period:
-        return "cross-attention"
     return None
 
 
@@ -251,6 +253,17 @@ def refuse_tp(cfg, tp: int, what: str, instead: str) -> None:
             f"{what} {cfg.name} at tp={tp}: its {why} have no "
             f"tensor-parallel form in the port (ROADMAP Queue 1, "
             f"\"Distribution\"); {instead}")
+
+
+def tp_decode_all_reduces(cfg) -> int:
+    """The all-reduces over "model" of one tensor-parallel decode step:
+    one a contracting product of each layer (the attention's
+    out-projection, a cross sub-layer's, the MLP's down-projection or
+    the MoE combine; RWKV6's time-mix ``wo`` and FFN ``wv``) and one
+    after the vocab-sharded embedding lookup."""
+    from repro_torch.models import blocks as B
+    per_group = sum(2 + d.cross for d in B.group_defs(cfg))
+    return B.n_groups(cfg) * per_group + 2 * B.n_prologue(cfg) + 1
 
 
 def shard_config(cfg, tp: int):
@@ -514,8 +527,21 @@ def _flat_specs(tree, specs, prefix: str = "") -> Dict[str, Any]:
 
 
 # a leaf under SP whose gradient is summed over "model": a norm's scale,
-# applied to this rank's sequence rows (the reference's "embed_act" leaves)
+# applied to this rank's sequence rows (the reference's "embed_act" leaves),
+# and a cross sub-layer's gate, which scales them
 _SEQ_PARTIAL = ("embed_act",)
+
+
+def _seq_partial(path: str, logical: tuple) -> bool:
+    return tuple(logical) == _SEQ_PARTIAL or path.endswith("/xgate")
+
+
+def _tp_partial(cfg, path: str) -> bool:
+    """Whether ``path`` is a leaf that each rank holds whole but feeds
+    only its part of under tensor parallelism (RWKV6's ``ssm.TP_PARTIAL``
+    leaves), its gradient summed over "model" a step."""
+    from repro_torch.models.ssm import TP_PARTIAL
+    return cfg.rwkv is not None and tuple(path.split("/")[-2:]) in TP_PARTIAL
 
 
 @dataclasses.dataclass(eq=False)
@@ -539,8 +565,11 @@ class TrainPlan:
     head's slice (``kv_slices``: {path: (dim, start, width)}, taken
     after the FSDP gather) and feeds only that slice, so their gradients
     are summed over "model" a step: each head's is the sum over the
-    ranks that share it.  Every rank then holds the matching shard of
-    the unsharded gradient.
+    ranks that share it.  RWKV6's leaves that each rank holds whole but
+    feeds only its heads or mlp columns with (``ssm.TP_PARTIAL``:
+    ``partials``) are summed over "model" a step, SP or not; a cross
+    sub-layer's gate ``xgate`` joins the norms under SP.  Every rank then
+    holds the matching shard of the unsharded gradient.
 
     Mixture of experts: where the reference's EP gate holds (``ep``, the
     "model" group; ``ep_active``), ``run_flags`` gives an MoE layer the
@@ -569,6 +598,7 @@ class TrainPlan:
     routers: List[str] = dataclasses.field(default_factory=list)
     kv_slices: Dict[str, Tuple[int, int, int]] = dataclasses.field(
         default_factory=dict)
+    partials: List[str] = dataclasses.field(default_factory=list)
     ep: Optional[C.AxisGroup] = None
     batch_ranks: int = 1
     # under EP, the router term's factor in the metrics' mean: the data
@@ -635,7 +665,7 @@ class TrainPlan:
         """The step's gradient reductions, in place on ``grads`` ({path:
         gradient}): one all-reduce (a mean) over each bucket's batch axes,
         and one (a sum) over "model" of the routers', the shared KV
-        leaves' and, with ``sp``, the norms'."""
+        leaves', RWKV6's partial leaves' and, with ``sp``, the norms'."""
         def flat(paths, g, mean):
             if not paths:
                 return
@@ -651,7 +681,7 @@ class TrainPlan:
         for g, paths in self.buckets:
             flat(paths, g, True)
         flat((self.norms if sp else []) + self.routers
-             + list(self.kv_slices), self.tp, False)
+             + list(self.kv_slices) + self.partials, self.tp, False)
 
     def reduce_metrics(self, metrics: Dict[str, torch.Tensor],
                        ep: bool = False) -> Dict[str, torch.Tensor]:
@@ -721,22 +751,39 @@ class TrainPlan:
             add("all-to-all", "model", mb * n_ep * (4 + 2 * r))
             add("all-reduce", "model", mb * n_ep)
         if self.tp is not None:
-            n_layers = self.cfg.n_layers
-            if self.seq_parallel(seq_len):
-                # an EP sub-layer's input and output keep the stream's
-                # sequence shards: no gather or scatter around it
-                add("all-gather", "model",
-                    mb * (n_layers * (4 + 2 * r) - n_ep * (2 + r) + 2))
-                add("reduce-scatter", "model",
-                    mb * (n_layers * (4 + r) - n_ep * 2 + 2))
-                add("all-reduce", "model", mb * n_layers * m * (1 + r))
+            sp = self.seq_parallel(seq_len)
+            cfg = self.cfg
+            regions = [[B.prologue_def(cfg)]] * B.n_prologue(cfg)
+            regions += [B.group_defs(cfg)] * B.n_groups(cfg)
+            if cfg.enc_dec:
+                regions += ([B.group_defs(cfg, decoder=False)]
+                            * B.n_groups(cfg, decoder=False))
+            for defs in regions:
+                for kind, saved in tp_sites(defs, n_ep > 0):
+                    if kind == "ep":
+                        # without SP an EP sub-layer's replicated input
+                        # sums its gradient; under SP its input and output
+                        # keep the stream's sequence shards
+                        add("all-reduce", "model", 0 if sp else mb)
+                    elif sp:
+                        add("all-gather", "model", mb * (2 + r))
+                        add("reduce-scatter", "model", mb * (2 + r * saved))
+                    else:
+                        add("all-reduce", "model", mb * (2 + r * saved))
+                n_mse = sum(d.kind == "attn" for d in defs) * cfg.dsa.enabled
+                add("all-reduce", "model", mb * n_mse * m * (1 + r))
+            # the embedding lookup and the head, and whisper's encoder
+            # output (gathered over the sequence under SP, its partial
+            # key/value gradients summed without)
+            ends = 2 + int(cfg.enc_dec)
+            if sp:
+                add("all-gather", "model", mb * ends)
+                add("reduce-scatter", "model", mb * ends)
             else:
-                # an EP sub-layer's replicated input sums its gradient
-                # where the down-projection's partial sums were
-                add("all-reduce", "model",
-                    mb * (n_layers * (4 + m + r * (1 + m)) - n_ep + 2))
-            if self.seq_parallel(seq_len) or self.routers or self.kv_slices:
-                # the norms', routers' and shared KV leaves'
+                add("all-reduce", "model", mb * ends)
+            if sp or self.routers or self.kv_slices or self.partials:
+                # the norms', routers', shared KV leaves' and RWKV6's
+                # partial leaves'
                 add("all-reduce", "model", 1)
             add("all-reduce", "model", mb * 2)           # vocab-parallel CE
         if self.batch is not None:
@@ -747,16 +794,42 @@ class TrainPlan:
         return out
 
 
+def tp_sites(defs, ep: bool) -> List[Tuple[str, bool]]:
+    """One checkpoint region's (a layer group's, ``defs``) tensor-parallel
+    sub-layers in order, for the training budget: ("tp", saved) for one
+    that enters by ``tp_enter`` and leaves by ``tp_exit`` (attention,
+    cross-attention, an MLP or a capacity MoE, RWKV6's time-mix and
+    FFN), ("ep", False) for an MoE on the expert-parallel dispatch
+    (``ep``).  ``saved``: a tensor after the exit's collective is saved
+    for the backward pass, so the recompute runs it again: every exit
+    but the region's last MLP, whose output is added to the stream and
+    returned (the cross sub-layer's and the RWKV6 FFN's are multiplied
+    by a gate, which saves them)."""
+    sites = []
+    for d in defs:
+        if d.kind == "rwkv":
+            sites += [("tp", True), ("tp", True)]
+            continue
+        sites.append(("tp", True))
+        if d.cross:
+            sites.append(("tp", True))
+        sites.append(("ep", False) if d.moe and ep else ("tp", True))
+    if sites[-1] == ("tp", True) and defs[-1].kind != "rwkv":
+        sites[-1] = ("tp", False)
+    return sites
+
+
 def make_train_plan(cfg, mesh, rules: Optional[ShardingRules] = None
                     ) -> TrainPlan:
     """The layout of training ``cfg`` on ``mesh`` under ``rules`` (the
     rule context's by default).  Tensor parallelism needs an arch whose
     layers have a tensor-parallel form (dense GQA attention, MLPs and
     mixtures of experts, the latter by expert parallelism where the
-    reference's gate holds): on a "model" axis above 1 that holds no
-    batch rows, MLA, RWKV6, Mamba and cross-attention archs raise
+    reference's gate holds; cross-attention and RWKV6): on a "model" axis
+    above 1 that holds no batch rows, MLA and Mamba archs raise
     ``NotImplementedError`` naming "Distribution", and heads, KV heads,
-    d_ff or a vocab that the axis does not divide raise ``ValueError``;
+    d_ff or a vocab that the axis does not divide raise ``ValueError``
+    naming the axis and "Distribution";
     on a "model" axis of one such archs take no "model" role at all.  A
     tp above the KV heads that is a multiple of them (``kv_group``)
     keeps the KV leaves whole over "model" (``TrainPlan.kv_slices``).  An
@@ -781,7 +854,10 @@ def make_train_plan(cfg, mesh, rules: Optional[ShardingRules] = None
             issues.append(f"vocab ({cfg.vocab} % tp={tp_n} != 0)")
         if issues:
             raise ValueError(f"tp={tp_n} does not divide arch {cfg.name!r} "
-                             f"on axis " + "; ".join(issues))
+                             f"on axis " + "; ".join(issues) + " (the "
+                             f"reference leaves such an axis whole: ROADMAP "
+                             f"Queue 1, \"Distribution\", per-dimension "
+                             f"replication)")
     tp = C.axis_group(mesh, "model") if tp_axis and why is None else None
     shared = kv_group(cfg, tp.size) if tp is not None else 1
     if shared > 1:
@@ -819,7 +895,7 @@ def make_train_plan(cfg, mesh, rules: Optional[ShardingRules] = None
         rest = tuple(a for a in batch_axes if a not in covered)
         if rest:
             bucket.setdefault(rest, []).append(path)
-        if tp is not None and tuple(logical[path]) == _SEQ_PARTIAL:
+        if tp is not None and _seq_partial(path, logical[path]):
             norms.append(path)
     n_model = sizes.get("model", 1)
     ep = None
@@ -844,6 +920,8 @@ def make_train_plan(cfg, mesh, rules: Optional[ShardingRules] = None
         routers=[p for p in resolved if p.endswith("/mlp/router")]
         if tp is not None else [],
         kv_slices=kv_slices,
+        partials=[p for p in resolved if _tp_partial(cfg, p)
+                  and not is_frozen(p)] if tp is not None else [],
         ep=ep, batch_ranks=int(np.prod([sizes.get(a, 1)
                                         for a in _axes(rules.batch)])),
         aux_scale=aux_scale)

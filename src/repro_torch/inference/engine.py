@@ -307,9 +307,12 @@ class Engine:
         by the serving rules) on a mesh with a "model" axis whose dims
         ``tp`` divides.  An indivisible tp falls back to replicated
         weights (``tp`` 1, no "model" collective), as the reference's
-        engine does; an arch with no tensor-parallel form raises at tp >
-        1, unless ``shard_rules`` shard nothing over "model" (then every
-        rank of a "model" group computes the same rows whole).  At tp 1
+        engine does, under the default rules; explicit ``shard_rules``
+        that shard over "model" raise ``ValueError`` naming the axis
+        instead.  An arch with no tensor-parallel form (MLA, Mamba)
+        raises at tp > 1, unless ``shard_rules`` shard nothing over
+        "model" (then every rank of a "model" group computes the same
+        rows whole).  At tp 1
         on a ("data", "model") mesh the sharded path runs with every
         collective, over groups of one.
 
@@ -336,7 +339,8 @@ class Engine:
             return
         sizes = mesh_axis_sizes(c.mesh)
         tp = sizes.get("model", 1)
-        tp_ok = "model" in sizes and not serving_tp_issues(cfg, tp)
+        issues = serving_tp_issues(cfg, tp)
+        tp_ok = "model" in sizes and not issues
         rules = (c.shard_rules if c.shard_rules is not None else
                  make_serving_rules(tp=tp_ok))
         self.shard_rules = rules
@@ -349,6 +353,14 @@ class Engine:
         if c.shard_rules is None or split == {"model"}:
             # rules that shard nothing over "model" serve any arch
             refuse_tp(cfg, tp, "serving", "serve it on a dp-only mesh")
+        if c.shard_rules is not None and split == {"model"} and issues:
+            # explicit tensor-parallel rules never fall back to replicated
+            # weights: a replicated run must not pass for a tp one
+            raise ValueError(
+                f"shard_rules shard over \"model\", but tp={tp} does not "
+                f"divide arch {cfg.name!r} on axis " + "; ".join(issues)
+                + " (the reference leaves such an axis whole: ROADMAP "
+                "Queue 1, \"Distribution\", per-dimension replication)")
         if tp_ok and split == {"model"}:
             # where tp exceeds the KV heads, this rank keeps its head's
             # slice of the KV weights (``kv_group``)

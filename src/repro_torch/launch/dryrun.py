@@ -42,8 +42,12 @@ step as ``inference.engine.Engine`` shards it, under
 under ``make_rules`` (ROADMAP records the difference).  Prefill runs
 ``dsa_mode="block"``, decode ``"off"``, as the reference's.  A cell the
 port cannot run raises naming ROADMAP's "Distribution" and writes a
-``.fail`` record: ``long_500k`` (the sequence-sharded cache) and tp > 1
-on an arch without a tensor-parallel form (``--no-tp`` runs them).
+``.fail`` record: ``long_500k`` (the sequence-sharded cache), tp > 1
+on an arch without a tensor-parallel form (MLA, Mamba:
+``NotImplementedError``), and tp 16 on an arch whose heads it does not
+divide (whisper_small's 12, rwkv6_3b's 40: ``ValueError`` naming the
+axis; the reference would keep that axis whole and shard the rest,
+ROADMAP's per-dimension replication).  ``--no-tp`` runs them.
 """
 from __future__ import annotations
 

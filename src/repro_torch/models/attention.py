@@ -429,23 +429,35 @@ def apply_cross_attention(params, cfg: ArchConfig, flags: RunFlags, x,
     the whole static ``ck``/``cv`` (no ``kv_len``), which no step writes;
     a cache that no prefill filled holds zeros, and then the output is
     zero.  A bf16 query against an f32 cache returns f32, as in the
-    reference."""
+    reference.
+
+    Tensor parallelism (``flags.tp``), as the self-attention's: ``cfg``
+    and the weights are this rank's heads and KV heads (its KV head where
+    tp exceeds them, ``sharding.kv_group``), ``ck``/``cv`` hold its KV
+    heads, and the out-projection's partial sums are added over "model"
+    (in training under sequence parallelism reduce-scattered to this
+    rank's rows, its input gathered first).  ``enc`` is whole on every
+    rank: the keys and values are never sequence-sharded (1601 image
+    tokens divide by no tp)."""
     hd = cfg.resolved_head_dim
-    b, s = x.shape[:2]
     if flags.mode == "decode":
+        b, s = x.shape[:2]
         q = mm(x, params["wq"])
         if cfg.qkv_bias:
             q = q + params["bq"]
         out = A.decode_attention(q.reshape(b, s, cfg.n_heads, hd),
                                  cache["ck"], cache["cv"])
     else:
+        x = C.tp_enter(x, flags.tp, train=flags.mode == "train",
+                       sp=flags.sp)
+        b, s = x.shape[:2]
         q, k, v = _proj_qkv(params, cfg, x, enc)
         attend = A.dense_attention if s <= 1024 else A.flash_attention
         out = attend(q, k, v, causal=False, window=cfg.swa_window)
         if flags.mode == "prefill" and cache is not None:
             cache["ck"].copy_(k)
             cache["cv"].copy_(v)
-    return mm(out.reshape(b, s, -1), params["wo"])
+    return _out_proj(params, flags, out.reshape(b, s, -1))
 
 
 def init_cache_attention(cfg: ArchConfig, batch: int, max_len: int,

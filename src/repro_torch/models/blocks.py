@@ -231,10 +231,14 @@ def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
     scatter or partial sum.
     A ``cross`` sub-block's cross-attention sub-layer runs, as in the
     reference, in train and prefill mode only when ``enc`` (B, T, d) is
-    given, and in decode mode always, over the cached ``ck``/``cv``."""
+    given, and in decode mode always, over the cached ``ck``/``cv``.
+    Under tensor parallelism it takes the attention's form (this rank's
+    heads and KV heads, its out-projection's partial sums added over
+    "model"); ``enc`` is whole on every rank, under sequence parallelism
+    too, and the gate ``xgate`` scales this rank's rows."""
     if d.kind == "rwkv":
-        return (_apply_rwkv_subblock(params, cfg, x, cache, **step), cache,
-                {})
+        return (_apply_rwkv_subblock(params, cfg, flags, x, cache, **step),
+                cache, {})
     h = rms_norm(x, params["norm1"].to(x.dtype), cfg.norm_eps)
     c = None if cache is None else cache["attn"]
     if d.kind == "mamba":
@@ -284,18 +288,24 @@ def _recurrent_step(active=None, chunk_len=None, sel_len=None) -> None:
                                   "or sel_len")
 
 
-def _apply_rwkv_subblock(params, cfg: ArchConfig, x, cache=None, **step):
+def _apply_rwkv_subblock(params, cfg: ArchConfig, flags: RunFlags, x,
+                         cache=None, **step):
     """Time-mix then channel-mix, each pre-norm and residual.  The cache
     (``s``, ``x_prev``, ``ffn_prev``) advances by the whole input, on the
-    ``active`` rows of a masked decode step."""
+    ``active`` rows of a masked decode step.  Under tensor parallelism
+    each mix all-reduces its contracting product (``wo``, the FFN's
+    ``wv``); in training under sequence parallelism each gathers the
+    sequence first (``ssm``'s module docstring)."""
     _recurrent_step(**step)
     active = step.get("active")
     c = None if cache is None else cache["attn"]
     h = rms_norm(x, params["norm1"].to(x.dtype), cfg.norm_eps)
-    x = x + ssm.apply_rwkv(params["attn"], cfg, h, cache=c, active=active)
+    x = x + ssm.apply_rwkv(params["attn"], cfg, h, cache=c, active=active,
+                           flags=flags)
     h = rms_norm(x, params["norm2"].to(x.dtype), cfg.norm_eps)
     x = x + ssm.apply_rwkv_ffn(params["mlp"], cfg, h,
-                               None if c is None else c["ffn_prev"])
+                               None if c is None else c["ffn_prev"],
+                               flags=flags)
     if c is not None:
         ssm.store(c, "ffn_prev", h[:, -1], active)
     return x

@@ -34,6 +34,31 @@ promotion: a decode step concatenates the cached conv rows with the new
 input, so a bf16 model on an f32 cache turns f32 from the first Mamba
 layer of a decode step on, as the reference's does.
 
+Tensor parallelism (``flags.tp``, the reference's RWKV6 specs: heads and
+mlp over "model"): a rank computes ``cfg.n_heads`` of the time-mix's
+heads (n_heads / tp under ``sharding.shard_config``), its columns of
+``wr``/``wk``/``wv``/``wg``, its rows of ``u`` and of the ``s`` state,
+and its heads' slice of ``ln_x``, whose group norm is per head; ``wo``
+over heads gives a partial sum that one all-reduce over "model" adds.
+The decay ``w0 + tanh(x A) B`` is computed for the rank's head columns
+only (``w_lora_b``'s and ``w0``'s columns sliced): the whole would cost
+the full (lora, d) product and two exps over all d channels a token, of
+which the rank keeps 1 / tp.  The channel-mix FFN takes its ``wk``
+columns and ``wv`` rows over mlp, one all-reduce after ``wv``, and
+keeps ``wr`` (the receptance gate) whole, computed alike on every rank.
+``x_prev`` and ``ffn_prev`` stay whole on every rank.  In training
+(``flags.mode == "train"``) the input enters through
+``collectives.tp_enter`` (all-gathered over the sequence under sequence
+parallelism, so each rank's first row shifts in its true predecessor)
+and leaves through ``tp_exit`` (reduce-scattered back); under SP the
+gate takes the rank's own rows.  The leaves every rank holds whole but
+feeds only its part of (``mu``, ``w_lora_a``, ``w_lora_b``, ``w0`` and
+``ln_x`` of the time-mix, ``mu`` and ``wr`` of the FFN:
+``TP_PARTIAL``) then carry each rank's part of their gradient, summed
+over "model" once a step (``sharding.TrainPlan.partials``); without SP
+the gate's gradient is divided by tp (``collectives.replicated_input``)
+for that sum to count it once.
+
 A continuous engine's decode step passes ``active`` (a (B,) bool mask):
 an inactive row's recurrent leaves keep their values (the reference lets
 them run on, to be overwritten at the slot's next admission; the active
@@ -49,6 +74,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.prediction import einsum, mm
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops
 from repro_torch.kernels._launch import needs_grad
 from repro_torch.kernels.ref import wkv6_ref
@@ -57,6 +83,13 @@ from repro_torch.models.common import dense_init, group_norm_heads
 WKV_CHUNK = 32
 CLAMP = -30.0
 MAMBA_CHUNK = 128
+
+# the RWKV6 leaves each rank holds whole under tensor parallelism but
+# feeds only its heads' or its mlp columns' products with (or, the FFN's
+# gate, computes alike on every rank): ("attn" | "mlp", leaf) of a
+# sub-block.  Their gradients are summed over "model" once a step
+TP_PARTIAL = (("attn", "mu"), ("attn", "w_lora_a"), ("attn", "w_lora_b"),
+              ("attn", "w0"), ("attn", "ln_x"), ("mlp", "mu"), ("mlp", "wr"))
 
 
 def store(cache: Dict, name: str, new: torch.Tensor, active=None) -> None:
@@ -209,6 +242,9 @@ def init_rwkv(gen: torch.Generator, cfg: ArchConfig, *, device,
               dtype=torch.float32) -> Dict:
     d, rc = cfg.d_model, cfg.rwkv
     h = d // rc.head_dim
+    if cfg.n_heads != h:
+        raise ValueError(f"{cfg.name}: n_heads {cfg.n_heads} is not d_model "
+                         f"/ rwkv.head_dim = {h}")
     kw = dict(device=device, dtype=dtype)
     return {
         "mu": (torch.rand((5, d), generator=gen, device=device) * 0.5
@@ -303,14 +339,34 @@ def _rwkv_mix(params, x, x_prev):
     return [x + mu[i] * delta for i in range(5)]  # r, k, v, w, g
 
 
+def _tp_of(flags):
+    """(the "model" group or None, whether training, whether under SP)."""
+    if flags is None or flags.tp is None:
+        return None, False, False
+    train = flags.mode == "train"
+    return flags.tp, train, train and flags.sp
+
+
+def _cols(tp, width: int):
+    """This rank's ``width`` channels of a whole d-wide leaf: its heads'
+    under tensor parallelism, every channel otherwise."""
+    return slice(None) if tp is None else slice(tp.rank * width,
+                                                (tp.rank + 1) * width)
+
+
 def apply_rwkv(params, cfg: ArchConfig, x, *, cache: Optional[Dict] = None,
-               active=None):
-    """Time-mix block.  x: (B,S,d).  cache: {"s": (B,H,hd,hd) f32,
-    "x_prev": (B,d), ...}, updated in place (``active``: the rows of a
-    masked decode step).  Returns the block output."""
+               active=None, flags=None):
+    """Time-mix block.  x: (B,S,d) (this rank's sequence rows under
+    sequence parallelism).  cache: {"s": (B,H,hd,hd) f32, "x_prev": (B,d),
+    ...}, updated in place (``active``: the rows of a masked decode step).
+    ``flags``: the run's ``RunFlags`` (tensor parallelism, module
+    docstring); None runs whole.  Returns the block output."""
+    tp, train, sp = _tp_of(flags)
+    x = C.tp_enter(x, tp, train=train, sp=sp)
     rc = cfg.rwkv
     b, s, d = x.shape
-    h, hd = d // rc.head_dim, rc.head_dim
+    h, hd = cfg.n_heads, rc.head_dim          # this rank's heads
+    cols = _cols(tp, h * hd)
     x_prev = (cache["x_prev"] if cache is not None
               else torch.zeros((b, d), dtype=x.dtype, device=x.device))
     xr, xk, xv, xw, xg = _rwkv_mix(params, x, x_prev)
@@ -318,10 +374,11 @@ def apply_rwkv(params, cfg: ArchConfig, x, *, cache: Optional[Dict] = None,
     k = mm(xk, params["wk"].to(x.dtype)).reshape(b, s, h, hd)
     v = mm(xv, params["wv"].to(x.dtype)).reshape(b, s, h, hd)
     g = mm(xg, params["wg"].to(x.dtype))
-    # data-dependent decay (Finch): w = exp(-exp(w0 + tanh(x A) B))
-    wdec = params["w0"].float() + mm(
+    # data-dependent decay (Finch): w = exp(-exp(w0 + tanh(x A) B)), for
+    # this rank's head columns
+    wdec = params["w0"][cols].float() + mm(
         torch.tanh(mm(xw, params["w_lora_a"].to(x.dtype))).float(),
-        params["w_lora_b"].float())
+        params["w_lora_b"][:, cols].float())
     w = torch.exp(-torch.exp(wdec)).reshape(b, s, h, hd).to(x.dtype)
     s0 = cache["s"] if cache is not None else None
     if not (s % WKV_CHUNK == 0 and s > WKV_CHUNK):
@@ -331,9 +388,10 @@ def apply_rwkv(params, cfg: ArchConfig, x, *, cache: Optional[Dict] = None,
     else:
         wkv = _wkv_chunked
     y, st = wkv(r, k, v, w, params["u"], s0)
-    y = group_norm_heads(y.reshape(b, s, d), params["ln_x"].to(x.dtype), h)
+    y = group_norm_heads(y.reshape(b, s, h * hd),
+                         params["ln_x"][cols].to(x.dtype), h)
     y = y * torch.nn.functional.silu(g)
-    out = mm(y, params["wo"].to(x.dtype))
+    out = C.tp_exit(mm(y, params["wo"].to(x.dtype)), tp, train=train, sp=sp)
     if cache is not None:
         store(cache, "s", st, active)
         store(cache, "x_prev", x[:, -1], active)
@@ -366,7 +424,7 @@ def cache_specs_rwkv(cache) -> Dict:
 def init_cache_rwkv(cfg: ArchConfig, batch: int, *, device,
                     dtype=torch.bfloat16) -> Dict:
     d = cfg.d_model
-    h, hd = d // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+    h, hd = cfg.n_heads, cfg.rwkv.head_dim      # this rank's heads
     return {"s": torch.zeros((batch, h, hd, hd), dtype=torch.float32,
                              device=device),
             "x_prev": torch.zeros((batch, d), dtype=dtype, device=device),
@@ -384,8 +442,12 @@ def init_rwkv_ffn(gen: torch.Generator, cfg: ArchConfig, *, device,
             "wr": dense_init(gen, (d, d), **kw)}
 
 
-def apply_rwkv_ffn(params, cfg: ArchConfig, x, x_prev=None):
-    """RWKV channel-mix FFN (squared relu), with token shift."""
+def apply_rwkv_ffn(params, cfg: ArchConfig, x, x_prev=None, flags=None):
+    """RWKV channel-mix FFN (squared relu), with token shift.  ``flags``:
+    tensor parallelism over mlp (module docstring); None runs whole."""
+    tp, train, sp = _tp_of(flags)
+    n = x.shape[1]                            # this rank's rows under SP
+    x = C.tp_enter(x, tp, train=train, sp=sp)
     b, s, d = x.shape
     xp = (x_prev if x_prev is not None
           else torch.zeros((b, d), dtype=x.dtype, device=x.device))
@@ -393,6 +455,13 @@ def apply_rwkv_ffn(params, cfg: ArchConfig, x, x_prev=None):
     delta = _shift_delta(x, xp)
     xk = x + mu[0] * delta
     xr = x + mu[1] * delta
+    if sp:
+        xr = xr.narrow(1, tp.rank * n, n)
     k = torch.square(torch.relu(mm(xk, params["wk"].to(x.dtype))))
-    return torch.sigmoid(mm(xr, params["wr"].to(x.dtype))) * mm(
-        k, params["wv"].to(x.dtype))
+    gate = torch.sigmoid(mm(xr, params["wr"].to(x.dtype)))
+    if train and not sp:
+        # every rank computes the gate alike: its gradient counted once
+        # by the step's sum over "model"
+        gate = C.replicated_input(gate, tp)
+    return gate * C.tp_exit(mm(k, params["wv"].to(x.dtype)), tp,
+                            train=train, sp=sp)

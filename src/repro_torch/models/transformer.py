@@ -63,7 +63,10 @@ all-reduces, each layer all-reduces its attention out-projection and
 its MLP down-projection (or MoE combine), and the head all-gathers its
 V / tp logit columns (only the ``last`` rows of a prefill or a chunk):
 2 * n_layers + 1 all-reduces and one all-gather a decode step
-(distributed/collectives.py).  In training (``forward_train`` under a
+(distributed/collectives.py; a cross sub-layer adds its out-projection's,
+and whisper's encoder, which takes the same form, 2 a layer at prefill:
+``sharding.tp_decode_all_reduces``; RWKV6's mixes, ``models/ssm.py``).
+In training (``forward_train`` under a
 ``distributed.sharding.TrainPlan``: ``flags.tp``, ``flags.sp``,
 ``flags.fsdp``) the same sites carry gradients: under sequence
 parallelism the residual stream between the layers is this rank's
@@ -209,12 +212,32 @@ def _encode(params, cfg: ArchConfig, flags: RunFlags, enc_x, run=_call):
     the call's ``dsa_mode`` (the MSE only when the call trains), then
     ``enc_norm``.  ``run(fn, gp, prefix, x)`` runs one group (its leaves
     at ``prefix``; under a checkpoint when training with remat).  Returns
-    (enc (B, T, d), aux)."""
+    (enc (B, T, d), aux).
+
+    Tensor parallelism (``flags.tp``): the encoder's layers take the
+    decoder's form (each all-reduces its out-projection and its MLP's
+    down-projection, 2 all-reduces a layer in a serving prefill).  In
+    training under sequence parallelism the frames are laid out as the
+    decoder's tokens, T / tp rows a rank between the layers (T must
+    divide by tp), and the normed output is all-gathered over the
+    sequence once: every cross sub-layer reads it whole (1 all-gather
+    forward, its reduce-scatter backward, which adds the ranks' partial
+    key/value gradients).  Without SP the output enters the decoder
+    through ``collectives.copy_to_tp``: 1 all-reduce backward, of those
+    partial gradients."""
+    tp, train = flags.tp, flags.mode == "train"
+    sp = train and flags.sp
     x = enc_x + sinusoidal_embedding(enc_x.shape[1], cfg.d_model,
                                      enc_x.dtype, device=enc_x.device)[None]
+    if sp:
+        t = x.shape[1]
+        if t % tp.size:
+            raise ValueError(f"{cfg.name}: {t} encoder frames do not divide "
+                             f"by tp={tp.size} under sequence parallelism")
+        x = x.narrow(1, tp.rank * (t // tp.size), t // tp.size)
     defs = B.group_defs(cfg, decoder=False)
     eflags = RunFlags(mode="train", dsa_mode=flags.dsa_mode,
-                      with_mse=flags.with_mse and flags.mode == "train")
+                      with_mse=flags.with_mse and train, tp=tp, sp=sp)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {k: zero for k in AUX_KEYS}
 
@@ -226,14 +249,21 @@ def _encode(params, cfg: ArchConfig, flags: RunFlags, enc_x, run=_call):
     for i, gp in enumerate(params["enc_groups"]):
         x, *a = run(group, gp, f"/enc_groups/{i}", x)
         aux = {k: aux[k] + v for k, v in zip(AUX_KEYS, a)}
-    return rms_norm(x, params["enc_norm"].to(x.dtype), cfg.norm_eps), aux
+    enc = rms_norm(x, params["enc_norm"].to(x.dtype), cfg.norm_eps)
+    if sp:
+        enc = C.gather_seq(enc, tp)
+    elif train and tp is not None:
+        enc = C.copy_to_tp(enc, tp)
+    return enc, aux
 
 
 def _embed(params, cfg: ArchConfig, flags: RunFlags, tokens, extras,
            run=_call):
     """The token embeddings (whisper's with sinusoidal positions over
     their length) and the cross-attention input from ``extras`` (None
-    without one): (x, enc, encoder aux or None)."""
+    without one): (x, enc, encoder aux or None).  Under tensor
+    parallelism the encoder's output and the image embeddings are whole
+    on every rank (``_encode``)."""
     dt = DTYPES[cfg.dtype]
     emb, tp = params["embed"], flags.tp
     if tp is not None and emb.shape[0] * tp.size == cfg.vocab:
@@ -254,8 +284,12 @@ def _embed(params, cfg: ArchConfig, flags: RunFlags, tokens, extras,
     elif cfg.cross_attn_period and "img" in extras:
         enc = extras["img"].to(dt)
     if cfg.enc_dec:
-        x = x + sinusoidal_embedding(x.shape[1], cfg.d_model, dt,
-                                     device=x.device)[None]
+        pe = sinusoidal_embedding(tokens.shape[1], cfg.d_model, dt,
+                                  device=x.device)
+        if x.shape[1] != tokens.shape[1]:
+            # sequence parallelism: this rank's rows, at their positions
+            pe = pe.narrow(0, tp.rank * x.shape[1], x.shape[1])
+        x = x + pe[None]
     return x, enc, aux
 
 

@@ -25,12 +25,17 @@ from repro_torch.inference.scheduler import ContinuousEngine, Request
 from repro_torch.inference.telemetry import Telemetry
 from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models.transformer import (attn_caches, init_cache,
-                                            init_model,
+                                            init_model, set_cross_gates,
                                             unstacked_cache_specs)
 
 MAX_LEN = 96
 SLOTS = 8
 DEV = dict(device="cpu")
+# the archs whose cross-attention and RWKV6 layers take tensor parallelism
+XARCHS = ("whisper_small", "llama_3_2_vision", "rwkv6_3b")
+# every cross gate (init 0: tanh(0) = 0 keeps the encoder and the image
+# out of the logits)
+XGATE = 0.5
 
 
 def requests(vocab, shapes, seed=0, greedy=True, temps=None):
@@ -48,6 +53,26 @@ def model(arch, seed=0):
     return cfg, init_model(seed, cfg, **DEV)
 
 
+def xmodel(arch, seed=0):
+    """``model`` with every cross gate at ``XGATE``."""
+    cfg, params = model(arch, seed)
+    return cfg, set_cross_gates(params, XGATE)
+
+
+def extras_of(cfg, batch, seed=3):
+    """The second input of an encoder-decoder (``enc_x``) or a
+    cross-attention arch (``img``), (batch, T, d) from ``seed``; {} for
+    other archs."""
+    rng = np.random.default_rng(seed)
+    key, t = (("enc_x", cfg.enc_seq_len) if cfg.enc_dec else
+              ("img", cfg.n_image_tokens) if cfg.cross_attn_period else
+              (None, 0))
+    if key is None:
+        return {}
+    return {key: rng.standard_normal((batch, t, cfg.d_model)).astype(
+        np.float32)}
+
+
 def pair(cfg, params, mesh, device="cpu", **kw):
     """(unsharded, sharded) continuous engines of one configuration."""
     kw = {"slots": SLOTS, "max_len": MAX_LEN, "seg_len": 4, **kw}
@@ -60,15 +85,19 @@ def both(plain, sharded, mk):
 
 
 def generate_both(cfg, params, mesh, batch=8, n_new=12, device="cpu",
-                  **kw):
-    """Static generate, greedy and sampled: {greedy: (plain, sharded)}."""
+                  extras=None, **kw):
+    """Static generate, greedy and sampled: {greedy: (plain, sharded)}.
+    ``extras``: an encoder-decoder's or cross-attention arch's second
+    input."""
     plain = Engine(cfg, params, max_len=MAX_LEN, device=device, **kw)
     sharded = Engine(cfg, params, max_len=MAX_LEN, mesh=mesh, device=device,
                      **kw)
     prompts = np.random.default_rng(3).integers(
         1, cfg.vocab - 4, size=(batch, 24)).astype(np.int32)
-    return {g: (plain.generate(prompts, n_new, greedy=g, seed=5).tokens,
-                sharded.generate(prompts, n_new, greedy=g, seed=5).tokens)
+    return {g: (plain.generate(prompts, n_new, greedy=g, seed=5,
+                               extras=extras).tokens,
+                sharded.generate(prompts, n_new, greedy=g, seed=5,
+                                 extras=extras).tokens)
             for g in (True, False)}, sharded
 
 
@@ -247,12 +276,52 @@ def tp_scenarios(rank):
         p, s = pair(acfg, aparams, amesh, slots=2)
         out[arch] = gen, both(p, s, lambda: requests(
             acfg.vocab, [(70, 6), (33, 5), (12, 4)], seed=17))
-    rcfg, rparams = model("rwkv6_3b")
+    jcfg, jparams = model("jamba_1_5_large")
     try:
-        Engine(rcfg, rparams, mesh=ymesh, **DEV)
-        out["rwkv_tp"] = None
+        Engine(jcfg, jparams, mesh=ymesh, **DEV)
+        out["jamba_tp"] = None
     except NotImplementedError as e:
-        out["rwkv_tp"] = str(e)
+        out["jamba_tp"] = str(e)
+    for arch in XARCHS:
+        xcfg, xparams = xmodel(arch)
+        out["x", arch] = _xarch(xcfg, xparams,
+                                make_serving_mesh(dp=1, tp=2, cfg=xcfg))
+    return out
+
+
+def _xarch(cfg, params, mesh):
+    """Cross-attention and RWKV6 archs at tp 2: static generate greedy
+    and sampled with the second input, the continuous engine (blocking
+    admission, no second input), its resident cache against the resolved
+    specs, the prefill's last-row logits against the unsharded ones, and
+    the collectives of a prefill and of one decode step against the
+    budget."""
+    out = {}
+    b = 4
+    extras = extras_of(cfg, b)
+    out["generate"], eng = generate_both(cfg, params, mesh, batch=b,
+                                         n_new=8, extras=extras)
+    p, s = pair(cfg, params, mesh, slots=2)
+    out["continuous"] = both(p, s, lambda: requests(
+        cfg.vocab, [(20, 6), (33, 5), (12, 4)], seed=13))
+    out["layout"] = _cache_layout(s, mesh)
+    prompts = np.random.default_rng(7).integers(
+        1, cfg.vocab - 4, size=(b, 24)).astype(np.int32)
+    plain = Engine(cfg, params, max_len=MAX_LEN, **DEV)
+    want = plain.prefill(prompts, extras=extras)[0]
+    before = C.snapshot()
+    got, caches, _ = eng.prefill(prompts, caches=eng.resident_cache(b),
+                                 extras=extras)
+    prefill = C.count_collectives(before, "model")
+    out["logits"] = float((got - want).abs().max() / want.abs().max())
+    step = eng.scan_step(b)
+    before = C.snapshot()
+    with torch.inference_mode():
+        step(got[:, -1].argmax(-1, keepdim=True))
+    out["budget"] = (prefill, C.count_collectives(before, "model"),
+                     TS.tp_decode_all_reduces(eng.mcfg))
+    full = sum(t.numel() * t.element_size() for t in _leaves(params))
+    out["weights"] = (eng.tp, eng.weight_bytes_per_device(), full)
     return out
 
 
@@ -362,8 +431,39 @@ def dp_tp_scenarios(rank, ref=None):
     out["fallback_weights"] = (
         eng.tp, eng.weight_bytes_per_device(),
         sum(t.numel() * t.element_size() for t in _leaves(fparams)))
+    # cross-attention and RWKV6 at dp 2 x tp 2, and llama_3_2_vision at tp
+    # 4 above its 2 KV heads in both attentions
+    for arch in XARCHS:
+        xcfg, xparams = xmodel(arch)
+        xmesh = make_serving_mesh(dp=2, tp=2, cfg=xcfg)
+        out["x", arch] = generate_both(xcfg, xparams, xmesh, batch=4,
+                                       n_new=8, extras=extras_of(xcfg, 4))[0]
+    vcfg, vparams = xmodel("llama_3_2_vision")
+    vmesh = make_serving_mesh(dp=1, tp=4, cfg=vcfg)
+    out["x_kv_generate"], eng = generate_both(
+        vcfg, vparams, vmesh, batch=4, n_new=8, extras=extras_of(vcfg, 4))
+    sub = eng.params["groups"][0]["b3"]
+    head = slice(rank // 2 * 16, (rank // 2 + 1) * 16)
+    out["x_kv_weights"] = (
+        eng.tp, eng.mcfg.n_heads, eng.mcfg.n_kv_heads,
+        tuple(sub["xattn"]["wk"].shape), all(
+            torch.equal(sub[a]["wk"], vparams["groups"][0]["b3"][a]["wk"][
+                :, head]) for a in ("attn", "xattn")))
+    p, s = pair(vcfg, vparams, vmesh, slots=2)
+    out["x_kv_continuous"] = both(p, s, lambda: requests(
+        vcfg.vocab, [(20, 6), (33, 5), (12, 4)], seed=13))
+    # explicit tensor-parallel rules on a tp that the heads do not divide
+    try:
+        Engine(fcfg, fparams, max_len=MAX_LEN, mesh=fallback,
+               shard_rules=TS.make_serving_rules(tp=True), **DEV)
+        out["explicit_rules"] = None
+    except ValueError as e:
+        out["explicit_rules"] = str(e)
     if ref is not None:
         out["reference"] = _reference(ref, mesh)
+        out["x_reference"] = {
+            arch: _x_reference(arch, xp, ref, mesh)
+            for arch, xp in ref["x_params"].items()}
         eng = Engine(ycfg, from_reference(ref["kv_params"], device="cpu"),
                      max_len=MAX_LEN, mesh=kv_mesh, **DEV)
         out["reference_kv"] = (eng.tp, eng.generate(
@@ -382,6 +482,17 @@ def _reference(ref, mesh):
                          seg_len=4, mesh=mesh, **DEV)
     cont = s.run(requests(cfg.vocab, ref["shapes"], seed=ref["seed"]))
     return gen, cont
+
+
+def _x_reference(arch, xparams, ref, mesh):
+    """The port at dp 2 x tp 2 on the reference's weights of ``arch``
+    (its cross gates at ``XGATE``): static greedy generate with the
+    second input."""
+    cfg = reduced(get_config(arch))
+    eng = Engine(cfg, from_reference(xparams, device="cpu"), max_len=MAX_LEN,
+                 mesh=mesh, **DEV)
+    return eng.generate(ref["prompts"][:4], ref["n_new"], seed=5,
+                        extras=extras_of(cfg, 4)).tokens
 
 
 def run(rank, group, ref=None):

@@ -18,6 +18,7 @@ import contextlib
 import dataclasses
 import os
 
+import numpy as np
 import torch
 
 from repro_torch import convert
@@ -30,6 +31,7 @@ from repro_torch.distributed.fault_tolerance import elastic_mesh
 from repro_torch.distributed.sharding import make_rules, tree_bytes
 from repro_torch.launch import train as LT
 from repro_torch.launch.mesh import make_production_mesh, mesh_over
+from repro_torch.models.transformer import set_cross_gates
 from repro_torch.optim import adamw
 from repro_torch.training import steps as ST
 from repro_torch.tree import named_leaves
@@ -39,6 +41,11 @@ SEQ = 64
 BATCH = 8
 STEPS = 3
 OPT = adamw.OptConfig(lr=3e-4, total_steps=10, warmup_steps=1)
+# every cross gate at the start of a run (init: 0, and tanh(0) = 0 keeps
+# the cross sub-layers' weights out of the first step's gradient)
+XGATE = 0.5
+# the archs whose cross-attention and RWKV6 layers train under TP + SP
+XARCHS = ("whisper_small", "llama_3_2_vision", "rwkv6_3b")
 DRYRUN_SHAPE = ShapeConfig("train_64", SEQ, BATCH, "train")
 
 
@@ -50,9 +57,19 @@ def cfg_of(arch, layers=0, remat=False):
 
 
 def batches(cfg, n=STEPS, seed=0):
+    """``n`` global batches; an encoder-decoder's carry ``enc_x`` and a
+    cross-attention arch's ``img`` (B, T, d), drawn from ``seed``."""
     data = lm_batches(DataConfig(vocab=cfg.vocab, seq_len=SEQ,
                                  global_batch=BATCH, seed=seed))
-    return [next(data) for _ in range(n)]
+    out = [next(data) for _ in range(n)]
+    rng = np.random.default_rng(seed + 100)
+    key, t = (("enc_x", cfg.enc_seq_len) if cfg.enc_dec else
+              ("img", cfg.n_image_tokens) if cfg.cross_attn_period else
+              (None, 0))
+    for b in out if key else ():
+        b[key] = rng.standard_normal((BATCH, t, cfg.d_model)).astype(
+            np.float32)
+    return out
 
 
 def mesh_of(shape):
@@ -88,6 +105,7 @@ def train_run(cfg, mb, mesh=None, rules=None, state=None):
     if state is None:
         state, _ = ST.init_train_state(SEED, cfg, OPT, device="cpu",
                                        mesh=mesh, rules=rules)
+        set_cross_gates(state["params"], XGATE)
     step = ST.make_train_step(cfg, OPT, microbatches=mb, mesh=mesh,
                               rules=rules)
     bs = batches(cfg)
@@ -130,11 +148,14 @@ def compare(plain, cfg, mb, mesh, rules, budget=True):
     return out
 
 
-def two(rank):
+def two(rank, ckpt_dir):
     """2 ranks: dp 2 (the host rules on ``elastic_mesh``), FSDP 2
     (``make_rules(tp=False)``, 1 and 2 microbatches), TP 2 + SP
-    (``make_rules()`` on (1, 2)), FSDP on mixtral_8x22b and rwkv6_3b, and
-    the production mesh's refusal."""
+    (``make_rules()`` on (1, 2)), FSDP on mixtral_8x22b and rwkv6_3b, the
+    production mesh's refusal; TP 2 + SP on the cross-attention and
+    RWKV6 archs (``XARCHS``), their budget with the recompute, llama's
+    image at an odd token count, and a checkpoint round trip of a tp-2
+    rwkv6_3b and whisper_small state."""
     out = {}
     yi = cfg_of("yi_6b")
     plain = {mb: train_run(yi, mb) for mb in (1, 2)}
@@ -164,7 +185,55 @@ def two(rank):
         ep=plan.ep_active(SEQ), tp=plan.tp.size,
         budget=plan.collective_budget(1, seq_len=SEQ, remat=False,
                                       mse=True))
+    m12 = mesh_of((1, 2))
+    for arch in XARCHS:
+        cfg = cfg_of(arch)
+        out["x_tp2", arch] = compare(train_run(cfg, 1), cfg, 1, m12,
+                                     make_rules())
+        rem = cfg_of(arch, remat=True)
+        got = train_run(rem, 1, m12, make_rules())
+        out["x_remat", arch] = (got["counts"], got["step"].plan
+                                .collective_budget(1, seq_len=SEQ,
+                                                   remat=True,
+                                                   mse=rem.dsa.enabled,
+                                                   steps=STEPS))
+        out["x_partials", arch] = got["step"].plan.partials
+    # TP 2 without SP: RWKV6's FFN gate, computed alike on both ranks,
+    # and whisper's encoder output entering the decoder by copy_to_tp
+    for arch in ("rwkv6_3b", "whisper_small"):
+        cfg = cfg_of(arch)
+        out["x_tp2_nosp", arch] = compare(train_run(cfg, 1), cfg, 1, m12,
+                                          make_rules(seq_parallel=False))
+    # 33 image tokens: the keys and values of the cross sub-layer cannot
+    # be sequence-sharded, and reach every rank whole
+    odd = dataclasses.replace(cfg_of("llama_3_2_vision"), n_image_tokens=33)
+    out["x_odd"] = compare(train_run(odd, 1), odd, 1, m12, make_rules())
+    for arch in ("rwkv6_3b", "whisper_small"):
+        out["x_ckpt", arch] = _round_trip(arch, m12, ckpt_dir)
     return out
+
+
+def _round_trip(arch, mesh, ckpt_dir):
+    """A tp-2 state after one step, saved (``gather_state``: rank 0
+    writes the whole) and restored into another seed's state on the same
+    mesh (``shard_state``): whether every leaf of the params and the
+    moments is back bit for bit, and the leaves compared."""
+    cfg = cfg_of(arch)
+    rules = make_rules()
+    got = train_run(cfg, 1, mesh, rules)
+    root = os.path.join(ckpt_dir, f"x_{arch}")
+    CK.AsyncCheckpointer(root).save(got["state"], 1, block=True,
+                                    plan=got["step"].plan)
+    torch.distributed.barrier()
+    like, _ = ST.init_train_state(SEED + 1, cfg, OPT, device="cpu",
+                                  mesh=mesh, rules=rules)
+    back, at = CK.restore(os.path.join(root, "ckpt_1"), like, "cpu",
+                          plan=got["step"].plan)
+    pairs = [(a, b) for key in ("params", "opt")
+             for (_, a), (_, b) in zip(named_leaves(got["state"][key]),
+                                       named_leaves(back[key]))
+             if isinstance(a, torch.Tensor)]
+    return at, all(torch.equal(a, b) for a, b in pairs), len(pairs)
 
 
 def staged(mesh):
@@ -201,7 +270,7 @@ def _whole_params(state, plan):
     return None if got is None else _numpy(got["params"])
 
 
-def four(rank, ref_params, ckpt_dir):
+def four(rank, ref_params, ckpt_dir, x_params):
     """4 ranks: dp 2 x tp 2 and the multipod rules on (2, 1, 2); the
     collective budget at 1 and 2 layers, with and without remat; the
     reference's weights at dp 2 x tp 2; a run saved at step 2 on (2, 2)
@@ -276,6 +345,21 @@ def four(rank, ref_params, ckpt_dir):
     out["cli"] = (LT.train(LT.parse_args(argv)).metrics,
                   LT.train(LT.parse_args(argv), m22, make_rules()).metrics)
     out["elastic"] = tuple(elastic_mesh().mesh.shape)
+    # the cross-attention and RWKV6 archs at dp 2 x tp 2, and on the
+    # reference's weights (its cross gates at XGATE) and batches
+    for arch in XARCHS:
+        cfg = cfg_of(arch)
+        out["x_dp2xtp2", arch] = compare(train_run(cfg, 1), cfg, 1, m22,
+                                         make_rules())
+        plan = ST.make_train_step(cfg, OPT, mesh=m22,
+                                  rules=make_rules()).plan
+        whole = convert.from_reference(x_params[arch], device="cpu")
+        for path, p in named_leaves(whole):
+            p.requires_grad_(not adamw.is_frozen(path))
+        state = CK.shard_state({"params": whole, "opt": adamw.init(OPT, whole),
+                                "step": 0}, plan)
+        out["x_reference", arch] = train_run(cfg, 1, m22, make_rules(),
+                                             state=state)["metrics"]
     return out
 
 

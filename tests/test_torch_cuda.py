@@ -2193,9 +2193,9 @@ def test_cuda_k1_yi_tp16_rank_geometry(cuda_device, qdt, cdt):
     _k1_shard(cuda_device, qdt, cdt, hkv=1, g=2)
 
 
-def _k1_shard(cuda_device, qdt, cdt, hkv, g):
+def _k1_shard(cuda_device, qdt, cdt, hkv, g, hd=128):
     gen = torch.Generator(device=cuda_device).manual_seed(131)
-    b, hd, s, bk, nb = 4, 128, 4224, 128, 6
+    b, s, bk, nb = 4, 4224, 128, 6
     q = torch.randn((b, hkv * g, 1, hd), generator=gen,
                     device=cuda_device).to(qdt)
     kc, vc = (torch.randn((b, s, hkv, hd), generator=gen,
@@ -2250,6 +2250,62 @@ def test_cuda_k2_yi_tp16_rank_geometry(cuda_device, dtype):
     atol, rtol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,cdt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32)],
+                         ids=["bf16-bf16", "f32-f32"])
+@pytest.mark.parametrize("hkv,g,hd", [(6, 1, 64), (4, 4, 128)],
+                         ids=["whisper", "vision"])
+def test_cuda_k1_cross_arch_tp2_rank_geometry(cuda_device, qdt, cdt, hkv, g,
+                                              hd):
+    """K1 at one tp-2 rank of whisper_small (6 query heads on 6 KV heads,
+    G 1, hd 64) and of llama_3_2_vision (16 on 4, G 4, hd 128), ragged
+    kv_len and an ok = 0 block, against its plain version."""
+    _k1_shard(cuda_device, qdt, cdt, hkv=hkv, g=g, hd=hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hkv,g,hd,l", [(6, 1, 64, 768), (4, 4, 128, 2048)],
+                         ids=["whisper", "vision"])
+def test_cuda_k2_cross_arch_tp2_rank_geometry(cuda_device, dtype, hkv, g,
+                                              hd, l):
+    """K2 at one tp-2 rank of whisper_small's decoder prefill (6 query
+    heads on 6 KV heads, G 1, hd 64: the ``launch_tc<64>`` instance in
+    bf16; L 768, 6 key blocks, so that 4 random ones are a selection) and
+    of llama_3_2_vision's (16 on 4, G 4, hd 128, L 2048), block 128,
+    model-layout views."""
+    args = _k2_window_inputs(cuda_device, dtype, g, hd, 128, l, seed=149,
+                             hkv=hkv)
+    kw = dict(block_q=128, block_k=128, causal=True)
+    got = K2.dsa_block_sparse_attention(*args, **kw)
+    want = K2.dsa_block_sparse_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_k7_rwkv_tp2_rank_geometry(cuda_device, dtype):
+    """K7 at one tp-2 rank of rwkv6_3b: its 20 heads of hd 64, from a zero
+    and from a random state, against its plain version: y and s_last."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (r, k, v, w, u), s0 = _k7_inputs(cuda_device, dtype, 64, seed=151, b=2,
+                                     h=20, s=256)
+    atol, rtol = TOL[dtype]
+    for s in (torch.zeros_like(s0), s0):
+        y, st = K7.wkv6_chunked(r, k, v, w, u, s)
+        yp, sp = K7.wkv6_chunked_plain(r, k, v, w, u, s)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y.float(), yp.float(), atol=atol,
+                                   rtol=rtol)
+        torch.testing.assert_close(st, sp, atol=1e-5, rtol=1e-5)
 
 
 def _pairs_equal(pair):

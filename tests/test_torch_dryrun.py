@@ -306,15 +306,30 @@ def test_long_500k_is_refused():
         DR.run_cell("yi_6b", "long_500k")
 
 
-@pytest.mark.parametrize("arch", ["deepseek_v3", "rwkv6_3b"])
+@pytest.mark.parametrize("arch", ["deepseek_v3", "jamba_1_5_large"])
 def test_tp_cells_without_a_tp_form_are_refused(arch):
-    """tp > 1 on MLA and RWKV6 raises naming "Distribution", in training
+    """tp > 1 on MLA and Mamba raises naming "Distribution", in training
     (the plan) and in serving (the engine)."""
     cfg = reduced(get_config(arch))
     with pytest.raises(NotImplementedError, match="Distribution"):
         TS.make_train_plan(cfg, mesh4(), TS.make_rules())
     with pytest.raises(NotImplementedError, match="Distribution"):
         TS.refuse_tp(cfg, 2, "serving", "serve it dp-only")
+
+
+def test_whisper_tp16_cells_refuse_naming_heads(tmp_path):
+    """whisper_small's 12 heads do not divide the production mesh's tp
+    16: its decode_32k cell (the engine, on explicit tensor-parallel
+    rules) writes a ``.fail`` record naming "heads" and ROADMAP's
+    "Distribution" instead of serving replicated weights as tp 16."""
+    with pytest.raises(SystemExit) as e:
+        DR.main(["--arch", "whisper_small", "--shape", "decode_32k",
+                 "--out", str(tmp_path)])
+    assert e.value.code == 1
+    fail = (tmp_path / "whisper_small__decode_32k__single.json.fail"
+            ).read_text()
+    assert "heads" in fail and "Distribution" in fail
+    assert "ValueError" in fail
 
 
 def test_main_writes_fail_records_naming_distribution(tmp_path):

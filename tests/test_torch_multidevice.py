@@ -130,11 +130,40 @@ eng = Engine(kcfg, kparams, max_len=96, mesh=kmesh)
 out["kv_tp"] = eng.tp
 out["kv_gen"] = np.asarray(eng.generate(prompts, spec["n_new"], seed=5)
                            .tokens).tolist()
+# cross-attention and RWKV6 at (2, 2), every cross gate at 0.5, the second
+# input drawn as spmd_scenarios.extras_of draws it
+def gate(t):
+    return {k: gate(v) if isinstance(v, dict) else
+            (v * 0 + 0.5 if k == "xgate" else v) for k, v in t.items()}
+for arch in spec["x_archs"]:
+    xcfg = reduced(get_config(arch))
+    xparams = gate(init_model(jax.random.PRNGKey(spec["key"]), xcfg)[0])
+    rng = np.random.default_rng(3)
+    extras = ({"enc_x": rng.standard_normal(
+                  (4, xcfg.enc_seq_len, xcfg.d_model)).astype(np.float32)}
+              if xcfg.enc_dec else
+              {"img": rng.standard_normal(
+                  (4, xcfg.n_image_tokens, xcfg.d_model)).astype(np.float32)}
+              if xcfg.cross_attn_period else None)
+    eng = Engine(xcfg, xparams, max_len=96, mesh=mesh)
+    out["x_tp", arch] = eng.tp
+    out["x_gen", arch] = np.asarray(eng.generate(
+        prompts[:4], spec["n_new"], extras=extras, seed=5).tokens).tolist()
+out = {k if isinstance(k, str) else "/".join(k): v for k, v in out.items()}
 print(json.dumps(out))
 """
 
 REF = dict(arch="stablelm_3b", kv_arch="yi_6b", key=0, n_new=12, seed=19,
-           shapes=[(20, 5), (33, 9), (7, 1), (40, 12), (12, 6), (25, 3)])
+           shapes=[(20, 5), (33, 9), (7, 1), (40, 12), (12, 6), (25, 3)],
+           x_archs=list(S.XARCHS))
+
+
+def _gated(tree):
+    """A reference params tree (numpy) with every cross gate at
+    ``spmd_scenarios.XGATE``."""
+    return {k: _gated(v) if isinstance(v, dict) else
+            (np.full_like(v, S.XGATE) if k == "xgate" else v)
+            for k, v in tree.items()}
 
 
 @pytest.fixture(scope="module")
@@ -154,9 +183,12 @@ def reference():
                              json.dumps(spec)], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
+    xparams = {arch: _gated(jax.tree.map(np.asarray, ref_init_model(
+        jax.random.PRNGKey(REF["key"]), ref_reduced(ref_get_config(arch)))[0]))
+        for arch in REF["x_archs"]}
     ref = dict(REF, params=jax.tree.map(np.asarray, params),
                kv_params=jax.tree.map(np.asarray, kparams),
-               prompts=prompts)
+               prompts=prompts, x_params=xparams)
     yield proc, ref
     if proc.poll() is None:
         proc.kill()
@@ -467,19 +499,138 @@ def test_reference_fault_explicit_axis_serving_mesh(reference_out):
 # -- refusals, rules and spec trees (no process group) -------------------------
 
 
-@pytest.mark.parametrize("arch", ["deepseek_v3", "rwkv6_3b",
-                                  "jamba_1_5_large", "whisper_small",
-                                  "llama_3_2_vision"])
+@pytest.mark.parametrize("arch", ["deepseek_v3", "jamba_1_5_large"])
 def test_tp_unsupported_archs_raise(arch):
-    """tp > 1 on MLA, RWKV6, Mamba and cross-attention archs raises
-    NotImplementedError naming "Distribution"."""
+    """tp > 1 on MLA and Mamba archs raises NotImplementedError naming
+    "Distribution"."""
     with pytest.raises(NotImplementedError, match="Distribution"):
         make_serving_mesh(dp=1, tp=2, cfg=reduced(get_config(arch)))
 
 
+@pytest.mark.parametrize("arch", S.XARCHS)
+def test_tp_cross_and_rwkv_archs_are_accepted(arch):
+    """Cross-attention and RWKV6 archs have a tensor-parallel form: no
+    refusal, no indivisible axis at tp 2, and a rank's geometry of half
+    the heads (RWKV6's d_model / head_dim among them) and half d_ff."""
+    cfg = reduced(get_config(arch))
+    assert TS.tp_unsupported(cfg) is None
+    TS.refuse_tp(cfg, 2, "serving", "")
+    assert TS.serving_tp_issues(cfg, 2) == []
+    shard = TS.shard_config(cfg, 2)
+    assert (shard.n_heads, shard.d_ff) == (cfg.n_heads // 2, cfg.d_ff // 2)
+    if cfg.rwkv is not None:
+        assert cfg.n_heads == cfg.d_model // cfg.rwkv.head_dim
+
+
 def test_tp_unsupported_engine_raises(tp):
     """The engine raises too, on a tp mesh built without a cfg."""
-    assert "Distribution" in tp[0]["rwkv_tp"]
+    assert "Distribution" in tp[0]["jamba_tp"]
+
+
+# -- cross-attention and RWKV6 under tensor parallelism --------------------------
+
+# f32 at reduced width: the tp sums run in another order (ROADMAP,
+# "Products are not row-invariant"); measured <= 1e-6 of the largest logit
+X_LOGIT_RTOL = 1e-5
+
+
+def _x_grid(tp, dp_tp, grid, arch):
+    return (tp[0]["x", arch]["generate"] if grid == (1, 2)
+            else dp_tp[0]["x", arch])
+
+
+@pytest.mark.parametrize("grid", [(1, 2), (2, 2)], ids=_tp_ids)
+@pytest.mark.parametrize("arch", S.XARCHS)
+def test_tp_cross_and_rwkv_generate_equals_unsharded(tp, dp_tp, arch, grid):
+    """whisper_small (the encoder-decoder), llama_3_2_vision (gated
+    cross-attention over the image) and rwkv6_3b at tp 2 and dp 2 x tp
+    2, every cross gate at 0.5: static generate with the second input,
+    greedy and sampled, gives the unsharded tokens."""
+    for greedy, pair in _x_grid(tp, dp_tp, grid, arch).items():
+        np.testing.assert_array_equal(pair[1], pair[0],
+                                      err_msg=f"greedy={greedy}")
+
+
+@pytest.mark.parametrize("arch", S.XARCHS)
+def test_tp_cross_and_rwkv_continuous_equals_unsharded(tp, arch):
+    """The continuous engine at tp 2 (blocking admission: K7 on the
+    rank's heads for rwkv6_3b) gives the unsharded engine's tokens, and
+    its resident cache (RWKV6's state over heads, its last tokens whole;
+    the cross ``ck``/``cv`` over KV heads) has the resolved specs'
+    shapes on every rank."""
+    _equal(tp[0]["x", arch]["continuous"])
+    for rank, res in enumerate(tp):
+        got, want = res["x", arch]["layout"]
+        assert got == want, rank
+
+
+@pytest.mark.parametrize("arch", S.XARCHS)
+def test_tp_cross_and_rwkv_prefill_logits_and_weights(tp, arch):
+    """The tp-2 prefill's last-row logits within ``X_LOGIT_RTOL`` of the
+    unsharded ones (relative to the largest), and a rank's weights about
+    half the whole (norms, RWKV6's mixes and decay LoRA, the FFN's
+    receptance and the gates stay whole)."""
+    for res in tp:
+        x = res["x", arch]
+        assert x["logits"] <= X_LOGIT_RTOL, x["logits"]
+        eng_tp, per_dev, full = x["weights"]
+        assert eng_tp == 2 and per_dev / full <= 0.5 + 0.2, per_dev / full
+
+
+@pytest.mark.parametrize("arch", S.XARCHS)
+def test_tp_cross_and_rwkv_collective_budget(tp, arch):
+    """One decode step issues ``tp_decode_all_reduces`` all-reduces over
+    "model" (whisper_small 3 a decoder layer, llama_3_2_vision 2 a layer
+    and 1 a cross layer, rwkv6_3b 2 a layer; each + 1 for the embedding)
+    and one all-gather; a prefill the same and, on whisper_small, 2 an
+    encoder layer more."""
+    cfg = reduced(get_config(arch))
+    for res in tp:
+        prefill, step, per = res["x", arch]["budget"]
+        want = {"whisper_small": 3 * cfg.n_layers + 1,
+                "llama_3_2_vision": 2 * cfg.n_layers + cfg.n_layers // 5 + 1,
+                "rwkv6_3b": 2 * cfg.n_layers + 1}[arch]
+        assert per == want
+        C.check_tp_decode_collectives(step, cfg.n_layers, 1, per)
+        enc = 2 * cfg.n_enc_layers if cfg.enc_dec else 0
+        C.check_tp_decode_collectives(prefill, cfg.n_layers, 1, per + enc)
+
+
+@pytest.mark.parametrize("case", ["static", "continuous"])
+def test_tp_llama_vision_above_kv_heads_equals_unsharded(dp_tp, case):
+    """tp 4 on reduced llama_3_2_vision's 4 query heads and 2 KV heads:
+    each rank one query head on its group's KV head in the
+    self-attention and in the cross-attention (its slice of both whole
+    KV weights), and the static (greedy and sampled, with the image) and
+    continuous engines give the unsharded tokens."""
+    for rank, res in enumerate(dp_tp):
+        assert res["x_kv_weights"] == (4, 1, 1, (64, 16), True), rank
+    if case == "continuous":
+        _equal(dp_tp[0]["x_kv_continuous"])
+        return
+    for greedy, pair in dp_tp[0]["x_kv_generate"].items():
+        np.testing.assert_array_equal(pair[1], pair[0],
+                                      err_msg=f"greedy={greedy}")
+
+
+def test_tp_explicit_rules_never_fall_back_replicated(dp_tp):
+    """Explicit tensor-parallel ``shard_rules`` on a (1, 4) mesh whose
+    tp the 2 query heads do not divide raise ``ValueError`` naming the
+    axis (where the default rules fall back to replicated weights,
+    ``test_tp_indivisible_falls_back_replicated``)."""
+    msg = dp_tp[0]["explicit_rules"]
+    assert msg is not None and "heads" in msg and "Distribution" in msg
+
+
+@pytest.mark.parametrize("arch", S.XARCHS)
+def test_reference_dp2_tp2_cross_and_rwkv_tokens(dp_tp, reference_out,
+                                                 arch):
+    """The port's dp 2 x tp 2 engines on the reference's weights of the
+    cross-attention and RWKV6 archs (gates at 0.5, the same second input)
+    give the reference's own (2, 2) engine's greedy tokens."""
+    assert reference_out[f"x_tp/{arch}"] == 2
+    np.testing.assert_array_equal(dp_tp[0]["x_reference"][arch],
+                                  np.asarray(reference_out[f"x_gen/{arch}"]))
 
 
 def test_serving_config_mesh_fields():
@@ -513,7 +664,8 @@ def test_resolve_spec_matches_reference(tp_rules):
     mesh = _Mesh((2, 4), ("data", "model"))
     rrules = RS.make_serving_rules(tp=tp_rules)
     trules = TS.make_serving_rules(tp=tp_rules)
-    for arch in ("stablelm_3b", "yi_6b", "mixtral_8x22b", "deepseek_v3"):
+    for arch in ("stablelm_3b", "yi_6b", "mixtral_8x22b", "deepseek_v3",
+                 "whisper_small", "llama_3_2_vision", "rwkv6_3b"):
         cfg = reduced(get_config(arch))
         params = init_model(0, cfg, device="cpu")
         specs = model_param_specs(cfg)

@@ -122,25 +122,74 @@ for shape, key in (((2, 2), ""), ((1, 4), "_1x4")):
         for _ in range(spec["steps"]):
             state, m = step(state, next(data))
             out["losses" + key].append(float(m["loss"]))
+# the cross-attention and RWKV6 archs at (2, 2), every cross gate at 0.5,
+# the second input drawn as spmd_train_scenarios.batches draws it
+def gate(t):
+    return {k: gate(v) if isinstance(v, dict) else
+            (v * 0 + 0.5 if k == "xgate" else v) for k, v in t.items()}
+mesh = jax.make_mesh((2, 2), ("data", "model"),
+                     axis_types=(jax.sharding.AxisType.Auto,) * 2)
+for arch in spec["x_archs"]:
+    xcfg = reduced(get_config(arch))
+    data = lm_batches(DataConfig(vocab=xcfg.vocab, seq_len=spec["seq"],
+                                 global_batch=spec["batch"], seed=0))
+    rng = np.random.default_rng(100)
+    extra = ("enc_x", xcfg.enc_seq_len) if xcfg.enc_dec else (
+        ("img", xcfg.n_image_tokens) if xcfg.cross_attn_period else None)
+    with mesh_context(mesh):
+        state, log = ST.init_train_state(jax.random.PRNGKey(spec["key"]),
+                                         xcfg, opt)
+        state = dict(state, params=gate(state["params"]))
+        specs = tree_specs(state, log, rules, mesh)
+        state = jax.tree.map(
+            lambda x, s: jax.device_put(x, jax.NamedSharding(mesh, s)),
+            state, specs)
+        # the state keeps its specs from step to step (GSPMD may lay a
+        # leaf's output out otherwise, which the next call refuses)
+        step = jax.jit(ST.make_train_step(xcfg, opt),
+                       in_shardings=(specs, None), out_shardings=(specs, None),
+                       donate_argnums=(0,))
+        losses = []
+        for _ in range(spec["steps"]):
+            b = next(data)
+            if extra is not None:
+                b[extra[0]] = rng.standard_normal(
+                    (spec["batch"], extra[1], xcfg.d_model)).astype(np.float32)
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+    out["losses_x/" + arch] = losses
 print(json.dumps(out))
 """
 
 
+def _gated(tree):
+    """A reference params tree (numpy) with every cross gate at
+    ``spmd_train_scenarios.XGATE``."""
+    return {k: _gated(v) if isinstance(v, dict) else
+            (np.full_like(v, S.XGATE) if k == "xgate" else v)
+            for k, v in tree.items()}
+
+
 @pytest.fixture(scope="module")
 def reference():
-    """(the reference subprocess, running; its weights as numpy)."""
+    """(the reference subprocess, running; its weights as numpy, and the
+    cross-attention and RWKV6 archs' with their gates at ``XGATE``)."""
     opt = dict(lr=S.OPT.lr, total_steps=S.OPT.total_steps,
                warmup_steps=S.OPT.warmup_steps)
-    spec = dict(opt=opt, seq=S.SEQ, batch=S.BATCH, steps=S.STEPS, key=0)
+    spec = dict(opt=opt, seq=S.SEQ, batch=S.BATCH, steps=S.STEPS, key=0,
+                x_archs=list(S.XARCHS))
     cfg = ref_reduced(ref_get_config("yi_6b"))
     params, _ = ref_init_model(jax.random.PRNGKey(0), cfg)
+    xparams = {arch: _gated(jax.tree.map(np.asarray, ref_init_model(
+        jax.random.PRNGKey(0), ref_reduced(ref_get_config(arch)))[0]))
+        for arch in S.XARCHS}
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=SRC,
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     proc = subprocess.Popen([sys.executable, "-c", REF_SCRIPT,
                              json.dumps(spec)], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
-    yield proc, jax.tree.map(np.asarray, params)
+    yield proc, jax.tree.map(np.asarray, params), xparams
     if proc.poll() is None:
         proc.kill()
         proc.communicate()
@@ -148,20 +197,20 @@ def reference():
 
 @pytest.fixture(scope="module")
 def reference_out(reference):
-    proc, _ = reference
+    proc = reference[0]
     out, err = proc.communicate(timeout=TIMEOUT_S)
     assert proc.returncode == 0, err[-3000:]
     return json.loads(out.strip().splitlines()[-1])
 
 
 @pytest.fixture(scope="module")
-def two(store):
-    return _group(store, 2, "two")
+def two(store, ckpt_dir):
+    return _group(store, 2, "two", ckpt_dir)
 
 
 @pytest.fixture(scope="module")
 def four(store, reference, ckpt_dir):
-    return _group(store, 4, "four", reference[1], ckpt_dir)
+    return _group(store, 4, "four", reference[1], ckpt_dir, reference[2])
 
 
 @pytest.fixture(scope="module")
@@ -333,22 +382,21 @@ def test_production_mesh_needs_256_ranks():
 
 
 @pytest.mark.parametrize("arch", ["mixtral_8x22b", "deepseek_v3",
-                                  "jamba_1_5_large", "rwkv6_3b",
-                                  "whisper_small"])
+                                  "jamba_1_5_large"])
 def test_tp_training_refusals(arch, request):
-    """At tp 2 an MLA (deepseek_v3), a Mamba (jamba_1_5_large), an RWKV6
-    and a cross-attention arch raise naming "Distribution" and their
-    layers; mixtral_8x22b plans there, its MoE layers on the
-    expert-parallel dispatch, whose all-to-alls its budget holds (the
-    plan made in the 2-rank group's (1, 2) mesh)."""
+    """At tp 2 an MLA (deepseek_v3) and a Mamba (jamba_1_5_large) arch
+    raise naming "Distribution" and their layers; mixtral_8x22b plans
+    there, its MoE layers on the expert-parallel dispatch, whose
+    all-to-alls its budget holds (the plan made in the 2-rank group's
+    (1, 2) mesh)."""
     cfg = reduced(get_config(arch))
     if arch == "mixtral_8x22b":
         plan = request.getfixturevalue("two")[0]["mixtral_tp2_plan"]
         assert plan["ep"] and plan["tp"] == 2
         assert plan["budget"][("all-to-all", "model")] == 4 * cfg.n_layers
         return
-    why = {"deepseek_v3": "latent attention", "jamba_1_5_large": "Mamba",
-           "rwkv6_3b": "RWKV6", "whisper_small": "cross-attention"}[arch]
+    why = {"deepseek_v3": "latent attention",
+           "jamba_1_5_large": "Mamba"}[arch]
     with pytest.raises(NotImplementedError, match=f"{why}.*Distribution"):
         TS.make_train_plan(cfg, _Mesh((1, 2), ("data", "model")),
                            TS.make_rules())
@@ -360,6 +408,16 @@ def test_tp_training_divisibility():
     with pytest.raises(ValueError, match="heads"):
         TS.make_train_plan(cfg, _Mesh((1, 8), ("data", "model")),
                            TS.make_rules())
+
+
+@pytest.mark.parametrize("arch", ["whisper_small", "rwkv6_3b"])
+def test_tp16_training_refuses_naming_the_axis(arch):
+    """whisper_small's 12 and rwkv6_3b's 40 heads do not divide tp 16:
+    the plan raises ``ValueError`` naming "heads" and ROADMAP's
+    "Distribution" (the reference's per-dimension replication)."""
+    with pytest.raises(ValueError, match="heads.*Distribution"):
+        TS.make_train_plan(get_config(arch), _Mesh((16, 16), (
+            "data", "model")), TS.make_rules())
 
 
 def test_train_collective_budget_check():
@@ -579,6 +637,97 @@ def test_cli_train_function_on_a_2x2_host_mesh(four):
 
 def test_elastic_mesh_over_four_ranks(four):
     assert four[0]["elastic"] == (1, 4)
+
+
+# -- cross-attention and RWKV6 under TP + SP ------------------------------------
+
+# the gate of the cross-attention and RWKV6 archs, f32 at reduced width,
+# chip_smoke.py's SHARD_F32_RTOL.  Predicted before the first run: ~1e-6,
+# as yi_6b.  Measured: ~1e-6 on whisper_small and llama_3_2_vision, but
+# ~4e-5 of a leaf's largest gradient on rwkv6_3b, whose unsharded f32
+# gradients are themselves ~3e-5 from the same step in float64 (the
+# chunked wkv's exp(-cum) rescaling amplifies the products' last bits)
+X_REL = 1e-4
+
+
+@pytest.mark.parametrize("arch", S.XARCHS)
+def test_tp2_sp_cross_and_rwkv_equal_mesh_none(two, arch):
+    """TP 2 + SP (``make_rules()`` on (1, 2)) on whisper_small (its
+    encoder's frames sequence-sharded too), llama_3_2_vision (the image
+    whole on every rank) and rwkv6_3b (each mix gathering the sequence
+    before its token shift): the loss, every leaf's gradient (RWKV6's
+    ``mu``, ``w_lora_*``, ``w0`` and ``ln_x``, the cross ``xgate`` and
+    ``xnorm`` among them) and the params after one update against
+    ``mesh=None``, and the counters against the budget."""
+    for res in two:
+        _check(res["x_tp2", arch], X_REL)
+        _budget(res["x_tp2", arch]["budget"])
+        if arch == "rwkv6_3b":
+            leaves = {p.rsplit("/", 2)[-2] + "/" + p.rsplit("/", 1)[-1]
+                      for p in res["x_partials", arch]}
+            assert leaves == {"attn/mu", "attn/w_lora_a", "attn/w_lora_b",
+                              "attn/w0", "attn/ln_x", "mlp/mu", "mlp/wr"}
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_3b", "whisper_small"])
+def test_tp2_without_sp_cross_and_rwkv_equal_mesh_none(two, arch):
+    """TP 2 without sequence parallelism (``make_rules(seq_parallel=
+    False)``): every rank computes RWKV6's FFN gate alike (its gradient
+    divided by tp, then summed over "model" with the partial leaves), and
+    whisper's encoder output enters the decoder by ``copy_to_tp``: the
+    loss, every leaf's gradient and the updated params against
+    ``mesh=None``, and the counters against the budget."""
+    for res in two:
+        _check(res["x_tp2_nosp", arch], X_REL)
+        _budget(res["x_tp2_nosp", arch]["budget"])
+
+
+@pytest.mark.parametrize("arch", S.XARCHS)
+def test_tp2_sp_cross_and_rwkv_budget_with_remat(two, arch):
+    """With the recompute (``cfg.remat``) the counters equal the budget:
+    every gather again, and each exit whose output a later product saves
+    (the cross sub-layer's and RWKV6's FFN's gates, a sub-layer not last
+    in its group) reduce-scattered again."""
+    for res in two:
+        _budget(res["x_remat", arch])
+
+
+def test_tp2_sp_llama_vision_odd_image_tokens(two):
+    """33 image tokens at TP 2 + SP: the cross sub-layer's keys and values
+    take the whole image on every rank (no sequence split), and the run
+    equals ``mesh=None``."""
+    for res in two:
+        _check(res["x_odd"], X_REL)
+        _budget(res["x_odd"]["budget"])
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_3b", "whisper_small"])
+def test_tp2_checkpoint_round_trip(two, arch):
+    """A tp-2 state (RWKV6's head-sharded leaves and whole mixes;
+    whisper's encoder and cross sub-layers) saved whole by rank 0 and
+    restored into another seed's state gives every leaf back bit for
+    bit."""
+    for res in two:
+        at, same, n = res["x_ckpt", arch]
+        assert at == 1 and same and n > 0
+
+
+@pytest.mark.parametrize("arch", S.XARCHS)
+def test_dp2_tp2_cross_and_rwkv_equal_mesh_none(four, arch):
+    """dp 2 x tp 2 under ``make_rules()`` on the three archs."""
+    for res in four:
+        _check(res["x_dp2xtp2", arch], X_REL)
+        _budget(res["x_dp2xtp2", arch]["budget"])
+
+
+@pytest.mark.parametrize("arch", S.XARCHS)
+def test_reference_dp2_tp2_cross_and_rwkv_losses(four, reference_out, arch):
+    """The port's dp 2 x tp 2 run on the reference's weights (its cross
+    gates at 0.5) and batches (the same second input) gives the
+    reference's own GSPMD losses on (2, 2)."""
+    got = [m["loss"] for m in four[0]["x_reference", arch]]
+    np.testing.assert_allclose(got, reference_out["losses_x/" + arch],
+                               rtol=X_REL)
 
 
 # -- 1 rank -------------------------------------------------------------------
