@@ -361,6 +361,24 @@ fails:
      ``SHARD_F32_RTOL``) and the counters against the budget (gated).
      Phase 3 checks K1 and K2 at whisper's and llama's tp-2 ranks and K7
      at H 20.
+ 26. tensor parallelism for Mamba, multi-head latent attention and the
+     shared experts (``mtp_phase``), two gloo processes on the card at tp
+     2: (a) jamba_1_5_large at 5 sub-blocks (4 x 2048, each rank half of
+     Mamba's inner channels and 32 query heads on 4 KV heads) and its
+     continuous engine on 6 requests, (b) deepseek_v3's prologue and one
+     MoE layer (4 x 2048, 64 MLA heads a rank, the latent cache whole):
+     as phase 25's cells (gated: the DSA-off logit gap, deepseek's over
+     its dense prologue alone and over the whole model where no router
+     call of its MoE layer routed a last row to other experts on the tp
+     sums' last bits, which it prints; launches,
+     K2 once a prefill and K1 once a step on jamba and none on deepseek,
+     and the collectives against the budget); TP 2 + SP training in f32 of
+     jamba's first sub-block and deepseek's prologue (bf16 moments; losses and
+     counters gated as 25d's); deepseek's first MoE layer with 16 routed
+     experts under EP 2 x TP 2 + SP: losses, counters and rank 0's
+     gradient of every leaf, the shared experts' among them, against the
+     unsharded run (gated by ``SHARD_F32_RTOL``).  Phase 3 checks K1 and
+     K2 at jamba's tp-2 rank (G 8 on 4 KV heads).
 
 It then prints one JSON line of per-kernel results, the card's name and
 power limit again as ``nvidia-smi`` gives them, and as its last line
@@ -6440,12 +6458,59 @@ X_TP_CELLS = (("whisper_small", 12, 4, 384, 448),
               ("rwkv6_3b", 4, 4, 4096, 4096 + 32 + 16))
 X_TP_NEW = 32
 # 25d: TP 2 + SP training, f32, DSA off (the 4-bit predictor turns the tp
-# sums' last bits into other blocks, 22a), 2 steps of 2 x 1024; whisper at
-# 2 + 2 layers over 1024 frames, llama at its one group of 5 (cut_layers
-# keeps whole groups) with 1601 image tokens, rwkv6_3b at 2
-X_TRAIN_CELLS = (("whisper_small", 2), ("llama_3_2_vision", 5),
-                 ("rwkv6_3b", 2))
+# sums' last bits into other blocks, 22a), 2 steps of 2 x seq: (arch,
+# layers, seq); whisper at 2 + 2 layers over 1024 frames, llama at its one
+# group of 5 (cut_layers keeps whole groups) with 1601 image tokens,
+# rwkv6_3b at 2
+X_TRAIN_CELLS = (("whisper_small", 2, 1024), ("llama_3_2_vision", 5, 1024),
+                 ("rwkv6_3b", 2, 1024))
 X_TRAIN_SEQ, X_TRAIN_BATCH, X_TRAIN_STEPS = 1024, 2, 2
+# the continuous engine's requests (prompt, new) of a serving cell, where
+# it runs one: whisper's 8 (25a); jamba's 6 in whole 128-token chunks of
+# the Mamba scan (26a)
+X_CONT_REQS = {
+    "whisper_small": [(384, 32), (200, 24), (320, 16), (96, 32),
+                      (256, 20), (128, 28), (300, 12), (64, 30)],
+    "jamba_1_5_large": [(1024, 16), (2048, 12), (512, 24), (1536, 8),
+                        (1024, 20), (768, 16)]}
+
+
+def _one_rank_at_a_time(rank: int, make):
+    """``make()`` (an engine drawing its weights) on rank 0, then on rank
+    1, and neither goes on before both have drawn: a rank drawing holds
+    its shards and one piece whole (a jamba MoE sub-block, 19.3 GB bf16,
+    beside its 12.9 GB f32 draw), which two ranks drawing at once, or one
+    drawing beside the other's prefill, would not fit on one card.  Rank
+    0 keeps its weights on the host while rank 1 draws: beside rank 0's
+    24.2 GB of jamba, rank 1's draw fell 0.1 GB short on a run whose
+    other processes held more.  Returns the engine and the draw's
+    margin: the card's free GiB before it and this rank's peak GiB
+    during it."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.tree import map_tree
+
+    def moved(params, device):
+        return map_tree(lambda t: t.to(device)
+                        if isinstance(t, torch.Tensor) else t, params)
+
+    if rank:
+        dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    margin = dict(free=torch.cuda.mem_get_info()[0] / 2**30)
+    out = make()
+    margin["peak"] = torch.cuda.max_memory_allocated() / 2**30
+    if not rank:
+        out.params = moved(out.params, "cpu")
+    # the draws' freed blocks back to the card before the other rank draws
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not rank:
+        dist.barrier()
+    dist.barrier()
+    if not rank:
+        out.params = moved(out.params, out.device)
+    return out, margin
 
 
 def _x_serve(rank: int, seed: int, arch: str, layers: int, b: int,
@@ -6458,9 +6523,9 @@ def _x_serve(rank: int, seed: int, arch: str, layers: int, b: int,
     greedy agreement.  With DSA off the last-row logits come from a
     forward without a cache, whisper's over its first 1024 frames: its
     1500-frame encoder has no DSA-off path (the q-chunked attention above
-    1024 queries needs a multiple of 256, in the reference too).  whisper
-    also runs the continuous engine on 8 requests (blocking admission),
-    sharded and on rank 0 unsharded."""
+    1024 queries needs a multiple of 256, in the reference too).  An arch
+    of ``X_CONT_REQS`` also runs the continuous engine on its requests
+    (blocking admission), sharded and on rank 0 unsharded."""
     import functools
     import numpy as np
     import torch
@@ -6470,6 +6535,7 @@ def _x_serve(rank: int, seed: int, arch: str, layers: int, b: int,
     from repro_torch.inference.scheduler import ContinuousEngine, Request
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import moe
     from repro_torch.models import transformer as TT
     from repro_torch.distributed.sharding import tp_decode_all_reduces
     cfg = _xattn_cfg(arch, layers, f32=False)
@@ -6482,25 +6548,45 @@ def _x_serve(rank: int, seed: int, arch: str, layers: int, b: int,
 
     def logits(e):
         """Last-row logits with DSA off (no cache) and on the kernel path
-        (the engine's prefill)."""
+        (the engine's prefill), and with a dense prologue (deepseek's)
+        the DSA-off logits of the prologue alone; and the experts each MoE
+        router call of the DSA-off forward picked for its last token."""
         toks = torch.as_tensor(prompts, device=e.device)
+        flags = e.run_flags("prefill", "off")
+        rows = torch.full((b,), plen - 1, device=e.device)
+        picks, route = [], moe._route
+
+        def recorded(w, x, k):
+            got = route(w, x, k)
+            picks.append(tuple(sorted(got[0][-1].tolist())))
+            return got
+
         with torch.inference_mode():
-            off = TT.forward(e.params, e.mcfg, e.run_flags("prefill", "off"),
-                             toks, None, extras={
-                                 k: torch.as_tensor(v, device=e.device)
-                                 for k, v in ex_off.items()},
-                             last=torch.full((b,), plen - 1,
-                                             device=e.device))[0]
+            moe._route = recorded
+            try:
+                off = TT.forward(e.params, e.mcfg, flags, toks, None,
+                                 extras={k: torch.as_tensor(v,
+                                                            device=e.device)
+                                         for k, v in ex_off.items()},
+                                 last=rows)[0]
+            finally:
+                moe._route = route
+            out = {"off": off.float().cpu()}
+            if cfg.moe is not None and "prologue" in e.params:
+                out["prologue"] = TT.forward(
+                    {**e.params, "groups": []}, e.mcfg, flags, toks, None,
+                    last=rows)[0].float().cpu()
         kern = e.prefill(prompts, caches=e.resident_cache(b),
                          dsa_mode="kernel", extras=ex)[0]
-        return {"off": off.float().cpu(), "kernel": kern.float().cpu()}
+        out["kernel"] = kern.float().cpu()
+        return out, picks
 
     mesh = make_serving_mesh(dp=1, tp=2, cfg=cfg)
     t0 = time.monotonic()
-    eng = Engine(cfg, functools.partial(TT.init_model, seed, cfg), mesh=mesh,
-                 **kw)
+    eng, draw = _one_rank_at_a_time(rank, lambda: Engine(
+        cfg, functools.partial(TT.init_model, seed, cfg), mesh=mesh, **kw))
     TT.set_cross_gates(eng.params, XATTN_GATE)
-    last = logits(eng)
+    last, picks = logits(eng)
     serve.reset_launch_counts()
     before = C.snapshot()
     res = eng.generate(prompts, X_TP_NEW, extras=ex)
@@ -6511,22 +6597,19 @@ def _x_serve(rank: int, seed: int, arch: str, layers: int, b: int,
                per_step=tp_decode_all_reduces(eng.mcfg), mcfg=(
                    eng.mcfg.n_heads, eng.mcfg.n_kv_heads, eng.mcfg.d_ff),
                tokens_ok=bool(res.tokens.min() >= 0
-                              and res.tokens.max() < cfg.vocab))
-    del eng
-    torch.cuda.empty_cache()
+                              and res.tokens.max() < cfg.vocab), draw=draw)
     cont = None
-    if cfg.enc_dec:
+    if arch in X_CONT_REQS:
         def reqs():
             r = np.random.default_rng(seed + 1)
             return [Request(i, r.integers(1, cfg.vocab - 4, size=(n,))
                             .astype(np.int32), k, seed=i)
-                    for i, (n, k) in enumerate(
-                        [(384, 32), (200, 24), (320, 16), (96, 32),
-                         (256, 20), (128, 28), (300, 12), (64, 30)])]
+                    for i, (n, k) in enumerate(X_CONT_REQS[arch])]
         ckw = dict(slots=4, seg_len=8, **kw)
-        s = ContinuousEngine(cfg, functools.partial(TT.init_model, seed,
-                                                    cfg), mesh=mesh, **ckw)
-        TT.set_cross_gates(s.engine.params, XATTN_GATE)
+        # the static engine's shards, as its draw placed them: a second
+        # draw beside them would not fit jamba's two ranks on the card
+        s = ContinuousEngine(cfg, lambda place: eng.params, mesh=mesh,
+                             **ckw)
         serve.reset_launch_counts()
         t1 = time.monotonic()
         got = s.run(reqs())
@@ -6534,15 +6617,20 @@ def _x_serve(rank: int, seed: int, arch: str, layers: int, b: int,
                     launches=serve.launch_counts(),
                     steps=s.stats["decode_steps"])
         del s
-        torch.cuda.empty_cache()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
     out["s"] = time.monotonic() - t0
     if rank == 0:
         params = TT.set_cross_gates(TT.init_model(seed, cfg), XATTN_GATE)
         out["whole"] = tree_bytes(params)
         plain = Engine(cfg, params, **kw)
-        for m, want in logits(plain).items():
+        wants, plain_picks = logits(plain)
+        for m, want in wants.items():
             out["gap", m] = float((last[m] - want).abs().max())
             out["scale", m] = float(want.abs().max())
+        out["rerouted"] = (sum(a != c for a, c in zip(picks, plain_picks)),
+                           len(plain_picks))
         ref = plain.generate(prompts, X_TP_NEW, extras=ex)
         out["agree"] = float((res.tokens == ref.tokens).mean())
         out["plain_prefill_ms"] = ref.prefill_s * 1e3
@@ -6559,12 +6647,14 @@ def _x_serve(rank: int, seed: int, arch: str, layers: int, b: int,
     return out
 
 
-def _x_train(rank: int, seed: int, arch: str, layers: int) -> dict:
+def _x_train(rank: int, seed: int, arch: str, layers: int, seq: int,
+             moment_dtype: str = "float32") -> dict:
     """25d on this rank: ``arch`` at ``layers`` (f32, DSA off, every cross
-    gate at 0.5), ``X_TRAIN_STEPS`` steps of ``X_TRAIN_BATCH`` x
-    ``X_TRAIN_SEQ`` with the second input, unsharded on rank 0 alone
-    (the other rank waits), then TP 2 + SP (``make_rules()`` on (1, 2))
-    on both: the losses, the counters and the budget."""
+    gate at 0.5; AdamW moments in ``moment_dtype``), ``X_TRAIN_STEPS``
+    steps of ``X_TRAIN_BATCH`` x ``seq`` with the second input (whisper's
+    over ``seq`` frames), unsharded on rank 0 alone (the other rank
+    waits), then TP 2 + SP (``make_rules()`` on (1, 2)) on both: the
+    losses, the counters and the budget."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -6576,14 +6666,13 @@ def _x_train(rank: int, seed: int, arch: str, layers: int) -> dict:
     from repro_torch.training import steps as ST
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = _xattn_cfg(arch, layers, f32=True)
-    opt = _p22_opt(X_TRAIN_STEPS)
+    opt = _p22_opt(X_TRAIN_STEPS, moment_dtype)
     flags = RunFlags(mode="train", dsa_mode="off")
-    bs = _p22_batches(cfg.vocab, X_TRAIN_SEQ, X_TRAIN_BATCH, X_TRAIN_STEPS,
-                      seed)
+    bs = _p22_batches(cfg.vocab, seq, X_TRAIN_BATCH, X_TRAIN_STEPS, seed)
     rng = np.random.default_rng(seed + 2)
-    # whisper over 1024 frames: with DSA off its 1500 have no path (the
+    # whisper over seq frames: with DSA off its 1500 have no path (the
     # q-chunked attention above 1024 queries takes multiples of 256)
-    key, t = (("enc_x", 1024) if cfg.enc_dec else
+    key, t = (("enc_x", seq) if cfg.enc_dec else
               ("img", cfg.n_image_tokens) if cfg.cross_attn_period else
               (None, 0))
     for b in bs if key else ():
@@ -6604,9 +6693,10 @@ def _x_train(rank: int, seed: int, arch: str, layers: int) -> dict:
                    s=time.monotonic() - t0)
         if mesh is not None:
             res["budget"] = step.plan.collective_budget(
-                1, seq_len=X_TRAIN_SEQ, remat=cfg.remat, mse=False,
+                1, seq_len=seq, remat=cfg.remat, mse=False,
                 steps=X_TRAIN_STEPS)
         del state, step
+        gc.collect()
         torch.cuda.empty_cache()
         return res
 
@@ -6615,6 +6705,7 @@ def _x_train(rank: int, seed: int, arch: str, layers: int) -> dict:
     dist.barrier()
     out["tp"] = run(make_host_mesh(model=2), make_rules())
     out["whole"] = tree_bytes(TT.init_model(0, cfg, device="meta"))
+    out["seq"] = seq
     return out
 
 
@@ -6624,12 +6715,127 @@ def _p25_rank(rank: int, seed: int) -> dict:
     for arch, layers, b, plen, max_len in X_TP_CELLS:
         out["serve", arch] = _x_serve(rank, seed, arch, layers, b, plen,
                                       max_len)
-    for arch, layers in X_TRAIN_CELLS:
-        out["train", arch] = _x_train(rank, seed, arch, layers)
+    for arch, layers, seq in X_TRAIN_CELLS:
+        out["train", arch] = _x_train(rank, seed, arch, layers, seq)
     return out
 
 
-def xtp_phase(torch, seed: int) -> dict:
+def _tp_serve_report(res, arch: str, layers: int, b: int, plen: int,
+                     tag: str, want_launches, enc: int, card: str,
+                     bad: list) -> None:
+    """Print one tp-2 serving cell of ``_x_serve`` (both ranks' results
+    ``res``) and add its failures to ``bad``: the DSA-off logit gap
+    (gated, ``TP_LOGIT_TOL``; with a dense prologue its gap too, and the
+    whole model's only where no MoE router call took other experts for
+    a last row than unsharded), each rank's launches against
+    ``want_launches(steps)`` and collectives against the budget (``enc``
+    more all-reduces in the prefill, an encoder's), weight bytes about
+    half the whole, tokens in the vocab, and the continuous engine's
+    requests all served with K1 launched."""
+    r0 = res[0]["serve", arch]
+    modes = [m for m in ("off", "prologue", "kernel") if ("gap", m) in r0]
+    rel = {m: r0["gap", m] / max(r0["scale", m], 1e-30) for m in modes}
+    n, calls = r0["rerouted"]
+    # with a dense prologue the gate reads it alone, and the whole model
+    # too where no router call of the MoE layer after it turned the tp
+    # sums' last bits into other experts for a last row
+    gated = ({"prologue", "off"} if not n else {"prologue"}) if (
+        "prologue" in rel) else {"off"}
+    print(f"{tag} {arch} {layers} layers bf16 (a rank: heads, "
+          f"KV heads, d_ff {r0['mcfg']}), tp 2 over gloo on one card, "
+          f"{b} x {plen}, {X_TP_NEW} new, kernel DSA: prefill "
+          f"{r0['prefill_ms']:.1f} ms (unsharded "
+          f"{r0['plain_prefill_ms']:.1f}), decode {r0['tok_s']:.1f} "
+          f"tok/s over {r0['steps']} eager steps (unsharded graphed "
+          f"{r0['plain_tok_s']:.1f}), greedy agreement "
+          f"{r0['agree']:.3f} (printed) [{card}]", flush=True)
+    what = {"off": "DSA off", "kernel": "DSA kernel",
+            "prologue": "DSA off, the dense prologue alone"}
+    for m in modes:
+        print(f"  last-row logits, {what[m]}: max |gap| "
+              f"{r0['gap', m]:.4g} of max |logit| {r0['scale', m]:.4g} "
+              f"= {rel[m]:.3g}" + (f" (gated: <= {TP_LOGIT_TOL:g})"
+                                  if m in gated else " (printed)"),
+              flush=True)
+    if calls:
+        print(f"  MoE router calls of the DSA-off forward whose last token "
+              f"took other experts than unsharded: {n} of {calls} (printed)",
+              flush=True)
+    for m in sorted(gated):
+        if rel[m] > TP_LOGIT_TOL:
+            bad.append(f"{tag} logit gap ({what[m]}) {rel[m]:.3g}")
+    whole = r0["whole"]
+    for r, x in enumerate(res):
+        x = x["serve", arch]
+        n = {k: v for k, v in x["launches"].items() if v}
+        steps = x["steps"]
+        want_n = want_launches(steps)
+        want_c = {"all-reduce": x["per_step"] * (steps + 1) + enc,
+                  "all-gather": steps + 1}
+        print(f"  rank {r} ({x['s']:.1f} s): weight bytes {x['shard']} "
+              f"of {whole} replicated ({x['shard'] / whole:.4f}); drew "
+              f"them with {x['draw']['free']:.2f} GiB of the card free, "
+              f"peak {x['draw']['peak']:.2f} GiB; "
+              f"launches {n} (want {want_n}); collectives over model "
+              f"[{_collectives_line(x['model'])}] (budget "
+              f"[{_collectives_line(want_c)}]: {x['per_step']} "
+              f"all-reduces a decode step, the prefill the same"
+              + (f" + {enc} of the encoder" if enc else "") + ")",
+              flush=True)
+        if (n != want_n or x["model"] != want_c or not x["tokens_ok"]
+                or x["shard"] > 0.5 * whole + 0.1 * whole):
+            bad.append(f"{tag} rank {r}")
+        c = x["cont"]
+        if c is not None:
+            nc = {k: v for k, v in c["launches"].items() if v}
+            print(f"  continuous, rank {r}: {c['n']} of "
+                  f"{len(X_CONT_REQS[arch])} requests in "
+                  f"{c['s']:.1f} s, {c['steps']} decode steps, launches "
+                  f"{nc}" + (f", greedy agreement with the unsharded "
+                             f"engine {c['agree']:.3f} (printed)"
+                             if "agree" in c else ""), flush=True)
+            if c["n"] != len(X_CONT_REQS[arch]) or not nc.get("K1"):
+                bad.append(f"{tag} continuous rank {r}")
+
+
+def _tp_train_report(res, arch: str, layers: int, tag: str, card: str,
+                     bad: list) -> None:
+    """Print one TP 2 + SP training cell of ``_x_train`` (both ranks'
+    results ``res``) and add its failures to ``bad``: each rank's losses
+    against the unsharded run's (gated, ``SHARD_F32_RTOL``) and its
+    counters against the budget (gated)."""
+    from repro_torch.distributed import collectives as C
+    plain = res[0]["train", arch]["plain"]
+    print(f"{tag} {arch} {layers} layers f32 (rank 0 alone, "
+          f"{plain['s']:.1f} s): {X_TRAIN_STEPS} steps of "
+          f"{X_TRAIN_BATCH} x {res[0]['train', arch]['seq']}, DSA off, "
+          f"gates "
+          f"{XATTN_GATE}: losses " + ", ".join(
+              f"{v:.6f}" for v in plain["losses"]) + f" [{card}]",
+          flush=True)
+    for r, x in enumerate(res):
+        a = x["train", arch]["tp"]
+        rel = [abs(u - v) / abs(v) for u, v in zip(a["losses"],
+                                                    plain["losses"])]
+        try:
+            C.check_train_collectives(a["counts"], a["budget"])
+            ok = True
+        except AssertionError as e:
+            print(f"  {e}", flush=True)
+            ok = False
+        print(f"  TP 2 + SP, rank {r} ({a['s']:.1f} s): losses "
+              + ", ".join(f"{v:.6f}" for v in a["losses"])
+              + "; gap / loss " + ", ".join(f"{v:.3g}" for v in rel)
+              + f" (gated: <= {SHARD_F32_RTOL:g}); collectives "
+              + ", ".join(f"{op} {ax} {n}" for (op, ax), n in sorted(
+                  a["counts"].items()))
+              + f" == budget {ok}; params {a['params']} of "
+              f"{x['train', arch]['whole']} bytes", flush=True)
+        if not ok or max(rel) > SHARD_F32_RTOL:
+            bad.append(f"{tag} {arch} rank {r}")
+
+
+def xtp_phase(ranks) -> dict:
     """Phase 25, tensor parallelism for cross-attention and RWKV6: two
     gloo processes on the card at tp 2.  25a whisper_small whole (12 + 12
     layers, 4 x 384, 1500 frames) and its continuous engine on 8
@@ -6641,105 +6847,242 @@ def xtp_phase(torch, seed: int) -> dict:
     launches (gated) and collectives against the budget (gated).  25d
     TP 2 + SP training in f32, DSA off: losses against the unsharded run
     (gated, ``SHARD_F32_RTOL``), counters against the budget (gated).
-    Returns rank 0's launches of each serving cell."""
-    from repro_torch.distributed import collectives as C
-    from repro_torch.launch.mesh import run_spmd
-    t0 = time.monotonic()
+    ``ranks``: ``tp_ranks``'s results.  Returns rank 0's launches of each
+    serving cell."""
     card = smi()
-    store = tempfile.mkdtemp()
-    try:
-        res = run_spmd(_p25_rank, 2, store_dir=store, backend="gloo",
-                       device_ids=[0, 0], timeout_s=600, args=(seed,))
-    finally:
-        shutil.rmtree(store, ignore_errors=True)
+    res = [r[25] for r in ranks]
     bad = []
     tag = {"whisper_small": "25a", "llama_3_2_vision": "25b",
            "rwkv6_3b": "25c"}
     for arch, layers, b, plen, _ in X_TP_CELLS:
-        r0 = res[0]["serve", arch]
-        rel = {m: r0["gap", m] / max(r0["scale", m], 1e-30)
-               for m in ("off", "kernel")}
-        print(f"{tag[arch]} {arch} {layers} layers bf16 (a rank: heads, "
-              f"KV heads, d_ff {r0['mcfg']}), tp 2 over gloo on one card, "
-              f"{b} x {plen}, {X_TP_NEW} new, kernel DSA: prefill "
-              f"{r0['prefill_ms']:.1f} ms (unsharded "
-              f"{r0['plain_prefill_ms']:.1f}), decode {r0['tok_s']:.1f} "
-              f"tok/s over {r0['steps']} eager steps (unsharded graphed "
-              f"{r0['plain_tok_s']:.1f}), greedy agreement "
-              f"{r0['agree']:.3f} (printed) [{card}]", flush=True)
-        for m in ("off", "kernel"):
-            print(f"  last-row logits, DSA {m}: max |gap| "
-                  f"{r0['gap', m]:.4g} of max |logit| {r0['scale', m]:.4g} "
-                  f"= {rel[m]:.3g}" + (f" (gated: <= {TP_LOGIT_TOL:g})"
-                                      if m == "off" else " (printed)"),
-                  flush=True)
-        if rel["off"] > TP_LOGIT_TOL:
-            bad.append(f"{tag[arch]} logit gap (DSA off) {rel['off']:.3g}")
-        whole = r0["whole"]
-        for r, x in enumerate(res):
-            x = x["serve", arch]
-            n = {k: v for k, v in x["launches"].items() if v}
-            steps = x["steps"]
-            n_dec = layers
-            want_n = ({"K7": layers} if arch == "rwkv6_3b" else
-                      {"K2": n_dec, "K1": n_dec * steps})
-            enc = 2 * layers if arch == "whisper_small" else 0
-            want_c = {"all-reduce": x["per_step"] * (steps + 1) + enc,
-                      "all-gather": steps + 1}
-            print(f"  rank {r} ({x['s']:.1f} s): weight bytes {x['shard']} "
-                  f"of {whole} replicated ({x['shard'] / whole:.4f}); "
-                  f"launches {n} (want {want_n}); collectives over model "
-                  f"[{_collectives_line(x['model'])}] (budget "
-                  f"[{_collectives_line(want_c)}]: {x['per_step']} "
-                  f"all-reduces a decode step, the prefill the same"
-                  + (f" + {enc} of the encoder" if enc else "") + ")",
-                  flush=True)
-            if (n != want_n or x["model"] != want_c or not x["tokens_ok"]
-                    or x["shard"] > 0.5 * whole + 0.1 * whole):
-                bad.append(f"{tag[arch]} rank {r}")
-            c = x["cont"]
-            if c is not None:
-                nc = {k: v for k, v in c["launches"].items() if v}
-                print(f"  continuous, rank {r}: {c['n']} of 8 requests in "
-                      f"{c['s']:.1f} s, {c['steps']} decode steps, launches "
-                      f"{nc}" + (f", greedy agreement with the unsharded "
-                                 f"engine {c['agree']:.3f} (printed)"
-                                 if "agree" in c else ""), flush=True)
-                if c["n"] != 8 or not nc.get("K1"):
-                    bad.append(f"{tag[arch]} continuous rank {r}")
-    for arch, layers in X_TRAIN_CELLS:
-        plain = res[0]["train", arch]["plain"]
-        print(f"25d {arch} {layers} layers f32 (rank 0 alone, "
-              f"{plain['s']:.1f} s): {X_TRAIN_STEPS} steps of "
-              f"{X_TRAIN_BATCH} x {X_TRAIN_SEQ}, DSA off, gates "
-              f"{XATTN_GATE}: losses " + ", ".join(
-                  f"{v:.6f}" for v in plain["losses"]) + f" [{card}]",
-              flush=True)
-        for r, x in enumerate(res):
-            a = x["train", arch]["tp"]
-            rel = [abs(u - v) / abs(v) for u, v in zip(a["losses"],
-                                                        plain["losses"])]
-            try:
-                C.check_train_collectives(a["counts"], a["budget"])
-                ok = True
-            except AssertionError as e:
-                print(f"  {e}", flush=True)
-                ok = False
-            print(f"  TP 2 + SP, rank {r} ({a['s']:.1f} s): losses "
-                  + ", ".join(f"{v:.6f}" for v in a["losses"])
-                  + "; gap / loss " + ", ".join(f"{v:.3g}" for v in rel)
-                  + f" (gated: <= {SHARD_F32_RTOL:g}); collectives "
-                  + ", ".join(f"{op} {ax} {n}" for (op, ax), n in sorted(
-                      a["counts"].items()))
-                  + f" == budget {ok}; params {a['params']} of "
-                  f"{x['train', arch]['whole']} bytes", flush=True)
-            if not ok or max(rel) > SHARD_F32_RTOL:
-                bad.append(f"25d {arch} rank {r}")
-    print(f"phase 25: {time.monotonic() - t0:.1f} s", flush=True)
+        _tp_serve_report(
+            res, arch, layers, b, plen, tag[arch],
+            lambda steps, a=arch, n=layers: (
+                {"K7": n} if a == "rwkv6_3b" else {"K2": n, "K1": n * steps}),
+            2 * layers if arch == "whisper_small" else 0, card, bad)
+    for arch, layers, _ in X_TRAIN_CELLS:
+        _tp_train_report(res, arch, layers, "25d", card, bad)
+    print(f"phase 25: {ranks[0]['s'][25]:.1f} s (+ "
+          f"{ranks[0]['s']['spawn']:.1f} s to spawn the ranks)", flush=True)
     if bad:
         fail(f"phase 25: {bad}")
     return {arch: res[0]["serve", arch]["launches"]
             for arch, *_ in X_TP_CELLS}
+
+
+# -- phase 26: tensor parallelism for Mamba, MLA and the shared experts --------
+
+# the serving cells of 26a-b, as 25's: jamba_1_5_large at 5 sub-blocks
+# (Mamba, Mamba + MoE, Mamba, Mamba + MoE, attention; 48.2 GB bf16, half a
+# rank) and deepseek_v3 at its 3-layer prologue and one MoE layer (30 GB);
+# 4 x 2048 (16 chunks of the Mamba scan a row), 32 new
+M_TP_CELLS = (("jamba_1_5_large", 5, 4, 2048, 2048 + 32 + 16),
+              ("deepseek_v3", 4, 4, 2048, 2048 + 32 + 16))
+# TP 2 + SP training, f32, DSA off, as 25d: jamba's first sub-block (Mamba
+# and its dense MLP) at 2 x 512, deepseek's prologue (3.6 B params) at 2
+# x 1024 with bf16 AdamW moments, whose f32 state two ranks on one card
+# would not hold beside their steps; (arch, layers, seq, moment dtype)
+M_TRAIN_CELLS = (("jamba_1_5_large", 1, 512, "float32"),
+                 ("deepseek_v3", 3, 1024, "bfloat16"))
+# 26b's EP 2 x TP 2 + SP layer: deepseek_v3's first MoE layer alone
+# (first_k_dense 0) with its routed experts cut to M_EP_EXPERTS of 256
+# (256 are 45 GB in f32, which two training ranks on one card cannot
+# hold), top 8, capacity factor E / top_k (no pair dropped), the router
+# term off, f32, DSA off; 2 steps of 2 x 1024
+M_EP_EXPERTS = 16
+
+
+def _m_ep(rank: int, seed: int) -> dict:
+    """26b's EP layer on this rank: the first step's gradients and two
+    steps' losses, unsharded on rank 0 alone (its gradients kept on the
+    host; the other rank waits), then EP 2 x TP 2 + SP (``make_rules()``
+    on (1, 2)) on both: the losses, the counters against the budget, and
+    this rank's gradient of every leaf against its shard of the
+    unsharded one (max |gap| / max |unsharded|)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import make_rules, tree_bytes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.attention import RunFlags
+    from repro_torch.training import steps as ST
+    from repro_torch.tree import named_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("deepseek_v3")
+    mo = dataclasses.replace(cfg.moe, num_experts=M_EP_EXPERTS,
+                             first_k_dense=0, router_aux_weight=0.0,
+                             capacity_factor=M_EP_EXPERTS / cfg.moe.top_k)
+    cfg = dataclasses.replace(cfg, n_layers=1, moe=mo, dtype="float32",
+                              param_dtype="float32")
+    opt = _p22_opt(X_TRAIN_STEPS)
+    flags = RunFlags(mode="train", dsa_mode="off")
+    bs = _p22_batches(cfg.vocab, X_TRAIN_SEQ, X_TRAIN_BATCH, X_TRAIN_STEPS,
+                      seed)
+
+    def run(mesh, rules):
+        t0 = time.monotonic()
+        state, _ = ST.init_train_state(seed, cfg, opt, mesh=mesh,
+                                       rules=rules)
+        step = ST.make_train_step(cfg, opt, flags, mesh=mesh, rules=rules)
+        grads, _ = ST.accumulate_grads(state["params"], cfg, flags, bs[0],
+                                       1, step.plan)
+        grads = {p: g.detach().cpu() for p, g in named_leaves(grads)}
+        before = C.snapshot()
+        losses = [float(step(state, b)[1]["loss"]) for b in bs]
+        res = dict(losses=losses, counts=C.count_by_axis(before),
+                   grads=grads, params=tree_bytes(state["params"]),
+                   s=time.monotonic() - t0, plan=step.plan)
+        del state, step
+        torch.cuda.empty_cache()
+        return res
+
+    out, plain = {}, None
+    if rank == 0:           # alone on the card: the other rank waits
+        plain = run(None, None)
+        out["plain"] = dict(losses=plain["losses"], s=plain["s"],
+                            params=plain["params"])
+    dist.barrier()
+    mesh = make_host_mesh(model=2)
+    got = run(mesh, make_rules())
+    plan = got.pop("plan")
+    got["ep"] = plan.ep_active(X_TRAIN_SEQ)
+    got["budget"] = plan.collective_budget(
+        1, seq_len=X_TRAIN_SEQ, remat=cfg.remat, mse=False,
+        steps=X_TRAIN_STEPS)
+    if plain is not None:
+        gaps = {}
+        for p, g in got["grads"].items():
+            want = plan.shard(plain["grads"][p], p)
+            gaps[p] = float((g - want).abs().max()) / max(
+                float(want.abs().max()), 1e-30)
+        got["gaps"] = gaps
+    del got["grads"]
+    out["ep"] = got
+    return out
+
+
+def _p25_26_rank(rank: int, seed: int) -> dict:
+    """Phases 26 and 25 on one rank, one after the other (26's large
+    draws first, in a fresh process), with the seconds each took."""
+    t0 = time.monotonic()
+    out = {26: _p26_rank(rank, seed)}
+    t1 = time.monotonic()
+    out[25] = _p25_rank(rank, seed)
+    out["s"] = {26: t1 - t0, 25: time.monotonic() - t1}
+    return out
+
+
+def tp_ranks(seed: int) -> list:
+    """Phases 25 and 26's two gloo processes sharing the card, spawned
+    once for both (a spawn takes seconds): each rank's results."""
+    from repro_torch.launch.mesh import run_spmd
+    t0 = time.monotonic()
+    store = tempfile.mkdtemp()
+    try:
+        res = run_spmd(_p25_26_rank, 2, store_dir=store, backend="gloo",
+                       device_ids=[0, 0], timeout_s=900, args=(seed,))
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    spawn = time.monotonic() - t0 - max(r["s"][25] + r["s"][26] for r in res)
+    for r in res:
+        r["s"]["spawn"] = spawn
+    return res
+
+
+def _p26_rank(rank: int, seed: int) -> dict:
+    """Phase 26 on one rank of two gloo processes sharing the card."""
+    out = {}
+    for arch, layers, b, plen, max_len in M_TP_CELLS:
+        out["serve", arch] = _x_serve(rank, seed, arch, layers, b, plen,
+                                      max_len)
+    for arch, layers, seq, moments in M_TRAIN_CELLS:
+        out["train", arch] = _x_train(rank, seed, arch, layers, seq,
+                                      moments)
+    out["ep"] = _m_ep(rank, seed)
+    return out
+
+
+def mtp_phase(ranks) -> dict:
+    """Phase 26, tensor parallelism for Mamba, MLA and the shared experts:
+    two gloo processes on the card at tp 2.  26a jamba_1_5_large at 5
+    sub-blocks (4 x 2048; each rank half of Mamba's 16384 inner channels,
+    ``in_proj`` half by half, and 32 query heads on 4 KV heads: K2 once a
+    prefill, K1 once a step) and its continuous engine on 6 requests;
+    26b deepseek_v3's prologue and one MoE layer (4 x 2048; 64 of the 128
+    MLA heads a rank, the latent cache whole, no kernel): greedy
+    agreement with the unsharded run on rank 0 (printed), the DSA-off
+    logit gap (gated, ``TP_LOGIT_TOL``; deepseek's over its dense prologue
+    alone, and the whole model's where none of the MoE router calls took
+    other experts for its last token than unsharded, which it prints),
+    launches and collectives against the
+    budget (gated), as phase 25's cells.  TP 2 + SP training in f32,
+    DSA off, of jamba's first sub-block and deepseek's prologue (its
+    AdamW moments bf16): losses
+    against the unsharded run (gated, ``SHARD_F32_RTOL``) and counters
+    against the budget (gated).  deepseek's first MoE layer with 16
+    routed experts under EP 2 x TP 2 + SP: the losses and every leaf's
+    gradient on rank 0 (the shared experts' among them) against the
+    unsharded run (gated, ``SHARD_F32_RTOL``), counters against the
+    budget (gated).  ``ranks``: ``tp_ranks``'s results.  Returns rank 0's
+    launches of jamba's serving cell."""
+    from repro_torch.distributed import collectives as C
+    card = smi()
+    res = [r[26] for r in ranks]
+    bad = []
+    tag = {"jamba_1_5_large": "26a", "deepseek_v3": "26b"}
+    for arch, layers, b, plen, _ in M_TP_CELLS:
+        _tp_serve_report(
+            res, arch, layers, b, plen, tag[arch],
+            lambda steps, a=arch: ({"K2": 1, "K1": steps}
+                                   if a == "jamba_1_5_large" else {}),
+            0, card, bad)
+    for arch, layers, *_ in M_TRAIN_CELLS:
+        _tp_train_report(res, arch, layers, tag[arch], card, bad)
+    plain = res[0]["ep"]["plain"]
+    print(f"26b deepseek_v3 1 MoE layer ({M_EP_EXPERTS} routed experts of "
+          f"256, top 8, 1 shared) f32, DSA off, no drops, router term off "
+          f"(rank 0 alone, {plain['s']:.1f} s, params {plain['params']} "
+          f"bytes): {X_TRAIN_STEPS} steps of {X_TRAIN_BATCH} x "
+          f"{X_TRAIN_SEQ}: losses " + ", ".join(
+              f"{v:.6f}" for v in plain["losses"]) + f" [{card}]",
+          flush=True)
+    for r, x in enumerate(res):
+        a = x["ep"]["ep"]
+        rel = [abs(u - v) / abs(v) for u, v in zip(a["losses"],
+                                                    plain["losses"])]
+        try:
+            C.check_train_collectives(a["counts"], a["budget"])
+            ok = True
+        except AssertionError as e:
+            print(f"  {e}", flush=True)
+            ok = False
+        print(f"  EP 2 x TP 2 + SP, rank {r} ({a['s']:.1f} s): EP taken "
+              f"{a['ep']}; losses " + ", ".join(f"{v:.6f}"
+                                                for v in a["losses"])
+              + "; gap / loss " + ", ".join(f"{v:.3g}" for v in rel)
+              + f" (gated: <= {SHARD_F32_RTOL:g}); collectives "
+              + ", ".join(f"{op} {ax} {n}" for (op, ax), n in sorted(
+                  a["counts"].items()))
+              + f" == budget {ok}; params {a['params']} bytes", flush=True)
+        if not ok or not a["ep"] or max(rel) > SHARD_F32_RTOL:
+            bad.append(f"26b EP rank {r}")
+        if "gaps" in a:
+            gaps = a["gaps"]
+            shared = {p.rsplit("/", 1)[-1]: g for p, g in gaps.items()
+                      if p.rsplit("/", 1)[-1] in ("sw1", "sw3", "sw2")}
+            worst = max(gaps, key=gaps.get)
+            print(f"  rank {r}'s gradients against its shards of the "
+                  f"unsharded ones, {len(gaps)} leaves: worst {worst} "
+                  f"{gaps[worst]:.3g}; shared experts " + ", ".join(
+                      f"{k} {v:.3g}" for k, v in sorted(shared.items()))
+                  + f" (gated: <= {SHARD_F32_RTOL:g})", flush=True)
+            if len(shared) != 3 or gaps[worst] > SHARD_F32_RTOL:
+                bad.append(f"26b EP gradients rank {r}")
+    print(f"phase 26: {ranks[0]['s'][26]:.1f} s", flush=True)
+    if bad:
+        fail(f"phase 26: {bad}")
+    return res[0]["serve", "jamba_1_5_large"]["launches"]
 
 
 def main() -> None:
@@ -6943,6 +7286,19 @@ def main() -> None:
                  q_dt=dt, c_dt=dt, kv_len=[4129, 4100, 4097, 4111], nb=6,
                  seed=args.seed, timed=dt == "bfloat16")
         for dt in ("bfloat16", "float32")]
+    # phase 26a's tp-2 rank of jamba_1_5_large: 32 query heads on 4 KV
+    # heads (G 8, hd 128; 4 x 2048, its 2096-row bf16 cache); prefill and
+    # decode step, bf16 timed, and f32
+    k2jt_checks = [
+        check_k2(torch, timer, b=4, hq=32, hkv=4, hd=128, l=2048, blk=128,
+                 nb=3, dtype="bfloat16", seed=args.seed, timed=True),
+        check_k2(torch, timer, b=2, hq=32, hkv=4, hd=128, l=1024, blk=128,
+                 nb=3, dtype="float32", seed=args.seed, timed=False)]
+    k1jt_checks = [
+        check_k1(torch, timer, b=4, hq=32, hkv=4, hd=128, s=2096, bk=128,
+                 q_dt=dt, c_dt=dt, kv_len=[2052, 2079, 2049, 2063], nb=6,
+                 seed=args.seed, timed=dt == "bfloat16")
+        for dt in ("bfloat16", "float32")]
     k3_checks = [
         check_k3(torch, timer, b=2, hq=8, hkv=2, hd=16, s=100, c=32, blk=16,
                  q_dt="float32", c_dt="float32", q_off=[64, 32],
@@ -7037,6 +7393,8 @@ def main() -> None:
                          ("K1 dsa_decode (whisper tp 2)", k1xt_checks),
                          ("K2 dsa_attention (llama tp 2)", k2vt_checks),
                          ("K1 dsa_decode (llama tp 2)", k1vt_checks),
+                         ("K2 dsa_attention (jamba tp 2)", k2jt_checks),
+                         ("K1 dsa_decode (jamba tp 2)", k1jt_checks),
                          ("K3 dsa_chunk_prefill", k3_checks),
                          ("K4 dsa_decode_paged", k4_checks)] + [
             (f"{k} {q or ''}".strip(), v) for (k, q), v in q_checks.items()]:
@@ -7246,11 +7604,21 @@ def main() -> None:
     # llama_3_2_vision and rwkv6_3b at tp 2 as two gloo processes on the
     # card (25a-c: K2 once a decoder layer a prefill and K1 once a decoder
     # layer a step on each rank's heads, K7 once a layer a prefill on its
-    # 20 heads), TP 2 + SP training (25d, no kernel: the block path is off)
-    xtp = xtp_phase(torch, args.seed)
+    # 20 heads), TP 2 + SP training (25d, no kernel: the block path is off);
+    # its two ranks run phase 26 first, reported after it
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = tp_ranks(args.seed)
+    xtp = xtp_phase(ranks)
     launches["whisper tp 2"] = xtp["whisper_small"]
     launches["vision tp 2"] = xtp["llama_3_2_vision"]
     launches["rwkv tp 2"] = xtp["rwkv6_3b"]
+    # tensor parallelism for Mamba, MLA and the shared experts: jamba at 5
+    # sub-blocks and deepseek's prologue + 1 MoE layer at tp 2 as two gloo
+    # processes on the card (26a: K2 once a prefill and K1 once a step on
+    # each rank's 32 heads over 4 KV heads; 26b: no kernel), TP 2 + SP
+    # training, and deepseek's MoE layer under EP 2 x TP 2 + SP
+    launches["jamba tp 2"] = mtp_phase(ranks)
 
     src = "src/repro_torch/kernels/csrc/"
     rep = "src/repro/kernels/"
@@ -7357,7 +7725,12 @@ def main() -> None:
             ("dsa_block_sparse_attention (llama tp 2)", "dsa_attention.cu",
              "dsa_attention.py:77", k2vt_checks, "K2", ("vision tp 2",)),
             ("dsa_decode_gather_attention (llama tp 2)", "dsa_decode.cu",
-             "dsa_decode.py:185", k1vt_checks, "K1", ("vision tp 2",))):
+             "dsa_decode.py:185", k1vt_checks, "K1", ("vision tp 2",)),
+            # phase 26a's tp-2 rank of jamba, rank 0's launches
+            ("dsa_block_sparse_attention (jamba tp 2)", "dsa_attention.cu",
+             "dsa_attention.py:77", k2jt_checks, "K2", ("jamba tp 2",)),
+            ("dsa_decode_gather_attention (jamba tp 2)", "dsa_decode.cu",
+             "dsa_decode.py:185", k1jt_checks, "K1", ("jamba tp 2",))):
         c = next(x for x in checks if "ms" in x)
         by_path = {p: launches[p].get(k, 0) for p in paths}
         kernels.append({

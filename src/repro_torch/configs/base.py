@@ -46,6 +46,14 @@ class MambaConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MambaShard(MambaConfig):
+    """One rank's ``MambaConfig`` on a ``tp``-way "model" axis
+    (``distributed.sharding.shard_config``): its Mamba layers hold
+    d_model * expand / tp of the inner channels (``models.ssm.d_inner``)."""
+    tp: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class RWKVConfig:
     head_dim: int = 64            # wkv state is head_dim x head_dim per head
     decay_lora: int = 64          # low-rank data-dependent decay

@@ -26,7 +26,8 @@ heads and d_ff, plus the vocab-sharded embedding lookup), 1 all-gather
 (the logits), and nothing else.  A cross sub-layer adds its
 out-projection's (whisper_small: 3 a decoder layer; llama_3_2_vision: 1
 a group of 5), RWKV6 has two a layer (the time-mix's ``wo``, the FFN's
-``wv``): ``sharding.tp_decode_all_reduces``.  A prefill issues the same
+``wv``), a Mamba sub-block three (``x_proj``, ``out_proj``, its MLP's or
+MoE's): ``sharding.tp_decode_all_reduces``.  A prefill issues the same
 per layer and, on whisper_small, 2 more a layer of its encoder.  The port gathers the (B, V/tp) logits
 where the reference gathers the lm-head weight (hoisted out of its
 decode loop): a per-step weight gather would move d_model x V x 2
@@ -45,7 +46,8 @@ router term over "model"), ``copy_to_tp`` (identity forward,
 all-reduce backward: a column-parallel product's replicated input) and
 ``reduce_from_tp`` (all-reduce forward, identity backward: a
 row-parallel product's partial output, and the MSE target's partial
-head sum); ``gather_seq`` (all-gather over the sequence forward,
+head sum), ``tp_psum`` (all-reduce both ways: Mamba's ``x_proj``, whose
+summed output feeds only each rank's channels); ``gather_seq`` (all-gather over the sequence forward,
 reduce-scatter backward: sequence parallelism's entry) and
 ``scatter_seq`` (reduce-scatter forward, all-gather backward: SP's
 exit); ``replicated_input`` (no collective: a consumer every rank
@@ -85,7 +87,9 @@ E' those that train.
                                       backward, again in the recompute)
     all-reduce "model"      1        (the router term's mean; after the
                                       last saved tensor, so the recompute
-                                      stops before it)
+                                      stops before it, but where a later
+                                      sub-layer of the group saves
+                                      tensors, jamba's: 1 + r)
     and under TP with SP it drops its own gather and scatter: the
     layer's all-gathers 2 + r, reduce-scatters 2 (its attention's)
   TP without SP:
@@ -106,7 +110,12 @@ E' those that train.
   last (llama_3_2_vision's group of 5: its recompute reaches them); a
   cross sub-layer's and an RWKV6 FFN's output is multiplied by a gate,
   which saves it, so their recompute runs the exit again wherever they
-  stand.  whisper_small's encoder layers count as decoder layers, and
+  stand.  MLA and Mamba count as an attention sub-layer (MLA's MSE sum
+  as the attention's), Mamba with 2 + r all-reduces more (``x_proj``'s
+  sum forward, its gradient's backward, again in the recompute); the
+  shared experts of an EP sub-layer under TP as an MLP that is not last
+  (they run before the dispatch).  whisper_small's encoder layers count
+  as decoder layers, and
   its output adds 1 all-gather and 1 reduce-scatter under SP (gathered
   once for every cross sub-layer), 1 all-reduce without (its partial
   key/value gradients)
@@ -125,12 +134,12 @@ E' those that train.
       matrices, a leaf whose "embed" dimension does not divide), and
       one per further group of leaves that lack other batch axes (the
       "pod" axis of the multipod table); 1 all-reduce of the metrics
-    "model" with SP, an MoE arch, tp above the KV heads or RWKV6: 1
-      all-reduce of the norms' gradients (their rows are sequence
+    "model" with SP, an MoE arch, tp above the KV heads, RWKV6 or MLA:
+      1 all-reduce of the norms' gradients (their rows are sequence
       shards; a cross gate's too), the routers' (each rank's part: its
       rows, or its experts' pairs), the whole KV leaves' (each rank's
-      head's slice, ``TrainPlan.kv_slices``) and RWKV6's whole leaves
-      that feed a rank's heads (``TrainPlan.partials``)
+      head's slice, ``TrainPlan.kv_slices``) and RWKV6's and MLA's whole
+      leaves that feed a rank's heads (``TrainPlan.partials``)
     "world": 1 all-reduce (the gradient norm's sum of squares)
 
 A group of one rank counts its calls like any other; on gloo it moves
@@ -754,6 +763,20 @@ def tp_exit(y: torch.Tensor, tp: Optional[AxisGroup], *, train: bool,
     if not train:
         return all_reduce(y, tp)
     return scatter_seq(y, tp) if sp else reduce_from_tp(y, tp)
+
+
+def tp_psum(x: torch.Tensor, tp: Optional[AxisGroup], *,
+            train: bool) -> torch.Tensor:
+    """The sum over "model" of partial products whose whole every rank
+    then feeds only its own channels with (Mamba's ``x_proj`` output):
+    one all-reduce forward and, in training, one of the gradient
+    backward, each rank holding only its channels' part of it (``tp``
+    None: ``x``)."""
+    if tp is None:
+        return x
+    if not train:
+        return all_reduce(x, tp)
+    return copy_to_tp(reduce_from_tp(x, tp), tp)
 
 
 def fsdp_gather_tree(tree, prefix: str, gathers: Dict[str, tuple],

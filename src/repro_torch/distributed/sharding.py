@@ -204,7 +204,10 @@ def serving_tp_issues(cfg, tp: int) -> list:
     them or is a multiple of them that divides the query heads
     (``kv_group``).  A cross-attention sub-layer has the self-attention's
     heads and KV heads, so the same checks cover it; RWKV6's heads are
-    its ``n_heads`` (d_model / rwkv.head_dim, ``ssm.init_rwkv`` checks).
+    its ``n_heads`` (d_model / rwkv.head_dim, ``ssm.init_rwkv`` checks);
+    MLA has heads and no KV heads; Mamba's inner width (d_model *
+    expand) and the shared experts' (d_ff_expert * num_shared_experts)
+    lie over "mlp" too.
     vocab is not checked: a vocab that does not divide leaves the
     embedding and the head replicated.  The reference leaves an axis that tp does not divide
     whole and shards the others; the port refuses such a tp (ROADMAP
@@ -216,11 +219,16 @@ def serving_tp_issues(cfg, tp: int) -> list:
     if cfg.n_heads % tp:
         issues.append(f'heads (n_heads={cfg.n_heads} % tp={tp} != 0)')
     n_kv = getattr(cfg, "n_kv_heads", None) or cfg.n_heads
-    if cfg.rwkv is None and n_kv % tp and tp % n_kv:     # RWKV6: no KV
+    # RWKV6 and MLA have no KV heads (MLA's latent is whole on every rank)
+    if (cfg.rwkv is None and cfg.mla is None and n_kv % tp
+            and tp % n_kv):
         issues.append(f'kv_heads (n_kv_heads={n_kv} and tp={tp}: neither '
                       f'divides the other)')
     if cfg.d_ff % tp:
         issues.append(f'mlp (d_ff={cfg.d_ff} % tp={tp} != 0)')
+    if cfg.mamba is not None and cfg.d_model * cfg.mamba.expand % tp:
+        issues.append(f'mlp (Mamba d_inner={cfg.d_model * cfg.mamba.expand}'
+                      f' % tp={tp} != 0)')
     moe = getattr(cfg, "moe", None)
     if moe is not None:
         d_ff_e = getattr(moe, "d_ff_expert", None) or cfg.d_ff
@@ -228,41 +236,23 @@ def serving_tp_issues(cfg, tp: int) -> list:
             issues.append(
                 f'expert (num_experts={moe.num_experts} and '
                 f'd_ff_expert={d_ff_e}, neither % tp={tp} == 0)')
+        fs = d_ff_e * moe.num_shared_experts
+        if fs % tp:
+            issues.append(f"mlp (shared experts' d_ff={fs} % tp={tp} != 0)")
     return issues
-
-
-def tp_unsupported(cfg) -> Optional[str]:
-    """Why ``cfg`` cannot be served or trained at tp > 1 by the port (None
-    when it can): its layers have no tensor-parallel form yet.  Dense and
-    cross-attention, MLPs, mixtures of experts and RWKV6 have one."""
-    if cfg.mla is not None:
-        return "multi-head latent attention"
-    if cfg.mamba is not None:
-        return "Mamba layers"
-    return None
-
-
-def refuse_tp(cfg, tp: int, what: str, instead: str) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP's "Distribution" when
-    ``what`` ("serving", "training") of ``cfg`` at ``tp`` > 1 needs a
-    tensor-parallel form its layers lack (``tp_unsupported``);
-    ``instead`` says what runs."""
-    why = tp_unsupported(cfg)
-    if int(tp) > 1 and why is not None:
-        raise NotImplementedError(
-            f"{what} {cfg.name} at tp={tp}: its {why} have no "
-            f"tensor-parallel form in the port (ROADMAP Queue 1, "
-            f"\"Distribution\"); {instead}")
 
 
 def tp_decode_all_reduces(cfg) -> int:
     """The all-reduces over "model" of one tensor-parallel decode step:
-    one a contracting product of each layer (the attention's
+    one a contracting product of each layer (the attention's or MLA's
     out-projection, a cross sub-layer's, the MLP's down-projection or
-    the MoE combine; RWKV6's time-mix ``wo`` and FFN ``wv``) and one
-    after the vocab-sharded embedding lookup."""
+    the MoE combine with its shared experts; RWKV6's time-mix ``wo`` and
+    FFN ``wv``; Mamba's ``x_proj`` and ``out_proj``, 3 a Mamba sub-block
+    with its MLP or MoE) and one after the vocab-sharded embedding
+    lookup."""
     from repro_torch.models import blocks as B
-    per_group = sum(2 + d.cross for d in B.group_defs(cfg))
+    per_group = sum(2 + d.cross + (d.kind == "mamba")
+                    for d in B.group_defs(cfg))
     return B.n_groups(cfg) * per_group + 2 * B.n_prologue(cfg) + 1
 
 
@@ -271,16 +261,23 @@ def shard_config(cfg, tp: int):
     n_heads / tp query heads and n_kv_heads / tp KV heads (so the GQA
     group G is unchanged), or one KV head where tp exceeds them
     (``kv_group``: G is n_heads / tp), d_ff / tp, head_dim made
-    explicit.  An MoE keeps routing over all its experts: a layer reads
-    its local experts off its weights (``models/moe.py``).  tp 1 returns
-    ``cfg``."""
+    explicit, and a Mamba layer's d_model * expand / tp inner channels
+    (``configs.base.MambaShard``, ``models.ssm.d_inner``).  An MoE keeps
+    routing over all its experts: a layer reads its local experts off
+    its weights (``models/moe.py``).  tp 1 returns ``cfg``."""
     if tp == 1:
         return cfg
+    from repro_torch.configs.base import MambaConfig, MambaShard
     n_kv = cfg.n_kv_heads // tp if kv_group(cfg, tp) == 1 else 1
+    mamba = cfg.mamba
+    if mamba is not None:
+        mamba = MambaShard(tp=tp, **{f.name: getattr(mamba, f.name)
+                                     for f in dataclasses.fields(
+                                         MambaConfig)})
     return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
                                n_kv_heads=n_kv,
                                d_ff=cfg.d_ff // tp,
-                               head_dim=cfg.resolved_head_dim)
+                               head_dim=cfg.resolved_head_dim, mamba=mamba)
 
 
 # the reference's rule context: installed by callers written against its
@@ -376,6 +373,25 @@ def resolve_spec(shape: Tuple[int, ...], logical: Tuple[Optional[str], ...],
     return tuple(out)
 
 
+class Halves(tuple):
+    """A logical spec (equal to the plain tuple of its axis names) whose
+    "mlp" dimension is two halves laid side by side: Mamba's ``in_proj``,
+    [x | z].  A rank's piece of that dimension is its piece of each half,
+    [x_r | z_r] (``halves_of``, ``local_shard``), where a plain split
+    would give rank 0 all of x and rank 1 all of z at tp 2.  The
+    reference gets this from GSPMD, which reshards its slice
+    ``xz[..., :mi]``; the whole leaf, a checkpoint's, keeps its
+    layout."""
+
+
+def halves_of(logical) -> Tuple[int, ...]:
+    """The dimensions of a logical spec that are two halves (its "mlp"
+    dimension where it is a ``Halves``), () otherwise."""
+    if not isinstance(logical, Halves):
+        return ()
+    return tuple(i for i, name in enumerate(logical) if name == "mlp")
+
+
 def is_spec_leaf(x) -> bool:
     return isinstance(x, tuple) and all(
         isinstance(e, (str, type(None))) for e in x)
@@ -430,15 +446,23 @@ def _coord(mesh, axes: Tuple[str, ...]) -> Tuple[int, int]:
     return idx, n
 
 
-def local_shard(x: torch.Tensor, spec: Tuple[Axis, ...], mesh
-                ) -> torch.Tensor:
+def local_shard(x: torch.Tensor, spec: Tuple[Axis, ...], mesh,
+                halves: Tuple[int, ...] = ()) -> torch.Tensor:
     """This rank's piece of ``x`` under a resolved ``spec``: each split
     dimension cut into equal pieces, the piece at this rank's mesh
-    coordinate kept (a view)."""
+    coordinate kept (a view).  A dimension in ``halves`` (``halves_of``)
+    is cut half by half, the rank's piece of each kept side by side (a
+    copy)."""
     for dim, ax in enumerate(spec):
         if ax is None:
             continue
         idx, n = _coord(mesh, (ax,) if isinstance(ax, str) else tuple(ax))
+        if dim in halves:
+            half = x.shape[dim] // 2
+            step = half // n
+            x = torch.cat([x.narrow(dim, h * half + idx * step, step)
+                           for h in (0, 1)], dim)
+            continue
         step = x.shape[dim] // n
         x = x.narrow(dim, idx * step, step)
     return x
@@ -450,17 +474,18 @@ def _as_tensor(x) -> torch.Tensor:
 
 
 def shard_put(x, *logical, mesh, rules: ShardingRules,
-              device=None, kv_head: Optional[Tuple[int, int]] = None
-              ) -> torch.Tensor:
+              device=None, kv_head: Optional[Tuple[int, int]] = None,
+              halves: Tuple[int, ...] = ()) -> torch.Tensor:
     """This rank's shard of one array, sliced before it moves to
     ``device`` (contiguous there, and never a view of the whole).
     ``kv_head`` (index, width): each "kv_heads" dimension is cut to that
     head's ``width`` entries (a rank's KV head where tp exceeds them,
-    under ``kv_rules``)."""
+    under ``kv_rules``).  ``halves``: the dimensions cut half by half
+    (``halves_of`` the leaf's spec)."""
     x = _as_tensor(x)
     spec = resolve_spec(tuple(x.shape), tuple(logical), rules=rules,
                         mesh=mesh)
-    out = local_shard(x, spec, mesh)
+    out = local_shard(x, spec, mesh, halves)
     if kv_head is not None:
         for dim, name in enumerate(logical):
             if name == "kv_heads":
@@ -477,9 +502,10 @@ def shard_put(x, *logical, mesh, rules: ShardingRules,
 def shard_put_tree(tree, logical_tree, mesh, rules: ShardingRules,
                    device=None, kv_head: Optional[Tuple[int, int]] = None):
     """``shard_put`` over a tree of arrays and its parallel logical-spec
-    tree."""
+    tree (a ``Halves`` leaf cut half by half)."""
     return _map2(lambda x, log: shard_put(x, *log, mesh=mesh, rules=rules,
-                                          device=device, kv_head=kv_head),
+                                          device=device, kv_head=kv_head,
+                                          halves=halves_of(log)),
                  tree, logical_tree)
 
 
@@ -539,9 +565,14 @@ def _seq_partial(path: str, logical: tuple) -> bool:
 def _tp_partial(cfg, path: str) -> bool:
     """Whether ``path`` is a leaf that each rank holds whole but feeds
     only its part of under tensor parallelism (RWKV6's ``ssm.TP_PARTIAL``
-    leaves), its gradient summed over "model" a step."""
+    leaves, MLA's ``attention.MLA_PARTIAL``), its gradient summed over
+    "model" a step."""
+    from repro_torch.models.attention import MLA_PARTIAL
     from repro_torch.models.ssm import TP_PARTIAL
-    return cfg.rwkv is not None and tuple(path.split("/")[-2:]) in TP_PARTIAL
+    tail = tuple(path.split("/")[-2:])
+    if cfg.rwkv is not None:
+        return tail in TP_PARTIAL
+    return cfg.mla is not None and tail in MLA_PARTIAL
 
 
 @dataclasses.dataclass(eq=False)
@@ -565,11 +596,13 @@ class TrainPlan:
     head's slice (``kv_slices``: {path: (dim, start, width)}, taken
     after the FSDP gather) and feeds only that slice, so their gradients
     are summed over "model" a step: each head's is the sum over the
-    ranks that share it.  RWKV6's leaves that each rank holds whole but
-    feeds only its heads or mlp columns with (``ssm.TP_PARTIAL``:
-    ``partials``) are summed over "model" a step, SP or not; a cross
-    sub-layer's gate ``xgate`` joins the norms under SP.  Every rank then
-    holds the matching shard of the unsharded gradient.
+    ranks that share it.  RWKV6's and MLA's leaves that each rank holds
+    whole but feeds only its heads or mlp columns with (``ssm.TP_PARTIAL``,
+    ``attention.MLA_PARTIAL``: ``partials``) are summed over "model" a
+    step, SP or not; a cross sub-layer's gate ``xgate`` joins the norms
+    under SP.  Every rank then holds the matching shard of the unsharded
+    gradient.  ``halves``: {path: dims} of the ``Halves`` leaves, whose
+    pieces ``shard`` and ``whole`` take half by half.
 
     Mixture of experts: where the reference's EP gate holds (``ep``, the
     "model" group; ``ep_active``), ``run_flags`` gives an MoE layer the
@@ -599,6 +632,8 @@ class TrainPlan:
     kv_slices: Dict[str, Tuple[int, int, int]] = dataclasses.field(
         default_factory=dict)
     partials: List[str] = dataclasses.field(default_factory=list)
+    halves: Dict[str, Tuple[int, ...]] = dataclasses.field(
+        default_factory=dict)
     ep: Optional[C.AxisGroup] = None
     batch_ranks: int = 1
     # under EP, the router term's factor in the metrics' mean: the data
@@ -649,15 +684,23 @@ class TrainPlan:
 
     def shard(self, whole: torch.Tensor, path: str) -> torch.Tensor:
         """This rank's shard of the whole leaf at ``path`` (a param's
-        path, or its moment's)."""
-        return local_shard(whole, self.axes[path], self.mesh)
+        path, or its moment's; a ``Halves`` leaf's piece of each half)."""
+        return local_shard(whole, self.axes[path], self.mesh,
+                           self.halves.get(path, ()))
 
     def whole(self, t: torch.Tensor, path: str) -> torch.Tensor:
         """The whole leaf from every rank's shard ``t`` (an all-gather a
-        split dimension; a checkpoint's, outside the step's budget)."""
+        split dimension, each half's pieces side by side in a ``Halves``
+        leaf; a checkpoint's, outside the step's budget)."""
         for dim, ax in enumerate(self.axes[path]):
-            if _axes(ax):
-                t = C.all_gather(t, C.axes_group(self.mesh, _axes(ax)), dim)
+            if not _axes(ax):
+                continue
+            g = C.axes_group(self.mesh, _axes(ax))
+            if dim in self.halves.get(path, ()):
+                t = C.all_gather(t.unflatten(dim, (2, -1)), g,
+                                 dim + 1).flatten(dim, dim + 1)
+            else:
+                t = C.all_gather(t, g, dim)
         return t
 
     def reduce_grads(self, grads: Dict[str, torch.Tensor],
@@ -665,7 +708,8 @@ class TrainPlan:
         """The step's gradient reductions, in place on ``grads`` ({path:
         gradient}): one all-reduce (a mean) over each bucket's batch axes,
         and one (a sum) over "model" of the routers', the shared KV
-        leaves', RWKV6's partial leaves' and, with ``sp``, the norms'."""
+        leaves', RWKV6's and MLA's partial leaves' and, with ``sp``, the
+        norms'."""
         def flat(paths, g, mean):
             if not paths:
                 return
@@ -745,11 +789,14 @@ class TrainPlan:
         n_ep = 0
         if self.ep_active(seq_len):
             # the MoE sub-layers: two all-to-alls forward, two backward,
-            # two in the recompute; the router term's mean over "model"
-            n_ep = B.n_groups(self.cfg) * sum(
-                d.moe for d in B.group_defs(self.cfg))
+            # two in the recompute; the router term's mean over "model",
+            # run again by the recompute where a later sub-layer of the
+            # group saves tensors (jamba's MoE sub-blocks but the last)
+            defs = B.group_defs(self.cfg)
+            n_ep = B.n_groups(self.cfg) * sum(d.moe for d in defs)
+            inner = B.n_groups(self.cfg) * sum(d.moe for d in defs[:-1])
             add("all-to-all", "model", mb * n_ep * (4 + 2 * r))
-            add("all-reduce", "model", mb * n_ep)
+            add("all-reduce", "model", mb * (n_ep + r * inner))
         if self.tp is not None:
             sp = self.seq_parallel(seq_len)
             cfg = self.cfg
@@ -758,19 +805,24 @@ class TrainPlan:
             if cfg.enc_dec:
                 regions += ([B.group_defs(cfg, decoder=False)]
                             * B.n_groups(cfg, decoder=False))
+            shared = bool(cfg.moe and cfg.moe.num_shared_experts)
             for defs in regions:
-                for kind, saved in tp_sites(defs, n_ep > 0):
+                for kind, saved in tp_sites(defs, n_ep > 0, shared):
                     if kind == "ep":
                         # without SP an EP sub-layer's replicated input
                         # sums its gradient; under SP its input and output
                         # keep the stream's sequence shards
                         add("all-reduce", "model", 0 if sp else mb)
+                    elif kind == "psum":
+                        # Mamba's x_proj: forward, backward, recompute
+                        add("all-reduce", "model", mb * (2 + r))
                     elif sp:
                         add("all-gather", "model", mb * (2 + r))
                         add("reduce-scatter", "model", mb * (2 + r * saved))
                     else:
                         add("all-reduce", "model", mb * (2 + r * saved))
-                n_mse = sum(d.kind == "attn" for d in defs) * cfg.dsa.enabled
+                n_mse = sum(d.kind in ("attn", "mla")
+                            for d in defs) * cfg.dsa.enabled
                 add("all-reduce", "model", mb * n_mse * m * (1 + r))
             # the embedding lookup and the head, and whisper's encoder
             # output (gathered over the sequence under SP, its partial
@@ -782,8 +834,8 @@ class TrainPlan:
             else:
                 add("all-reduce", "model", mb * ends)
             if sp or self.routers or self.kv_slices or self.partials:
-                # the norms', routers', shared KV leaves' and RWKV6's
-                # partial leaves'
+                # the norms', routers', shared KV leaves' and RWKV6's and
+                # MLA's partial leaves'
                 add("all-reduce", "model", 1)
             add("all-reduce", "model", mb * 2)           # vocab-parallel CE
         if self.batch is not None:
@@ -794,26 +846,35 @@ class TrainPlan:
         return out
 
 
-def tp_sites(defs, ep: bool) -> List[Tuple[str, bool]]:
+def tp_sites(defs, ep: bool, shared: bool = False
+             ) -> List[Tuple[str, bool]]:
     """One checkpoint region's (a layer group's, ``defs``) tensor-parallel
     sub-layers in order, for the training budget: ("tp", saved) for one
     that enters by ``tp_enter`` and leaves by ``tp_exit`` (attention,
-    cross-attention, an MLP or a capacity MoE, RWKV6's time-mix and
-    FFN), ("ep", False) for an MoE on the expert-parallel dispatch
-    (``ep``).  ``saved``: a tensor after the exit's collective is saved
-    for the backward pass, so the recompute runs it again: every exit
-    but the region's last MLP, whose output is added to the stream and
-    returned (the cross sub-layer's and the RWKV6 FFN's are multiplied
-    by a gate, which saves them)."""
+    MLA, Mamba, cross-attention, an MLP or a capacity MoE, RWKV6's
+    time-mix and FFN), ("psum", True) for Mamba's ``x_proj`` sum
+    (``collectives.tp_psum``), ("ep", False) for an MoE on the
+    expert-parallel dispatch (``ep``), preceded by its ``shared``
+    experts' own ("tp", True).  ``saved``: a tensor after the exit's
+    collective is saved for the backward pass, so the recompute runs it
+    again: every exit but the region's last MLP, whose output is added
+    to the stream and returned (the cross sub-layer's and the RWKV6
+    FFN's are multiplied by a gate, which saves them; the shared
+    experts run before the dispatch, whose products are saved)."""
     sites = []
     for d in defs:
         if d.kind == "rwkv":
             sites += [("tp", True), ("tp", True)]
             continue
+        if d.kind == "mamba":
+            sites.append(("psum", True))
         sites.append(("tp", True))
         if d.cross:
             sites.append(("tp", True))
-        sites.append(("ep", False) if d.moe and ep else ("tp", True))
+        if d.moe and ep:
+            sites += [("tp", True)] * shared + [("ep", False)]
+        else:
+            sites.append(("tp", True))
     if sites[-1] == ("tp", True) and defs[-1].kind != "rwkv":
         sites[-1] = ("tp", False)
     return sites
@@ -822,15 +883,16 @@ def tp_sites(defs, ep: bool) -> List[Tuple[str, bool]]:
 def make_train_plan(cfg, mesh, rules: Optional[ShardingRules] = None
                     ) -> TrainPlan:
     """The layout of training ``cfg`` on ``mesh`` under ``rules`` (the
-    rule context's by default).  Tensor parallelism needs an arch whose
-    layers have a tensor-parallel form (dense GQA attention, MLPs and
-    mixtures of experts, the latter by expert parallelism where the
-    reference's gate holds; cross-attention and RWKV6): on a "model" axis
-    above 1 that holds no batch rows, MLA and Mamba archs raise
-    ``NotImplementedError`` naming "Distribution", and heads, KV heads,
-    d_ff or a vocab that the axis does not divide raise ``ValueError``
-    naming the axis and "Distribution";
-    on a "model" axis of one such archs take no "model" role at all.  A
+    rule context's by default).  Tensor parallelism (a "model" axis above
+    1 that holds no batch rows) takes every layer kind's tensor-parallel
+    form (dense GQA and latent attention, MLPs and mixtures of experts,
+    the latter by expert parallelism where the reference's gate holds,
+    with their shared experts in the MLP's form; cross-attention, RWKV6
+    and Mamba); heads, KV heads, d_ff (Mamba's inner width, the shared
+    experts') or a vocab that the axis does not divide raise
+    ``ValueError`` naming the axis and "Distribution".  A ``Halves``
+    leaf (Mamba's ``in_proj``) is placed, gathered and reassembled half
+    by half (``TrainPlan.halves``).  A
     tp above the KV heads that is a multiple of them (``kv_group``)
     keeps the KV leaves whole over "model" (``TrainPlan.kv_slices``).  An
     MoE arch takes the expert-parallel dispatch (``TrainPlan.ep``) on a
@@ -845,10 +907,7 @@ def make_train_plan(cfg, mesh, rules: Optional[ShardingRules] = None
     batch_axes = tuple(a for a in names if a in rb)
     tp_axis = "model" in sizes and "model" not in batch_axes
     tp_n = sizes["model"] if tp_axis else 1
-    why = tp_unsupported(cfg)
     if tp_n > 1:
-        refuse_tp(cfg, tp_n, "training", "train it with make_rules(tp=False) "
-                  "or on a \"model\" axis of 1")
         issues = serving_tp_issues(cfg, tp_n)
         if cfg.vocab % tp_n:
             issues.append(f"vocab ({cfg.vocab} % tp={tp_n} != 0)")
@@ -858,7 +917,7 @@ def make_train_plan(cfg, mesh, rules: Optional[ShardingRules] = None
                              f"reference leaves such an axis whole: ROADMAP "
                              f"Queue 1, \"Distribution\", per-dimension "
                              f"replication)")
-    tp = C.axis_group(mesh, "model") if tp_axis and why is None else None
+    tp = C.axis_group(mesh, "model") if tp_axis else None
     shared = kv_group(cfg, tp.size) if tp is not None else 1
     if shared > 1:
         rules = kv_rules(rules)
@@ -868,6 +927,8 @@ def make_train_plan(cfg, mesh, rules: Optional[ShardingRules] = None
                                             rules, mesh))
     world = C.world_group(mesh)
     gathers, replicas, norms, kv_slices = {}, {}, [], {}
+    halves = {p: halves_of(log) for p, log in logical.items()
+              if halves_of(log)}
     bucket: Dict[tuple, List[str]] = {}
     hd = cfg.resolved_head_dim
     for path, spec in resolved.items():
@@ -880,6 +941,11 @@ def make_train_plan(cfg, mesh, rules: Optional[ShardingRules] = None
             for a in t:
                 shard *= sizes[a]
             if t and set(t) <= set(batch_axes):
+                if d in halves.get(path, ()):
+                    raise NotImplementedError(
+                        f"{path}: dimension {d} holds two halves and is "
+                        f"split over the batch axes {t}: the FSDP gather "
+                        f"would interleave them")
                 dims.append((d, C.axes_group(mesh, t)))
             elif t and t != ("model",):
                 raise ValueError(f"{path}: dimension {d} split over {t}, "
@@ -922,6 +988,7 @@ def make_train_plan(cfg, mesh, rules: Optional[ShardingRules] = None
         kv_slices=kv_slices,
         partials=[p for p in resolved if _tp_partial(cfg, p)
                   and not is_frozen(p)] if tp is not None else [],
+        halves=halves,
         ep=ep, batch_ranks=int(np.prod([sizes.get(a, 1)
                                         for a in _axes(rules.batch)])),
         aux_scale=aux_scale)

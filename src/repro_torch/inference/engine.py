@@ -112,8 +112,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import (kv_group, kv_head, kv_rules,
                                               make_serving_rules,
-                                              mesh_axis_sizes, refuse_tp,
-                                              replicate_put,
+                                              mesh_axis_sizes, replicate_put,
                                               serving_tp_issues,
                                               shard_config, shard_put_tree,
                                               tree_bytes)
@@ -309,10 +308,11 @@ class Engine:
         weights (``tp`` 1, no "model" collective), as the reference's
         engine does, under the default rules; explicit ``shard_rules``
         that shard over "model" raise ``ValueError`` naming the axis
-        instead.  An arch with no tensor-parallel form (MLA, Mamba)
-        raises at tp > 1, unless ``shard_rules`` shard nothing over
-        "model" (then every rank of a "model" group computes the same
-        rows whole).  At tp 1
+        instead.  Every arch has a tensor-parallel form (MLA's heads
+        with its latent cache whole on every rank, Mamba's inner
+        channels); ``shard_rules`` that
+        shard nothing over "model" serve with every rank of a "model"
+        group computing the same rows whole.  At tp 1
         on a ("data", "model") mesh the sharded path runs with every
         collective, over groups of one.
 
@@ -350,9 +350,6 @@ class Engine:
                 f"shard_rules heads={rules.heads!r}, kv_heads="
                 f"{rules.kv_heads!r}, mlp={rules.mlp!r}: the port shards "
                 f"all three over \"model\" or none")
-        if c.shard_rules is None or split == {"model"}:
-            # rules that shard nothing over "model" serve any arch
-            refuse_tp(cfg, tp, "serving", "serve it on a dp-only mesh")
         if c.shard_rules is not None and split == {"model"} and issues:
             # explicit tensor-parallel rules never fall back to replicated
             # weights: a replicated run must not pass for a tp one

@@ -42,12 +42,13 @@ step as ``inference.engine.Engine`` shards it, under
 under ``make_rules`` (ROADMAP records the difference).  Prefill runs
 ``dsa_mode="block"``, decode ``"off"``, as the reference's.  A cell the
 port cannot run raises naming ROADMAP's "Distribution" and writes a
-``.fail`` record: ``long_500k`` (the sequence-sharded cache), tp > 1
-on an arch without a tensor-parallel form (MLA, Mamba:
-``NotImplementedError``), and tp 16 on an arch whose heads it does not
-divide (whisper_small's 12, rwkv6_3b's 40: ``ValueError`` naming the
-axis; the reference would keep that axis whole and shard the rest,
-ROADMAP's per-dimension replication).  ``--no-tp`` runs them.
+``.fail`` record: ``long_500k`` (the sequence-sharded cache) and tp
+16 on an arch whose heads it does not divide (whisper_small's 12,
+rwkv6_3b's 40: ``ValueError`` naming the axis; the reference would keep
+that axis whole and shard the rest, ROADMAP's per-dimension
+replication).  ``--no-tp`` runs them.  Every layer kind has a
+tensor-parallel form, MLA and Mamba included (jamba_1_5_large's and
+deepseek_v3's tp-16 cells run).
 """
 from __future__ import annotations
 

@@ -35,7 +35,7 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import refuse_tp, serving_tp_issues
+from repro_torch.distributed.sharding import serving_tp_issues
 
 BACKENDS = ("nccl", "gloo")
 
@@ -127,13 +127,12 @@ def make_serving_mesh(dp: int = 0, tp: int = 1, cfg=None):
     (``sharding.make_serving_rules``).
 
     ``cfg``: an ArchConfig validated up front, before any rank is asked:
-    an axis that ``tp`` does not divide raises ``ValueError`` naming it,
-    and an arch whose layers have no tensor-parallel form raises
-    ``NotImplementedError`` (ROADMAP Queue 1, "Distribution").  The mesh
-    spans every process: dp x tp must be the world size."""
+    an axis that ``tp`` does not divide raises ``ValueError`` naming it
+    (``sharding.serving_tp_issues``: heads, KV heads, d_ff, Mamba's inner
+    width, the experts and the shared experts).  The mesh spans every
+    process: dp x tp must be the world size."""
     tp = max(1, int(tp))
     if cfg is not None and tp > 1:
-        refuse_tp(cfg, tp, "serving", "serve it dp-only (replicated weights)")
         issues = serving_tp_issues(cfg, tp)
         if issues:
             raise ValueError(

@@ -1261,6 +1261,13 @@ def commit_verify(cfg: ArchConfig, flags: RunFlags, cache: Dict,
 # multi-head latent attention (DeepSeek MLA)
 # ---------------------------------------------------------------------------
 
+# the MLA leaves each rank holds whole under tensor parallelism but feeds
+# only its heads with (the latent projections and their norms): ("attn",
+# leaf) of a sub-block.  Their gradients are summed over "model" once a
+# step (``sharding.TrainPlan.partials``)
+MLA_PARTIAL = (("attn", "q_a"), ("attn", "q_a_norm"), ("attn", "kv_a"),
+               ("attn", "kv_a_norm"))
+
 
 def init_mla(gen: torch.Generator, cfg: ArchConfig, *, device,
              dtype=torch.float32) -> Dict:
@@ -1352,14 +1359,35 @@ def apply_mla(params, cfg: ArchConfig, flags: RunFlags, x, *, cache=None,
     runs in the latent space (``_apply_mla_decode``); ``chunk_len`` takes
     the chunk path (``_apply_mla_chunk``), with ``flags.spec_verify``
     the verify (``_apply_mla_verify``).  Neither decode form selects:
-    DSA over MLA has no predicted-key cache."""
+    DSA over MLA has no predicted-key cache.
+
+    Tensor parallelism (``flags.tp``, the reference's specs: ``q_b``'s
+    and ``kv_b``'s columns and ``wo``'s rows over "heads"): ``cfg`` is
+    this rank's n_heads / tp heads, whose columns of ``q_b`` (H x (nope
+    + rope)) and ``kv_b`` (H x (nope + v)) are contiguous, head-major,
+    and ``wo``'s rows give a partial sum added over "model"
+    (``_out_proj``; in training under SP reduce-scattered to this rank's
+    rows, its input gathered first).  ``q_a``, ``kv_a``, their norms and
+    the latent cache (``c_kv``, ``k_rope``) are whole on every rank:
+    every rank computes the same latents and writes the same cache rows.
+    In training their leaves feed only the rank's heads, so each rank
+    holds its part of their gradients, summed over "model" once a step
+    (``MLA_PARTIAL``, ``sharding.TrainPlan.partials``: it costs no
+    per-layer collective, where ``copy_to_tp`` on the latents would add
+    one a layer).  The DSA predictor runs alike on every rank
+    (``collectives.replicated_input``) and so selects alike; the MSE
+    target is the mean over every rank's heads (``_mean_head_scores``)."""
     if flags.mode == "decode":
         if chunk_len is not None and flags.spec_verify:
-            return _apply_mla_verify(params, cfg, x, cache, active), cache, {}
+            return (_apply_mla_verify(params, cfg, flags, x, cache, active),
+                    cache, {})
         if chunk_len is not None:
-            return _apply_mla_chunk(params, cfg, x, cache, active, chunk_len,
-                                    sel_len), cache, {}
-        return _apply_mla_decode(params, cfg, x, cache, active), cache, {}
+            return _apply_mla_chunk(params, cfg, flags, x, cache, active,
+                                    chunk_len, sel_len), cache, {}
+        return (_apply_mla_decode(params, cfg, flags, x, cache, active),
+                cache, {})
+    train = flags.mode == "train"
+    x = C.tp_enter(x, flags.tp, train=train, sp=flags.sp)
     b, s = x.shape[:2]
     pos = torch.arange(s, device=x.device)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, cfg, x, pos)
@@ -1367,8 +1395,10 @@ def apply_mla(params, cfg: ArchConfig, flags: RunFlags, x, *, cache=None,
     q = torch.cat([q_nope, q_rope], dim=-1)
     aux: Dict[str, torch.Tensor] = {}
     if dsa_active(cfg, flags):
-        (kind, pat), aux = _dsa_train_mask_and_aux(params, cfg, flags, x, q,
-                                                   k, True)
+        # the predictor runs alike on every rank of "model"
+        x_rep = C.replicated_input(x, flags.tp) if train else x
+        (kind, pat), aux = _dsa_train_mask_and_aux(params, cfg, flags, x_rep,
+                                                   q, k, True)
         if kind == "token":
             out = A.dense_attention(q, k, v, causal=True, token_mask=pat)
         else:
@@ -1383,8 +1413,7 @@ def apply_mla(params, cfg: ArchConfig, flags: RunFlags, x, *, cache=None,
         cache["c_kv"][:, :s] = c_kv.to(cache["c_kv"].dtype)
         cache["k_rope"][:, :s] = k_rope[:, :, 0].to(cache["k_rope"].dtype)
         cache["pos"].fill_(s)
-    out = mm(out.reshape(b, s, -1), params["wo"])
-    return out, cache, aux
+    return _out_proj(params, flags, out.reshape(b, s, -1)), cache, aux
 
 
 def init_cache_mla(cfg: ArchConfig, batch: int, max_len: int, *, device,
@@ -1419,7 +1448,7 @@ def _mla_append(params, cfg: ArchConfig, x, cache, act, live):
     return q_nope, q_rope, p
 
 
-def _apply_mla_chunk(params, cfg: ArchConfig, x, cache,
+def _apply_mla_chunk(params, cfg: ArchConfig, flags: RunFlags, x, cache,
                      active: Optional[Active], chunk_len, sel_len=None):
     """Chunk append: C latent rows written at ``pos`` (pad rows zeroed,
     the state ``truncate_cache`` leaves), ``pos`` advanced by chunk_len,
@@ -1438,7 +1467,7 @@ def _apply_mla_chunk(params, cfg: ArchConfig, x, cache,
     k, v = _mla_expand(params, cfg, cache["c_kv"][:, :sel].to(x.dtype),
                        cache["k_rope"][:, :sel].to(x.dtype))
     out = A.chunk_attention(torch.cat([q_nope, q_rope], dim=-1), k, v, p)
-    return mm(out.reshape(b, c, -1), params["wo"])
+    return _out_proj(params, flags, out.reshape(b, c, -1))
 
 
 def _mla_latent_attend(params, cfg: ArchConfig, q_nope, q_rope, cache,
@@ -1469,7 +1498,7 @@ def _mla_latent_attend(params, cfg: ArchConfig, q_nope, q_rope, cache,
     return out.reshape(b, c, -1)
 
 
-def _apply_mla_decode(params, cfg: ArchConfig, x, cache,
+def _apply_mla_decode(params, cfg: ArchConfig, flags: RunFlags, x, cache,
                       active: Optional[Active] = None):
     """Absorbed decode, one token a row at its own ``pos``: its latent
     row written there (an inactive row or one past the cache's end
@@ -1483,10 +1512,10 @@ def _apply_mla_decode(params, cfg: ArchConfig, x, cache,
     kv_len = torch.where(live, p + 1, 0)
     cache["pos"].add_(act.to(torch.int32))
     out = _mla_latent_attend(params, cfg, q_nope, q_rope, cache, kv_len)
-    return mm(out, params["wo"])
+    return _out_proj(params, flags, out)
 
 
-def _apply_mla_verify(params, cfg: ArchConfig, x, cache,
+def _apply_mla_verify(params, cfg: ArchConfig, flags: RunFlags, x, cache,
                       active: Optional[Active]):
     """Draft verify: the C rows written at ``pos`` as the chunk path
     writes them (every row real), ``pos`` advanced by C on active rows,
@@ -1501,4 +1530,4 @@ def _apply_mla_verify(params, cfg: ArchConfig, x, cache,
     kv_len = torch.where(live, p + 1, 0)
     cache["pos"].add_(torch.where(act, c, 0).to(torch.int32))
     out = _mla_latent_attend(params, cfg, q_nope, q_rope, cache, kv_len)
-    return mm(out, params["wo"])
+    return _out_proj(params, flags, out)

@@ -235,7 +235,9 @@ def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
     Under tensor parallelism it takes the attention's form (this rank's
     heads and KV heads, its out-projection's partial sums added over
     "model"); ``enc`` is whole on every rank, under sequence parallelism
-    too, and the gate ``xgate`` scales this rank's rows."""
+    too, and the gate ``xgate`` scales this rank's rows.  A Mamba and an
+    MLA sub-layer enter and leave as the attention does (this rank's
+    channels or heads, ``ssm.apply_mamba``, ``attention.apply_mla``)."""
     if d.kind == "rwkv":
         return (_apply_rwkv_subblock(params, cfg, flags, x, cache, **step),
                 cache, {})
@@ -245,7 +247,7 @@ def apply_subblock(params, cfg: ArchConfig, flags: RunFlags, d: SubBlockDef,
         _recurrent_step(**step)
         y = ssm.apply_mamba(params["attn"], cfg, h, cache=c,
                             decode=flags.mode == "decode",
-                            active=step.get("active"))
+                            active=step.get("active"), flags=flags)
         aux = {}
     else:
         attn = apply_mla if d.kind == "mla" else apply_attention
@@ -312,9 +314,18 @@ def _apply_rwkv_subblock(params, cfg: ArchConfig, flags: RunFlags, x,
 
 
 def init_group(gen: torch.Generator, cfg: ArchConfig, *, device,
-               dtype=torch.float32, decoder: bool = True) -> Dict:
-    return {f"b{i}": init_subblock(gen, cfg, d, device=device, dtype=dtype)
-            for i, d in enumerate(group_defs(cfg, decoder))}
+               dtype=torch.float32, decoder: bool = True,
+               place=None) -> Dict:
+    """The group's sub-blocks "b0".., drawn in order.  ``place(name,
+    sub)``, when given, takes each sub-block as soon as it is drawn and
+    returns what the group keeps of it (``transformer.init_model``'s
+    ``place``): a group of large sub-blocks, such as jamba's 8 with four
+    MoE FFNs, is then never whole on the device."""
+    out = {}
+    for i, d in enumerate(group_defs(cfg, decoder)):
+        sub = init_subblock(gen, cfg, d, device=device, dtype=dtype)
+        out[f"b{i}"] = sub if place is None else place(f"b{i}", sub)
+    return out
 
 
 def apply_group(params, cfg: ArchConfig, flags: RunFlags, defs, x,

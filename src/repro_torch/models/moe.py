@@ -18,10 +18,11 @@
 
 Tensor-parallel serving (a "model" axis, ``param_specs_moe``): each rank
 holds E / tp whole experts, or, where tp does not divide E, every
-expert's f / tp columns; routing is replicated, each rank combines its
-own experts' (or columns') outputs, and ``blocks.apply_subblock`` sums
-the partial combines with one all-reduce, as the reference's serving
-rules (``moe_ep`` off) do.
+expert's f / tp columns, and its f_s / tp columns of the shared experts;
+routing is replicated, each rank combines its own experts' (or
+columns') outputs and adds its shared experts' partial sum, and
+``blocks.apply_subblock`` sums the partials with one all-reduce, as the
+reference's serving rules (``moe_ep`` off) do.
 
 The expert products are plain ``torch.bmm``s (no kernel: the reference
 computes them outside any Pallas kernel).  The router's logits are f32
@@ -303,7 +304,8 @@ def apply_moe(params, cfg: ArchConfig, x, *, decode: bool = False,
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x (B, S, d) -> (y, {"router": aux * router_aux_weight}); under
     tensor parallelism (``tp``, the "model" group) ``y`` is this rank's
-    partial combine, which the caller all-reduces.
+    partial combine, its shared experts' partial sum (their ``sw1``/``sw3``
+    columns and ``sw2`` rows) with it, which the caller all-reduces.
 
     ``ep`` (training on a mesh where the reference's gate holds,
     ``TrainPlan.run_flags``): the expert-parallel dispatch of this rank's
@@ -312,14 +314,27 @@ def apply_moe(params, cfg: ArchConfig, x, *, decode: bool = False,
     path row by row (the reference's ``vmap`` over the batch), ``cap = max(4,
     int(S * top_k * capacity_factor / E))`` from the row's padded length
     S, its aux the mean of the rows'.  Shared experts, where the config
-    has any, are added to every token after, on the same rows."""
+    has any, are added to every token after, on the same rows.
+
+    Under expert parallelism with tensor parallelism (``ep.tp``) the
+    shared experts take the dense MLP's tensor-parallel form beside the
+    dispatch, as the reference computes them outside its shard_map: the
+    rank's rows all-gathered over the sequence under SP (else its
+    replicated rows, their gradient summed over "model"), the rank's
+    columns and rows of ``sw1``/``sw3``/``sw2``, and the partial sums
+    reduce-scattered back to its rows (else all-reduced).  They run
+    before the dispatch, so that the recompute of a checkpointed layer,
+    which stops at the combine's last saved product, never reaches the
+    router term's all-reduce."""
     mo = cfg.moe
+    shared = None
+    if ep is not None and ep.tp and mo.num_shared_experts:
+        sp = not ep.replicated
+        h = C.tp_enter(x, ep.group, train=True, sp=sp)
+        shared = C.tp_exit(_shared_ffn(params, h), ep.group, train=True,
+                           sp=sp)
     if ep is not None:
         # (the gate saw the whole sequence: a rank's shard may be 1 row)
-        if mo.num_shared_experts and ep.tp:
-            raise NotImplementedError(
-                f"{cfg.name}: shared experts under expert parallelism with "
-                f"tensor parallelism have no form in the port")
         y, a = _moe_ep(params, cfg, x, ep)
     elif decode or x.shape[1] == 1:
         y, a = _moe_decode_dense(params, cfg, x, tp)
@@ -332,7 +347,12 @@ def apply_moe(params, cfg: ArchConfig, x, *, decode: bool = False,
         a = torch.stack([r[1] for r in rows]).mean()
     aux = {"router": a * mo.router_aux_weight}
     if mo.num_shared_experts:
-        h = F.silu(mm(x, params["sw1"].to(x.dtype)))
-        h = h * mm(x, params["sw3"].to(x.dtype))
-        y = y + mm(h, params["sw2"].to(x.dtype))
+        y = y + (shared if shared is not None else _shared_ffn(params, x))
     return y, aux
+
+
+def _shared_ffn(params, x):
+    """The shared experts' SwiGLU FFN on every token of x (..., d)."""
+    h = F.silu(mm(x, params["sw1"].to(x.dtype)))
+    h = h * mm(x, params["sw3"].to(x.dtype))
+    return mm(h, params["sw2"].to(x.dtype))

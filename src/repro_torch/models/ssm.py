@@ -59,6 +59,23 @@ over "model" once a step (``sharding.TrainPlan.partials``); without SP
 the gate's gradient is divided by tp (``collectives.replicated_input``)
 for that sum to count it once.
 
+Mamba under tensor parallelism (the reference's specs: every leaf's
+inner-channel axis over "mlp"): a rank computes ``d_inner(cfg)`` = d_model
+* expand / tp channels, with its columns of ``in_proj``'s two halves x
+and z (``sharding.Halves``), of ``conv_w``, ``conv_b``, ``dt_proj``,
+``dt_bias``, its rows of ``a_log``, ``d_skip``, ``x_proj`` and
+``out_proj``, and its channels of the ``h`` and ``conv`` caches.
+``dt_rank`` is the whole width's.  ``x_proj`` contracts over the
+channels: its (dt_rank + 2 N)-wide output is summed over "model" (one
+all-reduce), and since the summed dt input, B and C feed only the rank's
+channels, each rank holds only its part of their gradient, summed by a
+second all-reduce in the backward pass (``collectives.tp_psum``).
+``out_proj``'s partial sums leave through ``collectives.tp_exit``; in
+training the input enters through ``tp_enter`` (the sequence gathered
+under SP, the scan running over the whole sequence on the rank's
+channels).  Every Mamba leaf holds the rank's channels, so none has a
+partial gradient to sum after the step.
+
 A continuous engine's decode step passes ``active`` (a (B,) bool mask):
 an inactive row's recurrent leaves keep their values (the reference lets
 them run on, to be overwritten at the slot's next admission; the active
@@ -102,25 +119,46 @@ def store(cache: Dict, name: str, new: torch.Tensor, active=None) -> None:
     cache[name].copy_(new)
 
 
+def _tp_of(flags):
+    """(the "model" group or None, whether training, whether under SP)."""
+    if flags is None or flags.tp is None:
+        return None, False, False
+    train = flags.mode == "train"
+    return flags.tp, train, train and flags.sp
+
+
 # ---------------------------------------------------------------------------
 # Mamba (selective state space; jamba interleaves 7 of these per attention)
 # ---------------------------------------------------------------------------
+
+
+def d_inner(cfg: ArchConfig) -> int:
+    """The inner channels a Mamba layer computes: d_model * expand, a
+    rank's 1 / tp of them under tensor parallelism (``cfg.mamba`` a
+    ``configs.base.MambaShard``)."""
+    mc = cfg.mamba
+    return cfg.d_model * mc.expand // getattr(mc, "tp", 1)
+
+
+def dt_rank(cfg: ArchConfig) -> int:
+    """The rank of dt's projection, max(1, d_model * expand // 16): from
+    the whole inner width, whatever share of it a rank computes."""
+    return max(1, cfg.d_model * cfg.mamba.expand // 16)
 
 
 def init_mamba(gen: torch.Generator, cfg: ArchConfig, *, device,
                dtype=torch.float32) -> Dict:
     mc = cfg.mamba
     d = cfg.d_model
-    mi = d * mc.expand
-    dt_rank = max(1, mi // 16)
+    mi, r = d_inner(cfg), dt_rank(cfg)
     kw = dict(device=device, dtype=dtype)
     a = torch.arange(1, mc.d_state + 1, dtype=torch.float32, device=device)
     return {
         "in_proj": dense_init(gen, (d, 2 * mi), **kw),
         "conv_w": dense_init(gen, (mc.d_conv, mi), **kw),
         "conv_b": torch.zeros((mi,), **kw),
-        "x_proj": dense_init(gen, (mi, dt_rank + 2 * mc.d_state), **kw),
-        "dt_proj": dense_init(gen, (dt_rank, mi), **kw),
+        "x_proj": dense_init(gen, (mi, r + 2 * mc.d_state), **kw),
+        "dt_proj": dense_init(gen, (r, mi), **kw),
         "dt_bias": torch.full((mi,), -4.6, **kw),   # softplus^-1(0.01)
         "a_log": torch.log(a).expand(mi, mc.d_state).to(dtype).clone(),
         "d_skip": torch.ones((mi,), **kw),
@@ -145,18 +183,21 @@ def _scan_chunk(h, a, xc, dt, bmat, cmat):
     return h, y.to(xc.dtype)
 
 
-def _mamba_scan(params, cfg: ArchConfig, xc, z, h0=None):
-    """xc: (B, S, mi) post-conv activations; z: (B, S, mi) the gate.
+def _mamba_scan(params, cfg: ArchConfig, xc, z, h0=None, tp=None,
+                train: bool = False):
+    """xc: (B, S, mi) post-conv activations; z: (B, S, mi) the gate (a
+    rank's mi channels under tensor parallelism, ``tp``: ``x_proj``'s
+    partial products are summed over "model", in training both ways).
     Returns (y (B,S,mi), h_last (B,mi,N) f32)."""
     mc = cfg.mamba
     b, s, mi = xc.shape
-    dt_rank = max(1, mi // 16)
-    proj = mm(xc, params["x_proj"].to(xc.dtype))
+    r = dt_rank(cfg)
+    proj = C.tp_psum(mm(xc, params["x_proj"].to(xc.dtype)), tp, train=train)
     dt = torch.nn.functional.softplus(
-        mm(proj[..., :dt_rank], params["dt_proj"].to(xc.dtype))
+        mm(proj[..., :r], params["dt_proj"].to(xc.dtype))
         + params["dt_bias"].to(xc.dtype))
-    bmat = proj[..., dt_rank:dt_rank + mc.d_state]
-    cmat = proj[..., dt_rank + mc.d_state:]
+    bmat = proj[..., r:r + mc.d_state]
+    cmat = proj[..., r + mc.d_state:]
     a = -torch.exp(params["a_log"].float())                # (mi, N)
     h = (torch.zeros((b, mi, mc.d_state), dtype=torch.float32,
                      device=xc.device) if h0 is None else h0)
@@ -178,14 +219,18 @@ def _mamba_scan(params, cfg: ArchConfig, xc, z, h0=None):
 
 
 def apply_mamba(params, cfg: ArchConfig, x, *, cache: Optional[Dict] = None,
-                decode: bool = False, active=None):
+                decode: bool = False, active=None, flags=None):
     """x: (B,S,d) -> the block output.  cache: {"h": (B,mi,N) f32,
     "conv": (B,d_conv-1,mi)}, updated in place (``active``: the rows of
     a masked decode step).  ``decode`` (S = 1) continues from the cache;
-    a prefill starts from a zero state and zero history."""
+    a prefill starts from a zero state and zero history.  ``flags``:
+    the run's ``RunFlags`` (tensor parallelism, module docstring); None
+    runs whole."""
+    tp, train, sp = _tp_of(flags)
+    x = C.tp_enter(x, tp, train=train, sp=sp)
     mc = cfg.mamba
     b, s, d = x.shape
-    mi = d * mc.expand
+    mi = d_inner(cfg)                         # this rank's channels
     xz = mm(x, params["in_proj"].to(x.dtype))
     xr, z = xz[..., :mi], xz[..., mi:]
     dc = mc.d_conv
@@ -195,7 +240,7 @@ def apply_mamba(params, cfg: ArchConfig, x, *, cache: Optional[Dict] = None,
         xc = einsum("btm,tm->bm", hist, w)
         xc = torch.nn.functional.silu(
             xc + params["conv_b"].to(x.dtype))[:, None]
-        y, h = _mamba_scan(params, cfg, xc, z, h0=cache["h"])
+        y, h = _mamba_scan(params, cfg, xc, z, h0=cache["h"], tp=tp)
         store(cache, "h", h, active)
         store(cache, "conv", hist[:, 1:], active)
     else:
@@ -203,16 +248,21 @@ def apply_mamba(params, cfg: ArchConfig, x, *, cache: Optional[Dict] = None,
         hist = torch.cat([pad, xr], dim=1)
         xc = sum(hist[:, i:i + s] * w[i] for i in range(dc))
         xc = torch.nn.functional.silu(xc + params["conv_b"].to(x.dtype))
-        y, h = _mamba_scan(params, cfg, xc, z)
+        y, h = _mamba_scan(params, cfg, xc, z, tp=tp, train=train)
         if cache is not None:
             store(cache, "h", h, active)
             store(cache, "conv", hist[:, s:], active)
-    return mm(y, params["out_proj"].to(x.dtype))
+    return C.tp_exit(mm(y, params["out_proj"].to(x.dtype)), tp, train=train,
+                     sp=sp)
 
 
 def param_specs_mamba() -> Dict:
-    """Logical axes of ``init_mamba``'s leaves."""
-    return {"in_proj": ("embed", "mlp"), "conv_w": ("conv", "mlp"),
+    """Logical axes of ``init_mamba``'s leaves (the reference's).
+    ``in_proj``'s "mlp" dimension is [x | z], two halves side by side: a
+    ``sharding.Halves`` spec, so that a rank's piece is its channels of
+    each half."""
+    from repro_torch.distributed.sharding import Halves
+    return {"in_proj": Halves(("embed", "mlp")), "conv_w": ("conv", "mlp"),
             "conv_b": ("mlp",), "x_proj": ("mlp", None),
             "dt_proj": (None, "mlp"), "dt_bias": ("mlp",),
             "a_log": ("mlp", "state"), "d_skip": ("mlp",),
@@ -226,7 +276,7 @@ def cache_specs_mamba(cache) -> Dict:
 
 def init_cache_mamba(cfg: ArchConfig, batch: int, *, device,
                      dtype=torch.bfloat16) -> Dict:
-    mi = cfg.d_model * cfg.mamba.expand
+    mi = d_inner(cfg)                           # this rank's channels
     return {"h": torch.zeros((batch, mi, cfg.mamba.d_state),
                              dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, cfg.mamba.d_conv - 1, mi),
@@ -337,14 +387,6 @@ def _rwkv_mix(params, x, x_prev):
     mu = params["mu"].to(x.dtype)
     delta = _shift_delta(x, x_prev)
     return [x + mu[i] * delta for i in range(5)]  # r, k, v, w, g
-
-
-def _tp_of(flags):
-    """(the "model" group or None, whether training, whether under SP)."""
-    if flags is None or flags.tp is None:
-        return None, False, False
-    train = flags.mode == "train"
-    return flags.tp, train, train and flags.sp
 
 
 def _cols(tp, width: int):

@@ -65,7 +65,9 @@ V / tp logit columns (only the ``last`` rows of a prefill or a chunk):
 2 * n_layers + 1 all-reduces and one all-gather a decode step
 (distributed/collectives.py; a cross sub-layer adds its out-projection's,
 and whisper's encoder, which takes the same form, 2 a layer at prefill:
-``sharding.tp_decode_all_reduces``; RWKV6's mixes, ``models/ssm.py``).
+``sharding.tp_decode_all_reduces``; RWKV6's mixes and Mamba's
+``x_proj`` and ``out_proj``, ``models/ssm.py``; MLA's out-projection,
+its latent cache whole on every rank, ``attention.apply_mla``).
 In training (``forward_train`` under a
 ``distributed.sharding.TrainPlan``: ``flags.tp``, ``flags.sp``,
 ``flags.fsdp``) the same sites carry gradients: under sequence
@@ -123,8 +125,8 @@ def init_model(seed: int, cfg: ArchConfig, *, device=None,
     device), in ``cfg.param_dtype``, but for an MoE router, which is f32
     as in the reference.  ``device=None`` means the card.
 
-    ``place(piece, specs)``, when given, takes each top-level piece as
-    soon as it is drawn (the embedding, each layer group, the final
+    ``place(piece, specs)``, when given, takes each piece as soon as it
+    is drawn (the embedding, each sub-block of a layer group, the final
     norm, the head, ...) with its subtree of ``model_param_specs``, and
     returns what the tree keeps of it: an engine on a serving mesh
     passes one that keeps this rank's shard (``Engine``), so the device
@@ -141,7 +143,7 @@ def init_model(seed: int, cfg: ArchConfig, *, device=None,
     params: Dict[str, Any] = {
         "embed": keep(dense_init(gen, (cfg.vocab, cfg.d_model), **kw),
                       specs["embed"]),
-        "groups": [keep(B.init_group(gen, cfg, **kw), s)
+        "groups": [B.init_group(gen, cfg, place=_sub_place(keep, s), **kw)
                    for s in specs["groups"]],
         "final_norm": keep(torch.ones((cfg.d_model,), **kw),
                            specs["final_norm"]),
@@ -155,12 +157,18 @@ def init_model(seed: int, cfg: ArchConfig, *, device=None,
                                    s)
                               for s in specs["prologue"]]
     if cfg.enc_dec:
-        params["enc_groups"] = [keep(B.init_group(gen, cfg, decoder=False,
-                                                  **kw), s)
+        params["enc_groups"] = [B.init_group(gen, cfg, decoder=False,
+                                             place=_sub_place(keep, s), **kw)
                                 for s in specs["enc_groups"]]
         params["enc_norm"] = keep(torch.ones((cfg.d_model,), **kw),
                                   specs["enc_norm"])
     return params
+
+
+def _sub_place(keep: Callable, specs: Dict[str, Any]) -> Callable:
+    """``init_group``'s ``place`` for a group whose spec tree is ``specs``:
+    ``keep`` each sub-block with its own subtree."""
+    return lambda name, sub: keep(sub, specs[name])
 
 
 def model_param_specs(cfg: ArchConfig) -> Dict[str, Any]:

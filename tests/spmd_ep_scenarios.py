@@ -45,13 +45,21 @@ import spmd_train_scenarios as S
 DROP_CF = 1.0
 REF_MOE = dict(num_experts=2, top_k=1)
 REF_ARCHS = ("mixtral_8x22b", "deepseek_v3", "jamba_1_5_large")
+# the archs whose other layers took a tensor-parallel form after EP's:
+# MLA with its shared experts, and Mamba
+TP_ARCHS = ("deepseek_v3", "jamba_1_5_large")
+# the (arch, case) pairs of EP x TP beside the other layers' TP forms
+EP_TP_CASES = (("deepseek_v3", "tp2"), ("deepseek_v3", "tp2_nosp"),
+               ("deepseek_v3", "tp2_remat"), ("jamba_1_5_large", "tp2_remat"))
 REF_CASES = (
     [dict(name="mixtral_8x22b_tp", arch="mixtral_8x22b", tp=True,
           moe=REF_MOE, dsa=True, grads=True),
      dict(name="mixtral_8x22b_tp_e4", arch="mixtral_8x22b", tp=True,
           moe={}, dsa=True, probe=True)]
     + [dict(name=f"{a}_fsdp", arch=a, tp=False, moe=REF_MOE,
-            dsa=a != "jamba_1_5_large") for a in REF_ARCHS])
+            dsa=a != "jamba_1_5_large") for a in REF_ARCHS]
+    + [dict(name=f"{a}_tp", arch=a, tp=True, moe=REF_MOE,
+            dsa=a != "jamba_1_5_large") for a in TP_ARCHS])
 
 
 def ep_cfg(arch="mixtral_8x22b", *, aux=0.0, dsa=False, remat=False,
@@ -192,6 +200,17 @@ def two(rank, ckpt_dir):
     out["tp2_capacity"] = compare(train_run(odd, seq=S.SEQ - 1), odd, m12,
                                   make_rules(), seq=S.SEQ - 1)
     out["checkpoint"] = checkpoint_case(cfg, m12, ckpt_dir)
+    # EP x TP beside MLA and the shared experts' TP form (deepseek_v3: with
+    # and without SP, with remat) and beside Mamba (jamba_1_5_large: with
+    # remat, where the router term's mean runs again)
+    for arch, case in EP_TP_CASES:
+        if case == "tp2_remat":
+            rem = ep_cfg(arch, remat=True)
+            out[case, arch] = compare(train_run(rem), rem, m12, make_rules())
+            continue
+        acfg = ep_cfg(arch)
+        rules = make_rules(seq_parallel=case == "tp2")
+        out[case, arch] = compare(train_run(acfg), acfg, m12, rules)
     return out
 
 
@@ -306,6 +325,9 @@ def four(rank, refs):
     plain = train_run(cfg)
     out["dp2xtp2"] = compare(plain, cfg, m22, make_rules())
     out["fsdp4"] = compare(plain, cfg, m22, make_rules(tp=False))
+    ds = ep_cfg("deepseek_v3")
+    out["dp2xtp2", "deepseek_v3"] = compare(train_run(ds), ds, m22,
+                                            make_rules())
     for case in REF_CASES:
         out["ref", case["name"]] = reference_case(case, refs[case["name"]])
     out["cli"] = cli_case(m22)

@@ -24,6 +24,7 @@ from repro_torch.inference.engine import Engine
 from repro_torch.inference.scheduler import ContinuousEngine, Request
 from repro_torch.inference.telemetry import Telemetry
 from repro_torch.launch.mesh import make_serving_mesh
+from repro_torch.models import ssm
 from repro_torch.models.transformer import (attn_caches, init_cache,
                                             init_model, set_cross_gates,
                                             unstacked_cache_specs)
@@ -33,6 +34,9 @@ SLOTS = 8
 DEV = dict(device="cpu")
 # the archs whose cross-attention and RWKV6 layers take tensor parallelism
 XARCHS = ("whisper_small", "llama_3_2_vision", "rwkv6_3b")
+# the archs whose Mamba and latent-attention layers (with shared experts)
+# take tensor parallelism
+MARCHS = ("jamba_1_5_large", "deepseek_v3")
 # every cross gate (init 0: tanh(0) = 0 keeps the encoder and the image
 # out of the logits)
 XGATE = 0.5
@@ -277,16 +281,34 @@ def tp_scenarios(rank):
         out[arch] = gen, both(p, s, lambda: requests(
             acfg.vocab, [(70, 6), (33, 5), (12, 4)], seed=17))
     jcfg, jparams = model("jamba_1_5_large")
-    try:
-        Engine(jcfg, jparams, mesh=ymesh, **DEV)
-        out["jamba_tp"] = None
-    except NotImplementedError as e:
-        out["jamba_tp"] = str(e)
-    for arch in XARCHS:
+    out["jamba_tp"] = Engine(jcfg, jparams, mesh=ymesh, **DEV).tp
+    for arch in XARCHS + MARCHS:
         xcfg, xparams = xmodel(arch)
         out["x", arch] = _xarch(xcfg, xparams,
                                 make_serving_mesh(dp=1, tp=2, cfg=xcfg))
+    out["mamba_weights"] = _mamba_weights(jcfg, jparams, ymesh, rank)
     return out
+
+
+def _mamba_weights(cfg, params, mesh, rank):
+    """A jamba rank's Mamba leaves at tp 2 against the whole ones:
+    ``in_proj`` is its channels of both halves [x_r | z_r], ``x_proj``
+    its rows with the whole width's dt rank, and the ``h`` and ``conv``
+    caches its channels."""
+    eng = Engine(cfg, params, max_len=MAX_LEN, mesh=mesh, **DEV)
+    got = eng.params["groups"][0]["b0"]["attn"]
+    want = params["groups"][0]["b0"]["attn"]
+    mi = cfg.d_model * cfg.mamba.expand
+    w = mi // 2
+    mine = [*range(rank * w, (rank + 1) * w)]
+    cache = eng.resident_cache(2)["groups"][0]["b0"]["attn"]
+    return dict(
+        in_proj=torch.equal(got["in_proj"], want["in_proj"][
+            :, mine + [mi + c for c in mine]]),
+        x_proj=(tuple(got["x_proj"].shape), torch.equal(
+            got["x_proj"], want["x_proj"][mine])),
+        dt_rank=ssm.dt_rank(eng.mcfg), d_inner=ssm.d_inner(eng.mcfg),
+        cache=(tuple(cache["h"].shape), tuple(cache["conv"].shape)))
 
 
 def _xarch(cfg, params, mesh):
@@ -431,9 +453,9 @@ def dp_tp_scenarios(rank, ref=None):
     out["fallback_weights"] = (
         eng.tp, eng.weight_bytes_per_device(),
         sum(t.numel() * t.element_size() for t in _leaves(fparams)))
-    # cross-attention and RWKV6 at dp 2 x tp 2, and llama_3_2_vision at tp
-    # 4 above its 2 KV heads in both attentions
-    for arch in XARCHS:
+    # cross-attention, RWKV6, Mamba and MLA at dp 2 x tp 2, and
+    # llama_3_2_vision at tp 4 above its 2 KV heads in both attentions
+    for arch in XARCHS + MARCHS:
         xcfg, xparams = xmodel(arch)
         xmesh = make_serving_mesh(dp=2, tp=2, cfg=xcfg)
         out["x", arch] = generate_both(xcfg, xparams, xmesh, batch=4,

@@ -46,6 +46,8 @@ OPT = adamw.OptConfig(lr=3e-4, total_steps=10, warmup_steps=1)
 XGATE = 0.5
 # the archs whose cross-attention and RWKV6 layers train under TP + SP
 XARCHS = ("whisper_small", "llama_3_2_vision", "rwkv6_3b")
+# the archs whose Mamba and latent-attention layers train under TP + SP
+MARCHS = ("jamba_1_5_large", "deepseek_v3")
 DRYRUN_SHAPE = ShapeConfig("train_64", SEQ, BATCH, "train")
 
 
@@ -210,16 +212,44 @@ def two(rank, ckpt_dir):
     out["x_odd"] = compare(train_run(odd, 1), odd, 1, m12, make_rules())
     for arch in ("rwkv6_3b", "whisper_small"):
         out["x_ckpt", arch] = _round_trip(arch, m12, ckpt_dir)
+    # Mamba and MLA with the capacity MoE and its shared experts under
+    # TP (+ SP); their expert-parallel dispatch is spmd_ep_scenarios'
+    for arch in MARCHS:
+        cfg = cfg_of(arch)
+        plain = train_run(cfg, 1)
+        for name, sp in (("m_tp2", True), ("m_tp2_nosp", False)):
+            out[name, arch] = compare(plain, cfg, 1, m12,
+                                      capacity_rules(seq_parallel=sp))
+        rem = cfg_of(arch, remat=True)
+        got = train_run(rem, 1, m12, capacity_rules())
+        out["m_remat", arch] = (got["counts"], got["step"].plan
+                                .collective_budget(1, seq_len=SEQ,
+                                                   remat=True,
+                                                   mse=rem.dsa.enabled,
+                                                   steps=STEPS))
+        out["m_partials", arch] = got["step"].plan.partials
+    out["m_ckpt"] = _round_trip("jamba_1_5_large", m12, ckpt_dir,
+                                capacity_rules(), with_plain=True)
     return out
 
 
-def _round_trip(arch, mesh, ckpt_dir):
+def capacity_rules(**kw):
+    """``make_rules(**kw)`` with the expert-parallel dispatch off: an MoE
+    layer under tensor parallelism takes the capacity path, its experts
+    and shared experts over "model"."""
+    return dataclasses.replace(make_rules(**kw), moe_ep=False)
+
+
+def _round_trip(arch, mesh, ckpt_dir, rules=None, with_plain=False):
     """A tp-2 state after one step, saved (``gather_state``: rank 0
     writes the whole) and restored into another seed's state on the same
     mesh (``shard_state``): whether every leaf of the params and the
-    moments is back bit for bit, and the leaves compared."""
+    moments is back bit for bit, and the leaves compared.  With
+    ``with_plain`` also rank 0's whole params after the run and their
+    largest gap to the ``mesh=None`` run's, leaf by leaf.  ``rules``:
+    ``make_rules()`` by default."""
     cfg = cfg_of(arch)
-    rules = make_rules()
+    rules = rules or make_rules()
     got = train_run(cfg, 1, mesh, rules)
     root = os.path.join(ckpt_dir, f"x_{arch}")
     CK.AsyncCheckpointer(root).save(got["state"], 1, block=True,
@@ -233,7 +263,15 @@ def _round_trip(arch, mesh, ckpt_dir):
              for (_, a), (_, b) in zip(named_leaves(got["state"][key]),
                                        named_leaves(back[key]))
              if isinstance(a, torch.Tensor)]
-    return at, all(torch.equal(a, b) for a, b in pairs), len(pairs)
+    out = (at, all(torch.equal(a, b) for a, b in pairs), len(pairs))
+    if not with_plain:
+        return out
+    whole = _whole_params(got["state"], got["step"].plan)
+    plain = dict(named_leaves(train_run(cfg, 1)["state"]["params"]))
+    gaps = None if whole is None else {
+        p: float(np.abs(w - plain[p].detach().numpy()).max())
+        for p, w in whole.items()}
+    return out + (whole, gaps)
 
 
 def staged(mesh):
@@ -345,6 +383,10 @@ def four(rank, ref_params, ckpt_dir, x_params):
     out["cli"] = (LT.train(LT.parse_args(argv)).metrics,
                   LT.train(LT.parse_args(argv), m22, make_rules()).metrics)
     out["elastic"] = tuple(elastic_mesh().mesh.shape)
+    for arch in MARCHS:
+        cfg = cfg_of(arch)
+        out["m_dp2xtp2", arch] = compare(train_run(cfg, 1), cfg, 1, m22,
+                                         capacity_rules())
     # the cross-attention and RWKV6 archs at dp 2 x tp 2, and on the
     # reference's weights (its cross gates at XGATE) and batches
     for arch in XARCHS:

@@ -2290,6 +2290,35 @@ def test_cuda_k2_cross_arch_tp2_rank_geometry(cuda_device, dtype, hkv, g,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("qdt,cdt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32)],
+                         ids=["bf16-bf16", "f32-f32"])
+def test_cuda_k1_jamba_tp2_rank_geometry(cuda_device, qdt, cdt):
+    """K1 at one tp-2 rank of jamba_1_5_large's attention sub-block: 32
+    query heads on 4 KV heads (G 8, hd 128), ragged kv_len and an ok = 0
+    block, against its plain version."""
+    _k1_shard(cuda_device, qdt, cdt, hkv=4, g=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_k2_jamba_tp2_rank_geometry(cuda_device, dtype):
+    """K2 at one tp-2 rank of jamba_1_5_large's prefill: 32 query heads
+    on 4 KV heads (G 8, hd 128), L 2048, block 128, model-layout views,
+    against its plain version."""
+    args = _k2_window_inputs(cuda_device, dtype, 8, 128, 128, 2048,
+                             seed=157, hkv=4)
+    kw = dict(block_q=128, block_k=128, causal=True)
+    got = K2.dsa_block_sparse_attention(*args, **kw)
+    want = K2.dsa_block_sparse_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_cuda_k7_rwkv_tp2_rank_geometry(cuda_device, dtype):

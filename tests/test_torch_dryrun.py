@@ -308,13 +308,18 @@ def test_long_500k_is_refused():
 
 @pytest.mark.parametrize("arch", ["deepseek_v3", "jamba_1_5_large"])
 def test_tp_cells_without_a_tp_form_are_refused(arch):
-    """tp > 1 on MLA and Mamba raises naming "Distribution", in training
-    (the plan) and in serving (the engine)."""
+    """MLA and Mamba, which were refused at tp > 1, have a tensor-parallel
+    form: the plan on a (2, 2) mesh takes "model" as tensor parallelism
+    (a rank's half of the heads, and of Mamba's inner channels, whose
+    ``in_proj`` is placed half by half), and tp 2 divides every axis it
+    serves."""
     cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match="Distribution"):
-        TS.make_train_plan(cfg, mesh4(), TS.make_rules())
-    with pytest.raises(NotImplementedError, match="Distribution"):
-        TS.refuse_tp(cfg, 2, "serving", "serve it dp-only")
+    plan = TS.make_train_plan(cfg, mesh4(), TS.make_rules())
+    assert plan.tp.size == 2 and plan.cfg.n_heads == cfg.n_heads // 2
+    halves = {p.rsplit("/", 2)[-2] + "/" + p.rsplit("/", 1)[-1]: d
+              for p, d in plan.halves.items()}
+    assert halves == ({"attn/in_proj": (1,)} if cfg.mamba else {})
+    assert TS.serving_tp_issues(cfg, 2) == []
 
 
 def test_whisper_tp16_cells_refuse_naming_heads(tmp_path):
@@ -333,17 +338,26 @@ def test_whisper_tp16_cells_refuse_naming_heads(tmp_path):
 
 
 def test_main_writes_fail_records_naming_distribution(tmp_path):
-    """``--arch deepseek_v3 --shape decode_32k`` on the 256-rank mesh
-    (tp 16 on MLA) and ``long_500k`` write ``.fail`` records that name
-    "Distribution"; the run exits 1."""
-    for shape in ("decode_32k", "long_500k"):
-        arch = "deepseek_v3" if shape == "decode_32k" else "rwkv6_3b"
-        with pytest.raises(SystemExit) as e:
-            DR.main(["--arch", arch, "--shape", shape, "--out",
-                     str(tmp_path)])
-        assert e.value.code == 1
-        fail = tmp_path / f"{arch}__{shape}__single.json.fail"
-        assert "Distribution" in fail.read_text()
+    """``--arch deepseek_v3 --shape decode_32k`` on the 256-rank mesh (tp
+    16 on MLA, refused before MLA had a tensor-parallel form) writes a
+    record: 8 of the 128 heads a rank, the latent cache whole, and the
+    decode step's all-reduces over "model"; ``long_500k`` writes a
+    ``.fail`` record that names "Distribution" and the run exits 1."""
+    with pytest.raises(SystemExit) as e:
+        DR.main(["--arch", "deepseek_v3", "--shape", "decode_32k", "--out",
+                 str(tmp_path)])
+    assert e.value.code == 0
+    rec = json.loads((tmp_path / "deepseek_v3__decode_32k__single.json")
+                     .read_text())
+    assert rec["rules"] == "make_serving_rules"
+    assert rec["roofline"]["bound_step_time_s"] > 0
+    assert rec["collectives"]["by_op"]["all-reduce"]["count"] > 0
+    with pytest.raises(SystemExit) as e:
+        DR.main(["--arch", "rwkv6_3b", "--shape", "long_500k", "--out",
+                 str(tmp_path)])
+    assert e.value.code == 1
+    fail = tmp_path / "rwkv6_3b__long_500k__single.json.fail"
+    assert "Distribution" in fail.read_text()
 
 
 def test_yi_decode_record_and_kv_weights_at_tp16(tmp_path):

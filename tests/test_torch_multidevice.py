@@ -39,6 +39,7 @@ from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as TS
 from repro_torch.inference.config import ServingConfig
 from repro_torch.launch.mesh import make_serving_mesh, run_spmd
+from repro_torch.models import ssm
 from repro_torch.models.attention import RunFlags
 from repro_torch.models.transformer import (init_cache, init_model,
                                             model_param_specs,
@@ -155,7 +156,7 @@ print(json.dumps(out))
 
 REF = dict(arch="stablelm_3b", kv_arch="yi_6b", key=0, n_new=12, seed=19,
            shapes=[(20, 5), (33, 9), (7, 1), (40, 12), (12, 6), (25, 3)],
-           x_archs=list(S.XARCHS))
+           x_archs=list(S.XARCHS + S.MARCHS))
 
 
 def _gated(tree):
@@ -501,10 +502,28 @@ def test_reference_fault_explicit_axis_serving_mesh(reference_out):
 
 @pytest.mark.parametrize("arch", ["deepseek_v3", "jamba_1_5_large"])
 def test_tp_unsupported_archs_raise(arch):
-    """tp > 1 on MLA and Mamba archs raises NotImplementedError naming
-    "Distribution"."""
-    with pytest.raises(NotImplementedError, match="Distribution"):
-        make_serving_mesh(dp=1, tp=2, cfg=reduced(get_config(arch)))
+    """MLA and Mamba archs have a tensor-parallel form now: at tp 2 no
+    refusal and no indivisible axis, a rank's geometry of half the heads
+    (and, on jamba, half of Mamba's inner channels, with the whole
+    width's dt rank); a tp that does not divide Mamba's inner width or
+    the shared experts' d_ff raises ``ValueError`` naming it."""
+    cfg = reduced(get_config(arch))
+    assert TS.serving_tp_issues(cfg, 2) == []
+    shard = TS.shard_config(cfg, 2)
+    assert shard.n_heads == cfg.n_heads // 2
+    if cfg.mamba is not None:
+        assert ssm.d_inner(shard) * 2 == ssm.d_inner(cfg) == 128
+        assert ssm.dt_rank(shard) == ssm.dt_rank(cfg) == 8
+        bad = dataclasses.replace(cfg, d_model=66, mamba=dataclasses.replace(
+            cfg.mamba, expand=1))
+        want = "Mamba d_inner=66"
+    else:
+        bad = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, d_ff_expert=63))
+        want = "shared experts' d_ff=63"
+    assert len(TS.serving_tp_issues(bad, 4 if cfg.mamba else 2)) == 1
+    with pytest.raises(ValueError, match=want):
+        make_serving_mesh(dp=1, tp=4 if cfg.mamba else 2, cfg=bad)
 
 
 @pytest.mark.parametrize("arch", S.XARCHS)
@@ -513,8 +532,6 @@ def test_tp_cross_and_rwkv_archs_are_accepted(arch):
     refusal, no indivisible axis at tp 2, and a rank's geometry of half
     the heads (RWKV6's d_model / head_dim among them) and half d_ff."""
     cfg = reduced(get_config(arch))
-    assert TS.tp_unsupported(cfg) is None
-    TS.refuse_tp(cfg, 2, "serving", "")
     assert TS.serving_tp_issues(cfg, 2) == []
     shard = TS.shard_config(cfg, 2)
     assert (shard.n_heads, shard.d_ff) == (cfg.n_heads // 2, cfg.d_ff // 2)
@@ -523,8 +540,9 @@ def test_tp_cross_and_rwkv_archs_are_accepted(arch):
 
 
 def test_tp_unsupported_engine_raises(tp):
-    """The engine raises too, on a tp mesh built without a cfg."""
-    assert "Distribution" in tp[0]["jamba_tp"]
+    """The engine serves jamba at tp 2 on a tp mesh built without a cfg
+    (it refused before Mamba had a tensor-parallel form)."""
+    assert tp[0]["jamba_tp"] == 2
 
 
 # -- cross-attention and RWKV6 under tensor parallelism --------------------------
@@ -628,6 +646,81 @@ def test_reference_dp2_tp2_cross_and_rwkv_tokens(dp_tp, reference_out,
     """The port's dp 2 x tp 2 engines on the reference's weights of the
     cross-attention and RWKV6 archs (gates at 0.5, the same second input)
     give the reference's own (2, 2) engine's greedy tokens."""
+    assert reference_out[f"x_tp/{arch}"] == 2
+    np.testing.assert_array_equal(dp_tp[0]["x_reference"][arch],
+                                  np.asarray(reference_out[f"x_gen/{arch}"]))
+
+
+# -- Mamba and multi-head latent attention under tensor parallelism -----------
+
+
+@pytest.mark.parametrize("grid", [(1, 2), (2, 2)], ids=_tp_ids)
+@pytest.mark.parametrize("arch", S.MARCHS)
+def test_tp_mamba_and_mla_generate_equals_unsharded(tp, dp_tp, arch, grid):
+    """jamba_1_5_large (Mamba sub-blocks on a rank's half of the inner
+    channels, its attention on half the heads, MoE) and deepseek_v3 (MLA
+    on half the heads, the latent cache whole; its shared experts' half
+    columns) at tp 2 and dp 2 x tp 2: static generate, greedy and
+    sampled, gives the unsharded tokens."""
+    for greedy, pair in _x_grid(tp, dp_tp, grid, arch).items():
+        np.testing.assert_array_equal(pair[1], pair[0],
+                                      err_msg=f"greedy={greedy}")
+
+
+@pytest.mark.parametrize("arch", S.MARCHS)
+def test_tp_mamba_and_mla_continuous_equals_unsharded(tp, arch):
+    """The continuous engine at tp 2 gives the unsharded engine's tokens,
+    and its resident cache (Mamba's ``h`` and ``conv`` over the inner
+    channels; MLA's ``c_kv`` and ``k_rope`` whole) has the resolved
+    specs' shapes on every rank."""
+    _equal(tp[0]["x", arch]["continuous"])
+    for rank, res in enumerate(tp):
+        got, want = res["x", arch]["layout"]
+        assert got == want, rank
+
+
+@pytest.mark.parametrize("arch", S.MARCHS)
+def test_tp_mamba_and_mla_prefill_logits_and_budget(tp, arch):
+    """The tp-2 prefill's last-row logits within ``X_LOGIT_RTOL`` of the
+    unsharded ones, a rank's weights about half the whole, and one
+    decode step's collectives the budget: 3 all-reduces a Mamba
+    sub-block (``x_proj``, ``out_proj``, its MLP's or MoE's), 2 an
+    attention or MLA one, 1 for the embedding, and one all-gather; a
+    prefill the same."""
+    cfg = reduced(get_config(arch))
+    want = {"jamba_1_5_large": 3 * 7 + 2 + 1,
+            "deepseek_v3": 2 * cfg.n_layers + 1}[arch]
+    for res in tp:
+        x = res["x", arch]
+        assert x["logits"] <= X_LOGIT_RTOL, x["logits"]
+        eng_tp, per_dev, full = x["weights"]
+        assert eng_tp == 2 and per_dev / full <= 0.5 + 0.1, per_dev / full
+        prefill, step, per = x["budget"]
+        assert per == want
+        C.check_tp_decode_collectives(step, cfg.n_layers, 1, per)
+        C.check_tp_decode_collectives(prefill, cfg.n_layers, 1, per)
+
+
+def test_tp_mamba_weights_are_both_halves(tp):
+    """A jamba rank's ``in_proj`` is its channels of both halves [x_r |
+    z_r] (``sharding.Halves``: a plain split would give rank 0 all of x),
+    its ``x_proj`` its rows at the whole width's dt rank (8 + 2 x 8
+    columns), and its ``h`` and ``conv`` caches its 64 of 128
+    channels."""
+    for rank, res in enumerate(tp):
+        w = res["mamba_weights"]
+        assert w["in_proj"], rank
+        assert w["x_proj"] == ((64, 8 + 2 * 8), True), rank
+        assert (w["dt_rank"], w["d_inner"]) == (8, 64)
+        assert w["cache"] == ((2, 64, 8), (2, 3, 64))
+
+
+@pytest.mark.parametrize("arch", S.MARCHS)
+def test_reference_dp2_tp2_mamba_and_mla_tokens(dp_tp, reference_out, arch):
+    """The port's dp 2 x tp 2 engines on the reference's weights of
+    jamba_1_5_large and deepseek_v3 give the reference's own (2, 2)
+    engine's greedy tokens (its GSPMD resharding Mamba's ``xz`` halves
+    and MLA's heads)."""
     assert reference_out[f"x_tp/{arch}"] == 2
     np.testing.assert_array_equal(dp_tp[0]["x_reference"][arch],
                                   np.asarray(reference_out[f"x_gen/{arch}"]))

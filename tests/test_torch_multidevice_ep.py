@@ -119,7 +119,7 @@ print(json.dumps(out))
 """
 
 # two subprocesses, run side by side
-REF_SPLIT = (E.REF_CASES[:3], E.REF_CASES[3:])
+REF_SPLIT = (E.REF_CASES[:4], E.REF_CASES[4:])
 
 
 @pytest.fixture(scope="module")
@@ -287,6 +287,33 @@ def test_checkpoint_under_ep_resumes_elsewhere(two):
                 err_msg=f"{where} {p}")
 
 
+# the gate of each arch beside EP x TP: deepseek_v3 ``REL``; jamba_1_5_large
+# 1e-4, its Mamba gradients' rounding (tests/test_torch_multidevice_train.py,
+# ``M_REL``: measured ~1.5e-5 of ``a_log``'s largest here)
+TP_REL = {"deepseek_v3": REL, "jamba_1_5_large": 1e-4}
+
+
+@pytest.mark.parametrize("arch,case", E.EP_TP_CASES)
+def test_ep_beside_mla_shared_experts_and_mamba_on_1x2(two, arch, case):
+    """EP 2 x TP 2 on (1, 2): deepseek_v3 with sequence parallelism,
+    without it and with remat (the routed experts on the dispatch, the
+    shared experts in the dense MLP's TP form beside it: the sequence
+    gathered, their columns and rows, the sum scattered back; MLA on the
+    rank's heads), jamba_1_5_large with remat (Mamba on the rank's
+    channels, the router term's mean run again by the recompute of a
+    group whose later sub-blocks save tensors): three steps, every
+    leaf's gradient (the shared experts' ``sw1``/``sw3``/``sw2`` among
+    them), the update and the collectives against the budget."""
+    for res in two:
+        r = res[case, arch]
+        assert r["ep"]
+        _check(r, rel=TP_REL[arch])
+        _budget(r)
+        if arch == "deepseek_v3":
+            assert {p.rsplit("/", 1)[-1] for p in r["grads"]} >= {
+                "sw1", "sw3", "sw2"}
+
+
 # -- 4 ranks ------------------------------------------------------------------
 
 
@@ -308,6 +335,28 @@ def _ref_losses(four, reference_out, name):
     assert 0 < dropped < pairs, (dropped, pairs)
     return ([m["loss"] for m in got["metrics"]],
             [m["loss"] for m in reference_out[name]["metrics"]])
+
+
+def test_ep_dp2_tp2_deepseek_shared_experts(four):
+    """deepseek_v3 on EP at dp 2 x tp 2 (FSDP over "data"), the shared
+    experts beside the dispatch, against ``mesh=None``."""
+    for res in four:
+        r = res["dp2xtp2", "deepseek_v3"]
+        assert r["ep"]
+        _check(r)
+        _budget(r)
+
+
+@pytest.mark.parametrize("arch", E.TP_ARCHS)
+def test_reference_dp2_tp2_ep_losses_beside_mla_and_mamba(four,
+                                                          reference_out,
+                                                          arch):
+    """deepseek_v3 (MLA, the shared experts outside the dispatch) and
+    jamba_1_5_large (Mamba) at dp 2 x tp 2 under ``make_rules()`` on the
+    reference's weights, one expert a rank, pairs dropping, the router
+    term on: the reference's own sharded losses over three steps."""
+    got, want = _ref_losses(four, reference_out, f"{arch}_tp")
+    np.testing.assert_allclose(got, want, rtol=TP_REL[arch])
 
 
 def test_reference_dp2_tp2_ep_losses(four, reference_out):

@@ -384,22 +384,28 @@ def test_production_mesh_needs_256_ranks():
 @pytest.mark.parametrize("arch", ["mixtral_8x22b", "deepseek_v3",
                                   "jamba_1_5_large"])
 def test_tp_training_refusals(arch, request):
-    """At tp 2 an MLA (deepseek_v3) and a Mamba (jamba_1_5_large) arch
-    raise naming "Distribution" and their layers; mixtral_8x22b plans
-    there, its MoE layers on the expert-parallel dispatch, whose
-    all-to-alls its budget holds (the plan made in the 2-rank group's
-    (1, 2) mesh)."""
+    """At tp 2 every one of these plans (the 2-rank group's (1, 2)
+    mesh): mixtral_8x22b with its MoE layers on the expert-parallel
+    dispatch, whose all-to-alls its budget holds; an MLA (deepseek_v3)
+    and a Mamba (jamba_1_5_large) arch, which raised naming
+    "Distribution" before they had a tensor-parallel form, with MLA's
+    whole latent leaves summed over "model" a step (``partials``) and
+    no partial leaf on jamba (every Mamba leaf holds the rank's
+    channels)."""
     cfg = reduced(get_config(arch))
+    two = request.getfixturevalue("two")[0]
     if arch == "mixtral_8x22b":
-        plan = request.getfixturevalue("two")[0]["mixtral_tp2_plan"]
+        plan = two["mixtral_tp2_plan"]
         assert plan["ep"] and plan["tp"] == 2
         assert plan["budget"][("all-to-all", "model")] == 4 * cfg.n_layers
         return
-    why = {"deepseek_v3": "latent attention",
-           "jamba_1_5_large": "Mamba"}[arch]
-    with pytest.raises(NotImplementedError, match=f"{why}.*Distribution"):
-        TS.make_train_plan(cfg, _Mesh((1, 2), ("data", "model")),
-                           TS.make_rules())
+    leaves = {p.split("/", 2)[-1] if p.startswith("/prologue") else
+              p.split("/", 3)[-1] for p in two["m_partials", arch]}
+    want = {"deepseek_v3": {f"{s}/attn/{leaf}" for s in ("0", "b0")
+                            for leaf in ("q_a", "q_a_norm", "kv_a",
+                                         "kv_a_norm")},
+            "jamba_1_5_large": set()}[arch]
+    assert leaves == want, leaves
 
 
 def test_tp_training_divisibility():
@@ -728,6 +734,82 @@ def test_reference_dp2_tp2_cross_and_rwkv_losses(four, reference_out, arch):
     got = [m["loss"] for m in four[0]["x_reference", arch]]
     np.testing.assert_allclose(got, reference_out["losses_x/" + arch],
                                rtol=X_REL)
+
+
+# -- Mamba and multi-head latent attention under TP + SP ------------------------
+
+# the gate of each: deepseek_v3 the yi_6b gate ``REL`` (measured ~2e-6 of
+# a leaf's largest gradient); jamba_1_5_large ``X_REL``, predicted 1e-5 and
+# measured ~8e-6 of a leaf's largest gradient (Mamba's ``a_log`` and
+# ``x_proj``): a one-last-bit change of ``x_proj``'s output alone moves the
+# unsharded f32 gradients by up to ~6e-6 of a leaf's largest (the scan's
+# exp(dt a) amplifies it), and the tp run rounds every "model" sum so
+M_REL = {"jamba_1_5_large": X_REL, "deepseek_v3": REL}
+
+
+@pytest.mark.parametrize("case", ["m_tp2", "m_tp2_nosp"])
+@pytest.mark.parametrize("arch", S.MARCHS)
+def test_tp2_mamba_and_mla_equal_mesh_none(two, arch, case):
+    """TP 2 on (1, 2), with sequence parallelism and without, the MoE
+    layers on the capacity path (the expert-parallel dispatch is
+    tests/test_torch_multidevice_ep.py's): jamba_1_5_large (Mamba on the
+    rank's channels, ``x_proj``'s sum and its gradient's over "model")
+    and deepseek_v3 (MLA on the rank's heads, the latent leaves' partial
+    gradients summed; the shared experts' columns and rows): the loss,
+    every leaf's gradient and the params after one update against
+    ``mesh=None``, and the counters against the budget."""
+    for res in two:
+        _check(res[case, arch], M_REL[arch])
+        _budget(res[case, arch]["budget"])
+
+
+@pytest.mark.parametrize("arch", S.MARCHS)
+def test_tp2_sp_mamba_and_mla_budget_with_remat(two, arch):
+    """With the recompute the counters equal the budget: Mamba's
+    ``x_proj`` sum run again (2 + r all-reduces a sub-block), MLA's exit
+    and MSE sum as the attention's."""
+    for res in two:
+        _budget(res["m_remat", arch])
+
+
+@pytest.mark.parametrize("arch", S.MARCHS)
+def test_dp2_tp2_mamba_and_mla_equal_mesh_none(four, arch):
+    """dp 2 x tp 2 (FSDP over "data", the capacity MoE) on jamba and
+    deepseek."""
+    for res in four:
+        _check(res["m_dp2xtp2", arch], M_REL[arch])
+        _budget(res["m_dp2xtp2", arch]["budget"])
+
+
+def test_tp2_jamba_checkpoint_restores_on_one_rank(two, ckpt_dir):
+    """A jamba tp-2 state (``in_proj`` placed half by half) saved whole
+    by rank 0 comes back bit for bit on the same mesh; the file restores
+    at ``mesh=None`` to the whole params the ranks gathered, which lie
+    within the updates' rounding of the ``mesh=None`` run's (a plain
+    split of ``in_proj`` would have swapped its halves' columns), and
+    the reference's reader reads it to the same values."""
+    at, same, n, whole, gaps = two[0]["m_ckpt"]
+    assert at == 1 and same and n > 0
+    bad = {p: g for p, g in gaps.items() if g > 3 * 2 * S.OPT.lr}
+    assert not bad, bad
+    path = os.path.join(ckpt_dir, "x_jamba_1_5_large", "ckpt_1")
+    port, _ = TST.init_train_state(1, reduced(get_config(
+        "jamba_1_5_large")), TA.OptConfig(), device="cpu")
+    mine, step = TC.restore(path, port, "cpu")
+    assert step == 1
+    for p, t in named_leaves(mine["params"]):
+        np.testing.assert_array_equal(t.detach().numpy(), whole[p],
+                                      err_msg=p)
+    jc = ref_reduced(ref_get_config("jamba_1_5_large"))
+    like, _ = JST.init_train_state(jax.random.PRNGKey(1), jc,
+                                   JA.OptConfig())
+    tree, rstep = JC.restore(path, like)
+    assert rstep == 1
+    want = dict(named_leaves(convert.to_reference(mine["params"])))
+    got = dict(named_leaves(jax.tree.map(np.asarray, tree["params"])))
+    assert set(got) == set(want)
+    for p, a in got.items():
+        np.testing.assert_array_equal(a, want[p], err_msg=p)
 
 
 # -- 1 rank -------------------------------------------------------------------
